@@ -1,0 +1,169 @@
+"""Build, load and call the hand-written Hopper kernels in `../csrc/`.
+
+The CUDA sources have a plain C interface. They are compiled with `nvcc`
+into one shared library at first use and loaded with `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libstswin_kernels_<hash>.so csrc/*.cu
+
+The file name carries a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is loaded as it is. Nothing here runs at
+import time: a machine without `nvcc` or a GPU imports the package, and
+only a call that launches a kernel needs them.
+
+Each C entry launches on the stream it is given (the caller passes
+`torch.cuda.current_stream()`), allocates nothing and returns
+`cudaGetLastError()`; `launch` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry name -> argument types (pointers, then ints/floats, then stream)
+SIGNATURES = {
+    "stswin_block_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
+    "stswin_block_epilogue": [_P] * 14 + [_I] * 7 + [_F, _P],
+    "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "stswin_upsample_argmax": [_P] * 4 + [_I] * 7 + [_P],
+}
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the last nvcc run in this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
+                       "on a machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libstswin_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library unless it already exists.
+    `verbose` adds `-Xptxas -v` (registers, shared memory, spills per
+    kernel) and prints the compiler's output."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-I", str(CSRC), "-o", tmp, *sources]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    if verbose:
+        print(res.stdout + res.stderr)
+    return so
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build(verbose)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def use_kernels(flag: bool | None, x: torch.Tensor) -> bool:
+    """A model's `kernels` argument: None means "the kernels iff x is on
+    CUDA"; True or False forces the kernel or the plain route."""
+    return x.is_cuda if flag is None else flag
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry `name` on the current CUDA stream of `device`; raise on
+    a CUDA error reported by the launch. The library's own CUDA runtime
+    launches on its current device, device 0: the kernels serve one card."""
+    require(device.index in (None, 0),
+            f"{name}: the kernels run on cuda:0, got {device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(load(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """K1-K3 run in the serving dtype only."""
+    for t in tensors:
+        if t.dtype == torch.float32:
+            raise NotImplementedError(
+                f"{name}: the CUDA kernel takes bfloat16 activations and "
+                "weights; float32 runs the plain twin on the CPU")
+        require(t.dtype == torch.bfloat16, f"{name}: dtype {t.dtype}")
+
+
+def require_f32(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        require(t.dtype == torch.float32 and t.is_contiguous(),
+                f"{name}: expected a contiguous float32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)}")
+
+
+def require_on(device: torch.device, name: str, *tensors) -> None:
+    for t in tensors:
+        if t is None:
+            continue
+        require(t.device == device, f"{name}: tensor on {t.device}, "
+                f"expected {device}")
+        require(t.is_contiguous(), f"{name}: non-contiguous input "
+                f"{tuple(t.shape)}")
