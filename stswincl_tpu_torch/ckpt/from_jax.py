@@ -11,6 +11,10 @@ parameter names, which follow the JAX tree paths:
   params/<path>/bias                -> <path>.bias
   params/<path>/relative_position_bias_table -> same name
   batch_stats/<path>/mean, var      -> <path>.running_mean, running_var
+
+`jax_path` and `to_jax_layout` run the map backwards (port name -> JAX
+tree path and layout), so gradients, updated parameters and batch
+statistics of the two packages compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -30,6 +34,34 @@ _LEAF = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+
+
+_PORT_LEAF = {"bias": "bias",
+              "relative_position_bias_table": "relative_position_bias_table",
+              "running_mean": "mean", "running_var": "var"}
+
+
+def jax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
+    """Port parameter / buffer name (and its rank) -> (collection, JAX tree
+    path): `a.b.weight` of rank 2 or 4 -> ("params", ("a", "b", "kernel")),
+    of rank 1 -> (..., "scale"); running stats -> "batch_stats"."""
+    *mod, leaf = name.split(".")
+    if leaf == "weight":
+        jleaf = "kernel" if ndim in (2, 4) else "scale"
+    else:
+        jleaf = _PORT_LEAF[leaf]
+    coll = "batch_stats" if leaf.startswith("running_") else "params"
+    return coll, tuple(mod) + (jleaf,)
+
+
+def to_jax_layout(name: str, arr: np.ndarray) -> np.ndarray:
+    """A port tensor (as numpy) in the JAX leaf's layout: OIHW -> HWIO,
+    (out, in) -> (in, out); everything else unchanged."""
+    if name.endswith(".weight") and arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
+    if name.endswith(".weight") and arr.ndim == 2:
+        return arr.T
+    return arr
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()):

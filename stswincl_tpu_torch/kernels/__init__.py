@@ -40,7 +40,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry name -> argument types (pointers, then ints/floats, then stream)
 SIGNATURES = {
     "stswin_block_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
-    "stswin_block_epilogue": [_P] * 14 + [_I] * 7 + [_F, _P],
+    "stswin_block_attention_bwd": [_P] * 16 + [_I] * 7 + [_F, _I, _I, _P],
+    "stswin_block_epilogue": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_upsample_argmax": [_P] * 4 + [_I] * 7 + [_P],
 }
@@ -125,6 +127,13 @@ def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def needs_grad(*tensors) -> bool:
+    """True when autograd will ask for a gradient of one of `tensors`:
+    the wrappers then go through their autograd Function."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry `name` on the current CUDA stream of `device`; raise on
     a CUDA error reported by the launch. The library's own CUDA runtime
@@ -143,7 +152,7 @@ def require(cond: bool, msg: str) -> None:
 
 
 def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """K1-K3 run in the serving dtype only."""
+    """The kernels compute in bfloat16 only."""
     for t in tensors:
         if t.dtype == torch.float32:
             raise NotImplementedError(

@@ -2,9 +2,12 @@
 
 Each holder keeps its parameters in fp32 under the names that
 `ckpt/from_jax.py` maps the JAX tree onto (`weight`, `bias`, ...), and
-hands out working copies cast to the compute dtype. A working copy is cast
-once and reused until the parameter is replaced or written in place (a
-`load_state_dict`, a `.to(device)`), so a forward pass casts nothing.
+hands out working copies cast to the compute dtype. Where autograd will
+want the parameter's gradient, the working copy is a cast in the graph,
+made anew each call, so the gradient reaches the fp32 parameter.
+Otherwise (serving) it is cast once and reused until the parameter is
+replaced or written in place (a `load_state_dict`, a `.to(device)`, an
+optimizer step), so a forward pass casts nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ class CastCache(nn.Module):
 
     def working(self, name: str, key, make):
         p = getattr(self, name)
+        if torch.is_grad_enabled() and p.requires_grad:
+            return make(p)
         stamp = (key, p.device, p.data_ptr(), p._version)
         hit = self._working.get((name, key))
         if hit is None or hit[0] != stamp:

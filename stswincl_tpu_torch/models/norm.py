@@ -1,8 +1,18 @@
-"""BatchNorm in eval mode, with the JAX package's constants.
+"""BatchNorm with the JAX package's constants and flax's semantics.
 
 Counterpart of `stswincl_tpu/models/norm.py` and of flax's
-`nn.BatchNorm(use_running_average=True, dtype=float32)`: the port serves,
-so it keeps running statistics and never updates them.
+`nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)` (flax 0.12.3,
+`_compute_stats` / `_normalize`). The mode follows `module.train()` /
+`.eval()`:
+
+  * eval: the running statistics normalise (`use_running_average=True`);
+  * train: the batch statistics over every axis but the channel one, in
+    fp32, the variance as E[x^2] - E[x]^2 clipped at 0 (biased), normalise
+    the output, and the running statistics move by
+    `ra = 0.9 * ra + 0.1 * batch` with that biased variance.
+
+`F.batch_norm` cannot stand in: it updates the running variance with the
+unbiased estimate.
 """
 
 from __future__ import annotations
@@ -11,11 +21,12 @@ import torch
 import torch.nn as nn
 
 BN_EPSILON = 1e-5
+BN_MOMENTUM = 0.9  # flax convention: ra = momentum * ra + (1 - momentum) * batch
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis of an NHWC tensor,
-    in fp32: (x - mean) * (rsqrt(var + eps) * scale) + bias, flax's order.
+    """BatchNorm over the last (channel) axis of an NHWC tensor, in fp32:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, flax's order.
     Returns fp32; callers cast back to their compute dtype."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON):
@@ -27,5 +38,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean.detach(), alpha=1.0 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var.detach(), alpha=1.0 - BN_MOMENTUM)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias

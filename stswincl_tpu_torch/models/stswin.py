@@ -1,4 +1,4 @@
-"""TswinPlus, the STswin segmentation network, in eval mode.
+"""TswinPlus, the STswin segmentation network.
 
 Counterpart of `stswincl_tpu/models/stswin.py` (`ProjectBNRelu`,
 `Classifier`, `TswinPlus`):
@@ -11,7 +11,9 @@ Counterpart of `stswincl_tpu/models/stswin.py` (`ProjectBNRelu`,
          -> classifier -> logits.
 
 `backbone` and `head` split the forward where `StreamingSegmenter` caches
-(the JAX package's `_Backbone` / `_Head`).
+(the JAX package's `_Backbone` / `_Head`). `model.train()` switches every
+BatchNorm to batch statistics (`models/norm.py`); the training loss reads
+`forward(x, channels_first_logits=True)`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from stswincl_tpu_torch.models.layers import Conv
 from stswincl_tpu_torch.models.norm import BatchNorm
 from stswincl_tpu_torch.models.resnet import ResNet18OS8
 from stswincl_tpu_torch.models.swin import SwinTemporalStack
-from stswincl_tpu_torch.ops.resize import resize_bilinear
+from stswincl_tpu_torch.ops.resize import (resize_bilinear,
+                                           resize_bilinear_cf_matmul)
 
 
 class ProjectBNRelu(nn.Module):
@@ -63,7 +66,9 @@ class Classifier(nn.Module):
 class TswinPlus(nn.Module):
     """Input (B, 4, H, W, 3) clip, NHWC frames; output (B, H, W, classes)
     fp32 logits of the last frame, or with `head_res_logits` the raw
-    (B, classes, H/8, W/8) fp32 logits.
+    (B, classes, H/8, W/8) fp32 logits, or with `channels_first_logits`
+    (the training loss's layout) (B, classes, H, W) fp32 logits upsampled
+    by two interpolation-matrix products.
 
     Parameters stay fp32; the model computes in `dtype` (bf16 to serve).
     `input_hw` fixes the feature resolution the swin windows are built for
@@ -122,11 +127,13 @@ class TswinPlus(nn.Module):
             return lcf, g_new
         return lcf
 
-    def forward(self, x: torch.Tensor,
-                head_res_logits: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, head_res_logits: bool = False,
+                channels_first_logits: bool = False) -> torch.Tensor:
         B, T, H, W, C = x.shape
         feats = self.backbone(x.reshape(B * T, H, W, C))
         lcf = self.head(feats.reshape(B, T, *feats.shape[1:]))
         if head_res_logits:
             return lcf
+        if channels_first_logits:
+            return resize_bilinear_cf_matmul(lcf, H, W)
         return resize_bilinear(lcf.permute(0, 2, 3, 1), H, W)

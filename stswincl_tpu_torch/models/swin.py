@@ -13,6 +13,12 @@ with the same shift reads it back. Two quirks of the reference are kept:
 
 `kernels` (None: iff the input is on CUDA) chooses the CUDA kernels or
 their plain twins. Tensors keep the JAX layout (B, T, H, W, C).
+
+Training: on the kernel route the wrappers take the fp32 parameters
+themselves and go through their autograd Functions (K1/K5, K2/K6, K3),
+which return fp32 weight gradients from fp32 accumulators; on the plain
+route autograd runs through the twins, with the bf16 working copies cast
+in the graph (`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -57,6 +63,17 @@ class WindowAttention(CastCache):
             b = table[self.rel_index].reshape(N, N, self.num_heads)
             return b.permute(2, 0, 1).float().repeat(1, T, T).contiguous()
         return self.working("relative_position_bias_table", T, make)
+
+
+def _weights_for(kern: bool, dtype: torch.dtype):
+    """Dense -> the weight a block hands its op: the fp32 parameter to a
+    kernel wrapper that autograd will differentiate (its Function casts
+    and returns an fp32 gradient), else the working copy in `dtype`."""
+    def weight(dense: Dense) -> torch.Tensor:
+        if kern and torch.is_grad_enabled() and dense.weight.requires_grad:
+            return dense.weight
+        return dense.weight_as(dtype)
+    return weight
 
 
 class SpaceTimeSwinBlock(nn.Module):
@@ -108,9 +125,10 @@ class SpaceTimeSwinBlock(nn.Module):
         kern = use_kernels(self.kernels, x)
         attn = swin_block_attention if kern else swin_block_attention_ref
         epi = swin_block_epilogue if kern else swin_block_epilogue_ref
+        w = _weights_for(kern, dt)
         a, mlp = self.attn, self.mlp
         x = x.to(dt).contiguous()
-        y = attn(x, a.qkv.weight_as(dt), a.qkv.bias, a.proj.weight_as(dt),
+        y = attn(x, w(a.qkv), a.qkv.bias, w(a.proj),
                  a.proj.bias, a.bias_tiled(T), self._mask(T, x.device),
                  self.num_heads, self.scale, ws, ss)
         if out_frame is not None:
@@ -119,8 +137,8 @@ class SpaceTimeSwinBlock(nn.Module):
             x = x[:, out_frame:out_frame + 1].contiguous()
             y = y[:, out_frame:out_frame + 1].contiguous()
         return epi(x, y, self.norm2.weight, self.norm2.bias,
-                   mlp.fc1.weight_as(dt), mlp.fc1.bias,
-                   mlp.fc2.weight_as(dt), mlp.fc2.bias, self.norm1.weight,
+                   w(mlp.fc1), mlp.fc1.bias,
+                   w(mlp.fc2), mlp.fc2.bias, self.norm1.weight,
                    self.norm1.bias, gelu_exact=self.gelu_exact, shift=ss,
                    ws=ws)
 
@@ -138,9 +156,10 @@ class PatchMerging(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, C = x.shape
-        fn = patch_merge if use_kernels(self.kernels, x) else patch_merge_ref
+        kern = use_kernels(self.kernels, x)
+        fn = patch_merge if kern else patch_merge_ref
         out = fn(x.to(self.dtype).reshape(B * T, H, W, C), self.norm.weight,
-                 self.norm.bias, self.reduction.weight_as(self.dtype))
+                 self.norm.bias, _weights_for(kern, self.dtype)(self.reduction))
         return out.reshape(B, T, H // 2, W // 2, 2 * C)
 
 

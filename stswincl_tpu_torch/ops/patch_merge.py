@@ -5,7 +5,14 @@ Counterpart of `fused_patch_merge` and `patch_merge_ref` in
 `stswincl_tpu/ops/pallas_patch_merge.py`. `patch_merge` launches the CUDA
 kernel in `csrc/patch_merge.cu` on a CUDA tensor and runs the plain twin
 `patch_merge_ref` on a CPU tensor. Chunks keep the reference order
-[x0 | x1 | x2 | x3]; w uses the torch Linear layout (2C, 4C).
+[x0 | x1 | x2 | x3]; w uses the torch Linear layout (2C, 4C), in any float
+dtype (cast to x's dtype for the product).
+
+When autograd needs a gradient the call goes through `PatchMergeFn`: K3
+forward, and as backward autograd of `patch_merge_ref` on the saved
+inputs, as the JAX package's `_fpm_bwd` (`pallas_patch_merge.py:158`)
+takes the vjp of its reference: the TPU has no patch-merge backward
+kernel, so neither does the port.
 """
 
 from __future__ import annotations
@@ -34,8 +41,15 @@ def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
 def patch_merge(x, scale, bias, w, eps: float = 1e-5):
     """x: (BT, H, W, C) -> (BT, H/2, W/2, 2C); scale/bias: (4C,) fp32;
     w: (2C, 4C)."""
+    if kernels.needs_grad(x, scale, bias, w):
+        return PatchMergeFn.apply(x, scale, bias, w, eps)
+    w = w.to(x.dtype)
     if x.device.type == "cpu":
         return patch_merge_ref(x, scale, bias, w, eps)
+    return _forward_kernel(x, scale, bias, w, eps)
+
+
+def _forward_kernel(x, scale, bias, w, eps):
     name = "patch_merge"
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     kernels.require(x.dim() == 4, f"{name}: x must be (BT, H, W, C)")
@@ -61,3 +75,26 @@ def patch_merge(x, scale, bias, w, eps: float = 1e-5):
 
 
 patch_merge.launches = 0
+
+
+class PatchMergeFn(torch.autograd.Function):
+    """K3 forward (the twin on the CPU); backward by autograd of the twin
+    on the saved inputs, the gradient of w in w's own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, bias, w)
+        wc = w.to(x.dtype)
+        if x.device.type == "cpu":
+            return patch_merge_ref(x, scale, bias, wc, eps)
+        return _forward_kernel(x, scale, bias, wc, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, scale, bias, w = leaves
+            out = patch_merge_ref(x, scale, bias, w.to(x.dtype), ctx.eps)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)

@@ -1,8 +1,9 @@
-"""Bilinear resizes of the eval protocol (plain PyTorch).
+"""Bilinear resizes of the eval protocol and of training (plain PyTorch).
 
-Counterpart of `stswincl_tpu/ops/resize.py`: the interpolation-matrix
-builders, the composed model-upsample x eval-resize + argmax, and
-`resize_bilinear` (the heads' upsample, torch align_corners=False).
+Counterpart of `stswincl_tpu/ops/resize.py`: the interpolation matrices,
+the composed model-upsample x eval-resize + argmax,
+`resize_bilinear` (the heads' upsample, torch align_corners=False) and
+`resize_bilinear_cf_matmul` (the training logits' upsample).
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(out_h, out_w),
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def resize_bilinear_cf_matmul(x_cf: torch.Tensor, out_h: int,
+                              out_w: int) -> torch.Tensor:
+    """Half-pixel bilinear resize of channels-first (..., C, H, W) maps as
+    two interpolation-matrix products (`resize_bilinear_cf_matmul` of the
+    JAX package), so forward and backward are matrix products; fp32
+    inside, cast back to x's dtype."""
+    *lead, H, W = x_cf.shape
+    if (H, W) == (out_h, out_w):
+        return x_cf
+    mh, mw = _device_matrices(H, W, (out_h, out_w), (out_h, out_w), False,
+                              False, x_cf.device)
+    y = mh @ x_cf.float().reshape(-1, H, W)
+    y = y @ mw.t()
+    return y.reshape(*lead, out_h, out_w).to(x_cf.dtype)
 
 
 def _interp_matrix(src: torch.Tensor, in_size: int) -> torch.Tensor:

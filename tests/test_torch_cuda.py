@@ -8,7 +8,9 @@ card. On the machine with the card (which has no JAX, while
 
 Shapes are small but within what the kernels take (C a multiple of 128);
 their row counts are not multiples of the GEMM's 128-row tile, so the
-ragged edges run too.
+ragged edges run too. The backward kernels (K5, K6) are held against
+autograd of their twins at mid sizes that keep the stage-1 and stage-2
+window shapes (TN 128 / hd 64, TN 32 / hd 128).
 """
 
 import pytest
@@ -39,8 +41,9 @@ def gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
-def _close(got, want):
-    assert got.shape == want.shape and got.dtype == want.dtype
+def _close(got, want, same_dtype=True):
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype or not same_dtype
     rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
     assert rel <= TOL, rel
 
@@ -113,6 +116,92 @@ def test_upsample_argmax_kernel(dev, gen, exact):
     ties = torch.cat([x[:, 1:2] - 1.0, x[:, 1:2], x[:, 1:2]], dim=1)
     assert (upsample_argmax.upsample_argmax(ties.contiguous(), mh, mw,
                                             exact) == 1).all()
+
+
+BWD_CASES = {  # (T, H, W, C, heads, ws): stage-1-like and stage-2-like
+    "s1": (2, 16, 24, 128, 2, 8),
+    "s2": (2, 8, 12, 256, 2, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_block_attention_bwd_kernel(dev, gen, case, shifted):
+    """K1 + K5 through the autograd Function (fp32 weights, as the model
+    hands them) against autograd of the twin on the bf16 weights."""
+    T, H, W, C, heads, ws = BWD_CASES[case]
+    args = _attn_args(dev, gen, ws // 2 if shifted else 0, B=2, T=T, H=H,
+                      W=W, C=C, heads=heads, ws=ws)
+    args[1], args[3] = args[1].float(), args[3].float()
+    leaves = [a.detach().requires_grad_() for a in args[:6]]
+    n_fwd = block_attention.swin_block_attention.launches
+    n_bwd = block_attention.swin_block_attention_bwd.launches
+    out = block_attention.swin_block_attention(*leaves, *args[6:])
+    g = torch.randn(out.shape, generator=gen, device=dev).to(BF)
+    got = torch.autograd.grad(out, leaves, g)
+    assert block_attention.swin_block_attention.launches == n_fwd + 1
+    assert block_attention.swin_block_attention_bwd.launches == n_bwd + 1
+    twin_args = [args[0], args[1].to(BF), args[2], args[3].to(BF)] + args[4:]
+    want = block_attention.swin_block_attention_bwd_ref(
+        *twin_args[:7], g, *twin_args[7:])
+    for a, gr, w in zip(args, got, want):
+        assert gr.dtype == a.dtype
+        _close(gr, w, same_dtype=False)
+
+
+def _epi_case(dev, gen, T, C, shift, ws):
+    p = _epi_params(dev, gen, C=C, hidden=4 * C)
+    x, y, g = (torch.randn((2, T, 8, 12, C), generator=gen, device=dev).to(BF)
+               for _ in range(3))
+    return p, x, y, g, dict(gelu_exact=True, shift=shift, ws=ws)
+
+
+@pytest.mark.parametrize("shift,T", [(0, 2), (2, 2), (2, 1)])
+@pytest.mark.parametrize("C", [128, 256])
+def test_epilogue_bwd_kernel(dev, gen, shift, T, C):
+    """K2 + K6 through the autograd Function (fp32 weights) against
+    autograd of the twin; C 128 recomputes m, C 256 takes it saved
+    (through the wrapper, at sizes the Function would recompute)."""
+    p, x, y, g, kw = _epi_case(dev, gen, T, C, shift, 4)
+    p[2], p[4] = p[2].float(), p[4].float()
+    leaves = [t.detach().requires_grad_() for t in [x, y] + p]
+    n = add_ln_mlp.swin_block_epilogue_bwd.launches
+    out = add_ln_mlp.swin_block_epilogue(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, g)
+    assert add_ln_mlp.swin_block_epilogue_bwd.launches == n + 1
+    tw = [x, y] + p[:2] + [p[2].to(BF), p[3], p[4].to(BF)] + p[5:]
+    want = add_ln_mlp.swin_block_epilogue_bwd_ref(*tw, g, **kw)
+    for a, gr, w in zip([x, y] + p, got, want):
+        assert gr.dtype == a.dtype
+        _close(gr, w, same_dtype=False)
+    if C == 256:
+        out_m, m = add_ln_mlp._forward_kernel(*tw, **kw, eps=1e-5,
+                                              with_m=True)
+        want_out, want_m = add_ln_mlp.swin_block_epilogue_with_m_ref(*tw,
+                                                                     **kw)
+        _close(out_m, want_out)
+        _close(m, want_m)
+        got_m = add_ln_mlp.swin_block_epilogue_bwd(
+            x, y, g, m, *tw[2:9], **kw)
+        for gr, w in zip(got_m, want):
+            _close(gr, w, same_dtype=False)
+
+
+def test_backward_rejects_unsupported_shapes(dev, gen):
+    """K5 refuses a window whose backward does not fit shared memory
+    (TN 128 x hd 256), K6 a width its row kernels have no variant for."""
+    x = torch.zeros((1, 2, 8, 8, 512), device=dev, dtype=BF)
+    w = torch.zeros((1536, 512), device=dev, dtype=BF)
+    bias = torch.zeros((2, 128, 128), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_attention.swin_block_attention_bwd(
+            x, x, torch.zeros((128, 1536), device=dev, dtype=BF),
+            torch.zeros((128, 512), device=dev, dtype=BF), w,
+            w[:512], bias, None, 2, 0.1, 8, 0)
+    p = _epi_params(dev, gen, C=384, hidden=1536)
+    xe = torch.zeros((4, 384), device=dev, dtype=BF)
+    with pytest.raises(ValueError, match="C must be"):
+        add_ln_mlp.swin_block_epilogue_bwd(xe, xe, xe, None, *p[:7])
 
 
 def test_fp32_activations_are_refused(dev, gen):
