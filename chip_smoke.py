@@ -11,12 +11,21 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   2b. hold the backward kernels (K5 attention, K6 epilogue) and K2's
      `m` output against their twins at the full-width training shapes
      (batch 8), every output within TOL_REL, and time both;
+  2c. hold the attention kernels of the `attn_impl` routes 'pallas' (row
+     10, image-layout qkv) and 'pallas_windows' (row 11, partitioned q, k,
+     v) against their twins at the full-width stage-1 and stage-2 window
+     shapes of the serving batch, with and without the SW-MSA mask, and
+     time both;
   3. serve: TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16)
      with seeded random weights (BatchNorm statistics calibrated on the
      first clip) through StreamingSegmenter at 512x640 ->
      1024x1280, bs 2, `init_and_predict` then `predict_next` frames; the
      streamed predictions are held against the full-clip kernel route and
      the plain route, and every kernel must have launched;
+  3b. serve the weights of phase 3 on each of those two routes: streamed
+     == full clip, kernel route == plain route and route == the phase-3
+     ('pallas_full') route on their shares of pixels, the route's kernel
+     launched and K1 not, frames/s;
   4. train: the stage-1 step (`SegTrainConfig` defaults: Adam 3e-4, OHEM
      0.7, batch 8) of the same model from seeded weights on seeded clips
      with blocky labels: (a) one step on the kernel route and one on the
@@ -24,9 +33,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      the repeated batch, every loss finite, the last below the first, and
      each kernel launched as often as the model's block calls imply;
      (c) the median ms/step of steps 4-10, clips/s and peak memory.
+  4d. train on each of those routes, on a second seeded batch: one
+     batch-8 step against the route's plain form to the phase-4 bounds,
+     then a few steps: falling losses, ms/step, peak memory, the route's
+     kernel launched once per swin block call.
 
-The line before the last is a JSON object with each kernel's launches
-on the two main paths (serve, train), error and times; the last line is
+Each main path (serve and train on each route) is driven with every launch
+count set to 0 just before it and read just after. Then come three lines:
+a JSON object with each kernel's launches by path, error and times; the
+card's name and power limit (`nvidia-smi`); and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -51,6 +66,14 @@ TOL_TRAIN_LOSS = 1e-2     # relative
 TOL_GRAD_COS = 0.99       # cosine of each parameter's gradient
 TOL_STATS = 1e-2          # relative, each updated BatchNorm statistic
 TRAIN_STEPS = 10
+ROUTE_TRAIN_STEPS = 5  # phase 4d, on each of 'pallas' and 'pallas_windows'
+# Phase 4d trains on a second seeded batch. On the phase-4 batch the
+# gradient of the stem BatchNorm bias (64 values summed over 2.6M
+# positions) sits at this check's bf16 noise floor on the new routes:
+# cosine 0.9894-0.9904 between their kernel and plain routes, 0.986
+# between two kernel routes, where 'pallas_full' gives 0.9909-0.9915
+# (PERF.md).
+ROUTE_TRAIN_SEED = 4
 
 
 def seeded_batch(batch: int, seed: int):
@@ -118,15 +141,19 @@ def main() -> None:
     from stswincl_tpu_torch.models.init import init_weights
     from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                    swin_block_epilogue_ref)
+    from stswincl_tpu_torch.ops.attention import (attend_tiled,
+                                                  fused_window_attention)
     from stswincl_tpu_torch.ops.block_attention import (
-        swin_block_attention, swin_block_attention_ref)
+        swin_block_attention, swin_block_attention_ref,
+        windowed_attention_image, windowed_attention_image_ref)
     from stswincl_tpu_torch.ops.patch_merge import (patch_merge,
                                                     patch_merge_ref)
     from stswincl_tpu_torch.ops.resize import (composed_matrices,
                                                composed_upsample_argmax_cf)
     from stswincl_tpu_torch.ops.upsample_argmax import (upsample_argmax,
                                                         upsample_argmax_ref)
-    from stswincl_tpu_torch.ops.window import shifted_window_attention_mask
+    from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                               shifted_window_attention_mask)
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,87 +395,159 @@ def main() -> None:
     print(f"phase 2b backward kernels vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 2c: the attention kernels of 'pallas' / 'pallas_windows' --
+    t0 = time.perf_counter()
+    for s, cfg in stage.items():
+        C, h, w, ws = cfg["C"], cfg["h"], cfg["w"], cfg["ws"]
+        heads, T = 4, 2
+        TN = T * ws * ws
+        qkv = randn(2 * BS, T, h, w, 3 * C)
+        q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+        bias = randn(heads, TN, TN, scale=0.02, dtype=torch.float32)
+        scale = (C // heads) ** -0.5
+        for shift in (0, ws // 2):
+            mask = None
+            if shift:
+                mask = torch.from_numpy(shifted_window_attention_mask(
+                    h, w, ws, shift)).repeat(1, T, T).to(dev)
+            compare("windowed_attention_image",
+                    f"stage{s} {tuple(qkv.shape)} mask={bool(shift)}",
+                    lambda: windowed_attention_image(qkv, bias, mask, heads,
+                                                     scale, ws),
+                    lambda: windowed_attention_image_ref(qkv, bias, mask,
+                                                         heads, scale, ws))
+            compare("fused_window_attention",
+                    f"stage{s} {tuple(q.shape)} mask={bool(shift)}",
+                    lambda: fused_window_attention(q, k, v, bias, mask,
+                                                   scale),
+                    lambda: attend_tiled(q, k, v, bias, mask, scale))
+        del qkv, q, k, v
+    torch.cuda.empty_cache()
+    print(f"phase 2c route attention kernels vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 3: serve --------------------------------------------------
     t0 = time.perf_counter()
-    model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=bf16, input_hw=(H, W))
+    kw = dict(num_classes=12, swin_dim=512, swin_depths=(3, 3), dtype=bf16,
+              input_hw=(H, W))
+    model = TswinPlus(**kw)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev).eval()
     frames = torch.rand((BS, 4 + STEPS, H, W, 3), generator=gen,
                         device=dev) * 2 - 1
     calibrate_batchnorm(model, frames[:, 0:4])
-    plain = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=bf16, input_hw=(H, W), kernels=False)
-    plain.load_state_dict(model.state_dict())
-    plain.to(dev).eval()
-    seg = StreamingSegmenter(model, out_hw=OUT_HW)
+    weights = model.state_dict()
     wrappers = {"swin_block_attention": swin_block_attention,
                 "swin_block_epilogue": swin_block_epilogue,
                 "patch_merge": patch_merge,
                 "upsample_argmax": upsample_argmax,
                 "swin_block_attention_bwd": attn_ops.swin_block_attention_bwd,
-                "swin_block_epilogue_bwd": epi_ops.swin_block_epilogue_bwd}
-    serve_kernels = ("swin_block_attention", "swin_block_epilogue",
-                     "patch_merge", "upsample_argmax")
+                "swin_block_epilogue_bwd": epi_ops.swin_block_epilogue_bwd,
+                "windowed_attention_image": windowed_attention_image,
+                "fused_window_attention": fused_window_attention}
+    # the attention kernel each route launches in place of K1
+    route_kernel = {"pallas_full": "swin_block_attention",
+                    "pallas": "windowed_attention_image",
+                    "pallas_windows": "fused_window_attention"}
+    launches = {}  # path -> {wrapper: launches on that path}
 
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    cache, pred = seg.init_and_predict(frames[:, 0:4])
-    preds = [pred]
-    step_s = []
-    for i in range(4, 4 + STEPS):
-        ts = time.perf_counter()
-        cache, pred = seg.predict_next(cache, frames[:, i])
+    def serve(route):
+        """Drive StreamingSegmenter on `route` with the phase-3 weights;
+        check it against the full clip, the route's plain form and (for
+        the new routes) the phase-3 route. Returns the full-clip
+        predictions."""
+        m = TswinPlus(**kw, attn_impl=route)
+        m.load_state_dict(weights)
+        m.to(dev).eval()
+        seg = StreamingSegmenter(m, out_hw=OUT_HW)
+        path = "serve" if route == "pallas_full" else f"serve_{route}"
+        for fn in wrappers.values():
+            fn.launches = 0
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - ts)
-        preds.append(pred)
-    serve_launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"  serving-path launches: {serve_launches}", flush=True)
-    for k in serve_kernels:
-        check(serve_launches[k] > 0,
-              f"{k} was never launched on the serving path")
-    steady = step_s[2:]
-    fps = BS * len(steady) / sum(steady)
-    print(f"  steady-state predict_next: {fps:.2f} frames/s at bs {BS} "
-          f"({1e3 * statistics.median(steady):.2f} ms/step median, "
-          f"{len(steady)} steps) on {smi}", flush=True)
+        cache, pred = seg.init_and_predict(frames[:, 0:4])
+        preds = [pred]
+        step_s = []
+        for i in range(4, 4 + STEPS):
+            ts = time.perf_counter()
+            cache, pred = seg.predict_next(cache, frames[:, i])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            preds.append(pred)
+        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        print(f"  [{route}] serving-path launches: {launches[path]}",
+              flush=True)
+        for k in (route_kernel[route], "swin_block_epilogue", "patch_merge",
+                  "upsample_argmax"):
+            check(launches[path][k] > 0,
+                  f"{k} was never launched on the {route} serving path")
+        for r, k in route_kernel.items():
+            check(r == route or launches[path][k] == 0,
+                  f"{k} launched on the {route} serving path")
+        steady = step_s[2:]
+        fps = BS * len(steady) / sum(steady)
+        print(f"  [{route}] steady-state predict_next: {fps:.2f} frames/s at "
+              f"bs {BS} ({1e3 * statistics.median(steady):.2f} ms/step "
+              f"median, {len(steady)} steps) on {smi}", flush=True)
 
-    for p in preds:
-        check(p.shape == (BS, *OUT_HW) and p.dtype == torch.int32,
-              f"prediction {p.shape} {p.dtype}")
-        check(int(p.min()) >= 0 and int(p.max()) < 12, "class out of range")
-    stream_shares, plain_shares = [], []
-    with torch.inference_mode():
-        for k, p in enumerate(preds):
-            clip = frames[:, k:k + 4]
-            full = composed_upsample_argmax_cf(
-                model(clip, head_res_logits=True), (H, W), OUT_HW)
-            stream_shares.append((p == full).float().mean().item())
-            if k in (0, len(preds) - 1):
-                ref = composed_upsample_argmax_cf(
-                    plain(clip, head_res_logits=True), (H, W), OUT_HW,
-                    kernels=False)
-                plain_shares.append((full == ref).float().mean().item())
-        classes = torch.bincount(preds[-1].flatten(), minlength=12)
-    print(f"  streamed == full clip (kernel route): "
-          f"min {min(stream_shares):.6f} of pixels over {len(preds)} frames",
-          flush=True)
-    print(f"  kernel route == plain route: {plain_shares} of pixels",
-          flush=True)
-    print(f"  last-frame class histogram: {classes.tolist()}", flush=True)
-    check(min(stream_shares) >= TOL_STREAM_SHARE,
-          f"streamed vs full clip {min(stream_shares)} < {TOL_STREAM_SHARE}")
-    check(min(plain_shares) >= TOL_PLAIN_SHARE,
-          f"kernel vs plain route {min(plain_shares)} < {TOL_PLAIN_SHARE}")
+        for p in preds:
+            check(p.shape == (BS, *OUT_HW) and p.dtype == torch.int32,
+                  f"prediction {p.shape} {p.dtype}")
+            check(int(p.min()) >= 0 and int(p.max()) < 12,
+                  "class out of range")
+        plain = TswinPlus(**kw, attn_impl=route, kernels=False)
+        plain.load_state_dict(weights)
+        plain.to(dev).eval()
+        stream_shares, plain_shares, fulls = [], [], []
+        with torch.inference_mode():
+            for k, p in enumerate(preds):
+                clip = frames[:, k:k + 4]
+                full = composed_upsample_argmax_cf(
+                    m(clip, head_res_logits=True), (H, W), OUT_HW)
+                fulls.append(full)
+                stream_shares.append((p == full).float().mean().item())
+                if k in (0, len(preds) - 1):
+                    ref = composed_upsample_argmax_cf(
+                        plain(clip, head_res_logits=True), (H, W), OUT_HW,
+                        kernels=False)
+                    plain_shares.append((full == ref).float().mean().item())
+            classes = torch.bincount(preds[-1].flatten(), minlength=12)
+        print(f"  [{route}] streamed == full clip (kernel route): min "
+              f"{min(stream_shares):.6f} of pixels over {len(preds)} frames",
+              flush=True)
+        print(f"  [{route}] kernel route == plain route: {plain_shares} of "
+              f"pixels", flush=True)
+        print(f"  [{route}] last-frame class histogram: {classes.tolist()}",
+              flush=True)
+        check(min(stream_shares) >= TOL_STREAM_SHARE, f"{route}: streamed vs "
+              f"full clip {min(stream_shares)} < {TOL_STREAM_SHARE}")
+        check(min(plain_shares) >= TOL_PLAIN_SHARE, f"{route}: kernel vs "
+              f"plain route {min(plain_shares)} < {TOL_PLAIN_SHARE}")
+        return fulls
+
+    full_preds = serve("pallas_full")
     print(f"phase 3 serve: {time.perf_counter() - t0:.1f} s", flush=True)
-    del model, plain, seg, cache, frames, preds
+
+    # ---- phase 3b: serve on the 'pallas' and 'pallas_windows' routes -----
+    t0 = time.perf_counter()
+    for route in ("pallas", "pallas_windows"):
+        fulls = serve(route)
+        shares = [(a == b).float().mean().item()
+                  for a, b in zip(fulls, full_preds)]
+        print(f"  [{route}] == 'pallas_full' route (full clips): min "
+              f"{min(shares):.6f} of pixels over {len(shares)} clips",
+              flush=True)
+        check(min(shares) >= TOL_PLAIN_SHARE, f"{route} vs pallas_full "
+              f"route {min(shares)} < {TOL_PLAIN_SHARE}")
+    print(f"phase 3b serve on the new routes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, frames, weights, full_preds, fulls
     torch.cuda.empty_cache()
 
-    # ---- phase 4: train ---------------------------------------------------
+    # ---- phases 4 and 4d: train ------------------------------------------
     t0 = time.perf_counter()
-    train_launches = phase_train(dev, bf16, smi, wrappers)
-    print(f"phase 4 train: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_train(dev, bf16, smi, wrappers, route_kernel, launches)
+    print(f"phases 4 and 4d train: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     meta = {
         "swin_block_attention": (
@@ -467,12 +566,17 @@ def main() -> None:
         "swin_block_epilogue_bwd": (
             "epilogue.cu", "stswincl_tpu/ops/pallas_add_ln_mlp.py:310 "
             "(and :557 with m)"),
+        "windowed_attention_image": (
+            "window_attention.cu",
+            "stswincl_tpu/ops/pallas_block_attention.py:128"),
+        "fused_window_attention": (
+            "window_attention.cu",
+            "stswincl_tpu/ops/pallas_attention.py:118"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
         cases = results[k]
-        by_path = {"serve": serve_launches[k],
-                   "train": train_launches[k]}
+        by_path = {path: counts[k] for path, counts in launches.items()}
         rows.append({
             "name": k, "route": "cuda",
             "source": f"stswincl_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -496,8 +600,8 @@ def gpu_clocks() -> str:
         timeout=60).stdout.strip()
 
 
-def phase_train(dev, bf16, smi, wrappers) -> dict:
-    """Phase 4. Returns the train path's kernel launches by wrapper."""
+def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
+    """Phases 4 and 4d; each train path's launches go into `launches`."""
     import torch
     import torch.utils.checkpoint
     from stswincl_tpu.configs import SegTrainConfig
@@ -515,21 +619,27 @@ def phase_train(dev, bf16, smi, wrappers) -> dict:
               num_heads=cfg.model.num_heads,
               swin_depths=tuple(cfg.model.swin_depths),
               gelu_exact=cfg.model.gelu_exact, dtype=bf16, input_hw=(H, W))
-    model = init_weights(TswinPlus(**kw), torch.Generator().manual_seed(0))
-    init_state = {k: v.clone() for k, v in model.state_dict().items()}
-    model.to(dev)
-    images, labels = seeded_batch(TB, seed=3)
-    images = torch.from_numpy(images).to(dev)
-    labels = torch.from_numpy(labels).to(dev).long()
+    init_state = init_weights(TswinPlus(**kw),
+                              torch.Generator().manual_seed(0)).state_dict()
+    batches = {}
+    for seed in (3, ROUTE_TRAIN_SEED):
+        images, labels = seeded_batch(TB, seed=seed)
+        batches[seed] = (torch.from_numpy(images).to(dev),
+                         torch.from_numpy(labels).to(dev).long())
     print(f"  TswinPlus {kw}, batch {TB}, clips {tuple(images.shape)}",
           flush=True)
+
+    def new_model(route, kernels=None):
+        m = TswinPlus(**kw, attn_impl=route, kernels=kernels)
+        m.load_state_dict(init_state)
+        return m.to(dev)
 
     def new_step(m, steps_per_epoch):
         opt, schedule = make_tx(cfg, steps_per_epoch, m)
         return make_seg_train_step(m, opt, schedule, cfg.loss,
                                    ohem_thresh=cfg.ohem_thresh), opt
 
-    def one_step(m):
+    def one_step(m, images, labels):
         step, opt = new_step(m, 1)
         grads = {}
         opt.register_step_pre_hook(lambda *_: grads.update(
@@ -542,122 +652,155 @@ def phase_train(dev, bf16, smi, wrappers) -> dict:
                  if n.endswith(("running_mean", "running_var"))}
         return loss, grads, stats, time.perf_counter() - ts
 
-    # (a) one step on each route from the same weights and batch; the
-    # plain route recomputes each swin block in its backward
-    # (torch.utils.checkpoint, same numbers) so its twins' fp32
-    # intermediates fit the card at batch 8
-    torch.cuda.reset_peak_memory_stats()
-    loss_k, grads_k, stats_k, sec_k = one_step(model)
-    plain = TswinPlus(**kw, kernels=False)
-    plain.load_state_dict(init_state)
-    plain.to(dev)
-    for mod in plain.modules():
-        if isinstance(mod, SpaceTimeSwinBlock):
-            mod.forward = functools.partial(torch.utils.checkpoint.checkpoint,
-                                            mod.forward, use_reentrant=False)
-    loss_p, grads_p, stats_p, sec_p = one_step(plain)
-    del plain
-    torch.cuda.empty_cache()
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"  (a) loss kernel route {loss_k:.6f} plain route {loss_p:.6f} "
-          f"(rel {loss_rel:.2e}); step {sec_k:.2f} s / {sec_p:.2f} s",
-          flush=True)
-    check(loss_rel <= TOL_TRAIN_LOSS, f"train loss rel {loss_rel}")
-    # a conv bias that feeds a train-mode BatchNorm has a zero gradient in
-    # exact arithmetic (the BatchNorm removes the channel mean): both
-    # routes hold rounding noise there, so it is held to a norm bound
-    zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
-                 if isinstance(mod, ConvBNRelu)}
-    top = max(g.float().norm().item() for g in grads_p.values())
-    cosines = {}
-    for n, gp in grads_p.items():
-        gk = grads_k[n].float()
-        gp = gp.float()
-        if n in zero_grad:
-            for route, gr in (("kernel", gk), ("plain", gp)):
-                check(gr.norm().item() <= 1e-3 * top, f"{n} ({route}): "
-                      f"gradient norm {gr.norm().item()} of a zero-gradient "
-                      f"parameter against {top}")
-            continue
-        cosines[n] = (gk.flatten() @ gp.flatten()
-                      / (gk.norm() * gp.norm())).item()
-    worst = sorted(cosines.items(), key=lambda kv: kv[1])[:5]
-    print(f"  (a) gradient cosine, {len(cosines)} parameters: min "
-          f"{worst[0][1]:.5f} ({worst[0][0]}); lowest five {worst}; "
-          f"{len(zero_grad)} zero-gradient conv biases below 1e-3 of the "
-          f"largest gradient norm ({top:.3e})", flush=True)
-    for n, c in cosines.items():
-        check(c >= TOL_GRAD_COS, f"gradient cosine of {n}: {c}")
-    stat_rel = {n: ((stats_k[n] - b).norm() / b.norm()).item()
-                for n, b in stats_p.items()}
-    worst_stat = max(stat_rel.items(), key=lambda kv: kv[1])
-    print(f"  (a) BatchNorm statistics after the step: max rel "
-          f"{worst_stat[1]:.2e} ({worst_stat[0]}) over {len(stat_rel)}",
-          flush=True)
-    check(worst_stat[1] <= TOL_STATS, f"BN statistic {worst_stat}")
-    peak_a = torch.cuda.max_memory_allocated()
-    del grads_k, grads_p
+    def compare_routes(route, tag, images, labels):
+        """One step on the route's kernels and one on its plain form from
+        the same weights and batch, held against each other. The plain
+        form recomputes each swin block in its backward
+        (torch.utils.checkpoint, same numbers) so its twins' fp32
+        intermediates fit the card at batch 8. Returns the peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        model = new_model(route)
+        loss_k, grads_k, stats_k, sec_k = one_step(model, images, labels)
+        # a conv bias that feeds a train-mode BatchNorm has a zero
+        # gradient in exact arithmetic (the BatchNorm removes the channel
+        # mean): both routes hold rounding noise there, so it is held to a
+        # norm bound
+        zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
+                     if isinstance(mod, ConvBNRelu)}
+        del model
+        plain = new_model(route, kernels=False)
+        for mod in plain.modules():
+            if isinstance(mod, SpaceTimeSwinBlock):
+                mod.forward = functools.partial(
+                    torch.utils.checkpoint.checkpoint, mod.forward,
+                    use_reentrant=False)
+        loss_p, grads_p, stats_p, sec_p = one_step(plain, images, labels)
+        del plain
+        torch.cuda.empty_cache()
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"  {tag} [{route}] loss kernel route {loss_k:.6f} plain route "
+              f"{loss_p:.6f} (rel {loss_rel:.2e}); step {sec_k:.2f} s / "
+              f"{sec_p:.2f} s", flush=True)
+        check(loss_rel <= TOL_TRAIN_LOSS, f"{route}: train loss rel "
+              f"{loss_rel}")
+        top = max(g.float().norm().item() for g in grads_p.values())
+        cosines = {}
+        for n, gp in grads_p.items():
+            gk = grads_k[n].float()
+            gp = gp.float()
+            if n in zero_grad:
+                for which, gr in (("kernel", gk), ("plain", gp)):
+                    check(gr.norm().item() <= 1e-3 * top,
+                          f"{n} ({route}, {which}): gradient norm "
+                          f"{gr.norm().item()} of a zero-gradient parameter "
+                          f"against {top}")
+                continue
+            cosines[n] = (gk.flatten() @ gp.flatten()
+                          / (gk.norm() * gp.norm())).item()
+        worst = sorted(cosines.items(), key=lambda kv: kv[1])[:5]
+        print(f"  {tag} [{route}] gradient cosine, {len(cosines)} parameters:"
+              f" min {worst[0][1]:.5f} ({worst[0][0]}); lowest five {worst}; "
+              f"{len(zero_grad)} zero-gradient conv biases below 1e-3 of the "
+              f"largest gradient norm ({top:.3e})", flush=True)
+        for n, c in cosines.items():
+            check(c >= TOL_GRAD_COS, f"{route}: gradient cosine of {n}: {c}")
+        stat_rel = {n: ((stats_k[n] - b).norm() / b.norm()).item()
+                    for n, b in stats_p.items()}
+        worst_stat = max(stat_rel.items(), key=lambda kv: kv[1])
+        print(f"  {tag} [{route}] BatchNorm statistics after the step: max "
+              f"rel {worst_stat[1]:.2e} ({worst_stat[0]}) over "
+              f"{len(stat_rel)}", flush=True)
+        check(worst_stat[1] <= TOL_STATS, f"{route}: BN statistic "
+              f"{worst_stat}")
+        return torch.cuda.max_memory_allocated()
 
-    # (b) ten kernel-route steps on the repeated batch: the train main path
-    model.load_state_dict(init_state)
-    step, _ = new_step(model, TRAIN_STEPS)
-    calls = {"block": 0, "merge": 0}
+    def train_path(route, n_steps, tag, peak_a, images, labels):
+        """`n_steps` kernel-route steps on the repeated batch, the route's
+        train main path: finite, falling losses, each kernel launched once
+        per call of the block it serves, ms/step and peak memory."""
+        model = new_model(route)
+        step, _ = new_step(model, n_steps)
+        calls = {"block": 0, "merge": 0}
 
-    def counter(key):
-        def hook(*_):
-            calls[key] += 1
-        return hook
-    hooks = [mod.register_forward_hook(counter(
-        "block" if isinstance(mod, SpaceTimeSwinBlock) else "merge"))
-        for mod in model.modules()
-        if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    clocks = [gpu_clocks()]
-    losses, events, host_s = [], [], []
-    for _ in range(TRAIN_STEPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        ts = time.perf_counter()
-        a.record()
-        metrics = step(images, labels)
-        b.record()
-        losses.append(metrics["loss"])
-        events.append((a, b))
-        host_s.append(time.perf_counter() - ts)
-    torch.cuda.synchronize()
-    clocks.append(gpu_clocks())
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    for h in hooks:
-        h.remove()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
-    step_ms = [a.elapsed_time(b) for a, b in events]
-    print(f"  (b) losses {[round(v, 5) for v in losses]}", flush=True)
-    print(f"  (b) train-path launches {launches}; swin block calls "
-          f"{calls['block']}, patch merges {calls['merge']}", flush=True)
-    check(all(math.isfinite(v) for v in losses), "non-finite train loss")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for k in ("swin_block_attention", "swin_block_epilogue",
-              "swin_block_attention_bwd", "swin_block_epilogue_bwd"):
-        check(launches[k] == calls["block"], f"{k}: {launches[k]} launches "
-              f"for {calls['block']} swin block calls")
-    check(launches["patch_merge"] == calls["merge"],
-          f"patch_merge: {launches['patch_merge']} for {calls['merge']}")
+        def counter(key):
+            def hook(*_):
+                calls[key] += 1
+            return hook
+        hooks = [mod.register_forward_hook(counter(
+            "block" if isinstance(mod, SpaceTimeSwinBlock) else "merge"))
+            for mod in model.modules()
+            if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
+        path = "train" if route == "pallas_full" else f"train_{route}"
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clocks = [gpu_clocks()]
+        losses, events, host_s = [], [], []
+        for _ in range(n_steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            ts = time.perf_counter()
+            a.record()
+            metrics = step(images, labels)
+            b.record()
+            losses.append(metrics["loss"])
+            events.append((a, b))
+            host_s.append(time.perf_counter() - ts)
+        torch.cuda.synchronize()
+        clocks.append(gpu_clocks())
+        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        for h in hooks:
+            h.remove()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        print(f"  {tag} [{route}] losses {[round(v, 5) for v in losses]}",
+              flush=True)
+        print(f"  {tag} [{route}] train-path launches {launches[path]}; swin "
+              f"block calls {calls['block']}, patch merges {calls['merge']}",
+              flush=True)
+        check(all(math.isfinite(v) for v in losses), "non-finite train loss")
+        check(losses[-1] < losses[0], f"{route}: loss did not fall: {losses}")
+        per_block = [route_kernel[route], "swin_block_epilogue",
+                     "swin_block_epilogue_bwd"]
+        if route == "pallas_full":
+            per_block.append("swin_block_attention_bwd")
+        for k in per_block:
+            check(launches[path][k] == calls["block"], f"{route}: {k}: "
+                  f"{launches[path][k]} launches for {calls['block']} swin "
+                  "block calls")
+        for k in set(route_kernel.values()) - set(per_block):
+            check(launches[path][k] == 0, f"{route}: {k} launched")
+        if route != "pallas_full":
+            check(launches[path]["swin_block_attention_bwd"] == 0,
+                  f"{route}: K5 launched")
+        check(launches[path]["patch_merge"] == calls["merge"],
+              f"{route}: patch_merge: {launches[path]['patch_merge']} for "
+              f"{calls['merge']}")
+        first = min(3, n_steps - 2)
+        med = statistics.median(step_ms[first:])
+        print(f"  {tag} [{route}] {med:.2f} ms/step median of steps "
+              f"{first + 1}-{n_steps} (CUDA events; host "
+              f"{1e3 * statistics.median(host_s[first:]):.2f} ms), "
+              f"{TB / (med / 1e3):.2f} clips/s at batch {TB}, peak "
+              f"{peak / 2**30:.2f} GiB allocated (route comparison "
+              f"{peak_a / 2**30:.2f} GiB) on {smi}", flush=True)
+        print(f"  {tag} [{route}] step ms {[round(v, 1) for v in step_ms]}; "
+              f"SM clock, power draw, temperature before / after the steps: "
+              f"{clocks}", flush=True)
 
-    # (c) steady state
-    med = statistics.median(step_ms[3:])
-    print(f"  (c) {med:.2f} ms/step median of steps 4-10 (CUDA events; "
-          f"host {1e3 * statistics.median(host_s[3:]):.2f} ms), "
-          f"{TB / (med / 1e3):.2f} clips/s at batch {TB}, peak "
-          f"{peak / 2**30:.2f} GiB allocated (route comparison "
-          f"{peak_a / 2**30:.2f} GiB) on {smi}", flush=True)
-    print(f"  (c) step ms {[round(v, 1) for v in step_ms]}; SM clock, "
-          f"power draw, temperature before / after the steps: {clocks}",
-          flush=True)
-    return launches
+    # phase 4: (a) the 'pallas_full' kernel route against its plain form,
+    # (b, c) ten steps of it
+    batch = batches[3]
+    train_path("pallas_full", TRAIN_STEPS, "(b, c)",
+               compare_routes("pallas_full", "(a)", *batch), *batch)
+    # phase 4d: the same, shorter, on the 'pallas' and 'pallas_windows'
+    # routes, on a second batch
+    batch = batches[ROUTE_TRAIN_SEED]
+    for route in ("pallas", "pallas_windows"):
+        train_path(route, ROUTE_TRAIN_STEPS, "(4d)",
+                   compare_routes(route, "(4d)", *batch), *batch)
 
 
 if __name__ == "__main__":

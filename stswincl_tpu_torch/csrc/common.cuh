@@ -171,3 +171,23 @@ cudaError_t gemm_wgrad(const WgradParams& p, cudaStream_t stream);
 // out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (bias gradients).
 cudaError_t colsum_bf16(const bf16* X, long long ld, int R, int N, float* out,
                         cudaStream_t stream);
+
+// Threads of one attention block (one (window, head)), forward and backward.
+constexpr int ATT_THREADS = 256, ATT_WARPS = ATT_THREADS / 32;
+
+__host__ __device__ inline size_t align128(size_t b) {
+  return (b + 127) & ~size_t(127);
+}
+
+// The window-attention core of K1 and of the row-10 kernel
+// (window_attention.cu): softmax(q k^T * scale + bias (+ mask)) v for every
+// (window, head), q, k, v and out read and written through row map `map`
+// over token rows of 3C (qkv) and C (out) channels: window order under the
+// identity map (K1's qkv buffer), the image layout under the window
+// partition map (row 10). bias (heads, TN, TN) fp32; mask (n_mask, TN, TN)
+// fp32 indexed by window % n_mask, or null.
+cudaError_t window_attention_rows(const bf16* qkv, bf16* out, RowMap map,
+                                  int n_windows, int heads, int TN, int hd,
+                                  int C, const float* bias, const float* mask,
+                                  int n_mask, float scale,
+                                  cudaStream_t stream);

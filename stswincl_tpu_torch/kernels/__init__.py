@@ -45,6 +45,8 @@ SIGNATURES = {
     "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_upsample_argmax": [_P] * 4 + [_I] * 7 + [_P],
+    "stswin_window_attention_image": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+    "stswin_window_attention_heads": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90

@@ -52,6 +52,9 @@ class Dense(CastCache):
         return self.working("weight", dtype,
                             lambda w: w.to(dtype).contiguous())
 
+    def bias_as(self, dtype: torch.dtype) -> torch.Tensor:
+        return self.working("bias", dtype, lambda b: b.to(dtype))
+
 
 class LayerNormParams(nn.Module):
     """LayerNorm scale (`weight`) and bias; kernels read them in fp32."""

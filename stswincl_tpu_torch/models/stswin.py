@@ -73,7 +73,10 @@ class TswinPlus(nn.Module):
     Parameters stay fp32; the model computes in `dtype` (bf16 to serve).
     `input_hw` fixes the feature resolution the swin windows are built for
     (the JAX stack reads it from its input). `kernels` (None: iff the
-    input is on CUDA) chooses the CUDA kernels or their plain twins."""
+    input is on CUDA) chooses the CUDA kernels or their plain twins;
+    `attn_impl` the swin blocks' attention route (`models/swin.py`:
+    'auto' = 'pallas_full', 'pallas', 'pallas_windows', 'einsum'), as
+    `ModelConfig.attn_impl` chooses it in the JAX package."""
 
     def __init__(self, num_classes: int, swin_dim: int = 512,
                  num_heads: int = 4, gelu_exact: bool = True,
@@ -81,7 +84,7 @@ class TswinPlus(nn.Module):
                  swin_depths: Tuple[int, int] = (3, 3),
                  dtype: torch.dtype = torch.float32,
                  input_hw: Tuple[int, int] = (512, 640),
-                 kernels: Optional[bool] = None):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
         super().__init__()
         self.num_classes, self.swin_dim = num_classes, swin_dim
         self.dtype, self.kernels = dtype, kernels
@@ -90,7 +93,7 @@ class TswinPlus(nn.Module):
         self.resnet = ResNet18OS8(width=swin_dim // 8, dtype=dtype)
         self.swin = SwinTemporalStack(
             swin_dim, (h8, w8), num_heads, gelu_exact, final_pair_only,
-            swin_depths, dtype, kernels)
+            swin_depths, dtype, kernels, attn_impl)
         self.aspp = ASPP(2 * swin_dim, 256, dtype=dtype)
         self.project1 = ProjectBNRelu(swin_dim, dtype=dtype)
         self.project2 = ProjectBNRelu(swin_dim, dtype=dtype)

@@ -1,10 +1,23 @@
 """Space-time shifted-window Swin stack ("STswin").
 
-Counterpart of `stswincl_tpu/models/swin.py`, on its kernel route: every
-block is K1 (`swin_block_attention`) followed by K2
-(`swin_block_epilogue`). SW blocks are roll-free: K1 with shift > 0 reads
-the unshifted clip and leaves its output in the shifted layout, and K2
-with the same shift reads it back. Two quirks of the reference are kept:
+Counterpart of `stswincl_tpu/models/swin.py`. `attn_impl` picks the
+attention route of every block, as in the JAX package (`resolve_attn_impl`):
+
+  * 'pallas_full' ('auto'): K1 (`swin_block_attention`: qkv, attention and
+    proj in one launch sequence) followed by K2 (`swin_block_epilogue`).
+    SW blocks are roll-free: K1 with shift > 0 reads the unshifted clip and
+    leaves its output in the shifted layout, and K2 with the same shift
+    reads it back.
+  * 'pallas': a qkv linear, the row-10 kernel on the image-layout qkv
+    (`windowed_attention_image`), a proj linear;
+  * 'pallas_windows': a qkv linear, the window partition, the row-11
+    kernel on the partitioned q, k, v (`fused_window_attention`), the
+    reverse, a proj linear;
+  * 'einsum': the same with `attend_tiled`, no kernel.
+
+On the last three the SW block rolls the clip around the attention and
+runs K2 unshifted, as the JAX package's blocks do off the 'pallas_full'
+route (`swin.py:403-437`). Two quirks of the reference are kept:
 
   * the nonstandard norm order: no pre-norm on the attention branch, and
     x = norm1(x + mlp(norm2(x))) after it (`swin_512.py:234-235`);
@@ -27,17 +40,39 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from stswincl_tpu_torch.kernels import use_kernels
 from stswincl_tpu_torch.models.layers import (CastCache, Dense,
                                               LayerNormParams)
 from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_ref)
-from stswincl_tpu_torch.ops.block_attention import (swin_block_attention,
-                                                    swin_block_attention_ref)
+from stswincl_tpu_torch.ops.attention import (attend_tiled,
+                                              fused_window_attention)
+from stswincl_tpu_torch.ops.block_attention import (
+    swin_block_attention, swin_block_attention_ref, windowed_attention_image,
+    windowed_attention_image_ref)
 from stswincl_tpu_torch.ops.patch_merge import patch_merge, patch_merge_ref
-from stswincl_tpu_torch.ops.window import (relative_position_index,
+from stswincl_tpu_torch.ops.window import (cyclic_shift, partition_qkv,
+                                           relative_position_index,
+                                           reverse_windows,
                                            shifted_window_attention_mask)
+
+ATTN_IMPLS = ("auto", "pallas_full", "pallas", "pallas_windows", "einsum")
+
+
+def resolve_attn_impl(attn_impl: str) -> str:
+    """The attention route an `attn_impl` name selects: 'auto' is
+    'pallas_full', the K1/K2 route; the other names of `ATTN_IMPLS` stand
+    for themselves. The JAX package's fallback from 'pallas_full' to
+    'pallas' for weights too large for the TPU's VMEM (`swin.py:155-165`)
+    is a TPU workaround and is not ported. An unknown name raises
+    ValueError here, where the JAX package runs it as 'einsum' (its
+    WindowAttention's last branch)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
+                         f"{ATTN_IMPLS}")
+    return "pallas_full" if attn_impl == "auto" else attn_impl
 
 
 class WindowAttention(CastCache):
@@ -64,6 +99,34 @@ class WindowAttention(CastCache):
             return b.permute(2, 0, 1).float().repeat(1, T, T).contiguous()
         return self.working("relative_position_bias_table", T, make)
 
+    def attend(self, x: torch.Tensor, mask_tiled: Optional[torch.Tensor],
+               scale: float, impl: str, kern: bool,
+               dtype: torch.dtype) -> torch.Tensor:
+        """qkv -> window attention -> proj on the routes other than
+        'pallas_full' (`swin.py:253-290` of the JAX package): x is the
+        (B, T, H, W, C) clip in `dtype`, already rolled for SW-MSA;
+        mask_tiled (nW, TN, TN) or None. `kern` picks the route's kernel
+        (row 10 for 'pallas', row 11 for 'pallas_windows') or its plain
+        twin; 'einsum' has no kernel. The linears take the working copies
+        (casts in the graph when autograd wants the fp32 parameters'
+        gradients). Returns (B, T, H, W, C) in `dtype`."""
+        B, T, H, W, _ = x.shape
+        ws, heads = self.window_size, self.num_heads
+        bias = self.bias_tiled(T)
+        qkv = F.linear(x, self.qkv.weight_as(dtype), self.qkv.bias_as(dtype))
+        if impl == "pallas":
+            attn = (windowed_attention_image if kern
+                    else windowed_attention_image_ref)
+            out = attn(qkv, bias, mask_tiled, heads, scale, ws)
+        else:
+            q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+            attn = (fused_window_attention
+                    if kern and impl == "pallas_windows" else attend_tiled)
+            out = reverse_windows(attn(q, k, v, bias, mask_tiled, scale),
+                                  B, T, H, W, ws)
+        return F.linear(out, self.proj.weight_as(dtype),
+                        self.proj.bias_as(dtype))
+
 
 def _weights_for(kern: bool, dtype: torch.dtype):
     """Dense -> the weight a block hands its op: the fp32 parameter to a
@@ -84,7 +147,7 @@ class SpaceTimeSwinBlock(nn.Module):
                  num_heads: int, window_size: int = 8, shift_size: int = 0,
                  mlp_ratio: float = 4.0, gelu_exact: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 kernels: Optional[bool] = None):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
         super().__init__()
         H, W = input_resolution
         ws, ss = window_size, shift_size
@@ -95,6 +158,7 @@ class SpaceTimeSwinBlock(nn.Module):
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.gelu_exact, self.dtype, self.kernels = gelu_exact, dtype, kernels
+        self.attn_impl = resolve_attn_impl(attn_impl)
         self.attn = WindowAttention(dim, ws, num_heads)
         self.norm1 = LayerNormParams(dim)
         self.norm2 = LayerNormParams(dim)
@@ -123,14 +187,25 @@ class SpaceTimeSwinBlock(nn.Module):
         assert (H, W) == self.input_resolution, (H, W)
         dt, ss, ws = self.dtype, self.shift_size, self.window_size
         kern = use_kernels(self.kernels, x)
-        attn = swin_block_attention if kern else swin_block_attention_ref
         epi = swin_block_epilogue if kern else swin_block_epilogue_ref
         w = _weights_for(kern, dt)
         a, mlp = self.attn, self.mlp
         x = x.to(dt).contiguous()
-        y = attn(x, w(a.qkv), a.qkv.bias, w(a.proj),
-                 a.proj.bias, a.bias_tiled(T), self._mask(T, x.device),
-                 self.num_heads, self.scale, ws, ss)
+        mask = self._mask(T, x.device)
+        if self.attn_impl == "pallas_full":
+            attn = swin_block_attention if kern else swin_block_attention_ref
+            y = attn(x, w(a.qkv), a.qkv.bias, w(a.proj), a.proj.bias,
+                     a.bias_tiled(T), mask, self.num_heads, self.scale, ws,
+                     ss)
+            epi_shift = ss
+        else:
+            # roll, attend, roll back; the epilogue then runs unshifted
+            xs = cyclic_shift(x.reshape(B * T, H, W, C), ss)
+            y = a.attend(xs.reshape(B, T, H, W, C), mask, self.scale,
+                         self.attn_impl, kern, dt)
+            y = cyclic_shift(y.reshape(B * T, H, W, C), ss, reverse=True)
+            y = y.reshape(B, T, H, W, C).contiguous()
+            epi_shift = 0
         if out_frame is not None:
             # the frame axis is orthogonal to the spatial shift: drop the
             # dead frame before the epilogue pays for it
@@ -139,8 +214,8 @@ class SpaceTimeSwinBlock(nn.Module):
         return epi(x, y, self.norm2.weight, self.norm2.bias,
                    w(mlp.fc1), mlp.fc1.bias,
                    w(mlp.fc2), mlp.fc2.bias, self.norm1.weight,
-                   self.norm1.bias, gelu_exact=self.gelu_exact, shift=ss,
-                   ws=ws)
+                   self.norm1.bias, gelu_exact=self.gelu_exact,
+                   shift=epi_shift, ws=ws)
 
 
 class PatchMerging(nn.Module):
@@ -216,13 +291,14 @@ class SwinTemporalStack(nn.Module):
                  final_pair_only: bool = False,
                  depths: Tuple[int, int] = (3, 3),
                  dtype: torch.dtype = torch.float32,
-                 kernels: Optional[bool] = None):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
         super().__init__()
         H, W = input_resolution
         self.input_resolution = (H, W)
         self.final_pair_only = final_pair_only
         self.depths = tuple(depths)
-        common = dict(gelu_exact=gelu_exact, dtype=dtype, kernels=kernels)
+        common = dict(gelu_exact=gelu_exact, dtype=dtype, kernels=kernels,
+                      attn_impl=attn_impl)
         d1, d2 = self.depths
         for i in range(d1 + d2):
             stage1 = i < d1

@@ -1,5 +1,6 @@
 """K1 and K5: the swin block's attention sub-block (qkv -> windowed joint
-space-time attention -> proj) on the image-layout clip, and its backward.
+space-time attention -> proj) on the image-layout clip, and its backward;
+and the row-10 kernel, window attention on an image-layout qkv.
 
 Counterparts of `stswincl_tpu/ops/pallas_block_attention.py`
 (`fused_swin_block_attention`, its reference, and
@@ -16,6 +17,12 @@ gradients come back in their own dtype from fp32 accumulators. With
 `shift` > 0, x is the UNSHIFTED clip and the output stays in the SHIFTED
 layout; `swin_block_epilogue(..., shift=shift)` reads it back, and the
 output's gradient arrives in that layout too.
+
+`windowed_attention_image` (Pallas row 10, the `attn_impl='pallas'`
+route) launches `stswin_window_attention_image`
+(`csrc/window_attention.cu`) on a CUDA tensor and runs its twin
+`windowed_attention_image_ref` on a CPU tensor; its backward
+(`WindowedAttentionImageFn`) is autograd of that twin, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.attention import attend_tiled
+from stswincl_tpu_torch.ops.attention import (_align, _attn_smem_bytes,
+                                              attend_tiled,
+                                              check_attention_core)
+from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
 
 
 def windowed_attention_image_ref(qkv: torch.Tensor, bias_tiled: torch.Tensor,
@@ -35,16 +45,86 @@ def windowed_attention_image_ref(qkv: torch.Tensor, bias_tiled: torch.Tensor,
                                  ws: int) -> torch.Tensor:
     """Partition (B, T, H, W, 3C) qkv into frame-joint windows, attend,
     and reverse to (B, T, H, W, C)."""
+    B, T, H, W, _ = qkv.shape
+    q, k, v = partition_qkv(qkv, heads, ws)
+    o = attend_tiled(q, k, v, bias_tiled, mask_tiled, scale)
+    return reverse_windows(o, B, T, H, W, ws)
+
+
+def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
+    """Launch the row-10 kernel."""
+    name = "windowed_attention_image"
+    kernels.require(qkv.is_cuda, f"{name}: no kernel for device {qkv.device}")
+    kernels.require(qkv.dim() == 5 and qkv.shape[-1] % 3 == 0,
+                    f"{name}: qkv must be (B, T, H, W, 3C), got "
+                    f"{tuple(qkv.shape)}")
+    kernels.require_bf16_cuda(name, qkv)
+    kernels.require_on(qkv.device, name, qkv)
+    kernels.require(qkv.data_ptr() % 16 == 0,
+                    f"{name}: qkv must be 16-byte aligned")
     B, T, H, W, C3 = qkv.shape
     C = C3 // 3
-    hd = C // heads
-    nH, nW = H // ws, W // ws
-    TN = T * ws * ws
-    xw = qkv.reshape(B, T, nH, ws, nW, ws, C3).permute(0, 2, 4, 1, 3, 5, 6)
-    xw = xw.reshape(B * nH * nW, TN, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    o = attend_tiled(xw[0], xw[1], xw[2], bias_tiled, mask_tiled, scale)
-    o = o.permute(0, 2, 1, 3).reshape(B, nH, nW, T, ws, ws, C)
-    return o.permute(0, 3, 1, 4, 2, 5, 6).reshape(B, T, H, W, C)
+    kernels.require(C % heads == 0 and H % ws == 0 and W % ws == 0,
+                    f"{name}: C={C} over {heads} heads, ({H}, {W}) over "
+                    f"windows of {ws}")
+    n_win = (H // ws) * (W // ws)
+    mask_tiled, n_mask = check_attention_core(
+        name, qkv.device, bias_tiled, mask_tiled, heads, T * ws * ws,
+        C // heads)
+    kernels.require(n_mask in (0, n_win),
+                    f"{name}: {n_mask} masks for {n_win} windows an image")
+    out = torch.empty((B, T, H, W, C), dtype=qkv.dtype, device=qkv.device)
+    P = kernels.ptr
+    kernels.launch("stswin_window_attention_image", qkv.device, P(qkv),
+                   P(bias_tiled), P(mask_tiled), P(out), B, T, H, W, C, heads,
+                   ws, float(scale), n_mask)
+    windowed_attention_image.launches += 1
+    return out
+
+
+def windowed_attention_image(qkv: torch.Tensor, bias_tiled: torch.Tensor,
+                             mask_tiled: Optional[torch.Tensor], heads: int,
+                             scale: float, ws: int) -> torch.Tensor:
+    """Pallas row 10 (`pallas_block_attention.py:128`): window attention
+    on the image-layout qkv (B, T, H, W, 3C), already rolled for SW-MSA;
+    bias_tiled (heads, TN, TN) fp32; mask_tiled (nH * nW, TN, TN) fp32,
+    one entry per window of an image (index i * nW + j, the same for every
+    batch element), or None / a single (1, TN, TN) zero entry, the W-MSA
+    marker. Returns (B, T, H, W, C) in the image layout."""
+    args = (qkv, bias_tiled, mask_tiled, heads, scale, ws)
+    if kernels.needs_grad(qkv, bias_tiled):
+        return WindowedAttentionImageFn.apply(*args)
+    if qkv.device.type == "cpu":
+        return windowed_attention_image_ref(*args)
+    return _image_kernel(*args)
+
+
+windowed_attention_image.launches = 0
+
+
+class WindowedAttentionImageFn(torch.autograd.Function):
+    """Row 10: the kernel forward on CUDA (the twin on the CPU); backward:
+    autograd of the twin `windowed_attention_image_ref`, recomputed from
+    the saved qkv, as `_wai_bwd` (`pallas_block_attention.py:668-673`)
+    takes `jax.vjp` of the XLA reference. The mask takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias_tiled, mask_tiled, heads, scale, ws):
+        ctx.cfg = (heads, scale, ws)
+        ctx.save_for_backward(qkv, bias_tiled, mask_tiled)
+        if qkv.device.type == "cpu":
+            return windowed_attention_image_ref(qkv, bias_tiled, mask_tiled,
+                                                heads, scale, ws)
+        return _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias_tiled, mask_tiled = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (qkv, bias_tiled)]
+            out = windowed_attention_image_ref(*leaves, mask_tiled, *ctx.cfg)
+            dqkv, dbias = torch.autograd.grad(out, leaves, g)
+        return dqkv, dbias, None, None, None, None
 
 
 def swin_block_attention_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
@@ -72,18 +152,6 @@ def swin_block_attention_bwd_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
         return torch.autograd.grad(out, leaves, g)
 
 
-def _align(b: int) -> int:
-    return (b + 127) // 128 * 128
-
-
-def _attn_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of K1's attention block (`attn_smem` in the
-    CUDA source)."""
-    return (3 * _align(TN * (hd + 8) * 2)
-            + _align(TN * max(TN + 4, hd + 4) * 4)
-            + _align(TN * (TN + 8) * 2))
-
-
 def _attn_bwd_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of K5's attention block (`attn_bwd_smem`):
     q, k, dO in bf16, the fp32 P / dS, one bf16 buffer for P / V / dS,
@@ -97,36 +165,26 @@ def _validate(name, x, wqkv, wproj, bias_tiled, mask_tiled, heads, ws,
               shift, smem_bytes):
     """Check what the CUDA kernels take; return (mask or None, n_mask)."""
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
-    if mask_tiled is not None and mask_tiled.shape[0] == 1:
-        mask_tiled = None
     kernels.require(x.dim() == 5, f"{name}: x must be (B, T, H, W, C)")
     B, T, H, W, C = x.shape
-    hd, TN = C // heads, T * ws * ws
     kernels.require_bf16_cuda(name, x)
     kernels.require(wqkv.dtype == x.dtype and wproj.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
-    kernels.require_f32(name, bias_tiled,
-                        *(() if mask_tiled is None else (mask_tiled,)))
-    kernels.require_on(x.device, name, x, wqkv, wproj, bias_tiled,
-                       mask_tiled)
+    kernels.require_on(x.device, name, x, wqkv, wproj)
     kernels.require(tuple(wqkv.shape) == (3 * C, C)
-                    and tuple(wproj.shape) == (C, C)
-                    and tuple(bias_tiled.shape) == (heads, TN, TN),
+                    and tuple(wproj.shape) == (C, C),
                     f"{name}: weight shapes do not match x {tuple(x.shape)}")
-    n_mask = 0
-    if mask_tiled is not None:
-        n_mask = (H // ws) * (W // ws)
-        kernels.require(tuple(mask_tiled.shape) == (n_mask, TN, TN),
-                        f"{name}: mask {tuple(mask_tiled.shape)}")
     kernels.require(H % ws == 0 and W % ws == 0 and 0 <= shift < ws,
                     f"{name}: H, W must be multiples of ws > shift")
-    kernels.require(C % heads == 0 and hd % 16 == 0 and TN % 16 == 0
-                    and C % 128 == 0,
-                    f"{name}: needs C % 128, head_dim % 16 and T*ws*ws % 16 "
-                    f"(C={C}, heads={heads}, ws={ws}, T={T})")
-    kernels.require(smem_bytes(TN, hd) <= kernels.SMEM_LIMIT,
-                    f"{name}: window of {TN} tokens x {hd} does not fit "
-                    "shared memory")
+    kernels.require(C % heads == 0 and C % 128 == 0,
+                    f"{name}: needs C % 128 and C % heads (C={C}, "
+                    f"heads={heads})")
+    mask_tiled, n_mask = check_attention_core(
+        name, x.device, bias_tiled, mask_tiled, heads, T * ws * ws,
+        C // heads, smem_bytes)
+    kernels.require(n_mask in (0, (H // ws) * (W // ws)),
+                    f"{name}: {n_mask} masks for {(H // ws) * (W // ws)} "
+                    "windows an image")
     return mask_tiled, n_mask
 
 

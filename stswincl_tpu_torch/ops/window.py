@@ -21,6 +21,28 @@ def cyclic_shift(x: torch.Tensor, shift: int,
     return torch.roll(x, (s, s), dims=(1, 2))
 
 
+def partition_qkv(qkv: torch.Tensor, heads: int, ws: int) -> torch.Tensor:
+    """Image-layout qkv (B, T, H, W, 3C) -> (3, B * nW, heads, T*ws*ws, hd)
+    frame-joint windows, windows row-major and minor to the batch, tokens
+    (t, i, j) within a window (the partition of `models/swin.py:270-275`
+    in the JAX package). A view: callers that need q, k, v contiguous
+    copy it."""
+    B, T, H, W, C3 = qkv.shape
+    nH, nW = H // ws, W // ws
+    xw = qkv.reshape(B, T, nH, ws, nW, ws, C3).permute(0, 2, 4, 1, 3, 5, 6)
+    xw = xw.reshape(B * nH * nW, T * ws * ws, 3, heads, C3 // (3 * heads))
+    return xw.permute(2, 0, 3, 1, 4)
+
+
+def reverse_windows(o: torch.Tensor, B: int, T: int, H: int, W: int,
+                    ws: int) -> torch.Tensor:
+    """(B * nW, heads, T*ws*ws, hd) window outputs -> the (B, T, H, W, C)
+    image layout: the inverse of `partition_qkv` (JAX `:283-285`)."""
+    C = o.shape[1] * o.shape[3]
+    o = o.permute(0, 2, 1, 3).reshape(B, H // ws, W // ws, T, ws, ws, C)
+    return o.permute(0, 3, 1, 4, 2, 5, 6).reshape(B, T, H, W, C)
+
+
 def relative_position_index(win_h: int, win_w: int) -> np.ndarray:
     """(N, N) int32 index into the flat (2*win_h-1)*(2*win_w-1) bias table,
     N = win_h*win_w (reference `swin_512.py:89-99`)."""

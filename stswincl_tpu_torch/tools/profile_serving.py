@@ -1,6 +1,7 @@
 """Where a serving step's time goes on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_serving [--bs 2] [--steps 6]
+        [--attn-impl auto]
 
 Serves TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16, seeded
 random weights) through StreamingSegmenter at 512x640 -> 1024x1280 and
@@ -22,6 +23,7 @@ import torch
 
 from stswincl_tpu_torch.models import TswinPlus
 from stswincl_tpu_torch.models.init import init_weights
+from stswincl_tpu_torch.models.swin import ATTN_IMPLS
 from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
 PORT_KERNELS = ("gemm_kernel", "window_attention_kernel", "ln_rows_kernel",
@@ -32,15 +34,20 @@ def _group(name: str) -> str:
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels"
     low = name.lower()
-    if "conv" in low or "cudnn" in low or "sm90_xmma" in low or "implicit" in low:
+    if any(k in low for k in ("conv", "cudnn", "implicit", "fprop")):
         return "cuDNN convolution"
-    return "other (elementwise, copies, reductions, cuBLAS)"
+    if any(k in low for k in ("gemm", "nvjet", "cublas", "sm90_xmma")):
+        return "cuBLAS GEMM (the linears of the non-K1 routes)"
+    return "other (elementwise, copies, reductions)"
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bs", type=int, default=2)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--attn-impl", default="auto", choices=ATTN_IMPLS,
+                    help="the swin blocks' attention route (TswinPlus "
+                    "attn_impl)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
@@ -48,7 +55,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=torch.bfloat16, input_hw=(512, 640))
+                      dtype=torch.bfloat16, input_hw=(512, 640),
+                      attn_impl=args.attn_impl)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -77,7 +85,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"{smi} | bs {args.bs} | {args.steps} predict_next steps")
+    print(f"{smi} | attn_impl {args.attn_impl} | bs {args.bs} | "
+          f"{args.steps} predict_next steps")
     print(f"host time {wall_ms / args.steps:.2f} ms/step "
           f"({args.bs * args.steps / wall_ms * 1e3:.2f} frames/s under the "
           f"profiler); device busy {busy / args.steps:.2f} ms/step, idle "

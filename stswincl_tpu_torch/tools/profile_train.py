@@ -1,6 +1,7 @@
 """Where a stage-1 training step's time goes on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_train [--bs 8] [--steps 4]
+        [--attn-impl auto]
 
 Trains TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16
 compute, fp32 parameters, seeded random weights) with the stage-1 step
@@ -26,6 +27,7 @@ import torch
 
 from stswincl_tpu_torch.models import TswinPlus
 from stswincl_tpu_torch.models.init import init_weights
+from stswincl_tpu_torch.models.swin import ATTN_IMPLS
 from stswincl_tpu_torch.train.optim import make_adam
 from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
@@ -39,20 +41,25 @@ PORT_KERNELS = ("gemm_kernel", "window_attention_kernel",
 
 def _group(name: str) -> str:
     if any(k in name for k in PORT_KERNELS):
-        return "port CUDA kernels (K1-K3, K5, K6)"
+        return "port CUDA kernels"
     low = name.lower()
-    if ("conv" in low or "cudnn" in low or "sm90_xmma" in low
-            or "implicit" in low or "wgrad" in low or "dgrad" in low):
+    if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "wgrad",
+                              "dgrad")):
         return "cuDNN convolution (forward and backward)"
     if "multi_tensor" in low or "adam" in low:
         return "optimizer (Adam)"
-    return "other (BatchNorm, elementwise, reductions, copies, cuBLAS)"
+    if any(k in low for k in ("gemm", "nvjet", "cublas", "sm90_xmma")):
+        return "cuBLAS GEMM (linears, fp32 attention-backward products)"
+    return "other (BatchNorm, elementwise, reductions, copies)"
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bs", type=int, default=8)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--attn-impl", default="auto", choices=ATTN_IMPLS,
+                    help="the swin blocks' attention route (TswinPlus "
+                    "attn_impl)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
@@ -60,7 +67,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=torch.bfloat16, input_hw=(512, 640))
+                      dtype=torch.bfloat16, input_hw=(512, 640),
+                      attn_impl=args.attn_impl)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev)
     rng = np.random.default_rng(1)
@@ -96,7 +104,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"{smi} | bs {args.bs} | {args.steps} train steps | after them: "
+    print(f"{smi} | attn_impl {args.attn_impl} | bs {args.bs} | "
+          f"{args.steps} train steps | after them: "
           f"SM clock, power draw, temperature {clocks}")
     print(f"host time {wall_ms / args.steps:.2f} ms/step "
           f"({args.bs * args.steps / wall_ms * 1e3:.2f} clips/s under the "

@@ -10,16 +10,21 @@ Shapes are small but within what the kernels take (C a multiple of 128);
 their row counts are not multiples of the GEMM's 128-row tile, so the
 ragged edges run too. The backward kernels (K5, K6) are held against
 autograd of their twins at mid sizes that keep the stage-1 and stage-2
-window shapes (TN 128 / hd 64, TN 32 / hd 128).
+window shapes (TN 128 / hd 64, TN 32 / hd 128). The standalone attention
+kernels of the 'pallas' and 'pallas_windows' routes (Pallas rows 10 and
+11) run at both stages' full window shapes (TN 128 / hd 128, TN 32 /
+hd 256), on six windows an image and two images, with and without the
+SW-MSA mask.
 """
 
 import pytest
 import torch
 
-from stswincl_tpu_torch.ops import add_ln_mlp, block_attention
+from stswincl_tpu_torch.ops import add_ln_mlp, attention, block_attention
 from stswincl_tpu_torch.ops import patch_merge, upsample_argmax
 from stswincl_tpu_torch.ops.resize import composed_matrices
-from stswincl_tpu_torch.ops.window import (relative_position_index,
+from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                           relative_position_index,
                                            shifted_window_attention_mask)
 
 pytestmark = pytest.mark.cuda
@@ -204,11 +209,90 @@ def test_backward_rejects_unsupported_shapes(dev, gen):
         add_ln_mlp.swin_block_epilogue_bwd(xe, xe, xe, None, *p[:7])
 
 
+ROW_CASES = {  # (T, H, W, C, heads, ws): stage 1 and stage 2 windows
+    "s1": (2, 16, 24, 512, 4, 8),
+    "s2": (2, 8, 12, 1024, 4, 4),
+}
+
+
+def _row_args(dev, gen, case, masked):
+    """(qkv (2, T, H, W, 3C) bf16, bias_tiled, mask_tiled or None, heads,
+    scale, ws) of a stage's window shape."""
+    T, H, W, C, heads, ws = ROW_CASES[case]
+    a = _attn_args(dev, gen, ws // 2 if masked else 0, B=1, T=T, H=H, W=W,
+                   C=128, heads=heads, ws=ws)
+    qkv = torch.randn((2, T, H, W, 3 * C), generator=gen, device=dev).to(BF)
+    return qkv, a[5], a[6], heads, (C // heads) ** -0.5, ws
+
+
+def _grads_close(fn, twin, leaves, rest):
+    """fn's gradients (through its autograd Function) against autograd of
+    the twin, for the same output gradient."""
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    out = fn(*leaves, *rest)
+    g = torch.randn(out.shape, device=out.device).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    twin_leaves = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(twin(*twin_leaves, *rest), twin_leaves, g)
+    for gr, w in zip(got, want):
+        _close(gr, w)
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_image_kernel(dev, gen, case, masked):
+    """Row 10 on the image-layout qkv, forward and its Function."""
+    qkv, bias, mask, heads, scale, ws = _row_args(dev, gen, case, masked)
+    fn = block_attention.windowed_attention_image
+    twin = block_attention.windowed_attention_image_ref
+    n = fn.launches
+    _close(fn(qkv, bias, mask, heads, scale, ws),
+           twin(qkv, bias, mask, heads, scale, ws))
+    assert fn.launches == n + 1
+    _grads_close(fn, twin, [qkv, bias], (mask, heads, scale, ws))
+    assert fn.launches == n + 2
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_heads_kernel(dev, gen, case, masked):
+    """Row 11 on partitioned q, k, v (windows minor, mask b % nW),
+    forward and its Function (backward: the port of JAX's `_bwd`)."""
+    qkv, bias, mask, heads, scale, ws = _row_args(dev, gen, case, masked)
+    q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+    fn = attention.fused_window_attention
+    masks = [mask] if masked else [None, torch.zeros_like(bias[:1])]
+    for m in masks:  # None and the W-MSA zero marker
+        n = fn.launches
+        _close(fn(q, k, v, bias, m, scale),
+               attention.attend_tiled(q, k, v, bias, m, scale))
+        assert fn.launches == n + 1
+    _grads_close(fn, attention.attend_tiled, [q, k, v, bias], (mask, scale))
+
+
 def test_fp32_activations_are_refused(dev, gen):
     args = _attn_args(dev, gen, 0)
     args[0] = args[0].float()
     with pytest.raises(NotImplementedError):
         block_attention.swin_block_attention(*args)
+    qkv, bias, _, heads, scale, ws = _row_args(dev, gen, "s2", False)
+    with pytest.raises(NotImplementedError):
+        block_attention.windowed_attention_image(qkv.float(), bias, None,
+                                                 heads, scale, ws)
+    q = partition_qkv(qkv, heads, ws)[0].float().contiguous()
+    with pytest.raises(NotImplementedError):
+        attention.fused_window_attention(q, q, q, bias, None, scale)
+
+
+def test_attention_kernels_refuse_windows_beyond_shared_memory(dev):
+    """TN 128 x hd 256 does not fit one block's shared memory."""
+    q = torch.zeros((2, 2, 128, 256), device=dev, dtype=BF)
+    bias = torch.zeros((2, 128, 128), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention.fused_window_attention(q, q, q, bias, None, 0.1)
+    qkv = torch.zeros((1, 2, 8, 8, 3 * 512), device=dev, dtype=BF)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_attention.windowed_attention_image(qkv, bias, None, 2, 0.1, 8)
 
 
 def test_small_model_routes_agree(dev):
@@ -240,3 +324,45 @@ def test_small_model_routes_agree(dev):
     _, pred = seg.predict_next(cache, frames[:, 4])
     full = composed_upsample_argmax_cf(lk, (128, 192), (256, 384))
     assert (pred == full).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("route", ["pallas", "pallas_windows"])
+def test_small_model_new_routes_agree(dev, route):
+    """TswinPlus at swin_dim 128 in bf16 on the 'pallas' and
+    'pallas_windows' routes: each launches its attention kernel, agrees
+    with its plain route and with the 'pallas_full' route, and streams
+    as the full clip."""
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.ops.resize import composed_upsample_argmax_cf
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+
+    kw = dict(num_classes=5, swin_dim=128, swin_depths=(2, 2),
+              dtype=BF, input_hw=(128, 192))
+    full = TswinPlus(**kw)
+    init_weights(full, torch.Generator().manual_seed(0))
+    model = TswinPlus(**kw, attn_impl=route)
+    plain = TswinPlus(**kw, attn_impl=route, kernels=False)
+    for m in (model, plain):
+        m.load_state_dict(full.state_dict())
+    for m in (full, model, plain):
+        m.to(dev).eval()
+    frames = torch.rand((1, 5, 128, 192, 3),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) * 2 - 1
+    fn = (block_attention.windowed_attention_image if route == "pallas"
+          else attention.fused_window_attention)
+    n = fn.launches
+    with torch.inference_mode():
+        lk = model(frames[:, 1:5], head_res_logits=True)
+        assert fn.launches > n
+        lp = plain(frames[:, 1:5], head_res_logits=True)
+        lf = full(frames[:, 1:5], head_res_logits=True)
+    for other in (lp, lf):
+        rel = ((lk - other).norm() / other.norm()).item()
+        assert rel <= TOL, rel
+    seg = StreamingSegmenter(model, out_hw=(256, 384))
+    cache, _ = seg.init_and_predict(frames[:, 0:4])
+    _, pred = seg.predict_next(cache, frames[:, 4])
+    want = composed_upsample_argmax_cf(lk, (128, 192), (256, 384))
+    assert (pred == want).float().mean().item() >= 0.999

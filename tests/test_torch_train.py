@@ -332,11 +332,16 @@ def _rel(a, b):
 LOSS_TOL, GRAD_TOL, GRAD_ATOL, STATS_TOL = 1e-5, 1e-2, 1e-6, 1e-4
 
 
-def test_train_step_matches_jax():
+def check_train_step_matches_jax(attn_impl="auto", **port_kw):
+    """One stage-1 step of the port's small TswinPlus against the JAX
+    `make_seg_train_step` on the same weights and batch, both built with
+    `attn_impl` (the JAX CPU route of 'auto' is 'einsum'; a caller whose
+    route reaches a Pallas kernel runs it interpreted)."""
     images, labels = _batch()
-    port = _small_model()
+    port = _small_model(attn_impl=attn_impl, **port_kw)
     variables = _jax_variables(port)
-    jm = JTswinPlus(num_classes=NC, swin_dim=64, swin_depths=(2, 2))
+    jm = JTswinPlus(num_classes=NC, swin_dim=64, swin_depths=(2, 2),
+                    attn_impl=attn_impl)
     tx = _recording(joptim.make_adam(3e-4))
     jstate = jtrain.SegTrainState.create(variables, tx)
     jstep = jtrain.make_seg_train_step(jm, tx, loss_type="ohem")
@@ -387,3 +392,7 @@ def test_train_step_matches_jax():
         stable += sure.sum()
         total += sure.size
     assert stable >= total / 2
+
+
+def test_train_step_matches_jax():
+    check_train_step_matches_jax()
