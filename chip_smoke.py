@@ -33,15 +33,35 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      the repeated batch, every loss finite, the last below the first, and
      each kernel launched as often as the model's block calls imply;
      (c) the median ms/step of steps 4-10, clips/s and peak memory.
-  4d. train on each of those routes, on a second seeded batch: one
-     batch-8 step against the route's plain form to the phase-4 bounds,
-     then a few steps: falling losses, ms/step, peak memory, the route's
-     kernel launched once per swin block call.
+  2d. hold the whole-block kernel (Pallas row 16) against its twin at
+     the full-width serving and batch-8 training shapes of both stages,
+     with weights drawn so that the attention branch is as large as x
+     (a twin without its relative bias must miss the bound tenfold), its
+     backward at the training shapes (through its autograd Function: K1,
+     K2, K6 and K5) against the twin's autograd, and time it beside the
+     K1 + K2 pair on the same inputs; hold rows 13 (add + LN + MLP) and
+     14 (add + LN) against their twins at the kernel profiler's shapes;
+  3c. serve the weights of phase 3 with `whole_block=True`: streamed ==
+     full clip, kernel route == plain route and == the phase-3 route on
+     their shares of pixels, row 16 launched once per W-MSA block call (7
+     a `predict_next`) and K1 / K2 once per SW-MSA block call, frames/s;
+  4e. train with `whole_block=True` from the phase-4 weights on the
+     phase-4d batch: one step against the plain route to the phase-4
+     bounds, each gradient's 1 - cosine also within TOL_NOISE_FACTOR of
+     that of phase 4's route on the same batch, then five steps: falling losses, ms/step, peak memory, row 16
+     launched once per W-MSA block call, K1, K2, K5 and K6 once per block
+     call (the W-MSA backward recomputes the pair);
+  5. run the kernel profiler's entry point
+     (`stswincl_tpu_torch.tools.profile_swin_kernels.main`) with few
+     repeats: K1, row 13 and row 14 at the batch-8 block shapes.
 
-Each main path (serve and train on each route) is driven with every launch
-count set to 0 just before it and read just after. Then come three lines:
-a JSON object with each kernel's launches by path, error and times; the
-card's name and power limit (`nvidia-smi`); and, last,
+Each main path (serve and train on each route, the profiler) is driven
+with every launch count set to 0 just before it and read just after. Then
+come three lines: a JSON object with each kernel's launches by path,
+error, times and the least time the card could take for the same work
+(`bound_ms`: the larger of the operations over the dense peak for their
+type and the bytes over 3.35 TB/s, each input read and each output
+written once); the card's name and power limit (`nvidia-smi`); and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -65,14 +85,21 @@ BS, H, W, OUT_HW, STEPS = 2, 512, 640, (1024, 1280), 10
 TOL_TRAIN_LOSS = 1e-2     # relative
 TOL_GRAD_COS = 0.99       # cosine of each parameter's gradient
 TOL_STATS = 1e-2          # relative, each updated BatchNorm statistic
+# phase 4e also holds each gradient's 1 - cosine against that of a sound
+# control, phase 4's route on the same batch: at most TOL_NOISE_FACTOR
+# times the control's plus TOL_NOISE_FLOOR (a factor 4 on 1 - cos is a
+# factor 2 on the relative error; the floor is a relative error of 0.45 %)
+TOL_NOISE_FACTOR = 4.0
+TOL_NOISE_FLOOR = 1e-5
 TRAIN_STEPS = 10
-ROUTE_TRAIN_STEPS = 5  # phase 4d, on each of 'pallas' and 'pallas_windows'
-# Phase 4d trains on a second seeded batch. On the phase-4 batch the
-# gradient of the stem BatchNorm bias (64 values summed over 2.6M
-# positions) sits at this check's bf16 noise floor on the new routes:
-# cosine 0.9894-0.9904 between their kernel and plain routes, 0.986
-# between two kernel routes, where 'pallas_full' gives 0.9909-0.9915
-# (PERF.md).
+ROUTE_TRAIN_STEPS = 5  # phases 4d and 4e
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM, dense
+# Phases 4d and 4e train on a second seeded batch. On the phase-4 batch
+# the gradient of the stem BatchNorm bias (64 values summed over 2.6M
+# positions) sits at this check's bf16 noise floor on the other routes:
+# cosine 0.9894-0.9904 between the kernel and plain routes of 'pallas'
+# and 'pallas_windows', 0.9882 with `whole_block`, 0.986 between two
+# kernel routes, where 'pallas_full' gives 0.9907-0.9915 (PERF.md).
 ROUTE_TRAIN_SEED = 4
 
 
@@ -97,6 +124,40 @@ def seeded_batch(batch: int, seed: int):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
+    """The least time the card could take for `flops` operations at
+    `peak` and `nbytes` of device memory traffic, and which bounds it."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def attention_work(R: int, C: int, TN: int, heads: int, mask) -> tuple:
+    """(flops, bytes) of window attention over R token rows of C channels
+    in windows of TN tokens: QK^T and PV, q, k, v read, the output
+    written, the bias and mask tables read."""
+    tables = heads * TN * TN * 4 + (0 if mask is None else mask.numel() * 4)
+    return 4 * R * TN * C, 4 * R * C * 2 + tables
+
+
+def block_attention_work(x, heads: int, TN: int, mask) -> tuple:
+    """K1: the qkv and proj products and the attention; x read, the
+    output written, the weights read."""
+    C = x.shape[-1]
+    R = x.numel() // C
+    fl, nb = attention_work(R, C, TN, heads, mask)
+    return (fl + 8 * R * C * C,
+            nb - 4 * R * C * 2 + 2 * R * C * 2 + 4 * C * C * 2 + 4 * C * 4)
+
+
+def mlp_work(R: int, C: int, hidden: int, n_rows_io: int) -> tuple:
+    """fc1 + fc2 over R rows; `n_rows_io` bf16 (R, C) tensors read or
+    written; the weights and vectors read."""
+    return (4 * R * C * hidden,
+            n_rows_io * R * C * 2 + 2 * C * hidden * 2 + (hidden + 5 * C) * 4)
 
 
 def calibrate_batchnorm(model, clip) -> None:
@@ -132,6 +193,7 @@ def calibrate_batchnorm(model, clip) -> None:
 
 def main() -> None:
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "need a GPU")
@@ -182,8 +244,8 @@ def main() -> None:
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    def uniform(*shape, fan_in, dtype=bf16):
-        b = fan_in ** -0.5
+    def uniform(*shape, fan_in, dtype=bf16, gain=1.0):
+        b = gain * fan_in ** -0.5
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
                 * b).to(dtype)
 
@@ -204,7 +266,10 @@ def main() -> None:
 
     results = {}  # kernel -> list of case dicts
 
-    def compare(kname, case, kfn, pfn):
+    def compare(kname, case, kfn, pfn, work, lib=None):
+        """Hold kernel call kfn against its twin pfn; `work` is (flops,
+        bytes[, peak]) of the call, `lib` one PyTorch call computing the
+        same function (timed only)."""
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -213,11 +278,16 @@ def main() -> None:
         d = got.float() - want.float()
         row = {"case": case, "max_abs_err": d.abs().max().item(),
                "rel_err": (d.norm() / want.float().norm()).item(),
-               "ms": median_ms(kfn), "plain_ms": median_ms(pfn)}
+               "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
+               "library_ms": None if lib is None else median_ms(lib),
+               **bound(*work)}
         results.setdefault(kname, []).append(row)
         print(f"  {kname:22s} {case:34s} max_abs {row['max_abs_err']:.3e} "
               f"rel {row['rel_err']:.3e} kernel {row['ms']:.3f} ms "
-              f"plain {row['plain_ms']:.3f} ms", flush=True)
+              f"plain {row['plain_ms']:.3f} ms bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']})" + ("" if lib is None else
+                                          f" library {row['library_ms']:.3f}"
+                                          " ms"), flush=True)
         check(row["rel_err"] <= TOL_REL, f"{kname} {case}: relative error "
               f"{row['rel_err']} > {TOL_REL}")
 
@@ -244,7 +314,8 @@ def main() -> None:
             compare("swin_block_attention",
                     f"stage{s} {tuple(x.shape)} shift={shift}",
                     lambda: swin_block_attention(*args),
-                    lambda: swin_block_attention_ref(*args))
+                    lambda: swin_block_attention_ref(*args),
+                    block_attention_work(x, heads, TN, mask))
         hidden = 4 * C
         epi_w = (1.0 + randn(C, scale=0.1, dtype=torch.float32),
                  randn(C, scale=0.1, dtype=torch.float32),
@@ -264,14 +335,18 @@ def main() -> None:
             compare("swin_block_epilogue",
                     f"stage{s} {tuple(xa.shape)} {name}",
                     lambda: swin_block_epilogue(xa, ya, *epi_w, **kw),
-                    lambda: swin_block_epilogue_ref(xa, ya, *epi_w, **kw))
+                    lambda: swin_block_epilogue_ref(xa, ya, *epi_w, **kw),
+                    mlp_work(xa.numel() // C, C, hidden, 3))
     C = 512
     xm = randn(4 * BS, 64, 80, C)
     pm = (1.0 + randn(4 * C, scale=0.1, dtype=torch.float32),
           randn(4 * C, scale=0.1, dtype=torch.float32),
           uniform(2 * C, 4 * C, fan_in=4 * C))
+    rm = xm.numel() // C // 4  # output rows
     compare("patch_merge", f"{tuple(xm.shape)}",
-            lambda: patch_merge(xm, *pm), lambda: patch_merge_ref(xm, *pm))
+            lambda: patch_merge(xm, *pm), lambda: patch_merge_ref(xm, *pm),
+            (16 * rm * C * C, xm.numel() * 2 + rm * 2 * C * 2
+             + 8 * C * C * 2 + 8 * C * 4))
 
     lcf = randn(BS, 12, 64, 80, dtype=torch.float32)
     mh, mw = (m.to(dev) for m in composed_matrices(64, 80, (H, W), OUT_HW))
@@ -282,12 +357,19 @@ def main() -> None:
         check(got.shape == (BS, *OUT_HW) and got.dtype == torch.int32,
               f"upsample_argmax: {got.shape} {got.dtype}")
         share = (got == want).float().mean().item()
+        nb, nc, h8, w8 = lcf.shape
+        # the cheaper order of the two interpolation products
+        k4_flops = 2 * nb * nc * (h8 * w8 * OUT_HW[1]
+                                  + OUT_HW[0] * h8 * OUT_HW[1])
+        k4_bytes = (lcf.numel() + mh.numel() + mw.numel()) * 4 + got.numel() * 4
         row = {"case": f"{tuple(lcf.shape)} exact={exact}",
                "max_abs_err": (got - want).abs().max().item(),
                "equal_share": share,
                "ms": median_ms(lambda: upsample_argmax(lcf, mh, mw, exact)),
                "plain_ms": median_ms(
-                   lambda: upsample_argmax_ref(lcf, mh, mw, exact))}
+                   lambda: upsample_argmax_ref(lcf, mh, mw, exact)),
+               "library_ms": None,
+               **bound(k4_flops, k4_bytes, PEAK_F32 if exact else PEAK_BF16)}
         results.setdefault("upsample_argmax", []).append(row)
         print(f"  {'upsample_argmax':22s} {row['case']:34s} equal "
               f"{share:.6f} kernel {row['ms']:.3f} ms plain "
@@ -302,7 +384,7 @@ def main() -> None:
     from stswincl_tpu_torch.ops import add_ln_mlp as epi_ops
     from stswincl_tpu_torch.ops import block_attention as attn_ops
 
-    def compare_outputs(kname, case, kfn, pfn, names):
+    def compare_outputs(kname, case, kfn, pfn, names, work):
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         rels, max_abs = {}, 0.0
@@ -314,7 +396,10 @@ def main() -> None:
             max_abs = max(max_abs, d.abs().max().item())
         row = {"case": case, "max_abs_err": max_abs,
                "rel_err": max(rels.values()), "rel_errs": rels,
-               "ms": median_ms(kfn), "plain_ms": median_ms(pfn)}
+               "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
+               "library_ms": None}
+        if work is not None:
+            row.update(bound(*work))
         results.setdefault(kname, []).append(row)
         print(f"  {kname:24s} {case:44s} max rel {row['rel_err']:.3e} "
               f"kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} ms",
@@ -327,6 +412,28 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     TB = 8  # the stage-1 training batch: two-group layers fold to 2 * TB
+
+    def k5_work(x, heads, TN, mask):
+        """K5: five attention products, the input- and weight-gradient
+        products of qkv and proj; x, g, qkv, attn read, dx written, the
+        weights read and their fp32 gradients written."""
+        C = x.shape[-1]
+        R = x.numel() // C
+        fl, tables = attention_work(R, C, TN, heads, mask)
+        return (2.5 * fl + 16 * R * C * C,
+                tables - 4 * R * C * 2 + heads * TN * TN * 4
+                + 7 * R * C * 2 + 4 * C * C * (2 + 4) + 4 * C * 4)
+
+    def k6_work(x, hidden, with_m, shift):
+        """K6: fc1 (and fc2 without a saved m) recomputed, dh, dn2, dw1,
+        dw2; x, y, g (and m) read, dx (and dy when shifted) written, the
+        weights read and their fp32 gradients written."""
+        C = x.shape[-1]
+        R = x.numel() // C
+        n_io = 3 + bool(with_m) + 1 + bool(shift)
+        return ((5 if with_m else 6) * 2 * R * C * hidden,
+                n_io * R * C * 2 + 2 * C * hidden * (2 + 4)
+                + (2 * hidden + 9 * C) * 4)
     attn_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
     epi_names = ("dx", "dy", "ds2", "db2", "dw1", "db1", "dw2", "dbw2",
                  "ds1", "db1n")
@@ -355,7 +462,8 @@ def main() -> None:
                 lambda: attn_ops.swin_block_attention_bwd(
                     x, g, qkv, attn, wqkv, wproj, bias, mask, *fwd[7:]),
                 lambda: attn_ops.swin_block_attention_bwd_ref(
-                    *fwd[:7], g, *fwd[7:]), attn_names)
+                    *fwd[:7], g, *fwd[7:]), attn_names,
+                k5_work(x, heads, TN, mask))
             del qkv, attn
         hidden = 4 * C
         epi_w = (1.0 + randn(C, scale=0.1, dtype=torch.float32),
@@ -379,7 +487,8 @@ def main() -> None:
                 lambda: epi_ops.swin_block_epilogue_bwd(
                     x, y, g, m, *epi_w[:7], **kw),
                 lambda: epi_ops.swin_block_epilogue_bwd_ref(
-                    x, y, *epi_w, g, **kw), epi_names)
+                    x, y, *epi_w, g, **kw), epi_names,
+                k6_work(x, hidden, with_m, shift))
             del m
         if with_m:
             kw = dict(gelu_exact=True, shift=0, ws=ws)
@@ -389,7 +498,7 @@ def main() -> None:
                                                 with_m=True),
                 lambda: epi_ops.swin_block_epilogue_with_m_ref(x, y, *epi_w,
                                                                **kw),
-                ("out", "m"))
+                ("out", "m"), mlp_work(x.numel() // C, C, hidden, 4))
         del x, y, g
     torch.cuda.empty_cache()
     print(f"phase 2b backward kernels vs plain: "
@@ -410,20 +519,166 @@ def main() -> None:
             if shift:
                 mask = torch.from_numpy(shifted_window_attention_mask(
                     h, w, ws, shift)).repeat(1, T, T).to(dev)
+            work = attention_work(qkv.numel() // (3 * C), C, TN, heads, mask)
             compare("windowed_attention_image",
                     f"stage{s} {tuple(qkv.shape)} mask={bool(shift)}",
                     lambda: windowed_attention_image(qkv, bias, mask, heads,
                                                      scale, ws),
                     lambda: windowed_attention_image_ref(qkv, bias, mask,
-                                                         heads, scale, ws))
+                                                         heads, scale, ws),
+                    work)
+            # the library yardstick: SDPA with bias (+ the window's mask)
+            # as its additive mask, windows regrouped so that the mask
+            # broadcasts over the images; timed only, the port never
+            # calls it
+            if mask is None:
+                qs, ks, vs = q, k, v
+                am = bias[None].to(bf16)
+            else:
+                nW = mask.shape[0]
+                qs, ks, vs = (t.reshape(-1, nW * heads, TN, C // heads)
+                              for t in (q, k, v))
+                am = (mask[:, None] + bias[None]).reshape(
+                    1, nW * heads, TN, TN).to(bf16)
             compare("fused_window_attention",
                     f"stage{s} {tuple(q.shape)} mask={bool(shift)}",
                     lambda: fused_window_attention(q, k, v, bias, mask,
                                                    scale),
-                    lambda: attend_tiled(q, k, v, bias, mask, scale))
+                    lambda: attend_tiled(q, k, v, bias, mask, scale), work,
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=am, scale=scale))
         del qkv, q, k, v
     torch.cuda.empty_cache()
     print(f"phase 2c route attention kernels vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 2d: the whole-block kernel (row 16); rows 13 and 14 -------
+    t0 = time.perf_counter()
+    from stswincl_tpu_torch.ops import swin_block as wb_ops
+    from stswincl_tpu_torch.ops.add_layernorm import (add_layer_norm,
+                                                      add_layer_norm_ref)
+    from stswincl_tpu_torch.ops.add_ln_mlp import add_ln_mlp, add_ln_mlp_ref
+
+    pair_ms = {}  # row-16 case -> ms of the K1 + K2 pair on its inputs
+    whole_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias",
+                   "ds2", "db2", "dw1", "db1", "dw2", "dbw2", "ds1", "db1n")
+    for s, batch in ((1, 2 * BS), (2, 2 * BS), (1, 2 * TB), (2, 2 * TB)):
+        C, h, w, ws = (stage[s][k] for k in ("C", "h", "w", "ws"))
+        heads, T = 4, 2
+        TN, hidden = T * ws * ws, 4 * C
+        x = randn(batch, T, h, w, C)
+        # qkv and proj weights and the relative bias drawn large enough
+        # that the attention branch y is about as large as x (1.1-1.3x)
+        # and the softmax peaked: at unit gains and a 0.02 bias y is 3-4 %
+        # of x, and a fault in the attention phases would move the block's
+        # output by less than TOL_REL
+        params = [uniform(3 * C, C, fan_in=C, gain=3.0),
+                  uniform(3 * C, fan_in=C, dtype=torch.float32),
+                  uniform(C, C, fan_in=C, gain=2.0),
+                  uniform(C, fan_in=C, dtype=torch.float32),
+                  randn(heads, TN, TN, dtype=torch.float32), None,
+                  1.0 + randn(C, scale=0.1, dtype=torch.float32),
+                  randn(C, scale=0.1, dtype=torch.float32),
+                  uniform(hidden, C, fan_in=C),
+                  uniform(hidden, fan_in=C, dtype=torch.float32),
+                  uniform(C, hidden, fan_in=hidden),
+                  uniform(C, fan_in=hidden, dtype=torch.float32),
+                  1.0 + randn(C, scale=0.1, dtype=torch.float32),
+                  randn(C, scale=0.1, dtype=torch.float32)]
+        cfgw = (heads, (C // heads) ** -0.5, ws)
+        R = x.numel() // C
+        case = f"stage{s} {tuple(x.shape)}"
+        compare("whole_swin_block", case,
+                lambda: wb_ops.whole_swin_block(x, *params, *cfgw),
+                lambda: wb_ops.whole_swin_block_ref(x, *params, *cfgw),
+                (8 * R * C * C + 4 * R * TN * C + 4 * R * C * hidden,
+                 2 * R * C * 2 + (4 * C * C + 2 * C * hidden) * 2
+                 + (9 * C + hidden) * 4 + heads * TN * TN * 4))
+        # a planted fault: the twin without its relative bias must lie far
+        # outside the bound the kernel is held to
+        want = wb_ops.whole_swin_block_ref(x, *params, *cfgw).float()
+        no_bias = params[:4] + [torch.zeros_like(params[4])] + params[5:]
+        moved = ((wb_ops.whole_swin_block_ref(x, *no_bias, *cfgw).float()
+                  - want).norm() / want.norm()).item()
+        y_size = (swin_block_attention_ref(x, *params[:6], *cfgw).float()
+                  .norm() / x.float().norm()).item()
+        del want
+        print(f"  {'':22s} {case:34s} |y| / |x| {y_size:.3f}; the twin "
+              f"without its relative bias moves by rel {moved:.3e}; "
+              f"{wb_ops._slots(T, C, heads, ws)} workspace slots",
+              flush=True)
+        check(moved > 10 * TOL_REL, f"whole_swin_block {case}: dropping the "
+              f"relative bias moves the output by only {moved}")
+        pair_ms[case] = median_ms(lambda: swin_block_epilogue(
+            x, swin_block_attention(x, *params[:6], *cfgw), *params[6:],
+            ws=ws))
+        # device-memory bytes of one call by design (computed from the
+        # shapes, not measured), each intermediate written once and read
+        # once (GEMM re-reads counted once), bf16 2 and fp32 4 bytes: row
+        # 16 reads x in phases 1 and 3, writes the output, and takes
+        # through its slot workspace qkv, the attention output, LN2(s),
+        # the hidden activation and the fp32 s (written, read by LN2,
+        # updated by fc2, read by LN1); the pair also writes y (K1) and
+        # reads it back (K2)
+        bytes16 = R * (2 * 2 * C + 2 * C + 2 * 2 * 3 * C + 2 * 2 * C
+                       + 2 * 2 * C + 2 * 2 * hidden + 5 * 4 * C)
+        print(f"  {'K1 + K2 pair':22s} {case:34s} on the same inputs "
+              f"{pair_ms[case]:.3f} ms (measured)", flush=True)
+        print(f"  {'':22s} {case:34s} design count, not measured: "
+              f"device-memory bytes row 16 {bytes16 / 1e9:.3f} GB, the pair "
+              f"{(bytes16 + R * 4 * C) / 1e9:.3f} GB, x and out once "
+              f"{R * 4 * C / 1e9:.3f} GB", flush=True)
+        if batch == 2 * TB:
+            # the backward, through the Function (fp32 weights, as the
+            # model hands them) and autograd of the twin (bf16 weights)
+            mats = (0, 2, 8, 10)
+            given = [p.float() if i in mats else p
+                     for i, p in enumerate(params)]
+            g = randn(*x.shape)
+
+            def grads(fn, ps):
+                idx = [i for i, p in enumerate(ps) if p is not None]
+                leaves = [x.detach().requires_grad_()] + [
+                    ps[i].detach().requires_grad_() for i in idx]
+                a = list(ps)
+                for i, leaf in zip(idx, leaves[1:]):
+                    a[i] = leaf
+                return torch.autograd.grad(fn(leaves[0], *a, *cfgw), leaves,
+                                           g)
+            compare_outputs(
+                "whole_swin_block_bwd", case,
+                lambda: grads(wb_ops.whole_swin_block, given),
+                lambda: grads(wb_ops.whole_swin_block_ref, params),
+                whole_names, None)
+            del given, g
+        del x, params
+        torch.cuda.empty_cache()
+    for C, R in ((512, 163840), (1024, 40960)):  # the profiler's shapes
+        hidden = 4 * C
+        xt, yt = randn(R, C), randn(R, C)
+        p13 = (1.0 + randn(C, scale=0.1, dtype=torch.float32),
+               randn(C, scale=0.1, dtype=torch.float32),
+               uniform(hidden, C, fan_in=C),
+               uniform(hidden, fan_in=C, dtype=torch.float32),
+               uniform(C, hidden, fan_in=hidden),
+               uniform(C, fan_in=hidden, dtype=torch.float32))
+        compare_outputs("add_ln_mlp", f"({R}, {C})",
+                        lambda: add_ln_mlp(xt, yt, *p13),
+                        lambda: add_ln_mlp_ref(xt, yt, *p13), ("s", "m"),
+                        mlp_work(R, C, hidden, 4))
+        ln = p13[:2]
+        compare("add_layer_norm", f"({R}, {C}) norm only",
+                lambda: add_layer_norm(xt, yt, *ln, return_sum=False)[1],
+                lambda: add_layer_norm_ref(xt, yt, *ln, return_sum=False)[1],
+                (10 * R * C, 3 * R * C * 2 + 2 * C * 4, PEAK_F32))
+        compare_outputs("add_layer_norm", f"({R}, {C}) with the sum",
+                        lambda: add_layer_norm(xt, yt, *ln),
+                        lambda: add_layer_norm_ref(xt, yt, *ln),
+                        ("sum", "norm"),
+                        (10 * R * C, 4 * R * C * 2 + 2 * C * 4, PEAK_F32))
+        del xt, yt, p13
+        torch.cuda.empty_cache()
+    print(f"phase 2d whole block, rows 13 and 14 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 3: serve --------------------------------------------------
@@ -444,29 +699,36 @@ def main() -> None:
                 "swin_block_attention_bwd": attn_ops.swin_block_attention_bwd,
                 "swin_block_epilogue_bwd": epi_ops.swin_block_epilogue_bwd,
                 "windowed_attention_image": windowed_attention_image,
-                "fused_window_attention": fused_window_attention}
+                "fused_window_attention": fused_window_attention,
+                "whole_swin_block": wb_ops.whole_swin_block,
+                "add_ln_mlp": add_ln_mlp,
+                "add_layer_norm": add_layer_norm}
     # the attention kernel each route launches in place of K1
     route_kernel = {"pallas_full": "swin_block_attention",
                     "pallas": "windowed_attention_image",
                     "pallas_windows": "fused_window_attention"}
     launches = {}  # path -> {wrapper: launches on that path}
 
-    def serve(route):
-        """Drive StreamingSegmenter on `route` with the phase-3 weights;
-        check it against the full clip, the route's plain form and (for
-        the new routes) the phase-3 route. Returns the full-clip
-        predictions."""
-        m = TswinPlus(**kw, attn_impl=route)
+    def serve(route, whole_block=False):
+        """Drive StreamingSegmenter on `route` (with the whole-block
+        kernel on the W-MSA blocks when `whole_block`) with the phase-3
+        weights; check it against the full clip, the route's plain form
+        and (for the other routes) the phase-3 route. Returns the
+        full-clip predictions."""
+        tag = "pallas_full whole_block" if whole_block else route
+        m = TswinPlus(**kw, attn_impl=route, whole_block=whole_block)
         m.load_state_dict(weights)
         m.to(dev).eval()
         seg = StreamingSegmenter(m, out_hw=OUT_HW)
-        path = "serve" if route == "pallas_full" else f"serve_{route}"
+        path = ("serve_whole_block" if whole_block else "serve"
+                if route == "pallas_full" else f"serve_{route}")
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.synchronize()
         cache, pred = seg.init_and_predict(frames[:, 0:4])
         preds = [pred]
         step_s = []
+        before = {k: fn.launches for k, fn in wrappers.items()}
         for i in range(4, 4 + STEPS):
             ts = time.perf_counter()
             cache, pred = seg.predict_next(cache, frames[:, i])
@@ -474,18 +736,28 @@ def main() -> None:
             step_s.append(time.perf_counter() - ts)
             preds.append(pred)
         launches[path] = {k: fn.launches for k, fn in wrappers.items()}
-        print(f"  [{route}] serving-path launches: {launches[path]}",
-              flush=True)
+        per_step = {k: (n - before[k]) / STEPS
+                    for k, n in launches[path].items()}
+        print(f"  [{tag}] serving-path launches: {launches[path]}; per "
+              f"predict_next: {per_step}", flush=True)
         for k in (route_kernel[route], "swin_block_epilogue", "patch_merge",
                   "upsample_argmax"):
             check(launches[path][k] > 0,
-                  f"{k} was never launched on the {route} serving path")
+                  f"{k} was never launched on the {tag} serving path")
         for r, k in route_kernel.items():
             check(r == route or launches[path][k] == 0,
-                  f"{k} launched on the {route} serving path")
+                  f"{k} launched on the {tag} serving path")
+        # a predict_next runs 7 W-MSA / SW-MSA block pairs at depths (3, 3)
+        # under final_pair_only; row 16 takes the W-MSA block of each pair
+        pair_calls = 1 if whole_block else 2
+        for k, want in ((route_kernel[route], 7 * pair_calls),
+                        ("swin_block_epilogue", 7 * pair_calls),
+                        ("whole_swin_block", 7 if whole_block else 0)):
+            check(per_step[k] == want, f"{tag}: {k} launched {per_step[k]} "
+                  f"times a predict_next, expected {want}")
         steady = step_s[2:]
         fps = BS * len(steady) / sum(steady)
-        print(f"  [{route}] steady-state predict_next: {fps:.2f} frames/s at "
+        print(f"  [{tag}] steady-state predict_next: {fps:.2f} frames/s at "
               f"bs {BS} ({1e3 * statistics.median(steady):.2f} ms/step "
               f"median, {len(steady)} steps) on {smi}", flush=True)
 
@@ -494,7 +766,8 @@ def main() -> None:
                   f"prediction {p.shape} {p.dtype}")
             check(int(p.min()) >= 0 and int(p.max()) < 12,
                   "class out of range")
-        plain = TswinPlus(**kw, attn_impl=route, kernels=False)
+        plain = TswinPlus(**kw, attn_impl=route, kernels=False,
+                          whole_block=whole_block)
         plain.load_state_dict(weights)
         plain.to(dev).eval()
         stream_shares, plain_shares, fulls = [], [], []
@@ -511,16 +784,16 @@ def main() -> None:
                         kernels=False)
                     plain_shares.append((full == ref).float().mean().item())
             classes = torch.bincount(preds[-1].flatten(), minlength=12)
-        print(f"  [{route}] streamed == full clip (kernel route): min "
+        print(f"  [{tag}] streamed == full clip (kernel route): min "
               f"{min(stream_shares):.6f} of pixels over {len(preds)} frames",
               flush=True)
-        print(f"  [{route}] kernel route == plain route: {plain_shares} of "
+        print(f"  [{tag}] kernel route == plain route: {plain_shares} of "
               f"pixels", flush=True)
-        print(f"  [{route}] last-frame class histogram: {classes.tolist()}",
+        print(f"  [{tag}] last-frame class histogram: {classes.tolist()}",
               flush=True)
-        check(min(stream_shares) >= TOL_STREAM_SHARE, f"{route}: streamed vs "
+        check(min(stream_shares) >= TOL_STREAM_SHARE, f"{tag}: streamed vs "
               f"full clip {min(stream_shares)} < {TOL_STREAM_SHARE}")
-        check(min(plain_shares) >= TOL_PLAIN_SHARE, f"{route}: kernel vs "
+        check(min(plain_shares) >= TOL_PLAIN_SHARE, f"{tag}: kernel vs "
               f"plain route {min(plain_shares)} < {TOL_PLAIN_SHARE}")
         return fulls
 
@@ -529,24 +802,47 @@ def main() -> None:
 
     # ---- phase 3b: serve on the 'pallas' and 'pallas_windows' routes -----
     t0 = time.perf_counter()
-    for route in ("pallas", "pallas_windows"):
-        fulls = serve(route)
+    def same_as_phase3(tag, fulls):
         shares = [(a == b).float().mean().item()
                   for a, b in zip(fulls, full_preds)]
-        print(f"  [{route}] == 'pallas_full' route (full clips): min "
+        print(f"  [{tag}] == 'pallas_full' route (full clips): min "
               f"{min(shares):.6f} of pixels over {len(shares)} clips",
               flush=True)
-        check(min(shares) >= TOL_PLAIN_SHARE, f"{route} vs pallas_full "
+        check(min(shares) >= TOL_PLAIN_SHARE, f"{tag} vs pallas_full "
               f"route {min(shares)} < {TOL_PLAIN_SHARE}")
+
+    for route in ("pallas", "pallas_windows"):
+        same_as_phase3(route, serve(route))
     print(f"phase 3b serve on the new routes: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del model, frames, weights, full_preds, fulls
+
+    # ---- phase 3c: serve with the whole-block kernel ---------------------
+    t0 = time.perf_counter()
+    same_as_phase3("whole_block", serve("pallas_full", whole_block=True))
+    print(f"phase 3c serve with the whole-block kernel: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, frames, weights, full_preds
     torch.cuda.empty_cache()
 
-    # ---- phases 4 and 4d: train ------------------------------------------
+    # ---- phases 4, 4d and 4e: train --------------------------------------
     t0 = time.perf_counter()
     phase_train(dev, bf16, smi, wrappers, route_kernel, launches)
-    print(f"phases 4 and 4d train: {time.perf_counter() - t0:.1f} s",
+    print(f"phases 4, 4d and 4e train: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- phase 5: the kernel profiler's entry point ----------------------
+    t0 = time.perf_counter()
+    from stswincl_tpu_torch.tools import profile_swin_kernels
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    profile_swin_kernels.main(["--reps", "3"])
+    launches["profile"] = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"  profiler launches: {launches['profile']}", flush=True)
+    for k in ("swin_block_attention", "add_ln_mlp", "add_layer_norm"):
+        check(launches["profile"][k] > 0, f"{k} was never launched by the "
+              "kernel profiler")
+    print(f"phase 5 kernel profiler: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     meta = {
@@ -572,11 +868,24 @@ def main() -> None:
         "fused_window_attention": (
             "window_attention.cu",
             "stswincl_tpu/ops/pallas_attention.py:118"),
+        "whole_swin_block": ("swin_block.cu",
+                             "stswincl_tpu/ops/pallas_swin_block.py:229"),
+        "add_ln_mlp": ("epilogue.cu",
+                       "stswincl_tpu/ops/pallas_add_ln_mlp.py:97"),
+        "add_layer_norm": ("add_layernorm.cu",
+                           "stswincl_tpu/ops/pallas_add_layernorm.py:110"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
-        cases = results[k]
         by_path = {path: counts[k] for path, counts in launches.items()}
+        ops_ms = sum(c.get("ops_ms", 0.0) for c in results[k])
+        bytes_ms = sum(c.get("bytes_ms", 0.0) for c in results[k])
+        # the line carries each case's bound_ms and bound_by, not the two
+        # times it is the larger of
+        cases = [{n: v for n, v in c.items() if n not in ("ops_ms",
+                                                         "bytes_ms")}
+                 for c in results[k]]
+        lib = [c["library_ms"] for c in cases]
         rows.append({
             "name": k, "route": "cuda",
             "source": f"stswincl_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -584,7 +893,13 @@ def main() -> None:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": sum(c["bound_ms"] for c in cases),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None if None in lib else sum(lib),
             "cases": cases})
+    row16 = next(r for r in rows if r["name"] == "whole_swin_block")
+    row16["pair_ms"] = pair_ms  # its yardstick; not a library call
+    row16["backward"] = results["whole_swin_block_bwd"]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -601,10 +916,11 @@ def gpu_clocks() -> str:
 
 
 def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
-    """Phases 4 and 4d; each train path's launches go into `launches`."""
+    """Phases 4, 4d and 4e; each train path's launches go into
+    `launches`."""
     import torch
     import torch.utils.checkpoint
-    from stswincl_tpu.configs import SegTrainConfig
+    from stswincl_tpu_torch.configs import SegTrainConfig
     from stswincl_tpu_torch.models import TswinPlus
     from stswincl_tpu_torch.models.aspp import ConvBNRelu
     from stswincl_tpu_torch.models.init import init_weights
@@ -629,8 +945,9 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
     print(f"  TswinPlus {kw}, batch {TB}, clips {tuple(images.shape)}",
           flush=True)
 
-    def new_model(route, kernels=None):
-        m = TswinPlus(**kw, attn_impl=route, kernels=kernels)
+    def new_model(route, kernels=None, whole_block=False):
+        m = TswinPlus(**kw, attn_impl=route, kernels=kernels,
+                      whole_block=whole_block)
         m.load_state_dict(init_state)
         return m.to(dev)
 
@@ -652,14 +969,19 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
                  if n.endswith(("running_mean", "running_var"))}
         return loss, grads, stats, time.perf_counter() - ts
 
-    def compare_routes(route, tag, images, labels):
+    def compare_routes(route, tag, images, labels, whole_block=False,
+                       control=None):
         """One step on the route's kernels and one on its plain form from
         the same weights and batch, held against each other. The plain
         form recomputes each swin block in its backward
         (torch.utils.checkpoint, same numbers) so its twins' fp32
-        intermediates fit the card at batch 8. Returns the peak memory."""
+        intermediates fit the card at batch 8. `control`: the gradient
+        cosines of a sound route on the same batch, each of which this
+        route's 1 - cosine must stay near. Returns the peak memory and
+        the cosines."""
         torch.cuda.reset_peak_memory_stats()
-        model = new_model(route)
+        model = new_model(route, whole_block=whole_block)
+        route = f"{route} whole_block" if whole_block else route
         loss_k, grads_k, stats_k, sec_k = one_step(model, images, labels)
         # a conv bias that feeds a train-mode BatchNorm has a zero
         # gradient in exact arithmetic (the BatchNorm removes the channel
@@ -668,7 +990,8 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
         zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
                      if isinstance(mod, ConvBNRelu)}
         del model
-        plain = new_model(route, kernels=False)
+        plain = new_model(route.split()[0], kernels=False,
+                          whole_block=whole_block)
         for mod in plain.modules():
             if isinstance(mod, SpaceTimeSwinBlock):
                 mod.forward = functools.partial(
@@ -704,6 +1027,23 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
               f"largest gradient norm ({top:.3e})", flush=True)
         for n, c in cosines.items():
             check(c >= TOL_GRAD_COS, f"{route}: gradient cosine of {n}: {c}")
+        if control is not None:
+            # 1 - cosine against the control's: rounding alone keeps the
+            # two alike, a fault in this route's kernels lifts this one
+            share = {n: (1 - c) / (TOL_NOISE_FACTOR * max(1 - control[n], 0)
+                                   + TOL_NOISE_FLOOR)
+                     for n, c in cosines.items()}
+            top5 = sorted(share.items(), key=lambda kv: -kv[1])[:5]
+            print(f"  {tag} [{route}] 1 - cos over its bound from the "
+                  f"control ({TOL_NOISE_FACTOR} x the control's + "
+                  f"{TOL_NOISE_FLOOR}): max {top5[0][1]:.3f} ({top5[0][0]}: "
+                  f"1 - cos {1 - cosines[top5[0][0]]:.3e}, control "
+                  f"{1 - control[top5[0][0]]:.3e}); highest five {top5}",
+                  flush=True)
+            for n, r in share.items():
+                check(r <= 1.0, f"{route}: gradient of {n}: 1 - cos "
+                      f"{1 - cosines[n]} against the control's "
+                      f"{1 - control[n]}")
         stat_rel = {n: ((stats_k[n] - b).norm() / b.norm()).item()
                     for n, b in stats_p.items()}
         worst_stat = max(stat_rel.items(), key=lambda kv: kv[1])
@@ -712,25 +1052,31 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
               f"{len(stat_rel)}", flush=True)
         check(worst_stat[1] <= TOL_STATS, f"{route}: BN statistic "
               f"{worst_stat}")
-        return torch.cuda.max_memory_allocated()
+        return torch.cuda.max_memory_allocated(), cosines
 
-    def train_path(route, n_steps, tag, peak_a, images, labels):
+    def train_path(route, n_steps, tag, peak_a, images, labels,
+                   whole_block=False):
         """`n_steps` kernel-route steps on the repeated batch, the route's
         train main path: finite, falling losses, each kernel launched once
-        per call of the block it serves, ms/step and peak memory."""
-        model = new_model(route)
+        per call of the block it serves, ms/step and peak memory. With
+        `whole_block` row 16 serves the W-MSA blocks; their backward
+        recomputes the K1 + K2 pair, so K1 and K2, like K5 and K6, run
+        once per block call."""
+        model = new_model(route, whole_block=whole_block)
         step, _ = new_step(model, n_steps)
-        calls = {"block": 0, "merge": 0}
+        calls = {"block": 0, "merge": 0, "w": 0}
 
-        def counter(key):
-            def hook(*_):
-                calls[key] += 1
-            return hook
-        hooks = [mod.register_forward_hook(counter(
-            "block" if isinstance(mod, SpaceTimeSwinBlock) else "merge"))
-            for mod in model.modules()
-            if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
-        path = "train" if route == "pallas_full" else f"train_{route}"
+        def counter(mod, *_):
+            if isinstance(mod, PatchMerging):
+                calls["merge"] += 1
+                return
+            calls["block"] += 1
+            calls["w"] += mod.shift_size == 0
+        hooks = [mod.register_forward_hook(counter)
+                 for mod in model.modules()
+                 if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
+        path = ("train_whole_block" if whole_block else "train"
+                if route == "pallas_full" else f"train_{route}")
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -762,6 +1108,10 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
               flush=True)
         check(all(math.isfinite(v) for v in losses), "non-finite train loss")
         check(losses[-1] < losses[0], f"{route}: loss did not fall: {losses}")
+        whole = launches[path]["whole_swin_block"]
+        check(whole == (calls["w"] if whole_block else 0),
+              f"{route}: whole_swin_block: {whole} launches for "
+              f"{calls['w']} W-MSA block calls (whole_block {whole_block})")
         per_block = [route_kernel[route], "swin_block_epilogue",
                      "swin_block_epilogue_bwd"]
         if route == "pallas_full":
@@ -794,13 +1144,25 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
     # (b, c) ten steps of it
     batch = batches[3]
     train_path("pallas_full", TRAIN_STEPS, "(b, c)",
-               compare_routes("pallas_full", "(a)", *batch), *batch)
+               compare_routes("pallas_full", "(a)", *batch)[0], *batch)
     # phase 4d: the same, shorter, on the 'pallas' and 'pallas_windows'
     # routes, on a second batch
     batch = batches[ROUTE_TRAIN_SEED]
     for route in ("pallas", "pallas_windows"):
         train_path(route, ROUTE_TRAIN_STEPS, "(4d)",
-                   compare_routes(route, "(4d)", *batch), *batch)
+                   compare_routes(route, "(4d)", *batch)[0], *batch)
+    # phase 4e: the W-MSA blocks on the whole-block kernel, from the
+    # phase-4 weights, on the second batch for the reason 4d takes it
+    # there (on the phase-4 batch the ASPP image-pool conv weight and the
+    # stem BatchNorm bias sit at 0.987-0.988, PERF.md). The absolute
+    # cosine bound has no margin on either batch, so each gradient is also
+    # held against the noise of phase 4's route (K1 + K2 on every block)
+    # on the same batch: the two routes differ only in the W-MSA blocks
+    _, control = compare_routes("pallas_full", "(4e control)", *batch)
+    train_path("pallas_full", ROUTE_TRAIN_STEPS, "(4e)",
+               compare_routes("pallas_full", "(4e)", *batch,
+                              whole_block=True, control=control)[0], *batch,
+               whole_block=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,98 @@
+// Row 14: the residual add and LayerNorm, (x + y, LN(x + y)), or LN(x + y)
+// alone.
+//
+// Replaces: stswincl_tpu/ops/pallas_add_layernorm.py
+//   fused_add_layer_norm (:110) / _run_add_ln (:65) -> _add_ln_kernel (:43)
+//   and _add_ln_kernel_noout (:55).
+//
+// Bound on the H100: device memory. A row of C channels reads 4C bytes
+// and writes 2C (4C with the sum) for about 10 flops a channel, far below
+// the card's 295 flops a byte. The TPU kernel picked row tiles to fit
+// VMEM; here one warp owns one row: 16-byte loads and stores (8 bf16 a
+// lane), the row kept in registers, fp32 statistics in two passes (mean,
+// then the mean of squared deviations, as `_ln_math`), and no shared
+// memory. Enough warps are in flight to cover the latency of the loads.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int WARPS = 8, MAX_CHUNKS = 8;  // C <= 8 * 256
+
+__device__ __forceinline__ void load8(const bf16* src, float (&v)[8]) {
+  __align__(16) bf16 o[8];
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(o[e]);
+}
+
+__device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(v[e]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+    add_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                  const float* __restrict__ g, const float* __restrict__ b,
+                  bf16* __restrict__ sum_out, bf16* __restrict__ out, int R,
+                  int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int chunks = C / 256;
+  const long long base = (long long)r * C;
+  float v[MAX_CHUNKS][8];
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAX_CHUNKS; ++i)
+    if (i < chunks) {
+      const int c = i * 256 + lane * 8;
+      float yv[8];
+      load8(x + base + c, v[i]);
+      load8(y + base + c, yv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[i][e] += yv[e];
+        sum += v[i][e];
+      }
+      if (sum_out) store8(sum_out + base + c, v[i]);
+    }
+  const float mu = warp_sum(sum) / C;
+  float sq = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAX_CHUNKS; ++i)
+    if (i < chunks)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[i][e] -= mu;
+        sq += v[i][e] * v[i][e];
+      }
+  const float rs = rsqrtf(warp_sum(sq) / C + eps);
+#pragma unroll
+  for (int i = 0; i < MAX_CHUNKS; ++i)
+    if (i < chunks) {
+      const int c = i * 256 + lane * 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = v[i][e] * rs * g[c + e] + b[c + e];
+      store8(out + base + c, v[i]);
+    }
+}
+
+}  // namespace
+
+// x, y, out, sum_out (or null): (rows, C) bf16, C a multiple of 256 up to
+// 2048; scale, bias (C,) fp32.
+extern "C" int stswin_add_layer_norm(const void* x, const void* y,
+                                     const void* scale, const void* bias,
+                                     void* sum_out, void* out, int R, int C,
+                                     float eps, void* stream) {
+  if (C % 256 || C > MAX_CHUNKS * 256 || R <= 0) return cudaErrorInvalidValue;
+  add_ln_kernel<<<(R + WARPS - 1) / WARPS, WARPS * 32, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<bf16*>(sum_out), static_cast<bf16*>(out), R, C, eps);
+  return cudaGetLastError();
+}

@@ -53,6 +53,21 @@
 //      unshifted (dx) and through the shift (dy, the gradient of the
 //      attention's shifted output), with the sums of dn2 * xhat2, dn2;
 //   8. dw1 = dpre^T n2, dw2 = dm^T h (split-K weight-gradient GEMM).
+//
+// Row 13 (`stswin_add_ln_mlp`, at the end): (s, m) = (bf16(x + y),
+// bf16(fc2(GELU(fc1(LN(x + y)))))), the tail of K2 without its LN1.
+//
+// Replaces: stswincl_tpu/ops/pallas_add_ln_mlp.py
+//   fused_add_ln_mlp (:97) -> _kernel (:38).
+//
+// Bound: fc1 and fc2, 4 * rows * C * hidden flops, on the tensor cores
+// (687 GFLOP at the profiler's shapes); the rows move 8 bytes a channel.
+// The TPU kernel kept LN(s) and the fp32 accumulator in VMEM across its
+// hidden blocks. Here it is K2's device code, three launches: the LN
+// prologue (writing bf16(s) beside the fp32 s it normalises), the fc1
+// GEMM with bias and GELU, and the fc2 GEMM whose fp32 sum plus bias is
+// rounded once, into m. LN(s) and the hidden activation go through device
+// memory in bf16, as in K2.
 
 #include "common.cuh"
 
@@ -60,15 +75,16 @@ namespace {
 
 constexpr int LN_WARPS = 8;
 
-// ADD: s = x[r] + y[unshift(r)] is written to s32 first; else s32 is read.
-// Else, with m, the row normalised is s32 + m (m bf16, added in fp32).
+// ADD: s = x[r] + y[unshift(r)] is written to s32 first (and, with
+// sum_out, bf16(s) to sum_out); else s32 is read. Else, with m, the row
+// normalised is s32 + m (m bf16, added in fp32).
 template <bool ADD>
 __global__ void __launch_bounds__(LN_WARPS * 32)
     ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
                    const bf16* __restrict__ m, const float* __restrict__ g,
                    const float* __restrict__ b, float* __restrict__ s32,
-                   bf16* __restrict__ out, int R, int C, int H, int W,
-                   int shift, float eps) {
+                   bf16* __restrict__ out, bf16* __restrict__ sum_out, int R,
+                   int C, int H, int W, int shift, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * LN_WARPS + warp;
   if (r >= R) return;
@@ -98,6 +114,9 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yr + c));
       const float2 s = make_float2(xv.x + yv.x, xv.y + yv.y);
       *reinterpret_cast<float2*>(srow + c) = s;
+      if (sum_out)
+        *reinterpret_cast<__nv_bfloat162*>(sum_out + (long long)r * C + c) =
+            __floats2bfloat162_rn(s.x, s.y);
       sum += s.x + s.y;
     }
   } else {
@@ -367,8 +386,8 @@ extern "C" int stswin_block_epilogue(
   ln_rows_kernel<true><<<blocks, LN_WARPS * 32, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), nullptr,
       static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<float*>(s32), static_cast<bf16*>(n2), R, C, H, W, shift,
-      eps);
+      static_cast<float*>(s32), static_cast<bf16*>(n2), nullptr, R, C, H, W,
+      shift, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -409,7 +428,7 @@ extern "C" int stswin_block_epilogue(
       nullptr, nullptr, static_cast<const bf16*>(m_out),
       static_cast<const float*>(s1),
       static_cast<const float*>(b1n), static_cast<float*>(s32),
-      static_cast<bf16*>(out), R, C, H, W, 0, eps);
+      static_cast<bf16*>(out), nullptr, R, C, H, W, 0, eps);
   return cudaGetLastError();
 }
 
@@ -449,8 +468,8 @@ extern "C" int stswin_block_epilogue_bwd(
   ln_rows_kernel<true><<<blocks, LN_WARPS * 32, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), nullptr,
       static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<float*>(s32), static_cast<bf16*>(n2), R, C, H, W, shift,
-      eps);
+      static_cast<float*>(s32), static_cast<bf16*>(n2), nullptr, R, C, H, W,
+      shift, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 2. h = bf16(gelu(n2 @ w1^T + b1)), dgelu = gelu'(.) fp32
@@ -560,4 +579,51 @@ extern "C" int stswin_block_epilogue_bwd(
   w.Cw = static_cast<float*>(dw2);
   w.ldc = hidden;
   return gemm_wgrad(w, s);
+}
+
+// Row 13. x, y, sum_out, m_out: (rows, C) bf16; scale, bias, b1, b2 fp32;
+// w1 (hidden, C), w2 (C, hidden) bf16. Scratch: s32 (rows, C) fp32, n
+// (rows, C) bf16, hid (rows, hidden) bf16.
+extern "C" int stswin_add_ln_mlp(const void* x, const void* y,
+                                 const void* scale, const void* bias,
+                                 const void* w1, const void* b1,
+                                 const void* w2, const void* b2, void* s32,
+                                 void* n, void* hid, void* sum_out,
+                                 void* m_out, int R, int C, int hidden,
+                                 int act, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (R + LN_WARPS - 1) / LN_WARPS;
+  ln_rows_kernel<true><<<blocks, LN_WARPS * 32, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y), nullptr,
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<float*>(s32), static_cast<bf16*>(n),
+      static_cast<bf16*>(sum_out), R, C, 1, R, 0, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  GemmParams g{};
+  g.A = static_cast<const bf16*>(n);
+  g.lda = C;
+  g.a_map = identity_map();
+  g.Wt = static_cast<const bf16*>(w1);
+  g.bias = static_cast<const float*>(b1);
+  g.M = R;
+  g.N = hidden;
+  g.K = C;
+  g.C = static_cast<bf16*>(hid);
+  g.ldc = hidden;
+  g.c_map = identity_map();
+  g.act = act;
+  if ((err = gemm_bf16(g, EPI_BF16, s)) != cudaSuccess) return err;
+
+  g.A = static_cast<const bf16*>(hid);
+  g.lda = hidden;
+  g.Wt = static_cast<const bf16*>(w2);
+  g.bias = static_cast<const float*>(b2);
+  g.N = C;
+  g.K = hidden;
+  g.C = static_cast<bf16*>(m_out);
+  g.ldc = C;
+  g.act = ACT_NONE;
+  return gemm_bf16(g, EPI_BF16, s);
 }

@@ -47,6 +47,11 @@ SIGNATURES = {
     "stswin_upsample_argmax": [_P] * 4 + [_I] * 7 + [_P],
     "stswin_window_attention_image": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     "stswin_window_attention_heads": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "stswin_whole_block": [_P] * 18 + [_I] * 10 + [_F, _F, _P],
+    # a query, not a launch: (T, C, heads, ws, int* slots), no stream
+    "stswin_whole_block_slots": [_I] * 4 + [ctypes.POINTER(_I)],
+    "stswin_add_ln_mlp": [_P] * 13 + [_I] * 4 + [_F, _P],
+    "stswin_add_layer_norm": [_P] * 6 + [_I] * 2 + [_F, _P],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90

@@ -76,7 +76,9 @@ class TswinPlus(nn.Module):
     input is on CUDA) chooses the CUDA kernels or their plain twins;
     `attn_impl` the swin blocks' attention route (`models/swin.py`:
     'auto' = 'pallas_full', 'pallas', 'pallas_windows', 'einsum'), as
-    `ModelConfig.attn_impl` chooses it in the JAX package."""
+    `ModelConfig.attn_impl` chooses it in the JAX package; `whole_block`
+    runs the W-MSA blocks of 'pallas_full' through the whole-block kernel
+    (Pallas row 16), as `STSWIN_WHOLE_BLOCK=1` does there."""
 
     def __init__(self, num_classes: int, swin_dim: int = 512,
                  num_heads: int = 4, gelu_exact: bool = True,
@@ -84,7 +86,8 @@ class TswinPlus(nn.Module):
                  swin_depths: Tuple[int, int] = (3, 3),
                  dtype: torch.dtype = torch.float32,
                  input_hw: Tuple[int, int] = (512, 640),
-                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto",
+                 whole_block: bool = False):
         super().__init__()
         self.num_classes, self.swin_dim = num_classes, swin_dim
         self.dtype, self.kernels = dtype, kernels
@@ -93,7 +96,7 @@ class TswinPlus(nn.Module):
         self.resnet = ResNet18OS8(width=swin_dim // 8, dtype=dtype)
         self.swin = SwinTemporalStack(
             swin_dim, (h8, w8), num_heads, gelu_exact, final_pair_only,
-            swin_depths, dtype, kernels, attn_impl)
+            swin_depths, dtype, kernels, attn_impl, whole_block)
         self.aspp = ASPP(2 * swin_dim, 256, dtype=dtype)
         self.project1 = ProjectBNRelu(swin_dim, dtype=dtype)
         self.project2 = ProjectBNRelu(swin_dim, dtype=dtype)

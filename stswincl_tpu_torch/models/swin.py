@@ -17,7 +17,13 @@ attention route of every block, as in the JAX package (`resolve_attn_impl`):
 
 On the last three the SW block rolls the clip around the attention and
 runs K2 unshifted, as the JAX package's blocks do off the 'pallas_full'
-route (`swin.py:403-437`). Two quirks of the reference are kept:
+route (`swin.py:403-437`).
+
+`whole_block` is the port's form of the JAX knob `STSWIN_WHOLE_BLOCK=1`
+(`swin.py:346-369`): on 'pallas_full', a block with shift 0 and no
+`out_frame` runs as one launch of the whole-block kernel, Pallas row 16
+(`ops/swin_block.whole_swin_block`), in place of K1 + K2; every other
+block keeps its route. Two quirks of the reference are kept:
 
   * the nonstandard norm order: no pre-norm on the attention branch, and
     x = norm1(x + mlp(norm2(x))) after it (`swin_512.py:234-235`);
@@ -53,6 +59,8 @@ from stswincl_tpu_torch.ops.block_attention import (
     swin_block_attention, swin_block_attention_ref, windowed_attention_image,
     windowed_attention_image_ref)
 from stswincl_tpu_torch.ops.patch_merge import patch_merge, patch_merge_ref
+from stswincl_tpu_torch.ops.swin_block import (whole_swin_block,
+                                               whole_swin_block_ref)
 from stswincl_tpu_torch.ops.window import (cyclic_shift, partition_qkv,
                                            relative_position_index,
                                            reverse_windows,
@@ -147,7 +155,8 @@ class SpaceTimeSwinBlock(nn.Module):
                  num_heads: int, window_size: int = 8, shift_size: int = 0,
                  mlp_ratio: float = 4.0, gelu_exact: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto",
+                 whole_block: bool = False):
         super().__init__()
         H, W = input_resolution
         ws, ss = window_size, shift_size
@@ -159,6 +168,7 @@ class SpaceTimeSwinBlock(nn.Module):
         self.scale = (dim // num_heads) ** -0.5
         self.gelu_exact, self.dtype, self.kernels = gelu_exact, dtype, kernels
         self.attn_impl = resolve_attn_impl(attn_impl)
+        self.whole_block = whole_block
         self.attn = WindowAttention(dim, ws, num_heads)
         self.norm1 = LayerNormParams(dim)
         self.norm2 = LayerNormParams(dim)
@@ -192,6 +202,15 @@ class SpaceTimeSwinBlock(nn.Module):
         a, mlp = self.attn, self.mlp
         x = x.to(dt).contiguous()
         mask = self._mask(T, x.device)
+        if (self.whole_block and ss == 0 and out_frame is None
+                and self.attn_impl == "pallas_full"):
+            whole = whole_swin_block if kern else whole_swin_block_ref
+            n1, n2 = self.norm1, self.norm2
+            return whole(x, w(a.qkv), a.qkv.bias, w(a.proj), a.proj.bias,
+                         a.bias_tiled(T), mask, n2.weight, n2.bias,
+                         w(mlp.fc1), mlp.fc1.bias, w(mlp.fc2), mlp.fc2.bias,
+                         n1.weight, n1.bias, self.num_heads, self.scale, ws,
+                         self.gelu_exact)
         if self.attn_impl == "pallas_full":
             attn = swin_block_attention if kern else swin_block_attention_ref
             y = attn(x, w(a.qkv), a.qkv.bias, w(a.proj), a.proj.bias,
@@ -280,7 +299,8 @@ def _apply_paired(block_pair, x, pairs, out_frame=None, g0_out_frame=None):
 class SwinTemporalStack(nn.Module):
     """The full STswin module: `depths[0]` paired layers at (H, W) with
     window 8 / shift 4, patch merging, `depths[1]` paired layers at
-    (H/2, W/2) with window 4 / shift 2.
+    (H/2, W/2) with window 4 / shift 2. `whole_block`: see the module
+    docstring.
 
     Input (B, 4, H, W, C); output (stage1 (B, 4, H, W, C),
     stage2 (B, 4, H/2, W/2, 2C))."""
@@ -291,14 +311,15 @@ class SwinTemporalStack(nn.Module):
                  final_pair_only: bool = False,
                  depths: Tuple[int, int] = (3, 3),
                  dtype: torch.dtype = torch.float32,
-                 kernels: Optional[bool] = None, attn_impl: str = "auto"):
+                 kernels: Optional[bool] = None, attn_impl: str = "auto",
+                 whole_block: bool = False):
         super().__init__()
         H, W = input_resolution
         self.input_resolution = (H, W)
         self.final_pair_only = final_pair_only
         self.depths = tuple(depths)
         common = dict(gelu_exact=gelu_exact, dtype=dtype, kernels=kernels,
-                      attn_impl=attn_impl)
+                      attn_impl=attn_impl, whole_block=whole_block)
         d1, d2 = self.depths
         for i in range(d1 + d2):
             stage1 = i < d1

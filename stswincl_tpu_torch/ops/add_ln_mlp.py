@@ -1,6 +1,7 @@
 """K2 and K6: the swin block's post-attention tail,
 LN1(s + MLP(LN2(s))) with s = x + y in fp32 (the reference's nonstandard
-norm order), and its backward.
+norm order), and its backward; and Pallas row 13, the same tail without
+LN1: (s, MLP(LN(s))).
 
 Counterparts in `stswincl_tpu/ops/pallas_add_ln_mlp.py`:
 `fused_swin_block_epilogue` and `fused_swin_block_epilogue_shifted` (K2),
@@ -23,6 +24,12 @@ training backward (and the JAX reference `:877-891`) rounds m to x's
 dtype first (`:216`, `:788-793`). `mlp_output_saved` picks, from the
 shape, whether the training forward saves that rounded m (stage 2) or the
 backward recomputes it (stage 1).
+
+`add_ln_mlp` (row 13, `fused_add_ln_mlp`, `pallas_add_ln_mlp.py:97`)
+launches `stswin_add_ln_mlp` (`csrc/epilogue.cu`, K2's device code) on a
+CUDA tensor and runs the twin `add_ln_mlp_ref` on a CPU tensor; its
+backward is autograd of the twin, as JAX's `_bwd` (`:145-153`) is a VJP of
+`add_ln_mlp_ref`.
 
 Weights use the torch Linear layout: w1 (4C, C), w2 (C, 4C), in any float
 dtype (cast to x's dtype for the products; gradients in their own dtype).
@@ -279,3 +286,78 @@ class EpilogueFn(torch.autograd.Function):
         dx, dy, *dparams = grads
         dparams = [d.to(t) for d, t in zip(dparams, ctx.dtypes)]
         return (dx, dy, *dparams, None, None, None, None)
+
+
+def add_ln_mlp_ref(x, y, scale, bias, w1, b1, w2, b2,
+                   gelu_exact: bool = True, eps: float = 1e-5):
+    """Plain twin of row 13 (port of `add_ln_mlp_ref`): s = x + y in fp32,
+    returned rounded to x's dtype, and m = MLP(LN(s)) with LN(s) and the
+    GELU output rounded to x's dtype and m from the fp32 sum rounded once.
+    The weights are cast to x's dtype, as `mlp_ref` casts them."""
+    s32 = x.float() + y.float()
+    n = layer_norm_f32(s32, scale, bias, eps).to(x.dtype)
+    h = gelu(F.linear(n.float(), w1.to(x.dtype).float(), b1.float()),
+             gelu_exact)
+    m = F.linear(h.to(x.dtype).float(), w2.to(x.dtype).float(), b2.float())
+    return s32.to(x.dtype), m.to(x.dtype)
+
+
+def _add_ln_mlp_kernel(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
+    """Launch row 13 (weights already in x's dtype)."""
+    name = "add_ln_mlp"
+    _, _, rows, C, hidden = _geometry(name, x, y, w1, 0, None)
+    _check_params(name, x, w1, b1, w2, (scale, bias, b2), C, hidden)
+    kernels.require_on(x.device, name, y)
+    dev = x.device
+    s32 = torch.empty((rows, C), dtype=torch.float32, device=dev)
+    n = torch.empty((rows, C), dtype=x.dtype, device=dev)
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    s, m = torch.empty_like(x), torch.empty_like(x)
+    P = kernels.ptr
+    kernels.launch("stswin_add_ln_mlp", dev, P(x), P(y), P(scale), P(bias),
+                   P(w1), P(b1), P(w2), P(b2), P(s32), P(n), P(hid), P(s),
+                   P(m), rows, C, hidden, 1 if gelu_exact else 2, float(eps))
+    add_ln_mlp.launches += 1
+    return s, m
+
+
+def _add_ln_mlp_forward(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
+    if x.device.type == "cpu":
+        return add_ln_mlp_ref(x, y, scale, bias, w1, b1, w2, b2, gelu_exact,
+                              eps)
+    return _add_ln_mlp_kernel(x, y, scale, bias, w1.to(x.dtype), b1,
+                              w2.to(x.dtype), b2, gelu_exact, eps)
+
+
+def add_ln_mlp(x, y, scale, bias, w1, b1, w2, b2, gelu_exact: bool = True,
+               eps: float = 1e-5):
+    """Pallas row 13: (x + y, MLP(LayerNorm(x + y))) over the last axis.
+    x, y: (..., C) in one dtype; scale, bias, b1, b2 fp32; w1 (hidden, C),
+    w2 (C, hidden). Returns (s, m), each of x's shape and dtype."""
+    args = (x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps)
+    if kernels.needs_grad(x, y, scale, bias, w1, b1, w2, b2):
+        return AddLnMlpFn.apply(*args)
+    return _add_ln_mlp_forward(*args)
+
+
+add_ln_mlp.launches = 0
+
+
+class AddLnMlpFn(torch.autograd.Function):
+    """Row 13: the kernel forward on CUDA (the twin on the CPU); backward:
+    autograd of `add_ln_mlp_ref` on the saved inputs (JAX's `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
+        ctx.cfg = (gelu_exact, eps)
+        ctx.save_for_backward(x, y, scale, bias, w1, b1, w2, b2)
+        return _add_ln_mlp_forward(x, y, scale, bias, w1, b1, w2, b2,
+                                   gelu_exact, eps)
+
+    @staticmethod
+    def backward(ctx, gs, gm):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = add_ln_mlp_ref(*leaves, *ctx.cfg)
+            grads = torch.autograd.grad(outs, leaves, (gs, gm))
+        return (*grads, None, None)

@@ -1,9 +1,9 @@
-"""Model construction from the shared configs.
+"""Model construction from the configs.
 
 Counterpart of `stswincl_tpu/pipelines/common.py` (`resolve_dtype`,
-`build_model`). The configs are the JAX package's dataclasses
-(`stswincl_tpu/configs.py`, standard library only). Data loaders, meshes
-and variable initialisation are not ported yet (ROADMAP Queue 1 item 4).
+`build_model`). The configs are the port's copies of the JAX package's
+dataclasses (`stswincl_tpu_torch/configs.py`). Data loaders, meshes and
+variable initialisation are not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-from stswincl_tpu.configs import DataConfig, ModelConfig
+from stswincl_tpu_torch.configs import DataConfig, ModelConfig
+from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
 from stswincl_tpu_torch.models.stswin import TswinPlus
 
 
@@ -20,17 +21,16 @@ def resolve_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def build_model(model_cfg: ModelConfig,
-                data_cfg: DataConfig) -> Tuple[TswinPlus, int]:
-    """The model the configs name and its class count, as the JAX
-    `build_model` (`:29-45`) returns them. The swin windows are built for
-    `data_cfg.crop_hw`. Parameters are created uninitialised: load them
-    (`ckpt.load_from_jax`) or initialise them
-    (`models.init.init_weights`)."""
+def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
+                device="cuda") -> Tuple[TswinPlus, int]:
+    """The model the configs name, on `device`, and its class count, as
+    the JAX `build_model` (`:29-45`) returns them. The swin windows are
+    built for `data_cfg.crop_hw`. Parameters are created uninitialised:
+    load them (`ckpt.load_from_jax`) or initialise them
+    (`models.init.init_weights`). The default device is the card; a
+    machine without one raises unless the caller asks for the CPU."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
-        # the data package imports PIL; only CaDIS needs its class table
-        from stswincl_tpu.data.cadis import CADIS_CLASS_NUM
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]
     if model_cfg.arch == "puredeeplab18":
         raise NotImplementedError("arch 'puredeeplab18' (DeepLabV3Plus) is "
@@ -40,6 +40,10 @@ def build_model(model_cfg: ModelConfig,
     if model_cfg.remat:
         raise NotImplementedError("remat (recomputing the swin blocks in the "
                                   "backward) is not ported yet")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
+                           "to build the model on the CPU")
     model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
                       num_heads=model_cfg.num_heads,
                       gelu_exact=model_cfg.gelu_exact,
@@ -47,4 +51,4 @@ def build_model(model_cfg: ModelConfig,
                       dtype=resolve_dtype(model_cfg.dtype),
                       input_hw=tuple(data_cfg.crop_hw),
                       attn_impl=model_cfg.attn_impl)
-    return model, num_classes
+    return model.to(device), num_classes

@@ -1,10 +1,10 @@
 """Stage-1 / stage-3 segmentation training: optimizer set-up and step loop.
 
 Counterpart of `stswincl_tpu/pipelines/seg.py`: `make_tx` is the port of
-`_make_tx` (`:61-79`) and reads the shared `SegTrainConfig`
-(`stswincl_tpu/configs.py`, standard library only); `train_steps` takes
-N steps from any iterable of batches. Evaluation in the loop,
-checkpoints, warm starts and the CLI are not ported yet.
+`_make_tx` (`:61-79`) and reads the port's `SegTrainConfig`
+(`stswincl_tpu_torch/configs.py`); `train_steps` takes N steps from any
+iterable of batches. Evaluation in the loop, checkpoints, warm starts and
+the CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, Iterable, List, Mapping, Tuple
 import torch
 import torch.nn as nn
 
-from stswincl_tpu.configs import SegTrainConfig
+from stswincl_tpu_torch.configs import SegTrainConfig
 from stswincl_tpu_torch.train.optim import (Schedule, constant_schedule,
                                             make_adam, make_sgd,
                                             poly_schedule, step_schedule,

@@ -1,7 +1,7 @@
 """Where a serving step's time goes on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_serving [--bs 2] [--steps 6]
-        [--attn-impl auto]
+        [--attn-impl auto] [--whole-block]
 
 Serves TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16, seeded
 random weights) through StreamingSegmenter at 512x640 -> 1024x1280 and
@@ -27,7 +27,8 @@ from stswincl_tpu_torch.models.swin import ATTN_IMPLS
 from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
 PORT_KERNELS = ("gemm_kernel", "window_attention_kernel", "ln_rows_kernel",
-                "patch_merge_ln_kernel", "upsample_argmax_kernel")
+                "patch_merge_ln_kernel", "upsample_argmax_kernel",
+                "whole_block_kernel")
 
 
 def _group(name: str) -> str:
@@ -48,6 +49,9 @@ def main() -> None:
     ap.add_argument("--attn-impl", default="auto", choices=ATTN_IMPLS,
                     help="the swin blocks' attention route (TswinPlus "
                     "attn_impl)")
+    ap.add_argument("--whole-block", action="store_true",
+                    help="W-MSA blocks through the whole-block kernel "
+                    "(TswinPlus whole_block, Pallas row 16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
@@ -56,7 +60,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
                       dtype=torch.bfloat16, input_hw=(512, 640),
-                      attn_impl=args.attn_impl)
+                      attn_impl=args.attn_impl, whole_block=args.whole_block)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -85,7 +89,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"{smi} | attn_impl {args.attn_impl} | bs {args.bs} | "
+    print(f"{smi} | attn_impl {args.attn_impl} | whole_block "
+          f"{args.whole_block} | bs {args.bs} | "
           f"{args.steps} predict_next steps")
     print(f"host time {wall_ms / args.steps:.2f} ms/step "
           f"({args.bs * args.steps / wall_ms * 1e3:.2f} frames/s under the "

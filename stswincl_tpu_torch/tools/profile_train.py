@@ -1,7 +1,7 @@
 """Where a stage-1 training step's time goes on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_train [--bs 8] [--steps 4]
-        [--attn-impl auto]
+        [--attn-impl auto] [--whole-block]
 
 Trains TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16
 compute, fp32 parameters, seeded random weights) with the stage-1 step
@@ -36,7 +36,7 @@ from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 PORT_KERNELS = ("gemm_kernel", "window_attention_kernel",
                 "window_attention_bwd_kernel", "wgrad_kernel",
                 "ln_rows_kernel", "epi_bwd_ln", "colsum_kernel",
-                "patch_merge_ln_kernel")
+                "patch_merge_ln_kernel", "whole_block_kernel")
 
 
 def _group(name: str) -> str:
@@ -60,6 +60,9 @@ def main() -> None:
     ap.add_argument("--attn-impl", default="auto", choices=ATTN_IMPLS,
                     help="the swin blocks' attention route (TswinPlus "
                     "attn_impl)")
+    ap.add_argument("--whole-block", action="store_true",
+                    help="W-MSA blocks through the whole-block kernel "
+                    "(TswinPlus whole_block, Pallas row 16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
@@ -68,7 +71,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
                       dtype=torch.bfloat16, input_hw=(512, 640),
-                      attn_impl=args.attn_impl)
+                      attn_impl=args.attn_impl, whole_block=args.whole_block)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev)
     rng = np.random.default_rng(1)
@@ -104,7 +107,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"{smi} | attn_impl {args.attn_impl} | bs {args.bs} | "
+    print(f"{smi} | attn_impl {args.attn_impl} | whole_block "
+          f"{args.whole_block} | bs {args.bs} | "
           f"{args.steps} train steps | after them: "
           f"SM clock, power draw, temperature {clocks}")
     print(f"host time {wall_ms / args.steps:.2f} ms/step "

@@ -295,7 +295,7 @@ def test_build_model_matches_jax(jax_interpret, route):
     want = jax.jit(functools.partial(jm.apply, train=False,
                                      head_res_logits=True))(
         variables, jnp.asarray(clip))
-    port, nc = build_model(model_cfg, data_cfg)
+    port, nc = build_model(model_cfg, data_cfg, device="cpu")
     assert nc == jnc == NC
     load_from_jax(port, variables)
     with torch.no_grad():
@@ -314,7 +314,7 @@ def test_pallas_variables_load_without_leftovers(jax_interpret):
                                jax.random.key(0),
                                jnp.zeros((1, 4, *HW, 3), jnp.float32))
     variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), variables)
-    port, _ = build_model(model_cfg, data_cfg)
+    port, _ = build_model(model_cfg, data_cfg, device="cpu")
     sd, unmatched = state_dict_from_jax(variables, port)
     assert unmatched == []
     assert set(sd) == set(port.state_dict())
@@ -325,7 +325,7 @@ def test_build_model_takes_the_cadis_class_count():
     model_cfg, _ = _configs("pallas")
     for tag in ("1", "3"):
         data_cfg = DataConfig(dataset="cadis", tag=tag, crop_hw=HW)
-        port, nc = build_model(model_cfg, data_cfg)
+        port, nc = build_model(model_cfg, data_cfg, device="cpu")
         assert nc == CADIS_CLASS_NUM[tag] == port.num_classes
         assert nc == jcommon.build_model(model_cfg, data_cfg)[1]
 
@@ -334,10 +334,10 @@ def test_build_model_refuses_what_is_not_ported():
     model_cfg, data_cfg = _configs("pallas")
     model_cfg.arch = "puredeeplab18"
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_model(model_cfg, data_cfg)
+        build_model(model_cfg, data_cfg, device="cpu")
     model_cfg, _ = _configs("flash")
     with pytest.raises(ValueError, match="unknown attn_impl"):
-        build_model(model_cfg, data_cfg)
+        build_model(model_cfg, data_cfg, device="cpu")
 
 
 def test_train_step_on_the_pallas_route_matches_jax(jax_interpret):

@@ -14,14 +14,18 @@ window shapes (TN 128 / hd 64, TN 32 / hd 128). The standalone attention
 kernels of the 'pallas' and 'pallas_windows' routes (Pallas rows 10 and
 11) run at both stages' full window shapes (TN 128 / hd 128, TN 32 /
 hd 256), on six windows an image and two images, with and without the
-SW-MSA mask.
+SW-MSA mask. The whole-block kernel (Pallas row 16) runs at both stages'
+window shapes (TN 128, TN 32), with a last tile of fewer windows too,
+forward and through its Function; rows 13 and 14 on row counts that are not
+multiples of anything the kernels tile by.
 """
 
 import pytest
 import torch
 
-from stswincl_tpu_torch.ops import add_ln_mlp, attention, block_attention
-from stswincl_tpu_torch.ops import patch_merge, upsample_argmax
+from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp, attention,
+                                    block_attention, patch_merge, swin_block,
+                                    upsample_argmax)
 from stswincl_tpu_torch.ops.resize import composed_matrices
 from stswincl_tpu_torch.ops.window import (partition_qkv,
                                            relative_position_index,
@@ -53,19 +57,21 @@ def _close(got, want, same_dtype=True):
     assert rel <= TOL, rel
 
 
-def _attn_args(dev, gen, shift, B=2, T=2, H=8, W=12, C=128, heads=2, ws=4):
+def _attn_args(dev, gen, shift, B=2, T=2, H=8, W=12, C=128, heads=2, ws=4,
+               gain_qkv=1.0, gain_proj=1.0, bias_k=0.02):
     r = lambda *s, k=1.0, dt=BF: (torch.randn(s, generator=gen, device=dev)
                                   * k).to(dt)
     N, TN = ws * ws, T * ws * ws
-    table = r((2 * ws - 1) ** 2, heads, k=0.02, dt=torch.float32)
+    table = r((2 * ws - 1) ** 2, heads, k=bias_k, dt=torch.float32)
     idx = torch.from_numpy(relative_position_index(ws, ws)).long().to(dev)
     bias = table[idx.reshape(-1)].reshape(N, N, heads).permute(2, 0, 1)
     mask = None
     if shift:
         mask = torch.from_numpy(shifted_window_attention_mask(
             H, W, ws, shift)).repeat(1, T, T).to(dev)
-    return [r(B, T, H, W, C), r(3 * C, C, k=C ** -0.5),
-            r(3 * C, k=0.1, dt=torch.float32), r(C, C, k=C ** -0.5),
+    return [r(B, T, H, W, C), r(3 * C, C, k=gain_qkv * C ** -0.5),
+            r(3 * C, k=0.1, dt=torch.float32),
+            r(C, C, k=gain_proj * C ** -0.5),
             r(C, k=0.1, dt=torch.float32),
             bias.repeat(1, T, T).contiguous(), mask, heads,
             (C // heads) ** -0.5, ws, shift]
@@ -358,6 +364,192 @@ def test_small_model_new_routes_agree(dev, route):
         assert fn.launches > n
         lp = plain(frames[:, 1:5], head_res_logits=True)
         lf = full(frames[:, 1:5], head_res_logits=True)
+    for other in (lp, lf):
+        rel = ((lk - other).norm() / other.norm()).item()
+        assert rel <= TOL, rel
+    seg = StreamingSegmenter(model, out_hw=(256, 384))
+    cache, _ = seg.init_and_predict(frames[:, 0:4])
+    _, pred = seg.predict_next(cache, frames[:, 4])
+    want = composed_upsample_argmax_cf(lk, (128, 192), (256, 384))
+    assert (pred == want).float().mean().item() >= 0.999
+
+
+WHOLE_CASES = {  # (B, T, H, W, C, heads, ws): stage-1 and stage-2 windows
+    "s1": (2, 2, 16, 24, 128, 2, 8),
+    "s2": (2, 2, 8, 12, 256, 2, 4),
+    # 6 windows of 32 tokens: a last tile of two windows
+    "s2_ragged": (1, 2, 8, 12, 256, 2, 4),
+}
+
+
+def _whole_args(dev, gen, case):
+    """Row 16's arguments: x, the attention and epilogue parameters with
+    fp32 weights (as the model hands them to the Function). The qkv and
+    proj weights and the relative bias are drawn large enough that the
+    attention branch y is about as large as x and the softmax is peaked,
+    so that a fault in the attention phases moves the block's output past
+    TOL (at unit gains and a 0.02 bias, y is a few % of x)."""
+    B, T, H, W, C, heads, ws = WHOLE_CASES[case]
+    a = _attn_args(dev, gen, 0, B=B, T=T, H=H, W=W, C=C, heads=heads, ws=ws,
+                   gain_qkv=1.75, gain_proj=1.2, bias_k=1.0)
+    p = _epi_params(dev, gen, C=C, hidden=4 * C)
+    wqkv, wproj, w1, w2 = a[1].float(), a[3].float(), p[2].float(), p[4].float()
+    return ([a[0], wqkv, a[2], wproj, a[4], a[5], None, p[0], p[1], w1, p[3],
+             w2, p[5], p[6], p[7]], (heads, (C // heads) ** -0.5, ws))
+
+
+@pytest.mark.parametrize("case", sorted(WHOLE_CASES))
+def test_whole_block_kernel(dev, gen, case):
+    """Row 16, one launch, against its rounded-m twin on the bf16 weights;
+    then through `WholeBlockFn`: its backward (the pair's Functions, so K1,
+    K2, K6 and K5) against autograd of the twin."""
+    tensors, cfg = _whole_args(dev, gen, case)
+    fn = swin_block.whole_swin_block
+    bf_w = [t.to(BF) if i in (1, 3, 9, 11) else t
+            for i, t in enumerate(tensors)]
+    n = fn.launches
+    want = swin_block.whole_swin_block_ref(*bf_w, *cfg)
+    _close(fn(*bf_w, *cfg), want)
+    assert fn.launches == n + 1
+    # the bound tells an attention fault from rounding: the twin without
+    # its relative bias lies far outside it
+    no_bias = list(bf_w)
+    no_bias[5] = torch.zeros_like(bf_w[5])
+    moved = swin_block.whole_swin_block_ref(*no_bias, *cfg).float() - want
+    assert moved.norm() / want.float().norm() > 10 * TOL
+    idx = [i for i, t in enumerate(tensors) if t is not None]
+    leaves = [tensors[i].detach().requires_grad_() for i in idx]
+
+    def call(f, ls):
+        args = list(tensors)
+        for i, t in zip(idx, ls):
+            args[i] = t
+        return f(*args, *cfg)
+    n5 = block_attention.swin_block_attention_bwd.launches
+    n6 = add_ln_mlp.swin_block_epilogue_bwd.launches
+    out = call(fn, leaves)
+    g = torch.randn(out.shape, generator=gen, device=dev).to(BF)
+    got = torch.autograd.grad(out, leaves, g)
+    assert fn.launches == n + 2
+    assert block_attention.swin_block_attention_bwd.launches == n5 + 1
+    assert add_ln_mlp.swin_block_epilogue_bwd.launches == n6 + 1
+    twin_leaves = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(call(swin_block.whole_swin_block_ref,
+                                    twin_leaves), twin_leaves, g)
+    for leaf, gr, w in zip(leaves, got, want):
+        assert gr.dtype == leaf.dtype
+        _close(gr, w)
+
+
+def test_whole_block_refuses_what_it_does_not_take(dev, gen):
+    tensors, (heads, scale, ws) = _whole_args(dev, gen, "s2")
+    bf_w = [t.to(BF) if i in (1, 3, 9, 11) else t
+            for i, t in enumerate(tensors)]
+    x = bf_w[0]
+    mask = torch.from_numpy(shifted_window_attention_mask(
+        8, 12, ws, 2)).repeat(1, 2, 2).to(dev)
+    with pytest.raises(ValueError, match="W-MSA"):
+        swin_block.whole_swin_block(x, *bf_w[1:6], mask, *bf_w[7:], heads,
+                                    scale, ws)
+    with pytest.raises(NotImplementedError):
+        swin_block.whole_swin_block(x.float(), *bf_w[1:], heads, scale, ws)
+    # three frames: windows of 48 tokens, which do not tile 128 rows
+    x3 = torch.zeros((1, 3, 8, 12, x.shape[-1]), device=dev, dtype=BF)
+    bias3 = torch.zeros((heads, 48, 48), device=dev)
+    with pytest.raises(ValueError, match="tile"):
+        swin_block.whole_swin_block(x3, *bf_w[1:5], bias3, None, *bf_w[7:],
+                                    heads, scale, ws)
+
+
+@pytest.mark.parametrize("C", [256, 512])
+def test_add_ln_mlp_kernel(dev, gen, C):
+    """Row 13: (s, m) against the twin, and its Function's gradients
+    (autograd of the twin, as JAX's `_bwd`) against autograd of the twin."""
+    p = _epi_params(dev, gen, C=C, hidden=4 * C)
+    x, y = (torch.randn((3, 50, C), generator=gen, device=dev).to(BF)
+            for _ in range(2))
+    args = (p[0], p[1], p[2], p[3], p[4], p[5])
+    fn = add_ln_mlp.add_ln_mlp
+    n = fn.launches
+    got, want = fn(x, y, *args), add_ln_mlp.add_ln_mlp_ref(x, y, *args)
+    assert fn.launches == n + 1
+    for a, b in zip(got, want):
+        _close(a, b)
+
+    def first(f):
+        return lambda *a: sum(o.float().square().sum() for o in f(*a))
+    leaves = [t.detach().requires_grad_() for t in (x, y) + args]
+    g_k = torch.autograd.grad(first(fn)(*leaves), leaves)
+    twin = [t.detach().requires_grad_() for t in (x, y) + args]
+    g_t = torch.autograd.grad(first(add_ln_mlp.add_ln_mlp_ref)(*twin), twin)
+    for a, b in zip(g_k, g_t):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("C", [256, 512, 1024])
+@pytest.mark.parametrize("return_sum", [True, False])
+def test_add_layer_norm_kernel(dev, gen, C, return_sum):
+    """Row 14 against its twin, and its Function's backward (the formula
+    of `_faln_bwd`) against autograd of the twin."""
+    x, y = (torch.randn((7, 33, C), generator=gen, device=dev).to(BF)
+            for _ in range(2))
+    scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
+    bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+    fn = add_layernorm.add_layer_norm
+    n = fn.launches
+    s, out = fn(x, y, scale, bias, return_sum=return_sum)
+    s_t, out_t = add_layernorm.add_layer_norm_ref(x, y, scale, bias,
+                                                  return_sum=return_sum)
+    assert fn.launches == n + 1
+    _close(out, out_t)
+    assert (s is None) == (not return_sum)
+    if return_sum:
+        assert torch.equal(s, s_t)
+
+    def loss(f, ls):
+        s, o = f(*ls, return_sum=return_sum)
+        return o.float().square().sum() + (0 if s is None else
+                                           s.float().sum())
+    leaves = [t.detach().requires_grad_() for t in (x, y, scale, bias)]
+    got = torch.autograd.grad(loss(fn, leaves), leaves)
+    twin = [t.detach().requires_grad_() for t in (x, y, scale, bias)]
+    want = torch.autograd.grad(loss(add_layernorm.add_layer_norm_ref, twin),
+                               twin)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_small_model_whole_block_agrees(dev):
+    """TswinPlus at swin_dim 128 in bf16 with `whole_block`: row 16 runs
+    once per W-MSA block call, the kernel route agrees with its plain
+    route and with the model without it, and streams as the full clip."""
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.ops.resize import composed_upsample_argmax_cf
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+
+    kw = dict(num_classes=5, swin_dim=128, swin_depths=(2, 2),
+              dtype=BF, input_hw=(128, 192))
+    pair = init_weights(TswinPlus(**kw), torch.Generator().manual_seed(0))
+    model = TswinPlus(**kw, whole_block=True)
+    plain = TswinPlus(**kw, whole_block=True, kernels=False)
+    for m in (model, plain):
+        m.load_state_dict(pair.state_dict())
+    for m in (pair, model, plain):
+        m.to(dev).eval()
+    frames = torch.rand((1, 5, 128, 192, 3),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) * 2 - 1
+    fn = swin_block.whole_swin_block
+    n, n1 = fn.launches, block_attention.swin_block_attention.launches
+    with torch.inference_mode():
+        lk = model(frames[:, 1:5], head_res_logits=True)
+        # depths (2, 2): two W-MSA block calls a stage, each paired with
+        # an SW-MSA block call on K1
+        assert fn.launches - n == 4
+        assert block_attention.swin_block_attention.launches - n1 == 4
+        lp = plain(frames[:, 1:5], head_res_logits=True)
+        lf = pair(frames[:, 1:5], head_res_logits=True)
     for other in (lp, lf):
         rel = ((lk - other).norm() / other.norm()).item()
         assert rel <= TOL, rel

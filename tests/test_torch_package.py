@@ -1,0 +1,86 @@
+"""The port stands alone: no module of `stswincl_tpu_torch/`, and not
+`chip_smoke.py`, imports JAX, flax or the JAX package; the port's copies
+of the configs and of the CaDIS class table equal the JAX package's; and
+its model builder runs on the card unless asked for the CPU."""
+
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+import torch
+
+import stswincl_tpu.configs as jconfigs
+import stswincl_tpu_torch.configs as pconfigs
+from stswincl_tpu.data.cadis import CADIS_CLASS_NUM as J_CADIS
+from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM as P_CADIS
+from stswincl_tpu_torch.pipelines.common import build_model
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "stswincl_tpu")
+CONFIGS = ("DataConfig", "ModelConfig", "SegTrainConfig",
+           "ContrastTrainConfig")
+
+
+def _port_sources():
+    return sorted((ROOT / "stswincl_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    sources = _port_sources()
+    assert len(sources) > 30
+    bad = [(str(p.relative_to(ROOT)), m) for p in sources
+           for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_copies_match(name):
+    j, p = getattr(jconfigs, name), getattr(pconfigs, name)
+    jf, pf = dataclasses.fields(j), dataclasses.fields(p)
+    assert [(f.name, str(f.type)) for f in pf] == [
+        (f.name, str(f.type)) for f in jf]
+    assert dataclasses.asdict(p()) == dataclasses.asdict(j())
+    assert pconfigs.to_json(p()) == jconfigs.to_json(j())
+
+
+def test_config_helpers_match(tmp_path):
+    overrides = ["lr=1e-3", "model.swin_depths=(2,2)", "data.crop_hw=(64,96)",
+                 "model.gelu_exact=false", "loss=ce", "resume=1"]
+    j = jconfigs.apply_overrides(jconfigs.SegTrainConfig(), overrides)
+    p = pconfigs.apply_overrides(pconfigs.SegTrainConfig(), overrides)
+    assert dataclasses.asdict(p) == dataclasses.asdict(j)
+    path = tmp_path / "cfg.json"
+    path.write_text(pconfigs.to_json(p))
+    loaded = pconfigs.load_config(pconfigs.SegTrainConfig, str(path))
+    assert isinstance(loaded.model, pconfigs.ModelConfig)
+    assert dataclasses.asdict(loaded) == dataclasses.asdict(
+        jconfigs.load_config(jconfigs.SegTrainConfig, str(path)))
+
+
+def test_cadis_class_table_matches():
+    assert P_CADIS == J_CADIS
+
+
+def test_build_model_runs_on_the_card_unless_asked_for_the_cpu():
+    model_cfg = pconfigs.ModelConfig(num_classes=5, swin_dim=64,
+                                     swin_depths=(1, 1))
+    data_cfg = pconfigs.DataConfig(dataset="synthetic", crop_hw=(128, 128))
+    cpu, _ = build_model(model_cfg, data_cfg, device="cpu")
+    assert {p.device.type for p in cpu.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        card, _ = build_model(model_cfg, data_cfg)
+        assert {p.device.type for p in card.parameters()} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(model_cfg, data_cfg)
