@@ -51,12 +51,31 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      that of phase 4's route on the same batch, then five steps: falling losses, ms/step, peak memory, row 16
      launched once per W-MSA block call, K1, K2, K5 and K6 once per block
      call (the W-MSA backward recomputes the pair);
+  2e. hold rows 12 (the MLP, erf and tanh), 15 (LayerNorm) and 17 (the
+     dilated conv + folded BN + residual + ReLU) against their twins at
+     full width: row 12 at the batch-8 block shapes of both stages beside
+     cuBLAS's F.linear -> F.gelu -> F.linear; row 15 at (163840, 512),
+     (40960, 1024) and (40960, 2048) beside F.layer_norm; row 17 at three
+     of the conv profiler's shapes and at the serving ASPP's dilated
+     branches, 1024 -> 512 at dilation 12 and 18 on the model's (2, 32,
+     40) and on (2, 64, 80), beside cuDNN's channels_last conv with the
+     BN folded in and the model's own cuDNN call; scale and shift drawn away
+     from 1 and 0, and a twin with a planted fault (row 15 without its
+     bias, row 17 with the dilation one off or without its residual) must
+     miss the bound tenfold;
   5. run the kernel profiler's entry point
      (`stswincl_tpu_torch.tools.profile_swin_kernels.main`) with few
-     repeats: K1, row 13 and row 14 at the batch-8 block shapes.
+     repeats: K1, row 13 and row 14 at the batch-8 block shapes;
+  6. drive the entry points of rows 12, 15 and 17: the `Mlp` module at
+     the stage-1 width and `FusedLayerNorm`, each forward without and
+     with autograd (then backward), held against their plain routes, and
+     the conv profiler (`tools.profile_conv_kernel.main`) with few
+     repeats; one row-12 or row-15 launch a module forward, one row-17
+     launch a kernel call of the profiler.
 
-Each main path (serve and train on each route, the profiler) is driven
-with every launch count set to 0 just before it and read just after. Then
+Each main path (serve and train on each route, the profilers, the
+modules) is driven with every launch count set to 0 just before it and
+read just after. Then
 come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
@@ -124,6 +143,19 @@ def seeded_batch(batch: int, seed: int):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want||, in fp32."""
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def reset_launches(wrappers) -> None:
+    """Every kernel's launch count to 0, with the card idle."""
+    import torch
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
@@ -208,6 +240,9 @@ def main() -> None:
     from stswincl_tpu_torch.ops.block_attention import (
         swin_block_attention, swin_block_attention_ref,
         windowed_attention_image, windowed_attention_image_ref)
+    from stswincl_tpu_torch.ops.conv import conv3x3_bn_act
+    from stswincl_tpu_torch.ops.layernorm import fused_layer_norm
+    from stswincl_tpu_torch.ops.mlp import fused_mlp
     from stswincl_tpu_torch.ops.patch_merge import (patch_merge,
                                                     patch_merge_ref)
     from stswincl_tpu_torch.ops.resize import (composed_matrices,
@@ -681,6 +716,13 @@ def main() -> None:
     print(f"phase 2d whole block, rows 13 and 14 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 2e: rows 12, 15 and 17 ------------------------------------
+    t0 = time.perf_counter()
+    extras = phase_offpath_kernels(dev, bf16, randn, uniform, median_ms,
+                                   compare)
+    print(f"phase 2e rows 12, 15 and 17 vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 3: serve --------------------------------------------------
     t0 = time.perf_counter()
     kw = dict(num_classes=12, swin_dim=512, swin_depths=(3, 3), dtype=bf16,
@@ -702,7 +744,10 @@ def main() -> None:
                 "fused_window_attention": fused_window_attention,
                 "whole_swin_block": wb_ops.whole_swin_block,
                 "add_ln_mlp": add_ln_mlp,
-                "add_layer_norm": add_layer_norm}
+                "add_layer_norm": add_layer_norm,
+                "fused_mlp": fused_mlp,
+                "fused_layer_norm": fused_layer_norm,
+                "conv3x3_bn_act": conv3x3_bn_act}
     # the attention kernel each route launches in place of K1
     route_kernel = {"pallas_full": "swin_block_attention",
                     "pallas": "windowed_attention_image",
@@ -722,9 +767,7 @@ def main() -> None:
         seg = StreamingSegmenter(m, out_hw=OUT_HW)
         path = ("serve_whole_block" if whole_block else "serve"
                 if route == "pallas_full" else f"serve_{route}")
-        for fn in wrappers.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
+        reset_launches(wrappers)
         cache, pred = seg.init_and_predict(frames[:, 0:4])
         preds = [pred]
         step_s = []
@@ -833,9 +876,7 @@ def main() -> None:
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    reset_launches(wrappers)
     profile_swin_kernels.main(["--reps", "3"])
     launches["profile"] = {k: fn.launches for k, fn in wrappers.items()}
     print(f"  profiler launches: {launches['profile']}", flush=True)
@@ -844,6 +885,12 @@ def main() -> None:
               "kernel profiler")
     print(f"phase 5 kernel profiler: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # ---- phase 6: the entry points of rows 12, 15 and 17 -----------------
+    t0 = time.perf_counter()
+    phase_entry_points(dev, bf16, randn, wrappers, launches)
+    print(f"phase 6 the Mlp and FusedLayerNorm modules, the conv profiler: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     meta = {
         "swin_block_attention": (
@@ -874,6 +921,10 @@ def main() -> None:
                        "stswincl_tpu/ops/pallas_add_ln_mlp.py:97"),
         "add_layer_norm": ("add_layernorm.cu",
                            "stswincl_tpu/ops/pallas_add_layernorm.py:110"),
+        "fused_mlp": ("epilogue.cu", "stswincl_tpu/ops/pallas_mlp.py:226"),
+        "fused_layer_norm": ("add_layernorm.cu",
+                             "stswincl_tpu/ops/pallas_layernorm.py:82"),
+        "conv3x3_bn_act": ("conv.cu", "stswincl_tpu/ops/pallas_conv.py:132"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -900,11 +951,208 @@ def main() -> None:
     row16 = next(r for r in rows if r["name"] == "whole_swin_block")
     row16["pair_ms"] = pair_ms  # its yardstick; not a library call
     row16["backward"] = results["whole_swin_block_bwd"]
+    for r in rows:  # rows 12 and 17: measured yardsticks, not library
+        r.update(extras.get(r["name"], {}))  # calls
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
+    """Phase 2e: rows 12, 15 and 17 against their twins at full width
+    (through `compare`, which also times them). Returns, by kernel, the
+    ms by case of two yardsticks that are not one library call: row 12's
+    three cuBLAS calls, and at the ASPP shapes the model's own cuDNN call
+    (the conv with its bias, channels_last) that row 17 could replace."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.conv import (conv3x3_bn_act,
+                                             conv3x3_bn_act_ref)
+    from stswincl_tpu_torch.ops.layernorm import (fused_layer_norm,
+                                                  layer_norm_ref)
+    from stswincl_tpu_torch.ops.mlp import fused_mlp, mlp_ref
+    from stswincl_tpu_torch.tools.profile_conv_kernel import (
+        cudnn_conv_bn_act)
+    f32 = torch.float32
+
+
+    def planted(kname, case, fault, moved):
+        print(f"  {'':22s} {case:34s} the twin {fault} moves by rel "
+              f"{moved:.3e}", flush=True)
+        check(moved > 10 * TOL_REL, f"{kname} {case}: the twin {fault} "
+              f"moves the output by only {moved}")
+
+    # row 12 at the batch-8 block shapes; its yardstick: F.linear ->
+    # F.gelu -> F.linear on cuBLAS, bf16 (three calls)
+    yardstick, model_conv = {}, {}
+    for C, R, exact in ((512, 163840, True), (512, 163840, False),
+                        (1024, 40960, True)):
+        hidden = 4 * C
+        xt = randn(R, C)
+        p12 = (uniform(hidden, C, fan_in=C),
+               uniform(hidden, fan_in=C, dtype=f32),
+               uniform(C, hidden, fan_in=hidden),
+               uniform(C, fan_in=hidden, dtype=f32))
+        case = f"({R}, {C}) -> {hidden} {'erf' if exact else 'tanh'}"
+        compare("fused_mlp", case, lambda: fused_mlp(xt, *p12, exact),
+                lambda: mlp_ref(xt, *p12, exact),
+                (4 * R * C * hidden,
+                 2 * R * C * 2 + 2 * C * hidden * 2 + (hidden + C) * 4))
+        b1, b2 = p12[1].to(bf16), p12[3].to(bf16)
+        approx = "none" if exact else "tanh"
+        yardstick[case] = median_ms(lambda: F.linear(F.gelu(
+            F.linear(xt, p12[0], b1), approximate=approx), p12[2], b2))
+        print(f"  {'F.linear-F.gelu-F.linear':22s} {case:34s} "
+              f"{yardstick[case]:.3f} ms (cuBLAS, bf16)", flush=True)
+        del xt, p12
+        torch.cuda.empty_cache()
+
+    # row 15; its library call F.layer_norm, fp32 weights on the bf16 x
+    # where PyTorch takes them, else cast to bf16 (printed)
+    for C, R in ((512, 163840), (1024, 40960), (2048, 40960)):
+        xt = randn(R, C)
+        scale = 1.0 + randn(C, scale=0.5, dtype=f32)
+        shift = randn(C, scale=0.5, dtype=f32)
+        try:
+            F.layer_norm(xt, (C,), scale, shift, 1e-5)
+            lib_w, how = (scale, shift), "fp32 weights"
+        except RuntimeError:
+            lib_w, how = (scale.to(bf16), shift.to(bf16)), "weights cast"
+        case = f"({R}, {C})"
+        compare("fused_layer_norm", case,
+                lambda: fused_layer_norm(xt, scale, shift),
+                lambda: layer_norm_ref(xt, scale, shift),
+                (8 * R * C, 2 * R * C * 2 + 2 * C * 4, PEAK_F32),
+                lambda: F.layer_norm(xt, (C,), *lib_w, 1e-5))
+        print(f"  {'':22s} {case:34s} F.layer_norm with {how}", flush=True)
+        want = layer_norm_ref(xt, scale, shift)
+        planted("fused_layer_norm", case, "without its bias",
+                rel_err(layer_norm_ref(xt, scale, torch.zeros_like(shift)),
+                    want))
+        del xt, want
+        torch.cuda.empty_cache()
+
+    # row 17 at three of the conv profiler's shapes, and at the serving
+    # ASPP's dilated branches (not routed there): the model's shape, the
+    # stage-2 output (bs 2, 32x40, `models/stswin.py:126`), and 64x80; the
+    # library call: cuDNN's channels_last conv with the BN folded in, +
+    # residual, ReLU
+    for name, N, Hc, Wc, cin, cout, d, with_res in (
+            ("layer5 512->512 d4 N4 res", 4, 64, 80, 512, 512, 4, True),
+            ("layer4 256->256 d2 N32", 32, 64, 80, 256, 256, 2, False),
+            ("layer1 64->64 d1 N4 res", 4, 128, 160, 64, 64, 1, True),
+            ("ASPP 1024->512 d12 N2 32x40", 2, 32, 40, 1024, 512, 12, False),
+            ("ASPP 1024->512 d18 N2 32x40", 2, 32, 40, 1024, 512, 18, False),
+            ("ASPP 1024->512 d12 N2 64x80", 2, 64, 80, 1024, 512, 12, False),
+            ("ASPP 1024->512 d18 N2 64x80", 2, 64, 80, 1024, 512, 18, False)):
+        x = randn(N, Hc, Wc, cin)
+        w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        scale = 0.5 + torch.rand(cout, device=dev)
+        shift = randn(cout, scale=0.5, dtype=f32)
+        res = randn(N, Hc, Wc, cout) if with_res else None
+        kw = dict(dilation=d, relu=True, residual=res)
+        nbytes = (N * Hc * Wc * (cin + cout * (2 if with_res else 1)) * 2
+                  + 9 * cin * cout * 2 + 2 * cout * 4)
+        compare("conv3x3_bn_act", name,
+                lambda: conv3x3_bn_act(x, w, scale, shift, **kw),
+                lambda: conv3x3_bn_act_ref(x, w, scale, shift, **kw),
+                (2 * N * Hc * Wc * 9 * cin * cout, nbytes),
+                lambda: cudnn_conv_bn_act(x, w, scale, shift, d,
+                                          residual=res))
+        want = conv3x3_bn_act_ref(x, w, scale, shift, **kw)
+        planted("conv3x3_bn_act", name, f"at dilation {d + 1}",
+                rel_err(conv3x3_bn_act_ref(x, w, scale, shift,
+                                       **dict(kw, dilation=d + 1)), want))
+        if with_res:
+            planted("conv3x3_bn_act", name, "without its residual",
+                    rel_err(conv3x3_bn_act_ref(x, w, scale, shift,
+                                           **dict(kw, residual=None)),
+                        want))
+        if name.startswith("ASPP"):
+            # models/aspp.py's own call (bf16 conv with its bias,
+            # channels_last; its BatchNorm follows), with cuDNN's TF32
+            # switch as this script sets it and at PyTorch's default
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.to(memory_format=torch.channels_last)
+            bc = shift.to(bf16)
+            model_conv[name] = {}
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                model_conv[name][f"allow_tf32={tf32}"] = median_ms(
+                    lambda: F.conv2d(xc, wc, bc, 1, d, d))
+            torch.backends.cudnn.allow_tf32 = False
+            print(f"  {'cuDNN conv alone':22s} {name:34s} the model's call "
+                  f"(bf16, bias, channels_last): {model_conv[name]} ms",
+                  flush=True)
+        del x, w, res, want
+        torch.cuda.empty_cache()
+    return {"fused_mlp": {"linear_gelu_linear_ms": yardstick},
+            "conv3x3_bn_act": {"aspp_model_conv_ms": model_conv}}
+
+
+def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
+    """Phase 6: the `Mlp` and `FusedLayerNorm` modules and the conv
+    profiler, each with every launch count set to 0 first."""
+    import torch
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import Mlp
+    from stswincl_tpu_torch.ops.layernorm import FusedLayerNorm
+    from stswincl_tpu_torch.tools import profile_conv_kernel
+
+
+    def drive(path, mod, plain, kname):
+        """One forward without autograd and one with it, then backward,
+        against the plain route on the same weights: one `kname` launch
+        a forward and no other kernel."""
+        reset_launches(wrappers)
+        x = randn(2 * BS, 2, 64, 80, 512)  # the stage-1 serving clip
+        with torch.no_grad():
+            errs = {"forward": rel_err(mod(x), plain(x))}
+        out, ref = mod(x), plain(x)
+        g = randn(*out.shape)
+        out.backward(g)
+        ref.backward(g)
+        torch.cuda.synchronize()
+        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        for (n, a), b in zip(mod.named_parameters(), plain.parameters()):
+            errs[n] = rel_err(a.grad, b.grad)
+        print(f"  [{path}] {kname} launches {launches[path][kname]}; rel "
+              f"err against the plain route: {errs}", flush=True)
+        for k, n in launches[path].items():
+            check(n == (2 if k == kname else 0), f"{path}: {k} launched "
+                  f"{n} times in two forwards")
+        for n, e in errs.items():
+            check(e <= TOL_REL, f"{path}: {n} relative error {e}")
+
+    gen = torch.Generator().manual_seed(0)
+    mlp = init_weights(Mlp(512, 2048, 512, dtype=bf16), gen).to(dev)
+    plain = Mlp(512, 2048, 512, dtype=bf16, kernels=False).to(dev)
+    plain.load_state_dict(mlp.state_dict())
+    drive("mlp_module", mlp, plain, "fused_mlp")
+
+    ln = FusedLayerNorm(512).to(dev)
+    with torch.no_grad():
+        ln.weight.add_(randn(512, scale=0.5, dtype=torch.float32))
+        ln.bias.add_(randn(512, scale=0.5, dtype=torch.float32))
+    ln_plain = FusedLayerNorm(512, kernels=False).to(dev)
+    ln_plain.load_state_dict(ln.state_dict())
+    drive("layer_norm_module", ln, ln_plain, "fused_layer_norm")
+
+    reset_launches(wrappers)
+    reps = 3
+    rows = profile_conv_kernel.main(["--reps", str(reps)])
+    launches["profile_conv"] = {k: fn.launches for k, fn in wrappers.items()}
+    want = sum(r["in_envelope"] for r in rows) * (
+        reps + profile_conv_kernel.UNTIMED_CALLS)
+    print(f"  [profile_conv] launches {launches['profile_conv']}; "
+          f"{sum(r['in_envelope'] for r in rows)} of {len(rows)} shapes in "
+          "the envelope", flush=True)
+    for k, n in launches["profile_conv"].items():
+        check(n == (want if k == "conv3x3_bn_act" else 0),
+              f"profile_conv: {k} launched {n} times (expected "
+              f"{want if k == 'conv3x3_bn_act' else 0})")
 
 
 def gpu_clocks() -> str:
@@ -1077,9 +1325,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
                  if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
         path = ("train_whole_block" if whole_block else "train"
                 if route == "pallas_full" else f"train_{route}")
-        for fn in wrappers.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
+        reset_launches(wrappers)
         torch.cuda.reset_peak_memory_stats()
         clocks = [gpu_clocks()]
         losses, events, host_s = [], [], []

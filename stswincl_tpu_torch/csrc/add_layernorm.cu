@@ -1,17 +1,20 @@
 // Row 14: the residual add and LayerNorm, (x + y, LN(x + y)), or LN(x + y)
-// alone.
+// alone; and row 15: LN(x), the same kernel without y.
 //
 // Replaces: stswincl_tpu/ops/pallas_add_layernorm.py
 //   fused_add_layer_norm (:110) / _run_add_ln (:65) -> _add_ln_kernel (:43)
-//   and _add_ln_kernel_noout (:55).
+//   and _add_ln_kernel_noout (:55); and stswincl_tpu/ops/pallas_layernorm.py
+//   fused_layer_norm (:82) / _pallas_layer_norm (:50) -> _ln_kernel (:40).
 //
 // Bound on the H100: device memory. A row of C channels reads 4C bytes
-// and writes 2C (4C with the sum) for about 10 flops a channel, far below
-// the card's 295 flops a byte. The TPU kernel picked row tiles to fit
-// VMEM; here one warp owns one row: 16-byte loads and stores (8 bf16 a
-// lane), the row kept in registers, fp32 statistics in two passes (mean,
-// then the mean of squared deviations, as `_ln_math`), and no shared
-// memory. Enough warps are in flight to cover the latency of the loads.
+// and writes 2C (4C with the sum; row 15 reads 2C) for about 10 flops a
+// channel, far below the card's 295 flops a byte. The TPU kernels picked
+// row tiles to fit VMEM; here one warp owns one row: 16-byte loads and
+// stores (8 bf16 a lane), the row kept in registers, fp32 statistics in
+// two passes (mean, then the mean of squared deviations, as `_ln_math`
+// and `_ln_kernel`), and no shared memory. Enough warps are in flight to
+// cover the latency of the loads. A row shorter than 256 channels (the
+// JAX tests' 32-96) leaves the lanes past C idle.
 
 #include "common.cuh"
 
@@ -33,6 +36,9 @@ __device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
+// ADD: normalise x + y (and write it to sum_out, when given); else x.
+// Lane l holds channels i * 256 + 8 l .. + 7 of chunk i, those below C.
+template <bool ADD>
 __global__ void __launch_bounds__(WARPS * 32)
     add_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
                   const float* __restrict__ g, const float* __restrict__ b,
@@ -41,29 +47,29 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= R) return;
-  const int chunks = C / 256;
   const long long base = (long long)r * C;
   float v[MAX_CHUNKS][8];
   float sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < MAX_CHUNKS; ++i)
-    if (i < chunks) {
+    if (i * 256 + lane * 8 < C) {
       const int c = i * 256 + lane * 8;
-      float yv[8];
       load8(x + base + c, v[i]);
-      load8(y + base + c, yv);
+      if (ADD) {
+        float yv[8];
+        load8(y + base + c, yv);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[i][e] += yv[e];
-        sum += v[i][e];
+        for (int e = 0; e < 8; ++e) v[i][e] += yv[e];
+        if (sum_out) store8(sum_out + base + c, v[i]);
       }
-      if (sum_out) store8(sum_out + base + c, v[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[i][e];
     }
   const float mu = warp_sum(sum) / C;
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < MAX_CHUNKS; ++i)
-    if (i < chunks)
+    if (i * 256 + lane * 8 < C)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         v[i][e] -= mu;
@@ -72,7 +78,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   const float rs = rsqrtf(warp_sum(sq) / C + eps);
 #pragma unroll
   for (int i = 0; i < MAX_CHUNKS; ++i)
-    if (i < chunks) {
+    if (i * 256 + lane * 8 < C) {
       const int c = i * 256 + lane * 8;
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[i][e] = v[i][e] * rs * g[c + e] + b[c + e];
@@ -89,10 +95,25 @@ extern "C" int stswin_add_layer_norm(const void* x, const void* y,
                                      void* sum_out, void* out, int R, int C,
                                      float eps, void* stream) {
   if (C % 256 || C > MAX_CHUNKS * 256 || R <= 0) return cudaErrorInvalidValue;
-  add_ln_kernel<<<(R + WARPS - 1) / WARPS, WARPS * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  add_ln_kernel<true><<<(R + WARPS - 1) / WARPS, WARPS * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(y),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<bf16*>(sum_out), static_cast<bf16*>(out), R, C, eps);
+  return cudaGetLastError();
+}
+
+// Row 15. x, out: (rows, C) bf16, C a multiple of 8 up to 2048; scale,
+// bias (C,) fp32.
+extern "C" int stswin_layer_norm(const void* x, const void* scale,
+                                 const void* bias, void* out, int R, int C,
+                                 float eps, void* stream) {
+  if (C % 8 || C <= 0 || C > MAX_CHUNKS * 256 || R <= 0)
+    return cudaErrorInvalidValue;
+  add_ln_kernel<false><<<(R + WARPS - 1) / WARPS, WARPS * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), nullptr, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), nullptr, static_cast<bf16*>(out), R, C,
+      eps);
   return cudaGetLastError();
 }

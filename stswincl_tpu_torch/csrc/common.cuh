@@ -119,8 +119,9 @@ __device__ __forceinline__ long long map_row(const RowMap& m, int r) {
 //   EPI_DGELU      v *= aux[row, n] (fp32), C = bf16(v), and the fp32
 //                  column sums of v are added into colsum (db1 of K6);
 //   EPI_F32        Cf = v.
-// Aux and Cf share C's row map and ldc. Requires N % 128 == 0,
-// K % 32 == 0, lda % 8 == 0, ldc % 8 == 0.
+// Aux and Cf share C's row map and ldc. Requires N % 8 == 0 (columns
+// past the last 128-wide tile's N are masked), K % 32 == 0, lda % 8 == 0,
+// ldc % 8 == 0.
 enum Epi {
   EPI_BF16 = 0,
   EPI_RESID_F32 = 1,

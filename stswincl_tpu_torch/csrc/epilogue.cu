@@ -68,6 +68,20 @@
 // GEMM with bias and GELU, and the fc2 GEMM whose fp32 sum plus bias is
 // rounded once, into m. LN(s) and the hidden activation go through device
 // memory in bf16, as in K2.
+//
+// Row 12 (`stswin_mlp`, at the end): fc2(GELU(fc1(x))), the MLP of the
+// standalone `Mlp` module, h rounded to bf16 before fc2 and fc2's fp32
+// sum plus bias rounded once.
+//
+// Replaces: stswincl_tpu/ops/pallas_mlp.py fused_mlp (:226) -> _mlp_kernel
+//   (:150).
+//
+// Bound: fc1 and fc2, 4 * rows * C * hidden flops, on the tensor cores.
+// The TPU kernel kept the hidden activation in VMEM, blocked over the
+// hidden dim; here it is row 13's two GEMM launches (`mlp_gemms`), h
+// through device memory in bf16. Keeping h in L2 would take rows in
+// chunks (later work). The GEMM masks columns past N, so the JAX tests'
+// C 32 and 64 run too.
 
 #include "common.cuh"
 
@@ -581,6 +595,41 @@ extern "C" int stswin_block_epilogue_bwd(
   return gemm_wgrad(w, s);
 }
 
+// fc1 + bias + act -> bf16 hid, then fc2 + bias -> bf16 out: the MLP of
+// rows 12 and 13. a, out: (R, C) bf16; w1 (hidden, C), w2 (C, hidden)
+// bf16; b1, b2 fp32; hid (R, hidden) bf16 scratch.
+static cudaError_t mlp_gemms(const bf16* a, const bf16* w1,
+                             const float* b1, const bf16* w2,
+                             const float* b2, bf16* hid, bf16* out, int R,
+                             int C, int hidden, int act, cudaStream_t s) {
+  GemmParams g{};
+  g.A = a;
+  g.lda = C;
+  g.a_map = identity_map();
+  g.Wt = w1;
+  g.bias = b1;
+  g.M = R;
+  g.N = hidden;
+  g.K = C;
+  g.C = hid;
+  g.ldc = hidden;
+  g.c_map = identity_map();
+  g.act = act;
+  cudaError_t err = gemm_bf16(g, EPI_BF16, s);
+  if (err != cudaSuccess) return err;
+
+  g.A = hid;
+  g.lda = hidden;
+  g.Wt = w2;
+  g.bias = b2;
+  g.N = C;
+  g.K = hidden;
+  g.C = out;
+  g.ldc = C;
+  g.act = ACT_NONE;
+  return gemm_bf16(g, EPI_BF16, s);
+}
+
 // Row 13. x, y, sum_out, m_out: (rows, C) bf16; scale, bias, b1, b2 fp32;
 // w1 (hidden, C), w2 (C, hidden) bf16. Scratch: s32 (rows, C) fp32, n
 // (rows, C) bf16, hid (rows, hidden) bf16.
@@ -600,30 +649,25 @@ extern "C" int stswin_add_ln_mlp(const void* x, const void* y,
       static_cast<bf16*>(sum_out), R, C, 1, R, 0, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return mlp_gemms(static_cast<const bf16*>(n), static_cast<const bf16*>(w1),
+                   static_cast<const float*>(b1),
+                   static_cast<const bf16*>(w2),
+                   static_cast<const float*>(b2), static_cast<bf16*>(hid),
+                   static_cast<bf16*>(m_out), R, C, hidden, act, s);
+}
 
-  GemmParams g{};
-  g.A = static_cast<const bf16*>(n);
-  g.lda = C;
-  g.a_map = identity_map();
-  g.Wt = static_cast<const bf16*>(w1);
-  g.bias = static_cast<const float*>(b1);
-  g.M = R;
-  g.N = hidden;
-  g.K = C;
-  g.C = static_cast<bf16*>(hid);
-  g.ldc = hidden;
-  g.c_map = identity_map();
-  g.act = act;
-  if ((err = gemm_bf16(g, EPI_BF16, s)) != cudaSuccess) return err;
-
-  g.A = static_cast<const bf16*>(hid);
-  g.lda = hidden;
-  g.Wt = static_cast<const bf16*>(w2);
-  g.bias = static_cast<const float*>(b2);
-  g.N = C;
-  g.K = hidden;
-  g.C = static_cast<bf16*>(m_out);
-  g.ldc = C;
-  g.act = ACT_NONE;
-  return gemm_bf16(g, EPI_BF16, s);
+// Row 12. x, out: (rows, C) bf16; w1 (hidden, C), w2 (C, hidden) bf16;
+// b1, b2 fp32; scratch hid (rows, hidden) bf16. C and hidden multiples of
+// 32 (the GEMM's k tile; its 8-column stores need less).
+extern "C" int stswin_mlp(const void* x, const void* w1, const void* b1,
+                          const void* w2, const void* b2, void* hid,
+                          void* out, int R, int C, int hidden, int act,
+                          void* stream) {
+  if (R <= 0 || C % 32 || hidden % 32) return cudaErrorInvalidValue;
+  return mlp_gemms(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                   static_cast<const float*>(b1),
+                   static_cast<const bf16*>(w2),
+                   static_cast<const float*>(b2), static_cast<bf16*>(hid),
+                   static_cast<bf16*>(out), R, C, hidden, act,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmParams p) {
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
   tile::Acc acc[2][4];
-  tile::mma(p.A, p.lda, p.a_map, m0, p.M, p.Wt, n0, p.K, sm, acc);
+  tile::mma(p.A, p.lda, p.a_map, m0, p.M, p.Wt, n0, p.K, sm, acc, p.N);
 
   // epilogue: each warp stages one 16x16 fragment at a time in (now idle)
   // shared memory; a lane owns 8 consecutive columns of one row
@@ -63,11 +63,13 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmParams p) {
       __syncwarp();
       const int m = m0 + wm * 32 + i * 16 + r;
       const int n = n0 + wn * 64 + j * 16 + c0;
+      // N % 8 == 0: a lane's 8 columns lie all below N or all past it
+      const bool ok = m < p.M && n < p.N;
       float v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = st[r * 16 + c0 + e] + (p.bias ? p.bias[n + e] : 0.0f);
-      if (m < p.M) {
+        v[e] = st[r * 16 + c0 + e] + (p.bias && ok ? p.bias[n + e] : 0.0f);
+      if (ok) {
         const long long orow = map_row(p.c_map, m);
         if (EPI == EPI_BF16 || EPI == EPI_GELU_GRAD || EPI == EPI_DGELU) {
           __align__(16) bf16 o[8];
@@ -112,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmParams p) {
         }
       } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.0f;  // rows past M add nothing
+        for (int e = 0; e < 8; ++e) v[e] = 0.0f;  // past M or N: nothing
       }
       if (EPI == EPI_DGELU && p.colsum) {
         // sum the fragment's 16 rows: lanes 2r and 2r+1 hold row r
@@ -133,7 +135,8 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmParams p) {
   }
   if (EPI == EPI_DGELU && p.colsum) {
     __syncthreads();
-    if (tid < BN) atomicAdd(p.colsum + n0 + tid, col_acc[tid]);
+    if (tid < BN && n0 + tid < p.N)
+      atomicAdd(p.colsum + n0 + tid, col_acc[tid]);
   }
 }
 
@@ -249,9 +252,9 @@ __global__ void __launch_bounds__(CS_THREADS)
 }  // namespace
 
 cudaError_t gemm_bf16(const GemmParams& p, int epi, cudaStream_t stream) {
-  if (p.N % BN || p.K % tile::BK || p.lda % 8 || p.ldc % 8)
+  if (p.N <= 0 || p.N % 8 || p.K % tile::BK || p.lda % 8 || p.ldc % 8)
     return cudaErrorInvalidValue;
-  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
   switch (epi) {
     case EPI_BF16:
       gemm_kernel<EPI_BF16><<<grid, THREADS, 0, stream>>>(p);

@@ -7,8 +7,10 @@
 // nvcuda::wmma 16x16x16 bf16 fragments (mma.sync) with fp32 accumulation,
 // 8 warps of 32 x 64 (warp w holds rows (w >> 1) * 32, columns
 // (w & 1) * 64), k tiles of 32 in a two-stage cp.async ring. A rows at or
-// past M read as zeros. Wt is the torch Linear layout (N, K), row stride K.
-// Requires K % 32 == 0, lda % 8 == 0 and 256 threads.
+// past M and Wt rows at or past N read as zeros. Wt is the torch Linear
+// layout (N, K), row stride K. Requires K % 32 == 0, lda % 8 == 0 and 256
+// threads. The implicit-GEMM conv (conv.cu) runs the same main loop
+// (`mainloop`) with its own gathered A loads.
 #pragma once
 
 #include <mma.h>
@@ -22,7 +24,7 @@ constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8, THREADS = 256;
 typedef nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
     Acc;
 
-// The two stages of A and Wt k tiles. After `mma` returns, every thread
+// The two stages of A and Wt k tiles. After `mainloop` returns, every thread
 // has passed a barrier behind its last read, so the caller may reuse it
 // (as per-warp epilogue staging: `staging`).
 struct Smem {
@@ -38,7 +40,7 @@ __device__ __forceinline__ float* staging(Smem& sm, int warp) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: zero-fill the row past M
+  const int bytes = valid ? 16 : 0;  // 0: zero-fill (gmem is not read)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(bytes));
 }
@@ -52,72 +54,96 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void mma(const bf16* A, long long lda,
-                                    const RowMap& a_map, int m0, int M,
-                                    const bf16* Wt, int n0, int K, Smem& sm,
-                                    Acc (&acc)[2][4]) {
+// acc += one k tile of A (as) times Wt (ws), both BM (BN) rows x BK in
+// shared memory with row stride LDS.
+__device__ __forceinline__ void mma_tile(const bf16* as, const bf16* ws,
+                                         Acc (&acc)[2][4]) {
   using namespace nvcuda;
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 64
-
-  // each thread copies two 16-byte chunks of A and of Wt per k tile
-  const bf16* a_src[2];
-  const bf16* w_src[2];
-  bool a_ok[2];
-  int s_off[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS, r = c >> 2, col = (c & 3) * 8;
-    const int m = m0 + r;
-    a_ok[i] = m < M;
-    a_src[i] = A + (a_ok[i] ? map_row(a_map, m) : 0) * lda + col;
-    w_src[i] = Wt + (long long)(n0 + r) * K + col;
-    s_off[i] = r * LDS + col;
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wmma::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * LDS + kk, LDS);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wmma::load_matrix_sync(b[j], ws + (wn * 64 + j * 16) * LDS + kk, LDS);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
   }
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      cp_async16(&sm.A[stage][s_off[i]], a_src[i] + k0, a_ok[i]);
-      cp_async16(&sm.W[stage][s_off[i]], w_src[i] + k0, true);
-    }
-    cp_async_commit();
-  };
+}
 
+// Thread `tid` copies chunk i (of 2) of each k tile: row `r`, columns
+// `col` .. col + 7 of the BM x BK (and BN x BK) tile.
+__device__ __forceinline__ void chunk(int tid, int i, int& r, int& col) {
+  const int c = tid + i * THREADS;
+  r = c >> 2;
+  col = (c & 3) * 8;
+}
+
+// The two-stage main loop over KT k tiles: `load(stage, kt)` issues the
+// cp.async copies of k tile kt into sm.A[stage] and sm.W[stage] and
+// commits them. Callers with their own A addressing (the implicit-GEMM
+// conv of conv.cu) pass their own `load`.
+template <class Load>
+__device__ __forceinline__ void mainloop(int KT, Load&& load, Smem& sm,
+                                         Acc (&acc)[2][4]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int KT = K / BK;
+    for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
   load(0, 0);
   for (int kt = 0; kt < KT; ++kt) {
     if (kt + 1 < KT) {
-      load((kt + 1) & 1, (kt + 1) * BK);
+      load((kt + 1) & 1, kt + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* as = sm.A[kt & 1];
-    const bf16* ws = sm.W[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], ws + (wn * 64 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    mma_tile(sm.A[kt & 1], sm.W[kt & 1], acc);
     __syncthreads();
   }
+}
+
+// Wt rows at or past N read as zeros (N defaults to no bound).
+__device__ __forceinline__ void mma(const bf16* A, long long lda,
+                                    const RowMap& a_map, int m0, int M,
+                                    const bf16* Wt, int n0, int K, Smem& sm,
+                                    Acc (&acc)[2][4], int N = 0x7fffffff) {
+  const int tid = threadIdx.x;
+  // each thread copies two 16-byte chunks of A and of Wt per k tile
+  const bf16* a_src[2];
+  const bf16* w_src[2];
+  bool a_ok[2], w_ok[2];
+  int s_off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int r, col;
+    chunk(tid, i, r, col);
+    const int m = m0 + r;
+    a_ok[i] = m < M;
+    w_ok[i] = n0 + r < N;
+    a_src[i] = A + (a_ok[i] ? map_row(a_map, m) : 0) * lda + col;
+    w_src[i] = Wt + (long long)(w_ok[i] ? n0 + r : 0) * K + col;
+    s_off[i] = r * LDS + col;
+  }
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      cp_async16(&sm.A[stage][s_off[i]], a_src[i] + k0, a_ok[i]);
+      cp_async16(&sm.W[stage][s_off[i]], w_src[i] + k0, w_ok[i]);
+    }
+    cp_async_commit();
+  };
+  mainloop(K / BK, load, sm, acc);
 }
 
 }  // namespace tile

@@ -1,10 +1,12 @@
 """Build, load and call the hand-written Hopper kernels in `../csrc/`.
 
-The CUDA sources have a plain C interface. They are compiled with `nvcc`
-into one shared library at first use and loaded with `ctypes`:
+The CUDA sources have a plain C interface. At first use each is compiled
+by its own `nvcc`, all started together, and the objects are linked into
+one shared library, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libstswin_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -I csrc -c -o <tmp>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libstswin_kernels_<hash>.so <tmp>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source
 builds anew and an unchanged one is loaded as it is. Nothing here runs at
@@ -34,7 +36,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry name -> argument types (pointers, then ints/floats, then stream)
@@ -52,6 +54,9 @@ SIGNATURES = {
     "stswin_whole_block_slots": [_I] * 4 + [ctypes.POINTER(_I)],
     "stswin_add_ln_mlp": [_P] * 13 + [_I] * 4 + [_F, _P],
     "stswin_add_layer_norm": [_P] * 6 + [_I] * 2 + [_F, _P],
+    "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],
+    "stswin_layer_norm": [_P] * 4 + [_I] * 2 + [_F, _P],
+    "stswin_conv3x3_bn_act": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
@@ -81,32 +86,48 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library unless it already exists.
-    `verbose` adds `-Xptxas -v` (registers, shared memory, spills per
-    kernel) and prints the compiler's output."""
+    """Compile csrc/*.cu into the shared library unless it already exists:
+    one `nvcc` a source, all at once, then one link. `verbose` adds
+    `-Xptxas -v` (registers, shared memory, spills per kernel) and prints
+    the compiler's output."""
     global build_seconds
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-I", str(CSRC), "-o", tmp, *sources]
+    nvcc = _nvcc()
+    ptxas = ("-Xptxas", "-v") if verbose else ()
     t0 = time.perf_counter()
-    try:
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, jobs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-I", str(CSRC), "-c", "-o",
+                   obj, str(src)]
+            objs.append(obj)
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, so.name)
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, so)
     build_seconds = time.perf_counter() - t0
     if verbose:
-        print(res.stdout + res.stderr)
+        print("".join(log))
     return so
 
 

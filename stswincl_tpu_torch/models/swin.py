@@ -58,6 +58,7 @@ from stswincl_tpu_torch.ops.attention import (attend_tiled,
 from stswincl_tpu_torch.ops.block_attention import (
     swin_block_attention, swin_block_attention_ref, windowed_attention_image,
     windowed_attention_image_ref)
+from stswincl_tpu_torch.ops.mlp import fused_mlp, mlp_ref
 from stswincl_tpu_torch.ops.patch_merge import patch_merge, patch_merge_ref
 from stswincl_tpu_torch.ops.swin_block import (whole_swin_block,
                                                whole_swin_block_ref)
@@ -147,6 +148,36 @@ def _weights_for(kern: bool, dtype: torch.dtype):
     return weight
 
 
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2, the JAX package's standalone `Mlp`
+    (`stswincl_tpu/models/swin.py:48-82`), parameters `fc1` and `fc2`.
+
+    The JAX module runs Pallas row 12 (`fused_mlp`) on the TPU; the port's
+    form of that routing is `kernels`: None runs row 12
+    (`ops/mlp.fused_mlp`) iff the input is on CUDA and its plain twin
+    `mlp_ref` otherwise, True or False force one of them. Both use the
+    kernels' erf polynomial for `gelu_exact`, as the TPU routing does; the
+    JAX module off the TPU (flax `nn.gelu`, the exact erf) differs by at
+    most the polynomial's 2.6e-5 in the erf. The swin blocks hold an `Mlp`
+    for its parameters and fuse the MLP into their epilogue: they never
+    call it."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 gelu_exact: bool = True, dtype: torch.dtype = torch.float32,
+                 kernels: Optional[bool] = None):
+        super().__init__()
+        self.gelu_exact, self.dtype, self.kernels = gelu_exact, dtype, kernels
+        self.fc1 = Dense(in_features, hidden)
+        self.fc2 = Dense(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kern = use_kernels(self.kernels, x)
+        w = _weights_for(kern, self.dtype)
+        fn = fused_mlp if kern else mlp_ref
+        return fn(x.to(self.dtype).contiguous(), w(self.fc1), self.fc1.bias,
+                  w(self.fc2), self.fc2.bias, self.gelu_exact)
+
+
 class SpaceTimeSwinBlock(nn.Module):
     """One (S)W-MSA block over a 2-frame group: (B, T, H, W, C) ->
     (B, T, H, W, C), or (B, 1, H, W, C) with `out_frame`."""
@@ -172,9 +203,8 @@ class SpaceTimeSwinBlock(nn.Module):
         self.attn = WindowAttention(dim, ws, num_heads)
         self.norm1 = LayerNormParams(dim)
         self.norm2 = LayerNormParams(dim)
-        self.mlp = nn.Module()
-        self.mlp.fc1 = Dense(dim, int(dim * mlp_ratio))
-        self.mlp.fc2 = Dense(int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, gelu_exact, dtype,
+                       kernels)
         self._masks = {}
 
     def _mask(self, T: int, device) -> Optional[torch.Tensor]:

@@ -15,6 +15,7 @@ import torch
 
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.add_ln_mlp import layer_norm_f32
+from stswincl_tpu_torch.ops.layernorm import layer_norm_bwd_f32
 
 
 def add_layer_norm_ref(x, y, scale, bias, eps: float = 1e-5,
@@ -73,22 +74,12 @@ add_layer_norm.launches = 0
 def add_layer_norm_bwd(x, y, scale, gs, gn, eps: float = 1e-5):
     """The gradients (dx, dy, dscale, dbias) of `add_layer_norm` given the
     output gradients gs (of the sum, or None) and gn (of the norm): the
-    formula of `_faln_bwd`, in fp32, each returned in its input's dtype."""
-    s32 = x.float() + y.float()
-    mu = s32.mean(dim=-1, keepdim=True)
-    xc = s32 - mu
-    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
-    shat = xc * inv
-    gn32 = gn.float()
-    gsc = gn32 * scale.float()
-    m1 = gsc.mean(dim=-1, keepdim=True)
-    m2 = (gsc * shat).mean(dim=-1, keepdim=True)
-    ds = (gsc - m1 - shat * m2) * inv
+    formula of `_faln_bwd` (`layer_norm_bwd_f32`) plus gs, in fp32, each
+    returned in its input's dtype."""
+    ds, dscale, dbias = layer_norm_bwd_f32(x.float() + y.float(), scale,
+                                           gn.float(), eps)
     if gs is not None:
         ds = ds + gs.float()
-    dims = tuple(range(x.dim() - 1))
-    dscale = (gn32 * shat).sum(dim=dims)
-    dbias = gn32.sum(dim=dims)
     return (ds.to(x.dtype), ds.to(y.dtype), dscale.to(scale.dtype),
             dbias.to(scale.dtype))
 

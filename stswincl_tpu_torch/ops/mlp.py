@@ -1,10 +1,19 @@
-"""GELU with the JAX package's kernel semantics (plain PyTorch).
+"""GELU with the JAX package's kernel semantics, and Pallas row 12, the
+fused MLP fc1 -> GELU -> fc2.
 
-Counterpart of `_erf_poly_fast` and `_gelu` in
-`stswincl_tpu/ops/pallas_mlp.py`. The kernels and their references use an
-odd minimax polynomial for erf, not the library erf, so the port does too;
-the CUDA device function `erf_poly_fast` in `csrc/common.cuh` has the
-same coefficients and Horner order.
+Counterpart of `stswincl_tpu/ops/pallas_mlp.py`. The kernels and their
+references use an odd minimax polynomial for erf (`_erf_poly_fast`), not
+the library erf, so the port does too; the CUDA device function
+`erf_poly_fast` in `csrc/common.cuh` has the same coefficients and Horner
+order.
+
+`fused_mlp` (`pallas_mlp.fused_mlp`, `:226`) launches `stswin_mlp`
+(`csrc/epilogue.cu`: row 13's fc1 and fc2 GEMMs) on a CUDA tensor and runs
+the plain twin `mlp_ref` on a CPU tensor. When autograd needs a gradient
+it goes through `MlpFn`, whose backward is autograd of `mlp_ref`, as
+JAX's `_fmlp_bwd` (`:266-277`) is `jax.vjp` of `mlp_ref`. Weights use the
+torch Linear layout: w1 (hidden, C), w2 (C, hidden), in any float dtype
+(cast to x's dtype for the products; gradients in their own dtype).
 """
 
 from __future__ import annotations
@@ -12,6 +21,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+from stswincl_tpu_torch import kernels
 
 ERF_CLAMP = 3.0
 ERF_C = (1.1282684439e+00, -3.7531498256e-01, 1.1107952331e-01,
@@ -37,3 +49,85 @@ def gelu(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
         return 0.5 * x * (1.0 + erf_poly_fast(x * (2.0 ** -0.5)))
     c = math.sqrt(2.0 / math.pi)
     return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+
+
+def mlp_ref(x, w1, b1, w2, b2, gelu_exact: bool = True):
+    """Plain twin of row 12 (port of `pallas_mlp.mlp_ref`): the products
+    on x's dtype (the weights cast to it) with fp32 sums, b1 and the GELU
+    in fp32, h rounded to x's dtype before fc2, b2 added in fp32 and the
+    output rounded once to x's dtype."""
+    h = gelu(F.linear(x.float(), w1.to(x.dtype).float(), b1.float()),
+             gelu_exact)
+    out = F.linear(h.to(x.dtype).float(), w2.to(x.dtype).float(),
+                   b2.float())
+    return out.to(x.dtype)
+
+
+def _kernel(x, w1, b1, w2, b2, gelu_exact):
+    """Launch row 12 (weights already in x's dtype, biases fp32)."""
+    name = "fused_mlp"
+    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    kernels.require_bf16_cuda(name, x)
+    kernels.require(w1.dtype == x.dtype and w2.dtype == x.dtype,
+                    f"{name}: weights must be cast to {x.dtype}")
+    kernels.require_f32(name, b1, b2)
+    kernels.require_on(x.device, name, x, w1, b1, w2, b2)
+    C, hidden = x.shape[-1], w1.shape[0]
+    kernels.require(tuple(w1.shape) == (hidden, C)
+                    and tuple(w2.shape) == (C, hidden)
+                    and tuple(b1.shape) == (hidden,)
+                    and tuple(b2.shape) == (C,),
+                    f"{name}: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} do "
+                    f"not map C={C} -> hidden -> C")
+    kernels.require(C % 32 == 0 and hidden % 32 == 0,
+                    f"{name}: needs C and hidden multiples of 32 (C={C}, "
+                    f"hidden={hidden})")
+    rows = x.numel() // C
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_mlp", x.device, P(x), P(w1), P(b1), P(w2), P(b2),
+                   P(hid), P(out), rows, C, hidden, 1 if gelu_exact else 2)
+    fused_mlp.launches += 1
+    return out
+
+
+def _forward(x, w1, b1, w2, b2, gelu_exact):
+    if x.device.type == "cpu":
+        return mlp_ref(x, w1, b1, w2, b2, gelu_exact)
+    return _kernel(x, w1.to(x.dtype), b1.float(), w2.to(x.dtype), b2.float(),
+                   gelu_exact)
+
+
+def fused_mlp(x, w1, b1, w2, b2, gelu_exact: bool = True):
+    """Pallas row 12: fc2(GELU(fc1(x))) over the last axis of x (any
+    leading shape). x: (..., C); w1 (hidden, C), b1 (hidden,), w2
+    (C, hidden), b2 (C,). Returns x's shape and dtype."""
+    args = (x, w1, b1, w2, b2, gelu_exact)
+    if kernels.needs_grad(x, w1, b1, w2, b2):
+        return MlpFn.apply(*args)
+    return _forward(*args)
+
+
+fused_mlp.launches = 0
+
+
+class MlpFn(torch.autograd.Function):
+    """Row 12: the kernel forward on CUDA (the twin on the CPU); backward:
+    autograd of `mlp_ref` on the saved inputs (JAX's `_fmlp_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, gelu_exact):
+        ctx.gelu_exact = gelu_exact
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _forward(x, w1, b1, w2, b2, gelu_exact)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = mlp_ref(*leaves, ctx.gelu_exact)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None)

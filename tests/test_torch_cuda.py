@@ -17,15 +17,19 @@ hd 256), on six windows an image and two images, with and without the
 SW-MSA mask. The whole-block kernel (Pallas row 16) runs at both stages'
 window shapes (TN 128, TN 32), with a last tile of fewer windows too,
 forward and through its Function; rows 13 and 14 on row counts that are not
-multiples of anything the kernels tile by.
+multiples of anything the kernels tile by. Rows 12 (MLP), 15 (LayerNorm)
+and 17 (conv) run at the JAX tests' narrow widths and the model's, with
+ragged row counts, forward and (rows 12, 15) through their Functions and
+their modules; row 17 at dilations 1, 2, 4 and 18 (most taps in the
+padding), with and without the residual.
 """
 
 import pytest
 import torch
 
 from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp, attention,
-                                    block_attention, patch_merge, swin_block,
-                                    upsample_argmax)
+                                    block_attention, conv, layernorm, mlp,
+                                    patch_merge, swin_block, upsample_argmax)
 from stswincl_tpu_torch.ops.resize import composed_matrices
 from stswincl_tpu_torch.ops.window import (partition_qkv,
                                            relative_position_index,
@@ -558,3 +562,153 @@ def test_small_model_whole_block_agrees(dev):
     _, pred = seg.predict_next(cache, frames[:, 4])
     want = composed_upsample_argmax_cf(lk, (128, 192), (256, 384))
     assert (pred == want).float().mean().item() >= 0.999
+
+
+def _normal(dev, gen):
+    return lambda *s, k=1.0: torch.randn(s, generator=gen, device=dev) * k
+
+
+def _mlp_params(dev, gen, C, hidden, dt=BF):
+    f = _normal(dev, gen)
+    return [f(hidden, C, k=C ** -0.5).to(dt), f(hidden, k=0.1),
+            f(C, hidden, k=hidden ** -0.5).to(dt), f(C, k=0.1)]
+
+
+@pytest.mark.parametrize("C,hidden", [(32, 512), (64, 256), (512, 2048)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_mlp_kernel(dev, gen, C, hidden, exact):
+    """Row 12 against its twin (C below the GEMM's 128-column tile too),
+    and through `MlpFn` with fp32 weights (as `Mlp` hands them): its
+    gradients against autograd of the twin on the same weights."""
+    p = _mlp_params(dev, gen, C, hidden)
+    x = torch.randn((3, 50, C), generator=gen, device=dev).to(BF)
+    fn = mlp.fused_mlp
+    n = fn.launches
+    _close(fn(x, *p, exact), mlp.mlp_ref(x, *p, exact))
+    assert fn.launches == n + 1
+    p32 = [t.float() for t in p]
+    leaves = [t.detach().requires_grad_() for t in [x] + p32]
+    out = fn(*leaves, exact)
+    assert fn.launches == n + 2
+    g = torch.randn(out.shape, generator=gen, device=dev).to(BF)
+    got = torch.autograd.grad(out, leaves, g)
+    twin = [t.detach().requires_grad_() for t in [x] + p32]
+    want = torch.autograd.grad(mlp.mlp_ref(*twin, exact), twin, g)
+    for leaf, a, b in zip(leaves, got, want):
+        assert a.dtype == leaf.dtype
+        _close(a, b)
+
+
+@pytest.mark.parametrize("C", [32, 64, 96, 512, 1024, 2048])
+def test_layer_norm_kernel(dev, gen, C):
+    """Row 15 against its twin at the JAX tests' widths (lanes past C
+    idle) and the model's, and `LayerNormFn`'s backward (the formula of
+    `_fln_bwd`) against autograd of the twin."""
+    x = torch.randn((7, 33, C), generator=gen, device=dev).to(BF)
+    scale = 1.0 + 0.5 * torch.randn(C, generator=gen, device=dev)
+    bias = 0.5 * torch.randn(C, generator=gen, device=dev)
+    fn = layernorm.fused_layer_norm
+    n = fn.launches
+    want = layernorm.layer_norm_ref(x, scale, bias)
+    _close(fn(x, scale, bias), want)
+    assert fn.launches == n + 1
+    # the bound tells a missing affine from rounding
+    moved = layernorm.layer_norm_ref(x, scale, torch.zeros_like(bias))
+    assert ((moved.float() - want.float()).norm()
+            / want.float().norm()).item() > 10 * TOL
+    _grads_close(fn, layernorm.layer_norm_ref, [x, scale, bias], ())
+
+
+@pytest.mark.parametrize("dilation", [1, 2, 4, 18])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_conv_kernel(dev, gen, dilation, with_res):
+    """Row 17 against its twin on 1728 output pixels (13.5 row tiles) and
+    96 output channels (a part-filled column tile); at dilation 18 on
+    24x36 most taps read padding. A twin with the dilation one off (and,
+    with the residual, one without it) misses the bound tenfold."""
+    r = _normal(dev, gen)
+    x = r(2, 24, 36, 64).to(BF)
+    w = r(96, 64, 3, 3, k=(9 * 64) ** -0.5).to(BF)
+    scale, shift = 0.5 + r(96).abs(), 0.5 * r(96)
+    res = r(2, 24, 36, 96).to(BF) if with_res else None
+    fn = conv.conv3x3_bn_act
+    n = fn.launches
+    kw = dict(dilation=dilation, relu=True, residual=res)
+    want = conv.conv3x3_bn_act_ref(x, w, scale, shift, **kw)
+    got = fn(x, w, scale, shift, **kw)
+    assert fn.launches == n + 1
+    _close(got, want)
+    faults = [dict(kw, dilation=dilation + 1)]
+    if with_res:
+        faults.append(dict(kw, residual=None))
+    for fault in faults:
+        moved = conv.conv3x3_bn_act_ref(x, w, scale, shift, **fault)
+        assert ((moved.float() - want.float()).norm()
+                / want.float().norm()).item() > 10 * TOL
+    # 128 -> 256 channels: whole tiles, no ReLU
+    x2, w2 = r(1, 16, 20, 128).to(BF), r(256, 128, 3, 3, k=0.03).to(BF)
+    s2, b2 = 0.5 + r(256).abs(), 0.5 * r(256)
+    _close(fn(x2, w2, s2, b2, dilation=dilation, relu=False),
+           conv.conv3x3_bn_act_ref(x2, w2, s2, b2, dilation=dilation,
+                                   relu=False))
+
+
+def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
+    """fp32 activations and shapes outside each kernel's rule raise."""
+    p = _mlp_params(dev, gen, 64, 256)
+    x = torch.zeros((4, 64), device=dev, dtype=BF)
+    with pytest.raises(NotImplementedError):
+        mlp.fused_mlp(x.float(), *p)
+    p48 = _mlp_params(dev, gen, 48, 256)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        mlp.fused_mlp(torch.zeros((4, 48), device=dev, dtype=BF), *p48)
+    s, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(NotImplementedError):
+        layernorm.fused_layer_norm(x.float(), s, b)
+    for C in (36, 2056):
+        xc = torch.zeros((4, C), device=dev, dtype=BF)
+        with pytest.raises(ValueError, match="multiple of 8 up to 2048"):
+            layernorm.fused_layer_norm(xc, torch.ones(C, device=dev),
+                                       torch.zeros(C, device=dev))
+    xi = torch.zeros((1, 8, 8, 64), device=dev, dtype=BF)
+    w = torch.zeros((64, 64, 3, 3), device=dev, dtype=BF)
+    with pytest.raises(NotImplementedError):
+        conv.conv3x3_bn_act(xi.float(), w, s, b)
+    for xs, ws in (((1, 8, 8, 48), (64, 48, 3, 3)),  # Cin off 32
+                   ((1, 8, 8, 64), (64, 64, 1, 1))):  # 1x1
+        with pytest.raises(ValueError, match="Cin a multiple of 32"):
+            conv.conv3x3_bn_act(torch.zeros(xs, device=dev, dtype=BF),
+                                torch.zeros(ws, device=dev, dtype=BF), s, b)
+
+
+def test_offpath_modules_route_to_their_kernels(dev, gen):
+    """`Mlp` and `FusedLayerNorm` on a CUDA input launch rows 12 and 15
+    once a forward, agree with their plain routes (`kernels=False`), and
+    their parameters' gradients agree too."""
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import Mlp
+
+    x = torch.randn((2, 2, 8, 12, 128), generator=gen, device=dev).to(BF)
+    m = init_weights(Mlp(128, 512, 128, dtype=BF),
+                     torch.Generator().manual_seed(0)).to(dev)
+    plain = Mlp(128, 512, 128, dtype=BF, kernels=False).to(dev)
+    plain.load_state_dict(m.state_dict())
+    ln = layernorm.FusedLayerNorm(128).to(dev)
+    with torch.no_grad():
+        ln.weight.add_(0.5 * torch.randn(128, generator=gen, device=dev))
+        ln.bias.add_(0.5 * torch.randn(128, generator=gen, device=dev))
+    ln_plain = layernorm.FusedLayerNorm(128, kernels=False).to(dev)
+    ln_plain.load_state_dict(ln.state_dict())
+    for mod, twin, fn in ((m, plain, mlp.fused_mlp),
+                          (ln, ln_plain, layernorm.fused_layer_norm)):
+        n = fn.launches
+        out = mod(x)
+        assert fn.launches == n + 1
+        ref = twin(x)
+        _close(out, ref)
+        g = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        out.backward(g)
+        ref.backward(g)
+        for (name, a), b in zip(mod.named_parameters(), twin.parameters()):
+            assert a.grad.dtype == torch.float32, name
+            _close(a.grad, b.grad)

@@ -38,6 +38,9 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     sources = _port_sources()
     assert len(sources) > 30
+    tools = ROOT / "stswincl_tpu_torch" / "tools"
+    assert {tools / "profile_swin_kernels.py",
+            tools / "profile_conv_kernel.py"} <= set(sources)
     bad = [(str(p.relative_to(ROOT)), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
