@@ -86,6 +86,70 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
 }
 
+// Row 15 for any C (rows wider than 2048 channels, or not a multiple of 8):
+// one block per row, the row read three times (mean, squared deviations,
+// the output) in chunks of 8 channels (16-byte loads, when C % 8 == 0 keeps
+// every row 16-byte aligned) with a scalar tail; the same two-pass fp32
+// statistics. The re-reads hit L1/L2: the row is at most a few tens of KB.
+constexpr int WIDE_THREADS = 256;
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read by the previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < WIDE_THREADS / 32; ++i) s += red[i];
+  return s;
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS)
+    ln_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ b, bf16* __restrict__ out, int C,
+                   float eps) {
+  __shared__ float red[WIDE_THREADS / 32];
+  const long long base = (long long)blockIdx.x * C;
+  const bf16* xr = x + base;
+  const int nvec = C % 8 == 0 ? C / 8 : 0;  // 8-channel chunks
+  const int tid = threadIdx.x;
+  float s = 0.0f;
+  for (int i = tid; i < nvec; i += WIDE_THREADS) {
+    float v[8];
+    load8(xr + i * 8, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += v[e];
+  }
+  for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS)
+    s += __bfloat162float(xr[c]);
+  const float mu = block_sum(s, red) / C;
+  float sq = 0.0f;
+  for (int i = tid; i < nvec; i += WIDE_THREADS) {
+    float v[8];
+    load8(xr + i * 8, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sq += (v[e] - mu) * (v[e] - mu);
+  }
+  for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS) {
+    const float d = __bfloat162float(xr[c]) - mu;
+    sq += d * d;
+  }
+  const float rs = rsqrtf(block_sum(sq, red) / C + eps);
+  bf16* orow = out + base;
+  for (int i = tid; i < nvec; i += WIDE_THREADS) {
+    float v[8];
+    load8(xr + i * 8, v);
+    const int c = i * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (v[e] - mu) * rs * g[c + e] + b[c + e];
+    store8(orow + c, v);
+  }
+  for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS)
+    orow[c] = __float2bfloat16((__bfloat162float(xr[c]) - mu) * rs * g[c] +
+                               b[c]);
+}
+
 }  // namespace
 
 // x, y, out, sum_out (or null): (rows, C) bf16, C a multiple of 256 up to
@@ -103,13 +167,18 @@ extern "C" int stswin_add_layer_norm(const void* x, const void* y,
   return cudaGetLastError();
 }
 
-// Row 15. x, out: (rows, C) bf16, C a multiple of 8 up to 2048; scale,
-// bias (C,) fp32.
+// Row 15. x, out: (rows, C) bf16, any C > 0: a warp a row for C a multiple
+// of 8 up to 2048, else the wide-row kernel; scale, bias (C,) fp32.
 extern "C" int stswin_layer_norm(const void* x, const void* scale,
                                  const void* bias, void* out, int R, int C,
                                  float eps, void* stream) {
-  if (C % 8 || C <= 0 || C > MAX_CHUNKS * 256 || R <= 0)
-    return cudaErrorInvalidValue;
+  if (C <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (C % 8 || C > MAX_CHUNKS * 256) {
+    ln_wide_kernel<<<R, WIDE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<bf16*>(out), C, eps);
+    return cudaGetLastError();
+  }
   add_ln_kernel<false><<<(R + WARPS - 1) / WARPS, WARPS * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), nullptr, static_cast<const float*>(scale),

@@ -1,9 +1,11 @@
-// The window-attention core: softmax(q k^T * scale + bias (+ mask)) v for
-// one (window, head) by one block of 256 threads, everything on chip.
-// Shared by K1 and the two standalone attention kernels of the `attn_impl`
-// routes 'pallas' and 'pallas_windows' (window_attention.cu), and by the
-// whole-block kernel (swin_block.cu). window_attention.cu says what it
-// replaces, what bounds it and how it is laid out.
+// The first window-attention core: softmax(q k^T * scale + bias (+ mask))
+// v for one (window, head) by one block of 256 threads, q, k, v, the fp32
+// scores and the bf16 P in shared memory. The whole-block kernel
+// (swin_block.cu) runs it in its attention phase. K1 and the two
+// standalone attention kernels of the `attn_impl` routes 'pallas' and
+// 'pallas_windows' run the register-resident core of window_attention.cu,
+// which says what both replace and what bounds them; it shares the
+// address functors below.
 #pragma once
 
 #include <mma.h>

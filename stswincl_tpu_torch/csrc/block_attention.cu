@@ -11,17 +11,22 @@
 // memory, as long as the score matrix never leaves the SM.
 //
 // Design: three launches on one stream.
-//   1. qkv GEMM (gemm.cu) whose A rows are gathered through the window
-//      partition and the SW-MSA cyclic shift: the rolled, partitioned
-//      tensor is never formed; qkv lands in window order.
-//   2. one block per (window, head), the attention core shared with the
-//      standalone attention kernels (window_attention.cu,
-//      `window_attention_rows` on the window-order qkv): q, k and v
-//      (TN x hd bf16) and the fp32 scores stay in shared memory. Scores
-//      use the JAX package's softmax contract: fp32 scale after the
-//      matmul, + tiled relative bias, + the window's mask only for SW-MSA,
-//      row max, exp, and a multiply by the reciprocal of the row sum.
-//   3. proj GEMM whose C rows scatter back to the image layout; with
+//   1. qkv on the Hopper GEMM (gemm_sm90.cu: wgmma, Wt by TMA) whose A
+//      rows come through the window partition and the SW-MSA cyclic
+//      shift: the producer warp loads each whole window as one 4-D TMA
+//      box, and only the tiles holding a window the shift wraps round the
+//      image edge by cp.async. The rolled, partitioned tensor is never
+//      formed; qkv lands in window order.
+//   2. the register-resident attention core shared with the standalone
+//      attention kernels (window_attention.cu, `window_attention_rows` on
+//      the window-order qkv): q, k and v of a (window, head) in shared
+//      memory, each warp's 16 query rows of scores, softmax and P in
+//      registers. Scores use the JAX package's softmax contract: fp32
+//      scale after the matmul, + tiled relative bias, + the window's mask
+//      only for SW-MSA, row max, exp, and a multiply by the reciprocal of
+//      the row sum.
+//   3. proj on the Hopper GEMM (A by TMA) whose C rows scatter back to
+//      the image layout; with
 //      shift > 0 the output stays in the shifted layout, as in the TPU
 //      kernel, and K2 reads it back through the inverse shift.
 //
@@ -54,6 +59,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -309,7 +315,7 @@ extern "C" int stswin_block_attention(
   g.ldc = 3 * C;
   g.c_map = identity_map();
   g.act = ACT_NONE;
-  cudaError_t err = gemm_bf16(g, EPI_BF16, s);
+  cudaError_t err = gemm_sm90(g, EPI_BF16, s);
   if (err != cudaSuccess) return err;
 
   err = window_attention_rows(static_cast<const bf16*>(qkv_buf),
@@ -328,7 +334,7 @@ extern "C" int stswin_block_attention(
   g.C = static_cast<bf16*>(out);
   g.ldc = C;
   g.c_map = RowMap{1, T, H, W, ws, 0};  // window order -> (shifted) image
-  return gemm_bf16(g, EPI_BF16, s);
+  return gemm_sm90(g, EPI_BF16, s);
 }
 
 // x: (B, T, H, W, C) bf16 unshifted; g: the output's gradient in the

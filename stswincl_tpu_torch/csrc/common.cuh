@@ -1,7 +1,7 @@
 // Shared device helpers for the STswin Hopper kernels (sm_90a).
 //
-// Holds the building blocks the four kernels share: warp reductions, the
-// GELU of the JAX package's kernels (the odd minimax erf polynomial, not
+// Holds the building blocks the kernels share: the 16-byte cp.async, warp
+// reductions, the GELU of the JAX package's kernels (the odd minimax erf polynomial, not
 // erff: `stswincl_tpu/ops/pallas_mlp.py:45-101` defines the semantics),
 // the window-partition row map, and the declaration of the tiled bf16 GEMM
 // in gemm.cu.
@@ -10,7 +10,24 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 typedef __nv_bfloat16 bf16;
+
+// The shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A 16-byte cp.async from device to shared memory; with !valid it writes
+// zeros and reads nothing (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -16,8 +16,10 @@
 // Design: four launches on one stream.
 //   1. one warp per row: s = x + y read through the inverse cyclic shift
 //      (no rolled tensor formed), s kept in fp32, LN2(s) rounded to bf16;
-//   2. fc1 GEMM + bias + GELU (the erf polynomial) -> bf16 hidden;
-//   3. fc2 GEMM + bias, added in fp32 into s (the kernel's rounding: the
+//   2. fc1 on the Hopper GEMM (gemm_sm90.cu: wgmma + TMA) + bias + GELU
+//      (the erf polynomial) -> bf16 hidden;
+//   3. fc2 on the Hopper GEMM + bias, added in fp32 into s (the kernel's
+//      rounding: the
 //      fp32 MLP sum, not a bf16-rounded m, `pallas_add_ln_mlp.py:743`);
 //   4. one warp per row: LN1 -> bf16 output, unshifted.
 // With an `m_out` pointer (the training forward at C = 1024), step 3
@@ -84,6 +86,7 @@
 // C 32 and 64 run too.
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -418,7 +421,7 @@ extern "C" int stswin_block_epilogue(
   g.ldc = hidden;
   g.c_map = identity_map();
   g.act = act;
-  err = gemm_bf16(g, EPI_BF16, s);
+  err = gemm_sm90(g, EPI_BF16, s);
   if (err != cudaSuccess) return err;
 
   g.A = static_cast<const bf16*>(hid);
@@ -431,10 +434,10 @@ extern "C" int stswin_block_epilogue(
   g.act = ACT_NONE;
   if (m_out) {  // m = bf16(fc2 + bias), then LN1(s + m)
     g.C = static_cast<bf16*>(m_out);
-    err = gemm_bf16(g, EPI_BF16, s);
+    err = gemm_sm90(g, EPI_BF16, s);
   } else {      // s += fc2 + bias in fp32
     g.Cf = static_cast<float*>(s32);
-    err = gemm_bf16(g, EPI_RESID_F32, s);
+    err = gemm_sm90(g, EPI_RESID_F32, s);
   }
   if (err != cudaSuccess) return err;
 

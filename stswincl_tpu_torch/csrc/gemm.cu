@@ -27,7 +27,6 @@
 #include "gemm_tile.cuh"
 
 using namespace nvcuda;
-using tile::cp_async16;
 using tile::cp_async_commit;
 using tile::cp_async_wait;
 

@@ -37,13 +37,7 @@ __device__ __forceinline__ float* staging(Smem& sm, int warp) {
   return reinterpret_cast<float*>(&sm.A[0][0]) + warp * 256;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: zero-fill (gmem is not read)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
+using ::cp_async16;  // common.cuh
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

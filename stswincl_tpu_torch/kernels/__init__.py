@@ -57,6 +57,7 @@ SIGNATURES = {
     "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],
     "stswin_layer_norm": [_P] * 4 + [_I] * 2 + [_F, _P],
     "stswin_conv3x3_bn_act": [_P] * 6 + [_I] * 7 + [_P],
+    "stswin_gemm_sm90": [_P] * 5 + [_I] * 14 + [_P],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90

@@ -67,10 +67,26 @@ def _align(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
+# The widest window of the attention core of K1 and rows 10-11: its score
+# registers are sized for at most 11 key tiles of 16 (`MAX_NT` in
+# `csrc/window_attention.cu`), the widest window the first core (still row
+# 16's, `_attend_smem_bytes`) fitted in shared memory.
+MAX_WINDOW_TOKENS = 176
+
+
 def _attn_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of one attention block of K1 and of rows 10
-    and 11 (`attn_smem` in `csrc/window_attention.cu`): q, k, v, the fp32
-    scores, the bf16 P and the TN row offsets."""
+    """Dynamic shared memory of one (window, head) pair of the attention
+    core of K1 and rows 10 and 11 (`pair_smem` in
+    `csrc/window_attention.cu`): q, k and v in bf16 rows of hd + 8, and the
+    TN row offsets; the scores and P stay in registers."""
+    return _align(3 * TN * (hd + 8) * 2) + _align(TN * 8)
+
+
+def _attend_smem_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of `attn::attend` (`attn_smem` in
+    `csrc/attention_core.cuh`), the attention of the whole-block kernel
+    (row 16): q, k, v, the fp32 scores, the bf16 P and the TN row
+    offsets."""
     return (3 * _align(TN * (hd + 8) * 2)
             + _align(TN * max(TN + 4, hd + 4) * 4)
             + _align(TN * (TN + 8) * 2) + _align(TN * 8))
@@ -100,6 +116,9 @@ def check_attention_core(name: str, device: torch.device,
     kernels.require(hd % 16 == 0 and TN % 16 == 0,
                     f"{name}: needs head_dim % 16 and tokens % 16 (hd={hd}, "
                     f"TN={TN})")
+    kernels.require(TN <= MAX_WINDOW_TOKENS,
+                    f"{name}: window of {TN} tokens, at most "
+                    f"{MAX_WINDOW_TOKENS}")
     kernels.require(smem_bytes(TN, hd) <= kernels.SMEM_LIMIT,
                     f"{name}: window of {TN} tokens x {hd} does not fit "
                     "shared memory")

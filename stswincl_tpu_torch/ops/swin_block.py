@@ -37,7 +37,8 @@ import torch
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_with_m_ref)
-from stswincl_tpu_torch.ops.attention import check_attention_core
+from stswincl_tpu_torch.ops.attention import (_attend_smem_bytes,
+                                              check_attention_core)
 from stswincl_tpu_torch.ops.block_attention import (swin_block_attention,
                                                     swin_block_attention_ref)
 
@@ -102,7 +103,7 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
     TN = T * ws * ws
     mask_tiled, n_mask = check_attention_core(name, x.device, bias_tiled,
                                               mask_tiled, heads, TN,
-                                              C // heads)
+                                              C // heads, _attend_smem_bytes)
     kernels.require(n_mask == 0, f"{name}: the whole-block kernel takes "
                     "W-MSA blocks (shift 0, no attention mask)")
     kernels.require(TILE_ROWS % TN == 0,

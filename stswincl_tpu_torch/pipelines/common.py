@@ -28,7 +28,14 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     built for `data_cfg.crop_hw`. Parameters are created uninitialised:
     load them (`ckpt.load_from_jax`) or initialise them
     (`models.init.init_weights`). The default device is the card; a
-    machine without one raises unless the caller asks for the CPU."""
+    machine without one raises unless the caller asks for the CPU.
+
+    The CUDA kernels compute in bfloat16 only. With `model_cfg.dtype ==
+    "float32"` the model is built with `kernels=False` on purpose: it runs
+    on the kernels' plain PyTorch twins on any device, as the JAX package
+    runs fp32 off the TPU on its 'einsum' route, and no kernel launches.
+    With "bfloat16" it is built with `kernels=None`: the kernels iff the
+    input is on the card."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]
@@ -44,11 +51,13 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
                            "to build the model on the CPU")
+    dtype = resolve_dtype(model_cfg.dtype)
     model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
                       num_heads=model_cfg.num_heads,
                       gelu_exact=model_cfg.gelu_exact,
                       swin_depths=tuple(model_cfg.swin_depths),
-                      dtype=resolve_dtype(model_cfg.dtype),
+                      dtype=dtype,
                       input_hw=tuple(data_cfg.crop_hw),
+                      kernels=False if dtype == torch.float32 else None,
                       attn_impl=model_cfg.attn_impl)
     return model.to(device), num_classes

@@ -21,15 +21,19 @@ multiples of anything the kernels tile by. Rows 12 (MLP), 15 (LayerNorm)
 and 17 (conv) run at the JAX tests' narrow widths and the model's, with
 ragged row counts, forward and (rows 12, 15) through their Functions and
 their modules; row 17 at dilations 1, 2, 4 and 18 (most taps in the
-padding), with and without the residual.
+padding), with and without the residual. The Hopper GEMM of K1 and K2
+runs alone against torch.matmul at ragged M, N and K with each epilogue,
+and with K1's row maps (both gathers, the scatter); the fp32 model serves
+and takes a train step on the plain twins with no kernel launched.
 """
 
 import pytest
 import torch
 
 from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp, attention,
-                                    block_attention, conv, layernorm, mlp,
-                                    patch_merge, swin_block, upsample_argmax)
+                                    block_attention, conv, gemm, layernorm,
+                                    mlp, patch_merge, swin_block,
+                                    upsample_argmax)
 from stswincl_tpu_torch.ops.resize import composed_matrices
 from stswincl_tpu_torch.ops.window import (partition_qkv,
                                            relative_position_index,
@@ -295,14 +299,21 @@ def test_fp32_activations_are_refused(dev, gen):
 
 
 def test_attention_kernels_refuse_windows_beyond_shared_memory(dev):
-    """TN 128 x hd 256 does not fit one block's shared memory."""
-    q = torch.zeros((2, 2, 128, 256), device=dev, dtype=BF)
+    """TN 128 x hd 512 does not fit one block's shared memory (q, k and v
+    of the window, 399 KB); TN 128 x hd 256, which the first core refused,
+    fits the register-resident one (202 KB) and agrees with its twin."""
+    q = torch.zeros((2, 2, 128, 512), device=dev, dtype=BF)
     bias = torch.zeros((2, 128, 128), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         attention.fused_window_attention(q, q, q, bias, None, 0.1)
-    qkv = torch.zeros((1, 2, 8, 8, 3 * 512), device=dev, dtype=BF)
+    qkv = torch.zeros((1, 2, 8, 8, 3 * 1024), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="shared memory"):
         block_attention.windowed_attention_image(qkv, bias, None, 2, 0.1, 8)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 2, 128, 256), generator=g, device=dev)
+               .to(BF) for _ in range(3))
+    _close(attention.fused_window_attention(q, k, v, bias, None, 0.0625),
+           attention.attend_tiled(q, k, v, bias, None, 0.0625))
 
 
 def test_small_model_routes_agree(dev):
@@ -599,11 +610,13 @@ def test_mlp_kernel(dev, gen, C, hidden, exact):
         _close(a, b)
 
 
-@pytest.mark.parametrize("C", [32, 64, 96, 512, 1024, 2048])
+@pytest.mark.parametrize("C", [32, 36, 64, 96, 100, 512, 1024, 2048, 2050,
+                               2056, 3072])
 def test_layer_norm_kernel(dev, gen, C):
     """Row 15 against its twin at the JAX tests' widths (lanes past C
-    idle) and the model's, and `LayerNormFn`'s backward (the formula of
-    `_fln_bwd`) against autograd of the twin."""
+    idle), the model's, and the wide-row path's (C > 2048 or C % 8 != 0:
+    a block a row, a scalar tail), and `LayerNormFn`'s backward (the
+    formula of `_fln_bwd`) against autograd of the twin."""
     x = torch.randn((7, 33, C), generator=gen, device=dev).to(BF)
     scale = 1.0 + 0.5 * torch.randn(C, generator=gen, device=dev)
     bias = 0.5 * torch.randn(C, generator=gen, device=dev)
@@ -665,11 +678,9 @@ def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
     s, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with pytest.raises(NotImplementedError):
         layernorm.fused_layer_norm(x.float(), s, b)
-    for C in (36, 2056):
-        xc = torch.zeros((4, C), device=dev, dtype=BF)
-        with pytest.raises(ValueError, match="multiple of 8 up to 2048"):
-            layernorm.fused_layer_norm(xc, torch.ones(C, device=dev),
-                                       torch.zeros(C, device=dev))
+    with pytest.raises(ValueError, match="scale"):  # scale of another width
+        layernorm.fused_layer_norm(torch.zeros((4, 36), device=dev, dtype=BF),
+                                   s, b)
     xi = torch.zeros((1, 8, 8, 64), device=dev, dtype=BF)
     w = torch.zeros((64, 64, 3, 3), device=dev, dtype=BF)
     with pytest.raises(NotImplementedError):
@@ -712,3 +723,112 @@ def test_offpath_modules_route_to_their_kernels(dev, gen):
         for (name, a), b in zip(mod.named_parameters(), twin.parameters()):
             assert a.grad.dtype == torch.float32, name
             _close(a.grad, b.grad)
+
+
+def _counted_wrappers():
+    """Every kernel wrapper that counts its launches."""
+    return [block_attention.swin_block_attention,
+            block_attention.swin_block_attention_bwd,
+            block_attention.windowed_attention_image,
+            attention.fused_window_attention,
+            add_ln_mlp.swin_block_epilogue,
+            add_ln_mlp.swin_block_epilogue_bwd, add_ln_mlp.add_ln_mlp,
+            patch_merge.patch_merge, upsample_argmax.upsample_argmax,
+            swin_block.whole_swin_block, add_layernorm.add_layer_norm,
+            mlp.fused_mlp, layernorm.fused_layer_norm,
+            conv.conv3x3_bn_act]
+
+
+def test_fp32_model_runs_on_the_twins(dev):
+    """`build_model` with dtype "float32" serves one `init_and_predict` +
+    `predict_next` and takes one stage-1 train step on the card, on the
+    plain twins: predictions in [0, classes), a finite loss, and no kernel
+    launched."""
+    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
+                                            SegTrainConfig)
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.common import build_model
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    mc = ModelConfig(swin_dim=128, swin_depths=(2, 2), dtype="float32")
+    dc = DataConfig(dataset="synthetic", crop_hw=(128, 192), batch_size=2)
+    model, classes = build_model(mc, dc, device=dev)
+    assert model.kernels is False
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    before = [fn.launches for fn in _counted_wrappers()]
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.rand((2, 5, 128, 192, 3), generator=g, device=dev) * 2 - 1
+    seg = StreamingSegmenter(model.eval(), out_hw=(256, 384))
+    cache, _ = seg.init_and_predict(frames[:, 0:4])
+    _, pred = seg.predict_next(cache, frames[:, 4])
+    assert pred.shape == (2, 256, 384)
+    assert 0 <= int(pred.min()) and int(pred.max()) < classes
+    cfg = SegTrainConfig(model=mc, data=dc)
+    opt, schedule = make_tx(cfg, 1, model)
+    step = make_seg_train_step(model, opt, schedule, cfg.loss,
+                               ohem_thresh=cfg.ohem_thresh)
+    labels = torch.randint(-1, classes, (2, 128, 192), generator=g,
+                           device=dev)
+    loss = float(step(frames[:, 0:4], labels)["loss"])
+    assert loss == loss and abs(loss) < float("inf")
+    assert [fn.launches for fn in _counted_wrappers()] == before
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 384, 512), (1000, 136, 200),
+                                   (384, 1536, 512), (64, 2048, 1024)])
+@pytest.mark.parametrize("epi,act", [("bf16", "none"), ("bf16", "erf"),
+                                     ("bf16", "tanh"), ("resid_f32", "none"),
+                                     ("f32", "none")])
+def test_gemm_sm90_kernel(dev, gen, M, N, K, epi, act):
+    """The Hopper GEMM (wgmma + TMA) against torch.matmul in fp32 at ragged
+    M, N and K (a part-filled last tile in each), with each epilogue."""
+    r = _normal(dev, gen)
+    a, wt = r(M, K).to(BF), r(N, K, k=K ** -0.5).to(BF)
+    bias = r(N, k=0.1) if act != "none" or M % 2 else None
+    out = r(M, N) if epi != "bf16" else None
+    fn = gemm.linear_sm90
+    n = fn.launches
+    got = fn(a, wt, bias, act, out=None if out is None else out.clone(),
+             epi=epi)
+    assert fn.launches == n + 1
+    want = a.float() @ wt.float().t()
+    if bias is not None:
+        want = want + bias
+    if act != "none":
+        want = mlp.gelu(want, act == "erf")
+    if epi == "bf16":
+        want = want.to(BF)
+    elif epi == "resid_f32":
+        want = want + out
+    _close(got, want)
+    _close(got, gemm.linear_sm90_ref(a, wt, bias, act, out=out, epi=epi))
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("ws", [2, 4])
+def test_gemm_sm90_row_maps(dev, gen, shift, ws):
+    """K1's two uses: A rows gathered through the window partition and the
+    cyclic shift (T 2: a TMA box per window, cp.async for the tiles whose
+    windows the shift wraps; T 3 with ws 2: windows of 12 tokens, all by
+    cp.async), and C rows scattered back to the image layout, on 4.5 or
+    more row tiles and a ragged k tile."""
+    B, H, W = 3, 8, 12
+    T = 2 if ws == 4 else 3
+    M, N, K = B * T * H * W, 264, 136
+    r = _normal(dev, gen)
+    a, wt, bias = r(M, K).to(BF), r(N, K, k=K ** -0.5).to(BF), r(N, k=0.1)
+    grid = (T, H, W, ws)
+    for a_map, c_map in (((*grid, shift), None), (None, (*grid, 0)),
+                         ((*grid, shift), (*grid, 0))):
+        got = gemm.linear_sm90(a, wt, bias, a_map=a_map, c_map=c_map)
+        want = gemm.linear_sm90_ref(a, wt, bias, a_map=a_map, c_map=c_map)
+        _close(got, want)
+        rows_a = gemm.window_rows(M, a_map, dev)
+        rows_c = gemm.window_rows(M, c_map, dev)
+        mm = torch.empty_like(want)
+        mm[rows_c] = (torch.matmul(a[rows_a].float(), wt.float().t())
+                      + bias).to(BF)
+        _close(got, mm)

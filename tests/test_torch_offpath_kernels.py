@@ -108,8 +108,10 @@ def test_mlp_module_matches_jax(rng, monkeypatch):
         assert (np.abs(got - want_xla) <= bound).all()
 
 
-@pytest.mark.parametrize("shape", [(6, 128, 96), (3, 40, 64)],
-                         ids=["C96", "odd-rows-C64"])
+@pytest.mark.parametrize("shape", [(6, 128, 96), (3, 40, 64), (5, 9, 100),
+                                   (3, 2050), (2, 3072)],
+                         ids=["C96", "odd-rows-C64", "C100", "C2050",
+                              "C3072"])
 def test_row15_forward_matches_jax(rng, shape):
     f = _f(rng)
     C = shape[-1]
@@ -135,6 +137,27 @@ def test_row15_backward_matches_jax(rng):
         (fn(*leaves) * T_(G)).sum().backward()
         for leaf, jg in zip(leaves, jgrads):
             assert leaf.grad.dtype == torch.float32
+            assert _rel(leaf.grad, jg) <= TOL, fn
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 100), (3, 2050), (2, 3072)],
+                         ids=["C100", "C2050", "C3072"])
+def test_row15_backward_matches_jax_at_wide_rows(rng, shape):
+    """The widths of the kernel's wide-row path (C % 8 != 0, C > 2048):
+    the Function's backward and the twin's autograd against JAX's."""
+    f = _f(rng)
+    C = shape[-1]
+    x, scale, bias = f(*shape), f(C, k=0.5, o=1.0), f(C, k=0.5)
+    G = f(*x.shape)
+
+    def jloss(*a):
+        return jnp.sum(jln.fused_layer_norm(*a, 1e-5, True) * G)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (x, scale, bias)))
+    for fn in (layernorm.fused_layer_norm, layernorm.layer_norm_ref):
+        leaves = [T_(a).requires_grad_() for a in (x, scale, bias)]
+        (fn(*leaves) * T_(G)).sum().backward()
+        for leaf, jg in zip(leaves, jgrads):
             assert _rel(leaf.grad, jg) <= TOL, fn
 
 
