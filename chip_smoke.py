@@ -15,16 +15,21 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   2b. hold the backward kernels (K5 attention, K6 epilogue) and K2's
      `m` output against their twins at the full-width training shapes
      (batch 8), every output within TOL_REL, and time both; planted
-     faults: K5's twin without dbias, K6's without the LN2 path;
+     faults: K5's twin without dbias and with the softmax backward's
+     row-sum term dropped (dS = P * dP), K6's without the LN2 path and
+     with gelu' taken as 1 (dpre = dh);
   2c. hold the attention kernels of the `attn_impl` routes 'pallas' (row
      10, image-layout qkv) and 'pallas_windows' (row 11, partitioned q, k,
      v) against their twins at the full-width stage-1 and stage-2 window
      shapes of the serving batch, with and without the SW-MSA mask, and
      time both; planted fault: each twin without the mask;
-  2f. the Hopper GEMM of K1 and K2 (`ops.gemm.linear_sm90`) alone at
-     their products of the serving shapes, through
-     `tools.profile_gemm.main`: held against its twin and timed beside
-     torch.matmul (TFLOP/s, share of the bf16 peak), both output tiles;
+  2f. the Hopper GEMMs alone (`ops.gemm`: `linear_sm90`, K6's fused
+     pair `gelu_bwd_sm90`, the weight gradients `wgrad_sm90`) at K1's and
+     K2's products of the serving shapes and K5's and K6's input- and
+     weight-gradient products at both training stages, through
+     `tools.profile_gemm.main`: each held within 1e-2 of its twin and
+     timed beside torch.matmul on the same operands (TFLOP/s, share of
+     the bf16 peak);
   3. serve: TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16)
      with seeded random weights (BatchNorm statistics calibrated on the
      first clip) through StreamingSegmenter at 512x640 ->
@@ -94,7 +99,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
-read just after. Then
+read just after. K1, K2, K5 and K6 launch the Hopper GEMMs from C: the
+library counts those launches by form where it makes them, and each path
+holds them exactly to what the kernels' own launches imply (on a train
+path, with the blocks whose m is saved). Then
 come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
@@ -202,6 +210,75 @@ def epilogue_bwd_without_ln2_path(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, g,
         return torch.autograd.grad(out, leaves, g)
 
 
+def epilogue_bwd_with_unit_gelu_grad(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
+                                     g, gelu_exact=True, shift=0, ws=None,
+                                     eps=1e-5):
+    """K6's twin with a planted fault: the GELU's derivative taken as 1
+    (dpre = dh), what a fused epilogue that dropped its multiply by gelu'
+    would give; the forward values are unchanged."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.add_ln_mlp import layer_norm_f32
+    from stswincl_tpu_torch.ops.mlp import gelu
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, y, s2, b2, w1, b1, w2, bw2, s1, b1n)]
+        x_, y_, s2_, b2_, w1_, b1_, w2_, bw2_, s1_, b1n_ = leaves
+        ys = torch.roll(y_, (shift, shift), dims=(2, 3)) if shift else y_
+        s32 = x_.float() + ys.float()
+        n2 = layer_norm_f32(s32, s2_, b2_, eps).to(x.dtype)
+        pre = F.linear(n2.float(), w1_.float(), b1_.float())
+        h = pre + (gelu(pre, gelu_exact) - pre).detach()
+        m = F.linear(h.to(x.dtype).float(), w2_.float(),
+                     bw2_.float()).to(x.dtype)
+        out = layer_norm_f32(s32 + m.float(), s1_, b1n_, eps).to(x.dtype)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def attention_bwd_without_rowsum(x, wqkv, bqkv, wproj, bproj, bias, mask, g,
+                                 heads, scale, ws, shift=0):
+    """K5's twin (autograd of K1's twin) with a planted fault: the
+    softmax backward without its row-sum term, dS = P * dP in place of P *
+    (dP - rowsum(dP * P)); the forward values are unchanged."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
+
+    class SoftmaxWithoutRowsum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, scores):
+            e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+            ctx.save_for_backward(p)
+            return p
+
+        @staticmethod
+        def backward(ctx, dp):
+            (p,) = ctx.saved_tensors
+            return p * dp
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, wqkv, bqkv, wproj, bproj, bias)]
+        x_, wq, bq, wp, bp, bias_ = leaves
+        B, T, H, W, _ = x.shape
+        xs = torch.roll(x_, (-shift, -shift), dims=(2, 3)) if shift else x_
+        qkv = F.linear(xs.float(), wq.float(), bq.float()).to(x.dtype)
+        q, k, v = partition_qkv(qkv, heads, ws)
+        Bw, _, TN, _ = q.shape
+        sc = (q.float() @ k.float().transpose(-1, -2)) * scale
+        sc = sc + bias_.float()[None]
+        if mask is not None and mask.shape[0] > 1:
+            nW = mask.shape[0]
+            sc = (sc.reshape(Bw // nW, nW, heads, TN, TN)
+                  + mask.float()[None, :, None]).reshape(Bw, heads, TN, TN)
+        o = (SoftmaxWithoutRowsum.apply(sc).to(v.dtype).float()
+             @ v.float()).to(v.dtype)
+        attn = reverse_windows(o, B, T, H, W, ws)
+        out = F.linear(attn.float(), wp.float(), bp.float()).to(x.dtype)
+        return torch.autograd.grad(out, leaves, g)
+
+
 def planted(kname: str, case: str, fault: str, moved: float) -> None:
     """A twin with a planted fault must miss the bound TOL_REL that its
     kernel is held to tenfold, or the check could not see that fault."""
@@ -211,12 +288,64 @@ def planted(kname: str, case: str, fault: str, moved: float) -> None:
           f"moves the output by only {moved}")
 
 
+# the Hopper GEMM's rows of the `kernels` line -> the forms of
+# `ops.gemm.launch_counts` that each counts
+GEMM_ROWS = {"linear_sm90": ("bf16", "resid_f32", "gelu_grad", "dgelu", "f32"),
+             "gelu_bwd_sm90": ("gelu_bwd",), "wgrad_sm90": ("wgrad",)}
+
+
 def reset_launches(wrappers) -> None:
-    """Every kernel's launch count to 0, with the card idle."""
+    """Every kernel's launch count to 0, the library's GEMM counts too,
+    with the card idle."""
     import torch
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    gemm_ops.launch_counts(reset=True)
+
+
+def read_launches(wrappers) -> tuple:
+    """(each kernel's launches since the reset, the library's GEMM counts
+    by form). A kernel's count is its wrapper's; a Hopper GEMM row's is the
+    library's, which also counts the launches made inside the C entries of
+    K1, K2, K5 and K6."""
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    forms = gemm_ops.launch_counts()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    for k, fs in GEMM_ROWS.items():
+        if k in counts:
+            counts[k] = sum(forms[f] for f in fs)
+    return counts, forms
+
+
+def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
+    """The GEMM launches the library counted on a path against those that
+    the kernels' own launches imply: K1 two bf16 products (qkv, proj); K2
+    fc1 (bf16) and fc2 (bf16 m where the training forward saves it, else
+    the fp32 residual); K5 two bf16 input-gradient products and two weight
+    gradients; K6 dn2 (f32) and two weight gradients, with m saved the
+    fused pair, with m recomputed fc1 + gelu', m (bf16) and dh * gelu'.
+    `m_saved`: the block calls whose K2 saves m and whose K6 takes it (0
+    where nothing is trained; None where the path does not say)."""
+    k1, k2 = counts["swin_block_attention"], counts["swin_block_epilogue"]
+    k5 = counts["swin_block_attention_bwd"]
+    k6 = counts["swin_block_epilogue_bwd"]
+    rules = [("bf16 + resid_f32", forms["bf16"] + forms["resid_f32"],
+              2 * k1 + 2 * k2 + 2 * k5 + forms["gelu_grad"]),
+             ("gelu_grad + gelu_bwd", forms["gelu_grad"] + forms["gelu_bwd"],
+              k6),
+             ("dgelu", forms["dgelu"], forms["gelu_grad"]),
+             ("f32", forms["f32"], k6),
+             ("wgrad", forms["wgrad"], 2 * (k5 + k6))]
+    if m_saved is not None:
+        rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),
+                  ("gelu_bwd", forms["gelu_bwd"], m_saved if k6 else 0)]
+    print(f"  [{tag}] Hopper GEMM launches by form (counted in the library):"
+          f" {forms}", flush=True)
+    for what, got, want in rules:
+        check(got == want, f"{tag}: {what} GEMM launches {got}, the kernels' "
+              f"launches imply {want}")
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
@@ -564,11 +693,15 @@ def main() -> None:
         TN = T * ws * ws
         x = randn(2 * TB, T, h, w, C)
         g = randn(2 * TB, T, h, w, C)
-        wqkv, bqkv = (uniform(3 * C, C, fan_in=C),
+        # drawn as phase 2 draws them: a peaked softmax, so that the
+        # softmax backward's row-sum term is a sizeable share of dS (at
+        # init scales and a 0.02 bias P is near uniform and dropping the
+        # term moved the gradients by only 0.10-0.24)
+        wqkv, bqkv = (uniform(3 * C, C, fan_in=C, gain=3.0),
                       uniform(3 * C, fan_in=C, dtype=torch.float32))
-        wproj, bproj = (uniform(C, C, fan_in=C),
+        wproj, bproj = (uniform(C, C, fan_in=C, gain=2.0),
                         uniform(C, fan_in=C, dtype=torch.float32))
-        bias = randn(heads, TN, TN, scale=0.02, dtype=torch.float32)
+        bias = randn(heads, TN, TN, dtype=torch.float32)
         for shift in (0, ws // 2):
             mask = None
             if shift:
@@ -593,6 +726,10 @@ def main() -> None:
             planted("swin_block_attention_bwd", case, "without dbias",
                     max_rel_err(want[:5] + (torch.zeros_like(want[5]),),
                                 want))
+            planted("swin_block_attention_bwd", case, "without the row-sum "
+                    "term (dS = P dP)", max_rel_err(
+                        attention_bwd_without_rowsum(*fwd[:7], g, *fwd[7:]),
+                        want))
             del want
         hidden = 4 * C
         # fc1 and fc2 at twice the init gain, so that the MLP branch, and
@@ -621,11 +758,14 @@ def main() -> None:
                     x, y, *epi_w, g, **kw), epi_names,
                 k6_work(x, hidden, with_m, shift))
             del m
+            want = epi_ops.swin_block_epilogue_bwd_ref(x, y, *epi_w, g, **kw)
             planted("swin_block_epilogue_bwd", case, "without the LN2 path",
                     max_rel_err(epilogue_bwd_without_ln2_path(
-                        x, y, *epi_w, g, **kw),
-                        epi_ops.swin_block_epilogue_bwd_ref(
-                            x, y, *epi_w, g, **kw)))
+                        x, y, *epi_w, g, **kw), want))
+            planted("swin_block_epilogue_bwd", case, "with gelu' as 1",
+                    max_rel_err(epilogue_bwd_with_unit_gelu_grad(
+                        x, y, *epi_w, g, **kw), want))
+            del want
         if with_m:
             kw = dict(gelu_exact=True, shift=0, ws=ws)
             compare_outputs(
@@ -834,12 +974,30 @@ def main() -> None:
     print(f"phase 2e rows 12, 15 and 17 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 2f: the Hopper GEMM alone at the K1 / K2 shapes ------------
+    # ---- phase 2f: the Hopper GEMMs alone at K1, K2, K5 and K6's products --
     # (the tool holds each case within TOL_REL of the twin and raises else)
     t0 = time.perf_counter()
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
     from stswincl_tpu_torch.tools import profile_gemm
-    gemm_rows = profile_gemm.main(["--reps", "10"])
-    print(f"phase 2f the Hopper GEMM vs torch.matmul: "
+    gemm_wrappers = {"linear_sm90": gemm_ops.linear_sm90,
+                     "gelu_bwd_sm90": gemm_ops.gelu_bwd_sm90,
+                     "wgrad_sm90": gemm_ops.wgrad_sm90}
+    gemm_forms = {"linear": "linear_sm90", "gelu_bwd": "gelu_bwd_sm90",
+                  "wgrad": "wgrad_sm90"}
+    reset_launches(gemm_wrappers)
+    for r in profile_gemm.main(["--reps", "10"]):
+        r["library_ms"] = r.pop("matmul_ms")  # cuBLAS on the same operands
+        form = r.pop("form")
+        if form in gemm_forms:  # not the two-way comparisons' sequences
+            results.setdefault(gemm_forms[form], []).append(r)
+    gemm_launches, forms = read_launches(gemm_wrappers)
+    print(f"  profile_gemm launches: {gemm_launches}, by form {forms}",
+          flush=True)
+    for k, fn in gemm_wrappers.items():  # the library counts what the
+        check(gemm_launches[k] == fn.launches,  # wrappers launched
+              f"profile_gemm: the library counted {gemm_launches[k]} {k} "
+              f"launches, its wrapper {fn.launches}")
+    print(f"phase 2f the Hopper GEMMs vs torch.matmul: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 3: serve --------------------------------------------------
@@ -866,12 +1024,14 @@ def main() -> None:
                 "add_layer_norm": add_layer_norm,
                 "fused_mlp": fused_mlp,
                 "fused_layer_norm": fused_layer_norm,
-                "conv3x3_bn_act": conv3x3_bn_act}
+                "conv3x3_bn_act": conv3x3_bn_act, **gemm_wrappers}
     # the attention kernel each route launches in place of K1
     route_kernel = {"pallas_full": "swin_block_attention",
                     "pallas": "windowed_attention_image",
                     "pallas_windows": "fused_window_attention"}
-    launches = {}  # path -> {wrapper: launches on that path}
+    # path -> {kernel: launches on that path}; the Hopper GEMM's counts
+    # come from the library (K1, K2, K5 and K6 launch it from C)
+    launches = {"gemm": {k: gemm_launches.get(k, 0) for k in wrappers}}
 
     def serve(route, whole_block=False):
         """Drive StreamingSegmenter on `route` (with the whole-block
@@ -890,18 +1050,19 @@ def main() -> None:
         cache, pred = seg.init_and_predict(frames[:, 0:4])
         preds = [pred]
         step_s = []
-        before = {k: fn.launches for k, fn in wrappers.items()}
+        before = read_launches(wrappers)[0]
         for i in range(4, 4 + STEPS):
             ts = time.perf_counter()
             cache, pred = seg.predict_next(cache, frames[:, i])
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - ts)
             preds.append(pred)
-        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        launches[path], forms = read_launches(wrappers)
         per_step = {k: (n - before[k]) / STEPS
                     for k, n in launches[path].items()}
         print(f"  [{tag}] serving-path launches: {launches[path]}; per "
               f"predict_next: {per_step}", flush=True)
+        check_gemm_launches(tag, launches[path], forms, m_saved=0)
         for k in (route_kernel[route], "swin_block_epilogue", "patch_merge",
                   "upsample_argmax"):
             check(launches[path][k] > 0,
@@ -997,8 +1158,9 @@ def main() -> None:
     from stswincl_tpu_torch.tools import profile_swin_kernels
     reset_launches(wrappers)
     profile_swin_kernels.main(["--reps", "3"])
-    launches["profile"] = {k: fn.launches for k, fn in wrappers.items()}
+    launches["profile"], forms = read_launches(wrappers)
     print(f"  profiler launches: {launches['profile']}", flush=True)
+    check_gemm_launches("profile", launches["profile"], forms)
     for k in ("swin_block_attention", "swin_block_epilogue",
               "windowed_attention_image", "add_ln_mlp", "add_layer_norm"):
         check(launches["profile"][k] > 0, f"{k} was never launched by the "
@@ -1051,6 +1213,16 @@ def main() -> None:
         "fused_layer_norm": ("add_layernorm.cu",
                              "stswincl_tpu/ops/pallas_layernorm.py:82"),
         "conv3x3_bn_act": ("conv.cu", "stswincl_tpu/ops/pallas_conv.py:132"),
+        "linear_sm90": (
+            "gemm_sm90.cu", "the matmuls of stswincl_tpu/ops/"
+            "pallas_block_attention.py:179 and :405, pallas_add_ln_mlp.py:704 "
+            "and :181"),
+        "gelu_bwd_sm90": (
+            "gemm_sm90.cu", "the fc1 recompute and dh of stswincl_tpu/ops/"
+            "pallas_add_ln_mlp.py:181 (:213-233)"),
+        "wgrad_sm90": (
+            "gemm_sm90.cu", "the weight-gradient matmuls of stswincl_tpu/ops/"
+            "pallas_block_attention.py:405 and pallas_add_ln_mlp.py:181"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -1079,7 +1251,6 @@ def main() -> None:
     row16["backward"] = results["whole_swin_block_bwd"]
     for r in rows:  # rows 12 and 17: measured yardsticks, not library
         r.update(extras.get(r["name"], {}))  # calls
-    print(json.dumps({"gemm_sm90": gemm_rows}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1236,7 +1407,7 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
         out.backward(g)
         ref.backward(g)
         torch.cuda.synchronize()
-        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        launches[path] = read_launches(wrappers)[0]
         for (n, a), b in zip(mod.named_parameters(), plain.parameters()):
             errs[n] = rel_err(a.grad, b.grad)
         print(f"  [{path}] {kname} launches {launches[path][kname]}; rel "
@@ -1264,7 +1435,7 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
     reset_launches(wrappers)
     reps = 3
     rows = profile_conv_kernel.main(["--reps", str(reps)])
-    launches["profile_conv"] = {k: fn.launches for k, fn in wrappers.items()}
+    launches["profile_conv"] = read_launches(wrappers)[0]
     want = sum(r["in_envelope"] for r in rows) * (
         reps + profile_conv_kernel.UNTIMED_CALLS)
     print(f"  [profile_conv] launches {launches['profile_conv']}; "
@@ -1323,7 +1494,7 @@ def phase_fp32(dev, wrappers, launches) -> None:
                       torch.from_numpy(labels).to(dev).long())["loss"])
     torch.cuda.synchronize()
     step_s = time.perf_counter() - ts
-    launches["fp32"] = {k: fn.launches for k, fn in wrappers.items()}
+    launches["fp32"] = read_launches(wrappers)[0]
     print(f"  [fp32] init_and_predict + predict_next {serve_s:.2f} s, "
           f"classes {torch.bincount(pred.flatten(), minlength=12).tolist()};"
           f" train step at batch {BS}: loss {loss:.6f}, {step_s:.2f} s, peak "
@@ -1355,6 +1526,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
     from stswincl_tpu_torch.models.init import init_weights
     from stswincl_tpu_torch.models.swin import (PatchMerging,
                                                 SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.ops.add_ln_mlp import mlp_output_saved
     from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
@@ -1501,14 +1673,17 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
         once per block call."""
         model = new_model(route, whole_block=whole_block)
         step, _ = new_step(model, n_steps)
-        calls = {"block": 0, "merge": 0, "w": 0}
+        calls = {"block": 0, "merge": 0, "w": 0, "m_saved": 0}
 
-        def counter(mod, *_):
+        def counter(mod, inputs, _):
             if isinstance(mod, PatchMerging):
                 calls["merge"] += 1
                 return
             calls["block"] += 1
             calls["w"] += mod.shift_size == 0
+            # the blocks whose K2 saves m for K6 (stage 2): the JAX routing
+            calls["m_saved"] += mlp_output_saved(
+                inputs[0].shape[-1], mod.mlp.fc1.weight.shape[0], bf16)
         hooks = [mod.register_forward_hook(counter)
                  for mod in model.modules()
                  if isinstance(mod, (SpaceTimeSwinBlock, PatchMerging))]
@@ -1530,7 +1705,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
             host_s.append(time.perf_counter() - ts)
         torch.cuda.synchronize()
         clocks.append(gpu_clocks())
-        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        launches[path], forms = read_launches(wrappers)
         for h in hooks:
             h.remove()
         peak = torch.cuda.max_memory_allocated()
@@ -1563,6 +1738,8 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
         check(launches[path]["patch_merge"] == calls["merge"],
               f"{route}: patch_merge: {launches[path]['patch_merge']} for "
               f"{calls['merge']}")
+        check_gemm_launches(f"{tag} {route}", launches[path], forms,
+                            m_saved=calls["m_saved"])
         first = min(3, n_steps - 2)
         med = statistics.median(step_ms[first:])
         print(f"  {tag} [{route}] {med:.2f} ms/step median of steps "

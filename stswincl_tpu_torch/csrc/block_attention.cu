@@ -38,257 +38,440 @@
 //   the two rolls `_fsba_bwd` (:640-646) puts around it for SW blocks.
 //
 // Bound: the same GEMM flops as the forward twice over (input and weight
-// gradients) plus, per (window, head), five TN x TN x hd products; the
-// weight gradients reduce over every token row. The design keeps the
-// forward's window-ordered qkv and pre-proj attention (saved by the
-// autograd Function, 4C bf16 per token) instead of recomputing the qkv
-// GEMM as the TPU kernel does, and launches:
+// gradients), on the tensor cores, plus, per (window, head), five TN x TN
+// x hd products (0.11 ms at stage 1 at the bf16 peak); the weight
+// gradients reduce over every token row. The design keeps the forward's
+// window-ordered qkv and pre-proj attention (saved by the autograd
+// Function, 4C bf16 per token) instead of recomputing the qkv GEMM as the
+// TPU kernel does, and launches, every product on the Hopper GEMMs
+// (gemm_sm90.cu):
 //   1. dattn = g @ wproj, g gathered from the (shifted) image layout by
-//      the same row map the forward's proj scattered with;
-//   2. one block per (window, head): recompute P (fp32) from q, k, then
-//      dV = P^T dO, dP = dO V^T (twice: once for the row sums of dP * P,
-//      once to form dS = P * (dP - rowsum) in place of P), dbias += dS by
-//      fp32 atomics, dQ = dS K * scale, dK = dS^T Q * scale. Shared
-//      memory is reused so the fp32 P / dS buffer, q, k, dO and one bf16
-//      buffer (P, then V, then dS) fit: 211 KB at stage 1;
-//   3. dx = dqkv @ wqkv scattered back through the row map with the
+//      the window partition the forward's proj scattered with: a 4-D TMA
+//      box a window;
+//   2. the attention backward (`attn_bwd_kernel`), on the register-resident
+//      design of the forward core (window_attention.cu: mma.sync fed by
+//      ldmatrix, q, k, v in shared memory by cp.async, each warp owning 16
+//      query rows), in two phases per (window, head):
+//        a. each warp recomputes its rows' scores and fp32 P in registers
+//           under the forward's contract (fp32 scale after the product,
+//           + bias, + the window's mask for SW-MSA, max, exp, times the
+//           reciprocal of the sum), forms dP = dO V^T once, in registers,
+//           the row sums of dP * P within its quads, dS = P * (dP -
+//           rowsum) (fp32 P, `pallas_block_attention.py:470-494`), adds dS
+//           into the block's fp32 dbias table in shared memory, and dQ =
+//           dS K * scale; then writes bf16 P and bf16 dS to shared memory,
+//           over k and v;
+//        b. each warp, on 16 key rows, forms dV = P^T dO and dK = dS^T Q *
+//           scale, the transposed operands by ldmatrix.trans.
+//      No fp32 TN x TN matrix sits in shared memory but the dbias table:
+//      200 KB at stage 1 (q, dO, k / P, v / dS and the table), one block
+//      an SM. The blocks are persistent over a run of windows of one head
+//      (about 39 at stage 1 on 132 SMs) and flush their table once, as
+//      16-byte reductions: the old kernel added dS with one fp32 atomic an
+//      element and window (84 M at stage 1 into 65,536 addresses);
+//   3. dx = dqkv @ wqkv, scattered back through the row map with the
 //      shift, so dx lands unshifted and no roll is formed;
-//   4. dwqkv = dqkv^T x, dwproj = g^T attn (split-K weight-gradient GEMM,
-//      fp32), and the bias gradients as fp32 column sums.
-
-#include <mma.h>
+//   4. dwqkv = dqkv^T x (x gathered through the shifted window partition),
+//      dwproj = g^T attn (g through the window partition) on the
+//      weight-gradient GEMM, and the bias gradients as fp32 column sums.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-struct AttnBwdSmem {
-  int ldq, ldf, ldb;
-  size_t q, k, d, f, b, st, dr, total;
+constexpr int BWD_MAX_NT = 8;  // TN <= 128: the score registers of a warp
+
+struct BwdSmem {
+  int ld, ldp;  // bf16 row strides: hd + 8 (q, dO, k, v), TN + 8 (P, dS)
+  size_t dO, kv, dbias, total;  // q at 0; k then P, v then dS in kv
 };
 
-// q, k, dO (TN x hd bf16); f: fp32 TN x TN (P, then dS); b: bf16 buffer
-// of P, then V, then dS; st: per-warp 16x16 fp32 staging; dr: row sums.
-__host__ __device__ inline AttnBwdSmem attn_bwd_smem(int TN, int hd) {
-  AttnBwdSmem m;
-  m.ldq = hd + 8;
-  m.ldf = TN + 4;
-  m.ldb = (hd > TN ? hd : TN) + 8;
-  const size_t qkv = align128(size_t(TN) * m.ldq * sizeof(bf16));
-  m.q = 0;
-  m.k = qkv;
-  m.d = 2 * qkv;
-  m.f = 3 * qkv;
-  m.b = m.f + align128(size_t(TN) * m.ldf * sizeof(float));
-  m.st = m.b + align128(size_t(TN) * m.ldb * sizeof(bf16));
-  m.dr = m.st + align128(ATT_WARPS * 256 * sizeof(float));
-  m.total = m.dr + align128(size_t(TN) * sizeof(float));
+// One (window, head) slot of the backward block: q, dO, the k / v region
+// (later P / dS) and the slot's fp32 (TN, TN) dbias table.
+__host__ __device__ inline BwdSmem bwd_smem(int TN, int hd) {
+  BwdSmem m;
+  m.ld = hd + 8;  // 16 bytes of padding: ldmatrix rows on distinct banks
+  m.ldp = TN + 8;
+  const size_t one = align128(size_t(TN) * m.ld * sizeof(bf16));
+  const int wide = m.ld > m.ldp ? m.ld : m.ldp;
+  m.dO = one;
+  m.kv = 2 * one;
+  m.dbias = m.kv + align128(2 * size_t(TN) * wide * sizeof(bf16));
+  m.total = m.dbias + align128(size_t(TN) * TN * sizeof(float));
   return m;
 }
 
-// Store a warp's 16x16 fp32 fragment (times `mul`) as bf16 into rows
-// [row0, row0 + 16) and columns [col0, col0 + 16) of a row-major matrix.
-__device__ __forceinline__ void store_tile_bf16(
-    float* st, const wmma::fragment<wmma::accumulator, 16, 16, 16, float>& acc,
-    bf16* out, long long ld, int row0, int col0, float mul, int lane) {
-  wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  __align__(16) bf16 o[8];
+// A warp's 16 x 64 fp32 tile o (o[j]: columns 8j .. 8j + 7 of rows g and
+// g + 8, the mma layout) times mul as bf16 into rows of stride ld at dst,
+// 16 bytes a store after the quad transpose; columns at or past `cols`
+// are skipped (cols a multiple of 16).
+__device__ __forceinline__ void store_tile16(const float (&o)[8][4], float mul,
+                                             bf16* dst, long long ld,
+                                             int cols, int lane) {
+  const int t = lane & 3;
+  bf16* row = dst + (long long)((lane >> 2) + 8 * (t >> 1)) * ld;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(st[r * 16 + c0 + e] * mul);
-  *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * ld + col0 + c0) =
-      *reinterpret_cast<const uint4*>(o);
-  __syncwarp();
+  for (int jj = 0; jj < 4; ++jj) {
+    if (16 * jj < cols) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * jj + (i & 1), hh = i >> 1;
+        w[i] = pack_bf16(o[j][2 * hh] * mul, o[j][2 * hh + 1] * mul);
+      }
+      quad_transpose(w, t);
+      *reinterpret_cast<uint4*>(row + 8 * (2 * jj + (t & 1))) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
 }
 
-// qkv: (B * nWin * TN, 3C) bf16 window order (the forward's); dattn:
-// (B * nWin * TN, C) bf16 window order; dqkv: (B * nWin * TN, 3C) out;
-// dbias: (heads, TN, TN) fp32, accumulated.
-__global__ void __launch_bounds__(ATT_THREADS)
-    window_attention_bwd_kernel(const bf16* __restrict__ qkv,
-                                const bf16* __restrict__ dattn,
-                                const float* __restrict__ bias,
-                                const float* __restrict__ mask, int n_mask,
-                                bf16* __restrict__ dqkv,
-                                float* __restrict__ dbias, int TN, int hd,
-                                int C, int nWin, float scale) {
+// o (16 x 64 at columns c0) += A (16 x TN, fragments a[kt] or loaded by
+// `afrag(kt)`) @ B (TN x hd rows in shared memory, read with
+// ldmatrix.trans from bt = the lane's ldmatrix row address), over nt key
+// tiles
+template <int NT, class AFrag>
+__device__ __forceinline__ void mma_rows_t(float (&o)[8][4], AFrag afrag,
+                                           const bf16* bt, int ld, int nt,
+                                           int c0, int hd) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    if (kt < nt) {
+      uint32_t a[4];
+      afrag(kt, a);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (c0 + 16 * jj < hd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, bt + kt * 16 * ld + c0 + 16 * jj);
+          mma16816(o[2 * jj], a, b[0], b[1]);
+          mma16816(o[2 * jj + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// s (16 x TN, s[j]: keys 8j .. 8j + 7) = A (16 rows at `arow`, the lane's
+// ldmatrix row address) @ B^T (TN rows at `brow`) over hd
+template <int NT>
+__device__ __forceinline__ void mma_scores(float (&s)[2 * NT][4],
+                                           const bf16* arow, const bf16* brow,
+                                           int ld, int nt, int hd) {
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  for (int kk = 0; kk < hd; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, arow + kk);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        uint32_t bf[4];
+        ldsm_x4(bf, brow + j * 16 * ld + kk);
+        mma16816(s[2 * j], af, bf[0], bf[1]);
+        mma16816(s[2 * j + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// qkv: (n_windows * TN, 3C) bf16 window order (the forward's); dattn:
+// (n_windows * TN, C) bf16 window order; dqkv: (n_windows * TN, 3C) out;
+// dbias: (heads, TN, TN) fp32, added into. Block (x, head): windows
+// x * per_block .. + per_block - 1, `slots` at a time (TN / 16 warps a
+// slot, each slot its own shared memory).
+template <int NT>
+__global__ void __launch_bounds__(256, 1)
+    attn_bwd_kernel(const bf16* __restrict__ qkv,
+                    const bf16* __restrict__ dattn,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ mask, int n_mask,
+                    bf16* __restrict__ dqkv, float* __restrict__ dbias,
+                    int n_windows, int per_block, int slots, int TN, int hd,
+                    int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnBwdSmem L = attn_bwd_smem(TN, hd);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* ds = reinterpret_cast<bf16*>(smem + L.d);  // dO
-  float* fs = reinterpret_cast<float*>(smem + L.f);
-  bf16* bs = reinterpret_cast<bf16*>(smem + L.b);
-  float* rsum = reinterpret_cast<float*>(smem + L.dr);
+  const BwdSmem L = bwd_smem(TN, hd);
+  const int nt = TN / 16, pt = nt * 32;  // key tiles, threads a slot
+  const int slot = threadIdx.x / pt, t = threadIdx.x - slot * pt;
+  const int wi = t >> 5, lane = t & 31;
+  const int h = blockIdx.y;
+  unsigned char* base = smem + slot * L.total;
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* dos = reinterpret_cast<bf16*>(base + L.dO);
+  bf16* ks = reinterpret_cast<bf16*>(base + L.kv);
+  bf16* vs = ks + size_t(TN) * L.ld;
+  bf16* ps = ks;                        // phase b: P over k,
+  bf16* dss = ps + size_t(TN) * L.ldp;  // dS over v
+  float* db = reinterpret_cast<float*>(base + L.dbias);
+  const auto sync_slot = [&] {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slot), "r"(pt) : "memory");
+  };
+  for (int i = t; i < TN * TN; i += pt) db[i] = 0.0f;
 
-  const int bw = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* st = reinterpret_cast<float*>(smem + L.st) + warp * 256;
-  const long long row0 = (long long)bw * TN;
-  const int C3 = 3 * C;
-
-  const bf16* qbase = qkv + row0 * C3 + h * hd;
-  const bf16* dbase = dattn + row0 * C + h * hd;
-  const int chunks = hd / 8;
-  for (int i = tid; i < TN * chunks; i += ATT_THREADS) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    *reinterpret_cast<uint4*>(qs + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(qbase + (long long)r * C3 + c);
-    *reinterpret_cast<uint4*>(ks + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(qbase + (long long)r * C3 + C + c);
-    *reinterpret_cast<uint4*>(ds + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(dbase + (long long)r * C + c);
-  }
-  for (int r = tid; r < TN; r += ATT_THREADS) rsum[r] = 0.0f;
-  __syncthreads();
-
-  // S = q @ k^T (fp32)
-  const int tq = TN / 16, td = hd / 16;
-  for (int t = warp; t < tq * tq; t += ATT_WARPS) {
-    const int tm = t / tq, tn = t - tm * tq;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < hd; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, qs + tm * 16 * L.ldq + kk, L.ldq);
-      wmma::load_matrix_sync(b, ks + tn * 16 * L.ldq + kk, L.ldq);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(fs + tm * 16 * L.ldf + tn * 16, acc, L.ldf,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // P = softmax(S * scale + bias (+ mask)), the forward's contract; fp32
-  // in fs, bf16 in bs
+  const int C3 = 3 * C, chunks = hd / 8;
+  const int q0 = wi * 16, g = lane >> 2, tq = lane & 3;
+  // the lane's ldmatrix row addresses: A rows (non-trans), B rows of a
+  // B^T operand (non-trans), B rows (trans), A^T rows (trans)
+  const int a_r = lane & 15, a_c = (lane >> 4) * 8;
+  const int bn_r = (lane & 7) + ((lane >> 4) << 3), bn_c = ((lane >> 3) & 1) * 8;
+  const int bt_r = (lane & 7) + (((lane >> 3) & 1) << 3), bt_c = (lane >> 4) * 8;
+  const int at_r = (lane & 7) + ((lane >> 4) << 3), at_c = ((lane >> 3) & 1) * 8;
   const float* bias_h = bias + (long long)h * TN * TN;
-  const float* mask_w =
-      n_mask > 1 ? mask + (long long)(bw % nWin) * TN * TN : nullptr;
-  for (int r = warp; r < TN; r += ATT_WARPS) {
-    float* row = fs + r * L.ldf;
-    float mx = -INFINITY;
-    for (int c = lane; c < TN; c += 32) {
-      float v = row[c] * scale + bias_h[r * TN + c];
-      if (mask_w) v += mask_w[r * TN + c];
-      row[c] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < TN; c += 32) {
-      const float e = expf(row[c] - mx);
-      row[c] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int c = lane; c < TN; c += 32) {
-      const float pv = row[c] * inv;
-      row[c] = pv;
-      bs[r * L.ldb + c] = __float2bfloat16(pv);
-    }
-  }
-  __syncthreads();
+  const int w_end = min(n_windows, (blockIdx.x + 1) * per_block);
 
-  // dV = P^T @ dO -> dqkv[:, 2C + h*hd]
-  bf16* dq_out = dqkv + row0 * C3 + h * hd;
-  for (int t = warp; t < tq * td; t += ATT_WARPS) {
-    const int tm = t / td, tn = t - tm * td;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < TN; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, bs + kk * L.ldb + tm * 16, L.ldb);
-      wmma::load_matrix_sync(b, ds + kk * L.ldq + tn * 16, L.ldq);
-      wmma::mma_sync(acc, a, b, acc);
+  for (int bw = blockIdx.x * per_block + slot; bw < w_end; bw += slots) {
+    const long long row0 = (long long)bw * TN;
+    const bf16* src = qkv + row0 * C3 + h * hd;
+    const bf16* dsrc = dattn + row0 * C + h * hd;
+    // q and k in one cp.async group; v and dO in a second, landing while
+    // the scores are computed
+    for (int i = t; i < TN * chunks; i += pt) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      cp_async16(qs + r * L.ld + c, src + (long long)r * C3 + c);
+      cp_async16(ks + r * L.ld + c, src + (long long)r * C3 + C + c);
     }
-    store_tile_bf16(st, acc, dq_out + 2 * C, C3, tm * 16, tn * 16, 1.0f, lane);
-  }
-  __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = t; i < TN * chunks; i += pt) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      cp_async16(vs + r * L.ld + c, src + (long long)r * C3 + 2 * C + c);
+      cp_async16(dos + r * L.ld + c, dsrc + (long long)r * C + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    sync_slot();
 
-  // V replaces P in the bf16 buffer
-  for (int i = tid; i < TN * chunks; i += ATT_THREADS) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    *reinterpret_cast<uint4*>(bs + r * L.ldb + c) =
-        *reinterpret_cast<const uint4*>(qbase + (long long)r * C3 + 2 * C + c);
-  }
-  __syncthreads();
-
-  // dP = dO @ V^T, two passes: rowsum(dP * P), then dS = P * (dP - rowsum)
-  // written over P (each element is read and written by one lane)
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t = warp; t < tq * tq; t += ATT_WARPS) {
-      const int tm = t / tq, tn = t - tm * tq;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < hd; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, ds + tm * 16 * L.ldq + kk, L.ldq);
-        wmma::load_matrix_sync(b, bs + tn * 16 * L.ldb + kk, L.ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      float* prow = fs + (tm * 16 + r) * L.ldf + tn * 16 + c0;
-      if (pass == 0) {
-        float part = 0.0f;
+    // ---- a. scores and P (fp32) of rows q0 + g (s[j][0..1]) and
+    // q0 + g + 8 (s[j][2..3]) ----
+    float s[2 * NT][4];
+    mma_scores<NT>(s, qs + (q0 + a_r) * L.ld + a_c, ks + bn_r * L.ld + bn_c,
+                   L.ld, nt, hd);
+    const float* bias_r = bias_h + (q0 + g) * TN + 2 * tq;
+    const float* mask_r =
+        mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
+             : nullptr;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int e = 0; e < 8; ++e) part += st[r * 16 + c0 + e] * prow[e];
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        if ((lane & 1) == 0) atomicAdd(&rsum[tm * 16 + r], part);
-      } else {
-        const float d = rsum[tm * 16 + r];
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          prow[e] = prow[e] * (st[r * 16 + c0 + e] - d);
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              bias_r + hh * 8 * TN + 8 * j);
+          s[j][2 * hh] = s[j][2 * hh] * scale + b.x;
+          s[j][2 * hh + 1] = s[j][2 * hh + 1] * scale + b.y;
+          if (mask_r) {  // after the bias, as the twin adds them
+            const float2 m = *reinterpret_cast<const float2*>(
+                mask_r + hh * 8 * TN + 8 * j);
+            s[j][2 * hh] += m.x;
+            s[j][2 * hh + 1] += m.y;
+          }
+          mx[hh] = fmaxf(mx[hh], fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+        }
       }
-      __syncwarp();
     }
-    __syncthreads();
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - mx[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      sum[hh] = 1.0f / sum[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
+
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    sync_slot();  // v and dO have landed
+
+    // dP = dO V^T, once; the row sums of dP * P within the quads
+    float dp[2 * NT][4];
+    mma_scores<NT>(dp, dos + (q0 + a_r) * L.ld + a_c, vs + bn_r * L.ld + bn_c,
+                   L.ld, nt, hd);
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+      if (j < 2 * nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e >> 1] += dp[j][e] * s[j][e];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+    }
+    // dS = P (dP - rowsum) in fp32, added into the slot's dbias table
+    // (each element owned by one lane); P and dS packed to bf16 as A
+    // fragments (k tile kt: key tiles 2kt, 2kt + 1)
+    float* dbr = db + (q0 + g) * TN + 2 * tq;
+    uint32_t pa[NT][4], sa[NT][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          dp[j][2 * hh] = s[j][2 * hh] * (dp[j][2 * hh] - rs[hh]);
+          dp[j][2 * hh + 1] = s[j][2 * hh + 1] * (dp[j][2 * hh + 1] - rs[hh]);
+          float2* d = reinterpret_cast<float2*>(dbr + hh * 8 * TN + 8 * j);
+          float2 o = *d;
+          o.x += dp[j][2 * hh];
+          o.y += dp[j][2 * hh + 1];
+          *d = o;
+        }
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kt + (i >> 1), hh = i & 1;
+        pa[kt][i] = pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);
+        sa[kt][i] = pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
+      }
+    }
+
+    // dQ = dS K * scale -> dqkv[:, h hd ..)
+    bf16* out = dqkv + (row0 + q0) * C3 + h * hd;
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      float o[8][4];
+      mma_rows_t<NT>(
+          o, [&](int kt, uint32_t(&a)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = sa[kt][i];
+          },
+          ks + bt_r * L.ld + bt_c, L.ld, nt, c0, hd);
+      store_tile16(o, scale, out + c0, C3, hd - c0, lane);
+    }
+
+    sync_slot();  // every warp is done with k and v
+    // P and dS in bf16 over k and v: word i of a fragment is row g + 8
+    // (i & 1), columns 16 kt + 8 (i >> 1) + 2 tq
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      if (kt < nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int off = (q0 + g + 8 * (i & 1)) * L.ldp + 16 * kt +
+                          8 * (i >> 1) + 2 * tq;
+          *reinterpret_cast<uint32_t*>(ps + off) = pa[kt][i];
+          *reinterpret_cast<uint32_t*>(dss + off) = sa[kt][i];
+        }
+      }
+    }
+    sync_slot();
+
+    // ---- b. this warp's 16 key rows j0 = q0: dV = P^T dO, dK = dS^T Q *
+    // scale; the A^T fragments by ldmatrix.trans of P / dS rows ----
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      float o[8][4];
+      mma_rows_t<NT>(
+          o, [&](int kt, uint32_t(&a)[4]) {
+            ldsm_x4_t(a, ps + (16 * kt + at_r) * L.ldp + q0 + at_c);
+          },
+          dos + bt_r * L.ld + bt_c, L.ld, nt, c0, hd);
+      store_tile16(o, 1.0f, out + 2 * C + c0, C3, hd - c0, lane);
+      mma_rows_t<NT>(
+          o, [&](int kt, uint32_t(&a)[4]) {
+            ldsm_x4_t(a, dss + (16 * kt + at_r) * L.ldp + q0 + at_c);
+          },
+          qs + bt_r * L.ld + bt_c, L.ld, nt, c0, hd);
+      store_tile16(o, scale, out + C + c0, C3, hd - c0, lane);
+    }
+    sync_slot();  // the slot's shared memory is free for the next window
   }
 
-  // dbias += dS (fp32 atomics: every window of the batch adds into the
-  // same (heads, TN, TN) table); dS in bf16 replaces V
-  float* dbias_h = dbias + (long long)h * TN * TN;
-  for (int i = tid; i < TN * TN; i += ATT_THREADS) {
-    const int rr = i / TN, cc = i - rr * TN;
-    const float v = fs[rr * L.ldf + cc];
-    atomicAdd(dbias_h + i, v);
-    bs[rr * L.ldb + cc] = __float2bfloat16(v);
-  }
+  // the slots' dbias tables, summed, into dbias[h] once
   __syncthreads();
-
-  // dQ = dS @ K * scale, dK = dS^T @ Q * scale
-  for (int t = warp; t < 2 * tq * td; t += ATT_WARPS) {
-    const bool is_k = t >= tq * td;
-    const int tt = is_k ? t - tq * td : t;
-    const int tm = tt / td, tn = tt - tm * td;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < TN; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      if (is_k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, bs + kk * L.ldb + tm * 16, L.ldb);
-        wmma::load_matrix_sync(b, qs + kk * L.ldq + tn * 16, L.ldq);
-        wmma::mma_sync(acc, a, b, acc);
-      } else {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, bs + tm * 16 * L.ldb + kk, L.ldb);
-        wmma::load_matrix_sync(b, ks + kk * L.ldq + tn * 16, L.ldq);
-        wmma::mma_sync(acc, a, b, acc);
-      }
+  float* dst = dbias + (long long)h * TN * TN;
+  for (int i = 4 * threadIdx.x; i < TN * TN; i += 4 * blockDim.x) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int sl = 0; sl < slots; ++sl) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          smem + sl * L.total + L.dbias + i * sizeof(float));
+      v.x += a.x;
+      v.y += a.y;
+      v.z += a.z;
+      v.w += a.w;
     }
-    store_tile_bf16(st, acc, dq_out + (is_k ? C : 0), C3, tm * 16, tn * 16,
-                    scale, lane);
+    red_add_f32x4(dst + i, v);
   }
+}
+
+template <int NT>
+cudaError_t launch_attn_bwd(const bf16* qkv, const bf16* dattn,
+                            const float* bias, const float* mask, int n_mask,
+                            bf16* dqkv, float* dbias, int n_windows,
+                            int heads, int TN, int hd, int C, float scale,
+                            cudaStream_t s) {
+  static int optin = 0, sms = 0;
+  if (!optin) {
+    int dev = 0, most = 0, count = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_kernel<NT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most);
+    if (err != cudaSuccess) return err;
+    sms = count;
+    optin = most;
+  }
+  const BwdSmem L = bwd_smem(TN, hd);
+  const int pt = TN / 16 * 32;
+  int slots = 256 / pt;
+  const int fit = static_cast<int>(optin / L.total);
+  if (slots > fit) slots = fit;
+  if (slots < 1) return cudaErrorInvalidValue;
+  // one block an SM: sms / heads blocks a head, each a run of windows
+  int per_head = sms / heads > 1 ? sms / heads : 1;
+  if (per_head > n_windows) per_head = n_windows;
+  const int per_block = (n_windows + per_head - 1) / per_head;
+  per_head = (n_windows + per_block - 1) / per_block;
+  attn_bwd_kernel<NT><<<dim3(per_head, heads), slots * pt, slots * L.total,
+                         s>>>(qkv, dattn, bias, n_mask > 1 ? mask : nullptr,
+                              n_mask, dqkv, dbias, n_windows, per_block,
+                              slots, TN, hd, C, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t attn_bwd(const bf16* qkv, const bf16* dattn, const float* bias,
+                     const float* mask, int n_mask, bf16* dqkv, float* dbias,
+                     int n_windows, int heads, int TN, int hd, int C,
+                     float scale, cudaStream_t s) {
+  if (TN <= 0 || TN % 16 || TN > 16 * BWD_MAX_NT || hd <= 0 || hd % 16)
+    return cudaErrorInvalidValue;
+  const int nt = TN / 16;
+  if (nt <= 2)
+    return launch_attn_bwd<2>(qkv, dattn, bias, mask, n_mask, dqkv, dbias,
+                              n_windows, heads, TN, hd, C, scale, s);
+  if (nt <= 4)
+    return launch_attn_bwd<4>(qkv, dattn, bias, mask, n_mask, dqkv, dbias,
+                              n_windows, heads, TN, hd, C, scale, s);
+  return launch_attn_bwd<BWD_MAX_NT>(qkv, dattn, bias, mask, n_mask, dqkv,
+                                     dbias, n_windows, heads, TN, hd, C,
+                                     scale, s);
 }
 
 }  // namespace
@@ -365,7 +548,7 @@ extern "C" int stswin_block_attention_bwd(
           cudaSuccess)
     return err;
 
-  // 1. dattn (window order) = g (gathered) @ wproj
+  // 1. dattn (window order) = g (gathered, a TMA box a window) @ wproj
   GemmParams p{};
   p.A = static_cast<const bf16*>(g);
   p.lda = C;
@@ -378,21 +561,16 @@ extern "C" int stswin_block_attention_bwd(
   p.ldc = C;
   p.c_map = identity_map();
   p.act = ACT_NONE;
-  if ((err = gemm_bf16(p, EPI_BF16, s)) != cudaSuccess) return err;
+  if ((err = gemm_sm90(p, EPI_BF16, s)) != cudaSuccess) return err;
 
-  // 2. attention backward per (window, head)
-  const AttnBwdSmem L = attn_bwd_smem(TN, hd);
-  err = cudaFuncSetAttribute(window_attention_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L.total));
-  if (err != cudaSuccess) return err;
-  window_attention_bwd_kernel<<<dim3(B * nWin, heads), ATT_THREADS, L.total,
-                                s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dattn),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), n_mask,
-      static_cast<bf16*>(dqkv), static_cast<float*>(dbias), TN, hd, C, nWin,
-      scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 2. attention backward, persistent blocks over the windows of a head
+  if ((err = attn_bwd(static_cast<const bf16*>(qkv),
+                      static_cast<const bf16*>(dattn),
+                      static_cast<const float*>(bias),
+                      static_cast<const float*>(mask), n_mask,
+                      static_cast<bf16*>(dqkv), static_cast<float*>(dbias),
+                      B * nWin, heads, TN, hd, C, scale, s)) != cudaSuccess)
+    return err;
 
   // 3. dx (unshifted image) = dqkv @ wqkv, scattered through the shift map
   p.A = static_cast<const bf16*>(dqkv);
@@ -402,7 +580,7 @@ extern "C" int stswin_block_attention_bwd(
   p.K = 3 * C;
   p.C = static_cast<bf16*>(dx);
   p.c_map = win_shift;
-  if ((err = gemm_bf16(p, EPI_BF16, s)) != cudaSuccess) return err;
+  if ((err = gemm_sm90(p, EPI_BF16, s)) != cudaSuccess) return err;
 
   // 4. weight and bias gradients
   WgradParams w{};
@@ -417,7 +595,7 @@ extern "C" int stswin_block_attention_bwd(
   w.N = C;
   w.Cw = static_cast<float*>(dwqkv);
   w.ldc = C;
-  if ((err = gemm_wgrad(w, s)) != cudaSuccess) return err;
+  if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   w.A = static_cast<const bf16*>(g);
   w.lda = C;
   w.a_map = win;
@@ -425,7 +603,7 @@ extern "C" int stswin_block_attention_bwd(
   w.b_map = identity_map();
   w.M = C;
   w.Cw = static_cast<float*>(dwproj);
-  if ((err = gemm_wgrad(w, s)) != cudaSuccess) return err;
+  if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   if ((err = colsum_bf16(static_cast<const bf16*>(dqkv), 3 * C, M, 3 * C,
                          static_cast<float*>(dbqkv), s)) != cudaSuccess)
     return err;

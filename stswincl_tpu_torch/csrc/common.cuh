@@ -1,10 +1,12 @@
 // Shared device helpers for the STswin Hopper kernels (sm_90a).
 //
 // Holds the building blocks the kernels share: the 16-byte cp.async, warp
-// reductions, the GELU of the JAX package's kernels (the odd minimax erf polynomial, not
-// erff: `stswincl_tpu/ops/pallas_mlp.py:45-101` defines the semantics),
-// the window-partition row map, and the declaration of the tiled bf16 GEMM
-// in gemm.cu.
+// reductions, the quad transpose of an mma accumulator layout, the 16-byte
+// fp32 reduction into device memory, the GELU of the JAX package's kernels
+// (the odd minimax erf polynomial, not erff:
+// `stswincl_tpu/ops/pallas_mlp.py:45-101` defines the semantics), the
+// window-partition row map, and the declaration of the wmma GEMM in
+// gemm.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +35,65 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// A 4 x 4 transpose of 32-bit words across the quad of lanes 4q .. 4q + 3:
+// lane t holds row t (w[0..3]) and ends with column t (word t of lanes
+// 0..3, in lane order). Round k swaps with lane t ^ k the word each needs.
+// On an mma accumulator (lane t of a quad holding two columns of each
+// 8-column block) it leaves each lane 8 consecutive columns of one row, to
+// be stored whole.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
+  uint32_t out[4] = {w[0], w[1], w[2], w[3]};
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const int i = t ^ k;  // the partner's lane and the word it wants
+    const uint32_t send = i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, send, k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = j == i ? got : out[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = out[j];
+}
+
+// ldmatrix (x4, and .trans) and mma.sync m16n8k16 bf16 -> fp32, the
+// register-resident attention cores' (window_attention.cu,
+// block_attention.cu) building blocks.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16) b (16 x 8 bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// *p += v as one 16-byte fp32 reduction in device memory (sm_90: the
+// vector atomics of global memory); p 16-byte aligned.
+__device__ __forceinline__ void red_add_f32x4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -130,21 +191,27 @@ __device__ __forceinline__ long long map_row(const RowMap& m, int r) {
 // out[c_map(m), n] = epilogue(sum_k A[a_map(m), k] * Wt[n, k] + bias[n])
 // A: rows of K bf16 (row stride lda); Wt: (N, K) bf16, the torch Linear
 // layout; bias: fp32 or null. Epilogues, v = the fp32 sum + bias:
-//   EPI_BF16       C = bf16(act(v));
-//   EPI_RESID_F32  Cf += v in place (the epilogue's residual s + MLP);
+//   EPI_BF16       C = bf16(act(v))  (gemm_bf16 in gemm.cu and gemm_sm90);
+//   EPI_RESID_F32  Cf += v in place (K2's residual s + MLP);
 //   EPI_GELU_GRAD  C = bf16(gelu(v)), Cf = gelu'(v) (one erf evaluation);
 //   EPI_DGELU      v *= aux[row, n] (fp32), C = bf16(v), and the fp32
-//                  column sums of v are added into colsum (db1 of K6);
-//   EPI_F32        Cf = v.
-// Aux and Cf share C's row map and ldc. Requires N % 8 == 0 (columns
-// past the last 128-wide tile's N are masked), K % 32 == 0, lda % 8 == 0,
-// ldc % 8 == 0.
+//                  column sums of v are added into colsum;
+//   EPI_F32        Cf = v;
+//   EPI_GELU_BWD   two products of one K over the same rows (K6): pre = v,
+//                  dh = A2 @ Wt2^T (no bias); with (g, g') = gelu_and_grad
+//                  of pre, C2 = bf16(g) when C2 is not null, C = bf16(dh *
+//                  g'), and the fp32 column sums of dh * g' are added into
+//                  colsum (db1);
+// all but EPI_BF16 on gemm_sm90 only. Cf, C2 and aux share C's row map and ldc.
+// Requires N % 8 == 0 (columns past the last 128-wide tile's N are
+// masked), lda % 8 == 0, ldc % 8 == 0, and K % 32 == 0 on gemm_bf16.
 enum Epi {
   EPI_BF16 = 0,
   EPI_RESID_F32 = 1,
   EPI_GELU_GRAD = 2,
   EPI_DGELU = 3,
-  EPI_F32 = 4
+  EPI_F32 = 4,
+  EPI_GELU_BWD = 5
 };
 
 struct GemmParams {
@@ -159,34 +226,19 @@ struct GemmParams {
   long long ldc;
   RowMap c_map;
   int act;
+  const bf16* A2;   // EPI_GELU_BWD: the second product's rows (lda, a_map
+  const bf16* Wt2;  // identity) and its (N, K) weight
+  bf16* C2;
   const float* aux;
   float* colsum;
 };
 
+// The wmma GEMM (gemm.cu) of K3 and rows 12-13, EPI_BF16 only.
 cudaError_t gemm_bf16(const GemmParams& p, int epi, cudaStream_t stream);
 
 inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }
 
-// Weight-gradient GEMM: Cw[m, n] += sum_r A[a_map(r), m] * B[b_map(r), n]
-// over r < R (a long reduction over the token rows), fp32 accumulation,
-// fp32 output added into Cw (the caller zeroes it). A: (R, M) bf16 rows of
-// stride lda; B: (R, N) bf16 rows of stride ldb. Requires M % 128 == 0,
-// N % 128 == 0, lda % 8 == 0, ldb % 8 == 0.
-struct WgradParams {
-  const bf16* A;
-  long long lda;
-  RowMap a_map;
-  const bf16* B;
-  long long ldb;
-  RowMap b_map;
-  int R, M, N;
-  float* Cw;
-  long long ldc;
-};
-
-cudaError_t gemm_wgrad(const WgradParams& p, cudaStream_t stream);
-
-// out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (bias gradients).
+// out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (K5's bias gradients).
 cudaError_t colsum_bf16(const bf16* X, long long ld, int R, int N, float* out,
                         cudaStream_t stream);
 

@@ -37,25 +37,35 @@
 // VMEM; here one launch sequence covers both, m recomputed (rounded as
 // `:216` rounds it) when it was not saved.
 //
-// Bound: four GEMMs of 2 * rows * C * 4C flops (fc1 recompute, dh, dn2
-// and the two weight gradients; fc2 again without a saved m) on the
-// tensor cores, and the (rows, 4C) intermediates h (bf16), gelu' (fp32)
-// and dpre (bf16) through device memory, transient. Launches:
+// Bound: the products, 2 * rows * C * hidden flops each (fc1, dh, dn2, dw1,
+// dw2; fc2 again without a saved m), on the tensor cores; the row passes
+// and the (rows, hidden) bf16 h and dpre through device memory. The TPU
+// kernel kept gelu' in VMEM (`:213`, `:233`). Launches, every product on
+// the Hopper GEMMs (gemm_sm90.cu):
 //   1. one warp per row: s = x + unshift(y) (fp32), n2 = bf16(LN2(s));
-//   2. fc1 GEMM whose epilogue evaluates the erf polynomial once and
-//      writes both h = bf16(gelu(pre)) and gelu'(pre) (fp32);
-//   3. without m: m = bf16(h @ w2^T + bw2);
-//   4. one warp per row: LN1 backward of g -> do (fp32) and dm = bf16(do),
+//   2. without m: fc1 whose epilogue evaluates the erf polynomial once and
+//      writes h = bf16(gelu(pre)) and gelu'(pre) (fp32, EPI_GELU_GRAD),
+//      then m = bf16(h @ w2^T + bw2) (m needs h before dm exists);
+//   3. one warp per row: LN1 backward of g -> do (fp32) and dm = bf16(do),
 //      with the column sums of g * xhat1, g and do (ds1, db1n, dbw2);
-//   5. dh GEMM (dm @ w2) whose epilogue forms dpre = dh * gelu' (bf16)
-//      and the column sums of dpre (db1);
-//   6. dn2 = dpre @ w1 (fp32);
-//   7. one warp per row: LN2 backward with the fp32 xhat / rsig of the
+//   4. with m saved: pre = n2 @ w1^T + b1 and dh = dm @ w2 in one tile's
+//      registers (EPI_GELU_BWD), whose epilogue writes h, dpre =
+//      bf16(dh * gelu'(pre)) and the column sums of dh * gelu'(pre) (db1):
+//      gelu' never leaves the registers, fc1 runs once. Without m: dh =
+//      dm @ w2 times the gelu' of step 2 (EPI_DGELU), the same dpre and
+//      db1. tools/profile_gemm.py times both ways to h, dpre and db1 on
+//      an H100 SXM (700 W): with m saved (stage 2, 40960 x 4096 x 1024)
+//      the fused pair took 1.955 ms, fc1 writing gelu' then dh times it
+//      2.040; without m (stage 1) the fused pair would run fc1 a second
+//      time (344 GFLOP) to save the fp32 gelu' (2.7 GB of traffic), and
+//      took 3.639 ms with that fc1 against 3.061 through memory;
+//   5. dn2 = dpre @ w1 (fp32);
+//   6. one warp per row: LN2 backward with the fp32 xhat / rsig of the
 //      recompute (`_ln_bwd_f32`, `:172`), ds = do + that, written
 //      unshifted (dx) and through the shift (dy, the gradient of the
 //      attention's shifted output), with the sums of dn2 * xhat2, dn2;
-//   8. dw1 = dpre^T n2, dw2 = dm^T h (split-K weight-gradient GEMM).
-//
+//   7. dw1 = dpre^T n2, dw2 = dm^T h on the weight-gradient GEMM.
+
 // Row 13 (`stswin_add_ln_mlp`, at the end): (s, m) = (bf16(x + y),
 // bf16(fc2(GELU(fc1(LN(x + y)))))), the tail of K2 without its LN1.
 //
@@ -454,10 +464,11 @@ extern "C" int stswin_block_epilogue(
 // bf16 m, or null to recompute it. w1 (hidden, C), w2 (C, hidden) and
 // their transposes w1_t (C, hidden), w2_t (hidden, C), bf16. Scratch:
 // s32, do32, dn2 (rows, C) fp32; n2, m, dm (rows, C) bf16; h, dpre
-// (rows, hidden) bf16; dgelu (rows, hidden) fp32. Outputs (overwritten):
-// ds (rows, C) bf16 = dx; dy (rows, C) bf16 in y's layout (only when
-// shift > 0); dw1 (hidden, C), db1, dw2 (C, hidden), dbw2, ds1, db1n, ds2,
-// db2 fp32.
+// (rows, hidden) bf16; dgelu (rows, hidden) fp32 when m_in is null (else
+// unused). Outputs
+// (overwritten): ds (rows, C) bf16 = dx; dy (rows, C) bf16 in y's layout
+// (only when shift > 0); dw1 (hidden, C), db1, dw2 (C, hidden), dbw2, ds1,
+// db1n, ds2, db2 fp32.
 extern "C" int stswin_block_epilogue_bwd(
     const void* x, const void* y, const void* g, const void* m_in,
     const void* s2, const void* b2, const void* w1, const void* b1,
@@ -489,7 +500,8 @@ extern "C" int stswin_block_epilogue_bwd(
       shift, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 2. h = bf16(gelu(n2 @ w1^T + b1)), dgelu = gelu'(.) fp32
+  // 2. without m: h = bf16(gelu(n2 @ w1^T + b1)) and gelu' (fp32), then
+  // m = bf16(h @ w2^T + bw2)
   GemmParams p{};
   p.A = static_cast<const bf16*>(n2);
   p.lda = C;
@@ -500,33 +512,30 @@ extern "C" int stswin_block_epilogue_bwd(
   p.N = hidden;
   p.K = C;
   p.C = static_cast<bf16*>(h);
-  p.Cf = static_cast<float*>(dgelu);
   p.ldc = hidden;
   p.c_map = identity_map();
   p.act = act;
-  if ((err = gemm_bf16(p, EPI_GELU_GRAD, s)) != cudaSuccess) return err;
-
-  // 3. m = bf16(h @ w2^T + bw2) unless saved
   const bf16* m_use = static_cast<const bf16*>(m_in);
   if (!m_use) {
-    GemmParams q{};
+    if (!dgelu) return cudaErrorInvalidValue;
+    p.Cf = static_cast<float*>(dgelu);
+    if ((err = gemm_sm90(p, EPI_GELU_GRAD, s)) != cudaSuccess) return err;
+    GemmParams q = p;
     q.A = static_cast<const bf16*>(h);
     q.lda = hidden;
-    q.a_map = identity_map();
     q.Wt = static_cast<const bf16*>(w2);
     q.bias = static_cast<const float*>(bw2);
-    q.M = R;
     q.N = C;
     q.K = hidden;
     q.C = static_cast<bf16*>(m);
+    q.Cf = nullptr;
     q.ldc = C;
-    q.c_map = identity_map();
     q.act = ACT_NONE;
-    if ((err = gemm_bf16(q, EPI_BF16, s)) != cudaSuccess) return err;
+    if ((err = gemm_sm90(q, EPI_BF16, s)) != cudaSuccess) return err;
     m_use = static_cast<const bf16*>(m);
   }
 
-  // 4. LN1 backward -> do32, dm; ds1, db1n, dbw2
+  // 3. LN1 backward -> do32, dm; ds1, db1n, dbw2
   const int row_blocks = blocks < 1056 ? blocks : 1056;
   float* ln1_vec[] = {static_cast<float*>(ds1), static_cast<float*>(db1n),
                       static_cast<float*>(dbw2)};
@@ -537,18 +546,28 @@ extern "C" int stswin_block_epilogue_bwd(
                       ln1_vec, R, H, W, shift, eps)) != cudaSuccess)
     return err;
 
-  // 5. dpre = bf16((dm @ w2) * gelu'), db1 = column sums (fp32)
-  p.A = static_cast<const bf16*>(dm);
-  p.lda = C;
-  p.Wt = static_cast<const bf16*>(w2_t);
-  p.bias = nullptr;
+  // 4. dpre = bf16(dh * gelu'(pre)), db1: gelu' from step 2 without m;
+  // with m, pre and dh = dm @ w2 in one tile's registers (and h). Each is
+  // the faster way for its stage (step 4 above)
   p.C = static_cast<bf16*>(dpre);
-  p.Cf = nullptr;
-  p.aux = static_cast<const float*>(dgelu);
   p.colsum = static_cast<float*>(db1);
-  if ((err = gemm_bf16(p, EPI_DGELU, s)) != cudaSuccess) return err;
+  if (!m_in) {
+    p.A = static_cast<const bf16*>(dm);
+    p.Wt = static_cast<const bf16*>(w2_t);
+    p.bias = nullptr;
+    p.Cf = nullptr;
+    p.aux = static_cast<const float*>(dgelu);
+    err = gemm_sm90(p, EPI_DGELU, s);
+  } else {
+    p.Cf = nullptr;
+    p.A2 = static_cast<const bf16*>(dm);
+    p.Wt2 = static_cast<const bf16*>(w2_t);
+    p.C2 = static_cast<bf16*>(h);
+    err = gemm_sm90(p, EPI_GELU_BWD, s);
+  }
+  if (err != cudaSuccess) return err;
 
-  // 6. dn2 = dpre @ w1 (fp32)
+  // 5. dn2 = dpre @ w1 (fp32)
   GemmParams d{};
   d.A = static_cast<const bf16*>(dpre);
   d.lda = hidden;
@@ -561,9 +580,9 @@ extern "C" int stswin_block_epilogue_bwd(
   d.ldc = C;
   d.c_map = identity_map();
   d.act = ACT_NONE;
-  if ((err = gemm_bf16(d, EPI_F32, s)) != cudaSuccess) return err;
+  if ((err = gemm_sm90(d, EPI_F32, s)) != cudaSuccess) return err;
 
-  // 7. LN2 backward, ds = do32 + it -> ds (and dy through the shift)
+  // 6. LN2 backward, ds = do32 + it -> ds (and dy through the shift)
   float* ln2_vec[] = {static_cast<float*>(ds2), static_cast<float*>(db2)};
   if ((err = bwd_rows(C, row_blocks, s, false, static_cast<const float*>(s32),
                       nullptr, nullptr, static_cast<const float*>(s2), nullptr,
@@ -573,7 +592,7 @@ extern "C" int stswin_block_epilogue_bwd(
                       W, shift, eps)) != cudaSuccess)
     return err;
 
-  // 8. dw1 = dpre^T n2 (hidden, C), dw2 = dm^T h (C, hidden)
+  // 7. dw1 = dpre^T n2 (hidden, C), dw2 = dm^T h (C, hidden)
   WgradParams w{};
   w.A = static_cast<const bf16*>(dpre);
   w.lda = hidden;
@@ -586,7 +605,7 @@ extern "C" int stswin_block_epilogue_bwd(
   w.N = C;
   w.Cw = static_cast<float*>(dw1);
   w.ldc = C;
-  if ((err = gemm_wgrad(w, s)) != cudaSuccess) return err;
+  if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   w.A = static_cast<const bf16*>(dm);
   w.lda = C;
   w.B = static_cast<const bf16*>(h);
@@ -595,7 +614,7 @@ extern "C" int stswin_block_epilogue_bwd(
   w.N = hidden;
   w.Cw = static_cast<float*>(dw2);
   w.ldc = hidden;
-  return gemm_wgrad(w, s);
+  return gemm_wgrad_sm90(w, s);
 }
 
 // fc1 + bias + act -> bf16 hid, then fc2 + bias -> bf16 out: the MLP of

@@ -1,66 +1,125 @@
-// The Hopper GEMM of K1 and K2: wgmma on TMA-fed, 128-byte-swizzled shared
-// memory, warp-specialised and persistent.
+// The Hopper GEMMs of K1, K2, K5 and K6: wgmma on TMA-fed, 128-byte-
+// swizzled shared memory, warp-specialised.
 //
 // Replaces (with the kernels that call it): the matmuls of
 //   stswincl_tpu/ops/pallas_block_attention.py _full_kernel (:179), the qkv
-//   and proj products of K1, and of
+//   and proj products of K1, and _full_bwd_kernel (:405), K5's input- and
+//   weight-gradient products; of
 //   stswincl_tpu/ops/pallas_add_ln_mlp.py _epilogue_kernel (:704) /
 //   _epi_shifted_kernel (:940) / _epilogue_kernel_with_m (:752), fc1 and fc2
-//   of K2. The TPU ran them on its 128 x 128 matrix unit out of VMEM blocks.
+//   of K2, and _epi_bwd_kernel (:181) / _epi_bwd_slice_kernel (:425), K6's
+//   fc1 recompute, dh, dn2 and weight gradients. The TPU ran them on its
+//   128 x 128 matrix unit out of VMEM blocks.
 //
 // Bound on the H100: at the swin shapes (M = 10^4..10^5 token rows, N and K
 // 512..4096) the products are bound by the tensor cores (989 TFLOP/s bf16
 // dense), far above the 295 flops a byte where device memory would bound
 // them. The older wmma tile (gemm_tile.cuh: mma.sync fragments loaded with
-// ldmatrix by every thread, a two-stage cp.async ring) reached 11-17 % of
+// ldmatrix by every thread, a two-stage cp.async ring) reached 8-22 % of
 // that peak. Design, for the rate:
 //   - wgmma.mma_async m64n128k16 bf16 -> fp32: two consumer warpgroups own
 //     the 64-row halves of a 128 x 128 output tile, with both operands
 //     read by the tensor cores straight from shared memory through
 //     descriptors (128-byte swizzle, K-major: A rows and the torch Linear
 //     weight rows both have K contiguous);
-//   - a ring of STAGES k tiles of 64 (128 bytes: one swizzle span), filled
-//     by one producer warp with TMA (cp.async.bulk.tensor, zero fill past
-//     M, N and K), completion counted on a `full` mbarrier per stage and
+//   - a ring of k tiles of 64 (128 bytes: one swizzle span), filled by one
+//     producer warp with TMA (cp.async.bulk.tensor, zero fill past M, N
+//     and K), completion counted on a `full` mbarrier per stage and
 //     release on an `empty` one;
 //   - persistent: a grid of at most two blocks an SM walks the tiles, and
 //     the producer runs ahead into the next tile while the consumers store
 //     the last; two blocks an SM also overlap one's epilogue with the
 //     other's main loop.
 // A gathered A (K1's qkv product reads x through the window partition and
-// the SW-MSA cyclic shift): TMA on sm_90 copies boxes, not row lists. A
-// window is a (ws x ws x T) box of the (BT, H, W, C) image, its rows in
-// window order, so where a 128-row tile holds whole windows (TN divides
-// 128 and is a multiple of 8, each box 1024-byte aligned: both stages)
-// the producer issues one 4-D TMA box per window. The shift wraps the
-// last window row and column round the image edge, which no box can
-// follow: a tile holding such a window,
-// and any other row map, goes by cp.async instead, each lane copying
-// rows into the same swizzled layout (16-byte chunk c of row r at chunk
-// c ^ (r % 8)) and its copies counted on the stage's `full` barrier
+// the SW-MSA cyclic shift, K5's dattn product g through the window
+// partition): TMA on sm_90 copies boxes, not row lists. A window is a (ws x
+// ws x T) box of the (BT, H, W, C) image, its rows in window order, so
+// where a 128-row tile holds whole windows (TN divides 128 and is a
+// multiple of 8, each box 1024-byte aligned: both stages) the producer
+// issues one 4-D TMA box per window. The shift wraps the last window row
+// and column round the image edge, which no box can follow: a tile holding
+// such a window, and any other row map, goes by cp.async instead, each lane
+// copying rows into the same swizzled layout (16-byte chunk c of row r at
+// chunk c ^ (r % 8)) and its copies counted on the stage's `full` barrier
 // (cp.async.mbarrier.arrive.noinc). Wt always comes by TMA.
 // Two blocks an SM, one's epilogue under the other's main loop, measured
 // faster than a wider tile or a deeper ring at one block an SM.
 // The epilogue works from the accumulator registers: bias, the GELU of
 // `activate` (erf polynomial or tanh), then a transpose within each quad
 // of lanes so that a lane holds 8 consecutive columns of one row, stored
-// whole: bf16, or the fp32 residual add, each row through the C row map
-// (K1's proj scatters back to the image layout). Stores of 4 and 8 bytes
-// straight from the accumulator layout took about 40 % of the time.
+// whole: bf16, or fp32 (the residual add), each row through the C row map
+// (K1's proj and K5's dx scatter back to the image layout). Stores of 4 and
+// 8 bytes straight from the accumulator layout took about 40 % of the time.
+//
+// EPI_GELU_BWD (K6 with the saved m, Pallas row 9): two products over one
+// 128 x 128 tile of (token rows, hidden columns), pre = n2 @ w1^T + b1 and
+// dh = dm @ w2 (through the transposed copy of w2, so both are K-major),
+// accumulated by the same warpgroups in two register sets, 64 + 64 fp32 a
+// thread; one block an SM (__launch_bounds__(288, 1) leaves the consumers
+// up to 224 registers) and a deeper ring. The epilogue evaluates the erf
+// polynomial once (`gelu_and_grad`) and writes h = bf16(gelu(pre)) where
+// asked, dpre = bf16(dh * gelu'(pre)) and the fp32 column sums of dh *
+// gelu'(pre) (db1): gelu' never leaves the registers, where it used to
+// cross device memory as a (rows, hidden) fp32 tensor, written once and
+// read once: at stage 2 on an H100 SXM the pair took 1.955 ms against
+// 2.040 for gelu' through memory (tools/profile_gemm.py). K6 with m
+// recomputed (row 7) needs h for m before dm exists, so its fc1 runs ahead
+// and writes gelu' (EPI_GELU_GRAD) for dh's epilogue to read (EPI_DGELU):
+// running fc1 again in the pair measured slower (3.639 against 3.061 ms).
+//
+// The weight gradients (`wgrad_sm90_kernel`): Cw[m, n] = sum_r A[a_map(r),
+// m] B[b_map(r), n] over the 10^4..10^5 token rows r. r is the reduction
+// index and m, n are the contiguous ones, so both operands sit MN-major in
+// shared memory: the TMA box is (64 columns, 64 rows) of the row-major
+// activation, 128-byte swizzled, and wgmma reads it through its transpose
+// bits (imm-trans-a = imm-trans-b = 1) with an MN-major descriptor (8-row
+// k groups 1024 bytes apart, 64-column halves one box apart): no
+// transposed copy of an activation is formed. Where a row map gathers the
+// rows (K5: x through the shifted window partition for dwqkv, g through
+// the window partition for dwproj), a 64-row k tile is one frame of a
+// window at stage 1 (a (64, 8, 8, 1) box of the image) or two whole
+// windows at stage 2 ((64, 4, 4, 2) boxes); tiles a shifted window wraps,
+// and other maps, go by cp.async into the same swizzle. The output is only
+// 16-256 tiles of 128 x 128, so the reduction is split over blocks until
+// two blocks an SM are in flight (5 splits for dwqkv at stage 1: 240
+// blocks). The splits' fp32 partials meet in 16-byte vector reductions
+// (`red_add_f32x4`) straight from the accumulator registers, after the
+// quad transpose: 16 a thread, against 8 x 256 scalar atomics a warp
+// before. A per-split workspace and a second pass would give the same sum
+// in a fixed order, but cost a workspace of splits x M x N fp32 and a
+// launch; the reductions need neither, and their order (so the last bits
+// of the sum) varies from run to run, as before.
 
 #include <cuda.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
+// Launches since the last reset, counted on the host where each kernel is
+// launched: slot `epi` for gemm_sm90, slot W_SLOT for the weight-gradient
+// GEMM. K1, K2, K5 and K6 launch these from their C entries, where no
+// Python wrapper sees them; `stswin_gemm_sm90_launches` reads the counts.
+constexpr int W_SLOT = EPI_GELU_BWD + 1;
+std::atomic<long long> launch_counts[W_SLOT + 1];
+
+constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int NACC = BN / 2;  // fp32 accumulators a consumer thread
 constexpr int THREADS = 288;  // two consumer warpgroups + one producer warp
 constexpr int TILE_A = BM * BK * 2, TILE_B = BN * BK * 2;  // bytes
-constexpr int SMEM_BYTES = STAGES * (TILE_A + TILE_B) + 2 * STAGES * 8 + 1024;
+constexpr int COLBUF = 8 * BN * 4;  // a consumer warp's column sums
+
+template <int EPI>
+struct Cfg {
+  static constexpr bool DUAL = EPI == EPI_GELU_BWD;
+  static constexpr int STAGES = DUAL ? 5 : 3;
+  static constexpr int BLOCKS = DUAL ? 1 : 2;  // an SM
+  static constexpr int SMEM =
+      STAGES * (TILE_A + TILE_B) + 2 * STAGES * 8 + COLBUF + 1024;
+};
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -124,8 +183,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// One (64 channels, ws, ws, T frames) box of the (BT, H, W, C) image: a
-// window's TN rows in window order (frame, row, column).
+// One (64 channels, ws, ws, frames) box of the (BT, H, W, C) image: a
+// window's rows in window order (frame, row, column).
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             int c, int w, int h, int bt,
                                             uint64_t* bar) {
@@ -145,11 +204,19 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// A wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row
-// groups 1024 bytes apart (SBO), the start address in 16-byte units.
+// wgmma shared-memory descriptors, 128-byte swizzle, start address in
+// 16-byte units. K-major: 8-row groups 1024 bytes apart (SBO). MN-major
+// (the weight gradients): 8-row k groups 1024 bytes apart (SBO), the
+// 64-column halves of a 128-wide operand `lbo` bytes apart (LBO).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr,
+                                                  uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -170,7 +237,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
   for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 fp32, the warpgroup's layout) += A (64 x 16) B (16 x 128)
+// d (64 x 128 fp32, the warpgroup's layout) += A (64 x 16) B (16 x 128);
+// TRANS 0: both operands K-major, 1: both MN-major
+template <int TRANS>
 __device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t da,
                                       uint64_t db) {
   asm volatile(
@@ -178,27 +247,45 @@ __device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t da,
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS));
 }
 
-// A 4 x 4 transpose of 32-bit words across the quad of lanes 4q .. 4q + 3:
-// lane t holds row t (w[0..3]) and ends with column t (word t of lanes
-// 0..3, in lane order). Round k swaps with lane t ^ k the word each needs.
-__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
-  uint32_t out[4] = {w[0], w[1], w[2], w[3]};
+// the 256 consumer threads (warps 0-7) meet on barrier 1
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// cs[par][e]: this lane's sum over its two rows of column 8 (2 jj + par) +
+// 2 t + e of the warp's 16 x BN block; summed over the warp's 8 row
+// groups and kept in the warp's slot of the column-sum buffer
+__device__ __forceinline__ void colsum_warp(float (&cs)[2][2], float* cb,
+                                            int jj, int lane) {
 #pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    const int i = t ^ k;  // the partner's lane and the word it wants
-    const uint32_t send = i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
-    const uint32_t got = __shfl_xor_sync(0xffffffffu, send, k);
+  for (int par = 0; par < 2; ++par)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = j == i ? got : out[j];
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        cs[par][e] += __shfl_xor_sync(0xffffffffu, cs[par][e], o);
+      if (lane < 4) cb[8 * (2 * jj + par) + 2 * lane + e] = cs[par][e];
+    }
+}
+
+// the 8 consumer warps' column sums of the tile into colsum[n0 ..)
+__device__ __forceinline__ void colsum_flush(const float* colbuf,
+                                             float* colsum, int n0, int N) {
+  consumer_sync();
+  const int c = threadIdx.x;
+  if (c < BN && n0 + c < N) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += colbuf[w * BN + c];
+    atomicAdd(colsum + n0 + c, s);
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) w[j] = out[j];
+  consumer_sync();
 }
 
 // How A arrives: one 2-D TMA box a stage (the identity row map); through
@@ -208,13 +295,16 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
 enum Gather { GATHER_NONE = 0, GATHER_ROWS = 1, GATHER_WINDOWS = 2 };
 
 struct Maps {
-  CUtensorMap a, b;  // a: 2-D rows, 4-D image (GATHER_WINDOWS), or unused
+  CUtensorMap a, b;    // a: 2-D rows, 4-D image (GATHER_WINDOWS), or unused
+  CUtensorMap a2, b2;  // EPI_GELU_BWD's second product
 };
 
 template <int EPI>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
     gemm_sm90_kernel(const __grid_constant__ Maps maps, const GemmParams p,
                      int gather) {
+  constexpr bool DUAL = Cfg<EPI>::DUAL;
+  constexpr int STAGES = Cfg<EPI>::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -223,11 +313,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smem + STAGES * (TILE_A + TILE_B));
   uint64_t* empty = full + STAGES;
+  float* colbuf = reinterpret_cast<float*>(empty + STAGES);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles_n = (p.N + BN - 1) / BN;
   const int tiles = ((p.M + BM - 1) / BM) * tiles_n;
   const int KT = (p.K + BK - 1) / BK;
+  const int KTT = DUAL ? 2 * KT : KT;  // k tiles a tile, both products
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -270,15 +362,18 @@ __global__ void __launch_bounds__(THREADS, 2)
           arow[i] = aok[i] ? map_row(p.a_map, m) * p.lda : 0;
         }
       }
-      for (int kt = 0; kt < KT; ++kt) {
+      for (int kt = 0; kt < KTT; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
-        const int k0 = kt * BK;
+        const bool second = DUAL && kt >= KT;
+        const int k0 = (second ? kt - KT : kt) * BK;
         if (lane == 0) {
           mbar_expect_tx(&full[stage],
                          TILE_B + (!gather ? TILE_A : windows * TN * BK * 2));
-          tma_load(sB + stage * BN * BK, &maps.b, k0, n0, &full[stage]);
+          tma_load(sB + stage * BN * BK, second ? &maps.b2 : &maps.b, k0, n0,
+                   &full[stage]);
           if (!gather)
-            tma_load(sA + stage * BM * BK, &maps.a, k0, m0, &full[stage]);
+            tma_load(sA + stage * BM * BK, second ? &maps.a2 : &maps.a, k0,
+                     m0, &full[stage]);
           for (int wl = 0; wl < windows; ++wl) {
             const int bw = m0 / TN + wl, b = bw / nWin, win = bw % nWin;
             tma_load_4d(sA + stage * BM * BK + wl * TN * BK, &maps.a, k0,
@@ -317,25 +412,38 @@ __global__ void __launch_bounds__(THREADS, 2)
   const uint32_t b_base = smem_u32(sB);
   int stage = 0;
   uint32_t phase = 0;
-  float acc[NACC];
+  float acc[NACC], acc2[NACC];  // acc2: EPI_GELU_BWD's dh
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < NACC; ++i) {
+      acc[i] = 0.0f;
+      if (DUAL) acc2[i] = 0.0f;
+    }
     int prev = 0;
-    for (int kt = 0; kt < KT; ++kt) {
+    for (int kt = 0; kt < KTT; ++kt) {
       mbar_wait(&full[stage], phase);
       // cp.async wrote A through the generic proxy; wgmma reads through
       // the async proxy
       if (gather) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      fence_acc(acc);
-      wgmma_fence();
+      const uint32_t sa = a_base + stage * TILE_A, sb = b_base + stage * TILE_B;
+      if (DUAL && kt >= KT) {
+        fence_acc(acc2);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma(acc, sw128_desc(a_base + stage * TILE_A + kk * 32),
-              sw128_desc(b_base + stage * TILE_B + kk * 32));
-      wgmma_commit();
-      fence_acc(acc);
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma<0>(acc2, sw128_desc(sa + kk * 32), sw128_desc(sb + kk * 32));
+        wgmma_commit();
+        fence_acc(acc2);
+      } else {
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma<0>(acc, sw128_desc(sa + kk * 32), sw128_desc(sb + kk * 32));
+        wgmma_commit();
+        fence_acc(acc);
+      }
       wgmma_wait<1>();  // the previous k tile's products are done
       if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
       prev = stage;
@@ -346,6 +454,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     wgmma_wait<0>();
     fence_acc(acc);
+    if (DUAL) fence_acc(acc2);
     if (lane == 0) mbar_arrive(&empty[prev]);
 
     // epilogue: acc[4j + 2h + e] is row (warp % 4) * 16 + lane / 4 + 8h,
@@ -366,6 +475,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     const long long my_row = (t >> 1) ? orow[1] : orow[0];
     const bool my_rok = (t >> 1) ? rok[1] : rok[0];
+    float* cb = colbuf + warp * BN;
 #pragma unroll
     for (int jj = 0; jj < BN / 16; ++jj) {
       float v[4][2];  // word w of this lane, before the transpose
@@ -384,15 +494,74 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (EPI == EPI_BF16) {
         uint32_t word[4];
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          __nv_bfloat162 pair = __floats2bfloat162_rn(
-              activate(v[w][0], p.act), activate(v[w][1], p.act));
-          word[w] = *reinterpret_cast<uint32_t*>(&pair);
-        }
+        for (int w = 0; w < 4; ++w)
+          word[w] = pack_bf16(activate(v[w][0], p.act),
+                                activate(v[w][1], p.act));
         quad_transpose(word, t);
         if (ok)
           *reinterpret_cast<uint4*>(p.C + my_row + n) =
               make_uint4(word[0], word[1], word[2], word[3]);
+      } else if (EPI == EPI_GELU_GRAD) {
+        uint32_t word[4], x[4], y[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 g0 = gelu_and_grad(v[w][0], p.act);
+          const float2 g1 = gelu_and_grad(v[w][1], p.act);
+          word[w] = pack_bf16(g0.x, g1.x);
+          x[w] = __float_as_uint(g0.y);
+          y[w] = __float_as_uint(g1.y);
+        }
+        quad_transpose(word, t);
+        quad_transpose(x, t);
+        quad_transpose(y, t);
+        if (ok) {
+          *reinterpret_cast<uint4*>(p.C + my_row + n) =
+              make_uint4(word[0], word[1], word[2], word[3]);
+          float4* dst = reinterpret_cast<float4*>(p.Cf + my_row + n);
+          dst[0] = make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]),
+                               __uint_as_float(x[1]), __uint_as_float(y[1]));
+          dst[1] = make_float4(__uint_as_float(x[2]), __uint_as_float(y[2]),
+                               __uint_as_float(x[3]), __uint_as_float(y[3]));
+        }
+      } else if (EPI == EPI_DGELU || EPI == EPI_GELU_BWD) {
+        // d = dh * gelu'(pre): gelu' from aux (EPI_DGELU) or from the
+        // registers; rows past M and columns past N add nothing to colsum
+        uint32_t word[4], hw[4];
+        float cs[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int j = 2 * jj + (w & 1), h = w >> 1;
+          const int nn = n0 + 8 * j + 2 * t;
+          const bool live = rok[h] && nn < p.N;
+          float d[2];
+          if (EPI == EPI_DGELU) {
+            const float2 a =
+                live ? *reinterpret_cast<const float2*>(p.aux + orow[h] + nn)
+                     : make_float2(0.0f, 0.0f);
+            d[0] = v[w][0] * a.x;
+            d[1] = v[w][1] * a.y;
+          } else {
+            const float2 g0 = gelu_and_grad(v[w][0], p.act);
+            const float2 g1 = gelu_and_grad(v[w][1], p.act);
+            hw[w] = pack_bf16(g0.x, g1.x);
+            d[0] = live ? acc2[4 * j + 2 * h] * g0.y : 0.0f;
+            d[1] = live ? acc2[4 * j + 2 * h + 1] * g1.y : 0.0f;
+          }
+          word[w] = pack_bf16(d[0], d[1]);
+          cs[w & 1][0] += d[0];
+          cs[w & 1][1] += d[1];
+        }
+        colsum_warp(cs, cb, jj, lane);
+        quad_transpose(word, t);
+        if (ok)
+          *reinterpret_cast<uint4*>(p.C + my_row + n) =
+              make_uint4(word[0], word[1], word[2], word[3]);
+        if (EPI == EPI_GELU_BWD && p.C2) {
+          quad_transpose(hw, t);
+          if (ok)
+            *reinterpret_cast<uint4*>(p.C2 + my_row + n) =
+                make_uint4(hw[0], hw[1], hw[2], hw[3]);
+        }
       } else {
         uint32_t x[4], y[4];
 #pragma unroll
@@ -418,8 +587,212 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
     }
+    if (EPI == EPI_DGELU || EPI == EPI_GELU_BWD)
+      colsum_flush(colbuf, p.colsum, n0, p.N);
   }
 }
+
+// ---- the weight-gradient GEMM ----------------------------------------------
+
+constexpr int W_STAGES = 3;  // 32 KB a stage: two blocks an SM
+constexpr int W_SMEM = W_STAGES * (TILE_A + TILE_B) + 2 * W_STAGES * 8 + 1024;
+constexpr int W_HALF = 64 * BK;  // bf16 of one 64-column half of a stage
+
+// How an operand's 64-row k tile arrives: two 2-D TMA boxes (the identity
+// row map); 4-D TMA boxes of whole windows or frames of one window; or
+// cp.async through the row map (any other map, a tile a shifted window
+// wraps, the ragged last tile of a gathered operand).
+enum Load { LOAD_TMA = 0, LOAD_WINDOWS = 1, LOAD_ROWS = 2 };
+
+struct Operand {
+  const bf16* p;
+  long long ld;
+  RowMap map;
+  int load, box_rows;  // LOAD_WINDOWS: rows of one box
+};
+
+struct WgradMaps {
+  CUtensorMap a, b;
+};
+
+// Whether the k tile at row r0 goes by window boxes: below R, and no box
+// wrapped by the shift.
+__device__ __forceinline__ bool boxes_fit(const Operand& o, int r0, int R) {
+  if (o.load != LOAD_WINDOWS || r0 + BK > R) return false;
+  const RowMap& m = o.map;
+  const int TN = m.T * m.ws * m.ws;
+  const int nWw = m.W / m.ws, nWin = (m.H / m.ws) * nWw;
+  for (int i = 0; i < BK / o.box_rows; ++i) {
+    const int win = ((r0 + i * o.box_rows) / TN) % nWin;
+    if ((win / nWw) * m.ws + m.shift + m.ws > m.H ||
+        (win % nWw) * m.ws + m.shift + m.ws > m.W)
+      return false;
+  }
+  return true;
+}
+
+// Lane 0: the TMA boxes of one operand's k tile (columns col0 .. + 127,
+// rows r0 .. + 63) into dst, two 64-column halves W_HALF apart.
+__device__ __forceinline__ void load_boxes(const Operand& o,
+                                           const CUtensorMap* map, bf16* dst,
+                                           int col0, int r0, uint64_t* bar) {
+  if (o.load == LOAD_TMA) {
+    for (int half = 0; half < 2; ++half)
+      tma_load(dst + half * W_HALF, map, col0 + 64 * half, r0, bar);
+    return;
+  }
+  const RowMap& m = o.map;
+  const int N = m.ws * m.ws, TN = m.T * N;
+  const int nWw = m.W / m.ws, nWin = (m.H / m.ws) * nWw;
+  for (int i = 0; i < BK / o.box_rows; ++i) {
+    const int r = r0 + i * o.box_rows, bw = r / TN;
+    const int b = bw / nWin, win = bw % nWin, f = (r - bw * TN) / N;
+    for (int half = 0; half < 2; ++half)
+      tma_load_4d(dst + half * W_HALF + i * o.box_rows * 64, map,
+                  col0 + 64 * half, (win % nWw) * m.ws + m.shift,
+                  (win / nWw) * m.ws + m.shift, b * m.T + f, bar);
+  }
+}
+
+// Every lane: the k tile's 64 rows x 16 chunks through the row map by
+// cp.async, into the layout TMA's 128-byte swizzle gives (rows past R
+// zero-filled).
+__device__ __forceinline__ void load_rows(const Operand& o, bf16* dst,
+                                          int col0, int r0, int R,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = lane + 32 * i, row = r0 + r;
+    const bool ok = row < R;
+    const bf16* src = o.p + (ok ? map_row(o.map, row) : 0) * o.ld + col0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int half = c >> 3, cc = c & 7;
+      cp_async16(dst + half * W_HALF + r * 64 + ((cc ^ (r & 7)) << 3),
+                 src + c * 8, ok);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps,
+                      const Operand oa, const Operand ob, int R, int N,
+                      float* __restrict__ Cw, long long ldc,
+                      int kt_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = reinterpret_cast<bf16*>(smem + W_STAGES * TILE_A);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + W_STAGES * (TILE_A + TILE_B));
+  uint64_t* empty = full + W_STAGES;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles_n = N / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int KT = (R + BK - 1) / BK;
+  const int kt0 = blockIdx.y * kt_per_split;
+  const int kt1 = min(KT, kt0 + kt_per_split);
+  const bool rows = oa.load != LOAD_TMA || ob.load != LOAD_TMA;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], rows ? 1 + 32 : 1);  // + each lane's cp.async
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ---- producer warp ----
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      const int r0 = kt * BK;
+      const bool a_box = oa.load == LOAD_TMA || boxes_fit(oa, r0, R);
+      const bool b_box = ob.load == LOAD_TMA || boxes_fit(ob, r0, R);
+      bf16* da = sA + stage * (TILE_A / 2);
+      bf16* db = sB + stage * (TILE_B / 2);
+      if (lane == 0) {
+        mbar_expect_tx(&full[stage], (a_box ? TILE_A : 0) + (b_box ? TILE_B : 0));
+        if (a_box) load_boxes(oa, &maps.a, da, m0, r0, &full[stage]);
+        if (b_box) load_boxes(ob, &maps.b, db, n0, r0, &full[stage]);
+      }
+      if (!a_box) load_rows(oa, da, m0, r0, R, lane);
+      if (!b_box) load_rows(ob, db, n0, r0, R, lane);
+      if (rows) cp_async_arrive(&full[stage]);
+      if (++stage == W_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: wg owns output rows m0 + wg * 64 .. + 63,
+  // the 64-column half wg of the A tile ----
+  const int wg = warp >> 2;
+  const uint32_t a_base = smem_u32(sA) + wg * W_HALF * 2;
+  const uint32_t b_base = smem_u32(sB);
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    mbar_wait(&full[stage], phase);
+    if (rows) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_acc(acc);
+    wgmma_fence();
+    // k step kk: rows 16 kk .. + 15 of the stage, two 8-row groups
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma<1>(acc,
+               sw128_mn_desc(a_base + stage * TILE_A + kk * 2048, W_HALF * 2),
+               sw128_mn_desc(b_base + stage * TILE_B + kk * 2048, W_HALF * 2));
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    if (kt > kt0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == W_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the split's partial sums, 8 consecutive columns of one row a lane
+  // after the quad transpose (as the GEMM's epilogue), added by two
+  // 16-byte reductions
+  const int t = lane & 3;
+  const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * (t >> 1);
+  float* out = Cw + (long long)row * ldc + n0;
+#pragma unroll
+  for (int jj = 0; jj < BN / 16; ++jj) {
+    uint32_t x[4], y[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int j = 2 * jj + (w & 1), h = w >> 1;
+      x[w] = __float_as_uint(acc[4 * j + 2 * h]);
+      y[w] = __float_as_uint(acc[4 * j + 2 * h + 1]);
+    }
+    quad_transpose(x, t);
+    quad_transpose(y, t);
+    float* dst = out + 8 * (2 * jj + (t & 1));
+    red_add_f32x4(dst, make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]),
+                                   __uint_as_float(x[1]), __uint_as_float(y[1])));
+    red_add_f32x4(dst + 4,
+                  make_float4(__uint_as_float(x[2]), __uint_as_float(y[2]),
+                              __uint_as_float(x[3]), __uint_as_float(y[3])));
+  }
+}
+
+// ---- host side ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -451,16 +824,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, K) bf16 matrix of row stride ld (elements) as 64 x 128 boxes
-// of 128-byte-swizzled rows, zero-filled past its edges.
-bool encode(CUtensorMap* map, const bf16* base, int rows, int K,
-            long long ld) {
+// A (rows, cols) bf16 matrix of row stride ld (elements) as boxes of 64
+// columns x box_rows rows, 128-byte swizzled, zero-filled past its edges.
+bool encode(CUtensorMap* map, const bf16* base, int rows, int cols,
+            long long ld, int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {BK, 128};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<bf16*>(base), dims, strides, box, elem,
@@ -469,55 +842,104 @@ bool encode(CUtensorMap* map, const bf16* base, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The (BT, H, W, K) image under A's window row map as (64, ws, ws, T)
-// boxes, for GATHER_WINDOWS.
-bool encode_image(CUtensorMap* map, const GemmParams& p) {
+// The (BT, H, W, cols) image of `rows` token rows of stride ld, under
+// window row map m, as (64, ws, ws, frames) boxes.
+bool encode_image(CUtensorMap* map, const bf16* base, int rows, int cols,
+                  long long ld, const RowMap& m, int frames) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const RowMap& m = p.a_map;
-  const cuuint64_t row = static_cast<cuuint64_t>(p.lda) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.K),
+  const cuuint64_t row = static_cast<cuuint64_t>(ld) * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(m.W),
                               static_cast<cuuint64_t>(m.H),
-                              static_cast<cuuint64_t>(p.M) / (m.H * m.W)};
+                              static_cast<cuuint64_t>(rows) / (m.H * m.W)};
   const cuuint64_t strides[3] = {row, row * m.W, row * m.W * m.H};
-  const cuuint32_t box[4] = {BK, static_cast<cuuint32_t>(m.ws),
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(m.ws),
                              static_cast<cuuint32_t>(m.ws),
-                             static_cast<cuuint32_t>(m.T)};
+                             static_cast<cuuint32_t>(frames)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<bf16*>(p.A), dims, strides, box, elem,
+            const_cast<bf16*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int EPI>
-cudaError_t launch(const GemmParams& p, int gather, cudaStream_t s) {
+int sm_count() {
   static int sms = 0;
   if (!sms) {
     int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(gemm_sm90_kernel<EPI>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return err;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
   }
+  return sms;
+}
+
+template <int EPI>
+cudaError_t launch(const GemmParams& p, int gather, cudaStream_t s) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_sm90_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Cfg<EPI>::SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int sms = sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
   Maps maps;
-  if (!encode(&maps.b, p.Wt, p.N, p.K, p.K)) return cudaErrorInvalidValue;
+  if (!encode(&maps.b, p.Wt, p.N, p.K, p.K, BN)) return cudaErrorInvalidValue;
   if (gather == GATHER_ROWS)
     maps.a = maps.b;
-  else if (gather == GATHER_WINDOWS ? !encode_image(&maps.a, p)
-                                    : !encode(&maps.a, p.A, p.M, p.K, p.lda))
+  else if (gather == GATHER_WINDOWS
+               ? !encode_image(&maps.a, p.A, p.M, p.K, p.lda, p.a_map,
+                               p.a_map.T)
+               : !encode(&maps.a, p.A, p.M, p.K, p.lda, BM))
     return cudaErrorInvalidValue;
+  if (Cfg<EPI>::DUAL) {
+    if (!encode(&maps.a2, p.A2, p.M, p.K, p.lda, BM) ||
+        !encode(&maps.b2, p.Wt2, p.N, p.K, p.K, BN))
+      return cudaErrorInvalidValue;
+  } else {
+    maps.a2 = maps.b2 = maps.b;
+  }
   const long long tiles =
       (long long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
-  const int grid = static_cast<int>(tiles < 2LL * sms ? tiles : 2LL * sms);
-  gemm_sm90_kernel<EPI><<<grid, THREADS, SMEM_BYTES, s>>>(maps, p, gather);
-  return cudaGetLastError();
+  const long long most = (long long)Cfg<EPI>::BLOCKS * sms;
+  const int grid = static_cast<int>(tiles < most ? tiles : most);
+  gemm_sm90_kernel<EPI><<<grid, THREADS, Cfg<EPI>::SMEM, s>>>(maps, p, gather);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++launch_counts[EPI];
+  return err;
+}
+
+// How a weight-gradient operand loads (the host's half of `Load`):
+// identity rows by 2-D TMA; a window map whose 64-row k tiles are whole
+// windows (TN <= 64) or whole frames of one window (ws * ws dividing 64)
+// by 4-D boxes; any other map by cp.async.
+Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R) {
+  Operand o{ptr, ld, m, LOAD_TMA, 0};
+  if (!m.mode) return o;
+  o.load = LOAD_ROWS;
+  const int N = m.ws * m.ws, TN = m.T * N;
+  if (R % (m.H * m.W)) return o;
+  if (TN <= BK && BK % TN == 0 && TN % 8 == 0) {
+    o.load = LOAD_WINDOWS;
+    o.box_rows = TN;
+  } else if (N <= BK && BK % N == 0 && N % 8 == 0 && m.T % (BK / N) == 0) {
+    o.load = LOAD_WINDOWS;
+    o.box_rows = BK;
+  }
+  return o;
+}
+
+bool encode_operand(CUtensorMap* map, const Operand& o, int R, int cols) {
+  if (o.load == LOAD_ROWS) return true;
+  if (o.load == LOAD_TMA) return encode(map, o.p, R, cols, o.ld, BK);
+  return encode_image(map, o.p, R, cols, o.ld, o.map,
+                      o.box_rows / (o.map.ws * o.map.ws));
 }
 
 }  // namespace
@@ -533,8 +955,7 @@ cudaError_t gemm_sm90(const GemmParams& p, int epi, cudaStream_t stream) {
   if (p.a_map.mode) {
     const RowMap& m = p.a_map;
     const int TN = m.T * m.ws * m.ws;
-    gather = BM % TN == 0 && TN % 8 == 0 && p.lda == p.K &&
-                     p.M % (m.H * m.W) == 0
+    gather = BM % TN == 0 && TN % 8 == 0 && p.M % (m.H * m.W) == 0
                  ? GATHER_WINDOWS
                  : GATHER_ROWS;
   }
@@ -545,21 +966,76 @@ cudaError_t gemm_sm90(const GemmParams& p, int epi, cudaStream_t stream) {
       return launch<EPI_RESID_F32>(p, gather, stream);
     case EPI_F32:
       return launch<EPI_F32>(p, gather, stream);
+    case EPI_GELU_GRAD:
+      return launch<EPI_GELU_GRAD>(p, gather, stream);
+    case EPI_DGELU:
+      if (!p.aux || !p.colsum) return cudaErrorInvalidValue;
+      return launch<EPI_DGELU>(p, gather, stream);
+    case EPI_GELU_BWD:
+      if (gather || !p.A2 || !p.Wt2 || !p.colsum || !aligned(p.A2) ||
+          !aligned(p.Wt2))
+        return cudaErrorInvalidValue;
+      return launch<EPI_GELU_BWD>(p, gather, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  if (p.R <= 0 || p.M <= 0 || p.N <= 0 || p.M % BM || p.N % BN ||
+      p.lda % 8 || p.ldb % 8 || p.ldc % 4 || !aligned(p.A) || !aligned(p.B) ||
+      !aligned(p.Cw))
+    return cudaErrorInvalidValue;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgrad_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        W_SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int sms = sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
+  const Operand oa = operand(p.A, p.lda, p.a_map, p.R);
+  const Operand ob = operand(p.B, p.ldb, p.b_map, p.R);
+  WgradMaps maps;
+  if (!encode_operand(&maps.a, oa, p.R, p.M) ||
+      !encode_operand(&maps.b, ob, p.R, p.N))
+    return cudaErrorInvalidValue;
+  // split the row reduction until two blocks an SM are in flight (not
+  // more: a second wave would idle most of the card), keeping at least 8
+  // k tiles a split
+  const int KT = (p.R + BK - 1) / BK;
+  const int tiles = (p.M / BM) * (p.N / BN);
+  int splits = 2 * sms / tiles;
+  splits = splits < 1 ? 1 : splits;
+  splits = splits < KT / 8 ? splits : (KT / 8 > 1 ? KT / 8 : 1);
+  const int per = (KT + splits - 1) / splits;
+  splits = (KT + per - 1) / per;
+  wgrad_sm90_kernel<<<dim3(tiles, splits), THREADS, W_SMEM, stream>>>(
+      maps, oa, ob, p.R, p.N, p.Cw, p.ldc, per);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++launch_counts[W_SLOT];
+  return err;
+}
+
 // The GEMM alone, for its tests and its profile: A (rows, K) bf16 of row
 // stride lda, read through the row map (a_mode, T, H, W, ws, a_shift);
-// Wt (N, K) bf16; bias (N,) fp32 or null; C (bf16, epi 0) or Cf (fp32,
-// epi 1 adds into it, epi 4 overwrites) of row stride ldc, written through
-// the row map (c_mode, T, H, W, ws, 0).
+// Wt (N, K) bf16; bias (N,) fp32 or null; C (bf16: epi 0, 2, 3) and Cf
+// (fp32: epi 1 adds into it, epi 4 overwrites it, epi 2 writes gelu') of
+// row stride ldc, written through the row map (c_mode, T, H, W, ws,
+// c_shift); aux (fp32, C's layout) and colsum (N,) fp32 of epi 3.
 extern "C" int stswin_gemm_sm90(const void* A, const void* Wt,
-                                const void* bias, void* C, void* Cf, int M,
-                                int N, int K, int lda, int ldc, int epi,
-                                int act, int a_mode, int c_mode, int T, int H,
-                                int W, int ws, int a_shift, void* stream) {
+                                const void* bias, void* C, void* Cf,
+                                const void* aux, void* colsum, int M, int N,
+                                int K, int lda, int ldc, int epi, int act,
+                                int a_mode, int c_mode, int T, int H, int W,
+                                int ws, int a_shift, int c_shift,
+                                void* stream) {
+  if (epi == EPI_GELU_BWD) return cudaErrorInvalidValue;
   GemmParams g{};
   g.A = static_cast<const bf16*>(A);
   g.lda = lda;
@@ -572,7 +1048,72 @@ extern "C" int stswin_gemm_sm90(const void* A, const void* Wt,
   g.C = static_cast<bf16*>(C);
   g.Cf = static_cast<float*>(Cf);
   g.ldc = ldc;
-  g.c_map = c_mode ? RowMap{1, T, H, W, ws, 0} : identity_map();
+  g.c_map = c_mode ? RowMap{1, T, H, W, ws, c_shift} : identity_map();
   g.act = act;
+  g.aux = static_cast<const float*>(aux);
+  g.colsum = static_cast<float*>(colsum);
   return gemm_sm90(g, epi, static_cast<cudaStream_t>(stream));
+}
+
+// K6's fused dh / pre product alone (EPI_GELU_BWD), for its tests: n2, dm
+// (rows, C) bf16; w1 (hidden, C), w2_t (hidden, C) bf16; b1 (hidden,) fp32;
+// out: dpre (rows, hidden) bf16, h (rows, hidden) bf16 or null, db1
+// (hidden,) fp32 added into.
+extern "C" int stswin_gelu_bwd_sm90(const void* n2, const void* dm,
+                                    const void* w1, const void* w2_t,
+                                    const void* b1, void* dpre, void* h,
+                                    void* db1, int M, int N, int K, int act,
+                                    void* stream) {
+  GemmParams g{};
+  g.A = static_cast<const bf16*>(n2);
+  g.lda = K;
+  g.a_map = identity_map();
+  g.Wt = static_cast<const bf16*>(w1);
+  g.bias = static_cast<const float*>(b1);
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.C = static_cast<bf16*>(dpre);
+  g.ldc = N;
+  g.c_map = identity_map();
+  g.act = act;
+  g.A2 = static_cast<const bf16*>(dm);
+  g.Wt2 = static_cast<const bf16*>(w2_t);
+  g.C2 = static_cast<bf16*>(h);
+  g.colsum = static_cast<float*>(db1);
+  return gemm_sm90(g, EPI_GELU_BWD, static_cast<cudaStream_t>(stream));
+}
+
+// The weight-gradient GEMM alone, for its tests and its profile: Cw (M, N)
+// fp32 += A[a_rows(r)]^T B[b_rows(r)] over r < R; A (rows, M), B (rows, N)
+// bf16 of row strides lda, ldb, each read through its row map (mode, T, H,
+// W, ws, shift). The caller zeroes Cw.
+extern "C" int stswin_wgrad_sm90(const void* A, const void* B, void* Cw,
+                                 int R, int M, int N, int lda, int ldb,
+                                 int a_mode, int b_mode, int T, int H, int W,
+                                 int ws, int a_shift, int b_shift,
+                                 void* stream) {
+  WgradParams w{};
+  w.A = static_cast<const bf16*>(A);
+  w.lda = lda;
+  w.a_map = a_mode ? RowMap{1, T, H, W, ws, a_shift} : identity_map();
+  w.B = static_cast<const bf16*>(B);
+  w.ldb = ldb;
+  w.b_map = b_mode ? RowMap{1, T, H, W, ws, b_shift} : identity_map();
+  w.R = R;
+  w.M = M;
+  w.N = N;
+  w.Cw = static_cast<float*>(Cw);
+  w.ldc = N;
+  return gemm_wgrad_sm90(w, static_cast<cudaStream_t>(stream));
+}
+
+// The launch counts (a query, not a launch): out[0..5] the launches of
+// gemm_sm90 by epilogue (EPI_BF16 .. EPI_GELU_BWD), out[6] those of the
+// weight-gradient GEMM, since the last call with `reset` set; `reset` then
+// sets them to 0.
+extern "C" int stswin_gemm_sm90_launches(long long* out, int reset) {
+  for (int i = 0; i <= W_SLOT; ++i)
+    out[i] = reset ? launch_counts[i].exchange(0) : launch_counts[i].load();
+  return 0;
 }

@@ -1,5 +1,5 @@
 // The 128 x 128 block tile of the bf16 GEMM: the main loop shared by
-// `gemm_kernel` (gemm.cu, the launched GEMM of K1-K3, K5, K6 and row 13)
+// `gemm_kernel` (gemm.cu, the launched GEMM of K3 and rows 12-13)
 // and by the whole-block kernel (swin_block.cu), which runs it in every
 // phase of its one launch.
 //

@@ -57,7 +57,11 @@ SIGNATURES = {
     "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],
     "stswin_layer_norm": [_P] * 4 + [_I] * 2 + [_F, _P],
     "stswin_conv3x3_bn_act": [_P] * 6 + [_I] * 7 + [_P],
-    "stswin_gemm_sm90": [_P] * 5 + [_I] * 14 + [_P],
+    "stswin_gemm_sm90": [_P] * 7 + [_I] * 15 + [_P],
+    "stswin_gelu_bwd_sm90": [_P] * 8 + [_I] * 4 + [_P],
+    "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
+    # a query, not a launch: (long long* counts, int reset), no stream
+    "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90

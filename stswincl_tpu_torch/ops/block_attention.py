@@ -152,13 +152,38 @@ def swin_block_attention_bwd_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
         return torch.autograd.grad(out, leaves, g)
 
 
+# The widest window of K5's attention backward: its score and dP
+# registers are sized for at most 8 key tiles of 16 (`BWD_MAX_NT` in
+# `csrc/block_attention.cu`). K1's forward takes up to MAX_WINDOW_TOKENS
+# (176); windows of 129-176 tokens train on no kernel route.
+MAX_BWD_WINDOW_TOKENS = 128
+
+
 def _attn_bwd_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of K5's attention block (`attn_bwd_smem`):
-    q, k, dO in bf16, the fp32 P / dS, one bf16 buffer for P / V / dS,
-    eight 16x16 fp32 staging tiles and the row sums."""
-    return (3 * _align(TN * (hd + 8) * 2) + _align(TN * (TN + 4) * 4)
-            + _align(TN * (max(hd, TN) + 8) * 2) + _align(8 * 256 * 4)
-            + _align(TN * 4))
+    """Dynamic shared memory of one (window, head) slot of K5's attention
+    backward (`bwd_smem`): q and dO in bf16 rows of hd + 8, the k / v
+    region that later holds P / dS (rows of TN + 8), and the slot's fp32
+    (TN, TN) dbias table; the scores, P, dP and dS stay in registers."""
+    return (2 * _align(TN * (hd + 8) * 2)
+            + _align(2 * TN * max(hd + 8, TN + 8) * 2) + _align(TN * TN * 4))
+
+
+def check_backward_window(name: str, x: torch.Tensor, heads: int,
+                          ws: int) -> None:
+    """Refuse a window that K5's attention backward does not take: more
+    than MAX_BWD_WINDOW_TOKENS tokens, not a multiple of 16, or a slot
+    past shared memory. The forward of `BlockAttentionFn` and of the
+    whole-block Function checks it before K1 or row 16 runs, so a training
+    step on such a window fails before its forward rather than inside its
+    backward."""
+    TN, hd = x.shape[1] * ws * ws, x.shape[-1] // heads
+    kernels.require(TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
+                    and hd % 16 == 0
+                    and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT,
+                    f"{name}: K5 (the attention backward) takes windows of "
+                    f"at most {MAX_BWD_WINDOW_TOKENS} tokens, a multiple of "
+                    f"16, that fit shared memory; got {TN} tokens x head dim "
+                    f"{hd}")
 
 
 def _validate(name, x, wqkv, wproj, bias_tiled, mask_tiled, heads, ws,
@@ -246,7 +271,9 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     mask_tiled, n_mask = _validate(name, x, wqkv, wproj, bias_tiled,
                                    mask_tiled, heads, ws, shift,
                                    _attn_bwd_smem_bytes)
+    check_backward_window(name, x, heads, ws)
     B, T, H, W, C = x.shape
+    TN = T * ws * ws
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     rows = B * T * H * W
@@ -255,7 +282,6 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
                     and tuple(attn.shape) == (rows, C),
                     f"{name}: g / saved scratch do not match x")
     kernels.require_on(dev, name, g, qkv, attn)
-    TN = T * ws * ws
     dattn = torch.empty((rows, C), dtype=x.dtype, device=dev)
     dqkv = torch.empty((rows, 3 * C), dtype=x.dtype, device=dev)
     dx = torch.empty_like(x)
@@ -297,6 +323,7 @@ class BlockAttentionFn(torch.autograd.Function):
             return swin_block_attention_ref(x, wq, bqkv, wp, bproj,
                                             bias_tiled, mask_tiled, heads,
                                             scale, ws, shift)
+        check_backward_window("swin_block_attention", x, heads, ws)
         out, qkv, attn = _forward_kernel(x, wq, bqkv, wp, bproj, bias_tiled,
                                          mask_tiled, heads, scale, ws, shift)
         ctx.save_for_backward(x, wq, wp, bias_tiled, mask_tiled, qkv, attn)

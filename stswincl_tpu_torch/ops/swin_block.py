@@ -39,7 +39,8 @@ from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_with_m_ref)
 from stswincl_tpu_torch.ops.attention import (_attend_smem_bytes,
                                               check_attention_core)
-from stswincl_tpu_torch.ops.block_attention import (swin_block_attention,
+from stswincl_tpu_torch.ops.block_attention import (check_backward_window,
+                                                    swin_block_attention,
                                                     swin_block_attention_ref)
 
 TILE_ROWS = 128  # token rows one block of the kernel owns (whole windows)
@@ -171,6 +172,8 @@ class WholeBlockFn(torch.autograd.Function):
         ctx.cfg = (heads, scale, ws, gelu_exact, eps)
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias_tiled,
                               mask_tiled, s2, b2, w1, b1, w2, bw2, s1, b1n)
+        if x.is_cuda:  # the backward runs K5
+            check_backward_window("whole_swin_block", x, heads, ws)
         return _forward(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
                         s2, b2, w1, b1, w2, bw2, s1, b1n, *ctx.cfg)
 

@@ -26,10 +26,10 @@ from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.swin import ATTN_IMPLS
 from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
-PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel",
-                "window_attention_mma_kernel", "ln_rows_kernel",
-                "patch_merge_ln_kernel", "upsample_argmax_kernel",
-                "whole_block_kernel")
+PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "wgrad_sm90_kernel",
+                "window_attention_mma_kernel", "attn_bwd_kernel",
+                "ln_rows_kernel", "patch_merge_ln_kernel",
+                "upsample_argmax_kernel", "whole_block_kernel")
 
 
 def _group(name: str) -> str:

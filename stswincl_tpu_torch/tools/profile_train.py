@@ -33,9 +33,8 @@ from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
 # the shared GEMM serves K1-K3 and K5-K6 alike, so kernel names cannot
 # split forward from backward: the CUDA-event split below does
-PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel",
-                "window_attention_mma_kernel",
-                "window_attention_bwd_kernel", "wgrad_kernel",
+PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "wgrad_sm90_kernel",
+                "window_attention_mma_kernel", "attn_bwd_kernel",
                 "ln_rows_kernel", "epi_bwd_ln", "colsum_kernel",
                 "patch_merge_ln_kernel", "whole_block_kernel")
 

@@ -23,8 +23,14 @@ ragged row counts, forward and (rows 12, 15) through their Functions and
 their modules; row 17 at dilations 1, 2, 4 and 18 (most taps in the
 padding), with and without the residual. The Hopper GEMM of K1 and K2
 runs alone against torch.matmul at ragged M, N and K with each epilogue,
-and with K1's row maps (both gathers, the scatter); the fp32 model serves
-and takes a train step on the plain twins with no kernel launched.
+and with K1's row maps (both gathers, the scatter); K6's fused dh / pre
+pair (dpre, h, db1) against its twin at a ragged row count; the
+weight-gradient GEMM against torch.matmul in fp32 at K5's and K6's
+shapes, windows the shift wraps and ragged row counts included; K5 and K6
+at both training stages' full shapes, with the GEMM launches the library
+counts inside them; a window K5 does not take refused before a trained
+block's forward; the fp32 model serves and takes a train step on the
+plain twins with no kernel launched.
 """
 
 import pytest
@@ -736,7 +742,8 @@ def _counted_wrappers():
             patch_merge.patch_merge, upsample_argmax.upsample_argmax,
             swin_block.whole_swin_block, add_layernorm.add_layer_norm,
             mlp.fused_mlp, layernorm.fused_layer_norm,
-            conv.conv3x3_bn_act]
+            conv.conv3x3_bn_act, gemm.linear_sm90, gemm.gelu_bwd_sm90,
+            gemm.wgrad_sm90]
 
 
 def test_fp32_model_runs_on_the_twins(dev):
@@ -832,3 +839,168 @@ def test_gemm_sm90_row_maps(dev, gen, shift, ws):
         mm[rows_c] = (torch.matmul(a[rows_a].float(), wt.float().t())
                       + bias).to(BF)
         _close(got, mm)
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 512, 128), (1000, 256, 256)])
+@pytest.mark.parametrize("act,with_h", [("erf", True), ("erf", False),
+                                        ("tanh", True)])
+def test_gelu_bwd_sm90_kernel(dev, gen, M, N, K, act, with_h):
+    """K6's fused pair (pre = n2 w1^T + b1 and dh = dm w2 in one tile) at
+    a ragged row count: dpre, h and the db1 column sums against the
+    twin."""
+    r = _normal(dev, gen)
+    n2, dm = r(M, K).to(BF), r(M, K).to(BF)
+    w1, w2_t = r(N, K, k=K ** -0.5).to(BF), r(N, K, k=K ** -0.5).to(BF)
+    b1 = r(N, k=0.1)
+    fn = gemm.gelu_bwd_sm90
+    n = fn.launches
+    got = fn(n2, dm, w1, w2_t, b1, act, with_h)
+    assert fn.launches == n + 1
+    want = gemm.gelu_bwd_sm90_ref(n2, dm, w1, w2_t, b1, act, with_h)
+    assert (got[1] is None) == (not with_h)
+    for a, b in zip(got, want):
+        if b is not None:
+            _close(a, b)
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 512, 128), (1000, 256, 256)])
+def test_gemm_sm90_gelu_through_memory(dev, gen, M, N, K):
+    """K6's products when m is recomputed (Pallas row 7): fc1 writing h
+    and gelu' (epilogue "gelu_grad"), then dh times that gelu' with the
+    db1 column sums ("dgelu"), at a ragged row count, against the twins
+    and against the fused pair's twin on the same operands."""
+    r = _normal(dev, gen)
+    n2, dm = r(M, K).to(BF), r(M, K).to(BF)
+    w1, w2_t = r(N, K, k=K ** -0.5).to(BF), r(N, K, k=K ** -0.5).to(BF)
+    b1 = r(N, k=0.1)
+    fn = gemm.linear_sm90
+    n = fn.launches
+    h, d = fn(n2, w1, b1, "erf", epi="gelu_grad")
+    want_h, want_d = gemm.linear_sm90_ref(n2, w1, b1, "erf", epi="gelu_grad")
+    _close(h, want_h)
+    _close(d, want_d)
+    dpre, db1 = fn(dm, w2_t, epi="dgelu", aux=d)
+    assert fn.launches == n + 2
+    want = gemm.gelu_bwd_sm90_ref(n2, dm, w1, w2_t, b1)
+    _close(dpre, want[0])
+    _close(h, want[1])
+    _close(db1, want[2])
+
+
+WGRAD_CASES = {  # (R or grid (B, T, H, W, ws, shift), M, N, a gathered,
+    # b gathered): K6's identity products at ragged R, K5's dwqkv (x
+    # through the shifted window partition: frames of a window by 4-D
+    # boxes at ws 8, whole windows at ws 4, the wrapped ones by cp.async;
+    # 12-token windows all by cp.async) and dwproj (g through the window
+    # partition)
+    "k6 dw1 ragged": (3000, 512, 128, False, False),
+    "k6 dw2 ragged": (1000, 128, 512, False, False),
+    "k5 dwqkv s1 w": ((2, 2, 16, 24, 8, 0), 384, 128, False, True),
+    "k5 dwqkv s1 sw": ((2, 2, 16, 24, 8, 4), 384, 128, False, True),
+    "k5 dwqkv s2 sw": ((3, 2, 8, 12, 4, 2), 768, 256, False, True),
+    "k5 dwqkv ws2 sw": ((2, 3, 8, 12, 2, 1), 384, 128, False, True),
+    "k5 dwproj s1": ((2, 2, 16, 24, 8, 0), 128, 128, True, False),
+    "k5 dwproj s2": ((3, 2, 8, 12, 4, 0), 256, 256, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_wgrad_sm90_kernel(dev, gen, case):
+    """The weight-gradient GEMM (MN-major wgmma, split reduction, 16-byte
+    reductions) against torch.matmul in fp32 on the gathered rows."""
+    geo, M, N, a_gather, b_gather = WGRAD_CASES[case]
+    rmap = None
+    if isinstance(geo, tuple):
+        B, T, H, W, ws, shift = geo
+        R, rmap = B * T * H * W, (T, H, W, ws, shift)
+    else:
+        R = geo
+    r = _normal(dev, gen)
+    a, b = r(R, M).to(BF), r(R, N).to(BF)
+    a_map, b_map = (rmap if a_gather else None), (rmap if b_gather else None)
+    fn = gemm.wgrad_sm90
+    n = fn.launches
+    got = fn(a, b, a_map, b_map)
+    assert fn.launches == n + 1
+    ra = gemm.window_rows(R, a_map, dev)
+    rb = gemm.window_rows(R, b_map, dev)
+    want = torch.matmul(a[ra].float().t(), b[rb].float())
+    assert got.dtype == torch.float32
+    _close(got, want)
+    _close(got, gemm.wgrad_sm90_ref(a, b, a_map, b_map))
+
+
+TRAIN_SHAPES = {  # (x shape, heads, ws): the batch-8 block shapes
+    "stage1": ((16, 2, 64, 80, 512), 4, 8),
+    "stage2": ((16, 2, 32, 40, 1024), 4, 4),
+}
+
+
+@pytest.mark.parametrize("stage", sorted(TRAIN_SHAPES))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_backward_kernels_at_training_shapes(dev, gen, stage, shifted):
+    """K5 and K6 against their twins at the full training shapes of both
+    stages (K6 with m recomputed at stage 1, saved at stage 2, as the
+    Function routes it), and the Hopper GEMM launches the library counts
+    inside K1, K2, K5 and K6, by form."""
+    shape, heads, ws = TRAIN_SHAPES[stage]
+    B, T, H, W, C = shape
+    shift = ws // 2 if shifted else 0
+    args = _attn_args(dev, gen, shift, B=B, T=T, H=H, W=W, C=C, heads=heads,
+                      ws=ws)
+    g = torch.randn(shape, generator=gen, device=dev).to(BF)
+    gemm.launch_counts(reset=True)
+    _, qkv, attn = block_attention._forward_kernel(*args)
+    got = block_attention.swin_block_attention_bwd(
+        args[0], g, qkv, attn, args[1], args[3], *args[5:])
+    del qkv, attn
+    forms = gemm.launch_counts(reset=True)
+    # K1: qkv, proj; K5: dattn, dx, dwqkv, dwproj
+    assert forms == dict.fromkeys(gemm.FORMS, 0) | {"bf16": 4, "wgrad": 2}
+    want = block_attention.swin_block_attention_bwd_ref(*args[:7], g,
+                                                        *args[7:])
+    for a, b in zip(got, want):
+        _close(a, b, same_dtype=False)
+    del got, want
+    p = _epi_params(dev, gen, C=C, hidden=4 * C)
+    y = torch.randn(shape, generator=gen, device=dev).to(BF)
+    kw = dict(gelu_exact=True, shift=shift, ws=ws)
+    m = None
+    saved = add_ln_mlp.mlp_output_saved(C, 4 * C, BF)
+    assert saved == (stage == "stage2")
+    if saved:
+        m = add_ln_mlp._forward_kernel(args[0], y, *p, **kw, eps=1e-5,
+                                       with_m=True)[1]
+    got = add_ln_mlp.swin_block_epilogue_bwd(args[0], y, g, m, *p[:7], **kw)
+    # K2 with m: fc1, fc2 (bf16 m); K6: dn2 and dw1, dw2, and with m saved
+    # the fused pair, else fc1 + gelu', m and dh * gelu'
+    want = (dict(bf16=2, gelu_bwd=1) if saved
+            else dict(gelu_grad=1, bf16=1, dgelu=1))
+    assert gemm.launch_counts() == (dict.fromkeys(gemm.FORMS, 0) | want
+                                    | dict(f32=1, wgrad=2))
+    want = add_ln_mlp.swin_block_epilogue_bwd_ref(args[0], y, *p, g, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, same_dtype=False)
+
+
+def test_trained_block_refuses_a_window_k5_does_not_take(dev, gen):
+    """TN 144 x hd 64: K1's forward takes the window, K5's attention
+    backward does not (at most 8 key tiles of 16). Without a gradient K1
+    runs it; with one, `BlockAttentionFn` and the whole-block Function
+    refuse it before any kernel launches, not in the backward."""
+    args = _attn_args(dev, gen, 0, B=1, T=1, H=12, W=12, C=128, heads=2,
+                      ws=12)
+    fn = block_attention.swin_block_attention
+    n = fn.launches
+    _close(fn(*args), block_attention.swin_block_attention_ref(*args))
+    assert fn.launches == n + 1
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="at most 128 tokens"):
+        fn(x, *args[1:])
+    assert fn.launches == n + 1
+    p = _epi_params(dev, gen, C=128, hidden=512)
+    whole = swin_block.whole_swin_block
+    n = whole.launches
+    with pytest.raises(ValueError, match="at most 128 tokens"):
+        whole(x, *args[1:7], *p, 2, args[8], 12)
+    assert whole.launches == n

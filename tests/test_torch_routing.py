@@ -1,8 +1,9 @@
 """What the port routes where, checked on the CPU: `build_model`'s choice
 of kernels or plain twins by compute dtype, the attention core's envelope
 (the shapes K1 and rows 10-11 take), the Hopper GEMM's row maps against
-the window partition, and row 15's twin at the widths of the kernel's
-wide-row path against torch's float64 LayerNorm (the JAX comparison at
+the window partition, the weight-gradient GEMM's twin against an explicit
+roll + window partition + matmul, and row 15's twin at the widths of the
+kernel's wide-row path against torch's float64 LayerNorm (the JAX comparison at
 those widths is in test_torch_offpath_kernels.py)."""
 
 import numpy as np
@@ -11,7 +12,7 @@ import torch
 
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig
-from stswincl_tpu_torch.ops import attention, gemm, layernorm
+from stswincl_tpu_torch.ops import attention, gemm, layernorm, mlp
 from stswincl_tpu_torch.ops.window import partition_qkv
 from stswincl_tpu_torch.pipelines.common import build_model
 
@@ -107,6 +108,83 @@ def test_gemm_row_map_is_the_window_partition(shift):
     back = torch.roll(out.reshape(B, T, H, W, 3 * C), (shift, shift),
                       dims=(2, 3))
     assert torch.equal(back, x)
+
+
+STAGE_WINDOWS = {"stage1": (2, 16, 24, 8), "stage2": (2, 8, 12, 4)}
+
+
+@pytest.mark.parametrize("stage", sorted(STAGE_WINDOWS))
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("gathered", ["a", "b", "both"])
+def test_wgrad_twin_is_the_partitioned_product(stage, shifted, gathered):
+    """`wgrad_sm90_ref`'s row-mapped reduction == torch.roll into the
+    SW-MSA layout, the window partition of `partition_qkv`, then a^T b, at
+    both stages' window geometry (TN 128 at ws 8, TN 32 at ws 4), with and
+    without the shift, either operand (or both) gathered: K5's dwqkv
+    gathers x, its dwproj g."""
+    T, H, W, ws = STAGE_WINDOWS[stage]
+    shift = ws // 2 if shifted else 0
+    B, Ca, Cb = 2, 8, 4
+    M = B * T * H * W
+    rng = np.random.default_rng(3)
+    a_img = torch.from_numpy(rng.standard_normal((B, T, H, W, Ca))
+                             .astype(np.float32))
+    b_img = torch.from_numpy(rng.standard_normal((B, T, H, W, Cb))
+                             .astype(np.float32))
+
+    def windows(img, C):
+        rolled = torch.roll(img, (-shift, -shift), dims=(2, 3))
+        part, _, _ = partition_qkv(torch.cat([rolled] * 3, -1), 1, ws)
+        return part.reshape(M, C)
+
+    rmap = (T, H, W, ws, shift)
+    a_map = rmap if gathered in ("a", "both") else None
+    b_map = rmap if gathered in ("b", "both") else None
+    a_rows = windows(a_img, Ca) if a_map else a_img.reshape(M, Ca)
+    b_rows = windows(b_img, Cb) if b_map else b_img.reshape(M, Cb)
+    got = gemm.wgrad_sm90_ref(a_img.reshape(M, Ca), b_img.reshape(M, Cb),
+                              a_map, b_map)
+    torch.testing.assert_close(got, a_rows.t() @ b_rows, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(gemm.wgrad_sm90(a_img.reshape(M, Ca),
+                                       b_img.reshape(M, Cb), a_map, b_map),
+                       got)
+
+
+def test_gelu_bwd_twin_matches_the_autograd_of_gelu():
+    """K6's fused pair twin: dpre = dh * gelu'(pre) with gelu' the
+    derivative of `ops.mlp.gelu` (the erf polynomial), h = gelu(pre), db1
+    the column sums of the fp32 dpre."""
+    rng = np.random.default_rng(4)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s)
+                                    .astype(np.float32))
+    n2, dm, w1, w2_t, b1 = f(20, 16), f(20, 16), f(24, 16), f(24, 16), f(24)
+    dpre, h, db1 = gemm.gelu_bwd_sm90_ref(n2, dm, w1, w2_t, b1)
+    pre = (n2 @ w1.t() + b1).requires_grad_()
+    y = mlp.gelu(pre, True)
+    dh = dm @ w2_t.t()
+    (want,) = torch.autograd.grad(y, pre, dh)
+    # autograd carries dh through each op of the polynomial, the twin
+    # multiplies once: fp32 rounding apart
+    torch.testing.assert_close(dpre, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, y.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(db1, want.sum(0), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["erf", "tanh"])
+def test_row7_ways_to_dpre_agree(act):
+    """K6 with m recomputed takes gelu' through device memory: fc1's
+    "gelu_grad" epilogue (h, gelu') then dh's "dgelu" epilogue (dpre, db1)
+    compute what the fused pair (m saved) does, on the twins."""
+    rng = np.random.default_rng(5)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s)
+                                    .astype(np.float32))
+    n2, dm, w1, w2_t, b1 = f(30, 16), f(30, 16), f(24, 16), f(24, 16), f(24)
+    h, d = gemm.linear_sm90(n2, w1, b1, act, epi="gelu_grad")
+    dpre, db1 = gemm.linear_sm90(dm, w2_t, epi="dgelu", aux=d)
+    want = gemm.gelu_bwd_sm90_ref(n2, dm, w1, w2_t, b1, act)
+    for got, w in zip((dpre, h, db1), want):
+        torch.testing.assert_close(got, w, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("C", [100, 2050, 3072])

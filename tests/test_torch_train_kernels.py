@@ -26,6 +26,7 @@ from stswincl_tpu.ops.window import (  # noqa: E402
 from stswincl_tpu_torch import kernels  # noqa: E402
 from stswincl_tpu_torch.ops import add_ln_mlp, block_attention  # noqa: E402
 from stswincl_tpu_torch.ops import patch_merge  # noqa: E402
+from stswincl_tpu_torch.ops.attention import MAX_WINDOW_TOKENS  # noqa: E402
 
 torch.set_num_threads(1)
 T_ = torch.from_numpy
@@ -221,14 +222,35 @@ def test_patch_merge_function_matches_twin_autograd_on_cpu(rng):
 
 
 def test_backward_routing_predicates():
-    """Which windows K5's shared memory takes (both stage shapes of the
-    slice, not hd 256 at TN 128), and where the epilogue saves m: the JAX
-    package's 20 MiB resident-size line, stage 1 recomputes, stage 2
-    saves."""
+    """Which windows K5's attention backward takes (its per-slot shared
+    memory, `bwd_smem`: q, dO, k / v then P / dS, the fp32 dbias table;
+    at most 8 key tiles of 16): both training windows (stage 1 TN 128 x
+    hd 128, stage 2 TN 32 x hd 256) pass `check_backward_window`, which
+    the forward of a trained block runs before K1; TN 128 x hd 256, a
+    window past 8 key tiles that K1's forward takes (TN 144 x hd 64) and
+    an oversize one (TN 288) are refused; and where the epilogue saves m:
+    the JAX package's 20 MiB resident-size line, stage 1 recomputes, stage
+    2 saves."""
     limit = kernels.SMEM_LIMIT
     assert block_attention._attn_bwd_smem_bytes(128, 128) <= limit
     assert block_attention._attn_bwd_smem_bytes(32, 256) <= limit
     assert block_attention._attn_bwd_smem_bytes(128, 256) > limit
+    assert block_attention.MAX_BWD_WINDOW_TOKENS == 128
+    check = block_attention.check_backward_window
+    check("k5", torch.zeros((1, 2, 8, 8, 512)), 4, 8)    # TN 128, hd 128
+    check("k5", torch.zeros((1, 2, 4, 4, 1024)), 4, 4)   # TN 32, hd 256
+    assert 144 <= MAX_WINDOW_TOKENS  # K1's forward takes TN 144
+    for shape, heads, ws in (((1, 2, 8, 8, 512), 2, 8),    # TN 128, hd 256
+                             ((1, 1, 12, 12, 128), 2, 12),  # TN 144, hd 64
+                             ((1, 2, 12, 12, 128), 2, 12)):  # TN 288
+        with pytest.raises(ValueError):
+            check("k5", torch.zeros(shape), heads, ws)
+    x = torch.zeros((1, 2, 12, 12, 128))  # ws 12 below: TN 288
+    with pytest.raises(ValueError):
+        block_attention.swin_block_attention_bwd(
+            x, x, None, None, torch.zeros((384, 128)),
+            torch.zeros((128, 128)), torch.zeros((2, 288, 288)), None, 2,
+            0.1, 12, 0)
     bf = torch.bfloat16
     assert not add_ln_mlp.mlp_output_saved(512, 2048, bf)
     assert add_ln_mlp.mlp_output_saved(1024, 4096, bf)
