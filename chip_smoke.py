@@ -57,7 +57,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      backward at the training shapes (through its autograd Function: K1,
      K2, K6 and K5) against the twin's autograd, and time it beside the
      K1 + K2 pair on the same inputs; hold rows 13 (add + LN + MLP) and
-     14 (add + LN) against their twins at the kernel profiler's shapes;
+     14 (add + LN) against their twins at the kernel profiler's shapes,
+     row 14 timed in single calls and back to back (`device_ms`);
   3c. serve the weights of phase 3 with `whole_block=True`: streamed ==
      full clip, kernel route == plain route and == the phase-3 route on
      their shares of pixels, row 16 launched once per W-MSA block call (7
@@ -77,10 +78,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      of the conv profiler's shapes and at the serving ASPP's dilated
      branches, 1024 -> 512 at dilation 12 and 18 on the model's (2, 32,
      40) and on (2, 64, 80), beside cuDNN's channels_last conv with the
-     BN folded in and the model's own cuDNN call; scale and shift drawn away
-     from 1 and 0, and a twin with a planted fault (row 15 without its
-     bias, row 17 with the dilation one off or without its residual) must
-     miss the bound tenfold;
+     BN folded in and the model's own cuDNN call; rows 15 and 17 (and
+     their library calls) timed in single calls and back to back
+     (`device_ms`); row 17 runs on the Hopper GEMM's "conv" form, whose
+     launches the library counts, held equal to row 17's own; scale and
+     shift drawn away from 1 and 0, and a twin with a planted fault (row
+     15 without its bias, row 17 with the dilation one off, with w
+     flipped along kx or without its residual) must miss the bound
+     tenfold;
   5. run the kernel profiler's entry point
      (`stswincl_tpu_torch.tools.profile_swin_kernels.main`) with few
      repeats: K1, K2, the attention step, rows 13 and 14 at the batch-8
@@ -99,10 +104,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
-read just after. K1, K2, K5 and K6 launch the Hopper GEMMs from C: the
-library counts those launches by form where it makes them, and each path
-holds them exactly to what the kernels' own launches imply (on a train
-path, with the blocks whose m is saved). Then
+read just after. K1, K2, K5, K6 and row 17 launch the Hopper GEMMs from
+C: the library counts those launches by form where it makes them, and
+each path holds them exactly to what the kernels' own launches imply (on
+a train path, with the blocks whose m is saved). Then
 come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
@@ -325,9 +330,10 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
     fc1 (bf16) and fc2 (bf16 m where the training forward saves it, else
     the fp32 residual); K5 two bf16 input-gradient products and two weight
     gradients; K6 dn2 (f32) and two weight gradients, with m saved the
-    fused pair, with m recomputed fc1 + gelu', m (bf16) and dh * gelu'.
-    `m_saved`: the block calls whose K2 saves m and whose K6 takes it (0
-    where nothing is trained; None where the path does not say)."""
+    fused pair, with m recomputed fc1 + gelu', m (bf16) and dh * gelu';
+    row 17 one "conv" product a call. `m_saved`: the block calls whose K2
+    saves m and whose K6 takes it (0 where nothing is trained; None where
+    the path does not say)."""
     k1, k2 = counts["swin_block_attention"], counts["swin_block_epilogue"]
     k5 = counts["swin_block_attention_bwd"]
     k6 = counts["swin_block_epilogue_bwd"]
@@ -337,7 +343,8 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
               k6),
              ("dgelu", forms["dgelu"], forms["gelu_grad"]),
              ("f32", forms["f32"], k6),
-             ("wgrad", forms["wgrad"], 2 * (k5 + k6))]
+             ("wgrad", forms["wgrad"], 2 * (k5 + k6)),
+             ("conv", forms["conv"], counts["conv3x3_bn_act"])]
     if m_saved is not None:
         rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),
                   ("gelu_bwd", forms["gelu_bwd"], m_saved if k6 else 0)]
@@ -442,6 +449,7 @@ def main() -> None:
     from stswincl_tpu_torch.ops.window import (partition_qkv,
                                                shifted_window_attention_mask)
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+    from stswincl_tpu_torch.tools.profile_swin_kernels import device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -491,10 +499,13 @@ def main() -> None:
 
     results = {}  # kernel -> list of case dicts
 
-    def compare(kname, case, kfn, pfn, work, lib=None):
+    def compare(kname, case, kfn, pfn, work, lib=None, device=False):
         """Hold kernel call kfn against its twin pfn; `work` is (flops,
         bytes[, peak]) of the call, `lib` one PyTorch call computing the
-        same function (timed only)."""
+        same function (timed only). `ms` is the median of single calls,
+        host launch time included; with `device`, `device_ms` (and
+        `library_device_ms`) the mean of back-to-back calls, which keep
+        the card busy while the host runs ahead."""
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -506,6 +517,10 @@ def main() -> None:
                "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
                "library_ms": None if lib is None else median_ms(lib),
                **bound(*work)}
+        if device:
+            row["device_ms"] = device_ms(kfn, 20)
+            if lib is not None:
+                row["library_device_ms"] = device_ms(lib, 20)
         results.setdefault(kname, []).append(row)
         print(f"  {kname:22s} {case:34s} max_abs {row['max_abs_err']:.3e} "
               f"rel {row['rel_err']:.3e} kernel {row['ms']:.3f} ms "
@@ -513,6 +528,11 @@ def main() -> None:
               f"ms ({row['bound_by']})" + ("" if lib is None else
                                           f" library {row['library_ms']:.3f}"
                                           " ms"), flush=True)
+        if device:
+            print(f"  {'':22s} {case:34s} back to back: kernel "
+                  f"{row['device_ms']:.4f} ms" + (
+                      "" if lib is None else " library "
+                      f"{row['library_device_ms']:.4f} ms"), flush=True)
         check(row["rel_err"] <= TOL_REL, f"{kname} {case}: relative error "
               f"{row['rel_err']} > {TOL_REL}")
 
@@ -634,7 +654,7 @@ def main() -> None:
     from stswincl_tpu_torch.ops import add_ln_mlp as epi_ops
     from stswincl_tpu_torch.ops import block_attention as attn_ops
 
-    def compare_outputs(kname, case, kfn, pfn, names, work):
+    def compare_outputs(kname, case, kfn, pfn, names, work, device=False):
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         rels, max_abs = {}, 0.0
@@ -650,10 +670,13 @@ def main() -> None:
                "library_ms": None}
         if work is not None:
             row.update(bound(*work))
+        if device:
+            row["device_ms"] = device_ms(kfn, 20)
         results.setdefault(kname, []).append(row)
         print(f"  {kname:24s} {case:44s} max rel {row['rel_err']:.3e} "
-              f"kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} ms",
-              flush=True)
+              f"kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} ms"
+              + (f" back to back {row['device_ms']:.4f} ms" if device
+                 else ""), flush=True)
         print("      " + " ".join(f"{n} {r:.2e}" for n, r in rels.items()),
               flush=True)
         for n, r in rels.items():
@@ -956,12 +979,14 @@ def main() -> None:
         compare("add_layer_norm", f"({R}, {C}) norm only",
                 lambda: add_layer_norm(xt, yt, *ln, return_sum=False)[1],
                 lambda: add_layer_norm_ref(xt, yt, *ln, return_sum=False)[1],
-                (10 * R * C, 3 * R * C * 2 + 2 * C * 4, PEAK_F32))
+                (10 * R * C, 3 * R * C * 2 + 2 * C * 4, PEAK_F32),
+                device=True)
         compare_outputs("add_layer_norm", f"({R}, {C}) with the sum",
                         lambda: add_layer_norm(xt, yt, *ln),
                         lambda: add_layer_norm_ref(xt, yt, *ln),
                         ("sum", "norm"),
-                        (10 * R * C, 4 * R * C * 2 + 2 * C * 4, PEAK_F32))
+                        (10 * R * C, 4 * R * C * 2 + 2 * C * 4, PEAK_F32),
+                        device=True)
         del xt, yt, p13
         torch.cuda.empty_cache()
     print(f"phase 2d whole block, rows 13 and 14 vs plain: "
@@ -969,15 +994,22 @@ def main() -> None:
 
     # ---- phase 2e: rows 12, 15 and 17 ------------------------------------
     t0 = time.perf_counter()
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    reset_launches({"conv3x3_bn_act": conv3x3_bn_act})
     extras = phase_offpath_kernels(dev, bf16, randn, uniform, median_ms,
                                    compare)
+    forms = gemm_ops.launch_counts()
+    print(f"  row 17 launches {conv3x3_bn_act.launches}; Hopper GEMM "
+          f"launches by form (counted in the library): {forms}", flush=True)
+    check(forms == dict.fromkeys(gemm_ops.FORMS, 0)
+          | {"conv": conv3x3_bn_act.launches}, "phase 2e: the library "
+          f"counted {forms}, row 17's wrapper {conv3x3_bn_act.launches}")
     print(f"phase 2e rows 12, 15 and 17 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 2f: the Hopper GEMMs alone at K1, K2, K5 and K6's products --
     # (the tool holds each case within TOL_REL of the twin and raises else)
     t0 = time.perf_counter()
-    from stswincl_tpu_torch.ops import gemm as gemm_ops
     from stswincl_tpu_torch.tools import profile_gemm
     gemm_wrappers = {"linear_sm90": gemm_ops.linear_sm90,
                      "gelu_bwd_sm90": gemm_ops.gelu_bwd_sm90,
@@ -1246,6 +1278,8 @@ def main() -> None:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None if None in lib else sum(lib),
             "cases": cases})
+        if all("device_ms" in c for c in cases):  # rows 14, 15 and 17
+            rows[-1]["device_ms"] = sum(c["device_ms"] for c in cases)
     row16 = next(r for r in rows if r["name"] == "whole_swin_block")
     row16["pair_ms"] = pair_ms  # its yardstick; not a library call
     row16["backward"] = results["whole_swin_block_bwd"]
@@ -1317,7 +1351,7 @@ def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
                 lambda: fused_layer_norm(xt, scale, shift),
                 lambda: layer_norm_ref(xt, scale, shift),
                 (8 * R * C, 2 * R * C * 2 + 2 * C * 4, PEAK_F32),
-                lambda: F.layer_norm(xt, (C,), *lib_w, 1e-5))
+                lambda: F.layer_norm(xt, (C,), *lib_w, 1e-5), device=True)
         print(f"  {'':22s} {case:34s} F.layer_norm with {how}", flush=True)
         want = layer_norm_ref(xt, scale, shift)
         planted("fused_layer_norm", case, "without its bias",
@@ -1352,11 +1386,16 @@ def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
                 lambda: conv3x3_bn_act_ref(x, w, scale, shift, **kw),
                 (2 * N * Hc * Wc * 9 * cin * cout, nbytes),
                 lambda: cudnn_conv_bn_act(x, w, scale, shift, d,
-                                          residual=res))
+                                          residual=res), device=True)
         want = conv3x3_bn_act_ref(x, w, scale, shift, **kw)
         planted("conv3x3_bn_act", name, f"at dilation {d + 1}",
                 rel_err(conv3x3_bn_act_ref(x, w, scale, shift,
                                        **dict(kw, dilation=d + 1)), want))
+        # the tap order: w flipped along kx reads every tap's box at the
+        # mirror offset ((kx - 1) d -> (1 - kx) d)
+        planted("conv3x3_bn_act", name, "with w flipped along kx",
+                rel_err(conv3x3_bn_act_ref(x, w.flip(-1), scale, shift,
+                                           **kw), want))
         if with_res:
             planted("conv3x3_bn_act", name, "without its residual",
                     rel_err(conv3x3_bn_act_ref(x, w, scale, shift,
@@ -1407,7 +1446,8 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
         out.backward(g)
         ref.backward(g)
         torch.cuda.synchronize()
-        launches[path] = read_launches(wrappers)[0]
+        launches[path], forms = read_launches(wrappers)
+        check_gemm_launches(path, launches[path], forms)
         for (n, a), b in zip(mod.named_parameters(), plain.parameters()):
             errs[n] = rel_err(a.grad, b.grad)
         print(f"  [{path}] {kname} launches {launches[path][kname]}; rel "
@@ -1435,7 +1475,8 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
     reset_launches(wrappers)
     reps = 3
     rows = profile_conv_kernel.main(["--reps", str(reps)])
-    launches["profile_conv"] = read_launches(wrappers)[0]
+    launches["profile_conv"], forms = read_launches(wrappers)
+    check_gemm_launches("profile_conv", launches["profile_conv"], forms)
     want = sum(r["in_envelope"] for r in rows) * (
         reps + profile_conv_kernel.UNTIMED_CALLS)
     print(f"  [profile_conv] launches {launches['profile_conv']}; "

@@ -202,6 +202,11 @@ __device__ __forceinline__ long long map_row(const RowMap& m, int r) {
 //                  of pre, C2 = bf16(g) when C2 is not null, C = bf16(dh *
 //                  g'), and the fp32 column sums of dh * g' are added into
 //                  colsum (db1);
+//   EPI_CONV       the implicit-GEMM 3x3 conv (row 17): A is the NHWC image
+//                  read through `conv` (a tile is a bh x bw patch of one
+//                  image, each k tile one tap's 64 channels), v = sum *
+//                  conv.scale[n] + bias[n] (+ conv.res at the same pixel),
+//                  ReLU when conv.relu, C = bf16(v) at the pixel's row;
 // all but EPI_BF16 on gemm_sm90 only. Cf, C2 and aux share C's row map and ldc.
 // Requires N % 8 == 0 (columns past the last 128-wide tile's N are
 // masked), lda % 8 == 0, ldc % 8 == 0, and K % 32 == 0 on gemm_bf16.
@@ -211,7 +216,18 @@ enum Epi {
   EPI_GELU_GRAD = 2,
   EPI_DGELU = 3,
   EPI_F32 = 4,
-  EPI_GELU_BWD = 5
+  EPI_GELU_BWD = 5,
+  EPI_CONV = 6
+};
+
+// EPI_CONV's geometry: the (n, H, W, Cin) image A with Cin = lda, the
+// output tiled by bh x bw patches (bh * bw = 128 rows of a tile), ph x pw
+// patches an image; K = 9 taps x cb k tiles of 64 channels, tap-major
+// (tap = 3 ky + kx at offset ((ky - 1) d, (kx - 1) d)).
+struct ConvGeom {
+  int H, W, d, bh, bw, ph, pw, cb, relu;
+  const float* scale;  // (N,) fp32
+  const bf16* res;     // (pixels, N) bf16, C's layout, or null
 };
 
 struct GemmParams {
@@ -231,6 +247,7 @@ struct GemmParams {
   bf16* C2;
   const float* aux;
   float* colsum;
+  ConvGeom conv;  // EPI_CONV only
 };
 
 // The wmma GEMM (gemm.cu) of K3 and rows 12-13, EPI_BF16 only.
@@ -241,6 +258,19 @@ inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }
 // out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (K5's bias gradients).
 cudaError_t colsum_bf16(const bf16* X, long long ld, int R, int N, float* out,
                         cudaStream_t stream);
+
+// The SMs of the current device (0 if it cannot be read), asked once.
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
 
 // Threads of one attention block (one (window, head)), forward and backward.
 constexpr int ATT_THREADS = 256, ATT_WARPS = ATT_THREADS / 32;

@@ -9,141 +9,66 @@
 // against (N*H*W * (Cin + Cout [+ Cout]) + 9*Cin*Cout) * 2 bytes: about
 // 1,000 flops a byte at Cin = Cout = 512, far above the card's 295.
 //
-// Design: an implicit GEMM on the port's GEMM tile (gemm_tile.cuh), no
-// padded or im2col copy of x. M = N*H*W output pixels, N = Cout, K = 9*Cin
-// ordered tap by tap (tap = 3 ky + kx); the wrapper rearranges w (OIHW)
-// to (Cout, 9*Cin), tap-major, the tile's Wt layout. A k tile of 32
-// channels lies within one tap (Cin % 32 == 0), so each thread gathers its
-// two 16-byte A chunks from pixel (h + (ky - 1) d, w + (kx - 1) d) of the
-// same image; a pixel in the padding is zero-filled by cp.async with a
-// source size of 0 (from a valid address, x itself), so any dilation works,
-// d >= H / 2 included, where most taps read padding. The TPU kernel
+// Design: an implicit GEMM on the Hopper GEMM of gemm_sm90.cu, its
+// EPI_CONV form (wgmma on a 128-byte-swizzled TMA ring, one producer warp,
+// persistent blocks, the quad-transposed epilogue), with no padded or
+// im2col copy of x and no per-thread gather. M = output pixels, tiled as
+// patches of one image, bh x bw = 128 pixels (the wrapper picks them to
+// fit W: 8 x 16 on 64x80, 16 x 8 on 32x40, 4 x 32 on 128x160); N = Cout;
+// K = 9 taps x ceil(Cin / 64) k tiles of 64 channels, tap-major (tap = 3
+// ky + kx). A k tile of A is ONE 4-D TMA box (64 channels, bw, bh, 1) of
+// x seen as (Cin, W, H, N), at (c0, w0 + (kx - 1) d, h0 + (ky - 1) d, n):
+// TMA zero-fills every element outside the tensor, at negative
+// coordinates too, which is the conv's zero padding at any dilation, and
+// the channels past Cin when Cin is not a multiple of 64. The box lands in
+// (h, w) order, so tile row r is pixel (h0 + r / bw, w0 + r % bw). The
+// wrapper packs w once into (Cout, 9 * Cin64), each tap zero-padded to
+// Cin64 channels, read by 2-D TMA as any weight. A tap whose box lies
+// wholly in the padding (most taps of the ASPP's dilation 12 / 18 on
+// 32x40) is skipped by producer and consumers alike. The epilogue works
+// from the accumulator registers: * scale + shift per column, the quad
+// transpose in fp32, + the bf16 residual read at the same pixel, ReLU, one
+// 16-byte bf16 store a lane; rows past H or W are masked. The TPU kernel
 // pre-padded x and pre-sliced its three column taps in XLA (Mosaic could
 // not slice the sublane axis at kx * d) and double-buffered halo row bands
-// into VMEM; none of that is needed here. The epilogue stages each 16 x 16
-// accumulator fragment in shared memory: * scale + shift, + residual,
-// ReLU in fp32, then one 16-byte bf16 store per lane.
+// into VMEM; none of that is needed here.
 
-#include "gemm_tile.cuh"
+#include <climits>
 
-namespace {
+#include "gemm_sm90.cuh"
 
-struct ConvParams {
-  const bf16* x;      // (N, H, W, Cin)
-  const bf16* wt;     // (Cout, 9 * Cin), tap-major
-  const float* scale;  // (Cout,)
-  const float* shift;  // (Cout,)
-  const bf16* res;    // (N, H, W, Cout) or null
-  bf16* out;          // (N, H, W, Cout)
-  int M, H, W, Cin, Cout, d, relu;
-};
-
-__global__ void __launch_bounds__(tile::THREADS) conv_kernel(ConvParams p) {
-  using namespace nvcuda;
-  __shared__ __align__(128) tile::Smem sm;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 64
-  const int m0 = blockIdx.y * tile::BM, n0 = blockIdx.x * tile::BN;
-  const int K = 9 * p.Cin;
-
-  // each thread copies two 16-byte chunks of A and of Wt per k tile; its
-  // A rows are output pixels (n, h, w), read at the tap's offset
-  const bf16* a_src[2];
-  const bf16* w_src[2];
-  int ph[2], pw[2], s_off[2];
-  bool a_ok[2], w_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int r, col;
-    tile::chunk(tid, i, r, col);
-    const int m = m0 + r;
-    a_ok[i] = m < p.M;
-    const int mm = a_ok[i] ? m : 0;
-    pw[i] = mm % p.W;
-    ph[i] = (mm / p.W) % p.H;
-    a_src[i] = p.x + (long long)mm * p.Cin + col;
-    w_ok[i] = n0 + r < p.Cout;
-    w_src[i] = p.wt + (long long)(w_ok[i] ? n0 + r : 0) * K + col;
-    s_off[i] = r * tile::LDS + col;
-  }
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * tile::BK;
-    const int tap = k0 / p.Cin, ci = k0 - tap * p.Cin;
-    const int dy = (tap / 3 - 1) * p.d, dx = (tap % 3 - 1) * p.d;
-    const long long off = ((long long)dy * p.W + dx) * p.Cin + ci;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int h = ph[i] + dy, w = pw[i] + dx;
-      const bool ok = a_ok[i] && h >= 0 && h < p.H && w >= 0 && w < p.W;
-      tile::cp_async16(&sm.A[stage][s_off[i]], ok ? a_src[i] + off : p.x, ok);
-      tile::cp_async16(&sm.W[stage][s_off[i]], w_src[i] + k0, w_ok[i]);
-    }
-    tile::cp_async_commit();
-  };
-  tile::Acc acc[2][4];
-  tile::mainloop(K / tile::BK, load, sm, acc);
-
-  float* st = tile::staging(sm, warp);
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 32 + i * 16 + r;
-      const int n = n0 + wn * 64 + j * 16 + c0;
-      // Cout % 8 == 0: a lane's 8 channels lie all below Cout or all past
-      if (m < p.M && n < p.Cout) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = st[r * 16 + c0 + e] * p.scale[n + e] + p.shift[n + e];
-        const long long o = (long long)m * p.Cout + n;
-        if (p.res) {
-          __align__(16) bf16 rv[8];
-          *reinterpret_cast<uint4*>(rv) =
-              *reinterpret_cast<const uint4*>(p.res + o);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rv[e]);
-        }
-        __align__(16) bf16 ov[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          ov[e] = __float2bfloat16(p.relu ? fmaxf(v[e], 0.0f) : v[e]);
-        *reinterpret_cast<uint4*>(p.out + o) =
-            *reinterpret_cast<const uint4*>(ov);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-}  // namespace
-
-// x (N, H, W, Cin), wt (Cout, 9 * Cin) tap-major, residual (N, H, W, Cout)
-// or null, out (N, H, W, Cout): bf16; scale, shift (Cout,) fp32. Cin a
-// multiple of 32, Cout of 8, dilation >= 1.
+// x (N, H, W, Cin), wt (Cout, 9 * Cin64) tap-major with Cin64 = 64 *
+// ceil(Cin / 64) (each tap zero-padded), residual (N, H, W, Cout) or null,
+// out (N, H, W, Cout): bf16; scale, shift (Cout,) fp32. Cin a multiple of
+// 32, Cout of 8, dilation >= 1; the output patch bh x bw = 128 pixels.
 extern "C" int stswin_conv3x3_bn_act(const void* x, const void* wt,
                                      const void* scale, const void* shift,
                                      const void* residual, void* out, int N,
                                      int H, int W, int Cin, int Cout,
-                                     int dilation, int relu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % tile::BK ||
-      Cout <= 0 || Cout % 8 || dilation < 1)
+                                     int dilation, int relu, int bh, int bw,
+                                     void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 32 || Cout <= 0 ||
+      Cout % 8 || dilation < 1 || bh <= 0 || bw <= 0 || bh * bw != 128)
     return cudaErrorInvalidValue;
-  const long long M = (long long)N * H * W;
-  if ((M + tile::BM - 1) / tile::BM > 65535) return cudaErrorInvalidValue;
-  ConvParams p{static_cast<const bf16*>(x),
-               static_cast<const bf16*>(wt),
-               static_cast<const float*>(scale),
-               static_cast<const float*>(shift),
-               static_cast<const bf16*>(residual),
-               static_cast<bf16*>(out),
-               static_cast<int>(M), H, W, Cin, Cout, dilation, relu};
-  const dim3 grid((Cout + tile::BN - 1) / tile::BN,
-                  static_cast<unsigned>((M + tile::BM - 1) / tile::BM));
-  conv_kernel<<<grid, tile::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p);
-  return cudaGetLastError();
+  const int ph = (H + bh - 1) / bh, pw = (W + bw - 1) / bw;
+  const long long rows = (long long)N * ph * pw * 128;  // patches x 128
+  if (rows > INT_MAX) return cudaErrorInvalidValue;
+  const int cb = (Cin + 63) / 64;
+  GemmParams g{};
+  g.A = static_cast<const bf16*>(x);
+  g.lda = Cin;
+  g.a_map = identity_map();
+  g.Wt = static_cast<const bf16*>(wt);
+  g.bias = static_cast<const float*>(shift);
+  g.M = static_cast<int>(rows);
+  g.N = Cout;
+  g.K = 9 * cb * 64;
+  g.C = static_cast<bf16*>(out);
+  g.ldc = Cout;
+  g.c_map = identity_map();
+  g.act = ACT_NONE;
+  g.conv = ConvGeom{H,  W,  dilation, bh, bw, ph, pw, cb, relu,
+                    static_cast<const float*>(scale),
+                    static_cast<const bf16*>(residual)};
+  return gemm_sm90(g, EPI_CONV, static_cast<cudaStream_t>(stream));
 }

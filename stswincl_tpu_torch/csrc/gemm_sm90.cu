@@ -1,5 +1,6 @@
-// The Hopper GEMMs of K1, K2, K5 and K6: wgmma on TMA-fed, 128-byte-
-// swizzled shared memory, warp-specialised.
+// The Hopper GEMMs of K1, K2, K5 and K6, and of the conv (row 17, its
+// EPI_CONV form: conv.cu says how the image arrives): wgmma on TMA-fed,
+// 128-byte-swizzled shared memory, warp-specialised.
 //
 // Replaces (with the kernels that call it): the matmuls of
 //   stswincl_tpu/ops/pallas_block_attention.py _full_kernel (:179), the qkv
@@ -103,7 +104,7 @@ namespace {
 // launched: slot `epi` for gemm_sm90, slot W_SLOT for the weight-gradient
 // GEMM. K1, K2, K5 and K6 launch these from their C entries, where no
 // Python wrapper sees them; `stswin_gemm_sm90_launches` reads the counts.
-constexpr int W_SLOT = EPI_GELU_BWD + 1;
+constexpr int W_SLOT = EPI_CONV + 1;
 std::atomic<long long> launch_counts[W_SLOT + 1];
 
 constexpr int BM = 128, BN = 128, BK = 64;
@@ -288,6 +289,24 @@ __device__ __forceinline__ void colsum_flush(const float* colbuf,
   consumer_sync();
 }
 
+// EPI_CONV: the patch of output tile row m0 (image img, top-left pixel
+// (h0, w0)), and whether tap `tap`'s box over it reaches into the image: a
+// box wholly in the zero padding adds nothing to the product, so neither
+// the producer nor the consumers spend a stage on it.
+__device__ __forceinline__ void conv_patch(const ConvGeom& g, int m0, int& img,
+                                           int& h0, int& w0) {
+  const int pt = m0 / BM, per = g.ph * g.pw;
+  img = pt / per;
+  const int q = pt - img * per, row = q / g.pw;
+  h0 = row * g.bh;
+  w0 = (q - row * g.pw) * g.bw;
+}
+__device__ __forceinline__ bool conv_tap_live(const ConvGeom& g, int tap,
+                                              int h0, int w0) {
+  const int y = h0 + (tap / 3 - 1) * g.d, x = w0 + (tap % 3 - 1) * g.d;
+  return y < g.H && y + g.bh > 0 && x < g.W && x + g.bw > 0;
+}
+
 // How A arrives: one 2-D TMA box a stage (the identity row map); through
 // the row map by cp.async; or, where the tile's rows are whole windows
 // (TN a multiple of 8 dividing 128), a TMA box per window of the 4-D
@@ -295,7 +314,8 @@ __device__ __forceinline__ void colsum_flush(const float* colbuf,
 enum Gather { GATHER_NONE = 0, GATHER_ROWS = 1, GATHER_WINDOWS = 2 };
 
 struct Maps {
-  CUtensorMap a, b;    // a: 2-D rows, 4-D image (GATHER_WINDOWS), or unused
+  CUtensorMap a, b;    // a: 2-D rows, 4-D image (GATHER_WINDOWS,
+                       // EPI_CONV), or unused
   CUtensorMap a2, b2;  // EPI_GELU_BWD's second product
 };
 
@@ -304,6 +324,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
     gemm_sm90_kernel(const __grid_constant__ Maps maps, const GemmParams p,
                      int gather) {
   constexpr bool DUAL = Cfg<EPI>::DUAL;
+  constexpr bool CONV = EPI == EPI_CONV;
   constexpr int STAGES = Cfg<EPI>::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -336,6 +357,32 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      if (CONV) {
+        // one 4-D box (64 channels, bw, bh, 1) of the image a live tap and
+        // channel block, at the tap's offset: TMA zero-fills what lies
+        // outside the image (the conv's padding, any dilation) and the
+        // channels past Cin
+        const ConvGeom& g = p.conv;
+        int img, h0, w0;
+        conv_patch(g, m0, img, h0, w0);
+        for (int kt = 0; kt < KTT; ++kt) {
+          const int tap = kt / g.cb;
+          if (!conv_tap_live(g, tap, h0, w0)) continue;
+          mbar_wait(&empty[stage], phase ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&full[stage], TILE_A + TILE_B);
+            tma_load(sB + stage * BN * BK, &maps.b, kt * BK, n0, &full[stage]);
+            tma_load_4d(sA + stage * BM * BK, &maps.a, (kt - tap * g.cb) * BK,
+                        w0 + (tap % 3 - 1) * g.d, h0 + (tap / 3 - 1) * g.d,
+                        img, &full[stage]);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        continue;
+      }
       long long arow[4];
       bool aok[4];
       // GATHER_WINDOWS: the tile's rows are whole windows (TN divides BM);
@@ -415,13 +462,16 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
   float acc[NACC], acc2[NACC];  // acc2: EPI_GELU_BWD's dh
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+    int img = 0, h0 = 0, w0 = 0;
+    if (CONV) conv_patch(p.conv, m0, img, h0, w0);
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       acc[i] = 0.0f;
       if (DUAL) acc2[i] = 0.0f;
     }
-    int prev = 0;
+    int prev = 0, done = 0;
     for (int kt = 0; kt < KTT; ++kt) {
+      if (CONV && !conv_tap_live(p.conv, kt / p.conv.cb, h0, w0)) continue;
       mbar_wait(&full[stage], phase);
       // cp.async wrote A through the generic proxy; wgmma reads through
       // the async proxy
@@ -445,7 +495,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
         fence_acc(acc);
       }
       wgmma_wait<1>();  // the previous k tile's products are done
-      if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      if (done++ > 0 && lane == 0) mbar_arrive(&empty[prev]);
       prev = stage;
       if (++stage == STAGES) {
         stage = 0;
@@ -470,8 +520,17 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
     bool rok[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      rok[h] = r0 + 8 * h < p.M;
-      orow[h] = rok[h] ? map_row(p.c_map, r0 + 8 * h) * p.ldc : 0;
+      if (CONV) {  // tile row r is pixel (h0 + r / bw, w0 + r % bw)
+        const int r = r0 - m0 + 8 * h;
+        const int y = h0 + r / p.conv.bw, x = w0 + r % p.conv.bw;
+        rok[h] = y < p.conv.H && x < p.conv.W;
+        orow[h] = rok[h] ? ((long long)(img * p.conv.H + y) * p.conv.W + x) *
+                               p.ldc
+                         : 0;
+      } else {
+        rok[h] = r0 + 8 * h < p.M;
+        orow[h] = rok[h] ? map_row(p.c_map, r0 + 8 * h) * p.ldc : 0;
+      }
     }
     const long long my_row = (t >> 1) ? orow[1] : orow[0];
     const bool my_rok = (t >> 1) ? rok[1] : rok[0];
@@ -486,8 +545,16 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
         const float2 b = p.bias && n < p.N
                              ? *reinterpret_cast<const float2*>(p.bias + n)
                              : make_float2(0.0f, 0.0f);
-        v[w][0] = acc[4 * j + 2 * h] + b.x;
-        v[w][1] = acc[4 * j + 2 * h + 1] + b.y;
+        if (CONV) {  // the folded BatchNorm: sum * scale + shift
+          const float2 sc =
+              n < p.N ? *reinterpret_cast<const float2*>(p.conv.scale + n)
+                      : make_float2(0.0f, 0.0f);
+          v[w][0] = acc[4 * j + 2 * h] * sc.x + b.x;
+          v[w][1] = acc[4 * j + 2 * h + 1] * sc.y + b.y;
+        } else {
+          v[w][0] = acc[4 * j + 2 * h] + b.x;
+          v[w][1] = acc[4 * j + 2 * h + 1] + b.y;
+        }
       }
       const int n = n0 + 8 * (2 * jj + (t & 1));  // this lane's 8 columns
       const bool ok = my_rok && n < p.N;
@@ -561,6 +628,40 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
           if (ok)
             *reinterpret_cast<uint4*>(p.C2 + my_row + n) =
                 make_uint4(hw[0], hw[1], hw[2], hw[3]);
+        }
+      } else if (EPI == EPI_CONV) {
+        // transposed in fp32, so that the residual is added before the
+        // one rounding to bf16, as the twin does
+        uint32_t x[4], y[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          x[w] = __float_as_uint(v[w][0]);
+          y[w] = __float_as_uint(v[w][1]);
+        }
+        quad_transpose(x, t);
+        quad_transpose(y, t);
+        if (ok) {
+          float o[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[2 * e] = __uint_as_float(x[e]);
+            o[2 * e + 1] = __uint_as_float(y[e]);
+          }
+          if (p.conv.res) {
+            __align__(16) bf16 rv[8];
+            *reinterpret_cast<uint4*>(rv) =
+                *reinterpret_cast<const uint4*>(p.conv.res + my_row + n);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) o[e] += __bfloat162float(rv[e]);
+          }
+          uint32_t word[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            word[e] = p.conv.relu ? pack_bf16(fmaxf(o[2 * e], 0.0f),
+                                              fmaxf(o[2 * e + 1], 0.0f))
+                                  : pack_bf16(o[2 * e], o[2 * e + 1]);
+          *reinterpret_cast<uint4*>(p.C + my_row + n) =
+              make_uint4(word[0], word[1], word[2], word[3]);
         }
       } else {
         uint32_t x[4], y[4];
@@ -842,39 +943,29 @@ bool encode(CUtensorMap* map, const bf16* base, int rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The (BT, H, W, cols) image of `rows` token rows of stride ld, under
-// window row map m, as (64, ws, ws, frames) boxes.
-bool encode_image(CUtensorMap* map, const bf16* base, int rows, int cols,
-                  long long ld, const RowMap& m, int frames) {
+// The (frames, H, W, cols) image of `rows` pixel rows of stride ld as
+// (64, bw, bh, bf) boxes, zero-filled past its edges (at negative
+// coordinates too): a window of a window row map m is a (64, ws, ws,
+// frames) box, a conv tap's patch a (64, bw, bh, 1) one.
+bool encode_boxes(CUtensorMap* map, const bf16* base, int rows, int cols,
+                  long long ld, int H, int W, int bw, int bh, int bf) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t row = static_cast<cuuint64_t>(ld) * 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(m.W),
-                              static_cast<cuuint64_t>(m.H),
-                              static_cast<cuuint64_t>(rows) / (m.H * m.W)};
-  const cuuint64_t strides[3] = {row, row * m.W, row * m.W * m.H};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(m.ws),
-                             static_cast<cuuint32_t>(m.ws),
-                             static_cast<cuuint32_t>(frames)};
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(rows) / (H * W)};
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bf)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
             const_cast<bf16*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
-  }
-  return sms;
 }
 
 template <int EPI>
@@ -891,11 +982,17 @@ cudaError_t launch(const GemmParams& p, int gather, cudaStream_t s) {
   if (!sms) return cudaErrorInvalidDevice;
   Maps maps;
   if (!encode(&maps.b, p.Wt, p.N, p.K, p.K, BN)) return cudaErrorInvalidValue;
-  if (gather == GATHER_ROWS)
+  const ConvGeom& g = p.conv;
+  if (EPI == EPI_CONV) {
+    const int images = p.M / BM / (g.ph * g.pw);
+    if (!encode_boxes(&maps.a, p.A, images * g.H * g.W, p.lda, p.lda, g.H,
+                      g.W, g.bw, g.bh, 1))
+      return cudaErrorInvalidValue;
+  } else if (gather == GATHER_ROWS)
     maps.a = maps.b;
   else if (gather == GATHER_WINDOWS
-               ? !encode_image(&maps.a, p.A, p.M, p.K, p.lda, p.a_map,
-                               p.a_map.T)
+               ? !encode_boxes(&maps.a, p.A, p.M, p.K, p.lda, p.a_map.H,
+                               p.a_map.W, p.a_map.ws, p.a_map.ws, p.a_map.T)
                : !encode(&maps.a, p.A, p.M, p.K, p.lda, BM))
     return cudaErrorInvalidValue;
   if (Cfg<EPI>::DUAL) {
@@ -938,8 +1035,8 @@ Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R) {
 bool encode_operand(CUtensorMap* map, const Operand& o, int R, int cols) {
   if (o.load == LOAD_ROWS) return true;
   if (o.load == LOAD_TMA) return encode(map, o.p, R, cols, o.ld, BK);
-  return encode_image(map, o.p, R, cols, o.ld, o.map,
-                      o.box_rows / (o.map.ws * o.map.ws));
+  return encode_boxes(map, o.p, R, cols, o.ld, o.map.H, o.map.W, o.map.ws,
+                      o.map.ws, o.box_rows / (o.map.ws * o.map.ws));
 }
 
 }  // namespace
@@ -976,6 +1073,15 @@ cudaError_t gemm_sm90(const GemmParams& p, int epi, cudaStream_t stream) {
           !aligned(p.Wt2))
         return cudaErrorInvalidValue;
       return launch<EPI_GELU_BWD>(p, gather, stream);
+    case EPI_CONV: {
+      const ConvGeom& g = p.conv;
+      if (gather || !p.conv.scale || (g.res && !aligned(g.res)) || g.H <= 0 ||
+          g.W <= 0 || g.d < 1 || g.bh * g.bw != BM || g.bw > 256 ||
+          g.ph != (g.H + g.bh - 1) / g.bh || g.pw != (g.W + g.bw - 1) / g.bw ||
+          g.cb < 1 || p.K != 9 * g.cb * BK || p.M % (BM * g.ph * g.pw))
+        return cudaErrorInvalidValue;
+      return launch<EPI_CONV>(p, gather, stream);
+    }
     default:
       return cudaErrorInvalidValue;
   }
@@ -1035,7 +1141,7 @@ extern "C" int stswin_gemm_sm90(const void* A, const void* Wt,
                                 int a_mode, int c_mode, int T, int H, int W,
                                 int ws, int a_shift, int c_shift,
                                 void* stream) {
-  if (epi == EPI_GELU_BWD) return cudaErrorInvalidValue;
+  if (epi >= EPI_GELU_BWD) return cudaErrorInvalidValue;
   GemmParams g{};
   g.A = static_cast<const bf16*>(A);
   g.lda = lda;
@@ -1108,8 +1214,8 @@ extern "C" int stswin_wgrad_sm90(const void* A, const void* B, void* Cw,
   return gemm_wgrad_sm90(w, static_cast<cudaStream_t>(stream));
 }
 
-// The launch counts (a query, not a launch): out[0..5] the launches of
-// gemm_sm90 by epilogue (EPI_BF16 .. EPI_GELU_BWD), out[6] those of the
+// The launch counts (a query, not a launch): out[0..6] the launches of
+// gemm_sm90 by epilogue (EPI_BF16 .. EPI_CONV), out[7] those of the
 // weight-gradient GEMM, since the last call with `reset` set; `reset` then
 // sets them to 0.
 extern "C" int stswin_gemm_sm90_launches(long long* out, int reset) {

@@ -1,5 +1,6 @@
 // The Hopper GEMMs on wgmma + TMA: C = epilogue(A @ Wt^T + bias), the
-// products of K1, K2, K5 and K6, and the weight-gradient GEMM of K5 and K6.
+// products of K1, K2, K5 and K6 and the implicit-GEMM conv of row 17
+// (EPI_CONV), and the weight-gradient GEMM of K5 and K6.
 // gemm_sm90.cu says how they are built; the older `gemm_bf16` (gemm.cu,
 // wmma on mma.sync) keeps K3's and rows 12-13's products.
 #pragma once
@@ -10,7 +11,8 @@
 // the contract of common.cuh for every epilogue (EPI_GELU_GRAD, EPI_DGELU
 // and EPI_GELU_BWD: K6's). A rows are read by TMA under the identity map, by a 4-D
 // TMA box a window where a tile holds whole windows, and by cp.async
-// through any other row map (EPI_GELU_BWD: identity maps only). Requires
+// through any other row map (EPI_GELU_BWD: identity maps only); EPI_CONV's
+// A by one 4-D TMA box a live tap (`ConvGeom`). Requires
 // N % 8 == 0, K % 8 == 0, lda % 8 == 0, ldc % 8 == 0, A, A2, Wt and Wt2
 // 16-byte aligned; ragged M, N and K tiles are zero-filled on load and
 // masked on store.

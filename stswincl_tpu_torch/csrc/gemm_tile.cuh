@@ -9,8 +9,7 @@
 // (w & 1) * 64), k tiles of 32 in a two-stage cp.async ring. A rows at or
 // past M and Wt rows at or past N read as zeros. Wt is the torch Linear
 // layout (N, K), row stride K. Requires K % 32 == 0, lda % 8 == 0 and 256
-// threads. The implicit-GEMM conv (conv.cu) runs the same main loop
-// (`mainloop`) with its own gathered A loads.
+// threads.
 #pragma once
 
 #include <mma.h>
@@ -81,32 +80,8 @@ __device__ __forceinline__ void chunk(int tid, int i, int& r, int& col) {
   col = (c & 3) * 8;
 }
 
-// The two-stage main loop over KT k tiles: `load(stage, kt)` issues the
-// cp.async copies of k tile kt into sm.A[stage] and sm.W[stage] and
-// commits them. Callers with their own A addressing (the implicit-GEMM
-// conv of conv.cu) pass their own `load`.
-template <class Load>
-__device__ __forceinline__ void mainloop(int KT, Load&& load, Smem& sm,
-                                         Acc (&acc)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-  load(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load((kt + 1) & 1, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_tile(sm.A[kt & 1], sm.W[kt & 1], acc);
-    __syncthreads();
-  }
-}
-
-// Wt rows at or past N read as zeros (N defaults to no bound).
+// The two-stage main loop; Wt rows at or past N read as zeros (N defaults
+// to no bound).
 __device__ __forceinline__ void mma(const bf16* A, long long lda,
                                     const RowMap& a_map, int m0, int M,
                                     const bf16* Wt, int n0, int K, Smem& sm,
@@ -128,6 +103,7 @@ __device__ __forceinline__ void mma(const bf16* A, long long lda,
     w_src[i] = Wt + (long long)(w_ok[i] ? n0 + r : 0) * K + col;
     s_off[i] = r * LDS + col;
   }
+  // cp.async copies of k tile kt into sm.A[stage] and sm.W[stage]
   auto load = [&](int stage, int kt) {
     const int k0 = kt * BK;
 #pragma unroll
@@ -137,7 +113,23 @@ __device__ __forceinline__ void mma(const bf16* A, long long lda,
     }
     cp_async_commit();
   };
-  mainloop(K / BK, load, sm, acc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
+  const int KT = K / BK;
+  load(0, 0);
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) {
+      load((kt + 1) & 1, kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    mma_tile(sm.A[kt & 1], sm.W[kt & 1], acc);
+    __syncthreads();
+  }
 }
 
 }  // namespace tile

@@ -30,17 +30,19 @@ def add_layer_norm_ref(x, y, scale, bias, eps: float = 1e-5,
 def _kernel(x, y, scale, bias, eps, return_sum):
     """Launch row 14."""
     name = "add_layer_norm"
-    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
+                    f"{x.device}")
     kernels.require_bf16_cuda(name, x, y)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, y, scale, bias)
     C = x.shape[-1]
-    kernels.require(y.shape == x.shape and tuple(scale.shape) == (C,)
-                    and tuple(bias.shape) == (C,),
-                    f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, scale "
-                    f"{tuple(scale.shape)}, bias {tuple(bias.shape)}")
+    kernels.require(y.shape == x.shape and scale.shape == (C,)
+                    and bias.shape == (C,),
+                    lambda: f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)},"
+                    f" scale {tuple(scale.shape)}, bias {tuple(bias.shape)}")
     kernels.require(C % 256 == 0 and C <= 2048,
-                    f"{name}: needs C a multiple of 256 up to 2048, got {C}")
+                    lambda: f"{name}: needs C a multiple of 256 up to 2048, "
+                    f"got {C}")
     out = torch.empty_like(x)
     s = torch.empty_like(x) if return_sum else None
     P = kernels.ptr

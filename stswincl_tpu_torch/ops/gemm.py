@@ -33,15 +33,16 @@ RowMap = Tuple[int, int, int, int, int]
 
 _EPI = {"bf16": 0, "resid_f32": 1, "gelu_grad": 2, "dgelu": 3, "f32": 4}
 # the slots of `stswin_gemm_sm90_launches`: gemm_sm90 by epilogue (the
-# fused pair's is 5), then the weight-gradient GEMM
-FORMS = (*_EPI, "gelu_bwd", "wgrad")
+# fused pair's is 5, row 17's implicit-GEMM conv 6, `ops.conv`), then the
+# weight-gradient GEMM
+FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Launches of each GEMM form (`FORMS`) counted inside the kernel
     library since the last reset, where the kernel is launched: by the
-    wrappers here and by the C entries of K1, K2, K5 and K6, which no
-    Python wrapper sees. `reset` sets the counts to 0 after reading."""
+    wrappers here and by the C entries of K1, K2, K5, K6 and row 17, which
+    no wrapper here sees. `reset` sets the counts to 0 after reading."""
     out = (ctypes.c_longlong * len(FORMS))()
     kernels.load().stswin_gemm_sm90_launches(out, int(reset))
     return dict(zip(FORMS, out))

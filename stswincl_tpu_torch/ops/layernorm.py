@@ -34,13 +34,14 @@ def layer_norm_ref(x, scale, bias, eps: float = 1e-5):
 def _kernel(x, scale, bias, eps):
     """Launch row 15."""
     name = "fused_layer_norm"
-    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
+                    f"{x.device}")
     kernels.require_bf16_cuda(name, x)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, scale, bias)
     C = x.shape[-1]
-    kernels.require(tuple(scale.shape) == (C,) and tuple(bias.shape) == (C,),
-                    f"{name}: x {tuple(x.shape)}, scale "
+    kernels.require(scale.shape == (C,) and bias.shape == (C,),
+                    lambda: f"{name}: x {tuple(x.shape)}, scale "
                     f"{tuple(scale.shape)}, bias {tuple(bias.shape)}")
     kernels.require(C > 0, f"{name}: empty rows")
     out = torch.empty_like(x)

@@ -17,7 +17,11 @@ the mean over `--reps` calls between CUDA events after two warm-up calls
 dense bf16 peak (989 TFLOP/s). One call before the timing holds the
 kernel against the cuDNN form (both bf16; relative difference at most
 TOL_REL). A shape outside `ops.conv.supports` prints "out of envelope".
-Prints the card's name and power limit. Needs a CUDA card.
+With `--gemm`, each shape also times the same product as a plain GEMM on
+an im2col'd A (M = N*H*W rows of K = 9*Cin64, seeded): the Hopper GEMM
+(`ops.gemm.linear_sm90`, A by 2-D TMA) and `torch.matmul`, which tells
+what the implicit gather costs the conv from what the GEMM costs. Prints
+the card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
-from stswincl_tpu_torch.ops.conv import conv3x3_bn_act, supports
+from stswincl_tpu_torch.ops.conv import K_TILE, conv3x3_bn_act, supports
+from stswincl_tpu_torch.ops.gemm import linear_sm90
 from stswincl_tpu_torch.tools.profile_swin_kernels import PEAK_BF16, device_ms
 
 TOL_REL = 1e-2  # ||kernel - cuDNN|| / ||cuDNN||, both bf16 with fp32 sums
@@ -58,7 +63,21 @@ def cudnn_conv_bn_act(x, w, scale, shift, dilation, relu=True,
     return y.relu() if relu else y
 
 
-def bench_shape(name, N, H, W, cin, cout, d, reps, dev) -> dict:
+def bench_gemm(M, K, cout, reps, dev, gen) -> str:
+    """The conv's product as a plain GEMM on an (M, K) A: the Hopper GEMM
+    and torch.matmul, ms and share of the bf16 peak."""
+    a = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    wt = (torch.randn((cout, K), generator=gen, device=dev)
+          * 0.02).to(torch.bfloat16)
+    flops = 2 * M * K * cout
+    g = device_ms(lambda: linear_sm90(a, wt), reps)
+    m = device_ms(lambda: torch.matmul(a, wt.t()), reps)
+    return (f" | as a GEMM: Hopper {g:7.3f} ms "
+            f"({flops / (g * 1e-3) / PEAK_BF16:6.1%}), torch.matmul "
+            f"{m:7.3f} ms ({flops / (m * 1e-3) / PEAK_BF16:6.1%})")
+
+
+def bench_shape(name, N, H, W, cin, cout, d, reps, dev, gemm=False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     x = torch.randn((N, H, W, cin), generator=gen, device=dev).to(bf)
@@ -91,8 +110,13 @@ def bench_shape(name, N, H, W, cin, cout, d, reps, dev) -> dict:
     else:
         ks = "kernel   (out of envelope)" + " " * 42
     row["cudnn_ms"] = device_ms(cudnn, reps)
+    gs = ""
+    if gemm and row["in_envelope"]:
+        del x, res
+        gs = bench_gemm(N * H * W, 9 * -(-cin // K_TILE) * K_TILE, cout,
+                        reps, dev, gen)
     print(f"{row['shape']:26s} {ks}   cuDNN {row['cudnn_ms']:7.3f} ms "
-          f"({flops / (row['cudnn_ms'] * 1e-3) / PEAK_BF16:6.1%})",
+          f"({flops / (row['cudnn_ms'] * 1e-3) / PEAK_BF16:6.1%}){gs}",
           flush=True)
     return row
 
@@ -101,6 +125,8 @@ def main(argv=None) -> list:
     """Time every shape; returns one dict a shape."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--gemm", action="store_true",
+                    help="also time each product as a plain GEMM")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_conv_kernel: needs a CUDA card")
@@ -110,7 +136,8 @@ def main(argv=None) -> list:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"{smi} | {args.reps} calls a timing", flush=True)
-    rows = [bench_shape(name, N, H, W, cin, cout, d, args.reps, dev)
+    rows = [bench_shape(name, N, H, W, cin, cout, d, args.reps, dev,
+                        args.gemm)
             for N in BATCHES for name, H, W, cin, cout, d in SHAPES]
     torch.cuda.empty_cache()
     return rows

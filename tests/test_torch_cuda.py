@@ -20,8 +20,11 @@ forward and through its Function; rows 13 and 14 on row counts that are not
 multiples of anything the kernels tile by. Rows 12 (MLP), 15 (LayerNorm)
 and 17 (conv) run at the JAX tests' narrow widths and the model's, with
 ragged row counts, forward and (rows 12, 15) through their Functions and
-their modules; row 17 at dilations 1, 2, 4 and 18 (most taps in the
-padding), with and without the residual. The Hopper GEMM of K1 and K2
+their modules; rows 14 and 15 also on more rows than their persistent
+grid holds; row 17 at dilations 1, 2, 4 and 18 (most taps in the
+padding), with and without the residual, and at its envelope's edges
+(Cin 32 and 96, Cout 8, the ASPP's d 18 on 32x40) with the library's
+count of its GEMM form. The Hopper GEMM of K1 and K2
 runs alone against torch.matmul at ragged M, N and K with each epilogue,
 and with K1's row maps (both gathers, the scatter); K6's fused dh / pre
 pair (dpre, h, db1) against its twin at a ragged row count; the
@@ -507,7 +510,7 @@ def test_add_ln_mlp_kernel(dev, gen, C):
         _close(a, b)
 
 
-@pytest.mark.parametrize("C", [256, 512, 1024])
+@pytest.mark.parametrize("C", [256, 512, 1024, 2048])
 @pytest.mark.parametrize("return_sum", [True, False])
 def test_add_layer_norm_kernel(dev, gen, C, return_sum):
     """Row 14 against its twin, and its Function's backward (the formula
@@ -616,8 +619,8 @@ def test_mlp_kernel(dev, gen, C, hidden, exact):
         _close(a, b)
 
 
-@pytest.mark.parametrize("C", [32, 36, 64, 96, 100, 512, 1024, 2048, 2050,
-                               2056, 3072])
+@pytest.mark.parametrize("C", [8, 32, 36, 64, 96, 100, 256, 264, 512, 1024,
+                               2048, 2050, 2056, 3072])
 def test_layer_norm_kernel(dev, gen, C):
     """Row 15 against its twin at the JAX tests' widths (lanes past C
     idle), the model's, and the wide-row path's (C > 2048 or C % 8 != 0:
@@ -670,6 +673,57 @@ def test_conv_kernel(dev, gen, dilation, with_res):
     _close(fn(x2, w2, s2, b2, dilation=dilation, relu=False),
            conv.conv3x3_bn_act_ref(x2, w2, s2, b2, dilation=dilation,
                                    relu=False))
+
+
+@pytest.mark.parametrize("C", [8, 64, 256, 264, 512, 1024, 2048])
+def test_layer_norm_kernels_walk_every_row(dev, gen, C):
+    """Rows 15 and (C a multiple of 256) 14 on more rows than the
+    persistent grid holds at once, a count off every rows-a-block multiple
+    (8 warps x 1-4 rows): every row of the grid-stride loop normalised."""
+    R = 90001
+    x, y = (torch.randn((R, C), generator=gen, device=dev).to(BF)
+            for _ in range(2))
+    scale = 1.0 + 0.5 * torch.randn(C, generator=gen, device=dev)
+    bias = 0.5 * torch.randn(C, generator=gen, device=dev)
+    def rows_close(got, want):  # each row to TOL, not only the whole
+        d = (got.float() - want.float()).norm(dim=-1)
+        assert (d <= TOL * want.float().norm(dim=-1)).all()
+    rows_close(layernorm.fused_layer_norm(x, scale, bias),
+               layernorm.layer_norm_ref(x, scale, bias))
+    if C % 256 == 0:
+        s, n = add_layernorm.add_layer_norm(x, y, scale, bias)
+        s_t, n_t = add_layernorm.add_layer_norm_ref(x, y, scale, bias)
+        assert torch.equal(s, s_t)
+        rows_close(n, n_t)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 32, 40, 1024, 512, 18, False),  # the ASPP's shape: d past H / 2
+    (3, 20, 36, 32, 8, 2, True),        # Cin 32, Cout 8, W off bw
+    (2, 17, 50, 96, 40, 5, True),       # Cin 96: a half-filled k tile
+    (1, 64, 80, 256, 256, 2, False),    # the ResNet's tiling, 8 x 16
+])
+def test_conv_kernel_edge_shapes(dev, gen, case):
+    """Row 17 on the Hopper GEMM at its envelope's edges, held against the
+    twin, with one launch of the library's "conv" form a call and no
+    other GEMM form; a twin with w flipped along kx (every tap's box at
+    the mirror offset) misses the bound tenfold."""
+    N, H, W, cin, cout, d, with_res = case
+    r = _normal(dev, gen)
+    x = r(N, H, W, cin).to(BF)
+    w = r(cout, cin, 3, 3, k=(9 * cin) ** -0.5).to(BF)
+    scale, shift = 0.5 + r(cout).abs(), 0.5 * r(cout)
+    res = r(N, H, W, cout).to(BF) if with_res else None
+    kw = dict(dilation=d, relu=True, residual=res)
+    gemm.launch_counts(reset=True)
+    got = conv.conv3x3_bn_act(x, w, scale, shift, **kw)
+    forms = gemm.launch_counts(reset=True)
+    assert forms == dict.fromkeys(gemm.FORMS, 0) | {"conv": 1}
+    want = conv.conv3x3_bn_act_ref(x, w, scale, shift, **kw)
+    _close(got, want)
+    moved = conv.conv3x3_bn_act_ref(x, w.flip(-1), scale, shift, **kw)
+    assert ((moved.float() - want.float()).norm()
+            / want.float().norm()).item() > 10 * TOL
 
 
 def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
