@@ -11,7 +11,16 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      so that its output is about as large as x; planted faults in the
      twins (K1 without its relative bias and at the wrong shift, K2 at
      the wrong shift, K3 with its 2x2 gather order swapped) must miss the
-     bound tenfold;
+     bound tenfold. K3 also at the stage-1 training shape (32, 64, 80,
+     512), and its backward (`PatchMergeFn`: bf16 products) there against
+     autograd of the fp32 twin, each gradient's cosine >= 0.99 and
+     relative error <= 1e-2. K4 on the composed EndoVis matrices and on a
+     dense random pair of the same shapes (full-row spans), each within
+     TOL_K4_SHARE of its twin; its bound counts the nonzero products of
+     the matrices' spans; two planted faults in its twin (the column
+     matrix shifted by one output column, every span missing its last
+     tap) must drop the share of equal pixels to 0.99 or below. K3 and K4
+     also record `device_ms`, the mean of back-to-back calls;
   2b. hold the backward kernels (K5 attention, K6 epilogue) and K2's
      `m` output against their twins at the full-width training shapes
      (batch 8), every output within TOL_REL, and time both; planted
@@ -104,7 +113,7 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
-read just after. K1, K2, K5, K6 and row 17 launch the Hopper GEMMs from
+read just after. K1-K3, K5, K6 and row 17 launch the Hopper GEMMs from
 C: the library counts those launches by form where it makes them, and
 each path holds them exactly to what the kernels' own launches imply (on
 a train path, with the blocks whose m is saved). Then
@@ -119,6 +128,7 @@ written once); the card's name and power limit (`nvidia-smi`); and, last,
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -129,6 +139,7 @@ import time
 
 TOL_REL = 1e-2        # K1-K3: ||kernel - plain|| / ||plain||
 TOL_K4_SHARE = 0.999  # K4: share of equal pixels
+TOL_K3_BWD_COS = 0.99  # K3's backward: each gradient's cosine to the fp32 twin
 TOL_STREAM_SHARE = 0.999  # streamed vs full-clip kernel route
 TOL_PLAIN_SHARE = 0.98    # kernel route vs plain route (bf16 rounding)
 BS, H, W, OUT_HW, STEPS = 2, 512, 640, (1024, 1280), 10
@@ -314,7 +325,7 @@ def read_launches(wrappers) -> tuple:
     """(each kernel's launches since the reset, the library's GEMM counts
     by form). A kernel's count is its wrapper's; a Hopper GEMM row's is the
     library's, which also counts the launches made inside the C entries of
-    K1, K2, K5 and K6."""
+    K1, K2, K3, K5 and K6."""
     from stswincl_tpu_torch.ops import gemm as gemm_ops
     forms = gemm_ops.launch_counts()
     counts = {k: fn.launches for k, fn in wrappers.items()}
@@ -328,17 +339,19 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
     """The GEMM launches the library counted on a path against those that
     the kernels' own launches imply: K1 two bf16 products (qkv, proj); K2
     fc1 (bf16) and fc2 (bf16 m where the training forward saves it, else
-    the fp32 residual); K5 two bf16 input-gradient products and two weight
-    gradients; K6 dn2 (f32) and two weight gradients, with m saved the
-    fused pair, with m recomputed fc1 + gelu', m (bf16) and dh * gelu';
-    row 17 one "conv" product a call. `m_saved`: the block calls whose K2
-    saves m and whose K6 takes it (0 where nothing is trained; None where
-    the path does not say)."""
+    the fp32 residual); K3 one bf16 product (the 4C -> 2C reduction); K5
+    two bf16 input-gradient products and two weight gradients; K6 dn2
+    (f32) and two weight gradients, with m saved the fused pair, with m
+    recomputed fc1 + gelu', m (bf16) and dh * gelu'; row 17 one "conv"
+    product a call. `m_saved`: the block calls whose K2 saves m and whose
+    K6 takes it (0 where nothing is trained; None where the path does not
+    say)."""
     k1, k2 = counts["swin_block_attention"], counts["swin_block_epilogue"]
+    k3 = counts["patch_merge"]
     k5 = counts["swin_block_attention_bwd"]
     k6 = counts["swin_block_epilogue_bwd"]
     rules = [("bf16 + resid_f32", forms["bf16"] + forms["resid_f32"],
-              2 * k1 + 2 * k2 + 2 * k5 + forms["gelu_grad"]),
+              2 * k1 + 2 * k2 + k3 + 2 * k5 + forms["gelu_grad"]),
              ("gelu_grad + gelu_bwd", forms["gelu_grad"] + forms["gelu_bwd"],
               k6),
              ("dgelu", forms["dgelu"], forms["gelu_grad"]),
@@ -353,6 +366,59 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
     for what, got, want in rules:
         check(got == want, f"{tag}: {what} GEMM launches {got}, the kernels' "
               f"launches imply {want}")
+
+
+def without_last_tap(m, spans):
+    """m with the last nonzero of each row set to 0: the planted fault of
+    a K4 that stops one tap short of every span."""
+    import torch
+    out = m.clone()
+    live = spans[:, 1] > spans[:, 0]
+    rows = torch.arange(m.shape[0], device=m.device)[live]
+    out[rows, spans[live, 1].long() - 1] = 0.0
+    return out
+
+
+def phase_patch_merge_backward(x, params, randn, median_ms) -> dict:
+    """K3's backward through `PatchMergeFn` at x's shape: x bf16, w an fp32
+    parameter cast for the product (as the model holds it), against
+    autograd of the fp32 twin on the same values; each gradient's cosine
+    at or above TOL_K3_BWD_COS and its relative error within TOL_REL (the
+    kernel route rounds n, dn and dW to bf16). Returns the case, the
+    errors and the ms of one forward + backward on each route."""
+    import torch
+    from stswincl_tpu_torch.ops.patch_merge import (patch_merge,
+                                                    patch_merge_ref)
+    BT, H_, W_, C = x.shape
+    g = randn(BT, H_ // 2, W_ // 2, 2 * C)
+    scale, bias, w = params
+    leaves = [x.clone().requires_grad_(), scale.clone().requires_grad_(),
+              bias.clone().requires_grad_(), w.float().requires_grad_()]
+    ref = [t.detach().float().requires_grad_() for t in leaves]
+
+    def kernel_route():
+        return torch.autograd.grad(patch_merge(*leaves), leaves, g)
+
+    def twin():
+        return torch.autograd.grad(patch_merge_ref(*ref), ref, g.float())
+
+    row = {"case": f"{tuple(x.shape)} backward", "cosine": {},
+           "rel_err": {}}
+    for n, t, a, b in zip(("x", "scale", "bias", "w"), leaves,
+                          kernel_route(), twin()):
+        check(a.dtype == t.dtype, f"patch_merge backward: d{n} is {a.dtype}")
+        a, b = a.float().flatten(), b.flatten()
+        row["cosine"][n] = (a @ b / (a.norm() * b.norm())).item()
+        row["rel_err"][n] = ((a - b).norm() / b.norm()).item()
+    row["ms"], row["plain_ms"] = median_ms(kernel_route), median_ms(twin)
+    print(f"  {'patch_merge':22s} {row['case']:34s} forward + backward "
+          f"{row['ms']:.3f} ms (fp32 twin {row['plain_ms']:.3f} ms); "
+          f"cosine {row['cosine']}; rel {row['rel_err']}", flush=True)
+    for n in row["cosine"]:
+        check(row["cosine"][n] >= TOL_K3_BWD_COS and row["rel_err"][n]
+              <= TOL_REL, f"patch_merge backward d{n}: cosine "
+              f"{row['cosine'][n]}, rel {row['rel_err'][n]}")
+    return row
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
@@ -444,11 +510,13 @@ def main() -> None:
                                                     patch_merge_ref)
     from stswincl_tpu_torch.ops.resize import (composed_matrices,
                                                composed_upsample_argmax_cf)
-    from stswincl_tpu_torch.ops.upsample_argmax import (upsample_argmax,
+    from stswincl_tpu_torch.ops.upsample_argmax import (interp_spans,
+                                                        upsample_argmax,
                                                         upsample_argmax_ref)
     from stswincl_tpu_torch.ops.window import (partition_qkv,
                                                shifted_window_attention_mask)
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+    from stswincl_tpu_torch.tools.profile_merge_upsample import k4_work
     from stswincl_tpu_torch.tools.profile_swin_kernels import device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -602,50 +670,81 @@ def main() -> None:
                         xa, ya, *epi_w, **dict(kw, shift=shift + 1)),
                         swin_block_epilogue_ref(xa, ya, *epi_w, **kw)))
     C = 512
-    xm = randn(4 * BS, 64, 80, C)
     pm = (1.0 + randn(4 * C, scale=0.1, dtype=torch.float32),
           randn(4 * C, scale=0.1, dtype=torch.float32),
           uniform(2 * C, 4 * C, fan_in=4 * C))
-    rm = xm.numel() // C // 4  # output rows
-    compare("patch_merge", f"{tuple(xm.shape)}",
-            lambda: patch_merge(xm, *pm), lambda: patch_merge_ref(xm, *pm),
-            (16 * rm * C * C, xm.numel() * 2 + rm * 2 * C * 2
-             + 8 * C * C * 2 + 8 * C * 4))
-    # the 2x2 gather order with its (0, 1) and (1, 0) pixels swapped: the
-    # merge of each 2x2 block transposed
-    planted("patch_merge", f"{tuple(xm.shape)}", "with the 2x2 gather order "
-            "swapped", rel_err(patch_merge_ref(
-                xm.transpose(1, 2).contiguous(), *pm).transpose(1, 2),
-                patch_merge_ref(xm, *pm)))
+    # K3 at the serving shape (bs 2, 4 frames) and the stage-1 training
+    # shape (batch 8): one LayerNorm pass and one Hopper GEMM a call
+    for BT in (4 * BS, 4 * 8):
+        xm = randn(BT, 64, 80, C)
+        rm = xm.numel() // C // 4  # output rows
+        compare("patch_merge", f"{tuple(xm.shape)}",
+                lambda: patch_merge(xm, *pm), lambda: patch_merge_ref(xm, *pm),
+                (16 * rm * C * C, xm.numel() * 2 + rm * 2 * C * 2
+                 + 8 * C * C * 2 + 8 * C * 4), device=True)
+        if BT == 4 * BS:
+            # the 2x2 gather order with its (0, 1) and (1, 0) pixels
+            # swapped: the merge of each 2x2 block transposed
+            planted("patch_merge", f"{tuple(xm.shape)}", "with the 2x2 "
+                    "gather order swapped", rel_err(patch_merge_ref(
+                        xm.transpose(1, 2).contiguous(), *pm).transpose(1, 2),
+                        patch_merge_ref(xm, *pm)))
+    # K3's backward at the training shape (PatchMergeFn: the LayerNorm
+    # recomputed, dn and dW as bf16 products with fp32 accumulation)
+    # against autograd of the fp32 twin on the same values
+    k3_bwd = phase_patch_merge_backward(xm, pm, randn, median_ms)
+    del xm
 
     lcf = randn(BS, 12, 64, 80, dtype=torch.float32)
     mh, mw = (m.to(dev) for m in composed_matrices(64, 80, (H, W), OUT_HW))
-    for exact in (False, True):
-        got = upsample_argmax(lcf, mh, mw, exact)
-        want = upsample_argmax_ref(lcf, mh, mw, exact)
+    sh, sw = interp_spans(mh), interp_spans(mw)
+    # a dense pair (full-row spans: still correct, slower) of the same
+    # shapes, uniform in [0, 1): positive weights, so no class is
+    # cancelled away
+    dh_, dw_ = (torch.rand(m.shape, generator=gen, device=dev)
+                for m in (mh, mw))
+    k4_pairs = {"composed": (mh, mw, sh, sw),
+                "dense": (dh_, dw_, interp_spans(dh_), interp_spans(dw_))}
+    for (pair, (ah, aw, s_h, s_w)), exact in itertools.product(
+            k4_pairs.items(), (False, True)):
+        k4 = functools.partial(upsample_argmax, lcf, ah, aw, exact,
+                               spans=(s_h, s_w))
+        got, want = k4(), upsample_argmax_ref(lcf, ah, aw, exact)
         torch.cuda.synchronize()
         check(got.shape == (BS, *OUT_HW) and got.dtype == torch.int32,
               f"upsample_argmax: {got.shape} {got.dtype}")
         share = (got == want).float().mean().item()
-        nb, nc, h8, w8 = lcf.shape
-        # the cheaper order of the two interpolation products
-        k4_flops = 2 * nb * nc * (h8 * w8 * OUT_HW[1]
-                                  + OUT_HW[0] * h8 * OUT_HW[1])
-        k4_bytes = (lcf.numel() + mh.numel() + mw.numel()) * 4 + got.numel() * 4
-        row = {"case": f"{tuple(lcf.shape)} exact={exact}",
+        row = {"case": f"{tuple(lcf.shape)} {pair} exact={exact}",
                "max_abs_err": (got - want).abs().max().item(),
-               "equal_share": share,
-               "ms": median_ms(lambda: upsample_argmax(lcf, mh, mw, exact)),
+               "equal_share": share, "ms": median_ms(k4),
                "plain_ms": median_ms(
-                   lambda: upsample_argmax_ref(lcf, mh, mw, exact)),
-               "library_ms": None,
-               **bound(k4_flops, k4_bytes, PEAK_F32 if exact else PEAK_BF16)}
+                   lambda: upsample_argmax_ref(lcf, ah, aw, exact)),
+               "library_ms": None, "device_ms": device_ms(k4, 20),
+               **bound(*k4_work(lcf.shape, s_h, s_w),
+                       PEAK_F32 if exact else PEAK_BF16)}
         results.setdefault("upsample_argmax", []).append(row)
         print(f"  {'upsample_argmax':22s} {row['case']:34s} equal "
-              f"{share:.6f} kernel {row['ms']:.3f} ms plain "
-              f"{row['plain_ms']:.3f} ms", flush=True)
-        check(share >= TOL_K4_SHARE, f"upsample_argmax exact={exact}: "
+              f"{share:.6f} kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.3f} ms back to back "
+              f"{row['device_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        check(share >= TOL_K4_SHARE, f"upsample_argmax {row['case']}: "
               f"{share} of pixels equal < {TOL_K4_SHARE}")
+    # planted faults in the twin: each must drop the share of equal pixels
+    # to 0.99 or below, missing TOL_K4_SHARE's 1e-3 tenfold
+    want = upsample_argmax_ref(lcf, mh, mw)
+    for fault, (fh, fw) in (
+            ("with the column matrix shifted by one output column",
+             (mh, mw.roll(1, dims=0))),
+            ("with every span missing its last tap",
+             (without_last_tap(mh, sh), without_last_tap(mw, sw)))):
+        share = (upsample_argmax_ref(lcf, fh, fw) == want).float().mean()
+        print(f"  {'':22s} {'composed':34s} the twin {fault}: equal "
+              f"{share.item():.6f}", flush=True)
+        check(share.item() <= 1 - 10 * (1 - TOL_K4_SHARE),
+              f"upsample_argmax: the twin {fault} keeps {share.item()} of "
+              "pixels equal")
+    del want
     print(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1062,7 +1161,7 @@ def main() -> None:
                     "pallas": "windowed_attention_image",
                     "pallas_windows": "fused_window_attention"}
     # path -> {kernel: launches on that path}; the Hopper GEMM's counts
-    # come from the library (K1, K2, K5 and K6 launch it from C)
+    # come from the library (K1-K3, K5 and K6 launch it from C)
     launches = {"gemm": {k: gemm_launches.get(k, 0) for k in wrappers}}
 
     def serve(route, whole_block=False):
@@ -1283,6 +1382,7 @@ def main() -> None:
     row16 = next(r for r in rows if r["name"] == "whole_swin_block")
     row16["pair_ms"] = pair_ms  # its yardstick; not a library call
     row16["backward"] = results["whole_swin_block_bwd"]
+    next(r for r in rows if r["name"] == "patch_merge")["backward"] = k3_bwd
     for r in rows:  # rows 12 and 17: measured yardsticks, not library
         r.update(extras.get(r["name"], {}))  # calls
     print(json.dumps({"kernels": rows}))

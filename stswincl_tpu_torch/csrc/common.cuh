@@ -250,7 +250,7 @@ struct GemmParams {
   ConvGeom conv;  // EPI_CONV only
 };
 
-// The wmma GEMM (gemm.cu) of K3 and rows 12-13, EPI_BF16 only.
+// The wmma GEMM (gemm.cu) of rows 12-13, EPI_BF16 only.
 cudaError_t gemm_bf16(const GemmParams& p, int epi, cudaStream_t stream);
 
 inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }

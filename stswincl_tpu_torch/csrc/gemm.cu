@@ -1,7 +1,6 @@
-// The wmma GEMM with fp32 accumulation: the products of K3 (reduction)
-// and of rows 12-13 (`gemm_bf16`, EPI_BF16), and the fp32 column sums of
-// K5's bias gradients (`colsum_bf16`). K1, K2, K5 and K6 run on the Hopper
-// GEMM (gemm_sm90.cu).
+// The wmma GEMM with fp32 accumulation: the products of rows 12-13
+// (`gemm_bf16`, EPI_BF16), and the fp32 column sums of K5's bias gradients
+// (`colsum_bf16`). K1-K3, K5 and K6 run on the Hopper GEMM (gemm_sm90.cu).
 //
 // Bound: at the swin shapes (M = 10^4..10^5 tokens, N and K 512..4096) the
 // products are compute-bound on the tensor cores. This version uses

@@ -1,4 +1,4 @@
-// The Hopper GEMMs of K1, K2, K5 and K6, and of the conv (row 17, its
+// The Hopper GEMMs of K1-K3, K5 and K6, and of the conv (row 17, its
 // EPI_CONV form: conv.cu says how the image arrives): wgmma on TMA-fed,
 // 128-byte-swizzled shared memory, warp-specialised.
 //
@@ -102,7 +102,7 @@ namespace {
 
 // Launches since the last reset, counted on the host where each kernel is
 // launched: slot `epi` for gemm_sm90, slot W_SLOT for the weight-gradient
-// GEMM. K1, K2, K5 and K6 launch these from their C entries, where no
+// GEMM. K1-K3, K5 and K6 launch these from their C entries, where no
 // Python wrapper sees them; `stswin_gemm_sm90_launches` reads the counts.
 constexpr int W_SLOT = EPI_CONV + 1;
 std::atomic<long long> launch_counts[W_SLOT + 1];

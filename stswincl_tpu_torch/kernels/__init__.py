@@ -46,7 +46,7 @@ SIGNATURES = {
     "stswin_block_epilogue": [_P] * 15 + [_I] * 7 + [_F, _P],
     "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
-    "stswin_upsample_argmax": [_P] * 4 + [_I] * 7 + [_P],
+    "stswin_upsample_argmax": [_P] * 6 + [_I] * 7 + [_P],
     "stswin_window_attention_image": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     "stswin_window_attention_heads": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
     "stswin_whole_block": [_P] * 18 + [_I] * 10 + [_F, _F, _P],

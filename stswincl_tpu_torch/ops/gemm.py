@@ -1,4 +1,4 @@
-"""The Hopper GEMMs of K1, K2, K5 and K6 (`csrc/gemm_sm90.cu`), called alone.
+"""The Hopper GEMMs of K1-K3, K5 and K6 (`csrc/gemm_sm90.cu`), called alone.
 
 The kernels launch them from their C entries; the wrappers here launch
 each form by itself so that its tests and its profile hold it against
@@ -41,7 +41,7 @@ FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
 def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Launches of each GEMM form (`FORMS`) counted inside the kernel
     library since the last reset, where the kernel is launched: by the
-    wrappers here and by the C entries of K1, K2, K5, K6 and row 17, which
+    wrappers here and by the C entries of K1-K3, K5, K6 and row 17, which
     no wrapper here sees. `reset` sets the counts to 0 after reading."""
     out = (ctypes.c_longlong * len(FORMS))()
     kernels.load().stswin_gemm_sm90_launches(out, int(reset))

@@ -3,16 +3,22 @@ bias-free Linear 4C -> 2C.
 
 Counterpart of `fused_patch_merge` and `patch_merge_ref` in
 `stswincl_tpu/ops/pallas_patch_merge.py`. `patch_merge` launches the CUDA
-kernel in `csrc/patch_merge.cu` on a CUDA tensor and runs the plain twin
-`patch_merge_ref` on a CPU tensor. Chunks keep the reference order
-[x0 | x1 | x2 | x3]; w uses the torch Linear layout (2C, 4C), in any float
-dtype (cast to x's dtype for the product).
+kernel in `csrc/patch_merge.cu` (a LayerNorm pass, then the product on the
+Hopper GEMM; the same bits as the wmma kernel it replaced) on a CUDA
+tensor and runs the plain twin `patch_merge_ref` on a CPU tensor. Chunks
+keep the reference order [x0 | x1 | x2 | x3]; w uses the torch Linear
+layout (2C, 4C), in any float dtype (cast to x's dtype for the product).
 
 When autograd needs a gradient the call goes through `PatchMergeFn`: K3
-forward, and as backward autograd of `patch_merge_ref` on the saved
-inputs, as the JAX package's `_fpm_bwd` (`pallas_patch_merge.py:158`)
-takes the vjp of its reference: the TPU has no patch-merge backward
-kernel, so neither does the port.
+forward; the backward is the vjp of `patch_merge_ref`, as the JAX
+package's `_fpm_bwd` (`pallas_patch_merge.py:158`) takes it (the TPU has
+no patch-merge backward kernel, so neither does the port): the normalised
+features n recomputed by the twin's LayerNorm, dn = g @ w and dW = g^T @ n
+as products in x's dtype with fp32 accumulation (dn rounded to x's dtype,
+dW to x's dtype and then w's, as XLA's vjp rounds them), and the
+LayerNorm's backward and the 2x2 scatter by autograd of the twin's
+LayerNorm. On bf16 tensors the products run on the tensor cores
+(`torch.mm`); an fp32 model keeps fp32 products.
 """
 
 from __future__ import annotations
@@ -23,9 +29,9 @@ import torch.nn.functional as F
 from stswincl_tpu_torch import kernels
 
 
-def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
-    """Plain twin: concat, single-pass fp32 variance LayerNorm, normalised
-    features rounded to x's dtype, matmul with fp32 accumulation."""
+def patch_merge_ln_ref(x, scale, bias, eps: float = 1e-5):
+    """The twin's first half: concat, single-pass fp32 variance LayerNorm,
+    the normalised features n rounded to x's dtype, (BT, H/2, W/2, 4C)."""
     x0 = x[:, 0::2, 0::2, :]
     x1 = x[:, 1::2, 0::2, :]
     x2 = x[:, 0::2, 1::2, :]
@@ -34,7 +40,13 @@ def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
     mu = xc.mean(dim=-1, keepdim=True)
     var = (xc * xc).mean(dim=-1, keepdim=True) - mu * mu
     n = (xc - mu) * torch.rsqrt(var + eps)
-    n = (n * scale.float() + bias.float()).to(x.dtype)
+    return (n * scale.float() + bias.float()).to(x.dtype)
+
+
+def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
+    """Plain twin: `patch_merge_ln_ref`, then the matmul with fp32
+    accumulation."""
+    n = patch_merge_ln_ref(x, scale, bias, eps)
     return F.linear(n.float(), w.float()).to(x.dtype)
 
 
@@ -61,8 +73,11 @@ def _forward_kernel(x, scale, bias, w, eps):
                     and tuple(bias.shape) == (4 * C,)
                     and tuple(w.shape) == (2 * C, 4 * C),
                     f"{name}: parameter shapes do not match C={C}")
-    kernels.require(H % 2 == 0 and W % 2 == 0 and C % 64 == 0,
-                    f"{name}: needs even H, W and C % 64 == 0")
+    kernels.require(H % 2 == 0 and W % 2 == 0 and C % 8 == 0,
+                    f"{name}: needs even H, W and C % 8 == 0")
+    # float2 loads of the LayerNorm's scale and bias
+    scale, bias = (t if t.data_ptr() % 8 == 0 else t.clone()
+                   for t in (scale, bias))
     rows = BT * (H // 2) * (W // 2)
     n = torch.empty((rows, 4 * C), dtype=x.dtype, device=x.device)
     out = torch.empty((BT, H // 2, W // 2, 2 * C), dtype=x.dtype,
@@ -77,9 +92,21 @@ def _forward_kernel(x, scale, bias, w, eps):
 patch_merge.launches = 0
 
 
+def _product(a, b, dtype):
+    """a @ b in a's dtype with fp32 accumulation, rounded to `dtype`. The
+    bf16 product on the card asks for an fp32 output, so that a split of
+    the long reduction (dW sums over every token row) adds in fp32."""
+    if a.dtype == torch.float32:
+        return (a @ b).to(dtype)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32).to(dtype)
+    return (a.float() @ b.float()).to(dtype)
+
+
 class PatchMergeFn(torch.autograd.Function):
-    """K3 forward (the twin on the CPU); backward by autograd of the twin
-    on the saved inputs, the gradient of w in w's own dtype."""
+    """K3 forward (the twin on the CPU); backward the vjp of the twin on
+    the saved inputs (module docstring), the gradient of w in w's own
+    dtype."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w, eps):
@@ -92,9 +119,14 @@ class PatchMergeFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        x, scale, bias, w = ctx.saved_tensors
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            x, scale, bias, w = leaves
-            out = patch_merge_ref(x, scale, bias, w.to(x.dtype), ctx.eps)
-            grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None)
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+            n = patch_merge_ln_ref(*leaves, ctx.eps)
+        C4 = n.shape[-1]
+        g2 = g.reshape(-1, C4 // 2).to(x.dtype)
+        n2 = n.detach().reshape(-1, C4)
+        dn = _product(g2, w.to(x.dtype), x.dtype)
+        dw = _product(g2.t(), n2, x.dtype).to(w.dtype)
+        grads = torch.autograd.grad(n, leaves, dn.reshape(n.shape))
+        return (*grads, dw, None)

@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch.kernels import use_kernels
-from stswincl_tpu_torch.ops.upsample_argmax import (upsample_argmax,
+from stswincl_tpu_torch.ops.upsample_argmax import (interp_spans,
+                                                    upsample_argmax,
                                                     upsample_argmax_ref)
 
 
@@ -97,6 +98,13 @@ def _device_matrices(h, w, mid_hw, out_hw, align_mid, align_out, device):
     return mh.to(device), mw.to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def _device_spans(h, w, mid_hw, out_hw, align_mid, align_out, device):
+    """K4's `interp_spans` of `_device_matrices`, built once per shape."""
+    return tuple(interp_spans(m) for m in _device_matrices(
+        h, w, mid_hw, out_hw, align_mid, align_out, device))
+
+
 def composed_upsample_argmax_cf(lcf: torch.Tensor, mid_hw: tuple,
                                 out_hw: tuple, align_mid: bool = False,
                                 align_out: bool = True, exact: bool = False,
@@ -105,7 +113,10 @@ def composed_upsample_argmax_cf(lcf: torch.Tensor, mid_hw: tuple,
     channels-first head-resolution logits (B, C, h, w) -> (B, OH, OW)
     int32. `kernels` (None: iff lcf is on CUDA) picks K4 or its twin."""
     _, _, h, w = lcf.shape
-    mh, mw = _device_matrices(h, w, tuple(mid_hw), tuple(out_hw), align_mid,
-                              align_out, lcf.device)
-    fn = upsample_argmax if use_kernels(kernels, lcf) else upsample_argmax_ref
-    return fn(lcf.float().contiguous(), mh, mw, exact)
+    key = (h, w, tuple(mid_hw), tuple(out_hw), align_mid, align_out,
+           lcf.device)
+    mh, mw = _device_matrices(*key)
+    if use_kernels(kernels, lcf):
+        return upsample_argmax(lcf.float().contiguous(), mh, mw, exact,
+                               spans=_device_spans(*key))
+    return upsample_argmax_ref(lcf.float().contiguous(), mh, mw, exact)

@@ -30,10 +30,24 @@ def upsample_argmax_ref(lcf: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor,
     return torch.argmax(y, dim=1).to(torch.int32)
 
 
+def interp_spans(m: torch.Tensor) -> torch.Tensor:
+    """(rows, 2) int32 [lo, hi) of the nonzero columns of each row of the
+    (rows, n) matrix m, on m's device and without a host sync; an all-zero
+    row gets the empty span [0, 0). The span covers every nonzero of its
+    row, zeros between them included."""
+    n = m.shape[1]
+    col = torch.arange(n, device=m.device)
+    nz = m != 0
+    hi = torch.where(nz, col + 1, 0).amax(dim=1)
+    lo = torch.minimum(torch.where(nz, col, n).amin(dim=1), hi)
+    return torch.stack([lo, hi], dim=1).to(torch.int32)
+
+
 def upsample_argmax(lcf: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor,
-                    exact: bool = False) -> torch.Tensor:
+                    exact: bool = False, spans=None) -> torch.Tensor:
     """lcf: (B, C, h, w) fp32 logits; mh: (OH, h), mw: (OW, w) fp32
-    interpolation matrices -> (B, OH, OW) int32 predictions."""
+    interpolation matrices -> (B, OH, OW) int32 predictions. `spans`:
+    (interp_spans(mh), interp_spans(mw)), or None to compute them here."""
     if lcf.device.type == "cpu":
         return upsample_argmax_ref(lcf, mh, mw, exact)
     name = "upsample_argmax"
@@ -50,10 +64,17 @@ def upsample_argmax(lcf: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor,
     kernels.require(w * 128 * 4 + 16 * (h + w) * 4 <= kernels.SMEM_LIMIT,
                     f"{name}: input width {w} does not fit shared memory")
     OH, OW = mh.shape[0], mw.shape[0]
+    sh, sw = (interp_spans(mh), interp_spans(mw)) if spans is None else spans
+    kernels.require(sh.dtype == torch.int32 and sw.dtype == torch.int32
+                    and tuple(sh.shape) == (OH, 2)
+                    and tuple(sw.shape) == (OW, 2),
+                    f"{name}: spans must be int32 (OH, 2) and (OW, 2)")
+    kernels.require_on(lcf.device, name, sh, sw)
     out = torch.empty((B, OH, OW), dtype=torch.int32, device=lcf.device)
     P = kernels.ptr
     kernels.launch("stswin_upsample_argmax", lcf.device, P(lcf), P(mh),
-                   P(mw), P(out), B, C, h, w, OH, OW, 1 if exact else 0)
+                   P(mw), P(sh), P(sw), P(out), B, C, h, w, OH, OW,
+                   1 if exact else 0)
     upsample_argmax.launches += 1
     return out
 

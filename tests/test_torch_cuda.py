@@ -131,6 +131,48 @@ def test_patch_merge_kernel(dev, gen):
     _close(patch_merge.patch_merge(x, *p), patch_merge.patch_merge_ref(x, *p))
 
 
+def _pm_params(dev, gen, C):
+    f = lambda *s, k=1.0, o=0.0: torch.randn(s, generator=gen,
+                                             device=dev) * k + o
+    return (f(4 * C, k=0.1, o=1.0), f(4 * C, k=0.1),
+            f(2 * C, 4 * C, k=(4 * C) ** -0.5).to(BF))
+
+
+@pytest.mark.parametrize("C", [64, 512, 640])
+def test_patch_merge_kernel_widths(dev, gen, C):
+    """The LayerNorm pass with the row in registers (C <= 512, lanes past C
+    idle at 64) and read twice (640), ragged GEMM rows (3 * 4 * 5 = 60); one
+    bf16-form Hopper GEMM launch a call in the library's count."""
+    x = torch.randn((3, 8, 10, C), generator=gen, device=dev).to(BF)
+    p = _pm_params(dev, gen, C)
+    gemm.launch_counts(reset=True)
+    got = patch_merge.patch_merge(x, *p)
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {"bf16": 1}
+    _close(got, patch_merge.patch_merge_ref(x, *p))
+
+
+def test_patch_merge_backward_bf16(dev, gen):
+    """PatchMergeFn on bf16 x and w (an fp32 w, cast for the product, as the
+    model's parameters are): its gradients against autograd of the fp32
+    twin on the same values, each within 1e-2 (bf16 rounding of dn, dW and
+    the recomputed n)."""
+    C = 128
+    x = torch.randn((3, 8, 10, C), generator=gen, device=dev).to(BF)
+    s, b, w = _pm_params(dev, gen, C)
+    w = w.float()
+    g = torch.randn((3, 4, 5, 2 * C), generator=gen, device=dev).to(BF)
+    leaves = [t.clone().requires_grad_() for t in (x, s, b, w)]
+    got = torch.autograd.grad(patch_merge.patch_merge(*leaves), leaves, g)
+    ref = [t.detach().float().requires_grad_() for t in (x, s, b, w)]
+    want = torch.autograd.grad(patch_merge.patch_merge_ref(*ref), ref,
+                               g.float())
+    for a, t in zip(got, (x, s, b, w)):
+        assert a.dtype == t.dtype
+    for a, r in zip(got, want):
+        _close(a, r, same_dtype=False)
+
+
 @pytest.mark.parametrize("exact", [True, False])
 def test_upsample_argmax_kernel(dev, gen, exact):
     x = torch.randn((2, 5, 16, 24), generator=gen, device=dev)
@@ -144,6 +186,45 @@ def test_upsample_argmax_kernel(dev, gen, exact):
     ties = torch.cat([x[:, 1:2] - 1.0, x[:, 1:2], x[:, 1:2]], dim=1)
     assert (upsample_argmax.upsample_argmax(ties.contiguous(), mh, mw,
                                             exact) == 1).all()
+
+
+def _k4_pairs(dev, gen):
+    """(name, x, mh, mw) cases off the banded common case: a dense random
+    pair, an all-zero row and column, spans that are not monotone, the
+    CaDIS protocol's matrices (67 x 84 head, align_out False)."""
+    x = torch.randn((2, 5, 16, 24), generator=gen, device=dev)
+    mh, mw = (m.to(dev) for m in composed_matrices(16, 24, (128, 192),
+                                                   (200, 300)))
+    zh, zw = mh.clone(), mw.clone()
+    zh[7], zw[130] = 0.0, 0.0
+    perm_h = torch.randperm(200, generator=gen, device=dev)
+    perm_w = torch.randperm(300, generator=gen, device=dev)
+    xc = torch.randn((1, 12, 67, 84), generator=gen, device=dev)
+    ch, cw = (m.to(dev) for m in composed_matrices(
+        67, 84, (536, 672), (540, 960), align_out=False))
+    return [("dense", x, torch.rand((70, 16), generator=gen, device=dev),
+             torch.rand((150, 24), generator=gen, device=dev)),
+            ("zero row", x, zh, zw),
+            ("not monotone", x, mh[perm_h], mw[perm_w]),
+            ("cadis", xc, ch, cw)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_upsample_argmax_kernel_off_band(dev, gen, exact):
+    """The banded kernel on matrices whose spans are full, empty or out of
+    order, and at the CaDIS shapes: within 99.9 % of pixels of its twin,
+    and the same with the spans given as computed."""
+    for name, x, mh, mw in _k4_pairs(dev, gen):
+        n = upsample_argmax.upsample_argmax.launches
+        got = upsample_argmax.upsample_argmax(x, mh, mw, exact)
+        want = upsample_argmax.upsample_argmax_ref(x, mh, mw, exact)
+        share = (got == want).float().mean().item()
+        assert share >= 0.999, (name, share)
+        spans = (upsample_argmax.interp_spans(mh),
+                 upsample_argmax.interp_spans(mw))
+        assert torch.equal(upsample_argmax.upsample_argmax(
+            x, mh, mw, exact, spans=spans), got), name
+        assert upsample_argmax.upsample_argmax.launches == n + 2
 
 
 BWD_CASES = {  # (T, H, W, C, heads, ws): stage-1-like and stage-2-like
