@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its seconds; any failure raises and exits non-zero):
+Phases (each prints its seconds). A failed check is printed and the run
+goes on, so every phase is driven and measured; the script then prints the
+`kernels` line and exits non-zero without the last line. An error that
+stops a phase exits non-zero at once:
   1. build the hand-written CUDA kernels from `stswincl_tpu_torch/csrc/`;
   2. hold each forward kernel against its plain PyTorch twin at the
      serving path's full-width shapes, in bf16 (K4 also in `exact` fp32),
@@ -62,12 +65,18 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   2d. hold the whole-block kernel (Pallas row 16) against its twin at
      the full-width serving and batch-8 training shapes of both stages,
      with weights drawn so that the attention branch is as large as x
-     (a twin without its relative bias must miss the bound tenfold), its
-     backward at the training shapes (through its autograd Function: K1,
-     K2, K6 and K5) against the twin's autograd, and time it beside the
-     K1 + K2 pair on the same inputs; hold rows 13 (add + LN + MLP) and
-     14 (add + LN) against their twins at the kernel profiler's shapes,
-     row 14 timed in single calls and back to back (`device_ms`);
+     (planted faults: a twin without its relative bias, and at stage 2
+     one whose attention skips the last window of each 128-row tile,
+     must miss the bound tenfold), print its largest difference from the
+     K1 + K2 pair with m rounded, hold the library's GEMM counts at 0
+     over its calls, its backward at the training shapes (through its
+     autograd Function: K1, K2, K6 and K5) against the twin's autograd,
+     and time it in single calls and back to back (`device_ms`) beside
+     the K1 + K2 pair on the same inputs; hold rows 13 (add + LN + MLP,
+     two bf16-form Hopper GEMM launches a call, counted) and 14 (add +
+     LN) against their twins at the kernel profiler's shapes, timed in
+     single calls and back to back, row 13 beside PyTorch's add,
+     F.layer_norm and three MLP calls;
   3c. serve the weights of phase 3 with `whole_block=True`: streamed ==
      full clip, kernel route == plain route and == the phase-3 route on
      their shares of pixels, row 16 launched once per W-MSA block call (7
@@ -75,14 +84,20 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   4e. train with `whole_block=True` from the phase-4 weights on the
      phase-4d batch: one step against the plain route to the phase-4
      bounds, each gradient's 1 - cosine also within TOL_NOISE_FACTOR of
-     that of phase 4's route on the same batch (the control of 4d too),
-     then five steps: falling losses, ms/step, peak memory, row 16
-     launched once per W-MSA block call, K1, K2, K5 and K6 once per block
-     call (the W-MSA backward recomputes the pair);
+     that of a control on the same batch: the same route with row 16's
+     function on the pair's kernels (`whole_swin_block_pair` with m
+     rounded: K1, K2's m-output form, K6 taking that m, K5; its plain
+     route is 4e's own), itself held to the absolute floor. Then five
+     steps: falling losses, ms/step, peak memory, row 16 launched once per
+     W-MSA block call, K1, K2, K5 and K6 once per block call (the W-MSA
+     backward recomputes the pair). Both 4e runs are also printed (not
+     held) against the 4d control, which adds the fp32 m at stage 1;
   2e. hold rows 12 (the MLP, erf and tanh), 15 (LayerNorm) and 17 (the
      dilated conv + folded BN + residual + ReLU) against their twins at
      full width: row 12 at the batch-8 block shapes of both stages beside
-     cuBLAS's F.linear -> F.gelu -> F.linear; row 15 at (163840, 512),
+     cuBLAS's F.linear -> F.gelu -> F.linear, both timed in single calls
+     and back to back, its two bf16-form Hopper GEMM launches a call
+     counted by the library; row 15 at (163840, 512),
      (40960, 1024) and (40960, 2048) beside F.layer_norm; row 17 at three
      of the conv profiler's shapes and at the serving ASPP's dilated
      branches, 1024 -> 512 at dilation 12 and 18 on the model's (2, 32,
@@ -101,7 +116,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
      block shapes;
   6. drive the entry points of rows 12, 15 and 17: the `Mlp` module at
      the stage-1 width and `FusedLayerNorm`, each forward without and
-     with autograd (then backward), held against their plain routes, and
+     with autograd (then backward), held against their plain routes (the
+     module's forward then timed back to back beside cuBLAS's three
+     calls), and
      the conv profiler (`tools.profile_conv_kernel.main`) with few
      repeats; one row-12 or row-15 launch a module forward, one row-17
      launch a kernel call of the profiler;
@@ -113,10 +130,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
-read just after. K1-K3, K5, K6 and row 17 launch the Hopper GEMMs from
-C: the library counts those launches by form where it makes them, and
-each path holds them exactly to what the kernels' own launches imply (on
-a train path, with the blocks whose m is saved). Then
+read just after. K1-K3, K5, K6, rows 12, 13 and 17 launch the Hopper
+GEMMs from C: the library counts those launches by form where it makes
+them, and each path holds them exactly to what the kernels' own launches
+imply (on a train path, with the blocks whose m is saved); row 16 runs
+its products inside its one launch and adds none. Then
 come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
@@ -127,6 +145,7 @@ written once); the card's name and power limit (`nvidia-smi`); and, last,
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -136,6 +155,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 
 TOL_REL = 1e-2        # K1-K3: ||kernel - plain|| / ||plain||
 TOL_K4_SHARE = 0.999  # K4: share of equal pixels
@@ -187,9 +207,15 @@ def seeded_batch(batch: int, seed: int):
     return images, labels.astype(np.int32)
 
 
+FAILED = []  # the message of each failed check, in order
+
+
 def check(cond: bool, msg: str) -> None:
+    """Record a failed check and go on; `main` exits non-zero at its end
+    if any failed."""
     if not cond:
-        raise RuntimeError(f"chip_smoke: {msg}")
+        FAILED.append(msg)
+        print(f"  CHECK FAILED: {msg}", flush=True)
 
 
 def rel_err(got, want) -> float:
@@ -295,6 +321,33 @@ def attention_bwd_without_rowsum(x, wqkv, bqkv, wproj, bproj, bias, mask, g,
         return torch.autograd.grad(out, leaves, g)
 
 
+def whole_block_without_last_window(x, params, cfg, windows_per_tile):
+    """Row 16's twin with a planted fault of its tiling: the attention
+    output of the last window of each tile of `windows_per_tile` windows
+    (window order: image, then window rows, then columns) left at zero, as
+    if the attention phase skipped it."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.add_ln_mlp import (
+        swin_block_epilogue_with_m_ref)
+    from stswincl_tpu_torch.ops.block_attention import (
+        windowed_attention_image_ref)
+    heads, scale, ws = cfg
+    wqkv, bqkv, wproj, bproj, bias, mask = params[:6]
+    B, T, H, W, C = x.shape
+    qkv = F.linear(x.float(), wqkv.float(), bqkv.float()).to(x.dtype)
+    attn = windowed_attention_image_ref(qkv, bias, mask, heads, scale, ws)
+    nWh, nWw = H // ws, W // ws
+    win = (torch.arange(B, device=x.device)[:, None, None] * nWh * nWw
+           + (torch.arange(H, device=x.device) // ws)[None, :, None] * nWw
+           + (torch.arange(W, device=x.device) // ws)[None, None, :])
+    last = (win % windows_per_tile == windows_per_tile - 1)[:, None, :, :,
+                                                            None]
+    attn = attn.masked_fill(last, 0)
+    y = F.linear(attn.float(), wproj.float(), bproj.float()).to(x.dtype)
+    return swin_block_epilogue_with_m_ref(x, y, *params[6:])[0]
+
+
 def planted(kname: str, case: str, fault: str, moved: float) -> None:
     """A twin with a planted fault must miss the bound TOL_REL that its
     kernel is held to tenfold, or the check could not see that fault."""
@@ -308,6 +361,40 @@ def planted(kname: str, case: str, fault: str, moved: float) -> None:
 # `ops.gemm.launch_counts` that each counts
 GEMM_ROWS = {"linear_sm90": ("bf16", "resid_f32", "gelu_grad", "dgelu", "f32"),
              "gelu_bwd_sm90": ("gelu_bwd",), "wgrad_sm90": ("wgrad",)}
+
+
+# the attention kernel each route launches in place of K1
+ROUTE_KERNEL = {"pallas_full": "swin_block_attention",
+                "pallas": "windowed_attention_image",
+                "pallas_windows": "fused_window_attention"}
+
+
+def kernel_wrappers() -> dict:
+    """Each row of the `kernels` line -> the wrapper whose `launches` the
+    main paths read (the Hopper GEMM rows read the library's counts)."""
+    from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp,
+                                        block_attention, conv, gemm,
+                                        layernorm, mlp, patch_merge,
+                                        swin_block, upsample_argmax)
+    from stswincl_tpu_torch.ops.attention import fused_window_attention
+    return {
+        "swin_block_attention": block_attention.swin_block_attention,
+        "swin_block_epilogue": add_ln_mlp.swin_block_epilogue,
+        "patch_merge": patch_merge.patch_merge,
+        "upsample_argmax": upsample_argmax.upsample_argmax,
+        "swin_block_attention_bwd": block_attention.swin_block_attention_bwd,
+        "swin_block_epilogue_bwd": add_ln_mlp.swin_block_epilogue_bwd,
+        "windowed_attention_image": block_attention.windowed_attention_image,
+        "fused_window_attention": fused_window_attention,
+        "whole_swin_block": swin_block.whole_swin_block,
+        "add_ln_mlp": add_ln_mlp.add_ln_mlp,
+        "add_layer_norm": add_layernorm.add_layer_norm,
+        "fused_mlp": mlp.fused_mlp,
+        "fused_layer_norm": layernorm.fused_layer_norm,
+        "conv3x3_bn_act": conv.conv3x3_bn_act,
+        "linear_sm90": gemm.linear_sm90,
+        "gelu_bwd_sm90": gemm.gelu_bwd_sm90,
+        "wgrad_sm90": gemm.wgrad_sm90}
 
 
 def reset_launches(wrappers) -> None:
@@ -342,16 +429,19 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
     the fp32 residual); K3 one bf16 product (the 4C -> 2C reduction); K5
     two bf16 input-gradient products and two weight gradients; K6 dn2
     (f32) and two weight gradients, with m saved the fused pair, with m
-    recomputed fc1 + gelu', m (bf16) and dh * gelu'; row 17 one "conv"
-    product a call. `m_saved`: the block calls whose K2 saves m and whose
-    K6 takes it (0 where nothing is trained; None where the path does not
-    say)."""
+    recomputed fc1 + gelu', m (bf16) and dh * gelu'; rows 12 and 13 two
+    bf16 products (fc1, fc2); row 16 none (its products run inside its one
+    launch); row 17 one "conv" product a call. `m_saved`: the block calls
+    whose K2 saves m and whose K6 takes it (0 where nothing is trained;
+    None where the path does not say)."""
     k1, k2 = counts["swin_block_attention"], counts["swin_block_epilogue"]
     k3 = counts["patch_merge"]
     k5 = counts["swin_block_attention_bwd"]
     k6 = counts["swin_block_epilogue_bwd"]
+    mlps = counts["fused_mlp"] + counts["add_ln_mlp"]
     rules = [("bf16 + resid_f32", forms["bf16"] + forms["resid_f32"],
-              2 * k1 + 2 * k2 + k3 + 2 * k5 + forms["gelu_grad"]),
+              2 * k1 + 2 * k2 + k3 + 2 * k5 + forms["gelu_grad"]
+              + 2 * mlps),
              ("gelu_grad + gelu_bwd", forms["gelu_grad"] + forms["gelu_bwd"],
               k6),
              ("dgelu", forms["dgelu"], forms["gelu_grad"]),
@@ -962,6 +1052,7 @@ def main() -> None:
 
     # ---- phase 2d: the whole-block kernel (row 16); rows 13 and 14 -------
     t0 = time.perf_counter()
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
     from stswincl_tpu_torch.ops import swin_block as wb_ops
     from stswincl_tpu_torch.ops.add_layernorm import (add_layer_norm,
                                                       add_layer_norm_ref)
@@ -996,12 +1087,28 @@ def main() -> None:
         cfgw = (heads, (C // heads) ** -0.5, ws)
         R = x.numel() // C
         case = f"stage{s} {tuple(x.shape)}"
+        gemm_ops.launch_counts(reset=True)
         compare("whole_swin_block", case,
                 lambda: wb_ops.whole_swin_block(x, *params, *cfgw),
                 lambda: wb_ops.whole_swin_block_ref(x, *params, *cfgw),
                 (8 * R * C * C + 4 * R * TN * C + 4 * R * C * hidden,
                  2 * R * C * 2 + (4 * C * C + 2 * C * hidden) * 2
-                 + (9 * C + hidden) * 4 + heads * TN * TN * 4))
+                 + (9 * C + hidden) * 4 + heads * TN * TN * 4), device=True)
+        torch.cuda.synchronize()
+        forms = gemm_ops.launch_counts()
+        check(forms == dict.fromkeys(gemm_ops.FORMS, 0), f"row 16 {case}: "
+              f"the library counted GEMM launches {forms}, expected none")
+        # the K1 + K2 pair with m rounded (K2's `m_out` form): row 16 sums
+        # every product in the Hopper GEMM's order, runs K1's attention core
+        # and K2's LayerNorm order, so it should carry the same bits
+        got = wb_ops.whole_swin_block(x, *params, *cfgw)
+        pair_m = wb_ops.whole_swin_block_pair(x, *params, *cfgw,
+                                              m_out=True)
+        pair_diff = (got.float() - pair_m.float()).abs().max().item()
+        del got, pair_m
+        print(f"  {'':22s} {case:34s} largest |row 16 - (K1 + K2 with m "
+              f"rounded)| = {pair_diff:.3e}", flush=True)
+        results["whole_swin_block"][-1]["pair_m_rounded_max_abs"] = pair_diff
         # a planted fault: the twin without its relative bias must lie far
         # outside the bound the kernel is held to
         want = wb_ops.whole_swin_block_ref(x, *params, *cfgw).float()
@@ -1017,9 +1124,21 @@ def main() -> None:
               flush=True)
         check(moved > 10 * TOL_REL, f"whole_swin_block {case}: dropping the "
               f"relative bias moves the output by only {moved}")
-        pair_ms[case] = median_ms(lambda: swin_block_epilogue(
-            x, swin_block_attention(x, *params[:6], *cfgw), *params[6:],
-            ws=ws))
+        if s == 2:
+            # a fault only the tiling shows: the attention phase skipping
+            # the last window of each 128-row tile (4 windows a tile)
+            planted("whole_swin_block", case,
+                    "without the last window of each tile",
+                    rel_err(whole_block_without_last_window(
+                        x, params, cfgw, wb_ops.TILE_ROWS // TN),
+                        wb_ops.whole_swin_block_ref(x, *params, *cfgw)))
+
+        def pair():
+            return swin_block_epilogue(
+                x, swin_block_attention(x, *params[:6], *cfgw), *params[6:],
+                ws=ws)
+        pair_ms[case] = {"ms": median_ms(pair), "device_ms": device_ms(pair,
+                                                                       20)}
         # device-memory bytes of one call by design (computed from the
         # shapes, not measured), each intermediate written once and read
         # once (GEMM re-reads counted once), bf16 2 and fp32 4 bytes: row
@@ -1031,7 +1150,8 @@ def main() -> None:
         bytes16 = R * (2 * 2 * C + 2 * C + 2 * 2 * 3 * C + 2 * 2 * C
                        + 2 * 2 * C + 2 * 2 * hidden + 5 * 4 * C)
         print(f"  {'K1 + K2 pair':22s} {case:34s} on the same inputs "
-              f"{pair_ms[case]:.3f} ms (measured)", flush=True)
+              f"{pair_ms[case]['ms']:.3f} ms, back to back "
+              f"{pair_ms[case]['device_ms']:.4f} ms (measured)", flush=True)
         print(f"  {'':22s} {case:34s} design count, not measured: "
               f"device-memory bytes row 16 {bytes16 / 1e9:.3f} GB, the pair "
               f"{(bytes16 + R * 4 * C) / 1e9:.3f} GB, x and out once "
@@ -1061,6 +1181,7 @@ def main() -> None:
             del given, g
         del x, params
         torch.cuda.empty_cache()
+    row13_chain = {}  # case -> ms of PyTorch's add, LN and three MLP calls
     for C, R in ((512, 163840), (1024, 40960)):  # the profiler's shapes
         hidden = 4 * C
         xt, yt = randn(R, C), randn(R, C)
@@ -1070,10 +1191,34 @@ def main() -> None:
                uniform(hidden, fan_in=C, dtype=torch.float32),
                uniform(C, hidden, fan_in=hidden),
                uniform(C, fan_in=hidden, dtype=torch.float32))
-        compare_outputs("add_ln_mlp", f"({R}, {C})",
+        case = f"({R}, {C})"
+        reset_launches({"add_ln_mlp": add_ln_mlp})
+        compare_outputs("add_ln_mlp", case,
                         lambda: add_ln_mlp(xt, yt, *p13),
                         lambda: add_ln_mlp_ref(xt, yt, *p13), ("s", "m"),
-                        mlp_work(R, C, hidden, 4))
+                        mlp_work(R, C, hidden, 4), device=True)
+        torch.cuda.synchronize()
+        forms = gemm_ops.launch_counts()
+        print(f"  {'':24s} {case:44s} row 13 launches {add_ln_mlp.launches}"
+              f", Hopper GEMM launches by form {forms}", flush=True)
+        check(forms == dict.fromkeys(gemm_ops.FORMS, 0)
+              | {"bf16": 2 * add_ln_mlp.launches}, f"row 13 {case}: the "
+              f"library counted {forms} for {add_ln_mlp.launches} launches")
+        # beside it, PyTorch's add, F.layer_norm and F.linear -> F.gelu ->
+        # F.linear on cuBLAS, bf16 (the same function in five calls)
+        lw = [t.to(bf16) for t in p13]
+
+        def chain():
+            s32 = xt + yt
+            return s32, F.linear(F.gelu(F.linear(
+                F.layer_norm(s32, (C,), lw[0], lw[1], 1e-5), p13[2], lw[3])),
+                p13[4], lw[5])
+        row13_chain[case] = {"ms": median_ms(chain),
+                             "device_ms": device_ms(chain, 20)}
+        print(f"  {'add-LN-linear-gelu-linear':24s} {case:44s} "
+              f"{row13_chain[case]['ms']:.3f} ms, back to back "
+              f"{row13_chain[case]['device_ms']:.4f} ms (PyTorch, bf16)",
+              flush=True)
         ln = p13[:2]
         compare("add_layer_norm", f"({R}, {C}) norm only",
                 lambda: add_layer_norm(xt, yt, *ln, return_sum=False)[1],
@@ -1094,15 +1239,18 @@ def main() -> None:
     # ---- phase 2e: rows 12, 15 and 17 ------------------------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.ops import gemm as gemm_ops
-    reset_launches({"conv3x3_bn_act": conv3x3_bn_act})
+    reset_launches({"conv3x3_bn_act": conv3x3_bn_act, "fused_mlp": fused_mlp})
     extras = phase_offpath_kernels(dev, bf16, randn, uniform, median_ms,
                                    compare)
     forms = gemm_ops.launch_counts()
-    print(f"  row 17 launches {conv3x3_bn_act.launches}; Hopper GEMM "
-          f"launches by form (counted in the library): {forms}", flush=True)
+    print(f"  row 12 launches {fused_mlp.launches}, row 17 launches "
+          f"{conv3x3_bn_act.launches}; Hopper GEMM launches by form "
+          f"(counted in the library): {forms}", flush=True)
     check(forms == dict.fromkeys(gemm_ops.FORMS, 0)
-          | {"conv": conv3x3_bn_act.launches}, "phase 2e: the library "
-          f"counted {forms}, row 17's wrapper {conv3x3_bn_act.launches}")
+          | {"bf16": 2 * fused_mlp.launches,
+             "conv": conv3x3_bn_act.launches}, "phase 2e: the library "
+          f"counted {forms}, row 12's wrapper {fused_mlp.launches}, row "
+          f"17's {conv3x3_bn_act.launches}")
     print(f"phase 2e rows 12, 15 and 17 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1142,24 +1290,8 @@ def main() -> None:
                         device=dev) * 2 - 1
     calibrate_batchnorm(model, frames[:, 0:4])
     weights = model.state_dict()
-    wrappers = {"swin_block_attention": swin_block_attention,
-                "swin_block_epilogue": swin_block_epilogue,
-                "patch_merge": patch_merge,
-                "upsample_argmax": upsample_argmax,
-                "swin_block_attention_bwd": attn_ops.swin_block_attention_bwd,
-                "swin_block_epilogue_bwd": epi_ops.swin_block_epilogue_bwd,
-                "windowed_attention_image": windowed_attention_image,
-                "fused_window_attention": fused_window_attention,
-                "whole_swin_block": wb_ops.whole_swin_block,
-                "add_ln_mlp": add_ln_mlp,
-                "add_layer_norm": add_layer_norm,
-                "fused_mlp": fused_mlp,
-                "fused_layer_norm": fused_layer_norm,
-                "conv3x3_bn_act": conv3x3_bn_act, **gemm_wrappers}
-    # the attention kernel each route launches in place of K1
-    route_kernel = {"pallas_full": "swin_block_attention",
-                    "pallas": "windowed_attention_image",
-                    "pallas_windows": "fused_window_attention"}
+    wrappers = kernel_wrappers()
+    route_kernel = ROUTE_KERNEL
     # path -> {kernel: launches on that path}; the Hopper GEMM's counts
     # come from the library (K1-K3, K5 and K6 launch it from C)
     launches = {"gemm": {k: gemm_launches.get(k, 0) for k in wrappers}}
@@ -1301,7 +1433,7 @@ def main() -> None:
 
     # ---- phase 6: the entry points of rows 12, 15 and 17 -----------------
     t0 = time.perf_counter()
-    phase_entry_points(dev, bf16, randn, wrappers, launches)
+    mlp_module_ms = phase_entry_points(dev, bf16, randn, wrappers, launches)
     print(f"phase 6 the Mlp and FusedLayerNorm modules, the conv profiler: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1381,12 +1513,28 @@ def main() -> None:
             rows[-1]["device_ms"] = sum(c["device_ms"] for c in cases)
     row16 = next(r for r in rows if r["name"] == "whole_swin_block")
     row16["pair_ms"] = pair_ms  # its yardstick; not a library call
+    next(r for r in rows if r["name"] == "add_ln_mlp")[
+        "add_ln_linear_gelu_linear_ms"] = row13_chain  # not a library call
+    next(r for r in rows if r["name"] == "fused_mlp")[
+        "mlp_module_ms"] = mlp_module_ms
+    for name, design in (
+            ("fused_mlp", "two launches of the Hopper GEMM's bf16 form "
+             "(gemm_sm90.cu)"),
+            ("add_ln_mlp", "K2's LN pass, then row 12's two bf16-form "
+             "Hopper GEMM launches"),
+            ("whole_swin_block", "one persistent launch: the Hopper GEMM "
+             "tile (sm90_tile.cuh) for its four products, K1's register "
+             "attention core (attention_core.cuh), K2's LN order")):
+        next(r for r in rows if r["name"] == name)["design"] = design
     row16["backward"] = results["whole_swin_block_bwd"]
     next(r for r in rows if r["name"] == "patch_merge")["backward"] = k3_bwd
     for r in rows:  # rows 12 and 17: measured yardsticks, not library
         r.update(extras.get(r["name"], {}))  # calls
     print(json.dumps({"kernels": rows}))
     print(smi)
+    if FAILED:
+        raise SystemExit(f"chip_smoke: {len(FAILED)} checks failed: "
+                         + "; ".join(FAILED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1407,6 +1555,7 @@ def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
     from stswincl_tpu_torch.ops.mlp import fused_mlp, mlp_ref
     from stswincl_tpu_torch.tools.profile_conv_kernel import (
         cudnn_conv_bn_act)
+    from stswincl_tpu_torch.tools.profile_swin_kernels import device_ms
     f32 = torch.float32
 
 
@@ -1425,13 +1574,20 @@ def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
         compare("fused_mlp", case, lambda: fused_mlp(xt, *p12, exact),
                 lambda: mlp_ref(xt, *p12, exact),
                 (4 * R * C * hidden,
-                 2 * R * C * 2 + 2 * C * hidden * 2 + (hidden + C) * 4))
+                 2 * R * C * 2 + 2 * C * hidden * 2 + (hidden + C) * 4),
+                device=True)
         b1, b2 = p12[1].to(bf16), p12[3].to(bf16)
         approx = "none" if exact else "tanh"
-        yardstick[case] = median_ms(lambda: F.linear(F.gelu(
-            F.linear(xt, p12[0], b1), approximate=approx), p12[2], b2))
+
+        def chain():
+            return F.linear(F.gelu(F.linear(xt, p12[0], b1),
+                                   approximate=approx), p12[2], b2)
+        yardstick[case] = {"ms": median_ms(chain),
+                           "device_ms": device_ms(chain, 20)}
         print(f"  {'F.linear-F.gelu-F.linear':22s} {case:34s} "
-              f"{yardstick[case]:.3f} ms (cuBLAS, bf16)", flush=True)
+              f"{yardstick[case]['ms']:.3f} ms, back to back "
+              f"{yardstick[case]['device_ms']:.4f} ms (cuBLAS, bf16)",
+              flush=True)
         del xt, p12
         torch.cuda.empty_cache()
 
@@ -1523,14 +1679,17 @@ def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
             "conv3x3_bn_act": {"aspp_model_conv_ms": model_conv}}
 
 
-def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
+def phase_entry_points(dev, bf16, randn, wrappers, launches) -> dict:
     """Phase 6: the `Mlp` and `FusedLayerNorm` modules and the conv
-    profiler, each with every launch count set to 0 first."""
+    profiler, each with every launch count set to 0 first. Returns the
+    `Mlp` module's forward time back to back beside cuBLAS's."""
     import torch
     from stswincl_tpu_torch.models.init import init_weights
     from stswincl_tpu_torch.models.swin import Mlp
+    import torch.nn.functional as F
     from stswincl_tpu_torch.ops.layernorm import FusedLayerNorm
     from stswincl_tpu_torch.tools import profile_conv_kernel
+    from stswincl_tpu_torch.tools.profile_swin_kernels import device_ms
 
 
     def drive(path, mod, plain, kname):
@@ -1547,14 +1706,17 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
         ref.backward(g)
         torch.cuda.synchronize()
         launches[path], forms = read_launches(wrappers)
-        check_gemm_launches(path, launches[path], forms)
+        check_gemm_launches(path, launches[path], forms, m_saved=0)
         for (n, a), b in zip(mod.named_parameters(), plain.parameters()):
             errs[n] = rel_err(a.grad, b.grad)
         print(f"  [{path}] {kname} launches {launches[path][kname]}; rel "
               f"err against the plain route: {errs}", flush=True)
+        # the Hopper GEMM rows count the library's forms, which
+        # check_gemm_launches holds above (row 12: two bf16 a forward)
         for k, n in launches[path].items():
-            check(n == (2 if k == kname else 0), f"{path}: {k} launched "
-                  f"{n} times in two forwards")
+            if k not in GEMM_ROWS:
+                check(n == (2 if k == kname else 0), f"{path}: {k} "
+                      f"launched {n} times in two forwards")
         for n, e in errs.items():
             check(e <= TOL_REL, f"{path}: {n} relative error {e}")
 
@@ -1563,6 +1725,20 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
     plain = Mlp(512, 2048, 512, dtype=bf16, kernels=False).to(dev)
     plain.load_state_dict(mlp.state_dict())
     drive("mlp_module", mlp, plain, "fused_mlp")
+    # the module's forward back to back beside cuBLAS's three calls on the
+    # same input and weights (bf16), after the path's counts were read
+    x = randn(2 * BS, 2, 64, 80, 512)
+    w16 = [t.detach().to(bf16) for t in (mlp.fc1.weight, mlp.fc1.bias,
+                                         mlp.fc2.weight, mlp.fc2.bias)]
+    with torch.no_grad():
+        mod_ms = device_ms(lambda: mlp(x), 20)
+        lib_ms = device_ms(lambda: F.linear(F.gelu(F.linear(
+            x, w16[0], w16[1])), w16[2], w16[3]), 20)
+    print(f"  [mlp_module] forward back to back {mod_ms:.4f} ms (row 12), "
+          f"F.linear -> F.gelu -> F.linear {lib_ms:.4f} ms (cuBLAS) at "
+          f"{tuple(x.shape)}", flush=True)
+    module_ms = {"device_ms": mod_ms, "linear_gelu_linear_device_ms": lib_ms}
+    del x
 
     ln = FusedLayerNorm(512).to(dev)
     with torch.no_grad():
@@ -1586,6 +1762,7 @@ def phase_entry_points(dev, bf16, randn, wrappers, launches) -> None:
         check(n == (want if k == "conv3x3_bn_act" else 0),
               f"profile_conv: {k} launched {n} times (expected "
               f"{want if k == 'conv3x3_bn_act' else 0})")
+    return module_ms
 
 
 def phase_fp32(dev, wrappers, launches) -> None:
@@ -1656,18 +1833,21 @@ def gpu_clocks() -> str:
         timeout=60).stdout.strip()
 
 
-def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
-    """Phases 4, 4d and 4e; each train path's launches go into
-    `launches`."""
+def phase_train(dev, bf16, smi, wrappers, route_kernel, launches,
+                route_seed=ROUTE_TRAIN_SEED) -> None:
+    """Phases 4, 4d and 4e, the latter two on the batch of `route_seed`;
+    each train path's launches go into `launches`."""
     import torch
     import torch.utils.checkpoint
     from stswincl_tpu_torch.configs import SegTrainConfig
     from stswincl_tpu_torch.models import TswinPlus
     from stswincl_tpu_torch.models.aspp import ConvBNRelu
     from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models import swin as swin_models
     from stswincl_tpu_torch.models.swin import (PatchMerging,
                                                 SpaceTimeSwinBlock)
     from stswincl_tpu_torch.ops.add_ln_mlp import mlp_output_saved
+    from stswincl_tpu_torch.ops.swin_block import whole_swin_block_pair
     from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
@@ -1680,7 +1860,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
     init_state = init_weights(TswinPlus(**kw),
                               torch.Generator().manual_seed(0)).state_dict()
     batches = {}
-    for seed in (3, ROUTE_TRAIN_SEED):
+    for seed in (3, route_seed):
         images, labels = seeded_batch(TB, seed=seed)
         batches[seed] = (torch.from_numpy(images).to(dev),
                          torch.from_numpy(labels).to(dev).long())
@@ -1711,8 +1891,15 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
                  if n.endswith(("running_mean", "running_var"))}
         return loss, grads, stats, time.perf_counter() - ts
 
+    def noise_share(cosines, control):
+        """Each gradient's 1 - cosine over its bound from the control's:
+        TOL_NOISE_FACTOR times the control's plus TOL_NOISE_FLOOR."""
+        return {n: (1 - c) / (TOL_NOISE_FACTOR * max(1 - control[n], 0)
+                              + TOL_NOISE_FLOOR)
+                for n, c in cosines.items()}
+
     def compare_routes(route, tag, images, labels, whole_block=False,
-                       control=None):
+                       control=None, pair_m=False):
         """One step on the route's kernels and one on its plain form from
         the same weights and batch, held against each other. The plain
         form recomputes each swin block in its backward
@@ -1724,11 +1911,22 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
         every token (the last blocks' LN and MLP biases: 0.9898-0.9910 on
         sound routes). `control`: the gradient cosines of a sound route
         on the same batch, each of which this route's 1 - cosine must
-        also stay near. Returns the peak memory and the cosines."""
+        also stay near. `pair_m` (with `whole_block`): the kernel route's
+        W-MSA blocks run row 16's function on the pair's kernels
+        (`whole_swin_block_pair` with m rounded: K1, K2's m-output form,
+        K6 taking that m, K5) in place of row 16; the plain route is the
+        same as without it. Returns the peak memory and the cosines."""
         torch.cuda.reset_peak_memory_stats()
         model = new_model(route, whole_block=whole_block)
         route = f"{route} whole_block" if whole_block else route
-        loss_k, grads_k, stats_k, sec_k = one_step(model, images, labels)
+        blocks = contextlib.nullcontext()
+        if pair_m:
+            route = f"{route} (pair, m rounded)"
+            blocks = unittest.mock.patch.object(
+                swin_models, "whole_swin_block",
+                functools.partial(whole_swin_block_pair, m_out=True))
+        with blocks:
+            loss_k, grads_k, stats_k, sec_k = one_step(model, images, labels)
         # a conv bias that feeds a train-mode BatchNorm has a zero
         # gradient in exact arithmetic (the BatchNorm removes the channel
         # mean): both routes hold rounding noise there, so it is held to a
@@ -1780,9 +1978,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
         if control is not None:
             # 1 - cosine against the control's: rounding alone keeps the
             # two alike, a fault in this route's kernels lifts this one
-            share = {n: (1 - c) / (TOL_NOISE_FACTOR * max(1 - control[n], 0)
-                                   + TOL_NOISE_FLOOR)
-                     for n, c in cosines.items()}
+            share = noise_share(cosines, control)
             top5 = sorted(share.items(), key=lambda kv: -kv[1])[:5]
             print(f"  {tag} [{route}] 1 - cos over its bound from the "
                   f"control ({TOL_NOISE_FACTOR} x the control's + "
@@ -1908,24 +2104,38 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches) -> None:
     train_path("pallas_full", TRAIN_STEPS, "(b, c)",
                compare_routes("pallas_full", "(a)", *batch,
                               control=control)[0], *batch)
-    # phases 4d and 4e run on a second batch. Their control is phase 4's
-    # route on that batch: for 4d ('pallas', 'pallas_windows') it shares
-    # the same kernels as above (and rows 10 and 11 run the same core);
-    # for 4e (the W-MSA blocks on the whole-block kernel, from the
-    # phase-4 weights) it differs only in the W-MSA blocks. All are held
-    # to the absolute floor as well. On the phase-4 batch the ASPP
-    # image-pool conv weight and the stem BatchNorm bias sit at
-    # 0.987-0.988 with `whole_block` (PERF.md)
-    batch = batches[ROUTE_TRAIN_SEED]
-    _, control = compare_routes("pallas_full", "(4d, 4e control)", *batch)
+    # phases 4d and 4e run on a second batch. The control of 4d is phase
+    # 4's route on that batch: it shares the same kernels as above (and
+    # rows 10 and 11 run the same core). The control of 4e is its own
+    # route with row 16's function on the pair's kernels: the W-MSA blocks
+    # run K1 and K2's m-output form (m rounded before the residual add, as
+    # row 16, its twin and the TPU kernel round it; 'pallas_full' adds the
+    # fp32 m at stage 1), their backward K6 taking that m and K5, and the
+    # plain route is 4e's own. Rounding m amplifies the kernel-against-
+    # twin noise of the gradients that sum over every token, so a control
+    # that adds the fp32 m calibrates 4e's bound too low: on this batch the
+    # pair with m rounded, which runs no row 16, reads 1.20 of it on the
+    # layers_4_sw relative-bias gradient (PERF.md). Both 4e runs are
+    # printed against the 4d control too. All are held to the absolute
+    # floor as well.
+    batch = batches[route_seed]
+    _, control = compare_routes("pallas_full", "(4d control)", *batch)
     for route in ("pallas", "pallas_windows"):
         train_path(route, ROUTE_TRAIN_STEPS, "(4d)",
                    compare_routes(route, "(4d)", *batch,
                                   control=control)[0], *batch)
-    train_path("pallas_full", ROUTE_TRAIN_STEPS, "(4e)",
-               compare_routes("pallas_full", "(4e)", *batch,
-                              whole_block=True, control=control)[0], *batch,
+    _, control_m = compare_routes("pallas_full", "(4e control)", *batch,
+                                  whole_block=True, pair_m=True)
+    peak, cosines = compare_routes("pallas_full", "(4e)", *batch,
+                                   whole_block=True, control=control_m)
+    for tag, cos in (("(4e control)", control_m), ("(4e)", cosines)):
+        top = sorted(noise_share(cos, control).items(),
+                     key=lambda kv: -kv[1])[:3]
+        print(f"  {tag} 1 - cos over the bound from the 4d control (printed,"
+              f" not held): highest three {top}", flush=True)
+    train_path("pallas_full", ROUTE_TRAIN_STEPS, "(4e)", peak, *batch,
                whole_block=True)
+
 
 if __name__ == "__main__":
     main()

@@ -1,43 +1,18 @@
-// The first window-attention core: softmax(q k^T * scale + bias (+ mask))
-// v for one (window, head) by one block of 256 threads, q, k, v, the fp32
-// scores and the bf16 P in shared memory. The whole-block kernel
-// (swin_block.cu) runs it in its attention phase. K1 and the two
-// standalone attention kernels of the `attn_impl` routes 'pallas' and
-// 'pallas_windows' run the register-resident core of window_attention.cu,
-// which says what both replace and what bounds them; it shares the
-// address functors below.
+// The register-resident window-attention core: softmax(q k^T * scale +
+// bias (+ mask)) v for one (window, head) pair, run by the pair's TN / 16
+// warps. K1's attention step and the standalone attention kernels of the
+// `attn_impl` routes 'pallas' and 'pallas_windows' launch it
+// (window_attention.cu, which says what it replaces and what bounds it);
+// the whole-block kernel (swin_block.cu) runs it on its consumer warps in
+// its attention phase. The address functors say where a (window, head,
+// token) row lives.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace attn {
 
-using namespace nvcuda;
-
-struct AttnSmem {
-  int ldq, lds, ldo, ldp;
-  size_t q, k, v, s, p, r, total;
-};
-
-__host__ __device__ inline AttnSmem attn_smem(int TN, int hd) {
-  AttnSmem m;
-  m.ldq = hd + 8;  // bf16 q/k/v rows, padded against bank conflicts
-  m.lds = TN + 4;  // fp32 scores
-  m.ldo = hd + 4;  // fp32 output staging (reuses the score buffer)
-  m.ldp = TN + 8;  // bf16 probabilities
-  const size_t qkv = align128(size_t(TN) * m.ldq * sizeof(bf16));
-  m.q = 0;
-  m.k = qkv;
-  m.v = 2 * qkv;
-  m.s = 3 * qkv;
-  const int lds_max = m.lds > m.ldo ? m.lds : m.ldo;
-  m.p = m.s + align128(size_t(TN) * lds_max * sizeof(float));
-  m.r = m.p + align128(size_t(TN) * m.ldp * sizeof(bf16));
-  m.total = m.r + align128(size_t(TN) * sizeof(long long));  // row offsets
-  return m;
-}
+constexpr int MAX_NT = 11;  // 16-key tiles: TN <= 176
 
 // row(bw, h, r): the row index of token r of (window bw, head h); then
 // in(row, h, which) its q / k / v row (which = 0 / 1 / 2) and dst(row, h)
@@ -71,116 +46,196 @@ struct HeadMajor {
   __device__ bf16* dst(long long row, int) const { return out + row * hd; }
 };
 
-// The attention of (window bw, head h) by the 256 threads of one block, in
-// `smem` (attn_smem(TN, hd).total bytes). Returns once every output row is
-// stored; a caller that calls again in the same block synchronises first.
-template <class Addr>
-__device__ __forceinline__ void attend(const Addr& a, int bw, int h,
-                                       unsigned char* smem,
-                                       const float* __restrict__ bias,
-                                       const float* __restrict__ mask,
-                                       int n_mask, int TN, int hd,
-                                       float scale) {
-  const AttnSmem L = attn_smem(TN, hd);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.v);
-  float* ss = reinterpret_cast<float*>(smem + L.s);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.p);
-  long long* rows = reinterpret_cast<long long*>(smem + L.r);
+// Shared memory of one pair: q, k and v in bf16 rows of hd + 8 (16 bytes
+// of padding: ldmatrix rows on distinct banks), then the TN row offsets.
+struct PairSmem {
+  int ld;                  // bf16 row stride of q, k, v: hd + 8
+  size_t kv, rows, total;  // offsets of k (v follows), the row offsets; size
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__host__ __device__ inline PairSmem pair_smem(int TN, int hd) {
+  PairSmem m;
+  m.ld = hd + 8;
+  const size_t one = size_t(TN) * m.ld * sizeof(bf16);
+  m.kv = one;
+  m.rows = align128(3 * one);
+  m.total = m.rows + align128(size_t(TN) * sizeof(long long));
+  return m;
+}
 
-  for (int r = tid; r < TN; r += ATT_THREADS) rows[r] = a.row(bw, h, r);
-  __syncthreads();
+// The attention of (window bw, head h) by the pair's pt = TN / 16 * 32
+// threads (t = 0 .. pt - 1 their index in the pair) in `base`
+// (pair_smem(TN, hd).total bytes), meeting on named barrier `bar` of pt
+// threads. Each warp owns 16 query rows: mma.sync m16n8k16 (bf16 -> fp32)
+// fed by ldmatrix from shared memory (.trans for V) computes its 16 x TN
+// scores into registers, where the scale, bias, mask, the row max and sum
+// (quad shuffles) and the bf16 P stay: the score accumulators become P V's
+// A fragments without leaving the registers. q, k and v are copied with
+// cp.async, v in a second group that lands while the scores are computed;
+// a warp's q rows, read only by that warp, then stage its output for
+// 16-byte stores. NT (the score registers, 16-key tiles) >= TN / 16.
+// Returns once the pair's output rows are stored; a caller that reuses
+// `base` meets the pair's threads first.
+template <int NT, class Addr>
+__device__ __forceinline__ void pair_core(
+    const Addr& a, int bw, int h, unsigned char* base, int t, int pt,
+    int bar, const float* __restrict__ bias, const float* __restrict__ mask,
+    int n_mask, int TN, int hd, float scale) {
+  const PairSmem L = pair_smem(TN, hd);
+  const int nt = TN / 16;
+  const int wi = t >> 5, lane = t & 31;
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* ks = reinterpret_cast<bf16*>(base + L.kv);
+  bf16* vs = ks + size_t(TN) * L.ld;
+  long long* rows = reinterpret_cast<long long*>(base + L.rows);
 
-  // q, k, v of this (window, head): 16-byte loads
+  const auto sync_pair = [&] {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(pt) : "memory");
+  };
+  for (int r = t; r < TN; r += pt) rows[r] = a.row(bw, h, r);
+  sync_pair();
+  // q and k in one cp.async group, v in a second that lands while the
+  // scores are computed
   const int chunks = hd / 8;
-  for (int i = tid; i < TN * chunks; i += ATT_THREADS) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const long long row = rows[r];
-    *reinterpret_cast<uint4*>(qs + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(a.in(row, h, 0) + c);
-    *reinterpret_cast<uint4*>(ks + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(a.in(row, h, 1) + c);
-    *reinterpret_cast<uint4*>(vs + r * L.ldq + c) =
-        *reinterpret_cast<const uint4*>(a.in(row, h, 2) + c);
-  }
-  __syncthreads();
-
-  // scores = q @ k^T, fp32
-  const int tq = TN / 16;
-  for (int t = warp; t < tq * tq; t += ATT_WARPS) {
-    const int tm = t / tq, tn = t - tm * tq;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < hd; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, qs + tm * 16 * L.ldq + kk, L.ldq);
-      wmma::load_matrix_sync(fb, ks + tn * 16 * L.ldq + kk, L.ldq);
-      wmma::mma_sync(acc, fa, fb, acc);
+  for (int which = 0; which < 3; ++which) {
+    for (int i = t; i < TN * chunks; i += pt) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      cp_async16(qs + (size_t(which) * TN + r) * L.ld + c,
+                 a.in(rows[r], h, which) + c);
     }
-    wmma::store_matrix_sync(ss + tm * 16 * L.lds + tn * 16, acc, L.lds,
-                            wmma::mem_row_major);
+    if (which) asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  __syncthreads();
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  sync_pair();
 
-  // softmax, one warp per row
-  const float* bias_h = bias + (long long)h * TN * TN;
-  const float* mask_w =
-      n_mask > 1 ? mask + (long long)(bw % n_mask) * TN * TN : nullptr;
-  for (int r = warp; r < TN; r += ATT_WARPS) {
-    float* row = ss + r * L.lds;
-    float mx = -INFINITY;
-    for (int c = lane; c < TN; c += 32) {
-      float v = row[c] * scale + bias_h[r * TN + c];
-      if (mask_w) v += mask_w[r * TN + c];
-      row[c] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < TN; c += 32) {
-      const float e = expf(row[c] - mx);
-      row[c] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int c = lane; c < TN; c += 32)
-      ps[r * L.ldp + c] = __float2bfloat16(row[c] * inv);
-  }
-  __syncthreads();
-
-  // o = p @ v, fp32, staged over the score buffer
-  float* os = ss;
-  const int td = hd / 16;
-  for (int t = warp; t < tq * td; t += ATT_WARPS) {
-    const int tm = t / td, tn = t - tm * td;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < TN; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, ps + tm * 16 * L.ldp + kk, L.ldp);
-      wmma::load_matrix_sync(fb, vs + kk * L.ldq + tn * 16, L.ldq);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(os + tm * 16 * L.ldo + tn * 16, acc, L.ldo,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // the output: 8 bf16 (16 bytes) a store
-  for (int i = tid; i < TN * chunks; i += ATT_THREADS) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const float* o = os + r * L.ldo + c;
-    uint4 packed;
-    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+  const int q0 = wi * 16, g = lane >> 2, tq = lane & 3;
+  // ---- scores: s[j] is the 16 x 8 tile of keys 8j .. 8j + 7 ----
+  float s[2 * NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      p2[j] = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
-    *reinterpret_cast<uint4*>(a.dst(rows[r], h) + c) = packed;
+  for (int j = 0; j < 2 * NT; ++j)
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  const bf16* qa = qs + (q0 + (lane & 15)) * L.ld + (lane >> 4) * 8;
+  const bf16* kb = ks + ((lane & 7) + ((lane >> 4) << 3)) * L.ld +
+                   ((lane >> 3) & 1) * 8;
+  for (int kk = 0; kk < hd; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, qa + kk);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        uint32_t bf[4];
+        ldsm_x4(bf, kb + j * 16 * L.ld + kk);
+        mma16816(s[2 * j], af, bf[0], bf[1]);
+        mma16816(s[2 * j + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+
+  // ---- softmax of rows q0 + g (s[j][0..1]) and q0 + g + 8 (s[j][2..3]) --
+  const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
+  const float* mask_r =
+      mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
+           : nullptr;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j < 2 * nt) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 b = *reinterpret_cast<const float2*>(
+            bias_r + hh * 8 * TN + 8 * j);
+        s[j][2 * hh] = s[j][2 * hh] * scale + b.x;
+        s[j][2 * hh + 1] = s[j][2 * hh + 1] * scale + b.y;
+        if (mask_r) {  // after the bias, as the twin adds them
+          const float2 m = *reinterpret_cast<const float2*>(
+              mask_r + hh * 8 * TN + 8 * j);
+          s[j][2 * hh] += m.x;
+          s[j][2 * hh + 1] += m.y;
+        }
+        mx[hh] = fmaxf(mx[hh], fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      }
+    }
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j < 2 * nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - mx[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    inv[hh] = 1.0f / sum[hh];
+  }
+  // P in bf16 as the A fragments of P V: k tile kt is key tiles 2kt, 2kt+1
+  uint32_t pa[NT][4];
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    if (kt < nt) {
+      pa[kt][0] = pack_bf16(s[2 * kt][0] * inv[0], s[2 * kt][1] * inv[0]);
+      pa[kt][1] = pack_bf16(s[2 * kt][2] * inv[1], s[2 * kt][3] * inv[1]);
+      pa[kt][2] =
+          pack_bf16(s[2 * kt + 1][0] * inv[0], s[2 * kt + 1][1] * inv[0]);
+      pa[kt][3] =
+          pack_bf16(s[2 * kt + 1][2] * inv[1], s[2 * kt + 1][3] * inv[1]);
+    }
+  }
+
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  sync_pair();  // v has landed
+
+  // ---- o = P V, 64 columns at a time, staged as bf16 over this warp's q
+  // rows (read by no other warp) ----
+  bf16* os = qs + q0 * L.ld;
+  const bf16* vb = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * L.ld +
+                   (lane >> 4) * 8;
+  for (int c0 = 0; c0 < hd; c0 += 64) {
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      if (kt < nt) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (c0 + 16 * jj < hd) {
+            uint32_t bf[4];
+            ldsm_x4_t(bf, vb + kt * 16 * L.ld + c0 + 16 * jj);
+            mma16816(o[2 * jj], pa[kt], bf[0], bf[1]);
+            mma16816(o[2 * jj + 1], pa[kt], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + 8 * j + 2 * tq;
+      if (c0 + 8 * j < hd) {
+        *reinterpret_cast<uint32_t*>(os + g * L.ld + c) =
+            pack_bf16(o[j][0], o[j][1]);
+        *reinterpret_cast<uint32_t*>(os + (g + 8) * L.ld + c) =
+            pack_bf16(o[j][2], o[j][3]);
+      }
+    }
+  }
+  __syncwarp();
+  // the warp's 16 output rows: 8 bf16 (16 bytes) a store
+  for (int i = lane; i < 16 * chunks; i += 32) {
+    const int r = i / chunks, c = (i - r * chunks) * 8;
+    *reinterpret_cast<uint4*>(a.dst(rows[q0 + r], h) + c) =
+        *reinterpret_cast<const uint4*>(os + r * L.ld + c);
   }
 }
 

@@ -5,7 +5,7 @@
 // fp32 reduction into device memory, the GELU of the JAX package's kernels
 // (the odd minimax erf polynomial, not erff:
 // `stswincl_tpu/ops/pallas_mlp.py:45-101` defines the semantics), the
-// window-partition row map, and the declaration of the wmma GEMM in
+// window-partition row map, and the declaration of the column sums of
 // gemm.cu.
 #pragma once
 
@@ -96,13 +96,6 @@ __device__ __forceinline__ void red_add_f32x4(float* p, float4 v) {
   atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // erf(x) ~ x * P(x^2) on |x| < 3, saturated to sign(x) beyond; the same
 // coefficients and Horner order as `_erf_poly_fast`.
 __device__ __forceinline__ float erf_poly_fast(float x) {
@@ -191,7 +184,7 @@ __device__ __forceinline__ long long map_row(const RowMap& m, int r) {
 // out[c_map(m), n] = epilogue(sum_k A[a_map(m), k] * Wt[n, k] + bias[n])
 // A: rows of K bf16 (row stride lda); Wt: (N, K) bf16, the torch Linear
 // layout; bias: fp32 or null. Epilogues, v = the fp32 sum + bias:
-//   EPI_BF16       C = bf16(act(v))  (gemm_bf16 in gemm.cu and gemm_sm90);
+//   EPI_BF16       C = bf16(act(v));
 //   EPI_RESID_F32  Cf += v in place (K2's residual s + MLP);
 //   EPI_GELU_GRAD  C = bf16(gelu(v)), Cf = gelu'(v) (one erf evaluation);
 //   EPI_DGELU      v *= aux[row, n] (fp32), C = bf16(v), and the fp32
@@ -207,9 +200,9 @@ __device__ __forceinline__ long long map_row(const RowMap& m, int r) {
 //                  image, each k tile one tap's 64 channels), v = sum *
 //                  conv.scale[n] + bias[n] (+ conv.res at the same pixel),
 //                  ReLU when conv.relu, C = bf16(v) at the pixel's row;
-// all but EPI_BF16 on gemm_sm90 only. Cf, C2 and aux share C's row map and ldc.
-// Requires N % 8 == 0 (columns past the last 128-wide tile's N are
-// masked), lda % 8 == 0, ldc % 8 == 0, and K % 32 == 0 on gemm_bf16.
+// Cf, C2 and aux share C's row map and ldc. Requires N % 8 == 0 (columns
+// past the last 128-wide tile's N are masked), lda % 8 == 0 and
+// ldc % 8 == 0.
 enum Epi {
   EPI_BF16 = 0,
   EPI_RESID_F32 = 1,
@@ -250,9 +243,6 @@ struct GemmParams {
   ConvGeom conv;  // EPI_CONV only
 };
 
-// The wmma GEMM (gemm.cu) of rows 12-13, EPI_BF16 only.
-cudaError_t gemm_bf16(const GemmParams& p, int epi, cudaStream_t stream);
-
 inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }
 
 // out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (K5's bias gradients).
@@ -271,9 +261,6 @@ inline int sm_count() {
   }
   return sms;
 }
-
-// Threads of one attention block (one (window, head)), forward and backward.
-constexpr int ATT_THREADS = 256, ATT_WARPS = ATT_THREADS / 32;
 
 __host__ __device__ inline size_t align128(size_t b) {
   return (b + 127) & ~size_t(127);

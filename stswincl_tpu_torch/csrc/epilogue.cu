@@ -76,10 +76,10 @@
 // (687 GFLOP at the profiler's shapes); the rows move 8 bytes a channel.
 // The TPU kernel kept LN(s) and the fp32 accumulator in VMEM across its
 // hidden blocks. Here it is K2's device code, three launches: the LN
-// prologue (writing bf16(s) beside the fp32 s it normalises), the fc1
-// GEMM with bias and GELU, and the fc2 GEMM whose fp32 sum plus bias is
-// rounded once, into m. LN(s) and the hidden activation go through device
-// memory in bf16, as in K2.
+// prologue (K2's `ln_rows_kernel`, writing bf16(s) beside the fp32 s it
+// normalises), then row 12's two products (`mlp_gemms`): fc1 with bias and
+// GELU, and fc2 whose fp32 sum plus bias is rounded once, into m. LN(s) and
+// the hidden activation go through device memory in bf16, as in K2.
 //
 // Row 12 (`stswin_mlp`, at the end): fc2(GELU(fc1(x))), the MLP of the
 // standalone `Mlp` module, h rounded to bf16 before fc2 and fc2's fp32
@@ -90,10 +90,14 @@
 //
 // Bound: fc1 and fc2, 4 * rows * C * hidden flops, on the tensor cores.
 // The TPU kernel kept the hidden activation in VMEM, blocked over the
-// hidden dim; here it is row 13's two GEMM launches (`mlp_gemms`), h
-// through device memory in bf16. Keeping h in L2 would take rows in
-// chunks (later work). The GEMM masks columns past N, so the JAX tests'
-// C 32 and 64 run too.
+// hidden dim; here it is two launches of the Hopper GEMM (`mlp_gemms`: the
+// EPI_BF16 form of gemm_sm90.cu, wgmma on a TMA ring, K1's and K2's
+// product), fc1 with the bias and GELU in its epilogue, h through device
+// memory in bf16 (2 * rows * hidden * 2 bytes), then fc2 with its bias.
+// Keeping h in L2 would take rows in chunks (later work). The GEMM masks
+// columns past N and TMA zero-fills the k tile past K, so any C and hidden
+// that are multiples of 8 (the 16-byte rows TMA and the stores need) run,
+// the JAX tests' C 32 and 64 among them.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -618,8 +622,9 @@ extern "C" int stswin_block_epilogue_bwd(
 }
 
 // fc1 + bias + act -> bf16 hid, then fc2 + bias -> bf16 out: the MLP of
-// rows 12 and 13. a, out: (R, C) bf16; w1 (hidden, C), w2 (C, hidden)
-// bf16; b1, b2 fp32; hid (R, hidden) bf16 scratch.
+// rows 12 and 13, two EPI_BF16 launches of the Hopper GEMM. a, out: (R, C)
+// bf16; w1 (hidden, C), w2 (C, hidden) bf16; b1, b2 fp32; hid (R, hidden)
+// bf16 scratch; every matrix 16-byte aligned, C and hidden multiples of 8.
 static cudaError_t mlp_gemms(const bf16* a, const bf16* w1,
                              const float* b1, const bf16* w2,
                              const float* b2, bf16* hid, bf16* out, int R,
@@ -637,7 +642,7 @@ static cudaError_t mlp_gemms(const bf16* a, const bf16* w1,
   g.ldc = hidden;
   g.c_map = identity_map();
   g.act = act;
-  cudaError_t err = gemm_bf16(g, EPI_BF16, s);
+  cudaError_t err = gemm_sm90(g, EPI_BF16, s);
   if (err != cudaSuccess) return err;
 
   g.A = hid;
@@ -649,12 +654,12 @@ static cudaError_t mlp_gemms(const bf16* a, const bf16* w1,
   g.C = out;
   g.ldc = C;
   g.act = ACT_NONE;
-  return gemm_bf16(g, EPI_BF16, s);
+  return gemm_sm90(g, EPI_BF16, s);
 }
 
 // Row 13. x, y, sum_out, m_out: (rows, C) bf16; scale, bias, b1, b2 fp32;
 // w1 (hidden, C), w2 (C, hidden) bf16. Scratch: s32 (rows, C) fp32, n
-// (rows, C) bf16, hid (rows, hidden) bf16.
+// (rows, C) bf16, hid (rows, hidden) bf16. C and hidden multiples of 8.
 extern "C" int stswin_add_ln_mlp(const void* x, const void* y,
                                  const void* scale, const void* bias,
                                  const void* w1, const void* b1,
@@ -662,6 +667,7 @@ extern "C" int stswin_add_ln_mlp(const void* x, const void* y,
                                  void* n, void* hid, void* sum_out,
                                  void* m_out, int R, int C, int hidden,
                                  int act, float eps, void* stream) {
+  if (R <= 0 || C % 8 || hidden % 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (R + LN_WARPS - 1) / LN_WARPS;
   ln_rows_kernel<true><<<blocks, LN_WARPS * 32, 0, s>>>(
@@ -680,12 +686,12 @@ extern "C" int stswin_add_ln_mlp(const void* x, const void* y,
 
 // Row 12. x, out: (rows, C) bf16; w1 (hidden, C), w2 (C, hidden) bf16;
 // b1, b2 fp32; scratch hid (rows, hidden) bf16. C and hidden multiples of
-// 32 (the GEMM's k tile; its 8-column stores need less).
+// 8 (the Hopper GEMM's lda, ldc and N).
 extern "C" int stswin_mlp(const void* x, const void* w1, const void* b1,
                           const void* w2, const void* b2, void* hid,
                           void* out, int R, int C, int hidden, int act,
                           void* stream) {
-  if (R <= 0 || C % 32 || hidden % 32) return cudaErrorInvalidValue;
+  if (R <= 0 || C % 8 || hidden % 8) return cudaErrorInvalidValue;
   return mlp_gemms(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
                    static_cast<const float*>(b1),
                    static_cast<const bf16*>(w2),

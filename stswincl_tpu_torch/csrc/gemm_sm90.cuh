@@ -1,8 +1,7 @@
 // The Hopper GEMMs on wgmma + TMA: C = epilogue(A @ Wt^T + bias), the
-// products of K1, K2, K3 (the patch merge's reduction), K5 and K6 and the
-// implicit-GEMM conv of row 17 (EPI_CONV), and the weight-gradient GEMM of
-// K5 and K6. gemm_sm90.cu says how they are built; the older `gemm_bf16`
-// (gemm.cu, wmma on mma.sync) keeps rows 12-13's products.
+// products of K1, K2, K3 (the patch merge's reduction), K5, K6 and rows
+// 12-13 (the MLP) and the implicit-GEMM conv of row 17 (EPI_CONV), and the
+// weight-gradient GEMM of K5 and K6. gemm_sm90.cu says how they are built.
 #pragma once
 
 #include "common.cuh"

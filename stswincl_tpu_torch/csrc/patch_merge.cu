@@ -12,7 +12,7 @@
 //   - the product on the Hopper GEMM (`gemm_sm90`, EPI_BF16, identity row
 //     maps: M = rows, N = 2C, K = 4C), counted by the library as one bf16
 //     form launch a call. Its fp32 sums run over k in the order of the
-//     wmma tile (`gemm_bf16`) that took this product before, so on the
+//     port's first (wmma) GEMM that took this product before, so on the
 //     same n it gives the same bits. The LayerNorm is not folded into the
 //     GEMM's epilogue (mean and rstd applied after x @ (g * W)^T): that
 //     would skip n's bf16 rounding and cancel badly where the mean is

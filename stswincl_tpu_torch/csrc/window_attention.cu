@@ -23,24 +23,16 @@
 // a byte of q, k, v and the output at stage 1, far below the card's 295;
 // the bias and mask tables (256 KB and 5 MB at stage 1) stay in L2. So the
 // design keeps the scores off shared memory and keeps enough loads in
-// flight (the first core, `attn::attend` in attention_core.cuh, still the
-// whole-block kernel's, kept q, k, v, the fp32 scores and the bf16 P in
-// 203 KB of shared memory, one block an SM, loads not overlapped):
-//   - each warp owns 16 query rows; mma.sync m16n8k16 (bf16 -> fp32) fed
-//     by ldmatrix from shared memory (.trans for V) computes its 16 x TN
-//     scores into registers, where the scale, bias, mask, the row max and
-//     sum (quad shuffles) and the bf16 P stay: the score accumulators
-//     become P V's A fragments without leaving the registers;
+// flight (`attn::pair_core` in attention_core.cuh says how a pair's
+// warps keep the scores, softmax and P in registers):
 //   - shared memory holds q, k and v of the block's (window, head) pairs,
 //     copied with cp.async (105 KB at stage 1, so two blocks an SM, one's
-//     loads overlapping the other's products), v in a second group that
-//     lands while the scores are computed; a pair's warps meet on their
-//     own named barrier; a warp's q rows, read only by that warp, then
-//     stage its output for 16-byte stores;
+//     loads overlapping the other's products); a pair's warps meet on their
+//     own named barrier;
 //   - at stage 2 (TN 32: two warps a pair) a block takes two (window,
 //     head) pairs, so it still has four warps and two blocks fit an SM.
 // The three callers differ only in where a (window, head, token) row
-// lives, so the body is one template over an address functor
+// lives, so the core is one template over an address functor
 // (attention_core.cuh); each pair maps its TN rows once, into shared
 // memory, before any load:
 //   MappedRows: token rows of a (rows, 3C) qkv matrix and a (rows, C)
@@ -51,8 +43,7 @@
 //   HeadMajor: three (Bw, heads, TN, hd) tensors and a (Bw, heads, TN, hd)
 //     output (row 11).
 // The score registers are sized at compile time: NT, the most 16-key
-// tiles a variant takes (2, 4, 8 or 11; TN <= 176, the widest window the
-// first core's shared memory took).
+// tiles a variant takes (2, 4, 8 or 11; TN <= 176, `attn::MAX_NT`).
 
 #include "attention_core.cuh"
 
@@ -60,24 +51,11 @@ namespace {
 
 using attn::HeadMajor;
 using attn::MappedRows;
+using attn::MAX_NT;
+using attn::PairSmem;
+using attn::pair_smem;
 
-constexpr int MAX_NT = 11;                // TN <= 176
 constexpr size_t PAIR_TARGET = 113 * 1024;  // half an SM's shared memory
-
-struct PairSmem {
-  int ld;                // bf16 row stride of q, k, v: hd + 8
-  size_t kv, rows, total;  // offsets of k (v follows), the row offsets; size
-};
-
-__host__ __device__ inline PairSmem pair_smem(int TN, int hd) {
-  PairSmem m;
-  m.ld = hd + 8;  // 16 bytes of padding: ldmatrix rows on distinct banks
-  const size_t one = size_t(TN) * m.ld * sizeof(bf16);
-  m.kv = one;
-  m.rows = align128(3 * one);
-  m.total = m.rows + align128(size_t(TN) * sizeof(long long));
-  return m;
-}
 
 // One block: `group` (window, head) pairs, TN / 16 warps each; the pair of
 // block b and slot g is b * group + g (pair = window * heads + head). Up
@@ -91,168 +69,14 @@ __global__ void __launch_bounds__(NT > 8 ? 352 : 256, NT > 8 ? 1 : 2)
     float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const PairSmem L = pair_smem(TN, hd);
-  const int nt = TN / 16, pt = nt * 32;  // 16-key tiles, threads a pair
-  const int slot = threadIdx.x / pt, t = threadIdx.x - slot * pt;
-  const int wi = t >> 5, lane = t & 31;
+  const int pt = TN / 16 * 32;  // threads a pair
+  const int slot = threadIdx.x / pt;
   const int pair = blockIdx.x * group + slot;
-  const bool live = pair < n_pairs;
-  const int bw = pair / heads, h = pair - bw * heads;
-  unsigned char* base = smem + slot * L.total;
-  bf16* qs = reinterpret_cast<bf16*>(base);
-  bf16* ks = reinterpret_cast<bf16*>(base + L.kv);
-  bf16* vs = ks + size_t(TN) * L.ld;
-  long long* rows = reinterpret_cast<long long*>(base + L.rows);
-
-  if (!live) return;
+  if (pair >= n_pairs) return;
   // the pair's warps meet on their own barrier (1 + slot; 0 is the block's)
-  const auto sync_pair = [&] {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slot), "r"(pt) : "memory");
-  };
-  for (int r = t; r < TN; r += pt) rows[r] = a.row(bw, h, r);
-  sync_pair();
-  // q and k in one cp.async group, v in a second that lands while the
-  // scores are computed
-  const int chunks = hd / 8;
-  for (int which = 0; which < 3; ++which) {
-    for (int i = t; i < TN * chunks; i += pt) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      cp_async16(qs + (size_t(which) * TN + r) * L.ld + c,
-                 a.in(rows[r], h, which) + c);
-    }
-    if (which) asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  sync_pair();
-
-  const int q0 = wi * 16, g = lane >> 2, tq = lane & 3;
-  // ---- scores: s[j] is the 16 x 8 tile of keys 8j .. 8j + 7 ----
-  float s[2 * NT][4];
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  const bf16* qa = qs + (q0 + (lane & 15)) * L.ld + (lane >> 4) * 8;
-  const bf16* kb = ks + ((lane & 7) + ((lane >> 4) << 3)) * L.ld +
-                   ((lane >> 3) & 1) * 8;
-  for (int kk = 0; kk < hd; kk += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, qa + kk);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kb + j * 16 * L.ld + kk);
-        mma16816(s[2 * j], af, bf[0], bf[1]);
-        mma16816(s[2 * j + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-
-  // ---- softmax of rows q0 + g (s[j][0..1]) and q0 + g + 8 (s[j][2..3]) --
-  const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
-  const float* mask_r =
-      mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
-           : nullptr;
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) {
-    if (j < 2 * nt) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float2 b = *reinterpret_cast<const float2*>(
-            bias_r + hh * 8 * TN + 8 * j);
-        s[j][2 * hh] = s[j][2 * hh] * scale + b.x;
-        s[j][2 * hh + 1] = s[j][2 * hh + 1] * scale + b.y;
-        if (mask_r) {  // after the bias, as the twin adds them
-          const float2 m = *reinterpret_cast<const float2*>(
-              mask_r + hh * 8 * TN + 8 * j);
-          s[j][2 * hh] += m.x;
-          s[j][2 * hh + 1] += m.y;
-        }
-        mx[hh] = fmaxf(mx[hh], fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
-      }
-    }
-  }
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) {
-    if (j < 2 * nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e >> 1]);
-        sum[e >> 1] += s[j][e];
-      }
-    }
-  }
-  float inv[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-    inv[hh] = 1.0f / sum[hh];
-  }
-  // P in bf16 as the A fragments of P V: k tile kt is key tiles 2kt, 2kt+1
-  uint32_t pa[NT][4];
-#pragma unroll
-  for (int kt = 0; kt < NT; ++kt) {
-    if (kt < nt) {
-      pa[kt][0] = pack_bf16(s[2 * kt][0] * inv[0], s[2 * kt][1] * inv[0]);
-      pa[kt][1] = pack_bf16(s[2 * kt][2] * inv[1], s[2 * kt][3] * inv[1]);
-      pa[kt][2] =
-          pack_bf16(s[2 * kt + 1][0] * inv[0], s[2 * kt + 1][1] * inv[0]);
-      pa[kt][3] =
-          pack_bf16(s[2 * kt + 1][2] * inv[1], s[2 * kt + 1][3] * inv[1]);
-    }
-  }
-
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  sync_pair();  // v has landed
-
-  // ---- o = P V, 64 columns at a time, staged as bf16 over this warp's q
-  // rows (read by no other warp) ----
-  bf16* os = qs + q0 * L.ld;
-  const bf16* vb = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * L.ld +
-                   (lane >> 4) * 8;
-  for (int c0 = 0; c0 < hd; c0 += 64) {
-    float o[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < NT; ++kt) {
-      if (kt < nt) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (c0 + 16 * jj < hd) {
-            uint32_t bf[4];
-            ldsm_x4_t(bf, vb + kt * 16 * L.ld + c0 + 16 * jj);
-            mma16816(o[2 * jj], pa[kt], bf[0], bf[1]);
-            mma16816(o[2 * jj + 1], pa[kt], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + 8 * j + 2 * tq;
-      if (c0 + 8 * j < hd) {
-        *reinterpret_cast<uint32_t*>(os + g * L.ld + c) =
-            pack_bf16(o[j][0], o[j][1]);
-        *reinterpret_cast<uint32_t*>(os + (g + 8) * L.ld + c) =
-            pack_bf16(o[j][2], o[j][3]);
-      }
-    }
-  }
-  __syncwarp();
-  // the warp's 16 output rows: 8 bf16 (16 bytes) a store
-  for (int i = lane; i < 16 * chunks; i += 32) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    *reinterpret_cast<uint4*>(a.dst(rows[q0 + r], h) + c) =
-        *reinterpret_cast<const uint4*>(os + r * L.ld + c);
-  }
+  attn::pair_core<NT>(a, pair / heads, pair % heads, smem + slot * L.total,
+                        threadIdx.x - slot * pt, pt, 1 + slot, bias, mask,
+                        n_mask, TN, hd, scale);
 }
 
 template <int NT, class Addr>

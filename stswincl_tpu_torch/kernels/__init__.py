@@ -52,6 +52,9 @@ SIGNATURES = {
     "stswin_whole_block": [_P] * 18 + [_I] * 10 + [_F, _F, _P],
     # a query, not a launch: (T, C, heads, ws, int* slots), no stream
     "stswin_whole_block_slots": [_I] * 4 + [ctypes.POINTER(_I)],
+    # a query, not a launch: (TN, hd, int* group, long long* total)
+    "stswin_whole_block_layout": [_I] * 2 + [ctypes.POINTER(_I),
+                                            ctypes.POINTER(ctypes.c_longlong)],
     "stswin_add_ln_mlp": [_P] * 13 + [_I] * 4 + [_F, _P],
     "stswin_add_layer_norm": [_P] * 6 + [_I] * 2 + [_F, _P],
     "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],

@@ -23,13 +23,15 @@ the serving forward adds the fp32 m to s unrounded (`:743`), while the
 training backward (and the JAX reference `:877-891`) rounds m to x's
 dtype first (`:216`, `:788-793`). `mlp_output_saved` picks, from the
 shape, whether the training forward saves that rounded m (stage 2) or the
-backward recomputes it (stage 1).
+backward recomputes it (stage 1); `m_out=True` takes the first form at
+every shape (row 16's rounding on the pair's kernels, see
+`ops/swin_block.whole_swin_block_pair`).
 
 `add_ln_mlp` (row 13, `fused_add_ln_mlp`, `pallas_add_ln_mlp.py:97`)
-launches `stswin_add_ln_mlp` (`csrc/epilogue.cu`, K2's device code) on a
-CUDA tensor and runs the twin `add_ln_mlp_ref` on a CPU tensor; its
-backward is autograd of the twin, as JAX's `_bwd` (`:145-153`) is a VJP of
-`add_ln_mlp_ref`.
+launches `stswin_add_ln_mlp` (`csrc/epilogue.cu`: K2's LN pass, then row
+12's two products on the Hopper GEMM) on a CUDA tensor and runs the twin
+`add_ln_mlp_ref` on a CPU tensor; its backward is autograd of the twin,
+as JAX's `_bwd` (`:145-153`) is a VJP of `add_ln_mlp_ref`.
 
 Weights use the torch Linear layout: w1 (4C, C), w2 (C, 4C), in any float
 dtype (cast to x's dtype for the products; gradients in their own dtype).
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.mlp import gelu
+from stswincl_tpu_torch.ops.mlp import check_mlp_widths, gelu
 
 
 def layer_norm_f32(s32: torch.Tensor, scale: torch.Tensor,
@@ -177,19 +179,25 @@ def _forward_kernel(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact,
 
 def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
                         gelu_exact: bool = True, shift: int = 0,
-                        ws: Optional[int] = None, eps: float = 1e-5):
+                        ws: Optional[int] = None, eps: float = 1e-5,
+                        m_out: Optional[bool] = None):
     """x, y: (..., C), or (B, T, H, W, C) when `shift` > 0 (then y is
     shifted and 0 < shift < ws). LayerNorm scale/bias and the MLP biases
-    are fp32; returns x's shape and dtype."""
+    are fp32; returns x's shape and dtype. `m_out`: None routes as the JAX
+    package does (serving adds the fp32 m; training rounds m where
+    `mlp_output_saved`); True rounds m before the residual add at every
+    shape, and a training forward saves it for K6."""
     args = (x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact, shift, ws,
             eps)
     if kernels.needs_grad(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n):
-        return EpilogueFn.apply(*args)
+        return EpilogueFn.apply(*args, m_out)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     args = (x, y, s2, b2, w1, b1, w2) + args[7:]
     if x.device.type == "cpu":
+        if m_out:
+            return swin_block_epilogue_with_m_ref(*args)[0]
         return swin_block_epilogue_ref(*args)
-    return _forward_kernel(*args, with_m=False)[0]
+    return _forward_kernel(*args, with_m=bool(m_out))[0]
 
 
 swin_block_epilogue.launches = 0
@@ -250,20 +258,22 @@ swin_block_epilogue_bwd.launches = 0
 
 
 class EpilogueFn(torch.autograd.Function):
-    """K2 forward (with the `m` output where `mlp_output_saved`), K6
-    backward; the twins on the CPU. Weights arrive in any float dtype and
-    are cast to x's dtype; their gradients return in their own dtype."""
+    """K2 forward (with the `m` output where `mlp_output_saved`, or at
+    every shape with `m_out`), K6 backward; the twins on the CPU. Weights
+    arrive in any float dtype and are cast to x's dtype; their gradients
+    return in their own dtype."""
 
     @staticmethod
     def forward(ctx, x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact,
-                shift, ws, eps):
+                shift, ws, eps, m_out=None):
         ctx.cfg = (gelu_exact, shift, ws, eps)
         params = (s2, b2, w1, b1, w2, bw2, s1, b1n)
         ctx.dtypes = tuple(t.dtype for t in params)
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
         args = (x, y, s2, b2, w1c, b1, w2c, bw2, s1, b1n, gelu_exact, shift,
                 ws, eps)
-        with_m = mlp_output_saved(x.shape[-1], w1.shape[0], x.dtype)
+        with_m = (mlp_output_saved(x.shape[-1], w1.shape[0], x.dtype)
+                  if m_out is None else m_out)
         if x.device.type == "cpu":
             fwd = (swin_block_epilogue_with_m_ref if with_m
                    else swin_block_epilogue_ref)
@@ -289,7 +299,7 @@ class EpilogueFn(torch.autograd.Function):
                                             eps)
         dx, dy, *dparams = grads
         dparams = [d.to(t) for d, t in zip(dparams, ctx.dtypes)]
-        return (dx, dy, *dparams, None, None, None, None)
+        return (dx, dy, *dparams, None, None, None, None, None)
 
 
 def add_ln_mlp_ref(x, y, scale, bias, w1, b1, w2, b2,
@@ -309,14 +319,25 @@ def add_ln_mlp_ref(x, y, scale, bias, w1, b1, w2, b2,
 def _add_ln_mlp_kernel(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
     """Launch row 13 (weights already in x's dtype)."""
     name = "add_ln_mlp"
-    _, _, rows, C, hidden = _geometry(name, x, y, w1, 0, None)
+    C, hidden = x.shape[-1], w1.shape[0]
+    kernels.require(y.shape == x.shape, f"{name}: y {tuple(y.shape)} vs x "
+                    f"{tuple(x.shape)}")
     _check_params(name, x, w1, b1, w2, (scale, bias, b2), C, hidden)
     kernels.require_on(x.device, name, y)
+    check_mlp_widths(name, C, hidden)
+    x, y = x.contiguous(), y.contiguous()
+    kernels.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                        for t in (x, y, w1, w2)),
+                    f"{name}: x, y and the weights must be contiguous and "
+                    "16-byte aligned")
+    rows = x.numel() // C
     dev = x.device
+    s, m = torch.empty_like(x), torch.empty_like(x)
+    if rows == 0:
+        return s, m
     s32 = torch.empty((rows, C), dtype=torch.float32, device=dev)
     n = torch.empty((rows, C), dtype=x.dtype, device=dev)
     hid = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
-    s, m = torch.empty_like(x), torch.empty_like(x)
     P = kernels.ptr
     kernels.launch("stswin_add_ln_mlp", dev, P(x), P(y), P(scale), P(bias),
                    P(w1), P(b1), P(w2), P(b2), P(s32), P(n), P(hid), P(s),

@@ -68,28 +68,17 @@ def _align(b: int) -> int:
 
 
 # The widest window of the attention core of K1 and rows 10-11: its score
-# registers are sized for at most 11 key tiles of 16 (`MAX_NT` in
-# `csrc/window_attention.cu`), the widest window the first core (still row
-# 16's, `_attend_smem_bytes`) fitted in shared memory.
+# registers are sized for at most 11 key tiles of 16 (`attn::MAX_NT` in
+# `csrc/attention_core.cuh`).
 MAX_WINDOW_TOKENS = 176
 
 
 def _attn_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of one (window, head) pair of the attention
-    core of K1 and rows 10 and 11 (`pair_smem` in
-    `csrc/window_attention.cu`): q, k and v in bf16 rows of hd + 8, and the
+    core of K1 and rows 10 and 11 (`attn::pair_smem` in
+    `csrc/attention_core.cuh`): q, k and v in bf16 rows of hd + 8, and the
     TN row offsets; the scores and P stay in registers."""
     return _align(3 * TN * (hd + 8) * 2) + _align(TN * 8)
-
-
-def _attend_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of `attn::attend` (`attn_smem` in
-    `csrc/attention_core.cuh`), the attention of the whole-block kernel
-    (row 16): q, k, v, the fp32 scores, the bf16 P and the TN row
-    offsets."""
-    return (3 * _align(TN * (hd + 8) * 2)
-            + _align(TN * max(TN + 4, hd + 4) * 4)
-            + _align(TN * (TN + 8) * 2) + _align(TN * 8))
 
 
 def check_attention_core(name: str, device: torch.device,
@@ -97,7 +86,7 @@ def check_attention_core(name: str, device: torch.device,
                          mask_tiled: Optional[torch.Tensor], heads: int,
                          TN: int, hd: int, smem_bytes=_attn_smem_bytes):
     """What a (window, head) attention block of the kernels takes (K1, K5,
-    rows 10 and 11; `smem_bytes` its shared-memory layout); returns (mask
+    rows 10, 11 and 16; `smem_bytes` its shared-memory layout); returns (mask
     or None, n_mask). A single-entry mask is the W-MSA marker: it is
     dropped and its add skipped."""
     if mask_tiled is not None and mask_tiled.shape[0] == 1:

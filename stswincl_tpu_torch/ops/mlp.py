@@ -8,8 +8,9 @@ the library erf, so the port does too; the CUDA device function
 order.
 
 `fused_mlp` (`pallas_mlp.fused_mlp`, `:226`) launches `stswin_mlp`
-(`csrc/epilogue.cu`: row 13's fc1 and fc2 GEMMs) on a CUDA tensor and runs
-the plain twin `mlp_ref` on a CPU tensor. When autograd needs a gradient
+(`csrc/epilogue.cu`: fc1 and fc2 on the Hopper GEMM of `csrc/gemm_sm90.cu`,
+two launches of its bf16 form, shared with row 13) on a CUDA tensor and
+runs the plain twin `mlp_ref` on a CPU tensor. When autograd needs a gradient
 it goes through `MlpFn`, whose backward is autograd of `mlp_ref`, as
 JAX's `_fmlp_bwd` (`:266-277`) is `jax.vjp` of `mlp_ref`. Weights use the
 torch Linear layout: w1 (hidden, C), w2 (C, hidden), in any float dtype
@@ -63,10 +64,22 @@ def mlp_ref(x, w1, b1, w2, b2, gelu_exact: bool = True):
     return out.to(x.dtype)
 
 
+def check_mlp_widths(name: str, C: int, hidden: int) -> None:
+    """The envelope of the MLP products of rows 12 and 13 (`mlp_gemms`,
+    `csrc/epilogue.cu`) on the Hopper GEMM: its A and C row strides (C and
+    hidden elements) and its N (hidden for fc1, C for fc2) multiples of 8,
+    so that every row is whole 16-byte chunks for TMA and the stores; the
+    k tiles past K are TMA's zero fill, so K takes any such width."""
+    kernels.require(C > 0 and hidden > 0 and C % 8 == 0 and hidden % 8 == 0,
+                    lambda: f"{name}: needs C and hidden multiples of 8 "
+                    f"(C={C}, hidden={hidden})")
+
+
 def _kernel(x, w1, b1, w2, b2, gelu_exact):
     """Launch row 12 (weights already in x's dtype, biases fp32)."""
     name = "fused_mlp"
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    x = x.contiguous()
     kernels.require_bf16_cuda(name, x)
     kernels.require(w1.dtype == x.dtype and w2.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
@@ -79,9 +92,11 @@ def _kernel(x, w1, b1, w2, b2, gelu_exact):
                     and tuple(b2.shape) == (C,),
                     f"{name}: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} do "
                     f"not map C={C} -> hidden -> C")
-    kernels.require(C % 32 == 0 and hidden % 32 == 0,
-                    f"{name}: needs C and hidden multiples of 32 (C={C}, "
-                    f"hidden={hidden})")
+    check_mlp_widths(name, C, hidden)
+    kernels.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                        for t in (x, w1, w2)),
+                    f"{name}: x and the weights must be contiguous and "
+                    "16-byte aligned")
     rows = x.numel() // C
     out = torch.empty_like(x)
     if rows == 0:

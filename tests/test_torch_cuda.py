@@ -16,9 +16,11 @@ kernels of the 'pallas' and 'pallas_windows' routes (Pallas rows 10 and
 hd 256), on six windows an image and two images, with and without the
 SW-MSA mask. The whole-block kernel (Pallas row 16) runs at both stages'
 window shapes (TN 128, TN 32), with a last tile of fewer windows too,
-forward and through its Function; rows 13 and 14 on row counts that are not
-multiples of anything the kernels tile by. Rows 12 (MLP), 15 (LayerNorm)
-and 17 (conv) run at the JAX tests' narrow widths and the model's, with
+forward, against the K1 + K2 pair to the bit and through its Function;
+rows 13 and 14 on row counts that are not multiples of anything the
+kernels tile by, row 13 at C 72 too. Rows 12 (MLP), 15 (LayerNorm) and 17
+(conv) run at the JAX tests' narrow widths, off the multiples of 32 and
+at the model's, with
 ragged row counts, forward and (rows 12, 15) through their Functions and
 their modules; rows 14 and 15 also on more rows than their persistent
 grid holds; row 17 at dilations 1, 2, 4 and 18 (most taps in the
@@ -546,6 +548,38 @@ def test_whole_block_kernel(dev, gen, case):
         _close(gr, w)
 
 
+@pytest.mark.parametrize("case", sorted(WHOLE_CASES))
+def test_whole_block_carries_the_pairs_bits(dev, gen, case):
+    """Row 16 sums every product in the order of the Hopper GEMM, runs
+    K1's attention core and K2's LayerNorm order: its output equals the K1
+    + K2 pair's with m rounded (K2's `m_out` form) to the bit, and it
+    launches no GEMM of the library's own."""
+    tensors, cfg = _whole_args(dev, gen, case)
+    heads, scale, ws = cfg
+    bf_w = [t.to(BF) if i in (1, 3, 9, 11) else t
+            for i, t in enumerate(tensors)]
+    gemm.launch_counts(reset=True)
+    got = swin_block.whole_swin_block(*bf_w, *cfg)
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0)
+    want = swin_block.whole_swin_block_pair(*bf_w, *cfg, m_out=True)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("TN, hd", [(16, 16), (32, 128), (64, 64),
+                                    (128, 64), (128, 128), (128, 256)])
+def test_whole_block_layout_is_the_plans(dev, TN, hd):
+    """The shared memory and attention pairs the kernel launches with
+    (`stswin_whole_block_layout`) are those of the Python plan, which the
+    CPU tests check phase by phase."""
+    heads = max(1, 128 // hd)  # C a multiple of 128
+    T, ws = {16: (1, 4), 32: (2, 4), 64: (1, 8), 128: (2, 8)}[TN]
+    plan = swin_block.whole_block_plan(1, T, 2 * ws, 2 * ws, hd * heads,
+                                       4 * hd * heads, heads, ws)
+    assert swin_block._layout(TN, hd) == (plan.attention_group,
+                                          plan.smem_bytes)
+
+
 def test_whole_block_refuses_what_it_does_not_take(dev, gen):
     tensors, (heads, scale, ws) = _whole_args(dev, gen, "s2")
     bf_w = [t.to(BF) if i in (1, 3, 9, 11) else t
@@ -566,18 +600,23 @@ def test_whole_block_refuses_what_it_does_not_take(dev, gen):
                                     heads, scale, ws)
 
 
-@pytest.mark.parametrize("C", [256, 512])
+@pytest.mark.parametrize("C", [72, 256, 512])
 def test_add_ln_mlp_kernel(dev, gen, C):
-    """Row 13: (s, m) against the twin, and its Function's gradients
-    (autograd of the twin, as JAX's `_bwd`) against autograd of the twin."""
+    """Row 13: (s, m) against the twin (C 72: off the first kernel's
+    multiples of 128), two launches of the Hopper GEMM's bf16 form a
+    call, and its Function's gradients (autograd of the twin, as JAX's
+    `_bwd`) against autograd of the twin."""
     p = _epi_params(dev, gen, C=C, hidden=4 * C)
     x, y = (torch.randn((3, 50, C), generator=gen, device=dev).to(BF)
             for _ in range(2))
     args = (p[0], p[1], p[2], p[3], p[4], p[5])
     fn = add_ln_mlp.add_ln_mlp
     n = fn.launches
+    gemm.launch_counts(reset=True)
     got, want = fn(x, y, *args), add_ln_mlp.add_ln_mlp_ref(x, y, *args)
     assert fn.launches == n + 1
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {"bf16": 2}
     for a, b in zip(got, want):
         _close(a, b)
 
@@ -675,18 +714,24 @@ def _mlp_params(dev, gen, C, hidden, dt=BF):
             f(C, hidden, k=hidden ** -0.5).to(dt), f(C, k=0.1)]
 
 
-@pytest.mark.parametrize("C,hidden", [(32, 512), (64, 256), (512, 2048)])
+@pytest.mark.parametrize("C,hidden", [(32, 512), (64, 256), (512, 2048),
+                                      (40, 200), (8, 24)])
 @pytest.mark.parametrize("exact", [True, False])
 def test_mlp_kernel(dev, gen, C, hidden, exact):
-    """Row 12 against its twin (C below the GEMM's 128-column tile too),
-    and through `MlpFn` with fp32 weights (as `Mlp` hands them): its
-    gradients against autograd of the twin on the same weights."""
+    """Row 12 against its twin (C below the GEMM's 128-column tile and its
+    64-deep k tile too, and off the first kernel's multiples of 32), two
+    launches of the Hopper GEMM's bf16 form a call, and through `MlpFn`
+    with fp32 weights (as `Mlp` hands them): its gradients against
+    autograd of the twin on the same weights."""
     p = _mlp_params(dev, gen, C, hidden)
     x = torch.randn((3, 50, C), generator=gen, device=dev).to(BF)
     fn = mlp.fused_mlp
     n = fn.launches
+    gemm.launch_counts(reset=True)
     _close(fn(x, *p, exact), mlp.mlp_ref(x, *p, exact))
     assert fn.launches == n + 1
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {"bf16": 2}
     p32 = [t.float() for t in p]
     leaves = [t.detach().requires_grad_() for t in [x] + p32]
     out = fn(*leaves, exact)
@@ -813,9 +858,13 @@ def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
     x = torch.zeros((4, 64), device=dev, dtype=BF)
     with pytest.raises(NotImplementedError):
         mlp.fused_mlp(x.float(), *p)
-    p48 = _mlp_params(dev, gen, 48, 256)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        mlp.fused_mlp(torch.zeros((4, 48), device=dev, dtype=BF), *p48)
+    p44 = _mlp_params(dev, gen, 44, 256)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mlp.fused_mlp(torch.zeros((4, 44), device=dev, dtype=BF), *p44)
+    p52 = _epi_params(dev, gen, C=52, hidden=208)
+    x52 = torch.zeros((4, 52), device=dev, dtype=BF)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        add_ln_mlp.add_ln_mlp(x52, x52, *p52[:6])
     s, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with pytest.raises(NotImplementedError):
         layernorm.fused_layer_norm(x.float(), s, b)

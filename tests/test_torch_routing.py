@@ -54,8 +54,11 @@ def test_fp32_model_launches_no_kernel_on_the_cpu():
 def _old_core_smem_bytes(TN, hd):
     """The first attention core's shared memory (q, k, v, fp32 scores,
     bf16 P, row offsets), which bounded the windows K1 and rows 10-11
-    took before the register-resident core."""
-    return attention._attend_smem_bytes(TN, hd)
+    took before the register-resident core, and row 16's until it moved
+    to that core."""
+    a = attention._align
+    return (3 * a(TN * (hd + 8) * 2) + a(TN * max(TN + 4, hd + 4) * 4)
+            + a(TN * (TN + 8) * 2) + a(TN * 8))
 
 
 def _old_envelope():
