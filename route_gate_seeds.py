@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Phases 4, 4d and 4e of `chip_smoke.py` with the batch of phases 4d and
-4e drawn from each seed given: where the train-route gates (the absolute
-gradient-cosine floor and the 1 - cosine against a control route) sit,
-batch by batch, so that a gate reading can be told from the noise of its
-batch. Each failed check is printed and counted, not raised.
+4e drawn from each seed given, or with `--contrast` phase 8 (a) (the
+stage-2 step's gates) on the batch of each seed: where the train-route
+gates (the absolute gradient-cosine floor and the 1 - cosine against a
+control route) sit, batch by batch, so that a gate reading can be told
+from the noise of its batch. Each failed check is printed and counted,
+not raised.
 
     python3 route_gate_seeds.py 4 1 2 5
+    python3 route_gate_seeds.py --contrast 1 2 3
 
 Seed 3 stays phase 4's batch; `chip_smoke.ROUTE_TRAIN_SEED` (4) is the
 batch phases 4d and 4e use. It runs the `stswincl_tpu_torch` package and
@@ -26,7 +29,9 @@ import chip_smoke  # noqa: E402
 
 
 def main(argv=None) -> int:
-    seeds = [int(s) for s in (sys.argv[1:] if argv is None else argv)]
+    args = list(sys.argv[1:] if argv is None else argv)
+    contrast = "--contrast" in args
+    seeds = [int(s) for s in args if s != "--contrast"]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("route_gate_seeds: needs a CUDA card")
@@ -39,12 +44,18 @@ def main(argv=None) -> int:
     kernels.build()
     kernels.load()
     failed = {}
+    dev = torch.device("cuda", 0)
     for seed in seeds:
-        print(f"==== seed {seed} (phases 4d and 4e)", flush=True)
         before = len(chip_smoke.FAILED)
-        chip_smoke.phase_train(torch.device("cuda", 0), torch.bfloat16, "",
-                               chip_smoke.kernel_wrappers(),
-                               chip_smoke.ROUTE_KERNEL, {}, route_seed=seed)
+        if contrast:
+            print(f"==== seed {seed} (phase 8 (a))", flush=True)
+            chip_smoke.contrast_gates(dev, torch.bfloat16, seed)
+        else:
+            print(f"==== seed {seed} (phases 4d and 4e)", flush=True)
+            chip_smoke.phase_train(dev, torch.bfloat16, "",
+                                   chip_smoke.kernel_wrappers(),
+                                   chip_smoke.ROUTE_KERNEL, {},
+                                   route_seed=seed)
         failed[seed] = chip_smoke.FAILED[before:]
     print(f"failed checks by seed: {failed}", flush=True)
     return 1 if chip_smoke.FAILED else 0

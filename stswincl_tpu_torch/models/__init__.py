@@ -1,4 +1,5 @@
+from stswincl_tpu_torch.models.pixpro import ContrastEncoder
 from stswincl_tpu_torch.models.stswin import TswinPlus
 from stswincl_tpu_torch.models.swin import SwinTemporalStack
 
-__all__ = ["TswinPlus", "SwinTemporalStack"]
+__all__ = ["ContrastEncoder", "TswinPlus", "SwinTemporalStack"]

@@ -1,7 +1,10 @@
 """Seeded PyTorch-default initialisation of the port's models.
 
 Counterpart of `stswincl_tpu/models/init.py`: weights and biases of convs
-and dense layers ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)), LayerNorm and
+and dense layers ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+(`torch_conv_kernel_init`, `torch_dense_kernel_init`, `torch_bias_init`;
+the contrastive encoder's 1x1-conv projector and predictor included, whose
+bias bound is their input width's, as `MLP2d` draws it), LayerNorm and
 BatchNorm at identity, relative-position tables ~ N(0, 0.02) truncated at
 two standard deviations. Every draw comes from the given
 `torch.Generator`, so a seed fixes the weights. The JAX package's own

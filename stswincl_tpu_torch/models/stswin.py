@@ -72,7 +72,11 @@ class TswinPlus(nn.Module):
 
     Parameters stay fp32; the model computes in `dtype` (bf16 to serve).
     `input_hw` fixes the feature resolution the swin windows are built for
-    (the JAX stack reads it from its input). `kernels` (None: iff the
+    (the JAX stack reads it from its input). `classifier=False` builds
+    the trunk alone, as the JAX `ContrastEncoder`'s segmentor is: it calls
+    `TswinPlus(..., return_features=True)`, which returns before the
+    classifier is created, so its tree holds no classifier; such a model
+    only answers `forward(x, return_features=True)`. `kernels` (None: iff the
     input is on CUDA) chooses the CUDA kernels or their plain twins;
     `attn_impl` the swin blocks' attention route (`models/swin.py`:
     'auto' = 'pallas_full', 'pallas', 'pallas_windows', 'einsum'), as
@@ -87,7 +91,7 @@ class TswinPlus(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  input_hw: Tuple[int, int] = (512, 640),
                  kernels: Optional[bool] = None, attn_impl: str = "auto",
-                 whole_block: bool = False):
+                 whole_block: bool = False, classifier: bool = True):
         super().__init__()
         self.num_classes, self.swin_dim = num_classes, swin_dim
         self.dtype, self.kernels = dtype, kernels
@@ -101,22 +105,22 @@ class TswinPlus(nn.Module):
         self.project1 = ProjectBNRelu(swin_dim, dtype=dtype)
         self.project2 = ProjectBNRelu(swin_dim, dtype=dtype)
         self.project3 = ProjectBNRelu(2 * swin_dim, dtype=dtype)
-        self.classifier = Classifier(48 * 3 + 256, num_classes, dtype=dtype)
+        self.classifier = (Classifier(48 * 3 + 256, num_classes, dtype=dtype)
+                           if classifier else None)
 
     def backbone(self, frames: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) frames -> (N, H/8, W/8, swin_dim) features."""
         return self.resnet(frames)
 
-    def head(self, feats: torch.Tensor,
-             layer0_cached: Optional[torch.Tensor] = None,
-             layer0_only: bool = False):
-        """(B, 4, h8, w8, C) feature clip -> (B, classes, h8, w8) fp32
-        logits; with `layer0_cached` also the fresh layer-0 group output,
-        with `layer0_only` just the layer-0 output of one group."""
-        if layer0_only:
-            return self.swin(feats, layer0_only=True)
+    def features(self, feats: torch.Tensor,
+                 layer0_cached: Optional[torch.Tensor] = None):
+        """(B, 4, h8, w8, C) feature clip -> the (B, h8, w8, 400)
+        pre-classifier map in the compute dtype (the JAX `trunk` after the
+        backbone); with `layer0_cached` also the fresh layer-0 group
+        output."""
         B, T, h8, w8, _ = feats.shape
         res_last = feats[:, -1]
+        g_new = None
         if layer0_cached is not None:
             stage1, stage2, g_new = self.swin(feats,
                                               layer0_cached=layer0_cached)
@@ -127,17 +131,33 @@ class TswinPlus(nn.Module):
         p1 = self.project1(res_last)
         p2 = self.project2(s1_last)
         p3 = resize_bilinear(self.project3(s2_last), h8, w8)
-        logits = self.classifier(torch.cat([p1, p2, p3, aspp_up], dim=-1))
-        lcf = logits.float().permute(0, 3, 1, 2).contiguous()
+        return torch.cat([p1, p2, p3, aspp_up], dim=-1), g_new
+
+    def head(self, feats: torch.Tensor,
+             layer0_cached: Optional[torch.Tensor] = None,
+             layer0_only: bool = False):
+        """(B, 4, h8, w8, C) feature clip -> (B, classes, h8, w8) fp32
+        logits; with `layer0_cached` also the fresh layer-0 group output,
+        with `layer0_only` just the layer-0 output of one group."""
+        if layer0_only:
+            return self.swin(feats, layer0_only=True)
+        f, g_new = self.features(feats, layer0_cached)
+        lcf = self.classifier(f).float().permute(0, 3, 1, 2).contiguous()
         if layer0_cached is not None:
             return lcf, g_new
         return lcf
 
     def forward(self, x: torch.Tensor, head_res_logits: bool = False,
-                channels_first_logits: bool = False) -> torch.Tensor:
+                channels_first_logits: bool = False,
+                return_features: bool = False) -> torch.Tensor:
+        """`return_features`: the (B, h8, w8, 400) pre-classifier map in
+        the compute dtype (`stswincl_tpu/models/stswin.py:138-144`)."""
         B, T, H, W, C = x.shape
         feats = self.backbone(x.reshape(B * T, H, W, C))
-        lcf = self.head(feats.reshape(B, T, *feats.shape[1:]))
+        feats = feats.reshape(B, T, *feats.shape[1:])
+        if return_features:
+            return self.features(feats)[0]
+        lcf = self.head(feats)
         if head_res_logits:
             return lcf
         if channels_first_logits:

@@ -2,8 +2,9 @@
 
 Counterpart of `stswincl_tpu/ops/resize.py`: the interpolation matrices,
 the composed model-upsample x eval-resize + argmax,
-`resize_bilinear` (the heads' upsample, torch align_corners=False) and
-`resize_bilinear_cf_matmul` (the training logits' upsample).
+`resize_bilinear` (the heads' upsample, torch align_corners=False),
+`resize_bilinear_cf_matmul` (the training logits' upsample) and
+`resize_nearest` (the contrastive stage's label maps).
 """
 
 from __future__ import annotations
@@ -45,6 +46,23 @@ def resize_bilinear_cf_matmul(x_cf: torch.Tensor, out_h: int,
     y = mh @ x_cf.float().reshape(-1, H, W)
     y = y @ mw.t()
     return y.reshape(*lead, out_h, out_w).to(x_cf.dtype)
+
+
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest resize of (..., H, W, C) with torch index semantics: source
+    index floor(i * H / out_h), the ratio in fp32 as the JAX package
+    computes it (`stswincl_tpu/ops/resize.py:210-225`), which for integer
+    downsampling of label maps picks other pixels than half-pixel
+    'nearest' would."""
+    *lead, H, W, C = x.shape
+    if (H, W) == (out_h, out_w):
+        return x
+
+    def index(n_out, n_in):
+        i = torch.arange(n_out, dtype=torch.float32, device=x.device)
+        return torch.floor(i * torch.tensor(n_in / n_out, dtype=torch.float32)
+                           ).to(torch.int64)
+    return x.index_select(-3, index(out_h, H)).index_select(-2, index(out_w, W))
 
 
 def _interp_matrix(src: torch.Tensor, in_size: int) -> torch.Tensor:

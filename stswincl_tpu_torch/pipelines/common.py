@@ -1,19 +1,23 @@
-"""Model construction from the configs.
+"""Model, dataset and loader construction from the configs.
 
 Counterpart of `stswincl_tpu/pipelines/common.py` (`resolve_dtype`,
-`build_model`). The configs are the port's copies of the JAX package's
-dataclasses (`stswincl_tpu_torch/configs.py`). Data loaders, meshes and
-variable initialisation are not ported yet (ROADMAP Queue 1 item 4).
+`build_model`, `build_contrast_dataset`, `build_loader`). The configs are
+the port's copies of the JAX package's dataclasses
+(`stswincl_tpu_torch/configs.py`). The segmentation datasets and variable
+initialisation are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
+from stswincl_tpu_torch.data.contrastive import ContrastiveClipDataset
+from stswincl_tpu_torch.data.loader import Loader, SyntheticContrastDataset
 from stswincl_tpu_torch.models.stswin import TswinPlus
 
 
@@ -61,3 +65,35 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
                       kernels=False if dtype == torch.float32 else None,
                       attn_impl=model_cfg.attn_impl)
     return model.to(device), num_classes
+
+
+def build_contrast_dataset(cfg: DataConfig):
+    """The six-view dataset the config names: the synthetic set (32
+    samples at `crop_hw`) or `ContrastiveClipDataset` on EndoVis18 or
+    CaDIS."""
+    if cfg.dataset == "synthetic":
+        return SyntheticContrastDataset(length=32, t=cfg.t, hw=cfg.crop_hw,
+                                        num_classes=cfg.num_classes)
+    name = "cadis" if cfg.dataset == "cadis" else "endovis18"
+    return ContrastiveClipDataset(cfg.root, name, tag=cfg.tag,
+                                  crop_hw=cfg.crop_hw,
+                                  rand_augment=cfg.rand_augment)
+
+
+def build_loader(dataset, cfg: DataConfig, shuffle: bool = True,
+                 batch_size: Optional[int] = None,
+                 shard_index: Optional[int] = None,
+                 num_shards: Optional[int] = None) -> Loader:
+    """A `Loader` on `dataset` with the config's batch, seed and workers.
+    The shard index and count default to the torch process group's rank
+    and world size (0 and 1 without one), where the JAX package reads
+    `jax.process_index()` and `jax.process_count()`."""
+    grouped = dist.is_available() and dist.is_initialized()
+    if shard_index is None:
+        shard_index = dist.get_rank() if grouped else 0
+    if num_shards is None:
+        num_shards = dist.get_world_size() if grouped else 1
+    return Loader(dataset, batch_size=batch_size or cfg.batch_size,
+                  shuffle=shuffle, seed=cfg.seed,
+                  num_workers=cfg.num_workers, shard_index=shard_index,
+                  num_shards=num_shards)

@@ -3,23 +3,34 @@
 Counterpart of `stswincl_tpu/pipelines/seg.py`: `make_tx` is the port of
 `_make_tx` (`:61-79`) and reads the port's `SegTrainConfig`
 (`stswincl_tpu_torch/configs.py`); `train_steps` takes N steps from any
-iterable of batches. Evaluation in the loop, checkpoints, warm starts and
-the CLI are not ported yet.
+iterable of batches; `_dump_config` writes a run's config. Evaluation in
+the loop, `run_seg_training`, warm starts and the CLI are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, List, Mapping, Tuple
 
 import torch
 import torch.nn as nn
 
-from stswincl_tpu_torch.configs import SegTrainConfig
+from stswincl_tpu_torch.configs import SegTrainConfig, to_json
 from stswincl_tpu_torch.train.optim import (Schedule, constant_schedule,
                                             make_adam, make_sgd,
                                             poly_schedule, step_schedule,
                                             warmup_cosine_schedule)
 from stswincl_tpu_torch.train.train_seg import SegTrainStep
+from stswincl_tpu_torch.utils.logging import is_main_process
+
+
+def _dump_config(cfg) -> None:
+    """`config.json` in `cfg.log_dir` at the start of a run, on rank 0
+    (`main_pretrain_swinv5.py:251-255`)."""
+    if is_main_process():
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
+            f.write(to_json(cfg))
 
 
 def make_tx(cfg: SegTrainConfig, steps_per_epoch: int, model: nn.Module

@@ -1,17 +1,24 @@
 """The port stands alone: no module of `stswincl_tpu_torch/`, and not
 `chip_smoke.py`, imports JAX, flax or the JAX package; the port's copies
-of the configs and of the CaDIS class table equal the JAX package's; and
-its model builder runs on the card unless asked for the CPU."""
+of the configs, of the CaDIS tables (class counts, video splits, the
+experiment remapping) and of the normalisation constants equal the JAX
+package's; and `build_model` puts the model on the card unless asked
+for the CPU."""
 
 import ast
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 import stswincl_tpu.configs as jconfigs
+import stswincl_tpu.data.cadis as jcadis
+import stswincl_tpu.data.contrastive as jcontrastive
 import stswincl_tpu_torch.configs as pconfigs
+import stswincl_tpu_torch.data.cadis as pcadis
+import stswincl_tpu_torch.data.contrastive as pcontrastive
 from stswincl_tpu.data.cadis import CADIS_CLASS_NUM as J_CADIS
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM as P_CADIS
 from stswincl_tpu_torch.pipelines.common import build_model
@@ -40,7 +47,8 @@ def test_port_imports_nothing_of_jax():
     assert len(sources) > 30
     tools = ROOT / "stswincl_tpu_torch" / "tools"
     assert {tools / "profile_swin_kernels.py",
-            tools / "profile_conv_kernel.py"} <= set(sources)
+            tools / "profile_conv_kernel.py",
+            tools / "profile_contrast.py"} <= set(sources)
     bad = [(str(p.relative_to(ROOT)), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -73,6 +81,25 @@ def test_config_helpers_match(tmp_path):
 
 def test_cadis_class_table_matches():
     assert P_CADIS == J_CADIS
+
+
+def test_cadis_tables_match():
+    for name in ("TRAIN_VIDEOS", "VAL_VIDEOS", "TEST_VIDEOS",
+                 "VIDEO_SPLITS", "_REMAPPINGS"):
+        assert getattr(pcadis, name) == getattr(jcadis, name), name
+    for tag in J_CADIS:
+        np.testing.assert_array_equal(pcadis._remap_lut(tag),
+                                      jcadis._remap_lut(tag))
+
+
+@pytest.mark.parametrize("name", ["IMAGENET_MEAN", "IMAGENET_STD",
+                                  "CENTERNET_MEAN", "CENTERNET_STD"])
+def test_normalisation_constants_match(name):
+    got, want = getattr(pcontrastive, name), getattr(jcontrastive, name)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pcadis.MEAN, jcadis.MEAN)
+    np.testing.assert_array_equal(pcadis.STD, jcadis.STD)
 
 
 def test_build_model_runs_on_the_card_unless_asked_for_the_cpu():
