@@ -25,8 +25,12 @@ stops a phase exits non-zero at once:
      TOL_K4_SHARE of its twin; its bound counts the nonzero products of
      the matrices' spans; two planted faults in its twin (the column
      matrix shifted by one output column, every span missing its last
-     tap) must drop the share of equal pixels to 0.99 or below. K3 and K4
-     also record `device_ms`, the mean of back-to-back calls;
+     tap) must drop the share of equal pixels to 0.99 or below. K4 also at
+     the CaDIS protocol (the model's upsample 64x80 -> 512x640 composed
+     with the half-pixel resize to 540x960, `align_out=False`, 9 classes)
+     at B = 1 and 2, to the same share and with the same two planted
+     faults. K3 and K4 also record `device_ms`, the mean of back-to-back
+     calls;
   2b. hold the backward kernels (K5 attention, K6 epilogue) and K2's
      `m` output against their twins at the full-width training shapes
      (batch 8, and the stage-2 pretraining shapes of phase 2), every output
@@ -144,7 +148,29 @@ stops a phase exits non-zero at once:
      the EMA and the momentum); (b) `run_contrast_pretraining` for one
      epoch of 8 steps: finite losses, the checkpoint read back equal to
      the state, each kernel launched once per block call it serves,
-     ms/step, samples/s and peak memory (`phase_contrast`).
+     ms/step, samples/s and peak memory (`phase_contrast`);
+  9. stage 3, evaluation and the CLI at full width (`phase_eval`): (a)
+     `cli.main(["finetune-cl", "--device", "cuda", ...])` in process on
+     the synthetic set at 512x640, batch 8, 2 epochs of SGD on the poly
+     schedule with `streaming_eval` and an evaluation every epoch,
+     warm-started from a stage-2 checkpoint that `save_checkpoint` writes
+     from a seeded `ContrastEncoder`: the encoder's entries equal the
+     checkpoint's and the classifier keeps its init, the LR equals the
+     poly schedule at every step, finite losses, the latest and `best/`
+     checkpoints, each step's launches exact (K1, K2, K5, K6 14, K3 1,
+     K2's m 8 through the GEMM forms), K4 once an evaluated frame;
+     ms/step, clips/s, peak memory; (b) `test` on that checkpoint through
+     the CLI, streamed and full clip: 7 of 8 frames streamed, the two
+     summaries within TOL_EVAL_METRIC, the full-clip predictions against
+     the plain route's (`kernels=False`) on >= TOL_PLAIN_SHARE of pixels,
+     K4 once a frame, one PNG a frame at the label's size; eval frames/s
+     and `sec_per_frame`; (c) `evaluate_split` streaming on a seeded
+     EndoVis18 test tree (2 sequences of 12 frames, labels RGB at
+     1024x1280 through `labels.json`): frames below t fall back, the rest
+     stream, the summary within TOL_EVAL_METRIC of the plain route's; (d)
+     the same on a seeded CaDIS test video (540x960 raw 36-class labels,
+     tag 1): `eval_hw` becomes (540, 960), K4 at that geometry once a
+     frame, PA / PAC / mIoU within TOL_EVAL_METRIC of the plain route's.
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
@@ -157,7 +183,9 @@ come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
 type and the bytes over 3.35 TB/s, each input read and each output
-written once); the card's name and power limit (`nvidia-smi`); and, last,
+written once), and its launches per fine-tune step (batch 8) and per
+evaluated frame (B = 1, full clip and streamed); the card's name and
+power limit (`nvidia-smi`); and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -181,6 +209,9 @@ TOL_K3_BWD_COS = 0.99  # K3's backward: each gradient's cosine to the fp32 twin
 TOL_STREAM_SHARE = 0.999  # streamed vs full-clip kernel route
 TOL_PLAIN_SHARE = 0.98    # kernel route vs plain route (bf16 rounding)
 BS, H, W, OUT_HW, STEPS = 2, 512, 640, (1024, 1280), 10
+# the CaDIS eval protocol: tag 1's classes (CADIS_CLASS_NUM["1"], ignore
+# included), scored at 540x960
+CADIS_CLASSES, CADIS_HW = 9, (540, 960)
 # train: the kernel route against the plain route after one step
 TOL_TRAIN_LOSS = 1e-2     # relative
 TOL_GRAD_COS = 0.99       # gradient cosines below it are printed
@@ -835,6 +866,49 @@ def main() -> None:
                                                      median_ms))
         del xm
 
+    def k4_case(x, ah, aw, s_h, s_w, exact, case, out_hw):
+        """K4 on logits x with the matrix pair (ah, aw) and its spans,
+        against its twin: the share of equal pixels, both timed."""
+        k4 = functools.partial(upsample_argmax, x, ah, aw, exact,
+                               spans=(s_h, s_w))
+        got, want = k4(), upsample_argmax_ref(x, ah, aw, exact)
+        torch.cuda.synchronize()
+        check(got.shape == (x.shape[0], *out_hw) and got.dtype == torch.int32,
+              f"upsample_argmax {case}: {got.shape} {got.dtype}")
+        share = (got == want).float().mean().item()
+        row = {"case": case,
+               "max_abs_err": (got - want).abs().max().item(),
+               "equal_share": share, "ms": median_ms(k4),
+               "plain_ms": median_ms(
+                   lambda: upsample_argmax_ref(x, ah, aw, exact)),
+               "library_ms": None, "device_ms": device_ms(k4, 20),
+               **bound(*k4_work(x.shape, s_h, s_w),
+                       PEAK_F32 if exact else PEAK_BF16)}
+        results.setdefault("upsample_argmax", []).append(row)
+        print(f"  {'upsample_argmax':22s} {row['case']:34s} equal "
+              f"{share:.6f} kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.3f} ms back to back "
+              f"{row['device_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        check(share >= TOL_K4_SHARE, f"upsample_argmax {row['case']}: "
+              f"{share} of pixels equal < {TOL_K4_SHARE}")
+
+    def k4_faults(x, ah, aw, s_h, s_w, label):
+        """Planted faults in the twin: each must drop the share of equal
+        pixels to 0.99 or below, missing TOL_K4_SHARE's 1e-3 tenfold."""
+        want = upsample_argmax_ref(x, ah, aw)
+        for fault, (fh, fw) in (
+                ("with the column matrix shifted by one output column",
+                 (ah, aw.roll(1, dims=0))),
+                ("with every span missing its last tap",
+                 (without_last_tap(ah, s_h), without_last_tap(aw, s_w)))):
+            share = (upsample_argmax_ref(x, fh, fw) == want).float().mean()
+            print(f"  {'':22s} {label:34s} the twin {fault}: equal "
+                  f"{share.item():.6f}", flush=True)
+            check(share.item() <= 1 - 10 * (1 - TOL_K4_SHARE),
+                  f"upsample_argmax {label}: the twin {fault} keeps "
+                  f"{share.item()} of pixels equal")
+
     lcf = randn(BS, 12, 64, 80, dtype=torch.float32)
     mh, mw = (m.to(dev) for m in composed_matrices(64, 80, (H, W), OUT_HW))
     sh, sw = interp_spans(mh), interp_spans(mw)
@@ -847,44 +921,22 @@ def main() -> None:
                 "dense": (dh_, dw_, interp_spans(dh_), interp_spans(dw_))}
     for (pair, (ah, aw, s_h, s_w)), exact in itertools.product(
             k4_pairs.items(), (False, True)):
-        k4 = functools.partial(upsample_argmax, lcf, ah, aw, exact,
-                               spans=(s_h, s_w))
-        got, want = k4(), upsample_argmax_ref(lcf, ah, aw, exact)
-        torch.cuda.synchronize()
-        check(got.shape == (BS, *OUT_HW) and got.dtype == torch.int32,
-              f"upsample_argmax: {got.shape} {got.dtype}")
-        share = (got == want).float().mean().item()
-        row = {"case": f"{tuple(lcf.shape)} {pair} exact={exact}",
-               "max_abs_err": (got - want).abs().max().item(),
-               "equal_share": share, "ms": median_ms(k4),
-               "plain_ms": median_ms(
-                   lambda: upsample_argmax_ref(lcf, ah, aw, exact)),
-               "library_ms": None, "device_ms": device_ms(k4, 20),
-               **bound(*k4_work(lcf.shape, s_h, s_w),
-                       PEAK_F32 if exact else PEAK_BF16)}
-        results.setdefault("upsample_argmax", []).append(row)
-        print(f"  {'upsample_argmax':22s} {row['case']:34s} equal "
-              f"{share:.6f} kernel {row['ms']:.4f} ms plain "
-              f"{row['plain_ms']:.3f} ms back to back "
-              f"{row['device_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
-        check(share >= TOL_K4_SHARE, f"upsample_argmax {row['case']}: "
-              f"{share} of pixels equal < {TOL_K4_SHARE}")
-    # planted faults in the twin: each must drop the share of equal pixels
-    # to 0.99 or below, missing TOL_K4_SHARE's 1e-3 tenfold
-    want = upsample_argmax_ref(lcf, mh, mw)
-    for fault, (fh, fw) in (
-            ("with the column matrix shifted by one output column",
-             (mh, mw.roll(1, dims=0))),
-            ("with every span missing its last tap",
-             (without_last_tap(mh, sh), without_last_tap(mw, sw)))):
-        share = (upsample_argmax_ref(lcf, fh, fw) == want).float().mean()
-        print(f"  {'':22s} {'composed':34s} the twin {fault}: equal "
-              f"{share.item():.6f}", flush=True)
-        check(share.item() <= 1 - 10 * (1 - TOL_K4_SHARE),
-              f"upsample_argmax: the twin {fault} keeps {share.item()} of "
-              "pixels equal")
-    del want
+        k4_case(lcf, ah, aw, s_h, s_w, exact,
+                f"{tuple(lcf.shape)} {pair} exact={exact}", OUT_HW)
+    k4_faults(lcf, mh, mw, sh, sw, "composed")
+    # the CaDIS protocol (`pipelines/evaluate.eval_resolution`): the
+    # model's half-pixel upsample 64x80 -> 512x640 composed with the
+    # half-pixel eval resize to 540x960 (`align_out=False`), tag 1's
+    # classes, at evaluation's batch 1 and at 2
+    ch, cw = (m.to(dev) for m in composed_matrices(
+        64, 80, (H, W), CADIS_HW, align_out=False))
+    csh, csw = interp_spans(ch), interp_spans(cw)
+    for b in (1, 2):
+        lc = randn(b, CADIS_CLASSES, 64, 80, dtype=torch.float32)
+        k4_case(lc, ch, cw, csh, csw, False,
+                f"{tuple(lc.shape)} cadis -> {CADIS_HW}", CADIS_HW)
+        if b == 1:
+            k4_faults(lc, ch, cw, csh, csw, "cadis")
     print(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1500,6 +1552,12 @@ def main() -> None:
     print(f"phase 8 stage-2 pretraining: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- phase 9: stage 3, evaluation and the CLI ------------------------
+    t0 = time.perf_counter()
+    eval_counts = phase_eval(dev, bf16, smi, wrappers, launches)
+    print(f"phase 9 stage 3, test and the data paths: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     meta = {
         "swin_block_attention": (
             "block_attention.cu",
@@ -1587,6 +1645,10 @@ def main() -> None:
     next(r for r in rows if r["name"] == "patch_merge")["backward"] = k3_bwd
     for r in rows:  # rows 12 and 17: measured yardsticks, not library
         r.update(extras.get(r["name"], {}))  # calls
+        # phase 9: a fine-tune step at batch 8, an evaluated frame at B = 1
+        r["per_finetune_step"] = eval_counts["per_finetune_step"][r["name"]]
+        r["per_eval_frame"] = {mode: counts[r["name"]] for mode, counts
+                               in eval_counts["per_eval_frame"].items()}
     print(json.dumps({"kernels": rows}))
     print(smi)
     if FAILED:
@@ -2107,6 +2169,563 @@ def phase_contrast(dev, bf16, smi, wrappers, launches) -> None:
           f"draw, temperature before / after: {clocks}", flush=True)
     del state
     torch.cuda.empty_cache()
+
+
+# ---- phase 9: stage 3, evaluation and the CLI ------------------------------
+
+# phase 9 (a): the stage-3 run that `finetune-cl` drives: 2 epochs of the
+# synthetic set (64 clips at batch 8: 8 steps an epoch), an evaluation
+# after each, SGD on the poly schedule at the `finetune-cl` defaults' rate
+FT_EPOCHS, FT_STEPS_PER_EPOCH, FT_LR = 2, 8, 1e-3
+FT_ENCODER_SEED = 5   # the stage-2 checkpoint's encoder weights
+# a training step at depths (3, 3) under final_pair_only: 14 swin block
+# calls with grad (6 at stage 1, 8 at stage 2, whose K2 saves m:
+# `mlp_output_saved` at C 1024) and one patch merge
+FT_BLOCKS, FT_M_SAVED, FT_MERGES = 14, 8, 1
+# a summary metric: streamed vs full clip, kernel route vs plain route
+TOL_EVAL_METRIC = 1e-3
+EV_SEQS, EV_FRAMES = (1, 2), 12     # phase 9 (c)'s EndoVis18 test tree
+CADIS_VIDEO, CADIS_FRAMES = 2, 12   # phase 9 (d)'s CaDIS test video
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def metric_diff(a: dict, b: dict) -> float:
+    """The largest difference between two summaries' metrics (numbers and
+    per-class / per-sequence lists, NaN equal to NaN; not the times or
+    frame counts)."""
+    import numpy as np
+    worst = 0.0
+    for k, v in a.items():
+        if k in ("sec_per_frame", "streamed_frames", "frames"):
+            continue
+        x, y = np.asarray(v, np.float64), np.asarray(b[k], np.float64)
+        d = np.where(np.isnan(x) & np.isnan(y), 0.0, np.abs(x - y))
+        worst = max(worst, float(np.nan_to_num(d, nan=np.inf).max()))
+    return worst
+
+
+class EvalSpy:
+    """Stands in for `evaluate_split` where a pipeline calls it: records
+    each call's wall seconds, summary and kernel launches (the counts read
+    before and after it; reading them does not synchronise)."""
+
+    def __init__(self, real, wrappers):
+        self.real, self.wrappers, self.calls = real, wrappers, []
+
+    def __call__(self, *args, **kw):
+        import torch
+        before, forms0 = read_launches(self.wrappers)
+        t = time.perf_counter()
+        summary = self.real(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after, forms1 = read_launches(self.wrappers)
+        self.calls.append({"summary": summary, "wall": wall,
+                           "launches": launch_delta(after, before),
+                           "forms": launch_delta(forms1, forms0)})
+        return summary
+
+
+def pngs(d: str) -> dict:
+    """The PNGs under `d` by file name, as arrays."""
+    import glob
+
+    import numpy as np
+    from PIL import Image
+    return {os.path.basename(p): np.asarray(Image.open(p))
+            for p in sorted(glob.glob(os.path.join(d, "*.png")))}
+
+
+def plain_twin(num_classes, state_dict, dev, input_hw=(H, W)):
+    """The TswinPlus of `ModelConfig()` (full width, bf16) with
+    `state_dict` on the plain twins (`kernels=False`), on the card."""
+    from stswincl_tpu_torch.configs import ModelConfig
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.pipelines.common import resolve_dtype
+    cfg = ModelConfig()
+    m = TswinPlus(num_classes, swin_dim=cfg.swin_dim,
+                  num_heads=cfg.num_heads,
+                  swin_depths=tuple(cfg.swin_depths),
+                  dtype=resolve_dtype(cfg.dtype), input_hw=input_hw,
+                  kernels=False)
+    m.load_state_dict(state_dict)
+    return m.to(dev).eval()
+
+
+def eval_rate(tag, spy_call, smi) -> None:
+    s = spy_call["summary"]
+    print(f"  [{tag}] {s['frames']} frames at B = 1: "
+          f"{s['frames'] / spy_call['wall']:.2f} frames/s over the split "
+          f"(host decode overlapped), sec_per_frame {s['sec_per_frame']:.5f}"
+          f" (median, device work and the copy back) on {smi}", flush=True)
+
+
+def phase_finetune(dev, bf16, smi, wrappers, launches, tmp) -> tuple:
+    """Phase 9 (a): stage 3 through the CLI's `main`, in process.
+
+    A stage-2 checkpoint written with `save_checkpoint` from a seeded
+    `ContrastEncoder` (its query branch) warm-starts `finetune-cl
+    --device cuda data.dataset=synthetic` at 512x640, batch 8, for
+    FT_EPOCHS epochs of SGD on the poly schedule with `streaming_eval` and
+    an evaluation every epoch. Held: the encoder's entries equal the
+    checkpoint's after the warm start and the classifier keeps its init;
+    the LR of both parameter groups equals the poly schedule at every
+    step; finite losses; the latest and `best/` checkpoints; each step's
+    launches exactly what its block calls imply (K1, K2 FT_BLOCKS, K5, K6
+    FT_BLOCKS, K3 FT_MERGES, K2's m FT_M_SAVED through the GEMM forms),
+    none of K4; each evaluation's K4 once a frame. Prints ms/step (CUDA
+    events, median of the steps after the third), clips/s and the peak
+    memory. Returns (the checkpoint directory, the per-step launches)."""
+    import torch
+    from stswincl_tpu_torch import cli
+    from stswincl_tpu_torch.ckpt import latest_step, save_checkpoint
+    from stswincl_tpu_torch.configs import ContrastTrainConfig, DataConfig
+    from stswincl_tpu_torch.models.swin import (PatchMerging,
+                                                SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.ops.add_ln_mlp import mlp_output_saved
+    from stswincl_tpu_torch.pipelines import seg as seg_pipeline
+    from stswincl_tpu_torch.pipelines.contrast import build_contrast_encoder
+    from stswincl_tpu_torch.train import train_seg
+    from stswincl_tpu_torch.train.optim import poly_schedule
+
+    stage2 = os.path.join(tmp, "stage2")
+    enc = build_contrast_encoder(ContrastTrainConfig(data=DataConfig(
+        crop_hw=(H, W), seed=FT_ENCODER_SEED)), 12, dev)
+    save_checkpoint(stage2, 0, {"query": enc.state_dict(), "step": 0})
+    query = {k: v.detach().cpu() for k, v in enc.state_dict().items()}
+    del enc
+    torch.cuda.empty_cache()
+
+    calls = {"block": 0, "grad_block": 0, "merge": 0, "m_saved": 0}
+    warm, steps, hooks = {}, [], []
+
+    def counter(mod, inputs, _):
+        if isinstance(mod, PatchMerging):
+            calls["merge"] += 1
+            return
+        calls["block"] += 1
+        if torch.is_grad_enabled():
+            calls["grad_block"] += 1
+            calls["m_saved"] += mlp_output_saved(
+                inputs[0].shape[-1], mod.mlp.fc1.weight.shape[0], bf16)
+
+    real_warm = seg_pipeline._warm_start
+
+    def spy_warm(cfg, model, logger):
+        warm["init"] = {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}
+        out = real_warm(cfg, model, logger)
+        warm["after"] = {k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+        hooks.extend(m.register_forward_hook(counter) for m in model.modules()
+                     if isinstance(m, (SpaceTimeSwinBlock, PatchMerging)))
+        return out
+
+    real_call = train_seg.SegTrainStep.__call__
+
+    def timed_call(self, images, labels):
+        before, forms0 = read_launches(wrappers)
+        calls0 = dict(calls)
+        step = self.step
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_call(self, images, labels)
+        b.record()
+        after, forms1 = read_launches(wrappers)
+        steps.append({"step": step, "events": (a, b), "loss": out["loss"],
+                      "lrs": [g["lr"] for g in self.opt.param_groups],
+                      "mults": [g["lr_mult"] for g in self.opt.param_groups],
+                      "opt": type(self.opt).__name__,
+                      "launches": launch_delta(after, before),
+                      "forms": launch_delta(forms1, forms0),
+                      "calls": launch_delta(calls, calls0)})
+        return out
+
+    ckpt = os.path.join(tmp, "stage3")
+    argv = ["finetune-cl", "--device", "cuda", "data.dataset=synthetic",
+            f"data.crop_hw=({H},{W})", "data.batch_size=8",
+            "optimizer=sgd", f"lr={FT_LR}", "lr_scheduler=poly",
+            f"num_epochs={FT_EPOCHS}", "eval_every=1", "streaming_eval=true",
+            f"pretrain_checkpoint={stage2}", f"ckpt_dir={ckpt}",
+            f"log_dir={os.path.join(tmp, 'stage3_log')}"]
+    print(f"  (9a) python -m stswincl_tpu_torch.cli {' '.join(argv)}",
+          flush=True)
+    spy = EvalSpy(seg_pipeline.evaluate_split, wrappers)
+    reset_launches(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    with unittest.mock.patch.object(seg_pipeline, "_warm_start", spy_warm), \
+            unittest.mock.patch.object(train_seg.SegTrainStep, "__call__",
+                                       timed_call), \
+            unittest.mock.patch.object(seg_pipeline, "evaluate_split", spy):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+
+    # the warm start: the encoder subtrees from the checkpoint's query
+    # branch, the classifier at its seeded init
+    moved = [k for k, v in warm["after"].items() if not k.startswith(
+        "classifier.") and not torch.equal(v, query["segmentor." + k])]
+    kept = [k for k, v in warm["after"].items() if k.startswith(
+        "classifier.") and torch.equal(v, warm["init"][k])]
+    n_cls = sum(k.startswith("classifier.") for k in warm["after"])
+    print(f"  (9a) warm start: {len(warm['after']) - n_cls} encoder entries "
+          f"from the stage-2 checkpoint ({len(moved)} differ), {len(kept)} "
+          f"of {n_cls} classifier entries at their init", flush=True)
+    check(moved == [] and len(kept) == n_cls > 0,
+          f"finetune: warm start: encoder entries not from the checkpoint "
+          f"{moved[:5]}, classifier entries kept {len(kept)} of {n_cls}")
+
+    n = len(steps)
+    total = FT_EPOCHS * FT_STEPS_PER_EPOCH
+    check(n == total and [s["step"] for s in steps] == list(range(total)),
+          f"finetune: {n} steps, expected {total}")
+    poly = poly_schedule(FT_LR, total)
+    lr_err = max(abs(lr - poly(s["step"]) * m) for s in steps
+                 for lr, m in zip(s["lrs"], s["mults"]))
+    print(f"  (9a) optimizer {steps[0]['opt']}, {len(steps[0]['lrs'])} "
+          f"groups (lr_mult {steps[0]['mults']}); LR by step "
+          f"{[round(s['lrs'][0], 8) for s in steps]}; largest difference "
+          f"from the poly schedule {lr_err:.3e}", flush=True)
+    check(steps[0]["opt"] == "SGD" and lr_err <= 1e-15,
+          f"finetune: {steps[0]['opt']}, LR off the poly schedule by "
+          f"{lr_err}")
+    losses = [float(s["loss"]) for s in steps]
+    check(all(math.isfinite(v) for v in losses), f"finetune losses {losses}")
+    check(latest_step(ckpt) == total
+          and latest_step(os.path.join(ckpt, "best")) is not None,
+          f"finetune: latest checkpoint {latest_step(ckpt)}, best "
+          f"{latest_step(os.path.join(ckpt, 'best'))}")
+
+    per_step = steps[-1]["launches"]
+    for s in steps:
+        got, c = s["launches"], s["calls"]
+        for k, want in (("swin_block_attention", FT_BLOCKS),
+                        ("swin_block_epilogue", FT_BLOCKS),
+                        ("patch_merge", FT_MERGES),
+                        ("swin_block_attention_bwd", FT_BLOCKS),
+                        ("swin_block_epilogue_bwd", FT_BLOCKS),
+                        ("upsample_argmax", 0)):
+            check(got[k] == want, f"finetune step {s['step']}: {k} launched "
+                  f"{got[k]} times, the step implies {want}")
+        check((c["grad_block"], c["merge"], c["m_saved"])
+              == (FT_BLOCKS, FT_MERGES, FT_M_SAVED),
+              f"finetune step {s['step']}: block calls {c}")
+        check_gemm_launches(f"finetune step {s['step']}", got, s["forms"],
+                            m_saved=c["m_saved"])
+    launches["finetune"] = {k: sum(s["launches"][k] for s in steps)
+                            for k in per_step}
+    check(len(spy.calls) == FT_EPOCHS, f"finetune: {len(spy.calls)} "
+          f"evaluations for {FT_EPOCHS} epochs")
+    launches["finetune_eval"] = {k: sum(c["launches"][k] for c in spy.calls)
+                                 for k in per_step}
+    for i, c in enumerate(spy.calls):
+        s = c["summary"]
+        check(c["launches"]["upsample_argmax"] == s["frames"]
+              and s["streamed_frames"] == s["frames"] - 1,
+              f"finetune evaluation {i}: K4 {c['launches']['upsample_argmax']}"
+              f" launches, {s['streamed_frames']} of {s['frames']} frames "
+              "streamed")
+        check_gemm_launches(f"finetune evaluation {i}", c["launches"],
+                            c["forms"], m_saved=0)
+        eval_rate(f"finetune evaluation {i}", c, smi)
+    step_ms = [a.elapsed_time(b) for a, b in (s["events"] for s in steps)]
+    med = statistics.median(step_ms[3:])
+    print(f"  (9a) [pallas_full] stage-3 fine-tune {med:.2f} ms/step median "
+          f"of steps 4-{n} (CUDA events), {8 / (med / 1e3):.2f} clips/s at "
+          f"batch 8, peak {peak / 2**30:.2f} GiB allocated on {smi}; losses "
+          f"{[round(v, 4) for v in losses]}; per-step launches {per_step}",
+          flush=True)
+    return ckpt, per_step
+
+
+def phase_test(dev, smi, wrappers, launches, ckpt, tmp) -> dict:
+    """Phase 9 (b): `test` on phase 9 (a)'s checkpoint through the CLI's
+    `main`, once with `streaming_eval=true` and once without, each
+    dumping its predictions: 7 of the 8 frames streamed, every metric of
+    the two summaries within TOL_EVAL_METRIC, K4 once a frame, one PNG a
+    frame at the label's size; the full-clip predictions against the
+    plain route's (`kernels=False`, the same weights) on >=
+    TOL_PLAIN_SHARE of pixels. Prints eval frames/s and sec_per_frame.
+    Returns the launches per evaluated frame, full clip and streamed."""
+    import numpy as np
+    import torch
+    from stswincl_tpu_torch import cli
+    from stswincl_tpu_torch.ckpt import load_checkpoint
+    from stswincl_tpu_torch.configs import DataConfig, SegTrainConfig
+    from stswincl_tpu_torch.data.loader import SyntheticSegDataset
+    from stswincl_tpu_torch.pipelines import evaluate as evaluate_mod
+
+    spy = EvalSpy(evaluate_mod.evaluate_split, wrappers)
+    viz = {}
+    for streaming in (True, False):
+        viz[streaming] = os.path.join(tmp, f"viz_streaming_{streaming}")
+        argv = ["test", "--device", "cuda", "data.dataset=synthetic",
+                f"data.crop_hw=({H},{W})", f"test_checkpoint={ckpt}",
+                f"streaming_eval={str(streaming).lower()}",
+                f"viz_dir={viz[streaming]}",
+                f"log_dir={os.path.join(tmp, 'test_log')}"]
+        reset_launches(wrappers)
+        with unittest.mock.patch.object(evaluate_mod, "evaluate_split", spy):
+            cli.main(argv)
+        launches[f"test_streaming_{str(streaming).lower()}"] = \
+            spy.calls[-1]["launches"]
+    streamed, full = (c["summary"] for c in spy.calls)
+    diff = metric_diff(streamed, full)
+    print(f"  (9b) test, streamed {streamed}", flush=True)
+    print(f"  (9b) test, full clip {full}", flush=True)
+    print(f"  (9b) streamed vs full clip: largest metric difference "
+          f"{diff:.3e}; {streamed['streamed_frames']} of "
+          f"{streamed['frames']} frames streamed", flush=True)
+    check(streamed["streamed_frames"] == streamed["frames"] - 1,
+          f"test: {streamed['streamed_frames']} of {streamed['frames']} "
+          "frames streamed")
+    check(diff <= TOL_EVAL_METRIC, f"test: streamed vs full clip metrics "
+          f"differ by {diff} > {TOL_EVAL_METRIC}")
+    for c, mode in zip(spy.calls, ("streamed", "full clip")):
+        check(c["launches"]["upsample_argmax"] == c["summary"]["frames"],
+              f"test {mode}: K4 launched {c['launches']['upsample_argmax']} "
+              f"times for {c['summary']['frames']} frames")
+        check_gemm_launches(f"test {mode}", c["launches"], c["forms"],
+                            m_saved=0)
+        eval_rate(f"test {mode}", c, smi)
+    per_frame = {mode: {k: v / c["summary"]["frames"]
+                        for k, v in c["launches"].items()}
+                 for c, mode in zip(spy.calls, ("streamed", "full_clip"))}
+
+    # the plain route on the same weights and frames
+    ds = SyntheticSegDataset(length=8, t=4, hw=(H, W), num_classes=12)
+    label_hw = ds.get(0)["label"].shape
+    dumps = {m: pngs(viz[m]) for m in viz}
+    plain = plain_twin(12, load_checkpoint(ckpt)["model"], dev, (H, W))
+    plain_dir = os.path.join(tmp, "viz_plain")
+    reset_launches(wrappers)
+    evaluate_mod.evaluate_split(plain, ds, SegTrainConfig(
+        data=DataConfig(dataset="synthetic"), viz_dir=plain_dir),
+        streaming=False)
+    plain_launches = read_launches(wrappers)[0]
+    ref = pngs(plain_dir)
+    check(all(len(d) == len(ds) and all(a.shape == (*label_hw, 3)
+                                        for a in d.values())
+              for d in (*dumps.values(), ref)),
+          f"test: viz dumps {[len(d) for d in dumps.values()]} PNGs, not "
+          f"one a frame at {label_hw}")
+    share = float(np.mean([(dumps[False][k] == ref[k]).all(-1).mean()
+                           for k in ref]))
+    print(f"  (9b) kernel route == plain route (full clip): {share:.6f} of "
+          f"pixels over {len(ref)} frames", flush=True)
+    check(share >= TOL_PLAIN_SHARE, f"test: kernel vs plain route {share} "
+          f"< {TOL_PLAIN_SHARE}")
+    check(sum(plain_launches.values()) == 0,
+          f"test: the plain route launched kernels {plain_launches}")
+    del plain
+    torch.cuda.empty_cache()
+    return per_frame
+
+
+def endovis_tree(root: str) -> None:
+    """A seeded EndoVis18-layout test split: `Processed_test/seq_N/
+    left_frames/frame%03d.png` at 512x640, `test/seq_N/labels/
+    frame%03d.png` RGB at 1024x1280 (blocks of the challenge colours, so
+    that PNG encodes fast) and `train/labels.json`."""
+    import numpy as np
+    from PIL import Image
+    from stswincl_tpu_torch.eval.visualization import ENDOVIS_COLORMAP
+    rng = np.random.default_rng(12)
+    os.makedirs(os.path.join(root, "train"))
+    with open(os.path.join(root, "train", "labels.json"), "w") as f:
+        json.dump([{"name": f"class{i}", "color": c.tolist(), "classid": i}
+                   for i, c in enumerate(ENDOVIS_COLORMAP)], f)
+    palette = rng.integers(0, 256, (12, 3))
+    for s in EV_SEQS:
+        imdir = os.path.join(root, "Processed_test", f"seq_{s}",
+                             "left_frames")
+        lbdir = os.path.join(root, "test", f"seq_{s}", "labels")
+        os.makedirs(imdir)
+        os.makedirs(lbdir)
+        for i in range(EV_FRAMES):
+            ids = rng.integers(0, 12, (16, 20))
+            lab = np.kron(ids, np.ones((64, 64), np.int64))
+            Image.fromarray(ENDOVIS_COLORMAP[lab]).save(
+                os.path.join(lbdir, f"frame{i:03d}.png"))
+            img = palette[np.kron(ids, np.ones((32, 32), np.int64))]
+            img = img + rng.integers(-20, 21, (16, 20, 1)).repeat(
+                32, 0).repeat(32, 1)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(imdir, f"frame{i:03d}.png"))
+
+
+def cadis_tree(root: str) -> None:
+    """A seeded CaDIS-layout test video: `Video02/Images/*.png` and
+    `Labels/*.png` at 540x960, the labels in raw 36-class ids (blocks)."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(13)
+    imdir = os.path.join(root, f"Video{CADIS_VIDEO:02d}", "Images")
+    lbdir = os.path.join(root, f"Video{CADIS_VIDEO:02d}", "Labels")
+    os.makedirs(imdir)
+    os.makedirs(lbdir)
+    palette = rng.integers(0, 256, (36, 3))
+    for i in range(CADIS_FRAMES):
+        ids = rng.integers(0, 36, (9, 16))
+        Image.fromarray(np.kron(ids, np.ones((60, 60), np.int64)).astype(
+            np.uint8)).save(os.path.join(lbdir, f"frame{i:04d}.png"))
+        img = palette[np.kron(ids, np.ones((60, 60), np.int64))]
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(imdir, f"frame{i:04d}.png"))
+
+
+def host_split(tag, ds, dataset, call) -> None:
+    """Where an evaluated frame's time goes on the host: decoding one
+    sample (`ds.get`, on the prefetch thread) and scoring one prediction
+    (the metrics, on the loop's thread), medians of 3 on frame 0 against
+    the split's wall time a frame; the card's busy share of a frame is at
+    most sec_per_frame (device work, the copies and the host's launches)
+    over that."""
+    import numpy as np
+    from stswincl_tpu_torch.eval import ConfusionMatrix, EndovisEvaluator
+    sample = ds.get(0)
+    label = sample["label"]
+    pred = np.roll(label, 7, axis=1)
+    get_s, score_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        ds.get(0)
+        get_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        if dataset == "cadis":
+            ConfusionMatrix(CADIS_CLASSES - 1).update(label, pred)
+        else:
+            EndovisEvaluator().update(label, pred, 1)
+        score_s.append(time.perf_counter() - t)
+    frame_s = call["wall"] / call["summary"]["frames"]
+    print(f"  [{tag}] host a frame: decode {statistics.median(get_s):.4f} s "
+          f"(prefetch thread), metrics {statistics.median(score_s):.4f} s; "
+          f"{frame_s:.4f} s a frame over the split, sec_per_frame "
+          f"{call['summary']['sec_per_frame']:.4f} s: the card busy at "
+          f"most {call['summary']['sec_per_frame'] / frame_s:.3f} of a "
+          "frame", flush=True)
+
+
+def phase_datasets(dev, smi, wrappers, launches, ckpt, tmp) -> None:
+    """Phases 9 (c) and (d): `evaluate_split` streaming on seeded EndoVis18
+    and CaDIS test trees (written here), with models warm-started from
+    phase 9 (a)'s checkpoint (`init_checkpoint`: the CaDIS model's last
+    conv has 9 classes and keeps its init). (c): frames below t fall back
+    to a full clip, the rest stream; (d): `eval_hw` becomes (540, 960) and
+    K4 runs at that geometry. Each summary within TOL_EVAL_METRIC of the
+    plain route's (`kernels=False`, the same weights, full clips), K4
+    once a frame."""
+    import logging
+
+    import torch
+    from stswincl_tpu_torch.configs import DataConfig, SegTrainConfig
+    from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
+    from stswincl_tpu_torch.ops import resize
+    from stswincl_tpu_torch.pipelines import seg as seg_pipeline
+    from stswincl_tpu_torch.pipelines.common import (build_model,
+                                                     build_seg_dataset,
+                                                     init_model_variables)
+    from stswincl_tpu_torch.pipelines.evaluate import (eval_resolution,
+                                                       evaluate_split)
+
+    check(CADIS_CLASSES == CADIS_CLASS_NUM["1"], f"CADIS_CLASSES "
+          f"{CADIS_CLASSES} != {CADIS_CLASS_NUM['1']}")
+    logger = logging.getLogger("stswincl")
+    for tag, dataset, write in (("endovis18", "endovis18", endovis_tree),
+                                ("cadis", "cadis", cadis_tree)):
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, tag)
+        write(root)
+        cfg = SegTrainConfig(
+            data=DataConfig(dataset=dataset, root=root, tag="1"),
+            init_checkpoint=ckpt, streaming_eval=True)
+        if dataset == "endovis18":
+            from stswincl_tpu_torch.data.endovis18 import EndovisDataset
+            ds = EndovisDataset(root, "test", sequences=EV_SEQS,
+                                frames_per_seq={s: EV_FRAMES
+                                                for s in EV_SEQS})
+            want_streamed = len(EV_SEQS) * (EV_FRAMES - 5)
+        else:
+            ds = build_seg_dataset(cfg.data, "test")
+            want_streamed = CADIS_FRAMES - 6
+        model, _ = build_model(cfg.model, cfg.data, dev)
+        init_model_variables(model, cfg.data)
+        seg_pipeline._warm_start(cfg, model, logger)
+        eval_hw, align = eval_resolution(cfg)
+        print(f"  (9{'c' if tag == 'endovis18' else 'd'}) [{tag}] "
+              f"{len(ds)} frames written in {time.perf_counter() - t0:.1f} "
+              f"s; eval_hw {eval_hw}, align_corners {align}", flush=True)
+        shapes = []
+        real_k4 = resize.upsample_argmax
+
+        def k4_spy(x, mh, mw, *a, **k):
+            shapes.append((tuple(x.shape), mh.shape[0], mw.shape[0]))
+            return real_k4(x, mh, mw, *a, **k)
+
+        spy = EvalSpy(evaluate_split, wrappers)
+        reset_launches(wrappers)
+        with unittest.mock.patch.object(resize, "upsample_argmax", k4_spy):
+            got = spy(model, ds, cfg)
+        launches[f"eval_{tag}"] = spy.calls[-1]["launches"]
+        plain = plain_twin(model.num_classes, model.state_dict(), dev,
+                           model.input_hw)
+        del model
+        want = evaluate_split(plain, ds, cfg, streaming=False)
+        del plain
+        torch.cuda.empty_cache()
+        diff = metric_diff(got, want)
+        print(f"  [{tag}] kernel route, streamed: {got}", flush=True)
+        print(f"  [{tag}] plain route, full clips: {want}", flush=True)
+        print(f"  [{tag}] largest metric difference {diff:.3e}; "
+              f"{got['streamed_frames']} of {got['frames']} frames streamed;"
+              f" K4 calls {len(shapes)} at {sorted(set(shapes))}",
+              flush=True)
+        eval_rate(f"{tag} streamed", spy.calls[-1], smi)
+        host_split(tag, ds, dataset, spy.calls[-1])
+        check(got["streamed_frames"] == want_streamed
+              and got["frames"] == len(ds),
+              f"{tag}: {got['streamed_frames']} of {got['frames']} frames "
+              f"streamed, expected {want_streamed} of {len(ds)}")
+        check(diff <= TOL_EVAL_METRIC, f"{tag}: kernel vs plain route "
+              f"metrics differ by {diff} > {TOL_EVAL_METRIC}")
+        out_hw = CADIS_HW if dataset == "cadis" else OUT_HW
+        nc = CADIS_CLASSES if dataset == "cadis" else 12
+        check(eval_hw == out_hw and len(shapes) == len(ds)
+              and set(shapes) == {((1, nc, H // 8, W // 8), *out_hw)},
+              f"{tag}: K4 at {set(shapes)}, {len(shapes)} calls for "
+              f"{len(ds)} frames, eval_hw {eval_hw}")
+        check(spy.calls[-1]["launches"]["upsample_argmax"] == len(ds),
+              f"{tag}: K4 launched {spy.calls[-1]['launches']} times")
+
+
+def phase_eval(dev, bf16, smi, wrappers, launches) -> dict:
+    """Phase 9: (a) `phase_finetune`, (b) `phase_test`, (c) and (d)
+    `phase_datasets`, in a temporary directory inside the checkout,
+    deleted at the end. Returns the launches per fine-tune step and per
+    evaluated frame for the kernels line."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        t0 = time.perf_counter()
+        ckpt, per_step = phase_finetune(dev, bf16, smi, wrappers, launches,
+                                        tmp)
+        print(f"phase 9 (a) stage 3 through the CLI: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        per_frame = phase_test(dev, smi, wrappers, launches, ckpt, tmp)
+        print(f"phase 9 (b) test through the CLI: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_datasets(dev, smi, wrappers, launches, ckpt, tmp)
+        print(f"phase 9 (c, d) the EndoVis18 and CaDIS data paths: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"per_finetune_step": per_step, "per_eval_frame": per_frame}
 
 
 def phase_fp32(dev, wrappers, launches) -> None:

@@ -1,4 +1,3 @@
-"""Data of the port: the CaDIS tables (`cadis`), clip augmentations
-(`transforms`), the six-view contrastive sampler (`contrastive`), the
-loader and the synthetic datasets (`loader`). The segmentation datasets
-are not ported yet."""
+"""Data of the port: the segmentation datasets (`endovis18`, `cadis`),
+clip augmentations (`transforms`), the six-view contrastive sampler
+(`contrastive`), the loader and the synthetic datasets (`loader`)."""

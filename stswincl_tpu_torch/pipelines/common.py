@@ -1,10 +1,9 @@
 """Model, dataset and loader construction from the configs.
 
 Counterpart of `stswincl_tpu/pipelines/common.py` (`resolve_dtype`,
-`build_model`, `build_contrast_dataset`, `build_loader`). The configs are
-the port's copies of the JAX package's dataclasses
-(`stswincl_tpu_torch/configs.py`). The segmentation datasets and variable
-initialisation are not ported yet (ROADMAP Queue 1).
+`build_model`, `build_seg_dataset`, `build_contrast_dataset`,
+`build_loader`, `init_model_variables`). The configs are the port's
+copies of the JAX package's dataclasses (`stswincl_tpu_torch/configs.py`).
 """
 
 from __future__ import annotations
@@ -15,14 +14,27 @@ import torch
 import torch.distributed as dist
 
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig
-from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
+from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM, CadisDataset
 from stswincl_tpu_torch.data.contrastive import ContrastiveClipDataset
-from stswincl_tpu_torch.data.loader import Loader, SyntheticContrastDataset
+from stswincl_tpu_torch.data.endovis18 import EndovisDataset
+from stswincl_tpu_torch.data.loader import (Loader, SyntheticContrastDataset,
+                                            SyntheticSegDataset)
+from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.stswin import TswinPlus
 
 
 def resolve_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device on a machine without one
+    raises (the entry points run on the card unless asked for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to "
+                           "run on the CPU")
+    return device
 
 
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
@@ -51,10 +63,7 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     if model_cfg.remat:
         raise NotImplementedError("remat (recomputing the swin blocks in the "
                                   "backward) is not ported yet")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
-                           "to build the model on the CPU")
+    device = resolve_device(device, "build_model")
     dtype = resolve_dtype(model_cfg.dtype)
     model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
                       num_heads=model_cfg.num_heads,
@@ -65,6 +74,31 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
                       kernels=False if dtype == torch.float32 else None,
                       attn_impl=model_cfg.attn_impl)
     return model.to(device), num_classes
+
+
+def init_model_variables(model: TswinPlus, data_cfg: DataConfig
+                         ) -> TswinPlus:
+    """Seed `model`'s weights from `data_cfg.seed` in place (the JAX
+    `init_model_variables` draws them from `jax.random.key(seed)`; the
+    port's draws come from a CPU `torch.Generator`, so they do not depend
+    on the device). Returns the model."""
+    return init_weights(model, torch.Generator().manual_seed(data_cfg.seed))
+
+
+def build_seg_dataset(cfg: DataConfig, split: str):
+    """The segmentation dataset the config names for `split`: the
+    synthetic set (64 train / 8 eval clips at `crop_hw`), `CadisDataset`
+    or `EndovisDataset`."""
+    if cfg.dataset == "synthetic":
+        return SyntheticSegDataset(
+            length=64 if split == "train" else 8, t=cfg.t,
+            hw=cfg.crop_hw, num_classes=cfg.num_classes)
+    if cfg.dataset == "cadis":
+        return CadisDataset(cfg.root, split, tag=cfg.tag, t=cfg.t,
+                            step=cfg.step, crop_hw=cfg.crop_hw,
+                            base_hw=cfg.base_hw)
+    return EndovisDataset(cfg.root, split, t=cfg.t, crop_hw=cfg.crop_hw,
+                          base_hw=cfg.base_hw, num_classes=cfg.num_classes)
 
 
 def build_contrast_dataset(cfg: DataConfig):

@@ -23,7 +23,8 @@ from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
 from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.pixpro import ContrastEncoder
 from stswincl_tpu_torch.pipelines.common import (build_contrast_dataset,
-                                                 build_loader, resolve_dtype)
+                                                 build_loader, resolve_device,
+                                                 resolve_dtype)
 from stswincl_tpu_torch.pipelines.seg import _dump_config
 from stswincl_tpu_torch.train.optim import (make_lars, scale_lr_linear,
                                             warmup_cosine_schedule)
@@ -57,10 +58,7 @@ def run_contrast_pretraining(cfg: ContrastTrainConfig,
     `cfg.init_checkpoint`: a port checkpoint directory whose latest step
     holds the stage-1 model's `state_dict` under "model"; its encoder
     subtrees initialise the encoder's `segmentor` (both branches)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_contrast_pretraining: no CUDA device; pass "
-                           "device='cpu' to train on the CPU")
+    device = resolve_device(device, "run_contrast_pretraining")
     logger = setup_logger(cfg.log_dir)
     metrics_log = MetricLogger(cfg.log_dir)
     _dump_config(cfg)

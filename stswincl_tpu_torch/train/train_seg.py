@@ -1,19 +1,21 @@
-"""Supervised segmentation training step (stages 1 and 3).
+"""Supervised segmentation training step (stages 1 and 3) and the eval step.
 
 Counterpart of `stswincl_tpu/train/train_seg.py`: OHEM cross-entropy (or
 plain CE, Dice, BCE), computed in fp32 on the model's logits; the model
 computes in its own dtype (bf16 on the card) with fp32 parameters, so no
 loss scaler is needed; BatchNorm uses batch statistics and updates its
-running ones; the LR schedule is applied per step.
+running ones; the LR schedule is applied per step. `make_seg_eval_step`
+maps a clip to its class map at the scoring resolution.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from stswincl_tpu_torch.ops.resize import composed_upsample_argmax_cf
 from stswincl_tpu_torch.ops.ohem import (ohem_cross_entropy_channels_first,
                                          per_pixel_ce_channels_first)
 from stswincl_tpu_torch.train.optim import Schedule, apply_schedule
@@ -119,3 +121,46 @@ def make_seg_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     return SegTrainStep(model, opt, schedule, loss_type, ohem_n_min,
                         ohem_thresh, ignore_index)
 
+
+def make_seg_eval_step(model: nn.Module,
+                       out_hw: Optional[Tuple[int, int]] = None,
+                       align_corners: bool = True,
+                       head_res_logits: bool = True,
+                       exact: Optional[bool] = None) -> Callable:
+    """Eval step: a clip (B, T, H, W, 3) (numpy or torch) -> (B, OH, OW)
+    int32 class map on the model's device, under `torch.inference_mode()`
+    with the model in eval mode.
+
+    EndoVis scores with align_corners=True (`seg18/test.py:155`), CaDIS
+    with False (`segcata/cata_test.py:129`). With `head_res_logits`
+    (`TswinPlus`) the model returns channels-first head-resolution logits,
+    and its upsample to the input resolution is composed with the eval
+    resize to `out_hw` into one matrix pair: K4
+    (`composed_upsample_argmax_cf`) takes the argmax, which equals the
+    argmax of the softmax, and no full-resolution logits are made. False
+    is the path of a model without that keyword: its (B, H', W', C)
+    logits are resized from their own resolution. `exact` (None: iff the
+    model computes in fp32) keeps the resize in fp32."""
+    if exact is None:
+        exact = getattr(model, "dtype", torch.float32) == torch.float32
+    kernels = getattr(model, "kernels", None)
+
+    @torch.inference_mode()
+    def eval_step(images) -> torch.Tensor:
+        model.eval()
+        device = next(model.parameters()).device
+        x = torch.as_tensor(images, device=device).float()
+        mid = (x.shape[-3], x.shape[-2])
+        if head_res_logits:
+            lcf = model(x, head_res_logits=True)
+            hw = out_hw if out_hw is not None else mid
+        else:
+            logits = model(x)
+            lcf = logits.permute(0, 3, 1, 2)
+            mid = tuple(logits.shape[-3:-1])
+            hw = out_hw if out_hw is not None else mid
+        return composed_upsample_argmax_cf(lcf, mid, hw,
+                                           align_out=align_corners,
+                                           exact=exact, kernels=kernels)
+
+    return eval_step

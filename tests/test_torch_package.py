@@ -16,9 +16,11 @@ import torch
 import stswincl_tpu.configs as jconfigs
 import stswincl_tpu.data.cadis as jcadis
 import stswincl_tpu.data.contrastive as jcontrastive
+import stswincl_tpu.data.endovis18 as jendovis
 import stswincl_tpu_torch.configs as pconfigs
 import stswincl_tpu_torch.data.cadis as pcadis
 import stswincl_tpu_torch.data.contrastive as pcontrastive
+import stswincl_tpu_torch.data.endovis18 as pendovis
 from stswincl_tpu.data.cadis import CADIS_CLASS_NUM as J_CADIS
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM as P_CADIS
 from stswincl_tpu_torch.pipelines.common import build_model
@@ -45,10 +47,19 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     sources = _port_sources()
     assert len(sources) > 30
-    tools = ROOT / "stswincl_tpu_torch" / "tools"
+    port = ROOT / "stswincl_tpu_torch"
+    tools = port / "tools"
     assert {tools / "profile_swin_kernels.py",
             tools / "profile_conv_kernel.py",
             tools / "profile_contrast.py"} <= set(sources)
+    assert {port / "cli.py", port / "data" / "endovis18.py",
+            port / "data" / "cadis.py", port / "eval" / "__init__.py",
+            port / "eval" / "metrics_endovis.py",
+            port / "eval" / "metrics_cadis.py",
+            port / "eval" / "visualization.py",
+            port / "ckpt" / "torch_import.py",
+            port / "pipelines" / "evaluate.py",
+            port / "pipelines" / "seg.py"} <= set(sources)
     bad = [(str(p.relative_to(ROOT)), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -90,6 +101,11 @@ def test_cadis_tables_match():
     for tag in J_CADIS:
         np.testing.assert_array_equal(pcadis._remap_lut(tag),
                                       jcadis._remap_lut(tag))
+
+
+def test_endovis_tables_match():
+    for name in ("TRAIN_SEQUENCES", "TRAIN_FRAMES", "TEST_FRAMES"):
+        assert getattr(pendovis, name) == getattr(jendovis, name), name
 
 
 @pytest.mark.parametrize("name", ["IMAGENET_MEAN", "IMAGENET_STD",
