@@ -170,7 +170,34 @@ stops a phase exits non-zero at once:
      stream, the summary within TOL_EVAL_METRIC of the plain route's; (d)
      the same on a seeded CaDIS test video (540x960 raw 36-class labels,
      tag 1): `eval_hw` becomes (540, 960), K4 at that geometry once a
-     frame, PA / PAC / mIoU within TOL_EVAL_METRIC of the plain route's.
+     frame, PA / PAC / mIoU within TOL_EVAL_METRIC of the plain route's;
+  10. the rest of the user's pipeline (`phase_rest`), at full width, on
+     trees the phase writes: (a) `prepare_endovis.main` on a raw
+     EndoVis18 release (1024x1280 frames and RGB labels, `labels.json`):
+     the processed tree 640x512, labels decoded and subsampled, read by
+     `EndovisDataset`, host seconds a frame; (b) the DeepLab pre-stage
+     through `cli.main(["train-seg", "--device", "cuda",
+     "model.arch=puredeeplab18", "data.t=1", ...])` at batch 8: finite
+     losses, no swin-stack kernel in a step, K4 once an evaluated frame on
+     DeepLab's head-resolution logits, kernel vs plain route on >=
+     TOL_PLAIN_SHARE of pixels, `best/` written, ms/step; (c) stage 1
+     through the CLI warm-started from (b) with `model.remat=true`: the
+     resnet entries (b)'s, the rest as the tolerant merge gives them,
+     each step's launches exactly REMAT_STEP (the forward kernels twice a
+     block call); (d) remat against no remat on phase 4's batch and
+     weights, and with `whole_block`: the loss bit-equal, the gradients
+     within phase 4's gate, the peak memory lower, ms/step of both, a
+     planted fault (one block's remat without the graph) missing the
+     gate tenfold, another (its recompute one bf16 ulp off) printed;
+     (e) stage 2 through `cli.main(["pretrain-contrast", ...,
+     "data.rand_augment=rand-m9-mstd0.5"])` on a contrast tree: finite
+     losses, 255 label pixels from the geometric ops reaching the loss
+     and left out of it, launches per block call, host seconds a sample
+     with and without the augment; (f) `DeepLabV3Plus(layers=50)`: one
+     bf16 train step at batch 2, one evaluated frame, K4 once; (g)
+     `utils.profiling`: `device_trace` around two steps of (c) holds
+     their `annotate` ranges and CUDA kernel events, `StepTimer` agrees
+     with CUDA events within TOL_STEP_TIMER.
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
@@ -183,8 +210,9 @@ come three lines: a JSON object with each kernel's launches by path,
 error, times and the least time the card could take for the same work
 (`bound_ms`: the larger of the operations over the dense peak for their
 type and the bytes over 3.35 TB/s, each input read and each output
-written once), and its launches per fine-tune step (batch 8) and per
-evaluated frame (B = 1, full clip and streamed); the card's name and
+written once), and its launches per fine-tune step (batch 8), per
+evaluated frame (B = 1, full clip and streamed), per stage-1 step with
+remat (batch 8) and per evaluated DeepLabV3+ frame; the card's name and
 power limit (`nvidia-smi`); and, last,
 {"ok": true, "device": {...}}.
 """
@@ -497,7 +525,8 @@ def read_launches(wrappers) -> tuple:
     return counts, forms
 
 
-def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
+def check_gemm_launches(tag, counts, forms, m_saved=None,
+                        m_used=None) -> None:
     """The GEMM launches the library counted on a path against those that
     the kernels' own launches imply: K1 two bf16 products (qkv, proj); K2
     fc1 (bf16) and fc2 (bf16 m where the training forward saves it, else
@@ -508,7 +537,9 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
     bf16 products (fc1, fc2); row 16 none (its products run inside its one
     launch); row 17 one "conv" product a call. `m_saved`: the block calls
     whose K2 saves m and whose K6 takes it (0 where nothing is trained;
-    None where the path does not say)."""
+    None where the path does not say); `m_used`, where it differs, the
+    K6 launches that take a saved m (with remat K2 saves m in the forward
+    and again in the recompute, and K6 takes one of them)."""
     k1, k2 = counts["swin_block_attention"], counts["swin_block_epilogue"]
     k3 = counts["patch_merge"]
     k5 = counts["swin_block_attention_bwd"]
@@ -524,8 +555,9 @@ def check_gemm_launches(tag, counts, forms, m_saved=None) -> None:
              ("wgrad", forms["wgrad"], 2 * (k5 + k6)),
              ("conv", forms["conv"], counts["conv3x3_bn_act"])]
     if m_saved is not None:
+        m_used = m_saved if m_used is None else m_used
         rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),
-                  ("gelu_bwd", forms["gelu_bwd"], m_saved if k6 else 0)]
+                  ("gelu_bwd", forms["gelu_bwd"], m_used if k6 else 0)]
     print(f"  [{tag}] Hopper GEMM launches by form (counted in the library):"
           f" {forms}", flush=True)
     for what, got, want in rules:
@@ -1515,7 +1547,7 @@ def main() -> None:
 
     # ---- phases 4, 4d and 4e: train --------------------------------------
     t0 = time.perf_counter()
-    phase_train(dev, bf16, smi, wrappers, route_kernel, launches)
+    control4 = phase_train(dev, bf16, smi, wrappers, route_kernel, launches)
     print(f"phases 4, 4d and 4e train: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1556,6 +1588,12 @@ def main() -> None:
     t0 = time.perf_counter()
     eval_counts = phase_eval(dev, bf16, smi, wrappers, launches)
     print(f"phase 9 stage 3, test and the data paths: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 10: the rest of the pipeline ------------------------------
+    t0 = time.perf_counter()
+    rest_counts = phase_rest(dev, bf16, smi, wrappers, launches, control4)
+    print(f"phase 10 the rest of the pipeline: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     meta = {
@@ -1649,6 +1687,11 @@ def main() -> None:
         r["per_finetune_step"] = eval_counts["per_finetune_step"][r["name"]]
         r["per_eval_frame"] = {mode: counts[r["name"]] for mode, counts
                                in eval_counts["per_eval_frame"].items()}
+        # phase 10: a stage-1 step with remat at batch 8 (c), an evaluated
+        # DeepLabV3+ frame at B = 1 (b)
+        r["per_remat_step"] = rest_counts["per_remat_step"][r["name"]]
+        r["per_deeplab_eval_frame"] = rest_counts[
+            "per_deeplab_eval_frame"][r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     if FAILED:
@@ -2826,9 +2869,14 @@ def noise_share(cosines, control):
 
 
 def cosines_of(grads_k, grads_p) -> dict:
-    return {n: (grads_k[n].float().flatten() @ gp.float().flatten()
-                / (grads_k[n].float().norm() * gp.float().norm())).item()
-            for n, gp in grads_p.items()}
+    """Each gradient's cosine to its counterpart; 0 where either is zero
+    (a gradient that never arrived)."""
+    out = {}
+    for n, gp in grads_p.items():
+        a, b = grads_k[n].float().flatten(), gp.float().flatten()
+        den = (a.norm() * b.norm()).item()
+        out[n] = (a @ b).item() / den if den > 0 else 0.0
+    return out
 
 
 def hold_gradients(tag, route, grads_k, grads_p, zero_grad, few, control,
@@ -2908,9 +2956,11 @@ def gpu_clocks() -> str:
 
 
 def phase_train(dev, bf16, smi, wrappers, route_kernel, launches,
-                route_seed=ROUTE_TRAIN_SEED) -> None:
+                route_seed=ROUTE_TRAIN_SEED) -> dict:
     """Phases 4, 4d and 4e, the latter two on the batch of `route_seed`;
-    each train path's launches go into `launches`."""
+    each train path's launches go into `launches`. Returns phase 4's
+    control cosines (the 'pallas_windows' kernel route against its plain
+    form on the phase-4 batch), which phase 10 (d) holds remat to."""
     import torch
     import torch.utils.checkpoint
     from stswincl_tpu_torch.configs import SegTrainConfig
@@ -3156,6 +3206,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches,
     # K1's qkv and proj GEMMs and its backward, K5.
     batch = batches[3]
     _, control = compare_routes("pallas_windows", "(4 control)", *batch)
+    control4 = control
     train_path("pallas_full", TRAIN_STEPS, "(b, c)",
                compare_routes("pallas_full", "(a)", *batch, control=control,
                               plant_image_pool=True)[0], *batch)
@@ -3190,6 +3241,941 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches,
               f" not held): highest three {top}", flush=True)
     train_path("pallas_full", ROUTE_TRAIN_STEPS, "(4e)", peak, *batch,
                whole_block=True)
+    return control4
+
+
+# ---- phase 10: the rest of the pipeline -------------------------------------
+
+# (a) the raw EndoVis18 release the phase writes: train and test sequences
+# of 1024x1280 frames with RGB labels. The datasets' sequence and frame
+# tables (the real release's 15 x 149 train and 4 x ~250 test frames) are
+# set to this tree's while the CLI runs (the CLI has no option for them).
+P10_SEQS, P10_TRAIN_FRAMES, P10_TEST_FRAMES = (1, 2), 8, 3
+# (b) the DeepLab pre-stage and (c) stage 1 with remat: 16 train clips at
+# batch 8, 2 steps an epoch; one evaluation, after the last epoch
+P10_DEEPLAB_EPOCHS, P10_REMAT_EPOCHS = 2, 3
+P10_STEPS_PER_EPOCH = len(P10_SEQS) * P10_TRAIN_FRAMES // 8
+# (c) a stage-1 step with remat: each swin block call's forward kernels run
+# twice (the forward, and its recompute in the backward); the patch merge
+# (K3) is outside the checkpoint; the backward kernels run once a call
+REMAT_STEP = {"swin_block_attention": 2 * FT_BLOCKS,
+              "swin_block_epilogue": 2 * FT_BLOCKS,
+              "patch_merge": FT_MERGES,
+              "swin_block_attention_bwd": FT_BLOCKS,
+              "swin_block_epilogue_bwd": FT_BLOCKS, "upsample_argmax": 0}
+# (g) steps 1-3 of (c) timed by `StepTimer` (step 0 skipped) and CUDA
+# events, which must agree within TOL_STEP_TIMER; steps 4-5 traced
+P10_TIMED, P10_TRACED = (1, 2, 3), (4, 5)
+TOL_STEP_TIMER = 0.10
+# (d) the block whose remat the planted faults break
+P10_FAULT_BLOCK = "layers_1_w"
+P10_GATE_STEPS = 3   # timed steps after each gate step
+# (e) stage 2 with RandAugment on a contrast tree of 4 sequences (3 other
+# videos give the negative clips), 4 anchor frames each: 16 samples, 4
+# steps at batch 4. An anchor frame f < 4 reads the frames up to f + 4
+# (the sampler's future-frame fallback), so 8 frames a sequence are on disk
+P10_CONTRAST_SEQS, P10_CONTRAST_FRAMES = (1, 2, 3, 4), 4
+P10_CONTRAST_ON_DISK = P10_CONTRAST_FRAMES + 4
+RAND_AUGMENT = "rand-m9-mstd0.5"
+# a DeepLabV3+ step runs none of the swin stack's kernels
+SWIN_ROWS = ("swin_block_attention", "swin_block_epilogue", "patch_merge",
+             "swin_block_attention_bwd", "swin_block_epilogue_bwd",
+             "windowed_attention_image", "fused_window_attention",
+             "whole_swin_block", "linear_sm90", "gelu_bwd_sm90",
+             "wgrad_sm90")
+
+
+def raw_endovis_release(root: str) -> dict:
+    """A seeded raw EndoVis18 release as `prepare_endovis` reads it:
+    `train/labels.json` (the challenge colours), `{train,test}/seq_N/
+    left_frames/frame%03d.png` RGB at 1024x1280 and `labels/frame%03d.png`
+    RGB colour labels (16 x 20 blocks of 64 pixels, each a class, so that
+    PNG encodes fast): P10_TRAIN_FRAMES train frames a sequence, and
+    P10_TEST_FRAMES scored test frames plus the 3 after them that their
+    clips read. Returns the class-id blocks by (split, seq, frame)."""
+    import numpy as np
+    from PIL import Image
+    from stswincl_tpu_torch.eval.visualization import ENDOVIS_COLORMAP
+    rng = np.random.default_rng(14)
+    os.makedirs(os.path.join(root, "train"))
+    with open(os.path.join(root, "train", "labels.json"), "w") as f:
+        json.dump([{"name": f"class{i}", "color": c.tolist(), "classid": i}
+                   for i, c in enumerate(ENDOVIS_COLORMAP)], f)
+    palette = rng.integers(0, 256, (12, 3))
+    ids_of = {}
+    # a scored test frame below t reads the t - 1 frames after it
+    for split, n in (("train", P10_TRAIN_FRAMES),
+                     ("test", P10_TEST_FRAMES + 3)):
+        for s in P10_SEQS:
+            imdir = os.path.join(root, split, f"seq_{s}", "left_frames")
+            lbdir = os.path.join(root, split, f"seq_{s}", "labels")
+            os.makedirs(imdir)
+            os.makedirs(lbdir)
+            for i in range(n):
+                ids = rng.integers(0, 12, (16, 20))
+                ids_of[split, s, i] = ids
+                block = np.ones((64, 64), np.int64)
+                Image.fromarray(ENDOVIS_COLORMAP[np.kron(ids, block)]).save(
+                    os.path.join(lbdir, f"frame{i:03d}.png"))
+                img = palette[np.kron(ids, block)] + rng.integers(
+                    -20, 21, (16, 20, 1)).repeat(64, 0).repeat(64, 1)
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    os.path.join(imdir, f"frame{i:03d}.png"))
+    return ids_of
+
+
+@contextlib.contextmanager
+def endovis_tables():
+    """The EndoVis18 dataset's sequence and frame tables set to the tree
+    of `raw_endovis_release` (train: P10_SEQS x P10_TRAIN_FRAMES; test:
+    P10_SEQS x P10_TEST_FRAMES, sequences 3-4 empty)."""
+    from stswincl_tpu_torch.data import endovis18
+    test = {s: (P10_TEST_FRAMES if s in P10_SEQS else 0)
+            for s in endovis18.TEST_FRAMES}
+    with unittest.mock.patch.object(endovis18, "TRAIN_SEQUENCES", P10_SEQS), \
+            unittest.mock.patch.object(endovis18, "TRAIN_FRAMES",
+                                       P10_TRAIN_FRAMES), \
+            unittest.mock.patch.object(endovis18, "TEST_FRAMES", test):
+        yield
+
+
+def phase_prepare(tmp) -> str:
+    """Phase 10 (a): `prepare_endovis.main` (the `python -m
+    stswincl_tpu_torch.data.prepare_endovis` entry point) on the raw
+    release the phase writes, both splits, into the same root (the test
+    split's labels stay raw, where `EndovisDataset` reads them). Held:
+    every processed frame 640x512 RGB, every train label a 640x512
+    class-id PNG equal to the raw label decoded and subsampled 2x, and
+    the processed tree read by `EndovisDataset` (train clips (4, 512, 640,
+    3) with (512, 640) labels, test labels at 1024x1280). Prints the host
+    seconds a frame. Returns the root."""
+    import numpy as np
+    from PIL import Image
+    from stswincl_tpu_torch.data import prepare_endovis
+    from stswincl_tpu_torch.data.endovis18 import EndovisDataset
+    root = os.path.join(tmp, "endovis18")
+    t = time.perf_counter()
+    ids_of = raw_endovis_release(root)
+    written = time.perf_counter() - t
+    secs = {}
+    for split in ("train", "test"):
+        t = time.perf_counter()
+        prepare_endovis.main(["--src", root, "--dst", root, "--split", split])
+        secs[split] = time.perf_counter() - t
+    n_train = len(P10_SEQS) * P10_TRAIN_FRAMES
+    n_test = len(P10_SEQS) * P10_TEST_FRAMES
+    n_raw_test = len(P10_SEQS) * (P10_TEST_FRAMES + 3)
+    print(f"  (10a) raw release written in {written:.1f} s; prepare_endovis "
+          f"{secs['train'] / n_train:.4f} s a train frame (resize + colour "
+          f"decode of the 1024x1280 label + 2x subsampling), "
+          f"{secs['test'] / n_raw_test:.4f} s a test frame (resize), on the "
+          "host", flush=True)
+    bad = []
+    for (split, s, i), ids in ids_of.items():
+        sub = "Processed_train" if split == "train" else "Processed_test"
+        d = os.path.join(root, sub, f"seq_{s}")
+        im = Image.open(os.path.join(d, "left_frames", f"frame{i:03d}.png"))
+        if im.size != (640, 512) or im.mode != "RGB":
+            bad.append(f"{split} {s} {i} image {im.size} {im.mode}")
+        if split == "train":
+            lab = Image.open(os.path.join(d, "labels",
+                                          f"grayframe{i:03d}.png"))
+            want = np.kron(ids, np.ones((32, 32), np.int64))
+            if lab.size != (640, 512) or not np.array_equal(
+                    np.asarray(lab), want):
+                bad.append(f"train {s} {i} label {lab.size}")
+    check(bad == [], f"prepare_endovis: processed tree wrong at {bad[:5]}")
+    with endovis_tables():
+        train = EndovisDataset(root, "train")
+        test = EndovisDataset(root, "test")
+        a = train.get(0, np.random.default_rng(0))
+        b = test.get(len(test) - 1)
+    check(len(train) == n_train and len(test) == n_test
+          and a["image"].shape == (4, H, W, 3) and a["label"].shape == (H, W)
+          and b["label"].shape == OUT_HW and b["label"].max() < 12,
+          f"prepare_endovis: EndovisDataset reads {len(train)} / "
+          f"{len(test)} samples, {a['image'].shape}, {a['label'].shape}, "
+          f"{b['label'].shape}")
+    return root
+
+
+def seg_cli(argv, wrappers, step_probe=None) -> dict:
+    """`cli.main(argv)` in process with every count set to 0 first, its
+    train steps, warm start, evaluations and K4 calls spied. Returns
+    {"steps": each step's loss, CUDA events and launches (and GEMM forms),
+    "calls": the swin block calls with grad of each step, "evals":
+    `EvalSpy` calls, "k4": K4's (input shape, OH, OW) a call, "warm": the
+    model's state before and after the warm start, "peak": bytes}.
+    `step_probe(i)` gives a context manager that each step i runs in."""
+    import torch
+    from stswincl_tpu_torch import cli
+    from stswincl_tpu_torch.models.swin import (PatchMerging,
+                                                SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.ops import resize
+    from stswincl_tpu_torch.ops.add_ln_mlp import mlp_output_saved
+    from stswincl_tpu_torch.pipelines import seg as seg_pipeline
+    from stswincl_tpu_torch.train import train_seg
+
+    out = {"steps": [], "k4": [], "warm": {}}
+    calls = {"grad_block": 0, "merge": 0, "m_saved": 0}
+    hooks = []
+
+    def counter(mod, inputs, _):
+        if not torch.is_grad_enabled():
+            return
+        if isinstance(mod, PatchMerging):
+            calls["merge"] += 1
+            return
+        calls["grad_block"] += 1
+        calls["m_saved"] += mlp_output_saved(
+            inputs[0].shape[-1], mod.mlp.fc1.weight.shape[0],
+            torch.bfloat16)
+
+    real_warm = seg_pipeline._warm_start
+
+    def spy_warm(cfg, model, logger):
+        out["warm"]["init"] = {k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()}
+        r = real_warm(cfg, model, logger)
+        out["warm"]["after"] = {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()}
+        hooks.extend(m.register_forward_hook(counter) for m in model.modules()
+                     if isinstance(m, (SpaceTimeSwinBlock, PatchMerging)))
+        return r
+
+    real_call = train_seg.SegTrainStep.__call__
+
+    def timed_call(self, images, labels):
+        i = len(out["steps"])
+        probe = (step_probe(i) if step_probe is not None
+                 else contextlib.nullcontext())
+        before, forms0 = read_launches(wrappers)
+        calls0 = dict(calls)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with probe:
+            a.record()
+            m = real_call(self, images, labels)
+            b.record()
+        after, forms1 = read_launches(wrappers)
+        out["steps"].append({"events": (a, b), "loss": m["loss"],
+                             "shape": tuple(images.shape),
+                             "launches": launch_delta(after, before),
+                             "forms": launch_delta(forms1, forms0),
+                             "calls": launch_delta(calls, calls0)})
+        return m
+
+    real_k4 = resize.upsample_argmax
+
+    def k4_spy(x, mh, mw, *a, **k):
+        out["k4"].append((tuple(x.shape), mh.shape[0], mw.shape[0]))
+        return real_k4(x, mh, mw, *a, **k)
+
+    spy = EvalSpy(seg_pipeline.evaluate_split, wrappers)
+    reset_launches(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    with unittest.mock.patch.object(seg_pipeline, "_warm_start", spy_warm), \
+            unittest.mock.patch.object(train_seg.SegTrainStep, "__call__",
+                                       timed_call), \
+            unittest.mock.patch.object(seg_pipeline, "evaluate_split", spy), \
+            unittest.mock.patch.object(resize, "upsample_argmax", k4_spy), \
+            endovis_tables():
+        cli.main(argv)
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["evals"] = spy.calls
+    for h in hooks:
+        h.remove()
+    return out
+
+
+def step_rate(tag, run, batch, smi, first=1) -> float:
+    """Print a CLI run's median ms/step (CUDA events, the steps from
+    `first`), clips/s and peak memory; returns the ms."""
+    ms = [a.elapsed_time(b) for a, b in (s["events"] for s in run["steps"])]
+    med = statistics.median(ms[first:])
+    print(f"  {tag} {med:.2f} ms/step median of steps {first + 1}-{len(ms)} "
+          f"(CUDA events; all {[round(v, 1) for v in ms]}), "
+          f"{batch / (med / 1e3):.2f} clips/s at batch {batch}, peak "
+          f"{run['peak'] / 2**30:.2f} GiB allocated on {smi}", flush=True)
+    return med
+
+
+def phase_deeplab(dev, smi, wrappers, launches, root, tmp) -> tuple:
+    """Phase 10 (b): the DeepLab ResNet-init pre-stage through the CLI,
+    `train-seg --device cuda model.arch=puredeeplab18 data.t=1` on (a)'s
+    tree at batch 8 and 512x640 (the pipeline's optimiser, Adam 3e-4,
+    OHEM), P10_DEEPLAB_EPOCHS epochs, then its evaluation with the
+    predictions dumped. Held: finite losses, no swin-stack kernel or
+    Hopper GEMM launched in a step, K4 once an evaluated frame on
+    DeepLab's head-resolution logits ((1, 12, 64, 80) -> 1024x1280), the
+    predictions against those of the plain route (`kernels=False`, the
+    same weights) on >= TOL_PLAIN_SHARE of pixels with no launch there,
+    and the `best/` checkpoint. Prints ms/step, clips/s, peak memory.
+    Returns (the best checkpoint, the launches an evaluated frame)."""
+    import numpy as np
+    import torch
+    from stswincl_tpu_torch.ckpt import latest_step, load_checkpoint
+    from stswincl_tpu_torch.configs import DataConfig, SegTrainConfig
+    from stswincl_tpu_torch.models import DeepLabV3Plus
+    from stswincl_tpu_torch.pipelines.evaluate import evaluate_split
+    from stswincl_tpu_torch.pipelines.common import build_seg_dataset
+
+    ckpt = os.path.join(tmp, "deeplab")
+    viz = os.path.join(tmp, "deeplab_viz")
+    argv = ["train-seg", "--device", "cuda", f"data.root={root}",
+            "model.arch=puredeeplab18", "data.t=1", "lr=3e-4",
+            "optimizer=adam", "loss=ohem", f"num_epochs={P10_DEEPLAB_EPOCHS}",
+            f"eval_every={P10_DEEPLAB_EPOCHS}", f"viz_dir={viz}",
+            f"ckpt_dir={ckpt}", f"log_dir={os.path.join(tmp, 'deeplab_log')}"]
+    print(f"  (10b) python -m stswincl_tpu_torch.cli {' '.join(argv)}",
+          flush=True)
+    run = seg_cli(argv, wrappers)
+    steps = run["steps"]
+    n = P10_DEEPLAB_EPOCHS * P10_STEPS_PER_EPOCH
+    losses = [float(s["loss"]) for s in steps]
+    print(f"  (10b) losses {[round(v, 5) for v in losses]}; first step's "
+          f"launches {steps[0]['launches'] if steps else None}", flush=True)
+    check(len(steps) == n and all(s["shape"] == (8, 1, H, W, 3)
+                                  for s in steps),
+          f"deeplab: {len(steps)} steps of {[s['shape'] for s in steps]}")
+    check(all(math.isfinite(v) for v in losses), f"deeplab losses {losses}")
+    for i, s in enumerate(steps):
+        swin = {k: s["launches"][k] for k in SWIN_ROWS if s["launches"][k]}
+        check(swin == {} and s["launches"]["upsample_argmax"] == 0,
+              f"deeplab step {i}: launched {swin}")
+    launches["deeplab_train"] = {k: sum(s["launches"][k] for s in steps)
+                                 for k in wrappers}
+    best = os.path.join(ckpt, "best")
+    check(len(run["evals"]) == 1 and latest_step(best) == n,
+          f"deeplab: {len(run['evals'])} evaluations, best checkpoint at "
+          f"{latest_step(best)}")
+    ev = run["evals"][-1]
+    frames = ev["summary"]["frames"]
+    launches["deeplab_eval"] = ev["launches"]
+    print(f"  (10b) evaluation {ev['summary']}; K4 calls "
+          f"{sorted(set(run['k4']))}", flush=True)
+    check(frames == len(P10_SEQS) * P10_TEST_FRAMES
+          and ev["launches"]["upsample_argmax"] == frames
+          and run["k4"] == [((1, 12, H // 8, W // 8), *OUT_HW)] * frames,
+          f"deeplab eval: K4 {ev['launches']['upsample_argmax']} launches "
+          f"at {set(run['k4'])} for {frames} frames")
+    check(all(ev["launches"][k] == 0 for k in SWIN_ROWS),
+          f"deeplab eval launched {ev['launches']}")
+    eval_rate("10b deeplab", ev, smi)
+    step_rate("(10b) [DeepLabV3+ ResNet18-OS8] pre-stage", run, 8, smi)
+
+    # the plain route (K4's twin) on the best weights and the same frames
+    plain = DeepLabV3Plus(12, width=64, dtype=torch.bfloat16, kernels=False)
+    plain.load_state_dict(load_checkpoint(best)["model"])
+    plain = plain.to(dev).eval()
+    plain_dir = os.path.join(tmp, "deeplab_viz_plain")
+    cfg = SegTrainConfig(data=DataConfig(root=root, t=1), viz_dir=plain_dir)
+    reset_launches(wrappers)
+    with endovis_tables():
+        evaluate_split(plain, build_seg_dataset(cfg.data, "test"), cfg)
+    plain_launches = read_launches(wrappers)[0]
+    got, ref = pngs(viz), pngs(plain_dir)
+    share = float(np.mean([(got[k] == ref[k]).all(-1).mean() for k in ref]))
+    print(f"  (10b) kernel route == plain route: {share:.6f} of pixels over "
+          f"{len(ref)} frames", flush=True)
+    check(len(ref) == len(got) == frames and share >= TOL_PLAIN_SHARE,
+          f"deeplab: kernel vs plain route {share} over {len(ref)} frames")
+    check(sum(plain_launches.values()) == 0,
+          f"deeplab: the plain route launched {plain_launches}")
+    del plain
+    torch.cuda.empty_cache()
+    return best, {k: v / frames for k, v in ev["launches"].items()}
+
+
+class RematProbe:
+    """Phase 10 (g) inside (c)'s CLI run: steps P10_TIMED under a
+    `StepTimer` (its first skipped), steps P10_TRACED inside one
+    `device_trace`, each in an `annotate` range."""
+
+    def __init__(self, trace_dir):
+        from stswincl_tpu_torch.utils.profiling import StepTimer
+        self.trace_dir = trace_dir
+        self.timer = StepTimer(skip_first=1)
+        self.stack = contextlib.ExitStack()
+
+    @contextlib.contextmanager
+    def __call__(self, i):
+        from stswincl_tpu_torch.utils.profiling import annotate, device_trace
+        if i == P10_TRACED[0]:
+            self.stack.enter_context(device_trace(self.trace_dir))
+        if i in (0,) + P10_TIMED:
+            with self.timer:
+                yield
+        else:
+            with annotate(f"remat_step_{i}"):
+                yield
+        if i == P10_TRACED[-1]:
+            self.stack.close()
+
+
+def phase_remat(dev, smi, wrappers, launches, root, deeplab_best,
+                tmp) -> dict:
+    """Phase 10 (c) and (g): stage 1 through the CLI, warm-started from
+    (b)'s checkpoint, with remat: `train-seg --device cuda
+    init_checkpoint=<(b)/best> model.remat=true` on (a)'s tree, batch 8,
+    P10_REMAT_EPOCHS epochs. Held: every `resnet.*` entry equal to (b)'s
+    checkpoint, every other entry what the tolerant merge gives (the
+    checkpoint's where name and shape agree, else the seeded init: the
+    swin stack and the projections at their init); each step's launches
+    exactly REMAT_STEP (the forward kernels twice a block call, K3 once,
+    K5 and K6 once) and its GEMM forms, K2's m form twice a stage-2
+    block; finite losses. (g): `device_trace` around steps P10_TRACED
+    writes a Chrome trace holding their `annotate` ranges and CUDA kernel
+    events; `StepTimer.summary()` over steps P10_TIMED within
+    TOL_STEP_TIMER of their CUDA-event median. Returns the launches of
+    one step."""
+    import glob
+
+    import torch
+    from stswincl_tpu_torch.ckpt import load_checkpoint
+    from stswincl_tpu_torch.ckpt.checkpoint import _merge
+
+    ckpt = os.path.join(tmp, "stage1_remat")
+    trace_dir = os.path.join(tmp, "trace")
+    probe = RematProbe(trace_dir)
+    argv = ["train-seg", "--device", "cuda", f"data.root={root}",
+            "data.batch_size=8", "data.t=4", "lr=3e-4", "optimizer=adam",
+            "loss=ohem", f"num_epochs={P10_REMAT_EPOCHS}",
+            f"eval_every={P10_REMAT_EPOCHS}", "model.remat=true",
+            f"init_checkpoint={deeplab_best}", f"ckpt_dir={ckpt}",
+            f"log_dir={os.path.join(tmp, 'stage1_remat_log')}"]
+    print(f"  (10c) python -m stswincl_tpu_torch.cli {' '.join(argv)}",
+          flush=True)
+    run = seg_cli(argv, wrappers, probe)
+    steps = run["steps"]
+
+    # the warm start from the DeepLab checkpoint
+    prev = load_checkpoint(deeplab_best)["model"]
+    init, after = run["warm"]["init"], run["warm"]["after"]
+    skipped = []
+    want = _merge(init, prev, skipped)
+    wrong = [k for k in after if not torch.equal(after[k], want[k])]
+    resnet = [k for k in after if k.startswith("resnet.")]
+    moved = [k for k in resnet if not torch.equal(after[k], prev[k])]
+    fresh = [k for k in after if k.startswith(("swin.", "project"))
+             and not torch.equal(after[k], init[k])]
+    loaded = sorted(k for k in after if not k.startswith("resnet.")
+                    and k in prev and torch.equal(after[k], prev[k]))
+    print(f"  (10c) warm start from the DeepLab checkpoint: {len(resnet)} "
+          f"resnet entries ({len(moved)} differ from it); of the rest, "
+          f"{len(loaded)} of matching name and shape loaded {loaded}; "
+          f"{len(skipped)} skipped by the merge", flush=True)
+    check(wrong == [] and moved == [] and fresh == [] and len(resnet) > 0,
+          f"remat warm start: off the merge {wrong[:5]}, resnet entries not "
+          f"from the checkpoint {moved[:5]}, swin / projections not at "
+          f"their init {fresh[:5]}")
+
+    # launches a step
+    n = P10_REMAT_EPOCHS * P10_STEPS_PER_EPOCH
+    losses = [float(s["loss"]) for s in steps]
+    check(len(steps) == n, f"remat: {len(steps)} steps, expected {n}")
+    check(all(math.isfinite(v) for v in losses), f"remat losses {losses}")
+    for i, s in enumerate(steps):
+        got, c = s["launches"], s["calls"]
+        for k, want_n in REMAT_STEP.items():
+            check(got[k] == want_n, f"remat step {i}: {k} launched {got[k]} "
+                  f"times, the step implies {want_n}")
+        check((c["grad_block"], c["merge"], c["m_saved"])
+              == (FT_BLOCKS, FT_MERGES, FT_M_SAVED),
+              f"remat step {i}: block calls {c}")
+        check_gemm_launches(f"remat step {i}", got, s["forms"],
+                            m_saved=2 * c["m_saved"], m_used=c["m_saved"])
+    per_step = steps[P10_TIMED[0]]["launches"]
+    launches["train_remat"] = {k: sum(s["launches"][k] for s in steps)
+                               for k in per_step}
+    launches["train_remat_eval"] = run["evals"][-1]["launches"]
+    print(f"  (10c) losses {[round(v, 5) for v in losses]}; per-step "
+          f"launches {per_step}", flush=True)
+    step_rate("(10c) [pallas_full remat] stage 1 through the CLI", run, 8,
+              smi)
+
+    # (g) the timer against the events, and the trace
+    ev_ms = [steps[i]["events"][0].elapsed_time(steps[i]["events"][1])
+             for i in P10_TIMED]
+    summary = probe.timer.summary()
+    rel = abs(summary["p50_s"] * 1e3 - statistics.median(ev_ms)) \
+        / statistics.median(ev_ms)
+    print(f"  (10g) StepTimer {summary} against CUDA events {ev_ms} ms "
+          f"(median {statistics.median(ev_ms):.2f}): rel {rel:.4f}",
+          flush=True)
+    check(summary["steps"] == len(P10_TIMED) and rel <= TOL_STEP_TIMER,
+          f"StepTimer p50 {summary.get('p50_s')} s against CUDA events "
+          f"{ev_ms} ms: rel {rel}")
+    files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    events = []
+    for f in files:
+        with open(f) as fh:
+            events += json.load(fh).get("traceEvents", [])
+    ranges = {e.get("name") for e in events
+              if str(e.get("name", "")).startswith("remat_step_")}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e.get("name", "")[:40] for e in kernels})
+    print(f"  (10g) device_trace: {len(files)} file(s), {len(events)} events,"
+          f" ranges {sorted(ranges)}, {len(kernels)} CUDA kernel events "
+          f"({len(names)} names, e.g. {names[:4]})", flush=True)
+    check(len(files) == 1 and ranges == {f"remat_step_{i}"
+                                         for i in P10_TRACED}
+          and len(kernels) > 0,
+          f"device_trace: {len(files)} files, ranges {ranges}, "
+          f"{len(kernels)} kernel events")
+    return per_step
+
+
+def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
+    """Phase 10 (d): remat against no remat on phase 4's batch 8 and
+    weights (`SegTrainConfig`'s stage-1 step, 'pallas_full'). Held: the
+    loss bit-equal (the recompute runs the same kernels on the same
+    input); each gradient's 1 - cosine against the non-remat route's
+    within phase 4's gate against `control` (phase 4's control route)
+    and the cosine floor (`hold_gradients`); the peak memory lower with
+    remat. The same with `whole_block`. Printed: the bit-equal
+    gradients, ms/step of both (CUDA events, P10_GATE_STEPS steps after
+    the gate step), and the same step run twice without remat (the
+    backward's run-to-run spread). Planted faults in the remat of one
+    block (P10_FAULT_BLOCK): its forward without the graph (a remat that
+    never connects the block to the backward) must miss the gate
+    tenfold; its recompute fed an input one bf16 ulp off is printed with
+    its factor."""
+    import torch
+    import torch.utils.checkpoint
+    from stswincl_tpu_torch.configs import SegTrainConfig
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.aspp import ConvBNRelu
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    cfg = SegTrainConfig()
+    kw = dict(num_classes=cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
+              num_heads=cfg.model.num_heads,
+              swin_depths=tuple(cfg.model.swin_depths),
+              gelu_exact=cfg.model.gelu_exact, dtype=bf16, input_hw=(H, W))
+    init_state = init_weights(TswinPlus(**kw),
+                              torch.Generator().manual_seed(0)).state_dict()
+    images, labels = seeded_batch(cfg.data.batch_size, seed=3)
+    images = torch.from_numpy(images).to(dev)
+    labels = torch.from_numpy(labels).to(dev).long()
+
+    def run(remat, whole_block=False, fault=None, timed=0):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = TswinPlus(**kw, remat=remat, whole_block=whole_block)
+        model.load_state_dict(init_state)
+        model = model.to(dev)
+        if fault is not None:
+            fault(model)
+        opt, schedule = make_tx(cfg, 1 + timed, model)
+        step = make_seg_train_step(model, opt, schedule, cfg.loss,
+                                   ohem_thresh=cfg.ohem_thresh)
+        grads = {}
+        hook = opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: (p.grad.detach().clone() if p.grad is not None
+                 else torch.zeros_like(p))
+             for n, p in model.named_parameters()}))
+        few = set()
+        with few_value_batchnorms(model, few):
+            loss = step(images, labels)["loss"].item()
+        hook.remove()
+        peak = torch.cuda.max_memory_allocated()
+        ms = []
+        for _ in range(timed):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(images, labels)
+            b.record()
+            ms.append((a, b))
+        torch.cuda.synchronize()
+        zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
+                     if isinstance(mod, ConvBNRelu)}
+        del model, step, opt
+        return {"loss": loss, "grads": grads, "peak": peak, "few": few,
+                "zero_grad": zero_grad,
+                "ms": [a.elapsed_time(b) for a, b in ms]}
+
+    def bit_equal(ga, gb) -> dict:
+        """Bit-equal gradients / all, by top-level module."""
+        out = {}
+        for n in ga:
+            top = n.split(".")[0]
+            eq, tot = out.get(top, (0, 0))
+            out[top] = (eq + torch.equal(ga[n], gb[n]), tot + 1)
+        return out
+
+    reset_launches(wrappers)
+    base = run(False, timed=P10_GATE_STEPS)
+    remat = run(True, timed=P10_GATE_STEPS)
+    launches["remat_gates"] = read_launches(wrappers)[0]
+    # the backward's run-to-run spread: the same step again, no remat
+    again = run(False)
+    for wb in (False, True):
+        if wb:
+            reset_launches(wrappers)
+            a, b = run(False, whole_block=True), run(True, whole_block=True)
+            c, _ = read_launches(wrappers)
+            launches["remat_gates"] = {k: launches["remat_gates"][k] + c[k]
+                                       for k in c}
+            route = "pallas_full whole_block, remat"
+        else:
+            a, b = base, remat
+            route = "pallas_full, remat"
+        print(f"  (10d) [{route}] loss without remat {a['loss']!r}, with "
+              f"{b['loss']!r}; gradients bit-equal by module (equal, all): "
+              f"{bit_equal(a['grads'], b['grads'])}; peak "
+              f"{a['peak'] / 2**30:.2f} GiB without, "
+              f"{b['peak'] / 2**30:.2f} GiB with remat on {smi}", flush=True)
+        if not wb:
+            spread = cosines_of(again["grads"], {
+                n: g for n, g in base["grads"].items()
+                if n not in base["zero_grad"]})
+            low = sorted(spread.items(), key=lambda kv: kv[1])[:3]
+            print(f"  (10d) [pallas_full] the same step twice without remat:"
+                  f" loss {again['loss']!r}; gradients bit-equal by module "
+                  f"{bit_equal(again['grads'], base['grads'])}; lowest "
+                  f"cosines {low} (the backward's run-to-run spread)",
+                  flush=True)
+        check(a["loss"] == b["loss"], f"{route}: loss {b['loss']!r} with "
+              f"remat, {a['loss']!r} without: a forward kernel is not "
+              "deterministic")
+        check(b["peak"] < a["peak"], f"{route}: peak {b['peak']} with remat,"
+              f" {a['peak']} without")
+        hold_gradients("(10d)", route, b["grads"], a["grads"],
+                       a["zero_grad"], a["few"] | b["few"], control)
+    for tag, r in (("without remat", base), ("with remat", remat)):
+        print(f"  (10d) [pallas_full] {tag}: "
+              f"{statistics.median(r['ms']):.2f} ms/step median of "
+              f"{len(r['ms'])} (CUDA events: {[round(v, 1) for v in r['ms']]}"
+              f"), peak {r['peak'] / 2**30:.2f} GiB allocated on {smi}",
+              flush=True)
+
+    # planted faults in one block's remat
+    def no_graph(model):
+        blk = getattr(model.swin, P10_FAULT_BLOCK)
+
+        def forward(x, out_frame=None):
+            with torch.no_grad():
+                return blk.block(x, out_frame)
+        blk.forward = forward
+
+    def recompute_off_by_one_ulp(model):
+        blk = getattr(model.swin, P10_FAULT_BLOCK)
+        n_calls = [0]
+
+        def fn(x, out_frame):
+            n_calls[0] += 1
+            if n_calls[0] % 2 == 0:  # the recompute in the backward
+                x = (x.detach().contiguous().view(torch.int16) + 1).view(
+                    x.dtype)
+            return blk.block(x, out_frame)
+
+        def forward(x, out_frame=None):
+            return torch.utils.checkpoint.checkpoint(
+                fn, x, out_frame, use_reentrant=False)
+        blk.forward = forward
+
+    for name, fault in (("its forward without the graph", no_graph),
+                        ("its recompute fed x one bf16 ulp off",
+                         recompute_off_by_one_ulp)):
+        f = run(True, fault=fault)
+        share = noise_share(cosines_of(f["grads"], {
+            n: g for n, g in base["grads"].items()
+            if n not in base["zero_grad"]}), control)
+        top = sorted(share.items(), key=lambda kv: -kv[1])[:3]
+        blk = {n: c for n, c in cosines_of(f["grads"], remat["grads"]).items()
+               if n.startswith(f"swin.{P10_FAULT_BLOCK}.")}
+        low = sorted(blk.items(), key=lambda kv: kv[1])[:2]
+        print(f"  (10d) planted fault, {P10_FAULT_BLOCK} with {name}: 1 - cos"
+              f" over the gate's bound, highest three {top}; the block's "
+              f"lowest cosines to the sound remat run's {low}", flush=True)
+        if fault is no_graph:
+            check(top[0][1] >= 10.0, f"remat planted fault ({name}) moves "
+                  f"the gated gradients by only {top[0][1]} of their bound")
+    torch.cuda.empty_cache()
+
+
+def contrast_release(root: str) -> None:
+    """A seeded EndoVis18 stage-2 tree: `Processed_train/seq_N/
+    left_frames/frame%03d.png` RGB at 270x480 (the sampler's source size)
+    and `labels/grayframe%03d.png` class ids (blocks of 30 pixels),
+    P10_CONTRAST_ON_DISK frames a sequence."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(15)
+    palette = rng.integers(0, 256, (12, 3))
+    for s in P10_CONTRAST_SEQS:
+        d = os.path.join(root, "Processed_train", f"seq_{s}")
+        os.makedirs(os.path.join(d, "left_frames"))
+        os.makedirs(os.path.join(d, "labels"))
+        for i in range(P10_CONTRAST_ON_DISK):
+            ids = np.kron(rng.integers(0, 12, (9, 16)),
+                          np.ones((30, 30), np.int64))
+            img = palette[ids] + rng.integers(-20, 21, ids.shape + (1,))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, "left_frames", f"frame{i:03d}.png"))
+            Image.fromarray(ids.astype(np.uint8)).save(
+                os.path.join(d, "labels", f"grayframe{i:03d}.png"))
+
+
+def phase_rand_augment(dev, smi, wrappers, launches, tmp) -> None:
+    """Phase 10 (e): stage 2 through the CLI with RandAugment,
+    `pretrain-contrast --device cuda data.dataset=endovis18 data.root=...
+    data.rand_augment=rand-m9-mstd0.5` (`ContrastTrainConfig`'s batch 4 at
+    256x448) for one epoch of a contrast tree the phase writes (the
+    sampler's sequence and frame tables set to the tree's: the CLI has no
+    option for them). Held: the sampler built with the config's augment;
+    finite losses; the labels reaching the class-sum loss hold 255 pixels
+    (label pixels that the geometric ops warped in from outside the
+    frame), all outside the loss's valid pixels; each kernel launched
+    once per block call it serves. Prints the host seconds a sample with
+    and without the augment, and samples/s."""
+    import numpy as np
+    import torch
+    from stswincl_tpu_torch import cli
+    from stswincl_tpu_torch.configs import DataConfig
+    from stswincl_tpu_torch.data.contrastive import ContrastiveClipDataset
+    from stswincl_tpu_torch.data.loader import _seeded_rng
+    from stswincl_tpu_torch.models.swin import (PatchMerging,
+                                                SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.pipelines import contrast as contrast_pipeline
+    from stswincl_tpu_torch.train import train_contrast as tc
+
+    root = os.path.join(tmp, "contrast")
+    contrast_release(root)
+    frames = {s: P10_CONTRAST_FRAMES for s in P10_CONTRAST_SEQS}
+    built = []
+
+    def dataset(cfg):
+        ds = ContrastiveClipDataset(
+            cfg.root, "endovis18", tag=cfg.tag, crop_hw=cfg.crop_hw,
+            rand_augment=cfg.rand_augment, sequences=P10_CONTRAST_SEQS,
+            frames_per_seq=frames)
+        built.append((cfg.rand_augment, ds.clip_augment is not None))
+        return ds
+
+    calls = {"block": 0, "grad_block": 0, "merge": 0}
+    hooks, steps, fills = [], [], []
+
+    def counter(mod, inputs, _):
+        if isinstance(mod, PatchMerging):
+            calls["merge"] += 1
+            return
+        calls["block"] += 1
+        calls["grad_block"] += torch.is_grad_enabled()
+
+    real_encoder = contrast_pipeline.build_contrast_encoder
+
+    def encoder(cfg, class_num, device):
+        model = real_encoder(cfg, class_num, device)
+        hooks.extend(m.register_forward_hook(counter) for m in model.modules()
+                     if isinstance(m, (SpaceTimeSwinBlock, PatchMerging)))
+        return model
+
+    real_loss = tc.class_sum_contrastive_loss
+
+    def loss_spy(q, q_labels, keys, class_num):
+        valid = (q_labels >= 0) & (q_labels < class_num)
+        fills.append(((q_labels == 255).sum().item(),
+                      ((q_labels == 255) & valid).sum().item(),
+                      sum((kl == 255).sum().item() for _, kl in keys)))
+        return real_loss(q, q_labels, keys, class_num)
+
+    real_call = tc.ContrastTrainStep.__call__
+
+    def timed_call(self, clips, labels):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_call(self, clips, labels)
+        b.record()
+        steps.append({"events": (a, b), "loss": out["loss"],
+                      "fill": (labels == 255).sum().item()})
+        return out
+
+    argv = ["pretrain-contrast", "--device", "cuda", "data.dataset=endovis18",
+            f"data.root={root}", f"data.rand_augment={RAND_AUGMENT}",
+            "num_epochs=1", f"ckpt_dir={os.path.join(tmp, 'contrast_ckpt')}",
+            f"log_dir={os.path.join(tmp, 'contrast_log')}"]
+    print(f"  (10e) python -m stswincl_tpu_torch.cli {' '.join(argv)}",
+          flush=True)
+    reset_launches(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with unittest.mock.patch.object(contrast_pipeline,
+                                    "build_contrast_dataset", dataset), \
+            unittest.mock.patch.object(contrast_pipeline,
+                                       "build_contrast_encoder", encoder), \
+            unittest.mock.patch.object(tc, "class_sum_contrastive_loss",
+                                       loss_spy), \
+            unittest.mock.patch.object(tc.ContrastTrainStep, "__call__",
+                                       timed_call):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches["contrast_rand_augment"], forms = read_launches(wrappers)
+    for h in hooks:
+        h.remove()
+    got = launches["contrast_rand_augment"]
+    n = len(P10_CONTRAST_SEQS) * P10_CONTRAST_FRAMES // CONTRAST_BATCH
+    losses = [float(s["loss"]) for s in steps]
+    q_fill = sum(f[0] for f in fills)
+    print(f"  (10e) sampler {built}; {len(steps)} steps, losses "
+          f"{[round(v, 5) for v in losses]}; 255 label pixels a step at the "
+          f"crop size {[s['fill'] for s in steps]}, at the loss: {q_fill} "
+          f"in the query views ({sum(f[1] for f in fills)} counted valid), "
+          f"{sum(f[2] for f in fills)} in the key sets; launches {got}",
+          flush=True)
+    check(built == [(RAND_AUGMENT, True)], f"rand_augment: sampler {built}")
+    check(len(steps) == n and all(math.isfinite(v) for v in losses),
+          f"rand_augment: {len(steps)} steps, losses {losses}")
+    check(q_fill > 0 and sum(f[1] for f in fills) == 0,
+          f"rand_augment: {q_fill} 255 pixels reach the loss, "
+          f"{sum(f[1] for f in fills)} of them counted valid")
+    for k, want in (("swin_block_attention", calls["block"]),
+                    ("swin_block_epilogue", calls["block"]),
+                    ("patch_merge", calls["merge"]),
+                    ("swin_block_attention_bwd", calls["grad_block"]),
+                    ("swin_block_epilogue_bwd", calls["grad_block"])):
+        check(got[k] == want and want > 0, f"rand_augment: {k} launched "
+              f"{got[k]} times for {want} calls")
+    check(calls["block"] == n * 8 * FT_BLOCKS, f"rand_augment: block calls "
+          f"{calls}")
+    ms = [a.elapsed_time(b) for a, b in (s["events"] for s in steps)]
+    med = statistics.median(ms[1:])
+
+    # the sampler's host cost a sample, with and without the augment
+    per = {}
+    for aug in (None, RAND_AUGMENT):
+        ds = ContrastiveClipDataset(root, "endovis18", crop_hw=CONTRAST_HW,
+                                    rand_augment=aug,
+                                    sequences=P10_CONTRAST_SEQS,
+                                    frames_per_seq=frames)
+        secs = []
+        for i in range(3):
+            t = time.perf_counter()
+            ds.get(i * 5, _seeded_rng(0, 0, i))
+            secs.append(time.perf_counter() - t)
+        per[aug] = statistics.median(secs)
+    print(f"  (10e) [pallas_full] stage 2 with RandAugment: {med:.2f} ms/step"
+          f" median of steps 2-{len(ms)} (CUDA events; all "
+          f"{[round(v, 1) for v in ms]}), {CONTRAST_BATCH / (med / 1e3):.2f} "
+          f"samples/s on the card, {n * CONTRAST_BATCH / wall:.2f} samples/s "
+          f"over the run's {wall:.1f} s (the loader's "
+          f"{DataConfig().num_workers} workers, the model build and the "
+          f"checkpoint included), peak {peak / 2**30:.2f} GiB on {smi}; host "
+          f"s a sample (6 views of 4 frames, one process): "
+          f"{per[None]:.4f} without the augment, {per[RAND_AUGMENT]:.4f} "
+          "with", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_deeplab50(dev, bf16, smi, wrappers, launches) -> None:
+    """Phase 10 (f): `DeepLabV3Plus(layers=50)` (ResNet50-OS16, the
+    256-branch ASPP) in bf16 from seeded weights: one stage-1 train step
+    at batch 2 and 512x640 (Adam, OHEM on the NHWC logits) with a finite
+    loss and no swin-stack kernel, then one evaluated frame through
+    `make_seg_eval_step` at the EndoVis protocol: K4 once on the
+    (1, 12, 32, 40) head-resolution logits, a (1, 1024, 1280) class map in
+    [0, 12)."""
+    import torch
+    from stswincl_tpu_torch.configs import SegTrainConfig
+    from stswincl_tpu_torch.models import DeepLabV3Plus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import (make_seg_eval_step,
+                                                    make_seg_train_step)
+    cfg = SegTrainConfig()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_weights(DeepLabV3Plus(12, layers=50, dtype=bf16),
+                         torch.Generator().manual_seed(6)).to(dev)
+    images, labels = seeded_batch(2, seed=6)
+    images = torch.from_numpy(images[:, -1:]).to(dev)
+    labels = torch.from_numpy(labels).to(dev).long()
+    opt, schedule = make_tx(cfg, 1, model)
+    step = make_seg_train_step(model, opt, schedule, cfg.loss,
+                               ohem_thresh=cfg.ohem_thresh)
+    reset_launches(wrappers)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    loss = step(images, labels)["loss"]
+    b.record()
+    torch.cuda.synchronize()
+    launches["deeplab50_train"] = read_launches(wrappers)[0]
+    check(math.isfinite(loss.item()) and sum(
+        launches["deeplab50_train"].values()) == 0,
+        f"deeplab50: loss {loss.item()}, launches "
+        f"{launches['deeplab50_train']}")
+    shapes = []
+    from stswincl_tpu_torch.ops import resize
+    real_k4 = resize.upsample_argmax
+
+    def k4_spy(x, mh, mw, *a_, **k):
+        shapes.append((tuple(x.shape), mh.shape[0], mw.shape[0]))
+        return real_k4(x, mh, mw, *a_, **k)
+
+    reset_launches(wrappers)
+    with unittest.mock.patch.object(resize, "upsample_argmax", k4_spy):
+        pred = make_seg_eval_step(model, out_hw=OUT_HW)(images[:1])
+    launches["deeplab50_eval"] = read_launches(wrappers)[0]
+    print(f"  (10f) DeepLabV3+ ResNet50-OS16 bf16: train step at batch 2 "
+          f"{a.elapsed_time(b):.2f} ms (the first, CUDA events), loss "
+          f"{loss.item():.5f}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; eval K4 at {shapes}, prediction {tuple(pred.shape)} in "
+          f"[{pred.min().item()}, {pred.max().item()}] on {smi}", flush=True)
+    check(shapes == [((1, 12, H // 16, W // 16), *OUT_HW)]
+          and launches["deeplab50_eval"]["upsample_argmax"] == 1
+          and tuple(pred.shape) == (1, *OUT_HW) and pred.min() >= 0
+          and pred.max() < 12,
+          f"deeplab50 eval: K4 at {shapes}, "
+          f"{launches['deeplab50_eval']['upsample_argmax']} launches, "
+          f"prediction {tuple(pred.shape)}")
+    del model, step, opt
+    torch.cuda.empty_cache()
+
+
+def phase_rest(dev, bf16, smi, wrappers, launches, control) -> dict:
+    """Phase 10, the rest of the pipeline at full width, in a temporary
+    directory inside the checkout deleted at the end: (a)
+    `phase_prepare`, (b) `phase_deeplab`, (c) and (g) `phase_remat`, (d)
+    `phase_remat_gates`, (e) `phase_rand_augment`, (f) `phase_deeplab50`.
+    Returns the launches of a stage-1 step with remat and of an
+    evaluated DeepLabV3+ frame, for the kernels line."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        t0 = time.perf_counter()
+        root = phase_prepare(tmp)
+        print(f"phase 10 (a) prepare_endovis: {time.perf_counter() - t0:.1f}"
+              " s", flush=True)
+        t0 = time.perf_counter()
+        best, per_frame = phase_deeplab(dev, smi, wrappers, launches, root,
+                                        tmp)
+        print(f"phase 10 (b) the DeepLab pre-stage through the CLI: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        per_step = phase_remat(dev, smi, wrappers, launches, root, best, tmp)
+        print(f"phase 10 (c, g) stage 1 with remat through the CLI, traced: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_remat_gates(dev, bf16, smi, wrappers, launches, control)
+        print(f"phase 10 (d) remat against no remat: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_rand_augment(dev, smi, wrappers, launches, tmp)
+        print(f"phase 10 (e) stage 2 with RandAugment through the CLI: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_deeplab50(dev, bf16, smi, wrappers, launches)
+    print(f"phase 10 (f) DeepLabV3+ ResNet50-OS16: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"per_remat_step": per_step, "per_deeplab_eval_frame": per_frame}
 
 
 if __name__ == "__main__":

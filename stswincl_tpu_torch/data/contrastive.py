@@ -15,9 +15,10 @@ source resolution:
 each with its own random resized crop (scale (0.09, 0.49)) and horizontal
 flip to 256x448, frames oldest first, ImageNet (EndoVis) or CenterNet
 (CaDIS) normalisation, the reference's fallbacks for early frames
-(`dataset.py:83-139`). Every draw comes from the caller's generator, in the
-JAX package's order, so both packages give the same sample bit for bit
-(`tests/test_torch_data.py`).
+(`dataset.py:83-139`), and optionally RandAugment after each crop. Every
+draw comes from the caller's generator, in the JAX package's order, so
+both packages give the same sample bit for bit (`tests/test_torch_data.py`,
+`tests/test_torch_rand_augment.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from PIL import Image
 from stswincl_tpu_torch.data.cadis import (MEAN as CENTERNET_MEAN,
                                            STD as CENTERNET_STD,
                                            TRAIN_VIDEOS, remap_experiment)
+from stswincl_tpu_torch.data.rand_augment import (ClipRandAugment,
+                                                  rand_augment_transform)
 from stswincl_tpu_torch.data.transforms import resized_crop_clip
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -66,9 +69,13 @@ class ContrastiveClipDataset:
     """`get(index, rng)` -> {"clips" (6, 4, H, W, 3) float32, "labels"
     (6, H, W) int32, "coords" (6, 4) float32, "path" (seq, frame)}.
 
-    `rand_augment` (a RandAugment config string) is not ported yet: it
-    raises NotImplementedError until `data/rand_augment.py` is (ROADMAP
-    Queue 1 item 2)."""
+    `rand_augment` (a RandAugment config string, e.g. "rand-m9-mstd0.5";
+    off by default, as the reference ships the menu unwired) augments each
+    view after its crop with one op sequence replayed on its four frames
+    (`ClipRandAugment`), drawn from the sample's generator at the same
+    point as the JAX package draws it. Geometric ops warp the view's label
+    with the same affine (nearest); label pixels warped in from outside
+    the frame become `LABEL_FILL` (255), which the class-sum loss drops."""
 
     def __init__(
         self,
@@ -82,10 +89,8 @@ class ContrastiveClipDataset:
         crop_scale: Tuple[float, float] = (0.09, 0.49),
         rand_augment: Optional[str] = None,
     ):
-        if rand_augment:
-            raise NotImplementedError(
-                "rand_augment is not ported yet (data/rand_augment.py, "
-                "ROADMAP Queue 1 item 2)")
+        self.clip_augment = (ClipRandAugment(rand_augment_transform(
+            rand_augment)) if rand_augment else None)
         self.root = root
         self.dataset = dataset
         self.tag = tag
@@ -149,6 +154,9 @@ class ContrastiveClipDataset:
     def _view(self, imgs, label, rng):
         clip, lab, coord = resized_crop_clip(
             imgs, label, self.crop_h, self.crop_w, rng, scale=self.crop_scale)
+        if self.clip_augment is not None:
+            clip, lab = self.clip_augment(rng, clip.astype(np.uint8),
+                                          label=lab)
         mean, std = self.normalize
         clip = (clip.astype(np.float32) / 255.0 - mean) / std
         return clip, lab.astype(np.int32), coord

@@ -1,5 +1,6 @@
 from stswincl_tpu_torch.models.pixpro import ContrastEncoder
-from stswincl_tpu_torch.models.stswin import TswinPlus
+from stswincl_tpu_torch.models.stswin import DeepLabV3Plus, TswinPlus
 from stswincl_tpu_torch.models.swin import SwinTemporalStack
 
-__all__ = ["ContrastEncoder", "TswinPlus", "SwinTemporalStack"]
+__all__ = ["ContrastEncoder", "DeepLabV3Plus", "TswinPlus",
+           "SwinTemporalStack"]

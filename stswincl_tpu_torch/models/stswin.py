@@ -1,7 +1,8 @@
-"""TswinPlus, the STswin segmentation network.
+"""TswinPlus, the STswin segmentation network, and the DeepLabV3+
+baseline.
 
 Counterpart of `stswincl_tpu/models/stswin.py` (`ProjectBNRelu`,
-`Classifier`, `TswinPlus`):
+`Classifier`, `TswinPlus`, `DeepLabV3Plus`). TswinPlus:
 
   frames -> ResNet18-OS8 (all B*T frames in one batch)
          -> SwinTemporalStack (stage1 @ OS8, stage2 @ OS16)
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from stswincl_tpu_torch.models.aspp import ASPP
 from stswincl_tpu_torch.models.layers import Conv
 from stswincl_tpu_torch.models.norm import BatchNorm
-from stswincl_tpu_torch.models.resnet import ResNet18OS8
+from stswincl_tpu_torch.models.resnet import ResNet18OS8, ResNet50OS16
 from stswincl_tpu_torch.models.swin import SwinTemporalStack
 from stswincl_tpu_torch.ops.resize import (resize_bilinear,
                                            resize_bilinear_cf_matmul)
@@ -82,7 +83,12 @@ class TswinPlus(nn.Module):
     'auto' = 'pallas_full', 'pallas', 'pallas_windows', 'einsum'), as
     `ModelConfig.attn_impl` chooses it in the JAX package; `whole_block`
     runs the W-MSA blocks of 'pallas_full' through the whole-block kernel
-    (Pallas row 16), as `STSWIN_WHOLE_BLOCK=1` does there."""
+    (Pallas row 16), as `STSWIN_WHOLE_BLOCK=1` does there. `remat`
+    recomputes each swin block in the backward (`SwinTemporalStack`)."""
+
+    # the training loss asks this model for channels-first logits
+    # (`train/train_seg.SegTrainStep`)
+    channels_first_loss = True
 
     def __init__(self, num_classes: int, swin_dim: int = 512,
                  num_heads: int = 4, gelu_exact: bool = True,
@@ -91,7 +97,8 @@ class TswinPlus(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  input_hw: Tuple[int, int] = (512, 640),
                  kernels: Optional[bool] = None, attn_impl: str = "auto",
-                 whole_block: bool = False, classifier: bool = True):
+                 whole_block: bool = False, classifier: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.num_classes, self.swin_dim = num_classes, swin_dim
         self.dtype, self.kernels = dtype, kernels
@@ -100,7 +107,7 @@ class TswinPlus(nn.Module):
         self.resnet = ResNet18OS8(width=swin_dim // 8, dtype=dtype)
         self.swin = SwinTemporalStack(
             swin_dim, (h8, w8), num_heads, gelu_exact, final_pair_only,
-            swin_depths, dtype, kernels, attn_impl, whole_block)
+            swin_depths, dtype, kernels, attn_impl, whole_block, remat)
         self.aspp = ASPP(2 * swin_dim, 256, dtype=dtype)
         self.project1 = ProjectBNRelu(swin_dim, dtype=dtype)
         self.project2 = ProjectBNRelu(swin_dim, dtype=dtype)
@@ -163,3 +170,59 @@ class TswinPlus(nn.Module):
         if channels_first_logits:
             return resize_bilinear_cf_matmul(lcf, H, W)
         return resize_bilinear(lcf.permute(0, 2, 3, 1), H, W)
+
+
+class DeepLabV3Plus(nn.Module):
+    """The single-frame DeepLabV3+ baseline of the ResNet-init pre-stage
+    (`arch='puredeeplab18'`): a clip input (B, T, H, W, 3) is cut to its
+    last frame; (B, H, W, 3) frames go in as they are.
+
+    `layers=18`: ResNet18-OS8 of `width` and `ASPP(8 * width, 256)`;
+    `layers=50`: ResNet50-OS16 and `ASPP(2048, 256, mid_channels=256)`
+    (`width` unused). Either way the JAX package's repair of the
+    reference's ASPP, whose 1024 input channels do not fit a 512-channel
+    backbone. Then a 48-channel projection of the backbone features
+    (`project`), the ASPP output resized to them, and the classifier on
+    the 48 + 256 channels. Returns (B, H, W, classes) fp32 logits
+    bilinearly resized to the input, or with `head_res_logits` the raw
+    (B, classes, h, w) fp32 logits at head resolution, TswinPlus's eval
+    contract (K4 composes the upsample with the eval resize).
+
+    The training loss takes its NHWC logits (`channels_first_loss` is
+    False), as the JAX step takes them from every model without a
+    `trunk`."""
+
+    channels_first_loss = False
+
+    def __init__(self, num_classes: int, layers: int = 18, width: int = 64,
+                 dtype: torch.dtype = torch.float32,
+                 kernels: Optional[bool] = None):
+        super().__init__()
+        if layers not in (18, 50):
+            raise ValueError(f"DeepLabV3Plus: layers {layers}, expected 18 "
+                             "or 50")
+        self.num_classes, self.layers = num_classes, layers
+        self.dtype, self.kernels = dtype, kernels
+        if layers == 50:
+            self.resnet = ResNet50OS16(dtype=dtype)
+            self.aspp = ASPP(2048, 256, mid_channels=256, dtype=dtype)
+            feat_ch = 2048
+        else:
+            self.resnet = ResNet18OS8(width=width, dtype=dtype)
+            self.aspp = ASPP(8 * width, 256, dtype=dtype)
+            feat_ch = 8 * width
+        self.project = ProjectBNRelu(feat_ch, dtype=dtype)
+        self.classifier = Classifier(48 + 256, num_classes, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                head_res_logits: bool = False) -> torch.Tensor:
+        if x.dim() == 5:
+            x = x[:, -1]
+        _, H, W, _ = x.shape
+        feats = self.resnet(x)
+        low = self.project(feats)
+        aspp = resize_bilinear(self.aspp(feats), low.shape[1], low.shape[2])
+        out = self.classifier(torch.cat([low, aspp], dim=-1)).float()
+        if head_res_logits:
+            return out.permute(0, 3, 1, 2).contiguous()
+        return resize_bilinear(out, H, W)

@@ -37,7 +37,14 @@ Training: on the kernel route the wrappers take the fp32 parameters
 themselves and go through their autograd Functions (K1/K5, K2/K6, K3),
 which return fp32 weight gradients from fp32 accumulators; on the plain
 route autograd runs through the twins, with the bf16 working copies cast
-in the graph (`models/layers.py`).
+in the graph (`models/layers.py`). `remat` is the JAX stack's
+`nn.remat(SpaceTimeSwinBlock)`: with grad enabled each block call runs
+under a non-reentrant `torch.utils.checkpoint`, which keeps only the
+block's input and recomputes its forward (the same kernels on the same
+input) when the backward reaches it. Grad mode stays on in the first
+forward, so the working copies stay casts in the graph. Only the swin
+blocks are recomputed, not the patch merge or the CNN; without grad it
+changes nothing.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from stswincl_tpu_torch.kernels import use_kernels
 from stswincl_tpu_torch.models.layers import (CastCache, Dense,
@@ -187,7 +195,7 @@ class SpaceTimeSwinBlock(nn.Module):
                  mlp_ratio: float = 4.0, gelu_exact: bool = True,
                  dtype: torch.dtype = torch.float32,
                  kernels: Optional[bool] = None, attn_impl: str = "auto",
-                 whole_block: bool = False):
+                 whole_block: bool = False, remat: bool = False):
         super().__init__()
         H, W = input_resolution
         ws, ss = window_size, shift_size
@@ -199,7 +207,7 @@ class SpaceTimeSwinBlock(nn.Module):
         self.scale = (dim // num_heads) ** -0.5
         self.gelu_exact, self.dtype, self.kernels = gelu_exact, dtype, kernels
         self.attn_impl = resolve_attn_impl(attn_impl)
-        self.whole_block = whole_block
+        self.whole_block, self.remat = whole_block, remat
         self.attn = WindowAttention(dim, ws, num_heads)
         self.norm1 = LayerNormParams(dim)
         self.norm2 = LayerNormParams(dim)
@@ -222,7 +230,16 @@ class SpaceTimeSwinBlock(nn.Module):
                 out_frame: Optional[int] = None) -> torch.Tensor:
         """out_frame: eval dead-compute skip (`final_pair_only`): only that
         group frame's output is consumed, so the epilogue runs on it
-        alone; attention still spans both frames."""
+        alone; attention still spans both frames. With `remat` and grad
+        enabled the block runs under `torch.utils.checkpoint`."""
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self.block, x, out_frame, use_reentrant=False)
+        return self.block(x, out_frame)
+
+    def block(self, x: torch.Tensor,
+              out_frame: Optional[int] = None) -> torch.Tensor:
+        """The block's computation (`forward` without the checkpoint)."""
         B, T, H, W, C = x.shape
         assert (H, W) == self.input_resolution, (H, W)
         dt, ss, ws = self.dtype, self.shift_size, self.window_size
@@ -329,8 +346,8 @@ def _apply_paired(block_pair, x, pairs, out_frame=None, g0_out_frame=None):
 class SwinTemporalStack(nn.Module):
     """The full STswin module: `depths[0]` paired layers at (H, W) with
     window 8 / shift 4, patch merging, `depths[1]` paired layers at
-    (H/2, W/2) with window 4 / shift 2. `whole_block`: see the module
-    docstring.
+    (H/2, W/2) with window 4 / shift 2. `whole_block` and `remat`: see
+    the module docstring.
 
     Input (B, 4, H, W, C); output (stage1 (B, 4, H, W, C),
     stage2 (B, 4, H/2, W/2, 2C))."""
@@ -342,14 +359,15 @@ class SwinTemporalStack(nn.Module):
                  depths: Tuple[int, int] = (3, 3),
                  dtype: torch.dtype = torch.float32,
                  kernels: Optional[bool] = None, attn_impl: str = "auto",
-                 whole_block: bool = False):
+                 whole_block: bool = False, remat: bool = False):
         super().__init__()
         H, W = input_resolution
         self.input_resolution = (H, W)
         self.final_pair_only = final_pair_only
         self.depths = tuple(depths)
         common = dict(gelu_exact=gelu_exact, dtype=dtype, kernels=kernels,
-                      attn_impl=attn_impl, whole_block=whole_block)
+                      attn_impl=attn_impl, whole_block=whole_block,
+                      remat=remat)
         d1, d2 = self.depths
         for i in range(d1 + d2):
             stage1 = i < d1

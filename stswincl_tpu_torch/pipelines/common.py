@@ -8,7 +8,7 @@ copies of the JAX package's dataclasses (`stswincl_tpu_torch/configs.py`).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -20,7 +20,7 @@ from stswincl_tpu_torch.data.endovis18 import EndovisDataset
 from stswincl_tpu_torch.data.loader import (Loader, SyntheticContrastDataset,
                                             SyntheticSegDataset)
 from stswincl_tpu_torch.models.init import init_weights
-from stswincl_tpu_torch.models.stswin import TswinPlus
+from stswincl_tpu_torch.models.stswin import DeepLabV3Plus, TswinPlus
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -38,10 +38,13 @@ def resolve_device(device, who: str) -> torch.device:
 
 
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
-                device="cuda") -> Tuple[TswinPlus, int]:
+                device="cuda") -> Tuple[Union[TswinPlus, DeepLabV3Plus], int]:
     """The model the configs name, on `device`, and its class count, as
-    the JAX `build_model` (`:29-45`) returns them. The swin windows are
-    built for `data_cfg.crop_hw`. Parameters are created uninitialised:
+    the JAX `build_model` (`:29-45`) returns them: `arch` 'swinPlus' a
+    TswinPlus (its swin windows built for `data_cfg.crop_hw`, `remat` as
+    configured), 'puredeeplab18' the DeepLabV3+ pre-stage with ResNet18-OS8
+    of width `swin_dim // 8`, so that its resnet entries fit the swinPlus
+    run that warm-starts from it. Parameters are created uninitialised:
     load them (`ckpt.load_from_jax`) or initialise them
     (`models.init.init_weights`). The default device is the card; a
     machine without one raises unless the caller asks for the CPU.
@@ -51,33 +54,32 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     on the kernels' plain PyTorch twins on any device, as the JAX package
     runs fp32 off the TPU on its 'einsum' route, and no kernel launches.
     With "bfloat16" it is built with `kernels=None`: the kernels iff the
-    input is on the card."""
+    input is on the card. An unknown `arch` raises ValueError."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]
-    if model_cfg.arch == "puredeeplab18":
-        raise NotImplementedError("arch 'puredeeplab18' (DeepLabV3Plus) is "
-                                  "not ported yet: ROADMAP Queue 1 item 6")
-    if model_cfg.arch != "swinPlus":
+    if model_cfg.arch not in ("swinPlus", "puredeeplab18"):
         raise ValueError(f"unknown arch {model_cfg.arch!r}")
-    if model_cfg.remat:
-        raise NotImplementedError("remat (recomputing the swin blocks in the "
-                                  "backward) is not ported yet")
     device = resolve_device(device, "build_model")
     dtype = resolve_dtype(model_cfg.dtype)
-    model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
-                      num_heads=model_cfg.num_heads,
-                      gelu_exact=model_cfg.gelu_exact,
-                      swin_depths=tuple(model_cfg.swin_depths),
-                      dtype=dtype,
-                      input_hw=tuple(data_cfg.crop_hw),
-                      kernels=False if dtype == torch.float32 else None,
-                      attn_impl=model_cfg.attn_impl)
+    kernels = False if dtype == torch.float32 else None
+    if model_cfg.arch == "puredeeplab18":
+        model = DeepLabV3Plus(num_classes, width=model_cfg.swin_dim // 8,
+                              dtype=dtype, kernels=kernels)
+    else:
+        model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
+                          num_heads=model_cfg.num_heads,
+                          gelu_exact=model_cfg.gelu_exact,
+                          swin_depths=tuple(model_cfg.swin_depths),
+                          dtype=dtype,
+                          input_hw=tuple(data_cfg.crop_hw),
+                          kernels=kernels, attn_impl=model_cfg.attn_impl,
+                          remat=model_cfg.remat)
     return model.to(device), num_classes
 
 
-def init_model_variables(model: TswinPlus, data_cfg: DataConfig
-                         ) -> TswinPlus:
+def init_model_variables(model: torch.nn.Module, data_cfg: DataConfig
+                         ) -> torch.nn.Module:
     """Seed `model`'s weights from `data_cfg.seed` in place (the JAX
     `init_model_variables` draws them from `jax.random.key(seed)`; the
     port's draws come from a CPU `torch.Generator`, so they do not depend

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 
 from stswincl_tpu_torch.ops.resize import composed_upsample_argmax_cf
-from stswincl_tpu_torch.ops.ohem import (ohem_cross_entropy_channels_first,
+from stswincl_tpu_torch.ops.ohem import (ohem_cross_entropy,
+                                         ohem_cross_entropy_channels_first,
                                          per_pixel_ce_channels_first)
 from stswincl_tpu_torch.train.optim import Schedule, apply_schedule
 
@@ -76,20 +77,32 @@ class SegTrainStep:
 
     def loss(self, images: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
-        """The training loss of the model in train mode (grad enabled)."""
-        cf = self.loss_type in ("ohem", "ce")
-        logits = self.model(images, channels_first_logits=cf)
+        """The training loss of the model in train mode (grad enabled).
+        OHEM and CE take channels-first logits from a model whose
+        `channels_first_loss` says it makes them (TswinPlus, as the JAX
+        step asks every model with a `trunk`); from any other model
+        (DeepLabV3Plus) they take its (B, H, W, C) logits."""
+        cf = (self.loss_type in ("ohem", "ce")
+              and getattr(self.model, "channels_first_loss", False))
+        if cf:
+            logits = self.model(images, channels_first_logits=True)
+        else:
+            logits = self.model(images)
         if self.loss_type == "ohem":
             n_min = self.ohem_n_min
             if n_min is None:
                 _, h, w = labels.shape
                 n_min = h * w // 16
-            return ohem_cross_entropy_channels_first(
-                logits, labels, n_min, self.ohem_thresh, self.ignore_index)
+            if cf:
+                return ohem_cross_entropy_channels_first(
+                    logits, labels, n_min, self.ohem_thresh,
+                    self.ignore_index)
+            return ohem_cross_entropy(logits, labels, n_min,
+                                      self.ohem_thresh, self.ignore_index)
         if self.loss_type == "ce":
             valid = labels != self.ignore_index
-            ce = per_pixel_ce_channels_first(logits, labels,
-                                             self.ignore_index)
+            lcf = logits if cf else logits.permute(0, 3, 1, 2)
+            ce = per_pixel_ce_channels_first(lcf, labels, self.ignore_index)
             return ce.sum() / valid.sum().clamp(min=1)
         if self.loss_type == "dice":
             return dice_loss(logits, labels, logits.shape[-1])

@@ -1,1 +1,2 @@
-"""Logging of the port (`logging`)."""
+"""Utilities of the port: logging (`logging`) and profiling
+(`profiling`)."""

@@ -331,9 +331,11 @@ def test_build_model_takes_the_cadis_class_count():
 
 
 def test_build_model_refuses_what_is_not_ported():
+    """An unknown arch and an unknown attn_impl raise ValueError (every
+    arch and option of the JAX `build_model` is ported)."""
     model_cfg, data_cfg = _configs("pallas")
-    model_cfg.arch = "puredeeplab18"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    model_cfg.arch = "swinPlus_v2"
+    with pytest.raises(ValueError, match="unknown arch"):
         build_model(model_cfg, data_cfg, device="cpu")
     model_cfg, _ = _configs("flash")
     with pytest.raises(ValueError, match="unknown attn_impl"):

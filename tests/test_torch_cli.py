@@ -28,6 +28,12 @@ CASES = [
     ["finetune-cl", "momentum=0.5"],
     ["pretrain-contrast", "base_lr=0.5", "data.crop_hw=(128,192)"],
     ["test", "streaming_eval=true", "model.swin_depths=(2,2)"],
+    # the options of examples/endovis18_full_pipeline.sh
+    ["train-seg", "model.arch=puredeeplab18", "data.t=1"],
+    ["train-seg", "model.remat=true", "init_checkpoint=/ckpt/deeplab/best"],
+    ["finetune-cl", "model.remat=true"],
+    ["pretrain-contrast", "data.dataset=endovis18",
+     "data.rand_augment=rand-m9-mstd0.5"],
 ]
 SMALL = ["data.dataset=synthetic", "model.swin_dim=64",
          "model.swin_depths=(1,1)", "data.crop_hw=(64,128)",

@@ -105,12 +105,6 @@ def test_contrastive_cadis_matches_jax_bitwise(cadis_tree, tag):
                        ref.get(i, np.random.default_rng(i)))
 
 
-def test_rand_augment_is_not_ported_yet(endovis_tree):
-    with pytest.raises(NotImplementedError, match="rand_augment"):
-        contrastive.ContrastiveClipDataset(endovis_tree, "endovis18",
-                                           rand_augment="rand-m9-n2")
-
-
 @pytest.mark.parametrize("tag", ["1", "2", "3"])
 def test_remap_experiment_matches_jax(rng, tag):
     mask = rng.integers(0, 40, (37, 53)).astype(np.uint8)

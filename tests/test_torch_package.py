@@ -1,8 +1,8 @@
 """The port stands alone: no module of `stswincl_tpu_torch/`, and not
 `chip_smoke.py`, imports JAX, flax or the JAX package; the port's copies
 of the configs, of the CaDIS tables (class counts, video splits, the
-experiment remapping) and of the normalisation constants equal the JAX
-package's; and `build_model` puts the model on the card unless asked
+experiment remapping), of the normalisation constants and of the
+RandAugment tables equal the JAX package's; and `build_model` puts the model on the card unless asked
 for the CPU."""
 
 import ast
@@ -17,10 +17,12 @@ import stswincl_tpu.configs as jconfigs
 import stswincl_tpu.data.cadis as jcadis
 import stswincl_tpu.data.contrastive as jcontrastive
 import stswincl_tpu.data.endovis18 as jendovis
+import stswincl_tpu.data.rand_augment as jrand_augment
 import stswincl_tpu_torch.configs as pconfigs
 import stswincl_tpu_torch.data.cadis as pcadis
 import stswincl_tpu_torch.data.contrastive as pcontrastive
 import stswincl_tpu_torch.data.endovis18 as pendovis
+import stswincl_tpu_torch.data.rand_augment as prand_augment
 from stswincl_tpu.data.cadis import CADIS_CLASS_NUM as J_CADIS
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM as P_CADIS
 from stswincl_tpu_torch.pipelines.common import build_model
@@ -59,7 +61,12 @@ def test_port_imports_nothing_of_jax():
             port / "eval" / "visualization.py",
             port / "ckpt" / "torch_import.py",
             port / "pipelines" / "evaluate.py",
-            port / "pipelines" / "seg.py"} <= set(sources)
+            port / "pipelines" / "seg.py",
+            port / "data" / "rand_augment.py",
+            port / "data" / "prepare_endovis.py",
+            port / "utils" / "profiling.py",
+            port / "models" / "resnet.py",
+            port / "models" / "stswin.py"} <= set(sources)
     bad = [(str(p.relative_to(ROOT)), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -116,6 +123,17 @@ def test_normalisation_constants_match(name):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(pcadis.MEAN, jcadis.MEAN)
     np.testing.assert_array_equal(pcadis.STD, jcadis.STD)
+
+
+def test_rand_augment_tables_match():
+    """The op menu's names, both transform lists and weight set 0."""
+    assert sorted(prand_augment.OPS) == sorted(jrand_augment.OPS)
+    for name in ("RAND_TRANSFORMS", "RAND_TRANSFORMS_CMC",
+                 "RAND_CHOICE_WEIGHTS_0", "MAX_LEVEL", "FILL", "LABEL_FILL"):
+        assert getattr(prand_augment, name) == getattr(jrand_augment,
+                                                       name), name
+    assert sorted(prand_augment.GEOMETRIC_COEFFS) == sorted(
+        jrand_augment.GEOMETRIC_COEFFS)
 
 
 def test_build_model_runs_on_the_card_unless_asked_for_the_cpu():

@@ -332,16 +332,17 @@ def _rel(a, b):
 LOSS_TOL, GRAD_TOL, GRAD_ATOL, STATS_TOL = 1e-5, 1e-2, 1e-6, 1e-4
 
 
-def check_train_step_matches_jax(attn_impl="auto", **port_kw):
+def check_train_step_matches_jax(attn_impl="auto", jax_kw=None, **port_kw):
     """One stage-1 step of the port's small TswinPlus against the JAX
     `make_seg_train_step` on the same weights and batch, both built with
     `attn_impl` (the JAX CPU route of 'auto' is 'einsum'; a caller whose
-    route reaches a Pallas kernel runs it interpreted)."""
+    route reaches a Pallas kernel runs it interpreted); `jax_kw` goes to
+    the JAX TswinPlus, `port_kw` to the port's."""
     images, labels = _batch()
     port = _small_model(attn_impl=attn_impl, **port_kw)
     variables = _jax_variables(port)
     jm = JTswinPlus(num_classes=NC, swin_dim=64, swin_depths=(2, 2),
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, **(jax_kw or {}))
     tx = _recording(joptim.make_adam(3e-4))
     jstate = jtrain.SegTrainState.create(variables, tx)
     jstep = jtrain.make_seg_train_step(jm, tx, loss_type="ohem")
