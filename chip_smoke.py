@@ -28,9 +28,10 @@ stops a phase exits non-zero at once:
      tap) must drop the share of equal pixels to 0.99 or below. K4 also at
      the CaDIS protocol (the model's upsample 64x80 -> 512x640 composed
      with the half-pixel resize to 540x960, `align_out=False`, 9 classes)
-     at B = 1 and 2, to the same share and with the same two planted
-     faults. K3 and K4 also record `device_ms`, the mean of back-to-back
-     calls;
+     at B = 1 and 2, and at DeepLabV3+ ResNet50-OS16's head (B = 1,
+     32x40 -> 1024x1280, output stride 16), to the same share and with
+     the same two planted faults. K3 and K4 also record `device_ms`, the
+     mean of back-to-back calls;
   2b. hold the backward kernels (K5 attention, K6 epilogue) and K2's
      `m` output against their twins at the full-width training shapes
      (batch 8, and the stage-2 pretraining shapes of phase 2), every output
@@ -186,15 +187,19 @@ stops a phase exits non-zero at once:
      each step's launches exactly REMAT_STEP (the forward kernels twice a
      block call); (d) remat against no remat on phase 4's batch and
      weights, and with `whole_block`: the loss bit-equal, the gradients
-     within phase 4's gate, the peak memory lower, ms/step of both, a
-     planted fault (one block's remat without the graph) missing the
-     gate tenfold, another (its recompute one bf16 ulp off) printed;
+     within phase 4's gate and within TOL_REMAT_FACTOR of the same step's
+     run-to-run spread without remat, the peak memory lower, ms/step of
+     both; planted faults in one block's remat (without the graph; its
+     recompute fed its two frames swapped) missing the spread's bound
+     tenfold, another (its recompute one bf16 ulp off) printed;
      (e) stage 2 through `cli.main(["pretrain-contrast", ...,
      "data.rand_augment=rand-m9-mstd0.5"])` on a contrast tree: finite
      losses, 255 label pixels from the geometric ops reaching the loss
      and left out of it, launches per block call, host seconds a sample
-     with and without the augment; (f) `DeepLabV3Plus(layers=50)`: one
-     bf16 train step at batch 2, one evaluated frame, K4 once; (g)
+     with and without the augment; (f) `DeepLabV3Plus(layers=50)`: bf16
+     train steps at batch 2 (the median of the warmed ones printed), one
+     evaluated frame with K4 once, its prediction against K4's twin on
+     the same head logits on >= TOL_K4_SHARE of pixels; (g)
      `utils.profiling`: `device_trace` around two steps of (c) holds
      their `annotate` ranges and CUDA kernel events, `StepTimer` agrees
      with CUDA events within TOL_STEP_TIMER.
@@ -969,6 +974,16 @@ def main() -> None:
                 f"{tuple(lc.shape)} cadis -> {CADIS_HW}", CADIS_HW)
         if b == 1:
             k4_faults(lc, ch, cw, csh, csw, "cadis")
+    # DeepLabV3+ ResNet50-OS16's head (phase 10 (f)): output stride 16, so
+    # 32x40 -> 1024x1280 composed, each input column spanning 32 output
+    # columns; evaluation's batch 1, the bf16 model's rounding (not exact)
+    oh, ow = (m.to(dev) for m in composed_matrices(
+        H // 16, W // 16, (H, W), OUT_HW))
+    osh, osw = interp_spans(oh), interp_spans(ow)
+    lo = randn(1, 12, H // 16, W // 16, dtype=torch.float32)
+    k4_case(lo, oh, ow, osh, osw, False, f"{tuple(lo.shape)} os16 -> "
+            f"{OUT_HW}", OUT_HW)
+    k4_faults(lo, oh, ow, osh, osw, "os16")
     print(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3270,6 +3285,12 @@ TOL_STEP_TIMER = 0.10
 # (d) the block whose remat the planted faults break
 P10_FAULT_BLOCK = "layers_1_w"
 P10_GATE_STEPS = 3   # timed steps after each gate step
+# (d) remat's gradients against no remat's: 1 - cos within TOL_REMAT_FACTOR
+# times that of the same step run twice without remat (the run-to-run
+# spread of a backward that is not deterministic) plus TOL_NOISE_FLOOR
+TOL_REMAT_FACTOR = 4.0
+# (f) DeepLabV3+ ResNet50-OS16's train steps timed after the first
+P10_D50_STEPS = 3
 # (e) stage 2 with RandAugment on a contrast tree of 4 sequences (3 other
 # videos give the negative clips), 4 anchor frames each: 16 samples, 4
 # steps at batch 4. An anchor frame f < 4 reads the frames up to f + 4
@@ -3734,14 +3755,19 @@ def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
     input); each gradient's 1 - cosine against the non-remat route's
     within phase 4's gate against `control` (phase 4's control route)
     and the cosine floor (`hold_gradients`); the peak memory lower with
-    remat. The same with `whole_block`. Printed: the bit-equal
-    gradients, ms/step of both (CUDA events, P10_GATE_STEPS steps after
-    the gate step), and the same step run twice without remat (the
-    backward's run-to-run spread). Planted faults in the remat of one
-    block (P10_FAULT_BLOCK): its forward without the graph (a remat that
-    never connects the block to the backward) must miss the gate
+    remat; and, tighter, each gradient's 1 - cosine within
+    `spread_share`'s bound from the same step run twice without remat
+    (the backward's run-to-run spread; remat adds none, as the recompute
+    runs the same kernels on the same input). The same with
+    `whole_block`, against its own spread. Printed: the bit-equal
+    gradients and ms/step of both (CUDA events, P10_GATE_STEPS steps
+    after the gate step). Planted faults in the remat of one block
+    (P10_FAULT_BLOCK): its forward without the graph (a remat that never
+    connects the block to the backward) must miss both bounds tenfold;
+    its recompute fed its two frames swapped (activations of the wrong
+    frame under each output's gradient) must miss the spread's bound
     tenfold; its recompute fed an input one bf16 ulp off is printed with
-    its factor."""
+    its factors."""
     import torch
     import torch.utils.checkpoint
     from stswincl_tpu_torch.configs import SegTrainConfig
@@ -3808,6 +3834,17 @@ def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
             out[top] = (eq + torch.equal(ga[n], gb[n]), tot + 1)
         return out
 
+    def spread_share(r, a, spread) -> dict:
+        """Each gradient of run r: 1 - cosine against run a's over
+        TOL_REMAT_FACTOR times that of `spread` (a's step run again)
+        plus TOL_NOISE_FLOOR."""
+        held = {n: g for n, g in a["grads"].items()
+                if n not in a["zero_grad"]}
+        got, noise = cosines_of(r["grads"], held), cosines_of(
+            spread["grads"], held)
+        return {n: (1 - c) / (TOL_REMAT_FACTOR * max(1 - noise[n], 0)
+                              + TOL_NOISE_FLOOR) for n, c in got.items()}
+
     reset_launches(wrappers)
     base = run(False, timed=P10_GATE_STEPS)
     remat = run(True, timed=P10_GATE_STEPS)
@@ -3821,25 +3858,23 @@ def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
             c, _ = read_launches(wrappers)
             launches["remat_gates"] = {k: launches["remat_gates"][k] + c[k]
                                        for k in c}
+            a_again = run(False, whole_block=True)
             route = "pallas_full whole_block, remat"
         else:
-            a, b = base, remat
+            a, b, a_again = base, remat, again
             route = "pallas_full, remat"
         print(f"  (10d) [{route}] loss without remat {a['loss']!r}, with "
               f"{b['loss']!r}; gradients bit-equal by module (equal, all): "
               f"{bit_equal(a['grads'], b['grads'])}; peak "
               f"{a['peak'] / 2**30:.2f} GiB without, "
               f"{b['peak'] / 2**30:.2f} GiB with remat on {smi}", flush=True)
-        if not wb:
-            spread = cosines_of(again["grads"], {
-                n: g for n, g in base["grads"].items()
-                if n not in base["zero_grad"]})
-            low = sorted(spread.items(), key=lambda kv: kv[1])[:3]
-            print(f"  (10d) [pallas_full] the same step twice without remat:"
-                  f" loss {again['loss']!r}; gradients bit-equal by module "
-                  f"{bit_equal(again['grads'], base['grads'])}; lowest "
-                  f"cosines {low} (the backward's run-to-run spread)",
-                  flush=True)
+        spread = cosines_of(a_again["grads"], {
+            n: g for n, g in a["grads"].items() if n not in a["zero_grad"]})
+        low = sorted(spread.items(), key=lambda kv: kv[1])[:3]
+        print(f"  (10d) [{route}] the same step twice without remat: loss "
+              f"{a_again['loss']!r}; gradients bit-equal by module "
+              f"{bit_equal(a_again['grads'], a['grads'])}; lowest cosines "
+              f"{low} (the backward's run-to-run spread)", flush=True)
         check(a["loss"] == b["loss"], f"{route}: loss {b['loss']!r} with "
               f"remat, {a['loss']!r} without: a forward kernel is not "
               "deterministic")
@@ -3847,6 +3882,14 @@ def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
               f" {a['peak']} without")
         hold_gradients("(10d)", route, b["grads"], a["grads"],
                        a["zero_grad"], a["few"] | b["few"], control)
+        share = spread_share(b, a, a_again)
+        top = sorted(share.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  (10d) [{route}] 1 - cos over its bound from the spread "
+              f"({TOL_REMAT_FACTOR} x the spread's + {TOL_NOISE_FLOOR}): "
+              f"max {top[0][1]:.3f}; highest five {top}", flush=True)
+        for n, r in share.items():
+            check(r <= 1.0, f"{route}: gradient of {n}: 1 - cos "
+                  f"{r:.3f} of its bound from the run-to-run spread")
     for tag, r in (("without remat", base), ("with remat", remat)):
         print(f"  (10d) [pallas_full] {tag}: "
               f"{statistics.median(r['ms']):.2f} ms/step median of "
@@ -3863,39 +3906,53 @@ def phase_remat_gates(dev, bf16, smi, wrappers, launches, control) -> None:
                 return blk.block(x, out_frame)
         blk.forward = forward
 
-    def recompute_off_by_one_ulp(model):
-        blk = getattr(model.swin, P10_FAULT_BLOCK)
-        n_calls = [0]
+    def recompute_with(change):
+        """The fault: the block's recompute in the backward (its second
+        call under the checkpoint) fed change(x) in place of x."""
+        def fault(model):
+            blk = getattr(model.swin, P10_FAULT_BLOCK)
+            n_calls = [0]
 
-        def fn(x, out_frame):
-            n_calls[0] += 1
-            if n_calls[0] % 2 == 0:  # the recompute in the backward
-                x = (x.detach().contiguous().view(torch.int16) + 1).view(
-                    x.dtype)
-            return blk.block(x, out_frame)
+            def fn(x, out_frame):
+                n_calls[0] += 1
+                if n_calls[0] % 2 == 0:
+                    x = change(x.detach())
+                return blk.block(x, out_frame)
 
-        def forward(x, out_frame=None):
-            return torch.utils.checkpoint.checkpoint(
-                fn, x, out_frame, use_reentrant=False)
-        blk.forward = forward
+            def forward(x, out_frame=None):
+                return torch.utils.checkpoint.checkpoint(
+                    fn, x, out_frame, use_reentrant=False)
+            blk.forward = forward
+        return fault
 
+    frames_swapped = recompute_with(lambda x: x.flip(1).contiguous())
+    one_ulp = recompute_with(lambda x: (
+        x.contiguous().view(torch.int16) + 1).view(x.dtype))
     for name, fault in (("its forward without the graph", no_graph),
-                        ("its recompute fed x one bf16 ulp off",
-                         recompute_off_by_one_ulp)):
+                        ("its recompute fed its two frames swapped",
+                         frames_swapped),
+                        ("its recompute fed x one bf16 ulp off", one_ulp)):
         f = run(True, fault=fault)
         share = noise_share(cosines_of(f["grads"], {
             n: g for n, g in base["grads"].items()
             if n not in base["zero_grad"]}), control)
         top = sorted(share.items(), key=lambda kv: -kv[1])[:3]
+        top_spread = sorted(spread_share(f, base, again).items(),
+                            key=lambda kv: -kv[1])[:3]
         blk = {n: c for n, c in cosines_of(f["grads"], remat["grads"]).items()
                if n.startswith(f"swin.{P10_FAULT_BLOCK}.")}
         low = sorted(blk.items(), key=lambda kv: kv[1])[:2]
         print(f"  (10d) planted fault, {P10_FAULT_BLOCK} with {name}: 1 - cos"
-              f" over the gate's bound, highest three {top}; the block's "
+              f" over phase 4's gate's bound, highest three {top}; over the "
+              f"spread's bound, highest three {top_spread}; the block's "
               f"lowest cosines to the sound remat run's {low}", flush=True)
         if fault is no_graph:
             check(top[0][1] >= 10.0, f"remat planted fault ({name}) moves "
                   f"the gated gradients by only {top[0][1]} of their bound")
+        if fault is not one_ulp:
+            check(top_spread[0][1] >= 10.0, f"remat planted fault ({name}) "
+                  f"moves the gradients by only {top_spread[0][1]} of the "
+                  "spread's bound")
     torch.cuda.empty_cache()
 
 
@@ -4077,16 +4134,21 @@ def phase_rand_augment(dev, smi, wrappers, launches, tmp) -> None:
 
 def phase_deeplab50(dev, bf16, smi, wrappers, launches) -> None:
     """Phase 10 (f): `DeepLabV3Plus(layers=50)` (ResNet50-OS16, the
-    256-branch ASPP) in bf16 from seeded weights: one stage-1 train step
-    at batch 2 and 512x640 (Adam, OHEM on the NHWC logits) with a finite
-    loss and no swin-stack kernel, then one evaluated frame through
-    `make_seg_eval_step` at the EndoVis protocol: K4 once on the
-    (1, 12, 32, 40) head-resolution logits, a (1, 1024, 1280) class map in
-    [0, 12)."""
+    256-branch ASPP) in bf16 from seeded weights: a stage-1 train step at
+    batch 2 and 512x640 (Adam, OHEM on the NHWC logits) with a finite loss
+    and no swin-stack kernel, P10_D50_STEPS more timed by CUDA events
+    (their median printed: the first step mostly times cuDNN's first
+    calls), then one evaluated frame through `make_seg_eval_step` at the
+    EndoVis protocol: K4 once on the (1, 12, 32, 40) head-resolution
+    logits with phase 2's os16 matrices, a (1, 1024, 1280) class map in
+    [0, 12) equal to K4's twin on the same logits on >= TOL_K4_SHARE of
+    pixels (phase 2 times K4 at this shape and plants its faults)."""
     import torch
     from stswincl_tpu_torch.configs import SegTrainConfig
     from stswincl_tpu_torch.models import DeepLabV3Plus
     from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.ops import resize
+    from stswincl_tpu_torch.ops.upsample_argmax import upsample_argmax_ref
     from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.train.train_seg import (make_seg_eval_step,
                                                     make_seg_train_step)
@@ -4097,37 +4159,45 @@ def phase_deeplab50(dev, bf16, smi, wrappers, launches) -> None:
     images, labels = seeded_batch(2, seed=6)
     images = torch.from_numpy(images[:, -1:]).to(dev)
     labels = torch.from_numpy(labels).to(dev).long()
-    opt, schedule = make_tx(cfg, 1, model)
+    opt, schedule = make_tx(cfg, 1 + P10_D50_STEPS, model)
     step = make_seg_train_step(model, opt, schedule, cfg.loss,
                                ohem_thresh=cfg.ohem_thresh)
     reset_launches(wrappers)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    loss = step(images, labels)["loss"]
-    b.record()
+    losses, events = [], []
+    for _ in range(1 + P10_D50_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(step(images, labels)["loss"])
+        b.record()
+        events.append((a, b))
     torch.cuda.synchronize()
     launches["deeplab50_train"] = read_launches(wrappers)[0]
-    check(math.isfinite(loss.item()) and sum(
+    losses = [v.item() for v in losses]
+    ms = [a.elapsed_time(b) for a, b in events]
+    check(all(map(math.isfinite, losses)) and sum(
         launches["deeplab50_train"].values()) == 0,
-        f"deeplab50: loss {loss.item()}, launches "
+        f"deeplab50: losses {losses}, launches "
         f"{launches['deeplab50_train']}")
-    shapes = []
-    from stswincl_tpu_torch.ops import resize
+    calls = []
     real_k4 = resize.upsample_argmax
 
     def k4_spy(x, mh, mw, *a_, **k):
-        shapes.append((tuple(x.shape), mh.shape[0], mw.shape[0]))
+        calls.append((x.clone(), mh, mw, a_[0] if a_ else k.get("exact")))
         return real_k4(x, mh, mw, *a_, **k)
 
     reset_launches(wrappers)
     with unittest.mock.patch.object(resize, "upsample_argmax", k4_spy):
         pred = make_seg_eval_step(model, out_hw=OUT_HW)(images[:1])
     launches["deeplab50_eval"] = read_launches(wrappers)[0]
-    print(f"  (10f) DeepLabV3+ ResNet50-OS16 bf16: train step at batch 2 "
-          f"{a.elapsed_time(b):.2f} ms (the first, CUDA events), loss "
-          f"{loss.item():.5f}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; eval K4 at {shapes}, prediction {tuple(pred.shape)} in "
+    shapes = [(tuple(x.shape), mh.shape[0], mw.shape[0])
+              for x, mh, mw, _ in calls]
+    print(f"  (10f) DeepLabV3+ ResNet50-OS16 bf16: train steps at batch 2 "
+          f"{[round(v, 2) for v in ms]} ms (CUDA events), median of the "
+          f"{P10_D50_STEPS} after the first {statistics.median(ms[1:]):.2f} "
+          f"ms, losses {[round(v, 5) for v in losses]}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; eval K4 at "
+          f"{shapes}, prediction {tuple(pred.shape)} in "
           f"[{pred.min().item()}, {pred.max().item()}] on {smi}", flush=True)
     check(shapes == [((1, 12, H // 16, W // 16), *OUT_HW)]
           and launches["deeplab50_eval"]["upsample_argmax"] == 1
@@ -4136,7 +4206,21 @@ def phase_deeplab50(dev, bf16, smi, wrappers, launches) -> None:
           f"deeplab50 eval: K4 at {shapes}, "
           f"{launches['deeplab50_eval']['upsample_argmax']} launches, "
           f"prediction {tuple(pred.shape)}")
-    del model, step, opt
+    if len(calls) == 1:
+        x, mh, mw, exact = calls[0]
+        oh, ow = (m.to(dev) for m in resize.composed_matrices(
+            H // 16, W // 16, (H, W), OUT_HW))
+        want = upsample_argmax_ref(x, mh, mw, exact)
+        share = (pred.to(want.dtype) == want).float().mean().item()
+        print(f"  (10f) the evaluated frame against K4's twin on the same "
+              f"head logits (exact={exact}): {share:.6f} of pixels equal",
+              flush=True)
+        check(torch.equal(mh, oh) and torch.equal(mw, ow) and not exact,
+              "deeplab50 eval: K4 ran on other matrices than phase 2's "
+              f"os16 case (exact={exact})")
+        check(share >= TOL_K4_SHARE, f"deeplab50 eval: {share} of pixels "
+              f"equal to K4's twin < {TOL_K4_SHARE}")
+    del model, step, opt, calls
     torch.cuda.empty_cache()
 
 
