@@ -203,6 +203,32 @@ stops a phase exits non-zero at once:
      `utils.profiling`: `device_trace` around two steps of (c) holds
      their `annotate` ranges and CUDA kernel events, `StepTimer` agrees
      with CUDA events within TOL_STEP_TIMER.
+  11. data parallelism (`phase_parallel`, `stswincl_tpu_torch/parallel/`):
+     (a) `torch.distributed.run --standalone --nproc_per_node=1` (torchrun)
+     on this script's rank mode, which runs `python -m
+     stswincl_tpu_torch.cli train-seg --device cuda` on the synthetic set
+     at full width and batch 8 for one epoch: an NCCL group of one rank,
+     DDP and synced BatchNorms; ms/step beside phase 4's, each step's
+     launches exactly a step's block calls, K4 once a frame of rank 0's
+     evaluation; (b) two ranks spawned on
+     cuda:0 over gloo, stage 1: phase 4's weights and batch 8, each clip
+     tinted, rank 0's half mostly ignored, 4 a rank, one Adam step
+     against the one-process step on the whole batch (the loss, every
+     BatchNorm statistic, each gradient's 1 - cosine and norm ratio, each
+     within TOL_REMAT_FACTOR x the larger deviation of two controls, the
+     one-process step on the input perturbed at 2^-9 and 2^-12, plus a
+     floor; gradients whose controls read 1 - cosine above TOL_P11_WELL
+     are noise-dominated and count for no planted fault), the ranks'
+     parameters equal to the bit, five planted faults (BatchNorms on
+     local statistics, the image-pool BatchNorm alone local, OHEM per
+     rank, OHEM's sums over per-rank counts, rank 1's gradient
+     unreduced) at least ten times over a bound, the launches a rank,
+     ms/step with and without the gradient all-reduce (gloo through host
+     memory: not a multi-GPU rate); (c) the same for stage 2 at phase
+     8's shape, global batch 4, with the key pass's BatchNorms unsynced
+     and the image-pool BatchNorms alone unsynced as its planted faults;
+     (d) K1-K6 on cuda:1 where
+     the machine has two cards, else the line "cuda:1 check not run".
 
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
@@ -217,8 +243,10 @@ error, times and the least time the card could take for the same work
 type and the bytes over 3.35 TB/s, each input read and each output
 written once), and its launches per fine-tune step (batch 8), per
 evaluated frame (B = 1, full clip and streamed), per stage-1 step with
-remat (batch 8) and per evaluated DeepLabV3+ frame; the card's name and
-power limit (`nvidia-smi`); and, last,
+remat (batch 8) and per evaluated DeepLabV3+ frame, per DDP step through
+the CLI (one rank, batch 8) and per rank of a two-rank step (batch 4 a
+rank, stages 1 and 2); the card's name and power limit (`nvidia-smi`);
+and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -316,6 +344,7 @@ def seeded_batch(batch: int, seed: int):
 
 
 FAILED = []  # the message of each failed check, in order
+STEP_MS = {}  # a train path's median ms/step, for phase 11 to print beside
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1270,7 +1299,7 @@ def main() -> None:
         del want
         print(f"  {'':22s} {case:34s} |y| / |x| {y_size:.3f}; the twin "
               f"without its relative bias moves by rel {moved:.3e}; "
-              f"{wb_ops._slots(T, C, heads, ws)} workspace slots",
+              f"{wb_ops._slots(T, C, heads, ws, dev.index)} workspace slots",
               flush=True)
         check(moved > 10 * TOL_REL, f"whole_swin_block {case}: dropping the "
               f"relative bias moves the output by only {moved}")
@@ -1611,6 +1640,12 @@ def main() -> None:
     print(f"phase 10 the rest of the pipeline: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 11: data parallelism --------------------------------------
+    t0 = time.perf_counter()
+    parallel_counts = phase_parallel(dev, bf16, smi, wrappers, launches)
+    print(f"phase 11 data parallelism: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     meta = {
         "swin_block_attention": (
             "block_attention.cu",
@@ -1707,6 +1742,12 @@ def main() -> None:
         r["per_remat_step"] = rest_counts["per_remat_step"][r["name"]]
         r["per_deeplab_eval_frame"] = rest_counts[
             "per_deeplab_eval_frame"][r["name"]]
+        # phase 11: a DDP step through the CLI (one rank, batch 8), and a
+        # rank's step of two (batch 4 a rank) in stage 1 and stage 2
+        r["per_ddp_step"] = parallel_counts["per_ddp_step"][r["name"]]
+        r["per_rank_parallel_step"] = {
+            stage: parallel_counts[f"per_rank_{stage}_step"][r["name"]]
+            for stage in ("seg", "contrast")}
     print(json.dumps({"kernels": rows}))
     print(smi)
     if FAILED:
@@ -3199,6 +3240,7 @@ def phase_train(dev, bf16, smi, wrappers, route_kernel, launches,
                             m_saved=calls["m_saved"])
         first = min(3, n_steps - 2)
         med = statistics.median(step_ms[first:])
+        STEP_MS[path] = med
         print(f"  {tag} [{route}] {med:.2f} ms/step median of steps "
               f"{first + 1}-{n_steps} (CUDA events; host "
               f"{1e3 * statistics.median(host_s[first:]):.2f} ms), "
@@ -3420,8 +3462,9 @@ def phase_prepare(tmp) -> str:
     return root
 
 
-def seg_cli(argv, wrappers, step_probe=None) -> dict:
-    """`cli.main(argv)` in process with every count set to 0 first, its
+def seg_cli(argv, wrappers, step_probe=None, runner=None) -> dict:
+    """`cli.main(argv)` (or `runner(argv)`) in process with every count
+    set to 0 first, its
     train steps, warm start, evaluations and K4 calls spied. Returns
     {"steps": each step's loss, CUDA events and launches (and GEMM forms),
     "calls": the swin block calls with grad of each step, "evals":
@@ -3501,7 +3544,7 @@ def seg_cli(argv, wrappers, step_probe=None) -> dict:
             unittest.mock.patch.object(seg_pipeline, "evaluate_split", spy), \
             unittest.mock.patch.object(resize, "upsample_argmax", k4_spy), \
             endovis_tables():
-        cli.main(argv)
+        (runner or cli.main)(argv)
     torch.cuda.synchronize()
     out["peak"] = torch.cuda.max_memory_allocated()
     out["evals"] = spy.calls
@@ -4035,12 +4078,12 @@ def phase_rand_augment(dev, smi, wrappers, launches, tmp) -> None:
 
     real_loss = tc.class_sum_contrastive_loss
 
-    def loss_spy(q, q_labels, keys, class_num):
+    def loss_spy(q, q_labels, keys, class_num, *group):
         valid = (q_labels >= 0) & (q_labels < class_num)
         fills.append(((q_labels == 255).sum().item(),
                       ((q_labels == 255) & valid).sum().item(),
                       sum((kl == 255).sum().item() for _, kl in keys)))
-        return real_loss(q, q_labels, keys, class_num)
+        return real_loss(q, q_labels, keys, class_num, *group)
 
     real_call = tc.ContrastTrainStep.__call__
 
@@ -4262,5 +4305,759 @@ def phase_rest(dev, bf16, smi, wrappers, launches, control) -> dict:
     return {"per_remat_step": per_step, "per_deeplab_eval_frame": per_frame}
 
 
+# ---- phase 11: data parallelism ---------------------------------------------
+
+P11_CLI_TIMEOUT = 300  # seconds: (a)'s torchrun, its build loaded, not made
+P11_RANKS = 2
+P11_SEG_SEED = 3       # (b): phase 4's batch, rank 0's half more ignored
+P11_TIMED_STEPS = 3    # (b): timed steps, with and without the all-reduce
+# (b, c): the ranks' step against the one-process step on the whole batch.
+# That step's run-to-run spread (printed: its statistics bit-equal, most
+# gradients off by the atomic sums of the backward) is hundreds of times
+# below what splitting the batch moves: the bf16 rounding (cuDNN's
+# algorithms at batch 4, the BatchNorm sums in another order). Any
+# rounding-level change does as much: the one-process step with its input
+# scaled by 1 + e n (n standard normal) reads the same deviations at
+# e = 2^-9 (bf16's unit roundoff) and 2^-12, so they are the gradients'
+# bf16 noise, and these two controls set the bounds, not the spread. Each
+# gate of phase 10 (d)'s form: its deviation from the one-process step
+# within TOL_REMAT_FACTOR x the larger control's plus a floor: the loss
+# TOL_P11_LOSS relative, each BatchNorm statistic TOL_P11_STATS relative,
+# each gradient's 1 - cosine TOL_NOISE_FLOOR, its |norm ratio - 1| (on the
+# scale of the controls' |norm ratio - 1| and 1 - cosine, the second-order
+# norm change of noise at that angle) TOL_P11_NORM_FLOOR. A gradient
+# whose controls read 1 - cosine above TOL_P11_WELL is noise-dominated
+# (the ResNet branch at stage 1, most leaves at stage 2): its bound is
+# nearly as large as what it compares, so it catches only gross faults
+# and no planted fault is counted on it. A planted fault misses a gate
+# of the well-conditioned gradients, the loss or the statistics tenfold.
+P11_PERTURBS = (2.0 ** -9, 2.0 ** -12)
+TOL_P11_LOSS, TOL_P11_STATS = 1e-3, 1e-4
+# the norm ratio's floor: the relative error that the cosine floor
+# TOL_NOISE_FLOOR allows (1 - cos = e^2 / 2), 0.45 %
+TOL_P11_NORM_FLOOR = math.sqrt(2 * TOL_NOISE_FLOOR)
+TOL_P11_WELL = 0.02
+P11_SEG_VARIANTS = ("sound", "bn_local", "pool_local", "ohem_local",
+                    "norm_local", "unreduced")
+P11_CONTRAST_VARIANTS = ("sound", "key_local", "pool_local")
+P11_FAULTS = {
+    "bn_local": "every BatchNorm on its rank's statistics",
+    "pool_local": "the ASPP image-pool BatchNorms alone on their rank's "
+                  "statistics",
+    "ohem_local": "OHEM selected and normalised per rank",
+    "norm_local": "OHEM's global sums over each rank's own counts",
+    "unreduced": "rank 1's gradient not reduced",
+    "key_local": "the key pass's BatchNorms on their rank's statistics"}
+
+
+def p11_seg_batch():
+    """Phase 4's seeded batch 8 (`seeded_batch`), each clip tinted by a
+    colour of its own, with 85 % of the 64x64 blocks of the first four
+    clips (rank 0's half) ignored: the halves then differ in valid and
+    hard pixel counts about sixfold. The tint keeps the step
+    well-conditioned: untinted, every clip's blocks average to nearly the
+    same colour, and the ASPP image-pool BatchNorm (one value a clip and
+    channel) divides bf16 rounding by a near-zero variance."""
+    import numpy as np
+    images, labels = seeded_batch(8, seed=P11_SEG_SEED)
+    rng = np.random.default_rng(P11_SEG_SEED + 100)
+    drop = rng.random((4, H // 64, W // 64)) < 0.85
+    labels[:4][np.repeat(np.repeat(drop, 64, axis=1), 64, axis=2)] = -1
+    tint = rng.uniform(-1.0, 1.0, (8, 1, 1, 1, 3))
+    return (images + tint).astype(np.float32), labels
+
+
+def p11_contrast_batch():
+    """`profile_contrast.seeded_batch` at phase 8's shape, each sample
+    tinted by a colour of its own (as `p11_seg_batch`), a quarter of the
+    32x32 label blocks of the first two samples (rank 0's half) set to
+    the geometric fill 255, which the loss leaves out."""
+    import numpy as np
+    from stswincl_tpu_torch.tools import profile_contrast
+    clips, labels = profile_contrast.seeded_batch(CONTRAST_BATCH, CONTRAST_HW,
+                                                  CONTRAST_SEED)
+    rng = np.random.default_rng(CONTRAST_SEED + 100)
+    h, w = CONTRAST_HW
+    drop = rng.random((2, 6, h // 32, w // 32)) < 0.25
+    labels[:2][np.repeat(np.repeat(drop, 32, axis=2), 32, axis=3)] = 255
+    tint = rng.uniform(-1.0, 1.0, (CONTRAST_BATCH, 1, 1, 1, 1, 3))
+    return (clips + tint).astype(np.float32), labels
+
+
+_P11_INIT = {}  # the seeded initial states, made once a process
+
+
+def p11_seg_model(dev, bf16, kernels=None):
+    """Phase 4's TswinPlus (SegTrainConfig's model at 512x640, bf16, seed
+    0) on `dev`, and its config."""
+    import torch
+    from stswincl_tpu_torch.configs import SegTrainConfig
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    cfg = SegTrainConfig()
+    kw = dict(num_classes=cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
+              num_heads=cfg.model.num_heads,
+              swin_depths=tuple(cfg.model.swin_depths),
+              gelu_exact=cfg.model.gelu_exact, dtype=bf16, input_hw=(H, W))
+    if "seg" not in _P11_INIT:
+        _P11_INIT["seg"] = init_weights(
+            TswinPlus(**kw), torch.Generator().manual_seed(0)).state_dict()
+    m = TswinPlus(**kw, kernels=kernels)
+    m.load_state_dict(_P11_INIT["seg"])
+    return m.to(dev), cfg
+
+
+def p11_contrast_state(dev, bf16):
+    """Phase 8 (a)'s ContrastEncoder warm start (a seeded TswinPlus's
+    encoder in a seeded encoder) as `ContrastTrainState` on `dev`, with
+    `ContrastTrainConfig`'s LARS, and the step's arguments."""
+    import torch
+    from stswincl_tpu_torch.ckpt import translate_seg_to_pretrain
+    from stswincl_tpu_torch.configs import ContrastTrainConfig, DataConfig
+    from stswincl_tpu_torch.models import ContrastEncoder, TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.train import train_contrast as tc
+    from stswincl_tpu_torch.train.optim import (make_lars, scale_lr_linear,
+                                                warmup_cosine_schedule)
+    cfg = ContrastTrainConfig(data=DataConfig(
+        dataset="synthetic", crop_hw=CONTRAST_HW, batch_size=CONTRAST_BATCH))
+    kw = dict(num_classes=cfg.data.num_classes, swin_dim=cfg.model.swin_dim,
+              num_heads=cfg.model.num_heads,
+              swin_depths=tuple(cfg.model.swin_depths), dtype=bf16,
+              input_hw=CONTRAST_HW)
+    if "contrast" not in _P11_INIT:
+        seg = init_weights(TswinPlus(**kw), torch.Generator().manual_seed(0))
+        enc = init_weights(ContrastEncoder(**kw),
+                           torch.Generator().manual_seed(1))
+        _P11_INIT["contrast"] = translate_seg_to_pretrain(
+            seg.state_dict(), enc.state_dict())[0]
+    enc = ContrastEncoder(**kw)
+    enc.load_state_dict(_P11_INIT["contrast"])
+    total = cfg.num_epochs * CONTRAST_STEPS
+    schedule = warmup_cosine_schedule(
+        scale_lr_linear(cfg.base_lr, CONTRAST_BATCH),
+        cfg.warmup_epochs * CONTRAST_STEPS, total,
+        warmup_multiplier=cfg.warmup_multiplier)
+    state = tc.ContrastTrainState.create(enc.to(dev), lambda p: make_lars(
+        p, schedule, weight_decay=cfg.weight_decay,
+        trust_coefficient=cfg.lars_trust_coef))
+    return state, dict(class_num=cfg.data.num_classes, total_steps=total,
+                       base_momentum=cfg.momentum)
+
+
+def p11_unreduced_on_rank_1(state, bucket):
+    """Planted fault, a DDP comm hook: every rank joins the all-reduce,
+    rank 1 keeps its own gradient."""
+    import torch.distributed as dist
+    buf = bucket.buffer()
+    local = buf.clone()
+    world = dist.get_world_size()
+    fut = dist.all_reduce(buf, async_op=True).get_future()
+    return fut.then(lambda f: local if dist.get_rank() == 1
+                    else f.value()[0].div_(world))
+
+
+def p11_ohem_counts_local(loss, n_min, thresh, group=None):
+    """Planted fault in place of `ops.ohem._ohem_select`: the global v* and
+    sums, over each rank's own hard and top-k counts."""
+    import torch
+    from stswincl_tpu_torch.ops import ohem
+    from stswincl_tpu_torch.parallel.collectives import sum_over
+    loss = torch.maximum(loss, torch.zeros_like(loss))
+    hard = loss > math.log(1.0 / thresh)
+    zero = torch.zeros_like(loss)
+    vk = ohem._kth_largest(loss, n_min, group)
+    gt = loss > vk
+    n_hard, n_gt = hard.sum(), gt.sum()
+    sum_hard, sum_gt = sum_over(torch.stack([
+        torch.where(hard, loss, zero).sum(),
+        torch.where(gt, loss, zero).sum()]), group)
+    return torch.where(n_hard > n_min, sum_hard / n_hard.clamp(min=1),
+                       (sum_gt + (n_min - n_gt) * vk) / n_min)
+
+
+def p11_unsync_image_pool(*models) -> None:
+    """Planted fault: the ASPP image-pool BatchNorms of `models` back on
+    their rank's statistics, every other BatchNorm synced."""
+    for model in models:
+        for n, mod in model.named_modules():
+            if n.endswith("aspp.branch_img.bn"):
+                mod.process_group = None
+
+
+def p11_stats(*named_modules) -> dict:
+    return {f"{tag}{n}": b.detach().float().cpu().clone()
+            for tag, mod in named_modules for n, b in mod.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def p11_rank(rank, world, port, tmp, stage):
+    """A rank of (b) (`stage` "seg") or (c) ("contrast") on cuda:0 over
+    gloo: its shard of the global batch, one step of each variant from
+    the seeded weights; writes its results (and, where the gate needs
+    them, its gradients) under `tmp`. Any exception fails the rank, and
+    the phase with it."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+    from stswincl_tpu_torch import kernels
+    from stswincl_tpu_torch.ops import ohem
+    from stswincl_tpu_torch.parallel import (data_parallel,
+                                             initialize_distributed,
+                                             max_param_difference, replicate,
+                                             shard_batch, shutdown,
+                                             sync_batchnorm)
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train import train_contrast as tc
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = initialize_distributed("cuda:0", backend="gloo")
+    t0 = time.perf_counter()
+    kernels.load()  # the parent's build: loaded, not made again
+    out = {"backend": dist.get_backend(), "device": str(dev),
+           "load_s": time.perf_counter() - t0,
+           "built_here": kernels.build_seconds is not None}
+    wrappers = kernel_wrappers()
+    bf16 = torch.bfloat16
+    if stage == "seg":
+        images, labels = p11_seg_batch()
+        batch = shard_batch({"x": images, "y": labels})
+        x = torch.from_numpy(batch["x"]).to(dev)
+        y = torch.from_numpy(batch["y"]).to(dev).long()
+        variants = P11_SEG_VARIANTS
+    else:
+        clips, labels = p11_contrast_batch()
+        batch = shard_batch({"x": clips, "y": labels})
+        x = torch.from_numpy(batch["x"]).to(dev)
+        y = torch.from_numpy(batch["y"]).to(dev).long()
+        variants = P11_CONTRAST_VARIANTS
+    try:
+        for variant in variants:
+            if stage == "seg":
+                model, cfg = p11_seg_model(dev, bf16)
+                if variant != "bn_local":
+                    sync_batchnorm(model)
+                if variant == "pool_local":
+                    p11_unsync_image_pool(model)
+                ddp = data_parallel(model, dev)
+                if variant == "unreduced":
+                    ddp.register_comm_hook(None, p11_unreduced_on_rank_1)
+                opt, schedule = make_tx(cfg, 1, model)
+                step = make_seg_train_step(ddp, opt, schedule, cfg.loss,
+                                           ohem_thresh=cfg.ohem_thresh)
+                if variant == "ohem_local":
+                    step.group = None
+                named, mods = model.named_parameters, (("", model),)
+            else:
+                state, kw = p11_contrast_state(dev, bf16)
+                sync_batchnorm(state.query)
+                if variant != "key_local":
+                    sync_batchnorm(state.key)
+                if variant == "pool_local":
+                    p11_unsync_image_pool(state.query, state.key)
+                replicate(state.key)
+                ddp = data_parallel(state.query, dev)
+                step = tc.make_contrast_train_step(state, query=ddp, **kw)
+                opt, model = state.opt, state.query
+                named = state.query.named_parameters
+                mods = (("query.", state.query), ("key.", state.key))
+            grads = {}
+            opt.register_step_pre_hook(lambda *_: grads.update(
+                {n: p.grad.detach().float().cpu().clone()
+                 for n, p in named()}))
+            patch = (unittest.mock.patch.object(
+                ohem, "_ohem_select", p11_ohem_counts_local)
+                if variant == "norm_local" else contextlib.nullcontext())
+            reset_launches(wrappers)
+            with patch:
+                metrics = step(x, y)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            counts, forms = read_launches(wrappers)
+            res = {"loss": loss, "stats": p11_stats(*mods),
+                   "parted": max(max_param_difference(m) for _, m in mods),
+                   "launches": counts, "forms": forms}
+            if rank == (1 if variant == "unreduced" else 0):
+                torch.save(grads, os.path.join(tmp, f"{stage}_{variant}.pt"))
+            if variant == "sound" and stage == "seg":
+                res["ms"], res["ms_no_sync"] = [], []
+                for no_sync in (False, True):
+                    for _ in range(P11_TIMED_STEPS):
+                        ctx = ddp.no_sync() if no_sync \
+                            else contextlib.nullcontext()
+                        dist.barrier()
+                        torch.cuda.synchronize()
+                        ts = time.perf_counter()
+                        with ctx:
+                            step(x, y)
+                        torch.cuda.synchronize()
+                        res["ms_no_sync" if no_sync else "ms"].append(
+                            1e3 * (time.perf_counter() - ts))
+                res["peak"] = torch.cuda.max_memory_allocated()
+            out[variant] = res
+            del model, ddp, step, opt, grads
+            torch.cuda.empty_cache()
+    finally:
+        shutdown()
+    torch.save(out, os.path.join(tmp, f"{stage}_rank{rank}.pt"))
+
+
+def p11_spawn(stage, tmp) -> list:
+    """Run `p11_rank` in P11_RANKS processes on cuda:0 and return each
+    rank's results; a rank that fails raises here."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(p11_rank, args=(P11_RANKS, port, tmp, stage),
+                       nprocs=P11_RANKS, start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"{stage}_rank{r}.pt"),
+                       weights_only=False) for r in range(P11_RANKS)]
+
+
+def p11_one_process(stage, dev, bf16):
+    """The one-process step of `stage` on the whole global batch: the
+    reference, the same again, and a control on the input scaled by
+    1 + e n for each e of P11_PERTURBS; (loss, gradients, statistics) of
+    each, and the zero-gradient biases."""
+    import numpy as np
+    import torch
+    from stswincl_tpu_torch.models.aspp import ConvBNRelu
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train import train_contrast as tc
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+    if stage == "seg":
+        images, labels = p11_seg_batch()
+    else:
+        images, labels = p11_contrast_batch()
+    noise = np.random.default_rng(11).standard_normal(images.shape)
+    perturbed = [(images * (1 + e * noise)).astype(np.float32)
+                 for e in P11_PERTURBS]
+    del noise
+    y = torch.from_numpy(labels).to(dev).long()
+    runs = []
+    for batch in (images, images, *perturbed):
+        x = torch.from_numpy(batch).to(dev)
+        if stage == "seg":
+            model, cfg = p11_seg_model(dev, bf16)
+            opt, schedule = make_tx(cfg, 1, model)
+            step = make_seg_train_step(model, opt, schedule, cfg.loss,
+                                       ohem_thresh=cfg.ohem_thresh)
+            mods = (("", model),)
+        else:
+            state, kw = p11_contrast_state(dev, bf16)
+            step = tc.make_contrast_train_step(state, **kw)
+            opt, model = state.opt, state.query
+            mods = (("query.", state.query), ("key.", state.key))
+        grads = {}
+        opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}))
+        loss = float(step(x, y)["loss"])
+        runs.append((loss, grads, p11_stats(*mods)))
+        zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
+                     if isinstance(mod, ConvBNRelu)}
+        if stage != "seg":
+            zero_grad |= {"segmentor.aspp.out_conv.bias",
+                          "projector.linear1.bias"}
+        del model, step, opt, x
+        torch.cuda.empty_cache()
+    (l0, g0, s0), (l1, g1, s1) = runs[:2]
+    same = sum(torch.equal(g0[n], g1[n]) for n in g0)
+    print(f"  (11{'b' if stage == 'seg' else 'c'}) the one-process step run "
+          f"twice: loss {l0!r} / {l1!r}, {same} of {len(g0)} gradients and "
+          f"{sum(torch.equal(s0[n], s1[n]) for n in s0)} of {len(s0)} "
+          f"statistics bit-equal", flush=True)
+    return runs, zero_grad
+
+
+def p11_deviations(res, grads, ref) -> dict:
+    """Each gated quantity's deviation of a step (`res`, `grads`) from
+    `ref` = (loss, gradients, statistics): the loss and each statistic
+    relative, each gradient's 1 - cosine, |norm ratio - 1| and relative
+    distance."""
+    loss, rgrads, rstats = ref
+    dev = {"loss": abs(res["loss"] - loss) / abs(loss)}
+    for n, b in rstats.items():
+        dev[f"stat {n}"] = ((res["stats"][n] - b).norm()
+                            / b.norm().clamp(min=1e-30)).item()
+    cos = cosines_of({n: g.to(rgrads[n].device) for n, g in grads.items()},
+                     rgrads)
+    for n, g in rgrads.items():
+        gn = grads[n].to(g.device)
+        dev[f"cos {n}"] = 1 - cos[n]
+        dev[f"norm {n}"] = abs(gn.norm().item()
+                               / max(g.norm().item(), 1e-30) - 1)
+        dev[f"dist {n}"] = ((gn - g).norm()
+                            / g.norm().clamp(min=1e-30)).item()
+    return dev
+
+
+def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None):
+    """Each gate of a ranks' step against the one-process step `ref`, as
+    the ratio of its deviation to its bound (at most 1.0 passes):
+    TOL_REMAT_FACTOR times the larger deviation of the `controls` (the
+    (loss, gradients, statistics) of the one-process step on perturbed
+    inputs) plus the gate's floor. Zero-gradient biases (zero in exact
+    arithmetic) are held to 1e-3 of the largest gradient norm instead.
+    Prints the worst gate of each kind with its deviation, the controls'
+    and the bound; with `again` (the one-process step run again) also
+    what the worst gate would read on its run-to-run spread instead.
+    Returns the ratios and the keys of the noise-dominated gradients'
+    gates (controls' 1 - cosine above TOL_P11_WELL)."""
+    floors = {"loss": TOL_P11_LOSS, "stat": TOL_P11_STATS,
+              "cos": TOL_NOISE_FLOOR, "norm": TOL_P11_NORM_FLOOR}
+
+    def deviations(run):
+        return p11_deviations({"loss": run[0], "stats": run[2]}, run[1], ref)
+    dev = p11_deviations(res, grads, ref)
+    ctls = [deviations(c) for c in controls]
+    spread = deviations(again) if again is not None else None
+    ratios, noisy, read, on_spread = {}, set(), {}, {}
+    for k, d in dev.items():
+        kind, name = k.split(" ", 1) if " " in k else (k, k)
+        if name in zero_grad or kind == "dist":
+            continue
+        cs = [c[k] for c in ctls]
+        scale = max(cs)
+        if kind in ("cos", "norm"):
+            cos_scale = max(c[f"cos {name}"] for c in ctls)
+            if cos_scale > TOL_P11_WELL:
+                noisy.add(k)
+            scale = max(scale, cos_scale)
+        bound = TOL_REMAT_FACTOR * scale + floors[kind]
+        ratios[k] = d / bound
+        read[k] = f"{d:.3e} against {bound:.3e}; controls " + ", ".join(
+            f"{c:.3e}" for c in cs)
+        if spread is not None:
+            on_spread[k] = d / (TOL_REMAT_FACTOR * max(spread[k], 0.0)
+                                + floors[kind])
+    top = max(g.norm().item() for g in ref[1].values())
+    for n in zero_grad:
+        k = f"zero {n}"
+        ratios[k] = grads[n].norm().item() / (1e-3 * top)
+        read[k] = f"{grads[n].norm().item():.3e} against {1e-3 * top:.3e}"
+
+    def worst(keys):
+        k = max(keys, key=ratios.get)
+        return f"{k} {ratios[k]:.4f} ({read[k]})"
+    kinds = {kind: [k for k in ratios if k.split(" ", 1)[0] == kind
+                    and k not in noisy] for kind in
+             ("loss", "stat", "cos", "norm", "zero")}
+    well_ctl = max((max(c[f"cos {k[4:]}"] for c in ctls)
+                    for k in kinds["cos"]), default=0.0)
+    noisy_cos = [k for k in noisy if k.startswith("cos ")]
+    noisy_ctl = max((max(c[k] for c in ctls) for k in noisy_cos),
+                    default=0.0)
+    print(f"  {tag} over bound, the worst of each gate: "
+          f"{'; '.join(worst(ks) for ks in kinds.values() if ks)}; "
+          f"{len(kinds['cos'])} well-conditioned gradients (controls' "
+          f"1 - cos at most {well_ctl:.3e}); {len(noisy_cos)} "
+          f"noise-dominated (controls' 1 - cos up to "
+          f"{noisy_ctl:.3e}): "
+          f"{worst(noisy) if noisy else '-'}; loss {res['loss']!r} against "
+          f"{ref[0]!r} (controls {[c[0] for c in controls]})", flush=True)
+    if on_spread:
+        k = max(on_spread, key=on_spread.get)
+        cos = {k: d for k, d in dev.items() if k.startswith("cos ")
+               and k[4:] not in zero_grad}
+        low = max(cos, key=cos.get)
+        low_ctl = max(cos, key=lambda k: max(c[k] for c in ctls))
+        pool = max((max(c[k] for c in ctls) for k in cos
+                    if ".aspp.branch_img." in f".{k[4:]}"), default=0.0)
+        print(f"  {tag} held to the one-process step's run-to-run spread "
+              f"instead (TOL_REMAT_FACTOR x + the same floors), the worst "
+              f"gate would read {on_spread[k]:.1f} ({k}): the split moves "
+              f"bf16 rounding as the controls do, the spread does not; "
+              f"the lowest gradient cosine {1 - cos[low]:.5f} ({low[4:]}), "
+              f"the controls' {1 - max(c[low_ctl] for c in ctls):.5f} "
+              f"({low_ctl[4:]}); the ASPP image-pool gradients' controls "
+              f"at 1 - cos <= {pool:.3e}", flush=True)
+    return ratios, noisy
+
+
+def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
+    """The gates of (b) or (c) on each variant: the sound step within
+    every bound and its ranks equal to the bit; each planted fault at
+    least ten times over a gate of the loss, a statistic or a
+    well-conditioned gradient (the unreduced one: its ranks part)."""
+    import torch
+    for variant in variants:
+        grads = torch.load(os.path.join(tmp, f"{stage}_{variant}.pt"),
+                           weights_only=True)
+        rank = 1 if variant == "unreduced" else 0
+        res = outs[rank][variant]
+        tag = f"(11{'b' if stage == 'seg' else 'c'}) [{variant}]"
+        ratios, noisy = p11_gates(
+            tag, res, grads, runs[0], runs[2:], zero_grad,
+            again=runs[1] if variant == "sound" else None)
+        worst = max(((k, v) for k, v in ratios.items() if k not in noisy),
+                    key=lambda kv: kv[1])
+        parted = [o[variant]["parted"] for o in outs]
+        if variant == "sound":
+            for k, v in ratios.items():
+                check(v <= 1.0, f"{tag}: {k} at {v:.3f} of its bound")
+            check(parted == [0.0] * len(outs), f"{tag}: the ranks' "
+                  f"parameters part after the step by {parted}")
+            check(len({o[variant]["loss"] for o in outs}) == 1,
+                  f"{tag}: the ranks' losses differ")
+        else:
+            print(f"  {tag} planted fault, {P11_FAULTS[variant]}: the "
+                  f"worst gate at {worst[1]:.1f} of its bound ({worst[0]});"
+                  f" ranks part by {parted}", flush=True)
+            check(worst[1] >= 10.0, f"{tag}: the planted fault "
+                  f"({P11_FAULTS[variant]}) reaches only {worst[1]:.3f} of "
+                  f"a bound ({worst[0]})")
+            if variant == "unreduced":
+                check(min(parted) > 0.0, f"{tag}: the ranks did not part")
+        del grads
+
+
+def p11_launches(tag, res, want) -> None:
+    """A step's launches, held to what its block calls imply."""
+    got = res["launches"]
+    for k, n in want.items():
+        check(got[k] == n, f"{tag}: {k} launched {got[k]} times, the step "
+              f"implies {n}")
+
+
+def p11_cli_rank(out_path, argv) -> None:
+    """(a)'s rank: `python -m stswincl_tpu_torch.cli <argv>` run by
+    `runpy` under torchrun, with `seg_cli`'s spies on its steps; writes
+    the steps' times and launches and the group's backend as JSON."""
+    import runpy
+
+    import torch
+    import torch.distributed as dist
+    from stswincl_tpu_torch.parallel import distributed as pdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seen = {}
+    real_shutdown = pdist.shutdown
+
+    def spy_shutdown():
+        if dist.is_initialized():
+            seen.update(backend=dist.get_backend(),
+                        world=dist.get_world_size(),
+                        device=str(torch.cuda.current_device()))
+        real_shutdown()
+
+    def run_module(args):
+        sys.argv = ["stswincl_tpu_torch.cli", *args]
+        runpy.run_module("stswincl_tpu_torch.cli", run_name="__main__")
+
+    with unittest.mock.patch.object(pdist, "shutdown", spy_shutdown):
+        run = seg_cli(argv, kernel_wrappers(), runner=run_module)
+    steps = [{"ms": a.elapsed_time(b), "launches": s["launches"],
+              "forms": s["forms"], "calls": s["calls"],
+              "loss": float(s["loss"])}
+             for s in run["steps"] for a, b in (s["events"],)]
+    evals = [{"launches": c["launches"], "frames": c["summary"]["frames"]}
+             for c in run["evals"]]
+    with open(out_path, "w") as f:
+        json.dump({"seen": seen, "steps": steps, "peak": run["peak"],
+                   "evals": evals}, f)
+
+
+def p11_cli(tmp) -> dict:
+    """(a): `torchrun --standalone --nproc_per_node=1` on
+    `stswincl_tpu_torch.cli train-seg --device cuda`, one epoch of the
+    synthetic set at full width and batch 8 (8 steps, one evaluation),
+    through this script's rank mode (`p11_cli_rank`)."""
+    out_path = os.path.join(tmp, "cli_rank.json")
+    argv = ["train-seg", "--device", "cuda", "data.dataset=synthetic",
+            "num_epochs=1", f"ckpt_dir={os.path.join(tmp, 'cli_ckpt')}",
+            f"log_dir={os.path.join(tmp, 'cli_log')}"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--cli-rank",
+           out_path, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=P11_CLI_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
+        raise RuntimeError(f"phase 11 (a): torchrun exited "
+                           f"{proc.returncode}")
+    with open(out_path) as f:
+        run = json.load(f)
+    print(f"  (11a) torchrun, 1 rank, {wall:.1f} s in all: group "
+          f"{run['seen']}; {len(run['steps'])} steps, rank 0's "
+          f"evaluation(s) {run['evals']}", flush=True)
+    return run
+
+
+def phase_parallel(dev, bf16, smi, wrappers, launches) -> dict:
+    """Phase 11: the data-parallel layer (`stswincl_tpu_torch/parallel/`).
+    (a) NCCL, a world of one, through torchrun and the CLI: backend,
+    ms/step beside phase 4's (DDP's hooks and the BatchNorm all-reduces),
+    each step's launches exactly a step's block calls, K4 once a frame of
+    rank 0's evaluation. (b) Two ranks on
+    cuda:0 over gloo, stage 1: phase 4's weights and seeded batch 8 (each
+    clip tinted, rank 0's half more ignored), 4 a rank, one Adam step,
+    held against the one-process step on the whole batch (`p11_gates`:
+    the loss, every BatchNorm statistic, each gradient's 1 - cosine and
+    norm ratio, each within TOL_REMAT_FACTOR x the larger deviation of
+    two controls, the one-process step on perturbed inputs, plus a
+    floor) with the ranks' parameters equal to the bit; the planted
+    faults (`P11_FAULTS`) must miss a bound of the loss, a statistic or a
+    well-conditioned gradient tenfold; the launches a rank; ms/step with
+    and without the gradient all-reduce (gloo through host memory on one
+    card: not a multi-GPU rate). (c) The same for stage 2 at phase 8's
+    shape, global batch 4, with its planted faults. (d) K1-K6 on cuda:1
+    where the machine has two cards. Returns the per-rank launches of (b) and (c)."""
+    import tempfile
+
+    import torch
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        # (a)
+        run = p11_cli(tmp)
+        check(run["seen"].get("backend") == "nccl"
+              and run["seen"].get("world") == 1,
+              f"(11a): process group {run['seen']}")
+        steps, evals = run["steps"], run["evals"]
+        check(len(steps) == FT_STEPS_PER_EPOCH and len(evals) == 1,
+              f"(11a): {len(steps)} steps, {len(evals)} evaluations")
+        for c in evals:  # K4 once an evaluated frame, at rank 0
+            k4 = c["launches"]["upsample_argmax"]
+            check(k4 == c["frames"] > 0, f"(11a): K4 launched {k4} times "
+                  f"in an evaluation of {c['frames']} frames")
+        for i, s in enumerate(steps):
+            p11_launches(f"(11a) step {i}", s, {
+                "swin_block_attention": FT_BLOCKS,
+                "swin_block_epilogue": FT_BLOCKS, "patch_merge": FT_MERGES,
+                "swin_block_attention_bwd": FT_BLOCKS,
+                "swin_block_epilogue_bwd": FT_BLOCKS, "upsample_argmax": 0})
+            check_gemm_launches(f"(11a) step {i}", s["launches"], s["forms"],
+                                m_saved=s["calls"]["m_saved"])
+        check(all(math.isfinite(s["loss"]) for s in steps),
+              f"(11a) losses {[s['loss'] for s in steps]}")
+        ms = [s["ms"] for s in steps]
+        med = statistics.median(ms[1:])
+        print(f"  (11a) NCCL world of 1 through the CLI: {med:.2f} ms/step "
+              f"median of steps 2-{len(ms)} (CUDA events; all "
+              f"{[round(v, 1) for v in ms]}), phase 4 without a group "
+              f"{STEP_MS.get('train', float('nan')):.2f} ms/step; launches "
+              f"a step {steps[-1]['launches']}; peak "
+              f"{run['peak'] / 2**30:.2f} GiB on {smi}", flush=True)
+        out["per_ddp_step"] = steps[-1]["launches"]
+        launches["parallel_cli"] = {
+            k: sum(s["launches"][k] for s in steps + evals)
+            for k in wrappers}
+        torch.cuda.empty_cache()
+
+        # (b) and (c)
+        for stage, variants in (("seg", P11_SEG_VARIANTS),
+                                ("contrast", P11_CONTRAST_VARIANTS)):
+            t0 = time.perf_counter()
+            runs, zero_grad = p11_one_process(stage, dev, bf16)
+            torch.cuda.empty_cache()
+            outs = p11_spawn(stage, tmp)
+            print(f"  (11{'b' if stage == 'seg' else 'c'}) {P11_RANKS} ranks "
+                  f"on {outs[0]['device']} over {outs[0]['backend']}: the "
+                  f"library loaded in {[round(o['load_s'], 2) for o in outs]}"
+                  f" s, built by a rank: "
+                  f"{[o['built_here'] for o in outs]}", flush=True)
+            p11_hold(stage, outs, tmp, runs, zero_grad, variants)
+            sound = [o["sound"] for o in outs]
+            if stage == "seg":
+                want = {"swin_block_attention": FT_BLOCKS,
+                        "swin_block_epilogue": FT_BLOCKS,
+                        "patch_merge": FT_MERGES,
+                        "swin_block_attention_bwd": FT_BLOCKS,
+                        "swin_block_epilogue_bwd": FT_BLOCKS}
+                m_saved = FT_M_SAVED
+            else:
+                # 6 key and 2 query forwards of 14 block calls, 2 x 14
+                # with grad; a patch merge a forward
+                want = {"swin_block_attention": 8 * FT_BLOCKS,
+                        "swin_block_epilogue": 8 * FT_BLOCKS,
+                        "patch_merge": 8 * FT_MERGES,
+                        "swin_block_attention_bwd": 2 * FT_BLOCKS,
+                        "swin_block_epilogue_bwd": 2 * FT_BLOCKS}
+                m_saved = 2 * FT_M_SAVED
+            for r, s in enumerate(sound):
+                p11_launches(f"(11{stage[0]}) rank {r}", s, want)
+                check_gemm_launches(f"(11 {stage}) rank {r}", s["launches"],
+                                    s["forms"], m_saved=m_saved)
+            key = "parallel_seg" if stage == "seg" else "parallel_contrast"
+            launches[key] = {k: sum(s["launches"][k] for s in sound)
+                             for k in wrappers}
+            out[f"per_rank_{stage}_step"] = sound[0]["launches"]
+            print(f"  (11{'b' if stage == 'seg' else 'c'}) launches a rank "
+                  f"{sound[0]['launches']}", flush=True)
+            if stage == "seg":
+                for r, s in enumerate(sound):
+                    full = statistics.median(s["ms"])
+                    bare = statistics.median(s["ms_no_sync"])
+                    print(f"  (11b) rank {r}: {full:.1f} ms/step (host clock,"
+                          f" synchronised; {[round(v, 1) for v in s['ms']]}),"
+                          f" {bare:.1f} without the gradient all-reduce "
+                          f"(DDP no_sync): the all-reduce "
+                          f"{(full - bare) / full:.1%} of the step; peak "
+                          f"{s['peak'] / 2**30:.2f} GiB; gloo through host "
+                          f"memory, two ranks on one card: not a multi-GPU "
+                          f"rate; on {smi}", flush=True)
+            del runs
+            torch.cuda.empty_cache()
+            print(f"  (11{'b' if stage == 'seg' else 'c'}) "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # (d)
+    p11_second_device(dev, bf16)
+    return out
+
+
+def p11_second_device(dev, bf16) -> None:
+    """(d): where the machine has a second card, one train step of a
+    full-width TswinPlus at batch 2 on cuda:1 on the kernel route (K1-K3
+    forward from this thread, K5 and K6 from autograd's device thread of
+    cuda:1) against the plain route there: the loss within TOL_TRAIN_LOSS
+    and each gradient cosine at or above TOL_GRAD_COS_FLOOR."""
+    import torch
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    if torch.cuda.device_count() < 2:
+        print("  (11d) cuda:1 check not run: 1 device", flush=True)
+        return
+    dev1 = torch.device("cuda", 1)
+    images, labels = seeded_batch(2, seed=P11_SEG_SEED)
+    x = torch.from_numpy(images).to(dev1)
+    y = torch.from_numpy(labels).to(dev1).long()
+    results = []
+    with torch.cuda.device(dev1):
+        for kern in (None, False):
+            model, cfg = p11_seg_model(dev1, bf16, kernels=kern)
+            opt, schedule = make_tx(cfg, 1, model)
+            step = make_seg_train_step(model, opt, schedule, cfg.loss)
+            grads = {}
+            opt.register_step_pre_hook(lambda *_: grads.update(
+                {n: p.grad.detach().float().clone()
+                 for n, p in model.named_parameters()}))
+            results.append((float(step(x, y)["loss"]), grads))
+            del model, step, opt
+    (lk, gk), (lp, gp) = results
+    cos = cosines_of(gk, gp)
+    worst = min(cos.items(), key=lambda kv: kv[1])
+    print(f"  (11d) cuda:1: loss kernel route {lk:.6f} plain {lp:.6f}, the "
+          f"lowest gradient cosine {worst}", flush=True)
+    check(abs(lk - lp) <= TOL_TRAIN_LOSS * abs(lp), f"(11d) cuda:1 loss "
+          f"{lk} against {lp}")
+    check(worst[1] >= TOL_GRAD_COS_FLOOR, f"(11d) cuda:1 gradient {worst}")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cli-rank"]:  # phase 11 (a)'s rank, by torchrun
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        p11_cli_rank(sys.argv[2], sys.argv[3:])
+    else:
+        main()

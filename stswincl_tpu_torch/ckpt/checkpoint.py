@@ -6,6 +6,8 @@ holding a mapping of tensors and plain values (for stage 2, both models'
 `state_dict`s, the optimizer's and the step; `ContrastTrainState
 .state_dict`). Files are written to a temporary name and renamed, so a
 reader never sees half of one, and read back with `weights_only=True`.
+Under a process group only rank 0 writes, then every rank waits at a
+barrier, so a rank that reads (`resume`) finds the whole file.
 Reading the JAX package's Orbax checkpoints is out of scope: the port
 cannot import Orbax without JAX (`ckpt/from_jax.py` takes JAX variables
 that are already in memory).
@@ -24,6 +26,8 @@ import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from stswincl_tpu_torch.parallel.distributed import barrier, rank
 
 _STEP_RE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -48,12 +52,15 @@ def _to_cpu(obj: Any) -> Any:
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Mapping) -> str:
     """Save the mapping `state` (tensors copied to the CPU) as
-    `ckpt_dir/step_<step>.pt`; returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    `ckpt_dir/step_<step>.pt`; returns the path. Under a process group
+    every rank calls it: rank 0 writes, and all return after a barrier."""
     path = _step_path(ckpt_dir, step)
-    tmp = path + ".tmp"
-    torch.save(_to_cpu(state), tmp)
-    os.replace(tmp, path)
+    if rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(_to_cpu(state), tmp)
+        os.replace(tmp, path)
+    barrier()
     return path
 
 

@@ -13,14 +13,23 @@ overrides, as in the JAX package. `--device` (default `cuda`) picks where
 the command runs: without a card, `cuda` raises; `--device cpu` runs on
 the CPU (the kernels' plain twins). It is an argument, not a config
 field, so the configs stay equal to the JAX package's.
+
+Data parallel: `torchrun --nproc_per_node=W -m stswincl_tpu_torch.cli
+train-seg ...` (or `finetune-cl`, `pretrain-contrast`) starts W ranks
+that join one process group (NCCL with `--device cuda`, each rank on
+`cuda:LOCAL_RANK`; gloo with `--device cpu`), take the global-batch step
+and leave the group on exit. `test` runs in one process: under a launcher
+with `WORLD_SIZE > 1` it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from stswincl_tpu_torch.configs import (ContrastTrainConfig, SegTrainConfig,
                                         apply_overrides, load_config, to_json)
+from stswincl_tpu_torch.parallel import distributed as pdist
 
 
 def main(argv=None):
@@ -50,17 +59,26 @@ def main(argv=None):
             cfg.optimizer, cfg.lr = "sgd", 1e-3
             cfg.lr_scheduler, cfg.num_epochs = "poly", 200
 
-    print(to_json(cfg))
-    if args.command in ("train-seg", "finetune-cl"):
-        from stswincl_tpu_torch.pipelines.seg import run_seg_training
-        return run_seg_training(cfg, device=args.device)
-    if args.command == "pretrain-contrast":
+    print(to_json(cfg))  # on every rank, as the JAX CLI on every process
+    if args.command == "test":
+        if pdist.launched() and int(os.environ["WORLD_SIZE"]) > 1:
+            raise SystemExit("stswincl_tpu_torch test runs in one process; "
+                             f"it was started as {os.environ['WORLD_SIZE']} "
+                             "ranks (run it without torchrun)")
+        from stswincl_tpu_torch.pipelines.evaluate import run_test
+        return run_test(cfg, device=args.device)
+
+    # the pipelines join torchrun's group; leave it on the way out
+    try:
+        if args.command in ("train-seg", "finetune-cl"):
+            from stswincl_tpu_torch.pipelines.seg import run_seg_training
+            return run_seg_training(cfg, device=args.device)
         from stswincl_tpu_torch.pipelines.contrast import \
             run_contrast_pretraining
         return run_contrast_pretraining(cfg, device=args.device)
-    from stswincl_tpu_torch.pipelines.evaluate import run_test
-    return run_test(cfg, device=args.device)
-
+    finally:
+        if pdist.launched():
+            pdist.shutdown()
 
 if __name__ == "__main__":
     main()

@@ -159,19 +159,22 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 // Launch the warp-a-row kernel for CH chunks: as many blocks as fit on the
-// card at once (asked of the occupancy calculator once an instance), fewer
-// when the rows run out first.
+// card at once (asked of the occupancy calculator once an instance and
+// device), fewer when the rows run out first.
 template <bool ADD, int CH>
 cudaError_t launch_rows(const bf16* x, const bf16* y, const float* g,
                         const float* b, bf16* sum_out, bf16* out, int R, int C,
                         float eps, cudaStream_t s) {
   constexpr int ROWS = CH >= 4 ? 1 : 4 / CH;
-  static int per_sm = 0;
-  if (!per_sm) {
+  static int per_sms[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!per_sms[dev]) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, add_ln_kernel<ADD, CH, ROWS>, WARPS * 32, 0);
+        &per_sms[dev], add_ln_kernel<ADD, CH, ROWS>, WARPS * 32, 0);
     if (err != cudaSuccess) return err;
   }
+  const int per_sm = per_sms[dev];
   const long long groups =
       ((long long)R + WARPS * ROWS - 1) / (WARPS * ROWS);
   const long long most = (long long)per_sm * sm_count();

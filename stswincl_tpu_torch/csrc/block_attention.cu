@@ -420,24 +420,23 @@ cudaError_t launch_attn_bwd(const bf16* qkv, const bf16* dattn,
                             bf16* dqkv, float* dbias, int n_windows,
                             int heads, int TN, int hd, int C, float scale,
                             cudaStream_t s) {
-  static int optin = 0, sms = 0;
-  if (!optin) {
-    int dev = 0, most = 0, count = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   dev);
+  // once an instance and device: the most shared memory a block may use
+  static int optins[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!optins[dev]) {
+    int most = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(attn_bwd_kernel<NT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  most);
     if (err != cudaSuccess) return err;
-    sms = count;
-    optin = most;
+    optins[dev] = most;
   }
+  const int optin = optins[dev], sms = sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
   const BwdSmem L = bwd_smem(TN, hd);
   const int pt = TN / 16 * 32;
   int slots = 256 / pt;

@@ -249,17 +249,33 @@ inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }
 cudaError_t colsum_bf16(const bf16* X, long long ld, int R, int N, float* out,
                         cudaStream_t stream);
 
-// The SMs of the current device (0 if it cannot be read), asked once.
+// The library launches on whichever device the caller's tensors are on
+// (`kernels.use_device` sets the runtime's current device), so each query
+// and opt-in that is made once is made once a device: arrays indexed by
+// `current_device()`, which is -1 if the device cannot be read or lies
+// beyond MAX_DEVICES.
+constexpr int MAX_DEVICES = 64;
+
+inline int current_device() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  return dev;
+}
+
+// The SMs of the current device (0 if it cannot be read), asked once a
+// device.
 inline int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
+  static int sms[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  if (!sms[dev]) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+        cudaSuccess)
+      sms[dev] = n;
   }
-  return sms;
+  return sms[dev];
 }
 
 __host__ __device__ inline size_t align128(size_t b) {

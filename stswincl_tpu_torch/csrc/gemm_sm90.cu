@@ -746,13 +746,15 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 template <int EPI>
 cudaError_t launch(const GemmParams& p, int gather, cudaStream_t s) {
-  static bool ready = false;
-  if (!ready) {
+  static bool ready[MAX_DEVICES] = {};  // the opt-in, once a device
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         gemm_sm90_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Cfg<EPI>::SMEM);
     if (err != cudaSuccess) return err;
-    ready = true;
+    ready[dev] = true;
   }
   const int sms = sm_count();
   if (!sms) return cudaErrorInvalidDevice;
@@ -871,13 +873,15 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
       p.lda % 8 || p.ldb % 8 || p.ldc % 4 || !aligned(p.A) || !aligned(p.B) ||
       !aligned(p.Cw))
     return cudaErrorInvalidValue;
-  static bool ready = false;
-  if (!ready) {
+  static bool ready[MAX_DEVICES] = {};  // the opt-in, once a device
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         wgrad_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         W_SMEM);
     if (err != cudaSuccess) return err;
-    ready = true;
+    ready[dev] = true;
   }
   const int sms = sm_count();
   if (!sms) return cudaErrorInvalidDevice;

@@ -513,13 +513,16 @@ cudaError_t run(int TN, int hd, const WholeMaps* maps, const WholeParams* p,
                 int grid, cudaStream_t stream, int* per_sm) {
   const Layout L = whole_layout(TN, hd);
   if (L.group < 1) return cudaErrorInvalidValue;
-  static bool allowed = false;  // once an instance: the most a block may use
-  if (!allowed) {
+  // once an instance and device: the most a block may use
+  static bool allowed[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         whole_block_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (err != cudaSuccess) return err;
-    allowed = true;
+    allowed[dev] = true;
   }
   if (per_sm)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -328,13 +328,16 @@ cudaError_t launch(const float* x, const float* mh, const float* mw,
                    int h, int w, int OH, int OW, cudaStream_t s) {
   const int floats = w * UA_OB + UA_HB * (h + w);
   const size_t smem = sizeof(float) * size_t(floats);
-  static size_t granted = 48 * 1024;  // raised once to the largest asked
-  if (smem > granted) {
+  // raised on each device to the largest asked there
+  static size_t granted[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > granted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         upsample_argmax_kernel<EXACT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    granted = smem;
+    granted[dev] = smem;
   }
   const dim3 grid((OW + UA_OB - 1) / UA_OB, (OH + UA_HB - 1) / UA_HB, B);
   upsample_argmax_kernel<EXACT><<<grid, UA_THREADS, smem, s>>>(

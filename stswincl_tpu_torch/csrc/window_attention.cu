@@ -90,22 +90,23 @@ cudaError_t launch_nt(const Addr& a, int n_pairs, int heads, int TN, int hd,
   if (group > fit) group = fit;
   if (group < 1) group = 1;
   const size_t bytes = group * L.total;
-  // once per instance: let it ask for the most shared memory a block may
-  static int optin = 0;
-  if (!optin) {
-    int dev = 0, most = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // once per instance and device: let it ask for the most shared memory
+  // a block may
+  static int optins[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!optins[dev]) {
+    int most = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(window_attention_mma_kernel<NT, Addr>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  most);
     if (err != cudaSuccess) return err;
-    optin = most;
+    optins[dev] = most;
   }
-  if (bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  if (bytes > static_cast<size_t>(optins[dev])) return cudaErrorInvalidValue;
   window_attention_mma_kernel<NT, Addr>
       <<<(n_pairs + group - 1) / group, group * pt, bytes, s>>>(
           a, bias, mask, n_mask, n_pairs, heads, TN, hd, group, scale);

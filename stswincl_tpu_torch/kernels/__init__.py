@@ -15,7 +15,12 @@ only a call that launches a kernel needs them.
 
 Each C entry launches on the stream it is given (the caller passes
 `torch.cuda.current_stream()`), allocates nothing and returns
-`cudaGetLastError()`; `launch` raises if that is not 0.
+`cudaGetLastError()`; `launch` raises if that is not 0. The library
+carries its own CUDA runtime, whose current device is its own per host
+thread: `launch` sets it to the tensors' device whenever that differs from
+the one last set on the calling thread (`stswin_set_device`), so a rank on
+`cuda:N` and autograd's device threads launch on the right card. The C
+side keeps each device query and shared-memory opt-in per device.
 """
 
 from __future__ import annotations
@@ -65,12 +70,15 @@ SIGNATURES = {
     "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
+    # sets the library runtime's current device of the calling thread
+    "stswin_set_device": [_I],
 }
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 _lock = threading.Lock()
 _lib = None
+_thread = threading.local()  # .device: the index last set on this thread
 build_seconds = None  # wall time of the last nvcc run in this process
 
 
@@ -172,14 +180,28 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def use_device(device: torch.device) -> int:
+    """Make `device` the library runtime's current device on the calling
+    thread, if it is not the one last set there; returns its index."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if getattr(_thread, "device", None) != index:
+        err = load().stswin_set_device(index)
+        if err != 0:
+            raise RuntimeError(f"stswin_set_device({index}): CUDA error "
+                               f"{err}")
+        _thread.device = index
+    return index
+
+
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry `name` on the current CUDA stream of `device`; raise on
-    a CUDA error reported by the launch. The library's own CUDA runtime
-    launches on its current device, device 0: the kernels serve one card."""
-    if device.index not in (None, 0):
-        raise ValueError(f"{name}: the kernels run on cuda:0, got {device}")
+    """Call C entry `name` on the current CUDA stream of `device`, with the
+    library runtime's current device set to it (`use_device`); raise on a
+    CUDA error reported by the launch."""
+    lib = load()
+    use_device(device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(load(), name)(*args, stream)
+    err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -13,12 +13,21 @@ Counterpart of `stswincl_tpu/models/norm.py` and of flax's
 
 `F.batch_norm` cannot stand in: it updates the running variance with the
 unbiased estimate.
+
+Synchronised train mode (`parallel.sync_batchnorm` sets `process_group`):
+the sums of x and x^2 and the count are all-reduced over the ranks in
+fp32, differentiably, so every rank normalises by, and moves its running
+statistics by, the statistics of the global batch, as the JAX step over a
+sharded batch does. Without a group the local path runs unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from stswincl_tpu_torch.parallel.collectives import \
+    cross_replica_batch_norm_stats
 
 BN_EPSILON = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: ra = momentum * ra + (1 - momentum) * batch
@@ -36,13 +45,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.process_group = None  # set by parallel.sync_batchnorm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if self.process_group is None:
+                dims = tuple(range(x.dim() - 1))
+                mean = x.mean(dims)
+                var = (x * x).mean(dims) - mean * mean
+            else:
+                mean, var = cross_replica_batch_norm_stats(
+                    x, self.process_group)
+            var = torch.clamp(var, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     mean.detach(), alpha=1.0 - BN_MOMENTUM)

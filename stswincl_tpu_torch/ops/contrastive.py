@@ -15,6 +15,11 @@ masked sums factor through per-class feature sums,
 so each key set costs two (HW x D x C) products instead of an (HW x HW)
 similarity matrix. Labels outside [0, class_num) (the 255 fill) are
 dropped from the key counts and from the query mean.
+
+Every sum here is per sample (`bjc,bjd->bcd`): no sample sees another's
+keys, on one rank or many. Under a process group (`group`) the only
+global part is the normaliser, the valid query pixels of the global
+batch, as the JAX step over a sharded batch computes it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+
+from stswincl_tpu_torch.parallel.collectives import sum_over
 
 
 def _one_hot(labels: torch.Tensor, class_num: int) -> torch.Tensor:
@@ -74,13 +81,15 @@ def pixel_pair_stats(q: torch.Tensor, q_labels: torch.Tensor,
 def class_sum_contrastive_loss(q: torch.Tensor, q_labels: torch.Tensor,
                                keys: Sequence[Tuple[torch.Tensor,
                                                     torch.Tensor]],
-                               class_num: int) -> torch.Tensor:
+                               class_num: int, group=None) -> torch.Tensor:
     """One direction of the reference consistency loss,
     -mean log(e^P / (e^P + e^N) + 1e-6) over the query pixels whose label
-    lies in [0, class_num) (`PixPro_swin_v5.py:124-128`); the caller
-    symmetrises over the two query views. 0-d fp32."""
+    lies in [0, class_num) (`PixPro_swin_v5.py:124-128`), over the ranks'
+    batches together with `group`; the caller symmetrises over the two
+    query views. 0-d fp32."""
     P, N = pixel_pair_stats(q, q_labels, keys, class_num)
     ratio = torch.exp(P) / (torch.exp(P) + torch.exp(N))
     valid = ((q_labels >= 0) & (q_labels < class_num)).float()
     terms = torch.log(ratio + 1e-6) * valid
-    return -terms.sum() / valid.sum().clamp(min=1.0)
+    total, count = sum_over(torch.stack([terms.sum(), valid.sum()]), group)
+    return -total / count.clamp(min=1.0)

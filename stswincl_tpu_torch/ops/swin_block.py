@@ -197,11 +197,12 @@ def whole_swin_block_pair(x, wqkv, bqkv, wproj, bproj, bias_tiled,
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(T: int, C: int, heads: int, ws: int) -> int:
-    """Workspace slots of the kernel's persistent grid: the blocks the card
-    holds at once, from the kernel's own shared-memory layout and the
-    occupancy API (`stswin_whole_block_slots`)."""
+def _slots(T: int, C: int, heads: int, ws: int, device: int) -> int:
+    """Workspace slots of the kernel's persistent grid: the blocks card
+    `device` holds at once, from the kernel's own shared-memory layout and
+    the occupancy API (`stswin_whole_block_slots`), asked of that card."""
     n = ctypes.c_int(0)
+    kernels.use_device(torch.device("cuda", device))
     err = kernels.load().stswin_whole_block_slots(T, C, heads, ws,
                                                   ctypes.byref(n))
     if err != 0:
@@ -212,7 +213,8 @@ def _slots(T: int, C: int, heads: int, ws: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _layout(TN: int, hd: int) -> Tuple[int, int]:
     """(attention pairs a block holds, its dynamic shared memory in bytes)
-    as the kernel launches with them (`stswin_whole_block_layout`)."""
+    as the kernel launches with them (`stswin_whole_block_layout`, no CUDA
+    call: the same on every device)."""
     group, total = ctypes.c_int(0), ctypes.c_longlong(0)
     err = kernels.load().stswin_whole_block_layout(
         TN, hd, ctypes.byref(group), ctypes.byref(total))
@@ -259,8 +261,8 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
         C // heads, lambda TN, hd: smem)
     kernels.require(n_mask == 0, f"{name}: the whole-block kernel takes "
                     "W-MSA blocks (shift 0, no attention mask)")
-    slots = min(plan.tiles, _slots(T, C, heads, ws))
     dev = x.device
+    slots = min(plan.tiles, _slots(T, C, heads, ws, kernels.use_device(dev)))
     ws_wide = torch.empty((slots, TILE_ROWS, plan.wide), dtype=x.dtype,
                           device=dev)
     ws_narrow = torch.empty((slots, TILE_ROWS, C), dtype=x.dtype, device=dev)

@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
-import torch.distributed as dist
 
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM, CadisDataset
@@ -21,6 +20,7 @@ from stswincl_tpu_torch.data.loader import (Loader, SyntheticContrastDataset,
                                             SyntheticSegDataset)
 from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.stswin import DeepLabV3Plus, TswinPlus
+from stswincl_tpu_torch.parallel import distributed as pdist
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -124,11 +124,10 @@ def build_loader(dataset, cfg: DataConfig, shuffle: bool = True,
     The shard index and count default to the torch process group's rank
     and world size (0 and 1 without one), where the JAX package reads
     `jax.process_index()` and `jax.process_count()`."""
-    grouped = dist.is_available() and dist.is_initialized()
     if shard_index is None:
-        shard_index = dist.get_rank() if grouped else 0
+        shard_index = pdist.rank()
     if num_shards is None:
-        num_shards = dist.get_world_size() if grouped else 1
+        num_shards = pdist.world_size()
     return Loader(dataset, batch_size=batch_size or cfg.batch_size,
                   shuffle=shuffle, seed=cfg.seed,
                   num_workers=cfg.num_workers, shard_index=shard_index,

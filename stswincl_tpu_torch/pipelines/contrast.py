@@ -6,6 +6,12 @@ optionally warm-started from a stage-1 segmentation checkpoint
 (`translate_seg_to_pretrain`), LARS on the linearly scaled LR and the
 warmup-cosine schedule stepped per iteration, the epoch loop, periodic and
 final checkpoints of the whole state, and `resume` from the latest one.
+
+Under torchrun each rank takes its shard of every global batch, both
+encoders' BatchNorms are synced, the query encoder is DDP-wrapped and
+rank 0 writes the checkpoints (`pipelines/seg.py` does the same). The LR
+scales by the number of hosts (`parallel.host_count`), as the JAX package
+scales by `jax.process_count()`: ranks on one machine share its LR.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ from stswincl_tpu_torch.configs import ContrastTrainConfig
 from stswincl_tpu_torch.data.cadis import CADIS_CLASS_NUM
 from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.pixpro import ContrastEncoder
+from stswincl_tpu_torch.parallel import (data_parallel, host_count,
+                                         initialize_distributed, replicate,
+                                         sync_batchnorm)
 from stswincl_tpu_torch.pipelines.common import (build_contrast_dataset,
                                                  build_loader, resolve_device,
                                                  resolve_dtype)
@@ -50,6 +59,12 @@ def build_contrast_encoder(cfg: ContrastTrainConfig, class_num: int,
     return model.to(device)
 
 
+def contrast_lr(cfg: ContrastTrainConfig) -> float:
+    """The base LR scaled linearly by the global batch and the number of
+    hosts (`stswincl_tpu/pipelines/contrast.py:79-80`)."""
+    return scale_lr_linear(cfg.base_lr, cfg.data.batch_size, host_count())
+
+
 def run_contrast_pretraining(cfg: ContrastTrainConfig,
                              device="cuda") -> ContrastTrainState:
     """Train stage 2 as `cfg` says and return the final state. Runs on the
@@ -57,8 +72,11 @@ def run_contrast_pretraining(cfg: ContrastTrainConfig,
 
     `cfg.init_checkpoint`: a port checkpoint directory whose latest step
     holds the stage-1 model's `state_dict` under "model"; its encoder
-    subtrees initialise the encoder's `segmentor` (both branches)."""
-    device = resolve_device(device, "run_contrast_pretraining")
+    subtrees initialise the encoder's `segmentor` (both branches). Under
+    torchrun it joins the process group and trains data-parallel (the
+    module docstring)."""
+    device = initialize_distributed(resolve_device(
+        device, "run_contrast_pretraining"))
     logger = setup_logger(cfg.log_dir)
     metrics_log = MetricLogger(cfg.log_dir)
     _dump_config(cfg)
@@ -79,8 +97,7 @@ def run_contrast_pretraining(cfg: ContrastTrainConfig,
         logger.info("warm start from %s (%d entries kept their init)",
                     cfg.init_checkpoint, len(skipped))
 
-    lr = scale_lr_linear(cfg.base_lr, cfg.data.batch_size,
-                         loader.num_shards)
+    lr = contrast_lr(cfg)
     schedule = warmup_cosine_schedule(
         lr, cfg.warmup_epochs * steps_per_epoch, total_steps,
         warmup_multiplier=cfg.warmup_multiplier)
@@ -95,10 +112,14 @@ def run_contrast_pretraining(cfg: ContrastTrainConfig,
         start_epoch = state.step // max(steps_per_epoch, 1)
         logger.info("resumed at step %d (epoch %d)", state.step, start_epoch)
 
+    # after `create`'s deepcopy of the query: a process group does not copy
+    sync_batchnorm(state.query)
+    replicate(sync_batchnorm(state.key))
     train_step = make_contrast_train_step(
         state, class_num=class_num, total_steps=total_steps,
         base_momentum=cfg.momentum,
-        ins_loss_weight=cfg.pixpro_ins_loss_weight)
+        ins_loss_weight=cfg.pixpro_ins_loss_weight,
+        query=data_parallel(state.query, device))
 
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()

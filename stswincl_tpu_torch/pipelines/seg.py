@@ -9,6 +9,17 @@ reference `.pth`, a stage-2 checkpoint, or a previous segmentation run);
 `eval_every` epochs, the latest and best-IoU checkpoints, early stopping
 and `resume`; `train_steps` takes N steps from any iterable of batches.
 The configs are the port's copies (`stswincl_tpu_torch/configs.py`).
+
+Under torchrun (`parallel.initialize_distributed`) each rank takes its
+shard of every global batch, the BatchNorms are synced and the model is
+DDP-wrapped, so the ranks take the JAX package's global-batch step.
+Rank 0 evaluates and writes the checkpoints; its IoU is broadcast, so
+every rank takes the same early-stop decision. The other ranks wait in
+that broadcast for the whole evaluation, so the group's collective
+timeout (`parallel.distributed.collective_timeout`, an hour unless
+`STSWIN_DIST_TIMEOUT` says otherwise) must exceed it: the evaluation is
+not sharded over the ranks, because the streamed evaluation carries its
+state frame to frame through each sequence.
 """
 
 from __future__ import annotations
@@ -36,6 +47,9 @@ from stswincl_tpu_torch.pipelines.common import (build_loader, build_model,
                                                  resolve_device)
 from stswincl_tpu_torch.pipelines.evaluate import (eval_resolution,
                                                    evaluate_split)
+from stswincl_tpu_torch.parallel import (broadcast, data_parallel,
+                                         initialize_distributed, rank,
+                                         sync_batchnorm)
 from stswincl_tpu_torch.train.optim import (Schedule, constant_schedule,
                                             make_adam, make_sgd,
                                             poly_schedule, step_schedule,
@@ -43,14 +57,13 @@ from stswincl_tpu_torch.train.optim import (Schedule, constant_schedule,
 from stswincl_tpu_torch.train.train_seg import (SegTrainStep,
                                                 make_seg_eval_step,
                                                 make_seg_train_step)
-from stswincl_tpu_torch.utils.logging import (MetricLogger, is_main_process,
-                                              setup_logger)
+from stswincl_tpu_torch.utils.logging import MetricLogger, setup_logger
 
 
 def _dump_config(cfg) -> None:
     """`config.json` in `cfg.log_dir` at the start of a run, on rank 0
     (`main_pretrain_swinv5.py:251-255`)."""
-    if is_main_process():
+    if rank() == 0:
         os.makedirs(cfg.log_dir, exist_ok=True)
         with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
             f.write(to_json(cfg))
@@ -151,8 +164,11 @@ def run_seg_training(cfg: SegTrainConfig, device="cuda") -> float:
     one in `cfg.ckpt_dir` after each evaluation, the best IoU's in
     `ckpt_dir/best`; `resume` restarts from the latest at epoch
     step // steps_per_epoch, with the optimizer's state (SGD's momentum
-    buffers) and the schedule's step."""
-    device = resolve_device(device, "run_seg_training")
+    buffers) and the schedule's step. Under torchrun it joins the process
+    group and trains data-parallel (the module docstring); `device`
+    'cuda' is then `cuda:LOCAL_RANK`."""
+    device = initialize_distributed(resolve_device(device,
+                                                   "run_seg_training"))
     logger = setup_logger(cfg.log_dir)
     metrics_log = MetricLogger(cfg.log_dir)
     _dump_config(cfg)
@@ -167,20 +183,22 @@ def run_seg_training(cfg: SegTrainConfig, device="cuda") -> float:
 
     init_model_variables(model, cfg.data)
     _warm_start(cfg, model, logger)
+    # the param groups on the module itself: no `module.` prefix
     opt, schedule = make_tx(cfg, steps_per_epoch, model)
-    # CaDIS trains its ignore label as the last class, which OHEM skips
-    train_step = make_seg_train_step(
-        model, opt, schedule, loss_type=cfg.loss,
-        ohem_thresh=cfg.ohem_thresh,
-        ignore_index=num_classes - 1 if is_cadis else -1)
-
-    start_epoch = 0
+    start_step = 0
     if cfg.resume and latest_step(cfg.ckpt_dir) is not None:
         state = load_checkpoint(cfg.ckpt_dir, map_location=device)
         model.load_state_dict(state["model"])
         opt.load_state_dict(state["opt"])
-        train_step.step = int(state["step"])
-        start_epoch = train_step.step // max(steps_per_epoch, 1)
+        start_step = int(state["step"])
+    # CaDIS trains its ignore label as the last class, which OHEM skips
+    train_step = make_seg_train_step(
+        data_parallel(sync_batchnorm(model), device), opt, schedule,
+        loss_type=cfg.loss, ohem_thresh=cfg.ohem_thresh,
+        ignore_index=num_classes - 1 if is_cadis else -1)
+    train_step.step = start_step
+    start_epoch = start_step // max(steps_per_epoch, 1)
+    if start_step:
         logger.info("resumed at epoch %d", start_epoch)
 
     eval_hw, align = eval_resolution(cfg)
@@ -196,6 +214,7 @@ def run_seg_training(cfg: SegTrainConfig, device="cuda") -> float:
         t0 = time.time()
         metrics = train_steps(train_step, train_loader.epoch(epoch),
                               steps_per_epoch, device)
+        # each step's loss is the global batch's: so is their mean
         loss = float(np.mean([m["loss"] for m in metrics])) if metrics \
             else 0.0
         logger.info("epoch %d: loss %.4f (%.1fs)", epoch, loss,
@@ -203,14 +222,19 @@ def run_seg_training(cfg: SegTrainConfig, device="cuda") -> float:
         metrics_log.log(train_step.step, {"train/loss": loss})
 
         if (epoch + 1) % cfg.eval_every == 0:
-            summary = evaluate_split(model, val_ds, cfg, eval_step=eval_step)
-            iou = summary.get("iou", summary.get("miou", 0.0))
-            scalars = {k: v for k, v in summary.items()
-                       if isinstance(v, (int, float))}
-            metrics_log.log(train_step.step,
-                            {f"val/{k}": v for k, v in scalars.items()})
-            logger.info("epoch %d: val %s", epoch,
-                        {k: round(v, 4) for k, v in scalars.items()})
+            iou = 0.0
+            if rank() == 0:
+                summary = evaluate_split(model, val_ds, cfg,
+                                         eval_step=eval_step)
+                iou = summary.get("iou", summary.get("miou", 0.0))
+                scalars = {k: v for k, v in summary.items()
+                           if isinstance(v, (int, float))}
+                metrics_log.log(train_step.step,
+                                {f"val/{k}": v for k, v in scalars.items()})
+                logger.info("epoch %d: val %s", epoch,
+                            {k: round(v, 4) for k, v in scalars.items()})
+            iou = float(broadcast(torch.tensor(
+                [iou], dtype=torch.float64, device=device))[0])
             save_checkpoint(cfg.ckpt_dir, train_step.step, snapshot())
             if iou > best_iou:
                 best_iou, best_epoch = iou, epoch

@@ -28,6 +28,15 @@ follows the query parameters by an EMA. One step, in the JAX order
      2 - 2 cos(pred_q(view a), proj_k(view b)), symmetrised, is added to
      the loss before the backward.
 
+Under a process group each rank holds its shard of the batch and the
+step is the JAX package's over the global batch: the query encoder runs
+in a DDP wrap (`ContrastTrainStep(query=...)`), the class-sum loss's
+valid-pixel count and the instance branch's mean are global, both
+encoders' BatchNorms are synced (`parallel.sync_batchnorm`; the key
+pass's under `no_grad`), the EMA runs on the unwrapped modules and LARS
+on the reduced gradients. The JAX docstring's "cross-chip negative pool"
+does not exist: every class sum is per sample, and so it is here.
+
 The TPU workarounds of the JAX step (`query_mode="scan"`, `remat_queries`,
 the vmapped key pass) are not ported: the plain joint backward is the
 function they compute.
@@ -44,6 +53,9 @@ import torch.nn as nn
 
 from stswincl_tpu_torch.ops.contrastive import class_sum_contrastive_loss
 from stswincl_tpu_torch.ops.resize import resize_nearest
+from stswincl_tpu_torch.parallel.collectives import sum_over
+from stswincl_tpu_torch.parallel.mesh import is_data_parallel
+from stswincl_tpu_torch.train.train_seg import require_reduced
 
 # view v's key set: the other of the first two views and views 2..5
 # (the reference's symmetrisation, PixPro_swin_v5.py:558-571)
@@ -125,14 +137,27 @@ def key_pass(key: nn.Module, clips: torch.Tensor) -> List:
     return [key(clips[:, v]) for v in range(clips.shape[1])]
 
 
+def _global_mean(v: torch.Tensor, group) -> torch.Tensor:
+    total, count = sum_over(torch.stack([
+        v.sum(), v.new_tensor(float(v.numel()))]), group)
+    return total / count
+
+
 class ContrastTrainStep:
     """(clips (B, 6, T, H, W, 3), labels (B, 6, Hc, Wc)) -> {"loss",
     "momentum", "grad_norm"} (and "ins_loss" with the instance branch),
-    each a 0-d fp32 tensor on the model's device; updates the state."""
+    each a 0-d fp32 tensor on the model's device; updates the state.
+    `query` is the module the query views run through: `state.query`
+    (the default) or its DDP wrap, whose group the losses reduce over."""
 
     def __init__(self, state: ContrastTrainState, class_num: int,
                  total_steps: int, base_momentum: float = 0.99,
-                 ins_loss_weight: float = 0.0):
+                 ins_loss_weight: float = 0.0, query: nn.Module = None):
+        query = state.query if query is None else query
+        require_reduced(query)
+        self.query = query
+        self.group = query.process_group if is_data_parallel(query) \
+            else None
         self.state, self.class_num = state, class_num
         self.total_steps, self.base_momentum = total_steps, base_momentum
         self.ins_loss_weight = ins_loss_weight
@@ -142,7 +167,7 @@ class ContrastTrainStep:
              keys: List) -> tuple:
         """The summed loss of the two query views against `keys` (the key
         pass's outputs), with grad, and the instance term."""
-        query = self.state.query
+        query = self.query
         query.train()
         outs = [query(clips[:, v]) for v in (0, 1)]
         kproj = None
@@ -155,13 +180,15 @@ class ContrastTrainStep:
         lab = downsample_labels(labels, h, w)
         loss = sum(class_sum_contrastive_loss(
             _flat(outs[v]), lab[:, v],
-            [(_flat(keys[i]), lab[:, i]) for i in _KIDX[v]], self.class_num)
+            [(_flat(keys[i]), lab[:, i]) for i in _KIDX[v]], self.class_num,
+            self.group)
             for v in (0, 1))
         ins_loss = torch.zeros((), device=loss.device)
         if self.with_instance:
             cos12 = (_l2n(ipred[0]) * _l2n(kproj[1])).sum(-1)
             cos21 = (_l2n(ipred[1]) * _l2n(kproj[0])).sum(-1)
-            ins_loss = (2.0 - 2.0 * cos12.mean()) + (2.0 - 2.0 * cos21.mean())
+            ins_loss = ((2.0 - 2.0 * _global_mean(cos12, self.group))
+                        + (2.0 - 2.0 * _global_mean(cos21, self.group)))
             loss = loss + self.ins_loss_weight * ins_loss
         return loss, ins_loss
 
@@ -173,7 +200,7 @@ class ContrastTrainStep:
         keys = key_pass(st.key, clips)
         st.opt.zero_grad(set_to_none=True)
         loss, ins_loss = self.loss(clips, labels, keys)
-        loss.backward()
+        loss.backward()  # DDP's mean all-reduce of the gradients
         grads = [p.grad for p in st.query.parameters() if p.grad is not None]
         grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
         st.opt.step()
@@ -189,13 +216,14 @@ class ContrastTrainStep:
 
 def make_contrast_train_step(state: ContrastTrainState, class_num: int,
                              total_steps: int, base_momentum: float = 0.99,
-                             ins_loss_weight: float = 0.0
-                             ) -> ContrastTrainStep:
+                             ins_loss_weight: float = 0.0,
+                             query: nn.Module = None) -> ContrastTrainStep:
     """The train step (port of `make_contrast_train_step` with its plain
-    joint backward, the JAX `query_mode="unrolled"`)."""
+    joint backward, the JAX `query_mode="unrolled"`); `query` as
+    `ContrastTrainStep` takes it."""
     if ins_loss_weight > 0.0 and not getattr(state.query, "with_instance",
                                              True):
         raise ValueError("ins_loss_weight > 0 needs a ContrastEncoder built "
                          "with with_instance=True")
     return ContrastTrainStep(state, class_num, total_steps, base_momentum,
-                             ins_loss_weight)
+                             ins_loss_weight, query)

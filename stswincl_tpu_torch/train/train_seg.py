@@ -6,6 +6,15 @@ computes in its own dtype (bf16 on the card) with fp32 parameters, so no
 loss scaler is needed; BatchNorm uses batch statistics and updates its
 running ones; the LR schedule is applied per step. `make_seg_eval_step`
 maps a clip to its class map at the scoring resolution.
+
+Under a process group the step's model is a DDP wrap
+(`parallel.data_parallel`) and the step is the JAX package's over the
+global batch: every loss reduces its sums and counts over the wrap's
+group (OHEM's selection, CE's valid count, dice's three sums, BCE's
+per-class sums and row count), so each rank's loss is the global loss,
+the same on every rank, and DDP's mean of the gradients is its gradient.
+A step under a process group of more than one rank whose model is not
+wrapped would train each rank on its shard alone: it raises.
 """
 
 from __future__ import annotations
@@ -16,6 +25,9 @@ import torch
 import torch.nn as nn
 
 from stswincl_tpu_torch.ops.resize import composed_upsample_argmax_cf
+from stswincl_tpu_torch.parallel import distributed as pdist
+from stswincl_tpu_torch.parallel.collectives import sum_over
+from stswincl_tpu_torch.parallel.mesh import is_data_parallel, unwrap
 from stswincl_tpu_torch.ops.ohem import (ohem_cross_entropy,
                                          ohem_cross_entropy_channels_first,
                                          per_pixel_ce_channels_first)
@@ -29,27 +41,41 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels[..., None] == classes).float()
 
 
+def cross_entropy_loss(logits_cf: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -1, group=None) -> torch.Tensor:
+    """Plain CE on (B, C, H, W) logits: the mean over the valid pixels (of
+    the ranks' batches together with `group`)."""
+    ce = per_pixel_ce_channels_first(logits_cf, labels, ignore_index)
+    total = sum_over(ce.sum(), group)
+    count = sum_over((labels != ignore_index).sum(), group)
+    return total / count.clamp(min=1)
+
+
 def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
-              num_classes: int) -> torch.Tensor:
+              num_classes: int, group=None) -> torch.Tensor:
     """Global soft dice over one-hot targets (`seg18/utils/losses.py:9-14`)
-    on (..., C) logits."""
+    on (..., C) logits; with `group`, over the ranks' batches together."""
     probs = torch.softmax(logits.float(), dim=-1)
     onehot = _one_hot(labels, num_classes)
-    inter = (probs * onehot).sum()
-    union = probs.sum() + onehot.sum() + 1e-6
+    inter, psum, osum = sum_over(torch.stack([
+        (probs * onehot).sum(), probs.sum(), onehot.sum()]), group)
+    union = psum + osum + 1e-6
     return 1.0 - 2.0 * inter / union
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
-             ignore_index: int = -1) -> torch.Tensor:
+             ignore_index: int = -1, group=None) -> torch.Tensor:
     """Per-class binary cross-entropy of the softmax against the one-hot
     target, averaged over classes; an ignored class contributes nothing
-    (`seg18/utils/losses.py:92-124`)."""
+    (`seg18/utils/losses.py:92-124`). With `group`, each class's mean is
+    over the ranks' pixels together."""
     probs = torch.softmax(logits.float(), dim=-1).clamp(1e-7, 1.0 - 1e-7)
     onehot = _one_hot(labels, num_classes)
     per_class_bce = -(onehot * torch.log(probs)
                       + (1.0 - onehot) * torch.log(1.0 - probs))
-    per_class = per_class_bce.reshape(-1, num_classes).mean(dim=0)
+    rows = per_class_bce.reshape(-1, num_classes)
+    per_class = sum_over(rows.sum(dim=0), group) / sum_over(
+        rows.new_tensor(float(rows.shape[0])), group)
     if 0 <= ignore_index < num_classes:
         mask = torch.ones(num_classes, device=logits.device)
         mask[ignore_index] = 0.0
@@ -62,7 +88,11 @@ class SegTrainStep:
     {"loss", "grad_norm"} (0-d fp32 tensors on the model's device); it
     updates the parameters, the BatchNorm running statistics and `step`.
     `ohem_n_min` defaults to the reference's per-image H * W / 16
-    (`train_swin.py:123`)."""
+    (`train_swin.py:123`), for the global batch under a process group as
+    in the JAX step. `model` may be a DDP wrap (`parallel.data_parallel`):
+    the losses then reduce over its group, and the optimizer's param
+    groups are built on the module it wraps, so names carry no
+    `module.` prefix."""
 
     def __init__(self, model: nn.Module, opt: torch.optim.Optimizer,
                  schedule: Optional[Schedule] = None,
@@ -71,6 +101,10 @@ class SegTrainStep:
         if loss_type not in ("ohem", "ce", "dice", "bce"):
             raise ValueError(f"unknown loss_type {loss_type!r}")
         self.model, self.opt, self.schedule = model, opt, schedule
+        self.net = unwrap(model)  # the model's own attributes
+        self.group = model.process_group if is_data_parallel(model) \
+            else None
+        require_reduced(model)
         self.loss_type, self.ohem_n_min = loss_type, ohem_n_min
         self.ohem_thresh, self.ignore_index = ohem_thresh, ignore_index
         self.step = 0
@@ -83,7 +117,7 @@ class SegTrainStep:
         step asks every model with a `trunk`); from any other model
         (DeepLabV3Plus) they take its (B, H, W, C) logits."""
         cf = (self.loss_type in ("ohem", "ce")
-              and getattr(self.model, "channels_first_loss", False))
+              and getattr(self.net, "channels_first_loss", False))
         if cf:
             logits = self.model(images, channels_first_logits=True)
         else:
@@ -96,24 +130,25 @@ class SegTrainStep:
             if cf:
                 return ohem_cross_entropy_channels_first(
                     logits, labels, n_min, self.ohem_thresh,
-                    self.ignore_index)
+                    self.ignore_index, self.group)
             return ohem_cross_entropy(logits, labels, n_min,
-                                      self.ohem_thresh, self.ignore_index)
+                                      self.ohem_thresh, self.ignore_index,
+                                      self.group)
         if self.loss_type == "ce":
-            valid = labels != self.ignore_index
             lcf = logits if cf else logits.permute(0, 3, 1, 2)
-            ce = per_pixel_ce_channels_first(lcf, labels, self.ignore_index)
-            return ce.sum() / valid.sum().clamp(min=1)
+            return cross_entropy_loss(lcf, labels, self.ignore_index,
+                                      self.group)
         if self.loss_type == "dice":
-            return dice_loss(logits, labels, logits.shape[-1])
-        return bce_loss(logits, labels, logits.shape[-1], self.ignore_index)
+            return dice_loss(logits, labels, logits.shape[-1], self.group)
+        return bce_loss(logits, labels, logits.shape[-1], self.ignore_index,
+                        self.group)
 
     def __call__(self, images: torch.Tensor,
                  labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
         loss = self.loss(images, labels)
-        loss.backward()
+        loss.backward()  # DDP's mean all-reduce of the gradients
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
@@ -122,6 +157,16 @@ class SegTrainStep:
         self.opt.step()
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
+def require_reduced(model: nn.Module) -> None:
+    """Raise unless a train step on `model` reduces its gradients: under a
+    process group of more than one rank the model must be a DDP wrap."""
+    if pdist.world_size() > 1 and not is_data_parallel(model):
+        raise ValueError(
+            f"a train step under a process group of {pdist.world_size()} "
+            "ranks needs its model wrapped by parallel.data_parallel: "
+            "unreduced, each rank would train on its own shard")
 
 
 def make_seg_train_step(model: nn.Module, opt: torch.optim.Optimizer,

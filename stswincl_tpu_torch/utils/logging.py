@@ -6,7 +6,7 @@ that writes to stdout on rank 0 and to a file per rank, an
 `AverageMeter`, and a `MetricLogger` that writes JSONL scalars on rank 0
 and TensorBoard events where `torch.utils.tensorboard` imports (the JAX
 package's sink uses TensorFlow's writer the same way). The rank is
-`torch.distributed.get_rank()` when a process group is initialised, else 0.
+`parallel.distributed.rank()`: the process group's, else 0.
 """
 
 from __future__ import annotations
@@ -18,16 +18,7 @@ import sys
 import time
 from typing import Dict, Optional
 
-import torch.distributed as dist
-
-
-def process_rank() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
-
-
-def is_main_process() -> bool:
-    return process_rank() == 0
+from stswincl_tpu_torch.parallel.distributed import rank
 
 
 def setup_logger(log_dir: Optional[str] = None, name: str = "stswincl",
@@ -40,14 +31,14 @@ def setup_logger(log_dir: Optional[str] = None, name: str = "stswincl",
     logger.propagate = False
     fmt = logging.Formatter(
         "[%(asctime)s %(name)s] %(levelname)s: %(message)s", "%H:%M:%S")
-    main = is_main_process()
+    main = rank() == 0
     if main:
         h = logging.StreamHandler(sys.stdout)
         h.setFormatter(fmt)
         logger.addHandler(h)
     if log_dir and (main or all_ranks_file):
         os.makedirs(log_dir, exist_ok=True)
-        suffix = "" if main else f".rank{process_rank()}"
+        suffix = "" if main else f".rank{rank()}"
         fh = logging.FileHandler(os.path.join(log_dir, f"log.txt{suffix}"))
         fh.setFormatter(fmt)
         logger.addHandler(fh)
@@ -81,7 +72,7 @@ class MetricLogger:
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
-        self.enabled = is_main_process()
+        self.enabled = rank() == 0
         self._jsonl = None
         self._tb = None
         if self.enabled:

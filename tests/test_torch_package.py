@@ -1,5 +1,7 @@
-"""The port stands alone: no module of `stswincl_tpu_torch/`, and not
-`chip_smoke.py`, imports JAX, flax or the JAX package; the port's copies
+"""The port stands alone: no module of `stswincl_tpu_torch/` (its
+`parallel/` too), not `chip_smoke.py` and not the rank bodies of the
+data-parallel tests (`tests/torch_parallel_ranks.py`) imports JAX, flax
+or the JAX package; the port's copies
 of the configs, of the CaDIS tables (class counts, video splits, the
 experiment remapping), of the normalisation constants and of the
 RandAugment tables equal the JAX package's; and `build_model` puts the model on the card unless asked
@@ -66,7 +68,13 @@ def test_port_imports_nothing_of_jax():
             port / "data" / "prepare_endovis.py",
             port / "utils" / "profiling.py",
             port / "models" / "resnet.py",
-            port / "models" / "stswin.py"} <= set(sources)
+            port / "models" / "stswin.py",
+            port / "parallel" / "__init__.py",
+            port / "parallel" / "collectives.py",
+            port / "parallel" / "distributed.py",
+            port / "parallel" / "mesh.py"} <= set(sources)
+    # the data-parallel tests' rank bodies run without JAX too
+    sources.append(ROOT / "tests" / "torch_parallel_ranks.py")
     bad = [(str(p.relative_to(ROOT)), m) for p in sources
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
