@@ -135,11 +135,22 @@ stops a phase exits non-zero at once:
      the conv profiler (`tools.profile_conv_kernel.main`) with few
      repeats; one row-12 or row-15 launch a module forward, one row-17
      launch a kernel call of the profiler;
-  7. fp32: `build_model(ModelConfig(dtype="float32"))` (the plain twins:
-     the kernels take bf16 only) serves `init_and_predict` +
-     `predict_next` at full width, bs 2, and takes one stage-1 train step
-     at batch 2: predictions in [0, 12), a finite loss, no kernel
-     launched;
+  7. fp32 (`phase_fp32`): (a) the fp32 forms of K1, K2 (plain, shifted,
+     T 1) and K3 (`csrc/fp32_forms.cu`) against their fp32 twins at both
+     stages' serving shapes, TF32 off, within TOL_F32_REL, timed beside
+     the twin and the bf16 kernel; planted faults (every product operand
+     rounded to TF32, and phase 2's) must miss the bound tenfold; the fp32
+     GEMM alone at each of their products beside cuBLAS's fp32 F.linear;
+     (b) `build_model(ModelConfig(dtype="float32"))` serves
+     `init_and_predict` + `predict_next` at full width, bs 2, on those
+     forms and K4's exact form, each launched a predict_next as often as
+     the bf16 route launches its own (K1 14, K2 14, K3 1, K4 1), its
+     predictions the fp32 plain route's on >= 99.9 % of pixels; ms per
+     predict_next and frames/s of both fp32 routes and of bf16; (c) fp32
+     evaluation at B = 1 through `evaluate.run_test` on phase 9's
+     synthetic split, streamed and full clip: frames/s, `sec_per_frame`,
+     launches a frame; (d) one stage-1 train step at batch 2 on the plain
+     twins (K5 and K6 take bf16): a finite loss, no kernel launched;
   8. stage-2 pretraining at full width (`ContrastEncoder`, batch 4, six
      views of 4 frames at 256x448, `ContrastTrainConfig`'s LARS and EMA):
      (a) one step on the kernel route against one on the plain route and
@@ -497,7 +508,8 @@ def planted(kname: str, case: str, fault: str, moved: float) -> None:
 # the Hopper GEMM's rows of the `kernels` line -> the forms of
 # `ops.gemm.launch_counts` that each counts
 GEMM_ROWS = {"linear_sm90": ("bf16", "resid_f32", "gelu_grad", "dgelu", "f32"),
-             "gelu_bwd_sm90": ("gelu_bwd",), "wgrad_sm90": ("wgrad",)}
+             "gelu_bwd_sm90": ("gelu_bwd",), "wgrad_sm90": ("wgrad",),
+             "linear_f32": ("fp32",)}
 
 
 # the attention kernel each route launches in place of K1
@@ -531,7 +543,11 @@ def kernel_wrappers() -> dict:
         "conv3x3_bn_act": conv.conv3x3_bn_act,
         "linear_sm90": gemm.linear_sm90,
         "gelu_bwd_sm90": gemm.gelu_bwd_sm90,
-        "wgrad_sm90": gemm.wgrad_sm90}
+        "wgrad_sm90": gemm.wgrad_sm90,
+        "swin_block_attention_f32": block_attention.swin_block_attention_f32,
+        "swin_block_epilogue_f32": add_ln_mlp.swin_block_epilogue_f32,
+        "patch_merge_f32": patch_merge.patch_merge_f32,
+        "linear_f32": gemm.linear_f32}
 
 
 def reset_launches(wrappers) -> None:
@@ -569,7 +585,8 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
     (f32) and two weight gradients, with m saved the fused pair, with m
     recomputed fc1 + gelu', m (bf16) and dh * gelu'; rows 12 and 13 two
     bf16 products (fc1, fc2); row 16 none (its products run inside its one
-    launch); row 17 one "conv" product a call. `m_saved`: the block calls
+    launch); row 17 one "conv" product a call; the fp32 forms of K1 and K2
+    two fp32 GEMM products each, K3's one. `m_saved`: the block calls
     whose K2 saves m and whose K6 takes it (0 where nothing is trained;
     None where the path does not say); `m_used`, where it differs, the
     K6 launches that take a saved m (with remat K2 saves m in the forward
@@ -587,7 +604,11 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
              ("dgelu", forms["dgelu"], forms["gelu_grad"]),
              ("f32", forms["f32"], k6),
              ("wgrad", forms["wgrad"], 2 * (k5 + k6)),
-             ("conv", forms["conv"], counts["conv3x3_bn_act"])]
+             ("conv", forms["conv"], counts["conv3x3_bn_act"]),
+             ("fp32", forms["fp32"],
+              2 * (counts["swin_block_attention_f32"]
+                   + counts["swin_block_epilogue_f32"])
+              + counts["patch_merge_f32"])]
     if m_saved is not None:
         m_used = m_saved if m_used is None else m_used
         rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),
@@ -1616,11 +1637,11 @@ def main() -> None:
     print(f"phase 6 the Mlp and FusedLayerNorm modules, the conv profiler: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 7: fp32 compute on the plain twins ------------------------
+    # ---- phase 7: fp32 serving and evaluation on the kernels -------------
     t0 = time.perf_counter()
-    phase_fp32(dev, wrappers, launches)
-    print(f"phase 7 fp32 serve and train step: {time.perf_counter() - t0:.1f}"
-          " s", flush=True)
+    phase_fp32(dev, smi, wrappers, launches, results, median_ms)
+    print(f"phase 7 fp32 forms, serving, evaluation and train step: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 8: stage-2 contrastive pretraining ------------------------
     t0 = time.perf_counter()
@@ -1689,6 +1710,19 @@ def main() -> None:
         "wgrad_sm90": (
             "gemm_sm90.cu", "the weight-gradient matmuls of stswincl_tpu/ops/"
             "pallas_block_attention.py:405 and pallas_add_ln_mlp.py:181"),
+        "swin_block_attention_f32": (
+            "fp32_forms.cu", "stswincl_tpu/ops/pallas_block_attention.py:320"
+            " (fp32)"),
+        "swin_block_epilogue_f32": (
+            "fp32_forms.cu", "stswincl_tpu/ops/pallas_add_ln_mlp.py:895 and "
+            ":1012 shifted (fp32)"),
+        "patch_merge_f32": (
+            "fp32_forms.cu", "stswincl_tpu/ops/pallas_patch_merge.py:122 "
+            "(fp32)"),
+        "linear_f32": (
+            "fp32_forms.cu", "the fp32 matmuls of stswincl_tpu/ops/"
+            "pallas_block_attention.py:179, pallas_add_ln_mlp.py:704 and "
+            ":940, pallas_patch_merge.py:41"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -2827,64 +2861,532 @@ def phase_eval(dev, bf16, smi, wrappers, launches) -> dict:
     return {"per_finetune_step": per_step, "per_eval_frame": per_frame}
 
 
-def phase_fp32(dev, wrappers, launches) -> None:
-    """Phase 7: `build_model` with `ModelConfig(dtype="float32")` builds the
-    model on the plain twins (`kernels=False`: the kernels take bf16 only).
-    It serves `init_and_predict` + `predict_next` at full width, bs 2, and
-    takes one stage-1 train step at batch 2: predictions in [0, 12), a
-    finite loss, and no kernel launched."""
+# ---- phase 7: fp32 serving and evaluation on the card's kernels ------------
+
+# (a) each fp32 form against its fp32 twin (TF32 off). An fp32-accurate form
+# reads about 1e-6: the same fp32 arithmetic in another summation order. One
+# product on TF32 operands (the low 13 mantissa bits cleared) moves an
+# output by 5e-4 or more, K2's LN1 dilutes it to about 7e-4, so the bound
+# sits more than tenfold below that and the planted TF32 fault must miss it
+# tenfold; 1e-4 would let K2's and K3's miss by 7-8x only
+TOL_F32_REL = 2e-5
+# the least time of an fp32-accurate product on the card: the 3xTF32 split
+# on the tensor cores (three TF32 products at 494.7 TFLOP/s); PEAK_F32, the
+# CUDA cores' fp32 FMA, is the fp32 forms' own ceiling
+PEAK_3XTF32 = 494.7e12 / 3
+# (b) predict_next steps driven on each route; (b, c) the fp32 kernel route
+# against the fp32 plain route (`kernels=False`), share of equal pixels
+F32_STEPS = 6
+TOL_F32_SHARE = 0.999
+# a predict_next at depths (3, 3) under final_pair_only: 7 W-MSA / SW-MSA
+# block pairs, one patch merge, one resize + argmax
+SERVE_STEP = {"attention": 14, "epilogue": 14, "patch_merge": 1,
+              "upsample_argmax": 1}
+# (a)'s block shapes: the serving batch's two groups of 2 frames at each
+# stage, (4, 2, 64, 80, 512) and (4, 2, 32, 40, 1024); K3 at (8, 64, 80,
+# 512)
+F32_STAGES = {1: dict(C=512, h=64, w=80, ws=8), 2: dict(C=1024, h=32, w=40,
+                                                        ws=4)}
+
+
+def tf32(t):
+    """t (fp32) with the low 13 of its 23 mantissa bits cleared: the
+    operand a single-pass TF32 product reads."""
     import torch
+    return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def block_attention_tf32(x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                         scale, ws, shift=0):
+    """K1's fp32 twin with a planted fault: every product operand rounded
+    to TF32 (`tf32`), what a form that ran its products in one TF32 pass
+    would give."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
+    B, T, H_, W_, _ = x.shape
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(2, 3))
+    qkv = F.linear(tf32(x), tf32(wqkv), bqkv)
+    q, k, v = partition_qkv(qkv, heads, ws)
+    Bw, _, TN, _ = q.shape
+    s = (tf32(q) @ tf32(k).transpose(-1, -2)) * scale + bias[None]
+    if mask is not None and mask.shape[0] > 1:
+        nW = mask.shape[0]
+        s = (s.reshape(Bw // nW, nW, heads, TN, TN)
+             + mask[None, :, None]).reshape(Bw, heads, TN, TN)
+    attn = reverse_windows(tf32(torch.softmax(s, dim=-1)) @ tf32(v), B, T,
+                           H_, W_, ws)
+    return F.linear(tf32(attn), tf32(wproj), bproj)
+
+
+def epilogue_tf32(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact=True,
+                  shift=0, ws=None, eps=1e-5):
+    """K2's fp32 twin with fc1 and fc2 on TF32 operands (`tf32`)."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.add_ln_mlp import layer_norm_f32
+    from stswincl_tpu_torch.ops.mlp import gelu
+    if shift:
+        y = torch.roll(y, (shift, shift), dims=(2, 3))
+    s = x + y
+    n2 = layer_norm_f32(s, s2, b2, eps)
+    h = gelu(F.linear(tf32(n2), tf32(w1), b1), gelu_exact)
+    return layer_norm_f32(s + F.linear(tf32(h), tf32(w2), bw2), s1, b1n,
+                          eps)
+
+
+def patch_merge_tf32(x, scale, bias, w, eps=1e-5):
+    """K3's fp32 twin with its product on TF32 operands (`tf32`)."""
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.patch_merge import patch_merge_ln_ref
+    return F.linear(tf32(patch_merge_ln_ref(x, scale, bias, eps)), tf32(w))
+
+
+def f32_bound(flops: float, nbytes: float) -> dict:
+    """`bound` at the 3xTF32 rate, with the fp32 FMA ceiling beside it."""
+    return {**bound(flops, nbytes, PEAK_3XTF32),
+            "fma_bound_ms": flops / PEAK_F32 * 1e3}
+
+
+def phase_fp32_kernels(dev, results, median_ms) -> None:
+    """Phase 7 (a): K1, K2 (plain, shifted and the final-pair T 1 slice)
+    and K3 in fp32 against their fp32 twins at the serving shapes of both
+    stages, with fp32 weights as the model holds them and phase 2's large
+    attention branch (qkv gain 3, proj gain 2, an N(0, 1) relative bias);
+    the MLP's weights at gain 2, so that its branch is as large as x. Each
+    within TOL_F32_REL; planted faults (every product operand on TF32,
+    phase 2's: no relative bias, the wrong shift, the 2x2 gather swapped)
+    must miss it tenfold. Timed beside the twin and the bf16 kernel on the
+    same values cast to bf16. Then the fp32 GEMM alone at each of their
+    products (`ops.gemm.linear_f32`, K1's with its row maps) beside cuBLAS's
+    fp32 F.linear on the same operands, its yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
+                                                   swin_block_epilogue_f32,
+                                                   swin_block_epilogue_ref)
+    from stswincl_tpu_torch.ops.block_attention import (
+        swin_block_attention, swin_block_attention_f32,
+        swin_block_attention_ref)
+    from stswincl_tpu_torch.ops.patch_merge import (patch_merge,
+                                                    patch_merge_f32,
+                                                    patch_merge_ref)
+    from stswincl_tpu_torch.ops.window import shifted_window_attention_mask
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 7: the fp32 twins must run with TF32 off")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(*shape, fan_in, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5)
+
+    def compare(kname, case, form, kfn, pfn, bfn, faults, work):
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == f32 == want.dtype,
+              f"{kname} {case}: {got.shape}/{got.dtype} vs "
+              f"{want.shape}/{want.dtype}")
+        n = form.launches
+        kfn()
+        check(form.launches == n + 1, f"{kname} {case}: {form.launches - n}"
+              " launches of the fp32 form a call")
+        d = got - want
+        row = {"case": case, "max_abs_err": d.abs().max().item(),
+               "rel_err": (d.norm() / want.norm()).item(),
+               "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
+               "bf16_ms": None if bfn is None else median_ms(bfn),
+               "library_ms": None, **f32_bound(*work)}
+        results.setdefault(kname, []).append(row)
+        print(f"  {kname:24s} {case:36s} rel {row['rel_err']:.3e} max_abs "
+              f"{row['max_abs_err']:.3e} fp32 kernel {row['ms']:.3f} ms twin "
+              f"{row['plain_ms']:.3f} ms" + (
+                  "" if bfn is None else f" bf16 kernel {row['bf16_ms']:.3f}"
+                  " ms") + f" bound {row['bound_ms']:.4f} ms (FMA "
+              f"{row['fma_bound_ms']:.4f})", flush=True)
+        check(row["rel_err"] <= TOL_F32_REL, f"{kname} {case}: relative "
+              f"error {row['rel_err']} > {TOL_F32_REL}")
+        for fault, fn in faults:
+            moved = rel_err(fn(), want)
+            row.setdefault("faults", {})[fault] = moved
+            print(f"  {'':24s} {case:36s} the twin {fault} moves by rel "
+                  f"{moved:.3e} ({moved / TOL_F32_REL:.1f}x the bound)",
+                  flush=True)
+            check(moved > 10 * TOL_F32_REL, f"{kname} {case}: the twin "
+                  f"{fault} moves the output by only {moved}")
+        return want
+
+    gemms = []  # (case, a, wt, bias, act, a_map, c_map, out)
+    heads, T = 4, 2
+    with torch.inference_mode():
+        for s, cfg in F32_STAGES.items():
+            C, h, w, ws = cfg["C"], cfg["h"], cfg["w"], cfg["ws"]
+            TN, R = T * ws * ws, 2 * BS * T * h * w
+            x = randn(2 * BS, T, h, w, C)
+            wqkv, bqkv = (uniform(3 * C, C, fan_in=C, gain=3.0),
+                          uniform(3 * C, fan_in=C))
+            wproj, bproj = (uniform(C, C, fan_in=C, gain=2.0),
+                            uniform(C, fan_in=C))
+            bias = randn(heads, TN, TN)
+            for shift in (0, ws // 2):
+                mask = None
+                if shift:
+                    mask = torch.from_numpy(shifted_window_attention_mask(
+                        h, w, ws, shift)).repeat(1, T, T).to(dev)
+                args = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                        (C // heads) ** -0.5, ws, shift)
+                bargs = (x.to(bf16), wqkv.to(bf16), bqkv, wproj.to(bf16),
+                         *args[4:])
+                tables = heads * TN * TN * 4 + (0 if mask is None
+                                                else mask.numel() * 4)
+                compare("swin_block_attention_f32",
+                        f"stage{s} {tuple(x.shape)} shift={shift}",
+                        swin_block_attention_f32,
+                        lambda: swin_block_attention(*args),
+                        lambda: swin_block_attention_ref(*args),
+                        lambda: swin_block_attention(*bargs),
+                        [("on TF32 operands",
+                          lambda: block_attention_tf32(*args)),
+                         ("without its relative bias",
+                          lambda: swin_block_attention_ref(
+                              *args[:5], torch.zeros_like(bias), *args[6:])),
+                         (f"at shift {shift + 1}",
+                          lambda: swin_block_attention_ref(*args[:10],
+                                                           shift + 1))],
+                        (4 * R * TN * C + 8 * R * C * C,
+                         2 * R * C * 4 + 4 * C * C * 4 + 4 * C * 4 + tables))
+            a_map = (T, h, w, ws, ws // 2)
+            gemms += [(f"K1 qkv stage{s} ({R}, {C}) -> {3 * C}, gather",
+                       x.reshape(R, C), wqkv, bqkv, "none", a_map, None,
+                       None),
+                      (f"K1 proj stage{s} ({R}, {C}) -> {C}, scatter",
+                       randn(R, C), wproj, bproj, "none", None,
+                       (T, h, w, ws, 0), None)]
+            hidden = 4 * C
+            epi_w = (1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                     uniform(hidden, C, fan_in=C, gain=2.0),
+                     uniform(hidden, fan_in=C),
+                     uniform(C, hidden, fan_in=hidden, gain=2.0),
+                     uniform(C, fan_in=hidden),
+                     1.0 + randn(C, scale=0.1), randn(C, scale=0.1))
+            bepi = [t.to(bf16) if t.dim() == 2 else t for t in epi_w]
+            y = randn(*x.shape)
+            cases = [("plain", x, y, 0), (f"shift={ws // 2}", x, y, ws // 2)]
+            if s == 1:  # the final_pair_only slice
+                cases.append((f"T=1 shift={ws // 2}", x[:, 1:].contiguous(),
+                              y[:, 1:].contiguous(), ws // 2))
+            for name, xa, ya, shift in cases:
+                kw = dict(gelu_exact=True, shift=shift, ws=ws)
+                rows = xa.numel() // C
+                xb, yb = xa.to(bf16), ya.to(bf16)
+                compare("swin_block_epilogue_f32",
+                        f"stage{s} {tuple(xa.shape)} {name}",
+                        swin_block_epilogue_f32,
+                        lambda: swin_block_epilogue(xa, ya, *epi_w, **kw),
+                        lambda: swin_block_epilogue_ref(xa, ya, *epi_w, **kw),
+                        lambda: swin_block_epilogue(xb, yb, *bepi, **kw),
+                        [("on TF32 operands",
+                          lambda: epilogue_tf32(xa, ya, *epi_w, **kw)),
+                         (f"at shift {shift + 1}",
+                          lambda: swin_block_epilogue_ref(
+                              xa, ya, *epi_w, **dict(kw, shift=shift + 1)))],
+                        (4 * rows * C * hidden,
+                         3 * rows * C * 4 + 2 * C * hidden * 4
+                         + (hidden + 5 * C) * 4))
+            n2 = randn(R, C)
+            gemms += [(f"K2 fc1 stage{s} ({R}, {C}) -> {hidden}, erf", n2,
+                       epi_w[2], epi_w[3], "erf", None, None, None),
+                      (f"K2 fc2 stage{s} ({R}, {hidden}) -> {C}, + s",
+                       randn(R, hidden), epi_w[4], epi_w[5], "none", None,
+                       None, randn(R, C))]
+            del x, y
+        C, h, w = (F32_STAGES[1][k] for k in ("C", "h", "w"))
+        pm = (1.0 + randn(4 * C, scale=0.1), randn(4 * C, scale=0.1),
+              uniform(2 * C, 4 * C, fan_in=4 * C))
+        xm = randn(4 * BS, h, w, C)
+        rm = xm.numel() // C // 4
+        xmb, pmb = xm.to(bf16), (*pm[:2], pm[2].to(bf16))
+        compare("patch_merge_f32", f"{tuple(xm.shape)}", patch_merge_f32,
+                lambda: patch_merge(xm, *pm), lambda: patch_merge_ref(xm, *pm),
+                lambda: patch_merge(xmb, *pmb),
+                [("on TF32 operands", lambda: patch_merge_tf32(xm, *pm)),
+                 ("with the 2x2 gather order swapped",
+                  lambda: patch_merge_ref(xm.transpose(1, 2).contiguous(),
+                                          *pm).transpose(1, 2))],
+                (16 * rm * C * C, xm.numel() * 4 + rm * 2 * C * 4
+                 + 8 * C * C * 4 + 8 * C * 4))
+        gemms.append((f"K3 ({rm}, {4 * C}) -> {2 * C}",
+                      randn(rm, 4 * C), pm[2], None, "none", None, None,
+                      None))
+        del xm, xmb
+
+        for case, a, wt, bias_, act, a_map, c_map, out in gemms:
+            M, K = a.shape
+            N = wt.shape[0]
+
+            def kfn():
+                return gemm_ops.linear_f32(
+                    a, wt, bias_, act, a_map, c_map,
+                    None if out is None else out.clone())
+
+            def pfn():
+                return gemm_ops.linear_sm90_ref(
+                    a, wt, bias_, act, a_map, c_map, out,
+                    "bf16" if out is None else "resid_f32")
+
+            got, want = kfn(), pfn()
+            d = got - want
+            row = {"case": case, "max_abs_err": d.abs().max().item(),
+                   "rel_err": (d.norm() / want.norm()).item(),
+                   "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
+                   "library_ms": median_ms(lambda: F.linear(a, wt, bias_)),
+                   "tf32_fault": rel_err(gemm_ops.linear_sm90_ref(
+                       tf32(a), tf32(wt), bias_, act, a_map, c_map, out,
+                       "bf16" if out is None else "resid_f32"), want),
+                   **f32_bound(2 * M * N * K,
+                               (M * K + N * K + M * N * (2 if out is not None
+                                                         else 1)) * 4)}
+            results.setdefault("linear_f32", []).append(row)
+            tflops = 2 * M * N * K / row["ms"] * 1e-9
+            print(f"  {'linear_f32':24s} {case:36s} rel {row['rel_err']:.3e}"
+                  f" {row['ms']:.3f} ms ({tflops:.1f} TFLOP/s) cuBLAS fp32 "
+                  f"{row['library_ms']:.3f} ms twin {row['plain_ms']:.3f} ms"
+                  f" bound {row['bound_ms']:.4f} ms (FMA "
+                  f"{row['fma_bound_ms']:.4f}); on TF32 operands the twin "
+                  f"moves by {row['tf32_fault']:.3e}", flush=True)
+            check(row["rel_err"] <= TOL_F32_REL, f"linear_f32 {case}: "
+                  f"relative error {row['rel_err']} > {TOL_F32_REL}")
+            check(row["tf32_fault"] > 10 * TOL_F32_REL, f"linear_f32 {case}"
+                  f": the TF32 twin moves by only {row['tf32_fault']}")
+
+
+def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> None:
+    """Phase 7: (a) `phase_fp32_kernels`; (b) fp32 serving: the model that
+    `build_model(ModelConfig(dtype="float32"))` builds (`kernels=None`)
+    through `StreamingSegmenter` at full width, bs 2, BatchNorm calibrated
+    on the first clip: each `predict_next` launches the fp32 forms of K1,
+    K2 and K3 and K4's exact form as often as the bf16 route launches its
+    own (SERVE_STEP) and no bf16 kernel, the fp32 GEMM twice a K1 or K2 and
+    once a K3; its predictions equal the fp32 plain route's (`kernels=
+    False`) on >= TOL_F32_SHARE of pixels each step; ms per predict_next
+    and frames/s of both fp32 routes and of the bf16 model on the same
+    weights; (c) fp32 evaluation at B = 1 through `evaluate.run_test` on
+    phase 9's synthetic split, streamed and full clip, from a checkpoint
+    of (b)'s weights: K4 once a frame, the fp32 forms launched and no bf16
+    kernel, the full-clip predictions against the plain route's,
+    frames/s and `sec_per_frame`; (d) one stage-1 train step of that
+    model at batch 2: a finite loss and no kernel launched (the fp32
+    forward that records a graph runs the twins: K5 and K6 take bf16)."""
+    import tempfile
+
+    import torch
+    from stswincl_tpu_torch.ckpt import save_checkpoint
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
+    from stswincl_tpu_torch.data.loader import SyntheticSegDataset
+    from stswincl_tpu_torch.models import TswinPlus
     from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines import evaluate as evaluate_mod
     from stswincl_tpu_torch.pipelines.common import build_model
     from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
+    t0 = time.perf_counter()
+    phase_fp32_kernels(dev, results, median_ms)
+    print(f"phase 7 (a) the fp32 forms against their twins: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) serving
+    t0 = time.perf_counter()
     cfg = SegTrainConfig(model=ModelConfig(dtype="float32"),
-                         data=DataConfig(batch_size=BS))
-    reset_launches(wrappers)
+                         data=DataConfig(batch_size=BS, crop_hw=(H, W)))
     model, classes = build_model(cfg.model, cfg.data, device=dev)
-    check(model.kernels is False, "fp32 build_model: kernels "
-          f"{model.kernels}, expected False")
+    check(model.kernels is None, f"fp32 build_model: kernels "
+          f"{model.kernels}, expected None (the fp32 forms)")
     init_weights(model, torch.Generator().manual_seed(0))
-    model.to(dev)
+    model.to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(5)
-    frames = torch.rand((BS, 5, H, W, 3), generator=gen, device=dev) * 2 - 1
-    seg = StreamingSegmenter(model.eval(), out_hw=OUT_HW)
-    ts = time.perf_counter()
-    cache, pred0 = seg.init_and_predict(frames[:, 0:4])
-    _, pred = seg.predict_next(cache, frames[:, 4])
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - ts
-    for p in (pred0, pred):
-        check(p.shape == (BS, *OUT_HW) and p.dtype == torch.int32,
+    frames = torch.rand((BS, 4 + F32_STEPS, H, W, 3), generator=gen,
+                        device=dev) * 2 - 1
+    calibrate_batchnorm(model, frames[:, 0:4])
+    weights = model.state_dict()
+    kw = dict(num_classes=classes, swin_dim=512, swin_depths=(3, 3),
+              input_hw=(H, W))
+    f32_rows = {"attention": "swin_block_attention_f32",
+                "epilogue": "swin_block_epilogue_f32",
+                "patch_merge": "patch_merge_f32",
+                "upsample_argmax": "upsample_argmax"}
+    bf16_rows = {"attention": "swin_block_attention",
+                 "epilogue": "swin_block_epilogue",
+                 "patch_merge": "patch_merge",
+                 "upsample_argmax": "upsample_argmax"}
+
+    def drive(m, path):
+        """init_and_predict, then F32_STEPS predict_next frames: (the
+        predictions, launches a predict_next, the GEMM forms since the
+        reset, ms a predict_next (median of the steps after the first),
+        frames/s over them)."""
+        seg = StreamingSegmenter(m, out_hw=OUT_HW)
+        reset_launches(wrappers)
+        cache, pred = seg.init_and_predict(frames[:, 0:4])
+        preds, step_s = [pred], []
+        before = read_launches(wrappers)[0]
+        for i in range(4, 4 + F32_STEPS):
+            ts = time.perf_counter()
+            cache, pred = seg.predict_next(cache, frames[:, i])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            preds.append(pred)
+        launches[path], forms = read_launches(wrappers)
+        per_step = {k: (n - before[k]) / F32_STEPS
+                    for k, n in launches[path].items()}
+        steady = step_s[1:]
+        return (preds, per_step, forms, 1e3 * statistics.median(steady),
+                BS * len(steady) / sum(steady))
+
+    rates = {}
+    preds, per_step, forms, *rates["fp32 kernels"] = drive(model,
+                                                           "serve_fp32")
+    check(StreamingSegmenter(model).exact, "fp32 serving: K4 not exact")
+    print(f"  [fp32] serving-path launches a predict_next: "
+          f"{ {k: v for k, v in per_step.items() if v} }", flush=True)
+    check_gemm_launches("fp32 serve", launches["serve_fp32"], forms,
+                        m_saved=0)
+    for key, want in SERVE_STEP.items():
+        check(per_step[f32_rows[key]] == want, f"fp32 serve: "
+              f"{f32_rows[key]} launched {per_step[f32_rows[key]]} times a "
+              f"predict_next, expected {want}")
+    for k, n in launches["serve_fp32"].items():
+        check(n == 0 or k in f32_rows.values() or k == "linear_f32",
+              f"fp32 serve: {k} launched {n} times")
+    for p in preds:
+        check(p.shape == (BS, *OUT_HW) and p.dtype == torch.int32
+              and 0 <= int(p.min()) and int(p.max()) < classes,
               f"fp32 prediction {p.shape} {p.dtype}")
-        check(0 <= int(p.min()) and int(p.max()) < classes,
-              "fp32: class out of range")
-    del seg, cache
+    plain = TswinPlus(**kw, dtype=torch.float32, kernels=False)
+    plain.load_state_dict(weights)
+    plain_preds, plain_step, _, *rates["fp32 plain"] = drive(
+        plain.to(dev).eval(), "serve_fp32_plain")
+    check(sum(plain_step.values()) == 0,
+          f"fp32 plain route launched {plain_step}")
+    shares = [(a == b).float().mean().item()
+              for a, b in zip(preds, plain_preds)]
+    bfm = TswinPlus(**kw, dtype=torch.bfloat16)
+    bfm.load_state_dict(weights)
+    _, bf_step, _, *rates["bf16 kernels"] = drive(bfm.to(dev).eval(),
+                                                  "serve_fp32_weights_bf16")
+    for key, want in SERVE_STEP.items():
+        check(bf_step[bf16_rows[key]] == per_step[f32_rows[key]],
+              f"fp32 serve: {f32_rows[key]} {per_step[f32_rows[key]]} a "
+              f"step, the bf16 route's {bf16_rows[key]} "
+              f"{bf_step[bf16_rows[key]]}")
+    classes_hist = torch.bincount(preds[-1].flatten(), minlength=classes)
+    print(f"  [fp32] kernel route == fp32 plain route: min {min(shares):.6f}"
+          f" of pixels over {len(shares)} frames; last-frame classes "
+          f"{classes_hist.tolist()}", flush=True)
+    check(min(shares) >= TOL_F32_SHARE, f"fp32 serve: kernel vs plain route "
+          f"{min(shares)} < {TOL_F32_SHARE}")
+    for route, (ms, fps) in rates.items():
+        print(f"  [fp32 serve] {route}: {ms:.2f} ms a predict_next (median "
+              f"of {F32_STEPS - 1}), {fps:.2f} frames/s at bs {BS} on {smi}",
+              flush=True)
+    del plain, bfm, preds, plain_preds
+    torch.cuda.empty_cache()
+    print(f"phase 7 (b) fp32 serving: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) evaluation at B = 1 through run_test
+    t0 = time.perf_counter()
+    spy = EvalSpy(evaluate_mod.evaluate_split, wrappers)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        save_checkpoint(os.path.join(tmp, "fp32"), 0, {"model": weights})
+        viz = {}
+        for streaming in (True, False):
+            viz[streaming] = os.path.join(tmp, f"viz_{streaming}")
+            test_cfg = SegTrainConfig(
+                model=ModelConfig(dtype="float32"),
+                data=DataConfig(dataset="synthetic", crop_hw=(H, W)),
+                test_checkpoint=os.path.join(tmp, "fp32"),
+                streaming_eval=streaming, viz_dir=viz[streaming],
+                log_dir=os.path.join(tmp, "log"))
+            reset_launches(wrappers)
+            with unittest.mock.patch.object(evaluate_mod, "evaluate_split",
+                                            spy):
+                evaluate_mod.run_test(test_cfg, device=dev)
+            launches[f"eval_fp32_streaming_{str(streaming).lower()}"] = \
+                spy.calls[-1]["launches"]
+        plain_dir = os.path.join(tmp, "viz_plain")
+        plain = TswinPlus(**kw, dtype=torch.float32, kernels=False)
+        plain.load_state_dict(weights)
+        evaluate_mod.evaluate_split(
+            plain.to(dev).eval(),
+            SyntheticSegDataset(length=8, t=4, hw=(H, W), num_classes=12),
+            SegTrainConfig(data=DataConfig(dataset="synthetic"),
+                           viz_dir=plain_dir), streaming=False)
+        ref, full = pngs(plain_dir), pngs(viz[False])
+    import numpy as np
+    share = float(np.mean([(full[k] == ref[k]).all(-1).mean() for k in ref]))
+    for c, mode in zip(spy.calls, ("streamed", "full clip")):
+        frames_n = c["summary"]["frames"]
+        per_frame = {k: v / frames_n for k, v in c["launches"].items() if v}
+        print(f"  [fp32 eval {mode}] launches a frame: {per_frame}",
+              flush=True)
+        eval_rate(f"fp32 eval {mode}", c, smi)
+        check(c["launches"]["upsample_argmax"] == frames_n,
+              f"fp32 eval {mode}: K4 launched "
+              f"{c['launches']['upsample_argmax']} times for {frames_n} "
+              "frames")
+        check_gemm_launches(f"fp32 eval {mode}", c["launches"], c["forms"],
+                            m_saved=0)
+        for k, n in c["launches"].items():
+            check(n == 0 or k in f32_rows.values() or k == "linear_f32",
+                  f"fp32 eval {mode}: {k} launched {n} times")
+        for k in f32_rows.values():
+            check(c["launches"][k] > 0, f"fp32 eval {mode}: {k} never "
+                  "launched")
+    print(f"  [fp32 eval] kernel route == plain route (full clip): "
+          f"{share:.6f} of pixels over {len(ref)} frames", flush=True)
+    check(share >= TOL_F32_SHARE, f"fp32 eval: kernel vs plain route "
+          f"{share} < {TOL_F32_SHARE}")
+    del plain
+    torch.cuda.empty_cache()
+    print(f"phase 7 (c) fp32 evaluation: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (d) the stage-1 train step on the twins
+    t0 = time.perf_counter()
+    model.train()
     images, labels = seeded_batch(BS, seed=6)
     opt, schedule = make_tx(cfg, 1, model)
     step = make_seg_train_step(model, opt, schedule, cfg.loss,
                                ohem_thresh=cfg.ohem_thresh)
+    reset_launches(wrappers)
     torch.cuda.reset_peak_memory_stats()
     ts = time.perf_counter()
     loss = float(step(torch.from_numpy(images).to(dev),
                       torch.from_numpy(labels).to(dev).long())["loss"])
     torch.cuda.synchronize()
     step_s = time.perf_counter() - ts
-    launches["fp32"] = read_launches(wrappers)[0]
-    print(f"  [fp32] init_and_predict + predict_next {serve_s:.2f} s, "
-          f"classes {torch.bincount(pred.flatten(), minlength=12).tolist()};"
-          f" train step at batch {BS}: loss {loss:.6f}, {step_s:.2f} s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{launches['fp32']}", flush=True)
+    launches["train_fp32"], forms = read_launches(wrappers)
+    print(f"  [fp32 train] stage-1 step at batch {BS} on the twins: loss "
+          f"{loss:.6f}, {step_s:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     check(math.isfinite(loss), f"fp32 train loss {loss}")
-    for k, n in launches["fp32"].items():
-        check(n == 0, f"fp32: {k} launched {n} times")
+    for k, n in launches["train_fp32"].items():
+        check(n == 0, f"fp32 train: {k} launched {n} times")
+    check(sum(forms.values()) == 0, f"fp32 train: GEMM launches {forms}")
     del model, opt, step
     torch.cuda.empty_cache()
+    print(f"phase 7 (d) fp32 train step: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 # a train-mode BatchNorm whose batch statistics cover at most this many

@@ -47,10 +47,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry name -> argument types (pointers, then ints/floats, then stream)
 SIGNATURES = {
     "stswin_block_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
+    "stswin_block_attention_f32": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_attention_bwd": [_P] * 16 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_epilogue": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "stswin_block_epilogue_f32": [_P] * 14 + [_I] * 7 + [_F, _P],
     "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "stswin_patch_merge_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_upsample_argmax": [_P] * 6 + [_I] * 7 + [_P],
     "stswin_window_attention_image": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     "stswin_window_attention_heads": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
@@ -70,6 +73,9 @@ SIGNATURES = {
     "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
+    "stswin_gemm_f32": [_P] * 4 + [_I] * 15 + [_P],
+    # a query, not a launch: (long long* count, int reset), no stream
+    "stswin_gemm_f32_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],
 }
@@ -180,6 +186,18 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def fp32_twin(x: torch.Tensor, *tensors) -> bool:
+    """True when a float32 forward on the card records an autograd graph
+    through x or one of `tensors`. The fp32 forms of K1-K3 have no
+    backward kernel (K5 and K6 take bfloat16), so the wrappers of K1, K2
+    and K3 then run their plain twins and autograd differentiates those; a
+    forward that records no graph (`inference_mode`, `no_grad`, or nothing
+    that requires grad) launches the fp32 kernels. On the CPU the autograd
+    Functions' CPU forms are those twins already, and stay the route."""
+    return (x.dtype == torch.float32 and x.device.type != "cpu"
+            and needs_grad(x, *tensors))
+
+
 def use_device(device: torch.device) -> int:
     """Make `device` the library runtime's current device on the calling
     thread, if it is not the one last set there; returns its index."""
@@ -215,15 +233,28 @@ def require(cond: bool, msg) -> None:
 
 # The checks below form their messages only when they fail: a wrapper
 # calls them on every launch, and rows 14-15 take 0.05-0.3 ms on the card.
-def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels compute in bfloat16 only."""
+def require_bf16(name: str, row: str, *tensors: torch.Tensor) -> None:
+    """The kernel `name` computes in bfloat16 only; `row` names what it
+    ports ("Pallas row 10"). Float32 has no form of it on the card yet
+    (ROADMAP Queue 2)."""
     for t in tensors:
         if t.dtype == torch.float32:
             raise NotImplementedError(
-                f"{name}: the CUDA kernel takes bfloat16 activations and "
-                "weights; float32 runs the plain twin on the CPU")
+                f"{name} ({row}): no float32 form on the card yet; the CUDA "
+                "kernel takes bfloat16 activations and weights, and float32 "
+                "runs the plain twin on the CPU")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: dtype {t.dtype}")
+
+
+def require_form(name: str, row, *tensors: torch.Tensor) -> None:
+    """The dtype a kernel form takes: `row` None for an fp32 form
+    (`require_f32`), else the bf16 kernel that ports `row`
+    (`require_bf16`)."""
+    if row is None:
+        require_f32(name, *tensors)
+    else:
+        require_bf16(name, row, *tensors)
 
 
 def require_f32(name: str, *tensors: torch.Tensor) -> None:

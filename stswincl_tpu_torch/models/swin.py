@@ -37,7 +37,10 @@ Training: on the kernel route the wrappers take the fp32 parameters
 themselves and go through their autograd Functions (K1/K5, K2/K6, K3),
 which return fp32 weight gradients from fp32 accumulators; on the plain
 route autograd runs through the twins, with the bf16 working copies cast
-in the graph (`models/layers.py`). `remat` is the JAX stack's
+in the graph (`models/layers.py`). An fp32 model on the kernel route runs
+the fp32 forms of K1-K3 in a forward that records no graph, and their
+twins under autograd in one that does (`kernels.fp32_twin`: K5 and K6
+take bf16 only). `remat` is the JAX stack's
 `nn.remat(SpaceTimeSwinBlock)`: with grad enabled each block call runs
 under a non-reentrant `torch.utils.checkpoint`, which keeps only the
 block's input and recomputes its forward (the same kernels on the same

@@ -32,7 +32,7 @@ def _kernel(x, y, scale, bias, eps, return_sum):
     name = "add_layer_norm"
     kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
                     f"{x.device}")
-    kernels.require_bf16_cuda(name, x, y)
+    kernels.require_bf16(name, "Pallas row 14", x, y)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, y, scale, bias)
     C = x.shape[-1]

@@ -9,14 +9,17 @@ Counterparts in `stswincl_tpu/ops/pallas_add_ln_mlp.py`:
 `fused_epilogue_bwd` / `fused_epilogue_bwd_streamed` (K6), routed as
 `_epi_fwd` / `_epi_bwd` and `_epis_fwd` / `_epis_bwd` route them.
 
-`swin_block_epilogue` launches K2 (`csrc/epilogue.cu`) on a CUDA tensor and
-runs the plain twin `swin_block_epilogue_ref` on a CPU tensor. When
-autograd needs a gradient it goes through `EpilogueFn`: its backward
-launches K6 on CUDA (`swin_block_epilogue_bwd`) and runs
-`swin_block_epilogue_bwd_ref` on the CPU. With `shift` > 0, y is in the
-SW-MSA shifted layout that `swin_block_attention(shift=...)` leaves, is
-read back through the inverse cyclic shift, and its gradient returns in
-that layout.
+`swin_block_epilogue` launches K2 (`csrc/epilogue.cu`) on a bf16 CUDA
+tensor, its fp32 serving form (`swin_block_epilogue_f32`,
+`csrc/fp32_forms.cu`) on an fp32 one, and runs the plain twin
+`swin_block_epilogue_ref` on a CPU tensor. When autograd needs a gradient
+it goes through `EpilogueFn`: its backward launches K6 on CUDA
+(`swin_block_epilogue_bwd`) and runs `swin_block_epilogue_bwd_ref` on the
+CPU; K6 takes bf16 only, so an fp32 forward on the card that records a
+graph runs the twin under autograd instead (`kernels.fp32_twin`). With
+`shift` > 0, y is in the SW-MSA shifted layout that
+`swin_block_attention(shift=...)` leaves, is read back through the inverse
+cyclic shift, and its gradient returns in that layout.
 
 Two roundings of the MLP output m live here, as in the JAX package:
 the serving forward adds the fp32 m to s unrounded (`:743`), while the
@@ -137,11 +140,12 @@ def _geometry(name, x, y, w1, shift, ws):
     return 1, 1, x.numel() // C, C, hidden
 
 
-def _check_params(name, x, w1, b1, w2, vectors, C, hidden):
-    """x bf16 on CUDA; w1 (hidden, C), w2 (C, hidden) in x's dtype; b1
-    (hidden,) and the C-sized `vectors` fp32."""
+def _check_params(name, row, x, w1, b1, w2, vectors, C, hidden):
+    """x on CUDA in the dtype of the form (`kernels.require_form` of
+    `row`); w1 (hidden, C), w2 (C, hidden) in x's dtype; b1 (hidden,) and
+    the C-sized `vectors` fp32."""
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
-    kernels.require_bf16_cuda(name, x)
+    kernels.require_form(name, row, x)
     kernels.require(w1.dtype == x.dtype and w2.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
     kernels.require_f32(name, b1, *vectors)
@@ -159,7 +163,9 @@ def _forward_kernel(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact,
     (else None). Weights already in x's dtype."""
     name = "swin_block_epilogue"
     BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
-    _check_params(name, x, w1, b1, w2, (s2, b2, bw2, s1, b1n), C, hidden)
+    _check_params(name, "Pallas row 8" if with_m
+                  else "Pallas rows 2-3's bf16 form", x, w1, b1, w2,
+                  (s2, b2, bw2, s1, b1n), C, hidden)
     kernels.require_on(x.device, name, y)
     rows = BT * H * W
     dev = x.device
@@ -177,6 +183,38 @@ def _forward_kernel(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact,
     return out, m
 
 
+def swin_block_epilogue_f32(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
+                            gelu_exact: bool = True, shift: int = 0,
+                            ws: Optional[int] = None, eps: float = 1e-5):
+    """K2's fp32 serving form (`stswin_block_epilogue_f32`,
+    `csrc/fp32_forms.cu`) on fp32 CUDA tensors, the arguments of
+    `swin_block_epilogue` with w1, w2 in fp32: LN2, fc1 + GELU and fc2 on
+    the fp32 GEMM (fc2 added into s unrounded), LN1. No m output and no
+    backward: an fp32 forward that records a graph runs the twin
+    (`kernels.fp32_twin`)."""
+    name = "swin_block_epilogue_f32"
+    BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
+    _check_params(name, None, x, w1, b1, w2, (s2, b2, bw2, s1, b1n), C,
+                  hidden)
+    kernels.require_f32(name, y)
+    kernels.require_on(x.device, name, y)
+    rows = BT * H * W
+    f32 = dict(dtype=torch.float32, device=x.device)
+    s32, n2 = (torch.empty((rows, C), **f32) for _ in range(2))
+    hid = torch.empty((rows, hidden), **f32)
+    out = torch.empty_like(x)
+    P = kernels.ptr
+    kernels.launch("stswin_block_epilogue_f32", x.device, P(x), P(y), P(s2),
+                   P(b2), P(w1), P(b1), P(w2), P(bw2), P(s1), P(b1n),
+                   P(s32), P(n2), P(hid), P(out), BT, H, W, C, hidden, shift,
+                   1 if gelu_exact else 2, float(eps))
+    swin_block_epilogue_f32.launches += 1
+    return out
+
+
+swin_block_epilogue_f32.launches = 0
+
+
 def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
                         gelu_exact: bool = True, shift: int = 0,
                         ws: Optional[int] = None, eps: float = 1e-5,
@@ -186,10 +224,17 @@ def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
     are fp32; returns x's shape and dtype. `m_out`: None routes as the JAX
     package does (serving adds the fp32 m; training rounds m where
     `mlp_output_saved`); True rounds m before the residual add at every
-    shape, and a training forward saves it for K6."""
+    shape, and a training forward saves it for K6. x in bf16 launches K2,
+    in fp32 its fp32 serving form (no graph recorded, no `m_out`) or the
+    twin under autograd (`kernels.fp32_twin`)."""
     args = (x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact, shift, ws,
             eps)
-    if kernels.needs_grad(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n):
+    if kernels.fp32_twin(x, *args[1:10]):
+        fwd = (swin_block_epilogue_with_m_ref if m_out
+               else swin_block_epilogue_ref)
+        out = fwd(*args)
+        return out[0] if m_out else out
+    if kernels.needs_grad(*args[:10]):
         return EpilogueFn.apply(*args, m_out)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     args = (x, y, s2, b2, w1, b1, w2) + args[7:]
@@ -197,6 +242,8 @@ def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
         if m_out:
             return swin_block_epilogue_with_m_ref(*args)[0]
         return swin_block_epilogue_ref(*args)
+    if x.dtype == torch.float32 and not m_out:
+        return swin_block_epilogue_f32(*args)
     return _forward_kernel(*args, with_m=bool(m_out))[0]
 
 
@@ -213,7 +260,8 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
     shift is 0), the rest fp32."""
     name = "swin_block_epilogue_bwd"
     BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
-    _check_params(name, x, w1, b1, w2, (s2, b2, bw2, s1), C, hidden)
+    _check_params(name, "Pallas row 7" if m is None else "Pallas row 9", x,
+                  w1, b1, w2, (s2, b2, bw2, s1), C, hidden)
     kernels.require(C in (128, 256, 512, 1024),
                     f"{name}: C must be 128, 256, 512 or 1024, got {C}")
     kernels.require(g.shape == x.shape and g.dtype == x.dtype
@@ -322,7 +370,8 @@ def _add_ln_mlp_kernel(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
     C, hidden = x.shape[-1], w1.shape[0]
     kernels.require(y.shape == x.shape, f"{name}: y {tuple(y.shape)} vs x "
                     f"{tuple(x.shape)}")
-    _check_params(name, x, w1, b1, w2, (scale, bias, b2), C, hidden)
+    _check_params(name, "Pallas row 13", x, w1, b1, w2, (scale, bias, b2),
+                  C, hidden)
     kernels.require_on(x.device, name, y)
     check_mlp_widths(name, C, hidden)
     x, y = x.contiguous(), y.contiguous()

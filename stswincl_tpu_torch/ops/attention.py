@@ -81,6 +81,14 @@ def _attn_smem_bytes(TN: int, hd: int) -> int:
     return _align(3 * TN * (hd + 8) * 2) + _align(TN * 8)
 
 
+def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of K1's fp32 attention block, one (window,
+    head) (`attn_f32_smem` in `csrc/fp32_forms.cu`): q, k and v in fp32
+    rows of hd + 4; the scores and P stay in registers. 198 KiB at stage 1
+    (TN 128, hd 128), 98 KiB at stage 2 (TN 32, hd 256)."""
+    return _align(3 * TN * (hd + 4) * 4)
+
+
 def check_attention_core(name: str, device: torch.device,
                          bias_tiled: torch.Tensor,
                          mask_tiled: Optional[torch.Tensor], heads: int,
@@ -122,7 +130,7 @@ def _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale):
                     f"{name}: q, k, v must share one (Bw, heads, TN, hd) "
                     f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                     f"{tuple(v.shape)}")
-    kernels.require_bf16_cuda(name, q, k, v)
+    kernels.require_bf16(name, "Pallas row 11", q, k, v)
     kernels.require_on(q.device, name, q, k, v)
     kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                     f"{name}: q, k, v must be 16-byte aligned")

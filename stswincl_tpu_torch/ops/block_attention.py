@@ -5,11 +5,15 @@ and the row-10 kernel, window attention on an image-layout qkv.
 Counterparts of `stswincl_tpu/ops/pallas_block_attention.py`
 (`fused_swin_block_attention`, its reference, and
 `fused_swin_block_attention_bwd` behind `_fsba_bwd`).
-`swin_block_attention` launches K1 (`csrc/block_attention.cu`) on a CUDA
-tensor and runs the plain twin `swin_block_attention_ref` on a CPU tensor.
-When autograd needs a gradient it goes through `BlockAttentionFn`, whose
-backward launches K5 on CUDA (`swin_block_attention_bwd`) and runs the
-plain twin `swin_block_attention_bwd_ref` on the CPU.
+`swin_block_attention` launches K1 (`csrc/block_attention.cu`) on a bf16
+CUDA tensor, its fp32 form (`swin_block_attention_f32`,
+`csrc/fp32_forms.cu`) on an fp32 one, and runs the plain twin
+`swin_block_attention_ref` on a CPU tensor. When autograd needs a
+gradient it goes through `BlockAttentionFn`, whose backward launches K5 on
+CUDA (`swin_block_attention_bwd`) and runs the plain twin
+`swin_block_attention_bwd_ref` on the CPU; K5 takes bf16 only, so an fp32
+forward on the card that records a graph runs the twin instead, under
+autograd (`kernels.fp32_twin`).
 
 Weights use the torch Linear layout: wqkv (3C, C), wproj (C, C), in any
 float dtype: they are cast to x's dtype for the product, and their
@@ -33,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.attention import (_align, _attn_smem_bytes,
-                                              attend_tiled,
+from stswincl_tpu_torch.ops.attention import (_align, _attn_f32_smem_bytes,
+                                              _attn_smem_bytes, attend_tiled,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
 
@@ -58,7 +62,7 @@ def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
     kernels.require(qkv.dim() == 5 and qkv.shape[-1] % 3 == 0,
                     f"{name}: qkv must be (B, T, H, W, 3C), got "
                     f"{tuple(qkv.shape)}")
-    kernels.require_bf16_cuda(name, qkv)
+    kernels.require_bf16(name, "Pallas row 10", qkv)
     kernels.require_on(qkv.device, name, qkv)
     kernels.require(qkv.data_ptr() % 16 == 0,
                     f"{name}: qkv must be 16-byte aligned")
@@ -186,13 +190,14 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
                     f"{hd}")
 
 
-def _validate(name, x, wqkv, wproj, bias_tiled, mask_tiled, heads, ws,
-              shift, smem_bytes):
-    """Check what the CUDA kernels take; return (mask or None, n_mask)."""
+def _validate(name, row, x, wqkv, wproj, bias_tiled, mask_tiled, heads,
+              ws, shift, smem_bytes):
+    """Check what the CUDA kernels take (x's dtype: `kernels.require_form`
+    of `row`); return (mask or None, n_mask)."""
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     kernels.require(x.dim() == 5, f"{name}: x must be (B, T, H, W, C)")
     B, T, H, W, C = x.shape
-    kernels.require_bf16_cuda(name, x)
+    kernels.require_form(name, row, x)
     kernels.require(wqkv.dtype == x.dtype and wproj.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
     kernels.require_on(x.device, name, x, wqkv, wproj)
@@ -213,14 +218,13 @@ def _validate(name, x, wqkv, wproj, bias_tiled, mask_tiled, heads, ws,
     return mask_tiled, n_mask
 
 
-def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
-                    heads, scale, ws, shift):
-    """Launch K1; return (out, qkv, attn), the last two in window order
-    (the scratch the backward reuses). Weights already in x's dtype."""
-    name = "swin_block_attention"
-    mask_tiled, n_mask = _validate(name, x, wqkv, wproj, bias_tiled,
-                                   mask_tiled, heads, ws, shift,
-                                   _attn_smem_bytes)
+def _launch_k1(entry, name, row, x, wqkv, bqkv, wproj, bproj, bias_tiled,
+               mask_tiled, heads, scale, ws, shift, smem_bytes):
+    """Check and launch C entry `entry` of K1 (the bf16 kernel of `row`,
+    or with `row` None the fp32 form); return (out, qkv, attn), the last
+    two in window order. Weights already in x's dtype."""
+    mask_tiled, n_mask = _validate(name, row, x, wqkv, wproj, bias_tiled,
+                                   mask_tiled, heads, ws, shift, smem_bytes)
     B, T, H, W, C = x.shape
     kernels.require_f32(name, bqkv, bproj)
     kernels.require_on(x.device, name, bqkv, bproj)
@@ -232,28 +236,70 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     attn = torch.empty((rows, C), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     P = kernels.ptr
-    kernels.launch("stswin_block_attention", x.device, P(x), P(wqkv),
-                   P(bqkv), P(wproj), P(bproj), P(bias_tiled), P(mask_tiled),
-                   P(qkv), P(attn), P(out), B, T, H, W, C, heads, ws,
-                   float(scale), shift, n_mask)
-    swin_block_attention.launches += 1
+    kernels.launch(entry, x.device, P(x), P(wqkv), P(bqkv), P(wproj),
+                   P(bproj), P(bias_tiled), P(mask_tiled), P(qkv), P(attn),
+                   P(out), B, T, H, W, C, heads, ws, float(scale), shift,
+                   n_mask)
     return out, qkv, attn
+
+
+def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
+                    heads, scale, ws, shift):
+    """Launch K1; return (out, qkv, attn), the last two in window order
+    (the scratch the backward reuses). Weights already in x's dtype."""
+    name = "swin_block_attention"
+    res = _launch_k1("stswin_block_attention", name,
+                     "Pallas row 1's bf16 form", x, wqkv, bqkv, wproj, bproj,
+                     bias_tiled, mask_tiled, heads, scale, ws, shift,
+                     _attn_smem_bytes)
+    swin_block_attention.launches += 1
+    return res
+
+
+def swin_block_attention_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled,
+                             mask_tiled, heads: int, scale: float, ws: int,
+                             shift: int = 0):
+    """K1's fp32 form (`stswin_block_attention_f32`, `csrc/fp32_forms.cu`)
+    on fp32 CUDA tensors, the arguments of `swin_block_attention` with the
+    weights in fp32: every product on the fp32 GEMM, the attention in fp32
+    with P unrounded; head dims a multiple of 32 and windows whose fp32 q,
+    k and v fit shared memory (`_attn_f32_smem_bytes`). No backward: an fp32
+    forward that records a graph runs the twin (`kernels.fp32_twin`)."""
+    name = "swin_block_attention_f32"
+    kernels.require((x.shape[-1] // heads) % 32 == 0,
+                    lambda: f"{name}: needs a head dim that is a multiple "
+                    f"of 32, got {x.shape[-1]} over {heads} heads")
+    out = _launch_k1("stswin_block_attention_f32", name, None, x, wqkv,
+                     bqkv, wproj, bproj, bias_tiled, mask_tiled, heads, scale,
+                     ws, shift, _attn_f32_smem_bytes)[0]
+    swin_block_attention_f32.launches += 1
+    return out
+
+
+swin_block_attention_f32.launches = 0
 
 
 def swin_block_attention(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
                          heads: int, scale: float, ws: int, shift: int = 0):
     """x: (B, T, H, W, C); wqkv: (3C, C); bqkv: (3C,); wproj: (C, C);
     bproj: (C,); bias_tiled: (heads, TN, TN); mask_tiled: (nW, TN, TN)
-    for SW-MSA, or None (or a single zero entry) for W-MSA.
+    for SW-MSA, or None (or a single zero entry) for W-MSA. x in bf16
+    launches K1, in fp32 its fp32 form (no graph recorded) or the twin
+    under autograd (`kernels.fp32_twin`).
     Returns (B, T, H, W, C), shifted by `shift`."""
     args = (x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, heads,
             scale, ws, shift)
-    if kernels.needs_grad(x, wqkv, bqkv, wproj, bproj, bias_tiled):
+    params = (wqkv, bqkv, wproj, bproj, bias_tiled)
+    if kernels.fp32_twin(x, *params):
+        return swin_block_attention_ref(*args)
+    if kernels.needs_grad(x, *params):
         return BlockAttentionFn.apply(*args)
     wqkv, wproj = wqkv.to(x.dtype), wproj.to(x.dtype)
     args = (x, wqkv, bqkv, wproj) + args[4:]
     if x.device.type == "cpu":
         return swin_block_attention_ref(*args)
+    if x.dtype == torch.float32:
+        return swin_block_attention_f32(*args)
     return _forward_kernel(*args)[0]
 
 
@@ -268,8 +314,8 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     (dx, dwqkv, dbqkv, dwproj, dbproj, dbias_tiled): dx in x's dtype and
     layout (unshifted), the rest fp32."""
     name = "swin_block_attention_bwd"
-    mask_tiled, n_mask = _validate(name, x, wqkv, wproj, bias_tiled,
-                                   mask_tiled, heads, ws, shift,
+    mask_tiled, n_mask = _validate(name, "Pallas row 6", x, wqkv, wproj,
+                                   bias_tiled, mask_tiled, heads, ws, shift,
                                    _attn_bwd_smem_bytes)
     check_backward_window(name, x, heads, ws)
     B, T, H, W, C = x.shape

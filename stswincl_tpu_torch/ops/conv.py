@@ -97,8 +97,8 @@ def _kernel(x, w, scale, shift, dilation, relu, residual):
     name = "conv3x3_bn_act"
     kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
                     f"{x.device}")
-    kernels.require_bf16_cuda(name, x, w,
-                              *(() if residual is None else (residual,)))
+    kernels.require_bf16(name, "Pallas row 17", x, w,
+                         *(() if residual is None else (residual,)))
     kernels.require_f32(name, scale, shift)
     kernels.require_on(x.device, name, x, scale, shift, residual)
     kernels.require(w.device == x.device, lambda: f"{name}: w on {w.device}")

@@ -11,10 +11,14 @@ each form by itself so that its tests and its profile hold it against
   w1^T + b1 and dh = dm @ w2 in one tile, into dpre = dh * gelu'(pre), h =
   gelu(pre) and the column sums db1;
 - `wgrad_sm90` (`stswin_wgrad_sm90`): the weight gradients A^T B of K5 and
-  K6 over the token rows, each operand read through its row map.
-On a CPU tensor each runs its plain twin (`*_ref`). `launch_counts`
-reads the library's own count of every GEMM launch, those made inside the
-kernels' C entries included.
+  K6 over the token rows, each operand read through its row map;
+- `linear_f32` (`stswin_gemm_f32`, `csrc/fp32_forms.cu`): the fp32 GEMM of
+  K1-K3's fp32 forms, y = act(A @ Wt^T + bias) in fp32 FMA on the CUDA
+  cores, with `linear_sm90`'s row maps, stored or added into C.
+On a CPU tensor each runs its plain twin (`*_ref`; `linear_f32`'s is
+`linear_sm90_ref` on fp32 operands). `launch_counts` reads the library's
+own count of every GEMM launch, those made inside the kernels' C entries
+included.
 """
 
 from __future__ import annotations
@@ -35,17 +39,23 @@ _EPI = {"bf16": 0, "resid_f32": 1, "gelu_grad": 2, "dgelu": 3, "f32": 4}
 # the slots of `stswin_gemm_sm90_launches`: gemm_sm90 by epilogue (the
 # fused pair's is 5, row 17's implicit-GEMM conv 6, `ops.conv`), then the
 # weight-gradient GEMM
-FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
+SM90_FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
+# and the fp32 GEMM's launches (`stswin_gemm_f32_launches`)
+FORMS = (*SM90_FORMS, "fp32")
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Launches of each GEMM form (`FORMS`) counted inside the kernel
     library since the last reset, where the kernel is launched: by the
-    wrappers here and by the C entries of K1-K3, K5, K6 and row 17, which
-    no wrapper here sees. `reset` sets the counts to 0 after reading."""
-    out = (ctypes.c_longlong * len(FORMS))()
-    kernels.load().stswin_gemm_sm90_launches(out, int(reset))
-    return dict(zip(FORMS, out))
+    wrappers here and by the C entries of K1-K3 (both forms), K5, K6 and
+    row 17, which no wrapper here sees. `reset` sets the counts to 0 after
+    reading."""
+    lib = kernels.load()
+    out = (ctypes.c_longlong * len(SM90_FORMS))()
+    lib.stswin_gemm_sm90_launches(out, int(reset))
+    f32 = ctypes.c_longlong()
+    lib.stswin_gemm_f32_launches(ctypes.byref(f32), int(reset))
+    return {**dict(zip(SM90_FORMS, out)), "fp32": f32.value}
 
 
 def window_rows(M: int, row_map: Optional[RowMap],
@@ -116,7 +126,8 @@ def linear_sm90(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
     if a.device.type == "cpu":
         return linear_sm90_ref(a, wt, bias, act, a_map, c_map, out, epi, aux)
     name = "linear_sm90"
-    kernels.require_bf16_cuda(name, a, wt)
+    kernels.require_bf16(name, "the bf16 Hopper GEMM; fp32: linear_f32", a,
+                         wt)
     kernels.require_on(a.device, name, a, wt, bias, out, aux)
     kernels.require(a.dim() == 2 and wt.dim() == 2
                     and a.shape[1] == wt.shape[1],
@@ -165,6 +176,53 @@ def linear_sm90(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
 linear_sm90.launches = 0
 
 
+def linear_f32(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
+               out=None):
+    """The fp32 GEMM on a: (M, K) fp32 rows; wt: (N, K) fp32, the torch
+    Linear layout; bias: (N,) fp32 or None; act 'none', 'erf' or 'tanh';
+    a_map / c_map: (T, H, W, ws, shift) row maps or None. Returns a new (M,
+    N) fp32 act(y) at rows c_map(m), or with `out` ((M, N) fp32, act
+    'none') adds y into it in place and returns it. K and the row strides
+    multiples of 4; every sum in fp32 FMA, k in order."""
+    if a.device.type == "cpu":
+        return linear_sm90_ref(a, wt, bias, act, a_map, c_map, out,
+                               "bf16" if out is None else "resid_f32")
+    name = "linear_f32"
+    kernels.require_f32(name, a, wt)
+    kernels.require_on(a.device, name, a, wt, bias, out)
+    kernels.require(a.dim() == 2 and wt.dim() == 2
+                    and a.shape[1] == wt.shape[1] and a.shape[1] % 4 == 0,
+                    f"{name}: a {tuple(a.shape)}, wt {tuple(wt.shape)}, K a "
+                    "multiple of 4")
+    M, K = a.shape
+    N = wt.shape[0]
+    kernels.require(act in ("none", "erf", "tanh")
+                    and (out is None or act == "none"),
+                    f"{name}: act {act!r} with out {out is not None}")
+    if bias is not None:
+        kernels.require_f32(name, bias)
+        kernels.require(tuple(bias.shape) == (N,), f"{name}: bias shape")
+    if out is None:
+        c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    else:
+        kernels.require_f32(name, out)
+        kernels.require(tuple(out.shape) == (M, N), f"{name}: out shape")
+        c = out
+    T, H, W, ws = _grid(name, M, a_map, c_map)
+    P = kernels.ptr
+    kernels.launch("stswin_gemm_f32", a.device, P(a), P(wt), P(bias), P(c),
+                   M, N, K, K, N, {"none": 0, "erf": 1, "tanh": 2}[act],
+                   int(out is not None), int(a_map is not None),
+                   int(c_map is not None), T, H, W, ws,
+                   0 if a_map is None else a_map[4],
+                   0 if c_map is None else c_map[4])
+    linear_f32.launches += 1
+    return c
+
+
+linear_f32.launches = 0
+
+
 def _grid(name, M, a_map, b_map):
     """(T, H, W, ws) shared by the two row maps over M rows."""
     geo = a_map or b_map or (1, 1, 1, 1, 0)
@@ -209,7 +267,8 @@ def gelu_bwd_sm90(n2, dm, w1, w2_t, b1, act: str = "erf",
     if n2.device.type == "cpu":
         return gelu_bwd_sm90_ref(n2, dm, w1, w2_t, b1, act, with_h)
     name = "gelu_bwd_sm90"
-    kernels.require_bf16_cuda(name, n2, dm, w1, w2_t)
+    kernels.require_bf16(name, "K6's fused pair, Pallas rows 7 and 9", n2,
+                         dm, w1, w2_t)
     kernels.require_on(n2.device, name, n2, dm, w1, w2_t, b1)
     kernels.require_f32(name, b1)
     M, K = n2.shape
@@ -249,7 +308,8 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
     if a.device.type == "cpu":
         return wgrad_sm90_ref(a, b, a_map, b_map)
     name = "wgrad_sm90"
-    kernels.require_bf16_cuda(name, a, b)
+    kernels.require_bf16(name, "the weight gradients of Pallas rows 6, 7 "
+                         "and 9", a, b)
     kernels.require_on(a.device, name, a, b)
     kernels.require(a.dim() == 2 and b.dim() == 2
                     and a.shape[0] == b.shape[0],

@@ -36,7 +36,7 @@ def _kernel(x, scale, bias, eps):
     name = "fused_layer_norm"
     kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
                     f"{x.device}")
-    kernels.require_bf16_cuda(name, x)
+    kernels.require_bf16(name, "Pallas row 15", x)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, scale, bias)
     C = x.shape[-1]

@@ -80,7 +80,7 @@ def _kernel(x, w1, b1, w2, b2, gelu_exact):
     name = "fused_mlp"
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     x = x.contiguous()
-    kernels.require_bf16_cuda(name, x)
+    kernels.require_bf16(name, "Pallas row 12", x)
     kernels.require(w1.dtype == x.dtype and w2.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
     kernels.require_f32(name, b1, b2)

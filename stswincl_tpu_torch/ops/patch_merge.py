@@ -4,8 +4,10 @@ bias-free Linear 4C -> 2C.
 Counterpart of `fused_patch_merge` and `patch_merge_ref` in
 `stswincl_tpu/ops/pallas_patch_merge.py`. `patch_merge` launches the CUDA
 kernel in `csrc/patch_merge.cu` (a LayerNorm pass, then the product on the
-Hopper GEMM; the same bits as the wmma kernel it replaced) on a CUDA
-tensor and runs the plain twin `patch_merge_ref` on a CPU tensor. Chunks
+Hopper GEMM; the same bits as the wmma kernel it replaced) on a bf16 CUDA
+tensor, its fp32 form (`patch_merge_f32`, `csrc/fp32_forms.cu`: the
+LayerNorm pass in fp32, the product on the fp32 GEMM) on an fp32 one, and
+runs the plain twin `patch_merge_ref` on a CPU tensor. Chunks
 keep the reference order [x0 | x1 | x2 | x3]; w uses the torch Linear
 layout (2C, 4C), in any float dtype (cast to x's dtype for the product).
 
@@ -18,7 +20,9 @@ as products in x's dtype with fp32 accumulation (dn rounded to x's dtype,
 dW to x's dtype and then w's, as XLA's vjp rounds them), and the
 LayerNorm's backward and the 2x2 scatter by autograd of the twin's
 LayerNorm. On bf16 tensors the products run on the tensor cores
-(`torch.mm`); an fp32 model keeps fp32 products.
+(`torch.mm`); an fp32 model keeps fp32 products. An fp32 forward on the
+card that records a graph runs the twin under autograd
+(`kernels.fp32_twin`), as K1 and K2 do.
 """
 
 from __future__ import annotations
@@ -53,20 +57,25 @@ def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
 def patch_merge(x, scale, bias, w, eps: float = 1e-5):
     """x: (BT, H, W, C) -> (BT, H/2, W/2, 2C); scale/bias: (4C,) fp32;
     w: (2C, 4C)."""
+    if kernels.fp32_twin(x, scale, bias, w):
+        return patch_merge_ref(x, scale, bias, w, eps)
     if kernels.needs_grad(x, scale, bias, w):
         return PatchMergeFn.apply(x, scale, bias, w, eps)
     w = w.to(x.dtype)
     if x.device.type == "cpu":
         return patch_merge_ref(x, scale, bias, w, eps)
+    if x.dtype == torch.float32:
+        return patch_merge_f32(x, scale, bias, w, eps)
     return _forward_kernel(x, scale, bias, w, eps)
 
 
-def _forward_kernel(x, scale, bias, w, eps):
-    name = "patch_merge"
+def _check(name, row, x, scale, bias, w):
+    """What both forms take, x and w in the dtype of the form
+    (`kernels.require_form` of `row`)."""
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     kernels.require(x.dim() == 4, f"{name}: x must be (BT, H, W, C)")
     BT, H, W, C = x.shape
-    kernels.require_bf16_cuda(name, x, w)
+    kernels.require_form(name, row, x, w)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, scale, bias, w)
     kernels.require(tuple(scale.shape) == (4 * C,)
@@ -75,6 +84,12 @@ def _forward_kernel(x, scale, bias, w, eps):
                     f"{name}: parameter shapes do not match C={C}")
     kernels.require(H % 2 == 0 and W % 2 == 0 and C % 8 == 0,
                     f"{name}: needs even H, W and C % 8 == 0")
+
+
+def _forward_kernel(x, scale, bias, w, eps):
+    name = "patch_merge"
+    _check(name, "Pallas row 4's bf16 form", x, scale, bias, w)
+    BT, H, W, C = x.shape
     # float2 loads of the LayerNorm's scale and bias
     scale, bias = (t if t.data_ptr() % 8 == 0 else t.clone()
                    for t in (scale, bias))
@@ -90,6 +105,29 @@ def _forward_kernel(x, scale, bias, w, eps):
 
 
 patch_merge.launches = 0
+
+
+def patch_merge_f32(x, scale, bias, w, eps: float = 1e-5):
+    """K3's fp32 form (`stswin_patch_merge_f32`, `csrc/fp32_forms.cu`) on
+    fp32 CUDA tensors: the 2x2 regroup and the single-pass fp32 LayerNorm
+    into fp32 rows, then 4C -> 2C on the fp32 GEMM. w (2C, 4C) fp32. No
+    backward: an fp32 forward that records a graph runs the twin
+    (`kernels.fp32_twin`)."""
+    name = "patch_merge_f32"
+    _check(name, None, x, scale, bias, w)
+    BT, H, W, C = x.shape
+    rows = BT * (H // 2) * (W // 2)
+    n = torch.empty((rows, 4 * C), dtype=x.dtype, device=x.device)
+    out = torch.empty((BT, H // 2, W // 2, 2 * C), dtype=x.dtype,
+                      device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_patch_merge_f32", x.device, P(x), P(scale),
+                   P(bias), P(w), P(n), P(out), BT, H, W, C, float(eps))
+    patch_merge_f32.launches += 1
+    return out
+
+
+patch_merge_f32.launches = 0
 
 
 def _product(a, b, dtype):

@@ -230,7 +230,7 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
     name = "whole_swin_block"
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     kernels.require(x.dim() == 5, f"{name}: x must be (B, T, H, W, C)")
-    kernels.require_bf16_cuda(name, x)
+    kernels.require_bf16(name, "Pallas row 16", x)
     B, T, H, W, C = x.shape
     hidden = w1.shape[0]
     kernels.require(all(w.dtype == x.dtype for w in (wqkv, wproj, w1, w2)),

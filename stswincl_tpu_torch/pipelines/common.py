@@ -20,6 +20,7 @@ from stswincl_tpu_torch.data.loader import (Loader, SyntheticContrastDataset,
                                             SyntheticSegDataset)
 from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.stswin import DeepLabV3Plus, TswinPlus
+from stswincl_tpu_torch.models.swin import resolve_attn_impl
 from stswincl_tpu_torch.parallel import distributed as pdist
 
 
@@ -37,6 +38,17 @@ def resolve_device(device, who: str) -> torch.device:
     return device
 
 
+def fp32_kernels(dtype: torch.dtype, attn_impl: str) -> bool:
+    """Whether a model of `dtype` on the `attn_impl` route runs the card's
+    kernels (`kernels=None`) or its plain twins (`kernels=False`): every
+    bf16 model, and an fp32 model unless its route's attention kernel
+    takes bf16 only ('pallas' and 'pallas_windows': Pallas rows 10 and 11
+    have no fp32 form yet, ROADMAP Queue 2)."""
+    return (dtype != torch.float32
+            or resolve_attn_impl(attn_impl) not in ("pallas",
+                                                    "pallas_windows"))
+
+
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
                 device="cuda") -> Tuple[Union[TswinPlus, DeepLabV3Plus], int]:
     """The model the configs name, on `device`, and its class count, as
@@ -49,12 +61,13 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     (`models.init.init_weights`). The default device is the card; a
     machine without one raises unless the caller asks for the CPU.
 
-    The CUDA kernels compute in bfloat16 only. With `model_cfg.dtype ==
-    "float32"` the model is built with `kernels=False` on purpose: it runs
-    on the kernels' plain PyTorch twins on any device, as the JAX package
-    runs fp32 off the TPU on its 'einsum' route, and no kernel launches.
-    With "bfloat16" it is built with `kernels=None`: the kernels iff the
-    input is on the card. An unknown `arch` raises ValueError."""
+    The model is built with `kernels=None`, the kernels iff the input is
+    on the card, in both dtypes (`fp32_kernels`): an fp32 forward that
+    records no graph (serving, evaluation) runs the fp32 forms of K1-K3
+    and K4's exact form, as the JAX package sends an fp32 model through
+    its dtype-generic TPU kernels; one that records a graph (training)
+    runs K1-K3's plain twins under autograd, as K5 and K6 take bf16 only
+    (`kernels.fp32_twin`). An unknown `arch` raises ValueError."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]
@@ -62,7 +75,7 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
         raise ValueError(f"unknown arch {model_cfg.arch!r}")
     device = resolve_device(device, "build_model")
     dtype = resolve_dtype(model_cfg.dtype)
-    kernels = False if dtype == torch.float32 else None
+    kernels = None if fp32_kernels(dtype, model_cfg.attn_impl) else False
     if model_cfg.arch == "puredeeplab18":
         model = DeepLabV3Plus(num_classes, width=model_cfg.swin_dim // 8,
                               dtype=dtype, kernels=kernels)

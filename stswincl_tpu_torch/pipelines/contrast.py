@@ -46,7 +46,8 @@ def build_contrast_encoder(cfg: ContrastTrainConfig, class_num: int,
                            device) -> ContrastEncoder:
     """The encoder the config names, weights seeded from `cfg.data.seed`,
     on `device`. bf16 runs the kernels on a CUDA device; fp32 runs on
-    their plain twins (`kernels=False`), as `build_model` builds it."""
+    their plain twins (`kernels=False`): stage 2 is a training path, and
+    K5 and K6 have no fp32 form yet (ROADMAP Queue 2)."""
     dtype = resolve_dtype(cfg.model.dtype)
     model = ContrastEncoder(
         class_num, swin_dim=cfg.model.swin_dim, num_heads=cfg.model.num_heads,

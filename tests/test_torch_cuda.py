@@ -34,8 +34,14 @@ weight-gradient GEMM against torch.matmul in fp32 at K5's and K6's
 shapes, windows the shift wraps and ragged row counts included; K5 and K6
 at both training stages' full shapes, with the GEMM launches the library
 counts inside them; a window K5 does not take refused before a trained
-block's forward; the fp32 model serves and takes a train step on the
-plain twins with no kernel launched.
+block's forward. The fp32 forms of K1, K2 (both forms) and K3
+(`csrc/fp32_forms.cu`) against their fp32 twins within F32_TOL, K1's at
+both stages' window shapes (TN 128 x hd 128, TN 32 x hd 256), the fp32
+GEMM alone against torch.matmul in fp32 (TF32 off) at ragged shapes and
+with K1's row maps, rows 10 and 11 refusing fp32 by name; the fp32 model
+from `build_model` serves on those forms (its launches a `predict_next`
+the bf16 model's, its predictions the plain route's) and takes a train
+step on the plain twins with no kernel launched.
 """
 
 import pytest
@@ -53,6 +59,10 @@ from stswincl_tpu_torch.ops.window import (partition_qkv,
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
 TOL = 1e-2  # ||kernel - twin|| / ||twin||: bf16 outputs, fp32 sums
+# the fp32 forms against their fp32 twins (cuBLAS in fp32, TF32 off): the
+# same fp32 arithmetic in other summation orders, about 1e-6; one TF32
+# product would read about 1e-3
+F32_TOL = 1e-4
 
 
 @pytest.fixture
@@ -69,11 +79,11 @@ def gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
-def _close(got, want, same_dtype=True):
+def _close(got, want, same_dtype=True, tol=TOL):
     assert got.shape == want.shape
     assert got.dtype == want.dtype or not same_dtype
     rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
-    assert rel <= TOL, rel
+    assert rel <= tol, rel
 
 
 def _attn_args(dev, gen, shift, B=2, T=2, H=8, W=12, C=128, heads=2, ws=4,
@@ -376,18 +386,67 @@ def test_window_attention_heads_kernel(dev, gen, case, masked):
     _grads_close(fn, attention.attend_tiled, [q, k, v, bias], (mask, scale))
 
 
+def _f32(args):
+    return [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+
+
 def test_fp32_activations_are_refused(dev, gen):
-    args = _attn_args(dev, gen, 0)
-    args[0] = args[0].float()
-    with pytest.raises(NotImplementedError):
-        block_attention.swin_block_attention(*args)
+    """Rows 10 and 11 take bf16 only and refuse fp32 by name; K1, K2 (plain,
+    shifted, and the final-pair slice T 1) and K3 run their fp32 forms
+    (one launch each) within F32_TOL of their fp32 twins."""
     qkv, bias, _, heads, scale, ws = _row_args(dev, gen, "s2", False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="row 10"):
         block_attention.windowed_attention_image(qkv.float(), bias, None,
                                                  heads, scale, ws)
     q = partition_qkv(qkv, heads, ws)[0].float().contiguous()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="row 11"):
         attention.fused_window_attention(q, q, q, bias, None, scale)
+    with torch.inference_mode():
+        for shift in (0, 2):
+            args = _f32(_attn_args(dev, gen, shift, gain_qkv=3.0,
+                                   gain_proj=2.0, bias_k=1.0))
+            fn = block_attention.swin_block_attention_f32
+            n = fn.launches
+            got = block_attention.swin_block_attention(*args)
+            assert fn.launches == n + 1
+            _close(got, block_attention.swin_block_attention_ref(*args),
+                   tol=F32_TOL)
+        p = _f32(_epi_params(dev, gen))
+        for shift, T in ((0, 2), (2, 2), (2, 1)):
+            x, y = (torch.randn((1, T, 8, 12, 128), generator=gen,
+                                device=dev) for _ in range(2))
+            kw = dict(gelu_exact=True, shift=shift, ws=4)
+            fn = add_ln_mlp.swin_block_epilogue_f32
+            n = fn.launches
+            got = add_ln_mlp.swin_block_epilogue(x, y, *p, **kw)
+            assert fn.launches == n + 1
+            _close(got, add_ln_mlp.swin_block_epilogue_ref(x, y, *p, **kw),
+                   tol=F32_TOL)
+        x = torch.randn((3, 8, 12, 128), generator=gen, device=dev)
+        p = _f32(_pm_params(dev, gen, 128))
+        gemm.launch_counts(reset=True)
+        got = patch_merge.patch_merge(x, *p)
+        torch.cuda.synchronize()
+        assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {
+            "fp32": 1}
+        _close(got, patch_merge.patch_merge_ref(x, *p), tol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+def test_block_attention_f32_stage_windows(dev, gen, case):
+    """K1's fp32 form at both stages' window shapes, TN 128 x hd 128 (198
+    KiB of q, k and v: one block an SM) and TN 32 x hd 256, with and
+    without the shift, six windows an image and two images."""
+    T, H, W, C, heads, ws = ROW_CASES[case]
+    C = 256 if case == "s1" else 512  # hd 128 / 256 over 2 heads
+    for shift in (0, ws // 2):
+        args = _f32(_attn_args(dev, gen, shift, T=T, H=H, W=W, C=C,
+                               heads=2, ws=ws, gain_qkv=3.0, gain_proj=2.0,
+                               bias_k=1.0))
+        with torch.inference_mode():
+            got = block_attention.swin_block_attention(*args)
+        _close(got, block_attention.swin_block_attention_ref(*args),
+               tol=F32_TOL)
 
 
 def test_attention_kernels_refuse_windows_beyond_shared_memory(dev):
@@ -927,14 +986,19 @@ def _counted_wrappers():
             swin_block.whole_swin_block, add_layernorm.add_layer_norm,
             mlp.fused_mlp, layernorm.fused_layer_norm,
             conv.conv3x3_bn_act, gemm.linear_sm90, gemm.gelu_bwd_sm90,
-            gemm.wgrad_sm90]
+            gemm.wgrad_sm90, block_attention.swin_block_attention_f32,
+            add_ln_mlp.swin_block_epilogue_f32, patch_merge.patch_merge_f32,
+            gemm.linear_f32]
 
 
 def test_fp32_model_runs_on_the_twins(dev):
-    """`build_model` with dtype "float32" serves one `init_and_predict` +
-    `predict_next` and takes one stage-1 train step on the card, on the
-    plain twins: predictions in [0, classes), a finite loss, and no kernel
-    launched."""
+    """`build_model` with dtype "float32" serves `init_and_predict` +
+    `predict_next` on the card's kernels, the fp32 forms of K1-K3 and K4's
+    exact form: each launched a `predict_next` as often as the bf16 model
+    launches its own, the fp32 GEMM twice a K1 or K2 and once a K3, the
+    predictions the plain route's (`kernels=False`) on >= 99.9 % of
+    pixels. Its stage-1 train step runs on the plain twins (K5 and K6 take
+    bf16): a finite loss and no kernel launched."""
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
     from stswincl_tpu_torch.models.init import init_weights
@@ -946,17 +1010,55 @@ def test_fp32_model_runs_on_the_twins(dev):
     mc = ModelConfig(swin_dim=128, swin_depths=(2, 2), dtype="float32")
     dc = DataConfig(dataset="synthetic", crop_hw=(128, 192), batch_size=2)
     model, classes = build_model(mc, dc, device=dev)
-    assert model.kernels is False
+    assert model.kernels is None
     init_weights(model, torch.Generator().manual_seed(0))
-    model.to(dev)
-    before = [fn.launches for fn in _counted_wrappers()]
+    model.to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(2)
     frames = torch.rand((2, 5, 128, 192, 3), generator=g, device=dev) * 2 - 1
-    seg = StreamingSegmenter(model.eval(), out_hw=(256, 384))
-    cache, _ = seg.init_and_predict(frames[:, 0:4])
-    _, pred = seg.predict_next(cache, frames[:, 4])
+    forms = {"swin_block_attention": block_attention.swin_block_attention_f32,
+             "swin_block_epilogue": add_ln_mlp.swin_block_epilogue_f32,
+             "patch_merge": patch_merge.patch_merge_f32,
+             "upsample_argmax": upsample_argmax.upsample_argmax}
+
+    def per_step(m, counted):
+        """The predictions of a predict_next and the launches it made of
+        each `counted` wrapper, and of the fp32 GEMM ("fp32")."""
+        seg = StreamingSegmenter(m, out_hw=(256, 384))
+        cache, _ = seg.init_and_predict(frames[:, 0:4])
+        before = [fn.launches for fn in counted.values()]
+        gemm.launch_counts(reset=True)
+        _, pred = seg.predict_next(cache, frames[:, 4])
+        return pred, {"fp32": gemm.launch_counts()["fp32"], **{
+            k: fn.launches - b
+            for (k, fn), b in zip(counted.items(), before)}}
+
+    bf = build_model(ModelConfig(swin_dim=128, swin_depths=(2, 2)), dc,
+                     device=dev)[0]
+    bf.load_state_dict(model.state_dict())
+    _, want = per_step(bf.eval(), {
+        "swin_block_attention": block_attention.swin_block_attention,
+        "swin_block_epilogue": add_ln_mlp.swin_block_epilogue,
+        "patch_merge": patch_merge.patch_merge,
+        "upsample_argmax": upsample_argmax.upsample_argmax})
+    assert want["swin_block_attention"] > 0 and want["upsample_argmax"] == 1
+    assert want["fp32"] == 0
+    pred, got = per_step(model, forms)
+    assert got == want | {"fp32": 2 * (got["swin_block_attention"]
+                                       + got["swin_block_epilogue"])
+                          + got["patch_merge"]}
     assert pred.shape == (2, 256, 384)
     assert 0 <= int(pred.min()) and int(pred.max()) < classes
+    plain = build_model(mc, dc, device=dev)[0]
+    plain.load_state_dict(model.state_dict())
+    plain.kernels = False
+    for m in plain.modules():
+        if hasattr(m, "kernels"):
+            m.kernels = False
+    ref, _ = per_step(plain.eval(), {})
+    assert (pred == ref).float().mean().item() >= 0.999
+    model.train()
+    before = [fn.launches for fn in _counted_wrappers()]
+    gemm.launch_counts(reset=True)
     cfg = SegTrainConfig(model=mc, data=dc)
     opt, schedule = make_tx(cfg, 1, model)
     step = make_seg_train_step(model, opt, schedule, cfg.loss,
@@ -966,6 +1068,34 @@ def test_fp32_model_runs_on_the_twins(dev):
     loss = float(step(frames[:, 0:4], labels)["loss"])
     assert loss == loss and abs(loss) < float("inf")
     assert [fn.launches for fn in _counted_wrappers()] == before
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0)
+
+
+def test_fp32_deeplab_evaluates_on_k4_exact(dev):
+    """An fp32 DeepLabV3+ from `build_model` (`kernels=None`) evaluates
+    through `make_seg_eval_step` on K4's exact form, one launch a clip,
+    its predictions the plain route's (`kernels=False`) on >= 99.9 %."""
+    from stswincl_tpu_torch.configs import DataConfig, ModelConfig
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.common import build_model
+    from stswincl_tpu_torch.train.train_seg import make_seg_eval_step
+
+    mc = ModelConfig(arch="puredeeplab18", swin_dim=128, dtype="float32")
+    model, _ = build_model(mc, DataConfig(crop_hw=(128, 192)), device=dev)
+    assert model.kernels is None
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    clip = torch.rand((1, 1, 128, 192, 3), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    fn = upsample_argmax.upsample_argmax
+    n = fn.launches
+    pred = make_seg_eval_step(model, out_hw=(256, 384))(clip)
+    assert fn.launches == n + 1
+    model.kernels = False
+    ref = make_seg_eval_step(model, out_hw=(256, 384))(clip)
+    assert fn.launches == n + 1
+    assert pred.shape == (1, 256, 384)
+    assert (pred == ref).float().mean().item() >= 0.999
 
 
 @pytest.mark.parametrize("M,N,K", [(300, 384, 512), (1000, 136, 200),
@@ -1023,6 +1153,51 @@ def test_gemm_sm90_row_maps(dev, gen, shift, ws):
         mm[rows_c] = (torch.matmul(a[rows_a].float(), wt.float().t())
                       + bias).to(BF)
         _close(got, mm)
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 384, 512), (1000, 136, 200),
+                                   (64, 2048, 1036)])
+@pytest.mark.parametrize("act,resid", [("none", False), ("erf", False),
+                                       ("tanh", False), ("none", True)])
+def test_gemm_f32_kernel(dev, gen, M, N, K, act, resid):
+    """The fp32 GEMM against torch.matmul in fp32 (TF32 off) at ragged M,
+    N and K (a k tile half past K at 1036), each epilogue, one fp32 GEMM
+    launch a call in the library's count."""
+    r = _normal(dev, gen)
+    a, wt, bias = r(M, K), r(N, K, k=K ** -0.5), r(N, k=0.1)
+    out = r(M, N) if resid else None
+    gemm.launch_counts(reset=True)
+    got = gemm.linear_f32(a, wt, bias, act,
+                          out=None if out is None else out.clone())
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {"fp32": 1}
+    want = torch.matmul(a, wt.t()) + bias
+    if act != "none":
+        want = mlp.gelu(want, act == "erf")
+    if resid:
+        want = want + out
+    _close(got, want, tol=F32_TOL)
+    _close(got, gemm.linear_sm90_ref(a, wt, bias, act, out=out,
+                                     epi="resid_f32" if resid else "bf16"),
+           tol=F32_TOL)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_gemm_f32_row_maps(dev, gen, shift):
+    """K1's fp32 products: A rows gathered through the window partition and
+    the cyclic shift, C rows scattered back to the image layout."""
+    B, T, H, W, ws = 3, 2, 8, 12, 4
+    M, N, K = B * T * H * W, 264, 136
+    r = _normal(dev, gen)
+    a, wt, bias = r(M, K), r(N, K, k=K ** -0.5), r(N, k=0.1)
+    grid = (T, H, W, ws)
+    for a_map, c_map in (((*grid, shift), None), (None, (*grid, 0)),
+                         ((*grid, shift), (*grid, shift))):
+        got = gemm.linear_f32(a, wt, bias, a_map=a_map, c_map=c_map)
+        mm = torch.empty_like(got)
+        mm[gemm.window_rows(M, c_map, dev)] = torch.matmul(
+            a[gemm.window_rows(M, a_map, dev)], wt.t()) + bias
+        _close(got, mm, tol=F32_TOL)
 
 
 @pytest.mark.parametrize("M,N,K", [(300, 512, 128), (1000, 256, 256)])

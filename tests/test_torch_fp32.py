@@ -1,0 +1,276 @@
+"""The fp32 route of the port, on the CPU: `build_model` builds an fp32
+model on the kernels (`kernels=None`) on every route whose attention
+kernel has an fp32 form; the graph predicate `kernels.fp32_twin` sends an
+fp32 forward on the card that records a graph to the plain twins and one
+that records none to the fp32 forms of K1-K3 (shown on meta tensors, which
+take the card's branches of the wrappers without a card); the fp32
+attention core's shared-memory plan; and the fp32 slice as a whole:
+`build_model(dtype="float32")` through `StreamingSegmenter` against the
+JAX fp32 model routed as on the TPU, its Pallas kernels interpreted."""
+
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+from flax import traverse_util  # noqa: E402
+
+from stswincl_tpu.models import TswinPlus as JTswinPlus  # noqa: E402
+from stswincl_tpu.pipelines.streaming import (  # noqa: E402
+    StreamingSegmenter as JStreamingSegmenter)
+from stswincl_tpu_torch import kernels  # noqa: E402
+from stswincl_tpu_torch.ckpt import load_from_jax  # noqa: E402
+from stswincl_tpu_torch.configs import DataConfig, ModelConfig  # noqa: E402
+from stswincl_tpu_torch.ops import (add_ln_mlp, attention,  # noqa: E402
+                                    block_attention, patch_merge)
+from stswincl_tpu_torch.pipelines.common import (build_model,  # noqa: E402
+                                                 fp32_kernels)
+from stswincl_tpu_torch.pipelines.streaming import (  # noqa: E402
+    StreamingSegmenter)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("attn_impl,want", [
+    ("auto", None), ("pallas_full", None), ("einsum", None),
+    ("pallas", False), ("pallas_windows", False)])
+@pytest.mark.parametrize("arch", ["swinPlus", "puredeeplab18"])
+def test_build_model_fp32_route_by_attn_impl(attn_impl, want, arch):
+    """fp32 runs the kernels (None) unless the route's attention kernel,
+    Pallas row 10 or 11, has no fp32 form; bf16 always runs them."""
+    mc = ModelConfig(arch=arch, swin_dim=64, swin_depths=(1, 1),
+                     dtype="float32", attn_impl=attn_impl)
+    model, _ = build_model(mc, DataConfig(crop_hw=(64, 96)), device="cpu")
+    blocks = [m for m in model.modules() if hasattr(m, "kernels")]
+    assert blocks and all(m.kernels is want for m in blocks)
+    assert fp32_kernels(torch.float32, attn_impl) is (want is None)
+    assert fp32_kernels(torch.bfloat16, attn_impl)
+
+
+def _meta(*shape, grad=False, dtype=torch.float32):
+    return torch.empty(shape, device="meta", dtype=dtype,
+                       requires_grad=grad)
+
+
+def test_fp32_twin_predicate():
+    """True only for fp32 off the CPU with a graph recorded through x or a
+    parameter: the fp32 forms have no backward kernel."""
+    x, w = _meta(4, 8), _meta(8, 8, grad=True)
+    assert kernels.fp32_twin(x, w)
+    assert kernels.fp32_twin(_meta(4, 8, grad=True))
+    assert not kernels.fp32_twin(x, _meta(8, 8))
+    with torch.no_grad():
+        assert not kernels.fp32_twin(x, w)
+    with torch.inference_mode():
+        assert not kernels.fp32_twin(_meta(4, 8), _meta(8, 8, grad=True))
+    assert not kernels.fp32_twin(_meta(4, 8, dtype=torch.bfloat16), w)
+    # the CPU keeps the autograd Functions, whose CPU forms are the twins
+    assert not kernels.fp32_twin(torch.zeros(4, 8),
+                                 torch.zeros(8, 8, requires_grad=True))
+
+
+B, T, H, W, C, HEADS, WS = 1, 2, 8, 8, 64, 2, 4
+
+
+def _k1(grad):
+    TN = T * WS * WS
+    return ((_meta(B, T, H, W, C), _meta(3 * C, C, grad=grad),
+             _meta(3 * C), _meta(C, C), _meta(C), _meta(HEADS, TN, TN),
+             None, HEADS, 0.125, WS), dict(shift=WS // 2))
+
+
+def _k2(grad, shift):
+    v = _meta
+    return ((_meta(B, T, H, W, C), _meta(B, T, H, W, C), v(C), v(C),
+             _meta(4 * C, C, grad=grad), v(4 * C), _meta(C, 4 * C), v(C),
+             v(C), v(C)), dict(shift=shift, ws=WS))
+
+
+def _k3(grad):
+    return ((_meta(4, H, W, C), _meta(4 * C), _meta(4 * C),
+             _meta(2 * C, 4 * C, grad=grad)), {})
+
+
+CASES = {
+    "K1": (block_attention, "swin_block_attention",
+           "swin_block_attention_f32", _k1),
+    "K2": (add_ln_mlp, "swin_block_epilogue", "swin_block_epilogue_f32",
+           lambda g: _k2(g, 0)),
+    "K2 shifted": (add_ln_mlp, "swin_block_epilogue",
+                   "swin_block_epilogue_f32", lambda g: _k2(g, WS // 2)),
+    "K3": (patch_merge, "patch_merge", "patch_merge_f32", _k3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fp32_wrappers_route_by_graph(monkeypatch, case):
+    """On fp32 tensors off the CPU, the wrapper launches the fp32 form when
+    no graph is recorded (no grad asked for, `no_grad`,
+    `inference_mode`) and runs the plain twin under autograd when one is:
+    the output then carries the twin's graph and no form is called."""
+    mod, wrapper, form, make = CASES[case]
+    calls = []
+    monkeypatch.setattr(mod, form, lambda *a, **k: calls.append(a) or "f32")
+    fn = getattr(mod, wrapper)
+    for ctx, grad in ((torch.enable_grad, False), (torch.no_grad, True),
+                      (torch.inference_mode, True)):
+        args, kw = make(grad)
+        with ctx():
+            assert fn(*args, **kw) == "f32"
+    assert len(calls) == 3
+    args, kw = make(True)
+    out = fn(*args, **kw)
+    assert out.device.type == "meta" and out.grad_fn is not None
+    assert len(calls) == 3
+
+
+def test_fp32_attention_shared_memory_plan():
+    """The fp32 core holds q, k and v of a (window, head) in fp32 rows of
+    hd + 4: stage 1 (TN 128, hd 128) and stage 2 (TN 32, hd 256) fit one
+    block; a wider window or head dim is refused before any launch, as the
+    bf16 plan refuses its own."""
+    plan = attention._attn_f32_smem_bytes
+    assert plan(128, 128) == 3 * 128 * 132 * 4 <= kernels.SMEM_LIMIT
+    assert plan(32, 256) == 3 * 32 * 260 * 4 <= kernels.SMEM_LIMIT
+    assert plan(128, 128) > attention._attn_smem_bytes(128, 128)
+    dev = torch.device("cpu")
+    for TN, hd in ((128, 128), (32, 256), (144, 128), (64, 256)):
+        bias = torch.zeros((2, TN, TN))
+        attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
+                                       plan)
+    for TN, hd in ((160, 128), (128, 256), (176, 128)):
+        bias = torch.zeros((2, TN, TN))
+        with pytest.raises(ValueError, match="shared memory"):
+            attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
+                                           plan)
+    # TN 176, hd 64: within the window envelope and the plan
+    attention.check_attention_core("f32", dev, torch.zeros((2, 176, 176)),
+                                   None, 2, 176, 64, plan)
+
+
+# The slice: swin_dim 128 with 16x16 / 8x8 feature maps, so that the JAX
+# patch merge takes its Pallas kernel ((W / 2) % 8 == 0, C % 128 == 0) and
+# every SW block shifts; one paired layer a stage.
+HW, OUT, NC = (128, 128), (256, 256), 5
+# Logits, ||port - jax|| / ||jax||: both fp32 with the same GELU
+# polynomial, the JAX kernels interpreted, the same arithmetic in other
+# summation orders (the stack's own bound in test_torch_swin.py).
+LOGIT_REL = 1e-4
+# Predictions: pixels whose top two classes lie within that rounding may
+# flip; at least this share must agree.
+PRED_SHARE = 0.999
+
+
+@pytest.fixture
+def jax_tpu_interpreted(monkeypatch):
+    """The JAX package routed as on its TPU, every Pallas kernel it then
+    reaches interpreted on the CPU: K1 (attention with the shift inside),
+    K2 (both epilogues), K3 (the patch merge) and K4 (the resize +
+    argmax)."""
+    import stswincl_tpu.ops.pallas_add_ln_mlp as palm
+    import stswincl_tpu.ops.pallas_attention as pa
+    import stswincl_tpu.ops.pallas_block_attention as pba
+    import stswincl_tpu.ops.pallas_patch_merge as ppm
+    import stswincl_tpu.ops.pallas_upsample_argmax as pua
+
+    monkeypatch.setattr(pa, "_is_tpu_backend", lambda: True)
+    attn = pba.fused_swin_block_attention
+    monkeypatch.setattr(pba, "fused_swin_block_attention",
+                        lambda *a, **kw: attn(*a[:11], True))
+    epi = palm.fused_swin_block_epilogue
+    monkeypatch.setattr(palm, "fused_swin_block_epilogue",
+                        lambda *a, **kw: epi(*a[:11], 1e-5, True))
+    epis = palm.fused_swin_block_epilogue_shifted
+    monkeypatch.setattr(palm, "fused_swin_block_epilogue_shifted",
+                        lambda *a, **kw: epis(*a[:13], 1e-5, True))
+    merge = ppm.fused_patch_merge
+    monkeypatch.setattr(ppm, "fused_patch_merge",
+                        lambda x, s, b, w, eps=1e-5: merge(x, s, b, w, eps,
+                                                           True))
+    up = pua.upsample_argmax_pallas
+    monkeypatch.setattr(pua, "upsample_argmax_pallas",
+                        lambda x, mh, mw, interpret=False, exact=False:
+                        up(x, mh, mw, True, exact))
+    calls = []
+    for mod, name in ((pba, "fused_swin_block_attention"),
+                      (palm, "fused_swin_block_epilogue"),
+                      (palm, "fused_swin_block_epilogue_shifted"),
+                      (ppm, "fused_patch_merge"),
+                      (pua, "upsample_argmax_pallas")):
+        inner = getattr(mod, name)
+        monkeypatch.setattr(mod, name, functools.partial(
+            lambda *a, _inner, _name, **kw: calls.append(_name)
+            or _inner(*a, **kw), _inner=inner, _name=name))
+    return calls
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def test_fp32_slice_matches_jax_tpu_routing(jax_tpu_interpreted):
+    """`build_model(ModelConfig(dtype="float32"))` (kernels=None) served
+    through `StreamingSegmenter` against the JAX fp32 model and its
+    `StreamingSegmenter` on the TPU routing: the head-resolution logits of
+    each clip within LOGIT_REL, the streamed predictions equal on at least
+    PRED_SHARE of pixels, and every JAX kernel of the route reached."""
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((1, 6, *HW, 3)).astype(np.float32)
+    jm = JTswinPlus(num_classes=NC, swin_dim=128, swin_depths=(1, 1))
+    variables = jax.jit(functools.partial(jm.init, train=False))(
+        jax.random.key(0), jnp.asarray(frames[:, :4]))
+    flat = traverse_util.flatten_dict(variables["batch_stats"])
+    for k, v in flat.items():
+        lo, hi = (-0.2, 0.2) if k[-1] == "mean" else (0.7, 1.3)
+        flat[k] = jnp.asarray(rng.uniform(lo, hi, v.shape).astype(np.float32))
+    variables = {"params": variables["params"],
+                 "batch_stats": traverse_util.unflatten_dict(flat)}
+    jlogits = jax.jit(functools.partial(jm.apply, train=False,
+                                        head_res_logits=True))
+    # the class bias set to minus each class's mean logit on the first
+    # clip, so that the predictions spread over the classes
+    lcf0 = np.asarray(jlogits(variables, jnp.asarray(frames[:, :4])))
+    params = traverse_util.flatten_dict(variables["params"])
+    bias = ("classifier", "conv2", "bias")
+    params[bias] = params[bias] - jnp.asarray(lcf0.mean(axis=(0, 2, 3)))
+    variables = {"params": traverse_util.unflatten_dict(params),
+                 "batch_stats": variables["batch_stats"]}
+
+    port, classes = build_model(
+        ModelConfig(num_classes=NC, swin_dim=128, swin_depths=(1, 1),
+                    dtype="float32"), DataConfig(crop_hw=HW), device="cpu")
+    assert classes == NC and port.kernels is None
+    load_from_jax(port, variables)
+    port.eval()
+    seg = StreamingSegmenter(port, out_hw=OUT)
+    jseg = JStreamingSegmenter(jm, variables, out_hw=OUT)
+    assert seg.exact
+    cache, pred = seg.init_and_predict(torch.from_numpy(frames[:, :4]))
+    jcache, jpred = jseg.init_and_predict(jnp.asarray(frames[:, :4]))
+    preds, jpreds = [pred], [jpred]
+    for i in (4, 5):
+        cache, pred = seg.predict_next(cache, torch.from_numpy(frames[:, i]))
+        jcache, jpred = jseg.predict_next(jcache, jnp.asarray(frames[:, i]))
+        preds.append(pred)
+        jpreds.append(jpred)
+    assert set(jax_tpu_interpreted) == {
+        "fused_swin_block_attention", "fused_swin_block_epilogue",
+        "fused_swin_block_epilogue_shifted", "fused_patch_merge",
+        "upsample_argmax_pallas"}
+
+    for k, (p, jp) in enumerate(zip(preds, jpreds)):
+        clip = frames[:, k:k + 4]
+        with torch.inference_mode():
+            lcf = port(torch.from_numpy(clip), head_res_logits=True)
+        lcf_j = np.asarray(jlogits(variables, jnp.asarray(clip)))
+        assert _rel(lcf.numpy(), lcf_j) <= LOGIT_REL
+        assert p.shape == (1, *OUT) and p.dtype == torch.int32
+        share = (p.numpy() == np.asarray(jp)).mean()
+        assert share >= PRED_SHARE, (k, share)
+        # no class takes more than 60 % of the pixels
+        assert np.bincount(p.numpy().ravel(), minlength=NC).max() \
+            <= 0.6 * p.numel()

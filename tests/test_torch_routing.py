@@ -1,5 +1,6 @@
 """What the port routes where, checked on the CPU: `build_model`'s choice
-of kernels or plain twins by compute dtype, the attention core's envelope
+of kernels in both compute dtypes (the fp32 routes by `attn_impl` are in
+test_torch_fp32.py), the attention core's envelope
 (the shapes K1 and rows 10-11 take), the Hopper GEMM's row maps against
 the window partition, the weight-gradient GEMM's twin against an explicit
 roll + window partition + matmul, and row 15's twin at the widths of the
@@ -17,9 +18,12 @@ from stswincl_tpu_torch.ops.window import partition_qkv
 from stswincl_tpu_torch.pipelines.common import build_model
 
 
-@pytest.mark.parametrize("dtype,want", [("float32", False),
+@pytest.mark.parametrize("dtype,want", [("float32", None),
                                         ("bfloat16", None)])
 def test_build_model_routes_fp32_to_the_twins(dtype, want):
+    """Both dtypes build with `kernels=None` on the default route: an fp32
+    model runs the fp32 kernels where no graph is recorded and the twins
+    under autograd (`kernels.fp32_twin`), no longer the twins alone."""
     model, classes = build_model(ModelConfig(swin_dim=64, swin_depths=(1, 1),
                                              dtype=dtype),
                                  DataConfig(crop_hw=(64, 96)), device="cpu")
@@ -30,17 +34,20 @@ def test_build_model_routes_fp32_to_the_twins(dtype, want):
 
 
 def test_fp32_model_launches_no_kernel_on_the_cpu():
-    """The fp32 model's forward runs its twins: finite logits of the right
-    shape, and no kernel's launch count moves."""
+    """The fp32 model's forward on the CPU runs its twins: finite logits of
+    the right shape, and no kernel's launch count moves."""
     from stswincl_tpu_torch.models.init import init_weights
-    from stswincl_tpu_torch.ops import add_ln_mlp, block_attention
+    from stswincl_tpu_torch.ops import add_ln_mlp, block_attention, patch_merge
 
     model, classes = build_model(ModelConfig(swin_dim=64, swin_depths=(1, 1),
                                              dtype="float32"),
                                  DataConfig(crop_hw=(128, 128)), device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     counted = (block_attention.swin_block_attention,
-               add_ln_mlp.swin_block_epilogue, gemm.linear_sm90)
+               add_ln_mlp.swin_block_epilogue, gemm.linear_sm90,
+               block_attention.swin_block_attention_f32,
+               add_ln_mlp.swin_block_epilogue_f32, patch_merge.patch_merge_f32,
+               gemm.linear_f32)
     before = [fn.launches for fn in counted]
     x = torch.from_numpy(np.random.default_rng(0).uniform(
         -1, 1, (1, 4, 128, 128, 3)).astype(np.float32))
