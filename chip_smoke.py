@@ -149,8 +149,25 @@ stops a phase exits non-zero at once:
      predict_next and frames/s of both fp32 routes and of bf16; (c) fp32
      evaluation at B = 1 through `evaluate.run_test` on phase 9's
      synthetic split, streamed and full clip: frames/s, `sec_per_frame`,
-     launches a frame; (d) one stage-1 train step at batch 2 on the plain
-     twins (K5 and K6 take bf16): a finite loss, no kernel launched;
+     launches a frame; (a) also the fp32 training forms
+     (`phase_fp32_train_kernels`, `csrc/fp32_train.cu`): K5 (Pallas row 6)
+     at both stages' training shapes and the stage-2 step's, K6
+     recomputing m (row 7) at C 512, K2 with m (row 8) and K6 taking it
+     (row 9) at C 1024, each output within TOL_F32_REL of the fp32 twin,
+     the twin on TF32 products missing the bound tenfold, each form
+     bit-equal across two calls, timed beside the twin, the bf16 kernel
+     and cuBLAS fp32 on its products; `wgrad_f32` alone beside
+     `a.t() @ b`; (d) stage-1 training on the fp32 forms
+     (`phase_fp32_train`): at batch 2 one kernel step against the fp32
+     twin step (`fp32_step_gate`: the loss and every gradient within
+     F32_STEP_FACTOR x the larger deviation of two controls, the twin step
+     on the clips perturbed at 2^-22 and 2^-24, + F32_STEP_FLOOR; planted
+     K5 and K6 faults and the step under bf16 autocast missing tenfold),
+     exact launches (F32_STEP, no twin, no bf16 form), a second kernel
+     step's bit-equality reported; then batch 8: ms/step and peak memory;
+     (e) the stage-2 step at `ContrastTrainConfig`'s defaults on the fp32
+     forms: the same gate against its twin step, then launches, ms and
+     peak memory;
   8. stage-2 pretraining at full width (`ContrastEncoder`, batch 4, six
      views of 4 frames at 256x448, `ContrastTrainConfig`'s LARS and EMA):
      (a) one step on the kernel route against one on the plain route and
@@ -238,7 +255,10 @@ stops a phase exits non-zero at once:
      memory: not a multi-GPU rate); (c) the same for stage 2 at phase
      8's shape, global batch 4, with the key pass's BatchNorms unsynced
      and the image-pool BatchNorms alone unsynced as its planted faults;
-     (d) K1-K6 on cuda:1 where
+     (e) the stage-1 step of (b) in fp32 on the fp32 forms (4 a rank),
+     every gradient gated (no noise-dominated exemption), the controls
+     at 2^-20 and 2^-23, fp32 floors (`P11_F32_FLOORS`), BatchNorms local
+     and rank 1 unreduced as its planted faults; (d) K1-K6 on cuda:1 where
      the machine has two cards, else the line "cuda:1 check not run".
 
 Each main path (serve and train on each route, the profilers, the
@@ -256,7 +276,8 @@ written once), and its launches per fine-tune step (batch 8), per
 evaluated frame (B = 1, full clip and streamed), per stage-1 step with
 remat (batch 8) and per evaluated DeepLabV3+ frame, per DDP step through
 the CLI (one rank, batch 8) and per rank of a two-rank step (batch 4 a
-rank, stages 1 and 2); the card's name and power limit (`nvidia-smi`);
+rank, stages 1 and 2, stage 1 in fp32), per fp32 stage-1 step (batch 8)
+and per fp32 stage-2 step; the card's name and power limit (`nvidia-smi`);
 and, last,
 {"ok": true, "device": {...}}.
 """
@@ -274,6 +295,7 @@ import subprocess
 import sys
 import time
 import unittest.mock
+import warnings
 
 TOL_REL = 1e-2        # K1-K3: ||kernel - plain|| / ||plain||
 TOL_K4_SHARE = 0.999  # K4: share of equal pixels
@@ -509,7 +531,7 @@ def planted(kname: str, case: str, fault: str, moved: float) -> None:
 # `ops.gemm.launch_counts` that each counts
 GEMM_ROWS = {"linear_sm90": ("bf16", "resid_f32", "gelu_grad", "dgelu", "f32"),
              "gelu_bwd_sm90": ("gelu_bwd",), "wgrad_sm90": ("wgrad",),
-             "linear_f32": ("fp32",)}
+             "linear_f32": ("fp32",), "wgrad_f32": ("wgrad_f32",)}
 
 
 # the attention kernel each route launches in place of K1
@@ -547,7 +569,11 @@ def kernel_wrappers() -> dict:
         "swin_block_attention_f32": block_attention.swin_block_attention_f32,
         "swin_block_epilogue_f32": add_ln_mlp.swin_block_epilogue_f32,
         "patch_merge_f32": patch_merge.patch_merge_f32,
-        "linear_f32": gemm.linear_f32}
+        "linear_f32": gemm.linear_f32,
+        "swin_block_attention_bwd_f32":
+            block_attention.swin_block_attention_bwd_f32,
+        "swin_block_epilogue_bwd_f32": add_ln_mlp.swin_block_epilogue_bwd_f32,
+        "wgrad_f32": gemm.wgrad_f32}
 
 
 def reset_launches(wrappers) -> None:
@@ -576,7 +602,7 @@ def read_launches(wrappers) -> tuple:
 
 
 def check_gemm_launches(tag, counts, forms, m_saved=None,
-                        m_used=None) -> None:
+                        m_used=None, f32_recomputed=0) -> None:
     """The GEMM launches the library counted on a path against those that
     the kernels' own launches imply: K1 two bf16 products (qkv, proj); K2
     fc1 (bf16) and fc2 (bf16 m where the training forward saves it, else
@@ -586,7 +612,10 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
     recomputed fc1 + gelu', m (bf16) and dh * gelu'; rows 12 and 13 two
     bf16 products (fc1, fc2); row 16 none (its products run inside its one
     launch); row 17 one "conv" product a call; the fp32 forms of K1 and K2
-    two fp32 GEMM products each, K3's one. `m_saved`: the block calls
+    two fp32 GEMM products each, K3's one, K5's two (dattn, dx) and K6's
+    three (fc1 with gelu', dh * gelu', dn2) plus m where it recomputes m
+    (`f32_recomputed` of its launches), and two fp32 weight gradients each
+    of K5's and K6's. `m_saved`: the block calls
     whose K2 saves m and whose K6 takes it (0 where nothing is trained;
     None where the path does not say); `m_used`, where it differs, the
     K6 launches that take a saved m (with remat K2 saves m in the forward
@@ -607,8 +636,13 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
              ("conv", forms["conv"], counts["conv3x3_bn_act"]),
              ("fp32", forms["fp32"],
               2 * (counts["swin_block_attention_f32"]
-                   + counts["swin_block_epilogue_f32"])
-              + counts["patch_merge_f32"])]
+                   + counts["swin_block_epilogue_f32"]
+                   + counts["swin_block_attention_bwd_f32"])
+              + counts["patch_merge_f32"]
+              + 3 * counts["swin_block_epilogue_bwd_f32"] + f32_recomputed),
+             ("wgrad_f32", forms["wgrad_f32"],
+              2 * (counts["swin_block_attention_bwd_f32"]
+                   + counts["swin_block_epilogue_bwd_f32"]))]
     if m_saved is not None:
         m_used = m_saved if m_used is None else m_used
         rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),
@@ -1639,8 +1673,9 @@ def main() -> None:
 
     # ---- phase 7: fp32 serving and evaluation on the kernels -------------
     t0 = time.perf_counter()
-    phase_fp32(dev, smi, wrappers, launches, results, median_ms)
-    print(f"phase 7 fp32 forms, serving, evaluation and train step: "
+    fp32_counts = phase_fp32(dev, smi, wrappers, launches, results,
+                             median_ms)
+    print(f"phase 7 fp32 forms, serving, evaluation and training: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 8: stage-2 contrastive pretraining ------------------------
@@ -1715,7 +1750,7 @@ def main() -> None:
             " (fp32)"),
         "swin_block_epilogue_f32": (
             "fp32_forms.cu", "stswincl_tpu/ops/pallas_add_ln_mlp.py:895 and "
-            ":1012 shifted (fp32)"),
+            ":1012 shifted, :802 with m (fp32)"),
         "patch_merge_f32": (
             "fp32_forms.cu", "stswincl_tpu/ops/pallas_patch_merge.py:122 "
             "(fp32)"),
@@ -1723,6 +1758,16 @@ def main() -> None:
             "fp32_forms.cu", "the fp32 matmuls of stswincl_tpu/ops/"
             "pallas_block_attention.py:179, pallas_add_ln_mlp.py:704 and "
             ":940, pallas_patch_merge.py:41"),
+        "swin_block_attention_bwd_f32": (
+            "fp32_train.cu", "stswincl_tpu/ops/pallas_block_attention.py:547"
+            " (fp32)"),
+        "swin_block_epilogue_bwd_f32": (
+            "fp32_train.cu", "stswincl_tpu/ops/pallas_add_ln_mlp.py:310, "
+            "and :557 with m (fp32)"),
+        "wgrad_f32": (
+            "fp32_train.cu", "the fp32 weight-gradient matmuls of "
+            "stswincl_tpu/ops/pallas_block_attention.py:405 and "
+            "pallas_add_ln_mlp.py:181, :425"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -1781,7 +1826,10 @@ def main() -> None:
         r["per_ddp_step"] = parallel_counts["per_ddp_step"][r["name"]]
         r["per_rank_parallel_step"] = {
             stage: parallel_counts[f"per_rank_{stage}_step"][r["name"]]
-            for stage in ("seg", "contrast")}
+            for stage in ("seg", "contrast", "seg_fp32")}
+        # phase 7: an fp32 stage-1 step at batch 8 (d), a stage-2 step (e)
+        for key, by_name in fp32_counts.items():
+            r[key] = by_name[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     if FAILED:
@@ -3166,7 +3214,664 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
                   f": the TF32 twin moves by only {row['tf32_fault']}")
 
 
-def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> None:
+# (a) the fp32 training forms: K5 (Pallas row 6) at both stages' training
+# shapes, K6 recomputing m (row 7) at stage 1's, K2 saving m (row 8) and
+# K6 taking it (row 9) at stage 2's: F32_TRAIN_B pairs of 2 frames of the
+# batch-8 clips, (16, 2, 64, 80, 512) and (16, 2, 32, 40, 1024); then the
+# shapes the stage-2 step gives the forms (CONTRAST_STAGE: seven windows
+# across, the shift maps at other H and W)
+F32_TRAIN_B = 16
+F32_TRAIN_CASES = (
+    [(f"stage{s}", F32_TRAIN_B, c["C"], c["h"], c["w"], c["ws"])
+     for s, c in F32_STAGES.items()]
+    + [(c["label"], c["n"], c["C"], c["h"], c["w"], c["ws"])
+       for c in CONTRAST_STAGE.values()])
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """Every fp32 product of a twin in one TF32 pass on the tensor cores
+    (operands rounded to 10 mantissa bits): the planted fault of a form
+    that ran its products on TF32."""
+    import torch
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def phase_fp32_train_kernels(dev, results, median_ms) -> None:
+    """Phase 7 (a), training: rows 6, 7, 8 and 9 in fp32 against their
+    fp32 twins (autograd of the fp32 K1 / K2 twins; row 8 the m-output
+    twin) on every output within TOL_F32_REL, at the training shapes of
+    stages 1 and 2 and at the stage-2 step's (F32_TRAIN_CASES); the same
+    twin with every product on TF32 operands must miss the bound tenfold
+    (but the outputs no product reaches: dbproj and db1n, the column sums
+    of g, and dbw2); each form bit-equal across two calls on the same
+    inputs. Timed beside the fp32 twin, the bf16 kernel on the same values
+    cast to bf16 and cuBLAS fp32 on each of its products summed; then
+    `wgrad_f32` alone at K5's and K6's weight gradients beside
+    `a.t() @ b`."""
+    import torch
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops.window import shifted_window_attention_mask
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(*shape, fan_in, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5)
+
+    def cast(ts, dtype):
+        return [t.to(dtype) if isinstance(t, torch.Tensor)
+                and t.is_floating_point() else t for t in ts]
+
+    def hold(kname, case, form, names, kfn, twin, bfn, products, work,
+             exempt=()):
+        """kfn() and twin(dtype) return the same outputs, `names`."""
+        n = form.launches
+        got = kfn()
+        check(form.launches == n + 1, f"{kname} {case}: "
+              f"{form.launches - n} launches of the form a call")
+        again = kfn()
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = twin(f32)
+        with tf32_products():
+            bad = twin(f32)
+        outs, worst = {}, 0.0
+        for name, a, w, b in zip(names, got, want, bad):
+            rel, moved = rel_err(a, w), rel_err(b, w)
+            outs[name] = {"rel_err": rel, "tf32_fault": moved,
+                          "max_abs_err": (a - w).abs().max().item()}
+            worst = max(worst, rel / TOL_F32_REL)
+            check(rel <= TOL_F32_REL, f"{kname} {case} {name}: relative "
+                  f"error {rel} > {TOL_F32_REL}")
+            if name not in exempt:
+                check(moved > 10 * TOL_F32_REL, f"{kname} {case} {name}: "
+                      f"the twin on TF32 products moves by only {moved}")
+        check(bit, f"{kname} {case}: two calls on the same inputs differ")
+        del got, want, bad
+        torch.cuda.empty_cache()
+        row = {"case": case, "outputs": outs, "bit_equal": bit,
+               "max_abs_err": max(o["max_abs_err"] for o in outs.values()),
+               "rel_err": max(o["rel_err"] for o in outs.values()),
+               "ms": median_ms(kfn, reps=3),
+               "plain_ms": median_ms(lambda: twin(f32), reps=3),
+               "bf16_ms": median_ms(bfn, reps=3),
+               "library_ms": median_ms(products, reps=3),
+               **f32_bound(*work)}
+        results.setdefault(kname, []).append(row)
+        print(f"  {kname:28s} {case:40s} worst rel / bound "
+              f"{worst:.3f}, bit-equal {bit}; fp32 form {row['ms']:.2f} ms"
+              f" twin {row['plain_ms']:.2f} ms bf16 kernel "
+              f"{row['bf16_ms']:.2f} ms cuBLAS fp32 products "
+              f"{row['library_ms']:.2f} ms bound {row['bound_ms']:.2f} ms "
+              f"(FMA {row['fma_bound_ms']:.2f})", flush=True)
+        for name, o in outs.items():
+            print(f"  {'':28s} {name:8s} rel {o['rel_err']:.3e} TF32 fault "
+                  f"{o['tf32_fault']:.3e} "
+                  f"({o['tf32_fault'] / TOL_F32_REL:.1f}x the bound)",
+                  flush=True)
+
+    heads, T = 4, 2
+    wgrads = []  # (case, a, b, a_map, b_map)
+    for label, n, C, h, w, ws in F32_TRAIN_CASES:
+        TN, R, hidden = T * ws * ws, n * T * h * w, 4 * C
+        shift = ws // 2
+        scale = (C // heads) ** -0.5
+        x, g = randn(n, T, h, w, C), randn(n, T, h, w, C)
+        wq, bq = uniform(3 * C, C, fan_in=C, gain=3.0), uniform(3 * C,
+                                                               fan_in=C)
+        wp, bp = uniform(C, C, fan_in=C, gain=2.0), uniform(C, fan_in=C)
+        bias = randn(heads, TN, TN)
+        mask = torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, shift)).repeat(1, T, T).to(dev)
+        with torch.no_grad():
+            _, qkv, attn = att._forward_f32(x, wq, bq, wp, bp, bias, mask,
+                                            heads, scale, ws, shift)
+            bx, bwq, bwp = (t.to(bf16) for t in (x, wq, wp))
+            _, bqkv_s, battn = att._forward_kernel(bx, bwq, bq, bwp, bp,
+                                                   bias, mask, heads, scale,
+                                                   ws, shift)
+        bg = g.to(bf16)
+        kargs = (x, g, qkv, attn, wq, wp, bias, mask, heads, scale, ws,
+                 shift)
+
+        def k5_twin(dtype, a=(x, wq, bq, wp, bp, bias, mask, g)):
+            a = cast(a, dtype)
+            return att.swin_block_attention_bwd_ref(*a[:7], a[7], heads,
+                                                    scale, ws, shift)
+
+        def k5_products(x=x, g=g, wq=wq, wp=wp, qkv=qkv, attn=attn):
+            xr, gr = x.reshape(R, C), g.reshape(R, C)
+            gr @ wp, qkv @ wq, qkv.t() @ xr, gr.t() @ attn
+
+        hold("swin_block_attention_bwd_f32",
+             f"{label} {tuple(x.shape)} shift={shift}",
+             att.swin_block_attention_bwd_f32,
+             ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"),
+             lambda a=kargs: att.swin_block_attention_bwd_f32(*a), k5_twin,
+             lambda: att.swin_block_attention_bwd(
+                 bx, bg, bqkv_s, battn, bwq, bwp, bias, mask, heads, scale,
+                 ws, shift),
+             k5_products,
+             (16 * R * C * C + 10 * R * TN * C,
+              (7 * R * C + 4 * C * C + 4 * C + 2 * heads * TN * TN
+               + mask.numel()) * 4),
+             exempt=("dbproj",))
+        # random operands: qkv itself correlates with x, and the
+        # correlated part of its sum hides a TF32 product's error
+        if n == F32_TRAIN_B:
+            wgrads += [(f"K5 dwqkv {label} ({R}, {3 * C})^T ({R}, {C}), "
+                        "shifted gather", randn(R, 3 * C), x.reshape(R, C),
+                        None, (T, h, w, ws, shift)),
+                       (f"K5 dwproj {label} ({R}, {C})^T ({R}, {C}), "
+                        "gather", g.reshape(R, C), attn, (T, h, w, ws, 0),
+                        None)]
+        del qkv, attn, bqkv_s, battn, bx, bg
+        torch.cuda.empty_cache()
+
+        p = [1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+             uniform(hidden, C, fan_in=C, gain=2.0), uniform(hidden, fan_in=C),
+             uniform(C, hidden, fan_in=hidden, gain=2.0), uniform(C, fan_in=hidden),
+             1.0 + randn(C, scale=0.1), randn(C, scale=0.1)]
+        bp_ = [t.to(bf16) if t.dim() == 2 else t for t in p]
+        y = randn(n, T, h, w, C)
+        xb, yb, gb = (t.to(bf16) for t in (x, y, g))
+        kw = dict(gelu_exact=True, shift=shift, ws=ws)
+        saved = epi.mlp_output_saved(C, hidden, f32)
+        check(saved == (C == 1024), f"{label}: mlp_output_saved {saved}")
+        rc, rh = R * C, R * hidden
+        if saved:  # row 8
+            def row8_twin(dtype):
+                a = cast((x, y, *p), dtype)
+                return epi.swin_block_epilogue_with_m_ref(*a, **kw)
+
+            def fc_products():
+                n2 = x.reshape(R, C)
+                hh = n2 @ p[2].t()
+                hh @ p[4].t()
+
+            hold("swin_block_epilogue_f32", f"row 8 {label} "
+                 f"{tuple(x.shape)} shift={shift}", epi.swin_block_epilogue_f32,
+                 ("out", "m"), lambda: epi.swin_block_epilogue_f32(
+                     x, y, *p, **kw, m_out=True), row8_twin,
+                 lambda: epi._forward_kernel(xb, yb, *bp_, **kw, eps=1e-5,
+                                             with_m=True),
+                 fc_products, (4 * rc * hidden,
+                               (4 * rc + 2 * C * hidden + hidden + 5 * C) * 4))
+            with torch.no_grad():
+                m = epi.swin_block_epilogue_f32(x, y, *p, **kw, m_out=True)[1]
+                mb = epi._forward_kernel(xb, yb, *bp_, **kw, eps=1e-5,
+                                         with_m=True)[1]
+        else:
+            m = mb = None
+        row = "row 9" if saved else "row 7"
+
+        def k6_twin(dtype):
+            a = cast((x, y, *p, g), dtype)
+            return epi.swin_block_epilogue_bwd_ref(*a, **kw)
+
+        def k6_products(n_products=5 if saved else 6):
+            xr, gr = x.reshape(R, C), g.reshape(R, C)
+            hh = xr @ p[2].t()          # fc1
+            if n_products == 6:
+                hh @ p[4].t()           # m
+            d = gr @ p[4]               # dh
+            d @ p[2]                    # dn2
+            d.t() @ xr, gr.t() @ hh     # dw1, dw2
+
+        hold("swin_block_epilogue_bwd_f32",
+             f"{row} {label} {tuple(x.shape)} shift={shift}",
+             epi.swin_block_epilogue_bwd_f32,
+             ("dx", "dy", "ds2", "db2", "dw1", "db1", "dw2", "dbw2", "ds1",
+              "db1n"),
+             lambda: epi.swin_block_epilogue_bwd_f32(x, y, g, m, *p[:7], **kw),
+             k6_twin,
+             lambda: epi.swin_block_epilogue_bwd(xb, yb, gb, mb, *bp_[:7],
+                                                 **kw),
+             k6_products,
+             ((10 if saved else 12) * rc * hidden,
+              ((6 if saved else 5) * rc + 4 * C * hidden + 2 * hidden
+               + 8 * C) * 4),
+             # db1n is a column sum of g; dbw2, of do, which a product
+             # reaches only through LN1's statistics (the TF32 twin moves
+             # it 1.3-1.8e-5)
+             exempt=("db1n", "dbw2"))
+        if not saved and n == F32_TRAIN_B:
+            hh = torch.randn((R, hidden), generator=gen, device=dev)
+            wgrads += [(f"K6 dw1 {label} ({R}, {hidden})^T ({R}, {C})", hh,
+                        x.reshape(R, C), None, None)]
+        del x, y, g, xb, yb, gb, m, mb
+        torch.cuda.empty_cache()
+
+    for case, a, b, a_map, b_map in wgrads:
+        R, M = a.shape
+        N = b.shape[1]
+        got = gemm_ops.wgrad_f32(a, b, a_map, b_map)
+        bit = torch.equal(got, gemm_ops.wgrad_f32(a, b, a_map, b_map))
+        want = gemm_ops.wgrad_sm90_ref(a, b, a_map, b_map)
+        with tf32_products():
+            bad = gemm_ops.wgrad_sm90_ref(a, b, a_map, b_map)
+        row = {"case": case, "max_abs_err": (got - want).abs().max().item(),
+               "rel_err": rel_err(got, want),
+               "tf32_fault": rel_err(bad, want), "bit_equal": bit,
+               "ms": median_ms(lambda: gemm_ops.wgrad_f32(a, b, a_map,
+                                                          b_map)),
+               "plain_ms": median_ms(lambda: gemm_ops.wgrad_sm90_ref(
+                   a, b, a_map, b_map)),
+               "library_ms": median_ms(lambda: a.t() @ b),
+               **f32_bound(2 * R * M * N, (R * (M + N) + M * N) * 4)}
+        results.setdefault("wgrad_f32", []).append(row)
+        tflops = 2 * R * M * N / row["ms"] * 1e-9
+        print(f"  {'wgrad_f32':28s} {case:52s} rel {row['rel_err']:.3e} "
+              f"bit-equal {bit} {row['ms']:.3f} ms ({tflops:.1f} TFLOP/s) "
+              f"a.t() @ b "
+              f"{row['library_ms']:.3f} ms twin {row['plain_ms']:.3f} ms "
+              f"bound {row['bound_ms']:.3f} ms; TF32 fault "
+              f"{row['tf32_fault']:.3e}", flush=True)
+        check(row["rel_err"] <= TOL_F32_REL, f"wgrad_f32 {case}: relative "
+              f"error {row['rel_err']} > {TOL_F32_REL}")
+        check(row["tf32_fault"] > 10 * TOL_F32_REL, f"wgrad_f32 {case}: the "
+              f"TF32 twin moves by only {row['tf32_fault']}")
+        check(bit, f"wgrad_f32 {case}: two calls differ")
+
+
+# (d) the batch-2 gate and (e) the stage-2 gate (`fp32_step_gate`): each
+# gradient of the fp32 kernel step against the fp32 twin step
+# (`kernels=False`) within F32_STEP_FACTOR times the larger deviation of
+# two controls (the twin step on the clips perturbed by relative noise of
+# 2^-22 and 2^-24, a few fp32 roundings: the step's own rounding
+# sensitivity), plus F32_STEP_FLOOR; planted K5 and K6 faults and the twin
+# step under bf16 autocast must each miss its bound tenfold on the loss or
+# some gradient (`fp32_step_faults`). Then (d) F32_TRAIN_STEPS timed steps
+# at batch F32_TRAIN_BATCH after a warm-up.
+F32_STEP_FACTOR = 4.0
+F32_STEP_FLOOR = 1e-6
+F32_CONTROL_NOISE = (2.0 ** -22, 2.0 ** -24)
+F32_TRAIN_BATCH, F32_TRAIN_STEPS = 8, 3
+# a stage-1 step: the fp32 forms of K1, K2, K5 and K6 once a block call,
+# K3 once; K2 saves m (row 8) and K6 takes it (row 9) at the FT_M_SAVED
+# stage-2 blocks, K6 recomputes it (row 7) at the rest
+F32_STEP = {"swin_block_attention_f32": FT_BLOCKS,
+            "swin_block_epilogue_f32": FT_BLOCKS,
+            "patch_merge_f32": FT_MERGES,
+            "swin_block_attention_bwd_f32": FT_BLOCKS,
+            "swin_block_epilogue_bwd_f32": FT_BLOCKS}
+
+
+def fp32_step_launches(tag, counts, forms, steps=1, recomputed=None):
+    """A path of `steps` fp32 stage-1 (or stage-2: pass `recomputed` 0)
+    steps: exactly F32_STEP's launches a step, no other kernel (no twin
+    runs a kernel, no bf16 form), and the fp32 GEMMs the forms imply."""
+    for k, n in counts.items():
+        want = steps * F32_STEP.get(k, 0)
+        if k in ("linear_f32", "wgrad_f32"):
+            continue
+        check(n == want, f"{tag}: {k} launched {n} times, expected {want}")
+    rec = steps * (FT_BLOCKS - FT_M_SAVED) if recomputed is None \
+        else recomputed
+    check_gemm_launches(tag, counts, forms, f32_recomputed=rec)
+
+
+def fp32_step_faults() -> list:
+    """The planted faults of the fp32 step gates: (what, a context that
+    plants it, the step's `kernels`, whether it is held). Held: K5 with
+    its dbias zeroed and K6 without its LN2 path (each form patched by
+    `unittest.mock.patch.object`), and a precision fault, the twin step
+    under bf16 autocast. Reported only: the twin step with every matmul
+    on TF32, and K6 alone as its fp32 twin on TF32 products. The step
+    moves its gradients by about 2e-3 under input noise of 2^-22 (the
+    bounds' median is near 7e-3), so TF32 rounding stays within a few
+    bounds; (a) holds each form's precision against TF32."""
+    import torch
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import block_attention as att
+    att_bwd = att.swin_block_attention_bwd_f32
+
+    def k5_without_dbias(*a, **k):
+        dx, dwq, dbq, dwp, dbp, dbias = att_bwd(*a, **k)
+        return dx, dwq, dbq, dwp, dbp, torch.zeros_like(dbias)
+
+    def k6_without_ln2_path(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1, *a,
+                            **k):
+        return epilogue_bwd_without_ln2_path(
+            x, y, s2, b2, w1, b1, w2, bw2, s1, torch.zeros_like(s1), g, *a,
+            **k)
+
+    def k6_twin_on_tf32(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1, *a, **k):
+        with tf32_products():
+            return epi.swin_block_epilogue_bwd_ref(
+                x, y, s2, b2, w1, b1, w2, bw2, s1, torch.zeros_like(s1), g,
+                *a, **k)
+
+    def patched(mod, name, fault):
+        fault.launches = 0  # the form it wraps counts under its own name
+        return lambda: unittest.mock.patch.object(mod, name, fault)
+
+    return [("K5 without dbias", patched(
+                att, "swin_block_attention_bwd_f32", k5_without_dbias),
+             None, True),
+            ("K6 without its LN2 path", patched(
+                epi, "swin_block_epilogue_bwd_f32", k6_without_ln2_path),
+             None, True),
+            ("the twin step with every matmul on TF32", tf32_products,
+             False, False),
+            ("the twin step under bf16 autocast", lambda: torch.autocast(
+                "cuda", dtype=torch.bfloat16), False, True),
+            ("K6 alone on TF32 products", patched(
+                epi, "swin_block_epilogue_bwd_f32", k6_twin_on_tf32),
+             None, False)]
+
+
+def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k) -> None:
+    """The gate of an fp32 kernel step, its loss `loss_k` and gradients
+    `grads_k` on `inputs`: `step_of(inputs, labels, kernels)` runs one step
+    from fixed weights and returns (loss, gradients by name, seconds). The
+    twin step (`kernels=False`) and two controls, the twin step on the
+    inputs perturbed by relative noise of F32_CONTROL_NOISE (a few fp32
+    roundings: the step's own rounding sensitivity); the loss and every
+    gradient within F32_STEP_FACTOR times the controls' larger deviation
+    plus F32_STEP_FLOOR; each held fault of `fp32_step_faults` must miss
+    the bound of the loss or of some gradient tenfold."""
+    import torch
+
+    def devs(a, b):
+        return {n: rel_err(a[n], b[n]) for n in b}
+
+    loss_t, grads_t, sec_t = step_of(inputs, labels, kernels=False)
+    controls, control_losses = [], []
+    gen = torch.Generator(device=inputs.device).manual_seed(17)
+    for e in F32_CONTROL_NOISE:
+        noisy = inputs * (1 + e * torch.randn(inputs.shape, generator=gen,
+                                              device=inputs.device))
+        loss_c, grads_c, _ = step_of(noisy, labels, kernels=False)
+        controls.append(devs(grads_c, grads_t))
+        control_losses.append(abs(loss_c - loss_t) / abs(loss_t))
+        del grads_c, noisy
+    got = devs(grads_k, grads_t)
+    bound = {n: F32_STEP_FACTOR * max(c[n] for c in controls)
+             + F32_STEP_FLOOR for n in grads_t}
+    over = {n: (got[n], bound[n]) for n in got if got[n] > bound[n]}
+    worst = max(got, key=lambda n: got[n] / bound[n])
+    rel_loss = abs(loss_k - loss_t) / abs(loss_t)
+    loss_bound = F32_STEP_FACTOR * max(control_losses) + F32_STEP_FLOOR
+    bs = sorted(bound.values())
+    print(f"  {tag} gate: loss kernels {loss_k:.7f} twin {loss_t:.7f} (rel "
+          f"{rel_loss:.2e}, bound {loss_bound:.2e}); {len(got)} gradients, "
+          f"worst rel / bound {got[worst] / bound[worst]:.3f} ({worst}), "
+          f"largest rel {max(got.values()):.3e}, control rel (2^-22 / "
+          f"2^-24) up to {max(controls[0].values()):.3e} / "
+          f"{max(controls[1].values()):.3e}, gradient bounds' quartiles "
+          f"{bs[len(bs) // 4]:.2e} / {bs[len(bs) // 2]:.2e} / "
+          f"{bs[3 * len(bs) // 4]:.2e}; twin step {sec_t:.2f} s", flush=True)
+    check(math.isfinite(loss_k), f"{tag}: loss {loss_k}")
+    check(rel_loss <= loss_bound, f"{tag}: loss kernels {loss_k} vs twin "
+          f"{loss_t}: rel {rel_loss} > {loss_bound}")
+    check(not over, f"{tag}: gradients past their control bounds "
+          f"{dict(list(over.items())[:5])}")
+    for what, plant, kernels, held in fp32_step_faults():
+        with plant():
+            loss_f, grads_f, _ = step_of(inputs, labels, kernels=kernels)
+        moved = {n: d / bound[n] for n, d in devs(grads_f, grads_t).items()}
+        moved["loss"] = abs(loss_f - loss_t) / abs(loss_t) / loss_bound
+        del grads_f
+        top = max(moved, key=moved.get)
+        print(f"  {tag} planted fault, {what}: misses its bound by "
+              f"{moved[top]:.1f}x at most ({top}; the loss "
+              f"{moved['loss']:.1f}x){'' if held else ', not held'}",
+              flush=True)
+        check(not held or moved[top] >= 10, f"{tag}: the planted fault "
+              f"({what}) misses the gate by only {moved[top]}x")
+    del grads_t, controls
+    torch.cuda.empty_cache()
+
+
+def phase_fp32_train(dev, smi, wrappers, launches, weights, kw) -> dict:
+    """Phase 7 (d): stage-1 training of the fp32 model on the fp32 forms.
+    The batch-2 gate (`fp32_step_gate`): the loss and every gradient of one
+    kernel step against the twin step from the same weights and batch, the
+    kernel step's launches (F32_STEP, no twin), and whether a second kernel
+    step gives the same bits (reported, not held: cuDNN's convolution
+    backward need not). Then the step at batch 8, ms/step and peak
+    memory. Returns the launches a batch-8 step."""
+    import torch
+    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
+                                            SegTrainConfig)
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    cfg = SegTrainConfig(model=ModelConfig(dtype="float32"),
+                         data=DataConfig(batch_size=BS, crop_hw=(H, W)))
+
+    def step_of(images, labels, kernels=None):
+        """One step from `weights`: (loss, gradients by name, seconds)."""
+        m = TswinPlus(**kw, dtype=torch.float32, kernels=kernels)
+        m.load_state_dict(weights)
+        m.to(dev).train()
+        opt, schedule = make_tx(cfg, 1, m)
+        step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                                   ohem_thresh=cfg.ohem_thresh)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.detach().clone() for n, p in m.named_parameters()}))
+        ts = time.perf_counter()
+        loss = float(step(images, labels)["loss"])
+        torch.cuda.synchronize()
+        return loss, grads, time.perf_counter() - ts
+
+    imgs, lbls = seeded_batch(BS, seed=6)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+    reset_launches(wrappers)
+    loss_k, grads_k, sec_k = step_of(images, labels)
+    counts, forms = read_launches(wrappers)
+    launches["train_fp32_gate"] = counts
+    fp32_step_launches("fp32 train (batch 2)", counts, forms)
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][n], b[1][n])
+                                    for n in a[1])
+
+    bit = same((loss_k, grads_k), step_of(images, labels))
+    # whether the spread is PyTorch's and cuDNN's: the same with their
+    # deterministic algorithms
+    det = torch.are_deterministic_algorithms_enabled()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            bit_det = same(step_of(images, labels), step_of(images, labels))
+    finally:
+        torch.use_deterministic_algorithms(det)
+        torch.backends.cudnn.deterministic = cudnn_det
+    print(f"  [fp32 train] batch {BS}: kernel step {sec_k:.2f} s (the first "
+          f"kernel step in the process); a second kernel step bit-equal: "
+          f"{bit}, two with PyTorch's deterministic algorithms and cuDNN "
+          f"deterministic: {bit_det}", flush=True)
+    check(math.isfinite(loss_k), f"fp32 train loss {loss_k}")
+    fp32_step_gate(f"[fp32 train] batch {BS}", step_of, images, labels,
+                   loss_k, grads_k)
+    del grads_k
+    torch.cuda.empty_cache()
+
+    # batch 8 on the kernels
+    imgs, lbls = seeded_batch(F32_TRAIN_BATCH, seed=7)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+    m = TswinPlus(**kw, dtype=torch.float32)
+    m.load_state_dict(weights)
+    m.to(dev).train()
+    opt, schedule = make_tx(cfg, 1, m)
+    step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                               ohem_thresh=cfg.ohem_thresh)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(images, labels)["loss"])]  # warm-up
+    reset_launches(wrappers)
+    secs = []
+    for _ in range(F32_TRAIN_STEPS):
+        ts = time.perf_counter()
+        losses.append(float(step(images, labels)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - ts)
+    counts, forms = read_launches(wrappers)
+    launches["train_fp32"] = counts
+    fp32_step_launches(f"fp32 train (batch {F32_TRAIN_BATCH})", counts,
+                       forms, steps=F32_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = 1e3 * statistics.median(secs)
+    STEP_MS["fp32 stage 1"] = ms
+    print(f"  [fp32 train] stage-1 step at batch {F32_TRAIN_BATCH} on the "
+          f"fp32 forms: {ms:.1f} ms/step (median of {F32_TRAIN_STEPS} after"
+          f" a warm-up), {F32_TRAIN_BATCH / ms * 1e3:.2f} clips/s, peak "
+          f"{peak:.2f} GiB, losses {[round(v, 5) for v in losses]}, "
+          f"launches a step { {k: v // F32_TRAIN_STEPS for k, v in counts.items() if v} } "
+          f"on {smi}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"fp32 train losses "
+          f"{losses}")
+    del m, opt, step
+    torch.cuda.empty_cache()
+    return {k: v // F32_TRAIN_STEPS for k, v in counts.items()}
+
+
+def phase_fp32_contrast(dev, smi, wrappers, launches) -> dict:
+    """Phase 7 (e): the stage-2 fp32 step at `ContrastTrainConfig`'s
+    defaults (batch 4, six views of 4 frames at 256x448, swin_dim 512,
+    depths (3, 3)) on the fp32 forms. The gate (`fp32_step_gate`): the
+    loss and every query gradient of one kernel step against the twin
+    step (each swin block recomputed in its backward, as phase 8's plain
+    route) from the same weights and batch, with its controls and planted
+    faults. Then one step after a warm-up step: its launches (the key
+    pass's forwards and the query's forward and backward: no twin, no bf16
+    form), ms/step and peak memory. Returns the launches of the step."""
+    import torch
+    import torch.utils.checkpoint
+    from stswincl_tpu_torch.configs import (ContrastTrainConfig,
+                                            DataConfig, ModelConfig)
+    from stswincl_tpu_torch.models import ContrastEncoder
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+    from stswincl_tpu_torch.pipelines.contrast import build_contrast_encoder
+    from stswincl_tpu_torch.tools import profile_contrast
+    from stswincl_tpu_torch.train import train_contrast as tc
+    from stswincl_tpu_torch.train.optim import (make_lars, scale_lr_linear,
+                                                warmup_cosine_schedule)
+
+    cfg = ContrastTrainConfig(model=ModelConfig(dtype="float32"),
+                              data=DataConfig(dataset="synthetic",
+                                              crop_hw=CONTRAST_HW,
+                                              batch_size=CONTRAST_BATCH))
+    classes = cfg.data.num_classes
+    model = build_contrast_encoder(cfg, classes, dev)
+    blocks = [m for m in model.modules() if hasattr(m, "kernels")]
+    check(blocks and all(m.kernels is None for m in blocks),
+          "fp32 contrast encoder: not on the kernels (kernels=None)")
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    m_cfg = cfg.model
+    kw = dict(swin_dim=m_cfg.swin_dim, num_heads=m_cfg.num_heads,
+              with_instance=cfg.pixpro_ins_loss_weight > 0,
+              swin_depths=tuple(m_cfg.swin_depths), dtype=torch.float32,
+              input_hw=CONTRAST_HW, attn_impl=m_cfg.attn_impl)
+    total = cfg.num_epochs * CONTRAST_STEPS
+    schedule = warmup_cosine_schedule(
+        scale_lr_linear(cfg.base_lr, CONTRAST_BATCH),
+        cfg.warmup_epochs * CONTRAST_STEPS, total,
+        warmup_multiplier=cfg.warmup_multiplier)
+
+    def make_state(m):
+        return tc.ContrastTrainState.create(m, lambda p: make_lars(
+            p, schedule, weight_decay=cfg.weight_decay,
+            trust_coefficient=cfg.lars_trust_coef))
+
+    def step_of(clips, labels, kernels=None):
+        """One step from `weights`: (loss, query gradients by name,
+        seconds)."""
+        m = ContrastEncoder(classes, **kw, kernels=kernels)
+        m.load_state_dict(weights)
+        state = make_state(m.to(dev))
+        if kernels is False:
+            for mod in itertools.chain(state.query.modules(),
+                                       state.key.modules()):
+                if isinstance(mod, SpaceTimeSwinBlock):
+                    mod.forward = functools.partial(
+                        torch.utils.checkpoint.checkpoint, mod.forward,
+                        use_reentrant=False)
+        step = tc.make_contrast_train_step(state, classes, total,
+                                           cfg.momentum)
+        grads = {}
+        state.opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.detach().clone()
+             for n, p in state.query.named_parameters()
+             if p.grad is not None}))
+        ts = time.perf_counter()
+        loss = float(step(clips, labels)["loss"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - ts
+        del state, step, m
+        torch.cuda.empty_cache()
+        return loss, grads, sec
+
+    clips, labels = profile_contrast.seeded_batch(CONTRAST_BATCH,
+                                                  CONTRAST_HW, CONTRAST_SEED)
+    clips = torch.from_numpy(clips).to(dev)
+    labels = torch.from_numpy(labels).to(dev).long()
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k, _ = step_of(clips, labels)
+    fp32_step_gate(f"[fp32 contrast] batch {CONTRAST_BATCH}", step_of,
+                   clips, labels, loss_k, grads_k)
+    gate_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del grads_k
+
+    state = make_state(model)
+    step = tc.make_contrast_train_step(state, classes, total, cfg.momentum)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(clips, labels)["loss"])]  # warm-up
+    reset_launches(wrappers)
+    ts = time.perf_counter()
+    losses.append(float(step(clips, labels)["loss"]))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - ts)
+    counts, forms = read_launches(wrappers)
+    launches["contrast_fp32"] = counts
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    STEP_MS["fp32 stage 2"] = ms
+    print(f"  [fp32 contrast] stage-2 step at batch {CONTRAST_BATCH} on the "
+          f"fp32 forms: {ms:.1f} ms, peak {peak:.2f} GiB (the gate's "
+          f"{gate_peak:.2f} GiB), losses {losses}, "
+          f"launches { {k: v for k, v in counts.items() if v} } on {smi}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"fp32 contrast losses "
+          f"{losses}")
+    fwd = counts["swin_block_attention_f32"]
+    check(fwd > 0 and counts["swin_block_attention_bwd_f32"] > 0
+          and counts["swin_block_epilogue_bwd_f32"] > 0
+          and counts["patch_merge_f32"] > 0,
+          f"fp32 contrast: a form never launched {counts}")
+    for k, n in counts.items():
+        check(n == 0 or k in F32_STEP or k in ("linear_f32", "wgrad_f32"),
+              f"fp32 contrast: {k} launched {n} times")
+    check_gemm_launches("fp32 contrast", counts, forms,
+                        f32_recomputed=(counts["swin_block_epilogue_bwd_f32"]
+                                        * (FT_BLOCKS - FT_M_SAVED)
+                                        // FT_BLOCKS))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
     """Phase 7: (a) `phase_fp32_kernels`; (b) fp32 serving: the model that
     `build_model(ModelConfig(dtype="float32"))` builds (`kernels=None`)
     through `StreamingSegmenter` at full width, bs 2, BatchNorm calibrated
@@ -3180,9 +3885,11 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> None:
     phase 9's synthetic split, streamed and full clip, from a checkpoint
     of (b)'s weights: K4 once a frame, the fp32 forms launched and no bf16
     kernel, the full-clip predictions against the plain route's,
-    frames/s and `sec_per_frame`; (d) one stage-1 train step of that
-    model at batch 2: a finite loss and no kernel launched (the fp32
-    forward that records a graph runs the twins: K5 and K6 take bf16)."""
+    frames/s and `sec_per_frame`; (d) stage-1 training of that model on
+    the fp32 forms (`phase_fp32_train`: the batch-2 gate against the twin
+    step, then batch 8 timed); (e) one stage-2 step on them
+    (`phase_fp32_contrast`). Returns the launches a batch-8 stage-1 step
+    and a stage-2 step."""
     import tempfile
 
     import torch
@@ -3194,13 +3901,15 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> None:
     from stswincl_tpu_torch.models.init import init_weights
     from stswincl_tpu_torch.pipelines import evaluate as evaluate_mod
     from stswincl_tpu_torch.pipelines.common import build_model
-    from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
-    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
     t0 = time.perf_counter()
     phase_fp32_kernels(dev, results, median_ms)
     print(f"phase 7 (a) the fp32 forms against their twins: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_fp32_train_kernels(dev, results, median_ms)
+    print(f"phase 7 (a) the fp32 training forms against their twins: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # (b) serving
@@ -3361,32 +4070,23 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> None:
     print(f"phase 7 (c) fp32 evaluation: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # (d) the stage-1 train step on the twins
+    # (d) stage-1 training on the fp32 forms
     t0 = time.perf_counter()
-    model.train()
-    images, labels = seeded_batch(BS, seed=6)
-    opt, schedule = make_tx(cfg, 1, model)
-    step = make_seg_train_step(model, opt, schedule, cfg.loss,
-                               ohem_thresh=cfg.ohem_thresh)
-    reset_launches(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    ts = time.perf_counter()
-    loss = float(step(torch.from_numpy(images).to(dev),
-                      torch.from_numpy(labels).to(dev).long())["loss"])
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - ts
-    launches["train_fp32"], forms = read_launches(wrappers)
-    print(f"  [fp32 train] stage-1 step at batch {BS} on the twins: loss "
-          f"{loss:.6f}, {step_s:.2f} s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    check(math.isfinite(loss), f"fp32 train loss {loss}")
-    for k, n in launches["train_fp32"].items():
-        check(n == 0, f"fp32 train: {k} launched {n} times")
-    check(sum(forms.values()) == 0, f"fp32 train: GEMM launches {forms}")
-    del model, opt, step
+    model.cpu()
+    del model
     torch.cuda.empty_cache()
-    print(f"phase 7 (d) fp32 train step: {time.perf_counter() - t0:.1f} s",
+    per_step = {"per_fp32_train_step": phase_fp32_train(
+        dev, smi, wrappers, launches, weights, kw)}
+    print(f"phase 7 (d) fp32 training: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # (e) a stage-2 step on the fp32 forms
+    t0 = time.perf_counter()
+    per_step["per_fp32_contrast_step"] = phase_fp32_contrast(
+        dev, smi, wrappers, launches)
+    print(f"phase 7 (e) fp32 stage-2 step: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return per_step
 
 
 # a train-mode BatchNorm whose batch statistics cover at most this many
@@ -3427,11 +4127,12 @@ def noise_share(cosines, control):
 
 
 def cosines_of(grads_k, grads_p) -> dict:
-    """Each gradient's cosine to its counterpart; 0 where either is zero
-    (a gradient that never arrived)."""
+    """Each gradient's cosine to its counterpart, in fp64 (fp32 resolves
+    1 - cos only to about 6e-8); 0 where either is zero (a gradient that
+    never arrived)."""
     out = {}
     for n, gp in grads_p.items():
-        a, b = grads_k[n].float().flatten(), gp.float().flatten()
+        a, b = grads_k[n].double().flatten(), gp.double().flatten()
         den = (a.norm() * b.norm()).item()
         out[n] = (a @ b).item() / den if den > 0 else 0.0
     return out
@@ -4842,6 +5543,21 @@ TOL_P11_WELL = 0.02
 P11_SEG_VARIANTS = ("sound", "bn_local", "pool_local", "ohem_local",
                     "norm_local", "unreduced")
 P11_CONTRAST_VARIANTS = ("sound", "key_local", "pool_local")
+# (e) the stage-1 step of (b) in fp32 on the fp32 forms: every gradient
+# gated (no noise-dominated exemption), its controls the one-process step
+# on the input perturbed at fp32's own scale (relative noise of 2^-20 and
+# 2^-23) and on the batch in reverse order (splitting the batch reorders
+# its sums, which no input perturbation does: a near-cancelling bias
+# gradient moves by 4e-5 under the split and by 7e-7 under the
+# perturbations alone), the floors below fp32 rounding's reach: the cosine's
+# is the norm's as 1 - cos = e^2 / 2, 5e-11, which the fp64 cosines of
+# `cosines_of` resolve
+P11_F32_VARIANTS = ("sound", "bn_local", "unreduced")
+P11_F32_PERTURBS = (2.0 ** -20, 2.0 ** -23)
+P11_F32_NORM_FLOOR = 1e-5
+P11_F32_FLOORS = {"loss": 1e-6, "stat": 1e-6,
+                  "cos": P11_F32_NORM_FLOOR ** 2 / 2,
+                  "norm": P11_F32_NORM_FLOOR}
 P11_FAULTS = {
     "bn_local": "every BatchNorm on its rank's statistics",
     "pool_local": "the ASPP image-pool BatchNorms alone on their rank's "
@@ -5025,12 +5741,14 @@ def p11_rank(rank, world, port, tmp, stage):
            "built_here": kernels.build_seconds is not None}
     wrappers = kernel_wrappers()
     bf16 = torch.bfloat16
-    if stage == "seg":
+    if stage.startswith("seg"):
         images, labels = p11_seg_batch()
         batch = shard_batch({"x": images, "y": labels})
         x = torch.from_numpy(batch["x"]).to(dev)
         y = torch.from_numpy(batch["y"]).to(dev).long()
         variants = P11_SEG_VARIANTS
+        if stage == "seg_fp32":
+            bf16, variants = torch.float32, P11_F32_VARIANTS
     else:
         clips, labels = p11_contrast_batch()
         batch = shard_batch({"x": clips, "y": labels})
@@ -5039,7 +5757,7 @@ def p11_rank(rank, world, port, tmp, stage):
         variants = P11_CONTRAST_VARIANTS
     try:
         for variant in variants:
-            if stage == "seg":
+            if stage.startswith("seg"):
                 model, cfg = p11_seg_model(dev, bf16)
                 if variant != "bn_local":
                     sync_batchnorm(model)
@@ -5100,6 +5818,8 @@ def p11_rank(rank, world, port, tmp, stage):
                         res["ms_no_sync" if no_sync else "ms"].append(
                             1e3 * (time.perf_counter() - ts))
                 res["peak"] = torch.cuda.max_memory_allocated()
+            if variant == "sound":
+                res.setdefault("peak", torch.cuda.max_memory_allocated())
             out[variant] = res
             del model, ddp, step, opt, grads
             torch.cuda.empty_cache()
@@ -5127,27 +5847,34 @@ def p11_spawn(stage, tmp) -> list:
 def p11_one_process(stage, dev, bf16):
     """The one-process step of `stage` on the whole global batch: the
     reference, the same again, and a control on the input scaled by
-    1 + e n for each e of P11_PERTURBS; (loss, gradients, statistics) of
-    each, and the zero-gradient biases."""
+    1 + e n for each e of P11_PERTURBS (fp32: P11_F32_PERTURBS, and the
+    batch in reverse order, the same sums in another order); (loss,
+    gradients, statistics) of each, and the zero-gradient biases."""
     import numpy as np
     import torch
     from stswincl_tpu_torch.models.aspp import ConvBNRelu
     from stswincl_tpu_torch.pipelines.seg import make_tx
     from stswincl_tpu_torch.train import train_contrast as tc
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
-    if stage == "seg":
+    if stage.startswith("seg"):
         images, labels = p11_seg_batch()
     else:
         images, labels = p11_contrast_batch()
+    perturbs = P11_PERTURBS
+    if stage == "seg_fp32":
+        bf16, perturbs = torch.float32, P11_F32_PERTURBS
     noise = np.random.default_rng(11).standard_normal(images.shape)
-    perturbed = [(images * (1 + e * noise)).astype(np.float32)
-                 for e in P11_PERTURBS]
+    batches = [(images, labels)] * 2 + [
+        ((images * (1 + e * noise)).astype(np.float32), labels)
+        for e in perturbs]
+    if stage == "seg_fp32":
+        batches.append((images[::-1].copy(), labels[::-1].copy()))
     del noise
-    y = torch.from_numpy(labels).to(dev).long()
     runs = []
-    for batch in (images, images, *perturbed):
+    for batch, lbl in batches:
         x = torch.from_numpy(batch).to(dev)
-        if stage == "seg":
+        y = torch.from_numpy(lbl).to(dev).long()
+        if stage.startswith("seg"):
             model, cfg = p11_seg_model(dev, bf16)
             opt, schedule = make_tx(cfg, 1, model)
             step = make_seg_train_step(model, opt, schedule, cfg.loss,
@@ -5166,14 +5893,14 @@ def p11_one_process(stage, dev, bf16):
         runs.append((loss, grads, p11_stats(*mods)))
         zero_grad = {f"{n}.conv.bias" for n, mod in model.named_modules()
                      if isinstance(mod, ConvBNRelu)}
-        if stage != "seg":
+        if not stage.startswith("seg"):
             zero_grad |= {"segmentor.aspp.out_conv.bias",
                           "projector.linear1.bias"}
         del model, step, opt, x
         torch.cuda.empty_cache()
     (l0, g0, s0), (l1, g1, s1) = runs[:2]
     same = sum(torch.equal(g0[n], g1[n]) for n in g0)
-    print(f"  (11{'b' if stage == 'seg' else 'c'}) the one-process step run "
+    print(f"  {p11_tag(stage)} the one-process step run "
           f"twice: loss {l0!r} / {l1!r}, {same} of {len(g0)} gradients and "
           f"{sum(torch.equal(s0[n], s1[n]) for n in s0)} of {len(s0)} "
           f"statistics bit-equal", flush=True)
@@ -5202,7 +5929,8 @@ def p11_deviations(res, grads, ref) -> dict:
     return dev
 
 
-def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None):
+def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None,
+              floors=None, every_gradient=False):
     """Each gate of a ranks' step against the one-process step `ref`, as
     the ratio of its deviation to its bound (at most 1.0 passes):
     TOL_REMAT_FACTOR times the larger deviation of the `controls` (the
@@ -5213,9 +5941,10 @@ def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None):
     and the bound; with `again` (the one-process step run again) also
     what the worst gate would read on its run-to-run spread instead.
     Returns the ratios and the keys of the noise-dominated gradients'
-    gates (controls' 1 - cosine above TOL_P11_WELL)."""
-    floors = {"loss": TOL_P11_LOSS, "stat": TOL_P11_STATS,
-              "cos": TOL_NOISE_FLOOR, "norm": TOL_P11_NORM_FLOOR}
+    gates (controls' 1 - cosine above TOL_P11_WELL), none with
+    `every_gradient`; `floors` replaces the gates' floors."""
+    floors = floors or {"loss": TOL_P11_LOSS, "stat": TOL_P11_STATS,
+                        "cos": TOL_NOISE_FLOOR, "norm": TOL_P11_NORM_FLOOR}
 
     def deviations(run):
         return p11_deviations({"loss": run[0], "stats": run[2]}, run[1], ref)
@@ -5228,10 +5957,10 @@ def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None):
         if name in zero_grad or kind == "dist":
             continue
         cs = [c[k] for c in ctls]
-        scale = max(cs)
+        scale = max(max(cs), 0.0)
         if kind in ("cos", "norm"):
             cos_scale = max(c[f"cos {name}"] for c in ctls)
-            if cos_scale > TOL_P11_WELL:
+            if cos_scale > TOL_P11_WELL and not every_gradient:
                 noisy.add(k)
             scale = max(scale, cos_scale)
         bound = TOL_REMAT_FACTOR * scale + floors[kind]
@@ -5277,7 +6006,7 @@ def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None):
         print(f"  {tag} held to the one-process step's run-to-run spread "
               f"instead (TOL_REMAT_FACTOR x + the same floors), the worst "
               f"gate would read {on_spread[k]:.1f} ({k}): the split moves "
-              f"bf16 rounding as the controls do, the spread does not; "
+              f"the rounding as the controls do, the spread does not; "
               f"the lowest gradient cosine {1 - cos[low]:.5f} ({low[4:]}), "
               f"the controls' {1 - max(c[low_ctl] for c in ctls):.5f} "
               f"({low_ctl[4:]}); the ASPP image-pool gradients' controls "
@@ -5296,10 +6025,12 @@ def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
                            weights_only=True)
         rank = 1 if variant == "unreduced" else 0
         res = outs[rank][variant]
-        tag = f"(11{'b' if stage == 'seg' else 'c'}) [{variant}]"
+        tag = f"{p11_tag(stage)} [{variant}]"
+        fp32 = stage == "seg_fp32"
         ratios, noisy = p11_gates(
             tag, res, grads, runs[0], runs[2:], zero_grad,
-            again=runs[1] if variant == "sound" else None)
+            again=runs[1] if variant == "sound" else None,
+            floors=P11_F32_FLOORS if fp32 else None, every_gradient=fp32)
         worst = max(((k, v) for k, v in ratios.items() if k not in noisy),
                     key=lambda kv: kv[1])
         parted = [o[variant]["parted"] for o in outs]
@@ -5311,15 +6042,28 @@ def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
             check(len({o[variant]["loss"] for o in outs}) == 1,
                   f"{tag}: the ranks' losses differ")
         else:
+            norm = max(((k, v) for k, v in ratios.items()
+                        if k.startswith("norm ") and k not in noisy),
+                       key=lambda kv: kv[1])
             print(f"  {tag} planted fault, {P11_FAULTS[variant]}: the "
-                  f"worst gate at {worst[1]:.1f} of its bound ({worst[0]});"
-                  f" ranks part by {parted}", flush=True)
+                  f"worst gate at {worst[1]:.1f} of its bound ({worst[0]}),"
+                  f" the worst norm gate at {norm[1]:.1f} ({norm[0]}); "
+                  f"ranks part by {parted}", flush=True)
             check(worst[1] >= 10.0, f"{tag}: the planted fault "
                   f"({P11_FAULTS[variant]}) reaches only {worst[1]:.3f} of "
                   f"a bound ({worst[0]})")
+            # fp32 holds every gradient: the fault shows on the norms too,
+            # not only on cosines near their floor
+            check(not fp32 or norm[1] >= 10.0, f"{tag}: the planted fault "
+                  f"({P11_FAULTS[variant]}) reaches only {norm[1]:.3f} of "
+                  f"a norm gate ({norm[0]})")
             if variant == "unreduced":
                 check(min(parted) > 0.0, f"{tag}: the ranks did not part")
         del grads
+
+
+def p11_tag(stage) -> str:
+    return {"seg": "(11b)", "contrast": "(11c)", "seg_fp32": "(11e)"}[stage]
 
 
 def p11_launches(tag, res, want) -> None:
@@ -5414,8 +6158,10 @@ def phase_parallel(dev, bf16, smi, wrappers, launches) -> dict:
     well-conditioned gradient tenfold; the launches a rank; ms/step with
     and without the gradient all-reduce (gloo through host memory on one
     card: not a multi-GPU rate). (c) The same for stage 2 at phase 8's
-    shape, global batch 4, with its planted faults. (d) K1-K6 on cuda:1
-    where the machine has two cards. Returns the per-rank launches of (b) and (c)."""
+    shape, global batch 4, with its planted faults. (e) (b)'s stage-1 step
+    in fp32 on the fp32 forms, every gradient gated against fp32-level
+    controls (`P11_F32_*`). (d) K1-K6 on cuda:1 where the machine has two
+    cards. Returns the per-rank launches of (b), (c) and (e)."""
     import tempfile
 
     import torch
@@ -5460,19 +6206,24 @@ def phase_parallel(dev, bf16, smi, wrappers, launches) -> dict:
 
         # (b) and (c)
         for stage, variants in (("seg", P11_SEG_VARIANTS),
-                                ("contrast", P11_CONTRAST_VARIANTS)):
+                                ("contrast", P11_CONTRAST_VARIANTS),
+                                ("seg_fp32", P11_F32_VARIANTS)):
             t0 = time.perf_counter()
             runs, zero_grad = p11_one_process(stage, dev, bf16)
             torch.cuda.empty_cache()
             outs = p11_spawn(stage, tmp)
-            print(f"  (11{'b' if stage == 'seg' else 'c'}) {P11_RANKS} ranks "
+            print(f"  {p11_tag(stage)} {P11_RANKS} ranks "
                   f"on {outs[0]['device']} over {outs[0]['backend']}: the "
                   f"library loaded in {[round(o['load_s'], 2) for o in outs]}"
                   f" s, built by a rank: "
                   f"{[o['built_here'] for o in outs]}", flush=True)
             p11_hold(stage, outs, tmp, runs, zero_grad, variants)
             sound = [o["sound"] for o in outs]
-            if stage == "seg":
+            f32_rec = 0
+            if stage == "seg_fp32":
+                want, m_saved = F32_STEP, 0
+                f32_rec = FT_BLOCKS - FT_M_SAVED
+            elif stage == "seg":
                 want = {"swin_block_attention": FT_BLOCKS,
                         "swin_block_epilogue": FT_BLOCKS,
                         "patch_merge": FT_MERGES,
@@ -5489,14 +6240,19 @@ def phase_parallel(dev, bf16, smi, wrappers, launches) -> dict:
                         "swin_block_epilogue_bwd": 2 * FT_BLOCKS}
                 m_saved = 2 * FT_M_SAVED
             for r, s in enumerate(sound):
-                p11_launches(f"(11{stage[0]}) rank {r}", s, want)
+                p11_launches(f"{p11_tag(stage)} rank {r}", s, want)
+                for k, n in s["launches"].items():
+                    check(n == 0 or k in want or k in GEMM_ROWS,
+                          f"{p11_tag(stage)} rank {r}: {k} launched {n} "
+                          "times")
                 check_gemm_launches(f"(11 {stage}) rank {r}", s["launches"],
-                                    s["forms"], m_saved=m_saved)
-            key = "parallel_seg" if stage == "seg" else "parallel_contrast"
+                                    s["forms"], m_saved=m_saved,
+                                    f32_recomputed=f32_rec)
+            key = f"parallel_{stage}"
             launches[key] = {k: sum(s["launches"][k] for s in sound)
                              for k in wrappers}
             out[f"per_rank_{stage}_step"] = sound[0]["launches"]
-            print(f"  (11{'b' if stage == 'seg' else 'c'}) launches a rank "
+            print(f"  {p11_tag(stage)} launches a rank "
                   f"{sound[0]['launches']}", flush=True)
             if stage == "seg":
                 for r, s in enumerate(sound):
@@ -5512,7 +6268,11 @@ def phase_parallel(dev, bf16, smi, wrappers, launches) -> dict:
                           f"rate; on {smi}", flush=True)
             del runs
             torch.cuda.empty_cache()
-            print(f"  (11{'b' if stage == 'seg' else 'c'}) "
+            if stage == "seg_fp32":
+                print(f"  (11e) fp32, {P11_RANKS} ranks at batch 4 each on "
+                      f"one card: peaks {[round(s['peak'] / 2**30, 2) for s in sound]}"
+                      f" GiB on {smi}", flush=True)
+            print(f"  {p11_tag(stage)} "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
     # (d)
     p11_second_device(dev, bf16)

@@ -1,5 +1,6 @@
 // The fp32 forms of K1, K2 and K3, on one fp32 GEMM: what an fp32 model
-// serves and evaluates through on the card.
+// serves and evaluates through on the card, and the forward it trains
+// through (the backward forms are in fp32_train.cu).
 //
 // Replaces the fp32 instances of the dtype-generic TPU kernels, which load
 // x.dtype, accumulate in fp32 and store x.dtype
@@ -9,7 +10,9 @@
 //   K2 stswincl_tpu/ops/pallas_add_ln_mlp.py
 //        fused_swin_block_epilogue (:895) -> _epilogue_kernel (:704) and
 //        fused_swin_block_epilogue_shifted (:1012) -> _epi_shifted_kernel
-//        (:940), the serving form (no m output);
+//        (:940), the serving form, and with its m output
+//        _fused_epilogue_fwd_with_m (:802) -> _epilogue_kernel_with_m
+//        (:752), Pallas row 8;
 //   K3 stswincl_tpu/ops/pallas_patch_merge.py
 //        fused_patch_merge (:122) -> _kernel (:41).
 // Their bf16 forms (block_attention.cu, epilogue.cu, patch_merge.cu) run
@@ -36,9 +39,11 @@
 //     SW-MSA cyclic shift: K1's qkv gathers the unshifted clip, no rolled
 //     copy is formed), its index computed once for the whole k loop; C rows
 //     scatter through another (K1's proj back to the image layout). Each
-//     sum runs over k in order, in fp32. Epilogues: act(v) stored, or v
-//     added into C (K2's residual s + MLP). Ragged M and N are zero-filled
-//     on load and masked on store; K is a multiple of 4.
+//     sum runs over k in order, in fp32. Epilogues (`F32Epi`,
+//     fp32_gemm.cuh): act(v) stored, v added into C (K2's residual s +
+//     MLP), K6's gelu(v) and gelu'(v) from one erf evaluation, and v times
+//     an aux matrix (K6's dh * gelu'). Ragged M and N are zero-filled on
+//     load and masked on store; K is a multiple of 4.
 //   - K1's attention (`attn_f32_kernel`): one block a (window, head), TN /
 //     16 warps, q, k and v of the window in fp32 in shared memory (rows of
 //     hd + 4: 198 KiB at stage 1, TN 128 x hd 128, one block an SM; 98 KiB
@@ -51,12 +56,13 @@
 //     by one shuffle each (hd % 32 == 0). P stays fp32: nothing is rounded.
 //   - K2's and K3's row passes: a warp a row, fp32 in and out: K2's
 //     s = x + y read through the inverse cyclic shift and LN2(s), and
-//     LN1(s + m) after fc2 has added m into s; K3's 2x2 regroup in the
-//     reference chunk order with the twin's single-pass variance.
+//     LN1(s + m) after fc2 has added m into s (row 8: fc2 writes m, and
+//     the LN1 pass adds it); K3's 2x2 regroup in the reference chunk order
+//     with the twin's single-pass variance.
 
 #include <atomic>
 
-#include "common.cuh"
+#include "fp32_gemm.cuh"
 
 namespace {
 
@@ -68,20 +74,6 @@ constexpr int GSTAGES = 3;
 constexpr int GTHREADS = 256;
 
 std::atomic<long long> f32_gemm_launches{0};
-
-struct F32Gemm {
-  const float* A;
-  long long lda;
-  RowMap a_map;
-  const float* Wt;  // (N, K), rows of K
-  const float* bias;  // (N,) or null
-  int M, N, K;
-  float* C;
-  long long ldc;
-  RowMap c_map;
-  int act;
-  int resid;  // 1: C += v, else C = act(v)
-};
 
 __global__ void __launch_bounds__(GTHREADS)
     gemm_f32_kernel(const F32Gemm p) {
@@ -149,23 +141,36 @@ __global__ void __launch_bounds__(GTHREADS)
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= p.M) continue;
-    float* c = p.C + map_row(p.c_map, m) * p.ldc;
+    const long long crow = map_row(p.c_map, m) * p.ldc;
+    float* c = p.C + crow;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n < p.N) {
         float v = acc[i][j] + (p.bias ? p.bias[n] : 0.0f);
-        if (p.resid)
+        if (p.epi == F32_RESID) {
           c[n] += v;
-        else
+        } else if (p.epi == F32_GELU_GRAD) {
+          const float2 gg = gelu_and_grad(v, p.act);
+          c[n] = gg.x;
+          p.C2[crow + n] = gg.y;
+        } else if (p.epi == F32_DGELU) {
+          c[n] = v * p.aux[crow + n];
+        } else {
           c[n] = activate(v, p.act);
+        }
       }
     }
   }
 }
 
+}  // namespace
+
 cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s) {
-  if (p.M < 0 || p.N <= 0 || p.K <= 0 || p.K % 4 || p.lda % 4)
+  if (p.M < 0 || p.N <= 0 || p.K <= 0 || p.K % 4 || p.lda % 4 ||
+      p.epi < F32_ACT || p.epi > F32_DGELU ||
+      (p.epi == F32_GELU_GRAD && (!p.C2 || p.act == ACT_NONE)) ||
+      (p.epi == F32_DGELU && !p.aux))
     return cudaErrorInvalidValue;
   if (p.M == 0) return cudaSuccess;
   const dim3 grid((p.N + GBN - 1) / GBN, (p.M + GBM - 1) / GBM);
@@ -173,6 +178,8 @@ cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s) {
   f32_gemm_launches.fetch_add(1);
   return cudaGetLastError();
 }
+
+namespace {
 
 // ---- K1's attention -----------------------------------------------------
 
@@ -357,20 +364,18 @@ cudaError_t attention_f32(const float* qkv, float* out, int n_windows,
 
 constexpr int ROW_WARPS = 8;
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 __device__ __forceinline__ float sum4(float4 v) {
   return v.x + v.y + v.z + v.w;
 }
 
 // K2's LayerNorms, two-pass (`layer_norm_f32`). ADD: s = x[r] + y[unshift
-// (r)] is written to s32 and normalised; else the row of s32 is. C % 4 == 0.
+// (r)] is written to s32 and normalised; else the row of s32 is, after
+// s32 += m where m is given (row 8: LN1 of s + the saved m). C % 4 == 0.
 template <bool ADD>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
     ln_rows_f32_kernel(const float* __restrict__ x,
                        const float* __restrict__ y,
+                       const float* __restrict__ m,
                        const float* __restrict__ g,
                        const float* __restrict__ b, float* __restrict__ s32,
                        float* __restrict__ out, int R, int C, int H, int W,
@@ -392,6 +397,15 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
           make_float4(xv.x + yv.x, xv.y + yv.y, xv.z + yv.z, xv.w + yv.w);
       *reinterpret_cast<float4*>(srow + c) = sv;
       sum += sum4(sv);
+    }
+  } else if (m) {
+    const float* mrow = m + (long long)r * C;
+    for (int c = lane * 4; c < C; c += 128) {
+      const float4 sv = ld4(srow + c), mv = ld4(mrow + c);
+      const float4 ov =
+          make_float4(sv.x + mv.x, sv.y + mv.y, sv.z + mv.z, sv.w + mv.w);
+      *reinterpret_cast<float4*>(srow + c) = ov;
+      sum += sum4(ov);
     }
   } else {
     for (int c = lane * 4; c < C; c += 128) sum += sum4(ld4(srow + c));
@@ -462,6 +476,8 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
     }
 }
 
+}  // namespace
+
 F32Gemm plain_gemm(const float* A, int lda, const float* Wt,
                    const float* bias, int M, int N, int K, float* C, int ldc,
                    int act) {
@@ -478,11 +494,20 @@ F32Gemm plain_gemm(const float* A, int lda, const float* Wt,
   g.ldc = ldc;
   g.c_map = identity_map();
   g.act = act;
-  g.resid = 0;
+  g.epi = F32_ACT;
   return g;
 }
 
-}  // namespace
+cudaError_t ln_rows_add_f32(const float* x, const float* y, const float* g,
+                            const float* b, float* s32, float* out, int R,
+                            int C, int H, int W, int shift, float eps,
+                            cudaStream_t s) {
+  if (C % 4) return cudaErrorInvalidValue;
+  const int blocks = (R + ROW_WARPS - 1) / ROW_WARPS;
+  ln_rows_f32_kernel<true><<<blocks, ROW_WARPS * 32, 0, s>>>(
+      x, y, nullptr, g, b, s32, out, R, C, H, W, shift, eps);
+  return cudaGetLastError();
+}
 
 // K1 fp32. x: (B, T, H, W, C) fp32, unshifted; wqkv (3C, C), wproj (C, C)
 // fp32; bqkv, bproj, bias (heads, TN, TN) and mask (n_mask, TN, TN) fp32.
@@ -519,16 +544,20 @@ extern "C" int stswin_block_attention_f32(
   return gemm_f32(g, s);
 }
 
-// K2 fp32, the serving form. x, y: (BT, H, W, C) rows fp32 (y in the
-// shifted layout when shift > 0); w1 (hidden, C), w2 (C, hidden) fp32;
-// the vectors fp32. Scratch: s32, n2 (rows, C), hid (rows, hidden) fp32.
-// out: (rows, C) fp32, unshifted.
+// K2 fp32: the serving form, and with `m_out` Pallas row 8 (the training
+// forward that saves m, `_fused_epilogue_fwd_with_m`). x, y: (BT, H, W, C)
+// rows fp32 (y in the shifted layout when shift > 0); w1 (hidden, C), w2
+// (C, hidden) fp32; the vectors fp32. Scratch: s32, n2 (rows, C), hid
+// (rows, hidden) fp32. out: (rows, C) fp32, unshifted; m_out (rows, C)
+// fp32 or null: fc2 + bias written to it (in fp32 the "rounding" of m is
+// the identity), then LN1 of s + m, `_epilogue_kernel_with_m`'s order
+// (`pallas_add_ln_mlp.py:752-799`).
 extern "C" int stswin_block_epilogue_f32(
     const void* x, const void* y, const void* s2, const void* b2,
     const void* w1, const void* b1, const void* w2, const void* bw2,
     const void* s1, const void* b1n, void* s32, void* n2, void* hid,
-    void* out, int BT, int H, int W, int C, int hidden, int shift, int act,
-    float eps, void* stream) {
+    void* out, void* m_out, int BT, int H, int W, int C, int hidden,
+    int shift, int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 4 || hidden % 4) return cudaErrorInvalidValue;
   const int R = BT * H * W;
@@ -536,11 +565,11 @@ extern "C" int stswin_block_epilogue_f32(
   float* s32p = static_cast<float*>(s32);
   float* n2p = static_cast<float*>(n2);
   float* hidp = static_cast<float*>(hid);
-  ln_rows_f32_kernel<true><<<blocks, ROW_WARPS * 32, 0, s>>>(
+  float* mp = static_cast<float*>(m_out);
+  cudaError_t err = ln_rows_add_f32(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(s2), static_cast<const float*>(b2), s32p,
-      n2p, R, C, H, W, shift, eps);
-  cudaError_t err = cudaGetLastError();
+      n2p, R, C, H, W, shift, eps, s);
   if (err != cudaSuccess) return err;
 
   F32Gemm g = plain_gemm(n2p, C, static_cast<const float*>(w1),
@@ -549,14 +578,15 @@ extern "C" int stswin_block_epilogue_f32(
   err = gemm_f32(g, s);
   if (err != cudaSuccess) return err;
   g = plain_gemm(hidp, hidden, static_cast<const float*>(w2),
-                 static_cast<const float*>(bw2), R, C, hidden, s32p, C,
-                 ACT_NONE);
-  g.resid = 1;  // s += fc2 + bias, the fp32 MLP sum unrounded
+                 static_cast<const float*>(bw2), R, C, hidden,
+                 mp ? mp : s32p, C, ACT_NONE);
+  // serving: s += fc2 + bias, the fp32 MLP sum unrounded; row 8: m = it
+  if (!mp) g.epi = F32_RESID;
   err = gemm_f32(g, s);
   if (err != cudaSuccess) return err;
 
   ln_rows_f32_kernel<false><<<blocks, ROW_WARPS * 32, 0, s>>>(
-      nullptr, nullptr, static_cast<const float*>(s1),
+      nullptr, nullptr, mp, static_cast<const float*>(s1),
       static_cast<const float*>(b1n), s32p, static_cast<float*>(out), R, C,
       H, W, 0, eps);
   return cudaGetLastError();
@@ -587,13 +617,15 @@ extern "C" int stswin_patch_merge_f32(const void* x, const void* scale,
                   s);
 }
 
-// The fp32 GEMM alone (`ops/gemm.linear_f32`): C[c_map(m)] = act(A[a_map(m)]
-// @ Wt^T + bias), or with `resid` that sum (no act) added into C. The row
+// The fp32 GEMM alone (`ops/gemm.linear_f32`): C[c_map(m)] = the epilogue
+// `epi` (F32Epi) of A[a_map(m)] @ Wt^T + bias, with C2 and aux the second
+// output and input of F32_GELU_GRAD and F32_DGELU (else null). The row
 // maps (mode 1: the window partition over (T, H, W, ws) with its shift)
 // share the grid.
 extern "C" int stswin_gemm_f32(const void* A, const void* Wt,
-                               const void* bias, void* C, int M, int N, int K,
-                               int lda, int ldc, int act, int resid,
+                               const void* bias, void* C, void* C2,
+                               const void* aux, int M, int N, int K,
+                               int lda, int ldc, int act, int epi,
                                int a_mode, int c_mode, int T, int H, int W,
                                int ws, int a_shift, int c_shift,
                                void* stream) {
@@ -601,16 +633,20 @@ extern "C" int stswin_gemm_f32(const void* A, const void* Wt,
                          static_cast<const float*>(Wt),
                          static_cast<const float*>(bias), M, N, K,
                          static_cast<float*>(C), ldc, act);
-  g.resid = resid;
+  g.epi = epi;
+  g.C2 = static_cast<float*>(C2);
+  g.aux = static_cast<const float*>(aux);
   if (a_mode) g.a_map = RowMap{1, T, H, W, ws, a_shift};
   if (c_mode) g.c_map = RowMap{1, T, H, W, ws, c_shift};
   return gemm_f32(g, static_cast<cudaStream_t>(stream));
 }
 
-// The fp32 GEMM's launches (a query, not a launch), those inside K1-K3's
-// fp32 entries included, since the last call with `reset` set; `reset`
-// then sets the count to 0.
+// The fp32 GEMMs' launches (a query, not a launch), those inside the fp32
+// entries of K1-K3, K5 and K6 included, since the last call with `reset`
+// set: out[0] the fp32 GEMM's, out[1] the fp32 weight-gradient GEMM's
+// (fp32_train.cu); `reset` then sets the counts to 0.
 extern "C" int stswin_gemm_f32_launches(long long* out, int reset) {
-  *out = reset ? f32_gemm_launches.exchange(0) : f32_gemm_launches.load();
+  out[0] = reset ? f32_gemm_launches.exchange(0) : f32_gemm_launches.load();
+  out[1] = wgrad_f32_launches(reset);
   return 0;
 }

@@ -1,0 +1,1209 @@
+// The fp32 training forms: K5 and K6 in fp32, on an fp32 weight-gradient
+// GEMM; what an fp32 model trains through on the card.
+//
+// Replaces the fp32 instances of the dtype-generic TPU kernels:
+//   K5 stswincl_tpu/ops/pallas_block_attention.py
+//        fused_swin_block_attention_bwd (:547) -> _full_bwd_kernel (:405)
+//        (Pallas row 6);
+//   K6 stswincl_tpu/ops/pallas_add_ln_mlp.py
+//        fused_epilogue_bwd (:310) -> _epi_bwd_kernel (:181), m recomputed
+//        (row 7, C 512), and fused_epilogue_bwd_streamed (:557) ->
+//        _epi_bwd_slice_kernel (:425) + _epi_bwd_combine_kernel (:502), the
+//        saved m (row 9, C 1024).
+// Row 8, K2's training forward that saves m, is `stswin_block_epilogue_f32`
+// with its m output (fp32_forms.cu). The bf16 forms (block_attention.cu,
+// epilogue.cu) run bf16 operands on the tensor cores; nothing of them is
+// shared here but the row map and the GELU of common.cuh.
+//
+// Bound on the H100: the products, in fp32 FMA on the CUDA cores (67
+// TFLOP/s), as in fp32_forms.cu: K5 at stage 1 (794 GFLOP) at least 11.9
+// ms, K6 with m recomputed (2,062 GFLOP) 30.8 ms, K6 with m saved at stage
+// 2 (1,718 GFLOP) 25.6 ms. A 3xTF32 split on wgmma is later work.
+//
+// Every reduction is deterministic: no float atomics anywhere. A sum that
+// spans blocks is written as one partial a block (or a split of the rows)
+// into scratch and summed by a second launch in a fixed order
+// (`sum_parts`), so two calls on the same inputs give the same bits.
+//
+// Design:
+//   - `wgrad_f32`: out = sum_r A[a_map(r)]^T B[b_map(r)], the weight
+//     gradients. A 128 x 128 output tile a block of 256 threads (8 x 8 sums
+//     a thread: rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, the same for the
+//     columns by tx), the rows r in k tiles of 8 through a three-stage
+//     cp.async ring; each operand row read through its RowMap. R is split
+//     in `wgrad_splits(R)` ranges (20 at stage 1's 163,840 rows), a split a
+//     z-block, each writing its partial; `sum_parts` adds them in order.
+//   - `colsum_f32`: the bias gradients, the column sums of a row matrix:
+//     a thread a column over 1,024 rows, then the partials in order.
+//   - K5's attention backward, two launches a call, one (window, head) at
+//     a time in a block of 256 threads, every value fp32 (P and dS
+//     unrounded), the forward's softmax contract (the scale after the
+//     product, + bias, + the window's mask for SW-MSA, max, exp, x 1 /
+//     sum, `pallas_block_attention.py:470-494`):
+//       a. the query pass (`attn_bwd_q_f32_kernel`): a block holds k and v
+//          of the window and q and dO of a 64-row query block (202,752
+//          bytes at stage 1, TN 128 x hd 128: one block an SM), forms the
+//          scores, P and dP = dO V^T in registers, D = sum_j dP P (the
+//          twin's row-sum term), dS = P (dP - D), and dQ = dS K * scale
+//          (dS through shared memory over q); writes each row's max, 1 /
+//          sum and D. The blocks are persistent over a run of windows of
+//          one head and query block, and keep their dS sums, the relative
+//          bias's gradient, in registers; each writes its partial table
+//          once, and `sum_parts` adds the tables in order;
+//       b. the key pass (`attn_bwd_kv_f32_kernel`): a block holds k and v
+//          of a 64-key block and streams q and dO in 64-row chunks,
+//          recomputing P from the saved max and 1 / sum (the same products
+//          in the same order: the same bits as pass a) and dS from D; P
+//          and dS go to shared memory transposed, and dV = P^T dO and dK =
+//          dS^T Q * scale sum in registers.
+//     The fp32 q, k, v and dO of a whole (window, head) at stage 1 take 270
+//     KB, past the 227 KB a block may use; each pass holds at most half
+//     the queries or keys (`attn_bwd_f32_smem`).
+//   - K5 (`stswin_block_attention_bwd_f32`), bf16 K5's plan in fp32:
+//     dattn = g @ wproj (g gathered by the window partition), the two
+//     passes, dx = dqkv @ wqkv scattered back through the shift map,
+//     dwqkv and dwproj on `wgrad_f32`, dbqkv and dbproj on `colsum_f32`.
+//   - K6 (`stswin_block_epilogue_bwd_f32`), bf16 K6's seven steps in fp32:
+//     s = x + unshift(y) and LN2(s); fc1 writing h and gelu' (F32_GELU_GRAD)
+//     and, without a saved m, m = h @ w2^T + bw2; the LN1 backward row pass
+//     (do, with the column sums ds1, db1n, dbw2); dpre = (do @ w2) * gelu'
+//     (F32_DGELU, in place over gelu') and db1 = its column sums; dn2 =
+//     dpre @ w1; the LN2 backward row pass (dx unshifted, dy through the
+//     shift, the sums ds2 and db2); dw1 and dw2 on `wgrad_f32`. gelu'
+//     goes through device memory for both rows (1.34 GB at stage 1); in
+//     fp32 dm is do itself. The row passes run a fixed grid of at most
+//     1,024 blocks, a warp a row; each block sums its rows' terms in
+//     registers, then its 8 warps in order, into its partial.
+
+#include <atomic>
+
+#include "fp32_gemm.cuh"
+
+namespace {
+
+std::atomic<long long> wgrad_count{0};
+
+// ---- fixed-order reductions ----------------------------------------------
+
+constexpr int WSPLIT_ROWS = 8192, WSPLIT_MAX = 32;
+constexpr int CS_ROWS = 1024;
+constexpr int RW = 8;             // warps a row-pass block
+constexpr int ROW_BLOCKS = 1024;  // the row passes' grid, at most
+constexpr int ATTN_BLOCKS = 132;  // the query pass's persistent blocks
+
+inline int wgrad_splits(int R) {
+  const int s = R / WSPLIT_ROWS;
+  return s < 1 ? 1 : (s > WSPLIT_MAX ? WSPLIT_MAX : s);
+}
+inline int cs_splits(int R) { return R < 1 ? 1 : (R + CS_ROWS - 1) / CS_ROWS; }
+inline int row_blocks(int R) {
+  const int b = (R + RW - 1) / RW;
+  return b < 1 ? 1 : (b > ROW_BLOCKS ? ROW_BLOCKS : b);
+}
+
+// out[i] = sum_s part[s * stride + i], s ascending
+__global__ void sum_parts_kernel(const float* __restrict__ part, int parts,
+                                 long long stride, long long len,
+                                 float* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  float v = part[i];
+  for (int s = 1; s < parts; ++s) v += part[s * stride + i];
+  out[i] = v;
+}
+
+cudaError_t sum_parts(const float* part, int parts, long long stride,
+                      long long len, float* out, cudaStream_t s) {
+  sum_parts_kernel<<<static_cast<unsigned>((len + 255) / 256), 256, 0, s>>>(
+      part, parts, stride, len, out);
+  return cudaGetLastError();
+}
+
+// part[s][n] = sum of X[r][n] over the rows r of split s, r ascending
+__global__ void colsum_f32_kernel(const float* __restrict__ X, long long ld,
+                                  int R, int N, float* __restrict__ part) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int r0 = blockIdx.y * CS_ROWS;
+  const int r1 = r0 + CS_ROWS < R ? r0 + CS_ROWS : R;
+  const float* p = X + (long long)r0 * ld + n;
+  float v = 0.0f;
+#pragma unroll 8
+  for (int r = r0; r < r1; ++r, p += ld) v += *p;
+  part[(long long)blockIdx.y * N + n] = v;
+}
+
+// out[n] = sum_r X[r][n] in a fixed order; part: cs_splits(R) * N floats
+cudaError_t colsum_f32(const float* X, long long ld, int R, int N, float* out,
+                       float* part, cudaStream_t s) {
+  if (N <= 0 || R < 0) return cudaErrorInvalidValue;
+  const int parts = cs_splits(R);
+  colsum_f32_kernel<<<dim3((N + 255) / 256, parts), 256, 0, s>>>(X, ld, R, N,
+                                                                   part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_parts(part, parts, N, N, out, s);
+}
+
+// ---- the weight-gradient GEMM ------------------------------------------
+
+constexpr int WBM = 128, WBN = 128, WBK = 8, WSTAGES = 3;
+
+struct F32Wgrad {
+  const float* A;
+  long long lda;
+  RowMap a_map;
+  const float* B;
+  long long ldb;
+  RowMap b_map;
+  int R, M, N;
+};
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
+}
+
+// dst[split][m][n] (rows of N) = the sum over the split's rows, r ascending
+__global__ void __launch_bounds__(256)
+    wgrad_f32_kernel(const F32Wgrad p, int chunk, float* __restrict__ dst) {
+  __shared__ __align__(16) float As[WSTAGES][WBK][WBM];
+  __shared__ __align__(16) float Bs[WSTAGES][WBK][WBN];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
+  const int r0 = blockIdx.z * chunk;
+  const int r1 = r0 + chunk < p.R ? r0 + chunk : p.R;
+  // the loader: row lr of the k tile, the 16-byte chunk at column lc
+  const int lr = tid >> 5, lc = (tid & 31) * 4;
+  const bool a_col = m0 + lc < p.M, b_col = n0 + lc < p.N;
+  const int nk = r1 > r0 ? (r1 - r0 + WBK - 1) / WBK : 0;
+  auto load = [&](int stage, int kt) {
+    const int r = r0 + kt * WBK + lr;
+    const bool rin = r < r1;
+    const float* a = p.A + (rin ? map_row(p.a_map, r) : 0) * p.lda +
+                     (a_col ? m0 + lc : 0);
+    const float* b = p.B + (rin ? map_row(p.b_map, r) : 0) * p.ldb +
+                     (b_col ? n0 + lc : 0);
+    cp_async16(&As[stage][lr][lc], a, rin && a_col);
+    cp_async16(&Bs[stage][lr][lc], b, rin && b_col);
+  };
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  float4 acc[8][2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    acc[i][0] = acc[i][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // WSTAGES - 2
+    __syncthreads();
+    const int next = kt + WSTAGES - 1;
+    if (next < nk) load(next % WSTAGES, next);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int s = kt % WSTAGES;
+#pragma unroll
+    for (int kk = 0; kk < WBK; ++kk) {
+      const float4 a0 = ld4(&As[s][kk][4 * ty]);
+      const float4 a1 = ld4(&As[s][kk][64 + 4 * ty]);
+      const float4 b[2] = {ld4(&Bs[s][kk][4 * tx]),
+                           ld4(&Bs[s][kk][64 + 4 * tx])};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float w = comp(i < 4 ? a0 : a1, i & 3);
+        fma4(acc[i][0], w, b[0]);
+        fma4(acc[i][1], w, b[1]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  float* out = dst + (long long)blockIdx.z * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 4 * tx + 64 * h;
+      if (n < p.N)
+        *reinterpret_cast<float4*>(out + (long long)m * p.N + n) = acc[i][h];
+    }
+  }
+}
+
+// out (M, N) = sum_r A[a_map(r)]^T B[b_map(r)]; part: wgrad_work floats
+cudaError_t wgrad_f32(const F32Wgrad& p, float* out, float* part,
+                      cudaStream_t s) {
+  if (p.R < 0 || p.M <= 0 || p.N <= 0 || p.M % 4 || p.N % 4 || p.lda % 4 ||
+      p.ldb % 4)
+    return cudaErrorInvalidValue;
+  const int splits = wgrad_splits(p.R);
+  if (splits > 1 && !part) return cudaErrorInvalidValue;
+  const int chunk = ((p.R + splits - 1) / splits + WBK - 1) / WBK * WBK;
+  const dim3 grid((p.N + WBN - 1) / WBN, (p.M + WBM - 1) / WBM, splits);
+  wgrad_f32_kernel<<<grid, 256, 0, s>>>(p, chunk, splits > 1 ? part : out);
+  wgrad_count.fetch_add(1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long mn = (long long)p.M * p.N;
+  return sum_parts(part, splits, mn, mn, out, s);
+}
+
+size_t wgrad_work(int R, int M, int N) {
+  const int splits = wgrad_splits(R);
+  return splits > 1 ? size_t(splits) * M * N : 0;
+}
+
+// ---- K5's attention backward -------------------------------------------
+
+constexpr int AT = 256;  // threads of an attention-backward block
+
+__host__ __device__ inline int attn_qb(int TN) { return TN < 64 ? TN : 64; }
+
+// The larger of the two passes' shared memory (`_attn_f32_bwd_smem_bytes`
+// in ops/block_attention.py): a, k and v of the window, q (later dS) in
+// rows of max(hd, TN) + 4 and dO of a query block; b, k and v of a key
+// block, q and dO of a query chunk, P^T and dS^T.
+size_t attn_bwd_f32_smem(int TN, int hd) {
+  const size_t QB = attn_qb(TN), ldk = hd + 4;
+  const size_t ldq = (hd > TN ? hd : TN) + 4;
+  const size_t a = (2 * TN * ldk + QB * ldq + QB * ldk) * sizeof(float);
+  const size_t b = (4 * QB * ldk + 2 * QB * (QB + 4)) * sizeof(float);
+  return a > b ? a : b;
+}
+
+void attn_split(int n_windows, int heads, int nqb, int* per_head,
+                int* per_block) {
+  int ph = ATTN_BLOCKS / (heads * nqb);
+  if (ph < 1) ph = 1;
+  if (ph > n_windows) ph = n_windows;
+  const int pb = (n_windows + ph - 1) / ph;
+  *per_block = pb;
+  *per_head = (n_windows + pb - 1) / pb;
+}
+
+// acc[a][b] += sum_d A[(ty + 16 a) lda + d] B[(tx + 16 b) ldb + d], d
+// ascending in fp32 FMA, for a < ra, b < rb
+template <int RA, int RB>
+__device__ __forceinline__ void dot_nt(float (&acc)[RA][RB],
+                                       const float* A, int lda,
+                                       const float* B, int ldb, int ra,
+                                       int rb, int K, int tx, int ty) {
+  for (int d = 0; d < K; d += 4) {
+    float4 a[RA], b[RB];
+#pragma unroll
+    for (int i = 0; i < RA; ++i)
+      if (i < ra) a[i] = ld4(A + (ty + 16 * i) * lda + d);
+#pragma unroll
+    for (int j = 0; j < RB; ++j)
+      if (j < rb) b[j] = ld4(B + (tx + 16 * j) * ldb + d);
+#pragma unroll
+    for (int i = 0; i < RA; ++i)
+#pragma unroll
+      for (int j = 0; j < RB; ++j)
+        if (i < ra && j < rb) {
+          float v = fmaf(a[i].x, b[j].x, acc[i][j]);
+          v = fmaf(a[i].y, b[j].y, v);
+          v = fmaf(a[i].z, b[j].z, v);
+          acc[i][j] = fmaf(a[i].w, b[j].w, v);
+        }
+  }
+}
+
+// the max / sum over the 16 lanes of a half warp (one row's columns)
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows of `rows` x hd floats from the token rows `src` (stride ld) into
+// shared rows of ldk, by cp.async
+__device__ __forceinline__ void load_rows(float* dst, int ldk,
+                                          const float* src, long long ld,
+                                          int rows, int hd) {
+  const int chunks = hd / 4;
+  for (int i = threadIdx.x; i < rows * chunks; i += AT) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    cp_async16(dst + r * ldk + c, src + r * ld + c);
+  }
+}
+
+// Pass a. Grid (per_head, heads, query blocks); RB >= TN / 16, CC >= hd /
+// 64. qkv, dqkv: window-order rows of 3C; dO: rows of C; stats: (windows,
+// heads, TN, 4) [max, 1 / sum, D, -]; dbias_part: (per_head, heads, TN,
+// TN).
+template <int RB, int CC>
+__global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ dO,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    int n_mask, float* __restrict__ dqkv, float* __restrict__ stats,
+    float* __restrict__ dbias_part, int n_windows, int per_block, int heads,
+    int TN, int hd, int C, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int QB = attn_qb(TN), ldk = hd + 4, ldq = (hd > TN ? hd : TN) + 4;
+  float* Ks = sm;
+  float* Vs = Ks + TN * ldk;
+  float* Qs = Vs + TN * ldk;  // then dS
+  float* dOs = Qs + QB * ldq;
+  const int h = blockIdx.y, q0 = blockIdx.z * QB;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int ra = QB / 16, rb = TN / 16, cc = hd / 64;
+  const long long C3 = 3LL * C;
+  const int w0 = blockIdx.x * per_block;
+  const int w1 = w0 + per_block < n_windows ? w0 + per_block : n_windows;
+  float dbacc[4][RB];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < RB; ++b) dbacc[a][b] = 0.0f;
+
+  for (int bw = w0; bw < w1; ++bw) {
+    const float* win = qkv + (long long)bw * TN * C3 + h * hd;
+    load_rows(Ks, ldk, win + C, C3, TN, hd);
+    load_rows(Vs, ldk, win + 2 * C, C3, TN, hd);
+    load_rows(Qs, ldq, win + q0 * C3, C3, QB, hd);
+    load_rows(dOs, ldk, dO + ((long long)bw * TN + q0) * C + h * hd, C, QB,
+              hd);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    float s[4][RB], dp[4][RB];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < RB; ++b) s[a][b] = dp[a][b] = 0.0f;
+    dot_nt<4, RB>(s, Qs, ldq, Ks, ldk, ra, rb, hd, tx, ty);
+    dot_nt<4, RB>(dp, dOs, ldk, Vs, ldk, ra, rb, hd, tx, ty);
+
+    const float* mw =
+        mask ? mask + (long long)(bw % n_mask) * TN * TN : nullptr;
+    float* st = stats + ((long long)bw * heads + h) * TN * 4;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (a >= ra) continue;
+      const int i = q0 + ty + 16 * a;
+      const float* brow = bias + ((long long)h * TN + i) * TN + tx;
+      const float* mrow = mw ? mw + (long long)i * TN + tx : nullptr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (b < rb) {
+          float v = fmaf(s[a][b], scale, brow[16 * b]);
+          if (mrow) v += mrow[16 * b];
+          s[a][b] = v;
+          mx = fmaxf(mx, v);
+        }
+      mx = half_max(mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (b < rb) {
+          s[a][b] = expf(s[a][b] - mx);
+          sum += s[a][b];
+        }
+      const float inv = 1.0f / half_sum(sum);
+      float dsum = 0.0f;
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (b < rb) {
+          s[a][b] *= inv;
+          dsum = fmaf(dp[a][b], s[a][b], dsum);
+        }
+      const float D = half_sum(dsum);
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (b < rb) {
+          s[a][b] = s[a][b] * (dp[a][b] - D);
+          dbacc[a][b] += s[a][b];
+        }
+      if (tx == 0) {
+        st[i * 4] = mx;
+        st[i * 4 + 1] = inv;
+        st[i * 4 + 2] = D;
+      }
+    }
+    __syncthreads();  // every score read q: dS goes over it
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        if (a < ra && b < rb) Qs[(ty + 16 * a) * ldq + tx + 16 * b] = s[a][b];
+    __syncthreads();
+
+    // dQ = dS K * scale: rows ty + 16 a, columns 4 tx + 64 c (+ 0..3)
+    float4 dq[4][CC];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < CC; ++c) dq[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < TN; j += 4) {
+      float4 d4[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (a < ra) d4[a] = ld4(Qs + (ty + 16 * a) * ldq + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 kv[CC];
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+          if (c < cc) kv[c] = ld4(Ks + (j + u) * ldk + 4 * tx + 64 * c);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (a < ra) {
+            const float w = comp(d4[a], u);
+#pragma unroll
+            for (int c = 0; c < CC; ++c)
+              if (c < cc) fma4(dq[a][c], w, kv[c]);
+          }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (a >= ra) continue;
+      float* dst = dqkv + ((long long)bw * TN + q0 + ty + 16 * a) * C3 +
+                   h * hd + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < CC; ++c)
+        if (c < cc)
+          *reinterpret_cast<float4*>(dst + 64 * c) =
+              make_float4(dq[a][c].x * scale, dq[a][c].y * scale,
+                          dq[a][c].z * scale, dq[a][c].w * scale);
+    }
+    __syncthreads();  // shared memory free for the next window
+  }
+
+  float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+      if (a < ra && b < rb)
+        part[(long long)(q0 + ty + 16 * a) * TN + tx + 16 * b] = dbacc[a][b];
+}
+
+// Pass b. One block a (window, head, key block); KB16 >= min(TN, 64) / 16,
+// CC >= hd / 64.
+template <int KB16, int CC>
+__global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ dO,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    int n_mask, const float* __restrict__ stats, float* __restrict__ dqkv,
+    int n_kb, int heads, int TN, int hd, int C, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int KB = attn_qb(TN), QC = KB, ldk = hd + 4, ldp = QC + 4;
+  float* Ks = sm;
+  float* Vs = Ks + KB * ldk;
+  float* Qs = Vs + KB * ldk;
+  float* dOs = Qs + QC * ldk;
+  float* Pt = dOs + QC * ldk;  // P^T: (keys, queries of the chunk)
+  float* dSt = Pt + KB * ldp;
+  const int kb = blockIdx.x % n_kb, rest = blockIdx.x / n_kb;
+  const int h = rest % heads, bw = rest / heads, k0 = kb * KB;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r16 = KB / 16, cc = hd / 64;
+  const long long C3 = 3LL * C;
+  const float* win = qkv + (long long)bw * TN * C3 + h * hd;
+  load_rows(Ks, ldk, win + k0 * C3 + C, C3, KB, hd);
+  load_rows(Vs, ldk, win + k0 * C3 + 2 * C, C3, KB, hd);
+  const float* mw = mask ? mask + (long long)(bw % n_mask) * TN * TN : nullptr;
+  const float* st = stats + ((long long)bw * heads + h) * TN * 4;
+
+  float4 dv[KB16][CC], dk[KB16][CC];
+#pragma unroll
+  for (int a = 0; a < KB16; ++a)
+#pragma unroll
+    for (int c = 0; c < CC; ++c)
+      dv[a][c] = dk[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i0 = 0; i0 < TN; i0 += QC) {
+    load_rows(Qs, ldk, win + i0 * C3, C3, QC, hd);
+    load_rows(dOs, ldk, dO + ((long long)bw * TN + i0) * C + h * hd, C, QC,
+              hd);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // scores of queries ty + 16 a against keys tx + 16 b
+    float s[KB16][KB16], dp[KB16][KB16];
+#pragma unroll
+    for (int a = 0; a < KB16; ++a)
+#pragma unroll
+      for (int b = 0; b < KB16; ++b) s[a][b] = dp[a][b] = 0.0f;
+    dot_nt<KB16, KB16>(s, Qs, ldk, Ks, ldk, r16, r16, hd, tx, ty);
+    dot_nt<KB16, KB16>(dp, dOs, ldk, Vs, ldk, r16, r16, hd, tx, ty);
+#pragma unroll
+    for (int a = 0; a < KB16; ++a) {
+      if (a >= r16) continue;
+      const int i = i0 + ty + 16 * a;
+      const float mx = st[i * 4], inv = st[i * 4 + 1], D = st[i * 4 + 2];
+      const float* brow = bias + ((long long)h * TN + i) * TN + k0 + tx;
+      const float* mrow = mw ? mw + (long long)i * TN + k0 + tx : nullptr;
+#pragma unroll
+      for (int b = 0; b < KB16; ++b) {
+        if (b >= r16) continue;
+        float v = fmaf(s[a][b], scale, brow[16 * b]);  // as pass a
+        if (mrow) v += mrow[16 * b];
+        const float p = expf(v - mx) * inv;
+        Pt[(tx + 16 * b) * ldp + ty + 16 * a] = p;
+        dSt[(tx + 16 * b) * ldp + ty + 16 * a] = p * (dp[a][b] - D);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q: keys ty + 16 a, columns 4 tx + 64 c
+    for (int i = 0; i < QC; i += 4) {
+      float4 p4[KB16], d4[KB16];
+#pragma unroll
+      for (int a = 0; a < KB16; ++a)
+        if (a < r16) {
+          p4[a] = ld4(Pt + (ty + 16 * a) * ldp + i);
+          d4[a] = ld4(dSt + (ty + 16 * a) * ldp + i);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 o[CC], q[CC];
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+          if (c < cc) {
+            o[c] = ld4(dOs + (i + u) * ldk + 4 * tx + 64 * c);
+            q[c] = ld4(Qs + (i + u) * ldk + 4 * tx + 64 * c);
+          }
+#pragma unroll
+        for (int a = 0; a < KB16; ++a)
+          if (a < r16) {
+            const float pw = comp(p4[a], u), dw = comp(d4[a], u);
+#pragma unroll
+            for (int c = 0; c < CC; ++c)
+              if (c < cc) {
+                fma4(dv[a][c], pw, o[c]);
+                fma4(dk[a][c], dw, q[c]);
+              }
+          }
+      }
+    }
+    __syncthreads();  // the chunk's shared memory free for the next
+  }
+
+#pragma unroll
+  for (int a = 0; a < KB16; ++a) {
+    if (a >= r16) continue;
+    float* dst = dqkv + ((long long)bw * TN + k0 + ty + 16 * a) * C3 +
+                 h * hd + 4 * tx;
+#pragma unroll
+    for (int c = 0; c < CC; ++c)
+      if (c < cc) {
+        *reinterpret_cast<float4*>(dst + C + 64 * c) =
+            make_float4(dk[a][c].x * scale, dk[a][c].y * scale,
+                        dk[a][c].z * scale, dk[a][c].w * scale);
+        *reinterpret_cast<float4*>(dst + 2 * C + 64 * c) = dv[a][c];
+      }
+  }
+}
+
+// once a kernel and device: the most shared memory a block may use
+template <typename K>
+cudaError_t opt_in(K kernel, int* optins, size_t bytes) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!optins[dev]) {
+    int most = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    optins[dev] = most;
+  }
+  return bytes > static_cast<size_t>(optins[dev]) ? cudaErrorInvalidValue
+                                                  : cudaSuccess;
+}
+
+template <int RB, int CC, int KB16>
+cudaError_t launch_attn_bwd(const float* qkv, const float* dO,
+                            const float* bias, const float* mask, int n_mask,
+                            float* dqkv, float* stats, float* dbias_part,
+                            float* dbias, int n_windows, int heads, int TN,
+                            int hd, int C, float scale, cudaStream_t s) {
+  static int opt_a[MAX_DEVICES] = {}, opt_b[MAX_DEVICES] = {};
+  const size_t bytes = attn_bwd_f32_smem(TN, hd);
+  cudaError_t err = opt_in(attn_bwd_q_f32_kernel<RB, CC>, opt_a, bytes);
+  if (err == cudaSuccess)
+    err = opt_in(attn_bwd_kv_f32_kernel<KB16, CC>, opt_b, bytes);
+  if (err != cudaSuccess) return err;
+  const int nqb = TN / attn_qb(TN);
+  int per_head, per_block;
+  attn_split(n_windows, heads, nqb, &per_head, &per_block);
+  attn_bwd_q_f32_kernel<RB, CC><<<dim3(per_head, heads, nqb), AT, bytes, s>>>(
+      qkv, dO, bias, mask, n_mask, dqkv, stats, dbias_part, n_windows,
+      per_block, heads, TN, hd, C, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long table = (long long)heads * TN * TN;
+  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
+      cudaSuccess)
+    return err;
+  attn_bwd_kv_f32_kernel<KB16, CC>
+      <<<n_windows * heads * nqb, AT, bytes, s>>>(
+          qkv, dO, bias, mask, n_mask, stats, dqkv, nqb, heads, TN, hd, C,
+          scale);
+  return cudaGetLastError();
+}
+
+// The window and head dims the attention backward takes (`ops/
+// block_attention.check_backward_window` refuses the rest before K1 runs):
+// query and key blocks of min(TN, 64) rows that tile the window, and the
+// per-thread sums its templates size (hd <= 256 at TN <= 32, else 128).
+bool attn_bwd_f32_takes(int TN, int hd) {
+  return TN > 0 && TN % 16 == 0 && TN <= 128 && (TN <= 64 || TN % 64 == 0) &&
+         hd > 0 && hd % 64 == 0 && hd <= (TN <= 32 ? 256 : 128);
+}
+
+cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
+                         const float* mask, int n_mask, float* dqkv,
+                         float* stats, float* dbias_part, float* dbias,
+                         int n_windows, int heads, int TN, int hd, int C,
+                         float scale, cudaStream_t s) {
+  if (!attn_bwd_f32_takes(TN, hd) || n_windows <= 0)
+    return cudaErrorInvalidValue;
+  const float* m = n_mask > 1 ? mask : nullptr;
+  if (TN <= 32)
+    return launch_attn_bwd<2, 4, 2>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                                    dbias_part, dbias, n_windows, heads, TN,
+                                    hd, C, scale, s);
+  return launch_attn_bwd<8, 2, 4>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                                  dbias_part, dbias, n_windows, heads, TN, hd,
+                                  C, scale, s);
+}
+
+struct K5Work {
+  size_t dattn, dqkv, stats, dbias_part, cs, wpart, total;
+};
+
+K5Work k5_work(int R, int C, int heads, int TN) {
+  K5Work w{};
+  const int n_windows = TN > 0 ? R / TN : 0;
+  int per_head = 1, per_block = 1;
+  if (n_windows > 0 && TN > 0)
+    attn_split(n_windows, heads, TN / attn_qb(TN), &per_head, &per_block);
+  const size_t cs = size_t(cs_splits(R)) * 3 * C;
+  const size_t wp = wgrad_work(R, 3 * C, C);
+  w.dattn = 0;
+  w.dqkv = w.dattn + size_t(R) * C;
+  w.stats = w.dqkv + size_t(R) * 3 * C;
+  w.dbias_part = w.stats + size_t(R) * heads * 4;
+  w.cs = w.dbias_part + size_t(per_head) * heads * TN * TN;
+  w.wpart = w.cs + cs;
+  w.total = w.wpart + wp;
+  return w;
+}
+
+// ---- K6's row passes ------------------------------------------------------
+
+// two-pass LayerNorm statistics of a row held as NV float4 a lane
+template <int NV>
+__device__ __forceinline__ void row_stats(const float4 (&v)[NV], float& mu,
+                                          float& rs, float eps) {
+  constexpr int C = 128 * NV;
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) sum += v[i].x + v[i].y + v[i].z + v[i].w;
+  mu = warp_sum(sum) / C;
+  float sq = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float d0 = v[i].x - mu, d1 = v[i].y - mu, d2 = v[i].z - mu,
+                d3 = v[i].w - mu;
+    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+  }
+  rs = rsqrtf(warp_sum(sq) / C + eps);
+}
+
+// dx of y = xhat * scale + bias given dy (`_ln_bwd_f32`): gv holds dy on
+// entry and dx on return; xh holds xhat.
+template <int NV>
+__device__ __forceinline__ void ln_bwd_row(float4 (&gv)[NV],
+                                           const float4 (&xh)[NV],
+                                           const float* __restrict__ scale,
+                                           float rs, int lane) {
+  constexpr int C = 128 * NV;
+  float m1 = 0.0f, m2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float4 sc = ld4(scale + lane * 4 + 128 * i);
+    gv[i] = make_float4(gv[i].x * sc.x, gv[i].y * sc.y, gv[i].z * sc.z,
+                        gv[i].w * sc.w);
+    m1 += gv[i].x + gv[i].y + gv[i].z + gv[i].w;
+    m2 += gv[i].x * xh[i].x + gv[i].y * xh[i].y + gv[i].z * xh[i].z +
+          gv[i].w * xh[i].w;
+  }
+  m1 = warp_sum(m1) / C;
+  m2 = warp_sum(m2) / C;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    gv[i] = make_float4((gv[i].x - m1 - xh[i].x * m2) * rs,
+                        (gv[i].y - m1 - xh[i].y * m2) * rs,
+                        (gv[i].z - m1 - xh[i].z * m2) * rs,
+                        (gv[i].w - m1 - xh[i].w * m2) * rs);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__device__ __forceinline__ float4 mul4(const float4& a, const float4& b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+// the block's per-lane sums -> part[k * C + c], its 8 warps added in order
+template <int NV, int NVEC>
+__device__ __forceinline__ void flush_rows(const float4 (&acc)[NVEC][NV],
+                                           float* red, float* part, int warp,
+                                           int lane) {
+  constexpr int C = 128 * NV;
+#pragma unroll
+  for (int k = 0; k < NVEC; ++k) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      *reinterpret_cast<float4*>(red + warp * C + lane * 4 + 128 * i) =
+          acc[k][i];
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += RW * 32) {
+      float v = red[c];
+      for (int w = 1; w < RW; ++w) v += red[w * C + c];
+      part[k * C + c] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// LN1 backward: o = s32 + m, g -> do32; the block's sums of g * xhat1,
+// g and do32 (ds1, db1n, dbw2) -> part[block][3][C]
+template <int NV>
+__global__ void __launch_bounds__(RW * 32)
+    ln1_bwd_f32_kernel(const float* __restrict__ s32,
+                       const float* __restrict__ m,
+                       const float* __restrict__ g,
+                       const float* __restrict__ s1,
+                       float* __restrict__ do32, float* __restrict__ part,
+                       int R, float eps) {
+  constexpr int C = 128 * NV;
+  __shared__ __align__(16) float red[RW * C];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4 acc[3][NV];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[k][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = blockIdx.x * RW + warp; r < R; r += gridDim.x * RW) {
+    const long long base = (long long)r * C;
+    float4 o[NV], gv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane * 4 + 128 * i;
+      o[i] = ld4(s32 + base + c);
+      add4(o[i], ld4(m + base + c));
+      gv[i] = ld4(g + base + c);
+    }
+    float mu, rs;
+    row_stats<NV>(o, mu, rs, eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      o[i] = make_float4((o[i].x - mu) * rs, (o[i].y - mu) * rs,
+                         (o[i].z - mu) * rs, (o[i].w - mu) * rs);
+      add4(acc[0][i], mul4(gv[i], o[i]));
+      add4(acc[1][i], gv[i]);
+    }
+    ln_bwd_row<NV>(gv, o, s1, rs, lane);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      *reinterpret_cast<float4*>(do32 + base + lane * 4 + 128 * i) = gv[i];
+      add4(acc[2][i], gv[i]);
+    }
+  }
+  flush_rows<NV, 3>(acc, red, part + (long long)blockIdx.x * 3 * C, warp,
+                    lane);
+}
+
+// LN2 backward of dn2 with xhat2 / rsig2 recomputed from s32; ds = do32 +
+// that -> dx (row r) and dy (the shifted row), the block's sums of dn2 *
+// xhat2 and dn2 (ds2, db2) -> part[block][2][C]
+template <int NV>
+__global__ void __launch_bounds__(RW * 32)
+    ln2_bwd_f32_kernel(const float* __restrict__ s32,
+                       const float* __restrict__ dn2,
+                       const float* __restrict__ do32,
+                       const float* __restrict__ s2, float* __restrict__ dx,
+                       float* __restrict__ dy, float* __restrict__ part,
+                       int R, int H, int W, int shift, float eps) {
+  constexpr int C = 128 * NV;
+  __shared__ __align__(16) float red[RW * C];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4 acc[2][NV];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[k][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = blockIdx.x * RW + warp; r < R; r += gridDim.x * RW) {
+    const long long base = (long long)r * C;
+    float4 xh[NV], gv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane * 4 + 128 * i;
+      xh[i] = ld4(s32 + base + c);
+      gv[i] = ld4(dn2 + base + c);
+    }
+    float mu, rs;
+    row_stats<NV>(xh, mu, rs, eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      xh[i] = make_float4((xh[i].x - mu) * rs, (xh[i].y - mu) * rs,
+                          (xh[i].z - mu) * rs, (xh[i].w - mu) * rs);
+      add4(acc[0][i], mul4(gv[i], xh[i]));
+      add4(acc[1][i], gv[i]);
+    }
+    ln_bwd_row<NV>(gv, xh, s2, rs, lane);
+    long long ybase = base;
+    if (dy) {
+      const int w = r % W, h = (r / W) % H, bt = r / (W * H);
+      const int hs = h - shift < 0 ? h - shift + H : h - shift;
+      const int wsrc = w - shift < 0 ? w - shift + W : w - shift;
+      ybase = ((long long)(bt * H + hs) * W + wsrc) * C;
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane * 4 + 128 * i;
+      float4 d = ld4(do32 + base + c);
+      add4(d, gv[i]);
+      *reinterpret_cast<float4*>(dx + base + c) = d;
+      if (dy) *reinterpret_cast<float4*>(dy + ybase + c) = d;
+    }
+  }
+  flush_rows<NV, 2>(acc, red, part + (long long)blockIdx.x * 2 * C, warp,
+                    lane);
+}
+
+template <int NV>
+cudaError_t launch_rows(bool first, int blocks, cudaStream_t s,
+                        const float* s32, const float* m, const float* g,
+                        const float* scale, float* do32, const float* dn2,
+                        float* dx, float* dy, float* part, int R, int H,
+                        int W, int shift, float eps) {
+  if (first)
+    ln1_bwd_f32_kernel<NV><<<blocks, RW * 32, 0, s>>>(s32, m, g, scale, do32,
+                                                      part, R, eps);
+  else
+    ln2_bwd_f32_kernel<NV><<<blocks, RW * 32, 0, s>>>(
+        s32, dn2, do32, scale, dx, dy, part, R, H, W, shift, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_rows(int C, bool first, int blocks, cudaStream_t s,
+                     const float* s32, const float* m, const float* g,
+                     const float* scale, float* do32, const float* dn2,
+                     float* dx, float* dy, float* part, int R, int H, int W,
+                     int shift, float eps) {
+  switch (C) {
+    case 128:
+      return launch_rows<1>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                            dy, part, R, H, W, shift, eps);
+    case 256:
+      return launch_rows<2>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                            dy, part, R, H, W, shift, eps);
+    case 512:
+      return launch_rows<4>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                            dy, part, R, H, W, shift, eps);
+    case 1024:
+      return launch_rows<8>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                            dy, part, R, H, W, shift, eps);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+struct K6Work {
+  size_t s32, n2, h, dgelu, m, do32, dn2, rows, cs, wpart, total;
+};
+
+K6Work k6_work(int R, int C, int hidden, bool recompute) {
+  K6Work w{};
+  const size_t rc = size_t(R) * C, rh = size_t(R) * hidden;
+  w.s32 = 0;
+  w.n2 = w.s32 + rc;
+  w.h = w.n2 + rc;
+  w.dgelu = w.h + rh;  // then dpre, in place
+  w.m = w.dgelu + rh;
+  w.do32 = w.m + (recompute ? rc : 0);
+  w.dn2 = w.do32 + rc;
+  w.rows = w.dn2 + rc;
+  w.cs = w.rows + size_t(row_blocks(R)) * 3 * C;
+  w.wpart = w.cs + size_t(cs_splits(R)) * hidden;
+  w.total = w.wpart + wgrad_work(R, hidden, C);
+  return w;
+}
+
+F32Wgrad plain_wgrad(const float* A, int lda, const float* B, int ldb, int R,
+                     int M, int N) {
+  F32Wgrad w{};
+  w.A = A;
+  w.lda = lda;
+  w.a_map = identity_map();
+  w.B = B;
+  w.ldb = ldb;
+  w.b_map = identity_map();
+  w.R = R;
+  w.M = M;
+  w.N = N;
+  return w;
+}
+
+}  // namespace
+
+long long wgrad_f32_launches(int reset) {
+  return reset ? wgrad_count.exchange(0) : wgrad_count.load();
+}
+
+// K5 fp32. x: (B, T, H, W, C) fp32 unshifted; g: the output's gradient in
+// the forward's (shifted) output layout; qkv (rows, 3C), attn (rows, C):
+// K1 fp32's window-order scratch; wqkv_t (C, 3C), wproj_t (C, C): the
+// transposed fp32 weights; bias (heads, TN, TN), mask (n_mask, TN, TN)
+// fp32. work: `stswin_block_attention_bwd_f32_work` floats. Outputs, fp32
+// and overwritten: dx unshifted; dwqkv (3C, C), dbqkv (3C), dwproj (C, C),
+// dbproj (C), dbias (heads, TN, TN).
+extern "C" int stswin_block_attention_bwd_f32(
+    const void* x, const void* g, const void* qkv, const void* attn,
+    const void* wqkv_t, const void* wproj_t, const void* bias,
+    const void* mask, void* work, void* dx, void* dwqkv, void* dbqkv,
+    void* dwproj, void* dbproj, void* dbias, int B, int T, int H, int W,
+    int C, int heads, int ws, float scale, int shift, int n_mask,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * T * H * W, hd = C / heads, TN = T * ws * ws;
+  if (!attn_bwd_f32_takes(TN, hd) || C % heads) return cudaErrorInvalidValue;
+  const RowMap win = RowMap{1, T, H, W, ws, 0};
+  const RowMap win_shift = RowMap{1, T, H, W, ws, shift};
+  const K5Work L = k5_work(M, C, heads, TN);
+  float* wk = static_cast<float*>(work);
+  float* dattn = wk + L.dattn;
+  float* dqkv = wk + L.dqkv;
+  const float* gp = static_cast<const float*>(g);
+
+  // 1. dattn (window order) = g (gathered) @ wproj
+  F32Gemm p = plain_gemm(gp, C, static_cast<const float*>(wproj_t), nullptr,
+                         M, C, C, dattn, C, ACT_NONE);
+  p.a_map = win;
+  cudaError_t err = gemm_f32(p, s);
+  if (err != cudaSuccess) return err;
+
+  // 2. the attention backward: dq, dk, dv into dqkv, dbias
+  if ((err = attn_bwd_f32(static_cast<const float*>(qkv), dattn,
+                          static_cast<const float*>(bias),
+                          static_cast<const float*>(mask), n_mask, dqkv,
+                          wk + L.stats, wk + L.dbias_part,
+                          static_cast<float*>(dbias), M / TN, heads, TN, hd,
+                          C, scale, s)) != cudaSuccess)
+    return err;
+
+  // 3. dx (unshifted image) = dqkv @ wqkv, scattered through the shift map
+  p = plain_gemm(dqkv, 3 * C, static_cast<const float*>(wqkv_t), nullptr, M,
+                 C, 3 * C, static_cast<float*>(dx), C, ACT_NONE);
+  p.c_map = win_shift;
+  if ((err = gemm_f32(p, s)) != cudaSuccess) return err;
+
+  // 4. the weight and bias gradients
+  F32Wgrad w = plain_wgrad(dqkv, 3 * C, static_cast<const float*>(x), C, M,
+                           3 * C, C);
+  w.b_map = win_shift;
+  if ((err = wgrad_f32(w, static_cast<float*>(dwqkv), wk + L.wpart, s)) !=
+      cudaSuccess)
+    return err;
+  w = plain_wgrad(gp, C, static_cast<const float*>(attn), C, M, C, C);
+  w.a_map = win;
+  if ((err = wgrad_f32(w, static_cast<float*>(dwproj), wk + L.wpart, s)) !=
+      cudaSuccess)
+    return err;
+  if ((err = colsum_f32(dqkv, 3 * C, M, 3 * C, static_cast<float*>(dbqkv),
+                        wk + L.cs, s)) != cudaSuccess)
+    return err;
+  return colsum_f32(gp, C, M, C, static_cast<float*>(dbproj), wk + L.cs, s);
+}
+
+// K6 fp32. x, g: (rows, C) fp32 unshifted (g: the gradient of `out`); y:
+// as the forward took it (shifted layout when shift > 0); m_in: row 8's m,
+// or null to recompute it (row 7; with it, row 9). w1 (hidden, C), w2 (C,
+// hidden) and their transposes w1_t (C, hidden), w2_t (hidden, C), fp32.
+// work: `stswin_block_epilogue_bwd_f32_work` floats. Outputs, fp32 and
+// overwritten: dx (rows, C); dy (rows, C) in y's layout, only when shift >
+// 0; dw1 (hidden, C), db1, dw2 (C, hidden), dbw2, ds1, db1n, ds2, db2.
+extern "C" int stswin_block_epilogue_bwd_f32(
+    const void* x, const void* y, const void* g, const void* m_in,
+    const void* s2, const void* b2, const void* w1, const void* b1,
+    const void* w1_t, const void* w2, const void* bw2, const void* w2_t,
+    const void* s1, void* work, void* dx, void* dy, void* dw1, void* db1,
+    void* dw2, void* dbw2, void* ds1, void* db1n, void* ds2, void* db2,
+    int BT, int H, int W, int C, int hidden, int shift, int act, float eps,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = BT * H * W;
+  if (C % 128 || C > 1024 || hidden % 4) return cudaErrorInvalidValue;
+  const K6Work L = k6_work(R, C, hidden, !m_in);
+  float* wk = static_cast<float*>(work);
+  float *s32 = wk + L.s32, *n2 = wk + L.n2, *h = wk + L.h;
+  float *dgelu = wk + L.dgelu, *do32 = wk + L.do32, *dn2 = wk + L.dn2;
+  float* rows = wk + L.rows;
+  const int blocks = row_blocks(R);
+
+  // 1. s = x + unshift(y), n2 = LN2(s)
+  cudaError_t err = ln_rows_add_f32(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(s2), static_cast<const float*>(b2), s32, n2,
+      R, C, H, W, shift, eps, s);
+  if (err != cudaSuccess) return err;
+
+  // 2. h = gelu(n2 @ w1^T + b1) and gelu' (fp32); without m, m = h @ w2^T
+  // + bw2
+  F32Gemm p = plain_gemm(n2, C, static_cast<const float*>(w1),
+                         static_cast<const float*>(b1), R, hidden, C, h,
+                         hidden, act);
+  p.epi = F32_GELU_GRAD;
+  p.C2 = dgelu;
+  if ((err = gemm_f32(p, s)) != cudaSuccess) return err;
+  const float* m = static_cast<const float*>(m_in);
+  if (!m) {
+    float* mr = wk + L.m;
+    if ((err = gemm_f32(plain_gemm(h, hidden, static_cast<const float*>(w2),
+                                   static_cast<const float*>(bw2), R, C,
+                                   hidden, mr, C, ACT_NONE),
+                        s)) != cudaSuccess)
+      return err;
+    m = mr;
+  }
+
+  // 3. LN1 backward -> do (= dm in fp32); ds1, db1n, dbw2
+  if ((err = bwd_rows(C, true, blocks, s, s32, m,
+                      static_cast<const float*>(g),
+                      static_cast<const float*>(s1), do32, nullptr, nullptr,
+                      nullptr, rows, R, H, W, shift, eps)) != cudaSuccess)
+    return err;
+  float* ln1_out[3] = {static_cast<float*>(ds1), static_cast<float*>(db1n),
+                       static_cast<float*>(dbw2)};
+  for (int k = 0; k < 3; ++k)
+    if ((err = sum_parts(rows + k * C, blocks, 3LL * C, C, ln1_out[k], s)) !=
+        cudaSuccess)
+      return err;
+
+  // 4. dpre = (do @ w2) * gelu', over gelu'; db1 its column sums
+  float* dpre = dgelu;
+  p = plain_gemm(do32, C, static_cast<const float*>(w2_t), nullptr, R,
+                 hidden, C, dpre, hidden, ACT_NONE);
+  p.epi = F32_DGELU;
+  p.aux = dgelu;
+  if ((err = gemm_f32(p, s)) != cudaSuccess) return err;
+  if ((err = colsum_f32(dpre, hidden, R, hidden, static_cast<float*>(db1),
+                        wk + L.cs, s)) != cudaSuccess)
+    return err;
+
+  // 5. dn2 = dpre @ w1
+  if ((err = gemm_f32(plain_gemm(dpre, hidden,
+                                 static_cast<const float*>(w1_t), nullptr, R,
+                                 C, hidden, dn2, C, ACT_NONE),
+                      s)) != cudaSuccess)
+    return err;
+
+  // 6. LN2 backward, ds = do + it -> dx (and dy through the shift)
+  if ((err = bwd_rows(C, false, blocks, s, s32, nullptr, nullptr,
+                      static_cast<const float*>(s2), do32, dn2,
+                      static_cast<float*>(dx),
+                      shift ? static_cast<float*>(dy) : nullptr, rows, R, H,
+                      W, shift, eps)) != cudaSuccess)
+    return err;
+  float* ln2_out[2] = {static_cast<float*>(ds2), static_cast<float*>(db2)};
+  for (int k = 0; k < 2; ++k)
+    if ((err = sum_parts(rows + k * C, blocks, 2LL * C, C, ln2_out[k], s)) !=
+        cudaSuccess)
+      return err;
+
+  // 7. dw1 = dpre^T n2 (hidden, C), dw2 = do^T h (C, hidden)
+  if ((err = wgrad_f32(plain_wgrad(dpre, hidden, n2, C, R, hidden, C),
+                       static_cast<float*>(dw1), wk + L.wpart, s)) !=
+      cudaSuccess)
+    return err;
+  return wgrad_f32(plain_wgrad(do32, C, h, hidden, R, C, hidden),
+                   static_cast<float*>(dw2), wk + L.wpart, s);
+}
+
+// The fp32 weight-gradient GEMM alone (`ops/gemm.wgrad_f32`): out (M, N) =
+// sum_r A[a_map(r)]^T B[b_map(r)], A rows of lda, B rows of ldb; work:
+// `stswin_wgrad_f32_work` floats (or null when that is 0).
+extern "C" int stswin_wgrad_f32(const void* A, const void* B, void* out,
+                                void* work, int R, int M, int N, int lda,
+                                int ldb, int a_mode, int b_mode, int T, int H,
+                                int W, int ws, int a_shift, int b_shift,
+                                void* stream) {
+  F32Wgrad w = plain_wgrad(static_cast<const float*>(A), lda,
+                           static_cast<const float*>(B), ldb, R, M, N);
+  if (a_mode) w.a_map = RowMap{1, T, H, W, ws, a_shift};
+  if (b_mode) w.b_map = RowMap{1, T, H, W, ws, b_shift};
+  return wgrad_f32(w, static_cast<float*>(out), static_cast<float*>(work),
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The fixed-order column sums alone: out (N) = sum_r X[r, :N], rows of ld;
+// work: `stswin_colsum_f32_work` floats.
+extern "C" int stswin_colsum_f32(const void* X, void* out, void* work, int R,
+                                 int N, int ld, void* stream) {
+  return colsum_f32(static_cast<const float*>(X), ld, R, N,
+                    static_cast<float*>(out), static_cast<float*>(work),
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Queries, not launches: the fp32 scratch each entry above needs, in
+// floats, and the shared memory of the attention backward.
+extern "C" int stswin_block_attention_bwd_f32_work(int R, int C, int heads,
+                                                   int TN, long long* out) {
+  *out = static_cast<long long>(k5_work(R, C, heads, TN).total);
+  return 0;
+}
+
+extern "C" int stswin_block_epilogue_bwd_f32_work(int R, int C, int hidden,
+                                                  int recompute,
+                                                  long long* out) {
+  *out = static_cast<long long>(k6_work(R, C, hidden, recompute).total);
+  return 0;
+}
+
+extern "C" int stswin_wgrad_f32_work(int R, int M, int N, long long* out) {
+  *out = static_cast<long long>(wgrad_work(R, M, N));
+  return 0;
+}
+
+extern "C" int stswin_colsum_f32_work(int R, int N, long long* out) {
+  *out = static_cast<long long>(size_t(cs_splits(R)) * N);
+  return 0;
+}
+
+extern "C" int stswin_attn_bwd_f32_smem(int TN, int hd, long long* out) {
+  *out = attn_bwd_f32_takes(TN, hd)
+             ? static_cast<long long>(attn_bwd_f32_smem(TN, hd))
+             : -1;
+  return 0;
+}

@@ -44,13 +44,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry name -> argument types (pointers, then ints/floats, then stream)
 SIGNATURES = {
     "stswin_block_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_attention_f32": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_attention_bwd": [_P] * 16 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_epilogue": [_P] * 15 + [_I] * 7 + [_F, _P],
-    "stswin_block_epilogue_f32": [_P] * 14 + [_I] * 7 + [_F, _P],
+    "stswin_block_epilogue_f32": [_P] * 15 + [_I] * 7 + [_F, _P],
     "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_patch_merge_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
@@ -73,9 +74,21 @@ SIGNATURES = {
     "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
-    "stswin_gemm_f32": [_P] * 4 + [_I] * 15 + [_P],
-    # a query, not a launch: (long long* count, int reset), no stream
+    "stswin_gemm_f32": [_P] * 6 + [_I] * 15 + [_P],
+    # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_f32_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
+    "stswin_block_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _I, _I,
+                                                              _P],
+    "stswin_block_epilogue_bwd_f32": [_P] * 24 + [_I] * 7 + [_F, _P],
+    "stswin_wgrad_f32": [_P] * 4 + [_I] * 13 + [_P],
+    "stswin_colsum_f32": [_P] * 3 + [_I] * 3 + [_P],
+    # queries, not launches: the fp32 scratch of an entry in floats, and
+    # the attention backward's shared memory (-1: a window it refuses)
+    "stswin_block_attention_bwd_f32_work": [_I] * 4 + [_LLP],
+    "stswin_block_epilogue_bwd_f32_work": [_I] * 4 + [_LLP],
+    "stswin_wgrad_f32_work": [_I] * 3 + [_LLP],
+    "stswin_colsum_f32_work": [_I] * 2 + [_LLP],
+    "stswin_attn_bwd_f32_smem": [_I] * 2 + [_LLP],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],
 }
@@ -186,18 +199,6 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def fp32_twin(x: torch.Tensor, *tensors) -> bool:
-    """True when a float32 forward on the card records an autograd graph
-    through x or one of `tensors`. The fp32 forms of K1-K3 have no
-    backward kernel (K5 and K6 take bfloat16), so the wrappers of K1, K2
-    and K3 then run their plain twins and autograd differentiates those; a
-    forward that records no graph (`inference_mode`, `no_grad`, or nothing
-    that requires grad) launches the fp32 kernels. On the CPU the autograd
-    Functions' CPU forms are those twins already, and stay the route."""
-    return (x.dtype == torch.float32 and x.device.type != "cpu"
-            and needs_grad(x, *tensors))
-
-
 def use_device(device: torch.device) -> int:
     """Make `device` the library runtime's current device on the calling
     thread, if it is not the one last set there; returns its index."""
@@ -210,6 +211,16 @@ def use_device(device: torch.device) -> int:
                                f"{err}")
         _thread.device = index
     return index
+
+
+def query(name: str, *args: int) -> int:
+    """Call C query `name` (ints in, one long long out): a size the library
+    computes from shapes, such as the scratch of an fp32 backward entry."""
+    out = ctypes.c_longlong()
+    err = getattr(load(), name)(*args, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: error {err}")
+    return out.value
 
 
 def launch(name: str, device: torch.device, *args) -> None:

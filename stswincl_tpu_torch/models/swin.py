@@ -38,9 +38,8 @@ themselves and go through their autograd Functions (K1/K5, K2/K6, K3),
 which return fp32 weight gradients from fp32 accumulators; on the plain
 route autograd runs through the twins, with the bf16 working copies cast
 in the graph (`models/layers.py`). An fp32 model on the kernel route runs
-the fp32 forms of K1-K3 in a forward that records no graph, and their
-twins under autograd in one that does (`kernels.fp32_twin`: K5 and K6
-take bf16 only). `remat` is the JAX stack's
+the fp32 forms of K1-K3 forward and of K5 and K6 backward, through the
+same Functions. `remat` is the JAX stack's
 `nn.remat(SpaceTimeSwinBlock)`: with grad enabled each block call runs
 under a non-reentrant `torch.utils.checkpoint`, which keeps only the
 block's input and recomputes its forward (the same kernels on the same
@@ -226,7 +225,11 @@ class SpaceTimeSwinBlock(nn.Module):
             H, W = self.input_resolution
             m = shifted_window_attention_mask(H, W, self.window_size,
                                               self.shift_size)
-            self._masks[key] = torch.from_numpy(m).repeat(1, T, T).to(device)
+            # a normal tensor even when first made under inference_mode
+            # (serving): the training Functions save it for their backward
+            with torch.inference_mode(False):
+                self._masks[key] = torch.from_numpy(m).repeat(
+                    1, T, T).to(device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor,

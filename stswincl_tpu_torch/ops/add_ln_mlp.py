@@ -10,13 +10,13 @@ Counterparts in `stswincl_tpu/ops/pallas_add_ln_mlp.py`:
 `_epi_fwd` / `_epi_bwd` and `_epis_fwd` / `_epis_bwd` route them.
 
 `swin_block_epilogue` launches K2 (`csrc/epilogue.cu`) on a bf16 CUDA
-tensor, its fp32 serving form (`swin_block_epilogue_f32`,
-`csrc/fp32_forms.cu`) on an fp32 one, and runs the plain twin
-`swin_block_epilogue_ref` on a CPU tensor. When autograd needs a gradient
-it goes through `EpilogueFn`: its backward launches K6 on CUDA
-(`swin_block_epilogue_bwd`) and runs `swin_block_epilogue_bwd_ref` on the
-CPU; K6 takes bf16 only, so an fp32 forward on the card that records a
-graph runs the twin under autograd instead (`kernels.fp32_twin`). With
+tensor, its fp32 form (`swin_block_epilogue_f32`, `csrc/fp32_forms.cu`:
+serving, or with `m_out` Pallas row 8) on an fp32 one, and runs the plain
+twin `swin_block_epilogue_ref` on a CPU tensor. When autograd needs a
+gradient it goes through `EpilogueFn`: its backward launches K6 on CUDA
+(`swin_block_epilogue_bwd` in bf16, `swin_block_epilogue_bwd_f32`,
+`csrc/fp32_train.cu`, in fp32: rows 7 and 9) and runs
+`swin_block_epilogue_bwd_ref` on the CPU. With
 `shift` > 0, y is in the SW-MSA shifted layout that
 `swin_block_attention(shift=...)` leaves, is read back through the inverse
 cyclic shift, and its gradient returns in that layout.
@@ -185,13 +185,15 @@ def _forward_kernel(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact,
 
 def swin_block_epilogue_f32(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
                             gelu_exact: bool = True, shift: int = 0,
-                            ws: Optional[int] = None, eps: float = 1e-5):
-    """K2's fp32 serving form (`stswin_block_epilogue_f32`,
-    `csrc/fp32_forms.cu`) on fp32 CUDA tensors, the arguments of
-    `swin_block_epilogue` with w1, w2 in fp32: LN2, fc1 + GELU and fc2 on
-    the fp32 GEMM (fc2 added into s unrounded), LN1. No m output and no
-    backward: an fp32 forward that records a graph runs the twin
-    (`kernels.fp32_twin`)."""
+                            ws: Optional[int] = None, eps: float = 1e-5,
+                            m_out: bool = False):
+    """K2's fp32 form (`stswin_block_epilogue_f32`, `csrc/fp32_forms.cu`)
+    on fp32 CUDA tensors, the arguments of `swin_block_epilogue` with w1,
+    w2 in fp32: LN2, fc1 + GELU and fc2 on the fp32 GEMM, LN1. Serving
+    adds fc2 into s unrounded and returns the output; with `m_out` (Pallas
+    row 8, `_fused_epilogue_fwd_with_m`) fc2 + bias is written to m and the
+    output normalises s + m: returns (out, m), m fp32 (its rounding to x's
+    dtype is the identity), the saved m of K6's row-9 form."""
     name = "swin_block_epilogue_f32"
     BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
     _check_params(name, None, x, w1, b1, w2, (s2, b2, bw2, s1, b1n), C,
@@ -203,13 +205,14 @@ def swin_block_epilogue_f32(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
     s32, n2 = (torch.empty((rows, C), **f32) for _ in range(2))
     hid = torch.empty((rows, hidden), **f32)
     out = torch.empty_like(x)
+    m = torch.empty_like(x) if m_out else None
     P = kernels.ptr
     kernels.launch("stswin_block_epilogue_f32", x.device, P(x), P(y), P(s2),
                    P(b2), P(w1), P(b1), P(w2), P(bw2), P(s1), P(b1n),
-                   P(s32), P(n2), P(hid), P(out), BT, H, W, C, hidden, shift,
-                   1 if gelu_exact else 2, float(eps))
+                   P(s32), P(n2), P(hid), P(out), P(m), BT, H, W, C, hidden,
+                   shift, 1 if gelu_exact else 2, float(eps))
     swin_block_epilogue_f32.launches += 1
-    return out
+    return (out, m) if m_out else out
 
 
 swin_block_epilogue_f32.launches = 0
@@ -225,15 +228,10 @@ def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
     package does (serving adds the fp32 m; training rounds m where
     `mlp_output_saved`); True rounds m before the residual add at every
     shape, and a training forward saves it for K6. x in bf16 launches K2,
-    in fp32 its fp32 serving form (no graph recorded, no `m_out`) or the
-    twin under autograd (`kernels.fp32_twin`)."""
+    in fp32 its fp32 form (row 8's where m is saved); under autograd both
+    go through `EpilogueFn`."""
     args = (x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, gelu_exact, shift, ws,
             eps)
-    if kernels.fp32_twin(x, *args[1:10]):
-        fwd = (swin_block_epilogue_with_m_ref if m_out
-               else swin_block_epilogue_ref)
-        out = fwd(*args)
-        return out[0] if m_out else out
     if kernels.needs_grad(*args[:10]):
         return EpilogueFn.apply(*args, m_out)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
@@ -242,8 +240,9 @@ def swin_block_epilogue(x, y, s2, b2, w1, b1, w2, bw2, s1, b1n,
         if m_out:
             return swin_block_epilogue_with_m_ref(*args)[0]
         return swin_block_epilogue_ref(*args)
-    if x.dtype == torch.float32 and not m_out:
-        return swin_block_epilogue_f32(*args)
+    if x.dtype == torch.float32:
+        out = swin_block_epilogue_f32(*args, m_out=bool(m_out))
+        return out[0] if m_out else out
     return _forward_kernel(*args, with_m=bool(m_out))[0]
 
 
@@ -305,9 +304,56 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
 swin_block_epilogue_bwd.launches = 0
 
 
+def swin_block_epilogue_bwd_f32(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
+                                gelu_exact: bool = True, shift: int = 0,
+                                ws: Optional[int] = None, eps: float = 1e-5):
+    """K6's fp32 form (`stswin_block_epilogue_bwd_f32`,
+    `csrc/fp32_train.cu`): `swin_block_epilogue_bwd` on fp32 CUDA tensors,
+    Pallas row 7 with `m` None (fc2 recomputed) and row 9 with row 8's
+    saved m; every product on the fp32 GEMMs, gelu' through device memory,
+    every column sum in a fixed order. Returns (dx, dy, ds2, db2, dw1, db1,
+    dw2, dbw2, ds1, db1n), all fp32 (dy in y's shifted layout, dx itself
+    when shift is 0)."""
+    name = "swin_block_epilogue_bwd_f32"
+    BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
+    _check_params(name, None, x, w1, b1, w2, (s2, b2, bw2, s1), C, hidden)
+    kernels.require(C in (128, 256, 512, 1024),
+                    f"{name}: C must be 128, 256, 512 or 1024, got {C}")
+    kernels.require_f32(name, y, g, *(() if m is None else (m,)))
+    kernels.require(g.shape == x.shape
+                    and (m is None or m.shape == x.shape),
+                    f"{name}: g / m do not match x")
+    kernels.require_on(x.device, name, y, g, m)
+    rows = BT * H * W
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    work = torch.empty(kernels.query("stswin_block_epilogue_bwd_f32_work",
+                                     rows, C, hidden, int(m is None)), **f32)
+    dx = torch.empty_like(x)
+    dy = torch.empty_like(x) if shift else None
+    dw1 = torch.empty((hidden, C), **f32)
+    dw2 = torch.empty((C, hidden), **f32)
+    db1 = torch.empty(hidden, **f32)
+    dbw2, ds1, db1n, ds2, db2 = (torch.empty(C, **f32) for _ in range(5))
+    w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
+    P = kernels.ptr
+    kernels.launch("stswin_block_epilogue_bwd_f32", dev, P(x), P(y), P(g),
+                   P(m), P(s2), P(b2), P(w1), P(b1), P(w1_t), P(w2), P(bw2),
+                   P(w2_t), P(s1), P(work), P(dx), P(dy), P(dw1), P(db1),
+                   P(dw2), P(dbw2), P(ds1), P(db1n), P(ds2), P(db2), BT, H,
+                   W, C, hidden, shift, 1 if gelu_exact else 2, float(eps))
+    swin_block_epilogue_bwd_f32.launches += 1
+    return (dx, dx if dy is None else dy, ds2, db2, dw1, db1, dw2, dbw2, ds1,
+            db1n)
+
+
+swin_block_epilogue_bwd_f32.launches = 0
+
+
 class EpilogueFn(torch.autograd.Function):
     """K2 forward (with the `m` output where `mlp_output_saved`, or at
-    every shape with `m_out`), K6 backward; the twins on the CPU. Weights
+    every shape with `m_out`), K6 backward; in fp32 their fp32 forms (row
+    8 forward, rows 7 and 9 backward); the twins on the CPU. Weights
     arrive in any float dtype and are cast to x's dtype; their gradients
     return in their own dtype."""
 
@@ -327,6 +373,9 @@ class EpilogueFn(torch.autograd.Function):
                    else swin_block_epilogue_ref)
             out = fwd(*args)
             out, m = out if with_m else (out, None)
+        elif x.dtype == torch.float32:
+            out = swin_block_epilogue_f32(*args, m_out=with_m)
+            out, m = out if with_m else (out, None)
         else:
             out, m = _forward_kernel(*args, with_m=with_m)
         ctx.save_for_backward(x, y, s2, b2, w1c, b1, w2c, bw2, s1, b1n, m)
@@ -342,9 +391,10 @@ class EpilogueFn(torch.autograd.Function):
                 x, y, s2, b2, w1, b1, w2, bw2, s1, b1n, g, gelu_exact, shift,
                 ws, eps)
         else:
-            grads = swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2,
-                                            bw2, s1, gelu_exact, shift, ws,
-                                            eps)
+            bwd = (swin_block_epilogue_bwd_f32 if x.dtype == torch.float32
+                   else swin_block_epilogue_bwd)
+            grads = bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1, gelu_exact,
+                        shift, ws, eps)
         dx, dy, *dparams = grads
         dparams = [d.to(t) for d, t in zip(dparams, ctx.dtypes)]
         return (dx, dy, *dparams, None, None, None, None, None)

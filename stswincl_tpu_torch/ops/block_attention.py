@@ -10,10 +10,9 @@ CUDA tensor, its fp32 form (`swin_block_attention_f32`,
 `csrc/fp32_forms.cu`) on an fp32 one, and runs the plain twin
 `swin_block_attention_ref` on a CPU tensor. When autograd needs a
 gradient it goes through `BlockAttentionFn`, whose backward launches K5 on
-CUDA (`swin_block_attention_bwd`) and runs the plain twin
-`swin_block_attention_bwd_ref` on the CPU; K5 takes bf16 only, so an fp32
-forward on the card that records a graph runs the twin instead, under
-autograd (`kernels.fp32_twin`).
+CUDA (`swin_block_attention_bwd` in bf16, its fp32 form
+`swin_block_attention_bwd_f32`, `csrc/fp32_train.cu`, in fp32) and runs
+the plain twin `swin_block_attention_bwd_ref` on the CPU.
 
 Weights use the torch Linear layout: wqkv (3C, C), wproj (C, C), in any
 float dtype: they are cast to x's dtype for the product, and their
@@ -172,15 +171,49 @@ def _attn_bwd_smem_bytes(TN: int, hd: int) -> int:
             + _align(2 * TN * max(hd + 8, TN + 8) * 2) + _align(TN * TN * 4))
 
 
+def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of K5 fp32's attention backward
+    (`attn_bwd_f32_smem`), the larger of its two passes, in fp32: the
+    query pass holds k and v of the window, q (later dS) in rows of
+    max(hd, TN) + 4 and dO of a query block of min(TN, 64) rows; the key
+    pass k and v of a key block, q and dO of a query chunk (rows of hd +
+    4), and P^T and dS^T (rows of the chunk + 4)."""
+    qb, ldk = min(TN, 64), hd + 4
+    a = 2 * TN * ldk + qb * (max(hd, TN) + 4) + qb * ldk
+    b = 4 * qb * ldk + 2 * qb * (qb + 4)
+    return 4 * max(a, b)
+
+
+def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
+    """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
+    query and key blocks of min(TN, 64) rows that tile the window, head
+    dims a multiple of 64 up to 256 at TN <= 32 and 128 beyond, and both
+    passes within shared memory."""
+    return (0 < TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
+            and (TN <= 64 or TN % 64 == 0) and hd > 0 and hd % 64 == 0
+            and hd <= (256 if TN <= 32 else 128)
+            and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
+
+
 def check_backward_window(name: str, x: torch.Tensor, heads: int,
                           ws: int) -> None:
-    """Refuse a window that K5's attention backward does not take: more
-    than MAX_BWD_WINDOW_TOKENS tokens, not a multiple of 16, or a slot
-    past shared memory. The forward of `BlockAttentionFn` and of the
-    whole-block Function checks it before K1 or row 16 runs, so a training
-    step on such a window fails before its forward rather than inside its
+    """Refuse a window that K5's attention backward in x's dtype does not
+    take: bf16, more than MAX_BWD_WINDOW_TOKENS tokens, not a multiple of
+    16, or a slot past shared memory; fp32, what `_attn_f32_bwd_takes`
+    refuses. The forward of `BlockAttentionFn` and of the whole-block
+    Function checks it before K1 or row 16 runs, so a training step on
+    such a window fails before its forward rather than inside its
     backward."""
     TN, hd = x.shape[1] * ws * ws, x.shape[-1] // heads
+    if x.dtype == torch.float32:
+        kernels.require(_attn_f32_bwd_takes(TN, hd),
+                        lambda: f"{name}: K5's fp32 form (the attention "
+                        "backward) takes windows of at most "
+                        f"{MAX_BWD_WINDOW_TOKENS} tokens (a multiple of 16, "
+                        "and of 64 past 64) with head dims a multiple of 64 "
+                        "(at most 256 to 32 tokens, 128 beyond) that fit "
+                        f"shared memory; got {TN} tokens x head dim {hd}")
+        return
     kernels.require(TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
                     and hd % 16 == 0
                     and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT,
@@ -256,6 +289,21 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     return res
 
 
+def _forward_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
+                 heads, scale, ws, shift):
+    """Launch K1's fp32 form; return (out, qkv, attn), the last two in
+    window order (the scratch K5's fp32 form reuses)."""
+    name = "swin_block_attention_f32"
+    kernels.require((x.shape[-1] // heads) % 32 == 0,
+                    lambda: f"{name}: needs a head dim that is a multiple "
+                    f"of 32, got {x.shape[-1]} over {heads} heads")
+    res = _launch_k1("stswin_block_attention_f32", name, None, x, wqkv,
+                     bqkv, wproj, bproj, bias_tiled, mask_tiled, heads, scale,
+                     ws, shift, _attn_f32_smem_bytes)
+    swin_block_attention_f32.launches += 1
+    return res
+
+
 def swin_block_attention_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled,
                              mask_tiled, heads: int, scale: float, ws: int,
                              shift: int = 0):
@@ -263,17 +311,11 @@ def swin_block_attention_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled,
     on fp32 CUDA tensors, the arguments of `swin_block_attention` with the
     weights in fp32: every product on the fp32 GEMM, the attention in fp32
     with P unrounded; head dims a multiple of 32 and windows whose fp32 q,
-    k and v fit shared memory (`_attn_f32_smem_bytes`). No backward: an fp32
-    forward that records a graph runs the twin (`kernels.fp32_twin`)."""
-    name = "swin_block_attention_f32"
-    kernels.require((x.shape[-1] // heads) % 32 == 0,
-                    lambda: f"{name}: needs a head dim that is a multiple "
-                    f"of 32, got {x.shape[-1]} over {heads} heads")
-    out = _launch_k1("stswin_block_attention_f32", name, None, x, wqkv,
-                     bqkv, wproj, bproj, bias_tiled, mask_tiled, heads, scale,
-                     ws, shift, _attn_f32_smem_bytes)[0]
-    swin_block_attention_f32.launches += 1
-    return out
+    k and v fit shared memory (`_attn_f32_smem_bytes`). Under autograd
+    `BlockAttentionFn` keeps its window-order qkv and attention scratch
+    for K5's fp32 form."""
+    return _forward_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
+                        heads, scale, ws, shift)[0]
 
 
 swin_block_attention_f32.launches = 0
@@ -284,14 +326,11 @@ def swin_block_attention(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     """x: (B, T, H, W, C); wqkv: (3C, C); bqkv: (3C,); wproj: (C, C);
     bproj: (C,); bias_tiled: (heads, TN, TN); mask_tiled: (nW, TN, TN)
     for SW-MSA, or None (or a single zero entry) for W-MSA. x in bf16
-    launches K1, in fp32 its fp32 form (no graph recorded) or the twin
-    under autograd (`kernels.fp32_twin`).
-    Returns (B, T, H, W, C), shifted by `shift`."""
+    launches K1, in fp32 its fp32 form; under autograd both go through
+    `BlockAttentionFn`. Returns (B, T, H, W, C), shifted by `shift`."""
     args = (x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, heads,
             scale, ws, shift)
     params = (wqkv, bqkv, wproj, bproj, bias_tiled)
-    if kernels.fp32_twin(x, *params):
-        return swin_block_attention_ref(*args)
     if kernels.needs_grad(x, *params):
         return BlockAttentionFn.apply(*args)
     wqkv, wproj = wqkv.to(x.dtype), wproj.to(x.dtype)
@@ -350,11 +389,57 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
 swin_block_attention_bwd.launches = 0
 
 
+def swin_block_attention_bwd_f32(x, g, qkv, attn, wqkv, wproj, bias_tiled,
+                                 mask_tiled, heads: int, scale: float,
+                                 ws: int, shift: int = 0):
+    """K5's fp32 form (`stswin_block_attention_bwd_f32`,
+    `csrc/fp32_train.cu`): `swin_block_attention_bwd` on fp32 CUDA tensors
+    with K1 fp32's window-order scratch; every product on the fp32 GEMMs,
+    P and dS in fp32, every sum over windows and rows in a fixed order.
+    Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias_tiled), fp32."""
+    name = "swin_block_attention_bwd_f32"
+    mask_tiled, n_mask = _validate(name, None, x, wqkv, wproj, bias_tiled,
+                                   mask_tiled, heads, ws, shift,
+                                   _attn_f32_bwd_smem_bytes)
+    check_backward_window(name, x, heads, ws)
+    B, T, H, W, C = x.shape
+    TN = T * ws * ws
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = B * T * H * W
+    kernels.require(g.shape == x.shape and g.dtype == x.dtype
+                    and tuple(qkv.shape) == (rows, 3 * C)
+                    and tuple(attn.shape) == (rows, C)
+                    and qkv.dtype == attn.dtype == x.dtype,
+                    f"{name}: g / saved scratch do not match x")
+    kernels.require_on(dev, name, g, qkv, attn)
+    work = torch.empty(kernels.query("stswin_block_attention_bwd_f32_work",
+                                     rows, C, heads, TN), **f32)
+    dx = torch.empty_like(x)
+    dwqkv = torch.empty((3 * C, C), **f32)
+    dbqkv = torch.empty(3 * C, **f32)
+    dwproj = torch.empty((C, C), **f32)
+    dbproj = torch.empty(C, **f32)
+    dbias = torch.empty((heads, TN, TN), **f32)
+    wqkv_t, wproj_t = wqkv.t().contiguous(), wproj.t().contiguous()
+    P = kernels.ptr
+    kernels.launch("stswin_block_attention_bwd_f32", dev, P(x), P(g), P(qkv),
+                   P(attn), P(wqkv_t), P(wproj_t), P(bias_tiled),
+                   P(mask_tiled), P(work), P(dx), P(dwqkv), P(dbqkv),
+                   P(dwproj), P(dbproj), P(dbias), B, T, H, W, C, heads, ws,
+                   float(scale), shift, n_mask)
+    swin_block_attention_bwd_f32.launches += 1
+    return dx, dwqkv, dbqkv, dwproj, dbproj, dbias
+
+
+swin_block_attention_bwd_f32.launches = 0
+
+
 class BlockAttentionFn(torch.autograd.Function):
-    """K1 forward, K5 backward (the twins on the CPU). Weights arrive in
-    any float dtype (the model's fp32 parameters) and are cast to x's
-    dtype; their gradients return in their own dtype, from K5's fp32
-    accumulators on CUDA."""
+    """K1 forward, K5 backward, each in x's dtype (bf16 or the fp32
+    forms); the twins on the CPU. Weights arrive in any float dtype (the
+    model's fp32 parameters) and are cast to x's dtype; their gradients
+    return in their own dtype, from K5's fp32 accumulators on CUDA."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
@@ -370,8 +455,9 @@ class BlockAttentionFn(torch.autograd.Function):
                                             bias_tiled, mask_tiled, heads,
                                             scale, ws, shift)
         check_backward_window("swin_block_attention", x, heads, ws)
-        out, qkv, attn = _forward_kernel(x, wq, bqkv, wp, bproj, bias_tiled,
-                                         mask_tiled, heads, scale, ws, shift)
+        fwd = _forward_f32 if x.dtype == torch.float32 else _forward_kernel
+        out, qkv, attn = fwd(x, wq, bqkv, wp, bproj, bias_tiled, mask_tiled,
+                             heads, scale, ws, shift)
         ctx.save_for_backward(x, wq, wp, bias_tiled, mask_tiled, qkv, attn)
         return out
 
@@ -387,9 +473,10 @@ class BlockAttentionFn(torch.autograd.Function):
                 scale, ws, shift)
         else:
             x, wq, wp, bias_tiled, mask_tiled, qkv, attn = ctx.saved_tensors
-            grads = swin_block_attention_bwd(x, g, qkv, attn, wq, wp,
-                                             bias_tiled, mask_tiled, heads,
-                                             scale, ws, shift)
+            bwd = (swin_block_attention_bwd_f32 if x.dtype == torch.float32
+                   else swin_block_attention_bwd)
+            grads = bwd(x, g, qkv, attn, wq, wp, bias_tiled, mask_tiled,
+                        heads, scale, ws, shift)
         dx, *dparams = grads
         dparams = [d.to(t) for d, t in zip(dparams, ctx.dtypes)]
         return (dx, *dparams, None, None, None, None, None)

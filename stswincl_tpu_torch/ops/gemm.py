@@ -13,12 +13,18 @@ each form by itself so that its tests and its profile hold it against
 - `wgrad_sm90` (`stswin_wgrad_sm90`): the weight gradients A^T B of K5 and
   K6 over the token rows, each operand read through its row map;
 - `linear_f32` (`stswin_gemm_f32`, `csrc/fp32_forms.cu`): the fp32 GEMM of
-  K1-K3's fp32 forms, y = act(A @ Wt^T + bias) in fp32 FMA on the CUDA
-  cores, with `linear_sm90`'s row maps, stored or added into C.
+  the fp32 forms of K1-K3, K5 and K6, y = act(A @ Wt^T + bias) in fp32 FMA
+  on the CUDA cores, with `linear_sm90`'s row maps, stored or added into
+  C, and K6's two epilogues: fc1 writing h and gelu', dh times gelu' with
+  the column sums db1;
+- `wgrad_f32` (`stswin_wgrad_f32`, `csrc/fp32_train.cu`): the fp32
+  weight-gradient GEMM of K5's and K6's fp32 forms, `wgrad_sm90`'s
+  contract in fp32 FMA, the rows split across blocks and the splits'
+  partials added in a fixed order (no atomics: the same bits every call).
 On a CPU tensor each runs its plain twin (`*_ref`; `linear_f32`'s is
-`linear_sm90_ref` on fp32 operands). `launch_counts` reads the library's
-own count of every GEMM launch, those made inside the kernels' C entries
-included.
+`linear_sm90_ref` on fp32 operands, `wgrad_f32`'s `wgrad_sm90_ref`).
+`launch_counts` reads the library's own count of every GEMM launch, those
+made inside the kernels' C entries included.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ _EPI = {"bf16": 0, "resid_f32": 1, "gelu_grad": 2, "dgelu": 3, "f32": 4}
 # fused pair's is 5, row 17's implicit-GEMM conv 6, `ops.conv`), then the
 # weight-gradient GEMM
 SM90_FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
-# and the fp32 GEMM's launches (`stswin_gemm_f32_launches`)
-FORMS = (*SM90_FORMS, "fp32")
+# and the fp32 GEMM's and the fp32 weight-gradient GEMM's launches
+# (`stswin_gemm_f32_launches`)
+F32_FORMS = ("fp32", "wgrad_f32")
+FORMS = (*SM90_FORMS, *F32_FORMS)
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
@@ -53,9 +61,9 @@ def launch_counts(reset: bool = False) -> Dict[str, int]:
     lib = kernels.load()
     out = (ctypes.c_longlong * len(SM90_FORMS))()
     lib.stswin_gemm_sm90_launches(out, int(reset))
-    f32 = ctypes.c_longlong()
-    lib.stswin_gemm_f32_launches(ctypes.byref(f32), int(reset))
-    return {**dict(zip(SM90_FORMS, out)), "fp32": f32.value}
+    f32 = (ctypes.c_longlong * len(F32_FORMS))()
+    lib.stswin_gemm_f32_launches(f32, int(reset))
+    return {**dict(zip(SM90_FORMS, out)), **dict(zip(F32_FORMS, f32))}
 
 
 def window_rows(M: int, row_map: Optional[RowMap],
@@ -177,46 +185,67 @@ linear_sm90.launches = 0
 
 
 def linear_f32(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
-               out=None):
+               out=None, epi: Optional[str] = None, aux=None):
     """The fp32 GEMM on a: (M, K) fp32 rows; wt: (N, K) fp32, the torch
     Linear layout; bias: (N,) fp32 or None; act 'none', 'erf' or 'tanh';
     a_map / c_map: (T, H, W, ws, shift) row maps or None. Returns a new (M,
     N) fp32 act(y) at rows c_map(m), or with `out` ((M, N) fp32, act
-    'none') adds y into it in place and returns it. K and the row strides
-    multiples of 4; every sum in fp32 FMA, k in order."""
+    'none') adds y into it in place and returns it. K6's epilogues: `epi`
+    "gelu_grad" (act 'erf' or 'tanh') returns (gelu(y), gelu'(y)), "dgelu"
+    (act 'none', aux (M, N) fp32 in C's row layout) returns (y * aux, its
+    fp32 column sums in a fixed order). K and the row strides multiples
+    of 4; every sum in fp32 FMA, k in order."""
     if a.device.type == "cpu":
         return linear_sm90_ref(a, wt, bias, act, a_map, c_map, out,
-                               "bf16" if out is None else "resid_f32")
+                               epi or ("bf16" if out is None
+                                       else "resid_f32"), aux)
     name = "linear_f32"
     kernels.require_f32(name, a, wt)
-    kernels.require_on(a.device, name, a, wt, bias, out)
+    kernels.require_on(a.device, name, a, wt, bias, out, aux)
     kernels.require(a.dim() == 2 and wt.dim() == 2
                     and a.shape[1] == wt.shape[1] and a.shape[1] % 4 == 0,
                     f"{name}: a {tuple(a.shape)}, wt {tuple(wt.shape)}, K a "
                     "multiple of 4")
     M, K = a.shape
     N = wt.shape[0]
-    kernels.require(act in ("none", "erf", "tanh")
-                    and (out is None or act == "none"),
-                    f"{name}: act {act!r} with out {out is not None}")
+    kernels.require(epi in (None, "gelu_grad", "dgelu")
+                    and act in ("none", "erf", "tanh")
+                    and (out is None or (act == "none" and epi is None))
+                    and (epi != "gelu_grad" or act != "none")
+                    and (epi != "dgelu" or act == "none"),
+                    f"{name}: act {act!r}, epi {epi!r} with out "
+                    f"{out is not None}")
     if bias is not None:
         kernels.require_f32(name, bias)
         kernels.require(tuple(bias.shape) == (N,), f"{name}: bias shape")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    c2 = None
     if out is None:
-        c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+        c = torch.empty((M, N), **f32)
     else:
         kernels.require_f32(name, out)
         kernels.require(tuple(out.shape) == (M, N), f"{name}: out shape")
         c = out
+    if epi == "gelu_grad":
+        c2 = torch.empty((M, N), **f32)
+    elif epi == "dgelu":
+        kernels.require_f32(name, aux)
+        kernels.require(tuple(aux.shape) == (M, N), f"{name}: aux shape")
+    code = ({None: 1 if out is not None else 0, "gelu_grad": 2, "dgelu": 3}
+            [epi])
     T, H, W, ws = _grid(name, M, a_map, c_map)
     P = kernels.ptr
     kernels.launch("stswin_gemm_f32", a.device, P(a), P(wt), P(bias), P(c),
-                   M, N, K, K, N, {"none": 0, "erf": 1, "tanh": 2}[act],
-                   int(out is not None), int(a_map is not None),
-                   int(c_map is not None), T, H, W, ws,
-                   0 if a_map is None else a_map[4],
+                   P(c2), P(aux), M, N, K, K, N,
+                   {"none": 0, "erf": 1, "tanh": 2}[act], code,
+                   int(a_map is not None), int(c_map is not None), T, H, W,
+                   ws, 0 if a_map is None else a_map[4],
                    0 if c_map is None else c_map[4])
     linear_f32.launches += 1
+    if epi == "gelu_grad":
+        return c, c2
+    if epi == "dgelu":
+        return c, colsum_f32(c)
     return c
 
 
@@ -330,3 +359,54 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
 
 
 wgrad_sm90.launches = 0
+
+
+def colsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The (N,) fp32 column sums of x (R, N) fp32 on the card, in a fixed
+    order (`stswin_colsum_f32`: 1,024-row partials, then the partials in
+    order); the bias gradients of the fp32 backward forms."""
+    kernels.require_f32("colsum_f32", x)
+    R, N = x.shape
+    out = torch.empty(N, dtype=torch.float32, device=x.device)
+    work = torch.empty(kernels.query("stswin_colsum_f32_work", R, N),
+                       dtype=torch.float32, device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_colsum_f32", x.device, P(x), P(out), P(work), R,
+                   N, N)
+    return out
+
+
+def wgrad_f32(a, b, a_map=None, b_map=None):
+    """The fp32 weight-gradient GEMM on a: (R, M), b: (R, N) fp32 rows,
+    each read through its (T, H, W, ws, shift) row map or None; returns
+    the (M, N) fp32 sum over r of a[a_rows(r)]^T b[b_rows(r)], in fp32 FMA
+    with r ascending within each split of the rows and the splits added in
+    order. M and N multiples of 4; R is ragged."""
+    if a.device.type == "cpu":
+        return wgrad_sm90_ref(a, b, a_map, b_map)
+    name = "wgrad_f32"
+    kernels.require_f32(name, a, b)
+    kernels.require_on(a.device, name, a, b)
+    kernels.require(a.dim() == 2 and b.dim() == 2
+                    and a.shape[0] == b.shape[0],
+                    f"{name}: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    R, M = a.shape
+    N = b.shape[1]
+    kernels.require(M % 4 == 0 and N % 4 == 0,
+                    f"{name}: needs M and N multiples of 4 (M={M}, N={N})")
+    T, H, W, ws = _grid(name, R, a_map, b_map)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    work = torch.empty(max(1, kernels.query("stswin_wgrad_f32_work", R, M,
+                                            N)),
+                       dtype=torch.float32, device=a.device)
+    P = kernels.ptr
+    kernels.launch("stswin_wgrad_f32", a.device, P(a), P(b), P(out),
+                   P(work), R, M, N, M, N, int(a_map is not None),
+                   int(b_map is not None), T, H, W, ws,
+                   0 if a_map is None else a_map[4],
+                   0 if b_map is None else b_map[4])
+    wgrad_f32.launches += 1
+    return out
+
+
+wgrad_f32.launches = 0

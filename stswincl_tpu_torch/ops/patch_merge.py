@@ -20,9 +20,8 @@ as products in x's dtype with fp32 accumulation (dn rounded to x's dtype,
 dW to x's dtype and then w's, as XLA's vjp rounds them), and the
 LayerNorm's backward and the 2x2 scatter by autograd of the twin's
 LayerNorm. On bf16 tensors the products run on the tensor cores
-(`torch.mm`); an fp32 model keeps fp32 products. An fp32 forward on the
-card that records a graph runs the twin under autograd
-(`kernels.fp32_twin`), as K1 and K2 do.
+(`torch.mm`); an fp32 model keeps fp32 products, after K3's fp32 form in
+the forward.
 """
 
 from __future__ import annotations
@@ -57,8 +56,6 @@ def patch_merge_ref(x, scale, bias, w, eps: float = 1e-5):
 def patch_merge(x, scale, bias, w, eps: float = 1e-5):
     """x: (BT, H, W, C) -> (BT, H/2, W/2, 2C); scale/bias: (4C,) fp32;
     w: (2C, 4C)."""
-    if kernels.fp32_twin(x, scale, bias, w):
-        return patch_merge_ref(x, scale, bias, w, eps)
     if kernels.needs_grad(x, scale, bias, w):
         return PatchMergeFn.apply(x, scale, bias, w, eps)
     w = w.to(x.dtype)
@@ -110,9 +107,9 @@ patch_merge.launches = 0
 def patch_merge_f32(x, scale, bias, w, eps: float = 1e-5):
     """K3's fp32 form (`stswin_patch_merge_f32`, `csrc/fp32_forms.cu`) on
     fp32 CUDA tensors: the 2x2 regroup and the single-pass fp32 LayerNorm
-    into fp32 rows, then 4C -> 2C on the fp32 GEMM. w (2C, 4C) fp32. No
-    backward: an fp32 forward that records a graph runs the twin
-    (`kernels.fp32_twin`)."""
+    into fp32 rows, then 4C -> 2C on the fp32 GEMM. w (2C, 4C) fp32. Under
+    autograd `PatchMergeFn` runs it and takes the twin's vjp (module
+    docstring)."""
     name = "patch_merge_f32"
     _check(name, None, x, scale, bias, w)
     BT, H, W, C = x.shape
@@ -153,6 +150,8 @@ class PatchMergeFn(torch.autograd.Function):
         wc = w.to(x.dtype)
         if x.device.type == "cpu":
             return patch_merge_ref(x, scale, bias, wc, eps)
+        if x.dtype == torch.float32:
+            return patch_merge_f32(x, scale, bias, wc, eps)
         return _forward_kernel(x, scale, bias, wc, eps)
 
     @staticmethod

@@ -62,12 +62,12 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     machine without one raises unless the caller asks for the CPU.
 
     The model is built with `kernels=None`, the kernels iff the input is
-    on the card, in both dtypes (`fp32_kernels`): an fp32 forward that
-    records no graph (serving, evaluation) runs the fp32 forms of K1-K3
-    and K4's exact form, as the JAX package sends an fp32 model through
-    its dtype-generic TPU kernels; one that records a graph (training)
-    runs K1-K3's plain twins under autograd, as K5 and K6 take bf16 only
-    (`kernels.fp32_twin`). An unknown `arch` raises ValueError."""
+    on the card, in both dtypes (`fp32_kernels`): an fp32 model serves
+    and evaluates on the fp32 forms of K1-K3 and K4's exact form, and
+    trains on the fp32 forms of K1-K3 (K2 with its m output, Pallas row 8,
+    where `mlp_output_saved`) and of K5 and K6, as the JAX package sends
+    an fp32 model through its dtype-generic TPU kernels. An unknown `arch`
+    raises ValueError."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]

@@ -41,7 +41,12 @@ GEMM alone against torch.matmul in fp32 (TF32 off) at ragged shapes and
 with K1's row maps, rows 10 and 11 refusing fp32 by name; the fp32 model
 from `build_model` serves on those forms (its launches a `predict_next`
 the bf16 model's, its predictions the plain route's) and takes a train
-step on the plain twins with no kernel launched.
+step on the fp32 forms. The fp32 training forms (`csrc/fp32_train.cu`):
+the fp32 weight-gradient GEMM against torch.matmul (ragged, split rows,
+row maps, the same bits twice), `linear_f32`'s K6 epilogues, K5 and K6
+through their Functions at both stages' windows against autograd of the
+fp32 twins (the same bits twice), and K5's shared-memory plan against
+the library's.
 """
 
 import pytest
@@ -986,7 +991,10 @@ def _counted_wrappers():
             swin_block.whole_swin_block, add_layernorm.add_layer_norm,
             mlp.fused_mlp, layernorm.fused_layer_norm,
             conv.conv3x3_bn_act, gemm.linear_sm90, gemm.gelu_bwd_sm90,
-            gemm.wgrad_sm90, block_attention.swin_block_attention_f32,
+            gemm.wgrad_sm90, gemm.wgrad_f32,
+            block_attention.swin_block_attention_bwd_f32,
+            add_ln_mlp.swin_block_epilogue_bwd_f32,
+            block_attention.swin_block_attention_f32,
             add_ln_mlp.swin_block_epilogue_f32, patch_merge.patch_merge_f32,
             gemm.linear_f32]
 
@@ -997,8 +1005,11 @@ def test_fp32_model_runs_on_the_twins(dev):
     exact form: each launched a `predict_next` as often as the bf16 model
     launches its own, the fp32 GEMM twice a K1 or K2 and once a K3, the
     predictions the plain route's (`kernels=False`) on >= 99.9 % of
-    pixels. Its stage-1 train step runs on the plain twins (K5 and K6 take
-    bf16): a finite loss and no kernel launched."""
+    pixels. Its stage-1 train step runs on the fp32 forms (swin_dim 256:
+    head dims 64 and 128, which K5's fp32 form takes), no longer on the
+    plain twins: a finite loss, K1-K3 and K5 / K6 each in their fp32 form
+    (K6 recomputing m at these widths), no bf16 kernel, the fp32 GEMMs as
+    the forms imply."""
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
     from stswincl_tpu_torch.models.init import init_weights
@@ -1007,7 +1018,7 @@ def test_fp32_model_runs_on_the_twins(dev):
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
-    mc = ModelConfig(swin_dim=128, swin_depths=(2, 2), dtype="float32")
+    mc = ModelConfig(swin_dim=256, swin_depths=(2, 2), dtype="float32")
     dc = DataConfig(dataset="synthetic", crop_hw=(128, 192), batch_size=2)
     model, classes = build_model(mc, dc, device=dev)
     assert model.kernels is None
@@ -1032,7 +1043,7 @@ def test_fp32_model_runs_on_the_twins(dev):
             k: fn.launches - b
             for (k, fn), b in zip(counted.items(), before)}}
 
-    bf = build_model(ModelConfig(swin_dim=128, swin_depths=(2, 2)), dc,
+    bf = build_model(ModelConfig(swin_dim=256, swin_depths=(2, 2)), dc,
                      device=dev)[0]
     bf.load_state_dict(model.state_dict())
     _, want = per_step(bf.eval(), {
@@ -1067,8 +1078,21 @@ def test_fp32_model_runs_on_the_twins(dev):
                            device=dev)
     loss = float(step(frames[:, 0:4], labels)["loss"])
     assert loss == loss and abs(loss) < float("inf")
-    assert [fn.launches for fn in _counted_wrappers()] == before
-    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0)
+    moved = {fn.__name__: fn.launches - b
+             for fn, b in zip(_counted_wrappers(), before) if fn.launches > b}
+    k1, k2, k3, k5, k6 = (moved.get(k, 0) for k in (
+        "swin_block_attention_f32", "swin_block_epilogue_f32",
+        "patch_merge_f32", "swin_block_attention_bwd_f32",
+        "swin_block_epilogue_bwd_f32"))
+    assert k1 == k2 == k5 == k6 > 0 and k3 == 1
+    assert set(moved) == {"swin_block_attention_f32",
+                          "swin_block_epilogue_f32", "patch_merge_f32",
+                          "swin_block_attention_bwd_f32",
+                          "swin_block_epilogue_bwd_f32"}, moved
+    # K1, K2 two products each, K3 one, K5 two, K6 four (m recomputed)
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {
+        "fp32": 2 * (k1 + k2) + k3 + 2 * k5 + 4 * k6,
+        "wgrad_f32": 2 * (k5 + k6)}
 
 
 def test_fp32_deeplab_evaluates_on_k4_exact(dev):
@@ -1363,3 +1387,151 @@ def test_trained_block_refuses_a_window_k5_does_not_take(dev, gen):
     with pytest.raises(ValueError, match="at most 128 tokens"):
         whole(x, *args[1:7], *p, 2, args[8], 12)
     assert whole.launches == n
+
+
+def test_trained_fp32_block_refuses_head_dim_32(dev, gen):
+    """C 128 over 4 heads (hd 32) at TN 32: K1's fp32 form serves it
+    without a gradient; with one, `BlockAttentionFn` refuses it before its
+    forward launches anything, since K5's fp32 form takes head dims a
+    multiple of 64."""
+    args = _f32(_attn_args(dev, gen, 0, C=128, heads=4))
+    fn = block_attention.swin_block_attention_f32
+    n, g = fn.launches, gemm.launch_counts()["fp32"]
+    _close(block_attention.swin_block_attention(*args),
+           block_attention.swin_block_attention_ref(*args), tol=F32_TOL)
+    assert fn.launches == n + 1
+    n, g = fn.launches, gemm.launch_counts()["fp32"]
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="head dims a multiple of 64"):
+        block_attention.swin_block_attention(x, *args[1:])
+    assert (fn.launches, gemm.launch_counts()["fp32"]) == (n, g)
+
+
+# ---- the fp32 training forms (csrc/fp32_train.cu) -------------------------
+
+
+@pytest.mark.parametrize("R,M,N,maps", [(1000, 264, 136, False),
+                                        (50000, 512, 1536, False),
+                                        (1920, 384, 128, True)])
+def test_wgrad_f32_kernel(dev, gen, R, M, N, maps):
+    """The fp32 weight-gradient GEMM against torch.matmul in fp32 (TF32
+    off): ragged R and tile edges, R split across blocks (50,000 rows: 6
+    splits), the operands read through the window partition with the
+    shift; one launch a call in the library's count, and the same bits on
+    a second call (no atomics)."""
+    r = _normal(dev, gen)
+    a, b = r(R, M), r(R, N)
+    a_map = b_map = None
+    if maps:  # (B, T, H, W) = (5, 2, 16, 12), windows of 4 shifted by 2
+        a_map, b_map = (2, 16, 12, 4, 2), (2, 16, 12, 4, 0)
+    gemm.launch_counts(reset=True)
+    got = gemm.wgrad_f32(a, b, a_map, b_map)
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {
+        "wgrad_f32": 1}
+    assert torch.equal(got, gemm.wgrad_f32(a, b, a_map, b_map))
+    want = (a[gemm.window_rows(R, a_map, dev)].t()
+            @ b[gemm.window_rows(R, b_map, dev)])
+    _close(got, want, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 512, 128), (1000, 264, 520)])
+def test_gemm_f32_gelu_epilogues(dev, gen, M, N, K):
+    """K6's two fp32 epilogues: fc1 writing h = gelu(pre) and gelu'(pre)
+    ("gelu_grad"), then dh times that gelu' with the db1 column sums
+    ("dgelu", a fixed order: the same bits twice), against the twins."""
+    r = _normal(dev, gen)
+    a, wt, bias = r(M, K), r(N, K, k=K ** -0.5), r(N, k=0.1)
+    h, d = gemm.linear_f32(a, wt, bias, "erf", epi="gelu_grad")
+    hr, dr = gemm.linear_sm90_ref(a, wt, bias, "erf", epi="gelu_grad")
+    _close(h, hr, tol=F32_TOL)
+    _close(d, dr, tol=F32_TOL)
+    dm, w2t = r(M, K), r(N, K, k=K ** -0.5)
+    got = gemm.linear_f32(dm, w2t, epi="dgelu", aux=d)
+    want = gemm.linear_sm90_ref(dm, w2t, epi="dgelu", aux=dr)
+    for x, y in zip(got, want):
+        _close(x, y, tol=F32_TOL)
+    assert torch.equal(got[1], gemm.linear_f32(dm, w2t, epi="dgelu",
+                                               aux=d)[1])
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("shift", [False, True])
+def test_block_attention_bwd_f32_stage_windows(dev, gen, case, shift):
+    """K1 fp32 + K5 fp32 through `BlockAttentionFn` at both stages' window
+    shapes (TN 128 x hd 128, TN 32 x hd 256), with and without the shift:
+    each gradient against autograd of the fp32 twin within F32_TOL, one
+    launch of each form, the same bits from a second backward."""
+    T, H, W, C, heads, ws = ROW_CASES[case]
+    C = 256 if case == "s1" else 512  # hd 128 / 256 over 2 heads
+    args = _f32(_attn_args(dev, gen, ws // 2 if shift else 0, T=T, H=H, W=W,
+                           C=C, heads=2, ws=ws, gain_qkv=3.0, gain_proj=2.0,
+                           bias_k=1.0))
+    leaves, rest = args[:6], args[6:]
+    g = torch.randn(leaves[0].shape, generator=gen, device=dev)
+    fwd, bwd = (block_attention.swin_block_attention_f32,
+                block_attention.swin_block_attention_bwd_f32)
+    n = (fwd.launches, bwd.launches)
+    runs = []
+    for _ in range(2):
+        lv = [t.detach().requires_grad_() for t in leaves]
+        out = block_attention.swin_block_attention(*lv, *rest)
+        runs.append(torch.autograd.grad(out, lv, g))
+    assert (fwd.launches, bwd.launches) == (n[0] + 2, n[1] + 2)
+    lv = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(
+        block_attention.swin_block_attention_ref(*lv, *rest), lv, g)
+    for a, b, w in zip(*runs, want):
+        assert torch.equal(a, b)
+        _close(a, w, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("C,shift", [(512, 0), (512, 2), (1024, 2)])
+def test_epilogue_f32_training_forms(dev, gen, C, shift):
+    """K2 fp32 + K6 fp32 through `EpilogueFn`: at C 512 (hidden 2048) the
+    forward saves no m and K6 recomputes it (Pallas row 7); at C 1024 the
+    row-8 forward saves m and K6 takes it (row 9). Every gradient against
+    autograd of the fp32 twin within F32_TOL, the same bits twice."""
+    hidden = 4 * C
+    p = _f32(_epi_params(dev, gen, C, hidden))
+    x, y = (torch.randn((1, 2, 8, 12, C), generator=gen, device=dev)
+            for _ in range(2))
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    kw = dict(gelu_exact=True, shift=shift, ws=4)
+    fwd, bwd = (add_ln_mlp.swin_block_epilogue_f32,
+                add_ln_mlp.swin_block_epilogue_bwd_f32)
+    saved = add_ln_mlp.mlp_output_saved(C, hidden, torch.float32)
+    assert saved == (C == 1024)
+    n = (fwd.launches, bwd.launches)
+    runs = []
+    for _ in range(2):
+        lv = [t.detach().requires_grad_() for t in [x, y, *p]]
+        out = add_ln_mlp.swin_block_epilogue(*lv, **kw)
+        m = out.grad_fn.saved_tensors[-1]
+        assert (m is not None) == saved
+        runs.append(torch.autograd.grad(out, lv, g))
+    assert (fwd.launches, bwd.launches) == (n[0] + 2, n[1] + 2)
+    if saved:
+        with torch.no_grad():
+            _close(m, add_ln_mlp.swin_block_epilogue_with_m_ref(
+                x, y, *p, **kw)[1], tol=F32_TOL)
+    lv = [t.detach().requires_grad_() for t in [x, y, *p]]
+    want = torch.autograd.grad(
+        add_ln_mlp.swin_block_epilogue_ref(*lv, **kw), lv, g)
+    for a, b, w in zip(*runs, want):
+        assert torch.equal(a, b)
+        _close(a, w, tol=F32_TOL)
+
+
+def test_attn_f32_bwd_plan_matches_the_library(dev):
+    """The Python plan of K5 fp32's attention backward (what
+    `check_backward_window` refuses before a trained block's forward)
+    and the library's (`attn_bwd_f32_smem`, -1 for a window it refuses)
+    agree on every window the model and the tests use and on the edges."""
+    from stswincl_tpu_torch import kernels
+    for TN in (16, 32, 48, 64, 96, 128, 144):
+        for hd in (32, 64, 128, 192, 256, 512):
+            lib = kernels.query("stswin_attn_bwd_f32_smem", TN, hd)
+            takes = block_attention._attn_f32_bwd_takes(TN, hd)
+            plan = block_attention._attn_f32_bwd_smem_bytes(TN, hd)
+            assert lib == (plan if takes else -1), (TN, hd, lib, plan)

@@ -1,10 +1,11 @@
 """The fp32 route of the port, on the CPU: `build_model` builds an fp32
 model on the kernels (`kernels=None`) on every route whose attention
-kernel has an fp32 form; the graph predicate `kernels.fp32_twin` sends an
-fp32 forward on the card that records a graph to the plain twins and one
-that records none to the fp32 forms of K1-K3 (shown on meta tensors, which
-take the card's branches of the wrappers without a card); the fp32
-attention core's shared-memory plan; and the fp32 slice as a whole:
+kernel has an fp32 form; an fp32 forward on the card that records no
+graph launches the fp32 forms of K1-K3 directly and one that records a
+graph goes through their autograd Functions, which call those forms
+(shown on meta tensors, which take the card's branches of the wrappers
+without a card; the backward half is in test_torch_fp32_train.py); the
+fp32 attention core's shared-memory plan; and the fp32 slice as a whole:
 `build_model(dtype="float32")` through `StreamingSegmenter` against the
 JAX fp32 model routed as on the TPU, its Pallas kernels interpreted."""
 
@@ -55,24 +56,9 @@ def _meta(*shape, grad=False, dtype=torch.float32):
                        requires_grad=grad)
 
 
-def test_fp32_twin_predicate():
-    """True only for fp32 off the CPU with a graph recorded through x or a
-    parameter: the fp32 forms have no backward kernel."""
-    x, w = _meta(4, 8), _meta(8, 8, grad=True)
-    assert kernels.fp32_twin(x, w)
-    assert kernels.fp32_twin(_meta(4, 8, grad=True))
-    assert not kernels.fp32_twin(x, _meta(8, 8))
-    with torch.no_grad():
-        assert not kernels.fp32_twin(x, w)
-    with torch.inference_mode():
-        assert not kernels.fp32_twin(_meta(4, 8), _meta(8, 8, grad=True))
-    assert not kernels.fp32_twin(_meta(4, 8, dtype=torch.bfloat16), w)
-    # the CPU keeps the autograd Functions, whose CPU forms are the twins
-    assert not kernels.fp32_twin(torch.zeros(4, 8),
-                                 torch.zeros(8, 8, requires_grad=True))
-
-
-B, T, H, W, C, HEADS, WS = 1, 2, 8, 8, 64, 2, 4
+# one head of 64: a window the fp32 attention backward takes, which the
+# Function checks before its forward
+B, T, H, W, C, HEADS, WS = 1, 2, 8, 8, 64, 1, 4
 
 
 def _k1(grad):
@@ -94,6 +80,21 @@ def _k3(grad):
              _meta(2 * C, 4 * C, grad=grad)), {})
 
 
+def _outs(*shapes):
+    out = tuple(torch.empty(s, device="meta") for s in shapes)
+    return out if len(out) > 1 else out[0]
+
+
+# the fp32 form each Function's forward calls, and its meta outputs
+TRAIN_FORMS = {
+    "K1": ("_forward_f32", lambda x, *a, **k: _outs(
+        x.shape, (x.numel() // C, 3 * C), (x.numel() // C, C))),
+    "K2": ("swin_block_epilogue_f32", lambda x, *a, m_out=False, **k: _outs(
+        *[x.shape] * (2 if m_out else 1))),
+    "K3": ("patch_merge_f32", lambda x, *a, **k: _outs(
+        (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, 2 * x.shape[3]))),
+}
+
 CASES = {
     "K1": (block_attention, "swin_block_attention",
            "swin_block_attention_f32", _k1),
@@ -109,8 +110,9 @@ CASES = {
 def test_fp32_wrappers_route_by_graph(monkeypatch, case):
     """On fp32 tensors off the CPU, the wrapper launches the fp32 form when
     no graph is recorded (no grad asked for, `no_grad`,
-    `inference_mode`) and runs the plain twin under autograd when one is:
-    the output then carries the twin's graph and no form is called."""
+    `inference_mode`) and goes through its autograd Function when one is:
+    the output then carries the Function's graph, whose forward called the
+    fp32 form (K1's with its window-order scratch) once, and no twin."""
     mod, wrapper, form, make = CASES[case]
     calls = []
     monkeypatch.setattr(mod, form, lambda *a, **k: calls.append(a) or "f32")
@@ -121,10 +123,14 @@ def test_fp32_wrappers_route_by_graph(monkeypatch, case):
         with ctx():
             assert fn(*args, **kw) == "f32"
     assert len(calls) == 3
+    attr, fake = TRAIN_FORMS[case.split()[0]]
+    monkeypatch.setattr(mod, attr, lambda *a, **k: calls.append(a)
+                        or fake(*a, **k))
     args, kw = make(True)
     out = fn(*args, **kw)
-    assert out.device.type == "meta" and out.grad_fn is not None
-    assert len(calls) == 3
+    assert out.device.type == "meta"
+    assert type(out.grad_fn).__name__.endswith("FnBackward")
+    assert len(calls) == 4
 
 
 def test_fp32_attention_shared_memory_plan():
@@ -169,7 +175,8 @@ def jax_tpu_interpreted(monkeypatch):
     """The JAX package routed as on its TPU, every Pallas kernel it then
     reaches interpreted on the CPU: K1 (attention with the shift inside),
     K2 (both epilogues), K3 (the patch merge) and K4 (the resize +
-    argmax)."""
+    argmax), in serving and in a train step (whose custom VJPs, given
+    `interpret`, differentiate the XLA references)."""
     import stswincl_tpu.ops.pallas_add_ln_mlp as palm
     import stswincl_tpu.ops.pallas_attention as pa
     import stswincl_tpu.ops.pallas_block_attention as pba
@@ -187,9 +194,10 @@ def jax_tpu_interpreted(monkeypatch):
     monkeypatch.setattr(palm, "fused_swin_block_epilogue_shifted",
                         lambda *a, **kw: epis(*a[:13], 1e-5, True))
     merge = ppm.fused_patch_merge
+    # the custom VJPs' forward rules (a train step) pass `interpret` too
     monkeypatch.setattr(ppm, "fused_patch_merge",
-                        lambda x, s, b, w, eps=1e-5: merge(x, s, b, w, eps,
-                                                           True))
+                        lambda x, s, b, w, eps=1e-5, interpret=False:
+                        merge(x, s, b, w, eps, True))
     up = pua.upsample_argmax_pallas
     monkeypatch.setattr(pua, "upsample_argmax_pallas",
                         lambda x, mh, mw, interpret=False, exact=False:

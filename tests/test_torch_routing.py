@@ -22,8 +22,8 @@ from stswincl_tpu_torch.pipelines.common import build_model
                                         ("bfloat16", None)])
 def test_build_model_routes_fp32_to_the_twins(dtype, want):
     """Both dtypes build with `kernels=None` on the default route: an fp32
-    model runs the fp32 kernels where no graph is recorded and the twins
-    under autograd (`kernels.fp32_twin`), no longer the twins alone."""
+    model runs the fp32 kernels, forward and under autograd (the fp32
+    forms of K1-K3, K5 and K6), no longer the twins alone."""
     model, classes = build_model(ModelConfig(swin_dim=64, swin_depths=(1, 1),
                                              dtype=dtype),
                                  DataConfig(crop_hw=(64, 96)), device="cpu")
