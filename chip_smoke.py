@@ -167,7 +167,21 @@ stops a phase exits non-zero at once:
      step's bit-equality reported; then batch 8: ms/step and peak memory;
      (e) the stage-2 step at `ContrastTrainConfig`'s defaults on the fp32
      forms: the same gate against its twin step, then launches, ms and
-     peak memory;
+     peak memory; (a) also the fp32 forms of rows 10 and 11 (both stages,
+     W-MSA and SW-MSA) and of row 16 (`csrc/fp32_whole_block.cu`, both
+     stages, W-MSA), each within TOL_F32_REL of its fp32 twin, bit-equal
+     across two calls, its twin with q, k, v (row 16: every product
+     operand) on TF32, with P rounded to bf16 and (SW-MSA) without the
+     mask missing tenfold, timed beside the twin, the bf16 kernel, SDPA in
+     fp32 (row 11) and, for row 16, the fp32 K1 + K2 pair it must equal
+     within TOL_F32_REL; (f) fp32 serving on 'pallas', 'pallas_windows'
+     and `whole_block`: each predict_next launches its route's fp32 forms
+     as often as phases 3b / 3c launch the bf16 kernels (row 10 or 11 14,
+     row 16 7) and no bf16 kernel, predictions the fp32 plain route's on
+     >= 99.9 %, ms and frames/s; (g) one fp32 stage-1 step at batch 2 on
+     'pallas' and on `whole_block` through `fp32_step_gate` (planted
+     faults: row 10 without the mask, row 16 with wproj transposed, K5's
+     and K6's of (d) where they run, bf16 autocast), exact launches;
   8. stage-2 pretraining at full width (`ContrastEncoder`, batch 4, six
      views of 4 frames at 256x448, `ContrastTrainConfig`'s LARS and EMA):
      (a) one step on the kernel route against one on the plain route and
@@ -547,7 +561,8 @@ def kernel_wrappers() -> dict:
                                         block_attention, conv, gemm,
                                         layernorm, mlp, patch_merge,
                                         swin_block, upsample_argmax)
-    from stswincl_tpu_torch.ops.attention import fused_window_attention
+    from stswincl_tpu_torch.ops.attention import (fused_window_attention,
+                                                  fused_window_attention_f32)
     return {
         "swin_block_attention": block_attention.swin_block_attention,
         "swin_block_epilogue": add_ln_mlp.swin_block_epilogue,
@@ -573,7 +588,11 @@ def kernel_wrappers() -> dict:
         "swin_block_attention_bwd_f32":
             block_attention.swin_block_attention_bwd_f32,
         "swin_block_epilogue_bwd_f32": add_ln_mlp.swin_block_epilogue_bwd_f32,
-        "wgrad_f32": gemm.wgrad_f32}
+        "wgrad_f32": gemm.wgrad_f32,
+        "windowed_attention_image_f32":
+            block_attention.windowed_attention_image_f32,
+        "fused_window_attention_f32": fused_window_attention_f32,
+        "whole_swin_block_f32": swin_block.whole_swin_block_f32}
 
 
 def reset_launches(wrappers) -> None:
@@ -1768,6 +1787,15 @@ def main() -> None:
             "fp32_train.cu", "the fp32 weight-gradient matmuls of "
             "stswincl_tpu/ops/pallas_block_attention.py:405 and "
             "pallas_add_ln_mlp.py:181, :425"),
+        "windowed_attention_image_f32": (
+            "fp32_forms.cu", "stswincl_tpu/ops/pallas_block_attention.py:128"
+            " (fp32)"),
+        "fused_window_attention_f32": (
+            "fp32_forms.cu", "stswincl_tpu/ops/pallas_attention.py:118 "
+            "(fp32)"),
+        "whole_swin_block_f32": (
+            "fp32_whole_block.cu",
+            "stswincl_tpu/ops/pallas_swin_block.py:229 (fp32)"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -1806,7 +1834,11 @@ def main() -> None:
              "Hopper GEMM launches"),
             ("whole_swin_block", "one persistent launch: the Hopper GEMM "
              "tile (sm90_tile.cuh) for its four products, K1's register "
-             "attention core (attention_core.cuh), K2's LN order")):
+             "attention core (attention_core.cuh), K2's LN order"),
+            ("whole_swin_block_f32", "one persistent launch: the fp32 GEMM "
+             "tile (fp32_gemm.cuh) for its four products, K1's fp32 "
+             "attention core (fp32_attention.cuh), K2's fp32 LN order; "
+             "each case's pair_ms is the fp32 K1 + K2 pair on its inputs")):
         next(r for r in rows if r["name"] == name)["design"] = design
     row16["backward"] = results["whole_swin_block_bwd"]
     next(r for r in rows if r["name"] == "patch_merge")["backward"] = k3_bwd
@@ -2930,6 +2962,16 @@ TOL_F32_SHARE = 0.999
 # block pairs, one patch merge, one resize + argmax
 SERVE_STEP = {"attention": 14, "epilogue": 14, "patch_merge": 1,
               "upsample_argmax": 1}
+# (f) a predict_next on each route off 'pallas_full': the launches of
+# phases 3b / 3c, each kernel in its fp32 form (K4 in its exact form)
+F32_ROUTE_SERVE_STEP = {
+    route: {attn: n, "swin_block_epilogue_f32": n,
+            "patch_merge_f32": 1, "upsample_argmax": 1, **extra}
+    for route, attn, n, extra in (
+        ("pallas", "windowed_attention_image_f32", 14, {}),
+        ("pallas_windows", "fused_window_attention_f32", 14, {}),
+        ("whole_block", "whole_swin_block_f32", 7,
+         {"swin_block_attention_f32": 7}))}
 # (a)'s block shapes: the serving batch's two groups of 2 frames at each
 # stage, (4, 2, 64, 80, 512) and (4, 2, 32, 40, 1024); K3 at (8, 64, 80,
 # 512)
@@ -3035,28 +3077,34 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
                 * gain * fan_in ** -0.5)
 
-    def compare(kname, case, form, kfn, pfn, bfn, faults, work):
+    def compare(kname, case, form, kfn, pfn, bfn, faults, work, lib=None):
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == f32 == want.dtype,
               f"{kname} {case}: {got.shape}/{got.dtype} vs "
               f"{want.shape}/{want.dtype}")
         n = form.launches
-        kfn()
+        again = kfn()
         check(form.launches == n + 1, f"{kname} {case}: {form.launches - n}"
               " launches of the fp32 form a call")
+        check(torch.equal(got, again), f"{kname} {case}: two calls differ "
+              f"by {(got - again).abs().max().item()}")
+        del again
         d = got - want
         row = {"case": case, "max_abs_err": d.abs().max().item(),
                "rel_err": (d.norm() / want.norm()).item(),
                "ms": median_ms(kfn), "plain_ms": median_ms(pfn),
                "bf16_ms": None if bfn is None else median_ms(bfn),
-               "library_ms": None, **f32_bound(*work)}
+               "library_ms": None if lib is None else median_ms(lib),
+               **f32_bound(*work)}
         results.setdefault(kname, []).append(row)
         print(f"  {kname:24s} {case:36s} rel {row['rel_err']:.3e} max_abs "
               f"{row['max_abs_err']:.3e} fp32 kernel {row['ms']:.3f} ms twin "
               f"{row['plain_ms']:.3f} ms" + (
                   "" if bfn is None else f" bf16 kernel {row['bf16_ms']:.3f}"
-                  " ms") + f" bound {row['bound_ms']:.4f} ms (FMA "
+                  " ms") + ("" if lib is None else
+                            f" library {row['library_ms']:.3f} ms")
+              + f" bound {row['bound_ms']:.4f} ms (FMA "
               f"{row['fma_bound_ms']:.4f})", flush=True)
         check(row["rel_err"] <= TOL_F32_REL, f"{kname} {case}: relative "
               f"error {row['rel_err']} > {TOL_F32_REL}")
@@ -3173,6 +3221,8 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
                       randn(rm, 4 * C), pm[2], None, "none", None, None,
                       None))
         del xm, xmb
+        phase_fp32_route_kernels(dev, compare, randn, uniform, median_ms,
+                                 results)
 
         for case, a, wt, bias_, act, a_map, c_map, out in gemms:
             M, K = a.shape
@@ -3212,6 +3262,206 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
                   f"relative error {row['rel_err']} > {TOL_F32_REL}")
             check(row["tf32_fault"] > 10 * TOL_F32_REL, f"linear_f32 {case}"
                   f": the TF32 twin moves by only {row['tf32_fault']}")
+
+
+def attend_fault(q, k, v, bias, mask, scale, operands=None, p_round=None):
+    """`attend_tiled` in fp32 with a planted fault: q, k and v passed
+    through `operands` (`tf32`: a form that ran Q K^T and P V in one TF32
+    pass) and P through `p_round` (`tf32`, or a rounding to bf16: the
+    bf16 kernels' contract)."""
+    import torch
+    if operands is not None:
+        q, k, v = operands(q), operands(k), operands(v)
+    Bw, heads, TN, _ = q.shape
+    s = (q @ k.transpose(-1, -2)) * scale + bias[None]
+    if mask is not None and mask.shape[0] > 1:
+        nW = mask.shape[0]
+        s = (s.reshape(Bw // nW, nW, heads, TN, TN)
+             + mask[None, :, None]).reshape(Bw, heads, TN, TN)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    if p_round is not None:
+        p = p_round(p)
+    return p @ v
+
+
+def bf16_round(t):
+    import torch
+    return t.to(torch.bfloat16).float()
+
+
+def image_attention_fault(qkv, bias, mask, heads, scale, ws, **fault):
+    """Row 10's fp32 twin (`windowed_attention_image_ref`) with the
+    planted fault of `attend_fault`."""
+    from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
+    B, T, H_, W_, _ = qkv.shape
+    q, k, v = partition_qkv(qkv, heads, ws)
+    return reverse_windows(attend_fault(q, k, v, bias, mask, scale, **fault),
+                           B, T, H_, W_, ws)
+
+
+def whole_block_fault(x, params, cfg, rnd=None, p_round=None):
+    """Row 16's fp32 twin with a planted fault: every product operand
+    passed through `rnd` (`tf32`), P through `p_round`."""
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.add_ln_mlp import layer_norm_f32
+    from stswincl_tpu_torch.ops.mlp import gelu
+    r = rnd if rnd is not None else (lambda t: t)
+    wqkv, bqkv, wproj, bproj, bias, _, s2, b2, w1, b1, w2, bw2, s1, b1n = \
+        params
+    heads, scale, ws = cfg
+    qkv = F.linear(r(x), r(wqkv), bqkv)
+    attn = image_attention_fault(qkv, bias, None, heads, scale, ws,
+                                 operands=rnd, p_round=p_round)
+    s = x + F.linear(r(attn), r(wproj), bproj)
+    h = gelu(F.linear(r(layer_norm_f32(s, s2, b2, 1e-5)), r(w1), b1), True)
+    return layer_norm_f32(s + F.linear(r(h), r(w2), bw2), s1, b1n, 1e-5)
+
+
+def phase_fp32_route_kernels(dev, compare, randn, uniform, median_ms,
+                             results) -> None:
+    """Phase 7 (a), the routes off 'pallas_full': the fp32 forms of rows
+    10 (image-layout qkv) and 11 (partitioned q, k, v) at both stages'
+    serving window shapes, W-MSA and SW-MSA, and of row 16 (the whole
+    W-MSA block) at both stages, through phase 7 (a)'s `compare`: each
+    within TOL_F32_REL of its fp32 twin, bit-equal across two calls, timed
+    beside the twin and the bf16 kernel on the same values (row 11 also
+    beside SDPA in fp32, its library yardstick); planted faults in the
+    twin must miss the bound tenfold: q, k, v (row 16: every product
+    operand and P) on TF32, P rounded to bf16, and (SW-MSA) the mask
+    dropped. qkv is drawn at std 2 and the relative bias N(0, 1), row
+    16's weights as phase 7 (a) draws K1's and K2's, so that the softmax
+    is peaked and the attention branch as large as x. Row 16 is also held
+    within TOL_F32_REL of the fp32 K1 + K2 pair (`whole_swin_block_pair`,
+    whose bits it should carry) and timed beside it."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops import swin_block as wb_ops
+    from stswincl_tpu_torch.ops.attention import (attend_tiled,
+                                                  fused_window_attention,
+                                                  fused_window_attention_f32)
+    from stswincl_tpu_torch.ops.block_attention import (
+        windowed_attention_image, windowed_attention_image_f32,
+        windowed_attention_image_ref)
+    from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                               shifted_window_attention_mask)
+
+    bf16 = torch.bfloat16
+    heads, T = 4, 2
+    for s, cfg in F32_STAGES.items():
+        C, h, w, ws = cfg["C"], cfg["h"], cfg["w"], cfg["ws"]
+        TN, hd, R = T * ws * ws, C // heads, 2 * BS * T * h * w
+        scale = hd ** -0.5
+        qkv = randn(2 * BS, T, h, w, 3 * C, scale=2.0)
+        q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+        bias = randn(heads, TN, TN)
+        qkvb, qb, kb, vb = (t.to(bf16) for t in (qkv, q, k, v))
+        for shift in (0, ws // 2):
+            mask = None
+            if shift:
+                mask = torch.from_numpy(shifted_window_attention_mask(
+                    h, w, ws, shift)).repeat(1, T, T).to(dev)
+            tables = heads * TN * TN * 4 + (0 if mask is None
+                                            else mask.numel() * 4)
+            work = (4 * R * TN * C, 4 * R * C * 4 + tables)
+            a10 = (bias, mask, heads, scale, ws)
+            faults = [("with q, k, v on TF32", lambda: image_attention_fault(
+                          qkv, *a10, operands=tf32)),
+                      ("with P rounded to bf16",
+                       lambda: image_attention_fault(qkv, *a10,
+                                                     p_round=bf16_round))]
+            if mask is not None:
+                faults.append(("without the mask",
+                               lambda: windowed_attention_image_ref(
+                                   qkv, bias, None, heads, scale, ws)))
+            compare("windowed_attention_image_f32",
+                    f"stage{s} {tuple(qkv.shape)} mask={bool(shift)}",
+                    windowed_attention_image_f32,
+                    lambda: windowed_attention_image(qkv, *a10),
+                    lambda: windowed_attention_image_ref(qkv, *a10),
+                    lambda: windowed_attention_image(qkvb, *a10), faults,
+                    work)
+            # the library yardstick: SDPA in fp32, bias (+ the window's
+            # mask) its additive mask, windows regrouped so that the mask
+            # broadcasts over the images; timed only, the port never calls
+            # it
+            if mask is None:
+                qs, ks, vs, am = q, k, v, bias[None]
+            else:
+                nW = mask.shape[0]
+                qs, ks, vs = (t.reshape(-1, nW * heads, TN, hd)
+                              for t in (q, k, v))
+                am = (mask[:, None] + bias[None]).reshape(1, nW * heads, TN,
+                                                          TN)
+            a11 = (bias, mask, scale)
+            faults = [("with q, k, v on TF32", lambda: attend_fault(
+                          q, k, v, *a11, operands=tf32)),
+                      ("with P rounded to bf16", lambda: attend_fault(
+                          q, k, v, *a11, p_round=bf16_round))]
+            if mask is not None:
+                faults.append(("without the mask", lambda: attend_tiled(
+                    q, k, v, bias, None, scale)))
+            compare("fused_window_attention_f32",
+                    f"stage{s} {tuple(q.shape)} mask={bool(shift)}",
+                    fused_window_attention_f32,
+                    lambda: fused_window_attention(q, k, v, *a11),
+                    lambda: attend_tiled(q, k, v, *a11),
+                    lambda: fused_window_attention(qb, kb, vb, *a11),
+                    faults, work,
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=am, scale=scale))
+            del qs, ks, vs, am
+        del qkv, q, k, v, qkvb, qb, kb, vb
+
+        # row 16, W-MSA, the weights phase 7 (a) gives K1 and K2
+        hidden = 4 * C
+        x = randn(2 * BS, T, h, w, C)
+        params = [uniform(3 * C, C, fan_in=C, gain=3.0),
+                  uniform(3 * C, fan_in=C),
+                  uniform(C, C, fan_in=C, gain=2.0), uniform(C, fan_in=C),
+                  randn(heads, TN, TN), None,
+                  1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                  uniform(hidden, C, fan_in=C, gain=2.0),
+                  uniform(hidden, fan_in=C),
+                  uniform(C, hidden, fan_in=hidden, gain=2.0),
+                  uniform(C, fan_in=hidden),
+                  1.0 + randn(C, scale=0.1), randn(C, scale=0.1)]
+        bparams = [p if p is None or p.dim() != 2 else p.to(bf16)
+                   for p in params]
+        cfgw = (heads, scale, ws)
+        xb = x.to(bf16)
+        case = f"stage{s} {tuple(x.shape)}"
+        compare("whole_swin_block_f32", case, wb_ops.whole_swin_block_f32,
+                lambda: wb_ops.whole_swin_block(x, *params, *cfgw),
+                lambda: wb_ops.whole_swin_block_ref(x, *params, *cfgw),
+                lambda: wb_ops.whole_swin_block(xb, *bparams, *cfgw),
+                [("on TF32 operands", lambda: whole_block_fault(
+                    x, params, cfgw, rnd=tf32, p_round=tf32)),
+                 ("with P rounded to bf16", lambda: whole_block_fault(
+                     x, params, cfgw, p_round=bf16_round))],
+                (8 * R * C * C + 4 * R * TN * C + 4 * R * C * hidden,
+                 2 * R * C * 4 + (4 * C * C + 2 * C * hidden) * 4
+                 + (9 * C + hidden) * 4 + heads * TN * TN * 4))
+
+        def pair():
+            return wb_ops.whole_swin_block_pair(x, *params, *cfgw)
+        got = wb_ops.whole_swin_block(x, *params, *cfgw)
+        want = pair()
+        torch.cuda.synchronize()
+        d = got - want
+        row = results["whole_swin_block_f32"][-1]
+        row.update(pair_rel_err=(d.norm() / want.norm()).item(),
+                   pair_max_abs=d.abs().max().item(),
+                   pair_bit_equal=bool(torch.equal(got, want)),
+                   pair_ms=median_ms(pair))
+        print(f"  {'':24s} {case:36s} against the fp32 K1 + K2 pair: rel "
+              f"{row['pair_rel_err']:.3e}, max_abs {row['pair_max_abs']:.3e},"
+              f" bit-equal {row['pair_bit_equal']}; the pair "
+              f"{row['pair_ms']:.3f} ms", flush=True)
+        check(row["pair_rel_err"] <= TOL_F32_REL, f"whole_swin_block_f32 "
+              f"{case}: {row['pair_rel_err']} from the fp32 pair")
+        del x, xb, params, bparams, got, want, d
+        torch.cuda.empty_cache()
 
 
 # (a) the fp32 training forms: K5 (Pallas row 6) at both stages' training
@@ -3510,12 +3760,14 @@ F32_STEP = {"swin_block_attention_f32": FT_BLOCKS,
             "swin_block_epilogue_bwd_f32": FT_BLOCKS}
 
 
-def fp32_step_launches(tag, counts, forms, steps=1, recomputed=None):
+def fp32_step_launches(tag, counts, forms, steps=1, recomputed=None,
+                       step=F32_STEP):
     """A path of `steps` fp32 stage-1 (or stage-2: pass `recomputed` 0)
-    steps: exactly F32_STEP's launches a step, no other kernel (no twin
-    runs a kernel, no bf16 form), and the fp32 GEMMs the forms imply."""
+    steps: exactly `step`'s launches a step (F32_STEP on 'pallas_full'),
+    no other kernel (no twin runs a kernel, no bf16 form), and the fp32
+    GEMMs the forms imply."""
     for k, n in counts.items():
-        want = steps * F32_STEP.get(k, 0)
+        want = steps * step.get(k, 0)
         if k in ("linear_f32", "wgrad_f32"):
             continue
         check(n == want, f"{tag}: {k} launched {n} times, expected {want}")
@@ -3524,20 +3776,34 @@ def fp32_step_launches(tag, counts, forms, steps=1, recomputed=None):
     check_gemm_launches(tag, counts, forms, f32_recomputed=rec)
 
 
-def fp32_step_faults() -> list:
-    """The planted faults of the fp32 step gates: (what, a context that
-    plants it, the step's `kernels`, whether it is held). Held: K5 with
-    its dbias zeroed and K6 without its LN2 path (each form patched by
+def fp32_step_faults(route: str = "pallas_full") -> list:
+    """The planted faults of the fp32 step gates on `route`: (what, a
+    context that plants it, the step's `kernels`, whether it is held).
+    Held: K5 with its dbias zeroed (where K5 runs: not on 'pallas') and K6
+    without its LN2 path (each form patched by
     `unittest.mock.patch.object`), and a precision fault, the twin step
-    under bf16 autocast. Reported only: the twin step with every matmul
-    on TF32, and K6 alone as its fp32 twin on TF32 products. The step
-    moves its gradients by about 2e-3 under input noise of 2^-22 (the
-    bounds' median is near 7e-3), so TF32 rounding stays within a few
-    bounds; (a) holds each form's precision against TF32."""
+    under bf16 autocast; on 'pallas' and `whole_block` also the route's
+    own forward form with a fault of its own: row 10 without the SW-MSA
+    mask, row 16 with its proj weight transposed (a layout slip; at init
+    scales the relative bias, std 0.02, moves a step too little to plant
+    its loss).
+    Reported only: the twin step with every matmul on TF32, and K6 alone
+    as its fp32 twin on TF32 products. The step moves its gradients by
+    about 2e-3 under input noise of 2^-22 (the bounds' median is near
+    7e-3), so TF32 rounding stays within a few bounds; (a) holds each
+    form's precision against TF32."""
     import torch
     from stswincl_tpu_torch.ops import add_ln_mlp as epi
     from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops import swin_block as wb
     att_bwd = att.swin_block_attention_bwd_f32
+    image_kernel, whole_kernel = att._image_kernel, wb._forward_kernel
+
+    def row10_without_mask(qkv, bias, mask, *a):
+        return image_kernel(qkv, bias, None, *a)
+
+    def row16_proj_transposed(x, wqkv, bqkv, wproj, *a):
+        return whole_kernel(x, wqkv, bqkv, wproj.t().contiguous(), *a)
 
     def k5_without_dbias(*a, **k):
         dx, dwq, dbq, dwp, dbp, dbias = att_bwd(*a, **k)
@@ -3559,9 +3825,14 @@ def fp32_step_faults() -> list:
         fault.launches = 0  # the form it wraps counts under its own name
         return lambda: unittest.mock.patch.object(mod, name, fault)
 
-    return [("K5 without dbias", patched(
-                att, "swin_block_attention_bwd_f32", k5_without_dbias),
-             None, True),
+    own = {"pallas": [("row 10 without the mask", patched(
+                    att, "_image_kernel", row10_without_mask), None, True)],
+           "whole_block": [("row 16 with wproj transposed", patched(
+                    wb, "_forward_kernel", row16_proj_transposed), None,
+                    True)]}.get(route, [])
+    k5 = [] if route == "pallas" else [("K5 without dbias", patched(
+        att, "swin_block_attention_bwd_f32", k5_without_dbias), None, True)]
+    return own + k5 + [
             ("K6 without its LN2 path", patched(
                 epi, "swin_block_epilogue_bwd_f32", k6_without_ln2_path),
              None, True),
@@ -3574,7 +3845,8 @@ def fp32_step_faults() -> list:
              None, False)]
 
 
-def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k) -> None:
+def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k,
+                   route="pallas_full") -> None:
     """The gate of an fp32 kernel step, its loss `loss_k` and gradients
     `grads_k` on `inputs`: `step_of(inputs, labels, kernels)` runs one step
     from fixed weights and returns (loss, gradients by name, seconds). The
@@ -3582,8 +3854,8 @@ def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k) -> None:
     inputs perturbed by relative noise of F32_CONTROL_NOISE (a few fp32
     roundings: the step's own rounding sensitivity); the loss and every
     gradient within F32_STEP_FACTOR times the controls' larger deviation
-    plus F32_STEP_FLOOR; each held fault of `fp32_step_faults` must miss
-    the bound of the loss or of some gradient tenfold."""
+    plus F32_STEP_FLOOR; each held fault of `fp32_step_faults(route)` must
+    miss the bound of the loss or of some gradient tenfold."""
     import torch
 
     def devs(a, b):
@@ -3620,7 +3892,7 @@ def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k) -> None:
           f"{loss_t}: rel {rel_loss} > {loss_bound}")
     check(not over, f"{tag}: gradients past their control bounds "
           f"{dict(list(over.items())[:5])}")
-    for what, plant, kernels, held in fp32_step_faults():
+    for what, plant, kernels, held in fp32_step_faults(route):
         with plant():
             loss_f, grads_f, _ = step_of(inputs, labels, kernels=kernels)
         moved = {n: d / bound[n] for n, d in devs(grads_f, grads_t).items()}
@@ -3635,6 +3907,97 @@ def fp32_step_gate(tag, step_of, inputs, labels, loss_k, grads_k) -> None:
               f"({what}) misses the gate by only {moved[top]}x")
     del grads_t, controls
     torch.cuda.empty_cache()
+
+
+def fp32_seg_step_of(dev, weights, kw, **route):
+    """step_of(images, labels, kernels=None): one stage-1 step of the fp32
+    TswinPlus(**kw, **route) from `weights` (`route`: `attn_impl`,
+    `whole_block`), `kernels` its kernel argument (False: the twin step);
+    returns (loss, gradients by name, seconds)."""
+    import torch
+    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
+                                            SegTrainConfig)
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    cfg = SegTrainConfig(model=ModelConfig(dtype="float32"),
+                         data=DataConfig(batch_size=BS, crop_hw=(H, W)))
+
+    def step_of(images, labels, kernels=None):
+        m = TswinPlus(**kw, dtype=torch.float32, kernels=kernels, **route)
+        m.load_state_dict(weights)
+        m.to(dev).train()
+        opt, schedule = make_tx(cfg, 1, m)
+        step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                                   ohem_thresh=cfg.ohem_thresh)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.detach().clone() for n, p in m.named_parameters()}))
+        ts = time.perf_counter()
+        loss = float(step(images, labels)["loss"])
+        torch.cuda.synchronize()
+        return loss, grads, time.perf_counter() - ts
+    return step_of
+
+
+# (g) a stage-1 step on each route: F32_STEP with the route's attention
+# form; with `whole_block` row 16 takes the W-MSA block calls (counted by
+# hooks) and their backward re-runs the fp32 K1 + K2 pair, so K1 and K2,
+# like K5 and K6, run once a block call
+F32_ROUTE_STEP = {
+    "pallas": {"windowed_attention_image_f32": FT_BLOCKS,
+               **{k: n for k, n in F32_STEP.items()
+                  if k not in ("swin_block_attention_f32",
+                               "swin_block_attention_bwd_f32")}},
+    "whole_block": F32_STEP,
+}
+
+
+def phase_fp32_route_train(dev, wrappers, launches, weights, kw) -> None:
+    """Phase 7 (g): one fp32 stage-1 step at batch 2 on 'pallas' and with
+    `whole_block`, from phase 7 (b)'s weights on phase 7 (d)'s batch: the
+    kernel step's launches exact (F32_ROUTE_STEP; row 16 once a W-MSA
+    block call; no twin, no bf16 form), then `fp32_step_gate` against the
+    route's twin step with the route's planted faults."""
+    import torch
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+
+    imgs, lbls = seeded_batch(BS, seed=6)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+    for route, rkw in (("pallas", dict(attn_impl="pallas")),
+                       ("whole_block", dict(whole_block=True))):
+        tag = f"[fp32 train {route}] batch {BS}"
+        step_of = fp32_seg_step_of(dev, weights, kw, **rkw)
+        w_calls = []
+
+        def count_w(mod, inputs, _):
+            w_calls.append(mod.shift_size == 0)
+        hook = torch.nn.modules.module.register_module_forward_hook(
+            lambda mod, i, o: count_w(mod, i, o)
+            if isinstance(mod, SpaceTimeSwinBlock) else None)
+        reset_launches(wrappers)
+        try:
+            loss_k, grads_k, sec_k = step_of(images, labels)
+        finally:
+            hook.remove()
+        counts, forms = read_launches(wrappers)
+        launches[f"train_fp32_{route}"] = counts
+        want = dict(F32_ROUTE_STEP[route])
+        if route == "whole_block":
+            want["whole_swin_block_f32"] = sum(w_calls)
+            check(0 < sum(w_calls) < len(w_calls), f"{tag}: "
+                  f"{sum(w_calls)} W-MSA block calls of {len(w_calls)}")
+        check(len(w_calls) == FT_BLOCKS, f"{tag}: {len(w_calls)} swin "
+              f"block calls, expected {FT_BLOCKS}")
+        print(f"  {tag}: kernel step {sec_k:.2f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        fp32_step_launches(tag, counts, forms, step=want)
+        fp32_step_gate(tag, step_of, images, labels, loss_k, grads_k,
+                       route)
+        del grads_k
+        torch.cuda.empty_cache()
 
 
 def phase_fp32_train(dev, smi, wrappers, launches, weights, kw) -> dict:
@@ -3654,23 +4017,7 @@ def phase_fp32_train(dev, smi, wrappers, launches, weights, kw) -> dict:
 
     cfg = SegTrainConfig(model=ModelConfig(dtype="float32"),
                          data=DataConfig(batch_size=BS, crop_hw=(H, W)))
-
-    def step_of(images, labels, kernels=None):
-        """One step from `weights`: (loss, gradients by name, seconds)."""
-        m = TswinPlus(**kw, dtype=torch.float32, kernels=kernels)
-        m.load_state_dict(weights)
-        m.to(dev).train()
-        opt, schedule = make_tx(cfg, 1, m)
-        step = make_seg_train_step(m, opt, schedule, cfg.loss,
-                                   ohem_thresh=cfg.ohem_thresh)
-        grads = {}
-        opt.register_step_pre_hook(lambda *_: grads.update(
-            {n: p.grad.detach().clone() for n, p in m.named_parameters()}))
-        ts = time.perf_counter()
-        loss = float(step(images, labels)["loss"])
-        torch.cuda.synchronize()
-        return loss, grads, time.perf_counter() - ts
-
+    step_of = fp32_seg_step_of(dev, weights, kw)
     imgs, lbls = seeded_batch(BS, seed=6)
     images = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(lbls).to(dev).long()
@@ -4011,6 +4358,54 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
     print(f"phase 7 (b) fp32 serving: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # (f) fp32 serving on the routes off 'pallas_full'
+    t0 = time.perf_counter()
+    for route, want in F32_ROUTE_SERVE_STEP.items():
+        rkw = (dict(whole_block=True) if route == "whole_block"
+               else dict(attn_impl=route))
+        if route == "whole_block":  # as phase 3c builds the bf16 one
+            m = TswinPlus(**kw, dtype=torch.float32, **rkw)
+        else:
+            m, _ = build_model(ModelConfig(dtype="float32", **rkw),
+                               cfg.data, device=dev)
+        check(m.kernels is None, f"fp32 {route}: kernels {m.kernels}")
+        m.load_state_dict(weights)
+        path = f"serve_fp32_{route}"
+        rpreds, rstep, rforms, *rates[f"fp32 {route}"] = drive(
+            m.to(dev).eval(), path)
+        print(f"  [fp32 {route}] serving-path launches a predict_next: "
+              f"{ {k: v for k, v in rstep.items() if v} }", flush=True)
+        check_gemm_launches(f"fp32 serve {route}", launches[path], rforms,
+                            m_saved=0)
+        for k, n in rstep.items():
+            check(n == want.get(k, 0) or k == "linear_f32", f"fp32 serve "
+                  f"{route}: {k} launched {n} times a predict_next, "
+                  f"expected {want.get(k, 0)}")
+        plain = TswinPlus(**kw, dtype=torch.float32, kernels=False, **rkw)
+        plain.load_state_dict(weights)
+        plain_preds, plain_step, _, *rates[f"fp32 {route} plain"] = drive(
+            plain.to(dev).eval(), f"{path}_plain")
+        check(sum(plain_step.values()) == 0,
+              f"fp32 {route} plain route launched {plain_step}")
+        shares = [(a == b).float().mean().item()
+                  for a, b in zip(rpreds, plain_preds)]
+        print(f"  [fp32 {route}] kernel route == fp32 plain route: min "
+              f"{min(shares):.6f} of pixels over {len(shares)} frames",
+              flush=True)
+        check(min(shares) >= TOL_F32_SHARE, f"fp32 serve {route}: kernel "
+              f"vs plain route {min(shares)} < {TOL_F32_SHARE}")
+        for r in (f"fp32 {route}", f"fp32 {route} plain"):
+            ms, fps = rates[r]
+            print(f"  [fp32 serve] {r}: {ms:.2f} ms a predict_next (median "
+                  f"of {F32_STEPS - 1}), {fps:.2f} frames/s at bs {BS} on "
+                  f"{smi}; fp32 'pallas_full' {rates['fp32 kernels'][0]:.2f}"
+                  " ms", flush=True)
+        m.cpu()
+        del m, plain, rpreds, plain_preds
+        torch.cuda.empty_cache()
+    print(f"phase 7 (f) fp32 serving on the other routes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # (c) evaluation at B = 1 through run_test
     t0 = time.perf_counter()
     spy = EvalSpy(evaluate_mod.evaluate_split, wrappers)
@@ -4079,6 +4474,12 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
         dev, smi, wrappers, launches, weights, kw)}
     print(f"phase 7 (d) fp32 training: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # (g) a stage-1 step on 'pallas' and with `whole_block`
+    t0 = time.perf_counter()
+    phase_fp32_route_train(dev, wrappers, launches, weights, kw)
+    print(f"phase 7 (g) fp32 steps on 'pallas' and whole_block: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # (e) a stage-2 step on the fp32 forms
     t0 = time.perf_counter()

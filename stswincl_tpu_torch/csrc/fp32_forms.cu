@@ -1,6 +1,7 @@
-// The fp32 forms of K1, K2 and K3, on one fp32 GEMM: what an fp32 model
-// serves and evaluates through on the card, and the forward it trains
-// through (the backward forms are in fp32_train.cu).
+// The fp32 forms of K1, K2 and K3, on one fp32 GEMM, and of rows 10 and 11
+// on K1's fp32 attention core: what an fp32 model serves and evaluates
+// through on the card, and the forward it trains through (the backward
+// forms are in fp32_train.cu, row 16's fp32 form in fp32_whole_block.cu).
 //
 // Replaces the fp32 instances of the dtype-generic TPU kernels, which load
 // x.dtype, accumulate in fp32 and store x.dtype
@@ -14,7 +15,14 @@
 //        _fused_epilogue_fwd_with_m (:802) -> _epilogue_kernel_with_m
 //        (:752), Pallas row 8;
 //   K3 stswincl_tpu/ops/pallas_patch_merge.py
-//        fused_patch_merge (:122) -> _kernel (:41).
+//        fused_patch_merge (:122) -> _kernel (:41);
+//   row 10 stswincl_tpu/ops/pallas_block_attention.py
+//        windowed_attention_image (:128) -> _row_kernel (:44): attention on
+//        the image-layout qkv (the 'pallas' route);
+//   row 11 stswincl_tpu/ops/pallas_attention.py
+//        fused_window_attention (:118) -> _attn_kernel (:38): attention on
+//        partitioned (Bw, heads, TN, hd) q, k, v (the 'pallas_windows'
+//        route).
 // Their bf16 forms (block_attention.cu, epilogue.cu, patch_merge.cu) run
 // bf16 operands on the tensor cores; nothing of them is shared here but the
 // row map and the GELU of common.cuh.
@@ -24,7 +32,8 @@
 // about 2^-11), which an fp32 model does not ask for; so every product runs
 // as fp32 FMA on the CUDA cores, whose peak is 67 TFLOP/s: K1 at the
 // serving stage 1 (97 GFLOP) at least 1.44 ms, K2 (172 GFLOP) 2.57 ms, K3
-// (43 GFLOP) 0.64 ms. A 3xTF32 split on wgmma (three TF32 products of the
+// (43 GFLOP) 0.64 ms; rows 10 and 11 at stage 1 (the attention alone, 11
+// GFLOP) 0.16 ms. A 3xTF32 split on wgmma (three TF32 products of the
 // operands' high and low halves, fp32-accurate at a third of the TF32 rate,
 // 165 TFLOP/s) is later work.
 //
@@ -44,16 +53,23 @@
 //     MLP), K6's gelu(v) and gelu'(v) from one erf evaluation, and v times
 //     an aux matrix (K6's dh * gelu'). Ragged M and N are zero-filled on
 //     load and masked on store; K is a multiple of 4.
-//   - K1's attention (`attn_f32_kernel`): one block a (window, head), TN /
-//     16 warps, q, k and v of the window in fp32 in shared memory (rows of
-//     hd + 4: 198 KiB at stage 1, TN 128 x hd 128, one block an SM; 98 KiB
-//     at stage 2, TN 32 x hd 256). A warp owns 16 query rows; lane l holds
-//     row l % 16 against the keys of parity l / 16, its scores in
-//     registers: fp32 q k^T, the scale after the product, + the tiled
-//     relative bias, + the window's mask for SW-MSA, the row max and sum
-//     across the two lanes of a row, exp, a multiply by the reciprocal of
-//     the sum; then P V 32 columns at a time, the two lanes' halves summed
-//     by one shuffle each (hd % 32 == 0). P stays fp32: nothing is rounded.
+//   - the attention (`attn_f32_kernel`, the core `attn32::pair` of
+//     fp32_attention.cuh): one block a (window, head), TN / 16 warps, q, k
+//     and v of the window in fp32 in shared memory (rows of hd + 4: 198 KiB
+//     at stage 1, TN 128 x hd 128, one block an SM; 98 KiB at stage 2, TN
+//     32 x hd 256). A warp owns 16 query rows; lane l holds row l % 16
+//     against the keys of parity l / 16, its scores in registers: fp32 q
+//     k^T, the scale after the product, + the tiled relative bias, + the
+//     window's mask for SW-MSA, the row max and sum across the two lanes
+//     of a row, exp, a multiply by the reciprocal of the sum; then P V 32
+//     columns at a time, the two lanes' halves summed by one shuffle each
+//     (hd % 32 == 0). P stays fp32: nothing is rounded. The three callers
+//     differ only in where a (window, head, token) row lives, so the kernel
+//     is one template over an address functor: K1 reads its window-order
+//     qkv buffer (the identity map); row 10 gathers straight from the
+//     image-layout qkv through the window partition and scatters its
+//     output back to the image (no partitioned copy is formed); row 11
+//     reads the head-major tensors, window b taking mask b % n_mask.
 //   - K2's and K3's row passes: a warp a row, fp32 in and out: K2's
 //     s = x + y read through the inverse cyclic shift and LN2(s), and
 //     LN1(s + m) after fc2 has added m into s (row 8: fc2 writes m, and
@@ -62,80 +78,26 @@
 
 #include <atomic>
 
+#include "fp32_attention.cuh"
 #include "fp32_gemm.cuh"
 
 namespace {
 
 // ---- the fp32 GEMM ------------------------------------------------------
 
-constexpr int GBM = 128, GBN = 128, GBK = 8;
-constexpr int GLD = GBK + 4;  // a shared row: 8 floats + 4 of padding
-constexpr int GSTAGES = 3;
-constexpr int GTHREADS = 256;
-
 std::atomic<long long> f32_gemm_launches{0};
 
-__global__ void __launch_bounds__(GTHREADS)
+__global__ void __launch_bounds__(F32_THREADS)
     gemm_f32_kernel(const F32Gemm p) {
-  __shared__ __align__(16) float As[GSTAGES][GBM][GLD];
-  __shared__ __align__(16) float Bs[GSTAGES][GBN][GLD];
+  __shared__ __align__(16) F32Tile sm;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  // the loader: row lr of each tile, the 16-byte chunk at column lc
-  const int lr = tid >> 1, lc = (tid & 1) * 4;
+  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
+  const int lr = tid >> 1;  // the row of each tile this thread loads
   const bool a_row = m0 + lr < p.M, b_row = n0 + lr < p.N;
-  const float* a_src =
-      p.A + (a_row ? map_row(p.a_map, m0 + lr) : 0) * p.lda + lc;
-  const float* b_src = p.Wt + (long long)(b_row ? n0 + lr : 0) * p.K + lc;
-  const int nk = (p.K + GBK - 1) / GBK;
-  auto load = [&](int stage, int kt) {
-    const int k = kt * GBK;
-    const bool kin = k + lc < p.K;  // K % 4 == 0: a chunk is whole or out
-    cp_async16(&As[stage][lr][lc], kin ? a_src + k : a_src, a_row && kin);
-    cp_async16(&Bs[stage][lr][lc], kin ? b_src + k : b_src, b_row && kin);
-  };
-#pragma unroll
-  for (int s = 0; s < GSTAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    // tile kt has landed (this thread's copies); after the barrier every
-    // thread's have, and every thread is done with the stage refilled next
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // GSTAGES - 2
-    __syncthreads();
-    const int next = kt + GSTAGES - 1;
-    if (next < nk) load(next % GSTAGES, next);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int s = kt % GSTAGES;
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 4) {
-      float4 a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&As[s][ty + 16 * i][kk]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&Bs[s][tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v = acc[i][j];
-          v = fmaf(a[i].x, b[j].x, v);
-          v = fmaf(a[i].y, b[j].y, v);
-          v = fmaf(a[i].z, b[j].z, v);
-          acc[i][j] = fmaf(a[i].w, b[j].w, v);
-        }
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  f32_tile_sums(sm, p.A + (a_row ? map_row(p.a_map, m0 + lr) : 0) * p.lda,
+                a_row, p.Wt + (long long)(b_row ? n0 + lr : 0) * p.K, b_row,
+                p.K, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -173,151 +135,35 @@ cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s) {
       (p.epi == F32_DGELU && !p.aux))
     return cudaErrorInvalidValue;
   if (p.M == 0) return cudaSuccess;
-  const dim3 grid((p.N + GBN - 1) / GBN, (p.M + GBM - 1) / GBM);
-  gemm_f32_kernel<<<grid, GTHREADS, 0, s>>>(p);
+  const dim3 grid((p.N + F32_BN - 1) / F32_BN, (p.M + F32_BM - 1) / F32_BM);
+  gemm_f32_kernel<<<grid, F32_THREADS, 0, s>>>(p);
   f32_gemm_launches.fetch_add(1);
   return cudaGetLastError();
 }
 
 namespace {
 
-// ---- K1's attention -----------------------------------------------------
+// ---- the attention: K1's, row 10's and row 11's ------------------------
 
 // keys a lane can hold: TN <= 2 KPL; the widest window, TN 176
-// (`ops/attention.py` MAX_WINDOW_TOKENS), takes 88
-template <int KPL>
+// (`ops/attention.py` MAX_WINDOW_TOKENS), takes 88. One block a (window,
+// head): block b is window b / heads, head b % heads.
+template <int KPL, class Addr>
 __global__ void __launch_bounds__(352, 1)
-    attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                    const float* __restrict__ bias,
+    attn_f32_kernel(const Addr a, const float* __restrict__ bias,
                     const float* __restrict__ mask, int n_mask, int heads,
-                    int TN, int hd, int C, float scale) {
+                    int TN, int hd, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bw = blockIdx.x / heads, h = blockIdx.x - bw * heads;
-  const int ld = hd + 4;
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + TN * ld;
-  float* vs = ks + TN * ld;
-  const int nthr = blockDim.x, tid = threadIdx.x;
-  // q and k in one cp.async group, v in a second that lands while the
-  // scores are computed
-  const int chunks = hd / 4;
-  const float* win = qkv + (long long)bw * TN * 3 * C + h * hd;
-  for (int which = 0; which < 3; ++which) {
-    for (int i = tid; i < TN * chunks; i += nthr) {
-      const int r = i / chunks, c = (i - r * chunks) * 4;
-      cp_async16(qs + (which * TN + r) * ld + c,
-                 win + (long long)r * 3 * C + which * C + c);
-    }
-    if (which) asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  __syncthreads();
-
-  const int lane = tid & 31, half = lane >> 4;
-  const int row = (tid >> 5) * 16 + (lane & 15);
-  const int kpl = TN / 2;
-  // s[jj]: the score of key 2 jj + half
-  float s[KPL];
-#pragma unroll
-  for (int jj = 0; jj < KPL; ++jj) s[jj] = 0.0f;
-  const float* qr = qs + row * ld;
-  const float* kr = ks + half * ld;
-  for (int d = 0; d < hd; d += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(qr + d);
-#pragma unroll
-    for (int jj = 0; jj < KPL; ++jj) {
-      if (jj < kpl) {
-        const float4 k =
-            *reinterpret_cast<const float4*>(kr + 2 * jj * ld + d);
-        float v = fmaf(q.x, k.x, s[jj]);
-        v = fmaf(q.y, k.y, v);
-        v = fmaf(q.z, k.z, v);
-        s[jj] = fmaf(q.w, k.w, v);
-      }
-    }
-  }
-
-  const float* brow = bias + ((long long)h * TN + row) * TN + half;
-  const float* mrow =
-      mask ? mask + ((long long)(bw % n_mask) * TN + row) * TN + half
-           : nullptr;
-  float mx = -INFINITY;
-#pragma unroll
-  for (int jj = 0; jj < KPL; ++jj) {
-    if (jj < kpl) {
-      float v = s[jj] * scale + brow[2 * jj];
-      if (mrow) v += mrow[2 * jj];  // after the bias, as the twin adds them
-      s[jj] = v;
-      mx = fmaxf(mx, v);
-    }
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-  float sum = 0.0f;
-#pragma unroll
-  for (int jj = 0; jj < KPL; ++jj) {
-    if (jj < kpl) {
-      s[jj] = expf(s[jj] - mx);
-      sum += s[jj];
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-  const float inv = 1.0f / sum;
-#pragma unroll
-  for (int jj = 0; jj < KPL; ++jj) s[jj] *= inv;
-
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();  // v has landed
-
-  // o = P V, 32 columns at a time: each lane sums over its parity's keys,
-  // then lane half 0 keeps columns 0-15 and half 1 columns 16-31, each the
-  // sum of its own and its partner's (lane ^ 16) partial sums
-  float* dst = out + ((long long)bw * TN + row) * C + h * hd + 16 * half;
-  const float* vr = vs + half * ld;
-  for (int c0 = 0; c0 < hd; c0 += 32) {
-    float o[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[e] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < KPL; ++jj) {
-      if (jj < kpl) {
-        const float pj = s[jj];
-        const float* v = vr + 2 * jj * ld + c0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 vv = *reinterpret_cast<const float4*>(v + 4 * i);
-          o[4 * i] = fmaf(pj, vv.x, o[4 * i]);
-          o[4 * i + 1] = fmaf(pj, vv.y, o[4 * i + 1]);
-          o[4 * i + 2] = fmaf(pj, vv.z, o[4 * i + 2]);
-          o[4 * i + 3] = fmaf(pj, vv.w, o[4 * i + 3]);
-        }
-      }
-    }
-    float mine[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const float keep = half ? o[16 + e] : o[e];
-      const float send = half ? o[e] : o[16 + e];
-      mine[e] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(dst + c0 + 4 * i) = make_float4(
-          mine[4 * i], mine[4 * i + 1], mine[4 * i + 2], mine[4 * i + 3]);
-  }
+  attn32::pair<KPL>(a, bw, h, reinterpret_cast<float*>(smem), threadIdx.x,
+                    blockDim.x, bias, mask, n_mask, TN, hd, scale);
 }
 
-// The shared memory of a (window, head) block: q, k and v in rows of
-// hd + 4 floats (`ops/attention.py` `_attn_f32_smem_bytes`).
-size_t attn_f32_smem(int TN, int hd) {
-  return align128(size_t(3) * TN * (hd + 4) * sizeof(float));
-}
-
-template <int KPL>
-cudaError_t launch_attn(const float* qkv, float* out, int n_windows,
-                        int heads, int TN, int hd, int C, const float* bias,
-                        const float* mask, int n_mask, float scale,
-                        cudaStream_t s) {
-  const size_t bytes = attn_f32_smem(TN, hd);
+template <int KPL, class Addr>
+cudaError_t launch_attn(const Addr& a, int n_windows, int heads, int TN,
+                        int hd, const float* bias, const float* mask,
+                        int n_mask, float scale, cudaStream_t s) {
+  const size_t bytes = attn32::smem_bytes(TN, hd);
   static int optins[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
@@ -326,47 +172,46 @@ cudaError_t launch_attn(const float* qkv, float* out, int n_windows,
     cudaError_t err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_f32_kernel<KPL>,
+      err = cudaFuncSetAttribute(attn_f32_kernel<KPL, Addr>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  most);
     if (err != cudaSuccess) return err;
     optins[dev] = most;
   }
   if (bytes > static_cast<size_t>(optins[dev])) return cudaErrorInvalidValue;
-  attn_f32_kernel<KPL><<<n_windows * heads, TN * 2, bytes, s>>>(
-      qkv, out, bias, mask, n_mask, heads, TN, hd, C, scale);
+  attn_f32_kernel<KPL, Addr><<<n_windows * heads, TN * 2, bytes, s>>>(
+      a, bias, mask, n_mask, heads, TN, hd, scale);
   return cudaGetLastError();
 }
 
-// softmax(q k^T * scale + bias (+ mask)) v for every (window, head) of the
-// window-order qkv rows (rows of 3C) into window-order rows of C.
-cudaError_t attention_f32(const float* qkv, float* out, int n_windows,
-                          int heads, int TN, int hd, int C,
-                          const float* bias, const float* mask, int n_mask,
-                          float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 176 || hd <= 0 || hd % 32)
+// softmax(q k^T * scale + bias (+ mask)) v for every (window, head) of
+// n_windows windows of TN tokens, read and written through `a`; mask
+// (n_mask, TN, TN) indexed by window % n_mask when n_mask > 1.
+template <class Addr>
+cudaError_t attention_f32(const Addr& a, int n_windows, int heads, int TN,
+                          int hd, const float* bias, const float* mask,
+                          int n_mask, float scale, cudaStream_t s) {
+  if (TN <= 0 || TN % 16 || TN > 176 || hd <= 0 || hd % 32 || heads <= 0 ||
+      n_windows < 0)
     return cudaErrorInvalidValue;
+  if (n_windows == 0) return cudaSuccess;
   const float* m = n_mask > 1 ? mask : nullptr;
   if (TN <= 32)
-    return launch_attn<16>(qkv, out, n_windows, heads, TN, hd, C, bias, m,
-                           n_mask, scale, s);
+    return launch_attn<16>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                           scale, s);
   if (TN <= 64)
-    return launch_attn<32>(qkv, out, n_windows, heads, TN, hd, C, bias, m,
-                           n_mask, scale, s);
+    return launch_attn<32>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                           scale, s);
   if (TN <= 128)
-    return launch_attn<64>(qkv, out, n_windows, heads, TN, hd, C, bias, m,
-                           n_mask, scale, s);
-  return launch_attn<88>(qkv, out, n_windows, heads, TN, hd, C, bias, m,
-                         n_mask, scale, s);
+    return launch_attn<64>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                           scale, s);
+  return launch_attn<88>(a, n_windows, heads, TN, hd, bias, m, n_mask, scale,
+                         s);
 }
 
 // ---- the row passes -----------------------------------------------------
 
 constexpr int ROW_WARPS = 8;
-
-__device__ __forceinline__ float sum4(float4 v) {
-  return v.x + v.y + v.z + v.w;
-}
 
 // K2's LayerNorms, two-pass (`layer_norm_f32`). ADD: s = x[r] + y[unshift
 // (r)] is written to s32 and normalised; else the row of s32 is, after
@@ -410,22 +255,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
   } else {
     for (int c = lane * 4; c < C; c += 128) sum += sum4(ld4(srow + c));
   }
-  const float mu = warp_sum(sum) / C;
-  float sq = 0.0f;
-  for (int c = lane * 4; c < C; c += 128) {
-    const float4 v = ld4(srow + c);
-    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
-  }
-  const float rs = rsqrtf(warp_sum(sq) / C + eps);
-  float* orow = out + (long long)r * C;
-  for (int c = lane * 4; c < C; c += 128) {
-    const float4 v = ld4(srow + c);
-    *reinterpret_cast<float4*>(orow + c) = make_float4(
-        (v.x - mu) * rs * g[c] + b[c], (v.y - mu) * rs * g[c + 1] + b[c + 1],
-        (v.z - mu) * rs * g[c + 2] + b[c + 2],
-        (v.w - mu) * rs * g[c + 3] + b[c + 3]);
-  }
+  ln_row_f32(srow, sum, g, b, out + (long long)r * C, C, eps, lane);
 }
 
 // K3's LayerNorm over the 2x2 regroup [x0 | x1 | x2 | x3] (x0 = (2i, 2j),
@@ -532,7 +362,8 @@ extern "C" int stswin_block_attention_f32(
   cudaError_t err = gemm_f32(g, s);
   if (err != cudaSuccess) return err;
 
-  err = attention_f32(qkv, attn, B * nWin, heads, TN, hd, C,
+  err = attention_f32(attn32::MappedRows{qkv, attn, identity_map(), TN, hd, C},
+                      B * nWin, heads, TN, hd,
                       static_cast<const float*>(bias),
                       static_cast<const float*>(mask), n_mask, scale, s);
   if (err != cudaSuccess) return err;
@@ -615,6 +446,43 @@ extern "C" int stswin_patch_merge_f32(const void* x, const void* scale,
                              nullptr, static_cast<int>(R), 2 * C, 4 * C,
                              static_cast<float*>(out), 2 * C, ACT_NONE),
                   s);
+}
+
+// Row 10 fp32. qkv (B, T, H, W, 3C) fp32, out (B, T, H, W, C) fp32, both
+// in the image layout (qkv already rolled for SW-MSA); bias (heads, TN, TN)
+// fp32; mask (nH * nW, TN, TN) fp32, one entry per window of an image
+// (index i * nW + j), when n_mask > 1. The arguments of the bf16 entry
+// `stswin_window_attention_image`.
+extern "C" int stswin_window_attention_image_f32(
+    const void* qkv, const void* bias, const void* mask, void* out, int B,
+    int T, int H, int W, int C, int heads, int ws, float scale, int n_mask,
+    void* stream) {
+  if (heads <= 0 || C % heads || ws <= 0 || H % ws || W % ws)
+    return cudaErrorInvalidValue;
+  const int TN = T * ws * ws, hd = C / heads;
+  return attention_f32(
+      attn32::MappedRows{static_cast<const float*>(qkv),
+                         static_cast<float*>(out), RowMap{1, T, H, W, ws, 0},
+                         TN, hd, C},
+      B * (H / ws) * (W / ws), heads, TN, hd,
+      static_cast<const float*>(bias), static_cast<const float*>(mask),
+      n_mask, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Row 11 fp32. q, k, v, out: (Bw, heads, TN, hd) fp32, windows minor;
+// mask (n_mask, TN, TN) fp32 indexed by window % n_mask, when n_mask > 1.
+// The arguments of the bf16 entry `stswin_window_attention_heads`.
+extern "C" int stswin_window_attention_heads_f32(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* mask, void* out, int Bw, int heads, int TN, int hd,
+    float scale, int n_mask, void* stream) {
+  const attn32::HeadMajor a{{static_cast<const float*>(q),
+                             static_cast<const float*>(k),
+                             static_cast<const float*>(v)},
+                            static_cast<float*>(out), heads, TN, hd};
+  return attention_f32(a, Bw, heads, TN, hd, static_cast<const float*>(bias),
+                       static_cast<const float*>(mask), n_mask, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The fp32 GEMM alone (`ops/gemm.linear_f32`): C[c_map(m)] = the epilogue

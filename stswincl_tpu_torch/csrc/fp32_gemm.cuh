@@ -1,5 +1,6 @@
 // The fp32 GEMM and the LN2 row pass of fp32_forms.cu, shared with the fp32
-// backward forms of fp32_train.cu.
+// backward forms of fp32_train.cu; the GEMM's 128 x 128 tile and K2's
+// LayerNorm row, shared with row 16's fp32 form (fp32_whole_block.cu).
 #pragma once
 #include "common.cuh"
 
@@ -49,4 +50,113 @@ long long wgrad_f32_launches(int reset);
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float sum4(float4 v) {
+  return v.x + v.y + v.z + v.w;
+}
+
+// ---- the GEMM's tile: 128 x 128 outputs a block of 256 threads ----------
+
+constexpr int F32_BM = 128, F32_BN = 128, F32_BK = 8;
+constexpr int F32_LD = F32_BK + 4;  // a shared row: 8 floats + 4 of padding
+constexpr int F32_STAGES = 3;
+constexpr int F32_THREADS = 256;
+
+// The tile's three-stage cp.async ring of A and Wt k tiles (36 KiB).
+struct F32Tile {
+  float a[F32_STAGES][F32_BM][F32_LD];
+  float b[F32_STAGES][F32_BN][F32_LD];
+};
+
+// acc[i][j] = sum_k A(ty + 16 i, k) Wt(tx + 16 j, k) for thread (tx, ty) =
+// (tid % 16, tid / 16) of the block's 256, k ascending, one fmaf a term,
+// through the ring in `sm`. Thread tid loads row tid / 2 of both tiles, the
+// 16-byte chunk at column (tid % 2) * 4: `a_row` / `b_row` point at the
+// start of that row of A / Wt (rows of K floats, 16-byte aligned), or, with
+// `a_ok` / `b_ok` false, at any valid address (the row is zero-filled).
+// K % 4 == 0. The caller meets the block before reusing `sm`.
+__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const float* a_row,
+                                              bool a_ok, const float* b_row,
+                                              bool b_ok, int K,
+                                              float (&acc)[8][8]) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lr = tid >> 1, lc = (tid & 1) * 4;
+  const float* a_src = a_row + lc;
+  const float* b_src = b_row + lc;
+  const int nk = (K + F32_BK - 1) / F32_BK;
+  auto load = [&](int stage, int kt) {
+    const int k = kt * F32_BK;
+    const bool kin = k + lc < K;  // K % 4 == 0: a chunk is whole or out
+    cp_async16(&sm.a[stage][lr][lc], kin ? a_src + k : a_src, a_ok && kin);
+    cp_async16(&sm.b[stage][lr][lc], kin ? b_src + k : b_src, b_ok && kin);
+  };
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // tile kt has landed (this thread's copies); after the barrier every
+    // thread's have, and every thread is done with the stage refilled next
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // STAGES - 2
+    __syncthreads();
+    const int next = kt + F32_STAGES - 1;
+    if (next < nk) load(next % F32_STAGES, next);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int s = kt % F32_STAGES;
+#pragma unroll
+    for (int kk = 0; kk < F32_BK; kk += 4) {
+      float4 a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&sm.a[s][ty + 16 * i][kk]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        b[j] = *reinterpret_cast<const float4*>(&sm.b[s][tx + 16 * j][kk]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v = acc[i][j];
+          v = fmaf(a[i].x, b[j].x, v);
+          v = fmaf(a[i].y, b[j].y, v);
+          v = fmaf(a[i].z, b[j].z, v);
+          acc[i][j] = fmaf(a[i].w, b[j].w, v);
+        }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The tail of K2's fp32 LayerNorm of one row of C (C % 4 == 0) by one
+// warp, lane l on columns 4l + 128i: `sum` is the lane's sum of its
+// columns of `srow`; the mean is the warp's sum / C, then the centred
+// squares the same way (two-pass, `layer_norm_f32`), and orow =
+// (s - mu) * rs * g + b.
+__device__ __forceinline__ void ln_row_f32(const float* srow, float sum,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ b,
+                                           float* orow, int C, float eps,
+                                           int lane) {
+  const float mu = warp_sum(sum) / C;
+  float sq = 0.0f;
+  for (int c = lane * 4; c < C; c += 128) {
+    const float4 v = ld4(srow + c);
+    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+  }
+  const float rs = rsqrtf(warp_sum(sq) / C + eps);
+  for (int c = lane * 4; c < C; c += 128) {
+    const float4 v = ld4(srow + c);
+    *reinterpret_cast<float4*>(orow + c) = make_float4(
+        (v.x - mu) * rs * g[c] + b[c], (v.y - mu) * rs * g[c + 1] + b[c + 1],
+        (v.z - mu) * rs * g[c + 2] + b[c + 2],
+        (v.w - mu) * rs * g[c + 3] + b[c + 3]);
+  }
 }

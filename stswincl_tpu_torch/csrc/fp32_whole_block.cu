@@ -1,0 +1,343 @@
+// Row 16's fp32 form: the whole W-MSA swin block in ONE launch, fp32,
+//   qkv = x Wqkv + bqkv -> window attention -> y = attn Wproj + bproj,
+//   s = x + y, out = LN1(s + m), m = fc2(GELU(fc1(LN2(s)))).
+//
+// Replaces the fp32 instance of the dtype-generic TPU kernel
+// stswincl_tpu/ops/pallas_swin_block.py
+//   fused_whole_swin_block (:229) -> _whole_kernel (:63), shift 0 only,
+// which loads x.dtype, accumulates in fp32 and stores x.dtype: in fp32 its
+// roundings (:88, :115, :122, :135, :138, m at :142) are the identity, so
+// this kernel computes the fp32 K1 + K2 pair (fp32_forms.cu) in one launch.
+// Every product sums k in the order of the fp32 GEMM (`f32_tile_sums`,
+// fp32_gemm.cuh), with its epilogue arithmetic; the attention is K1's fp32
+// core (`attn32::pair`, fp32_attention.cuh); the LN passes are K2's fp32
+// row passes (`ln_row_f32`), s = x + y formed in proj's epilogue as K2's
+// first pass forms it and fc2 + bias added into s as K2's serving fc2 adds
+// it: so the output carries the bits of the fp32 pair. No TF32, no float
+// atomics: two calls give the same bits. The bf16 form (swin_block.cu)
+// runs bf16 operands on wgmma; nothing of it is shared here.
+//
+// Bound on the H100: the products, 24 R C^2 + 4 R TN C flops for R token
+// rows (268 GFLOP at the stage-1 serving shape) in fp32 FMA on the CUDA
+// cores (67 TFLOP/s): at least 4.0 ms; x and out are R C * 8 bytes.
+//
+// Design, simple and right first: persistent blocks of 256 threads, one a
+// workspace slot (`stswin_whole_block_f32_slots` sizes them from the
+// occupancy API), each owning a tile of TM = 128 token rows in window
+// order at a time (one stage-1 window of TN 128, or four stage-2 windows of
+// TN 32). Every phase is row-local or window-local, so blocks never wait
+// for each other and one launch covers the block call. Each tile runs
+// seven phases through the slot's fp32 workspace, the block meeting on its
+// barrier between them:
+//   1. qkv: the fp32 GEMM tile, A = x read through the window partition's
+//      row map (no partitioned copy), 3C / 128 column tiles -> wide (TM x
+//      3C);
+//   2. attention of each (window, head) of the tile, one pair at a time by
+//      the fp32 core (198 KiB of q, k and v at stage 1, 98 KiB at stage 2)
+//      -> narrow (TM x C);
+//   3. proj, whose epilogue adds x: s = x + (attn Wproj + bproj) -> s;
+//   4. LN2(s), a warp a row -> narrow;
+//   5. fc1 with the bias and GELU (the erf polynomial) -> wide (TM x hidden,
+//      row stride max(3C, hidden));
+//   6. fc2 with the bias, added into s;
+//   7. LN1(s), a warp a row, scattered back to the image layout.
+// Shared memory holds one phase at a time: the GEMM tile's ring (36 KiB)
+// or the attention pair's q, k and v. The slot's workspace is 1.5 MiB at
+// stage 1 and 3 MiB at stage 2 (wide, narrow and s in fp32), reused tile
+// after tile. Device memory sees x read in phases 1 and 3 and the output
+// written once; the pair also writes y and every intermediate of the
+// epilogue for every row, and reads them back.
+
+#include "fp32_attention.cuh"
+#include "fp32_gemm.cuh"
+
+namespace {
+
+constexpr int TM = F32_BM;  // token rows a tile (whole windows)
+constexpr int THREADS = F32_THREADS;
+constexpr int SMEM_MAX = 232448;  // shared memory one block may use, sm_90
+
+// The dynamic shared memory of one block: the GEMM tile's ring in the
+// product phases, one attention pair of `pair` bytes in the attention
+// phase (`group` 1, or 0 when the pair does not fit).
+struct Layout {
+  size_t pair, total;
+  int group;
+};
+
+inline Layout whole_layout(int TN, int hd) {
+  Layout L;
+  L.pair = attn32::smem_bytes(TN, hd);
+  L.group = L.pair <= SMEM_MAX ? 1 : 0;
+  L.total = L.pair > sizeof(F32Tile) ? L.pair : sizeof(F32Tile);
+  return L;
+}
+
+struct WholeF32 {
+  const float* x;
+  const float* wqkv;
+  const float* bqkv;
+  const float* wproj;
+  const float* bproj;
+  const float* bias;  // (heads, TN, TN)
+  const float* s2;
+  const float* b2;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* bw2;
+  const float* s1;
+  const float* b1n;
+  float* out;
+  float* ws_wide;    // (slots, TM, wide): qkv (row stride 3C), then h
+  float* ws_narrow;  // (slots, TM, C): the attention output, then LN2(s)
+  float* ws_s;       // (slots, TM, C): s, then s + m
+  RowMap img;        // window-order row -> image row (shift 0)
+  int M, C, hidden, wide, heads, TN, hd, tiles, act;
+  float scale, eps;
+};
+
+// One product phase of a tile: for each 128-wide column tile n0 of N
+// (N % 128 == 0) the tile's sums over K, then epi(r, n, v) with v = sum +
+// bias[n] for the tile rows r < valid. `a_row` is the start of the A row
+// this thread loads (row threadIdx.x / 2 of the tile), `a_ok` false for a
+// row past `valid` (zero-filled).
+template <class Epi>
+__device__ __forceinline__ void product(F32Tile& sm, const float* a_row,
+                                        bool a_ok,
+                                        const float* __restrict__ Wt, int N,
+                                        int K, const float* __restrict__ bias,
+                                        int valid, Epi epi) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lr = tid >> 1;
+  for (int n0 = 0; n0 < N; n0 += F32_BN) {
+    __syncthreads();  // the ring's last readers, and the phase before, done
+    float acc[8][8];
+    f32_tile_sums(sm, a_row, a_ok, Wt + (long long)(n0 + lr) * K, true, K,
+                  acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= valid) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx + 16 * j;
+        epi(r, n, acc[i][j] + bias[n]);
+      }
+    }
+  }
+}
+
+// LayerNorm of the first `valid` rows of s32 (rows of C), a warp a row,
+// tile row r to row map_row(map, d0 + r) of dst: K2's fp32 LN pass.
+__device__ __forceinline__ void ln_rows(const float* s32, int C,
+                                        const float* __restrict__ g,
+                                        const float* __restrict__ b,
+                                        float eps, float* dst,
+                                        const RowMap& map, int d0,
+                                        int valid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < valid; r += THREADS / 32) {
+    const float* srow = s32 + (long long)r * C;
+    float sum = 0.0f;
+    for (int c = lane * 4; c < C; c += 128) sum += sum4(ld4(srow + c));
+    ln_row_f32(srow, sum, g, b, dst + map_row(map, d0 + r) * C, C, eps,
+               lane);
+  }
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(THREADS, 1)
+    whole_block_f32_kernel(const WholeF32 p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  F32Tile& sm = *reinterpret_cast<F32Tile*>(smem);
+  float* attn_smem = reinterpret_cast<float*>(smem);  // the ring's, idle
+  const int tid = threadIdx.x, lr = tid >> 1;
+  const int C = p.C, TN = p.TN;
+  float* wide = p.ws_wide + (long long)blockIdx.x * TM * p.wide;
+  float* narrow = p.ws_narrow + (long long)blockIdx.x * TM * C;
+  float* s32 = p.ws_s + (long long)blockIdx.x * TM * C;
+  const RowMap id{0, 1, 1, 1, 1, 0};
+  const attn32::MappedRows heads_io{wide, narrow, id, TN, p.hd, C};
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int m0 = t * TM;
+    // the last tile may hold fewer windows: rows past `valid` are neither
+    // loaded nor stored
+    const int valid = p.M - m0 < TM ? p.M - m0 : TM;
+    const bool a_ok = lr < valid;
+
+    // 1. qkv = x Wqkv + bqkv, (TM, 3C) in window order
+    const float* x_row =
+        p.x + (a_ok ? map_row(p.img, m0 + lr) : 0) * (long long)C;
+    product(sm, x_row, a_ok, p.wqkv, 3 * C, C, p.bqkv, valid,
+            [&](int r, int n, float v) {
+              wide[(long long)r * 3 * C + n] = v;
+            });
+
+    // 2. attention of each (window, head) of the tile -> (TM, C)
+    const int pairs = valid / TN * p.heads;
+    for (int q = 0; q < pairs; ++q)
+      attn32::pair<KPL>(heads_io, q / p.heads, q % p.heads, attn_smem, tid,
+                        THREADS, p.bias, nullptr, 0, TN, p.hd, p.scale);
+
+    // 3. s = x + (attn Wproj + bproj), x read back through the row map
+    product(sm, narrow + (long long)lr * C, a_ok, p.wproj, C, C, p.bproj,
+            valid, [&](int r, int n, float v) {
+              s32[(long long)r * C + n] =
+                  p.x[map_row(p.img, m0 + r) * C + n] + v;
+            });
+    __syncthreads();
+
+    // 4. LN2(s) -> narrow, over the attention output
+    ln_rows(s32, C, p.s2, p.b2, p.eps, narrow, id, 0, valid);
+
+    // 5. h = GELU(LN2(s) W1 + b1) -> wide, over qkv
+    product(sm, narrow + (long long)lr * C, a_ok, p.w1, p.hidden, C, p.b1,
+            valid, [&](int r, int n, float v) {
+              wide[(long long)r * p.wide + n] = activate(v, p.act);
+            });
+
+    // 6. s += h W2 + bw2: the fp32 MLP sum, unrounded
+    product(sm, wide + (long long)lr * p.wide, a_ok, p.w2, C, p.hidden,
+            p.bw2, valid,
+            [&](int r, int n, float v) { s32[(long long)r * C + n] += v; });
+    __syncthreads();
+
+    // 7. out = LN1(s + m), back to the image layout
+    ln_rows(s32, C, p.s1, p.b1n, p.eps, p.out, p.img, m0, valid);
+  }
+}
+
+// The kernel with KPL score registers a lane for windows of TN tokens of
+// head_dim hd: launched with `p` on `stream`, or with `per_sm` the blocks
+// one SM holds written there.
+template <int KPL>
+cudaError_t run(int TN, int hd, const WholeF32* p, int grid,
+                cudaStream_t stream, int* per_sm) {
+  const Layout L = whole_layout(TN, hd);
+  if (L.group < 1) return cudaErrorInvalidValue;
+  // once an instance and device: the most a block may use
+  static bool allowed[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        whole_block_f32_kernel<KPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = true;
+  }
+  if (per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, whole_block_f32_kernel<KPL>, THREADS, L.total);
+  whole_block_f32_kernel<KPL><<<grid, THREADS, L.total, stream>>>(*p);
+  return cudaGetLastError();
+}
+
+// run<KPL> for windows of TN tokens (TN divides 128: KPL >= TN / 2)
+cudaError_t run_for(int TN, int hd, const WholeF32* p, int grid,
+                    cudaStream_t stream, int* per_sm) {
+  if (TN <= 32) return run<16>(TN, hd, p, grid, stream, per_sm);
+  if (TN <= 64) return run<32>(TN, hd, p, grid, stream, per_sm);
+  return run<64>(TN, hd, p, grid, stream, per_sm);
+}
+
+bool takes_window(int TN, int hd) {
+  return TN > 0 && TN % 16 == 0 && TM % TN == 0 && hd > 0 && hd % 32 == 0;
+}
+
+}  // namespace
+
+// The workspace slots `stswin_whole_block_f32` wants for windows of TN =
+// T * ws * ws tokens and head_dim C / heads: the blocks of the kernel the
+// card holds at once (SMs times resident blocks an SM), written to
+// `*slots`.
+extern "C" int stswin_whole_block_f32_slots(int T, int C, int heads, int ws,
+                                            int* slots) {
+  if (heads <= 0 || C % heads || !takes_window(T * ws * ws, C / heads))
+    return cudaErrorInvalidValue;
+  int per_sm = 0;
+  const cudaError_t err =
+      run_for(T * ws * ws, C / heads, nullptr, 0, nullptr, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0 || !sm_count()) return cudaErrorInvalidConfiguration;
+  *slots = per_sm * sm_count();
+  return cudaSuccess;
+}
+
+// The shared memory `stswin_whole_block_f32` launches with for windows of
+// TN tokens of head_dim hd: `*total` bytes a block, in which `*group`
+// attention pairs (1; 0: the pair does not fit) share the ring's region.
+// No CUDA call.
+extern "C" int stswin_whole_block_f32_layout(int TN, int hd, int* group,
+                                             long long* total) {
+  if (!takes_window(TN, hd)) return cudaErrorInvalidValue;
+  const Layout L = whole_layout(TN, hd);
+  *group = L.group;
+  *total = static_cast<long long>(L.total);
+  return cudaSuccess;
+}
+
+// The arguments of the bf16 entry `stswin_whole_block`, every tensor fp32:
+// x, out (B, T, H, W, C), image layout; wqkv (3C, C), wproj (C, C), w1
+// (hidden, C), w2 (C, hidden) in the torch Linear layout; bqkv, bproj, s2,
+// b2, b1, bw2, s1, b1n; bias (heads, TN, TN), TN = T * ws * ws. Workspace
+// of `slots` slots: ws_wide (slots, 128, max(3C, hidden)), ws_narrow and
+// ws_s (slots, 128, C). x, the weights, the vectors and the workspace
+// 16-byte aligned. Takes C % 128 == 0, C <= 1024, hidden % 128 == 0, 128 %
+// TN == 0, TN % 16 == 0, head_dim % 32 == 0 and an attention pair within
+// shared memory, and returns cudaErrorInvalidValue on anything else.
+extern "C" int stswin_whole_block_f32(
+    const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+    const void* bproj, const void* bias, const void* s2, const void* b2,
+    const void* w1, const void* b1, const void* w2, const void* bw2,
+    const void* s1, const void* b1n, void* ws_wide, void* ws_narrow,
+    void* ws_s, void* out, int B, int T, int H, int W, int C, int hidden,
+    int heads, int ws, int slots, int act, float scale, float eps,
+    void* stream) {
+  for (const void* q : {x, wqkv, bqkv, wproj, bproj, s2, b2, w1, b1, w2, bw2,
+                        s1, b1n, static_cast<const void*>(ws_wide),
+                        static_cast<const void*>(ws_narrow),
+                        static_cast<const void*>(ws_s),
+                        static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
+  if (C % 128 || C > 1024 || hidden % 128 || heads <= 0 || C % heads ||
+      ws <= 0 || H % ws || W % ws || slots <= 0 ||
+      !takes_window(T * ws * ws, C / heads))
+    return cudaErrorInvalidValue;
+  WholeF32 p;
+  p.x = static_cast<const float*>(x);
+  p.wqkv = static_cast<const float*>(wqkv);
+  p.bqkv = static_cast<const float*>(bqkv);
+  p.wproj = static_cast<const float*>(wproj);
+  p.bproj = static_cast<const float*>(bproj);
+  p.bias = static_cast<const float*>(bias);
+  p.s2 = static_cast<const float*>(s2);
+  p.b2 = static_cast<const float*>(b2);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const float*>(w2);
+  p.bw2 = static_cast<const float*>(bw2);
+  p.s1 = static_cast<const float*>(s1);
+  p.b1n = static_cast<const float*>(b1n);
+  p.out = static_cast<float*>(out);
+  p.ws_wide = static_cast<float*>(ws_wide);
+  p.ws_narrow = static_cast<float*>(ws_narrow);
+  p.ws_s = static_cast<float*>(ws_s);
+  p.img = RowMap{1, T, H, W, ws, 0};
+  p.M = B * T * H * W;
+  p.C = C;
+  p.hidden = hidden;
+  p.wide = 3 * C > hidden ? 3 * C : hidden;
+  p.heads = heads;
+  p.TN = T * ws * ws;
+  p.hd = C / heads;
+  p.tiles = (p.M + TM - 1) / TM;
+  p.act = act;
+  p.scale = scale;
+  p.eps = eps;
+  if (p.M <= 0) return cudaErrorInvalidValue;
+  const int grid = p.tiles < slots ? p.tiles : slots;
+  return run_for(p.TN, p.hd, &p, grid, static_cast<cudaStream_t>(stream),
+                 nullptr);
+}

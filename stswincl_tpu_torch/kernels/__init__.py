@@ -58,12 +58,16 @@ SIGNATURES = {
     "stswin_upsample_argmax": [_P] * 6 + [_I] * 7 + [_P],
     "stswin_window_attention_image": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     "stswin_window_attention_heads": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "stswin_window_attention_image_f32": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+    "stswin_window_attention_heads_f32": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
     "stswin_whole_block": [_P] * 18 + [_I] * 10 + [_F, _F, _P],
-    # a query, not a launch: (T, C, heads, ws, int* slots), no stream
+    "stswin_whole_block_f32": [_P] * 18 + [_I] * 10 + [_F, _F, _P],
+    # queries, not launches: (T, C, heads, ws, int* slots), no stream
     "stswin_whole_block_slots": [_I] * 4 + [ctypes.POINTER(_I)],
-    # a query, not a launch: (TN, hd, int* group, long long* total)
-    "stswin_whole_block_layout": [_I] * 2 + [ctypes.POINTER(_I),
-                                            ctypes.POINTER(ctypes.c_longlong)],
+    "stswin_whole_block_f32_slots": [_I] * 4 + [ctypes.POINTER(_I)],
+    # queries, not launches: (TN, hd, int* group, long long* total)
+    "stswin_whole_block_layout": [_I] * 2 + [ctypes.POINTER(_I), _LLP],
+    "stswin_whole_block_f32_layout": [_I] * 2 + [ctypes.POINTER(_I), _LLP],
     "stswin_add_ln_mlp": [_P] * 13 + [_I] * 4 + [_F, _P],
     "stswin_add_layer_norm": [_P] * 6 + [_I] * 2 + [_F, _P],
     "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],
@@ -246,8 +250,8 @@ def require(cond: bool, msg) -> None:
 # calls them on every launch, and rows 14-15 take 0.05-0.3 ms on the card.
 def require_bf16(name: str, row: str, *tensors: torch.Tensor) -> None:
     """The kernel `name` computes in bfloat16 only; `row` names what it
-    ports ("Pallas row 10"). Float32 has no form of it on the card yet
-    (ROADMAP Queue 2)."""
+    ports ("Pallas row 12"). Rows 12-15 and 17 have no float32 form on
+    the card yet (ROADMAP Queue 2)."""
     for t in tensors:
         if t.dtype == torch.float32:
             raise NotImplementedError(

@@ -39,7 +39,9 @@ which return fp32 weight gradients from fp32 accumulators; on the plain
 route autograd runs through the twins, with the bf16 working copies cast
 in the graph (`models/layers.py`). An fp32 model on the kernel route runs
 the fp32 forms of K1-K3 forward and of K5 and K6 backward, through the
-same Functions. `remat` is the JAX stack's
+same Functions, on every route: 'pallas' and 'pallas_windows' on the fp32
+forms of rows 10 and 11 in place of K1's, `whole_block` on row 16's for
+its W-MSA blocks. `remat` is the JAX stack's
 `nn.remat(SpaceTimeSwinBlock)`: with grad enabled each block call runs
 under a non-reentrant `torch.utils.checkpoint`, which keeps only the
 block's input and recomputes its forward (the same kernels on the same

@@ -9,7 +9,9 @@ sum applied as a multiply by its reciprocal.
 
 `fused_window_attention` (Pallas row 11, `fused_window_attention`) attends
 over pre-partitioned q, k, v: it launches `stswin_window_attention_heads`
-(`csrc/window_attention.cu`) on a CUDA tensor and runs its plain twin
+(`csrc/window_attention.cu`) on a bf16 CUDA tensor, its fp32 form
+(`fused_window_attention_f32`, `stswin_window_attention_heads_f32` in
+`csrc/fp32_forms.cu`) on an fp32 one, and runs its plain twin
 `attend_tiled` on a CPU tensor. When autograd needs a gradient it goes
 through `FusedWindowAttentionFn`, whose backward is the JAX package's own
 einsum backward, ported to plain PyTorch (the JAX package has no backward
@@ -82,10 +84,11 @@ def _attn_smem_bytes(TN: int, hd: int) -> int:
 
 
 def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of K1's fp32 attention block, one (window,
-    head) (`attn_f32_smem` in `csrc/fp32_forms.cu`): q, k and v in fp32
-    rows of hd + 4; the scores and P stay in registers. 198 KiB at stage 1
-    (TN 128, hd 128), 98 KiB at stage 2 (TN 32, hd 256)."""
+    """Dynamic shared memory of one (window, head) of the fp32 attention
+    core of K1, rows 10, 11 and 16 (`attn32::smem_bytes` in
+    `csrc/fp32_attention.cuh`): q, k and v in fp32 rows of hd + 4; the
+    scores and P stay in registers. 198 KiB at stage 1 (TN 128, hd 128),
+    98 KiB at stage 2 (TN 32, hd 256)."""
     return _align(3 * TN * (hd + 4) * 4)
 
 
@@ -123,29 +126,49 @@ def check_attention_core(name: str, device: torch.device,
 
 
 def _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale):
-    """Launch the row-11 kernel."""
-    name = "fused_window_attention"
+    """Launch row 11 in q's dtype: the bf16 kernel, or the fp32 form."""
+    f32 = q.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    name = "fused_window_attention" + sfx
     kernels.require(q.is_cuda, f"{name}: no kernel for device {q.device}")
     kernels.require(q.dim() == 4 and q.shape == k.shape == v.shape,
                     f"{name}: q, k, v must share one (Bw, heads, TN, hd) "
                     f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                     f"{tuple(v.shape)}")
-    kernels.require_bf16(name, "Pallas row 11", q, k, v)
+    kernels.require_form(name, None if f32 else "Pallas row 11", q, k, v)
     kernels.require_on(q.device, name, q, k, v)
     kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                     f"{name}: q, k, v must be 16-byte aligned")
     Bw, heads, TN, hd = q.shape
-    mask_tiled, n_mask = check_attention_core(name, q.device, bias_tiled,
-                                              mask_tiled, heads, TN, hd)
+    kernels.require(not f32 or hd % 32 == 0,
+                    lambda: f"{name}: needs a head dim that is a multiple "
+                    f"of 32, got {hd}")
+    mask_tiled, n_mask = check_attention_core(
+        name, q.device, bias_tiled, mask_tiled, heads, TN, hd,
+        _attn_f32_smem_bytes if f32 else _attn_smem_bytes)
     kernels.require(n_mask == 0 or Bw % n_mask == 0,
                     f"{name}: {n_mask} masks do not divide {Bw} windows")
     out = torch.empty_like(v)
     P = kernels.ptr
-    kernels.launch("stswin_window_attention_heads", q.device, P(q), P(k),
-                   P(v), P(bias_tiled), P(mask_tiled), P(out), Bw, heads, TN,
-                   hd, float(scale), n_mask)
-    fused_window_attention.launches += 1
+    kernels.launch("stswin_window_attention_heads" + sfx, q.device, P(q),
+                   P(k), P(v), P(bias_tiled), P(mask_tiled), P(out), Bw,
+                   heads, TN, hd, float(scale), n_mask)
+    form = fused_window_attention_f32 if f32 else fused_window_attention
+    form.launches += 1
     return out
+
+
+def fused_window_attention_f32(q, k, v, bias_tiled, mask_tiled,
+                               scale: float) -> torch.Tensor:
+    """Row 11's fp32 form (`stswin_window_attention_heads_f32`,
+    `csrc/fp32_forms.cu`) on fp32 CUDA q, k, v, the arguments of
+    `fused_window_attention`: K1's fp32 attention core on the head-major
+    tensors, P unrounded; head dims a multiple of 32 and windows whose
+    fp32 q, k and v fit shared memory (`_attn_f32_smem_bytes`)."""
+    return _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale)
+
+
+fused_window_attention_f32.launches = 0
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor,
@@ -156,7 +179,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor,
     hd), windows minor (Bw = batch * nW + window); bias_tiled (heads, TN,
     TN) fp32; mask_tiled (nW, TN, TN) fp32, window b taking entry b % nW,
     or None / a single (1, TN, TN) zero entry, the W-MSA marker whose add
-    is skipped. Returns (Bw, heads, TN, hd) in v's dtype."""
+    is skipped. q, k, v in bf16 launch the kernel, in fp32 its fp32 form.
+    Returns (Bw, heads, TN, hd) in v's dtype."""
     args = (q, k, v, bias_tiled, mask_tiled, scale)
     if kernels.needs_grad(q, k, v, bias_tiled):
         return FusedWindowAttentionFn.apply(*args)
@@ -196,9 +220,9 @@ def fused_window_attention_bwd(q, k, v, bias_tiled, mask_tiled, scale, g):
 
 
 class FusedWindowAttentionFn(torch.autograd.Function):
-    """Row 11: the kernel forward on CUDA (`attend_tiled` on the CPU), and
-    `fused_window_attention_bwd`, the port of the JAX custom VJP's `_bwd`,
-    as backward on either device."""
+    """Row 11: the kernel forward on CUDA in q's dtype (`attend_tiled` on
+    the CPU), and `fused_window_attention_bwd`, the port of the JAX custom
+    VJP's `_bwd`, as backward on either device."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_tiled, mask_tiled, scale):

@@ -23,9 +23,11 @@ output's gradient arrives in that layout too.
 
 `windowed_attention_image` (Pallas row 10, the `attn_impl='pallas'`
 route) launches `stswin_window_attention_image`
-(`csrc/window_attention.cu`) on a CUDA tensor and runs its twin
-`windowed_attention_image_ref` on a CPU tensor; its backward
-(`WindowedAttentionImageFn`) is autograd of that twin, as in JAX.
+(`csrc/window_attention.cu`) on a bf16 CUDA tensor, its fp32 form
+(`windowed_attention_image_f32`, `csrc/fp32_forms.cu`) on an fp32 one,
+and runs its twin `windowed_attention_image_ref` on a CPU tensor; its
+backward (`WindowedAttentionImageFn`) is autograd of that twin, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -55,13 +57,15 @@ def windowed_attention_image_ref(qkv: torch.Tensor, bias_tiled: torch.Tensor,
 
 
 def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
-    """Launch the row-10 kernel."""
-    name = "windowed_attention_image"
+    """Launch row 10 in qkv's dtype: the bf16 kernel, or the fp32 form."""
+    f32 = qkv.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    name = "windowed_attention_image" + sfx
     kernels.require(qkv.is_cuda, f"{name}: no kernel for device {qkv.device}")
     kernels.require(qkv.dim() == 5 and qkv.shape[-1] % 3 == 0,
                     f"{name}: qkv must be (B, T, H, W, 3C), got "
                     f"{tuple(qkv.shape)}")
-    kernels.require_bf16(name, "Pallas row 10", qkv)
+    kernels.require_form(name, None if f32 else "Pallas row 10", qkv)
     kernels.require_on(qkv.device, name, qkv)
     kernels.require(qkv.data_ptr() % 16 == 0,
                     f"{name}: qkv must be 16-byte aligned")
@@ -70,19 +74,37 @@ def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
     kernels.require(C % heads == 0 and H % ws == 0 and W % ws == 0,
                     f"{name}: C={C} over {heads} heads, ({H}, {W}) over "
                     f"windows of {ws}")
+    kernels.require(not f32 or (C // heads) % 32 == 0,
+                    lambda: f"{name}: needs a head dim that is a multiple "
+                    f"of 32, got {C} over {heads} heads")
     n_win = (H // ws) * (W // ws)
     mask_tiled, n_mask = check_attention_core(
         name, qkv.device, bias_tiled, mask_tiled, heads, T * ws * ws,
-        C // heads)
+        C // heads, _attn_f32_smem_bytes if f32 else _attn_smem_bytes)
     kernels.require(n_mask in (0, n_win),
                     f"{name}: {n_mask} masks for {n_win} windows an image")
     out = torch.empty((B, T, H, W, C), dtype=qkv.dtype, device=qkv.device)
     P = kernels.ptr
-    kernels.launch("stswin_window_attention_image", qkv.device, P(qkv),
-                   P(bias_tiled), P(mask_tiled), P(out), B, T, H, W, C, heads,
-                   ws, float(scale), n_mask)
-    windowed_attention_image.launches += 1
+    kernels.launch("stswin_window_attention_image" + sfx, qkv.device,
+                   P(qkv), P(bias_tiled), P(mask_tiled), P(out), B, T, H, W,
+                   C, heads, ws, float(scale), n_mask)
+    form = windowed_attention_image_f32 if f32 else windowed_attention_image
+    form.launches += 1
     return out
+
+
+def windowed_attention_image_f32(qkv, bias_tiled, mask_tiled, heads: int,
+                                 scale: float, ws: int) -> torch.Tensor:
+    """Row 10's fp32 form (`stswin_window_attention_image_f32`,
+    `csrc/fp32_forms.cu`) on an fp32 CUDA qkv, the arguments of
+    `windowed_attention_image`: K1's fp32 attention core gathering
+    straight from the image layout, P unrounded; head dims a multiple of
+    32 and windows whose fp32 q, k and v fit shared memory
+    (`_attn_f32_smem_bytes`)."""
+    return _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws)
+
+
+windowed_attention_image_f32.launches = 0
 
 
 def windowed_attention_image(qkv: torch.Tensor, bias_tiled: torch.Tensor,
@@ -93,7 +115,8 @@ def windowed_attention_image(qkv: torch.Tensor, bias_tiled: torch.Tensor,
     bias_tiled (heads, TN, TN) fp32; mask_tiled (nH * nW, TN, TN) fp32,
     one entry per window of an image (index i * nW + j, the same for every
     batch element), or None / a single (1, TN, TN) zero entry, the W-MSA
-    marker. Returns (B, T, H, W, C) in the image layout."""
+    marker. qkv in bf16 launches the kernel, in fp32 its fp32 form.
+    Returns (B, T, H, W, C) in the image layout."""
     args = (qkv, bias_tiled, mask_tiled, heads, scale, ws)
     if kernels.needs_grad(qkv, bias_tiled):
         return WindowedAttentionImageFn.apply(*args)
@@ -106,10 +129,11 @@ windowed_attention_image.launches = 0
 
 
 class WindowedAttentionImageFn(torch.autograd.Function):
-    """Row 10: the kernel forward on CUDA (the twin on the CPU); backward:
-    autograd of the twin `windowed_attention_image_ref`, recomputed from
-    the saved qkv, as `_wai_bwd` (`pallas_block_attention.py:668-673`)
-    takes `jax.vjp` of the XLA reference. The mask takes no gradient."""
+    """Row 10: the kernel forward on CUDA in qkv's dtype (the twin on the
+    CPU); backward: autograd of the twin `windowed_attention_image_ref`,
+    recomputed from the saved qkv, as `_wai_bwd`
+    (`pallas_block_attention.py:668-673`) takes `jax.vjp` of the XLA
+    reference. The mask takes no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, bias_tiled, mask_tiled, heads, scale, ws):

@@ -7,12 +7,16 @@ Counterpart of `stswincl_tpu/ops/pallas_swin_block.py`
     y = proj(attention(qkv(x))), s = x + y, out = LN1(s + MLP(LN2(s)))
 
 `whole_swin_block` launches `stswin_whole_block` (`csrc/swin_block.cu`),
-one launch per block call, on a CUDA tensor and runs the plain twin
+one launch per block call, on a bf16 CUDA tensor, its fp32 form
+`whole_swin_block_f32` (`stswin_whole_block_f32`,
+`csrc/fp32_whole_block.cu`) on an fp32 one, and runs the plain twin
 `whole_swin_block_ref` on a CPU tensor. The twin is the rounded-m form:
-the TPU kernel rounds the MLP output m to bf16 before the residual add
-(`pallas_swin_block.py:140-143`), where K2 as served adds the fp32 sum
-(`pallas_add_ln_mlp.py:743`), so row 16 and the K1 + K2 pair differ in m's
-last bit, in the JAX package too; row 16 is held against this twin.
+the TPU kernel rounds the MLP output m to x's dtype before the residual
+add (`pallas_swin_block.py:140-143`), where K2 as served adds the fp32 sum
+(`pallas_add_ln_mlp.py:743`), so in bf16 row 16 and the K1 + K2 pair
+differ in m's last bit, in the JAX package too; row 16 is held against
+this twin. In fp32 that rounding is the identity: the fp32 form computes
+the fp32 pair.
 
 When autograd needs a gradient the call goes through `WholeBlockFn`. It
 saves only the inputs; its backward re-runs the pair
@@ -24,17 +28,24 @@ JAX package has no backward kernel for row 16. `whole_swin_block_pair`
 with `m_out=True` is row 16's function on the pair's kernels (m rounded
 at every shape): the same numbers as row 16 without row 16.
 
-`whole_block_plan` is the host side of the kernel's schedule in Python:
-the tiles of 128 token rows in window order, the 4-D TMA box of x each
-window of a tile is read by, the slot workspace and the shared memory of
-each phase. The wrapper takes its envelope and its workspace from it; the
-CPU tests check it. The launch's shared memory is the library's
-(`stswin_whole_block_layout`): the wrapper admits a shape on that figure
-and raises if the plan's differs.
+`whole_block_plan` is the host side of the kernel's schedule in Python,
+for either form (`dtype`): the tiles of 128 token rows in window order,
+the windows of x each tile reads (the bf16 form by one 4-D TMA box a
+window, the fp32 form through the window partition's row map), the slot
+workspace and the shared memory of each phase. The wrapper takes its
+envelope and its workspace from it; the CPU tests check it. The launch's
+shared memory is the library's (`stswin_whole_block_layout`,
+`stswin_whole_block_f32_layout`): the wrapper admits a shape on that
+figure and raises if the plan's differs.
 
 Weights use the torch Linear layout: wqkv (3C, C), wproj (C, C), w1 (4C,
 C), w2 (C, 4C), in any float dtype (cast to x's dtype for the kernel);
 the biases, LayerNorm vectors and the tiled relative bias are fp32.
+
+Deliberate difference: the JAX package's VMEM fallback turns an fp32
+'pallas_full' stage-2 block (C 1024) into 'pallas', which also turns its
+whole-block gate off there; the port keeps 'pallas_full', so an fp32
+`whole_block` model runs row 16 at both stages.
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ import torch
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_with_m_ref)
-from stswincl_tpu_torch.ops.attention import (_attn_smem_bytes,
+from stswincl_tpu_torch.ops.attention import (_attn_f32_smem_bytes,
+                                              _attn_smem_bytes,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.block_attention import (check_backward_window,
                                                     swin_block_attention,
@@ -62,23 +74,31 @@ RING_BYTES = 6 * 2 * TILE_ROWS * 64 * 2
 BARRIER_BYTES = 128  # the ring's full / empty mbarriers and `ready`
 ALIGN_SLACK = 1024   # the ring starts 1024-byte aligned
 CONSUMER_THREADS = 256  # two warpgroups; one producer warp beside them
+# the fp32 form: the fp32 GEMM tile's three-stage cp.async ring of 128 x 8
+# A and weight k tiles in rows padded to 12 floats (`F32Tile`,
+# `csrc/fp32_gemm.cuh`); one attention pair in the same region
+F32_RING_BYTES = 3 * 2 * TILE_ROWS * 12 * 4
 PHASES = ("qkv", "attention", "proj", "ln2", "fc1", "fc2", "ln1")
 
 
 @dataclass(frozen=True)
 class WholeBlockPlan:
     """Row 16's schedule for one block call on a (B, T, H, W, C) clip with
-    windows of ws x ws x T tokens (`csrc/swin_block.cu`).
+    windows of ws x ws x T tokens, for the form of `dtype`
+    (`csrc/swin_block.cu` in bf16, `csrc/fp32_whole_block.cu` in fp32).
 
     The window-order token rows (`ops.gemm.window_rows` with shift 0) are
     cut into `tiles` tiles of `tile_rows` rows, whole windows each; tile t
     covers windows t * windows_per_tile onwards (the last tile may hold
-    fewer). Phase 1 reads each window of a tile as one 4-D TMA box of x,
-    `box` = (64 channels, ws, ws, T) at the coordinates of `tile_boxes(t)`.
-    Each workspace slot holds `slot_bytes`; `phase_smem` is the shared
-    memory each phase uses (the product phases the ring, the attention
-    phase `attention_group` pairs of the attention core in the same
-    region, the ring idle) and `smem_bytes` the launch's."""
+    fewer). Phase 1 reads each window of a tile at the coordinates of
+    `tile_boxes(t)`: the bf16 form as one 4-D TMA box of x, `box` = (64
+    channels, ws, ws, T), the fp32 form row by row through the window
+    partition's row map. Each workspace slot holds `slot_bytes` (in fp32
+    the wide and narrow buffers at twice the bf16 bytes; s is fp32 in
+    both); `phase_smem` is the shared memory each phase uses (the product
+    phases the ring, the attention phase `attention_group` pairs of the
+    attention core in the same region, the ring idle) and `smem_bytes`
+    the launch's."""
     image: Tuple[int, int, int, int]  # (B, T, H, W)
     ws: int
     C: int
@@ -95,6 +115,7 @@ class WholeBlockPlan:
     attention_group: int
     phase_smem: Dict[str, int]
     smem_bytes: int
+    dtype: torch.dtype
 
     @property
     def rows(self) -> int:
@@ -122,13 +143,19 @@ class WholeBlockPlan:
 
 
 def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
-                     heads: int, ws: int) -> WholeBlockPlan:
-    """Row 16's plan, or ValueError with the reason for a shape outside
-    its envelope: C % 128 == 0, C <= 1024, hidden % 128 == 0, heads
-    dividing C, ws dividing H and W, head_dim and TN = T * ws * ws
-    multiples of 16, TN dividing 128, and one attention pair (the core's
-    `_attn_smem_bytes`) in shared memory."""
-    name = "whole_swin_block"
+                     heads: int, ws: int,
+                     dtype: torch.dtype = torch.bfloat16) -> WholeBlockPlan:
+    """Row 16's plan for the form of `dtype` (bf16 or fp32), or ValueError
+    with the reason for a shape outside its envelope: C % 128 == 0, C <=
+    1024, hidden % 128 == 0, heads dividing C, ws dividing H and W,
+    head_dim and TN = T * ws * ws multiples of 16 (head_dim of 32 in fp32),
+    TN dividing 128, and one attention pair (the core's
+    `_attn_smem_bytes`, in fp32 `_attn_f32_smem_bytes`) in shared
+    memory."""
+    name = "whole_swin_block" + ("_f32" if dtype == torch.float32 else "")
+    kernels.require(dtype in (torch.bfloat16, torch.float32),
+                    f"{name}: dtype {dtype}")
+    f32 = dtype == torch.float32
     kernels.require(C % 128 == 0 and C <= 1024 and hidden % 128 == 0
                     and heads > 0 and C % heads == 0,
                     f"{name}: needs C % 128 == 0, C <= 1024, hidden % 128 "
@@ -140,30 +167,38 @@ def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
     kernels.require(hd % 16 == 0 and TN % 16 == 0,
                     f"{name}: needs head_dim % 16 and tokens % 16 (hd={hd}, "
                     f"TN={TN})")
+    kernels.require(not f32 or hd % 32 == 0,
+                    f"{name}: the fp32 form needs head_dim % 32 (hd={hd})")
     kernels.require(TILE_ROWS % TN == 0,
                     f"{name}: windows of {TN} tokens do not tile "
                     f"{TILE_ROWS} rows")
-    pair = _attn_smem_bytes(TN, hd)
-    fixed = ALIGN_SLACK + BARRIER_BYTES
-    group = CONSUMER_THREADS // (TN // 16 * 32)
+    # the fp32 form: one pair at a time, no TMA ring or mbarriers
+    if f32:
+        pair, group, fixed = _attn_f32_smem_bytes(TN, hd), 1, 0
+        ring = F32_RING_BYTES
+    else:
+        pair, fixed = _attn_smem_bytes(TN, hd), ALIGN_SLACK + BARRIER_BYTES
+        group = CONSUMER_THREADS // (TN // 16 * 32)
+        ring = RING_BYTES
     while group > 0 and fixed + group * pair > kernels.SMEM_LIMIT:
         group -= 1
     kernels.require(group > 0, f"{name}: a window of {TN} tokens x {hd} "
                     f"({pair} bytes of attention) does not fit shared "
                     "memory")
-    phase_smem = {ph: fixed + RING_BYTES for ph in PHASES}
+    phase_smem = {ph: fixed + ring for ph in PHASES}
     phase_smem["attention"] = fixed + group * pair
     wide = max(3 * C, hidden)
     rows = B * T * H * W
+    size = 4 if f32 else 2
     return WholeBlockPlan(
         image=(B, T, H, W), ws=ws, C=C, hidden=hidden, heads=heads,
         tile_rows=TILE_ROWS, window_tokens=TN,
         windows_per_tile=TILE_ROWS // TN,
         tiles=-(-rows // TILE_ROWS), box=(64, ws, ws, T), wide=wide,
-        slot_bytes={"wide": TILE_ROWS * wide * 2,
-                    "narrow": TILE_ROWS * C * 2, "s": TILE_ROWS * C * 4},
+        slot_bytes={"wide": TILE_ROWS * wide * size,
+                    "narrow": TILE_ROWS * C * size, "s": TILE_ROWS * C * 4},
         pair_bytes=pair, attention_group=group, phase_smem=phase_smem,
-        smem_bytes=max(phase_smem.values()))
+        smem_bytes=max(phase_smem.values()), dtype=dtype)
 
 
 def whole_swin_block_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
@@ -197,40 +232,51 @@ def whole_swin_block_pair(x, wqkv, bqkv, wproj, bproj, bias_tiled,
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(T: int, C: int, heads: int, ws: int, device: int) -> int:
-    """Workspace slots of the kernel's persistent grid: the blocks card
-    `device` holds at once, from the kernel's own shared-memory layout and
-    the occupancy API (`stswin_whole_block_slots`), asked of that card."""
+def _slots(T: int, C: int, heads: int, ws: int, device: int,
+           dtype: torch.dtype = torch.bfloat16) -> int:
+    """Workspace slots of the persistent grid of the form of `dtype`: the
+    blocks card `device` holds at once, from the kernel's own
+    shared-memory layout and the occupancy API
+    (`stswin_whole_block_slots`, `stswin_whole_block_f32_slots`), asked of
+    that card."""
+    sfx = "_f32" if dtype == torch.float32 else ""
+    entry = f"stswin_whole_block{sfx}_slots"
     n = ctypes.c_int(0)
     kernels.use_device(torch.device("cuda", device))
-    err = kernels.load().stswin_whole_block_slots(T, C, heads, ws,
-                                                  ctypes.byref(n))
+    err = getattr(kernels.load(), entry)(T, C, heads, ws, ctypes.byref(n))
     if err != 0:
-        raise RuntimeError(f"stswin_whole_block_slots: CUDA error {err}")
+        raise RuntimeError(f"{entry}: CUDA error {err}")
     return n.value
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(TN: int, hd: int) -> Tuple[int, int]:
+def _layout(TN: int, hd: int,
+            dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """(attention pairs a block holds, its dynamic shared memory in bytes)
-    as the kernel launches with them (`stswin_whole_block_layout`, no CUDA
-    call: the same on every device)."""
+    as the form of `dtype` launches with them (`stswin_whole_block_layout`,
+    `stswin_whole_block_f32_layout`; no CUDA call: the same on every
+    device)."""
+    sfx = "_f32" if dtype == torch.float32 else ""
+    entry = f"stswin_whole_block{sfx}_layout"
     group, total = ctypes.c_int(0), ctypes.c_longlong(0)
-    err = kernels.load().stswin_whole_block_layout(
-        TN, hd, ctypes.byref(group), ctypes.byref(total))
+    err = getattr(kernels.load(), entry)(TN, hd, ctypes.byref(group),
+                                         ctypes.byref(total))
     if err != 0:
-        raise RuntimeError(f"stswin_whole_block_layout: CUDA error {err}")
+        raise RuntimeError(f"{entry}: CUDA error {err}")
     return group.value, total.value
 
 
 def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
                     b2, w1, b1, w2, bw2, s1, b1n, heads, scale, ws,
                     gelu_exact, eps):
-    """Launch row 16 (weights already in x's dtype)."""
-    name = "whole_swin_block"
+    """Launch row 16 in x's dtype, the bf16 kernel or the fp32 form
+    (weights already in x's dtype)."""
+    f32 = x.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    name = "whole_swin_block" + sfx
     kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
     kernels.require(x.dim() == 5, f"{name}: x must be (B, T, H, W, C)")
-    kernels.require_bf16(name, "Pallas row 16", x)
+    kernels.require_form(name, None if f32 else "Pallas row 16", x)
     B, T, H, W, C = x.shape
     hidden = w1.shape[0]
     kernels.require(all(w.dtype == x.dtype for w in (wqkv, wproj, w1, w2)),
@@ -249,8 +295,8 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
                         for t in (x, wqkv, wproj, w1, w2, *vectors)),
                     f"{name}: x, the weights and the vectors must be "
                     "contiguous and 16-byte aligned")
-    plan = whole_block_plan(B, T, H, W, C, hidden, heads, ws)
-    group, smem = _layout(plan.window_tokens, C // heads)
+    plan = whole_block_plan(B, T, H, W, C, hidden, heads, ws, x.dtype)
+    group, smem = _layout(plan.window_tokens, C // heads, x.dtype)
     if (group, smem) != (plan.attention_group, plan.smem_bytes):
         raise RuntimeError(
             f"{name}: the plan's layout ({plan.attention_group} attention "
@@ -262,21 +308,41 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
     kernels.require(n_mask == 0, f"{name}: the whole-block kernel takes "
                     "W-MSA blocks (shift 0, no attention mask)")
     dev = x.device
-    slots = min(plan.tiles, _slots(T, C, heads, ws, kernels.use_device(dev)))
+    slots = min(plan.tiles, _slots(T, C, heads, ws, kernels.use_device(dev),
+                                   x.dtype))
     ws_wide = torch.empty((slots, TILE_ROWS, plan.wide), dtype=x.dtype,
                           device=dev)
     ws_narrow = torch.empty((slots, TILE_ROWS, C), dtype=x.dtype, device=dev)
     ws_s = torch.empty((slots, TILE_ROWS, C), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     P = kernels.ptr
-    kernels.launch("stswin_whole_block", dev, P(x), P(wqkv), P(bqkv),
+    kernels.launch("stswin_whole_block" + sfx, dev, P(x), P(wqkv), P(bqkv),
                    P(wproj), P(bproj), P(bias_tiled), P(s2), P(b2), P(w1),
                    P(b1), P(w2), P(bw2), P(s1), P(b1n), P(ws_wide),
                    P(ws_narrow), P(ws_s), P(out), B, T, H, W, C, hidden,
                    heads, ws, slots, 1 if gelu_exact else 2, float(scale),
                    float(eps))
-    whole_swin_block.launches += 1
+    form = whole_swin_block_f32 if f32 else whole_swin_block
+    form.launches += 1
     return out
+
+
+def whole_swin_block_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
+                         s2, b2, w1, b1, w2, bw2, s1, b1n, heads: int,
+                         scale: float, ws: int, gelu_exact: bool = True,
+                         eps: float = 1e-5):
+    """Row 16's fp32 form (`stswin_whole_block_f32`,
+    `csrc/fp32_whole_block.cu`) on fp32 CUDA tensors, the arguments of
+    `whole_swin_block` with the weights in fp32: one launch, every
+    product on the fp32 GEMM tile, K1's fp32 attention core and K2's fp32
+    LayerNorm order, so the fp32 K1 + K2 pair's numbers; head dims a
+    multiple of 32 (`whole_block_plan`)."""
+    return _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled,
+                           mask_tiled, s2, b2, w1, b1, w2, bw2, s1, b1n,
+                           heads, scale, ws, gelu_exact, eps)
+
+
+whole_swin_block_f32.launches = 0
 
 
 def whole_swin_block(x, wqkv, bqkv, wproj, bproj, bias_tiled,
@@ -285,8 +351,9 @@ def whole_swin_block(x, wqkv, bqkv, wproj, bproj, bias_tiled,
                      gelu_exact: bool = True, eps: float = 1e-5):
     """Pallas row 16 (`pallas_swin_block.py:229`): the whole W-MSA block.
     x: (B, T, H, W, C), unshifted; bias_tiled (heads, TN, TN) fp32;
-    mask_tiled None or W-MSA's single (1, TN, TN) zero entry. Returns x's
-    shape and dtype."""
+    mask_tiled None or W-MSA's single (1, TN, TN) zero entry. x in bf16
+    launches the kernel, in fp32 its fp32 form. Returns x's shape and
+    dtype."""
     args = (x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2, b2, w1,
             b1, w2, bw2, s1, b1n, heads, scale, ws, gelu_exact, eps)
     if kernels.needs_grad(x, wqkv, bqkv, wproj, bproj, bias_tiled, s2, b2,
@@ -300,8 +367,8 @@ whole_swin_block.launches = 0
 
 def _forward(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2, b2,
              w1, b1, w2, bw2, s1, b1n, *cfg):
-    """The kernel on a CUDA tensor, the twin on a CPU one; weights cast to
-    x's dtype."""
+    """The kernel in x's dtype on a CUDA tensor, the twin on a CPU one;
+    weights cast to x's dtype."""
     wqkv, wproj, w1, w2 = (w.to(x.dtype) for w in (wqkv, wproj, w1, w2))
     args = (x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2, b2, w1,
             b1, w2, bw2, s1, b1n, *cfg)

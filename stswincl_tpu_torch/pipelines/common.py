@@ -20,7 +20,6 @@ from stswincl_tpu_torch.data.loader import (Loader, SyntheticContrastDataset,
                                             SyntheticSegDataset)
 from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.stswin import DeepLabV3Plus, TswinPlus
-from stswincl_tpu_torch.models.swin import resolve_attn_impl
 from stswincl_tpu_torch.parallel import distributed as pdist
 
 
@@ -38,17 +37,6 @@ def resolve_device(device, who: str) -> torch.device:
     return device
 
 
-def fp32_kernels(dtype: torch.dtype, attn_impl: str) -> bool:
-    """Whether a model of `dtype` on the `attn_impl` route runs the card's
-    kernels (`kernels=None`) or its plain twins (`kernels=False`): every
-    bf16 model, and an fp32 model unless its route's attention kernel
-    takes bf16 only ('pallas' and 'pallas_windows': Pallas rows 10 and 11
-    have no fp32 form yet, ROADMAP Queue 2)."""
-    return (dtype != torch.float32
-            or resolve_attn_impl(attn_impl) not in ("pallas",
-                                                    "pallas_windows"))
-
-
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
                 device="cuda") -> Tuple[Union[TswinPlus, DeepLabV3Plus], int]:
     """The model the configs name, on `device`, and its class count, as
@@ -62,12 +50,14 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
     machine without one raises unless the caller asks for the CPU.
 
     The model is built with `kernels=None`, the kernels iff the input is
-    on the card, in both dtypes (`fp32_kernels`): an fp32 model serves
-    and evaluates on the fp32 forms of K1-K3 and K4's exact form, and
-    trains on the fp32 forms of K1-K3 (K2 with its m output, Pallas row 8,
-    where `mlp_output_saved`) and of K5 and K6, as the JAX package sends
-    an fp32 model through its dtype-generic TPU kernels. An unknown `arch`
-    raises ValueError."""
+    on the card, in both dtypes and on every `attn_impl`: an fp32 model
+    serves and evaluates on the fp32 forms of K1-K3 ('pallas' on row 10's,
+    'pallas_windows' on row 11's in place of K1's, `whole_block` on row
+    16's for the W-MSA blocks) and K4's exact form, and trains on the fp32
+    forms of K1-K3 (K2 with its m output, Pallas row 8, where
+    `mlp_output_saved`) and of K5 and K6, as the JAX package sends an fp32
+    model through its dtype-generic TPU kernels. An unknown `arch` raises
+    ValueError."""
     num_classes = model_cfg.num_classes
     if data_cfg.dataset == "cadis":
         num_classes = CADIS_CLASS_NUM[data_cfg.tag]
@@ -75,10 +65,9 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
         raise ValueError(f"unknown arch {model_cfg.arch!r}")
     device = resolve_device(device, "build_model")
     dtype = resolve_dtype(model_cfg.dtype)
-    kernels = None if fp32_kernels(dtype, model_cfg.attn_impl) else False
     if model_cfg.arch == "puredeeplab18":
         model = DeepLabV3Plus(num_classes, width=model_cfg.swin_dim // 8,
-                              dtype=dtype, kernels=kernels)
+                              dtype=dtype)
     else:
         model = TswinPlus(num_classes, swin_dim=model_cfg.swin_dim,
                           num_heads=model_cfg.num_heads,
@@ -86,7 +75,7 @@ def build_model(model_cfg: ModelConfig, data_cfg: DataConfig,
                           swin_depths=tuple(model_cfg.swin_depths),
                           dtype=dtype,
                           input_hw=tuple(data_cfg.crop_hw),
-                          kernels=kernels, attn_impl=model_cfg.attn_impl,
+                          attn_impl=model_cfg.attn_impl,
                           remat=model_cfg.remat)
     return model.to(device), num_classes
 

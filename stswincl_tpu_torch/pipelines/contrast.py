@@ -32,8 +32,7 @@ from stswincl_tpu_torch.parallel import (data_parallel, host_count,
                                          initialize_distributed, replicate,
                                          sync_batchnorm)
 from stswincl_tpu_torch.pipelines.common import (build_contrast_dataset,
-                                                 build_loader, fp32_kernels,
-                                                 resolve_device,
+                                                 build_loader, resolve_device,
                                                  resolve_dtype)
 from stswincl_tpu_torch.pipelines.seg import _dump_config
 from stswincl_tpu_torch.train.optim import (make_lars, scale_lr_linear,
@@ -46,17 +45,15 @@ from stswincl_tpu_torch.utils.logging import MetricLogger, setup_logger
 def build_contrast_encoder(cfg: ContrastTrainConfig, class_num: int,
                            device) -> ContrastEncoder:
     """The encoder the config names, weights seeded from `cfg.data.seed`,
-    on `device`. Both dtypes run the kernels on a CUDA device
-    (`kernels=None`; fp32 on the fp32 forms of K1-K3, K5 and K6), except an
-    fp32 model on a route whose attention kernel has no fp32 form
-    (`common.fp32_kernels`)."""
+    on `device`. Both dtypes run the kernels on a CUDA device on every
+    `attn_impl` (`kernels=None`; fp32 on the fp32 forms of K1-K3, K5 and
+    K6, and of rows 10 and 11 on their routes)."""
     dtype = resolve_dtype(cfg.model.dtype)
     model = ContrastEncoder(
         class_num, swin_dim=cfg.model.swin_dim, num_heads=cfg.model.num_heads,
         with_instance=cfg.pixpro_ins_loss_weight > 0,
         swin_depths=tuple(cfg.model.swin_depths), dtype=dtype,
         input_hw=tuple(cfg.data.crop_hw),
-        kernels=None if fp32_kernels(dtype, cfg.model.attn_impl) else False,
         attn_impl=cfg.model.attn_impl)
     init_weights(model, torch.Generator().manual_seed(cfg.data.seed))
     return model.to(device)

@@ -38,10 +38,15 @@ block's forward. The fp32 forms of K1, K2 (both forms) and K3
 (`csrc/fp32_forms.cu`) against their fp32 twins within F32_TOL, K1's at
 both stages' window shapes (TN 128 x hd 128, TN 32 x hd 256), the fp32
 GEMM alone against torch.matmul in fp32 (TF32 off) at ragged shapes and
-with K1's row maps, rows 10 and 11 refusing fp32 by name; the fp32 model
-from `build_model` serves on those forms (its launches a `predict_next`
-the bf16 model's, its predictions the plain route's) and takes a train
-step on the fp32 forms. The fp32 training forms (`csrc/fp32_train.cu`):
+with K1's row maps; the fp32 forms of rows 10 and 11 (`csrc/fp32_forms.cu`,
+K1's fp32 core over their address maps) at both stages' window shapes
+with and without the mask, each the other's bits, and of row 16
+(`csrc/fp32_whole_block.cu`) against its twin and to the bit the fp32 K1
++ K2 pair's, through its Function (the fp32 K5 and K6 in its backward),
+its layout the plan's; rows 12-15 and 17 refusing fp32 by name; the fp32
+model from `build_model` serves on those forms (its launches a
+`predict_next` the bf16 model's, its predictions the plain route's) on
+every route and takes a train step on the fp32 forms. The fp32 training forms (`csrc/fp32_train.cu`):
 the fp32 weight-gradient GEMM against torch.matmul (ragged, split rows,
 row maps, the same bits twice), `linear_f32`'s K6 epilogues, K5 and K6
 through their Functions at both stages' windows against autograd of the
@@ -396,16 +401,44 @@ def _f32(args):
 
 
 def test_fp32_activations_are_refused(dev, gen):
-    """Rows 10 and 11 take bf16 only and refuse fp32 by name; K1, K2 (plain,
-    shifted, and the final-pair slice T 1) and K3 run their fp32 forms
-    (one launch each) within F32_TOL of their fp32 twins."""
-    qkv, bias, _, heads, scale, ws = _row_args(dev, gen, "s2", False)
-    with pytest.raises(NotImplementedError, match="row 10"):
-        block_attention.windowed_attention_image(qkv.float(), bias, None,
-                                                 heads, scale, ws)
-    q = partition_qkv(qkv, heads, ws)[0].float().contiguous()
-    with pytest.raises(NotImplementedError, match="row 11"):
-        attention.fused_window_attention(q, q, q, bias, None, scale)
+    """What still takes bf16 only refuses fp32 by name: rows 12, 14, 15
+    and 17 (row 13 shares row 12's check below); rows 10 and 11 run their
+    fp32 forms (one launch each, none of the bf16 kernel), and K1, K2
+    (plain, shifted, and the final-pair slice T 1) and K3 theirs, each
+    within F32_TOL of its fp32 twin."""
+    x = torch.zeros((256, 512), device=dev)
+    v = torch.zeros(512, device=dev)
+    w = torch.zeros((1024, 512), device=dev)
+    for row, call in (
+            ("row 12", lambda: mlp.fused_mlp(x, w, torch.zeros(
+                1024, device=dev), w.t().contiguous(), v)),
+            ("row 14", lambda: add_layernorm.add_layer_norm(x, x, v, v)),
+            ("row 15", lambda: layernorm.fused_layer_norm(x, v, v)),
+            ("row 17", lambda: conv.conv3x3_bn_act(
+                torch.zeros((1, 8, 8, 64), device=dev),
+                torch.zeros((64, 64, 3, 3), device=dev), v[:64], v[:64]))):
+        with pytest.raises(NotImplementedError, match=row):
+            call()
+    qkv, bias, mask, heads, scale, ws = _row_args(dev, gen, "s2", True)
+    qkv = qkv.float()
+    q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+    with torch.inference_mode():
+        for fn, form, got, want in (
+                (block_attention.windowed_attention_image,
+                 block_attention.windowed_attention_image_f32,
+                 lambda: block_attention.windowed_attention_image(
+                     qkv, bias, mask, heads, scale, ws),
+                 lambda: block_attention.windowed_attention_image_ref(
+                     qkv, bias, mask, heads, scale, ws)),
+                (attention.fused_window_attention,
+                 attention.fused_window_attention_f32,
+                 lambda: attention.fused_window_attention(q, k, v, bias,
+                                                          mask, scale),
+                 lambda: attention.attend_tiled(q, k, v, bias, mask,
+                                                scale))):
+            n, nf = fn.launches, form.launches
+            _close(got(), want(), tol=F32_TOL)
+            assert (fn.launches, form.launches) == (n, nf + 1)
     with torch.inference_mode():
         for shift in (0, 2):
             args = _f32(_attn_args(dev, gen, shift, gain_qkv=3.0,
@@ -452,6 +485,95 @@ def test_block_attention_f32_stage_windows(dev, gen, case):
             got = block_attention.swin_block_attention(*args)
         _close(got, block_attention.swin_block_attention_ref(*args),
                tol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_f32_forms(dev, gen, case, masked):
+    """The fp32 forms of rows 10 and 11 at both stages' window shapes (TN
+    128 x hd 128, TN 32 x hd 256), six windows an image and two images,
+    with and without the SW-MSA mask: each within F32_TOL of its fp32
+    twin, one launch of its own form and none of the bf16 kernel, the
+    same bits twice; the two run one core over two address maps, so row
+    10's output is row 11's reversed to the image, to the bit. Under
+    autograd row 10's Function launches the form forward and
+    differentiates the twin."""
+    qkv, bias, mask, heads, scale, ws = _row_args(dev, gen, case, masked)
+    qkv = (qkv.float() * 2).contiguous()  # a peaked softmax
+    B, T, H, W, _ = qkv.shape
+    q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+    f10 = block_attention.windowed_attention_image_f32
+    f11 = attention.fused_window_attention_f32
+    n10, n11 = f10.launches, f11.launches
+    b10 = block_attention.windowed_attention_image.launches
+    b11 = attention.fused_window_attention.launches
+    with torch.inference_mode():
+        got10 = block_attention.windowed_attention_image(qkv, bias, mask,
+                                                         heads, scale, ws)
+        got11 = attention.fused_window_attention(q, k, v, bias, mask, scale)
+        _close(got10, block_attention.windowed_attention_image_ref(
+            qkv, bias, mask, heads, scale, ws), tol=F32_TOL)
+        _close(got11, attention.attend_tiled(q, k, v, bias, mask, scale),
+               tol=F32_TOL)
+        assert torch.equal(got10, f10(qkv, bias, mask, heads, scale, ws))
+        assert torch.equal(got11, f11(q, k, v, bias, mask, scale))
+        from stswincl_tpu_torch.ops.window import reverse_windows
+        assert torch.equal(got10, reverse_windows(got11, B, T, H, W, ws))
+    assert (f10.launches, f11.launches) == (n10 + 2, n11 + 2)
+    assert block_attention.windowed_attention_image.launches == b10
+    assert attention.fused_window_attention.launches == b11
+    _grads_close(block_attention.windowed_attention_image,
+                 block_attention.windowed_attention_image_ref, [qkv, bias],
+                 (mask, heads, scale, ws))
+    assert f10.launches == n10 + 3
+
+
+@pytest.mark.parametrize("route", ["pallas", "pallas_windows", "whole_block"])
+def test_fp32_model_routes_run_the_fp32_forms(dev, route):
+    """An fp32 TswinPlus at swin_dim 256 (head dims 64 and 128) on the
+    'pallas' and 'pallas_windows' routes and with `whole_block`: a
+    `predict_next` launches the route's fp32 forms as often as the bf16
+    model on the same route launches its kernels, and no bf16 kernel; its
+    predictions are the fp32 plain route's on >= 99.9 % of pixels."""
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+
+    rkw = (dict(whole_block=True) if route == "whole_block"
+           else dict(attn_impl=route))
+    kw = dict(num_classes=5, swin_dim=256, swin_depths=(2, 2),
+              input_hw=(128, 192), **rkw)
+    model = init_weights(TswinPlus(**kw, dtype=torch.float32),
+                         torch.Generator().manual_seed(0))
+    bf = TswinPlus(**kw, dtype=BF)
+    plain = TswinPlus(**kw, dtype=torch.float32, kernels=False)
+    for m in (bf, plain):
+        m.load_state_dict(model.state_dict())
+    frames = torch.rand((1, 5, 128, 192, 3),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) * 2 - 1
+    counted = _counted_wrappers()
+
+    def per_step(m):
+        seg = StreamingSegmenter(m.to(dev).eval(), out_hw=(256, 384))
+        cache, _ = seg.init_and_predict(frames[:, 0:4])
+        before = [fn.launches for fn in counted]
+        _, pred = seg.predict_next(cache, frames[:, 4])
+        return pred, {fn.__name__: fn.launches - b
+                      for fn, b in zip(counted, before) if fn.launches > b}
+
+    pred, got = per_step(model)
+    _, want = per_step(bf)
+    ref, none = per_step(plain)
+    assert none == {}
+    attn = {"pallas": "windowed_attention_image",
+            "pallas_windows": "fused_window_attention",
+            "whole_block": "whole_swin_block"}[route]
+    assert want[attn] > 0
+    # the same launches, each kernel in its fp32 form (K4 has one form)
+    assert got == {(k if k == "upsample_argmax" else f"{k}_f32"): v
+                   for k, v in want.items()}, (got, want)
+    assert (pred == ref).float().mean().item() >= 0.999
 
 
 def test_attention_kernels_refuse_windows_beyond_shared_memory(dev):
@@ -654,14 +776,102 @@ def test_whole_block_refuses_what_it_does_not_take(dev, gen):
     with pytest.raises(ValueError, match="W-MSA"):
         swin_block.whole_swin_block(x, *bf_w[1:6], mask, *bf_w[7:], heads,
                                     scale, ws)
-    with pytest.raises(NotImplementedError):
+    # fp32 runs the fp32 form (weights cast to x's dtype), not the bf16
+    # kernel
+    n, nf = (swin_block.whole_swin_block.launches,
+             swin_block.whole_swin_block_f32.launches)
+    with torch.inference_mode():
         swin_block.whole_swin_block(x.float(), *bf_w[1:], heads, scale, ws)
+    assert (swin_block.whole_swin_block.launches,
+            swin_block.whole_swin_block_f32.launches) == (n, nf + 1)
+    # an fp32 head dim of 16 (C 128 over 8 heads): the fp32 core takes
+    # multiples of 32
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    C = 128
+    with pytest.raises(ValueError, match="head_dim % 32"):
+        swin_block.whole_swin_block(
+            z(1, 2, 8, 12, C), z(3 * C, C), z(3 * C), z(C, C), z(C),
+            z(8, 32, 32), None, z(C), z(C), z(4 * C, C), z(4 * C),
+            z(C, 4 * C), z(C), z(C), z(C), 8, scale, ws)
     # three frames: windows of 48 tokens, which do not tile 128 rows
     x3 = torch.zeros((1, 3, 8, 12, x.shape[-1]), device=dev, dtype=BF)
     bias3 = torch.zeros((heads, 48, 48), device=dev)
     with pytest.raises(ValueError, match="tile"):
         swin_block.whole_swin_block(x3, *bf_w[1:5], bias3, None, *bf_w[7:],
                                     heads, scale, ws)
+
+
+def _f32_whole(tensors):
+    """Row 16's arguments in fp32 (the weights as the model holds them)."""
+    return [t if t is None or t.dtype == torch.float32 else t.float()
+            for t in tensors]
+
+
+@pytest.mark.parametrize("case", sorted(WHOLE_CASES))
+def test_whole_block_f32_form(dev, gen, case):
+    """Row 16's fp32 form, one launch and no GEMM launch of the library's
+    own: within F32_TOL of its fp32 twin, the bits of the fp32 K1 + K2 pair
+    (`whole_swin_block_pair`: the same products in the same order, K1's
+    fp32 core, K2's fp32 LayerNorm order) and the same bits twice; through
+    `WholeBlockFn` its backward (the pair's Functions: the fp32 forms of
+    K1, K2, K6 and K5) against autograd of the fp32 twin."""
+    tensors, cfg = _whole_args(dev, gen, case)
+    tensors = _f32_whole(tensors)
+    form = swin_block.whole_swin_block_f32
+    n, nb = form.launches, swin_block.whole_swin_block.launches
+    with torch.inference_mode():
+        gemm.launch_counts(reset=True)
+        got = swin_block.whole_swin_block(*tensors, *cfg)
+        torch.cuda.synchronize()
+        assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0)
+        assert (form.launches, swin_block.whole_swin_block.launches) == (
+            n + 1, nb)
+        want = swin_block.whole_swin_block_ref(*tensors, *cfg)
+        _close(got, want, tol=F32_TOL)
+        assert torch.equal(got, swin_block.whole_swin_block(*tensors, *cfg))
+        pair = swin_block.whole_swin_block_pair(*tensors, *cfg)
+        assert torch.equal(got, pair), (got - pair).abs().max()
+    idx = [i for i, t in enumerate(tensors) if t is not None]
+    leaves = [tensors[i].detach().requires_grad_() for i in idx]
+
+    def call(f, ls):
+        args = list(tensors)
+        for i, t in zip(idx, ls):
+            args[i] = t
+        return f(*args, *cfg)
+    k5 = block_attention.swin_block_attention_bwd_f32
+    k6 = add_ln_mlp.swin_block_epilogue_bwd_f32
+    n5, n6 = k5.launches, k6.launches
+    out = call(swin_block.whole_swin_block, leaves)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    got = torch.autograd.grad(out, leaves, g)
+    assert form.launches == n + 3
+    assert (k5.launches, k6.launches) == (n5 + 1, n6 + 1)
+    twin_leaves = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(call(swin_block.whole_swin_block_ref,
+                                    twin_leaves), twin_leaves, g)
+    for leaf, gr, w in zip(leaves, got, want):
+        assert gr.dtype == leaf.dtype
+        _close(gr, w, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("TN, hd", [(32, 128), (32, 256), (64, 64),
+                                    (128, 64), (128, 128)])
+def test_whole_block_f32_layout_is_the_plans(dev, TN, hd):
+    """The shared memory and attention pairs row 16's fp32 form launches
+    with (`stswin_whole_block_f32_layout`) are those of the Python plan in
+    fp32; its slots come from the occupancy API (at least one block an
+    SM)."""
+    heads = max(1, 128 // hd)  # C a multiple of 128
+    T, ws = {32: (2, 4), 64: (1, 8), 128: (2, 8)}[TN]
+    C = hd * heads
+    plan = swin_block.whole_block_plan(1, T, 2 * ws, 2 * ws, C, 4 * C, heads,
+                                       ws, torch.float32)
+    assert swin_block._layout(TN, hd, torch.float32) == (
+        plan.attention_group, plan.smem_bytes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert swin_block._slots(T, C, heads, ws, dev.index,
+                             torch.float32) >= sms
 
 
 @pytest.mark.parametrize("C", [72, 256, 512])
@@ -984,7 +1194,10 @@ def _counted_wrappers():
     return [block_attention.swin_block_attention,
             block_attention.swin_block_attention_bwd,
             block_attention.windowed_attention_image,
+            block_attention.windowed_attention_image_f32,
             attention.fused_window_attention,
+            attention.fused_window_attention_f32,
+            swin_block.whole_swin_block_f32,
             add_ln_mlp.swin_block_epilogue,
             add_ln_mlp.swin_block_epilogue_bwd, add_ln_mlp.add_ln_mlp,
             patch_merge.patch_merge, upsample_argmax.upsample_argmax,

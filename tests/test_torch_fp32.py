@@ -1,13 +1,16 @@
 """The fp32 route of the port, on the CPU: `build_model` builds an fp32
-model on the kernels (`kernels=None`) on every route whose attention
-kernel has an fp32 form; an fp32 forward on the card that records no
-graph launches the fp32 forms of K1-K3 directly and one that records a
-graph goes through their autograd Functions, which call those forms
-(shown on meta tensors, which take the card's branches of the wrappers
-without a card; the backward half is in test_torch_fp32_train.py); the
-fp32 attention core's shared-memory plan; and the fp32 slice as a whole:
+model on the kernels (`kernels=None`) on every route; an fp32 forward on
+the card that records no graph launches the fp32 forms of K1-K3 and of
+rows 10, 11 and 16 directly and one that records a graph goes through
+their autograd Functions, which call those forms (shown on meta tensors,
+which take the card's branches of the wrappers without a card: K1-K3's
+forms are monkeypatched, rows 10, 11 and 16 reach `kernels.launch`, which
+is; the backward half is in test_torch_fp32_train.py); rows 12-15 and 17,
+which have no fp32 form yet, refuse fp32 naming their row; the fp32
+attention core's shared-memory plan; and the fp32 slice as a whole:
 `build_model(dtype="float32")` through `StreamingSegmenter` against the
-JAX fp32 model routed as on the TPU, its Pallas kernels interpreted."""
+JAX fp32 model routed as on the TPU, its Pallas kernels interpreted (the
+routes off 'pallas_full' in test_torch_fp32_routes.py)."""
 
 import functools
 
@@ -25,10 +28,10 @@ from stswincl_tpu.pipelines.streaming import (  # noqa: E402
 from stswincl_tpu_torch import kernels  # noqa: E402
 from stswincl_tpu_torch.ckpt import load_from_jax  # noqa: E402
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig  # noqa: E402
-from stswincl_tpu_torch.ops import (add_ln_mlp, attention,  # noqa: E402
-                                    block_attention, patch_merge)
-from stswincl_tpu_torch.pipelines.common import (build_model,  # noqa: E402
-                                                 fp32_kernels)
+from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp,  # noqa: E402
+                                    attention, block_attention, conv,
+                                    layernorm, mlp, patch_merge, swin_block)
+from stswincl_tpu_torch.pipelines.common import build_model  # noqa: E402
 from stswincl_tpu_torch.pipelines.streaming import (  # noqa: E402
     StreamingSegmenter)
 
@@ -37,18 +40,17 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("attn_impl,want", [
     ("auto", None), ("pallas_full", None), ("einsum", None),
-    ("pallas", False), ("pallas_windows", False)])
+    ("pallas", None), ("pallas_windows", None)])
 @pytest.mark.parametrize("arch", ["swinPlus", "puredeeplab18"])
 def test_build_model_fp32_route_by_attn_impl(attn_impl, want, arch):
-    """fp32 runs the kernels (None) unless the route's attention kernel,
-    Pallas row 10 or 11, has no fp32 form; bf16 always runs them."""
+    """fp32 runs the kernels (None) on every route, as bf16 does: each
+    route's attention kernel (K1, Pallas row 10 or 11) has an fp32
+    form."""
     mc = ModelConfig(arch=arch, swin_dim=64, swin_depths=(1, 1),
                      dtype="float32", attn_impl=attn_impl)
     model, _ = build_model(mc, DataConfig(crop_hw=(64, 96)), device="cpu")
     blocks = [m for m in model.modules() if hasattr(m, "kernels")]
     assert blocks and all(m.kernels is want for m in blocks)
-    assert fp32_kernels(torch.float32, attn_impl) is (want is None)
-    assert fp32_kernels(torch.bfloat16, attn_impl)
 
 
 def _meta(*shape, grad=False, dtype=torch.float32):
@@ -106,13 +108,90 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# rows 10, 11 and 16: (wrapper, the C entry of its fp32 form, its
+# arguments as make(grad) -> (args, kwargs)); one head of 64, a window of
+# 32 tokens (T 2, ws 4), which K5's fp32 form takes (row 16's backward)
+TN_ = T * WS * WS
+
+
+def _row10(grad):
+    return ((_meta(B, T, H, W, 3 * C, grad=grad), _meta(HEADS, TN_, TN_),
+             _meta(4, TN_, TN_), HEADS, 0.125, WS), {})
+
+
+def _row11(grad):
+    q = _meta(8, HEADS, TN_, C, grad=grad)
+    return ((q, _meta(8, HEADS, TN_, C), _meta(8, HEADS, TN_, C),
+             _meta(HEADS, TN_, TN_), _meta(4, TN_, TN_), 0.125), {})
+
+
+def _row16(grad):
+    c, heads = 128, 2  # the whole block takes C % 128
+    v = _meta
+    return ((_meta(B, T, H, W, c), _meta(3 * c, c, grad=grad), v(3 * c),
+             v(c, c), v(c), v(heads, TN_, TN_), None, v(c), v(c),
+             v(4 * c, c), v(4 * c), v(c, 4 * c), v(c), v(c), v(c), heads,
+             0.125, WS), {})
+
+
+LAUNCHED = {
+    "row 10": (block_attention.windowed_attention_image,
+               "stswin_window_attention_image_f32", _row10,
+               "WindowedAttentionImageFn"),
+    "row 11": (attention.fused_window_attention,
+               "stswin_window_attention_heads_f32", _row11,
+               "FusedWindowAttentionFn"),
+    "row 16": (swin_block.whole_swin_block, "stswin_whole_block_f32",
+               _row16, "WholeBlockFn"),
+}
+
+
+def _launch_on_meta(monkeypatch):
+    """Let meta tensors take the card's branch down to `kernels.launch`:
+    they report `is_cuda`, the launch and the library's queries are
+    recorded or answered here, and `require_bf16` fails the test if a
+    wrapper asks for it. Returns the list of launched C entries."""
+    entries = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True),
+                        raising=False)
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, dev, *a: entries.append(name))
+    monkeypatch.setattr(kernels, "use_device", lambda dev: 0)
+
+    def no_bf16(name, row, *t):
+        raise AssertionError(f"{name} asked for bf16 ({row})")
+    monkeypatch.setattr(kernels, "require_bf16", no_bf16)
+    monkeypatch.setattr(swin_block, "_slots", lambda *a: 132)
+    monkeypatch.setattr(swin_block, "_layout", lambda TN, hd, dtype: (
+        1, max(swin_block.F32_RING_BYTES,
+               attention._attn_f32_smem_bytes(TN, hd))))
+    return entries
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(LAUNCHED))
 def test_fp32_wrappers_route_by_graph(monkeypatch, case):
     """On fp32 tensors off the CPU, the wrapper launches the fp32 form when
     no graph is recorded (no grad asked for, `no_grad`,
     `inference_mode`) and goes through its autograd Function when one is:
     the output then carries the Function's graph, whose forward called the
-    fp32 form (K1's with its window-order scratch) once, and no twin."""
+    fp32 form (K1's with its window-order scratch) once, and no twin.
+    Rows 10, 11 and 16 reach their `_f32` C entry and never
+    `require_bf16`."""
+    if case in LAUNCHED:
+        fn, entry, make, function = LAUNCHED[case]
+        entries = _launch_on_meta(monkeypatch)
+        for ctx, grad in ((torch.enable_grad, False), (torch.no_grad, True),
+                          (torch.inference_mode, True)):
+            args, kw = make(grad)
+            with ctx():
+                out = fn(*args, **kw)
+            assert out.device.type == "meta" and out.grad_fn is None
+        args, kw = make(True)
+        out = fn(*args, **kw)
+        assert out.device.type == "meta"
+        assert type(out.grad_fn).__name__ == function + "Backward"
+        assert entries == [entry] * 4
+        return
     mod, wrapper, form, make = CASES[case]
     calls = []
     monkeypatch.setattr(mod, form, lambda *a, **k: calls.append(a) or "f32")
@@ -131,6 +210,36 @@ def test_fp32_wrappers_route_by_graph(monkeypatch, case):
     assert out.device.type == "meta"
     assert type(out.grad_fn).__name__.endswith("FnBackward")
     assert len(calls) == 4
+
+
+OFF_PATH = {  # rows with no fp32 form yet: (row, the call on fp32 tensors)
+    "row 12": lambda: mlp.fused_mlp(_meta(64, 128), _meta(512, 128),
+                                    _meta(512), _meta(128, 512), _meta(128)),
+    "row 13": lambda: add_ln_mlp.add_ln_mlp(
+        _meta(64, 128), _meta(64, 128), _meta(128), _meta(128),
+        _meta(512, 128), _meta(512), _meta(128, 512), _meta(128)),
+    "row 14": lambda: add_layernorm.add_layer_norm(
+        _meta(64, 256), _meta(64, 256), _meta(256), _meta(256)),
+    "row 15": lambda: layernorm.fused_layer_norm(_meta(64, 256), _meta(256),
+                                                 _meta(256)),
+    "row 17": lambda: conv.conv3x3_bn_act(
+        _meta(1, 8, 8, 64), _meta(64, 64, 3, 3), _meta(64), _meta(64)),
+}
+
+
+@pytest.mark.parametrize("row", sorted(OFF_PATH))
+def test_fp32_offpath_rows_refuse_by_name(monkeypatch, row):
+    """Rows 12-15 and 17 run on no model path and have no fp32 form on
+    the card yet (ROADMAP Queue 2): fp32 tensors off the CPU raise
+    NotImplementedError naming the row, before any launch."""
+    launched = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True),
+                        raising=False)
+    monkeypatch.setattr(kernels, "launch",
+                        lambda *a: launched.append(a[0]))
+    with pytest.raises(NotImplementedError, match=f"Pallas {row}\\b"):
+        OFF_PATH[row]()
+    assert launched == []
 
 
 def test_fp32_attention_shared_memory_plan():

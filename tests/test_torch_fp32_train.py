@@ -376,10 +376,12 @@ JAX_TRAIN_KERNELS = {"fused_swin_block_attention",
                      "fused_patch_merge"}
 
 
-def _stage1_port_step(mc, init, images, labels):
-    """One port step of `build_model(mc)` from state `init`: (the model
-    after it, its loss, its gradients by name, numpy)."""
-    port, _ = build_model(mc, DataConfig(crop_hw=HW), device="cpu")
+def _stage1_port_step(mc, init, images, labels, make=None):
+    """One port step of `build_model(mc)` (or of the model `make()`
+    builds) from state `init`: (the model after it, its loss, its
+    gradients by name, numpy)."""
+    port = (make() if make is not None
+            else build_model(mc, DataConfig(crop_hw=HW), device="cpu")[0])
     assert port.kernels is None
     port.load_state_dict(init)
     cfg = SegTrainConfig(model=mc)
@@ -405,26 +407,37 @@ def test_fp32_stage1_step_matches_jax_tpu_routing(jax_tpu_interpreted):
     (as tests/test_torch_contrast.py does): at swin_dim 128 the step is
     rounding-sensitive enough that XLA's thread count alone moves a
     ResNet gradient by 1 % (flax's E[x^2] - E[x]^2 BatchNorm backward)."""
+    check_fp32_stage1_step(
+        jax_tpu_interpreted, ModelConfig(num_classes=NC, dtype="float32",
+                                         **MODEL),
+        JTswinPlus(num_classes=NC, **MODEL), JAX_TRAIN_KERNELS)
+
+
+def check_fp32_stage1_step(jax_calls, mc, jm, jax_kernels, make=None):
+    """One stage-1 step of the fp32 port model (`build_model(mc)`, or
+    `make()`) against the JAX fp32 `make_seg_train_step` of `jm`, both from
+    the port's seeded weights, on the same batch; `jax_calls` the JAX
+    kernels the fixture records, which must be `jax_kernels`. The bounds
+    of `test_fp32_stage1_step_matches_jax_tpu_routing`."""
     rng = np.random.default_rng(0)
     images = rng.standard_normal((B2, 4, *HW, 3)).astype(np.float32)
     labels = rng.integers(-1, NC, (B2, *HW)).astype(np.int32)
-    mc = ModelConfig(num_classes=NC, dtype="float32", **MODEL)
-    seeded, _ = build_model(mc, DataConfig(crop_hw=HW), device="cpu")
+    seeded = (make() if make is not None
+              else build_model(mc, DataConfig(crop_hw=HW), device="cpu")[0])
     init = init_weights(seeded, torch.Generator().manual_seed(0)).state_dict()
     variables = _jax_variables(seeded)
-    jm = JTswinPlus(num_classes=NC, **MODEL)
     tx = _recording(joptim.make_adam(3e-4))
     jstate = jtrain.SegTrainState.create(variables, tx)
     jstep = jtrain.make_seg_train_step(jm, tx, loss_type="ohem")
     jstate, jmetrics = jstep(jstate, jnp.asarray(images),
                              jnp.asarray(labels))
-    assert set(jax_tpu_interpreted) == JAX_TRAIN_KERNELS
+    assert set(jax_calls) == jax_kernels
     jgrads = jstate.opt_state[1]
 
-    port, loss, grads = _stage1_port_step(mc, init, images, labels)
+    port, loss, grads = _stage1_port_step(mc, init, images, labels, make)
     noisy = (images * (1 + 1e-7 * np.random.default_rng(9).standard_normal(
         images.shape))).astype(np.float32)
-    _, _, grads_n = _stage1_port_step(mc, init, noisy, labels)
+    _, _, grads_n = _stage1_port_step(mc, init, noisy, labels, make)
     lr = SegTrainConfig(model=mc).lr
     assert loss == pytest.approx(float(jmetrics["loss"]), rel=LOSS_TOL)
     new_vars = {"params": jstate.params, "batch_stats": jstate.batch_stats}
