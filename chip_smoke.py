@@ -181,7 +181,20 @@ stops a phase exits non-zero at once:
      >= 99.9 %, ms and frames/s; (g) one fp32 stage-1 step at batch 2 on
      'pallas' and on `whole_block` through `fp32_step_gate` (planted
      faults: row 10 without the mask, row 16 with wproj transposed, K5's
-     and K6's of (d) where they run, bf16 autocast), exact launches;
+     and K6's of (d) where they run, bf16 autocast), exact launches; (a)
+     also the fp32 forms of rows 12 (the MLP), 13 (add + LN + MLP), 14
+     (add + LN), 15 (LN) and 17 (the dilated conv) through their wrappers
+     at phase 2e's shapes (`phase_fp32_offpath_kernels`), each within
+     TOL_F32_REL of its fp32 twin, bit-equal across two calls, exact
+     launches (two fp32 GEMMs a row 12 or 13 call, one "conv_f32" a row
+     17 call, no bf16 kernel), a planted fault (TF32 products or operands;
+     y dropped; the bias dropped) missing tenfold, timed beside the twin,
+     the bf16 kernel and the library, and K5's fp32 form at head dim 32;
+     (h) the entry points of rows 12-15 and 17 in fp32 (`Mlp`,
+     `FusedLayerNorm`, the wrappers): one launch of each fp32 form, no
+     bf16 kernel, within TOL_F32_REL of the plain routes; (i) one fp32
+     stage-1 step of `swin_dim` 128, depths (1, 1) (hd 32 at stage 1)
+     through `fp32_step_gate`, exact launches;
   8. stage-2 pretraining at full width (`ContrastEncoder`, batch 4, six
      views of 4 frames at 256x448, `ContrastTrainConfig`'s LARS and EMA):
      (a) one step on the kernel route against one on the plain route and
@@ -278,8 +291,8 @@ stops a phase exits non-zero at once:
 Each main path (serve and train on each route, the profilers, the
 modules) is driven with every launch count set to 0 just before it and
 read just after. K1-K3, K5, K6, rows 12, 13 and 17 launch the Hopper
-GEMMs from C: the library counts those launches by form where it makes
-them, and each path holds them exactly to what the kernels' own launches
+GEMMs (their fp32 forms the fp32 GEMMs) from C: the library counts those
+launches by form where it makes them, and each path holds them exactly to what the kernels' own launches
 imply (on a train path, with the blocks whose m is saved); row 16 runs
 its products inside its one launch and adds none. Then
 come three lines: a JSON object with each kernel's launches by path,
@@ -592,7 +605,12 @@ def kernel_wrappers() -> dict:
         "windowed_attention_image_f32":
             block_attention.windowed_attention_image_f32,
         "fused_window_attention_f32": fused_window_attention_f32,
-        "whole_swin_block_f32": swin_block.whole_swin_block_f32}
+        "whole_swin_block_f32": swin_block.whole_swin_block_f32,
+        "fused_mlp_f32": mlp.fused_mlp_f32,
+        "add_ln_mlp_f32": add_ln_mlp.add_ln_mlp_f32,
+        "add_layer_norm_f32": add_layernorm.add_layer_norm_f32,
+        "fused_layer_norm_f32": layernorm.fused_layer_norm_f32,
+        "conv3x3_bn_act_f32": conv.conv3x3_bn_act_f32}
 
 
 def reset_launches(wrappers) -> None:
@@ -634,7 +652,9 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
     two fp32 GEMM products each, K3's one, K5's two (dattn, dx) and K6's
     three (fc1 with gelu', dh * gelu', dn2) plus m where it recomputes m
     (`f32_recomputed` of its launches), and two fp32 weight gradients each
-    of K5's and K6's. `m_saved`: the block calls
+    of K5's and K6's; the fp32 forms of rows 12 and 13 two fp32 GEMM
+    products each (fc1, fc2), row 17's one "conv_f32" product a call.
+    `m_saved`: the block calls
     whose K2 saves m and whose K6 takes it (0 where nothing is trained;
     None where the path does not say); `m_used`, where it differs, the
     K6 launches that take a saved m (with remat K2 saves m in the forward
@@ -644,6 +664,8 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
     k5 = counts["swin_block_attention_bwd"]
     k6 = counts["swin_block_epilogue_bwd"]
     mlps = counts["fused_mlp"] + counts["add_ln_mlp"]
+    mlps_f32 = (counts.get("fused_mlp_f32", 0)
+                + counts.get("add_ln_mlp_f32", 0))
     rules = [("bf16 + resid_f32", forms["bf16"] + forms["resid_f32"],
               2 * k1 + 2 * k2 + k3 + 2 * k5 + forms["gelu_grad"]
               + 2 * mlps),
@@ -657,8 +679,10 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
               2 * (counts["swin_block_attention_f32"]
                    + counts["swin_block_epilogue_f32"]
                    + counts["swin_block_attention_bwd_f32"])
-              + counts["patch_merge_f32"]
+              + counts["patch_merge_f32"] + 2 * mlps_f32
               + 3 * counts["swin_block_epilogue_bwd_f32"] + f32_recomputed),
+             ("conv_f32", forms["conv_f32"],
+              counts.get("conv3x3_bn_act_f32", 0)),
              ("wgrad_f32", forms["wgrad_f32"],
               2 * (counts["swin_block_attention_bwd_f32"]
                    + counts["swin_block_epilogue_bwd_f32"]))]
@@ -1796,6 +1820,19 @@ def main() -> None:
         "whole_swin_block_f32": (
             "fp32_whole_block.cu",
             "stswincl_tpu/ops/pallas_swin_block.py:229 (fp32)"),
+        "fused_mlp_f32": ("fp32_offpath.cu",
+                          "stswincl_tpu/ops/pallas_mlp.py:226 (fp32)"),
+        "add_ln_mlp_f32": (
+            "fp32_offpath.cu",
+            "stswincl_tpu/ops/pallas_add_ln_mlp.py:97 (fp32)"),
+        "add_layer_norm_f32": (
+            "add_layernorm.cu",
+            "stswincl_tpu/ops/pallas_add_layernorm.py:110 (fp32)"),
+        "fused_layer_norm_f32": (
+            "add_layernorm.cu", "stswincl_tpu/ops/pallas_layernorm.py:82 "
+            "(fp32)"),
+        "conv3x3_bn_act_f32": ("fp32_offpath.cu",
+                               "stswincl_tpu/ops/pallas_conv.py:132 (fp32)"),
     }
     rows = []
     for k, (src, replaces) in meta.items():
@@ -3476,6 +3513,10 @@ F32_TRAIN_CASES = (
      for s, c in F32_STAGES.items()]
     + [(c["label"], c["n"], c["C"], c["h"], c["w"], c["ws"])
        for c in CONTRAST_STAGE.values()])
+# K5 alone at head dim 32 (`swin_dim` 128 over 4 heads), its batch-8
+# stage-1 block shape, on stage 1's window (TN 128) and stage 2's (TN 32)
+F32_HD32_CASES = [("hd32 TN128", F32_TRAIN_B, 128, 64, 80, 8),
+                  ("hd32 TN32", F32_TRAIN_B, 128, 32, 40, 4)]
 
 
 @contextlib.contextmanager
@@ -3496,7 +3537,8 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
     """Phase 7 (a), training: rows 6, 7, 8 and 9 in fp32 against their
     fp32 twins (autograd of the fp32 K1 / K2 twins; row 8 the m-output
     twin) on every output within TOL_F32_REL, at the training shapes of
-    stages 1 and 2 and at the stage-2 step's (F32_TRAIN_CASES); the same
+    stages 1 and 2 and at the stage-2 step's (F32_TRAIN_CASES), and row 6
+    at head dim 32 (F32_HD32_CASES); the same
     twin with every product on TF32 operands must miss the bound tenfold
     (but the outputs no product reaches: dbproj and db1n, the column sums
     of g, and dbw2); each form bit-equal across two calls on the same
@@ -3575,7 +3617,7 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
 
     heads, T = 4, 2
     wgrads = []  # (case, a, b, a_map, b_map)
-    for label, n, C, h, w, ws in F32_TRAIN_CASES:
+    for label, n, C, h, w, ws in F32_TRAIN_CASES + F32_HD32_CASES:
         TN, R, hidden = T * ws * ws, n * T * h * w, 4 * C
         shift = ws // 2
         scale = (C // heads) ** -0.5
@@ -3619,6 +3661,10 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
               (7 * R * C + 4 * C * C + 4 * C + 2 * heads * TN * TN
                + mask.numel()) * 4),
              exempt=("dbproj",))
+        if (label, n, C, h, w, ws) in F32_HD32_CASES:
+            del x, g, qkv, attn, bqkv_s, battn, bx, bg
+            torch.cuda.empty_cache()
+            continue
         # random operands: qkv itself correlates with x, and the
         # correlated part of its sum hides a TF32 product's error
         if n == F32_TRAIN_B:
@@ -3735,6 +3781,388 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
         check(row["tf32_fault"] > 10 * TOL_F32_REL, f"wgrad_f32 {case}: the "
               f"TF32 twin moves by only {row['tf32_fault']}")
         check(bit, f"wgrad_f32 {case}: two calls differ")
+
+
+# (a) the fp32 forms of the rows on no model path, at phase 2e's shapes:
+# row 12 (and row 13 on the same x) at the batch-8 block shapes, rows 14
+# and 15 at the layer-norm profiler's and, for row 15, at C 100 (a block a
+# row, scalar) and C 3072 (a block a row, 16-byte loads); row 17 at phase
+# 2e's seven conv cases
+F32_MLP_CASES = ((163840, 512, True), (163840, 512, False),
+                 (40960, 1024, True))
+F32_ADD_LN_CASES = ((163840, 512, True), (163840, 512, False),
+                    (40960, 1024, True), (40960, 1024, False))
+F32_LN_CASES = ((163840, 512), (40960, 1024), (40960, 2048), (40960, 100),
+                (40960, 3072))
+F32_CONV_CASES = (
+    ("layer5 512->512 d4 N4 res", 4, 64, 80, 512, 512, 4, True),
+    ("layer4 256->256 d2 N32", 32, 64, 80, 256, 256, 2, False),
+    ("layer1 64->64 d1 N4 res", 4, 128, 160, 64, 64, 1, True),
+    ("ASPP 1024->512 d12 N2 32x40", 2, 32, 40, 1024, 512, 12, False),
+    ("ASPP 1024->512 d18 N2 32x40", 2, 32, 40, 1024, 512, 18, False),
+    ("ASPP 1024->512 d12 N2 64x80", 2, 64, 80, 1024, 512, 12, False),
+    ("ASPP 1024->512 d18 N2 64x80", 2, 64, 80, 1024, 512, 18, False))
+
+
+def phase_fp32_offpath_kernels(dev, results, median_ms, wrappers) -> None:
+    """Phase 7 (a), the rows on no model path: the fp32 forms of rows 12
+    (the MLP), 13 (add + LN + MLP), 14 (add + LN), 15 (LN) and 17 (the
+    dilated conv + BN + residual + ReLU) through their public wrappers on
+    fp32 tensors, TF32 off, each against its fp32 twin on every output
+    within TOL_F32_REL; bit-equal across two calls; one launch of the form
+    a call, no bf16 kernel, and the library's GEMM forms exactly two fp32
+    GEMM launches a row 12 or 13 call and one "conv_f32" a row 17 call;
+    a planted fault that must miss the bound tenfold (rows 12, 13 and 17:
+    the twin on TF32 products or operands; row 14: the twin with y dropped;
+    row 15: the twin without its bias). Timed (CUDA-event medians) beside
+    the twin, the bf16 kernel on the same values in bf16 and the library:
+    one call for rows 15 (`F.layer_norm`) and 17 (cuDNN's channels_last
+    fp32 conv with the BN folded in, `cudnn_conv_bn_act`); PyTorch's chain
+    of calls for rows 12 (F.linear -> F.gelu -> F.linear), 13 (the add,
+    F.layer_norm and that chain) and 14 (the add and F.layer_norm),
+    recorded as yardsticks, not as one library call. Each case's tensors
+    are freed before the next."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops import add_layernorm as aln
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import conv as conv_ops
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops import layernorm as ln_ops
+    from stswincl_tpu_torch.ops import mlp as mlp_ops
+    from stswincl_tpu_torch.tools.profile_conv_kernel import (
+        cudnn_conv_bn_act)
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "phase 7 (a): the fp32 twins must run with TF32 off")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    bf16 = torch.bfloat16
+    bf16_rows = [k for k in wrappers if not k.endswith("_f32")]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(*shape, fan_in, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5)
+
+    def outs(v):
+        return tuple(t for t in (v if isinstance(v, tuple) else (v,))
+                     if t is not None)
+
+    def hold(kname, case, kfn, twin, fault, bfn, work, lib=None,
+             yardstick=None, forms=None):
+        """kfn() the form through its wrapper, twin() and fault() its
+        fp32 twin and the twin with the planted fault, bfn() the bf16
+        kernel, lib() one library call, yardstick (name, fn) a chain of
+        library calls."""
+        form = wrappers[kname]
+        before = {k: wrappers[k].launches for k in bf16_rows}
+        n = form.launches
+        gemm_ops.launch_counts(reset=True)
+        got = outs(kfn())
+        torch.cuda.synchronize()
+        counted = gemm_ops.launch_counts()
+        check(counted == dict.fromkeys(gemm_ops.FORMS, 0) | (forms or {}),
+              f"{kname} {case}: GEMM launches {counted}, expected "
+              f"{forms or {}}")
+        again = outs(kfn())
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        check(form.launches == n + 2, f"{kname} {case}: "
+              f"{form.launches - n} launches of the form in two calls")
+        moved_bf16 = {k: wrappers[k].launches - v for k, v in before.items()
+                      if wrappers[k].launches != v}
+        check(not moved_bf16, f"{kname} {case}: bf16 kernels launched "
+              f"{moved_bf16}")
+        want = outs(twin())
+        bad = outs(fault[1]())
+        errs = [(rel_err(a, w), (a - w).abs().max().item())
+                for a, w in zip(got, want)]
+        moved = max(rel_err(b, w) for b, w in zip(bad, want))
+        check(all(a.dtype == torch.float32 and a.shape == w.shape
+                  for a, w in zip(got, want)) and len(got) == len(want),
+              f"{kname} {case}: outputs {[tuple(a.shape) for a in got]}")
+        del got, want, bad
+        torch.cuda.empty_cache()
+        row = {"case": case, "rel_err": max(e[0] for e in errs),
+               "max_abs_err": max(e[1] for e in errs), "bit_equal": bit,
+               "faults": {fault[0]: moved},
+               "ms": median_ms(kfn), "plain_ms": median_ms(twin),
+               "bf16_ms": median_ms(bfn),
+               "library_ms": None if lib is None else median_ms(lib),
+               **f32_bound(*work)}
+        if yardstick is not None:
+            row[yardstick[0]] = median_ms(yardstick[1])
+        results.setdefault(kname, []).append(row)
+        extra = ("" if lib is None else f" library {row['library_ms']:.3f}"
+                 " ms") + ("" if yardstick is None else
+                           f" {yardstick[0]} {row[yardstick[0]]:.3f}")
+        print(f"  {kname:22s} {case:34s} rel {row['rel_err']:.3e} max_abs "
+              f"{row['max_abs_err']:.3e} bit-equal {bit}; fp32 form "
+              f"{row['ms']:.3f} ms twin {row['plain_ms']:.3f} bf16 kernel "
+              f"{row['bf16_ms']:.3f}{extra} bound {row['bound_ms']:.4f} ms "
+              f"(FMA {row['fma_bound_ms']:.4f}); the twin {fault[0]} moves "
+              f"by {moved:.3e} ({moved / TOL_F32_REL:.1f}x the bound)",
+              flush=True)
+        check(row["rel_err"] <= TOL_F32_REL, f"{kname} {case}: relative "
+              f"error {row['rel_err']} > {TOL_F32_REL}")
+        check(bit, f"{kname} {case}: two calls on the same inputs differ")
+        check(moved > 10 * TOL_F32_REL, f"{kname} {case}: the twin "
+              f"{fault[0]} moves the outputs by only {moved}")
+
+    with torch.inference_mode():
+        # rows 12 and 13: the MLP's weights at gain 2 (its branch as large
+        # as x), LN's scale and shift drawn away from 1 and 0
+        for R, C, exact in F32_MLP_CASES:
+            hidden = 4 * C
+            x, y = randn(R, C), randn(R, C)
+            p = (uniform(hidden, C, fan_in=C, gain=2.0),
+                 uniform(hidden, fan_in=C),
+                 uniform(C, hidden, fan_in=hidden, gain=2.0),
+                 uniform(C, fan_in=hidden))
+            ln = (1.0 + randn(C, scale=0.1), randn(C, scale=0.1))
+            pb = (p[0].to(bf16), p[1], p[2].to(bf16), p[3])
+            xb, yb = x.to(bf16), y.to(bf16)
+            case = f"({R}, {C}) -> {hidden} {'erf' if exact else 'tanh'}"
+            approx = "none" if exact else "tanh"
+            mlp_work = (4 * R * C * hidden,
+                        (2 * R * C + 2 * C * hidden + hidden + C) * 4)
+
+            def chain(v):
+                return F.linear(F.gelu(F.linear(v, p[0], p[1]),
+                                       approximate=approx), p[2], p[3])
+
+            def mlp_tf32():
+                with tf32_products():
+                    return mlp_ops.mlp_ref(x, *p, exact)
+            hold("fused_mlp_f32", case,
+                 lambda: mlp_ops.fused_mlp(x, *p, exact),
+                 lambda: mlp_ops.mlp_ref(x, *p, exact),
+                 ("on TF32 products", mlp_tf32),
+                 lambda: mlp_ops.fused_mlp(xb, *pb, exact), mlp_work,
+                 yardstick=("linear_gelu_linear_ms", lambda: chain(x)),
+                 forms={"fp32": 2})
+
+            def add_ln_tf32():
+                with tf32_products():
+                    return epi.add_ln_mlp_ref(x, y, *ln, *p, exact)
+            hold("add_ln_mlp_f32", case,
+                 lambda: epi.add_ln_mlp(x, y, *ln, *p, exact),
+                 lambda: epi.add_ln_mlp_ref(x, y, *ln, *p, exact),
+                 ("on TF32 products", add_ln_tf32),
+                 lambda: epi.add_ln_mlp(xb, yb, *ln, *pb, exact),
+                 (mlp_work[0], mlp_work[1] + (2 * R * C + 2 * C) * 4),
+                 yardstick=("add_layer_norm_mlp_ms", lambda: chain(
+                     F.layer_norm(x + y, (C,), *ln, 1e-5))),
+                 forms={"fp32": 2})
+            del x, y, xb, yb, p, pb
+            torch.cuda.empty_cache()
+
+        # row 14, with and without the sum; its fault: y dropped
+        for R, C, with_sum in F32_ADD_LN_CASES:
+            x, y = randn(R, C), randn(R, C)
+            scale, shift = 1.0 + randn(C, scale=0.5), randn(C, scale=0.5)
+            xb, yb = x.to(bf16), y.to(bf16)
+            kw = dict(return_sum=with_sum)
+            hold("add_layer_norm_f32",
+                 f"({R}, {C}) {'with' if with_sum else 'without'} the sum",
+                 lambda: aln.add_layer_norm(x, y, scale, shift, **kw),
+                 lambda: aln.add_layer_norm_ref(x, y, scale, shift, **kw),
+                 ("with y dropped", lambda: aln.add_layer_norm_ref(
+                     x, torch.zeros_like(y), scale, shift, **kw)),
+                 lambda: aln.add_layer_norm(xb, yb, scale, shift, **kw),
+                 (10 * R * C, ((4 if with_sum else 3) * R * C + 2 * C) * 4),
+                 yardstick=("add_then_layer_norm_ms", lambda: F.layer_norm(
+                     x + y, (C,), scale, shift, 1e-5)))
+            del x, y, xb, yb
+            torch.cuda.empty_cache()
+
+        # row 15; its fault: the bias dropped
+        for R, C in F32_LN_CASES:
+            x = randn(R, C)
+            scale, shift = 1.0 + randn(C, scale=0.5), randn(C, scale=0.5)
+            xb = x.to(bf16)
+            hold("fused_layer_norm_f32", f"({R}, {C})",
+                 lambda: ln_ops.fused_layer_norm(x, scale, shift),
+                 lambda: ln_ops.layer_norm_ref(x, scale, shift),
+                 ("without its bias", lambda: ln_ops.layer_norm_ref(
+                     x, scale, torch.zeros_like(shift))),
+                 lambda: ln_ops.fused_layer_norm(xb, scale, shift),
+                 (8 * R * C, (2 * R * C + 2 * C) * 4),
+                 lib=lambda: F.layer_norm(x, (C,), scale, shift, 1e-5))
+            del x, xb
+            torch.cuda.empty_cache()
+
+        # row 17; its fault: x and w rounded to TF32 (what one TF32 pass
+        # of the product reads)
+        for name, N, Hc, Wc, cin, cout, d, with_res in F32_CONV_CASES:
+            x = randn(N, Hc, Wc, cin)
+            w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+            scale = 0.5 + torch.rand(cout, generator=gen, device=dev)
+            shift = randn(cout, scale=0.5)
+            res = randn(N, Hc, Wc, cout) if with_res else None
+            kw = dict(dilation=d, relu=True, residual=res)
+            xb, wb = x.to(bf16), w.to(bf16)
+            kwb = dict(kw, residual=None if res is None else res.to(bf16))
+            hold("conv3x3_bn_act_f32", name,
+                 lambda: conv_ops.conv3x3_bn_act(x, w, scale, shift, **kw),
+                 lambda: conv_ops.conv3x3_bn_act_ref(x, w, scale, shift,
+                                                     **kw),
+                 ("on TF32 operands", lambda: conv_ops.conv3x3_bn_act_ref(
+                     tf32(x), tf32(w), scale, shift, **kw)),
+                 lambda: conv_ops.conv3x3_bn_act(xb, wb, scale, shift,
+                                                 **kwb),
+                 (2 * N * Hc * Wc * 9 * cin * cout,
+                  (N * Hc * Wc * (cin + cout * (2 if with_res else 1))
+                   + 9 * cin * cout + 2 * cout) * 4),
+                 lib=lambda: cudnn_conv_bn_act(x, w, scale, shift, d,
+                                               residual=res),
+                 forms={"conv_f32": 1})
+            del x, w, res, xb, wb, kwb
+            torch.cuda.empty_cache()
+
+
+def phase_fp32_entry_points(dev, wrappers, launches) -> None:
+    """Phase 7 (h): the entry points of rows 12-15 and 17 on fp32 CUDA
+    tensors, with every launch count set to 0 first: the `Mlp(dtype=
+    float32)` and `FusedLayerNorm` modules (`kernels=None`) at the stage-1
+    serving clip's width, and the public wrappers `add_ln_mlp`,
+    `add_layer_norm` and `conv3x3_bn_act` (the ASPP's d 12 branch); each
+    call launches its fp32 form exactly once, no bf16 kernel, the fp32
+    GEMM twice a row 12 or 13 call and "conv_f32" once a row 17 call, and
+    each output is within TOL_F32_REL of its plain route (`kernels=False`,
+    or the twin)."""
+    import torch
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import Mlp
+    from stswincl_tpu_torch.ops import add_layernorm as aln
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import conv as conv_ops
+    from stswincl_tpu_torch.ops.layernorm import FusedLayerNorm
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    C = 512
+    mlp = init_weights(Mlp(C, 4 * C, C), torch.Generator().manual_seed(0))
+    mlp_plain = Mlp(C, 4 * C, C, kernels=False)
+    mlp_plain.load_state_dict(mlp.state_dict())
+    ln = FusedLayerNorm(C)
+    with torch.no_grad():
+        ln.weight.add_(0.5 * torch.randn(C, generator=torch.Generator()
+                                         .manual_seed(1)))
+        ln.bias.add_(0.5 * torch.randn(C, generator=torch.Generator()
+                                       .manual_seed(2)))
+    ln_plain = FusedLayerNorm(C, kernels=False)
+    ln_plain.load_state_dict(ln.state_dict())
+    for m in (mlp, mlp_plain, ln, ln_plain):
+        m.to(dev)
+    x = randn(2 * BS, 2, 64, 80, C)  # the stage-1 serving clip's blocks
+    y = randn(*x.shape)
+    v = (1.0 + randn(C, scale=0.1), randn(C, scale=0.1))
+    w12 = [t.detach() for t in (mlp.fc1.weight, mlp.fc1.bias,
+                                mlp.fc2.weight, mlp.fc2.bias)]
+    xc = randn(2, 32, 40, 1024)
+    wc = randn(512, 1024, 3, 3, scale=(9 * 1024) ** -0.5)
+    sc, sh = 0.5 + randn(512).abs(), randn(512, scale=0.5)
+    calls = (
+        ("fused_mlp_f32", lambda: mlp(x), lambda: mlp_plain(x)),
+        ("fused_layer_norm_f32", lambda: ln(x), lambda: ln_plain(x)),
+        ("add_ln_mlp_f32", lambda: epi.add_ln_mlp(x, y, *v, *w12),
+         lambda: epi.add_ln_mlp_ref(x, y, *v, *w12)),
+        ("add_layer_norm_f32", lambda: aln.add_layer_norm(x, y, *v),
+         lambda: aln.add_layer_norm_ref(x, y, *v)),
+        ("conv3x3_bn_act_f32", lambda: conv_ops.conv3x3_bn_act(
+            xc, wc, sc, sh, dilation=12),
+         lambda: conv_ops.conv3x3_bn_act_ref(xc, wc, sc, sh, dilation=12)))
+    reset_launches(wrappers)
+    errs = {}
+    with torch.no_grad():
+        for kname, call, plain in calls:
+            got = call()
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            errs[kname] = max(rel_err(a, b) for a, b in zip(got, want))
+            del got, want
+    torch.cuda.synchronize()
+    counts, forms = read_launches(wrappers)
+    launches["fp32_entry_points"] = counts
+    print(f"  [fp32 entry points] launches "
+          f"{ {k: n for k, n in counts.items() if n} }; rel err against the "
+          f"plain routes {errs}", flush=True)
+    check_gemm_launches("fp32 entry points", counts, forms, m_saved=0)
+    for k, n in counts.items():
+        if k in GEMM_ROWS:
+            continue
+        want = 1 if k in errs else 0
+        check(n == want, f"fp32 entry points: {k} launched {n} times, "
+              f"expected {want}")
+    for k, e in errs.items():
+        check(e <= TOL_F32_REL, f"fp32 entry points: {k} relative error "
+              f"{e} > {TOL_F32_REL}")
+    del x, y, xc, wc
+    torch.cuda.empty_cache()
+
+
+# (i) the fp32 stage-1 step of `swin_dim` 128 (hd 32 at stage 1, hd 64 at
+# stage 2, K5's fp32 form on both), depths (1, 1): one W-MSA / SW-MSA pair
+# a stage
+F32_HD32_KW = dict(swin_dim=128, swin_depths=(1, 1))
+
+
+def phase_fp32_hd32_train(dev, wrappers, launches) -> None:
+    """Phase 7 (i): one fp32 stage-1 step of `ModelConfig(swin_dim=128,
+    swin_depths=(1, 1))` at batch 2 from seeded weights on phase 7 (d)'s
+    batch, through `fp32_step_gate` (its planted K5 fault among those it
+    holds): K5's fp32 form trains the hd-32 blocks of stage 1. Launches
+    exact: K1, K2, K5 and K6 in fp32 once a block call (hooks count the
+    block calls and those at hd 32), K3 once, no bf16 kernel."""
+    import torch
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+
+    kw = dict(num_classes=12, input_hw=(H, W), **F32_HD32_KW)
+    weights = init_weights(TswinPlus(**kw, dtype=torch.float32),
+                           torch.Generator().manual_seed(3)).state_dict()
+    imgs, lbls = seeded_batch(BS, seed=6)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+    tag = f"[fp32 train swin_dim 128] batch {BS}"
+    step_of = fp32_seg_step_of(dev, weights, kw)
+    hd_of_call = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda mod, i, o: hd_of_call.append(
+            mod.norm1.weight.shape[0] // mod.num_heads)
+        if isinstance(mod, SpaceTimeSwinBlock) else None)
+    reset_launches(wrappers)
+    try:
+        loss_k, grads_k, sec_k = step_of(images, labels)
+    finally:
+        hook.remove()
+    counts, forms = read_launches(wrappers)
+    launches["train_fp32_swin128"] = counts
+    blocks, at32 = len(hd_of_call), hd_of_call.count(32)
+    print(f"  {tag}: kernel step {sec_k:.2f} s, {blocks} block calls "
+          f"({at32} at hd 32), launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    check(at32 > 0 and blocks > at32, f"{tag}: {at32} of {blocks} block "
+          "calls at hd 32")
+    step = {"swin_block_attention_f32": blocks,
+            "swin_block_epilogue_f32": blocks,
+            "patch_merge_f32": FT_MERGES,
+            "swin_block_attention_bwd_f32": blocks,
+            "swin_block_epilogue_bwd_f32": blocks}
+    fp32_step_launches(tag, counts, forms, step=step, recomputed=blocks)
+    fp32_step_gate(tag, step_of, images, labels, loss_k, grads_k)
+    del grads_k
+    torch.cuda.empty_cache()
 
 
 # (d) the batch-2 gate and (e) the stage-2 gate (`fp32_step_gate`): each
@@ -4235,8 +4663,11 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
     frames/s and `sec_per_frame`; (d) stage-1 training of that model on
     the fp32 forms (`phase_fp32_train`: the batch-2 gate against the twin
     step, then batch 8 timed); (e) one stage-2 step on them
-    (`phase_fp32_contrast`). Returns the launches a batch-8 stage-1 step
-    and a stage-2 step."""
+    (`phase_fp32_contrast`); (a) also the fp32 forms of rows 12-15 and 17
+    (`phase_fp32_offpath_kernels`), (h) their entry points
+    (`phase_fp32_entry_points`) and (i) a `swin_dim` 128 step, K5 at hd
+    32 (`phase_fp32_hd32_train`). Returns the launches a batch-8 stage-1
+    step and a stage-2 step."""
     import tempfile
 
     import torch
@@ -4258,6 +4689,10 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
     phase_fp32_train_kernels(dev, results, median_ms)
     print(f"phase 7 (a) the fp32 training forms against their twins: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_fp32_offpath_kernels(dev, results, median_ms, wrappers)
+    print(f"phase 7 (a) the fp32 forms of rows 12-15 and 17 against their "
+          f"twins: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (b) serving
     t0 = time.perf_counter()
@@ -4479,6 +4914,18 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
     t0 = time.perf_counter()
     phase_fp32_route_train(dev, wrappers, launches, weights, kw)
     print(f"phase 7 (g) fp32 steps on 'pallas' and whole_block: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (h) the entry points of rows 12-15 and 17 in fp32
+    t0 = time.perf_counter()
+    phase_fp32_entry_points(dev, wrappers, launches)
+    print(f"phase 7 (h) the fp32 entry points of rows 12-15 and 17: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (i) a stage-1 step of swin_dim 128 (K5 at hd 32)
+    t0 = time.perf_counter()
+    phase_fp32_hd32_train(dev, wrappers, launches)
+    print(f"phase 7 (i) fp32 step of swin_dim 128: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # (e) a stage-2 step on the fp32 forms

@@ -1,5 +1,6 @@
 // Row 14: the residual add and LayerNorm, (x + y, LN(x + y)), or LN(x + y)
-// alone; and row 15: LN(x), the same kernel without y.
+// alone; and row 15: LN(x), the same kernel without y. Both in bf16 and, as
+// the same templates over fp32 elements, in fp32 (the fp32 forms).
 //
 // Replaces: stswincl_tpu/ops/pallas_add_layernorm.py
 //   fused_add_layer_norm (:110) / _run_add_ln (:65) -> _add_ln_kernel (:43)
@@ -25,6 +26,11 @@
 //     and, at CH <= 2, kept in registers; wider rows read them per row,
 //     from L1, as float4.
 // Lanes past C in the last chunk idle (C % 256 != 0: the JAX tests' 32-96).
+// The element type is a template parameter: bf16 (one 16-byte load of 8
+// values) or fp32 (two), the arithmetic the same fp32, so the fp32 forms
+// of rows 14 and 15 are these kernels' fp32 instances and the bf16
+// instances keep their code. In fp32 row 14 takes any C too: past 2048
+// channels or off 8 it runs the block-a-row kernel below with y.
 
 #include "common.cuh"
 
@@ -46,6 +52,26 @@ __device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
+// 8 consecutive fp32 elements (16-byte aligned) as two float4
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ void from_f32(float v, bf16* dst) {
+  *dst = __float2bfloat16(v);
+}
+__device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
+
 // 8 consecutive fp32 (16-byte aligned) as two float4 loads
 __device__ __forceinline__ void load8f(const float* src, float (&v)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(src));
@@ -54,14 +80,15 @@ __device__ __forceinline__ void load8f(const float* src, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// The warp-a-row kernel. ADD: normalise x + y (and write it to sum_out,
-// when given); else x. Lane l holds channels i * 256 + 8 l .. + 7 of chunk
-// i < CH, those below C, of ROWS consecutive rows at a time.
-template <bool ADD, int CH, int ROWS>
+// The warp-a-row kernel over elements T (bf16 or fp32). ADD: normalise x +
+// y (and write it to sum_out, when given); else x. Lane l holds channels
+// i * 256 + 8 l .. + 7 of chunk i < CH, those below C, of ROWS consecutive
+// rows at a time.
+template <typename T, bool ADD, int CH, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
-    add_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+    add_ln_kernel(const T* __restrict__ x, const T* __restrict__ y,
                   const float* __restrict__ g, const float* __restrict__ b,
-                  bf16* __restrict__ sum_out, bf16* __restrict__ out, int R,
+                  T* __restrict__ sum_out, T* __restrict__ out, int R,
                   int C, float eps) {
   constexpr bool KEEP = CH <= 2;  // gamma and beta held in registers
   const int lane = threadIdx.x & 31;
@@ -161,9 +188,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 // Launch the warp-a-row kernel for CH chunks: as many blocks as fit on the
 // card at once (asked of the occupancy calculator once an instance and
 // device), fewer when the rows run out first.
-template <bool ADD, int CH>
-cudaError_t launch_rows(const bf16* x, const bf16* y, const float* g,
-                        const float* b, bf16* sum_out, bf16* out, int R, int C,
+template <typename T, bool ADD, int CH>
+cudaError_t launch_rows(const T* x, const T* y, const float* g,
+                        const float* b, T* sum_out, T* out, int R, int C,
                         float eps, cudaStream_t s) {
   constexpr int ROWS = CH >= 4 ? 1 : 4 / CH;
   static int per_sms[MAX_DEVICES] = {};
@@ -171,7 +198,7 @@ cudaError_t launch_rows(const bf16* x, const bf16* y, const float* g,
   if (dev < 0) return cudaErrorInvalidDevice;
   if (!per_sms[dev]) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sms[dev], add_ln_kernel<ADD, CH, ROWS>, WARPS * 32, 0);
+        &per_sms[dev], add_ln_kernel<T, ADD, CH, ROWS>, WARPS * 32, 0);
     if (err != cudaSuccess) return err;
   }
   const int per_sm = per_sms[dev];
@@ -179,7 +206,7 @@ cudaError_t launch_rows(const bf16* x, const bf16* y, const float* g,
       ((long long)R + WARPS * ROWS - 1) / (WARPS * ROWS);
   const long long most = (long long)per_sm * sm_count();
   if (most <= 0) return cudaErrorInvalidDevice;
-  add_ln_kernel<ADD, CH, ROWS>
+  add_ln_kernel<T, ADD, CH, ROWS>
       <<<static_cast<int>(groups < most ? groups : most), WARPS * 32, 0, s>>>(
           x, y, g, b, sum_out, out, R, C, eps);
   return cudaGetLastError();
@@ -190,36 +217,39 @@ bool aligned16(const void* q) {
 }
 
 // CH = ceil(C / 256) chosen at run time, 1 <= CH <= MAX_CHUNKS
-template <bool ADD>
+template <typename T, bool ADD>
 cudaError_t add_ln(const void* x, const void* y, const void* g, const void* b,
                    void* sum_out, void* out, int R, int C, float eps,
                    void* stream) {
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* yp = static_cast<const bf16*>(y);
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(y);
   const float* gp = static_cast<const float*>(g);
   const float* bp = static_cast<const float*>(b);
-  bf16* sp = static_cast<bf16*>(sum_out);
-  bf16* op = static_cast<bf16*>(out);
+  T* sp = static_cast<T*>(sum_out);
+  T* op = static_cast<T*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((C + 255) / 256) {
-    case 1: return launch_rows<ADD, 1>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 2: return launch_rows<ADD, 2>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 3: return launch_rows<ADD, 3>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 4: return launch_rows<ADD, 4>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 5: return launch_rows<ADD, 5>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 6: return launch_rows<ADD, 6>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 7: return launch_rows<ADD, 7>(xp, yp, gp, bp, sp, op, R, C, eps, s);
-    case 8: return launch_rows<ADD, 8>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 1: return launch_rows<T, ADD, 1>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 2: return launch_rows<T, ADD, 2>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 3: return launch_rows<T, ADD, 3>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 4: return launch_rows<T, ADD, 4>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 5: return launch_rows<T, ADD, 5>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 6: return launch_rows<T, ADD, 6>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 7: return launch_rows<T, ADD, 7>(xp, yp, gp, bp, sp, op, R, C, eps, s);
+    case 8: return launch_rows<T, ADD, 8>(xp, yp, gp, bp, sp, op, R, C, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Row 15 for any C (rows wider than 2048 channels or not a multiple of 8,
-// or a scale or bias off 16-byte alignment):
+// Rows 15 and (fp32) 14 for any C (rows wider than 2048 channels or not a
+// multiple of 8, or a scale or bias off 16-byte alignment):
 // one block per row, the row read three times (mean, squared deviations,
-// the output) in chunks of 8 channels (16-byte loads, when C % 8 == 0 keeps
-// every row 16-byte aligned) with a scalar tail; the same two-pass fp32
-// statistics. The re-reads hit L1/L2: the row is at most a few tens of KB.
+// the output) in chunks of 8 channels (16-byte loads, when `vec`: C % 8 ==
+// 0 and every row pointer 16-byte aligned) with a scalar tail (every
+// channel without `vec`); the same two-pass fp32
+// statistics. ADD: the row is x + y, formed at each read, and written to
+// sum_out (when given) by the last. The re-reads hit L1/L2: the row is at
+// most a few tens of KB.
 constexpr int WIDE_THREADS = 256;
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -234,49 +264,96 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// 8 channels of the row (x, or x + y) from chunk i, and channel c alone
+template <typename T, bool ADD>
+__device__ __forceinline__ void row8(const T* xr, const T* yr, int i,
+                                     float (&v)[8]) {
+  load8(xr + i * 8, v);
+  if (ADD) {
+    float yv[8];
+    load8(yr + i * 8, yv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += yv[e];
+  }
+}
+
+template <typename T, bool ADD>
+__device__ __forceinline__ float row1(const T* xr, const T* yr, int c) {
+  return ADD ? to_f32(xr[c]) + to_f32(yr[c]) : to_f32(xr[c]);
+}
+
+template <typename T, bool ADD>
 __global__ void __launch_bounds__(WIDE_THREADS)
-    ln_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ b, bf16* __restrict__ out, int C,
-                   float eps) {
+    ln_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                   const float* __restrict__ g, const float* __restrict__ b,
+                   T* __restrict__ sum_out, T* __restrict__ out, int C,
+                   float eps, bool vec) {
   __shared__ float red[WIDE_THREADS / 32];
   const long long base = (long long)blockIdx.x * C;
-  const bf16* xr = x + base;
-  const int nvec = C % 8 == 0 ? C / 8 : 0;  // 8-channel chunks
+  const T* xr = x + base;
+  const T* yr = ADD ? y + base : nullptr;
+  const int nvec = vec && C % 8 == 0 ? C / 8 : 0;  // 8-channel chunks
   const int tid = threadIdx.x;
   float s = 0.0f;
   for (int i = tid; i < nvec; i += WIDE_THREADS) {
     float v[8];
-    load8(xr + i * 8, v);
+    row8<T, ADD>(xr, yr, i, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) s += v[e];
   }
   for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS)
-    s += __bfloat162float(xr[c]);
+    s += row1<T, ADD>(xr, yr, c);
   const float mu = block_sum(s, red) / C;
   float sq = 0.0f;
   for (int i = tid; i < nvec; i += WIDE_THREADS) {
     float v[8];
-    load8(xr + i * 8, v);
+    row8<T, ADD>(xr, yr, i, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sq += (v[e] - mu) * (v[e] - mu);
   }
   for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS) {
-    const float d = __bfloat162float(xr[c]) - mu;
+    const float d = row1<T, ADD>(xr, yr, c) - mu;
     sq += d * d;
   }
   const float rs = rsqrtf(block_sum(sq, red) / C + eps);
-  bf16* orow = out + base;
+  T* orow = out + base;
+  T* srow = ADD && sum_out ? sum_out + base : nullptr;
   for (int i = tid; i < nvec; i += WIDE_THREADS) {
     float v[8];
-    load8(xr + i * 8, v);
+    row8<T, ADD>(xr, yr, i, v);
     const int c = i * 8;
+    if (srow) store8(srow + c, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = (v[e] - mu) * rs * g[c + e] + b[c + e];
     store8(orow + c, v);
   }
-  for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS)
-    orow[c] = __float2bfloat16((__bfloat162float(xr[c]) - mu) * rs * g[c] +
-                               b[c]);
+  for (int c = nvec * 8 + tid; c < C; c += WIDE_THREADS) {
+    const float v = row1<T, ADD>(xr, yr, c);
+    if (srow) from_f32(v, srow + c);
+    from_f32((v - mu) * rs * g[c] + b[c], orow + c);
+  }
+}
+
+// The warp-a-row kernel where it takes the row (C a multiple of 8 up to
+// 2048, every pointer 16-byte aligned), else the block-a-row kernel, its
+// 16-byte loads and stores where the rows' pointers are aligned.
+template <typename T, bool ADD>
+cudaError_t ln_any_width(const void* x, const void* y, const void* g,
+                         const void* b, void* sum_out, void* out, int R, int C,
+                         float eps, void* stream) {
+  if (C <= 0 || R <= 0) return cudaErrorInvalidValue;
+  const bool vec = aligned16(x) && aligned16(out) && (!ADD || aligned16(y)) &&
+                   (!sum_out || aligned16(sum_out));
+  if (C % 8 || C > MAX_CHUNKS * 256 || !vec || !aligned16(g) ||
+      !aligned16(b)) {
+    ln_wide_kernel<T, ADD>
+        <<<R, WIDE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), static_cast<const T*>(y),
+            static_cast<const float*>(g), static_cast<const float*>(b),
+            static_cast<T*>(sum_out), static_cast<T*>(out), C, eps, vec);
+    return cudaGetLastError();
+  }
+  return add_ln<T, ADD>(x, y, g, b, sum_out, out, R, C, eps, stream);
 }
 
 }  // namespace
@@ -290,23 +367,35 @@ extern "C" int stswin_add_layer_norm(const void* x, const void* y,
   if (C % 256 || C > MAX_CHUNKS * 256 || R <= 0 || !aligned16(scale) ||
       !aligned16(bias))
     return cudaErrorInvalidValue;
-  return add_ln<true>(x, y, scale, bias, sum_out, out, R, C, eps, stream);
+  return add_ln<bf16, true>(x, y, scale, bias, sum_out, out, R, C, eps,
+                            stream);
 }
 
 // Row 15. x, out: (rows, C) bf16, any C > 0: a warp a row for C a multiple
-// of 8 up to 2048 (and scale, bias 16-byte aligned, as a tensor of its own
+// of 8 up to 2048 (and every pointer 16-byte aligned, as a tensor of its own
 // always is), else the wide-row kernel; scale, bias (C,) fp32.
 extern "C" int stswin_layer_norm(const void* x, const void* scale,
                                  const void* bias, void* out, int R, int C,
                                  float eps, void* stream) {
-  if (C <= 0 || R <= 0) return cudaErrorInvalidValue;
-  if (C % 8 || C > MAX_CHUNKS * 256 || !aligned16(scale) ||
-      !aligned16(bias)) {
-    ln_wide_kernel<<<R, WIDE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(scale),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), C, eps);
-    return cudaGetLastError();
-  }
-  return add_ln<false>(x, nullptr, scale, bias, nullptr, out, R, C, eps,
-                       stream);
+  return ln_any_width<bf16, false>(x, nullptr, scale, bias, nullptr, out, R,
+                                   C, eps, stream);
+}
+
+// Row 14 fp32. x, y, out, sum_out (or null): (rows, C) fp32, any C > 0;
+// scale, bias (C,) fp32. The sum is formed in registers either way and
+// written only where sum_out is given.
+extern "C" int stswin_add_layer_norm_f32(const void* x, const void* y,
+                                         const void* scale, const void* bias,
+                                         void* sum_out, void* out, int R,
+                                         int C, float eps, void* stream) {
+  return ln_any_width<float, true>(x, y, scale, bias, sum_out, out, R, C, eps,
+                                   stream);
+}
+
+// Row 15 fp32. x, out: (rows, C) fp32, any C > 0; scale, bias (C,) fp32.
+extern "C" int stswin_layer_norm_f32(const void* x, const void* scale,
+                                     const void* bias, void* out, int R,
+                                     int C, float eps, void* stream) {
+  return ln_any_width<float, false>(x, nullptr, scale, bias, nullptr, out, R,
+                                    C, eps, stream);
 }

@@ -510,11 +510,13 @@ extern "C" int stswin_gemm_f32(const void* A, const void* Wt,
 }
 
 // The fp32 GEMMs' launches (a query, not a launch), those inside the fp32
-// entries of K1-K3, K5 and K6 included, since the last call with `reset`
-// set: out[0] the fp32 GEMM's, out[1] the fp32 weight-gradient GEMM's
-// (fp32_train.cu); `reset` then sets the counts to 0.
+// entries of K1-K3, K5, K6 and rows 12-13 included, since the last call
+// with `reset` set: out[0] the fp32 GEMM's, out[1] the fp32 weight-gradient
+// GEMM's (fp32_train.cu), out[2] row 17's fp32 implicit GEMM's
+// (fp32_offpath.cu); `reset` then sets the counts to 0.
 extern "C" int stswin_gemm_f32_launches(long long* out, int reset) {
   out[0] = reset ? f32_gemm_launches.exchange(0) : f32_gemm_launches.load();
   out[1] = wgrad_f32_launches(reset);
+  out[2] = conv_f32_launches(reset);
   return 0;
 }

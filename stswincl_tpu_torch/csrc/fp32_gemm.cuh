@@ -1,6 +1,8 @@
 // The fp32 GEMM and the LN2 row pass of fp32_forms.cu, shared with the fp32
-// backward forms of fp32_train.cu; the GEMM's 128 x 128 tile and K2's
-// LayerNorm row, shared with row 16's fp32 form (fp32_whole_block.cu).
+// backward forms of fp32_train.cu and the fp32 forms of rows 12 and 13
+// (fp32_offpath.cu); the GEMM's 128 x 128 tile and K2's LayerNorm row,
+// shared with row 16's fp32 form (fp32_whole_block.cu); the tile, read
+// through a tap map, is row 17's fp32 form (fp32_offpath.cu).
 #pragma once
 #include "common.cuh"
 
@@ -48,6 +50,10 @@ cudaError_t ln_rows_add_f32(const float* x, const float* y, const float* g,
 // (fp32_train.cu); `reset` sets the count to 0 after reading it.
 long long wgrad_f32_launches(int reset);
 
+// Row 17's fp32 implicit-GEMM launches since the last reset
+// (fp32_offpath.cu), counted as a GEMM form of their own.
+long long conv_f32_launches(int reset);
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -69,26 +75,42 @@ struct F32Tile {
   float b[F32_STAGES][F32_BN][F32_LD];
 };
 
+// The A row a thread loads, k by k: `at(k, ok)` returns the address of
+// element k of the row (k < K, a multiple of 4) and sets `ok` false where
+// the 16-byte chunk there is to be zero-filled; the address is valid
+// either way. A plain row of K floats: element k at row + k.
+struct F32Row {
+  const float* row;
+  bool ok;
+  __device__ __forceinline__ const float* at(int k, bool& valid) const {
+    valid = ok;
+    return row + k;
+  }
+};
+
 // acc[i][j] = sum_k A(ty + 16 i, k) Wt(tx + 16 j, k) for thread (tx, ty) =
 // (tid % 16, tid / 16) of the block's 256, k ascending, one fmaf a term,
 // through the ring in `sm`. Thread tid loads row tid / 2 of both tiles, the
-// 16-byte chunk at column (tid % 2) * 4: `a_row` / `b_row` point at the
-// start of that row of A / Wt (rows of K floats, 16-byte aligned), or, with
-// `a_ok` / `b_ok` false, at any valid address (the row is zero-filled).
-// K % 4 == 0. The caller meets the block before reusing `sm`.
-__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const float* a_row,
-                                              bool a_ok, const float* b_row,
-                                              bool b_ok, int K,
-                                              float (&acc)[8][8]) {
+// 16-byte chunk at column (tid % 2) * 4: `a` reads that row of A through
+// its address functor (`F32Row`, or row 17's tap map, fp32_offpath.cu),
+// `b_row` points at the start of that row of Wt (rows of K floats, 16-byte
+// aligned), or, with `b_ok` false, at any valid address (the row is
+// zero-filled). K % 4 == 0. The caller meets the block before reusing
+// `sm`.
+template <class ARow>
+__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const ARow& a,
+                                              const float* b_row, bool b_ok,
+                                              int K, float (&acc)[8][8]) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lr = tid >> 1, lc = (tid & 1) * 4;
-  const float* a_src = a_row + lc;
   const float* b_src = b_row + lc;
   const int nk = (K + F32_BK - 1) / F32_BK;
   auto load = [&](int stage, int kt) {
     const int k = kt * F32_BK;
     const bool kin = k + lc < K;  // K % 4 == 0: a chunk is whole or out
-    cp_async16(&sm.a[stage][lr][lc], kin ? a_src + k : a_src, a_ok && kin);
+    bool a_ok;
+    const float* a_src = a.at(kin ? k + lc : lc, a_ok);
+    cp_async16(&sm.a[stage][lr][lc], a_src, a_ok && kin);
     cp_async16(&sm.b[stage][lr][lc], kin ? b_src + k : b_src, b_ok && kin);
   };
 #pragma unroll
@@ -132,6 +154,15 @@ __device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const float* a_row,
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The plain form: `a_row` points at the start of the A row this thread
+// loads, or, with `a_ok` false, at any valid address.
+__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const float* a_row,
+                                              bool a_ok, const float* b_row,
+                                              bool b_ok, int K,
+                                              float (&acc)[8][8]) {
+  f32_tile_sums(sm, F32Row{a_row, a_ok}, b_row, b_ok, K, acc);
 }
 
 // The tail of K2's fp32 LayerNorm of one row of C (C % 4 == 0) by one

@@ -345,7 +345,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ldk,
 }
 
 // Pass a. Grid (per_head, heads, query blocks); RB >= TN / 16, CC >= hd /
-// 64. qkv, dqkv: window-order rows of 3C; dO: rows of C; stats: (windows,
+// 64 rounded up. Thread tx owns columns 4 tx + 64 c (+ 0..3) of a head,
+// those below hd: at hd 32 the lanes tx >= 8 take no column (each column's
+// sum is the same `fmaf` chain at every hd). qkv, dqkv: window-order rows of 3C; dO: rows of C; stats: (windows,
 // heads, TN, 4) [max, 1 / sum, D, -]; dbias_part: (per_head, heads, TN,
 // TN).
 template <int RB, int CC>
@@ -363,7 +365,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
   float* dOs = Qs + QB * ldq;
   const int h = blockIdx.y, q0 = blockIdx.z * QB;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ra = QB / 16, rb = TN / 16, cc = hd / 64;
+  const int ra = QB / 16, rb = TN / 16;
   const long long C3 = 3LL * C;
   const int w0 = blockIdx.x * per_block;
   const int w1 = w0 + per_block < n_windows ? w0 + per_block : n_windows;
@@ -463,14 +465,15 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
         float4 kv[CC];
 #pragma unroll
         for (int c = 0; c < CC; ++c)
-          if (c < cc) kv[c] = ld4(Ks + (j + u) * ldk + 4 * tx + 64 * c);
+          if (4 * tx + 64 * c < hd)
+            kv[c] = ld4(Ks + (j + u) * ldk + 4 * tx + 64 * c);
 #pragma unroll
         for (int a = 0; a < 4; ++a)
           if (a < ra) {
             const float w = comp(d4[a], u);
 #pragma unroll
             for (int c = 0; c < CC; ++c)
-              if (c < cc) fma4(dq[a][c], w, kv[c]);
+              if (4 * tx + 64 * c < hd) fma4(dq[a][c], w, kv[c]);
           }
       }
     }
@@ -481,7 +484,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
                    h * hd + 4 * tx;
 #pragma unroll
       for (int c = 0; c < CC; ++c)
-        if (c < cc)
+        if (4 * tx + 64 * c < hd)
           *reinterpret_cast<float4*>(dst + 64 * c) =
               make_float4(dq[a][c].x * scale, dq[a][c].y * scale,
                           dq[a][c].z * scale, dq[a][c].w * scale);
@@ -499,7 +502,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
 }
 
 // Pass b. One block a (window, head, key block); KB16 >= min(TN, 64) / 16,
-// CC >= hd / 64.
+// CC >= hd / 64 rounded up; the columns as pass a's.
 template <int KB16, int CC>
 __global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
     const float* __restrict__ qkv, const float* __restrict__ dO,
@@ -517,7 +520,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
   const int kb = blockIdx.x % n_kb, rest = blockIdx.x / n_kb;
   const int h = rest % heads, bw = rest / heads, k0 = kb * KB;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r16 = KB / 16, cc = hd / 64;
+  const int r16 = KB / 16;
   const long long C3 = 3LL * C;
   const float* win = qkv + (long long)bw * TN * C3 + h * hd;
   load_rows(Ks, ldk, win + k0 * C3 + C, C3, KB, hd);
@@ -581,7 +584,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
         float4 o[CC], q[CC];
 #pragma unroll
         for (int c = 0; c < CC; ++c)
-          if (c < cc) {
+          if (4 * tx + 64 * c < hd) {
             o[c] = ld4(dOs + (i + u) * ldk + 4 * tx + 64 * c);
             q[c] = ld4(Qs + (i + u) * ldk + 4 * tx + 64 * c);
           }
@@ -591,7 +594,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
             const float pw = comp(p4[a], u), dw = comp(d4[a], u);
 #pragma unroll
             for (int c = 0; c < CC; ++c)
-              if (c < cc) {
+              if (4 * tx + 64 * c < hd) {
                 fma4(dv[a][c], pw, o[c]);
                 fma4(dk[a][c], dw, q[c]);
               }
@@ -608,7 +611,7 @@ __global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
                  h * hd + 4 * tx;
 #pragma unroll
     for (int c = 0; c < CC; ++c)
-      if (c < cc) {
+      if (4 * tx + 64 * c < hd) {
         *reinterpret_cast<float4*>(dst + C + 64 * c) =
             make_float4(dk[a][c].x * scale, dk[a][c].y * scale,
                         dk[a][c].z * scale, dk[a][c].w * scale);
@@ -668,11 +671,12 @@ cudaError_t launch_attn_bwd(const float* qkv, const float* dO,
 
 // The window and head dims the attention backward takes (`ops/
 // block_attention.check_backward_window` refuses the rest before K1 runs):
-// query and key blocks of min(TN, 64) rows that tile the window, and the
-// per-thread sums its templates size (hd <= 256 at TN <= 32, else 128).
+// query and key blocks of min(TN, 64) rows that tile the window, head dims
+// a multiple of 32 (the forward core's), and the per-thread sums its
+// templates size (hd <= 256 at TN <= 32, else 128).
 bool attn_bwd_f32_takes(int TN, int hd) {
   return TN > 0 && TN % 16 == 0 && TN <= 128 && (TN <= 64 || TN % 64 == 0) &&
-         hd > 0 && hd % 64 == 0 && hd <= (TN <= 32 ? 256 : 128);
+         hd > 0 && hd % 32 == 0 && hd <= (TN <= 32 ? 256 : 128);
 }
 
 cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,

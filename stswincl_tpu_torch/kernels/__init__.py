@@ -73,6 +73,11 @@ SIGNATURES = {
     "stswin_mlp": [_P] * 7 + [_I] * 4 + [_P],
     "stswin_layer_norm": [_P] * 4 + [_I] * 2 + [_F, _P],
     "stswin_conv3x3_bn_act": [_P] * 6 + [_I] * 9 + [_P],
+    "stswin_mlp_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "stswin_add_ln_mlp_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "stswin_add_layer_norm_f32": [_P] * 6 + [_I] * 2 + [_F, _P],
+    "stswin_layer_norm_f32": [_P] * 4 + [_I] * 2 + [_F, _P],
+    "stswin_conv3x3_bn_act_f32": [_P] * 6 + [_I] * 7 + [_P],
     "stswin_gemm_sm90": [_P] * 7 + [_I] * 15 + [_P],
     "stswin_gelu_bwd_sm90": [_P] * 8 + [_I] * 4 + [_P],
     "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
@@ -249,17 +254,14 @@ def require(cond: bool, msg) -> None:
 # The checks below form their messages only when they fail: a wrapper
 # calls them on every launch, and rows 14-15 take 0.05-0.3 ms on the card.
 def require_bf16(name: str, row: str, *tensors: torch.Tensor) -> None:
-    """The kernel `name` computes in bfloat16 only; `row` names what it
-    ports ("Pallas row 12"). Rows 12-15 and 17 have no float32 form on
-    the card yet (ROADMAP Queue 2)."""
+    """The bf16 form `name` takes bfloat16 only; `row` names what it ports
+    ("Pallas row 12"). Every kernel's fp32 form is a function of its own,
+    to which the public wrapper sends an fp32 CUDA tensor, so an fp32
+    tensor here is a caller's slip."""
     for t in tensors:
-        if t.dtype == torch.float32:
-            raise NotImplementedError(
-                f"{name} ({row}): no float32 form on the card yet; the CUDA "
-                "kernel takes bfloat16 activations and weights, and float32 "
-                "runs the plain twin on the CPU")
         if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: dtype {t.dtype}")
+            raise ValueError(f"{name} ({row}): the bf16 form takes bfloat16, "
+                             f"got {t.dtype}")
 
 
 def require_form(name: str, row, *tensors: torch.Tensor) -> None:

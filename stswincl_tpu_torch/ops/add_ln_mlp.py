@@ -32,9 +32,12 @@ every shape (row 16's rounding on the pair's kernels, see
 
 `add_ln_mlp` (row 13, `fused_add_ln_mlp`, `pallas_add_ln_mlp.py:97`)
 launches `stswin_add_ln_mlp` (`csrc/epilogue.cu`: K2's LN pass, then row
-12's two products on the Hopper GEMM) on a CUDA tensor and runs the twin
-`add_ln_mlp_ref` on a CPU tensor; its backward is autograd of the twin,
-as JAX's `_bwd` (`:145-153`) is a VJP of `add_ln_mlp_ref`.
+12's two products on the Hopper GEMM) on a bf16 CUDA tensor, its fp32
+form `add_ln_mlp_f32` (`stswin_add_ln_mlp_f32`, `csrc/fp32_offpath.cu`:
+K2's fp32 row pass, then row 12's two fp32-GEMM products) on an fp32 one,
+and runs the twin `add_ln_mlp_ref` on a CPU tensor; its backward is
+autograd of the twin, as JAX's `_bwd` (`:145-153`) is a VJP of
+`add_ln_mlp_ref`.
 
 Weights use the torch Linear layout: w1 (4C, C), w2 (C, 4C), in any float
 dtype (cast to x's dtype for the products; gradients in their own dtype).
@@ -48,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.mlp import check_mlp_widths, gelu
+from stswincl_tpu_torch.ops.mlp import (check_mlp_params, check_mlp_widths,
+                                        gelu)
 
 
 def layer_norm_f32(s32: torch.Tensor, scale: torch.Tensor,
@@ -445,19 +449,58 @@ def _add_ln_mlp_kernel(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
     return s, m
 
 
+def add_ln_mlp_f32(x, y, scale, bias, w1, b1, w2, b2,
+                   gelu_exact: bool = True, eps: float = 1e-5):
+    """Row 13's fp32 form (`stswin_add_ln_mlp_f32`, `csrc/fp32_offpath.cu`)
+    on fp32 CUDA tensors, the arguments of `add_ln_mlp` with w1, w2 in
+    fp32: K2's fp32 row pass (s = x + y, LN(s) two-pass) and row 12's two
+    fp32-GEMM products on LN(s). Returns (s, m), fp32. C and hidden
+    multiples of 4."""
+    name = "add_ln_mlp_f32"
+    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    kernels.require(y.shape == x.shape, f"{name}: y {tuple(y.shape)} vs x "
+                    f"{tuple(x.shape)}")
+    x, y = x.contiguous(), y.contiguous()
+    kernels.require_f32(name, x, y, scale, bias)
+    C, hidden = check_mlp_params(name, x, w1, b1, w2, b2, multiple=4)
+    kernels.require_on(x.device, name, y, scale, bias)
+    kernels.require(tuple(scale.shape) == (C,) and tuple(bias.shape) == (C,)
+                    and y.data_ptr() % 16 == 0,
+                    f"{name}: scale / bias not (C,) or y not 16-byte aligned")
+    rows = x.numel() // C
+    s, m = torch.empty_like(x), torch.empty_like(x)
+    if rows == 0:
+        return s, m
+    n = torch.empty((rows, C), dtype=x.dtype, device=x.device)
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_add_ln_mlp_f32", x.device, P(x), P(y), P(scale),
+                   P(bias), P(w1), P(b1), P(w2), P(b2), P(n), P(hid), P(s),
+                   P(m), rows, C, hidden, 1 if gelu_exact else 2, float(eps))
+    add_ln_mlp_f32.launches += 1
+    return s, m
+
+
+add_ln_mlp_f32.launches = 0
+
+
 def _add_ln_mlp_forward(x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):
     if x.device.type == "cpu":
         return add_ln_mlp_ref(x, y, scale, bias, w1, b1, w2, b2, gelu_exact,
                               eps)
-    return _add_ln_mlp_kernel(x, y, scale, bias, w1.to(x.dtype), b1,
-                              w2.to(x.dtype), b2, gelu_exact, eps)
+    form = (add_ln_mlp_f32 if x.dtype == torch.float32
+            else _add_ln_mlp_kernel)
+    return form(x, y, scale, bias, w1.to(x.dtype), b1, w2.to(x.dtype), b2,
+                gelu_exact, eps)
 
 
 def add_ln_mlp(x, y, scale, bias, w1, b1, w2, b2, gelu_exact: bool = True,
                eps: float = 1e-5):
     """Pallas row 13: (x + y, MLP(LayerNorm(x + y))) over the last axis.
     x, y: (..., C) in one dtype; scale, bias, b1, b2 fp32; w1 (hidden, C),
-    w2 (C, hidden). Returns (s, m), each of x's shape and dtype."""
+    w2 (C, hidden). Returns (s, m), each of x's shape and dtype. On CUDA,
+    bf16 x launches the bf16 kernel, fp32 x its fp32 form
+    (`add_ln_mlp_f32`)."""
     args = (x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps)
     if kernels.needs_grad(x, y, scale, bias, w1, b1, w2, b2):
         return AddLnMlpFn.apply(*args)
@@ -468,8 +511,9 @@ add_ln_mlp.launches = 0
 
 
 class AddLnMlpFn(torch.autograd.Function):
-    """Row 13: the kernel forward on CUDA (the twin on the CPU); backward:
-    autograd of `add_ln_mlp_ref` on the saved inputs (JAX's `_bwd`)."""
+    """Row 13: the kernel forward on CUDA in x's dtype (the twin on the
+    CPU); backward: autograd of `add_ln_mlp_ref` on the saved inputs
+    (JAX's `_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, y, scale, bias, w1, b1, w2, b2, gelu_exact, eps):

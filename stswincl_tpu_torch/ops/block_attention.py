@@ -211,10 +211,10 @@ def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
 def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
     query and key blocks of min(TN, 64) rows that tile the window, head
-    dims a multiple of 64 up to 256 at TN <= 32 and 128 beyond, and both
-    passes within shared memory."""
+    dims a multiple of 32 (the fp32 forward core's) up to 256 at TN <= 32
+    and 128 beyond, and both passes within shared memory."""
     return (0 < TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
-            and (TN <= 64 or TN % 64 == 0) and hd > 0 and hd % 64 == 0
+            and (TN <= 64 or TN % 64 == 0) and hd > 0 and hd % 32 == 0
             and hd <= (256 if TN <= 32 else 128)
             and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
@@ -234,7 +234,7 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
                         lambda: f"{name}: K5's fp32 form (the attention "
                         "backward) takes windows of at most "
                         f"{MAX_BWD_WINDOW_TOKENS} tokens (a multiple of 16, "
-                        "and of 64 past 64) with head dims a multiple of 64 "
+                        "and of 64 past 64) with head dims a multiple of 32 "
                         "(at most 256 to 32 tokens, 128 beyond) that fit "
                         f"shared memory; got {TN} tokens x head dim {hd}")
         return

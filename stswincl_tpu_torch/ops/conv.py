@@ -6,11 +6,15 @@ Counterpart of `stswincl_tpu/ops/pallas_conv.py` (`conv3x3_bn_act`,
 `tools/profile_conv_kernel.py` times it against cuDNN. `conv3x3_bn_act`
 launches `stswin_conv3x3_bn_act` (`csrc/conv.cu`: an implicit GEMM on the
 Hopper GEMM of `csrc/gemm_sm90.cu`, which the library counts as its form
-"conv", `ops.gemm.launch_counts`) on a CUDA tensor and runs the plain twin
-`conv3x3_bn_act_ref` on a CPU tensor. The kernel's schedule is set here:
-`patch_shape` picks the bh x bw output patch of a 128-row tile,
-`pack_weights` lays w out tap-major with each tap's channels padded to a
-multiple of 64. There is no backward: the JAX kernel has no VJP.
+"conv", `ops.gemm.launch_counts`) on a bf16 CUDA tensor, its fp32 form
+`conv3x3_bn_act_f32` (`stswin_conv3x3_bn_act_f32`, `csrc/fp32_offpath.cu`:
+an implicit GEMM on the fp32 GEMM's tile, the library's form "conv_f32")
+on an fp32 one, and runs the plain twin `conv3x3_bn_act_ref` on a CPU
+tensor. The bf16 kernel's schedule is set here: `patch_shape` picks the bh
+x bw output patch of a 128-row tile, `pack_weights` lays w out tap-major
+with each tap's channels padded to a multiple of 64. The fp32 form reads
+w as `pack_weights_f32` lays it out and x through `tap_rows`' map. There
+is no backward: the JAX kernel has no VJP.
 
 Layouts: x, residual and the output NHWC (the JAX layout); w OIHW (the
 torch layout that `ckpt/from_jax.py` maps the JAX HWIO kernel onto).
@@ -92,13 +96,33 @@ def pack_weights(w):
     return wt.reshape(cout, 9 * cin64).contiguous()
 
 
-def _kernel(x, w, scale, shift, dilation, relu, residual):
-    """Launch row 17 (w already in x's dtype)."""
-    name = "conv3x3_bn_act"
-    kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
-                    f"{x.device}")
-    kernels.require_bf16(name, "Pallas row 17", x, w,
-                         *(() if residual is None else (residual,)))
+def pack_weights_f32(w):
+    """w (Cout, Cin, 3, 3) OIHW -> (Cout, 9 * Cin), tap-major (tap = 3 ky +
+    kx), no padding: the fp32 form's Wt, whose column k is channel k % Cin
+    of tap k // Cin."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], 9 * w.shape[1]) \
+        .contiguous()
+
+
+def tap_rows(N: int, H: int, W: int, dilation: int, device=None):
+    """(N * H * W, 9) int64: for output pixel m (NHWC row order) and tap
+    3 ky + kx, the row of x (seen as (N * H * W, Cin)) that the fp32 form
+    reads for it, pixel (h + d (ky - 1), w + d (kx - 1)) of the same image,
+    or -1 where that pixel lies in the zero padding (the kernel's
+    `TapRow`)."""
+    m = torch.arange(N * H * W, device=device)
+    w, h, n = m % W, (m // W) % H, m // (W * H)
+    k = torch.arange(3, device=device)
+    hh = h[:, None, None] + dilation * (k[None, :, None] - 1)
+    ww = w[:, None, None] + dilation * (k[None, None, :] - 1)
+    inside = (hh >= 0) & (hh < H) & (ww >= 0) & (ww < W)
+    rows = (n[:, None, None] * H + hh) * W + ww
+    return torch.where(inside, rows, -1).reshape(-1, 9)
+
+
+def _check(name, x, w, scale, shift, dilation, residual):
+    """What both forms take: `supports`, and scale, shift (Cout,) fp32 and
+    the residual x's (N, H, W) at Cout, all on x's device."""
     kernels.require_f32(name, scale, shift)
     kernels.require_on(x.device, name, x, scale, shift, residual)
     kernels.require(w.device == x.device, lambda: f"{name}: w on {w.device}")
@@ -114,6 +138,49 @@ def _kernel(x, w, scale, shift, dilation, relu, residual):
                          or residual.shape == (N, H, W, cout)),
                     lambda: f"{name}: scale, shift or residual do not match "
                     f"Cout {cout}")
+
+
+def conv3x3_bn_act_f32(x, w, scale, shift, *, dilation: int = 1,
+                       relu: bool = True, residual=None):
+    """Row 17's fp32 form (`stswin_conv3x3_bn_act_f32`,
+    `csrc/fp32_offpath.cu`) on fp32 CUDA tensors, the arguments of
+    `conv3x3_bn_act` with w in fp32: the implicit GEMM of the output
+    pixels against `pack_weights_f32(w)` on the fp32 GEMM's tile, x read
+    through the tap map (the padding zero-filled), then * scale + shift,
+    + residual, ReLU in the twin's order. Its one launch the library
+    counts as the GEMM form "conv_f32"."""
+    name = "conv3x3_bn_act_f32"
+    kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
+                    f"{x.device}")
+    x = x.contiguous()
+    kernels.require_f32(name, x, w, *(() if residual is None
+                                      else (residual,)))
+    _check(name, x, w, scale, shift, dilation, residual)
+    N, H, W, cin = x.shape
+    cout = w.shape[0]
+    wt = pack_weights_f32(w)
+    out = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_conv3x3_bn_act_f32", x.device, P(x), P(wt),
+                   P(scale), P(shift), P(residual), P(out), N, H, W, cin,
+                   cout, int(dilation), int(relu))
+    conv3x3_bn_act_f32.launches += 1
+    return out
+
+
+conv3x3_bn_act_f32.launches = 0
+
+
+def _kernel(x, w, scale, shift, dilation, relu, residual):
+    """Launch row 17 (w already in x's dtype)."""
+    name = "conv3x3_bn_act"
+    kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
+                    f"{x.device}")
+    kernels.require_bf16(name, "Pallas row 17", x, w,
+                         *(() if residual is None else (residual,)))
+    _check(name, x, w, scale, shift, dilation, residual)
+    N, H, W, cin = x.shape
+    cout = w.shape[0]
     wt = pack_weights(w)
     bh, bw = patch_shape(H, W)
     out = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
@@ -131,10 +198,16 @@ def conv3x3_bn_act(x, w, scale, shift, *, dilation: int = 1,
     [+ residual]). x (N, H, W, Cin) NHWC; w (Cout, Cin, 3, 3) OIHW in any
     float dtype (cast to x's); scale, shift (Cout,) fp32 (inference-folded
     BatchNorm, `fold_bn`); residual (N, H, W, Cout) or None. Returns
-    (N, H, W, Cout) in x's dtype. A CUDA call outside `supports` raises."""
+    (N, H, W, Cout) in x's dtype. A CUDA call outside `supports` raises. On
+    CUDA, bf16 x launches the bf16 kernel, fp32 x its fp32 form
+    (`conv3x3_bn_act_f32`)."""
     if x.device.type == "cpu":
         return conv3x3_bn_act_ref(x, w, scale, shift, dilation=dilation,
                                   relu=relu, residual=residual)
+    if x.dtype == torch.float32:
+        return conv3x3_bn_act_f32(x, w.float(), scale, shift,
+                                  dilation=dilation, relu=relu,
+                                  residual=residual)
     return _kernel(x, w.to(x.dtype), scale, shift, dilation, relu, residual)
 
 

@@ -46,9 +46,9 @@ _EPI = {"bf16": 0, "resid_f32": 1, "gelu_grad": 2, "dgelu": 3, "f32": 4}
 # fused pair's is 5, row 17's implicit-GEMM conv 6, `ops.conv`), then the
 # weight-gradient GEMM
 SM90_FORMS = (*_EPI, "gelu_bwd", "conv", "wgrad")
-# and the fp32 GEMM's and the fp32 weight-gradient GEMM's launches
-# (`stswin_gemm_f32_launches`)
-F32_FORMS = ("fp32", "wgrad_f32")
+# and the fp32 GEMM's, the fp32 weight-gradient GEMM's and row 17's fp32
+# implicit GEMM's launches (`stswin_gemm_f32_launches`)
+F32_FORMS = ("fp32", "wgrad_f32", "conv_f32")
 FORMS = (*SM90_FORMS, *F32_FORMS)
 
 
@@ -56,7 +56,7 @@ def launch_counts(reset: bool = False) -> Dict[str, int]:
     """Launches of each GEMM form (`FORMS`) counted inside the kernel
     library since the last reset, where the kernel is launched: by the
     wrappers here and by the C entries of K1-K3 (both forms), K5, K6 and
-    row 17, which no wrapper here sees. `reset` sets the counts to 0 after
+    rows 12, 13 and 17 (both forms), which no wrapper here sees. `reset` sets the counts to 0 after
     reading."""
     lib = kernels.load()
     out = (ctypes.c_longlong * len(SM90_FORMS))()

@@ -3,10 +3,12 @@
 Counterpart of `stswincl_tpu/ops/pallas_layernorm.py` (`fused_layer_norm`,
 `_xla_layer_norm`, the custom VJP `_fln_bwd` and `FusedLayerNorm`).
 `fused_layer_norm` launches `stswin_layer_norm` (`csrc/add_layernorm.cu`,
-row 14's kernel without y) on a CUDA tensor and runs the plain twin
-`layer_norm_ref` on a CPU tensor, for any row width C, as the JAX kernel
-takes the whole row (a warp a row for C a multiple of 8 up to 2048, else a
-block a row); when autograd needs a gradient it goes
+row 14's kernel without y) on a bf16 CUDA tensor, its fp32 form
+`fused_layer_norm_f32` (`stswin_layer_norm_f32`, the same templates over
+fp32 elements) on an fp32 one, and runs the plain twin `layer_norm_ref` on
+a CPU tensor, for any row width C, as the JAX kernel takes the whole row
+(a warp a row for C a multiple of 8 up to 2048, else a block a row); when
+autograd needs a gradient it goes
 through `LayerNormFn`, whose backward is the formula of `_fln_bwd`
 (`:95-112`) in plain PyTorch on either device. Numerics, as the JAX
 kernel: fp32 mean, then the mean of squared deviations (two passes, not
@@ -31,12 +33,16 @@ def layer_norm_ref(x, scale, bias, eps: float = 1e-5):
     return layer_norm_f32(x.float(), scale, bias, eps).to(x.dtype)
 
 
-def _kernel(x, scale, bias, eps):
-    """Launch row 15."""
-    name = "fused_layer_norm"
+def _kernel(x, scale, bias, eps, f32: bool = False):
+    """Launch row 15: its bf16 kernel, or with `f32` its fp32 form."""
+    name = "fused_layer_norm_f32" if f32 else "fused_layer_norm"
     kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
                     f"{x.device}")
-    kernels.require_bf16(name, "Pallas row 15", x)
+    if f32:
+        x = x.contiguous()
+        kernels.require_f32(name, x)
+    else:
+        kernels.require_bf16(name, "Pallas row 15", x)
     kernels.require_f32(name, scale, bias)
     kernels.require_on(x.device, name, x, scale, bias)
     C = x.shape[-1]
@@ -49,21 +55,36 @@ def _kernel(x, scale, bias, eps):
     if rows == 0:
         return out
     P = kernels.ptr
-    kernels.launch("stswin_layer_norm", x.device, P(x), P(scale), P(bias),
-                   P(out), rows, C, float(eps))
-    fused_layer_norm.launches += 1
+    kernels.launch("stswin_layer_norm_f32" if f32 else "stswin_layer_norm",
+                   x.device, P(x), P(scale), P(bias), P(out), rows, C,
+                   float(eps))
+    (fused_layer_norm_f32 if f32 else fused_layer_norm).launches += 1
     return out
+
+
+def fused_layer_norm_f32(x, scale, bias, eps: float = 1e-5):
+    """Row 15's fp32 form (`stswin_layer_norm_f32`,
+    `csrc/add_layernorm.cu`) on fp32 CUDA tensors, the arguments of
+    `fused_layer_norm`, any C: LayerNorm(x) in fp32."""
+    return _kernel(x, scale, bias, eps, f32=True)
+
+
+fused_layer_norm_f32.launches = 0
 
 
 def _forward(x, scale, bias, eps):
     if x.device.type == "cpu":
         return layer_norm_ref(x, scale, bias, eps)
+    if x.dtype == torch.float32:
+        return fused_layer_norm_f32(x, scale, bias, eps)
     return _kernel(x, scale, bias, eps)
 
 
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
     """Pallas row 15 (`pallas_layernorm.py:82`): x (..., C); scale and bias
-    (C,) fp32. Returns LayerNorm(x) in x's shape and dtype."""
+    (C,) fp32. Returns LayerNorm(x) in x's shape and dtype. On CUDA, bf16
+    x launches the bf16 kernel, fp32 x its fp32 form
+    (`fused_layer_norm_f32`)."""
     if kernels.needs_grad(x, scale, bias):
         return LayerNormFn.apply(x, scale, bias, eps)
     return _forward(x, scale, bias, eps)
@@ -89,7 +110,8 @@ def layer_norm_bwd_f32(s32, scale, g32, eps: float = 1e-5):
 
 
 class LayerNormFn(torch.autograd.Function):
-    """Row 15: the kernel forward on CUDA (the twin on the CPU); backward
+    """Row 15: the kernel forward on CUDA in x's dtype (the twin on the
+    CPU); backward
     `layer_norm_bwd_f32`, each gradient in its input's dtype."""
 
     @staticmethod
@@ -115,7 +137,7 @@ class FusedLayerNorm(nn.Module):
     The JAX module's `impl` becomes `kernels`: 'xla' is `kernels=False`
     (the plain twin `layer_norm_ref`, autograd through it); 'auto' and
     'pallas' are `kernels=None` on a card (row 15 iff the input is on
-    CUDA, else the twin); 'interpret', the Pallas kernel and its custom
+    CUDA, in its bf16 or fp32 form, else the twin); 'interpret', the Pallas kernel and its custom
     VJP run on the CPU, is `kernels=True` on a CPU tensor
     (`fused_layer_norm`: the twin forward, `LayerNormFn`'s backward). The
     output keeps x's dtype; the JAX module's `dtype` field is unused there

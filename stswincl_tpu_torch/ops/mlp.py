@@ -9,8 +9,10 @@ order.
 
 `fused_mlp` (`pallas_mlp.fused_mlp`, `:226`) launches `stswin_mlp`
 (`csrc/epilogue.cu`: fc1 and fc2 on the Hopper GEMM of `csrc/gemm_sm90.cu`,
-two launches of its bf16 form, shared with row 13) on a CUDA tensor and
-runs the plain twin `mlp_ref` on a CPU tensor. When autograd needs a gradient
+two launches of its bf16 form, shared with row 13) on a bf16 CUDA tensor,
+its fp32 form `fused_mlp_f32` (`stswin_mlp_f32`, `csrc/fp32_offpath.cu`:
+fc1 with its GELU and fc2 on the fp32 GEMM, two launches) on an fp32 one,
+and runs the plain twin `mlp_ref` on a CPU tensor. When autograd needs a gradient
 it goes through `MlpFn`, whose backward is autograd of `mlp_ref`, as
 JAX's `_fmlp_bwd` (`:266-277`) is `jax.vjp` of `mlp_ref`. Weights use the
 torch Linear layout: w1 (hidden, C), w2 (C, hidden), in any float dtype
@@ -64,23 +66,26 @@ def mlp_ref(x, w1, b1, w2, b2, gelu_exact: bool = True):
     return out.to(x.dtype)
 
 
-def check_mlp_widths(name: str, C: int, hidden: int) -> None:
+def check_mlp_widths(name: str, C: int, hidden: int,
+                     multiple: int = 8) -> None:
     """The envelope of the MLP products of rows 12 and 13 (`mlp_gemms`,
     `csrc/epilogue.cu`) on the Hopper GEMM: its A and C row strides (C and
     hidden elements) and its N (hidden for fc1, C for fc2) multiples of 8,
     so that every row is whole 16-byte chunks for TMA and the stores; the
-    k tiles past K are TMA's zero fill, so K takes any such width."""
-    kernels.require(C > 0 and hidden > 0 and C % 8 == 0 and hidden % 8 == 0,
-                    lambda: f"{name}: needs C and hidden multiples of 8 "
-                    f"(C={C}, hidden={hidden})")
+    k tiles past K are TMA's zero fill, so K takes any such width. The fp32
+    forms on the fp32 GEMM (`multiple` 4): K and the row strides whole
+    16-byte chunks of 4 floats."""
+    kernels.require(C > 0 and hidden > 0 and C % multiple == 0
+                    and hidden % multiple == 0,
+                    lambda: f"{name}: needs C and hidden multiples of "
+                    f"{multiple} (C={C}, hidden={hidden})")
 
 
-def _kernel(x, w1, b1, w2, b2, gelu_exact):
-    """Launch row 12 (weights already in x's dtype, biases fp32)."""
-    name = "fused_mlp"
-    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
-    x = x.contiguous()
-    kernels.require_bf16(name, "Pallas row 12", x)
+def check_mlp_params(name, x, w1, b1, w2, b2, multiple: int = 8):
+    """x on CUDA in its form's dtype (checked by the caller); w1 (hidden,
+    C), w2 (C, hidden) in x's dtype, b1, b2 fp32, all on x's device; the
+    widths `check_mlp_widths`; x and the weights contiguous and 16-byte
+    aligned. Returns (C, hidden)."""
     kernels.require(w1.dtype == x.dtype and w2.dtype == x.dtype,
                     f"{name}: weights must be cast to {x.dtype}")
     kernels.require_f32(name, b1, b2)
@@ -92,11 +97,21 @@ def _kernel(x, w1, b1, w2, b2, gelu_exact):
                     and tuple(b2.shape) == (C,),
                     f"{name}: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} do "
                     f"not map C={C} -> hidden -> C")
-    check_mlp_widths(name, C, hidden)
+    check_mlp_widths(name, C, hidden, multiple)
     kernels.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
                         for t in (x, w1, w2)),
                     f"{name}: x and the weights must be contiguous and "
                     "16-byte aligned")
+    return C, hidden
+
+
+def _kernel(x, w1, b1, w2, b2, gelu_exact):
+    """Launch row 12 (weights already in x's dtype, biases fp32)."""
+    name = "fused_mlp"
+    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    x = x.contiguous()
+    kernels.require_bf16(name, "Pallas row 12", x)
+    C, hidden = check_mlp_params(name, x, w1, b1, w2, b2)
     rows = x.numel() // C
     out = torch.empty_like(x)
     if rows == 0:
@@ -109,17 +124,47 @@ def _kernel(x, w1, b1, w2, b2, gelu_exact):
     return out
 
 
+def fused_mlp_f32(x, w1, b1, w2, b2, gelu_exact: bool = True):
+    """Row 12's fp32 form (`stswin_mlp_f32`, `csrc/fp32_offpath.cu`) on
+    fp32 CUDA tensors, the arguments of `fused_mlp` with w1, w2 in fp32:
+    fc1 + bias with the GELU epilogue, then fc2 + bias, two launches of
+    the fp32 GEMM, h (rows, hidden) in fp32 between them. C and hidden
+    multiples of 4."""
+    name = "fused_mlp_f32"
+    kernels.require(x.is_cuda, f"{name}: no kernel for device {x.device}")
+    x = x.contiguous()
+    kernels.require_f32(name, x)
+    C, hidden = check_mlp_params(name, x, w1, b1, w2, b2, multiple=4)
+    rows = x.numel() // C
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    P = kernels.ptr
+    kernels.launch("stswin_mlp_f32", x.device, P(x), P(w1), P(b1), P(w2),
+                   P(b2), P(hid), P(out), rows, C, hidden,
+                   1 if gelu_exact else 2)
+    fused_mlp_f32.launches += 1
+    return out
+
+
+fused_mlp_f32.launches = 0
+
+
 def _forward(x, w1, b1, w2, b2, gelu_exact):
     if x.device.type == "cpu":
         return mlp_ref(x, w1, b1, w2, b2, gelu_exact)
-    return _kernel(x, w1.to(x.dtype), b1.float(), w2.to(x.dtype), b2.float(),
-                   gelu_exact)
+    form = fused_mlp_f32 if x.dtype == torch.float32 else _kernel
+    return form(x, w1.to(x.dtype), b1.float(), w2.to(x.dtype), b2.float(),
+                gelu_exact)
 
 
 def fused_mlp(x, w1, b1, w2, b2, gelu_exact: bool = True):
     """Pallas row 12: fc2(GELU(fc1(x))) over the last axis of x (any
     leading shape). x: (..., C); w1 (hidden, C), b1 (hidden,), w2
-    (C, hidden), b2 (C,). Returns x's shape and dtype."""
+    (C, hidden), b2 (C,). Returns x's shape and dtype. On CUDA, bf16 x
+    launches the bf16 kernel (`fused_mlp.launches`), fp32 x its fp32 form
+    (`fused_mlp_f32.launches`)."""
     args = (x, w1, b1, w2, b2, gelu_exact)
     if kernels.needs_grad(x, w1, b1, w2, b2):
         return MlpFn.apply(*args)
@@ -130,8 +175,9 @@ fused_mlp.launches = 0
 
 
 class MlpFn(torch.autograd.Function):
-    """Row 12: the kernel forward on CUDA (the twin on the CPU); backward:
-    autograd of `mlp_ref` on the saved inputs (JAX's `_fmlp_bwd`)."""
+    """Row 12: the kernel forward on CUDA in x's dtype (the twin on the
+    CPU); backward: autograd of `mlp_ref` on the saved inputs (JAX's
+    `_fmlp_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gelu_exact):

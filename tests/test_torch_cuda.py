@@ -43,15 +43,17 @@ K1's fp32 core over their address maps) at both stages' window shapes
 with and without the mask, each the other's bits, and of row 16
 (`csrc/fp32_whole_block.cu`) against its twin and to the bit the fp32 K1
 + K2 pair's, through its Function (the fp32 K5 and K6 in its backward),
-its layout the plan's; rows 12-15 and 17 refusing fp32 by name; the fp32
-model from `build_model` serves on those forms (its launches a
+its layout the plan's; the fp32 forms of rows 12-15 and 17
+(`csrc/fp32_offpath.cu`, `csrc/add_layernorm.cu`) through their wrappers
+and modules against their fp32 twins, with the library's GEMM counts; the
+fp32 model from `build_model` serves on those forms (its launches a
 `predict_next` the bf16 model's, its predictions the plain route's) on
 every route and takes a train step on the fp32 forms. The fp32 training forms (`csrc/fp32_train.cu`):
 the fp32 weight-gradient GEMM against torch.matmul (ragged, split rows,
 row maps, the same bits twice), `linear_f32`'s K6 epilogues, K5 and K6
-through their Functions at both stages' windows against autograd of the
-fp32 twins (the same bits twice), and K5's shared-memory plan against
-the library's.
+through their Functions at both stages' windows (K5 also at hd 32)
+against autograd of the fp32 twins (the same bits twice), and K5's
+shared-memory plan against the library's.
 """
 
 import pytest
@@ -401,24 +403,37 @@ def _f32(args):
 
 
 def test_fp32_activations_are_refused(dev, gen):
-    """What still takes bf16 only refuses fp32 by name: rows 12, 14, 15
-    and 17 (row 13 shares row 12's check below); rows 10 and 11 run their
-    fp32 forms (one launch each, none of the bf16 kernel), and K1, K2
-    (plain, shifted, and the final-pair slice T 1) and K3 theirs, each
-    within F32_TOL of its fp32 twin."""
-    x = torch.zeros((256, 512), device=dev)
-    v = torch.zeros(512, device=dev)
-    w = torch.zeros((1024, 512), device=dev)
-    for row, call in (
-            ("row 12", lambda: mlp.fused_mlp(x, w, torch.zeros(
-                1024, device=dev), w.t().contiguous(), v)),
-            ("row 14", lambda: add_layernorm.add_layer_norm(x, x, v, v)),
-            ("row 15", lambda: layernorm.fused_layer_norm(x, v, v)),
-            ("row 17", lambda: conv.conv3x3_bn_act(
-                torch.zeros((1, 8, 8, 64), device=dev),
-                torch.zeros((64, 64, 3, 3), device=dev), v[:64], v[:64]))):
-        with pytest.raises(NotImplementedError, match=row):
-            call()
+    """fp32 activations are no longer refused by any wrapper: rows 12-15
+    and 17 run their fp32 forms (`test_offpath_fp32_forms` holds them),
+    one launch of the form and none of the bf16 kernel a call, each within
+    F32_TOL of its fp32 twin; rows 10 and 11 run theirs too (one launch
+    each, none of the bf16 kernel), and K1, K2 (plain, shifted, and the
+    final-pair slice T 1) and K3 theirs, each within F32_TOL of its fp32
+    twin."""
+    r = _normal(dev, gen)
+    x, v = r(256, 512), r(512, k=0.1)
+    p = _mlp_params(dev, gen, 512, 1024, dt=torch.float32)
+    xi, wi = r(1, 8, 8, 64), r(64, 64, 3, 3, k=0.05)
+    with torch.inference_mode():
+        for bf_fn, form, got, want in (
+                (mlp.fused_mlp, mlp.fused_mlp_f32,
+                 lambda: mlp.fused_mlp(x, *p),
+                 lambda: mlp.mlp_ref(x, *p)),
+                (add_layernorm.add_layer_norm,
+                 add_layernorm.add_layer_norm_f32,
+                 lambda: add_layernorm.add_layer_norm(x, x, 1 + v, v)[1],
+                 lambda: add_layernorm.add_layer_norm_ref(x, x, 1 + v,
+                                                          v)[1]),
+                (layernorm.fused_layer_norm, layernorm.fused_layer_norm_f32,
+                 lambda: layernorm.fused_layer_norm(x, 1 + v, v),
+                 lambda: layernorm.layer_norm_ref(x, 1 + v, v)),
+                (conv.conv3x3_bn_act, conv.conv3x3_bn_act_f32,
+                 lambda: conv.conv3x3_bn_act(xi, wi, 1 + v[:64], v[:64]),
+                 lambda: conv.conv3x3_bn_act_ref(xi, wi, 1 + v[:64],
+                                                 v[:64]))):
+            n, nf = bf_fn.launches, form.launches
+            _close(got(), want(), tol=F32_TOL)
+            assert (bf_fn.launches, form.launches) == (n, nf + 1)
     qkv, bias, mask, heads, scale, ws = _row_args(dev, gen, "s2", True)
     qkv = qkv.float()
     q, k, v = partition_qkv(qkv, heads, ws).contiguous()
@@ -1127,11 +1142,18 @@ def test_conv_kernel_edge_shapes(dev, gen, case):
 
 
 def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
-    """fp32 activations and shapes outside each kernel's rule raise."""
-    p = _mlp_params(dev, gen, 64, 256)
-    x = torch.zeros((4, 64), device=dev, dtype=BF)
-    with pytest.raises(NotImplementedError):
-        mlp.fused_mlp(x.float(), *p)
+    """Shapes outside each kernel's rule raise, in bf16 and in fp32 (the
+    fp32 forms: C and hidden multiples of 4 for rows 12-13, row 17's
+    envelope; rows 14-15 take any C), naming the form."""
+    p = _mlp_params(dev, gen, 66, 264, dt=torch.float32)
+    x66 = torch.zeros((4, 66), device=dev)
+    with pytest.raises(ValueError, match="fused_mlp_f32: needs C and hidden "
+                       "multiples of 4"):
+        mlp.fused_mlp(x66, *p)
+    p66 = _f32(_epi_params(dev, gen, C=66, hidden=264))
+    with pytest.raises(ValueError, match="add_ln_mlp_f32: needs C and "
+                       "hidden multiples of 4"):
+        add_ln_mlp.add_ln_mlp(x66, x66, *p66[:6])
     p44 = _mlp_params(dev, gen, 44, 256)
     with pytest.raises(ValueError, match="multiples of 8"):
         mlp.fused_mlp(torch.zeros((4, 44), device=dev, dtype=BF), *p44)
@@ -1140,20 +1162,18 @@ def test_offpath_kernels_refuse_what_they_do_not_take(dev, gen):
     with pytest.raises(ValueError, match="multiples of 8"):
         add_ln_mlp.add_ln_mlp(x52, x52, *p52[:6])
     s, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-    with pytest.raises(NotImplementedError):
-        layernorm.fused_layer_norm(x.float(), s, b)
+    with pytest.raises(ValueError, match="fused_layer_norm_f32: x"):
+        layernorm.fused_layer_norm(torch.zeros((4, 36), device=dev), s, b)
     with pytest.raises(ValueError, match="scale"):  # scale of another width
         layernorm.fused_layer_norm(torch.zeros((4, 36), device=dev, dtype=BF),
                                    s, b)
-    xi = torch.zeros((1, 8, 8, 64), device=dev, dtype=BF)
-    w = torch.zeros((64, 64, 3, 3), device=dev, dtype=BF)
-    with pytest.raises(NotImplementedError):
-        conv.conv3x3_bn_act(xi.float(), w, s, b)
     for xs, ws in (((1, 8, 8, 48), (64, 48, 3, 3)),  # Cin off 32
                    ((1, 8, 8, 64), (64, 64, 1, 1))):  # 1x1
-        with pytest.raises(ValueError, match="Cin a multiple of 32"):
-            conv.conv3x3_bn_act(torch.zeros(xs, device=dev, dtype=BF),
-                                torch.zeros(ws, device=dev, dtype=BF), s, b)
+        for dt in (BF, torch.float32):
+            with pytest.raises(ValueError, match="Cin a multiple of 32"):
+                conv.conv3x3_bn_act(torch.zeros(xs, device=dev, dtype=dt),
+                                    torch.zeros(ws, device=dev, dtype=dt),
+                                    s, b)
 
 
 def test_offpath_modules_route_to_their_kernels(dev, gen):
@@ -1189,6 +1209,144 @@ def test_offpath_modules_route_to_their_kernels(dev, gen):
             _close(a.grad, b.grad)
 
 
+OFFPATH_F32 = {  # the fp32 forms of rows 12-15 and 17 at the card
+    # tests' narrow and ragged shapes: (row, case) -> make(dev, gen) ->
+    # (form, call, twin, the library's GEMM forms a call)
+    ("row 12", "C 100 -> 200 erf"): lambda d, g: _mlp_f32_case(d, g, 100, 200,
+                                                              True),
+    ("row 12", "C 512 -> 2048 tanh"): lambda d, g: _mlp_f32_case(d, g, 512,
+                                                                2048, False),
+    ("row 13", "C 72 -> 288"): lambda d, g: _add_ln_mlp_f32_case(d, g, 72),
+    ("row 13", "C 256 -> 1024"): lambda d, g: _add_ln_mlp_f32_case(d, g, 256),
+    ("row 14", "C 100, sum"): lambda d, g: _add_ln_f32_case(d, g, 100, True),
+    ("row 14", "C 1024"): lambda d, g: _add_ln_f32_case(d, g, 1024, False),
+    ("row 14", "C 3072, sum"): lambda d, g: _add_ln_f32_case(d, g, 3072,
+                                                            True),
+    ("row 15", "C 36"): lambda d, g: _ln_f32_case(d, g, 36),
+    ("row 15", "C 512"): lambda d, g: _ln_f32_case(d, g, 512),
+    ("row 15", "C 2050"): lambda d, g: _ln_f32_case(d, g, 2050),
+    ("row 17", "d 1, res"): lambda d, g: _conv_f32_case(
+        d, g, (2, 24, 36, 64, 96, 1, True)),
+    ("row 17", "d 18 on 32x40"): lambda d, g: _conv_f32_case(
+        d, g, (2, 32, 40, 1024, 512, 18, False)),
+    ("row 17", "Cin 32 Cout 8 d 2"): lambda d, g: _conv_f32_case(
+        d, g, (3, 20, 36, 32, 8, 2, True)),
+}
+
+
+def _mlp_f32_case(dev, gen, C, hidden, exact):
+    p = _mlp_params(dev, gen, C, hidden, dt=torch.float32)
+    x = torch.randn((3, 50, C), generator=gen, device=dev)
+    return (mlp.fused_mlp_f32, lambda: mlp.fused_mlp(x, *p, exact),
+            lambda: mlp.mlp_ref(x, *p, exact), {"fp32": 2})
+
+
+def _add_ln_mlp_f32_case(dev, gen, C):
+    p = _f32(_epi_params(dev, gen, C=C, hidden=4 * C))[:6]
+    x, y = (torch.randn((3, 50, C), generator=gen, device=dev)
+            for _ in range(2))
+    return (add_ln_mlp.add_ln_mlp_f32,
+            lambda: add_ln_mlp.add_ln_mlp(x, y, *p),
+            lambda: add_ln_mlp.add_ln_mlp_ref(x, y, *p), {"fp32": 2})
+
+
+def _add_ln_f32_case(dev, gen, C, return_sum):
+    r = _normal(dev, gen)
+    x, y = r(7, 33, C), r(7, 33, C)
+    scale, bias = 1.0 + r(C, k=0.5), r(C, k=0.5)
+
+    def outs(fn):
+        return lambda: tuple(o for o in fn(x, y, scale, bias,
+                                           return_sum=return_sum)
+                             if o is not None)
+    return (add_layernorm.add_layer_norm_f32,
+            outs(add_layernorm.add_layer_norm),
+            outs(add_layernorm.add_layer_norm_ref), {})
+
+
+def _ln_f32_case(dev, gen, C):
+    r = _normal(dev, gen)
+    x, scale, bias = r(7, 33, C), 1.0 + r(C, k=0.5), r(C, k=0.5)
+    return (layernorm.fused_layer_norm_f32,
+            lambda: layernorm.fused_layer_norm(x, scale, bias),
+            lambda: layernorm.layer_norm_ref(x, scale, bias), {})
+
+
+def _conv_f32_case(dev, gen, case):
+    N, H, W, cin, cout, d, with_res = case
+    r = _normal(dev, gen)
+    x, w = r(N, H, W, cin), r(cout, cin, 3, 3, k=(9 * cin) ** -0.5)
+    scale, shift = 0.5 + r(cout).abs(), 0.5 * r(cout)
+    kw = dict(dilation=d, relu=True,
+              residual=r(N, H, W, cout) if with_res else None)
+    return (conv.conv3x3_bn_act_f32,
+            lambda: conv.conv3x3_bn_act(x, w, scale, shift, **kw),
+            lambda: conv.conv3x3_bn_act_ref(x, w, scale, shift, **kw),
+            {"conv_f32": 1})
+
+
+@pytest.mark.parametrize("row,case", sorted(OFFPATH_F32))
+def test_offpath_fp32_forms(dev, gen, row, case):
+    """The fp32 forms of rows 12-15 and 17 through their public wrappers
+    on fp32 tensors (TF32 off), against their fp32 twins within F32_TOL
+    on every output: one launch of the form a call and none of any bf16
+    kernel, the library's GEMM forms exactly two fp32-GEMM launches (rows
+    12, 13) or one "conv_f32" (row 17) and nothing else, the same bits
+    from a second call."""
+    form, call, twin, forms = OFFPATH_F32[(row, case)](dev, gen)
+    bf16 = [w for w in _counted_wrappers() if not w.__name__.endswith("f32")]
+    n, nb = form.launches, [w.launches for w in bf16]
+    gemm.launch_counts(reset=True)
+    with torch.inference_mode():
+        got = call()
+        torch.cuda.synchronize()
+        assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | forms
+        again = call()
+        want = twin()
+    got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
+                        for t in (got, again, want))
+    assert form.launches == n + 2
+    assert [w.launches for w in bf16] == nb
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        _close(a, w, tol=F32_TOL)
+
+
+def test_offpath_fp32_modules_run_the_fp32_forms(dev, gen):
+    """`Mlp(dtype=float32)` and `FusedLayerNorm` with `kernels=None` on an
+    fp32 CUDA input launch the fp32 forms of rows 12 and 15 once a
+    forward (the bf16 kernels never), agree with their plain routes
+    (`kernels=False`) within F32_TOL, and so do their parameters'
+    gradients."""
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import Mlp
+
+    x = torch.randn((2, 2, 8, 12, 128), generator=gen, device=dev)
+    m = init_weights(Mlp(128, 512, 128),
+                     torch.Generator().manual_seed(0)).to(dev)
+    plain = Mlp(128, 512, 128, kernels=False).to(dev)
+    plain.load_state_dict(m.state_dict())
+    ln = layernorm.FusedLayerNorm(128).to(dev)
+    with torch.no_grad():
+        ln.weight.add_(0.5 * torch.randn(128, generator=gen, device=dev))
+        ln.bias.add_(0.5 * torch.randn(128, generator=gen, device=dev))
+    ln_plain = layernorm.FusedLayerNorm(128, kernels=False).to(dev)
+    ln_plain.load_state_dict(ln.state_dict())
+    for mod, twin, fn, bf in ((m, plain, mlp.fused_mlp_f32, mlp.fused_mlp),
+                              (ln, ln_plain, layernorm.fused_layer_norm_f32,
+                               layernorm.fused_layer_norm)):
+        n, nb = fn.launches, bf.launches
+        out = mod(x)
+        assert (fn.launches, bf.launches) == (n + 1, nb)
+        ref = twin(x)
+        _close(out, ref, tol=F32_TOL)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        out.backward(g)
+        ref.backward(g)
+        for (name, a), b in zip(mod.named_parameters(), twin.parameters()):
+            _close(a.grad, b.grad, tol=F32_TOL)
+
+
 def _counted_wrappers():
     """Every kernel wrapper that counts its launches."""
     return [block_attention.swin_block_attention,
@@ -1209,7 +1367,9 @@ def _counted_wrappers():
             add_ln_mlp.swin_block_epilogue_bwd_f32,
             block_attention.swin_block_attention_f32,
             add_ln_mlp.swin_block_epilogue_f32, patch_merge.patch_merge_f32,
-            gemm.linear_f32]
+            gemm.linear_f32, mlp.fused_mlp_f32, add_ln_mlp.add_ln_mlp_f32,
+            add_layernorm.add_layer_norm_f32, layernorm.fused_layer_norm_f32,
+            conv.conv3x3_bn_act_f32]
 
 
 def test_fp32_model_runs_on_the_twins(dev):
@@ -1602,22 +1762,33 @@ def test_trained_block_refuses_a_window_k5_does_not_take(dev, gen):
     assert whole.launches == n
 
 
-def test_trained_fp32_block_refuses_head_dim_32(dev, gen):
-    """C 128 over 4 heads (hd 32) at TN 32: K1's fp32 form serves it
-    without a gradient; with one, `BlockAttentionFn` refuses it before its
-    forward launches anything, since K5's fp32 form takes head dims a
-    multiple of 64."""
-    args = _f32(_attn_args(dev, gen, 0, C=128, heads=4))
+def test_trained_fp32_block_trains_at_head_dim_32(dev, gen):
+    """C 128 over 4 heads (hd 32, the head dim of `swin_dim` 128) at TN
+    32: K1's fp32 form serves it without a gradient, and with one
+    `BlockAttentionFn` trains it on K1's and K5's fp32 forms (K5 takes
+    head dims a multiple of 32), each gradient against autograd of the
+    fp32 twin within F32_TOL."""
+    args = _f32(_attn_args(dev, gen, 2, C=128, heads=4, gain_qkv=3.0,
+                           gain_proj=2.0, bias_k=1.0))
     fn = block_attention.swin_block_attention_f32
-    n, g = fn.launches, gemm.launch_counts()["fp32"]
-    _close(block_attention.swin_block_attention(*args),
-           block_attention.swin_block_attention_ref(*args), tol=F32_TOL)
+    bwd = block_attention.swin_block_attention_bwd_f32
+    n = fn.launches
+    with torch.no_grad():
+        _close(block_attention.swin_block_attention(*args),
+               block_attention.swin_block_attention_ref(*args), tol=F32_TOL)
     assert fn.launches == n + 1
-    n, g = fn.launches, gemm.launch_counts()["fp32"]
-    x = args[0].clone().requires_grad_()
-    with pytest.raises(ValueError, match="head dims a multiple of 64"):
-        block_attention.swin_block_attention(x, *args[1:])
-    assert (fn.launches, gemm.launch_counts()["fp32"]) == (n, g)
+    leaves, rest = args[:6], args[6:]
+    g = torch.randn(leaves[0].shape, generator=gen, device=dev)
+    n = (fn.launches, bwd.launches)
+    lv = [t.detach().requires_grad_() for t in leaves]
+    got = torch.autograd.grad(block_attention.swin_block_attention(*lv, *rest),
+                              lv, g)
+    assert (fn.launches, bwd.launches) == (n[0] + 1, n[1] + 1)
+    lv = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(
+        block_attention.swin_block_attention_ref(*lv, *rest), lv, g)
+    for a, w in zip(got, want):
+        _close(a, w, tol=F32_TOL)
 
 
 # ---- the fp32 training forms (csrc/fp32_train.cu) -------------------------
@@ -1668,18 +1839,20 @@ def test_gemm_f32_gelu_epilogues(dev, gen, M, N, K):
                                                aux=d)[1])
 
 
-@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("case,hd", [("s1", 128), ("s2", 256), ("s1", 32),
+                                     ("s2", 32)])
 @pytest.mark.parametrize("shift", [False, True])
-def test_block_attention_bwd_f32_stage_windows(dev, gen, case, shift):
+def test_block_attention_bwd_f32_stage_windows(dev, gen, case, hd, shift):
     """K1 fp32 + K5 fp32 through `BlockAttentionFn` at both stages' window
-    shapes (TN 128 x hd 128, TN 32 x hd 256), with and without the shift:
-    each gradient against autograd of the fp32 twin within F32_TOL, one
-    launch of each form, the same bits from a second backward."""
+    shapes (TN 128 x hd 128, TN 32 x hd 256) and at hd 32 (`swin_dim`
+    128's) on both windows, with and without the shift: each gradient
+    against autograd of the fp32 twin within F32_TOL, one launch of each
+    form, the same bits from a second backward."""
     T, H, W, C, heads, ws = ROW_CASES[case]
-    C = 256 if case == "s1" else 512  # hd 128 / 256 over 2 heads
+    heads = 4 if hd == 32 else 2  # K1 takes C % 128
     args = _f32(_attn_args(dev, gen, ws // 2 if shift else 0, T=T, H=H, W=W,
-                           C=C, heads=2, ws=ws, gain_qkv=3.0, gain_proj=2.0,
-                           bias_k=1.0))
+                           C=heads * hd, heads=heads, ws=ws, gain_qkv=3.0,
+                           gain_proj=2.0, bias_k=1.0))
     leaves, rest = args[:6], args[6:]
     g = torch.randn(leaves[0].shape, generator=gen, device=dev)
     fwd, bwd = (block_attention.swin_block_attention_f32,

@@ -5,9 +5,10 @@ rows 10, 11 and 16 directly and one that records a graph goes through
 their autograd Functions, which call those forms (shown on meta tensors,
 which take the card's branches of the wrappers without a card: K1-K3's
 forms are monkeypatched, rows 10, 11 and 16 reach `kernels.launch`, which
-is; the backward half is in test_torch_fp32_train.py); rows 12-15 and 17,
-which have no fp32 form yet, refuse fp32 naming their row; the fp32
-attention core's shared-memory plan; and the fp32 slice as a whole:
+is; the backward half is in test_torch_fp32_train.py); rows 12-15 and 17
+launch their fp32 C entries with the call's sizes (and refuse, naming the
+form, what their fp32 forms do not take); the fp32 attention core's
+shared-memory plan; and the fp32 slice as a whole:
 `build_model(dtype="float32")` through `StreamingSegmenter` against the
 JAX fp32 model routed as on the TPU, its Pallas kernels interpreted (the
 routes off 'pallas_full' in test_torch_fp32_routes.py)."""
@@ -212,33 +213,77 @@ def test_fp32_wrappers_route_by_graph(monkeypatch, case):
     assert len(calls) == 4
 
 
-OFF_PATH = {  # rows with no fp32 form yet: (row, the call on fp32 tensors)
-    "row 12": lambda: mlp.fused_mlp(_meta(64, 128), _meta(512, 128),
-                                    _meta(512), _meta(128, 512), _meta(128)),
-    "row 13": lambda: add_ln_mlp.add_ln_mlp(
+def _mlp_args(C, hidden):
+    return (_meta(64, C), _meta(hidden, C), _meta(hidden), _meta(C, hidden),
+            _meta(C))
+
+
+OFF_PATH = {  # the rows on no model path: (the call on fp32 tensors, its
+    # fp32 C entry and the sizes it is handed; a call outside the fp32
+    # form's envelope and the message that names the form)
+    "row 12": (lambda: mlp.fused_mlp(*_mlp_args(128, 512)),
+               "stswin_mlp_f32", (64, 128, 512, 1),
+               lambda: mlp.fused_mlp(*_mlp_args(66, 264)),
+               "fused_mlp_f32: needs C and hidden multiples of 4"),
+    "row 13": (lambda: add_ln_mlp.add_ln_mlp(
         _meta(64, 128), _meta(64, 128), _meta(128), _meta(128),
-        _meta(512, 128), _meta(512), _meta(128, 512), _meta(128)),
-    "row 14": lambda: add_layernorm.add_layer_norm(
-        _meta(64, 256), _meta(64, 256), _meta(256), _meta(256)),
-    "row 15": lambda: layernorm.fused_layer_norm(_meta(64, 256), _meta(256),
-                                                 _meta(256)),
-    "row 17": lambda: conv.conv3x3_bn_act(
-        _meta(1, 8, 8, 64), _meta(64, 64, 3, 3), _meta(64), _meta(64)),
+        *_mlp_args(128, 512)[1:], gelu_exact=False),
+               "stswin_add_ln_mlp_f32", (64, 128, 512, 2, 1e-5),
+               lambda: add_ln_mlp.add_ln_mlp(
+                   _meta(64, 66), _meta(64, 66), _meta(66), _meta(66),
+                   *_mlp_args(66, 264)[1:]),
+               "add_ln_mlp_f32: needs C and hidden multiples of 4"),
+    "row 14": (lambda: add_layernorm.add_layer_norm(
+        _meta(64, 100), _meta(64, 100), _meta(100), _meta(100)),
+               "stswin_add_layer_norm_f32", (64, 100, 1e-5),
+               lambda: add_layernorm.add_layer_norm(
+                   _meta(64, 100), _meta(64, 100), _meta(96), _meta(96)),
+               "add_layer_norm_f32: x"),
+    "row 15": (lambda: layernorm.fused_layer_norm(_meta(3, 7, 3072),
+                                                  _meta(3072), _meta(3072)),
+               "stswin_layer_norm_f32", (21, 3072, 1e-5),
+               lambda: layernorm.fused_layer_norm(_meta(64, 100), _meta(96),
+                                                  _meta(96)),
+               "fused_layer_norm_f32: x"),
+    "row 17": (lambda: conv.conv3x3_bn_act(
+        _meta(2, 8, 12, 64), _meta(96, 64, 3, 3), _meta(96), _meta(96),
+        dilation=4, relu=False, residual=_meta(2, 8, 12, 96)),
+               "stswin_conv3x3_bn_act_f32", (2, 8, 12, 64, 96, 4, 0),
+               lambda: conv.conv3x3_bn_act(
+                   _meta(1, 8, 8, 48), _meta(64, 48, 3, 3), _meta(64),
+                   _meta(64)),
+               "conv3x3_bn_act_f32: .* Cin a multiple of 32"),
 }
 
 
 @pytest.mark.parametrize("row", sorted(OFF_PATH))
 def test_fp32_offpath_rows_refuse_by_name(monkeypatch, row):
-    """Rows 12-15 and 17 run on no model path and have no fp32 form on
-    the card yet (ROADMAP Queue 2): fp32 tensors off the CPU raise
-    NotImplementedError naming the row, before any launch."""
+    """Rows 12-15 and 17 on fp32 tensors off the CPU launch their fp32
+    form: the fp32 C entry, handed the call's sizes (rows, C, hidden and
+    the GELU; rows, C and eps; N, H, W, Cin, Cout, the dilation and the
+    ReLU), and no bf16 entry, `require_bf16` never asked; a call outside
+    the fp32 form's envelope is refused naming the form, before any
+    launch."""
     launched = []
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True),
                         raising=False)
     monkeypatch.setattr(kernels, "launch",
-                        lambda *a: launched.append(a[0]))
-    with pytest.raises(NotImplementedError, match=f"Pallas {row}\\b"):
-        OFF_PATH[row]()
+                        lambda name, dev, *a: launched.append((name, a)))
+    monkeypatch.setattr(kernels, "use_device", lambda dev: 0)
+
+    def no_bf16(name, form_of, *t):
+        raise AssertionError(f"{name} asked for bf16 ({form_of})")
+    monkeypatch.setattr(kernels, "require_bf16", no_bf16)
+    call, entry, sizes, refused, message = OFF_PATH[row]
+    out = call()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.device.type == "meta" and o.dtype == torch.float32
+               for o in outs)
+    assert [name for name, _ in launched] == [entry]
+    assert launched[0][1][-len(sizes):] == pytest.approx(sizes)
+    launched.clear()
+    with pytest.raises(ValueError, match=message):
+        refused()
     assert launched == []
 
 

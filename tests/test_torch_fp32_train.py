@@ -177,7 +177,8 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     """K5 fp32's attention backward (two passes, each holding at most a
     64-row block of queries or keys with the fp32 q, k, v and dO it
     needs): stage 1 (TN 128, hd 128) and stage 2 (TN 32, hd 256) fit
-    SMEM_LIMIT; a wider window or head dim, and windows the passes' 64-row
+    SMEM_LIMIT, and so do both stages of `swin_dim` 128 (hd 32); a wider
+    window or head dim, a head dim off 32, and windows the passes' 64-row
     blocks do not tile, are refused by `check_backward_window` before any
     launch: the Function's forward raises without calling the form."""
     plan = block_attention._attn_f32_bwd_smem_bytes
@@ -190,10 +191,12 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     check("k5", torch.empty((1, 2, 8, 8, 512), **f32), 4, 8)    # s1
     check("k5", torch.empty((1, 2, 4, 4, 1024), **f32), 4, 4)   # s2
     check("k5", torch.empty((1, 4, 4, 4, 256), **f32), 4, 4)    # TN 64
+    check("k5", torch.empty((1, 2, 4, 4, 128), **f32), 4, 4)    # hd 32
+    check("k5", torch.empty((1, 2, 8, 8, 128), **f32), 4, 8)    # TN 128
     refused = (((1, 2, 8, 8, 512), 2, 8),     # TN 128, hd 256
                ((1, 1, 12, 12, 256), 4, 12),  # TN 144
                ((1, 6, 4, 4, 256), 4, 4),     # TN 96: 64-row blocks
-               ((1, 2, 4, 4, 128), 4, 4),     # hd 32
+               ((1, 2, 4, 4, 192), 4, 4),     # hd 48
                ((1, 2, 8, 8, 768), 4, 8))     # hd 192 at TN 128
     for shape, heads, ws in refused:
         with pytest.raises(ValueError, match="fp32 form"):
