@@ -173,13 +173,16 @@ stops a phase exits non-zero at once:
      across two calls, its twin with q, k, v (row 16: every product
      operand) on TF32, with P rounded to bf16 and (SW-MSA) without the
      mask missing tenfold, timed beside the twin, the bf16 kernel, SDPA in
-     fp32 (row 11) and, for row 16, the fp32 K1 + K2 pair it must equal
-     within TOL_F32_REL; (f) fp32 serving on 'pallas', 'pallas_windows'
-     and `whole_block`: each predict_next launches its route's fp32 forms
-     as often as phases 3b / 3c launch the bf16 kernels (row 10 or 11 14,
-     row 16 7) and no bf16 kernel, predictions the fp32 plain route's on
-     >= 99.9 %, ms and frames/s; (g) one fp32 stage-1 step at batch 2 on
-     'pallas' and on `whole_block` through `fp32_step_gate` (planted
+     fp32 (row 11; the kernel that ran named from torch.profiler) and, for
+     row 16, the fp32 K1 + K2 pair it must equal within TOL_F32_REL;
+     every (a) row prints its TFLOP/s and its share of its bound (3xTF32
+     or bytes), the library call's beside them; (f) fp32 serving on
+     'pallas', 'pallas_windows' and `whole_block`: each predict_next
+     launches its route's fp32 forms as often as phases 3b / 3c launch
+     the bf16 kernels (row 10 or 11 14, row 16 7) and no bf16 kernel,
+     predictions the fp32 plain route's on >= 99.9 %, ms and frames/s;
+     (g) one fp32 stage-1 step at batch 2 on 'pallas' and on
+     `whole_block` through `fp32_step_gate` (planted
      faults: row 10 without the mask, row 16 with wproj transposed, K5's
      and K6's of (d) where they run, bf16 autocast), exact launches; (a)
      also the fp32 forms of rows 12 (the MLP), 13 (add + LN + MLP), 14
@@ -3076,6 +3079,46 @@ def f32_bound(flops: float, nbytes: float) -> dict:
             "fma_bound_ms": flops / PEAK_F32 * 1e3}
 
 
+def top_cuda_kernel(fn) -> str:
+    """The name of the CUDA kernel that takes the most device time in one
+    call of fn (a warmed call), from torch.profiler's kernel events; "not
+    measured" where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    best, name = 0.0, "not measured"
+    for e in prof.key_averages():
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > best:
+            best, name = t, e.key
+    return name
+
+
+def rate_line(row: dict, flops: float) -> str:
+    """The achieved TFLOP/s of a phase 7 (a) row and its share of its
+    bound (`f32_bound`), the library call's beside them; sets the row's
+    `tflops`, `bound_share` and, with a library time, `library_tflops`
+    and `library_bound_share`."""
+    row["tflops"] = flops / row["ms"] * 1e-9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    out = (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
+           "bound")
+    if row.get("library_ms") is not None:
+        row["library_tflops"] = flops / row["library_ms"] * 1e-9
+        row["library_bound_share"] = row["bound_ms"] / row["library_ms"]
+        out += (f"; the library {row['library_tflops']:.1f} TFLOP/s, "
+                f"{row['library_bound_share']:.3f}")
+    return out
+
+
 def phase_fp32_kernels(dev, results, median_ms) -> None:
     """Phase 7 (a): K1, K2 (plain, shifted and the final-pair T 1 slice)
     and K3 in fp32 against their fp32 twins at the serving shapes of both
@@ -3143,6 +3186,8 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
                             f" library {row['library_ms']:.3f} ms")
               + f" bound {row['bound_ms']:.4f} ms (FMA "
               f"{row['fma_bound_ms']:.4f})", flush=True)
+        print(f"  {'':24s} {case:36s} {rate_line(row, work[0])}",
+              flush=True)
         check(row["rel_err"] <= TOL_F32_REL, f"{kname} {case}: relative "
               f"error {row['rel_err']} > {TOL_F32_REL}")
         for fault, fn in faults:
@@ -3288,9 +3333,9 @@ def phase_fp32_kernels(dev, results, median_ms) -> None:
                                (M * K + N * K + M * N * (2 if out is not None
                                                          else 1)) * 4)}
             results.setdefault("linear_f32", []).append(row)
-            tflops = 2 * M * N * K / row["ms"] * 1e-9
+            rates = rate_line(row, 2 * M * N * K)
             print(f"  {'linear_f32':24s} {case:36s} rel {row['rel_err']:.3e}"
-                  f" {row['ms']:.3f} ms ({tflops:.1f} TFLOP/s) cuBLAS fp32 "
+                  f" {row['ms']:.3f} ms ({rates}) cuBLAS fp32 "
                   f"{row['library_ms']:.3f} ms twin {row['plain_ms']:.3f} ms"
                   f" bound {row['bound_ms']:.4f} ms (FMA "
                   f"{row['fma_bound_ms']:.4f}); on TF32 operands the twin "
@@ -3447,6 +3492,13 @@ def phase_fp32_route_kernels(dev, compare, randn, uniform, median_ms,
                     faults, work,
                     lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=am, scale=scale))
+            # which of SDPA's backends ran in fp32: its kernel's name
+            row = results["fused_window_attention_f32"][-1]
+            row["library_kernel"] = top_cuda_kernel(
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=am, scale=scale))
+            print(f"  {'':24s} {'':36s} SDPA's kernel in fp32: "
+                  f"{row['library_kernel']}", flush=True)
             del qs, ks, vs, am
         del qkv, q, k, v, qkvb, qb, kb, vb
 
@@ -3609,6 +3661,7 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
               f"{row['bf16_ms']:.2f} ms cuBLAS fp32 products "
               f"{row['library_ms']:.2f} ms bound {row['bound_ms']:.2f} ms "
               f"(FMA {row['fma_bound_ms']:.2f})", flush=True)
+        print(f"  {'':28s} {rate_line(row, work[0])}", flush=True)
         for name, o in outs.items():
             print(f"  {'':28s} {name:8s} rel {o['rel_err']:.3e} TF32 fault "
                   f"{o['tf32_fault']:.3e} "
@@ -3769,13 +3822,13 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
                "library_ms": median_ms(lambda: a.t() @ b),
                **f32_bound(2 * R * M * N, (R * (M + N) + M * N) * 4)}
         results.setdefault("wgrad_f32", []).append(row)
-        tflops = 2 * R * M * N / row["ms"] * 1e-9
+        rates = rate_line(row, 2 * R * M * N)
         print(f"  {'wgrad_f32':28s} {case:52s} rel {row['rel_err']:.3e} "
-              f"bit-equal {bit} {row['ms']:.3f} ms ({tflops:.1f} TFLOP/s) "
-              f"a.t() @ b "
+              f"bit-equal {bit} {row['ms']:.3f} ms a.t() @ b "
               f"{row['library_ms']:.3f} ms twin {row['plain_ms']:.3f} ms "
               f"bound {row['bound_ms']:.3f} ms; TF32 fault "
               f"{row['tf32_fault']:.3e}", flush=True)
+        print(f"  {'':28s} {rates}", flush=True)
         check(row["rel_err"] <= TOL_F32_REL, f"wgrad_f32 {case}: relative "
               f"error {row['rel_err']} > {TOL_F32_REL}")
         check(row["tf32_fault"] > 10 * TOL_F32_REL, f"wgrad_f32 {case}: the "
@@ -3906,6 +3959,8 @@ def phase_fp32_offpath_kernels(dev, results, median_ms, wrappers) -> None:
               f"{row['bf16_ms']:.3f}{extra} bound {row['bound_ms']:.4f} ms "
               f"(FMA {row['fma_bound_ms']:.4f}); the twin {fault[0]} moves "
               f"by {moved:.3e} ({moved / TOL_F32_REL:.1f}x the bound)",
+              flush=True)
+        print(f"  {'':22s} {case:34s} {rate_line(row, work[0])}",
               flush=True)
         check(row["rel_err"] <= TOL_F32_REL, f"{kname} {case}: relative "
               f"error {row['rel_err']} > {TOL_F32_REL}")

@@ -27,15 +27,17 @@
 // bf16 operands on the tensor cores; nothing of them is shared here but the
 // row map and the GELU of common.cuh.
 //
-// Bound on the H100: the products. The tensor cores have no fp32 form, and
-// one TF32 pass rounds each operand to 10 mantissa bits (relative error
-// about 2^-11), which an fp32 model does not ask for; so every product runs
-// as fp32 FMA on the CUDA cores, whose peak is 67 TFLOP/s: K1 at the
-// serving stage 1 (97 GFLOP) at least 1.44 ms, K2 (172 GFLOP) 2.57 ms, K3
-// (43 GFLOP) 0.64 ms; rows 10 and 11 at stage 1 (the attention alone, 11
-// GFLOP) 0.16 ms. A 3xTF32 split on wgmma (three TF32 products of the
-// operands' high and low halves, fp32-accurate at a third of the TF32 rate,
-// 165 TFLOP/s) is later work.
+// Bound on the H100. The GEMM products run as fp32 FMA on the CUDA cores,
+// whose peak is 67 TFLOP/s: K1's two products at the serving stage 1 (86
+// GFLOP) at least 1.28 ms, K2 (172 GFLOP) 2.57 ms, K3 (43 GFLOP) 0.64 ms.
+// The attention (rows 10 and 11 at stage 1, and K1's: 10.7 GFLOP, 336 MB
+// of q, k, v and output) runs on the tensor cores: the tensor cores have
+// no fp32 product and one TF32 pass rounds each operand to 10 mantissa
+// bits (relative error about 2^-11), which an fp32 model does not ask
+// for, so every product of the attention is a 3xTF32 split (tf32x3.cuh:
+// three TF32 products of the operands' high and low halves, fp32-accurate
+// at a third of the TF32 rate, 164.9 TFLOP/s): 0.065 ms of products
+// against 0.100 ms of bytes, so the attention is bounded by its bytes.
 //
 // Design:
 //   - `gemm_f32`: C[c_map(m), n] = epilogue(sum_k A[a_map(m), k] Wt[n, k] +
@@ -53,22 +55,26 @@
 //     MLP), K6's gelu(v) and gelu'(v) from one erf evaluation, and v times
 //     an aux matrix (K6's dh * gelu'). Ragged M and N are zero-filled on
 //     load and masked on store; K is a multiple of 4.
-//   - the attention (`attn_f32_kernel`, the core `attn32::pair` of
-//     fp32_attention.cuh): one block a (window, head), TN / 16 warps, q, k
-//     and v of the window in fp32 in shared memory (rows of hd + 4: 198 KiB
-//     at stage 1, TN 128 x hd 128, one block an SM; 98 KiB at stage 2, TN
-//     32 x hd 256). A warp owns 16 query rows; lane l holds row l % 16
-//     against the keys of parity l / 16, its scores in registers: fp32 q
-//     k^T, the scale after the product, + the tiled relative bias, + the
-//     window's mask for SW-MSA, the row max and sum across the two lanes
-//     of a row, exp, a multiply by the reciprocal of the sum; then P V 32
-//     columns at a time, the two lanes' halves summed by one shuffle each
-//     (hd % 32 == 0). P stays fp32: nothing is rounded. The three callers
-//     differ only in where a (window, head, token) row lives, so the kernel
-//     is one template over an address functor: K1 reads its window-order
-//     qkv buffer (the identity map); row 10 gathers straight from the
-//     image-layout qkv through the window partition and scatters its
-//     output back to the image (no partitioned copy is formed); row 11
+//   - the attention (`attn_f32_kernel`, the core `attn32::pairs` of
+//     fp32_attention.cuh): persistent blocks of TN / 16 warps, as many as
+//     the SMs hold (one at stage 1, whose pair of q, k and v in fp32 rows
+//     of hd + 4 takes 198 KiB at TN 128 x hd 128; two at stage 2, 98 KiB
+//     at TN 32 x hd 256), each walking its share of the (window, head)
+//     pairs. A warp owns 16 query rows: mma.sync m16n8k8 tf32, three
+//     passes a product, forms its 16 x TN scores in registers, where the
+//     scale, + the tiled relative bias, + the window's mask for SW-MSA,
+//     the row max and sum (quad shuffles), exp and the multiply by the
+//     reciprocal of the sum run; P stays fp32 in those registers and is P
+//     V's A fragment (the keys of a k step taken in the accumulator's
+//     order), so it is never stored; the output leaves from the P V
+//     accumulators. A pair's loads hide behind the pair before it: the
+//     next pair's q and k are copied in while this pair's softmax and P V
+//     run, its v while the next scores are formed. The three callers
+//     differ only in where a (window, head, token) row lives, so the
+//     kernel is one template over an address functor: K1 reads its
+//     window-order qkv buffer (the identity map); row 10 gathers straight
+//     from the image-layout qkv through the window partition and scatters
+//     its output back to the image (no partitioned copy is formed); row 11
 //     reads the head-major tensors, window b taking mask b % n_mask.
 //   - K2's and K3's row passes: a warp a row, fp32 in and out: K2's
 //     s = x + y read through the inverse cyclic shift and LN2(s), and
@@ -145,21 +151,21 @@ namespace {
 
 // ---- the attention: K1's, row 10's and row 11's ------------------------
 
-// keys a lane can hold: TN <= 2 KPL; the widest window, TN 176
-// (`ops/attention.py` MAX_WINDOW_TOKENS), takes 88. One block a (window,
-// head): block b is window b / heads, head b % heads.
-template <int KPL, class Addr>
-__global__ void __launch_bounds__(352, 1)
+// Persistent blocks of one pair's TN / 16 warps (at most NT * 16
+// threads: the registers a thread may use follow the block's size), each
+// running pairs blockIdx.x, + gridDim.x, ... through the core's pipeline.
+template <int NT, class Addr>
+__global__ void __launch_bounds__(NT * 16, 1)
     attn_f32_kernel(const Addr a, const float* __restrict__ bias,
                     const float* __restrict__ mask, int n_mask, int heads,
-                    int TN, int hd, float scale) {
+                    int total, int TN, int hd, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int bw = blockIdx.x / heads, h = blockIdx.x - bw * heads;
-  attn32::pair<KPL>(a, bw, h, reinterpret_cast<float*>(smem), threadIdx.x,
-                    blockDim.x, bias, mask, n_mask, TN, hd, scale);
+  attn32::pairs<NT>(a, blockIdx.x, total, gridDim.x, heads,
+                    reinterpret_cast<float*>(smem), threadIdx.x, blockDim.x,
+                    1, bias, mask, n_mask, TN, hd, scale);
 }
 
-template <int KPL, class Addr>
+template <int NT, class Addr>
 cudaError_t launch_attn(const Addr& a, int n_windows, int heads, int TN,
                         int hd, const float* bias, const float* mask,
                         int n_mask, float scale, cudaStream_t s) {
@@ -172,15 +178,22 @@ cudaError_t launch_attn(const Addr& a, int n_windows, int heads, int TN,
     cudaError_t err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_f32_kernel<KPL, Addr>,
+      err = cudaFuncSetAttribute(attn_f32_kernel<NT, Addr>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  most);
     if (err != cudaSuccess) return err;
     optins[dev] = most;
   }
   if (bytes > static_cast<size_t>(optins[dev])) return cudaErrorInvalidValue;
-  attn_f32_kernel<KPL, Addr><<<n_windows * heads, TN * 2, bytes, s>>>(
-      a, bias, mask, n_mask, heads, TN, hd, scale);
+  const int threads = TN * 2, total = n_windows * heads;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, attn_f32_kernel<NT, Addr>, threads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0 || !sm_count()) return cudaErrorInvalidConfiguration;
+  const int grid = total < per_sm * sm_count() ? total : per_sm * sm_count();
+  attn_f32_kernel<NT, Addr><<<grid, threads, bytes, s>>>(
+      a, bias, mask, n_mask, heads, total, TN, hd, scale);
   return cudaGetLastError();
 }
 
@@ -196,17 +209,20 @@ cudaError_t attention_f32(const Addr& a, int n_windows, int heads, int TN,
     return cudaErrorInvalidValue;
   if (n_windows == 0) return cudaSuccess;
   const float* m = n_mask > 1 ? mask : nullptr;
-  if (TN <= 32)
-    return launch_attn<16>(a, n_windows, heads, TN, hd, bias, m, n_mask,
-                           scale, s);
-  if (TN <= 64)
-    return launch_attn<32>(a, n_windows, heads, TN, hd, bias, m, n_mask,
-                           scale, s);
-  if (TN <= 128)
-    return launch_attn<64>(a, n_windows, heads, TN, hd, bias, m, n_mask,
-                           scale, s);
-  return launch_attn<88>(a, n_windows, heads, TN, hd, bias, m, n_mask, scale,
-                         s);
+  switch (attn32::score_tiles(TN)) {
+    case 4:
+      return launch_attn<4>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                            scale, s);
+    case 8:
+      return launch_attn<8>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                            scale, s);
+    case 16:
+      return launch_attn<16>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                             scale, s);
+    default:
+      return launch_attn<22>(a, n_windows, heads, TN, hd, bias, m, n_mask,
+                             scale, s);
+  }
 }
 
 // ---- the row passes -----------------------------------------------------

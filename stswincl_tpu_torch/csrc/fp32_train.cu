@@ -15,10 +15,15 @@
 // epilogue.cu) run bf16 operands on the tensor cores; nothing of them is
 // shared here but the row map and the GELU of common.cuh.
 //
-// Bound on the H100: the products, in fp32 FMA on the CUDA cores (67
-// TFLOP/s), as in fp32_forms.cu: K5 at stage 1 (794 GFLOP) at least 11.9
-// ms, K6 with m recomputed (2,062 GFLOP) 30.8 ms, K6 with m saved at stage
-// 2 (1,718 GFLOP) 25.6 ms. A 3xTF32 split on wgmma is later work.
+// Bound on the H100: the products. The fp32 GEMM's and the attention
+// backward's run as fp32 FMA on the CUDA cores (67 TFLOP/s), as in
+// fp32_forms.cu; the weight gradients (`wgrad_f32`) run on the tensor
+// cores as a 3xTF32 split (tf32x3.cuh: fp32-accurate at a third of the
+// TF32 rate, 164.9 TFLOP/s; one TF32 pass is not fp32). K5 at stage 1
+// (794 GFLOP, 344 of them weight gradients) at least 8.8 ms, K6 with m
+// recomputed (2,062 GFLOP, 687) 24.7 ms, K6 with m saved at stage 2
+// (1,718 GFLOP, 687) 19.6 ms. A weight gradient alone: K5's dwqkv at stage
+// 1, (163840, 1536)^T (163840, 512), 257.7 GFLOP, at least 1.56 ms.
 //
 // Every reduction is deterministic: no float atomics anywhere. A sum that
 // spans blocks is written as one partial a block (or a split of the rows)
@@ -27,12 +32,25 @@
 //
 // Design:
 //   - `wgrad_f32`: out = sum_r A[a_map(r)]^T B[b_map(r)], the weight
-//     gradients. A 128 x 128 output tile a block of 256 threads (8 x 8 sums
-//     a thread: rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, the same for the
-//     columns by tx), the rows r in k tiles of 8 through a three-stage
-//     cp.async ring; each operand row read through its RowMap. R is split
-//     in `wgrad_splits(R)` ranges (20 at stage 1's 163,840 rows), a split a
-//     z-block, each writing its partial; `sum_parts` adds them in order.
+//     gradients, on mma.sync m16n8k8 tf32, three passes a product. A 128 x
+//     128 output tile a block of 8 warps (64 x 32 a warp: 16 sub-tiles of
+//     16 x 8, every pass over all 16 so the dependent mmas of a sub-tile
+//     are 15 apart), the rows r in k tiles of 32 through a four-stage
+//     cp.async ring; each operand row read through its RowMap. Both
+//     operands arrive R-major (M- and N-major), the layout tf32 wgmma
+//     cannot read (it takes tf32 from shared memory K-major only); mma.sync
+//     reads its fragments with scalar loads from the raw tiles at a row
+//     pitch of 8 mod 32 words (conflict-free), splitting each value as it
+//     is read, so no transposed or split copy is written: the simpler of
+//     the two designs, at the cost of mma.sync's rate (about 300 TFLOP/s
+//     of TF32 on the H100, `tools/profile_mma_rate.py`, against the 494.7
+//     that wgmma reaches). Each k tile sums in the
+//     mma from 0 and is added to the thread's fp32 sums, rounded to
+//     nearest: the mma's accumulation truncates, and over a split of
+//     thousands of rows that drifts past the fp32 bound. R is split in
+//     `wgrad_splits(R, M, N)` ranges, the count that fills the card's
+//     waves best (11 for stage 1's dwqkv), a split a z-block, each
+//     writing its partial; `sum_parts` adds them in order.
 //   - `colsum_f32`: the bias gradients, the column sums of a row matrix:
 //     a thread a column over 1,024 rows, then the partials in order.
 //   - K5's attention backward, two launches a call, one (window, head) at
@@ -78,6 +96,7 @@
 #include <atomic>
 
 #include "fp32_gemm.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -85,15 +104,33 @@ std::atomic<long long> wgrad_count{0};
 
 // ---- fixed-order reductions ----------------------------------------------
 
-constexpr int WSPLIT_ROWS = 8192, WSPLIT_MAX = 32;
+constexpr int WSPLIT_ROWS = 2048, WSPLIT_MAX = 32;
+constexpr int WAVE = 132;  // weight-gradient blocks the H100 holds at once
 constexpr int CS_ROWS = 1024;
 constexpr int RW = 8;             // warps a row-pass block
 constexpr int ROW_BLOCKS = 1024;  // the row passes' grid, at most
 constexpr int ATTN_BLOCKS = 132;  // the query pass's persistent blocks
 
-inline int wgrad_splits(int R) {
-  const int s = R / WSPLIT_ROWS;
-  return s < 1 ? 1 : (s > WSPLIT_MAX ? WSPLIT_MAX : s);
+// The ranges R is split in for an (M, N) output: of 1 .. min(32, R /
+// 2048), the count whose blocks (128 x 128 tiles times splits, one an SM)
+// fill their waves of WAVE best, the fewest on a tie. It depends on the
+// shapes alone, so every card sums in the same order.
+inline int wgrad_splits(int R, int M, int N) {
+  const long long tiles = (long long)((M + 127) / 128) * ((N + 127) / 128);
+  int most = R / WSPLIT_ROWS;
+  most = most < 1 ? 1 : (most > WSPLIT_MAX ? WSPLIT_MAX : most);
+  int best = 1;
+  double fill = 0.0;
+  for (int s = 1; s <= most; ++s) {
+    const long long blocks = tiles * s;
+    const double f =
+        double(blocks) / double((blocks + WAVE - 1) / WAVE * WAVE);
+    if (f > fill + 1e-9) {
+      fill = f;
+      best = s;
+    }
+  }
+  return best;
 }
 inline int cs_splits(int R) { return R < 1 ? 1 : (R + CS_ROWS - 1) / CS_ROWS; }
 inline int row_blocks(int R) {
@@ -147,7 +184,14 @@ cudaError_t colsum_f32(const float* X, long long ld, int R, int N, float* out,
 
 // ---- the weight-gradient GEMM ------------------------------------------
 
-constexpr int WBM = 128, WBN = 128, WBK = 8, WSTAGES = 3;
+// A 128 x 128 output tile a block of 8 warps, each warp 64 (m) x 32 (n);
+// the rows r in k tiles of 32 through a four-stage cp.async ring of raw
+// fp32 [r][m] and [r][n] tiles, rows padded to 136 floats (139 KiB: one
+// block an SM, up to 255 registers a thread).
+constexpr int WBM = 128, WBN = 128, WBK = 32, WSTAGES = 4;
+constexpr int WPITCH = WBM + 8;  // 8 mod 32 words: fragment reads t * 8 + g
+constexpr int WTHREADS = 256;
+constexpr size_t WSMEM = size_t(2) * WSTAGES * WBK * WPITCH * sizeof(float);
 
 struct F32Wgrad {
   const float* A;
@@ -159,83 +203,168 @@ struct F32Wgrad {
   int R, M, N;
 };
 
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
-  acc.x = fmaf(w, v.x, acc.x);
-  acc.y = fmaf(w, v.y, acc.y);
-  acc.z = fmaf(w, v.z, acc.z);
-  acc.w = fmaf(w, v.w, acc.w);
-}
+// x / d for 0 <= x < 2^31 by a multiply-high and a shift (d >= 1).
+struct FastDiv {
+  int d;
+  unsigned mul, shr;
+  explicit FastDiv(int div = 1) : d(div), mul(0), shr(0) {
+    if (div > 1) {
+      int l = 31 - __builtin_clz(unsigned(div));
+      l += (div & (div - 1)) != 0;  // ceil(log2 d)
+      const unsigned p = 31 + l;
+      mul = unsigned(((1ull << p) + unsigned(div) - 1) / unsigned(div));
+      shr = p - 32;
+    }
+  }
+  __device__ __forceinline__ int operator()(int x) const {
+    return d == 1 ? x : int(__umulhi(unsigned(x), mul) >> shr);
+  }
+};
 
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
+// `map_row` with its five divisions by multiply-high: the weight-gradient
+// loader maps 8 rows a warp and k tile, and the divisions of the plain
+// form cost as many issue slots as a tenth of the tile's products.
+struct FastMap {
+  int mode, T, H, W, ws, shift, TN, N, nWin, nWw;
+  FastDiv by_TN, by_N, by_ws, by_nWin, by_nWw;
+  explicit FastMap(const RowMap& m)
+      : mode(m.mode), T(m.T), H(m.H), W(m.W), ws(m.ws), shift(m.shift),
+        TN(m.T * m.ws * m.ws), N(m.ws * m.ws),
+        nWin((m.H / m.ws) * (m.W / m.ws)), nWw(m.W / m.ws),
+        by_TN(TN), by_N(N), by_ws(m.ws), by_nWin(nWin), by_nWw(nWw) {}
+  __device__ __forceinline__ long long operator()(int r) const {
+    if (mode == 0) return r;
+    const int bw = by_TN(r), p = r - bw * TN;
+    const int t = by_N(p), q = p - t * N;
+    const int i = by_ws(q), j = q - i * ws;
+    const int b = by_nWin(bw), win = bw - b * nWin;
+    const int wh = by_nWw(win), ww = win - wh * nWw;
+    int h = wh * ws + i + shift;
+    if (h >= H) h -= H;
+    int w = ww * ws + j + shift;
+    if (w >= W) w -= W;
+    return ((long long)(b * T + t) * H + h) * W + w;
+  }
+};
 
-// dst[split][m][n] (rows of N) = the sum over the split's rows, r ascending
-__global__ void __launch_bounds__(256)
-    wgrad_f32_kernel(const F32Wgrad p, int chunk, float* __restrict__ dst) {
-  __shared__ __align__(16) float As[WSTAGES][WBK][WBM];
-  __shared__ __align__(16) float Bs[WSTAGES][WBK][WBN];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+// dst[split][m][n] (rows of N) = the sum over the split's rows, k tile by
+// k tile in ascending r. A warp's 4 x 4 sub-tiles of 16 x 8 take each k
+// step of 8 rows as three mma.sync m16n8k8 tf32 passes (tf32x3.cuh: the
+// small terms, then the big), every pass over all 16 sub-tiles before the
+// next, so each mma has 15 others between it and the one it waits for.
+// The k tile's four steps sum in the mma from 0 and are then added to the
+// thread's fp32 sums, rounded to nearest: the mma's own accumulation
+// drops the bits past its sum's last (a bias toward zero), which over a
+// split's thousands of rows drifts past the fp32 bound, over 32 rows not.
+// The tiles stay as they arrive, r-major (M- and N-major): the A fragment
+// (row m, column r) reads As[r][m] and the B fragment (row r, column n)
+// Bs[r][n] with scalar loads, each value split into its TF32 halves in
+// registers as it is read, so no transposed copy is made.
+__global__ void __launch_bounds__(WTHREADS, 1)
+    wgrad_f32_kernel(const F32Wgrad p, const FastMap a_map,
+                     const FastMap b_map, int chunk,
+                     float* __restrict__ dst) {
+  extern __shared__ __align__(16) float wsm[];
+  float* As = wsm;                           // [WSTAGES][WBK][WPITCH]
+  float* Bs = wsm + WSTAGES * WBK * WPITCH;  // the same
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
   const int m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
   const int r0 = blockIdx.z * chunk;
   const int r1 = r0 + chunk < p.R ? r0 + chunk : p.R;
-  // the loader: row lr of the k tile, the 16-byte chunk at column lc
+  // the loader: rows lr + 8 i of the k tile, the 16-byte chunk at lc. The
+  // warp's 2 x 4 row indices (A's and B's, each through its row map) are
+  // computed by lanes 0-7, one each, and shuffled to the rest.
   const int lr = tid >> 5, lc = (tid & 31) * 4;
   const bool a_col = m0 + lc < p.M, b_col = n0 + lc < p.N;
   const int nk = r1 > r0 ? (r1 - r0 + WBK - 1) / WBK : 0;
+  static_assert(WBK == 32, "the loader maps 4 rows an operand a warp");
   auto load = [&](int stage, int kt) {
-    const int r = r0 + kt * WBK + lr;
-    const bool rin = r < r1;
-    const float* a = p.A + (rin ? map_row(p.a_map, r) : 0) * p.lda +
-                     (a_col ? m0 + lc : 0);
-    const float* b = p.B + (rin ? map_row(p.b_map, r) : 0) * p.ldb +
-                     (b_col ? n0 + lc : 0);
-    cp_async16(&As[stage][lr][lc], a, rin && a_col);
-    cp_async16(&Bs[stage][lr][lc], b, rin && b_col);
+    const int rr = r0 + kt * WBK + lr + 8 * (lane & 3);
+    const long long mine =
+        rr < r1 ? ((lane & 4) ? b_map(rr) : a_map(rr)) : -1;
+#pragma unroll
+    for (int i = 0; i < WBK / 8; ++i) {
+      const long long ra = __shfl_sync(0xffffffffu, mine, i);
+      const long long rb = __shfl_sync(0xffffffffu, mine, 4 + i);
+      const bool rin = ra >= 0;
+      const float* a =
+          p.A + (rin ? ra : 0) * p.lda + (a_col ? m0 + lc : 0);
+      const float* b =
+          p.B + (rin ? rb : 0) * p.ldb + (b_col ? n0 + lc : 0);
+      const int o = (stage * WBK + lr + 8 * i) * WPITCH + lc;
+      cp_async16(As + o, a, rin && a_col);
+      cp_async16(Bs + o, b, rin && b_col);
+    }
   };
 #pragma unroll
   for (int s = 0; s < WSTAGES - 1; ++s) {
     if (s < nk) load(s, s);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  float4 acc[8][2];
+  float acc[16][4];  // sub-tile 4 i + j: rows wm + 16 i, columns wn + 8 j
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc[i][0] = acc[i][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int u = 0; u < 16; ++u)
+    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
 
   for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // WSTAGES - 2
-    __syncthreads();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WSTAGES - 2) : "memory");
+    __syncthreads();  // stage kt landed; stage kt - 1's readers done
     const int next = kt + WSTAGES - 1;
     if (next < nk) load(next % WSTAGES, next);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int s = kt % WSTAGES;
+    const int st = kt % WSTAGES;
+    float d[16][4];
 #pragma unroll
-    for (int kk = 0; kk < WBK; ++kk) {
-      const float4 a0 = ld4(&As[s][kk][4 * ty]);
-      const float4 a1 = ld4(&As[s][kk][64 + 4 * ty]);
-      const float4 b[2] = {ld4(&Bs[s][kk][4 * tx]),
-                           ld4(&Bs[s][kk][64 + 4 * tx])};
+    for (int k0 = 0; k0 < WBK; k0 += 8) {
+      const float* a = As + (st * WBK + k0 + tq) * WPITCH + wm + g;
+      const float* b = Bs + (st * WBK + k0 + tq) * WPITCH + wn + g;
+      tf32x3::FragA fa[4];
+      tf32x3::FragB fb[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = comp(i < 4 ? a0 : a1, i & 3);
-        fma4(acc[i][0], w, b[0]);
-        fma4(acc[i][1], w, b[1]);
+      for (int j = 0; j < 4; ++j) fb[j].set(b[8 * j], b[4 * WPITCH + 8 * j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        fa[i].set(a[16 * i], a[16 * i + 8], a[4 * WPITCH + 16 * i],
+                  a[4 * WPITCH + 16 * i + 8]);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (k0 == 0)
+          tf32x3::mma1688_from0(d[u], fa[u / 4].lo, fb[u % 4].hi[0],
+                                fb[u % 4].hi[1]);
+        else
+          tf32x3::mma1688(d[u], fa[u / 4].lo, fb[u % 4].hi[0],
+                          fb[u % 4].hi[1]);
       }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        tf32x3::mma1688(d[u], fa[u / 4].hi, fb[u % 4].lo[0], fb[u % 4].lo[1]);
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        tf32x3::mma1688(d[u], fa[u / 4].hi, fb[u % 4].hi[0], fb[u % 4].hi[1]);
     }
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][e] += d[u][e];
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
   float* out = dst + (long long)blockIdx.z * p.M * p.N;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
-    if (m >= p.M) continue;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + 4 * tx + 64 * h;
-      if (n < p.N)
-        *reinterpret_cast<float4*>(out + (long long)m * p.N + n) = acc[i][h];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm + 16 * i + g + 8 * hh;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * tq;
+        if (n < p.N)
+          *reinterpret_cast<float2*>(out + (long long)m * p.N + n) =
+              make_float2(acc[4 * i + j][2 * hh], acc[4 * i + j][2 * hh + 1]);
+      }
     }
   }
 }
@@ -246,11 +375,23 @@ cudaError_t wgrad_f32(const F32Wgrad& p, float* out, float* part,
   if (p.R < 0 || p.M <= 0 || p.N <= 0 || p.M % 4 || p.N % 4 || p.lda % 4 ||
       p.ldb % 4)
     return cudaErrorInvalidValue;
-  const int splits = wgrad_splits(p.R);
+  const int splits = wgrad_splits(p.R, p.M, p.N);
   if (splits > 1 && !part) return cudaErrorInvalidValue;
+  static bool allowed[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgrad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(WSMEM));
+    if (err != cudaSuccess) return err;
+    allowed[dev] = true;
+  }
   const int chunk = ((p.R + splits - 1) / splits + WBK - 1) / WBK * WBK;
   const dim3 grid((p.N + WBN - 1) / WBN, (p.M + WBM - 1) / WBM, splits);
-  wgrad_f32_kernel<<<grid, 256, 0, s>>>(p, chunk, splits > 1 ? part : out);
+  wgrad_f32_kernel<<<grid, WTHREADS, WSMEM, s>>>(p, FastMap(p.a_map),
+                                                FastMap(p.b_map), chunk,
+                                                splits > 1 ? part : out);
   wgrad_count.fetch_add(1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -259,11 +400,22 @@ cudaError_t wgrad_f32(const F32Wgrad& p, float* out, float* part,
 }
 
 size_t wgrad_work(int R, int M, int N) {
-  const int splits = wgrad_splits(R);
+  const int splits = wgrad_splits(R, M, N);
   return splits > 1 ? size_t(splits) * M * N : 0;
 }
 
 // ---- K5's attention backward -------------------------------------------
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
+}
 
 constexpr int AT = 256;  // threads of an attention-backward block
 
@@ -707,7 +859,9 @@ K5Work k5_work(int R, int C, int heads, int TN) {
   if (n_windows > 0 && TN > 0)
     attn_split(n_windows, heads, TN / attn_qb(TN), &per_head, &per_block);
   const size_t cs = size_t(cs_splits(R)) * 3 * C;
-  const size_t wp = wgrad_work(R, 3 * C, C);
+  // dwqkv's and dwproj's partials share the area: the larger of the two
+  const size_t wq = wgrad_work(R, 3 * C, C), wo = wgrad_work(R, C, C);
+  const size_t wp = wq > wo ? wq : wo;
   w.dattn = 0;
   w.dqkv = w.dattn + size_t(R) * C;
   w.stats = w.dqkv + size_t(R) * 3 * C;

@@ -10,7 +10,7 @@
 // this kernel computes the fp32 K1 + K2 pair (fp32_forms.cu) in one launch.
 // Every product sums k in the order of the fp32 GEMM (`f32_tile_sums`,
 // fp32_gemm.cuh), with its epilogue arithmetic; the attention is K1's fp32
-// core (`attn32::pair`, fp32_attention.cuh); the LN passes are K2's fp32
+// core (`attn32::pairs`, fp32_attention.cuh); the LN passes are K2's fp32
 // row passes (`ln_row_f32`), s = x + y formed in proj's epilogue as K2's
 // first pass forms it and fc2 + bias added into s as K2's serving fc2 adds
 // it: so the output carries the bits of the fp32 pair. No TF32, no float
@@ -18,8 +18,10 @@
 // runs bf16 operands on wgmma; nothing of it is shared here.
 //
 // Bound on the H100: the products, 24 R C^2 + 4 R TN C flops for R token
-// rows (268 GFLOP at the stage-1 serving shape) in fp32 FMA on the CUDA
-// cores (67 TFLOP/s): at least 4.0 ms; x and out are R C * 8 bytes.
+// rows (268 GFLOP at the stage-1 serving shape), the GEMMs' in fp32 FMA on
+// the CUDA cores (67 TFLOP/s), the attention's (11 GFLOP) as 3xTF32 on the
+// tensor cores (164.9 TFLOP/s): at least 3.9 ms; x and out are R C * 8
+// bytes.
 //
 // Design, simple and right first: persistent blocks of 256 threads, one a
 // workspace slot (`stswin_whole_block_f32_slots` sizes them from the
@@ -32,9 +34,12 @@
 //   1. qkv: the fp32 GEMM tile, A = x read through the window partition's
 //      row map (no partitioned copy), 3C / 128 column tiles -> wide (TM x
 //      3C);
-//   2. attention of each (window, head) of the tile, one pair at a time by
-//      the fp32 core (198 KiB of q, k and v at stage 1, 98 KiB at stage 2)
-//      -> narrow (TM x C);
+//   2. attention of each (window, head) of the tile by the fp32 core, as
+//      many pairs at once as the 8 warps (TN / 16 a pair) and shared
+//      memory hold: one of 198 KiB of q, k and v at stage 1 (TN 128), two
+//      of 98 KiB at stage 2 (TN 32, 4 of the 8 warps), each group of warps
+//      walking its pairs with the next pair's loads in flight -> narrow
+//      (TM x C);
 //   3. proj, whose epilogue adds x: s = x + (attn Wproj + bproj) -> s;
 //   4. LN2(s), a warp a row -> narrow;
 //   5. fc1 with the bias and GELU (the erf polynomial) -> wide (TM x hidden,
@@ -42,7 +47,7 @@
 //   6. fc2 with the bias, added into s;
 //   7. LN1(s), a warp a row, scattered back to the image layout.
 // Shared memory holds one phase at a time: the GEMM tile's ring (36 KiB)
-// or the attention pair's q, k and v. The slot's workspace is 1.5 MiB at
+// or the attention pairs' q, k and v. The slot's workspace is 1.5 MiB at
 // stage 1 and 3 MiB at stage 2 (wide, narrow and s in fp32), reused tile
 // after tile. Device memory sees x read in phases 1 and 3 and the output
 // written once; the pair also writes y and every intermediate of the
@@ -58,8 +63,9 @@ constexpr int THREADS = F32_THREADS;
 constexpr int SMEM_MAX = 232448;  // shared memory one block may use, sm_90
 
 // The dynamic shared memory of one block: the GEMM tile's ring in the
-// product phases, one attention pair of `pair` bytes in the attention
-// phase (`group` 1, or 0 when the pair does not fit).
+// product phases, `group` attention pairs of `pair` bytes each in the
+// attention phase (as many as the block's warps, TN / 16 a pair, and
+// shared memory hold; 0 when one pair does not fit).
 struct Layout {
   size_t pair, total;
   int group;
@@ -68,8 +74,10 @@ struct Layout {
 inline Layout whole_layout(int TN, int hd) {
   Layout L;
   L.pair = attn32::smem_bytes(TN, hd);
-  L.group = L.pair <= SMEM_MAX ? 1 : 0;
-  L.total = L.pair > sizeof(F32Tile) ? L.pair : sizeof(F32Tile);
+  L.group = THREADS / (TN * 2);
+  while (L.group > 0 && L.group * L.pair > SMEM_MAX) --L.group;
+  const size_t pairs = L.group * L.pair;
+  L.total = pairs > sizeof(F32Tile) ? pairs : sizeof(F32Tile);
   return L;
 }
 
@@ -94,6 +102,7 @@ struct WholeF32 {
   float* ws_s;       // (slots, TM, C): s, then s + m
   RowMap img;        // window-order row -> image row (shift 0)
   int M, C, hidden, wide, heads, TN, hd, tiles, act;
+  int group, pair_floats;  // attention pairs at once, each pair's smem
   float scale, eps;
 };
 
@@ -145,7 +154,7 @@ __device__ __forceinline__ void ln_rows(const float* s32, int C,
   }
 }
 
-template <int KPL>
+template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
     whole_block_f32_kernel(const WholeF32 p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -174,11 +183,14 @@ __global__ void __launch_bounds__(THREADS, 1)
               wide[(long long)r * 3 * C + n] = v;
             });
 
-    // 2. attention of each (window, head) of the tile -> (TM, C)
-    const int pairs = valid / TN * p.heads;
-    for (int q = 0; q < pairs; ++q)
-      attn32::pair<KPL>(heads_io, q / p.heads, q % p.heads, attn_smem, tid,
-                        THREADS, p.bias, nullptr, 0, TN, p.hd, p.scale);
+    // 2. attention of each (window, head) of the tile -> (TM, C): group
+    // gi of TN / 16 warps runs pairs gi, gi + group, ... in its own region
+    __syncthreads();  // qkv written, the ring's last readers done
+    const int pt = TN * 2, gi = tid / pt;
+    if (gi < p.group)
+      attn32::pairs<NT>(heads_io, gi, valid / TN * p.heads, p.group, p.heads,
+                        attn_smem + gi * p.pair_floats, tid - gi * pt, pt,
+                        1 + gi, p.bias, nullptr, 0, TN, p.hd, p.scale);
 
     // 3. s = x + (attn Wproj + bproj), x read back through the row map
     product(sm, narrow + (long long)lr * C, a_ok, p.wproj, C, C, p.bproj,
@@ -208,10 +220,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The kernel with KPL score registers a lane for windows of TN tokens of
+// The kernel with NT 8-key score tiles for windows of TN tokens of
 // head_dim hd: launched with `p` on `stream`, or with `per_sm` the blocks
 // one SM holds written there.
-template <int KPL>
+template <int NT>
 cudaError_t run(int TN, int hd, const WholeF32* p, int grid,
                 cudaStream_t stream, int* per_sm) {
   const Layout L = whole_layout(TN, hd);
@@ -222,24 +234,30 @@ cudaError_t run(int TN, int hd, const WholeF32* p, int grid,
   if (dev < 0) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        whole_block_f32_kernel<KPL>,
+        whole_block_f32_kernel<NT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
   }
   if (per_sm)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, whole_block_f32_kernel<KPL>, THREADS, L.total);
-  whole_block_f32_kernel<KPL><<<grid, THREADS, L.total, stream>>>(*p);
+        per_sm, whole_block_f32_kernel<NT>, THREADS, L.total);
+  whole_block_f32_kernel<NT><<<grid, THREADS, L.total, stream>>>(*p);
   return cudaGetLastError();
 }
 
-// run<KPL> for windows of TN tokens (TN divides 128: KPL >= TN / 2)
+// run<NT> for windows of TN tokens (TN divides 128), NT the standalone
+// core's
 cudaError_t run_for(int TN, int hd, const WholeF32* p, int grid,
                     cudaStream_t stream, int* per_sm) {
-  if (TN <= 32) return run<16>(TN, hd, p, grid, stream, per_sm);
-  if (TN <= 64) return run<32>(TN, hd, p, grid, stream, per_sm);
-  return run<64>(TN, hd, p, grid, stream, per_sm);
+  switch (attn32::score_tiles(TN)) {
+    case 4:
+      return run<4>(TN, hd, p, grid, stream, per_sm);
+    case 8:
+      return run<8>(TN, hd, p, grid, stream, per_sm);
+    default:
+      return run<16>(TN, hd, p, grid, stream, per_sm);
+  }
 }
 
 bool takes_window(int TN, int hd) {
@@ -333,6 +351,9 @@ extern "C" int stswin_whole_block_f32(
   p.TN = T * ws * ws;
   p.hd = C / heads;
   p.tiles = (p.M + TM - 1) / TM;
+  const Layout L = whole_layout(p.TN, p.hd);
+  p.group = L.group;
+  p.pair_floats = static_cast<int>(L.pair / sizeof(float));
   p.act = act;
   p.scale = scale;
   p.eps = eps;

@@ -84,11 +84,15 @@ def _attn_smem_bytes(TN: int, hd: int) -> int:
 
 
 def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of one (window, head) of the fp32 attention
-    core of K1, rows 10, 11 and 16 (`attn32::smem_bytes` in
-    `csrc/fp32_attention.cuh`): q, k and v in fp32 rows of hd + 4; the
-    scores and P stay in registers. 198 KiB at stage 1 (TN 128, hd 128),
-    98 KiB at stage 2 (TN 32, hd 256)."""
+    """Dynamic shared memory of one (window, head) pair of the fp32
+    attention core of K1, rows 10, 11 and 16 (`attn32::smem_bytes` in
+    `csrc/fp32_attention.cuh`): the q-and-k region, then v, in fp32 rows of
+    hd + 4 (4 mod 32 words: the tensor-core fragment reads of q, k and v
+    fall on distinct banks); the scores and P stay in registers. The core
+    runs pairs back to back in this one region, the next pair's q and k
+    copied in while this pair's P V runs, its v while the next scores are
+    formed. 198 KiB at stage 1 (TN 128, hd 128), 98 KiB at stage 2 (TN 32,
+    hd 256)."""
     return _align(3 * TN * (hd + 4) * 4)
 
 

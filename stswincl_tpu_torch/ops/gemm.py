@@ -19,8 +19,10 @@ each form by itself so that its tests and its profile hold it against
   the column sums db1;
 - `wgrad_f32` (`stswin_wgrad_f32`, `csrc/fp32_train.cu`): the fp32
   weight-gradient GEMM of K5's and K6's fp32 forms, `wgrad_sm90`'s
-  contract in fp32 FMA, the rows split across blocks and the splits'
-  partials added in a fixed order (no atomics: the same bits every call).
+  contract in fp32 accuracy on the tensor cores (each product three TF32
+  passes over the operands' split halves, `csrc/tf32x3.cuh`), the rows
+  split across blocks and the splits' partials added in a fixed order (no
+  atomics: the same bits every call).
 On a CPU tensor each runs its plain twin (`*_ref`; `linear_f32`'s is
 `linear_sm90_ref` on fp32 operands, `wgrad_f32`'s `wgrad_sm90_ref`).
 `launch_counts` reads the library's own count of every GEMM launch, those
@@ -379,9 +381,10 @@ def colsum_f32(x: torch.Tensor) -> torch.Tensor:
 def wgrad_f32(a, b, a_map=None, b_map=None):
     """The fp32 weight-gradient GEMM on a: (R, M), b: (R, N) fp32 rows,
     each read through its (T, H, W, ws, shift) row map or None; returns
-    the (M, N) fp32 sum over r of a[a_rows(r)]^T b[b_rows(r)], in fp32 FMA
-    with r ascending within each split of the rows and the splits added in
-    order. M and N multiples of 4; R is ragged."""
+    the (M, N) fp32 sum over r of a[a_rows(r)]^T b[b_rows(r)], 3xTF32 on
+    the tensor cores with r ascending within each split of the rows (a 32-row
+    k tile at a time added to fp32 sums) and the splits added in order. M
+    and N multiples of 4; R is ragged."""
     if a.device.type == "cpu":
         return wgrad_sm90_ref(a, b, a_map, b_map)
     name = "wgrad_f32"

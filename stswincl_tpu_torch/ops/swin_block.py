@@ -76,8 +76,9 @@ ALIGN_SLACK = 1024   # the ring starts 1024-byte aligned
 CONSUMER_THREADS = 256  # two warpgroups; one producer warp beside them
 # the fp32 form: the fp32 GEMM tile's three-stage cp.async ring of 128 x 8
 # A and weight k tiles in rows padded to 12 floats (`F32Tile`,
-# `csrc/fp32_gemm.cuh`); one attention pair in the same region
+# `csrc/fp32_gemm.cuh`); the attention pairs in the same region
 F32_RING_BYTES = 3 * 2 * TILE_ROWS * 12 * 4
+F32_THREADS = 256  # the fp32 form's block: 8 warps, no producer warp
 PHASES = ("qkv", "attention", "proj", "ln2", "fc1", "fc2", "ln1")
 
 
@@ -172,9 +173,11 @@ def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
     kernels.require(TILE_ROWS % TN == 0,
                     f"{name}: windows of {TN} tokens do not tile "
                     f"{TILE_ROWS} rows")
-    # the fp32 form: one pair at a time, no TMA ring or mbarriers
+    # the fp32 form: groups of TN / 16 of its 8 warps, a pair each at a
+    # time, no TMA ring or mbarriers
     if f32:
-        pair, group, fixed = _attn_f32_smem_bytes(TN, hd), 1, 0
+        pair, fixed = _attn_f32_smem_bytes(TN, hd), 0
+        group = F32_THREADS // (TN // 16 * 32)
         ring = F32_RING_BYTES
     else:
         pair, fixed = _attn_smem_bytes(TN, hd), ALIGN_SLACK + BARRIER_BYTES

@@ -543,6 +543,38 @@ def test_window_attention_f32_forms(dev, gen, case, masked):
     assert f10.launches == n10 + 3
 
 
+@pytest.mark.parametrize("TN,hd", [(128, 128), (32, 256)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fp32_attention_core_walks_pairs_back_to_back(dev, gen, TN, hd,
+                                                      masked):
+    """The fp32 core's persistent blocks walk several (window, head) pairs
+    each, the next pair's q, k and v copied in while this pair's products
+    run: row 11's fp32 form at both stages' windows on about eight times
+    the pairs the card's SMs hold at once (the tests above give each block
+    one pair), qkv at std 2 and an N(0, 1) bias as phase 7 draws them, with
+    and without a mask of 0 / -100 entries over 4 windows: within F32_TOL
+    of the fp32 twin, the same bits twice."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    heads = 4
+    Bw = 8 * sms // heads * (2 if TN == 32 else 1)
+    q, k, v = (torch.randn((Bw, heads, TN, hd), generator=gen, device=dev)
+               * 2 for _ in range(3))
+    bias = torch.randn((heads, TN, TN), generator=gen, device=dev)
+    mask = None
+    if masked:
+        mask = (torch.rand((4, TN, TN), generator=gen, device=dev)
+                < 0.3).float() * -100.0
+    scale = hd ** -0.5
+    f11 = attention.fused_window_attention_f32
+    n = f11.launches
+    with torch.inference_mode():
+        got = attention.fused_window_attention(q, k, v, bias, mask, scale)
+        _close(got, attention.attend_tiled(q, k, v, bias, mask, scale),
+               tol=F32_TOL)
+        assert torch.equal(got, f11(q, k, v, bias, mask, scale))
+    assert f11.launches == n + 2
+
+
 @pytest.mark.parametrize("route", ["pallas", "pallas_windows", "whole_block"])
 def test_fp32_model_routes_run_the_fp32_forms(dev, route):
     """An fp32 TswinPlus at swin_dim 256 (head dims 64 and 128) on the
@@ -1799,7 +1831,7 @@ def test_trained_fp32_block_trains_at_head_dim_32(dev, gen):
                                         (1920, 384, 128, True)])
 def test_wgrad_f32_kernel(dev, gen, R, M, N, maps):
     """The fp32 weight-gradient GEMM against torch.matmul in fp32 (TF32
-    off): ragged R and tile edges, R split across blocks (50,000 rows: 6
+    off): ragged R and tile edges, R split across blocks (50,000 rows: 11
     splits), the operands read through the window partition with the
     shift; one launch a call in the library's count, and the same bits on
     a second call (no atomics)."""

@@ -163,9 +163,14 @@ def _launch_on_meta(monkeypatch):
         raise AssertionError(f"{name} asked for bf16 ({row})")
     monkeypatch.setattr(kernels, "require_bf16", no_bf16)
     monkeypatch.setattr(swin_block, "_slots", lambda *a: 132)
-    monkeypatch.setattr(swin_block, "_layout", lambda TN, hd, dtype: (
-        1, max(swin_block.F32_RING_BYTES,
-               attention._attn_f32_smem_bytes(TN, hd))))
+
+    def f32_layout(TN, hd, dtype):
+        """`stswin_whole_block_f32_layout`'s answer: as many attention
+        pairs as the 8 warps (TN / 16 a pair) and shared memory hold."""
+        pair = attention._attn_f32_smem_bytes(TN, hd)
+        group = min(256 // (TN * 2), kernels.SMEM_LIMIT // pair)
+        return group, max(swin_block.F32_RING_BYTES, group * pair)
+    monkeypatch.setattr(swin_block, "_layout", f32_layout)
     return entries
 
 
@@ -289,8 +294,10 @@ def test_fp32_offpath_rows_refuse_by_name(monkeypatch, row):
 
 def test_fp32_attention_shared_memory_plan():
     """The fp32 core holds q, k and v of a (window, head) in fp32 rows of
-    hd + 4: stage 1 (TN 128, hd 128) and stage 2 (TN 32, hd 256) fit one
-    block; a wider window or head dim is refused before any launch, as the
+    hd + 4, 4 mod 32 words for every admitted head dim (its tensor-core
+    fragment reads fall on distinct banks): stage 1 (TN 128, hd 128) and
+    stage 2 (TN 32, hd 256) fit one block, and so do (144, 128) and (176,
+    64); a wider window or head dim is refused before any launch, as the
     bf16 plan refuses its own."""
     plan = attention._attn_f32_smem_bytes
     assert plan(128, 128) == 3 * 128 * 132 * 4 <= kernels.SMEM_LIMIT

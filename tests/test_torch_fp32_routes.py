@@ -183,10 +183,11 @@ def test_whole_block_plan_fp32(case):
     """Row 16's fp32 plan at both stages' serving and training shapes and
     a ragged last tile: the bf16 plan's tiles and windows; every phase
     within SMEM_LIMIT, the product phases on the fp32 GEMM tile's ring and
-    the attention phase one pair of the fp32 core (198 KiB at stage 1,
-    TN 128 x hd 128: one block an SM; 98 KiB at stage 2); a workspace slot
-    of fp32 wide and narrow buffers, twice the bf16 plan's bytes, and the
-    same fp32 s."""
+    the attention phase as many pairs of the fp32 core at once as the 8
+    warps (TN / 16 a pair) and shared memory hold (one of 198 KiB at
+    stage 1, TN 128 x hd 128; two of 98 KiB at stage 2, TN 32 x hd 256;
+    four of 50 KiB at TN 32 x hd 128); a workspace slot of fp32 wide and
+    narrow buffers, twice the bf16 plan's bytes, and the same fp32 s."""
     B, T, H, W, C, hidden, heads, ws = SHAPES[case]
     f32 = wb.whole_block_plan(*SHAPES[case], torch.float32)
     bf = wb.whole_block_plan(*SHAPES[case])
@@ -196,12 +197,15 @@ def test_whole_block_plan_fp32(case):
     assert all(f32.tile_boxes(t) == bf.tile_boxes(t)
                for t in range(f32.tiles))
     TN, hd = T * ws * ws, C // heads
-    assert f32.attention_group == 1
+    assert f32.attention_group == {512: 1, 1024: 2, 256: 4}[C]
+    assert f32.attention_group <= 256 // (TN // 16 * 32)
     assert f32.pair_bytes == _attn_f32_smem_bytes(TN, hd)
-    assert f32.phase_smem["attention"] == f32.pair_bytes
+    assert (f32.phase_smem["attention"]
+            == f32.attention_group * f32.pair_bytes)
     assert all(f32.phase_smem[ph] == wb.F32_RING_BYTES == 36864
                for ph in wb.PHASES if ph != "attention")
-    assert f32.smem_bytes == max(f32.pair_bytes, wb.F32_RING_BYTES)
+    assert f32.smem_bytes == max(f32.attention_group * f32.pair_bytes,
+                                 wb.F32_RING_BYTES)
     assert f32.smem_bytes <= kernels.SMEM_LIMIT
     assert f32.pair_bytes == {512: 202752, 1024: 99840, 256: 50688}[C]
     assert f32.slot_bytes == {"wide": 2 * bf.slot_bytes["wide"],

@@ -1,0 +1,152 @@
+"""The numeric design of the fp32 kernels' tensor-core products, on the CPU.
+
+The fp32 attention core (`csrc/fp32_attention.cuh`: K1's fp32 form and
+those of Pallas rows 10, 11 and 16) and the fp32 weight-gradient GEMM
+(`wgrad_f32`, `csrc/fp32_train.cu`) run every product as three TF32
+products on the tensor cores (`csrc/tf32x3.cuh`): x = hi + lo with hi = x
+rounded to TF32 to nearest, ties away from zero (what `cvt.rna.tf32.f32`
+gives), and lo = x - hi, which the mma reads as TF32 by dropping its low
+13 bits; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi. Here that split is
+emulated in plain PyTorch (a product of two TF32 values is exact in fp32,
+so an fp32 matmul of the halves is what the mma sums) and applied to the
+attention contract and to a weight gradient: the 3xTF32 form stays within
+the fp32 bound the card's checks hold the kernels to
+(`chip_smoke.TOL_F32_REL`), and a single TF32 pass misses it tenfold.
+This records why three passes are fp32 enough and one is not; the card
+checks the kernels themselves.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from stswincl_tpu.ops import pallas_attention as jpa  # noqa: E402
+from stswincl_tpu.ops.window import shifted_window_attention_mask  # noqa: E402
+from stswincl_tpu_torch.ops import gemm  # noqa: E402
+from stswincl_tpu_torch.ops.attention import attend_tiled  # noqa: E402
+
+# `chip_smoke.TOL_F32_REL`: ||form - fp32 twin|| / ||fp32 twin|| on the card
+TOL_F32_REL = 2e-5
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x (fp32) rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: the magnitude bits plus half of the last kept bit, the low
+    13 bits cleared (`cvt.rna.tf32.f32`; a carry into the exponent is the
+    rounding up)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """x as an mma reads an fp32 register as TF32: the low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    """(hi, lo) as the kernels' `tf32x3::split` forms them, lo as the mma
+    reads it."""
+    hi = tf32(x)
+    return hi, tf32_truncated(x - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the kernels form it: three TF32 products summed in fp32,
+    the small terms first."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    d = al @ bh
+    d = d + ah @ bl
+    return d + ah @ bh
+
+
+def mm_1xtf32(a, b):
+    """a @ b in one TF32 pass: what the kernels would give on plain TF32."""
+    return tf32(a) @ tf32(b)
+
+
+def attend_with(mm, q, k, v, bias, mask, scale):
+    """`attend_tiled`'s contract (the scale after the product, + bias, +
+    the window's mask, max, exp, x 1 / sum) with both products by `mm`."""
+    Bw, heads, TN, _ = q.shape
+    s = mm(q, k.transpose(-1, -2)) * scale + bias[None]
+    if mask is not None and mask.shape[0] > 1:
+        nW = mask.shape[0]
+        s = (s.reshape(Bw // nW, nW, heads, TN, TN)
+             + mask[None, :, None]).reshape(Bw, heads, TN, TN)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return mm(e * (1.0 / e.sum(dim=-1, keepdim=True)), v)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The emulated hi (`cvt.rna.tf32.f32`): 10 mantissa bits kept, the
+    halfway case away from zero in both signs, the rest to nearest, within
+    2^-11 |x|; lo as the mma reads it within 2^-21 |x| of x - hi."""
+    one, ulp = 1.0, 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0, 2.0 ** -130],
+                     dtype=torch.float32)
+    want = [one + ulp, -(one + ulp), one, one + ulp, 3.0, 2.0 ** -130]
+    assert tf32(x).tolist() == want
+    r = torch.randn(10000, generator=torch.Generator().manual_seed(0)) * 7
+    hi, lo = split(r)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all((r - hi).abs() <= r.abs() * 2.0 ** -11)
+    assert torch.all((r - hi - lo).abs() <= r.abs() * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["w", "sw"])
+def test_attention_contract_on_3xtf32(masked):
+    """Both attention products on the split, at phase 7's draw (qkv at
+    std 2, the relative bias N(0, 1)) on two images of 6 windows of TN 32
+    (T 2, ws 4), hd 64: within TOL_F32_REL of the port's fp32 twin
+    (`attend_tiled`) and of the JAX row 11 interpreted on the CPU; one TF32
+    pass misses that tenfold against both."""
+    rng = np.random.default_rng(19)
+    Bw, heads, T, H, W, ws, hd = 12, 2, 2, 8, 12, 4, 64
+    TN = T * ws * ws
+    q, k, v = (rng.standard_normal((Bw, heads, TN, hd)).astype(np.float32)
+               * 2 for _ in range(3))
+    bias = rng.standard_normal((heads, TN, TN)).astype(np.float32)
+    mask = (np.tile(shifted_window_attention_mask(H, W, ws, ws // 2),
+                    (1, T, T)) if masked
+            else np.zeros((1, TN, TN), np.float32))
+    scale = hd ** -0.5
+    tq, tk, tv, tb, tm = map(torch.from_numpy, (q, k, v, bias, mask))
+    twin = attend_tiled(tq, tk, tv, tb, tm, scale)
+    jax_row11 = jpa.fused_window_attention(
+        *map(jnp.asarray, (q, k, v, bias, mask)), scale, True)
+    assert _rel(twin, jax_row11) <= TOL_F32_REL / 10
+    three = attend_with(mm_3xtf32, tq, tk, tv, tb, tm, scale)
+    one = attend_with(mm_1xtf32, tq, tk, tv, tb, tm, scale)
+    for want in (twin, jax_row11):
+        assert _rel(three, want) <= TOL_F32_REL
+        assert _rel(one, want) > 10 * TOL_F32_REL
+
+
+def test_weight_gradient_on_3xtf32():
+    """out = sum_r A[a_map(r)]^T B[b_map(r)] on the split, over R = 1863
+    rows (no multiple of the kernel's k tile of 16) read through the
+    window partition with and without the cyclic shift, M 72 and N 100
+    (off the 128-wide tiles): within TOL_F32_REL of the twin
+    `gemm.wgrad_sm90_ref`; one TF32 pass misses it tenfold."""
+    g = torch.Generator().manual_seed(19)
+    B, T, H, W, ws = 23, 1, 9, 9, 3
+    R, M, N = B * T * H * W, 72, 100
+    a, b = torch.randn(R, M, generator=g), torch.randn(R, N, generator=g)
+    a_map, b_map = (T, H, W, ws, 1), (T, H, W, ws, 0)
+    want = gemm.wgrad_sm90_ref(a, b, a_map, b_map)
+    ar = a[gemm.window_rows(R, a_map)]
+    br = b[gemm.window_rows(R, b_map)]
+    assert _rel(mm_3xtf32(ar.t(), br), want) <= TOL_F32_REL
+    assert _rel(mm_1xtf32(ar.t(), br), want) > 10 * TOL_F32_REL
