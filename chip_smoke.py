@@ -1834,7 +1834,7 @@ def main() -> None:
         "fused_layer_norm_f32": (
             "add_layernorm.cu", "stswincl_tpu/ops/pallas_layernorm.py:82 "
             "(fp32)"),
-        "conv3x3_bn_act_f32": ("fp32_offpath.cu",
+        "conv3x3_bn_act_f32": ("fp32_forms.cu",
                                "stswincl_tpu/ops/pallas_conv.py:132 (fp32)"),
     }
     rows = []
@@ -2991,8 +2991,11 @@ def phase_eval(dev, bf16, smi, wrappers, launches) -> dict:
 # tenfold; 1e-4 would let K2's and K3's miss by 7-8x only
 TOL_F32_REL = 2e-5
 # the least time of an fp32-accurate product on the card: the 3xTF32 split
-# on the tensor cores (three TF32 products at 494.7 TFLOP/s); PEAK_F32, the
-# CUDA cores' fp32 FMA, is the fp32 forms' own ceiling
+# on the tensor cores (three TF32 products at 494.7 TFLOP/s, the table's
+# dense rate; `tools/profile_mma_rate.py` measures the card's own wgmma
+# rate, which this script does not); PEAK_F32, the
+# CUDA cores' fp32 FMA, is the ceiling of the one fp32 product left there
+# (K5's attention backward)
 PEAK_3XTF32 = 494.7e12 / 3
 # (b) predict_next steps driven on each route; (b, c) the fp32 kernel route
 # against the fp32 plain route (`kernels=False`), share of equal pixels
@@ -3873,8 +3876,10 @@ def phase_fp32_offpath_kernels(dev, results, median_ms, wrappers) -> None:
     fp32 conv with the BN folded in, `cudnn_conv_bn_act`); PyTorch's chain
     of calls for rows 12 (F.linear -> F.gelu -> F.linear), 13 (the add,
     F.layer_norm and that chain) and 14 (the add and F.layer_norm),
-    recorded as yardsticks, not as one library call. Each case's tensors
-    are freed before the next."""
+    recorded as yardsticks, not as one library call. Row 17's k tiles
+    summed, as the kernel counts them on the card (`ops.conv.
+    k_tiles_summed`), must be those not wholly in the padding (`ops.conv.
+    live_k_tiles`). Each case's tensors are freed before the next."""
     import torch
     import torch.nn.functional as F
     from stswincl_tpu_torch.ops import add_layernorm as aln
@@ -4076,6 +4081,25 @@ def phase_fp32_offpath_kernels(dev, results, median_ms, wrappers) -> None:
                  lib=lambda: cudnn_conv_bn_act(x, w, scale, shift, d,
                                                residual=res),
                  forms={"conv_f32": 1})
+            # the k tiles the kernel summed in one more call, read back
+            # from the card, against those not wholly in the padding
+            conv_ops.k_tiles_summed(dev, reset=True)
+            conv_ops.conv3x3_bn_act(x, w, scale, shift, **kw)
+            summed = conv_ops.k_tiles_summed(dev, reset=True)
+            col_tiles = -(-cout // 128)
+            live = conv_ops.live_k_tiles(N, Hc, Wc, cin, d)
+            row = results["conv3x3_bn_act_f32"][-1]
+            row["k_tiles"] = live.numel() * col_tiles
+            row["k_tiles_skipped"] = row["k_tiles"] - summed
+            padding = int((~live).sum()) * col_tiles
+            print(f"  {'':22s} {name:34s} k tiles skipped "
+                  f"{row['k_tiles_skipped']} of {row['k_tiles']} "
+                  f"({row['k_tiles_skipped'] / row['k_tiles']:.3f}), counted"
+                  f" by the kernel; wholly in the padding {padding}",
+                  flush=True)
+            check(row["k_tiles_skipped"] == padding, f"conv3x3_bn_act_f32 "
+                  f"{name}: the kernel skipped {row['k_tiles_skipped']} k "
+                  f"tiles, {padding} lie wholly in the padding")
             del x, w, res, xb, wb, kwb
             torch.cuda.empty_cache()
 

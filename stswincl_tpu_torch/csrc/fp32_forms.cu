@@ -27,34 +27,59 @@
 // bf16 operands on the tensor cores; nothing of them is shared here but the
 // row map and the GELU of common.cuh.
 //
-// Bound on the H100. The GEMM products run as fp32 FMA on the CUDA cores,
-// whose peak is 67 TFLOP/s: K1's two products at the serving stage 1 (86
-// GFLOP) at least 1.28 ms, K2 (172 GFLOP) 2.57 ms, K3 (43 GFLOP) 0.64 ms.
-// The attention (rows 10 and 11 at stage 1, and K1's: 10.7 GFLOP, 336 MB
-// of q, k, v and output) runs on the tensor cores: the tensor cores have
-// no fp32 product and one TF32 pass rounds each operand to 10 mantissa
-// bits (relative error about 2^-11), which an fp32 model does not ask
-// for, so every product of the attention is a 3xTF32 split (tf32x3.cuh:
-// three TF32 products of the operands' high and low halves, fp32-accurate
-// at a third of the TF32 rate, 164.9 TFLOP/s): 0.065 ms of products
-// against 0.100 ms of bytes, so the attention is bounded by its bytes.
+// Bound on the H100. The tensor cores have no fp32 product and one TF32
+// pass rounds each operand to 10 mantissa bits (relative error about
+// 2^-11), which an fp32 model does not ask for, so every product here is a
+// 3xTF32 split (three TF32 products of the operands' high and low halves,
+// fp32-accurate at a third of the TF32 rate, 164.9 TFLOP/s; the attention's
+// on mma.sync, tf32x3.cuh, the GEMMs' on wgmma, fp32_gemm.cuh). The GEMMs:
+// K1's two products at the serving stage 1 (86 GFLOP) at least 0.52 ms,
+// K2 (172 GFLOP) 1.04 ms, K3 (43 GFLOP) 0.26 ms; fp32 FMA on the CUDA
+// cores (67 TFLOP/s) would need 2.5x that. The attention (rows 10 and 11
+// at stage 1, and K1's: 10.7 GFLOP, 336 MB of q, k, v and output): 0.065
+// ms of products against 0.100 ms of bytes, so it is bounded by its bytes.
 //
 // Design:
 //   - `gemm_f32`: C[c_map(m), n] = epilogue(sum_k A[a_map(m), k] Wt[n, k] +
-//     bias[n]), the products of all three. A 128 x 128 output tile a block
-//     of 256 threads, 8 x 8 sums a thread (rows ty + 16 i, columns tx +
-//     16 j), k tiles of 8 through a three-stage cp.async ring in shared
-//     memory (rows padded to 12 floats: a quarter warp's eight 16-byte
-//     reads of B fall on distinct banks, its reads of A on one address).
-//     A row is read through its RowMap (the window partition with the
-//     SW-MSA cyclic shift: K1's qkv gathers the unshifted clip, no rolled
-//     copy is formed), its index computed once for the whole k loop; C rows
-//     scatter through another (K1's proj back to the image layout). Each
-//     sum runs over k in order, in fp32. Epilogues (`F32Epi`,
-//     fp32_gemm.cuh): act(v) stored, v added into C (K2's residual s +
-//     MLP), K6's gelu(v) and gelu'(v) from one erf evaluation, and v times
-//     an aux matrix (K6's dh * gelu'). Ragged M and N are zero-filled on
-//     load and masked on store; K is a multiple of 4.
+//     bias[n]), the products of all three, on the tile of fp32_gemm.cuh
+//     (`f32t::ktile`: 3xTF32 on wgmma m64n128k8, A from registers, each
+//     k tile's sum from zero added to fp32 sums). One persistent kernel
+//     (`tile_f32_kernel`, also row 17's implicit GEMM, `conv_f32`), one
+//     block an SM (its 192 KiB ring) walking 128 x 128 output tiles,
+//     warp-specialised as the bf16 Hopper GEMM (gemm_sm90.cu):
+//       two consumer warpgroups, each on a 64-row half, do nothing but
+//       wait for a split k tile, issue its 12 wgmma, add its sum and free
+//       the stage. A warp that issues wgmma stalls until the tensor cores
+//       take them (the card measured about 1,100 cycles of a k tile's
+//       1,564 in the issue), so work in the same warps does not overlap
+//       the products;
+//       a producer warpgroup fills a four-stage ring of 32-deep k tiles
+//       and splits each Wt tile into hi (in place) and lo: Wt by 2-D
+//       TMA, 128-byte swizzled; A by 2-D TMA under the identity row map,
+//       else by cp.async through the row map into the same swizzle (K1's
+//       qkv gathers the shifted windows from the clip: no rolled copy is
+//       formed; one 4-D TMA box a whole window made K1's qkv 4-37 %
+//       slower than cp.async on an H100 at 700 W, so there is none). It
+//       splits k tile j, then starts k tile j + 3's loads into k tile j -
+//       1's stage once the consumers free it (`full`, `ready` and `empty`
+//       mbarriers a stage).
+//     At 384 threads ptxas holds a thread to 168 registers (at 288, with
+//     one producer warp, it did the same); a consumer keeps 64 sums, the
+//     k tile's 64 partials (dead outside the k tile: its first wgmma
+//     writes them) and 32 A fragment halves. The producer
+//     runs into the next tile while the consumers store the last; C rows
+//     scatter through the C row map (K1's proj back to the image layout).
+//     No split-K, no float atomics: two calls give the same bits.
+//     Epilogues (`F32Epi`, fp32_gemm.cuh), a kernel instance each (with
+//     every kind's code unrolled in one instance the epilogue took 17-22k
+//     cycles a tile on the card, about 5k of them its transposes; an
+//     instance each cut the K = 512 products' times by up to 14 %), from
+//     the accumulators after a transpose within each quad (8 consecutive
+//     columns of one row a lane, stored
+//     whole): act(v) stored, v added into C (K2's residual s + MLP), K6's
+//     gelu(v) and gelu'(v) from one erf evaluation, and v times an aux
+//     matrix (K6's dh * gelu'). Ragged M, N and K are zero-filled on load
+//     and masked on store; K is a multiple of 4.
 //   - the attention (`attn_f32_kernel`, the core `attn32::pairs` of
 //     fp32_attention.cuh): persistent blocks of TN / 16 warps, as many as
 //     the SMs hold (one at stage 1, whose pair of q, k and v in fp32 rows
@@ -89,62 +114,470 @@
 
 namespace {
 
-// ---- the fp32 GEMM ------------------------------------------------------
+// ---- the fp32 GEMM and row 17's implicit GEMM: one persistent kernel ----
 
 std::atomic<long long> f32_gemm_launches{0};
 
-__global__ void __launch_bounds__(F32_THREADS)
-    gemm_f32_kernel(const F32Gemm p) {
-  __shared__ __align__(16) F32Tile sm;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
-  const int lr = tid >> 1;  // the row of each tile this thread loads
-  const bool a_row = m0 + lr < p.M, b_row = n0 + lr < p.N;
-  float acc[8][8];
-  f32_tile_sums(sm, p.A + (a_row ? map_row(p.a_map, m0 + lr) : 0) * p.lda,
-                a_row, p.Wt + (long long)(b_row ? n0 + lr : 0) * p.K, b_row,
-                p.K, acc);
+// Row 17: the k tiles its consumers summed, over every (row tile, column
+// tile) of every launch since the last reset (`stswin_conv_f32_k_tiles`):
+// what the kernel did not skip, read back on the card.
+__device__ unsigned long long conv_k_tiles_summed;
 
+using f32t::BM;
+using f32t::BN;
+using f32t::BK;
+using f32t::NACC;
+using f32t::STAGE;
+using f32t::STAGES;
+using f32t::TILE;
+using sm90::cp_async_arrive;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::tma_load;
+
+// Two consumer warpgroups and one producer warpgroup: 384 threads, at
+// which ptxas holds a thread to 168 registers; a consumer's 64 sums, 64
+// k-tile partials and 32 A fragment halves fit.
+constexpr int THREADS = 384;
+constexpr int SMEM = 1024 + f32t::RING_BYTES + 3 * STAGES * 8;
+
+// How A arrives: one 2-D TMA box a stage (the identity row map), or
+// cp.async through the row map (or row 17's tap map).
+enum Gather { GATHER_NONE = 0, GATHER_ROWS = 1 };
+
+struct Maps {
+  CUtensorMap a, b;
+};
+
+// The kernel's instances: the GEMM's by epilogue (`F32Epi`), row 17's.
+constexpr int E_CONV = F32_DGELU + 1;
+
+struct Run {
+  F32Gemm g;  // the GEMM (CONV false)
+  F32Conv c;  // row 17 (CONV true)
+  int M, N, K;
+  int gather;
+  int vec;  // the epilogue may store 8 columns as two 16-byte stores
+};
+
+// Row 17: the taps of tile m0's pixels that reach into the image, a bit a
+// tap (one warp; every lane gets the mask). A k tile all of whose taps are
+// outside reads only the zero padding: it adds nothing and is skipped by
+// every role, decided once a tile.
+__device__ __forceinline__ uint32_t conv_live(const F32Conv& c, int M, int m0,
+                                              int lane) {
+  uint32_t bits = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= p.M) continue;
-    const long long crow = map_row(p.c_map, m) * p.ldc;
-    float* c = p.C + crow;
+  for (int i = 0; i < BM / 32; ++i) {
+    const int m = m0 + lane + 32 * i;
+    if (m < M) {
+      const int w = m % c.W, h = (m / c.W) % c.H;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < p.N) {
-        float v = acc[i][j] + (p.bias ? p.bias[n] : 0.0f);
-        if (p.epi == F32_RESID) {
-          c[n] += v;
-        } else if (p.epi == F32_GELU_GRAD) {
-          const float2 gg = gelu_and_grad(v, p.act);
-          c[n] = gg.x;
-          p.C2[crow + n] = gg.y;
-        } else if (p.epi == F32_DGELU) {
-          c[n] = v * p.aux[crow + n];
-        } else {
-          c[n] = activate(v, p.act);
-        }
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hh = h + c.d * (tap / 3 - 1), ww = w + c.d * (tap % 3 - 1);
+        if (hh >= 0 && hh < c.H && ww >= 0 && ww < c.W) bits |= 1u << tap;
       }
     }
   }
+  return __reduce_or_sync(0xffffffffu, bits);
+}
+
+// whether k tile kt (k in [32 kt, 32 kt + 32) of K = 9 Cin) reads a live tap
+__device__ __forceinline__ bool kt_live(uint32_t live, int kt, int Cin, int K) {
+  const int k0 = kt * BK, k1 = min(k0 + BK, K) - 1;
+  const int t0 = k0 / Cin, t1 = k1 / Cin;
+  return live & (((2u << t1) - 1) & ~((1u << t0) - 1));
+}
+
+// Position j of a block's walk over its (output tile, k tile) pairs: tiles
+// blockIdx.x, + gridDim.x, ...; each tile's k tiles in order, row 17's
+// dead ones skipped. Every warp walks alike (k tile j sits in stage j %
+// STAGES), so the loads, the splits and the sums agree on the sequence.
+struct Walk {
+  int tile, kt, j;
+  uint32_t live;  // row 17: the tile's live taps
+};
+
+template <bool CONV>
+__device__ __forceinline__ void step(Walk& w, const Run& r, int tiles,
+                                     int tiles_n, int KT) {
+  do {
+    if (++w.kt == KT) {
+      w.kt = 0;
+      w.tile += gridDim.x;
+      if (CONV && w.tile < tiles)
+        w.live = conv_live(r.c, r.M, (w.tile / tiles_n) * BM,
+                           threadIdx.x & 31);
+    }
+  } while (CONV && w.tile < tiles && !kt_live(w.live, w.kt, r.c.Cin, r.K));
+  ++w.j;
+}
+
+template <bool CONV>
+__device__ __forceinline__ Walk walk_start(const Run& r, int tiles,
+                                           int tiles_n, int KT) {
+  Walk w{static_cast<int>(blockIdx.x), -1, -1, 0};
+  if (CONV && w.tile < tiles)
+    w.live = conv_live(r.c, r.M, (w.tile / tiles_n) * BM, threadIdx.x & 31);
+  step<CONV>(w, r, tiles, tiles_n, KT);
+  return w;
+}
+
+// What a producer thread loads of its walk's current tile: A row `row`
+// (its source row, or row 17's pixel).
+struct Loader {
+  int tile, row;
+  long long src;  // row * lda, or row 17's image * H
+  int ph, pw;     // row 17's pixel
+  bool rok;
+};
+
+template <bool CONV>
+__device__ __forceinline__ void loader_tile(Loader& L, const Run& r, int tile,
+                                            int tiles_n) {
+  L.tile = tile;
+  const int m = (tile / tiles_n) * BM + L.row;
+  L.rok = m < r.M;
+  if (CONV) {
+    const int mm = L.rok ? m : 0;
+    L.pw = mm % r.c.W;
+    L.ph = (mm / r.c.W) % r.c.H;
+    L.src = (long long)(mm / (r.c.W * r.c.H)) * r.c.H;
+    return;
+  }
+  L.src = L.rok && r.gather != GATHER_NONE ? map_row(r.g.a_map, m) * r.g.lda
+                                           : 0;
+}
+
+// Start the loads of the walk's k tile into its stage, by the producer
+// warpgroup: its thread 0 issues the TMA boxes (Wt; A under the identity
+// map); where A goes row by row, each thread its row's
+// eight 16-byte chunks by cp.async (row 17: each chunk's tap and channel;
+// the padding and K's tail zero-filled), counted on the stage's `full`
+// barrier.
+template <bool CONV>
+__device__ __forceinline__ void load_ktile(const Walk& w, Loader& L,
+                                           const Run& r, const Maps& maps,
+                                           float* ring, uint64_t* full,
+                                           int tiles_n) {
+  if (L.tile != w.tile) loader_tile<CONV>(L, r, w.tile, tiles_n);
+  const int s = w.j % STAGES;
+  float* sa = ring + s * STAGE;
+  float* sb = sa + TILE;
+  const int m0 = (w.tile / tiles_n) * BM, n0 = (w.tile % tiles_n) * BN;
+  const int k0 = w.kt * BK;
+  const bool by_rows = CONV || r.gather != GATHER_NONE;
+  if (L.row == 0) {
+    mbar_expect_tx(&full[s], TILE * 4 * (by_rows ? 1 : 2));
+    tma_load(sb, &maps.b, k0, n0, &full[s]);
+    if (!by_rows) tma_load(sa, &maps.a, k0, m0, &full[s]);
+  }
+  if (by_rows) {
+    int tap = 0, ch = 0;
+    if (CONV) {
+      tap = k0 / r.c.Cin;
+      ch = k0 - tap * r.c.Cin;
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 4; ++c) {
+      const int k = k0 + 4 * c;
+      bool ok = L.rok && k < r.K;
+      const float* src;
+      if (CONV) {
+        const int hh = L.ph + r.c.d * (tap / 3 - 1);
+        const int ww = L.pw + r.c.d * (tap % 3 - 1);
+        ok = ok && hh >= 0 && hh < r.c.H && ww >= 0 && ww < r.c.W;
+        src = ok ? r.c.x + ((L.src + hh) * r.c.W + ww) * r.c.Cin + ch : r.c.x;
+        ch += 4;  // Cin % 4 == 0: the next chunk's tap and channel
+        while (ch >= r.c.Cin) {
+          ch -= r.c.Cin;
+          ++tap;
+        }
+      } else {
+        src = r.g.A + L.src + (ok ? k : 0);
+      }
+      cp_async16(sa + L.row * BK + (((c ^ L.row) & 7) << 2), src, ok);
+    }
+  }
+  if (CONV || r.gather != GATHER_NONE) cp_async_arrive(&full[s]);
+}
+
+// Two consumer warpgroups (warps 0-7), each on a 64-row half of the output
+// tile, then the producer warpgroup (warps 8-11). A k tile flows through a
+// stage's three mbarriers: `full` (its A and Wt landed), `ready` (the
+// producers split Wt into hi and lo), `empty` (the consumers' wgmma are done
+// with it). The producers split k tile j, then start the loads of k tile
+// j + 3 into k tile j - 1's stage once the consumers free it: the split of
+// the next k tile runs while the consumers sum this one.
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+    tile_f32_kernel(const __grid_constant__ Maps maps,
+                    const __grid_constant__ Run r) {
+  constexpr bool CONV = EPI == E_CONV;
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* ready = full + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int M = r.M, N = r.N;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * tiles_n;
+  const int KT = (r.K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // + each producer thread's cp.async
+      mbar_init(&full[s], CONV || r.gather != GATHER_NONE ? 1 + 128 : 1);
+      mbar_init(&ready[s], 128);
+      mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- the producer warpgroup ----
+    const int pt = threadIdx.x - 256;
+    Loader L;
+    L.tile = -1;
+    L.row = pt;
+    Walk lw = walk_start<CONV>(r, tiles, tiles_n, KT);  // the next to load
+    for (int p = 0; p < STAGES - 1 && lw.tile < tiles; ++p) {
+      load_ktile<CONV>(lw, L, r, maps, ring, full, tiles_n);
+      step<CONV>(lw, r, tiles, tiles_n, KT);
+    }
+    for (Walk sw = walk_start<CONV>(r, tiles, tiles_n, KT); sw.tile < tiles;
+         step<CONV>(sw, r, tiles, tiles_n, KT)) {
+      const int s = sw.j % STAGES;
+      mbar_wait(&full[s], (sw.j / STAGES) & 1);
+      float* st = ring + s * STAGE;
+      f32t::split_b(st + TILE, st + 2 * TILE, pt, 128);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&ready[s]);
+      if (lw.tile < tiles) {  // into k tile j - 1's stage, once it is free
+        if (lw.j >= STAGES)
+          mbar_wait(&empty[lw.j % STAGES], (lw.j / STAGES - 1) & 1);
+        load_ktile<CONV>(lw, L, r, maps, ring, full, tiles_n);
+        step<CONV>(lw, r, tiles, tiles_n, KT);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: wait, 12 wgmma, add, free the stage ----
+  const int wg = warp >> 2;
+  float sum[NACC], d[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) sum[i] = d[i] = 0.0f;
+  Walk cw = walk_start<CONV>(r, tiles, tiles_n, KT);
+  unsigned long long summed = 0;  // row 17: the tile's k tiles summed
+  while (cw.tile < tiles) {
+    const int s = cw.j % STAGES;
+    mbar_wait(&ready[s], (cw.j / STAGES) & 1);
+    const float* st = ring + s * STAGE;
+    const uint32_t sb = smem_u32(st + TILE);
+    f32t::ktile(sum, d, st + wg * 64 * BK, sb, sb + TILE * 4);
+    if (lane == 0) mbar_arrive(&empty[s]);
+    ++summed;
+    const int tile = cw.tile;
+    step<CONV>(cw, r, tiles, tiles_n, KT);
+    if (cw.tile == tile) continue;
+    // the tile's last k tile: the epilogue, while the producers split and
+    // load the next tile's
+    const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+    const int rbase = m0 + wg * 64;
+    if (CONV) {
+      if (threadIdx.x == 0) atomicAdd(&conv_k_tiles_summed, summed);
+      // the twin's order: sum * scale + shift, + residual, ReLU, each
+      // rounded as PyTorch rounds it
+      const F32Conv& c = r.c;
+      f32t::rows8(
+          sum, n0,
+          [&](int n, float v) {
+            return n < N ? __fadd_rn(__fmul_rn(v, c.scale[n]), c.shift[n])
+                         : 0.0f;
+          },
+          [&](int row, int n, const float(&o)[8]) {
+            const int m = rbase + row;
+            if (m >= M) return;
+            const long long at = (long long)m * N + n;
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = o[e];
+            if (r.vec && n + 8 <= N) {
+              if (c.res) {
+                float rv[8];
+                f32t::load8(c.res + at, rv);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], rv[e]);
+              }
+              if (c.relu)
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);
+              f32t::store8(c.out + at, v);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                if (n + e < N) {
+                  float x = v[e];
+                  if (c.res) x = __fadd_rn(x, c.res[at + e]);
+                  if (c.relu) x = fmaxf(x, 0.0f);
+                  c.out[at + e] = x;
+                }
+            }
+          });
+    } else {
+      const F32Gemm& p = r.g;
+      f32t::rows8(
+          sum, n0,
+          [&](int n, float v) {
+            return v + (p.bias && n < N ? p.bias[n] : 0.0f);
+          },
+          [&](int row, int n, const float(&o)[8]) {
+            const int m = rbase + row;
+            if (m >= M) return;
+            const long long crow = map_row(p.c_map, m) * p.ldc + n;
+            float* cp = p.C + crow;
+            if (r.vec && n + 8 <= N) {
+              float v[8];
+              if (EPI == F32_RESID) {
+                f32t::load8(cp, v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] += o[e];
+              } else if (EPI == F32_GELU_GRAD) {
+                float g2[8];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                  const float2 gg = gelu_and_grad(o[e], p.act);
+                  v[e] = gg.x;
+                  g2[e] = gg.y;
+                }
+                f32t::store8(p.C2 + crow, g2);
+              } else if (EPI == F32_DGELU) {
+                f32t::load8(p.aux + crow, v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = o[e] * v[e];
+              } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = activate(o[e], p.act);
+              }
+              f32t::store8(cp, v);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                if (n + e >= N) break;
+                if (EPI == F32_RESID) {
+                  cp[e] += o[e];
+                } else if (EPI == F32_GELU_GRAD) {
+                  const float2 gg = gelu_and_grad(o[e], p.act);
+                  cp[e] = gg.x;
+                  p.C2[crow + e] = gg.y;
+                } else if (EPI == F32_DGELU) {
+                  cp[e] = o[e] * p.aux[crow + e];
+                } else {
+                  cp[e] = activate(o[e], p.act);
+                }
+              }
+            }
+          });
+    }
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
+    summed = 0;
+  }
+}
+
+bool aligned16(const void* q) {
+  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+template <int EPI>
+cudaError_t launch_tile(const Maps& maps, const Run& r, cudaStream_t s) {
+  static bool ready[MAX_DEVICES] = {};  // the opt-in, once a device
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tile_f32_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  const int sms = sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
+  const long long tiles =
+      (long long)((r.M + BM - 1) / BM) * ((r.N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  tile_f32_kernel<EPI><<<grid, THREADS, SMEM, s>>>(maps, r);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s) {
   if (p.M < 0 || p.N <= 0 || p.K <= 0 || p.K % 4 || p.lda % 4 ||
-      p.epi < F32_ACT || p.epi > F32_DGELU ||
+      !aligned16(p.A) || !aligned16(p.Wt) || p.epi < F32_ACT ||
+      p.epi > F32_DGELU ||
       (p.epi == F32_GELU_GRAD && (!p.C2 || p.act == ACT_NONE)) ||
       (p.epi == F32_DGELU && !p.aux))
     return cudaErrorInvalidValue;
   if (p.M == 0) return cudaSuccess;
-  const dim3 grid((p.N + F32_BN - 1) / F32_BN, (p.M + F32_BM - 1) / F32_BM);
-  gemm_f32_kernel<<<grid, F32_THREADS, 0, s>>>(p);
+  Run r{};
+  r.g = p;
+  r.M = p.M;
+  r.N = p.N;
+  r.K = p.K;
+  r.vec = p.ldc % 4 == 0 && aligned16(p.C) && (!p.C2 || aligned16(p.C2)) &&
+          (!p.aux || aligned16(p.aux));
+  Maps maps;
+  if (!f32t::encode(&maps.b, p.Wt, p.N, p.K, p.K, BN))
+    return cudaErrorInvalidValue;
+  r.gather = p.a_map.mode ? GATHER_ROWS : GATHER_NONE;
+  if (r.gather == GATHER_ROWS)
+    maps.a = maps.b;  // unused: A goes by cp.async
+  else if (!f32t::encode(&maps.a, p.A, p.M, p.K, p.lda, BM))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (p.epi) {  // an instance an epilogue: each holds only its own code
+    case F32_RESID:
+      err = launch_tile<F32_RESID>(maps, r, s);
+      break;
+    case F32_GELU_GRAD:
+      err = launch_tile<F32_GELU_GRAD>(maps, r, s);
+      break;
+    case F32_DGELU:
+      err = launch_tile<F32_DGELU>(maps, r, s);
+      break;
+    default:
+      err = launch_tile<F32_ACT>(maps, r, s);
+  }
   f32_gemm_launches.fetch_add(1);
-  return cudaGetLastError();
+  return err;
+}
+
+cudaError_t conv_f32(const F32Conv& c, cudaStream_t s) {
+  if (c.N <= 0 || c.H <= 0 || c.W <= 0 || c.Cin <= 0 || c.Cin % 4 ||
+      c.Cout <= 0 || c.d < 1 || !aligned16(c.x) || !aligned16(c.wt))
+    return cudaErrorInvalidValue;
+  const long long M = (long long)c.N * c.H * c.W;
+  if (M > (1LL << 31) - BM || 9LL * c.Cin > (1LL << 30))
+    return cudaErrorInvalidValue;
+  Run r{};
+  r.c = c;
+  r.M = static_cast<int>(M);
+  r.N = c.Cout;
+  r.K = 9 * c.Cin;
+  r.vec = c.Cout % 4 == 0 && aligned16(c.out) && (!c.res || aligned16(c.res));
+  Maps maps;
+  if (!f32t::encode(&maps.b, c.wt, c.Cout, r.K, r.K, BN))
+    return cudaErrorInvalidValue;
+  maps.a = maps.b;
+  return launch_tile<E_CONV>(maps, r, s);
 }
 
 namespace {
@@ -535,4 +968,18 @@ extern "C" int stswin_gemm_f32_launches(long long* out, int reset) {
   out[1] = wgrad_f32_launches(reset);
   out[2] = conv_f32_launches(reset);
   return 0;
+}
+
+// Row 17's k tiles summed on the current device (a query, not a launch;
+// the caller synchronises first): *out the count since the last call with
+// `reset` set, which then sets it to 0.
+extern "C" int stswin_conv_f32_k_tiles(long long* out, int reset) {
+  unsigned long long n = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(&n, conv_k_tiles_summed, sizeof n);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(conv_k_tiles_summed, &zero, sizeof zero);
+  }
+  *out = static_cast<long long>(n);
+  return err;
 }

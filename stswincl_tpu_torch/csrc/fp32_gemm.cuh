@@ -1,13 +1,65 @@
-// The fp32 GEMM and the LN2 row pass of fp32_forms.cu, shared with the fp32
-// backward forms of fp32_train.cu and the fp32 forms of rows 12 and 13
-// (fp32_offpath.cu); the GEMM's 128 x 128 tile and K2's LayerNorm row,
-// shared with row 16's fp32 form (fp32_whole_block.cu); the tile, read
-// through a tap map, is row 17's fp32 form (fp32_offpath.cu).
+// The fp32 product tile: fp32-accurate products as 3xTF32 on Hopper's
+// tensor cores (wgmma), the one k-tile function every fp32 product of the
+// port outside the attention core and `wgrad_f32` sums k through: the fp32
+// GEMM of fp32_forms.cu (K1-K3, and the fp32 backward forms of
+// fp32_train.cu and rows 12 and 13 of fp32_offpath.cu through it), row
+// 17's fp32 implicit GEMM (`conv_f32`, on the GEMM's kernel) and row 16's
+// four product phases (fp32_whole_block.cu). Also the LN2 row pass of
+// fp32_forms.cu and K2's LayerNorm row, shared with row 16.
+//
+// Why 3xTF32 on wgmma. The tensor cores have no fp32 product, and one TF32
+// pass keeps 10 of an operand's 23 mantissa bits, which an fp32 model does
+// not ask for; fp32 FMA on the CUDA cores is bounded by their 67 TFLOP/s
+// and the FMA tile before this one reached 23-32. Split each operand x into
+// hi and lo = x - hi; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi is
+// fp32-accurate at a third of the TF32 rate: 494.7 / 3 = 164.9 TFLOP/s on
+// the H100 through wgmma (485.7 measured on the card, from shared memory
+// or with A from registers), against about 100 through mma.sync
+// (`tools/profile_mma_rate.py`).
+//
+// The k tile (`ktile`): 32 fp32 of k (128 bytes, one 128-byte swizzle span)
+// of a 128 x 128 output tile, two warpgroups on its 64-row halves, each
+// issuing 12 `wgmma.m64n128k8.f32.tf32.tf32`: a_lo b_hi over the four k8
+// steps (the first from zero), then a_hi b_lo, then a_hi b_hi, so the small
+// terms are summed first. The tensor cores' accumulation drops the bits
+// past its sum's last (a bias toward zero that drifts over a long chain:
+// 5.7e-5 against the 2e-5 bound over `wgrad_f32`'s 8,192-row chain on the
+// card), so each k tile's sum is formed from zero and added to a second
+// register set of fp32 sums, rounded to nearest: 64 + 64 accumulators a
+// thread.
+//
+// The split, route (a), shaped by shared memory's bandwidth: hi = x
+// rounded to TF32 to nearest and lo = x - hi rounded the same way
+// (`split_rn`). A's fragments are read from the swizzled stage a thread at
+// a time (conflict-free scalar loads) and split in registers, and the
+// wgmma reads A from registers; Wt's k tile, shared by both warpgroups,
+// is split once, hi in place and lo into a sibling buffer at the same
+// offsets (an elementwise pass keeps the swizzle). A k tile then moves
+// about 192 KiB through shared memory (the loads, Wt's split, A's
+// fragments, the wgmma's reads of Wt hi and lo): 1,536 cycles at 128
+// bytes a cycle, under the 1,564 its products take at the wgmma rate;
+// splitting both operands there moved 272 KiB and held the GEMM to 42-76
+// TFLOP/s. lo is rounded, not left to the wgmma's truncation, because a
+// sum of the step (phase 11 (e): two ranks' fp32 step against one
+// process's) sees every input move by ulps when the BatchNorm statistics
+// are summed in another order, and a truncated lo turns that into a
+// coarser, one-sided move of the products: on the card the gate read
+// 1.15-1.39 of its bound with lo truncated (1.07-1.37 with hi truncated
+// too), 0.80 rounded. No transposed or split copy of either operand
+// reaches device memory: both operands are K-major already (A's rows, the
+// torch Linear weight (N, K), row 17's tap-major weight (Cout, 9 Cin)).
+// Every caller calls `ktile` on the same k tiles, zero-filled past K, so
+// every caller sums k in the same order: row 16's fp32 form carries the
+// bits of the fp32 K1 + K2 pair.
+// `tests/test_torch_tf32x3.py` emulates this arithmetic in PyTorch.
 #pragma once
+
 #include "common.cuh"
+#include "sm90_tile.cuh"
 
 // C[c_map(m), n] = epilogue(sum_k A[a_map(m), k] Wt[n, k] + bias[n]), every
-// sum in fp32 FMA with k in order. Epilogues, v = the sum + bias:
+// sum fp32-accurate (3xTF32, `f32t::ktile`). Epilogues, v = the sum +
+// bias:
 //   F32_ACT        C = act(v);
 //   F32_RESID      C += v (K2's residual s + MLP);
 //   F32_GELU_GRAD  C = gelu(v), C2 = gelu'(v), one erf evaluation (act
@@ -32,12 +84,30 @@ struct F32Gemm {
   const float* aux;
 };
 
-// Requires K % 4 == 0 and lda % 4 == 0; M and N ragged.
+// Requires K % 4 == 0, lda % 4 == 0 and A, Wt 16-byte aligned; M and N
+// ragged.
 cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s);
 
 F32Gemm plain_gemm(const float* A, int lda, const float* Wt,
                    const float* bias, int M, int N, int K, float* C, int ldc,
                    int act);
+
+// Row 17's fp32 implicit GEMM on the GEMM's kernel: out[m, c] = relu?(
+// sum_k A[m, k] wt[c, k] * scale[c] + shift[c] (+ res[m, c])), m the NHWC
+// output pixel, k = tap * Cin + channel (tap = 3 ky + kx, the pixel at
+// (h + d (ky - 1), w + d (kx - 1)), zero in the padding). Cin % 4 == 0,
+// d >= 1, x and wt 16-byte aligned.
+struct F32Conv {
+  const float* x;      // (N, H, W, Cin)
+  const float* wt;     // (Cout, 9 Cin)
+  const float* scale;  // (Cout,)
+  const float* shift;  // (Cout,)
+  const float* res;    // (N, H, W, Cout) or null
+  float* out;          // (N, H, W, Cout)
+  int N, H, W, Cin, Cout, d, relu;
+};
+
+cudaError_t conv_f32(const F32Conv& c, cudaStream_t s);
 
 // K2's first row pass: s32 = x[r] + y[unshift(r)], out = LN2(s32), fp32,
 // one warp a row; C % 4 == 0.
@@ -62,108 +132,230 @@ __device__ __forceinline__ float sum4(float4 v) {
   return v.x + v.y + v.z + v.w;
 }
 
-// ---- the GEMM's tile: 128 x 128 outputs a block of 256 threads ----------
+namespace f32t {
 
-constexpr int F32_BM = 128, F32_BN = 128, F32_BK = 8;
-constexpr int F32_LD = F32_BK + 4;  // a shared row: 8 floats + 4 of padding
-constexpr int F32_STAGES = 3;
-constexpr int F32_THREADS = 256;
+constexpr int BM = 128, BN = 128, BK = 32;  // BK fp32: one 128-byte span
+constexpr int NACC = BN / 2;  // fp32 sums (and k-tile partials) a thread
+constexpr int TILE = BM * BK;  // floats of an A or B k tile (16 KiB)
+constexpr int STAGE = 3 * TILE;  // a ring stage: A, B (then its hi), B lo
+constexpr int STAGES = 4;
+constexpr int RING_BYTES = STAGES * STAGE * 4;  // 192 KiB, 1024-aligned
 
-// The tile's three-stage cp.async ring of A and Wt k tiles (36 KiB).
-struct F32Tile {
-  float a[F32_STAGES][F32_BM][F32_LD];
-  float b[F32_STAGES][F32_BN][F32_LD];
-};
+// d (64 x 128 fp32, the warpgroup's accumulator layout) = a b (the first
+// product of a k tile, its outputs only) or d += a b (`wgmma_tf32_add`):
+// a (64 x 8 tf32) from registers, a[0] row g col t, a[1] row g + 8 col t,
+// a[2] row g col t + 4, a[3] row g + 8 col t + 4 of the warp's 16 rows (g
+// = lane / 4, t = lane % 4); b (8 x 128 tf32) K-major in shared memory,
+// 128-byte swizzle, descriptor db.
+__device__ __forceinline__ void wgmma_tf32_set(float (&d)[NACC],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 0, "
+      "1, 1;\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
 
-// The A row a thread loads, k by k: `at(k, ok)` returns the address of
-// element k of the row (k < K, a multiple of 4) and sets `ok` false where
-// the 16-byte chunk there is to be zero-filled; the address is valid
-// either way. A plain row of K floats: element k at row + k.
-struct F32Row {
-  const float* row;
-  bool ok;
-  __device__ __forceinline__ const float* at(int k, bool& valid) const {
-    valid = ok;
-    return row + k;
+__device__ __forceinline__ void wgmma_tf32_add(float (&d)[NACC],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, "
+      "1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// x rounded to TF32 to nearest, ties away from zero (the magnitude bits
+// plus half of the last kept bit, the low 13 cleared), as a TF32 operand
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x -> (hi, lo): hi = x rounded to TF32, lo = x - hi (exact in fp32) rounded
+// to TF32 too, so that the wgmma reads both as they are. (The attention
+// core's `tf32x3::split` leaves lo to the wgmma, which truncates it: a
+// tiny change of an input then moves a product by up to lo's last TF32
+// bit, always the same way; here by half of it, either way.)
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
+}
+
+// B's k tile (128 rows of 32 floats, swizzled) split in place, `n`
+// threads from index `i`: hi (`split_rn`) over x, lo into `lo` at the same
+// offset (an elementwise pass keeps the swizzle). The caller orders the
+// writes before the wgmma reads (fence.proxy.async, then a barrier).
+__device__ __forceinline__ void split_b(float* x, float* lo, int i, int n) {
+  float4* xv = reinterpret_cast<float4*>(x);
+  float4* lv = reinterpret_cast<float4*>(lo);
+  for (int c = i; c < TILE / 4; c += n) {
+    const float4 v = xv[c];
+    uint32_t h[4], l[4];
+    split_rn(v.x, h[0], l[0]);
+    split_rn(v.y, h[1], l[1]);
+    split_rn(v.z, h[2], l[2]);
+    split_rn(v.w, h[3], l[3]);
+    xv[c] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                        __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lv[c] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                        __uint_as_float(l[2]), __uint_as_float(l[3]));
   }
-};
+}
 
-// acc[i][j] = sum_k A(ty + 16 i, k) Wt(tx + 16 j, k) for thread (tx, ty) =
-// (tid % 16, tid / 16) of the block's 256, k ascending, one fmaf a term,
-// through the ring in `sm`. Thread tid loads row tid / 2 of both tiles, the
-// 16-byte chunk at column (tid % 2) * 4: `a` reads that row of A through
-// its address functor (`F32Row`, or row 17's tap map, fp32_offpath.cu),
-// `b_row` points at the start of that row of Wt (rows of K floats, 16-byte
-// aligned), or, with `b_ok` false, at any valid address (the row is
-// zero-filled). K % 4 == 0. The caller meets the block before reusing
-// `sm`.
-template <class ARow>
-__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const ARow& a,
-                                              const float* b_row, bool b_ok,
-                                              int K, float (&acc)[8][8]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lr = tid >> 1, lc = (tid & 1) * 4;
-  const float* b_src = b_row + lc;
-  const int nk = (K + F32_BK - 1) / F32_BK;
-  auto load = [&](int stage, int kt) {
-    const int k = kt * F32_BK;
-    const bool kin = k + lc < K;  // K % 4 == 0: a chunk is whole or out
-    bool a_ok;
-    const float* a_src = a.at(kin ? k + lc : lc, a_ok);
-    cp_async16(&sm.a[stage][lr][lc], a_src, a_ok && kin);
-    cp_async16(&sm.b[stage][lr][lc], kin ? b_src + k : b_src, b_ok && kin);
-  };
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int s = 0; s < F32_STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// The k tile, by the calling warpgroup (all 128 threads): sum += A B^T over
+// 32 k, fp32-accurate. sa: the warpgroup's 64 rows of the stage's A (raw,
+// swizzled, 1024-byte aligned), read a fragment a thread (conflict-free
+// scalar loads) and split in registers; sb, sl: shared addresses of the
+// stage's B hi and B lo (`split_b`). 12 wgmma in one group: a_lo b_hi over
+// the four k8 steps (the first from zero), then a_hi b_lo, then a_hi b_hi,
+// so the small terms are summed first; then the k tile's sum is added to
+// the fp32 sums, rounded to nearest. d: the k tile's partial, scratch.
+// Returns with the wgmma done: the stage may be reused.
+__device__ __forceinline__ void ktile(float (&sum)[NACC], float (&d)[NACC],
+                                      const float* sa, uint32_t sb,
+                                      uint32_t sl) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const float* r0 = sa + (((threadIdx.x >> 5) & 3) * 16 + g) * BK + (lane & 3);
+  const float* r1 = r0 + 8 * BK;
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c0 = ((2 * kk) ^ g) << 2, c1 = ((2 * kk + 1) ^ g) << 2;
+    split_rn(r0[c0], hi[kk][0], lo[kk][0]);
+    split_rn(r1[c0], hi[kk][1], lo[kk][1]);
+    split_rn(r0[c1], hi[kk][2], lo[kk][2]);
+    split_rn(r1[c1], hi[kk][3], lo[kk][3]);
   }
+  sm90::wgmma_fence();
+  wgmma_tf32_set(d, lo[0], sm90::sw128_desc(sb));
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_tf32_add(d, lo[kk], sm90::sw128_desc(sb + kk * 32));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tf32_add(d, hi[kk], sm90::sw128_desc(sl + kk * 32));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tf32_add(d, hi[kk], sm90::sw128_desc(sb + kk * 32));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(d);
+  fence_frag(hi);
+  fence_frag(lo);
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) sum[i] += d[i];
+}
 
-  for (int kt = 0; kt < nk; ++kt) {
-    // tile kt has landed (this thread's copies); after the barrier every
-    // thread's have, and every thread is done with the stage refilled next
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // STAGES - 2
-    __syncthreads();
-    const int next = kt + F32_STAGES - 1;
-    if (next < nk) load(next % F32_STAGES, next);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int s = kt % F32_STAGES;
+// The warpgroup's 64 x 128 sums as runs of 8 columns: for each pair of
+// 8-column blocks, pre(n, v) maps the sum v of column n0 + n' (n' < 128;
+// the bias, the folded BatchNorm), then a transpose within each quad of
+// lanes leaves lane t 8 consecutive columns of one row, and out(row, n, o)
+// gets them: row the warpgroup row ((warp % 4) * 16 + lane / 4 + 8 (t /
+// 2)), n the first column, o[0..7]. Stored whole: stores of 4 and 8 bytes
+// from the accumulator layout cost the bf16 GEMM about 40 %.
+template <class Pre, class Out>
+__device__ __forceinline__ void rows8(const float (&sum)[NACC], int n0,
+                                      Pre pre, Out out) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) + 8 * (t >> 1);
 #pragma unroll
-    for (int kk = 0; kk < F32_BK; kk += 4) {
-      float4 a[8], b[8];
+  for (int jj = 0; jj < BN / 16; ++jj) {
+    uint32_t x[4], y[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&sm.a[s][ty + 16 * i][kk]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&sm.b[s][tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v = acc[i][j];
-          v = fmaf(a[i].x, b[j].x, v);
-          v = fmaf(a[i].y, b[j].y, v);
-          v = fmaf(a[i].z, b[j].z, v);
-          acc[i][j] = fmaf(a[i].w, b[j].w, v);
-        }
+    for (int w = 0; w < 4; ++w) {
+      const int j = 2 * jj + (w & 1), h = w >> 1, n = n0 + 8 * j + 2 * t;
+      x[w] = __float_as_uint(pre(n, sum[4 * j + 2 * h]));
+      y[w] = __float_as_uint(pre(n + 1, sum[4 * j + 2 * h + 1]));
     }
+    quad_transpose(x, t);
+    quad_transpose(y, t);
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[2 * e] = __uint_as_float(x[e]);
+      o[2 * e + 1] = __uint_as_float(y[e]);
+    }
+    out(row, n0 + 8 * (2 * jj + (t & 1)), o);
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The plain form: `a_row` points at the start of the A row this thread
-// loads, or, with `a_ok` false, at any valid address.
-__device__ __forceinline__ void f32_tile_sums(F32Tile& sm, const float* a_row,
-                                              bool a_ok, const float* b_row,
-                                              bool b_ok, int K,
-                                              float (&acc)[8][8]) {
-  f32_tile_sums(sm, F32Row{a_row, a_ok}, b_row, b_ok, K, acc);
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// ---- host side ----------------------------------------------------------
+
+// A (rows, cols) fp32 matrix of row stride ld (elements) as boxes of 32
+// columns x box_rows rows, 128-byte swizzled, zero-filled past its edges.
+inline bool encode(CUtensorMap* map, const float* base, int rows, int cols,
+                   long long ld, int box_rows) {
+  sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<float*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace f32t
 
 // The tail of K2's fp32 LayerNorm of one row of C (C % 4 == 0) by one
 // warp, lane l on columns 4l + 128i: `sum` is the lane's sum of its

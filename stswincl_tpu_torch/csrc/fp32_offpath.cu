@@ -14,10 +14,11 @@
 // Their bf16 forms (epilogue.cu, conv.cu) run bf16 operands on the tensor
 // cores; nothing of them is shared here.
 //
-// Bound on the H100: the products, fp32 FMA on the CUDA cores (67 TFLOP/s;
-// a single TF32 pass is not fp32): row 12 at (163840, 512) -> 2048, 687
-// GFLOP, at least 10.3 ms; row 17 at layer5 512 -> 512 on (4, 64, 80),
-// 96.6 GFLOP, 1.44 ms.
+// Bound on the H100: the products, fp32-accurate as 3xTF32 on the tensor
+// cores (164.9 TFLOP/s; a single TF32 pass is not fp32, fp32 FMA on the
+// CUDA cores peaks at 67): row 12 at (163840, 512) -> 2048, 687 GFLOP, at
+// least 4.2 ms; row 17 at layer5 512 -> 512 on (4, 64, 80), 96.6 GFLOP,
+// 0.59 ms.
 //
 // Design:
 //   - rows 12 and 13: fc1 with its GELU epilogue (the erf polynomial or
@@ -26,15 +27,25 @@
 //     x.dtype, here fp32: nothing is rounded). Row 13 first runs K2's fp32
 //     row pass (`ln_rows_add_f32`, shift 0): s = x + y written, LN(s) two
 //     pass into the scratch fc1 reads.
-//   - row 17: an implicit GEMM on the fp32 GEMM's tile. M = N*H*W output
-//     pixels, N = Cout, K = 9 Cin tap-major (k = tap * Cin + c, tap = 3 ky
+//   - row 17: an implicit GEMM on the fp32 GEMM's persistent kernel
+//     (`conv_f32`, fp32_forms.cu) and its tile (`f32t::ktile`,
+//     fp32_gemm.cuh: 3xTF32 on wgmma). M = N*H*W output pixels in NHWC
+//     order, N = Cout, K = 9 Cin tap-major (k = tap * Cin + c, tap = 3 ky
 //     + kx): w packed once by the wrapper into (Cout, 9 Cin), no channel
-//     padding. Cin is a multiple of 4, so the 4-float chunk a thread loads
-//     never crosses a tap: `TapRow` maps it to pixel (h + d (ky - 1), w +
-//     d (kx - 1)) of the same image, and a pixel in the padding is the
-//     cp.async zero fill (source size 0). The tile's `fmaf` order is the
-//     GEMM's, k ascending. Epilogue in the twin's order: acc * scale, +
-//     shift, + residual, ReLU, each rounded as PyTorch rounds it.
+//     padding, read by 2-D TMA. Cin is a multiple of 4, so a 16-byte chunk
+//     of a k tile never crosses a tap: the producer warpgroup (a pixel
+//     row a thread) maps each to pixel (h + d (ky - 1), w + d (kx - 1)) of
+//     the same image by cp.async, and a pixel in the padding is the
+//     cp.async zero fill (source size 0). A k tile whose taps lie in the
+//     padding for every pixel of the 128-pixel tile (a dilated tap off the
+//     image: at dilation 18 on a 32x40 map, a third of the k tiles) reads
+//     only zeros and adds nothing: producers and consumers skip it alike,
+//     decided once a tile from the tile's pixels (`conv_live`), so the
+//     sums keep their bits (`ops.conv.live_k_tiles` lists them; the
+//     consumers count the k tiles they sum, `ops.conv.k_tiles_summed`).
+//     Epilogue in the twin's order: acc * scale, + shift, + residual,
+//     ReLU, each rounded as PyTorch rounds it. Persistent blocks walk the
+//     tiles: no limit on the row tiles of a call.
 
 #include <atomic>
 
@@ -43,58 +54,6 @@
 namespace {
 
 std::atomic<long long> conv_f32_count{0};
-
-// Row k of the implicit GEMM's A for output pixel (n, h, w): channel c of
-// tap k / Cin at its dilated offset, or the zero fill in the padding.
-struct TapRow {
-  const float* x;
-  int n, h, w, H, W, Cin, d;
-  bool row_ok;
-  __device__ __forceinline__ const float* at(int k, bool& valid) const {
-    const int tap = k / Cin, c = k - tap * Cin;
-    const int ky = tap / 3, kx = tap - 3 * ky;
-    const int hh = h + d * (ky - 1), ww = w + d * (kx - 1);
-    valid = row_ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
-    return valid ? x + (((long long)n * H + hh) * W + ww) * Cin + c : x;
-  }
-};
-
-__global__ void __launch_bounds__(F32_THREADS)
-    conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift,
-                    const float* __restrict__ res, float* __restrict__ out,
-                    int N, int H, int W, int Cin, int Cout, int d, int relu) {
-  __shared__ __align__(16) F32Tile sm;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int M = N * H * W, K = 9 * Cin;
-  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
-  const int lr = tid >> 1;  // the row of each tile this thread loads
-  const int m = m0 + lr, b_n = n0 + lr;
-  const int pix = m < M ? m : 0;
-  const int w = pix % W, h = (pix / W) % H, n = pix / (W * H);
-  float acc[8][8];
-  f32_tile_sums(sm, TapRow{x, n, h, w, H, W, Cin, d, m < M},
-                wt + (long long)(b_n < Cout ? b_n : 0) * K, b_n < Cout, K,
-                acc);
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= M) continue;
-    const long long row = (long long)r * Cout;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < Cout) {
-        float v = __fadd_rn(__fmul_rn(acc[i][j], scale[c]), shift[c]);
-        if (res) v = __fadd_rn(v, res[row + c]);
-        if (relu) v = fmaxf(v, 0.0f);
-        out[row + c] = v;
-      }
-    }
-  }
-}
 
 }  // namespace
 
@@ -154,25 +113,21 @@ extern "C" int stswin_add_ln_mlp_f32(const void* x, const void* y,
 // Row 17 fp32. x (N, H, W, Cin) NHWC, wt (Cout, 9 Cin) tap-major (tap = 3
 // ky + kx, no channel padding), residual (N, H, W, Cout) or null, out (N,
 // H, W, Cout): fp32; scale, shift (Cout,) fp32. Cin a multiple of 4,
-// dilation >= 1, at most 65535 row tiles of 128 pixels.
+// dilation >= 1; x and wt 16-byte aligned.
 extern "C" int stswin_conv3x3_bn_act_f32(const void* x, const void* wt,
                                          const void* scale, const void* shift,
                                          const void* residual, void* out,
                                          int N, int H, int W, int Cin,
                                          int Cout, int dilation, int relu,
                                          void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 4 || Cout <= 0 ||
-      dilation < 1)
-    return cudaErrorInvalidValue;
-  const long long M = (long long)N * H * W;
-  const long long tiles = (M + F32_BM - 1) / F32_BM;
-  if (tiles > 65535 || 9LL * Cin > (1LL << 30)) return cudaErrorInvalidValue;
-  const dim3 grid((Cout + F32_BN - 1) / F32_BN, static_cast<unsigned>(tiles));
-  conv_f32_kernel<<<grid, F32_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt),
-      static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<const float*>(residual), static_cast<float*>(out), N, H, W,
-      Cin, Cout, dilation, relu);
-  conv_f32_count.fetch_add(1);
-  return cudaGetLastError();
+  const F32Conv c{static_cast<const float*>(x),
+                  static_cast<const float*>(wt),
+                  static_cast<const float*>(scale),
+                  static_cast<const float*>(shift),
+                  static_cast<const float*>(residual),
+                  static_cast<float*>(out),
+                  N, H, W, Cin, Cout, dilation, relu};
+  const cudaError_t err = conv_f32(c, static_cast<cudaStream_t>(stream));
+  if (err != cudaErrorInvalidValue) conv_f32_count.fetch_add(1);
+  return err;
 }

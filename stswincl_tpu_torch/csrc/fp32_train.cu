@@ -15,14 +15,15 @@
 // epilogue.cu) run bf16 operands on the tensor cores; nothing of them is
 // shared here but the row map and the GELU of common.cuh.
 //
-// Bound on the H100: the products. The fp32 GEMM's and the attention
-// backward's run as fp32 FMA on the CUDA cores (67 TFLOP/s), as in
-// fp32_forms.cu; the weight gradients (`wgrad_f32`) run on the tensor
-// cores as a 3xTF32 split (tf32x3.cuh: fp32-accurate at a third of the
-// TF32 rate, 164.9 TFLOP/s; one TF32 pass is not fp32). K5 at stage 1
-// (794 GFLOP, 344 of them weight gradients) at least 8.8 ms, K6 with m
-// recomputed (2,062 GFLOP, 687) 24.7 ms, K6 with m saved at stage 2
-// (1,718 GFLOP, 687) 19.6 ms. A weight gradient alone: K5's dwqkv at stage
+// Bound on the H100: the products. The fp32 GEMM's (`gemm_f32`, the tile
+// of fp32_gemm.cuh) and the weight gradients (`wgrad_f32`) run on the
+// tensor cores as a 3xTF32 split (tf32x3.cuh: fp32-accurate at a third of
+// the TF32 rate, 164.9 TFLOP/s; one TF32 pass is not fp32), the GEMM on
+// wgmma, `wgrad_f32` on mma.sync; K5's attention backward runs as fp32
+// FMA on the CUDA cores (67 TFLOP/s). K5 at stage 1 (794 GFLOP: 344 weight
+// gradients, 344 GEMM, 106 attention) at least 5.8 ms, K6 with m
+// recomputed (2,062 GFLOP, all products) 12.5 ms, K6 with m saved at stage
+// 2 (1,718 GFLOP) 10.4 ms. A weight gradient alone: K5's dwqkv at stage
 // 1, (163840, 1536)^T (163840, 512), 257.7 GFLOP, at least 1.56 ms.
 //
 // Every reduction is deterministic: no float atomics anywhere. A sum that

@@ -8,32 +8,32 @@
 // which loads x.dtype, accumulates in fp32 and stores x.dtype: in fp32 its
 // roundings (:88, :115, :122, :135, :138, m at :142) are the identity, so
 // this kernel computes the fp32 K1 + K2 pair (fp32_forms.cu) in one launch.
-// Every product sums k in the order of the fp32 GEMM (`f32_tile_sums`,
-// fp32_gemm.cuh), with its epilogue arithmetic; the attention is K1's fp32
-// core (`attn32::pairs`, fp32_attention.cuh); the LN passes are K2's fp32
-// row passes (`ln_row_f32`), s = x + y formed in proj's epilogue as K2's
-// first pass forms it and fc2 + bias added into s as K2's serving fc2 adds
-// it: so the output carries the bits of the fp32 pair. No TF32, no float
-// atomics: two calls give the same bits. The bf16 form (swin_block.cu)
-// runs bf16 operands on wgmma; nothing of it is shared here.
+// Every product runs on the fp32 GEMM's tile (`f32t::ktile`,
+// fp32_gemm.cuh: 3xTF32 on wgmma, each 32-deep k tile summed from zero and
+// added to fp32 sums) over the same k tiles as `gemm_f32`, with its
+// epilogue arithmetic; the attention is K1's fp32 core (`attn32::pairs`,
+// fp32_attention.cuh); the LN passes are K2's fp32 row passes
+// (`ln_row_f32`), s = x + y formed in proj's epilogue as K2's first pass
+// forms it and fc2 + bias added into s as K2's serving fc2 adds it: so the
+// output carries the bits of the fp32 pair. No float atomics: two calls
+// give the same bits. The bf16 form (swin_block.cu) runs bf16 operands on
+// wgmma; nothing of it is shared here but the sm90 building blocks.
 //
 // Bound on the H100: the products, 24 R C^2 + 4 R TN C flops for R token
-// rows (268 GFLOP at the stage-1 serving shape), the GEMMs' in fp32 FMA on
-// the CUDA cores (67 TFLOP/s), the attention's (11 GFLOP) as 3xTF32 on the
-// tensor cores (164.9 TFLOP/s): at least 3.9 ms; x and out are R C * 8
-// bytes.
+// rows (268 GFLOP at the stage-1 serving shape), every one fp32-accurate
+// as 3xTF32 on the tensor cores (164.9 TFLOP/s): at least 1.63 ms; x and
+// out are R C * 8 bytes.
 //
-// Design, simple and right first: persistent blocks of 256 threads, one a
-// workspace slot (`stswin_whole_block_f32_slots` sizes them from the
-// occupancy API), each owning a tile of TM = 128 token rows in window
-// order at a time (one stage-1 window of TN 128, or four stage-2 windows of
-// TN 32). Every phase is row-local or window-local, so blocks never wait
-// for each other and one launch covers the block call. Each tile runs
-// seven phases through the slot's fp32 workspace, the block meeting on its
-// barrier between them:
-//   1. qkv: the fp32 GEMM tile, A = x read through the window partition's
-//      row map (no partitioned copy), 3C / 128 column tiles -> wide (TM x
-//      3C);
+// Design, simple and right first: persistent blocks of 256 threads (two
+// warpgroups), one a workspace slot (`stswin_whole_block_f32_slots` sizes
+// them from the occupancy API), each owning a tile of TM = 128 token rows
+// in window order at a time (one stage-1 window of TN 128, or four stage-2
+// windows of TN 32). Every phase is row-local or window-local, so blocks
+// never wait for each other and one launch covers the block call. Each
+// tile runs seven phases through the slot's fp32 workspace, the block
+// meeting on its barrier between them:
+//   1. qkv: A = x read through the window partition's row map (no
+//      partitioned copy), 3C / 128 column tiles -> wide (TM x 3C);
 //   2. attention of each (window, head) of the tile by the fp32 core, as
 //      many pairs at once as the 8 warps (TN / 16 a pair) and shared
 //      memory hold: one of 198 KiB of q, k and v at stage 1 (TN 128), two
@@ -46,26 +46,44 @@
 //      row stride max(3C, hidden));
 //   6. fc2 with the bias, added into s;
 //   7. LN1(s), a warp a row, scattered back to the image layout.
-// Shared memory holds one phase at a time: the GEMM tile's ring (36 KiB)
-// or the attention pairs' q, k and v. The slot's workspace is 1.5 MiB at
-// stage 1 and 3 MiB at stage 2 (wide, narrow and s in fp32), reused tile
-// after tile. Device memory sees x read in phases 1 and 3 and the output
-// written once; the pair also writes y and every intermediate of the
-// epilogue for every row, and reads them back.
+// A product phase (`product`) is the GEMM tile without the GEMM kernel's
+// producer warpgroup: every thread copies its share of each A and Wt k
+// tile by cp.async into a four-stage ring in the 128-byte swizzle, the
+// block splits each landed Wt tile, hi in place and lo beside
+// (`f32t::split_b`), and
+// each warpgroup runs `ktile` on its 64 rows, then stores 8 consecutive
+// columns a lane.
+// Shared memory holds one phase at a time: the ring (192 KiB + 1 KiB of
+// alignment) or the attention pairs' q, k and v (198 KiB at stage 1). The
+// slot's workspace is 1.5 MiB at stage 1 and 3 MiB at stage 2 (wide,
+// narrow and s in fp32), reused tile after tile. Device memory sees x read
+// in phases 1 and 3 and the output written once; the pair also writes y
+// and every intermediate of the epilogue for every row, and reads them
+// back.
 
 #include "fp32_attention.cuh"
 #include "fp32_gemm.cuh"
 
 namespace {
 
-constexpr int TM = F32_BM;  // token rows a tile (whole windows)
-constexpr int THREADS = F32_THREADS;
-constexpr int SMEM_MAX = 232448;  // shared memory one block may use, sm_90
+using f32t::BK;
+using f32t::BN;
+using f32t::NACC;
+using f32t::STAGE;
+using f32t::STAGES;
+using f32t::TILE;
 
-// The dynamic shared memory of one block: the GEMM tile's ring in the
-// product phases, `group` attention pairs of `pair` bytes each in the
-// attention phase (as many as the block's warps, TN / 16 a pair, and
-// shared memory hold; 0 when one pair does not fit).
+constexpr int TM = f32t::BM;  // token rows a tile (whole windows)
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int SMEM_MAX = 232448;  // shared memory one block may use, sm_90
+// the product phases' ring: the fp32 GEMM tile's three stages of A and B
+// k tiles with their lo halves, 1024-byte aligned
+constexpr size_t RING = 1024 + f32t::RING_BYTES;
+
+// The dynamic shared memory of one block: the ring in the product phases,
+// `group` attention pairs of `pair` bytes each in the attention phase (as
+// many as the block's warps, TN / 16 a pair, and shared memory hold; 0
+// when one pair does not fit), in the same region.
 struct Layout {
   size_t pair, total;
   int group;
@@ -77,7 +95,7 @@ inline Layout whole_layout(int TN, int hd) {
   L.group = THREADS / (TN * 2);
   while (L.group > 0 && L.group * L.pair > SMEM_MAX) --L.group;
   const size_t pairs = L.group * L.pair;
-  L.total = pairs > sizeof(F32Tile) ? pairs : sizeof(F32Tile);
+  L.total = pairs > RING ? pairs : RING;
   return L;
 }
 
@@ -107,32 +125,66 @@ struct WholeF32 {
 };
 
 // One product phase of a tile: for each 128-wide column tile n0 of N
-// (N % 128 == 0) the tile's sums over K, then epi(r, n, v) with v = sum +
-// bias[n] for the tile rows r < valid. `a_row` is the start of the A row
-// this thread loads (row threadIdx.x / 2 of the tile), `a_ok` false for a
-// row past `valid` (zero-filled).
+// (N % 128 == 0) the tile's sums over K (K % 32 == 0) on the fp32 GEMM's
+// k tiles (`f32t::ktile`, as `gemm_f32` sums them), then epi(r, n, o)
+// with o[e] = sum + bias[n + e], 8 consecutive columns of tile row r <
+// valid. Every thread loads row threadIdx.x / 2 of the A and Wt k tiles
+// (half its 16-byte chunks) by cp.async into the swizzled ring; `a_row`
+// is the start of that A row, `a_ok` false for a row past `valid`
+// (zero-filled). Each landed Wt tile is split by the whole block, then
+// each warpgroup runs its 64 rows.
 template <class Epi>
-__device__ __forceinline__ void product(F32Tile& sm, const float* a_row,
+__device__ __forceinline__ void product(float* ring, const float* a_row,
                                         bool a_ok,
                                         const float* __restrict__ Wt, int N,
                                         int K, const float* __restrict__ bias,
                                         int valid, Epi epi) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lr = tid >> 1;
-  for (int n0 = 0; n0 < N; n0 += F32_BN) {
+  const int tid = threadIdx.x, lr = tid >> 1, c0 = (tid & 1) * 4;
+  const int wg = tid >> 7, KT = K / BK;
+  float sum[NACC], d[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) d[i] = 0.0f;
+  for (int n0 = 0; n0 < N; n0 += BN) {
     __syncthreads();  // the ring's last readers, and the phase before, done
-    float acc[8][8];
-    f32_tile_sums(sm, a_row, a_ok, Wt + (long long)(n0 + lr) * K, true, K,
-                  acc);
+    const float* b_row = Wt + (long long)(n0 + lr) * K;
+    auto load = [&](int s, int kt) {
+      float* sa = ring + s * STAGE;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= valid) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        epi(r, n, acc[i][j] + bias[n]);
+      for (int c = c0; c < c0 + 4; ++c) {
+        const int at = lr * BK + (((c ^ lr) & 7) << 2);
+        cp_async16(sa + at, a_row + kt * BK + 4 * c, a_ok);
+        cp_async16(sa + TILE + at, b_row + kt * BK + 4 * c);
       }
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < KT) load(s, s);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
+    for (int kt = 0; kt < KT; ++kt) {
+      // k tile kt has landed (this thread's copies); after the barrier every
+      // thread's have, and every warpgroup is done with the stage refilled
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+      __syncthreads();
+      const int next = kt + STAGES - 1;
+      if (next < KT) load(next % STAGES, next);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      float* st = ring + (kt % STAGES) * STAGE;
+      f32t::split_b(st + TILE, st + 2 * TILE, tid, THREADS);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const uint32_t sb = smem_u32(st + TILE);
+      f32t::ktile(sum, d, st + wg * 64 * BK, sb, sb + TILE * 4);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    f32t::rows8(
+        sum, n0, [&](int n, float v) { return v + bias[n]; },
+        [&](int row, int n, const float(&o)[8]) {
+          const int r = wg * 64 + row;
+          if (r < valid) epi(r, n, o);
+        });
   }
 }
 
@@ -158,7 +210,8 @@ template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
     whole_block_f32_kernel(const WholeF32 p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  F32Tile& sm = *reinterpret_cast<F32Tile*>(smem);
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
   float* attn_smem = reinterpret_cast<float*>(smem);  // the ring's, idle
   const int tid = threadIdx.x, lr = tid >> 1;
   const int C = p.C, TN = p.TN;
@@ -178,9 +231,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     // 1. qkv = x Wqkv + bqkv, (TM, 3C) in window order
     const float* x_row =
         p.x + (a_ok ? map_row(p.img, m0 + lr) : 0) * (long long)C;
-    product(sm, x_row, a_ok, p.wqkv, 3 * C, C, p.bqkv, valid,
-            [&](int r, int n, float v) {
-              wide[(long long)r * 3 * C + n] = v;
+    product(ring, x_row, a_ok, p.wqkv, 3 * C, C, p.bqkv, valid,
+            [&](int r, int n, const float(&o)[8]) {
+              f32t::store8(wide + (long long)r * 3 * C + n, o);
             });
 
     // 2. attention of each (window, head) of the tile -> (TM, C): group
@@ -193,10 +246,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                         1 + gi, p.bias, nullptr, 0, TN, p.hd, p.scale);
 
     // 3. s = x + (attn Wproj + bproj), x read back through the row map
-    product(sm, narrow + (long long)lr * C, a_ok, p.wproj, C, C, p.bproj,
-            valid, [&](int r, int n, float v) {
-              s32[(long long)r * C + n] =
-                  p.x[map_row(p.img, m0 + r) * C + n] + v;
+    product(ring, narrow + (long long)lr * C, a_ok, p.wproj, C, C, p.bproj,
+            valid, [&](int r, int n, const float(&o)[8]) {
+              float v[8];
+              f32t::load8(p.x + map_row(p.img, m0 + r) * C + n, v);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] += o[e];
+              f32t::store8(s32 + (long long)r * C + n, v);
             });
     __syncthreads();
 
@@ -204,15 +260,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     ln_rows(s32, C, p.s2, p.b2, p.eps, narrow, id, 0, valid);
 
     // 5. h = GELU(LN2(s) W1 + b1) -> wide, over qkv
-    product(sm, narrow + (long long)lr * C, a_ok, p.w1, p.hidden, C, p.b1,
-            valid, [&](int r, int n, float v) {
-              wide[(long long)r * p.wide + n] = activate(v, p.act);
+    product(ring, narrow + (long long)lr * C, a_ok, p.w1, p.hidden, C, p.b1,
+            valid, [&](int r, int n, const float(&o)[8]) {
+              float v[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] = activate(o[e], p.act);
+              f32t::store8(wide + (long long)r * p.wide + n, v);
             });
 
     // 6. s += h W2 + bw2: the fp32 MLP sum, unrounded
-    product(sm, wide + (long long)lr * p.wide, a_ok, p.w2, C, p.hidden,
-            p.bw2, valid,
-            [&](int r, int n, float v) { s32[(long long)r * C + n] += v; });
+    product(ring, wide + (long long)lr * p.wide, a_ok, p.w2, C, p.hidden,
+            p.bw2, valid, [&](int r, int n, const float(&o)[8]) {
+              float v[8];
+              f32t::load8(s32 + (long long)r * C + n, v);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] += o[e];
+              f32t::store8(s32 + (long long)r * C + n, v);
+            });
     __syncthreads();
 
     // 7. out = LN1(s + m), back to the image layout

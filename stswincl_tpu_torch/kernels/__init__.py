@@ -86,6 +86,8 @@ SIGNATURES = {
     "stswin_gemm_f32": [_P] * 6 + [_I] * 15 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_f32_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
+    # a query, not a launch: (long long* count, int reset), no stream
+    "stswin_conv_f32_k_tiles": [ctypes.POINTER(ctypes.c_longlong), _I],
     "stswin_block_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _I, _I,
                                                               _P],
     "stswin_block_epilogue_bwd_f32": [_P] * 24 + [_I] * 7 + [_F, _P],

@@ -22,6 +22,8 @@ torch layout that `ckpt/from_jax.py` maps the JAX HWIO kernel onto).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -120,6 +122,32 @@ def tap_rows(N: int, H: int, W: int, dilation: int, device=None):
     return torch.where(inside, rows, -1).reshape(-1, 9)
 
 
+F32_K_TILE = 32  # fp32 channels a k tile of the fp32 form (128 bytes)
+
+
+def live_k_tiles(N: int, H: int, W: int, cin: int, dilation: int,
+                 device=None):
+    """(row tiles, k tiles) bool: which k tiles of the fp32 form's implicit
+    GEMM (K = 9 Cin tap-major, 32 a k tile) each 128-pixel row tile runs.
+    A k tile all of whose taps lie in the zero padding for every pixel of
+    the tile (`tap_rows` -1) adds nothing to the sums, and the kernel
+    skips it (`kt_live`, `csrc/fp32_forms.cu`): the same for every column
+    tile of the output."""
+    rows = tap_rows(N, H, W, dilation, device)
+    M = rows.shape[0]
+    tiles = -(-M // TILE_ROWS)
+    live = torch.zeros((tiles * TILE_ROWS, 9), dtype=torch.bool,
+                       device=device)
+    live[:M] = rows >= 0
+    live = live.reshape(tiles, TILE_ROWS, 9).any(dim=1)  # (tiles, 9 taps)
+    K = 9 * cin
+    k0 = torch.arange(0, K, F32_K_TILE, device=device)
+    t0, t1 = k0 // cin, (torch.clamp(k0 + F32_K_TILE, max=K) - 1) // cin
+    taps = torch.arange(9, device=device)
+    span = (taps[None] >= t0[:, None]) & (taps[None] <= t1[:, None])
+    return (live[:, None, :] & span[None]).any(dim=2)
+
+
 def _check(name, x, w, scale, shift, dilation, residual):
     """What both forms take: `supports`, and scale, shift (Cout,) fp32 and
     the residual x's (N, H, W) at Cout, all on x's device."""
@@ -145,10 +173,12 @@ def conv3x3_bn_act_f32(x, w, scale, shift, *, dilation: int = 1,
     """Row 17's fp32 form (`stswin_conv3x3_bn_act_f32`,
     `csrc/fp32_offpath.cu`) on fp32 CUDA tensors, the arguments of
     `conv3x3_bn_act` with w in fp32: the implicit GEMM of the output
-    pixels against `pack_weights_f32(w)` on the fp32 GEMM's tile, x read
-    through the tap map (the padding zero-filled), then * scale + shift,
-    + residual, ReLU in the twin's order. Its one launch the library
-    counts as the GEMM form "conv_f32"."""
+    pixels against `pack_weights_f32(w)` on the fp32 GEMM's tile (3xTF32
+    on the tensor cores), x read through the tap map (the padding
+    zero-filled, the k tiles wholly in it skipped: `live_k_tiles`,
+    `k_tiles_summed`), then
+    * scale + shift, + residual, ReLU in the twin's order. Its one launch
+    the library counts as the GEMM form "conv_f32"."""
     name = "conv3x3_bn_act_f32"
     kernels.require(x.is_cuda, lambda: f"{name}: no kernel for device "
                     f"{x.device}")
@@ -169,6 +199,23 @@ def conv3x3_bn_act_f32(x, w, scale, shift, *, dilation: int = 1,
 
 
 conv3x3_bn_act_f32.launches = 0
+
+
+def k_tiles_summed(device, reset: bool = False) -> int:
+    """The k tiles row 17's fp32 form summed on `device` since the last
+    reset, over every (row tile, column tile) of its launches, counted by
+    the kernel itself (`stswin_conv_f32_k_tiles`): with `live_k_tiles`,
+    what it skipped. Synchronises the device; `reset` sets the count to 0
+    after reading."""
+    device = torch.device(device)
+    lib = kernels.load()
+    torch.cuda.synchronize(device)
+    kernels.use_device(device)
+    out = ctypes.c_longlong()
+    err = lib.stswin_conv_f32_k_tiles(ctypes.byref(out), int(reset))
+    if err != 0:
+        raise RuntimeError(f"stswin_conv_f32_k_tiles: CUDA error {err}")
+    return out.value
 
 
 def _kernel(x, w, scale, shift, dilation, relu, residual):

@@ -13,10 +13,11 @@ each form by itself so that its tests and its profile hold it against
 - `wgrad_sm90` (`stswin_wgrad_sm90`): the weight gradients A^T B of K5 and
   K6 over the token rows, each operand read through its row map;
 - `linear_f32` (`stswin_gemm_f32`, `csrc/fp32_forms.cu`): the fp32 GEMM of
-  the fp32 forms of K1-K3, K5 and K6, y = act(A @ Wt^T + bias) in fp32 FMA
-  on the CUDA cores, with `linear_sm90`'s row maps, stored or added into
-  C, and K6's two epilogues: fc1 writing h and gelu', dh times gelu' with
-  the column sums db1;
+  the fp32 forms of K1-K3, K5 and K6, y = act(A @ Wt^T + bias) in fp32
+  accuracy on the tensor cores (3xTF32 on wgmma, `csrc/fp32_gemm.cuh`),
+  with `linear_sm90`'s row maps, stored or added into C, and K6's two
+  epilogues: fc1 writing h and gelu', dh times gelu' with the column sums
+  db1;
 - `wgrad_f32` (`stswin_wgrad_f32`, `csrc/fp32_train.cu`): the fp32
   weight-gradient GEMM of K5's and K6's fp32 forms, `wgrad_sm90`'s
   contract in fp32 accuracy on the tensor cores (each product three TF32
@@ -196,7 +197,8 @@ def linear_f32(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
     "gelu_grad" (act 'erf' or 'tanh') returns (gelu(y), gelu'(y)), "dgelu"
     (act 'none', aux (M, N) fp32 in C's row layout) returns (y * aux, its
     fp32 column sums in a fixed order). K and the row strides multiples
-    of 4; every sum in fp32 FMA, k in order."""
+    of 4; every sum fp32-accurate (three TF32 products a 32-deep k tile,
+    added to fp32 sums), k tiles in order."""
     if a.device.type == "cpu":
         return linear_sm90_ref(a, wt, bias, act, a_map, c_map, out,
                                epi or ("bf16" if out is None

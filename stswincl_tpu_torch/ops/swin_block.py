@@ -74,10 +74,11 @@ RING_BYTES = 6 * 2 * TILE_ROWS * 64 * 2
 BARRIER_BYTES = 128  # the ring's full / empty mbarriers and `ready`
 ALIGN_SLACK = 1024   # the ring starts 1024-byte aligned
 CONSUMER_THREADS = 256  # two warpgroups; one producer warp beside them
-# the fp32 form: the fp32 GEMM tile's three-stage cp.async ring of 128 x 8
-# A and weight k tiles in rows padded to 12 floats (`F32Tile`,
-# `csrc/fp32_gemm.cuh`); the attention pairs in the same region
-F32_RING_BYTES = 3 * 2 * TILE_ROWS * 12 * 4
+# the fp32 form: the fp32 GEMM tile's four-stage ring of 128 x 32 fp32 k
+# tiles, A, the weight's (then its hi) and its lo a stage (`f32t::STAGE`,
+# `csrc/fp32_gemm.cuh`), 1024-byte aligned; the attention pairs in the
+# same region
+F32_RING_BYTES = ALIGN_SLACK + 4 * 3 * TILE_ROWS * 32 * 4
 F32_THREADS = 256  # the fp32 form's block: 8 warps, no producer warp
 PHASES = ("qkv", "attention", "proj", "ln2", "fc1", "fc2", "ln1")
 

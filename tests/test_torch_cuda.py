@@ -1344,6 +1344,25 @@ def test_offpath_fp32_forms(dev, gen, row, case):
         _close(a, w, tol=F32_TOL)
 
 
+@pytest.mark.parametrize("d", [1, 12, 18])
+def test_conv_f32_sums_only_the_live_k_tiles(dev, gen, d):
+    """Row 17's fp32 form sums, as the kernel counts on the card
+    (`conv.k_tiles_summed`), exactly the k tiles that are not wholly in
+    the zero padding (`conv.live_k_tiles`), on each column tile: at
+    dilation 12 and 18 on a 32x40 map it skips some, at 1 none."""
+    N, H, W, cin, cout = 2, 32, 40, 64, 200
+    r = _normal(dev, gen)
+    x, w = r(N, H, W, cin), r(cout, cin, 3, 3, k=(9 * cin) ** -0.5)
+    scale, shift = 0.5 + r(cout).abs(), 0.5 * r(cout)
+    conv.k_tiles_summed(dev, reset=True)
+    conv.conv3x3_bn_act_f32(x, w, scale, shift, dilation=d)
+    summed = conv.k_tiles_summed(dev, reset=True)
+    live = conv.live_k_tiles(N, H, W, cin, d)
+    col_tiles = -(-cout // 128)
+    assert summed == int(live.sum()) * col_tiles
+    assert (summed < live.numel() * col_tiles) == (d > 1)
+
+
 def test_offpath_fp32_modules_run_the_fp32_forms(dev, gen):
     """`Mlp(dtype=float32)` and `FusedLayerNorm` with `kernels=None` on an
     fp32 CUDA input launch the fp32 forms of rows 12 and 15 once a

@@ -166,7 +166,9 @@ def _launch_on_meta(monkeypatch):
 
     def f32_layout(TN, hd, dtype):
         """`stswin_whole_block_f32_layout`'s answer: as many attention
-        pairs as the 8 warps (TN / 16 a pair) and shared memory hold."""
+        pairs as the 8 warps (TN / 16 a pair) and shared memory hold, in
+        a region that also holds the product phases' ring (the fp32 GEMM
+        tile's four stages, `F32_RING_BYTES`)."""
         pair = attention._attn_f32_smem_bytes(TN, hd)
         group = min(256 // (TN * 2), kernels.SMEM_LIMIT // pair)
         return group, max(swin_block.F32_RING_BYTES, group * pair)

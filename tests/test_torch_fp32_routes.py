@@ -182,7 +182,9 @@ def test_fp32_route_serves_as_jax_tpu_routing(jax_routes, route):
 def test_whole_block_plan_fp32(case):
     """Row 16's fp32 plan at both stages' serving and training shapes and
     a ragged last tile: the bf16 plan's tiles and windows; every phase
-    within SMEM_LIMIT, the product phases on the fp32 GEMM tile's ring and
+    within SMEM_LIMIT, the product phases on the fp32 GEMM tile's ring
+    (four stages of 128 x 32 fp32 A, Wt and Wt-lo k tiles, 1024-byte
+    aligned: 197,632 bytes, under the attention pairs' at each shape here) and
     the attention phase as many pairs of the fp32 core at once as the 8
     warps (TN / 16 a pair) and shared memory hold (one of 198 KiB at
     stage 1, TN 128 x hd 128; two of 98 KiB at stage 2, TN 32 x hd 256;
@@ -202,7 +204,7 @@ def test_whole_block_plan_fp32(case):
     assert f32.pair_bytes == _attn_f32_smem_bytes(TN, hd)
     assert (f32.phase_smem["attention"]
             == f32.attention_group * f32.pair_bytes)
-    assert all(f32.phase_smem[ph] == wb.F32_RING_BYTES == 36864
+    assert all(f32.phase_smem[ph] == wb.F32_RING_BYTES == 197632
                for ph in wb.PHASES if ph != "attention")
     assert f32.smem_bytes == max(f32.attention_group * f32.pair_bytes,
                                  wb.F32_RING_BYTES)

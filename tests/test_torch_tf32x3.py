@@ -12,8 +12,15 @@ so an fp32 matmul of the halves is what the mma sums) and applied to the
 attention contract and to a weight gradient: the 3xTF32 form stays within
 the fp32 bound the card's checks hold the kernels to
 (`chip_smoke.TOL_F32_REL`), and a single TF32 pass misses it tenfold.
-This records why three passes are fp32 enough and one is not; the card
-checks the kernels themselves.
+The fp32 GEMM tile (`csrc/fp32_gemm.cuh`: the fp32 GEMM, row 17's fp32
+implicit GEMM and row 16's products) runs the split on wgmma with lo
+rounded to TF32 too (`split_rn`), each 32-deep k tile's three products
+summed from zero and added to fp32 sums (`mm_tile`); it is emulated on a
+GEMM and on row 17 at dilation 18 with the k tiles that read only the
+padding skipped, and against a split it did not take (hi the raw value,
+truncated as the tensor cores read it). This records why three
+passes are fp32 enough and one is not; the card checks the kernels
+themselves.
 """
 
 import numpy as np
@@ -90,7 +97,8 @@ def _rel(got, want):
 def test_tf32_rounding_is_to_nearest_ties_away():
     """The emulated hi (`cvt.rna.tf32.f32`): 10 mantissa bits kept, the
     halfway case away from zero in both signs, the rest to nearest, within
-    2^-11 |x|; lo as the mma reads it within 2^-21 |x| of x - hi."""
+    2^-11 |x|; lo as the mma reads it within 2^-21 |x| of x - hi, and the
+    fp32 GEMM tile's rounded lo within 2^-22 |x|."""
     one, ulp = 1.0, 2.0 ** -10
     x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
                       one + 3 * ulp / 4, 3.0, 2.0 ** -130],
@@ -103,6 +111,9 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
     assert torch.all((r - hi).abs() <= r.abs() * 2.0 ** -11)
     assert torch.all((r - hi - lo).abs() <= r.abs() * 2.0 ** -21)
+    hi, lo = split_rn(r)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all((r - hi - lo).abs() <= r.abs() * 2.0 ** -22)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["w", "sw"])
@@ -150,3 +161,144 @@ def test_weight_gradient_on_3xtf32():
     br = b[gemm.window_rows(R, b_map)]
     assert _rel(mm_3xtf32(ar.t(), br), want) <= TOL_F32_REL
     assert _rel(mm_1xtf32(ar.t(), br), want) > 10 * TOL_F32_REL
+
+
+# ---- the fp32 GEMM tile (`csrc/fp32_gemm.cuh`, `f32t::ktile`) ------------
+
+K_TILE = 32  # fp32 of k a k tile of the tile
+TILE_ROWS = 128
+
+
+def split_rn(x):
+    """(hi, lo) as the fp32 GEMM tile forms them (`f32t::split_rn`): hi = x
+    rounded to TF32, lo = x - hi rounded to TF32 as well."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def split_truncated(x):
+    """(hi, lo) with hi the raw value as the tensor cores read it (its low
+    13 bits dropped) and lo = x - hi, read the same way: the split the fp32
+    GEMM tile did not take."""
+    hi = tf32_truncated(x)
+    return hi, tf32_truncated(x - hi)
+
+
+def mm_tile(a, wt, live=None, split_fn=split_rn):
+    """a (M, K) @ wt (N, K)^T as the fp32 GEMM tile forms it: K cut into
+    32-deep k tiles, zero-filled past K; each k tile's three TF32 products
+    (`split_rn`) summed from zero, the small terms first, a_lo b_hi + a_hi
+    b_lo + a_hi b_hi; the k tile's sum
+    added to the fp32 sums, rounded to nearest. `live` (row tiles of 128,
+    k tiles) bool: a k tile that is not live for a row tile is skipped
+    (row 17's k tiles wholly in the padding)."""
+    M, K = a.shape
+    KT = -(-K // K_TILE)
+    pad = KT * K_TILE - K
+    (ah, al), (bh, bl) = (split_fn(torch.nn.functional.pad(t, (0, pad)))
+                          for t in (a, wt))
+    rows_tile = torch.arange(M) // TILE_ROWS
+    out = torch.zeros(M, wt.shape[0])
+    for kt in range(KT):
+        k = slice(kt * K_TILE, (kt + 1) * K_TILE)
+        t = al[:, k] @ bh[:, k].t()
+        t = t + ah[:, k] @ bl[:, k].t()
+        t = t + ah[:, k] @ bh[:, k].t()
+        if live is None:
+            out = out + t
+        else:
+            out = torch.where(live[rows_tile, kt][:, None], out + t, out)
+    return out
+
+
+def test_gemm_tile_on_3xtf32():
+    """The fp32 GEMM (`linear_f32`) as its tile sums: K 2048 (64 k tiles),
+    M 300 and N 200 (off the 128-wide tiles), the bias and the erf GELU of
+    its epilogue, against the fp32 twin `gemm.linear_sm90_ref`: within
+    TOL_F32_REL; one TF32 pass misses it tenfold; a K off the k tile (2044)
+    is the same sum as its zero-filled 2048."""
+    from stswincl_tpu_torch.ops.mlp import gelu
+    g = torch.Generator().manual_seed(20)
+    M, N, K = 300, 200, 2048
+    a = torch.randn(M, K, generator=g)
+    wt = torch.randn(N, K, generator=g) * K ** -0.5
+    bias = torch.randn(N, generator=g) * 0.1
+    want = gemm.linear_sm90_ref(a, wt, bias, "erf")
+    three = gelu(mm_tile(a, wt) + bias, True)
+    one = gelu(mm_1xtf32(a, wt.t()) + bias, True)
+    assert _rel(three, want) <= TOL_F32_REL
+    assert _rel(one, want) > 10 * TOL_F32_REL
+    cut = mm_tile(a[:, :2044].contiguous(), wt[:, :2044].contiguous())
+    padded = torch.nn.functional.pad
+    assert torch.equal(cut, mm_tile(padded(a[:, :2044], (0, 4)),
+                                    padded(wt[:, :2044], (0, 4))))
+
+
+def test_gemm_tile_rounded_hi_leaves_one_signed_sums_unbiased():
+    """Why the tile rounds hi: on products of one sign (a reduction over a
+    batch into a BatchNorm weight's gradient is one) a truncated hi
+    (`split_truncated`, the raw value the tensor cores would read)
+    shrinks every product, a_lo b_lo left out and lo truncated, so the
+    sums drift toward zero by about 3e-7 of their size, past the spread a
+    sum of independent roundings has; rounded, the error keeps no sign
+    and is half as large."""
+    g = torch.Generator().manual_seed(20)
+    M, N, K = 128, 128, 2048
+    a = torch.randn(M, K, generator=g).abs()
+    wt = torch.randn(N, K, generator=g).abs() * K ** -0.5
+    want = a.double() @ wt.double().t()
+
+    def drift(split_fn):
+        e = mm_tile(a, wt, split_fn=split_fn).double() - want
+        return (e.mean() / want.mean()).item(), _rel(e + want, want)
+    bias_round, rel_round = drift(split_rn)
+    bias_trunc, rel_trunc = drift(split_truncated)
+    assert bias_trunc < -1e-7 and abs(bias_round) < 1e-8
+    assert rel_round < rel_trunc / 2 < TOL_F32_REL
+
+
+@pytest.mark.parametrize("cin,res", [(32, False), (64, True), (36, False)],
+                         ids=["cin32", "cin64-res", "cin36"])
+def test_conv_tile_on_3xtf32_skips_the_padding(cin, res):
+    """Row 17's fp32 form as the tile sums it: the implicit GEMM of the
+    output pixels (`conv.tap_rows`) against the tap-major weight
+    (`conv.pack_weights_f32`) at dilation 18 on a 2 x 24 x 20 map, the k
+    tiles that read only the padding skipped (`conv.live_k_tiles`; at Cin
+    36 a k tile may span two taps), then * scale + shift, + residual, ReLU
+    in the twin's order: within TOL_F32_REL of the twin
+    `conv3x3_bn_act_ref`, bit-equal to the same sums with no k tile
+    skipped (a skipped k tile adds only zeros), and one TF32 pass misses
+    the bound tenfold on the conv itself (* scale + shift, before the
+    residual, which both forms add alike, dilutes it)."""
+    from stswincl_tpu_torch.ops import conv
+    g = torch.Generator().manual_seed(20)
+    N, H, W, cout, d = 2, 24, 20, 40, 18
+    x = torch.randn(N, H, W, cin, generator=g)
+    w = torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5
+    scale = 0.5 + torch.rand(cout, generator=g)
+    shift = torch.randn(cout, generator=g) * 0.5
+    resid = torch.randn(N, H, W, cout, generator=g) if res else None
+    want = conv.conv3x3_bn_act_ref(x, w, scale, shift, dilation=d,
+                                   residual=resid)
+    rows = conv.tap_rows(N, H, W, d)
+    xr = torch.cat([x.reshape(-1, cin), torch.zeros(1, cin)])
+    a = xr[rows].reshape(rows.shape[0], 9 * cin)  # -1: the zero row
+    wt = conv.pack_weights_f32(w)
+    live = conv.live_k_tiles(N, H, W, cin, d)
+    assert live.shape == (-(-N * H * W // TILE_ROWS), -(-9 * cin // K_TILE))
+    assert not live.all()
+
+    def epilogue(acc):
+        y = acc * scale + shift
+        if resid is not None:
+            y = y + resid.reshape(-1, cout)
+        return y.clamp_min(0.0).reshape(N, H, W, cout)
+
+    skipped = mm_tile(a, wt, live)
+    assert torch.equal(skipped, mm_tile(a, wt))
+    assert _rel(epilogue(skipped), want) <= TOL_F32_REL
+    bare = conv.conv3x3_bn_act_ref(x, w, scale, shift, dilation=d,
+                                   relu=False).reshape(-1, cout)
+    assert _rel(mm_tile(a, wt, live) * scale + shift, bare) <= TOL_F32_REL
+    assert (_rel(mm_1xtf32(a, wt.t()) * scale + shift, bare)
+            > 10 * TOL_F32_REL)
