@@ -328,6 +328,8 @@ import unittest.mock
 import warnings
 
 TOL_REL = 1e-2        # K1-K3: ||kernel - plain|| / ||plain||
+# (rows, C) of row 14's bf16 form off its warp-a-row widths (phase 2d)
+ROW14_WIDE_CASES = ((40960, 48), (40960, 96), (40960, 3072))
 TOL_K4_SHARE = 0.999  # K4: share of equal pixels
 TOL_K3_BWD_COS = 0.99  # K3's backward: each gradient's cosine to the fp32 twin
 TOL_STREAM_SHARE = 0.999  # streamed vs full-clip kernel route
@@ -1512,6 +1514,28 @@ def main() -> None:
                         (10 * R * C, 4 * R * C * 2 + 2 * C * 4, PEAK_F32),
                         device=True)
         del xt, yt, p13
+        torch.cuda.empty_cache()
+    # row 14 off the warp-a-row widths: C 48 and 96 (the JAX kernel's own
+    # tests) and 3072 (past 2048: the block-a-row kernel with y)
+    # (a generator of their own: the later phases' inputs stay as they were)
+    gen14 = torch.Generator(device=dev).manual_seed(14)
+    for R, C in ROW14_WIDE_CASES:
+        xt, yt = (torch.randn((R, C), generator=gen14, device=dev).to(bf16)
+                  for _ in range(2))
+        ln = (1.0 + 0.1 * torch.randn(C, generator=gen14, device=dev),
+              0.1 * torch.randn(C, generator=gen14, device=dev))
+        compare("add_layer_norm", f"({R}, {C}) norm only",
+                lambda: add_layer_norm(xt, yt, *ln, return_sum=False)[1],
+                lambda: add_layer_norm_ref(xt, yt, *ln, return_sum=False)[1],
+                (10 * R * C, 3 * R * C * 2 + 2 * C * 4, PEAK_F32),
+                device=True)
+        compare_outputs("add_layer_norm", f"({R}, {C}) with the sum",
+                        lambda: add_layer_norm(xt, yt, *ln),
+                        lambda: add_layer_norm_ref(xt, yt, *ln),
+                        ("sum", "norm"),
+                        (10 * R * C, 4 * R * C * 2 + 2 * C * 4, PEAK_F32),
+                        device=True)
+        del xt, yt, ln
         torch.cuda.empty_cache()
     print(f"phase 2d whole block, rows 13 and 14 vs plain: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3839,6 +3863,190 @@ def phase_fp32_train_kernels(dev, results, median_ms) -> None:
         check(bit, f"wgrad_f32 {case}: two calls differ")
 
 
+def attn_bwd_tf32(qkv, dattn, bias, mask, heads, scale, TN):
+    """The planted fault of K5 fp32's attention backward alone: the twin's
+    formulas (S = q k^T, P, dP = dO v^T, D = sum dP P, dS = P (dP - D), dq
+    = dS k, dk = dS^T q, dv = P^T dO, dbias the sum of dS over windows)
+    with every product's operands read as TF32 (`tf32`), a form that ran
+    its products in one TF32 pass. The operands are rounded here, not by
+    allowing cuBLAS TF32: it runs the small batched products of TN 32 x
+    hd 32 in fp32 even then. Returns (dqkv, dbias) as
+    `attn_bwd_f32_ref`."""
+    import torch
+    rows, C3 = qkv.shape
+    C = C3 // 3
+    hd, Bw = C // heads, rows // TN
+    q, k, v = (qkv.reshape(Bw, TN, 3, heads, hd).permute(2, 0, 3, 1, 4)
+               .unbind(0))
+    do = dattn.reshape(Bw, TN, heads, hd).permute(0, 2, 1, 3)
+
+    def mm(a, b):
+        return tf32(a) @ tf32(b)
+    s = mm(q, k.transpose(-1, -2)) * scale + bias[None]
+    if mask is not None and mask.shape[0] > 1:
+        nW = mask.shape[0]
+        s = (s.reshape(Bw // nW, nW, heads, TN, TN)
+             + mask[None, :, None]).reshape(Bw, heads, TN, TN)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    dp = mm(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    grads = (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+             mm(p.transpose(-1, -2), do))
+    dqkv = torch.stack(grads, 0).permute(1, 3, 0, 2, 4).reshape(rows, C3)
+    return dqkv, ds.sum(dim=0)
+
+
+def sdpa_bwd_yardstick(qkv, dattn, bias, mask, heads, scale, TN):
+    """The library yardstick of K5 fp32's attention backward: the backward
+    alone (a retained graph) of fp32 `F.scaled_dot_product_attention` on
+    PyTorch's memory-efficient backend, q, k, v (windows, heads, TN, hd)
+    and attn_mask = bias (+ the window's mask) broadcast to (windows,
+    heads, TN, TN), all four requiring grad. Returns the call, or the
+    reason the backend refuses it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rows, C3 = qkv.shape
+    C = C3 // 3
+    hd, Bw = C // heads, rows // TN
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.detach().reshape(Bw, TN, 3, heads, hd)
+               .permute(2, 0, 3, 1, 4).unbind(0))
+    am = bias[None].expand(Bw, heads, TN, TN)
+    if mask is not None and mask.shape[0] > 1:
+        am = am + mask[torch.arange(Bw, device=mask.device)
+                       % mask.shape[0]][:, None]
+    am = am.contiguous().requires_grad_()
+    do = dattn.reshape(Bw, TN, heads, hd).permute(0, 2, 1, 3).contiguous()
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                 scale=scale)
+            torch.autograd.grad(out, (q, k, v, am), do, retain_graph=True)
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:160]}"
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.autograd.grad(out, (q, k, v, am), do,
+                                       retain_graph=True)
+    return call
+
+
+def phase_fp32_attn_bwd(dev, results, median_ms) -> None:
+    """Phase 7 (a): K5 fp32's attention backward alone
+    (`ops.block_attention.attn_bwd_f32`, the passes between dattn and dx)
+    at every case of F32_TRAIN_CASES and F32_HD32_CASES, on K1 fp32's
+    window-order qkv and dattn = the window-gathered g @ wproj, as K5
+    forms them: dq, dk, dv and dbias within TOL_F32_REL of the twin
+    (`attn_bwd_f32_ref`, TF32 off), the twin on TF32 operands
+    (`attn_bwd_tf32`) missing the bound tenfold, bit-equal call to call,
+    one launch of the helper a call
+    and none of K5. Timed beside K5's fp32 form on the same inputs, the
+    twin and the library yardstick (`sdpa_bwd_yardstick`, its kernel
+    named); the bound: 5 products of 2 TN^2 hd a (window, head) over the
+    3xTF32 rate, or each input read and each output written once."""
+    import torch
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops.gemm import window_rows
+    from stswincl_tpu_torch.ops.window import shifted_window_attention_mask
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def uniform(*shape, fan_in, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5)
+
+    heads, T = 4, 2
+    for label, n, C, h, w, ws in F32_TRAIN_CASES + F32_HD32_CASES:
+        TN, R, shift = T * ws * ws, n * T * h * w, ws // 2
+        hd, scale = C // heads, (C // heads) ** -0.5
+        x, g = randn(n, T, h, w, C), randn(n, T, h, w, C)
+        wq, bq = uniform(3 * C, C, fan_in=C, gain=3.0), uniform(3 * C,
+                                                               fan_in=C)
+        wp, bp = uniform(C, C, fan_in=C, gain=2.0), uniform(C, fan_in=C)
+        bias = randn(heads, TN, TN)
+        mask = torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, shift)).repeat(1, T, T).to(dev)
+        with torch.no_grad():
+            _, qkv, attn = att._forward_f32(x, wq, bq, wp, bp, bias, mask,
+                                            heads, scale, ws, shift)
+            dattn = g.reshape(R, C)[window_rows(R, (T, h, w, ws, 0),
+                                                dev)] @ wp
+        case = f"{label} TN {TN} hd {hd} ({R}, {C}) shift={shift}"
+        args = (qkv, dattn, bias, mask, heads, scale, TN)
+        n0, k5 = att.attn_bwd_f32.launches, att.swin_block_attention_bwd_f32
+        k0 = k5.launches
+        got = att.attn_bwd_f32(*args)
+        again = att.attn_bwd_f32(*args)
+        torch.cuda.synchronize()
+        check(att.attn_bwd_f32.launches == n0 + 2 and k5.launches == k0,
+              f"attn_bwd_f32 {case}: {att.attn_bwd_f32.launches - n0} "
+              f"launches of the helper and {k5.launches - k0} of K5 in two "
+              "calls")
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(bit, f"attn_bwd_f32 {case}: two calls on the same inputs "
+              "differ")
+        del again
+        want = att.attn_bwd_f32_ref(*args)
+        bad = attn_bwd_tf32(*args)
+
+        def outputs(r):
+            return {"dq": r[0][:, :C], "dk": r[0][:, C:2 * C],
+                    "dv": r[0][:, 2 * C:], "dbias": r[1]}
+        outs, worst = {}, 0.0
+        for name, a in outputs(got).items():
+            wt, bd = outputs(want)[name], outputs(bad)[name]
+            rel, moved = rel_err(a, wt), rel_err(bd, wt)
+            outs[name] = {"rel_err": rel, "tf32_fault": moved,
+                          "max_abs_err": (a - wt).abs().max().item()}
+            worst = max(worst, rel / TOL_F32_REL)
+            check(rel <= TOL_F32_REL, f"attn_bwd_f32 {case} {name}: "
+                  f"relative error {rel} > {TOL_F32_REL}")
+            check(moved > 10 * TOL_F32_REL, f"attn_bwd_f32 {case} {name}: "
+                  f"the twin on TF32 operands moves by only {moved}")
+        del got, want, bad
+        torch.cuda.empty_cache()
+        lib = sdpa_bwd_yardstick(*args)
+        k5_args = (x, g, qkv, attn, wq, wp, bias, mask, heads, scale, ws,
+                   shift)
+        row = {"case": case, "outputs": outs, "bit_equal": bit,
+               "max_abs_err": max(o["max_abs_err"] for o in outs.values()),
+               "rel_err": max(o["rel_err"] for o in outs.values()),
+               "ms": median_ms(lambda: att.attn_bwd_f32(*args), reps=10),
+               "k5_ms": median_ms(lambda: k5(*k5_args), reps=5),
+               "plain_ms": median_ms(lambda: att.attn_bwd_f32_ref(*args),
+                                     reps=3),
+               "library_ms": None if isinstance(lib, str)
+               else median_ms(lib, reps=5),
+               "library_kernel": lib if isinstance(lib, str)
+               else top_cuda_kernel(lib),
+               **f32_bound(10 * R * TN * C,
+                           (7 * R * C + 2 * heads * TN * TN + mask.numel())
+                           * 4)}
+        results.setdefault("attn_bwd_f32", []).append(row)
+        print(f"  {'attn_bwd_f32':28s} {case:52s} worst rel / bound "
+              f"{worst:.3f}, bit-equal {bit}; {row['ms']:.3f} ms (K5 fp32 "
+              f"{row['k5_ms']:.2f} ms) twin {row['plain_ms']:.2f} ms "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / row['ms']:.3f} of it) SDPA backward "
+              + (f"{row['library_ms']:.3f} ms" if row["library_ms"]
+                 is not None else "none")
+              + f" [{row['library_kernel']}]", flush=True)
+        print(f"  {'':28s} {rate_line(row, 10 * R * TN * C)}", flush=True)
+        for name, o in outs.items():
+            print(f"  {'':28s} {name:8s} rel {o['rel_err']:.3e} TF32 fault "
+                  f"{o['tf32_fault']:.3e} "
+                  f"({o['tf32_fault'] / TOL_F32_REL:.1f}x the bound)",
+                  flush=True)
+        del x, g, qkv, attn, dattn, lib, args, k5_args
+        torch.cuda.empty_cache()
+
+
 # (a) the fp32 forms of the rows on no model path, at phase 2e's shapes:
 # row 12 (and row 13 on the same x) at the batch-8 block shapes, rows 14
 # and 15 at the layer-norm profiler's and, for row 15, at C 100 (a block a
@@ -4766,6 +4974,7 @@ def phase_fp32(dev, smi, wrappers, launches, results, median_ms) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_fp32_train_kernels(dev, results, median_ms)
+    phase_fp32_attn_bwd(dev, results, median_ms)
     print(f"phase 7 (a) the fp32 training forms against their twins: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -6495,8 +6704,10 @@ P11_FAULTS = {
     "key_local": "the key pass's BatchNorms on their rank's statistics"}
 
 
-def p11_seg_batch():
-    """Phase 4's seeded batch 8 (`seeded_batch`), each clip tinted by a
+def p11_seg_batch(seed: int = P11_SEG_SEED):
+    """Phase 4's seeded batch 8 (`seeded_batch`; another batch with
+    another `seed`, as `route_gate_seeds.py --fp32-parallel` draws them),
+    each clip tinted by a
     colour of its own, with 85 % of the 64x64 blocks of the first four
     clips (rank 0's half) ignored: the halves then differ in valid and
     hard pixel counts about sixfold. The tint keeps the step
@@ -6504,8 +6715,8 @@ def p11_seg_batch():
     same colour, and the ASPP image-pool BatchNorm (one value a clip and
     channel) divides bf16 rounding by a near-zero variance."""
     import numpy as np
-    images, labels = seeded_batch(8, seed=P11_SEG_SEED)
-    rng = np.random.default_rng(P11_SEG_SEED + 100)
+    images, labels = seeded_batch(8, seed=seed)
+    rng = np.random.default_rng(seed + 100)
     drop = rng.random((4, H // 64, W // 64)) < 0.85
     labels[:4][np.repeat(np.repeat(drop, 64, axis=1), 64, axis=2)] = -1
     tint = rng.uniform(-1.0, 1.0, (8, 1, 1, 1, 3))
@@ -6636,12 +6847,14 @@ def p11_stats(*named_modules) -> dict:
             if n.endswith(("running_mean", "running_var"))}
 
 
-def p11_rank(rank, world, port, tmp, stage):
+def p11_rank(rank, world, port, tmp, stage, seed=P11_SEG_SEED,
+             only=None):
     """A rank of (b) (`stage` "seg") or (c) ("contrast") on cuda:0 over
-    gloo: its shard of the global batch, one step of each variant from
-    the seeded weights; writes its results (and, where the gate needs
-    them, its gradients) under `tmp`. Any exception fails the rank, and
-    the phase with it."""
+    gloo: its shard of the global batch (stage 1: of `seed`'s), one step
+    of each variant (or of the variants in `only`) from the seeded
+    weights; writes its results (and, where the gate needs them, its
+    gradients) under `tmp`. Any exception fails the rank, and the phase
+    with it."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -6669,7 +6882,7 @@ def p11_rank(rank, world, port, tmp, stage):
     wrappers = kernel_wrappers()
     bf16 = torch.bfloat16
     if stage.startswith("seg"):
-        images, labels = p11_seg_batch()
+        images, labels = p11_seg_batch(seed)
         batch = shard_batch({"x": images, "y": labels})
         x = torch.from_numpy(batch["x"]).to(dev)
         y = torch.from_numpy(batch["y"]).to(dev).long()
@@ -6682,6 +6895,8 @@ def p11_rank(rank, world, port, tmp, stage):
         x = torch.from_numpy(batch["x"]).to(dev)
         y = torch.from_numpy(batch["y"]).to(dev).long()
         variants = P11_CONTRAST_VARIANTS
+    if only is not None:
+        variants = [v for v in variants if v in only]
     try:
         for variant in variants:
             if stage.startswith("seg"):
@@ -6755,7 +6970,7 @@ def p11_rank(rank, world, port, tmp, stage):
     torch.save(out, os.path.join(tmp, f"{stage}_rank{rank}.pt"))
 
 
-def p11_spawn(stage, tmp) -> list:
+def p11_spawn(stage, tmp, seed=P11_SEG_SEED, only=None) -> list:
     """Run `p11_rank` in P11_RANKS processes on cuda:0 and return each
     rank's results; a rank that fails raises here."""
     import socket
@@ -6765,14 +6980,16 @@ def p11_spawn(stage, tmp) -> list:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    mp.start_processes(p11_rank, args=(P11_RANKS, port, tmp, stage),
+    mp.start_processes(p11_rank, args=(P11_RANKS, port, tmp, stage, seed,
+                                       only),
                        nprocs=P11_RANKS, start_method="spawn")
     return [torch.load(os.path.join(tmp, f"{stage}_rank{r}.pt"),
                        weights_only=False) for r in range(P11_RANKS)]
 
 
-def p11_one_process(stage, dev, bf16):
-    """The one-process step of `stage` on the whole global batch: the
+def p11_one_process(stage, dev, bf16, seed=P11_SEG_SEED):
+    """The one-process step of `stage` on the whole global batch (stage
+    1: `seed`'s): the
     reference, the same again, and a control on the input scaled by
     1 + e n for each e of P11_PERTURBS (fp32: P11_F32_PERTURBS, and the
     batch in reverse order, the same sums in another order); (loss,
@@ -6784,7 +7001,7 @@ def p11_one_process(stage, dev, bf16):
     from stswincl_tpu_torch.train import train_contrast as tc
     from stswincl_tpu_torch.train.train_seg import make_seg_train_step
     if stage.startswith("seg"):
-        images, labels = p11_seg_batch()
+        images, labels = p11_seg_batch(seed)
     else:
         images, labels = p11_contrast_batch()
     perturbs = P11_PERTURBS
@@ -6941,18 +7158,23 @@ def p11_gates(tag, res, grads, ref, controls, zero_grad, again=None,
     return ratios, noisy
 
 
-def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
+def p11_hold(stage, outs, tmp, runs, zero_grad, variants,
+             label="") -> dict:
     """The gates of (b) or (c) on each variant: the sound step within
     every bound and its ranks equal to the bit; each planted fault at
     least ten times over a gate of the loss, a statistic or a
-    well-conditioned gradient (the unreduced one: its ranks part)."""
+    well-conditioned gradient (the unreduced one: its ranks part).
+    `label` is added to each printed tag. Returns, by variant, the worst
+    gate and the worst norm gate (each (key, ratio)) and how far the
+    ranks' parameters part."""
     import torch
+    read = {}
     for variant in variants:
         grads = torch.load(os.path.join(tmp, f"{stage}_{variant}.pt"),
                            weights_only=True)
         rank = 1 if variant == "unreduced" else 0
         res = outs[rank][variant]
-        tag = f"{p11_tag(stage)} [{variant}]"
+        tag = f"{p11_tag(stage)}{label} [{variant}]"
         fp32 = stage == "seg_fp32"
         ratios, noisy = p11_gates(
             tag, res, grads, runs[0], runs[2:], zero_grad,
@@ -6961,6 +7183,11 @@ def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
         worst = max(((k, v) for k, v in ratios.items() if k not in noisy),
                     key=lambda kv: kv[1])
         parted = [o[variant]["parted"] for o in outs]
+        norm = max(((k, v) for k, v in ratios.items()
+                    if k.startswith("norm ") and k not in noisy),
+                   key=lambda kv: kv[1], default=("-", 0.0))
+        read[variant] = {"worst": worst, "worst_norm": norm,
+                         "parted": parted}
         if variant == "sound":
             for k, v in ratios.items():
                 check(v <= 1.0, f"{tag}: {k} at {v:.3f} of its bound")
@@ -6969,9 +7196,6 @@ def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
             check(len({o[variant]["loss"] for o in outs}) == 1,
                   f"{tag}: the ranks' losses differ")
         else:
-            norm = max(((k, v) for k, v in ratios.items()
-                        if k.startswith("norm ") and k not in noisy),
-                       key=lambda kv: kv[1])
             print(f"  {tag} planted fault, {P11_FAULTS[variant]}: the "
                   f"worst gate at {worst[1]:.1f} of its bound ({worst[0]}),"
                   f" the worst norm gate at {norm[1]:.1f} ({norm[0]}); "
@@ -6987,6 +7211,7 @@ def p11_hold(stage, outs, tmp, runs, zero_grad, variants) -> None:
             if variant == "unreduced":
                 check(min(parted) > 0.0, f"{tag}: the ranks did not part")
         del grads
+    return read
 
 
 def p11_tag(stage) -> str:

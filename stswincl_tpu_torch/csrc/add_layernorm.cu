@@ -29,8 +29,8 @@
 // The element type is a template parameter: bf16 (one 16-byte load of 8
 // values) or fp32 (two), the arithmetic the same fp32, so the fp32 forms
 // of rows 14 and 15 are these kernels' fp32 instances and the bf16
-// instances keep their code. In fp32 row 14 takes any C too: past 2048
-// channels or off 8 it runs the block-a-row kernel below with y.
+// instances keep their code. Row 14 takes any C too, in both forms: past
+// 2048 channels or off 8 it runs the block-a-row kernel below with y.
 
 #include "common.cuh"
 
@@ -358,17 +358,16 @@ cudaError_t ln_any_width(const void* x, const void* y, const void* g,
 
 }  // namespace
 
-// x, y, out, sum_out (or null): (rows, C) bf16, C a multiple of 256 up to
-// 2048; scale, bias (C,) fp32, 16-byte aligned (float4 loads).
+// Row 14. x, y, out, sum_out (or null): (rows, C) bf16, any C > 0, as
+// row 15's bf16 form: a warp a row for C a multiple of 8 up to 2048 (and
+// every pointer 16-byte aligned), else the wide-row kernel with y; scale,
+// bias (C,) fp32.
 extern "C" int stswin_add_layer_norm(const void* x, const void* y,
                                      const void* scale, const void* bias,
                                      void* sum_out, void* out, int R, int C,
                                      float eps, void* stream) {
-  if (C % 256 || C > MAX_CHUNKS * 256 || R <= 0 || !aligned16(scale) ||
-      !aligned16(bias))
-    return cudaErrorInvalidValue;
-  return add_ln<bf16, true>(x, y, scale, bias, sum_out, out, R, C, eps,
-                            stream);
+  return ln_any_width<bf16, true>(x, y, scale, bias, sum_out, out, R, C, eps,
+                                  stream);
 }
 
 // Row 15. x, out: (rows, C) bf16, any C > 0: a warp a row for C a multiple

@@ -19,8 +19,8 @@
 // of fp32_gemm.cuh) and the weight gradients (`wgrad_f32`) run on the
 // tensor cores as a 3xTF32 split (tf32x3.cuh: fp32-accurate at a third of
 // the TF32 rate, 164.9 TFLOP/s; one TF32 pass is not fp32), the GEMM on
-// wgmma, `wgrad_f32` on mma.sync; K5's attention backward runs as fp32
-// FMA on the CUDA cores (67 TFLOP/s). K5 at stage 1 (794 GFLOP: 344 weight
+// wgmma, `wgrad_f32` and K5's attention backward (fp32_attention_bwd.cuh)
+// on mma.sync. K5 at stage 1 (794 GFLOP: 344 weight
 // gradients, 344 GEMM, 106 attention) at least 5.8 ms, K6 with m
 // recomputed (2,062 GFLOP, all products) 12.5 ms, K6 with m saved at stage
 // 2 (1,718 GFLOP) 10.4 ms. A weight gradient alone: K5's dwqkv at stage
@@ -54,30 +54,16 @@
 //     writing its partial; `sum_parts` adds them in order.
 //   - `colsum_f32`: the bias gradients, the column sums of a row matrix:
 //     a thread a column over 1,024 rows, then the partials in order.
-//   - K5's attention backward, two launches a call, one (window, head) at
-//     a time in a block of 256 threads, every value fp32 (P and dS
-//     unrounded), the forward's softmax contract (the scale after the
-//     product, + bias, + the window's mask for SW-MSA, max, exp, x 1 /
-//     sum, `pallas_block_attention.py:470-494`):
-//       a. the query pass (`attn_bwd_q_f32_kernel`): a block holds k and v
-//          of the window and q and dO of a 64-row query block (202,752
-//          bytes at stage 1, TN 128 x hd 128: one block an SM), forms the
-//          scores, P and dP = dO V^T in registers, D = sum_j dP P (the
-//          twin's row-sum term), dS = P (dP - D), and dQ = dS K * scale
-//          (dS through shared memory over q); writes each row's max, 1 /
-//          sum and D. The blocks are persistent over a run of windows of
-//          one head and query block, and keep their dS sums, the relative
-//          bias's gradient, in registers; each writes its partial table
-//          once, and `sum_parts` adds the tables in order;
-//       b. the key pass (`attn_bwd_kv_f32_kernel`): a block holds k and v
-//          of a 64-key block and streams q and dO in 64-row chunks,
-//          recomputing P from the saved max and 1 / sum (the same products
-//          in the same order: the same bits as pass a) and dS from D; P
-//          and dS go to shared memory transposed, and dV = P^T dO and dK =
-//          dS^T Q * scale sum in registers.
-//     The fp32 q, k, v and dO of a whole (window, head) at stage 1 take 270
-//     KB, past the 227 KB a block may use; each pass holds at most half
-//     the queries or keys (`attn_bwd_f32_smem`).
+//   - K5's attention backward (fp32_attention_bwd.cuh, which says how):
+//     a query pass (dq, each query row's max, 1 / sum and D, per-block
+//     dbias partials), `sum_parts` of the partials, a key pass (dk, dv),
+//     every product 3xTF32 on mma.sync, P and dS fp32 in registers, the
+//     forward's softmax contract (the scale after the product, + bias, +
+//     the window's mask for SW-MSA, max, exp, x 1 / sum,
+//     `pallas_block_attention.py:470-494`). The fp32 q, k, v and dO of a
+//     whole (window, head) at stage 1 take 270 KB, past the 227 KB a block
+//     may use: the query pass holds k and v and each warp's own q, then
+//     dO; the key pass k and v and a ring of q and dO chunks.
 //   - K5 (`stswin_block_attention_bwd_f32`), bf16 K5's plan in fp32:
 //     dattn = g @ wproj (g gathered by the window partition), the two
 //     passes, dx = dqkv @ wqkv scattered back through the shift map,
@@ -96,6 +82,7 @@
 
 #include <atomic>
 
+#include "fp32_attention_bwd.cuh"
 #include "fp32_gemm.cuh"
 #include "tf32x3.cuh"
 
@@ -110,7 +97,6 @@ constexpr int WAVE = 132;  // weight-gradient blocks the H100 holds at once
 constexpr int CS_ROWS = 1024;
 constexpr int RW = 8;             // warps a row-pass block
 constexpr int ROW_BLOCKS = 1024;  // the row passes' grid, at most
-constexpr int ATTN_BLOCKS = 132;  // the query pass's persistent blocks
 
 // The ranges R is split in for an (M, N) output: of 1 .. min(32, R /
 // 2048), the count whose blocks (128 x 128 tiles times splits, one an SM)
@@ -405,373 +391,7 @@ size_t wgrad_work(int R, int M, int N) {
   return splits > 1 ? size_t(splits) * M * N : 0;
 }
 
-// ---- K5's attention backward -------------------------------------------
-
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
-  acc.x = fmaf(w, v.x, acc.x);
-  acc.y = fmaf(w, v.y, acc.y);
-  acc.z = fmaf(w, v.z, acc.z);
-  acc.w = fmaf(w, v.w, acc.w);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
-constexpr int AT = 256;  // threads of an attention-backward block
-
-__host__ __device__ inline int attn_qb(int TN) { return TN < 64 ? TN : 64; }
-
-// The larger of the two passes' shared memory (`_attn_f32_bwd_smem_bytes`
-// in ops/block_attention.py): a, k and v of the window, q (later dS) in
-// rows of max(hd, TN) + 4 and dO of a query block; b, k and v of a key
-// block, q and dO of a query chunk, P^T and dS^T.
-size_t attn_bwd_f32_smem(int TN, int hd) {
-  const size_t QB = attn_qb(TN), ldk = hd + 4;
-  const size_t ldq = (hd > TN ? hd : TN) + 4;
-  const size_t a = (2 * TN * ldk + QB * ldq + QB * ldk) * sizeof(float);
-  const size_t b = (4 * QB * ldk + 2 * QB * (QB + 4)) * sizeof(float);
-  return a > b ? a : b;
-}
-
-void attn_split(int n_windows, int heads, int nqb, int* per_head,
-                int* per_block) {
-  int ph = ATTN_BLOCKS / (heads * nqb);
-  if (ph < 1) ph = 1;
-  if (ph > n_windows) ph = n_windows;
-  const int pb = (n_windows + ph - 1) / ph;
-  *per_block = pb;
-  *per_head = (n_windows + pb - 1) / pb;
-}
-
-// acc[a][b] += sum_d A[(ty + 16 a) lda + d] B[(tx + 16 b) ldb + d], d
-// ascending in fp32 FMA, for a < ra, b < rb
-template <int RA, int RB>
-__device__ __forceinline__ void dot_nt(float (&acc)[RA][RB],
-                                       const float* A, int lda,
-                                       const float* B, int ldb, int ra,
-                                       int rb, int K, int tx, int ty) {
-  for (int d = 0; d < K; d += 4) {
-    float4 a[RA], b[RB];
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-      if (i < ra) a[i] = ld4(A + (ty + 16 * i) * lda + d);
-#pragma unroll
-    for (int j = 0; j < RB; ++j)
-      if (j < rb) b[j] = ld4(B + (tx + 16 * j) * ldb + d);
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j)
-        if (i < ra && j < rb) {
-          float v = fmaf(a[i].x, b[j].x, acc[i][j]);
-          v = fmaf(a[i].y, b[j].y, v);
-          v = fmaf(a[i].z, b[j].z, v);
-          acc[i][j] = fmaf(a[i].w, b[j].w, v);
-        }
-  }
-}
-
-// the max / sum over the 16 lanes of a half warp (one row's columns)
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows of `rows` x hd floats from the token rows `src` (stride ld) into
-// shared rows of ldk, by cp.async
-__device__ __forceinline__ void load_rows(float* dst, int ldk,
-                                          const float* src, long long ld,
-                                          int rows, int hd) {
-  const int chunks = hd / 4;
-  for (int i = threadIdx.x; i < rows * chunks; i += AT) {
-    const int r = i / chunks, c = (i - r * chunks) * 4;
-    cp_async16(dst + r * ldk + c, src + r * ld + c);
-  }
-}
-
-// Pass a. Grid (per_head, heads, query blocks); RB >= TN / 16, CC >= hd /
-// 64 rounded up. Thread tx owns columns 4 tx + 64 c (+ 0..3) of a head,
-// those below hd: at hd 32 the lanes tx >= 8 take no column (each column's
-// sum is the same `fmaf` chain at every hd). qkv, dqkv: window-order rows of 3C; dO: rows of C; stats: (windows,
-// heads, TN, 4) [max, 1 / sum, D, -]; dbias_part: (per_head, heads, TN,
-// TN).
-template <int RB, int CC>
-__global__ void __launch_bounds__(AT, 1) attn_bwd_q_f32_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ dO,
-    const float* __restrict__ bias, const float* __restrict__ mask,
-    int n_mask, float* __restrict__ dqkv, float* __restrict__ stats,
-    float* __restrict__ dbias_part, int n_windows, int per_block, int heads,
-    int TN, int hd, int C, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int QB = attn_qb(TN), ldk = hd + 4, ldq = (hd > TN ? hd : TN) + 4;
-  float* Ks = sm;
-  float* Vs = Ks + TN * ldk;
-  float* Qs = Vs + TN * ldk;  // then dS
-  float* dOs = Qs + QB * ldq;
-  const int h = blockIdx.y, q0 = blockIdx.z * QB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ra = QB / 16, rb = TN / 16;
-  const long long C3 = 3LL * C;
-  const int w0 = blockIdx.x * per_block;
-  const int w1 = w0 + per_block < n_windows ? w0 + per_block : n_windows;
-  float dbacc[4][RB];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < RB; ++b) dbacc[a][b] = 0.0f;
-
-  for (int bw = w0; bw < w1; ++bw) {
-    const float* win = qkv + (long long)bw * TN * C3 + h * hd;
-    load_rows(Ks, ldk, win + C, C3, TN, hd);
-    load_rows(Vs, ldk, win + 2 * C, C3, TN, hd);
-    load_rows(Qs, ldq, win + q0 * C3, C3, QB, hd);
-    load_rows(dOs, ldk, dO + ((long long)bw * TN + q0) * C + h * hd, C, QB,
-              hd);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-
-    float s[4][RB], dp[4][RB];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < RB; ++b) s[a][b] = dp[a][b] = 0.0f;
-    dot_nt<4, RB>(s, Qs, ldq, Ks, ldk, ra, rb, hd, tx, ty);
-    dot_nt<4, RB>(dp, dOs, ldk, Vs, ldk, ra, rb, hd, tx, ty);
-
-    const float* mw =
-        mask ? mask + (long long)(bw % n_mask) * TN * TN : nullptr;
-    float* st = stats + ((long long)bw * heads + h) * TN * 4;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (a >= ra) continue;
-      const int i = q0 + ty + 16 * a;
-      const float* brow = bias + ((long long)h * TN + i) * TN + tx;
-      const float* mrow = mw ? mw + (long long)i * TN + tx : nullptr;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        if (b < rb) {
-          float v = fmaf(s[a][b], scale, brow[16 * b]);
-          if (mrow) v += mrow[16 * b];
-          s[a][b] = v;
-          mx = fmaxf(mx, v);
-        }
-      mx = half_max(mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        if (b < rb) {
-          s[a][b] = expf(s[a][b] - mx);
-          sum += s[a][b];
-        }
-      const float inv = 1.0f / half_sum(sum);
-      float dsum = 0.0f;
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        if (b < rb) {
-          s[a][b] *= inv;
-          dsum = fmaf(dp[a][b], s[a][b], dsum);
-        }
-      const float D = half_sum(dsum);
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        if (b < rb) {
-          s[a][b] = s[a][b] * (dp[a][b] - D);
-          dbacc[a][b] += s[a][b];
-        }
-      if (tx == 0) {
-        st[i * 4] = mx;
-        st[i * 4 + 1] = inv;
-        st[i * 4 + 2] = D;
-      }
-    }
-    __syncthreads();  // every score read q: dS goes over it
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        if (a < ra && b < rb) Qs[(ty + 16 * a) * ldq + tx + 16 * b] = s[a][b];
-    __syncthreads();
-
-    // dQ = dS K * scale: rows ty + 16 a, columns 4 tx + 64 c (+ 0..3)
-    float4 dq[4][CC];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < CC; ++c) dq[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j = 0; j < TN; j += 4) {
-      float4 d4[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        if (a < ra) d4[a] = ld4(Qs + (ty + 16 * a) * ldq + j);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 kv[CC];
-#pragma unroll
-        for (int c = 0; c < CC; ++c)
-          if (4 * tx + 64 * c < hd)
-            kv[c] = ld4(Ks + (j + u) * ldk + 4 * tx + 64 * c);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          if (a < ra) {
-            const float w = comp(d4[a], u);
-#pragma unroll
-            for (int c = 0; c < CC; ++c)
-              if (4 * tx + 64 * c < hd) fma4(dq[a][c], w, kv[c]);
-          }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (a >= ra) continue;
-      float* dst = dqkv + ((long long)bw * TN + q0 + ty + 16 * a) * C3 +
-                   h * hd + 4 * tx;
-#pragma unroll
-      for (int c = 0; c < CC; ++c)
-        if (4 * tx + 64 * c < hd)
-          *reinterpret_cast<float4*>(dst + 64 * c) =
-              make_float4(dq[a][c].x * scale, dq[a][c].y * scale,
-                          dq[a][c].z * scale, dq[a][c].w * scale);
-    }
-    __syncthreads();  // shared memory free for the next window
-  }
-
-  float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < RB; ++b)
-      if (a < ra && b < rb)
-        part[(long long)(q0 + ty + 16 * a) * TN + tx + 16 * b] = dbacc[a][b];
-}
-
-// Pass b. One block a (window, head, key block); KB16 >= min(TN, 64) / 16,
-// CC >= hd / 64 rounded up; the columns as pass a's.
-template <int KB16, int CC>
-__global__ void __launch_bounds__(AT, 1) attn_bwd_kv_f32_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ dO,
-    const float* __restrict__ bias, const float* __restrict__ mask,
-    int n_mask, const float* __restrict__ stats, float* __restrict__ dqkv,
-    int n_kb, int heads, int TN, int hd, int C, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int KB = attn_qb(TN), QC = KB, ldk = hd + 4, ldp = QC + 4;
-  float* Ks = sm;
-  float* Vs = Ks + KB * ldk;
-  float* Qs = Vs + KB * ldk;
-  float* dOs = Qs + QC * ldk;
-  float* Pt = dOs + QC * ldk;  // P^T: (keys, queries of the chunk)
-  float* dSt = Pt + KB * ldp;
-  const int kb = blockIdx.x % n_kb, rest = blockIdx.x / n_kb;
-  const int h = rest % heads, bw = rest / heads, k0 = kb * KB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r16 = KB / 16;
-  const long long C3 = 3LL * C;
-  const float* win = qkv + (long long)bw * TN * C3 + h * hd;
-  load_rows(Ks, ldk, win + k0 * C3 + C, C3, KB, hd);
-  load_rows(Vs, ldk, win + k0 * C3 + 2 * C, C3, KB, hd);
-  const float* mw = mask ? mask + (long long)(bw % n_mask) * TN * TN : nullptr;
-  const float* st = stats + ((long long)bw * heads + h) * TN * 4;
-
-  float4 dv[KB16][CC], dk[KB16][CC];
-#pragma unroll
-  for (int a = 0; a < KB16; ++a)
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      dv[a][c] = dk[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int i0 = 0; i0 < TN; i0 += QC) {
-    load_rows(Qs, ldk, win + i0 * C3, C3, QC, hd);
-    load_rows(dOs, ldk, dO + ((long long)bw * TN + i0) * C + h * hd, C, QC,
-              hd);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-
-    // scores of queries ty + 16 a against keys tx + 16 b
-    float s[KB16][KB16], dp[KB16][KB16];
-#pragma unroll
-    for (int a = 0; a < KB16; ++a)
-#pragma unroll
-      for (int b = 0; b < KB16; ++b) s[a][b] = dp[a][b] = 0.0f;
-    dot_nt<KB16, KB16>(s, Qs, ldk, Ks, ldk, r16, r16, hd, tx, ty);
-    dot_nt<KB16, KB16>(dp, dOs, ldk, Vs, ldk, r16, r16, hd, tx, ty);
-#pragma unroll
-    for (int a = 0; a < KB16; ++a) {
-      if (a >= r16) continue;
-      const int i = i0 + ty + 16 * a;
-      const float mx = st[i * 4], inv = st[i * 4 + 1], D = st[i * 4 + 2];
-      const float* brow = bias + ((long long)h * TN + i) * TN + k0 + tx;
-      const float* mrow = mw ? mw + (long long)i * TN + k0 + tx : nullptr;
-#pragma unroll
-      for (int b = 0; b < KB16; ++b) {
-        if (b >= r16) continue;
-        float v = fmaf(s[a][b], scale, brow[16 * b]);  // as pass a
-        if (mrow) v += mrow[16 * b];
-        const float p = expf(v - mx) * inv;
-        Pt[(tx + 16 * b) * ldp + ty + 16 * a] = p;
-        dSt[(tx + 16 * b) * ldp + ty + 16 * a] = p * (dp[a][b] - D);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO, dK += dS^T Q: keys ty + 16 a, columns 4 tx + 64 c
-    for (int i = 0; i < QC; i += 4) {
-      float4 p4[KB16], d4[KB16];
-#pragma unroll
-      for (int a = 0; a < KB16; ++a)
-        if (a < r16) {
-          p4[a] = ld4(Pt + (ty + 16 * a) * ldp + i);
-          d4[a] = ld4(dSt + (ty + 16 * a) * ldp + i);
-        }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 o[CC], q[CC];
-#pragma unroll
-        for (int c = 0; c < CC; ++c)
-          if (4 * tx + 64 * c < hd) {
-            o[c] = ld4(dOs + (i + u) * ldk + 4 * tx + 64 * c);
-            q[c] = ld4(Qs + (i + u) * ldk + 4 * tx + 64 * c);
-          }
-#pragma unroll
-        for (int a = 0; a < KB16; ++a)
-          if (a < r16) {
-            const float pw = comp(p4[a], u), dw = comp(d4[a], u);
-#pragma unroll
-            for (int c = 0; c < CC; ++c)
-              if (4 * tx + 64 * c < hd) {
-                fma4(dv[a][c], pw, o[c]);
-                fma4(dk[a][c], dw, q[c]);
-              }
-          }
-      }
-    }
-    __syncthreads();  // the chunk's shared memory free for the next
-  }
-
-#pragma unroll
-  for (int a = 0; a < KB16; ++a) {
-    if (a >= r16) continue;
-    float* dst = dqkv + ((long long)bw * TN + k0 + ty + 16 * a) * C3 +
-                 h * hd + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      if (4 * tx + 64 * c < hd) {
-        *reinterpret_cast<float4*>(dst + C + 64 * c) =
-            make_float4(dk[a][c].x * scale, dk[a][c].y * scale,
-                        dk[a][c].z * scale, dk[a][c].w * scale);
-        *reinterpret_cast<float4*>(dst + 2 * C + 64 * c) = dv[a][c];
-      }
-  }
-}
+// ---- K5's attention backward (fp32_attention_bwd.cuh) --------------------
 
 // once a kernel and device: the most shared memory a block may use
 template <typename K>
@@ -792,46 +412,55 @@ cudaError_t opt_in(K kernel, int* optins, size_t bytes) {
                                                   : cudaSuccess;
 }
 
-template <int RB, int CC, int KB16>
-cudaError_t launch_attn_bwd(const float* qkv, const float* dO,
-                            const float* bias, const float* mask, int n_mask,
-                            float* dqkv, float* stats, float* dbias_part,
-                            float* dbias, int n_windows, int heads, int TN,
-                            int hd, int C, float scale, cudaStream_t s) {
-  static int opt_a[MAX_DEVICES] = {}, opt_b[MAX_DEVICES] = {};
-  const size_t bytes = attn_bwd_f32_smem(TN, hd);
-  cudaError_t err = opt_in(attn_bwd_q_f32_kernel<RB, CC>, opt_a, bytes);
-  if (err == cudaSuccess)
-    err = opt_in(attn_bwd_kv_f32_kernel<KB16, CC>, opt_b, bytes);
+template <int NT>
+cudaError_t launch_q_pass(const float* qkv, const float* dO,
+                          const float* bias, const float* mask, int n_mask,
+                          float* dqkv, float* stats, float* dbias_part,
+                          int n_windows, int heads, int TN, int hd, int C,
+                          float scale, cudaStream_t s, int* per_head) {
+  static int optin[MAX_DEVICES] = {};
+  const size_t bytes = attn32b::q_smem(TN, hd);
+  cudaError_t err = opt_in(attn32b::q_kernel<NT>, optin, bytes);
   if (err != cudaSuccess) return err;
-  const int nqb = TN / attn_qb(TN);
-  int per_head, per_block;
-  attn_split(n_windows, heads, nqb, &per_head, &per_block);
-  attn_bwd_q_f32_kernel<RB, CC><<<dim3(per_head, heads, nqb), AT, bytes, s>>>(
+  int per_block;
+  attn32b::q_split(n_windows, heads, TN, hd, per_head, &per_block);
+  attn32b::q_kernel<NT><<<dim3(*per_head, heads), TN / 16 * 32, bytes, s>>>(
       qkv, dO, bias, mask, n_mask, dqkv, stats, dbias_part, n_windows,
       per_block, heads, TN, hd, C, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long table = (long long)heads * TN * TN;
-  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
-      cudaSuccess)
-    return err;
-  attn_bwd_kv_f32_kernel<KB16, CC>
-      <<<n_windows * heads * nqb, AT, bytes, s>>>(
-          qkv, dO, bias, mask, n_mask, stats, dqkv, nqb, heads, TN, hd, C,
-          scale);
+  return cudaGetLastError();
+}
+
+template <int CT>
+cudaError_t launch_kv_pass(const float* qkv, const float* dO,
+                           const float* bias, const float* mask, int n_mask,
+                           const float* stats, float* dqkv, int n_windows,
+                           int heads, int TN, int hd, int C, float scale,
+                           cudaStream_t s) {
+  static int optin[MAX_DEVICES] = {};
+  const size_t bytes = attn32b::kv_smem(TN, hd);
+  cudaError_t err = opt_in(attn32b::kv_kernel<CT>, optin, bytes);
+  if (err != cudaSuccess) return err;
+  attn32b::kv_kernel<CT>
+      <<<n_windows * heads, TN / 16 * attn32b::col_splits(hd) * 32, bytes,
+         s>>>(qkv, dO, bias, mask, n_mask, stats, dqkv, heads, TN, hd, C,
+              scale);
   return cudaGetLastError();
 }
 
 // The window and head dims the attention backward takes (`ops/
 // block_attention.check_backward_window` refuses the rest before K1 runs):
-// query and key blocks of min(TN, 64) rows that tile the window, head dims
-// a multiple of 32 (the forward core's), and the per-thread sums its
-// templates size (hd <= 256 at TN <= 32, else 128).
+// windows of 16-token tiles up to 128 tokens (the query pass's score tile
+// is 16 key tiles of 8 at most), head dims a multiple of 32 (the forward
+// core's) up to 256 at TN <= 32 and 128 beyond (the key pass's dk and dv
+// accumulators hold 128 columns a warp, two warps a key group past 128).
 bool attn_bwd_f32_takes(int TN, int hd) {
-  return TN > 0 && TN % 16 == 0 && TN <= 128 && (TN <= 64 || TN % 64 == 0) &&
-         hd > 0 && hd % 32 == 0 && hd <= (TN <= 32 ? 256 : 128);
+  return TN > 0 && TN % 16 == 0 && TN <= 128 && hd > 0 && hd % 32 == 0 &&
+         hd <= (TN <= 32 ? 256 : 128);
 }
 
+// dq, dk, dv into dqkv and dbias: the query pass, the dbias partials
+// summed in order, the key pass. stats: (windows, heads, TN, 4) floats;
+// dbias_part: per_head (`attn32b::q_split`) x heads x TN x TN floats.
 cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
                          const float* mask, int n_mask, float* dqkv,
                          float* stats, float* dbias_part, float* dbias,
@@ -840,13 +469,31 @@ cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
   if (!attn_bwd_f32_takes(TN, hd) || n_windows <= 0)
     return cudaErrorInvalidValue;
   const float* m = n_mask > 1 ? mask : nullptr;
+  int per_head = 0;
+  cudaError_t err;
   if (TN <= 32)
-    return launch_attn_bwd<2, 4, 2>(qkv, dO, bias, m, n_mask, dqkv, stats,
-                                    dbias_part, dbias, n_windows, heads, TN,
-                                    hd, C, scale, s);
-  return launch_attn_bwd<8, 2, 4>(qkv, dO, bias, m, n_mask, dqkv, stats,
-                                  dbias_part, dbias, n_windows, heads, TN, hd,
-                                  C, scale, s);
+    err = launch_q_pass<4>(qkv, dO, bias, m, n_mask, dqkv, stats, dbias_part,
+                           n_windows, heads, TN, hd, C, scale, s, &per_head);
+  else if (TN <= 64)
+    err = launch_q_pass<8>(qkv, dO, bias, m, n_mask, dqkv, stats, dbias_part,
+                           n_windows, heads, TN, hd, C, scale, s, &per_head);
+  else
+    err = launch_q_pass<16>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                            dbias_part, n_windows, heads, TN, hd, C, scale, s,
+                            &per_head);
+  if (err != cudaSuccess) return err;
+  const long long table = (long long)heads * TN * TN;
+  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
+      cudaSuccess)
+    return err;
+  if (hd <= 32)
+    return launch_kv_pass<4>(qkv, dO, bias, m, n_mask, stats, dqkv,
+                             n_windows, heads, TN, hd, C, scale, s);
+  if (hd <= 64)
+    return launch_kv_pass<8>(qkv, dO, bias, m, n_mask, stats, dqkv,
+                             n_windows, heads, TN, hd, C, scale, s);
+  return launch_kv_pass<16>(qkv, dO, bias, m, n_mask, stats, dqkv, n_windows,
+                            heads, TN, hd, C, scale, s);
 }
 
 struct K5Work {
@@ -857,8 +504,8 @@ K5Work k5_work(int R, int C, int heads, int TN) {
   K5Work w{};
   const int n_windows = TN > 0 ? R / TN : 0;
   int per_head = 1, per_block = 1;
-  if (n_windows > 0 && TN > 0)
-    attn_split(n_windows, heads, TN / attn_qb(TN), &per_head, &per_block);
+  if (n_windows > 0 && TN > 0 && heads > 0 && C % heads == 0)
+    attn32b::q_split(n_windows, heads, TN, C / heads, &per_head, &per_block);
   const size_t cs = size_t(cs_splits(R)) * 3 * C;
   // dwqkv's and dwproj's partials share the area: the larger of the two
   const size_t wq = wgrad_work(R, 3 * C, C), wo = wgrad_work(R, C, C);
@@ -1206,6 +853,33 @@ extern "C" int stswin_block_attention_bwd_f32(
   return colsum_f32(gp, C, M, C, static_cast<float*>(dbproj), wk + L.cs, s);
 }
 
+// K5 fp32's attention backward alone (`ops/block_attention.attn_bwd_f32`),
+// step 2 of the entry above over K5's workspace (`stswin_block_attention_
+// bwd_f32_work` floats: the statistics and the dbias partials): qkv (rows,
+// 3C) and dO (rows, C) fp32 in window order, bias (heads, TN, TN), mask
+// (n_mask, TN, TN) or n_mask <= 1 for none. Outputs, fp32 and overwritten:
+// dqkv (rows, 3C), dq and dk scaled; dbias (heads, TN, TN).
+extern "C" int stswin_attn_bwd_f32(const void* qkv, const void* dO,
+                                   const void* bias, const void* mask,
+                                   void* work, void* dqkv, void* dbias, int R,
+                                   int C, int heads, int TN, float scale,
+                                   int n_mask, void* stream) {
+  if (heads <= 0 || C % heads || TN <= 0 || R % TN)
+    return cudaErrorInvalidValue;
+  const int hd = C / heads;
+  if (!attn_bwd_f32_takes(TN, hd)) return cudaErrorInvalidValue;
+  const K5Work L = k5_work(R, C, heads, TN);
+  float* wk = static_cast<float*>(work);
+  return attn_bwd_f32(static_cast<const float*>(qkv),
+                      static_cast<const float*>(dO),
+                      static_cast<const float*>(bias),
+                      static_cast<const float*>(mask), n_mask,
+                      static_cast<float*>(dqkv), wk + L.stats,
+                      wk + L.dbias_part, static_cast<float*>(dbias), R / TN,
+                      heads, TN, hd, C, scale,
+                      static_cast<cudaStream_t>(stream));
+}
+
 // K6 fp32. x, g: (rows, C) fp32 unshifted (g: the gradient of `out`); y:
 // as the forward took it (shifted layout when shift > 0); m_in: row 8's m,
 // or null to recompute it (row 7; with it, row 9). w1 (hidden, C), w2 (C,
@@ -1362,7 +1036,7 @@ extern "C" int stswin_colsum_f32_work(int R, int N, long long* out) {
 
 extern "C" int stswin_attn_bwd_f32_smem(int TN, int hd, long long* out) {
   *out = attn_bwd_f32_takes(TN, hd)
-             ? static_cast<long long>(attn_bwd_f32_smem(TN, hd))
+             ? static_cast<long long>(attn32b::smem_bytes(TN, hd))
              : -1;
   return 0;
 }

@@ -17,6 +17,10 @@
 // mma's accumulation drops the bits past its sum's last (a bias toward
 // zero), so the callers add each k step's (or k tile's) products to their
 // own fp32 sums, rounded to nearest.
+// Its users: the fp32 attention core (fp32_attention.cuh), the attention
+// backward of K5's fp32 form (fp32_attention_bwd.cuh) and `wgrad_f32`
+// (fp32_train.cu), all on mma.sync; the fp32 GEMM tile on wgmma rounds lo
+// too (`split_rn`, fp32_gemm.cuh).
 // `tests/test_torch_tf32x3.py` emulates this split in PyTorch and holds it,
 // and one TF32 pass, against the fp32 bound of the kernels' checks.
 #pragma once
@@ -86,17 +90,29 @@ __device__ __forceinline__ void mma1688_from0(float (&d)[4],
 // before the next so that each mma of a chain of three has U - 1 others
 // between it and the one it waits for, then added to d in fp32, rounded
 // to nearest (see `mma1688_from0`). j0 is a constant once the caller's
-// loop is unrolled.
-template <int U, int N>
+// loop is unrolled. MIRROR takes the two small terms in the other order,
+// a_hi b_lo first: the product of the transposed operands (b^T a^T) term
+// for term in the order of the plain one, as the attention backward's key
+// pass forms k q^T where its query pass formed q k^T.
+template <int U, int N, bool MIRROR = false>
 __device__ __forceinline__ void mma3_add(float (&d)[N][4], int j0,
                                          const FragA& a,
                                          const FragB (&b)[U]) {
   float t[U][4];
 #pragma unroll
-  for (int u = 0; u < U; ++u)
-    mma1688_from0(t[u], a.lo, b[u].hi[0], b[u].hi[1]);
+  for (int u = 0; u < U; ++u) {
+    if (MIRROR)
+      mma1688_from0(t[u], a.hi, b[u].lo[0], b[u].lo[1]);
+    else
+      mma1688_from0(t[u], a.lo, b[u].hi[0], b[u].hi[1]);
+  }
 #pragma unroll
-  for (int u = 0; u < U; ++u) mma1688(t[u], a.hi, b[u].lo[0], b[u].lo[1]);
+  for (int u = 0; u < U; ++u) {
+    if (MIRROR)
+      mma1688(t[u], a.lo, b[u].hi[0], b[u].hi[1]);
+    else
+      mma1688(t[u], a.hi, b[u].lo[0], b[u].lo[1]);
+  }
 #pragma unroll
   for (int u = 0; u < U; ++u) mma1688(t[u], a.hi, b[u].hi[0], b[u].hi[1]);
 #pragma unroll

@@ -90,6 +90,7 @@ SIGNATURES = {
     "stswin_conv_f32_k_tiles": [ctypes.POINTER(ctypes.c_longlong), _I],
     "stswin_block_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _I, _I,
                                                               _P],
+    "stswin_attn_bwd_f32": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     "stswin_block_epilogue_bwd_f32": [_P] * 24 + [_I] * 7 + [_F, _P],
     "stswin_wgrad_f32": [_P] * 4 + [_I] * 13 + [_P],
     "stswin_colsum_f32": [_P] * 3 + [_I] * 3 + [_P],

@@ -197,25 +197,24 @@ def _attn_bwd_smem_bytes(TN: int, hd: int) -> int:
 
 def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of K5 fp32's attention backward
-    (`attn_bwd_f32_smem`), the larger of its two passes, in fp32: the
-    query pass holds k and v of the window, q (later dS) in rows of
-    max(hd, TN) + 4 and dO of a query block of min(TN, 64) rows; the key
-    pass k and v of a key block, q and dO of a query chunk (rows of hd +
-    4), and P^T and dS^T (rows of the chunk + 4)."""
-    qb, ldk = min(TN, 64), hd + 4
-    a = 2 * TN * ldk + qb * (max(hd, TN) + 4) + qb * ldk
-    b = 4 * qb * ldk + 2 * qb * (qb + 4)
-    return 4 * max(a, b)
+    (`attn32b::smem_bytes`, `csrc/fp32_attention_bwd.cuh`), the larger of
+    its two passes, fp32 rows of hd + 4: the query pass holds k, v and a
+    region of TN rows for each warp's 16 rows of q, then of dO; the key
+    pass k, v and a ring of 16-query chunks of q and dO (three chunks past
+    32 tokens, else two)."""
+    ld, stages = hd + 4, 3 if TN // 16 >= 3 else 2
+    return 4 * max(3 * TN * ld, (2 * TN + 2 * 16 * stages) * ld)
 
 
 def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
-    query and key blocks of min(TN, 64) rows that tile the window, head
-    dims a multiple of 32 (the fp32 forward core's) up to 256 at TN <= 32
-    and 128 beyond, and both passes within shared memory."""
-    return (0 < TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
-            and (TN <= 64 or TN % 64 == 0) and hd > 0 and hd % 32 == 0
-            and hd <= (256 if TN <= 32 else 128)
+    16-token tiles up to MAX_BWD_WINDOW_TOKENS (the query pass's score
+    tile holds 16 key tiles of 8), head dims a multiple of 32 (the fp32
+    forward core's) up to 256 at TN <= 32 and 128 beyond (the key pass's
+    dk and dv accumulators: 128 columns a warp, two warps a key group past
+    128), and both passes within shared memory."""
+    return (0 < TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
+            and hd % 32 == 0 and hd <= (256 if TN <= 32 else 128)
             and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
 
@@ -233,10 +232,10 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
         kernels.require(_attn_f32_bwd_takes(TN, hd),
                         lambda: f"{name}: K5's fp32 form (the attention "
                         "backward) takes windows of at most "
-                        f"{MAX_BWD_WINDOW_TOKENS} tokens (a multiple of 16, "
-                        "and of 64 past 64) with head dims a multiple of 32 "
-                        "(at most 256 to 32 tokens, 128 beyond) that fit "
-                        f"shared memory; got {TN} tokens x head dim {hd}")
+                        f"{MAX_BWD_WINDOW_TOKENS} tokens (a multiple of 16) "
+                        "with head dims a multiple of 32 (at most 256 to 32 "
+                        "tokens, 128 beyond) that fit shared memory; got "
+                        f"{TN} tokens x head dim {hd}")
         return
     kernels.require(TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
                     and hd % 16 == 0
@@ -418,8 +417,10 @@ def swin_block_attention_bwd_f32(x, g, qkv, attn, wqkv, wproj, bias_tiled,
                                  ws: int, shift: int = 0):
     """K5's fp32 form (`stswin_block_attention_bwd_f32`,
     `csrc/fp32_train.cu`): `swin_block_attention_bwd` on fp32 CUDA tensors
-    with K1 fp32's window-order scratch; every product on the fp32 GEMMs,
-    P and dS in fp32, every sum over windows and rows in a fixed order.
+    with K1 fp32's window-order scratch; every product 3xTF32 on the
+    tensor cores (the fp32 GEMMs, `wgrad_f32`, the attention backward of
+    `csrc/fp32_attention_bwd.cuh`), P and dS in fp32, every sum over
+    windows and rows in a fixed order.
     Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias_tiled), fp32."""
     name = "swin_block_attention_bwd_f32"
     mask_tiled, n_mask = _validate(name, None, x, wqkv, wproj, bias_tiled,
@@ -457,6 +458,70 @@ def swin_block_attention_bwd_f32(x, g, qkv, attn, wqkv, wproj, bias_tiled,
 
 
 swin_block_attention_bwd_f32.launches = 0
+
+
+def attn_bwd_f32_ref(qkv, dattn, bias_tiled, mask_tiled, heads: int,
+                     scale: float, TN: int):
+    """Plain twin of K5 fp32's attention backward alone: autograd of the
+    window attention (`attend_tiled`: the scale after the product, the
+    tiled bias, the mask of window bw % n_mask, P in fp32) over
+    window-order qkv (rows, 3C), given the gradient dattn (rows, C) of its
+    output. Returns (dqkv (rows, 3C), dbias (heads, TN, TN)), fp32."""
+    rows, C3 = qkv.shape
+    C, hd = C3 // 3, C3 // 3 // heads
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (qkv, bias_tiled)]
+        q, k, v = (leaves[0].reshape(rows // TN, TN, 3, heads, hd)
+                   .permute(2, 0, 3, 1, 4).unbind(0))
+        out = attend_tiled(q, k, v, leaves[1], mask_tiled, scale)
+        out = out.permute(0, 2, 1, 3).reshape(rows, C)
+        return torch.autograd.grad(out, leaves, dattn.float())
+
+
+def attn_bwd_f32(qkv, dattn, bias_tiled, mask_tiled, heads: int,
+                 scale: float, TN: int):
+    """K5 fp32's attention backward alone (`stswin_attn_bwd_f32`,
+    `csrc/fp32_train.cu`): the second of K5 fp32's four steps, over its
+    workspace, for timing and checking it by itself; the twin
+    `attn_bwd_f32_ref` on a CPU tensor. qkv (rows, 3C) and dattn (rows,
+    C) fp32 in window order (rows = windows x TN), bias (heads, TN, TN),
+    mask (n_mask, TN, TN) or None. Returns (dqkv, dbias), fp32."""
+    if qkv.device.type == "cpu":
+        return attn_bwd_f32_ref(qkv, dattn, bias_tiled, mask_tiled, heads,
+                                scale, TN)
+    name = "attn_bwd_f32"
+    kernels.require(qkv.is_cuda, f"{name}: no kernel for device "
+                    f"{qkv.device}")
+    kernels.require_f32(name, qkv, dattn)
+    rows, C3 = qkv.shape
+    C = C3 // 3
+    kernels.require(C3 == 3 * C and C % heads == 0 and rows % TN == 0
+                    and tuple(dattn.shape) == (rows, C)
+                    and qkv.is_contiguous() and dattn.is_contiguous(),
+                    f"{name}: qkv {tuple(qkv.shape)}, dattn "
+                    f"{tuple(dattn.shape)} for {heads} heads, TN {TN}")
+    hd = C // heads
+    kernels.require(_attn_f32_bwd_takes(TN, hd), f"{name}: K5's fp32 form "
+                    f"does not take {TN} tokens x head dim {hd}")
+    mask_tiled, n_mask = check_attention_core(
+        name, qkv.device, bias_tiled, mask_tiled, heads, TN, hd,
+        _attn_f32_bwd_smem_bytes)
+    kernels.require_on(qkv.device, name, qkv, dattn)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    work = torch.empty(kernels.query("stswin_block_attention_bwd_f32_work",
+                                     rows, C, heads, TN), **f32)
+    dqkv = torch.empty((rows, 3 * C), **f32)
+    dbias = torch.empty((heads, TN, TN), **f32)
+    P = kernels.ptr
+    kernels.launch("stswin_attn_bwd_f32", qkv.device, P(qkv), P(dattn),
+                   P(bias_tiled), P(mask_tiled), P(work), P(dqkv), P(dbias),
+                   rows, C, heads, TN, float(scale), n_mask)
+    attn_bwd_f32.launches += 1
+    return dqkv, dbias
+
+
+attn_bwd_f32.launches = 0
 
 
 class BlockAttentionFn(torch.autograd.Function):

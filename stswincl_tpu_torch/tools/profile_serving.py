@@ -26,10 +26,15 @@ from stswincl_tpu_torch.models.init import init_weights
 from stswincl_tpu_torch.models.swin import ATTN_IMPLS
 from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
+# (the fp32 forms: `tile_f32_kernel` the fp32 GEMM, `attn_f32_kernel` the
+# fp32 attention core, `attn32b::` K5 fp32's attention backward passes)
 PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "wgrad_sm90_kernel",
-                "window_attention_mma_kernel", "attn_bwd_kernel",
-                "ln_rows_kernel", "patch_merge_ln_kernel",
-                "upsample_argmax_kernel", "whole_block_kernel")
+                "tile_f32_kernel", "window_attention_mma_kernel",
+                "attn_f32_kernel", "attn_bwd_kernel", "attn32b::",
+                "ln_rows_kernel", "ln_rows_f32_kernel",
+                "patch_merge_ln_kernel", "patch_merge_ln_f32_kernel",
+                "upsample_argmax_kernel", "whole_block_kernel",
+                "whole_block_f32_kernel")
 
 
 def _group(name: str) -> str:

@@ -110,3 +110,33 @@ def test_row14_forward_and_backward_match_jax(rng, return_sum):
     want = torch.autograd.grad((n * T_(Gn)).sum(), leaves)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [48, 96, 3072])
+def test_row14_bf16_takes_any_width(monkeypatch, C):
+    """Row 14's bf16 wrapper refuses no width: on a CPU tensor it stops at
+    the device check (the message names the device, not C), and on
+    tensors that report `is_cuda` it reaches `stswin_add_layer_norm` with
+    the call's rows and C (48 and 96 as the JAX kernel's tests, 3072 past
+    the warp-a-row kernel's 2048)."""
+    from stswincl_tpu_torch import kernels
+    from stswincl_tpu_torch.ops import add_layernorm as aln
+    x = torch.zeros((3, 5, C), dtype=torch.bfloat16)
+    scale, bias = torch.ones(C), torch.zeros(C)
+    with pytest.raises(ValueError) as err:
+        aln._kernel(x, x, scale, bias, 1e-5, True)
+    assert "device cpu" in str(err.value) and str(C) not in str(err.value)
+
+    launched = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True),
+                        raising=False)
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, dev, *a: launched.append((name, a)))
+    monkeypatch.setattr(kernels, "use_device", lambda dev: 0)
+    meta = dict(device="meta")
+    xm = torch.empty((3, 5, C), dtype=torch.bfloat16, **meta)
+    s, out = aln._kernel(xm, xm, torch.empty(C, **meta),
+                         torch.empty(C, **meta), 1e-5, True)
+    assert out.shape == s.shape == xm.shape
+    assert [(name, a[-3:-1]) for name, a in launched] == [
+        ("stswin_add_layer_norm", (15, C))]

@@ -951,11 +951,12 @@ def test_add_ln_mlp_kernel(dev, gen, C):
         _close(a, b)
 
 
-@pytest.mark.parametrize("C", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("C", [48, 96, 256, 512, 1024, 2048, 3072])
 @pytest.mark.parametrize("return_sum", [True, False])
 def test_add_layer_norm_kernel(dev, gen, C, return_sum):
     """Row 14 against its twin, and its Function's backward (the formula
-    of `_faln_bwd`) against autograd of the twin."""
+    of `_faln_bwd`) against autograd of the twin; any C (48 and 96 as the
+    JAX kernel's own tests, 3072 past the warp-a-row kernel)."""
     x, y = (torch.randn((7, 33, C), generator=gen, device=dev).to(BF)
             for _ in range(2))
     scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
@@ -1923,6 +1924,38 @@ def test_block_attention_bwd_f32_stage_windows(dev, gen, case, hd, shift):
         _close(a, w, tol=F32_TOL)
 
 
+@pytest.mark.parametrize("TN,hd,n_mask", [
+    (16, 256, 0), (32, 160, 4), (48, 64, 3), (80, 128, 0), (96, 128, 2),
+    (128, 96, 4)])
+def test_attn_bwd_f32_any_window(dev, gen, TN, hd, n_mask):
+    """K5 fp32's attention backward alone (`attn_bwd_f32`) on windows of
+    every 16-token tile count and head dims past the model's (160: a key
+    group's second warp on 32 columns), with and without per-window
+    masks: dq, dk, dv and dbias against the twin `attn_bwd_f32_ref`
+    within F32_TOL, one launch a call, the same bits twice."""
+    heads, windows = 2, 12
+    C, rows = heads * hd, windows * TN
+    r = _normal(dev, gen)
+    qkv, dattn = r(rows, 3 * C, k=2.0), r(rows, C)
+    bias = r(heads, TN, TN)
+    mask = None
+    if n_mask:
+        mask = torch.where(torch.rand((n_mask, TN, TN), generator=gen,
+                                      device=dev) < 0.3, -100.0, 0.0)
+        mask[:, torch.arange(TN), torch.arange(TN)] = 0.0
+    fn = block_attention.attn_bwd_f32
+    scale = hd ** -0.5
+    n = fn.launches
+    got = fn(qkv, dattn, bias, mask, heads, scale, TN)
+    again = fn(qkv, dattn, bias, mask, heads, scale, TN)
+    assert fn.launches == n + 2
+    want = block_attention.attn_bwd_f32_ref(qkv, dattn, bias, mask, heads,
+                                            scale, TN)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _close(a, w, tol=F32_TOL)
+
+
 @pytest.mark.parametrize("C,shift", [(512, 0), (512, 2), (1024, 2)])
 def test_epilogue_f32_training_forms(dev, gen, C, shift):
     """K2 fp32 + K6 fp32 through `EpilogueFn`: at C 512 (hidden 2048) the
@@ -1963,8 +1996,9 @@ def test_epilogue_f32_training_forms(dev, gen, C, shift):
 def test_attn_f32_bwd_plan_matches_the_library(dev):
     """The Python plan of K5 fp32's attention backward (what
     `check_backward_window` refuses before a trained block's forward)
-    and the library's (`attn_bwd_f32_smem`, -1 for a window it refuses)
-    agree on every window the model and the tests use and on the edges."""
+    and the library's (`stswin_attn_bwd_f32_smem`, -1 for a window it
+    refuses) agree on every window the model and the tests use and on the
+    edges."""
     from stswincl_tpu_torch import kernels
     for TN in (16, 32, 48, 64, 96, 128, 144):
         for hd in (32, 64, 128, 192, 256, 512):

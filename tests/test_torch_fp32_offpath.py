@@ -238,14 +238,14 @@ def test_row15_fp32_twin_matches_jax(rng, C):
 def test_k5_fp32_plan_takes_head_dim_32():
     """K5 fp32's attention backward at hd 32, the head dim of `swin_dim`
     128 at both stages: TN 128 (stage 1) and TN 32 (stage 2) are taken,
-    in 79,872 and 27,648 bytes of shared memory (pass a holds k, v in rows
-    of hd + 4, q in rows of max(hd, TN) + 4, dO; pass b at TN 32 is the
-    larger); head dims off 32 stay refused."""
+    in 55,296 and 18,432 bytes of shared memory (the query pass's k, v and
+    q / dO in rows of hd + 4; the key pass at TN 32, k, v and two 16-query
+    chunks of q and dO, is the larger); head dims off 32 stay refused."""
     takes = block_attention._attn_f32_bwd_takes
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert takes(128, 32) and takes(32, 32) and takes(64, 32)
-    assert plan(128, 32) == 4 * (2 * 128 * 36 + 64 * 132 + 64 * 36) == 79872
-    assert plan(32, 32) == 4 * (4 * 32 * 36 + 2 * 32 * 36) == 27648
+    assert plan(128, 32) == 4 * 3 * 128 * 36 == 55296
+    assert plan(32, 32) == 4 * (2 * 32 + 2 * 16 * 2) * 36 == 18432
     assert not takes(128, 48) and not takes(32, 16) and not takes(128, 160)
 
 

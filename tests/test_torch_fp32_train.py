@@ -174,16 +174,19 @@ def test_fp32_training_routes_through_the_functions(monkeypatch, case):
 
 
 def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
-    """K5 fp32's attention backward (two passes, each holding at most a
-    64-row block of queries or keys with the fp32 q, k, v and dO it
-    needs): stage 1 (TN 128, hd 128) and stage 2 (TN 32, hd 256) fit
-    SMEM_LIMIT, and so do both stages of `swin_dim` 128 (hd 32); a wider
-    window or head dim, a head dim off 32, and windows the passes' 64-row
-    blocks do not tile, are refused by `check_backward_window` before any
+    """K5 fp32's attention backward (`csrc/fp32_attention_bwd.cuh`: a
+    query pass holding k, v and each warp's q, then dO, of a (window,
+    head); a key pass holding k, v and a ring of 16-query chunks of q and
+    dO, three past 32 tokens): stage 1 (TN 128, hd 128) and stage 2 (TN
+    32, hd 256) fit SMEM_LIMIT, and so do both stages of `swin_dim` 128
+    (hd 32) and every 16-token window up to 128 (TN 96 among them); a
+    wider window or head dim and a
+    head dim off 32 are refused by `check_backward_window` before any
     launch: the Function's forward raises without calling the form."""
     plan = block_attention._attn_f32_bwd_smem_bytes
-    assert plan(128, 128) == 4 * (2 * 128 * 132 + 2 * 64 * 132) == 202752
-    assert plan(32, 256) == 4 * (4 * 32 * 260 + 2 * 32 * 36) == 142336
+    assert plan(128, 128) == 4 * 3 * 128 * 132 == 202752
+    assert plan(32, 256) == 4 * (2 * 32 + 2 * 16 * 2) * 260 == 133120
+    assert plan(96, 128) == 4 * 3 * 96 * 132 == 152064
     assert max(plan(128, 128), plan(32, 256)) <= kernels.SMEM_LIMIT
     assert plan(128, 256) > kernels.SMEM_LIMIT
     check = block_attention.check_backward_window
@@ -193,9 +196,9 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     check("k5", torch.empty((1, 4, 4, 4, 256), **f32), 4, 4)    # TN 64
     check("k5", torch.empty((1, 2, 4, 4, 128), **f32), 4, 4)    # hd 32
     check("k5", torch.empty((1, 2, 8, 8, 128), **f32), 4, 8)    # TN 128
+    check("k5", torch.empty((1, 6, 4, 4, 256), **f32), 4, 4)    # TN 96
     refused = (((1, 2, 8, 8, 512), 2, 8),     # TN 128, hd 256
                ((1, 1, 12, 12, 256), 4, 12),  # TN 144
-               ((1, 6, 4, 4, 256), 4, 4),     # TN 96: 64-row blocks
                ((1, 2, 4, 4, 192), 4, 4),     # hd 48
                ((1, 2, 8, 8, 768), 4, 8))     # hd 192 at TN 128
     for shape, heads, ws in refused:

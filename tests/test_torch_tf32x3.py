@@ -75,9 +75,9 @@ def mm_1xtf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def attend_with(mm, q, k, v, bias, mask, scale):
-    """`attend_tiled`'s contract (the scale after the product, + bias, +
-    the window's mask, max, exp, x 1 / sum) with both products by `mm`."""
+def probs_with(mm, q, k, bias, mask, scale):
+    """P of `attend_tiled`'s contract (the scale after the product, +
+    bias, + the window's mask, max, exp, x 1 / sum), S by `mm`."""
     Bw, heads, TN, _ = q.shape
     s = mm(q, k.transpose(-1, -2)) * scale + bias[None]
     if mask is not None and mask.shape[0] > 1:
@@ -85,7 +85,12 @@ def attend_with(mm, q, k, v, bias, mask, scale):
         s = (s.reshape(Bw // nW, nW, heads, TN, TN)
              + mask[None, :, None]).reshape(Bw, heads, TN, TN)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return mm(e * (1.0 / e.sum(dim=-1, keepdim=True)), v)
+    return e * (1.0 / e.sum(dim=-1, keepdim=True))
+
+
+def attend_with(mm, q, k, v, bias, mask, scale):
+    """`attend_tiled`'s contract with both products by `mm`."""
+    return mm(probs_with(mm, q, k, bias, mask, scale), v)
 
 
 def _rel(got, want):
@@ -143,6 +148,77 @@ def test_attention_contract_on_3xtf32(masked):
     for want in (twin, jax_row11):
         assert _rel(three, want) <= TOL_F32_REL
         assert _rel(one, want) > 10 * TOL_F32_REL
+
+
+def mm_steps(split_fn, step=8):
+    """a @ b as the mma.sync kernels form it: the k dim in steps of 8 (an
+    m16n8k8's), each step's three TF32 products (`split_fn`'s halves, the
+    small terms first) summed from zero, then added to the fp32 sums."""
+    def mm(a, b):
+        (ah, al), (bh, bl) = split_fn(a), split_fn(b)
+        out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=a.dtype)
+        for k0 in range(0, a.shape[-1], step):
+            k = slice(k0, k0 + step)
+            t = al[..., k] @ bh[..., k, :]
+            t = t + ah[..., k] @ bl[..., k, :]
+            out = out + (t + ah[..., k] @ bh[..., k, :])
+        return out
+    return mm
+
+
+def attn_bwd_with(mm, q, k, v, bias, mask, scale, do):
+    """The attention backward of `attend_tiled` with its five products by
+    `mm`, as K5 fp32's attention backward (`csrc/fp32_attention_bwd.cuh`)
+    forms it: S = q k^T, P as the forward; dP = dO v^T, D = sum dP P, dS =
+    P (dP - D); dq = dS k * scale, dk = dS^T q * scale, dv = P^T dO; dbias
+    the sum of dS over the windows. Returns (dq, dk, dv, dbias)."""
+    p = probs_with(mm, q, k, bias, mask, scale)
+    dp = mm(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+            mm(p.transpose(-1, -2), do), ds.sum(dim=0))
+
+
+@pytest.mark.parametrize("TN,hd,masked", [
+    (128, 128, False), (128, 128, True), (32, 256, False), (32, 256, True)],
+    ids=["s1-w", "s1-sw", "s2-w", "s2-sw"])
+def test_attention_backward_on_3xtf32(TN, hd, masked):
+    """K5 fp32's attention backward on the split it takes (`split`: hi to
+    nearest, lo as the mma truncates it), each m16n8k8 k step summed from
+    zero into fp32 sums, all five products (S, dP, dq, dv, dk), at stage
+    1's window (TN 128, hd 128) and stage 2's (TN 32, hd 256), one image of
+    4 windows x 2 heads, W-MSA and SW-MSA (the shifted mask), at phase 7's
+    draw (q, k, v at std 2, the bias N(0, 1)) and dO N(0, 1): dq, dk, dv
+    and dbias within TOL_F32_REL of the backward in float64 (the same
+    formulas, which autograd of the fp32 twin `attend_tiled` meets within
+    a tenth of it); one TF32 pass misses it tenfold."""
+    rng = np.random.default_rng(21)
+    ws = 8 if TN == 128 else 4
+    T, H, W, heads = 2, 2 * ws, 2 * ws, 2
+    Bw = (H // ws) * (W // ws)
+    q, k, v = (rng.standard_normal((Bw, heads, TN, hd)).astype(np.float32)
+               * 2 for _ in range(3))
+    do = rng.standard_normal((Bw, heads, TN, hd)).astype(np.float32)
+    bias = rng.standard_normal((heads, TN, TN)).astype(np.float32)
+    mask = (np.tile(shifted_window_attention_mask(H, W, ws, ws // 2),
+                    (1, T, T)) if masked else None)
+    scale = hd ** -0.5
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    tm = None if mask is None else torch.from_numpy(mask)
+    tdo = torch.from_numpy(do)
+    want = attn_bwd_with(torch.matmul, *(a.double() for a in args),
+                         None if tm is None else tm.double(), scale,
+                         tdo.double())
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = attend_tiled(*leaves[:3], leaves[3], tm, scale)
+    auto = torch.autograd.grad(out, leaves[:3] + leaves[3:], tdo)
+    three = attn_bwd_with(mm_steps(split), *args, tm, scale, tdo)
+    one = attn_bwd_with(mm_1xtf32, *args, tm, scale, tdo)
+    for name, a, t, o, w in zip(("dq", "dk", "dv", "dbias"), auto, three,
+                                one, want):
+        assert _rel(a, w) <= TOL_F32_REL / 10, name
+        assert _rel(t, w) <= TOL_F32_REL, name
+        assert _rel(o, w) > 10 * TOL_F32_REL, name
 
 
 def test_weight_gradient_on_3xtf32():
