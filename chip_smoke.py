@@ -656,8 +656,9 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
     launch); row 17 one "conv" product a call; the fp32 forms of K1 and K2
     two fp32 GEMM products each, K3's one, K5's two (dattn, dx) and K6's
     three (fc1 with gelu', dh * gelu', dn2) plus m where it recomputes m
-    (`f32_recomputed` of its launches), and two fp32 weight gradients each
-    of K5's and K6's; the fp32 forms of rows 12 and 13 two fp32 GEMM
+    (`f32_recomputed` of its launches), and K5's and K6's two fp32 weight
+    gradients in one fp32 weight-gradient launch each (dwqkv and dwproj,
+    dw1 and dw2 in one queue); the fp32 forms of rows 12 and 13 two fp32 GEMM
     products each (fc1, fc2), row 17's one "conv_f32" product a call.
     `m_saved`: the block calls
     whose K2 saves m and whose K6 takes it (0 where nothing is trained;
@@ -689,8 +690,8 @@ def check_gemm_launches(tag, counts, forms, m_saved=None,
              ("conv_f32", forms["conv_f32"],
               counts.get("conv3x3_bn_act_f32", 0)),
              ("wgrad_f32", forms["wgrad_f32"],
-              2 * (counts["swin_block_attention_bwd_f32"]
-                   + counts["swin_block_epilogue_bwd_f32"]))]
+              counts["swin_block_attention_bwd_f32"]
+              + counts["swin_block_epilogue_bwd_f32"])]
     if m_saved is not None:
         m_used = m_saved if m_used is None else m_used
         rules += [("resid_f32", forms["resid_f32"], k2 - m_saved),

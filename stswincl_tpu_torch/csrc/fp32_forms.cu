@@ -78,8 +78,11 @@
 //     columns of one row a lane, stored
 //     whole): act(v) stored, v added into C (K2's residual s + MLP), K6's
 //     gelu(v) and gelu'(v) from one erf evaluation, and v times an aux
-//     matrix (K6's dh * gelu'). Ragged M, N and K are zero-filled on load
-//     and masked on store; K is a multiple of 4.
+//     matrix (K6's dpre = dh * gelu') with, where asked, the column sums
+//     of each 128-row tile (db1's partials: a warp's 16 rows by shuffles,
+//     `col_sum8`, then the 8 warps in order through 4 KiB of shared
+//     memory), so no pass over R x hidden sums db1. Ragged M, N and K are
+//     zero-filled on load and masked on store; K is a multiple of 4.
 //   - the attention (`attn_f32_kernel`, the core `attn32::pairs` of
 //     fp32_attention.cuh): persistent blocks of TN / 16 warps, as many as
 //     the SMs hold (one at stage 1, whose pair of q, k and v in fp32 rows
@@ -141,7 +144,9 @@ using sm90::tma_load;
 // which ptxas holds a thread to 168 registers; a consumer's 64 sums, 64
 // k-tile partials and 32 A fragment halves fit.
 constexpr int THREADS = 384;
-constexpr int SMEM = 1024 + f32t::RING_BYTES + 3 * STAGES * 8;
+// the ring, its barriers, then F32_DGELU's column sums: a consumer warp's
+// 16-row sums of the tile's 128 columns each, twice (tiles alternate)
+constexpr int SMEM = 1024 + f32t::RING_BYTES + 3 * STAGES * 8 + 2 * 8 * BN * 4;
 
 // How A arrives: one 2-D TMA box a stage (the identity row map), or
 // cp.async through the row map (or row 17's tap map).
@@ -189,6 +194,30 @@ __device__ __forceinline__ bool kt_live(uint32_t live, int kt, int Cin, int K) {
   const int k0 = kt * BK, k1 = min(k0 + BK, K) - 1;
   const int t0 = k0 / Cin, t1 = k1 / Cin;
   return live & (((2u << t1) - 1) & ~((1u << t0) - 1));
+}
+
+// A warp's sums over its 16 rows of 8 consecutive columns, v the lane's
+// values from `rows8` (lane 4 g + t: row g + 8 (t >> 1), columns 8 (t & 1)
+// on from the caller's dst): halved across lanes 16, 8, 4 apart (each keeps
+// 4, 2, 1 columns and adds its partner's), then the two row halves (lanes
+// 2 apart) added; lane 4 g + t (t < 2) writes column g of its 8 to dst[g].
+// A fixed tree: the same bits every call.
+__device__ __forceinline__ void col_sum8(const float (&v)[8], float* dst,
+                                         int lane) {
+  const unsigned all = 0xffffffffu;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (b4 ? v[i + 4] : v[i]) +
+           __shfl_xor_sync(all, b4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (b3 ? a[i + 2] : a[i]) +
+           __shfl_xor_sync(all, b3 ? a[i] : a[i + 2], 8);
+  float c = (b2 ? b[1] : b[0]) + __shfl_xor_sync(all, b2 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(all, c, 2);
+  if (!(lane & 2)) dst[lane >> 2] = c;
 }
 
 // Position j of a block's walk over its (output tile, k tile) pairs: tiles
@@ -322,6 +351,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* ready = full + STAGES;
   uint64_t* empty = ready + STAGES;
+  float* colred = reinterpret_cast<float*>(empty + STAGES);  // [2][8][BN]
 
   const int M = r.M, N = r.N;
   const int tiles_n = (N + BN - 1) / BN;
@@ -376,6 +406,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < NACC; ++i) sum[i] = d[i] = 0.0f;
   Walk cw = walk_start<CONV>(r, tiles, tiles_n, KT);
   unsigned long long summed = 0;  // row 17: the tile's k tiles summed
+  int parity = 0;                 // F32_DGELU: the half of colred in use
   while (cw.tile < tiles) {
     const int s = cw.j % STAGES;
     mbar_wait(&ready[s], (cw.j / STAGES) & 1);
@@ -431,6 +462,54 @@ __global__ void __launch_bounds__(THREADS, 1)
                 }
             }
           });
+    } else if (EPI == F32_DGELU) {
+      // dpre = v * gelu', and with colpart db1's partial of this row tile:
+      // each warp's 16 rows summed by `col_sum8`, then the 8 warps in
+      // order. The tiles alternate between two halves of colred, so one
+      // barrier a tile orders the writes before the reads and the reads
+      // before the next writes to the same half.
+      const F32Gemm& p = r.g;
+      const bool cols = p.colpart != nullptr;
+      float* red = colred + parity * 8 * BN;
+      parity ^= 1;
+      f32t::rows8(
+          sum, n0,
+          [&](int n, float v) {
+            return v + (p.bias && n < N ? p.bias[n] : 0.0f);
+          },
+          [&](int row, int n, const float(&o)[8]) {
+            const int m = rbase + row;
+            float v[8];
+            if (m < M) {
+              const long long crow = map_row(p.c_map, m) * p.ldc + n;
+              if (r.vec && n + 8 <= N) {
+                f32t::load8(p.aux + crow, v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = o[e] * v[e];
+                f32t::store8(p.C + crow, v);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                  v[e] = n + e < N ? o[e] * p.aux[crow + e] : 0.0f;
+                  if (n + e < N) p.C[crow + e] = v[e];
+                }
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] = 0.0f;
+            }
+            if (cols) col_sum8(v, red + warp * BN + (n - n0), lane);
+          });
+      if (cols) {
+        sm90::consumer_sync();
+        const int c = threadIdx.x;
+        if (c < BN && n0 + c < N) {
+          float v = red[c];
+#pragma unroll
+          for (int w = 1; w < 8; ++w) v += red[w * BN + c];
+          p.colpart[(long long)(m0 / BM) * N + n0 + c] = v;
+        }
+      }
     } else {
       const F32Gemm& p = r.g;
       f32t::rows8(
@@ -458,10 +537,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                   g2[e] = gg.y;
                 }
                 f32t::store8(p.C2 + crow, g2);
-              } else if (EPI == F32_DGELU) {
-                f32t::load8(p.aux + crow, v);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) v[e] = o[e] * v[e];
               } else {
 #pragma unroll
                 for (int e = 0; e < 8; ++e) v[e] = activate(o[e], p.act);
@@ -477,8 +552,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                   const float2 gg = gelu_and_grad(o[e], p.act);
                   cp[e] = gg.x;
                   p.C2[crow + e] = gg.y;
-                } else if (EPI == F32_DGELU) {
-                  cp[e] = o[e] * p.aux[crow + e];
                 } else {
                   cp[e] = activate(o[e], p.act);
                 }
@@ -524,7 +597,7 @@ cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s) {
       !aligned16(p.A) || !aligned16(p.Wt) || p.epi < F32_ACT ||
       p.epi > F32_DGELU ||
       (p.epi == F32_GELU_GRAD && (!p.C2 || p.act == ACT_NONE)) ||
-      (p.epi == F32_DGELU && !p.aux))
+      (p.epi == F32_DGELU && !p.aux) || (p.colpart && p.epi != F32_DGELU))
     return cudaErrorInvalidValue;
   if (p.M == 0) return cudaSuccess;
   Run r{};
@@ -936,16 +1009,19 @@ extern "C" int stswin_window_attention_heads_f32(
 
 // The fp32 GEMM alone (`ops/gemm.linear_f32`): C[c_map(m)] = the epilogue
 // `epi` (F32Epi) of A[a_map(m)] @ Wt^T + bias, with C2 and aux the second
-// output and input of F32_GELU_GRAD and F32_DGELU (else null). The row
-// maps (mode 1: the window partition over (T, H, W, ws) with its shift)
-// share the grid.
+// output and input of F32_GELU_GRAD and F32_DGELU (else null); F32_DGELU
+// with colsum (N) also its column sums, the epilogue's per-row-tile
+// partials in work (`stswin_gemm_f32_colsum_work` floats) summed in
+// order. The row maps (mode 1: the window partition over (T, H, W, ws)
+// with its shift) share the grid.
 extern "C" int stswin_gemm_f32(const void* A, const void* Wt,
                                const void* bias, void* C, void* C2,
-                               const void* aux, int M, int N, int K,
-                               int lda, int ldc, int act, int epi,
-                               int a_mode, int c_mode, int T, int H, int W,
-                               int ws, int a_shift, int c_shift,
-                               void* stream) {
+                               const void* aux, void* colsum, void* work,
+                               int M, int N, int K, int lda, int ldc,
+                               int act, int epi, int a_mode, int c_mode,
+                               int T, int H, int W, int ws, int a_shift,
+                               int c_shift, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   F32Gemm g = plain_gemm(static_cast<const float*>(A), lda,
                          static_cast<const float*>(Wt),
                          static_cast<const float*>(bias), M, N, K,
@@ -953,9 +1029,23 @@ extern "C" int stswin_gemm_f32(const void* A, const void* Wt,
   g.epi = epi;
   g.C2 = static_cast<float*>(C2);
   g.aux = static_cast<const float*>(aux);
+  if (colsum) {
+    if (!work || M <= 0) return cudaErrorInvalidValue;
+    g.colpart = static_cast<float*>(work);
+  }
   if (a_mode) g.a_map = RowMap{1, T, H, W, ws, a_shift};
   if (c_mode) g.c_map = RowMap{1, T, H, W, ws, c_shift};
-  return gemm_f32(g, static_cast<cudaStream_t>(stream));
+  const cudaError_t err = gemm_f32(g, s);
+  if (err != cudaSuccess || !colsum) return err;
+  return sum_parts(g.colpart, f32_col_tiles(M), N, N,
+                   static_cast<float*>(colsum), s);
+}
+
+// A query, not a launch: the floats of `stswin_gemm_f32`'s column-sum
+// partials.
+extern "C" int stswin_gemm_f32_colsum_work(int M, int N, long long* out) {
+  *out = static_cast<long long>(f32_col_tiles(M)) * N;
+  return 0;
 }
 
 // The fp32 GEMMs' launches (a query, not a launch), those inside the fp32

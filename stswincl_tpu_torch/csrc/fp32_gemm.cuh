@@ -1,11 +1,13 @@
 // The fp32 product tile: fp32-accurate products as 3xTF32 on Hopper's
 // tensor cores (wgmma), the one k-tile function every fp32 product of the
-// port outside the attention core and `wgrad_f32` sums k through: the fp32
-// GEMM of fp32_forms.cu (K1-K3, and the fp32 backward forms of
-// fp32_train.cu and rows 12 and 13 of fp32_offpath.cu through it), row
-// 17's fp32 implicit GEMM (`conv_f32`, on the GEMM's kernel) and row 16's
-// four product phases (fp32_whole_block.cu). Also the LN2 row pass of
-// fp32_forms.cu and K2's LayerNorm row, shared with row 16.
+// port outside the attention cores sums k through: the fp32 GEMM of
+// fp32_forms.cu (K1-K3, and the fp32 backward forms of fp32_train.cu and
+// rows 12 and 13 of fp32_offpath.cu through it), row 17's fp32 implicit
+// GEMM (`conv_f32`, on the GEMM's kernel), row 16's four product phases
+// (fp32_whole_block.cu) and the weight gradients (`wgrad_f32`,
+// fp32_train.cu, K = the token rows, A's fragments from its r-major tile
+// through `ktile_frags`). Also the LN2 row pass of fp32_forms.cu and K2's
+// LayerNorm row, shared with row 16.
 //
 // Why 3xTF32 on wgmma. The tensor cores have no fp32 product, and one TF32
 // pass keeps 10 of an operand's 23 mantissa bits, which an fp32 model does
@@ -23,8 +25,8 @@
 // steps (the first from zero), then a_hi b_lo, then a_hi b_hi, so the small
 // terms are summed first. The tensor cores' accumulation drops the bits
 // past its sum's last (a bias toward zero that drifts over a long chain:
-// 5.7e-5 against the 2e-5 bound over `wgrad_f32`'s 8,192-row chain on the
-// card), so each k tile's sum is formed from zero and added to a second
+// 5.7e-5 against the 2e-5 bound over an 8,192-row weight-gradient chain on
+// the card), so each k tile's sum is formed from zero and added to a second
 // register set of fp32 sums, rounded to nearest: 64 + 64 accumulators a
 // thread.
 //
@@ -64,7 +66,11 @@
 //   F32_RESID      C += v (K2's residual s + MLP);
 //   F32_GELU_GRAD  C = gelu(v), C2 = gelu'(v), one erf evaluation (act
 //                  names the GELU; K6's fc1);
-//   F32_DGELU      C = v * aux (K6's dpre = dh * gelu'); aux may be C.
+//   F32_DGELU      C = v * aux (K6's dpre = dh * gelu'); aux may be C;
+//                  with colpart, the column sums of v * aux over each
+//                  128-row tile i into colpart[i * N + n] (db1's
+//                  per-row-tile partials, in a fixed order; rows past M
+//                  add 0), `f32_col_tiles(M)` of them.
 // C2 and aux share C's row map and ldc.
 enum F32Epi { F32_ACT = 0, F32_RESID = 1, F32_GELU_GRAD = 2, F32_DGELU = 3 };
 
@@ -82,11 +88,20 @@ struct F32Gemm {
   int epi;
   float* C2;
   const float* aux;
+  float* colpart;
 };
 
 // Requires K % 4 == 0, lda % 4 == 0 and A, Wt 16-byte aligned; M and N
 // ragged.
 cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s);
+
+// The 128-row tiles of M rows: F32_DGELU's column-sum partials.
+inline int f32_col_tiles(int M) { return (M + 127) / 128; }
+
+// out[i] = sum over s of part[s * stride + i], i < len, in a fixed order
+// (fp32_train.cu): the second pass of every sum that spans blocks.
+cudaError_t sum_parts(const float* part, int parts, long long stride,
+                      long long len, float* out, cudaStream_t s);
 
 F32Gemm plain_gemm(const float* A, int lda, const float* Wt,
                    const float* bias, int M, int N, int K, float* C, int ldc,
@@ -246,30 +261,24 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// The k tile, by the calling warpgroup (all 128 threads): sum += A B^T over
-// 32 k, fp32-accurate. sa: the warpgroup's 64 rows of the stage's A (raw,
-// swizzled, 1024-byte aligned), read a fragment a thread (conflict-free
-// scalar loads) and split in registers; sb, sl: shared addresses of the
-// stage's B hi and B lo (`split_b`). 12 wgmma in one group: a_lo b_hi over
+// The k tile's products, by the calling warpgroup (all 128 threads): sum +=
+// A B^T over 32 k, fp32-accurate, from A's fragments split in registers
+// (hi[kk], lo[kk]: the k8 step kk's a[0..3], a[0] row g col t, a[1] row g
+// + 8 col t, a[2] row g col t + 4, a[3] row g + 8 col t + 4 of the warp's
+// 16 rows) and B's halves in shared memory (sb, sl: the stage's B hi and B
+// lo, K-major, 128-byte swizzled). 12 wgmma in one group: a_lo b_hi over
 // the four k8 steps (the first from zero), then a_hi b_lo, then a_hi b_hi,
 // so the small terms are summed first; then the k tile's sum is added to
 // the fp32 sums, rounded to nearest. d: the k tile's partial, scratch.
-// Returns with the wgmma done: the stage may be reused.
-__device__ __forceinline__ void ktile(float (&sum)[NACC], float (&d)[NACC],
-                                      const float* sa, uint32_t sb,
-                                      uint32_t sl) {
-  const int lane = threadIdx.x & 31, g = lane >> 2;
-  const float* r0 = sa + (((threadIdx.x >> 5) & 3) * 16 + g) * BK + (lane & 3);
-  const float* r1 = r0 + 8 * BK;
-  uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c0 = ((2 * kk) ^ g) << 2, c1 = ((2 * kk + 1) ^ g) << 2;
-    split_rn(r0[c0], hi[kk][0], lo[kk][0]);
-    split_rn(r1[c0], hi[kk][1], lo[kk][1]);
-    split_rn(r0[c1], hi[kk][2], lo[kk][2]);
-    split_rn(r1[c1], hi[kk][3], lo[kk][3]);
-  }
+// Returns with the wgmma done: the stage may be reused. Every fp32 product
+// of the port outside the attention cores sums its k tiles here: the GEMM
+// and row 16 through `ktile`, the weight gradients (fp32_train.cu) from
+// their r-major A.
+__device__ __forceinline__ void ktile_frags(float (&sum)[NACC],
+                                            float (&d)[NACC],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4], uint32_t sb,
+                                            uint32_t sl) {
   sm90::wgmma_fence();
   wgmma_tf32_set(d, lo[0], sm90::sw128_desc(sb));
 #pragma unroll
@@ -288,6 +297,27 @@ __device__ __forceinline__ void ktile(float (&sum)[NACC], float (&d)[NACC],
   fence_frag(lo);
 #pragma unroll
   for (int i = 0; i < NACC; ++i) sum[i] += d[i];
+}
+
+// The k tile of a K-major A: sa, the warpgroup's 64 rows of the stage's A
+// (raw, swizzled, 1024-byte aligned), read a fragment a thread
+// (conflict-free scalar loads) and split in registers; then `ktile_frags`.
+__device__ __forceinline__ void ktile(float (&sum)[NACC], float (&d)[NACC],
+                                      const float* sa, uint32_t sb,
+                                      uint32_t sl) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const float* r0 = sa + (((threadIdx.x >> 5) & 3) * 16 + g) * BK + (lane & 3);
+  const float* r1 = r0 + 8 * BK;
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c0 = ((2 * kk) ^ g) << 2, c1 = ((2 * kk + 1) ^ g) << 2;
+    split_rn(r0[c0], hi[kk][0], lo[kk][0]);
+    split_rn(r1[c0], hi[kk][1], lo[kk][1]);
+    split_rn(r0[c1], hi[kk][2], lo[kk][2]);
+    split_rn(r1[c1], hi[kk][3], lo[kk][3]);
+  }
+  ktile_frags(sum, d, hi, lo, sb, sl);
 }
 
 // The warpgroup's 64 x 128 sums as runs of 8 columns: for each pair of

@@ -15,44 +15,54 @@
 // epilogue.cu) run bf16 operands on the tensor cores; nothing of them is
 // shared here but the row map and the GELU of common.cuh.
 //
-// Bound on the H100: the products. The fp32 GEMM's (`gemm_f32`, the tile
-// of fp32_gemm.cuh) and the weight gradients (`wgrad_f32`) run on the
-// tensor cores as a 3xTF32 split (tf32x3.cuh: fp32-accurate at a third of
-// the TF32 rate, 164.9 TFLOP/s; one TF32 pass is not fp32), the GEMM on
-// wgmma, `wgrad_f32` and K5's attention backward (fp32_attention_bwd.cuh)
-// on mma.sync. K5 at stage 1 (794 GFLOP: 344 weight
-// gradients, 344 GEMM, 106 attention) at least 5.8 ms, K6 with m
-// recomputed (2,062 GFLOP, all products) 12.5 ms, K6 with m saved at stage
-// 2 (1,718 GFLOP) 10.4 ms. A weight gradient alone: K5's dwqkv at stage
-// 1, (163840, 1536)^T (163840, 512), 257.7 GFLOP, at least 1.56 ms.
+// Bound on the H100: the products. Every product runs on the tensor cores
+// as a 3xTF32 split (fp32-accurate at a third of the TF32 rate, 164.9
+// TFLOP/s; one TF32 pass is not fp32): the fp32 GEMM (`gemm_f32`) and the
+// weight gradients (`wgrad_f32`) on the wgmma k tile of fp32_gemm.cuh, K5's
+// attention backward (fp32_attention_bwd.cuh) on mma.sync (tf32x3.cuh). K5
+// at stage 1 (794 GFLOP: 344 weight gradients, 344 GEMM, 106 attention) at
+// least 5.8 ms, K6 with m recomputed (2,062 GFLOP, all products) 12.5 ms,
+// K6 with m saved at stage 2 (1,718 GFLOP) 10.4 ms; K6's two weight
+// gradients (687 GFLOP) 4.17 ms.
 //
 // Every reduction is deterministic: no float atomics anywhere. A sum that
-// spans blocks is written as one partial a block (or a split of the rows)
-// into scratch and summed by a second launch in a fixed order
-// (`sum_parts`), so two calls on the same inputs give the same bits.
+// spans blocks is written as one partial a block (or a split of the rows,
+// or a row tile) into scratch and summed by a second launch in a fixed
+// order (`sum_parts`), so two calls on the same inputs give the same bits.
 //
 // Design:
 //   - `wgrad_f32`: out = sum_r A[a_map(r)]^T B[b_map(r)], the weight
-//     gradients, on mma.sync m16n8k8 tf32, three passes a product. A 128 x
-//     128 output tile a block of 8 warps (64 x 32 a warp: 16 sub-tiles of
-//     16 x 8, every pass over all 16 so the dependent mmas of a sub-tile
-//     are 15 apart), the rows r in k tiles of 32 through a four-stage
-//     cp.async ring; each operand row read through its RowMap. Both
-//     operands arrive R-major (M- and N-major), the layout tf32 wgmma
-//     cannot read (it takes tf32 from shared memory K-major only); mma.sync
-//     reads its fragments with scalar loads from the raw tiles at a row
-//     pitch of 8 mod 32 words (conflict-free), splitting each value as it
-//     is read, so no transposed or split copy is written: the simpler of
-//     the two designs, at the cost of mma.sync's rate (about 300 TFLOP/s
-//     of TF32 on the H100, `tools/profile_mma_rate.py`, against the 494.7
-//     that wgmma reaches). Each k tile sums in the
-//     mma from 0 and is added to the thread's fp32 sums, rounded to
-//     nearest: the mma's accumulation truncates, and over a split of
-//     thousands of rows that drifts past the fp32 bound. R is split in
-//     `wgrad_splits(R, M, N)` ranges, the count that fills the card's
-//     waves best (11 for stage 1's dwqkv), a split a z-block, each
-//     writing its partial; `sum_parts` adds them in order.
-//   - `colsum_f32`: the bias gradients, the column sums of a row matrix:
+//     gradients, on the fp32 GEMM's wgmma tile with K = r: 128 x 128
+//     output tiles, 32-row k tiles, each k tile's 12 wgmma m64n128k8
+//     (a_lo b_hi, a_hi b_lo, a_hi b_hi, `split_rn` on both halves) summed
+//     from 0 and added to fp32 sums rounded to nearest (`ktile_frags`).
+//     Both operands arrive r-major (M- and N-major), and a tf32 wgmma reads
+//     its shared-memory operand K-major only. Of the two ways round it,
+//     this takes A from registers and transposes B in the producer: A's
+//     raw k tile lands by cp.async at a row pitch of 8 mod 32 words, and
+//     each consumer thread reads its fragments (any layout will do for
+//     registers, conflict-free here) and splits them, as the GEMM's
+//     consumers split theirs; B lands raw in its lo slot, and the producer
+//     warpgroup, a thread a column, writes it K-major and swizzled as hi,
+//     then (after the producers' barrier) as lo. The other way, having
+//     the LN2 pass and fc1's epilogue write n2 and h r-minor, would leave
+//     do and dpre, and K5's x, dqkv, g and attn, r-major all the same, and
+//     the GEMMs that read n2 and h as A would read them strided. A k tile
+//     moves about the GEMM's 192 KiB through shared memory. One
+//     persistent launch, one block an SM (197 KiB), two consumer
+//     warpgroups and a producer warpgroup that loads through the row maps
+//     (16 rows a warp a k tile, lanes 0-15 mapping one each: K5's x through
+//     the shifted window partition, g through the window partition),
+//     walks a queue of up to two weight gradients over the same rows (K5's
+//     dwqkv and dwproj, K6's dw1 and dw2: one launch each), their output
+//     tiles times `wgrad_splits(R, tiles)` ranges of R, the count that
+//     fills the card's waves best (K6 at stage 1 none, 128 tiles; 17 at
+//     stage 2; K5 2 / 17), each split's partial summed in order by
+//     `sum_parts`. On an H100 at 700 W (`tools/profile_k6_f32.py`) K6's
+//     dw1 and dw2 at stage 1 take 8.38-8.52 ms a call, 0.49-0.50 of their
+//     bound, where the mma.sync tile they replace took 11.26-11.60 in two
+//     launches.
+//   - `colsum_f32`: K5's bias gradients, the column sums of a row matrix:
 //     a thread a column over 1,024 rows, then the partials in order.
 //   - K5's attention backward (fp32_attention_bwd.cuh, which says how):
 //     a query pass (dq, each query row's max, 1 / sum and D, per-block
@@ -67,24 +77,32 @@
 //   - K5 (`stswin_block_attention_bwd_f32`), bf16 K5's plan in fp32:
 //     dattn = g @ wproj (g gathered by the window partition), the two
 //     passes, dx = dqkv @ wqkv scattered back through the shift map,
-//     dwqkv and dwproj on `wgrad_f32`, dbqkv and dbproj on `colsum_f32`.
+//     dwqkv and dwproj in one `wgrad_f32` launch, dbqkv and dbproj on
+//     `colsum_f32`.
 //   - K6 (`stswin_block_epilogue_bwd_f32`), bf16 K6's seven steps in fp32:
 //     s = x + unshift(y) and LN2(s); fc1 writing h and gelu' (F32_GELU_GRAD)
 //     and, without a saved m, m = h @ w2^T + bw2; the LN1 backward row pass
 //     (do, with the column sums ds1, db1n, dbw2); dpre = (do @ w2) * gelu'
-//     (F32_DGELU, in place over gelu') and db1 = its column sums; dn2 =
-//     dpre @ w1; the LN2 backward row pass (dx unshifted, dy through the
-//     shift, the sums ds2 and db2); dw1 and dw2 on `wgrad_f32`. gelu'
-//     goes through device memory for both rows (1.34 GB at stage 1); in
-//     fp32 dm is do itself. The row passes run a fixed grid of at most
-//     1,024 blocks, a warp a row; each block sums its rows' terms in
-//     registers, then its 8 warps in order, into its partial.
+//     (F32_DGELU, in place over gelu'), its epilogue also summing each
+//     128-row tile's columns into db1's partials (`sum_parts` adds the
+//     R / 128 of them in order; the `colsum_f32` pass over R x hidden it
+//     replaces took 0.48 ms at stage 1, the epilogue's sums add 0.17-0.27
+//     ms to dpre's 4.7); dn2 = dpre @ w1; the LN2 backward row pass (dx
+//     unshifted, dy through the shift, the sums ds2 and db2); dw1 and dw2
+//     in one `wgrad_f32` launch. gelu' goes through device memory for both
+//     rows (1.34 GB written and read at stage 1, about 0.4 ms each way):
+//     fusing it into dpre's epilogue would store the pre-activation in its
+//     place, as many bytes, so it stays; fc1 (6.1-6.3 ms) and dpre (4.9-5.0)
+//     sit at 2.4-3x their 2.08 ms product bound, the wgmma tile's K = 512
+//     regime, not their bytes. In fp32 dm is do itself. The row passes run
+//     a fixed grid of at most 1,024 blocks, a warp a row; each block sums
+//     its rows' terms in registers, then its 8 warps in order, into its
+//     partial.
 
 #include <atomic>
 
 #include "fp32_attention_bwd.cuh"
 #include "fp32_gemm.cuh"
-#include "tf32x3.cuh"
 
 namespace {
 
@@ -98,27 +116,6 @@ constexpr int CS_ROWS = 1024;
 constexpr int RW = 8;             // warps a row-pass block
 constexpr int ROW_BLOCKS = 1024;  // the row passes' grid, at most
 
-// The ranges R is split in for an (M, N) output: of 1 .. min(32, R /
-// 2048), the count whose blocks (128 x 128 tiles times splits, one an SM)
-// fill their waves of WAVE best, the fewest on a tie. It depends on the
-// shapes alone, so every card sums in the same order.
-inline int wgrad_splits(int R, int M, int N) {
-  const long long tiles = (long long)((M + 127) / 128) * ((N + 127) / 128);
-  int most = R / WSPLIT_ROWS;
-  most = most < 1 ? 1 : (most > WSPLIT_MAX ? WSPLIT_MAX : most);
-  int best = 1;
-  double fill = 0.0;
-  for (int s = 1; s <= most; ++s) {
-    const long long blocks = tiles * s;
-    const double f =
-        double(blocks) / double((blocks + WAVE - 1) / WAVE * WAVE);
-    if (f > fill + 1e-9) {
-      fill = f;
-      best = s;
-    }
-  }
-  return best;
-}
 inline int cs_splits(int R) { return R < 1 ? 1 : (R + CS_ROWS - 1) / CS_ROWS; }
 inline int row_blocks(int R) {
   const int b = (R + RW - 1) / RW;
@@ -134,13 +131,6 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, int parts,
   float v = part[i];
   for (int s = 1; s < parts; ++s) v += part[s * stride + i];
   out[i] = v;
-}
-
-cudaError_t sum_parts(const float* part, int parts, long long stride,
-                      long long len, float* out, cudaStream_t s) {
-  sum_parts_kernel<<<static_cast<unsigned>((len + 255) / 256), 256, 0, s>>>(
-      part, parts, stride, len, out);
-  return cudaGetLastError();
 }
 
 // part[s][n] = sum of X[r][n] over the rows r of split s, r ascending
@@ -171,15 +161,8 @@ cudaError_t colsum_f32(const float* X, long long ld, int R, int N, float* out,
 
 // ---- the weight-gradient GEMM ------------------------------------------
 
-// A 128 x 128 output tile a block of 8 warps, each warp 64 (m) x 32 (n);
-// the rows r in k tiles of 32 through a four-stage cp.async ring of raw
-// fp32 [r][m] and [r][n] tiles, rows padded to 136 floats (139 KiB: one
-// block an SM, up to 255 registers a thread).
-constexpr int WBM = 128, WBN = 128, WBK = 32, WSTAGES = 4;
-constexpr int WPITCH = WBM + 8;  // 8 mod 32 words: fragment reads t * 8 + g
-constexpr int WTHREADS = 256;
-constexpr size_t WSMEM = size_t(2) * WSTAGES * WBK * WPITCH * sizeof(float);
-
+// One weight gradient: out (M, N) = sum_r A[a_map(r)]^T B[b_map(r)], A
+// rows of lda, B rows of ldb.
 struct F32Wgrad {
   const float* A;
   long long lda;
@@ -208,12 +191,13 @@ struct FastDiv {
   }
 };
 
-// `map_row` with its five divisions by multiply-high: the weight-gradient
-// loader maps 8 rows a warp and k tile, and the divisions of the plain
-// form cost as many issue slots as a tenth of the tile's products.
+// `map_row` with its five divisions by multiply-high: the loader maps 16
+// rows a warp and k tile, and the divisions of the plain form cost as
+// many issue slots as the rest of the producer's k tile.
 struct FastMap {
   int mode, T, H, W, ws, shift, TN, N, nWin, nWw;
   FastDiv by_TN, by_N, by_ws, by_nWin, by_nWw;
+  FastMap() : FastMap(identity_map()) {}
   explicit FastMap(const RowMap& m)
       : mode(m.mode), T(m.T), H(m.H), W(m.W), ws(m.ws), shift(m.shift),
         TN(m.T * m.ws * m.ws), N(m.ws * m.ws),
@@ -234,161 +218,358 @@ struct FastMap {
   }
 };
 
-// dst[split][m][n] (rows of N) = the sum over the split's rows, k tile by
-// k tile in ascending r. A warp's 4 x 4 sub-tiles of 16 x 8 take each k
-// step of 8 rows as three mma.sync m16n8k8 tf32 passes (tf32x3.cuh: the
-// small terms, then the big), every pass over all 16 sub-tiles before the
-// next, so each mma has 15 others between it and the one it waits for.
-// The k tile's four steps sum in the mma from 0 and are then added to the
-// thread's fp32 sums, rounded to nearest: the mma's own accumulation
-// drops the bits past its sum's last (a bias toward zero), which over a
-// split's thousands of rows drifts past the fp32 bound, over 32 rows not.
-// The tiles stay as they arrive, r-major (M- and N-major): the A fragment
-// (row m, column r) reads As[r][m] and the B fragment (row r, column n)
-// Bs[r][n] with scalar loads, each value split into its TF32 halves in
-// registers as it is read, so no transposed copy is made.
-__global__ void __launch_bounds__(WTHREADS, 1)
-    wgrad_f32_kernel(const F32Wgrad p, const FastMap a_map,
-                     const FastMap b_map, int chunk,
-                     float* __restrict__ dst) {
-  extern __shared__ __align__(16) float wsm[];
-  float* As = wsm;                           // [WSTAGES][WBK][WPITCH]
-  float* Bs = wsm + WSTAGES * WBK * WPITCH;  // the same
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
-  const int m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
-  const int r0 = blockIdx.z * chunk;
-  const int r1 = r0 + chunk < p.R ? r0 + chunk : p.R;
-  // the loader: rows lr + 8 i of the k tile, the 16-byte chunk at lc. The
-  // warp's 2 x 4 row indices (A's and B's, each through its row map) are
-  // computed by lanes 0-7, one each, and shuffled to the rest.
-  const int lr = tid >> 5, lc = (tid & 31) * 4;
-  const bool a_col = m0 + lc < p.M, b_col = n0 + lc < p.N;
-  const int nk = r1 > r0 ? (r1 - r0 + WBK - 1) / WBK : 0;
-  static_assert(WBK == 32, "the loader maps 4 rows an operand a warp");
-  auto load = [&](int stage, int kt) {
-    const int rr = r0 + kt * WBK + lr + 8 * (lane & 3);
-    const long long mine =
-        rr < r1 ? ((lane & 4) ? b_map(rr) : a_map(rr)) : -1;
-#pragma unroll
-    for (int i = 0; i < WBK / 8; ++i) {
-      const long long ra = __shfl_sync(0xffffffffu, mine, i);
-      const long long rb = __shfl_sync(0xffffffffu, mine, 4 + i);
-      const bool rin = ra >= 0;
-      const float* a =
-          p.A + (rin ? ra : 0) * p.lda + (a_col ? m0 + lc : 0);
-      const float* b =
-          p.B + (rin ? rb : 0) * p.ldb + (b_col ? n0 + lc : 0);
-      const int o = (stage * WBK + lr + 8 * i) * WPITCH + lc;
-      cp_async16(As + o, a, rin && a_col);
-      cp_async16(Bs + o, b, rin && b_col);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < WSTAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  float acc[16][4];  // sub-tile 4 i + j: rows wm + 16 i, columns wn + 8 j
-#pragma unroll
-  for (int u = 0; u < 16; ++u)
-    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
+using f32t::BK;
+using f32t::BM;
+using f32t::BN;
+using f32t::NACC;
+using f32t::STAGES;
+using f32t::TILE;
 
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(WSTAGES - 2) : "memory");
-    __syncthreads();  // stage kt landed; stage kt - 1's readers done
-    const int next = kt + WSTAGES - 1;
-    if (next < nk) load(next % WSTAGES, next);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int st = kt % WSTAGES;
-    float d[16][4];
-#pragma unroll
-    for (int k0 = 0; k0 < WBK; k0 += 8) {
-      const float* a = As + (st * WBK + k0 + tq) * WPITCH + wm + g;
-      const float* b = Bs + (st * WBK + k0 + tq) * WPITCH + wn + g;
-      tf32x3::FragA fa[4];
-      tf32x3::FragB fb[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) fb[j].set(b[8 * j], b[4 * WPITCH + 8 * j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        fa[i].set(a[16 * i], a[16 * i + 8], a[4 * WPITCH + 16 * i],
-                  a[4 * WPITCH + 16 * i + 8]);
-#pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        if (k0 == 0)
-          tf32x3::mma1688_from0(d[u], fa[u / 4].lo, fb[u % 4].hi[0],
-                                fb[u % 4].hi[1]);
-        else
-          tf32x3::mma1688(d[u], fa[u / 4].lo, fb[u % 4].hi[0],
-                          fb[u % 4].hi[1]);
-      }
-#pragma unroll
-      for (int u = 0; u < 16; ++u)
-        tf32x3::mma1688(d[u], fa[u / 4].hi, fb[u % 4].lo[0], fb[u % 4].lo[1]);
-#pragma unroll
-      for (int u = 0; u < 16; ++u)
-        tf32x3::mma1688(d[u], fa[u / 4].hi, fb[u % 4].hi[0], fb[u % 4].hi[1]);
-    }
-#pragma unroll
-    for (int u = 0; u < 16; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[u][e] += d[u][e];
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// A launch's weight gradients: at most two, over the same R rows (K5's
+// dwqkv and dwproj, K6's dw1 and dw2), their 128 x 128 output tiles times
+// the splits of R in one queue.
+constexpr int WG_MAX = 2;
+// A stage: A's k tile raw, [32 r][128 m] at a row pitch of 8 mod 32 words
+// (the fragment reads t * 136 + g are conflict-free), then B's k tile as
+// hi and lo, K-major [128 n][32 r], 128-byte swizzled (1024-aligned: the
+// A slot is 17 KiB); B arrives raw, [32 r][128 n], in the lo slot.
+constexpr int APITCH = BM + 8;
+constexpr int A_SLOT = BK * APITCH;  // floats
+constexpr int WSTAGE = A_SLOT + 2 * TILE;
+constexpr int W_THREADS = 384;
+constexpr int W_SMEM = 1024 + STAGES * WSTAGE * 4 + 3 * STAGES * 8;
+static_assert(A_SLOT * 4 % 1024 == 0, "B hi and lo 1024-byte aligned");
 
-  float* out = dst + (long long)blockIdx.z * p.M * p.N;
+struct WgradRun {
+  F32Wgrad p[WG_MAX];
+  FastMap am[WG_MAX], bm[WG_MAX];
+  float* dst[WG_MAX];  // out, or the splits' partials [split][M][N]
+  int tiles[WG_MAX], tiles_n[WG_MAX];
+  int items0, items;  // problem 0's queue entries, all of them
+  int splits, chunk;  // chunk: rows a split, a multiple of BK
+};
+
+// Queue entry q: problem 0's (split, m tile, n tile) split-major, then
+// problem 1's; rows [r0, r1) of the split.
+struct WItem {
+  int p, split, m0, n0, r0, r1, kts;
+};
+
+__device__ __forceinline__ WItem witem(const WgradRun& w, int q) {
+  WItem it;
+  it.p = q >= w.items0;
+  const int i = it.p ? q - w.items0 : q;
+  const int tiles = w.tiles[it.p], tn = w.tiles_n[it.p];
+  it.split = i / tiles;
+  const int t = i - it.split * tiles;
+  it.m0 = (t / tn) * BM;
+  it.n0 = (t % tn) * BN;
+  it.r0 = it.split * w.chunk;
+  it.r1 = min(it.r0 + w.chunk, w.p[it.p].R);
+  it.kts = (it.r1 - it.r0 + BK - 1) / BK;
+  return it;
+}
+
+// A block's walk over its (queue entry, k tile) pairs: entries
+// blockIdx.x, + gridDim.x, ...; k tile j of the walk in stage j % STAGES.
+// Four registers: the consumers' 168 hold their sums, partials and A
+// fragments besides (an entry carried along spilled).
+struct WWalk {
+  int q, kt, j, kts;
+};
+
+__device__ __forceinline__ void wstep(WWalk& w, const WgradRun& r) {
+  if (++w.kt == w.kts) {
+    w.kt = 0;
+    w.q += gridDim.x;
+    if (w.q < r.items) w.kts = witem(r, w.q).kts;
+  }
+  ++w.j;
+}
+
+__device__ __forceinline__ WWalk wstart(const WgradRun& r) {
+  WWalk w{static_cast<int>(blockIdx.x), 0, 0, 0};
+  if (w.q < r.items) w.kts = witem(r, w.q).kts;
+  return w;
+}
+
+// dst[p][split][m][n] (rows of N) = the sum over the split's rows, k tile
+// by k tile in ascending r, of A[a_map(r)][m] B[b_map(r)][n]: the fp32
+// GEMM's tile (fp32_forms.cu) with K = r. Two consumer warpgroups, each on
+// a 64-row half of the 128 x 128 output tile, wait for a stage, split A's
+// fragments from the raw r-major tile in registers (a thread reads any
+// layout) and run the k tile's 12 wgmma (`f32t::ktile_frags`); the
+// producer warpgroup loads A and B by cp.async through their row maps
+// (K5's window partition and shift), 16 rows a warp, lanes 0-15 mapping
+// one each, then turns B's raw k tile into the K-major hi and lo a tf32
+// wgmma reads from shared memory: thread n reads column n (conflict-free),
+// writes its hi row, and after the producers' barrier (the raw tile lies
+// under lo) its lo row (`split_rn`, 16-byte stores, the swizzle keeping
+// them conflict-free).
+__global__ void __launch_bounds__(W_THREADS, 1)
+    wgrad_f32_kernel(const __grid_constant__ WgradRun r) {
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * WSTAGE);
+  uint64_t* ready = full + STAGES;
+  uint64_t* empty = ready + STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 128);  // each producer thread's cp.async
+      sm90::mbar_init(&ready[s], 128);
+      sm90::mbar_init(&empty[s], 8);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- the producer warpgroup ----
+    // 80 registers a thread, so that each consumer may hold 208: at 168
+    // all round a consumer spilled (144 bytes) and K6's dw1 and dw2 took
+    // 8.95-9.08 ms at stage 1 on an H100 at 700 W, at 80 / 208 8.31-8.49
+    // (72 / 216: 8.78-8.95). 128 x 88 registers freed cover 256 x 40 more.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
+    const int pt = threadIdx.x - 256, pw = pt >> 5;
+    // k tile j's rows r0 + 32 kt + pw + 4 i (i < 8), A's and B's each
+    // mapped by one of lanes 0-15, then a row an instruction, lane l its
+    // 16 bytes at column 4 l
+    WItem lit{};  // the entry of the next k tile to load
+    auto load = [&](const WWalk& w) {
+      const int s = w.j % STAGES;
+      float* as = ring + s * WSTAGE;
+      float* braw = as + A_SLOT + TILE;
+      if (w.kt == 0) lit = witem(r, w.q);
+      const WItem& it = lit;
+      const F32Wgrad& P = r.p[it.p];
+      const int rr = it.r0 + w.kt * BK + pw + 4 * (lane & 7);
+      long long mine = -1;
+      if (lane < 16 && rr < it.r1)
+        mine = lane < 8 ? r.am[it.p](rr) : r.bm[it.p](rr);
+      const int ca = it.m0 + 4 * lane, cb = it.n0 + 4 * lane;
+      const bool a_col = ca < P.M, b_col = cb < P.N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < BK / 4; ++i) {  // 8 rows a warp, 4 warps
+        const long long ra = __shfl_sync(0xffffffffu, mine, i);
+        const long long rb = __shfl_sync(0xffffffffu, mine, 8 + i);
+        const bool rin = ra >= 0;
+        const int row = pw + 4 * i;
+        cp_async16(as + row * APITCH + 4 * lane,
+                   P.A + (rin ? ra : 0) * P.lda + (a_col ? ca : 0),
+                   rin && a_col);
+        cp_async16(braw + row * BN + 4 * lane,
+                   P.B + (rin ? rb : 0) * P.ldb + (b_col ? cb : 0),
+                   rin && b_col);
+      }
+      sm90::cp_async_arrive(&full[s]);
+    };
+    WWalk lw = wstart(r);  // the next k tile to load
+    for (int p = 0; p < STAGES - 1 && lw.q < r.items; ++p) {
+      load(lw);
+      wstep(lw, r);
+    }
+    for (WWalk sw = wstart(r); sw.q < r.items; wstep(sw, r)) {
+      const int s = sw.j % STAGES;
+      sm90::mbar_wait(&full[s], (sw.j / STAGES) & 1);
+      float* bhi = ring + s * WSTAGE + A_SLOT;
+      float* blo = bhi + TILE;
+      float x[BK];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = m0 + wm + 16 * i + g + 8 * hh;
-      if (m >= p.M) continue;
+      for (int k = 0; k < BK; ++k) x[k] = blo[k * BN + pt];
+      const int sw8 = pt & 7;
+      float4* hrow = reinterpret_cast<float4*>(bhi + pt * BK);
+      float4* lrow = reinterpret_cast<float4*>(blo + pt * BK);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + 8 * j + 2 * tq;
-        if (n < p.N)
-          *reinterpret_cast<float2*>(out + (long long)m * p.N + n) =
-              make_float2(acc[4 * i + j][2 * hh], acc[4 * i + j][2 * hh + 1]);
+      for (int u = 0; u < BK / 4; ++u) {
+        uint32_t h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[e] = f32t::tf32_rn(x[4 * u + e]);
+        hrow[u ^ sw8] =
+            make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                        __uint_as_float(h[2]), __uint_as_float(h[3]));
+      }
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");  // the raw tile read
+#pragma unroll
+      for (int u = 0; u < BK / 4; ++u) {
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f32t::split_rn(x[4 * u + e], h[e], l[e]);
+        lrow[u ^ sw8] =
+            make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                        __uint_as_float(l[2]), __uint_as_float(l[3]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      sm90::mbar_arrive(&ready[s]);
+      if (lw.q < r.items) {  // into k tile j - 1's stage, once it is free
+        if (lw.j >= STAGES)
+          sm90::mbar_wait(&empty[lw.j % STAGES], (lw.j / STAGES - 1) & 1);
+        load(lw);
+        wstep(lw, r);
       }
     }
+    return;
+  }
+
+  // ---- the consumer warpgroups: wait, split A, 12 wgmma, add, free ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n" ::: "memory");
+  const int wg = warp >> 2;
+  float sum[NACC], d[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) sum[i] = d[i] = 0.0f;
+  WWalk cw = wstart(r);
+  while (cw.q < r.items) {
+    const int s = cw.j % STAGES;
+    sm90::mbar_wait(&ready[s], (cw.j / STAGES) & 1);
+    const float* as = ring + s * WSTAGE;
+    // A (m, k) at as[k * APITCH + m]: the warp's rows wg * 64 + 16 (warp %
+    // 4) + g (+ 8), k = 8 kk + t (+ 4)
+    const float* a0 =
+        as + (lane & 3) * APITCH + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* a = a0 + 8 * kk * APITCH;
+      f32t::split_rn(a[0], hi[kk][0], lo[kk][0]);
+      f32t::split_rn(a[8], hi[kk][1], lo[kk][1]);
+      f32t::split_rn(a[4 * APITCH], hi[kk][2], lo[kk][2]);
+      f32t::split_rn(a[4 * APITCH + 8], hi[kk][3], lo[kk][3]);
+    }
+    const uint32_t sb = smem_u32(as + A_SLOT);
+    f32t::ktile_frags(sum, d, hi, lo, sb, sb + TILE * 4);
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    const int q = cw.q;
+    wstep(cw, r);
+    if (cw.kt != 0) continue;
+    // the entry's last k tile: store its sums while the producers load the
+    // next entry's
+    const WItem it = witem(r, q);
+    const F32Wgrad& P = r.p[it.p];
+    float* out = r.dst[it.p] + (long long)it.split * P.M * P.N;
+    const int mbase = it.m0 + wg * 64;
+    f32t::rows8(
+        sum, it.n0, [](int, float v) { return v; },
+        [&](int row, int n, const float(&o)[8]) {
+          const int m = mbase + row;
+          if (m >= P.M) return;
+          float* c = out + (long long)m * P.N + n;
+          if (n + 8 <= P.N) {
+            f32t::store8(c, o);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (n + e < P.N) c[e] = o[e];
+          }
+        });
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
   }
 }
 
-// out (M, N) = sum_r A[a_map(r)]^T B[b_map(r)]; part: wgrad_work floats
-cudaError_t wgrad_f32(const F32Wgrad& p, float* out, float* part,
-                      cudaStream_t s) {
-  if (p.R < 0 || p.M <= 0 || p.N <= 0 || p.M % 4 || p.N % 4 || p.lda % 4 ||
-      p.ldb % 4)
-    return cudaErrorInvalidValue;
-  const int splits = wgrad_splits(p.R, p.M, p.N);
-  if (splits > 1 && !part) return cudaErrorInvalidValue;
+// The ranges R is split in for a launch of `tiles` 128 x 128 output
+// tiles: of 1 .. min(32, R / 2048), the count whose blocks (tiles times
+// splits, one an SM) fill their waves of WAVE best, the fewest on a tie.
+// It depends on the shapes alone, so every card sums in the same order.
+inline int wgrad_splits(int R, long long tiles) {
+  int most = R / WSPLIT_ROWS;
+  most = most < 1 ? 1 : (most > WSPLIT_MAX ? WSPLIT_MAX : most);
+  int best = 1;
+  double fill = 0.0;
+  for (int s = 1; s <= most; ++s) {
+    const long long blocks = tiles * s;
+    const double f =
+        double(blocks) / double((blocks + WAVE - 1) / WAVE * WAVE);
+    if (f > fill + 1e-9) {
+      fill = f;
+      best = s;
+    }
+  }
+  return best;
+}
+
+inline long long wgrad_tiles(int M, int N) {
+  return (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+}
+
+// The partials' floats of a launch of the weight gradients (M0, N0) and,
+// where M1 > 0, (M1, N1) over R rows; 0 when R is not split.
+size_t wgrad_work(int R, int M0, int N0, int M1 = 0, int N1 = 0) {
+  const bool two = M1 > 0;
+  const int splits =
+      wgrad_splits(R, wgrad_tiles(M0, N0) + (two ? wgrad_tiles(M1, N1) : 0));
+  return splits > 1
+             ? size_t(splits) * (size_t(M0) * N0 + (two ? size_t(M1) * N1 : 0))
+             : 0;
+}
+
+bool aligned16(const void* q) {
+  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+}
+
+// outs[i] (M, N) = sum_r A[a_map(r)]^T B[b_map(r)] for the n (1 or 2)
+// weight gradients ps over the same R rows, in one launch; part:
+// `wgrad_work` floats (or null when that is 0).
+cudaError_t wgrad_f32(const F32Wgrad* ps, int n, float* const* outs,
+                      float* part, cudaStream_t s) {
+  if (n < 1 || n > WG_MAX) return cudaErrorInvalidValue;
+  const int R = ps[0].R;
+  WgradRun r{};
+  long long tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    const F32Wgrad& p = ps[i];
+    if (p.R != R || R < 0 || p.M <= 0 || p.N <= 0 || p.M % 4 || p.N % 4 ||
+        p.lda % 4 || p.ldb % 4 || !aligned16(p.A) || !aligned16(p.B) ||
+        !aligned16(outs[i]))
+      return cudaErrorInvalidValue;
+    r.p[i] = p;
+    r.am[i] = FastMap(p.a_map);
+    r.bm[i] = FastMap(p.b_map);
+    r.tiles[i] = static_cast<int>(wgrad_tiles(p.M, p.N));
+    r.tiles_n[i] = (p.N + BN - 1) / BN;
+    tiles += r.tiles[i];
+  }
+  if (R == 0) {  // no rows: the sums are 0
+    for (int i = 0; i < n; ++i) {
+      const cudaError_t err = cudaMemsetAsync(
+          outs[i], 0, size_t(ps[i].M) * ps[i].N * sizeof(float), s);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+  r.splits = wgrad_splits(R, tiles);
+  if (r.splits > 1 && !part) return cudaErrorInvalidValue;
+  r.chunk = ((R + r.splits - 1) / r.splits + BK - 1) / BK * BK;
+  size_t off = 0;
+  for (int i = 0; i < n; ++i) {
+    r.dst[i] = r.splits > 1 ? part + off : outs[i];
+    off += size_t(r.splits) * ps[i].M * ps[i].N;
+  }
+  r.items0 = r.tiles[0] * r.splits;
+  r.items = static_cast<int>(tiles * r.splits);
   static bool allowed[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         wgrad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(WSMEM));
+        W_SMEM);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
   }
-  const int chunk = ((p.R + splits - 1) / splits + WBK - 1) / WBK * WBK;
-  const dim3 grid((p.N + WBN - 1) / WBN, (p.M + WBM - 1) / WBM, splits);
-  wgrad_f32_kernel<<<grid, WTHREADS, WSMEM, s>>>(p, FastMap(p.a_map),
-                                                FastMap(p.b_map), chunk,
-                                                splits > 1 ? part : out);
+  const int sms = sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
+  wgrad_f32_kernel<<<r.items < sms ? r.items : sms, W_THREADS, W_SMEM, s>>>(
+      r);
   wgrad_count.fetch_add(1);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long mn = (long long)p.M * p.N;
-  return sum_parts(part, splits, mn, mn, out, s);
-}
-
-size_t wgrad_work(int R, int M, int N) {
-  const int splits = wgrad_splits(R, M, N);
-  return splits > 1 ? size_t(splits) * M * N : 0;
+  if (err != cudaSuccess || r.splits == 1) return err;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    const long long mn = (long long)ps[i].M * ps[i].N;
+    err = sum_parts(r.dst[i], r.splits, mn, mn, outs[i], s);
+  }
+  return err;
 }
 
 // ---- K5's attention backward (fp32_attention_bwd.cuh) --------------------
@@ -507,9 +688,7 @@ K5Work k5_work(int R, int C, int heads, int TN) {
   if (n_windows > 0 && TN > 0 && heads > 0 && C % heads == 0)
     attn32b::q_split(n_windows, heads, TN, C / heads, &per_head, &per_block);
   const size_t cs = size_t(cs_splits(R)) * 3 * C;
-  // dwqkv's and dwproj's partials share the area: the larger of the two
-  const size_t wq = wgrad_work(R, 3 * C, C), wo = wgrad_work(R, C, C);
-  const size_t wp = wq > wo ? wq : wo;
+  const size_t wp = wgrad_work(R, 3 * C, C, C, C);  // dwqkv and dwproj
   w.dattn = 0;
   w.dqkv = w.dattn + size_t(R) * C;
   w.stats = w.dqkv + size_t(R) * 3 * C;
@@ -747,7 +926,7 @@ cudaError_t bwd_rows(int C, bool first, int blocks, cudaStream_t s,
 }
 
 struct K6Work {
-  size_t s32, n2, h, dgelu, m, do32, dn2, rows, cs, wpart, total;
+  size_t s32, n2, h, dgelu, m, do32, dn2, rows, cols, wpart, total;
 };
 
 K6Work k6_work(int R, int C, int hidden, bool recompute) {
@@ -761,9 +940,9 @@ K6Work k6_work(int R, int C, int hidden, bool recompute) {
   w.do32 = w.m + (recompute ? rc : 0);
   w.dn2 = w.do32 + rc;
   w.rows = w.dn2 + rc;
-  w.cs = w.rows + size_t(row_blocks(R)) * 3 * C;
-  w.wpart = w.cs + size_t(cs_splits(R)) * hidden;
-  w.total = w.wpart + wgrad_work(R, hidden, C);
+  w.cols = w.rows + size_t(row_blocks(R)) * 3 * C;
+  w.wpart = w.cols + size_t(f32_col_tiles(R)) * hidden;  // db1's partials
+  w.total = w.wpart + wgrad_work(R, hidden, C, C, hidden);
   return w;
 }
 
@@ -783,6 +962,13 @@ F32Wgrad plain_wgrad(const float* A, int lda, const float* B, int ldb, int R,
 }
 
 }  // namespace
+
+cudaError_t sum_parts(const float* part, int parts, long long stride,
+                      long long len, float* out, cudaStream_t s) {
+  sum_parts_kernel<<<static_cast<unsigned>((len + 255) / 256), 256, 0, s>>>(
+      part, parts, stride, len, out);
+  return cudaGetLastError();
+}
 
 long long wgrad_f32_launches(int reset) {
   return reset ? wgrad_count.exchange(0) : wgrad_count.load();
@@ -835,17 +1021,17 @@ extern "C" int stswin_block_attention_bwd_f32(
   p.c_map = win_shift;
   if ((err = gemm_f32(p, s)) != cudaSuccess) return err;
 
-  // 4. the weight and bias gradients
-  F32Wgrad w = plain_wgrad(dqkv, 3 * C, static_cast<const float*>(x), C, M,
-                           3 * C, C);
-  w.b_map = win_shift;
-  if ((err = wgrad_f32(w, static_cast<float*>(dwqkv), wk + L.wpart, s)) !=
-      cudaSuccess)
-    return err;
-  w = plain_wgrad(gp, C, static_cast<const float*>(attn), C, M, C, C);
-  w.a_map = win;
-  if ((err = wgrad_f32(w, static_cast<float*>(dwproj), wk + L.wpart, s)) !=
-      cudaSuccess)
+  // 4. the weight gradients dwqkv = dqkv^T x (x through the shifted window
+  // map) and dwproj = g^T attn (g through the window map) in one launch,
+  // then the bias gradients
+  F32Wgrad w[2] = {
+      plain_wgrad(dqkv, 3 * C, static_cast<const float*>(x), C, M, 3 * C, C),
+      plain_wgrad(gp, C, static_cast<const float*>(attn), C, M, C, C)};
+  w[0].b_map = win_shift;
+  w[1].a_map = win;
+  float* const wout[2] = {static_cast<float*>(dwqkv),
+                          static_cast<float*>(dwproj)};
+  if ((err = wgrad_f32(w, 2, wout, wk + L.wpart, s)) != cudaSuccess)
     return err;
   if ((err = colsum_f32(dqkv, 3 * C, M, 3 * C, static_cast<float*>(dbqkv),
                         wk + L.cs, s)) != cudaSuccess)
@@ -944,15 +1130,17 @@ extern "C" int stswin_block_epilogue_bwd_f32(
         cudaSuccess)
       return err;
 
-  // 4. dpre = (do @ w2) * gelu', over gelu'; db1 its column sums
+  // 4. dpre = (do @ w2) * gelu', over gelu'; db1 its column sums, each
+  // row tile's taken in the epilogue, then the partials in order
   float* dpre = dgelu;
   p = plain_gemm(do32, C, static_cast<const float*>(w2_t), nullptr, R,
                  hidden, C, dpre, hidden, ACT_NONE);
   p.epi = F32_DGELU;
   p.aux = dgelu;
+  p.colpart = wk + L.cols;
   if ((err = gemm_f32(p, s)) != cudaSuccess) return err;
-  if ((err = colsum_f32(dpre, hidden, R, hidden, static_cast<float*>(db1),
-                        wk + L.cs, s)) != cudaSuccess)
+  if ((err = sum_parts(p.colpart, f32_col_tiles(R), hidden, hidden,
+                       static_cast<float*>(db1), s)) != cudaSuccess)
     return err;
 
   // 5. dn2 = dpre @ w1
@@ -975,13 +1163,11 @@ extern "C" int stswin_block_epilogue_bwd_f32(
         cudaSuccess)
       return err;
 
-  // 7. dw1 = dpre^T n2 (hidden, C), dw2 = do^T h (C, hidden)
-  if ((err = wgrad_f32(plain_wgrad(dpre, hidden, n2, C, R, hidden, C),
-                       static_cast<float*>(dw1), wk + L.wpart, s)) !=
-      cudaSuccess)
-    return err;
-  return wgrad_f32(plain_wgrad(do32, C, h, hidden, R, C, hidden),
-                   static_cast<float*>(dw2), wk + L.wpart, s);
+  // 7. dw1 = dpre^T n2 (hidden, C) and dw2 = do^T h (C, hidden), one launch
+  const F32Wgrad w[2] = {plain_wgrad(dpre, hidden, n2, C, R, hidden, C),
+                         plain_wgrad(do32, C, h, hidden, R, C, hidden)};
+  float* const wout[2] = {static_cast<float*>(dw1), static_cast<float*>(dw2)};
+  return wgrad_f32(w, 2, wout, wk + L.wpart, s);
 }
 
 // The fp32 weight-gradient GEMM alone (`ops/gemm.wgrad_f32`): out (M, N) =
@@ -996,17 +1182,9 @@ extern "C" int stswin_wgrad_f32(const void* A, const void* B, void* out,
                            static_cast<const float*>(B), ldb, R, M, N);
   if (a_mode) w.a_map = RowMap{1, T, H, W, ws, a_shift};
   if (b_mode) w.b_map = RowMap{1, T, H, W, ws, b_shift};
-  return wgrad_f32(w, static_cast<float*>(out), static_cast<float*>(work),
+  float* const outs[1] = {static_cast<float*>(out)};
+  return wgrad_f32(&w, 1, outs, static_cast<float*>(work),
                    static_cast<cudaStream_t>(stream));
-}
-
-// The fixed-order column sums alone: out (N) = sum_r X[r, :N], rows of ld;
-// work: `stswin_colsum_f32_work` floats.
-extern "C" int stswin_colsum_f32(const void* X, void* out, void* work, int R,
-                                 int N, int ld, void* stream) {
-  return colsum_f32(static_cast<const float*>(X), ld, R, N,
-                    static_cast<float*>(out), static_cast<float*>(work),
-                    static_cast<cudaStream_t>(stream));
 }
 
 // Queries, not launches: the fp32 scratch each entry above needs, in
@@ -1026,11 +1204,6 @@ extern "C" int stswin_block_epilogue_bwd_f32_work(int R, int C, int hidden,
 
 extern "C" int stswin_wgrad_f32_work(int R, int M, int N, long long* out) {
   *out = static_cast<long long>(wgrad_work(R, M, N));
-  return 0;
-}
-
-extern "C" int stswin_colsum_f32_work(int R, int N, long long* out) {
-  *out = static_cast<long long>(size_t(cs_splits(R)) * N);
   return 0;
 }
 

@@ -17,10 +17,10 @@
 // mma's accumulation drops the bits past its sum's last (a bias toward
 // zero), so the callers add each k step's (or k tile's) products to their
 // own fp32 sums, rounded to nearest.
-// Its users: the fp32 attention core (fp32_attention.cuh), the attention
-// backward of K5's fp32 form (fp32_attention_bwd.cuh) and `wgrad_f32`
-// (fp32_train.cu), all on mma.sync; the fp32 GEMM tile on wgmma rounds lo
-// too (`split_rn`, fp32_gemm.cuh).
+// Its users: the fp32 attention core (fp32_attention.cuh) and the
+// attention backward of K5's fp32 form (fp32_attention_bwd.cuh), both on
+// mma.sync; the fp32 GEMM tile on wgmma, the weight gradients' too, rounds
+// lo as well (`split_rn`, fp32_gemm.cuh).
 // `tests/test_torch_tf32x3.py` emulates this split in PyTorch and holds it,
 // and one TF32 pass, against the fp32 bound of the kernels' checks.
 #pragma once

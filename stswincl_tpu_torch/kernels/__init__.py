@@ -83,7 +83,7 @@ SIGNATURES = {
     "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
-    "stswin_gemm_f32": [_P] * 6 + [_I] * 15 + [_P],
+    "stswin_gemm_f32": [_P] * 8 + [_I] * 15 + [_P],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_f32_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
     # a query, not a launch: (long long* count, int reset), no stream
@@ -93,13 +93,12 @@ SIGNATURES = {
     "stswin_attn_bwd_f32": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     "stswin_block_epilogue_bwd_f32": [_P] * 24 + [_I] * 7 + [_F, _P],
     "stswin_wgrad_f32": [_P] * 4 + [_I] * 13 + [_P],
-    "stswin_colsum_f32": [_P] * 3 + [_I] * 3 + [_P],
     # queries, not launches: the fp32 scratch of an entry in floats, and
     # the attention backward's shared memory (-1: a window it refuses)
     "stswin_block_attention_bwd_f32_work": [_I] * 4 + [_LLP],
     "stswin_block_epilogue_bwd_f32_work": [_I] * 4 + [_LLP],
     "stswin_wgrad_f32_work": [_I] * 3 + [_LLP],
-    "stswin_colsum_f32_work": [_I] * 2 + [_LLP],
+    "stswin_gemm_f32_colsum_work": [_I] * 2 + [_LLP],
     "stswin_attn_bwd_f32_smem": [_I] * 2 + [_LLP],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],

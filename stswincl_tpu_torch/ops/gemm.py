@@ -17,13 +17,15 @@ each form by itself so that its tests and its profile hold it against
   accuracy on the tensor cores (3xTF32 on wgmma, `csrc/fp32_gemm.cuh`),
   with `linear_sm90`'s row maps, stored or added into C, and K6's two
   epilogues: fc1 writing h and gelu', dh times gelu' with the column sums
-  db1;
+  db1 (each 128-row tile's partial taken in the epilogue, the partials
+  summed in order);
 - `wgrad_f32` (`stswin_wgrad_f32`, `csrc/fp32_train.cu`): the fp32
   weight-gradient GEMM of K5's and K6's fp32 forms, `wgrad_sm90`'s
-  contract in fp32 accuracy on the tensor cores (each product three TF32
-  passes over the operands' split halves, `csrc/tf32x3.cuh`), the rows
-  split across blocks and the splits' partials added in a fixed order (no
-  atomics: the same bits every call).
+  contract in fp32 accuracy on the tensor cores (the fp32 GEMM's 3xTF32
+  wgmma k tile with K = the rows, `csrc/fp32_gemm.cuh`), the rows split
+  in `wgrad_splits` ranges and the splits' partials added in a fixed
+  order (no atomics: the same bits every call); K5 and K6 run their two
+  weight gradients in one launch of it.
 On a CPU tensor each runs its plain twin (`*_ref`; `linear_f32`'s is
 `linear_sm90_ref` on fp32 operands, `wgrad_f32`'s `wgrad_sm90_ref`).
 `launch_counts` reads the library's own count of every GEMM launch, those
@@ -230,17 +232,22 @@ def linear_f32(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
         kernels.require_f32(name, out)
         kernels.require(tuple(out.shape) == (M, N), f"{name}: out shape")
         c = out
+    colsum = work = None
     if epi == "gelu_grad":
         c2 = torch.empty((M, N), **f32)
     elif epi == "dgelu":
         kernels.require_f32(name, aux)
-        kernels.require(tuple(aux.shape) == (M, N), f"{name}: aux shape")
+        kernels.require(tuple(aux.shape) == (M, N) and M > 0,
+                        f"{name}: aux shape")
+        colsum = torch.empty(N, **f32)
+        work = torch.empty(kernels.query("stswin_gemm_f32_colsum_work", M,
+                                         N), **f32)
     code = ({None: 1 if out is not None else 0, "gelu_grad": 2, "dgelu": 3}
             [epi])
     T, H, W, ws = _grid(name, M, a_map, c_map)
     P = kernels.ptr
     kernels.launch("stswin_gemm_f32", a.device, P(a), P(wt), P(bias), P(c),
-                   P(c2), P(aux), M, N, K, K, N,
+                   P(c2), P(aux), P(colsum), P(work), M, N, K, K, N,
                    {"none": 0, "erf": 1, "tanh": 2}[act], code,
                    int(a_map is not None), int(c_map is not None), T, H, W,
                    ws, 0 if a_map is None else a_map[4],
@@ -249,7 +256,7 @@ def linear_f32(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
     if epi == "gelu_grad":
         return c, c2
     if epi == "dgelu":
-        return c, colsum_f32(c)
+        return c, colsum
     return c
 
 
@@ -365,18 +372,50 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
 wgrad_sm90.launches = 0
 
 
-def colsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """The (N,) fp32 column sums of x (R, N) fp32 on the card, in a fixed
-    order (`stswin_colsum_f32`: 1,024-row partials, then the partials in
-    order); the bias gradients of the fp32 backward forms."""
-    kernels.require_f32("colsum_f32", x)
-    R, N = x.shape
-    out = torch.empty(N, dtype=torch.float32, device=x.device)
-    work = torch.empty(kernels.query("stswin_colsum_f32_work", R, N),
-                       dtype=torch.float32, device=x.device)
-    P = kernels.ptr
-    kernels.launch("stswin_colsum_f32", x.device, P(x), P(out), P(work), R,
-                   N, N)
+# `wgrad_f32`'s split of the rows (`csrc/fp32_train.cu`): the blocks the
+# H100 holds at once (one an SM), the fewest rows a split, the most splits
+WGRAD_WAVE, WGRAD_SPLIT_ROWS, WGRAD_SPLIT_MAX = 132, 2048, 32
+
+
+def wgrad_splits(R: int, tiles: int) -> Tuple[int, int]:
+    """(splits, rows a split) of `wgrad_f32`'s R rows for a launch of
+    `tiles` 128 x 128 output tiles (the sum over its weight gradients): of
+    1 .. min(32, R // 2048) splits the count whose blocks (tiles x splits,
+    one an SM) fill their waves of 132 best, the fewest on a tie; each
+    split `chunk` rows, a multiple of the 32-row k tile, the last ragged.
+    The host's rule (`wgrad_splits` in the C source), repeated here for the
+    tests that emulate the kernel's order of sums."""
+    most = min(max(R // WGRAD_SPLIT_ROWS, 1), WGRAD_SPLIT_MAX)
+    best, fill = 1, 0.0
+    for s in range(1, most + 1):
+        blocks = tiles * s
+        f = blocks / (-(-blocks // WGRAD_WAVE) * WGRAD_WAVE)
+        if f > fill + 1e-9:
+            best, fill = s, f
+    return best, -(-(-(-R // best)) // 32) * 32
+
+
+def f32_colsum(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 column sums of x (M, N) in the order of the fp32 GEMM's
+    "dgelu" epilogue (`csrc/fp32_forms.cu` `col_sum8`): in each 128-row
+    tile (rows past M 0), each 16-row block of a consumer warp summed as
+    a tree (rows g and g ^ 4, then along g's bit 1, bit 0, then rows g and
+    g + 8), the tile's 8 blocks added in order, then the tiles' partials
+    in order (`sum_parts`). K6's db1 in these bits."""
+    M, N = x.shape
+    t = -(-M // 128)
+    v = torch.nn.functional.pad(x.float(), (0, 0, 0, t * 128 - M))
+    v = v.reshape(t, 8, 2, 2, 2, 2, N)  # [tile, warp, h, g bit 2, 1, 0]
+    v = v[:, :, :, 0] + v[:, :, :, 1]
+    v = v[:, :, :, 0] + v[:, :, :, 1]
+    v = v[:, :, :, 0] + v[:, :, :, 1]
+    v = v[:, :, 0] + v[:, :, 1]  # (t, 8, N): each warp's 16 rows
+    part = v[:, 0]
+    for w in range(1, 8):
+        part = part + v[:, w]
+    out = part[0]
+    for i in range(1, t):
+        out = out + part[i]
     return out
 
 
@@ -384,9 +423,9 @@ def wgrad_f32(a, b, a_map=None, b_map=None):
     """The fp32 weight-gradient GEMM on a: (R, M), b: (R, N) fp32 rows,
     each read through its (T, H, W, ws, shift) row map or None; returns
     the (M, N) fp32 sum over r of a[a_rows(r)]^T b[b_rows(r)], 3xTF32 on
-    the tensor cores with r ascending within each split of the rows (a 32-row
-    k tile at a time added to fp32 sums) and the splits added in order. M
-    and N multiples of 4; R is ragged."""
+    wgmma with r ascending within each split of the rows (`wgrad_splits`;
+    a 32-row k tile's three products from zero, added to fp32 sums) and
+    the splits added in order. M and N multiples of 4; R is ragged."""
     if a.device.type == "cpu":
         return wgrad_sm90_ref(a, b, a_map, b_map)
     name = "wgrad_f32"

@@ -3,7 +3,7 @@ instructions the port's 3xTF32 products run on.
 
     python3 -m stswincl_tpu_torch.tools.profile_mma_rate [--iters 20000]
 
-mma.sync (the fp32 attention core, `wgrad_f32`): a kernel of nothing but
+mma.sync (the fp32 attention cores): a kernel of nothing but
 `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` on eight independent
 accumulators a warp (no loads, no dependence between consecutive
 instructions), two blocks an SM, at 4, 8 and 16 warps an SM.

@@ -1514,10 +1514,11 @@ def test_fp32_model_runs_on_the_twins(dev):
                           "swin_block_epilogue_f32", "patch_merge_f32",
                           "swin_block_attention_bwd_f32",
                           "swin_block_epilogue_bwd_f32"}, moved
-    # K1, K2 two products each, K3 one, K5 two, K6 four (m recomputed)
+    # K1, K2 two products each, K3 one, K5 two, K6 four (m recomputed);
+    # K5's and K6's two weight gradients one launch each
     assert gemm.launch_counts() == dict.fromkeys(gemm.FORMS, 0) | {
         "fp32": 2 * (k1 + k2) + k3 + 2 * k5 + 4 * k6,
-        "wgrad_f32": 2 * (k5 + k6)}
+        "wgrad_f32": k5 + k6}
 
 
 def test_fp32_deeplab_evaluates_on_k4_exact(dev):
@@ -1846,20 +1847,31 @@ def test_trained_fp32_block_trains_at_head_dim_32(dev, gen):
 # ---- the fp32 training forms (csrc/fp32_train.cu) -------------------------
 
 
-@pytest.mark.parametrize("R,M,N,maps", [(1000, 264, 136, False),
-                                        (50000, 512, 1536, False),
-                                        (1920, 384, 128, True)])
+@pytest.mark.parametrize("R,M,N,maps", [(1000, 264, 136, None),
+                                        (50000, 512, 1536, None),
+                                        (1920, 384, 128, "a"),
+                                        (3840, 136, 392, "b"),
+                                        (6561, 72, 100, None)])
 def test_wgrad_f32_kernel(dev, gen, R, M, N, maps):
-    """The fp32 weight-gradient GEMM against torch.matmul in fp32 (TF32
-    off): ragged R and tile edges, R split across blocks (50,000 rows: 11
-    splits), the operands read through the window partition with the
-    shift; one launch a call in the library's count, and the same bits on
-    a second call (no atomics)."""
+    """The fp32 weight-gradient GEMM (3xTF32 on wgmma) against
+    torch.matmul in fp32 (TF32 off): ragged R, M and N off the 128-wide
+    tiles, R split across blocks (50,000 rows: 11 splits; 6,561: 3, the
+    last ragged), the operands read through the window partition with
+    the shift on A, or on B as K5's dwqkv reads x; the workspace the
+    library asks for is `gemm.wgrad_splits`'s partials; one launch a call
+    in the library's count, and the same bits on a second call (no
+    atomics)."""
     r = _normal(dev, gen)
     a, b = r(R, M), r(R, N)
     a_map = b_map = None
-    if maps:  # (B, T, H, W) = (5, 2, 16, 12), windows of 4 shifted by 2
+    if maps == "a":  # (B, T, H, W) = (5, 2, 16, 12), windows of 4, shift 2
         a_map, b_map = (2, 16, 12, 4, 2), (2, 16, 12, 4, 0)
+    elif maps == "b":  # (10, 2, 16, 12): K5's dwqkv, x shifted
+        a_map, b_map = None, (2, 16, 12, 4, 2)
+    from stswincl_tpu_torch import kernels
+    splits, _ = gemm.wgrad_splits(R, -(-M // 128) * -(-N // 128))
+    assert kernels.query("stswin_wgrad_f32_work", R, M, N) == (
+        splits * M * N if splits > 1 else 0)
     gemm.launch_counts(reset=True)
     got = gemm.wgrad_f32(a, b, a_map, b_map)
     torch.cuda.synchronize()
@@ -1869,6 +1881,26 @@ def test_wgrad_f32_kernel(dev, gen, R, M, N, maps):
     want = (a[gemm.window_rows(R, a_map, dev)].t()
             @ b[gemm.window_rows(R, b_map, dev)])
     _close(got, want, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("R,C,recompute", [(163840, 512, 1), (40960, 1024, 0),
+                                          (600, 128, 1)])
+def test_k6_f32_workspace_plan(dev, R, C, recompute):
+    """K6 fp32's scratch as the library plans it
+    (`stswin_block_epilogue_bwd_f32_work`): s32, n2, h, gelu' (then dpre),
+    m where it recomputes it, do, dn2, the row passes' per-block sums, db1's
+    per-row-tile partials (the dpre epilogue's) and the weight gradients'
+    split partials (one launch: `gemm.wgrad_splits` over both
+    gradients' tiles), in floats."""
+    from stswincl_tpu_torch import kernels
+    hidden = 4 * C
+    splits, _ = gemm.wgrad_splits(R, 2 * (hidden // 128) * (C // 128))
+    want = (R * C * (4 + recompute) + 2 * R * hidden
+            + min(max(-(-R // 8), 1), 1024) * 3 * C
+            + -(-R // 128) * hidden
+            + (2 * splits * C * hidden if splits > 1 else 0))
+    assert kernels.query("stswin_block_epilogue_bwd_f32_work", R, C, hidden,
+                         recompute) == want
 
 
 @pytest.mark.parametrize("M,N,K", [(300, 512, 128), (1000, 264, 520)])
@@ -1889,6 +1921,8 @@ def test_gemm_f32_gelu_epilogues(dev, gen, M, N, K):
         _close(x, y, tol=F32_TOL)
     assert torch.equal(got[1], gemm.linear_f32(dm, w2t, epi="dgelu",
                                                aux=d)[1])
+    # db1 as the epilogue sums it: each 128-row tile's partial, in order
+    assert torch.equal(got[1], gemm.f32_colsum(got[0]))
 
 
 @pytest.mark.parametrize("case,hd", [("s1", 128), ("s2", 256), ("s1", 32),

@@ -1,26 +1,27 @@
 """The numeric design of the fp32 kernels' tensor-core products, on the CPU.
 
 The fp32 attention core (`csrc/fp32_attention.cuh`: K1's fp32 form and
-those of Pallas rows 10, 11 and 16) and the fp32 weight-gradient GEMM
-(`wgrad_f32`, `csrc/fp32_train.cu`) run every product as three TF32
+those of Pallas rows 10, 11 and 16) runs every product as three TF32
 products on the tensor cores (`csrc/tf32x3.cuh`): x = hi + lo with hi = x
 rounded to TF32 to nearest, ties away from zero (what `cvt.rna.tf32.f32`
 gives), and lo = x - hi, which the mma reads as TF32 by dropping its low
 13 bits; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi. Here that split is
 emulated in plain PyTorch (a product of two TF32 values is exact in fp32,
 so an fp32 matmul of the halves is what the mma sums) and applied to the
-attention contract and to a weight gradient: the 3xTF32 form stays within
-the fp32 bound the card's checks hold the kernels to
+attention contract and K5's attention backward: the 3xTF32 form stays
+within the fp32 bound the card's checks hold the kernels to
 (`chip_smoke.TOL_F32_REL`), and a single TF32 pass misses it tenfold.
 The fp32 GEMM tile (`csrc/fp32_gemm.cuh`: the fp32 GEMM, row 17's fp32
-implicit GEMM and row 16's products) runs the split on wgmma with lo
-rounded to TF32 too (`split_rn`), each 32-deep k tile's three products
-summed from zero and added to fp32 sums (`mm_tile`); it is emulated on a
-GEMM and on row 17 at dilation 18 with the k tiles that read only the
-padding skipped, and against a split it did not take (hi the raw value,
-truncated as the tensor cores read it). This records why three
-passes are fp32 enough and one is not; the card checks the kernels
-themselves.
+implicit GEMM, row 16's products and the weight gradients `wgrad_f32`)
+runs the split on wgmma with lo rounded to TF32 too (`split_rn`), each
+32-deep k tile's three products summed from zero and added to fp32 sums
+(`mm_tile`); it is emulated on a GEMM, on row 17 at dilation 18 with the
+k tiles that read only the padding skipped, against a split it did not
+take (hi the raw value, truncated as the tensor cores read it), and on
+the weight gradients with K = the token rows, split as `wgrad_f32`
+splits them (`wgrad_tile`); K6's db1 as the dpre GEMM's epilogue sums it
+(`gemm.f32_colsum`). This records why three passes are fp32 enough and
+one is not; the card checks the kernels themselves.
 """
 
 import numpy as np
@@ -221,24 +222,6 @@ def test_attention_backward_on_3xtf32(TN, hd, masked):
         assert _rel(o, w) > 10 * TOL_F32_REL, name
 
 
-def test_weight_gradient_on_3xtf32():
-    """out = sum_r A[a_map(r)]^T B[b_map(r)] on the split, over R = 1863
-    rows (no multiple of the kernel's k tile of 16) read through the
-    window partition with and without the cyclic shift, M 72 and N 100
-    (off the 128-wide tiles): within TOL_F32_REL of the twin
-    `gemm.wgrad_sm90_ref`; one TF32 pass misses it tenfold."""
-    g = torch.Generator().manual_seed(19)
-    B, T, H, W, ws = 23, 1, 9, 9, 3
-    R, M, N = B * T * H * W, 72, 100
-    a, b = torch.randn(R, M, generator=g), torch.randn(R, N, generator=g)
-    a_map, b_map = (T, H, W, ws, 1), (T, H, W, ws, 0)
-    want = gemm.wgrad_sm90_ref(a, b, a_map, b_map)
-    ar = a[gemm.window_rows(R, a_map)]
-    br = b[gemm.window_rows(R, b_map)]
-    assert _rel(mm_3xtf32(ar.t(), br), want) <= TOL_F32_REL
-    assert _rel(mm_1xtf32(ar.t(), br), want) > 10 * TOL_F32_REL
-
-
 # ---- the fp32 GEMM tile (`csrc/fp32_gemm.cuh`, `f32t::ktile`) ------------
 
 K_TILE = 32  # fp32 of k a k tile of the tile
@@ -378,3 +361,110 @@ def test_conv_tile_on_3xtf32_skips_the_padding(cin, res):
     assert _rel(mm_tile(a, wt, live) * scale + shift, bare) <= TOL_F32_REL
     assert (_rel(mm_1xtf32(a, wt.t()) * scale + shift, bare)
             > 10 * TOL_F32_REL)
+
+
+# ---- the weight-gradient tile (`wgrad_f32`, `csrc/fp32_train.cu`) -------
+
+
+def wgrad_tile(a, b, a_map, b_map, other_tiles=0):
+    """sum_r a[a_rows(r)]^T b[b_rows(r)] as `wgrad_f32` forms it: the rows
+    split as `gemm.wgrad_splits` splits them for the launch's output tiles
+    (this gradient's, + `other_tiles` of the gradient it shares the launch
+    with), each split's rows in 32-row k tiles from its start, zero-filled
+    past its end, on the fp32 GEMM tile's k tile (`mm_tile` with K = r:
+    `split_rn`, the three products from zero, added to fp32 sums), then
+    the splits' partials added in order. Returns (sum, splits)."""
+    R, M = a.shape
+    N = b.shape[1]
+    ar = a[gemm.window_rows(R, a_map)]
+    br = b[gemm.window_rows(R, b_map)]
+    tiles = -(-M // TILE_ROWS) * -(-N // TILE_ROWS) + other_tiles
+    splits, chunk = gemm.wgrad_splits(R, tiles)
+    out = None
+    for s in range(splits):
+        rows = slice(s * chunk, min(R, (s + 1) * chunk))
+        part = mm_tile(ar[rows].t().contiguous(), br[rows].t().contiguous())
+        out = part if out is None else out + part
+    return out, splits
+
+
+@pytest.mark.parametrize("grid,R,maps,other,splits", [
+    ((23, 1, 9, 9, 3), 1863, "a", 0, 1),
+    ((60, 1, 9, 9, 3), 4860, "b", 0, 2),
+    ((81, 1, 9, 9, 3), 6561, None, 0, 3),
+    ((81, 1, 9, 9, 3), 6561, "b", 1, 3)],
+    ids=["a-shifted", "b-shifted-split", "split3-ragged", "pair-b-shifted"])
+def test_weight_gradient_on_3xtf32(grid, R, maps, other, splits):
+    """out = sum_r A[a_map(r)]^T B[b_map(r)] as the weight-gradient tile
+    sums it (`wgrad_tile`): M 72 and N 100 (off the 128-wide tiles), R not
+    a multiple of the 32-row k tile, split in 1 to 3 ranges (the last
+    ragged), A read through the window partition with the cyclic shift (as
+    no gradient of the port does) or B (K5's dwqkv reads x so), or neither
+    (K6's), and beside a second gradient of the same launch: within
+    TOL_F32_REL of the twin `gemm.wgrad_sm90_ref`; one TF32 pass misses it
+    tenfold."""
+    g = torch.Generator().manual_seed(19)
+    B, T, H, W, ws = grid
+    assert R == B * T * H * W
+    M, N = 72, 100
+    a, b = torch.randn(R, M, generator=g), torch.randn(R, N, generator=g)
+    a_map = (T, H, W, ws, 1) if maps == "a" else None
+    b_map = (T, H, W, ws, 1) if maps == "b" else None
+    if maps == "a":
+        b_map = (T, H, W, ws, 0)
+    want = gemm.wgrad_sm90_ref(a, b, a_map, b_map)
+    got, n = wgrad_tile(a, b, a_map, b_map, other)
+    assert n == splits
+    assert _rel(got, want) <= TOL_F32_REL
+    ar = a[gemm.window_rows(R, a_map)]
+    br = b[gemm.window_rows(R, b_map)]
+    assert _rel(mm_1xtf32(ar.t(), br), want) > 10 * TOL_F32_REL
+
+
+def test_weight_gradient_split_plans():
+    """The splits of the training shapes' launches (the 132 SMs' waves
+    filled best): K6's dw1 and dw2 in one queue, 128 tiles at stage 1
+    unsplit, 512 at stage 2 in 17 ranges of 2,432 rows (the last 2,048);
+    K5's dwqkv and dwproj, 64 tiles in two ranges, 256 in 17; `wgrad_f32`
+    alone at K5's stage-1 dwqkv (48 tiles) in 11."""
+    assert gemm.wgrad_splits(163840, 128) == (1, 163840)
+    assert gemm.wgrad_splits(40960, 512) == (17, 2432)
+    assert gemm.wgrad_splits(163840, 64) == (2, 81920)
+    assert gemm.wgrad_splits(40960, 256) == (17, 2432)
+    assert gemm.wgrad_splits(163840, 48) == (11, 14912)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_db1_from_row_tile_partials(shift):
+    """K6 fp32's db1 as the dpre GEMM's epilogue forms it
+    (`gemm.f32_colsum`: each 128-row tile's column sums, rows past R 0,
+    then the tiles' partials in order) over dpre = dL / dpre of the
+    twin's forward, R 600 (four tiles and one of 88 rows), with and
+    without the shift: within TOL_F32_REL of db1 from autograd of the twin
+    `swin_block_epilogue_bwd_ref`; the last, ragged tile dropped misses it
+    tenfold."""
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops.mlp import gelu
+    g = torch.Generator().manual_seed(23)
+    B, T, H, W, C, ws = 1, 2, 15, 20, 128, 5
+    hidden, R = 4 * C, B * T * H * W
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+    x, y, go = (randn(B, T, H, W, C) for _ in range(3))
+    s2, b2 = 1.0 + randn(C, scale=0.1), randn(C, scale=0.1)
+    w1, b1 = randn(hidden, C, scale=2 * C ** -0.5), randn(hidden, scale=0.1)
+    w2 = randn(C, hidden, scale=2 * hidden ** -0.5)
+    bw2, s1, b1n = randn(C, scale=0.1), 1.0 + randn(C, scale=0.1), randn(C)
+    want = epi.swin_block_epilogue_bwd_ref(x, y, s2, b2, w1, b1, w2, bw2,
+                                           s1, b1n, go, True, shift, ws)[5]
+    s32 = x + (torch.roll(y, (shift, shift), dims=(2, 3)) if shift else y)
+    n2 = epi.layer_norm_f32(s32, s2, b2, 1e-5)
+    pre = torch.nn.functional.linear(n2, w1, b1).requires_grad_()
+    with torch.enable_grad():
+        m = torch.nn.functional.linear(gelu(pre, True), w2, bw2)
+        out = epi.layer_norm_f32(s32 + m, s1, b1n, 1e-5)
+        (dpre,) = torch.autograd.grad(out, pre, go)
+    dpre = dpre.reshape(R, hidden)
+    assert _rel(gemm.f32_colsum(dpre), want) <= TOL_F32_REL
+    assert _rel(gemm.f32_colsum(dpre[:512]), want) > 10 * TOL_F32_REL
