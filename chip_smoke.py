@@ -39,6 +39,16 @@ stops a phase exits non-zero at once:
      faults: K5's twin without dbias and with the softmax backward's
      row-sum term dropped (dS = P * dP), K6's without the LN2 path and
      with gelu' taken as 1 (dpre = dh);
+  2g. the backwards at every window and width their forwards take
+     (`phase_envelope_kernels`): K5 in bf16 at K5_ENVELOPE, (TN, hd) =
+     (128, 192), (128, 256), (128, 288), (144, 64), (176, 208) (its two
+     passes) and (32, 512) (its one-pass slot kernel), beside both
+     training shapes; K6 in bf16 and fp32 at C 384, 768, 1536 (K6_ENVELOPE,
+     row 7 shifted, row 9 with row 8's m) beside 512 and 1024; each
+     against its twin (TOL_REL, fp32 TOL_F32_REL) with the planted faults
+     of phase 2b missing tenfold, bit-equal across two calls, timed
+     beside the twin and its bound; K3's backward and `wgrad_sm90` alone
+     bit-equal across two calls;
   2c. hold the attention kernels of the `attn_impl` routes 'pallas' (row
      10, image-layout qkv) and 'pallas_windows' (row 11, partitioned q, k,
      v) against their twins at the full-width stage-1 and stage-2 window
@@ -75,6 +85,15 @@ stops a phase exits non-zero at once:
      the repeated batch, every loss finite, the last below the first, and
      each kernel launched as often as the model's block calls imply;
      (c) the median ms/step of steps 4-10, clips/s and peak memory.
+  2h. (after phase 4; `phase_envelope_train`) (a) the bf16 stage-1 step
+     twice under PyTorch's deterministic algorithms and cuDNN
+     deterministic: loss and every gradient bit-equal; (b) whether row 16
+     takes `num_heads=2`'s windows (printed); (c) `ModelConfig(
+     num_heads=2)` (bf16) and `ModelConfig(swin_dim=384)` (bf16 and fp32)
+     through `build_model` and `SegTrainStep`, three steps at batch 8:
+     finite losses, K1, K2, K5, K6 once a block call and K3 once a merge,
+     ms/step; the first step's gradients gated as phase 4 (bf16, against
+     the twin step) and 7 (d) (fp32, `fp32_step_gate` at batch 2);
   2d. hold the whole-block kernel (Pallas row 16) against its twin at
      the full-width serving and batch-8 training shapes of both stages,
      with weights drawn so that the attention branch is as large as x
@@ -1157,27 +1176,6 @@ def main() -> None:
 
     TB = 8  # the stage-1 training batch: two-group layers fold to 2 * TB
 
-    def k5_work(x, heads, TN, mask):
-        """K5: five attention products, the input- and weight-gradient
-        products of qkv and proj; x, g, qkv, attn read, dx written, the
-        weights read and their fp32 gradients written."""
-        C = x.shape[-1]
-        R = x.numel() // C
-        fl, tables = attention_work(R, C, TN, heads, mask)
-        return (2.5 * fl + 16 * R * C * C,
-                tables - 4 * R * C * 2 + heads * TN * TN * 4
-                + 7 * R * C * 2 + 4 * C * C * (2 + 4) + 4 * C * 4)
-
-    def k6_work(x, hidden, with_m, shift):
-        """K6: fc1 (and fc2 without a saved m) recomputed, dh, dn2, dw1,
-        dw2; x, y, g (and m) read, dx (and dy when shifted) written, the
-        weights read and their fp32 gradients written."""
-        C = x.shape[-1]
-        R = x.numel() // C
-        n_io = 3 + bool(with_m) + 1 + bool(shift)
-        return ((5 if with_m else 6) * 2 * R * C * hidden,
-                n_io * R * C * 2 + 2 * C * hidden * (2 + 4)
-                + (2 * hidden + 9 * C) * 4)
     attn_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
     epi_names = ("dx", "dy", "ds2", "db2", "dw1", "db1", "dw2", "dbw2",
                  "ds1", "db1n")
@@ -1273,6 +1271,12 @@ def main() -> None:
         del x, y, g
     torch.cuda.empty_cache()
     print(f"phase 2b backward kernels vs plain: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 2g: the backwards at every window and width -------------
+    t0 = time.perf_counter()
+    phase_envelope_kernels(dev, results, median_ms)
+    print(f"phase 2g the backwards' envelope and bits: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 2c: the attention kernels of 'pallas' / 'pallas_windows' --
@@ -1721,6 +1725,13 @@ def main() -> None:
     print(f"phases 4, 4d and 4e train: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- phase 2h: a deterministic step; the models past the old
+    # training envelope ---------------------------------------------------
+    t0 = time.perf_counter()
+    phase_envelope_train(dev, smi, wrappers, launches)
+    print(f"phase 2h deterministic bf16 step, num_heads=2 and swin_dim=384 "
+          f"trained: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
@@ -1935,6 +1946,468 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def k5_work(x, heads: int, TN: int, mask) -> tuple:
+    """K5: five attention products, the input- and weight-gradient
+    products of qkv and proj; x, g, qkv, attn read, dx written, the
+    weights read and their fp32 gradients written."""
+    C = x.shape[-1]
+    R = x.numel() // C
+    fl, tables = attention_work(R, C, TN, heads, mask)
+    return (2.5 * fl + 16 * R * C * C,
+            tables - 4 * R * C * 2 + heads * TN * TN * 4
+            + 7 * R * C * 2 + 4 * C * C * (2 + 4) + 4 * C * 4)
+
+
+def k6_work(x, hidden: int, with_m, shift) -> tuple:
+    """K6: fc1 (and fc2 without a saved m) recomputed, dh, dn2, dw1,
+    dw2; x, y, g (and m) read, dx (and dy when shifted) written, the
+    weights read and their fp32 gradients written."""
+    C = x.shape[-1]
+    R = x.numel() // C
+    n_io = 3 + bool(with_m) + 1 + bool(shift)
+    return ((5 if with_m else 6) * 2 * R * C * hidden,
+            n_io * R * C * 2 + 2 * C * hidden * (2 + 4)
+            + (2 * hidden + 9 * C) * 4)
+
+
+# Phase 2g: K5 in bf16 past its one-pass slot kernel, at windows K1 takes
+# (label: x's shape (B, T, H, W, C), heads, ws): head dims 192-288 at TN
+# 128 (`swin_dim` 768 / 512 / 1152 over 4 / 2 / 4 heads; 512 over 2 is
+# `ModelConfig(num_heads=2)`'s stage 1 at its training batch), TN 144
+# (ws 6, T 4) and 176 (ws 4, T 11, hd 208: K1's widest window at its
+# widest head dim), and TN 32 at hd 512 (`num_heads=2`'s stage 2, on the
+# slot kernel); beside them the two training shapes (slot kernel)
+K5_ENVELOPE = {
+    "TN128 hd192": ((8, 2, 64, 80, 768), 4, 8),
+    "TN128 hd256": ((16, 2, 64, 80, 512), 2, 8),
+    "TN128 hd288": ((4, 2, 64, 80, 1152), 4, 8),
+    "TN144 hd64": ((8, 4, 48, 60, 256), 4, 6),
+    "TN176 hd208": ((2, 11, 32, 40, 1664), 8, 4),
+    "TN32 hd512": ((16, 2, 32, 40, 1024), 2, 4),
+    "stage1 TN128 hd128": ((16, 2, 64, 80, 512), 4, 8),
+    "stage2 TN32 hd256": ((16, 2, 32, 40, 1024), 4, 4),
+}
+# K6 in both forms at widths its row passes now take (label: x's shape,
+# ws): `swin_dim` 384's stage 1 (C 384) and stage 2 (C 768), C 1536 (a
+# block a row), beside the training widths 512 and 1024
+K6_ENVELOPE = {
+    "C384": ((16, 2, 64, 80, 384), 8),
+    "C768": ((16, 2, 32, 40, 768), 4),
+    "C1536": ((4, 2, 32, 40, 1536), 4),
+    "C512": ((16, 2, 64, 80, 512), 8),
+    "C1024": ((16, 2, 32, 40, 1024), 4),
+}
+
+
+def phase_envelope_kernels(dev, results, median_ms) -> None:
+    """Phase 2g: the training backwards at every window and width their
+    forwards take, and the bf16 backward's bits. K5 bf16 at K5_ENVELOPE
+    (both shifts; the one-pass slot kernel or the two passes, by shape)
+    against its twin within TOL_REL, its planted faults (no dbias, no
+    row-sum term) missing tenfold; K6 bf16 (TOL_REL; no LN2 path, gelu'
+    as 1) and fp32 (TOL_F32_REL; the same faults, and the twin on TF32
+    products printed) at K6_ENVELOPE, row 7 (m recomputed, shifted) and
+    row 9 (given row 8's m); every one bit-equal across two calls on the
+    same inputs, and so K3's backward and `wgrad_sm90` alone. Times
+    beside the twin and the bound."""
+    import torch
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops import patch_merge as pm
+    from stswincl_tpu_torch.ops.window import shifted_window_attention_mask
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(*shape, fan_in, dtype=bf16, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5).to(dtype)
+
+    def hold(kname, case, names, kfn, pfn, tol, work, faults, peak):
+        """kfn() (twice: bit-equal) against pfn() on every output within
+        `tol`; each (fault, outputs) of `faults` must miss `tol` tenfold."""
+        got = kfn()
+        again = kfn()
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = pfn()
+        rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        max_abs = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+        for n, r in rels.items():
+            check(r <= tol, f"{kname} {case} {n}: relative error {r} > "
+                  f"{tol}")
+        check(bit, f"{kname} {case}: two calls on the same inputs differ")
+        for fault, bad in faults:
+            moved = max_rel_err(bad(), want)
+            print(f"  {'':24s} {case:34s} the twin {fault} moves by rel "
+                  f"{moved:.3e} ({moved / tol:.0f}x the bound)", flush=True)
+            check(moved > 10 * tol, f"{kname} {case}: the twin {fault} "
+                  f"moves the output by only {moved}")
+        del got, want
+        torch.cuda.empty_cache()
+        row = {"case": case, "max_abs_err": max_abs,
+               "rel_err": max(rels.values()), "rel_errs": rels,
+               "bit_equal": bit, "ms": median_ms(kfn, reps=3),
+               "plain_ms": median_ms(pfn, reps=3), "library_ms": None,
+               **bound(*work, peak=peak)}
+        results.setdefault(kname, []).append(row)
+        print(f"  {kname:24s} {case:34s} max rel {row['rel_err']:.3e} "
+              f"bit-equal {bit}; kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} ms bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_ms'] / row['ms']:.2f} of it)", flush=True)
+        print("      " + " ".join(f"{n} {r:.2e}" for n, r in rels.items()),
+              flush=True)
+        torch.cuda.empty_cache()
+
+    attn_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    for label, (shape, heads, ws) in K5_ENVELOPE.items():
+        B, T, h, w, C = shape
+        TN, hd = T * ws * ws, C // heads
+        x, g = randn(*shape), randn(*shape)
+        # a peaked softmax (as phase 2b), so that the row-sum term of dS
+        # is a sizeable share
+        wqkv = uniform(3 * C, C, fan_in=C, gain=3.0)
+        bqkv = uniform(3 * C, fan_in=C, dtype=f32)
+        wproj = uniform(C, C, fan_in=C, gain=2.0)
+        bproj = uniform(C, fan_in=C, dtype=f32)
+        bias = randn(heads, TN, TN, dtype=f32)
+        path = ("one-pass slot kernel" if att._attn_bwd_slot_takes(TN, hd)
+                else "two passes")
+        for shift in (0, ws // 2):
+            mask = None
+            if shift:
+                mask = torch.from_numpy(shifted_window_attention_mask(
+                    h, w, ws, shift)).repeat(1, T, T).to(dev)
+            fwd = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                   hd ** -0.5, ws, shift)
+            _, qkv, attn = att._forward_kernel(*fwd)
+            n = att.swin_block_attention_bwd.launches
+            hold("swin_block_attention_bwd",
+                 f"{label} {shape} shift={shift} ({path})", attn_names,
+                 lambda: att.swin_block_attention_bwd(
+                     x, g, qkv, attn, wqkv, wproj, bias, mask, *fwd[7:]),
+                 lambda: att.swin_block_attention_bwd_ref(*fwd[:7], g,
+                                                          *fwd[7:]),
+                 TOL_REL, k5_work(x, heads, TN, mask),
+                 [("without dbias", lambda: (
+                     lambda w_: w_[:5] + (torch.zeros_like(w_[5]),))(
+                         att.swin_block_attention_bwd_ref(*fwd[:7], g,
+                                                          *fwd[7:]))),
+                  ("without the row-sum term (dS = P dP)",
+                   lambda: attention_bwd_without_rowsum(*fwd[:7], g,
+                                                        *fwd[7:]))],
+                 PEAK_BF16)
+            check(att.swin_block_attention_bwd.launches == n + 7,
+                  f"swin_block_attention_bwd {label}: "
+                  f"{att.swin_block_attention_bwd.launches - n} launches "
+                  "for two calls and three timed ones after two warm-ups")
+            del qkv, attn
+        del x, g
+        torch.cuda.empty_cache()
+
+    epi_names = ("dx", "dy", "ds2", "db2", "dw1", "db1", "dw2", "dbw2",
+                 "ds1", "db1n")
+    for label, (shape, ws) in K6_ENVELOPE.items():
+        C = shape[-1]
+        hidden = 4 * C
+        for dtype in (bf16, f32):
+            x, y, g = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype), \
+                randn(*shape, dtype=dtype)
+            p = (1.0 + randn(C, scale=0.1, dtype=f32),
+                 randn(C, scale=0.1, dtype=f32),
+                 uniform(hidden, C, fan_in=C, gain=2.0, dtype=dtype),
+                 uniform(hidden, fan_in=C, dtype=f32),
+                 uniform(C, hidden, fan_in=hidden, gain=2.0, dtype=dtype),
+                 uniform(C, fan_in=hidden, dtype=f32),
+                 1.0 + randn(C, scale=0.1, dtype=f32),
+                 randn(C, scale=0.1, dtype=f32))
+            bf = dtype == bf16
+            kname = ("swin_block_epilogue_bwd" if bf
+                     else "swin_block_epilogue_bwd_f32")
+            kfn = (epi.swin_block_epilogue_bwd if bf
+                   else epi.swin_block_epilogue_bwd_f32)
+            for row, shift in (("row 7", ws // 2), ("row 9", 0)):
+                kw = dict(gelu_exact=True, shift=shift, ws=ws)
+                m = None
+                if row == "row 9":
+                    m = (epi._forward_kernel(x, y, *p, eps=1e-5, with_m=True,
+                                             **kw)[1] if bf else
+                         epi.swin_block_epilogue_f32(x, y, *p, m_out=True,
+                                                     **kw)[1])
+                faults = [("without the LN2 path",
+                           lambda: epilogue_bwd_without_ln2_path(
+                               x, y, *p, g, **kw)),
+                          ("with gelu' as 1",
+                           lambda: epilogue_bwd_with_unit_gelu_grad(
+                               x, y, *p, g, **kw))]
+                hold(kname, f"{label} {shape} {row} shift={shift}",
+                     epi_names, lambda: kfn(x, y, g, m, *p[:7], **kw),
+                     lambda: epi.swin_block_epilogue_bwd_ref(x, y, *p, g,
+                                                             **kw),
+                     TOL_REL if bf else TOL_F32_REL,
+                     k6_work(x, hidden, m is not None, shift), faults,
+                     PEAK_BF16 if bf else PEAK_3XTF32)
+                if not bf:
+                    with tf32_products():
+                        bad = epi.swin_block_epilogue_bwd_ref(x, y, *p, g,
+                                                              **kw)
+                    moved = max_rel_err(bad, epi.swin_block_epilogue_bwd_ref(
+                        x, y, *p, g, **kw))
+                    del bad
+                    print(f"  {'':24s} the fp32 twin on TF32 products "
+                          f"moves by rel {moved:.3e} (printed)", flush=True)
+                del m
+            del x, y, g, p
+            torch.cuda.empty_cache()
+
+    # K3's backward and the weight-gradient GEMM alone, bit-equal
+    x = randn(16, 64, 80, 512)
+    scale = 1.0 + randn(2048, scale=0.1, dtype=f32)
+    shift_ = randn(2048, scale=0.1, dtype=f32)
+    wm = uniform(1024, 2048, fan_in=2048, dtype=f32)
+    gm = randn(16, 32, 40, 1024)
+
+    def k3_bwd():
+        leaves = [t.detach().requires_grad_() for t in (x, scale, shift_, wm)]
+        return torch.autograd.grad(pm.patch_merge(*leaves), leaves, gm)
+    a, b = k3_bwd(), k3_bwd()
+    bit = all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"  K3's backward (16, 64, 80, 512): bit-equal across two calls "
+          f"{bit}", flush=True)
+    check(bit, "K3's backward: two calls on the same inputs differ")
+    del a, b, x, gm
+    dq, xr = randn(163840, 1536), randn(163840, 512)
+    cases = [("dwqkv s1", dq, xr, None, (2, 64, 80, 8, 4))]
+    for case, A, Bm, am, bm in cases:
+        a = gemm_ops.wgrad_sm90(A, Bm, am, bm)
+        b = gemm_ops.wgrad_sm90(A, Bm, am, bm)
+        torch.cuda.synchronize()
+        bit = torch.equal(a, b)
+        rel = rel_err(a, gemm_ops.wgrad_sm90_ref(A, Bm, am, bm))
+        print(f"  wgrad_sm90 {case} ({A.shape[0]} rows, {tuple(a.shape)}): "
+              f"bit-equal {bit}, rel {rel:.2e} against its twin", flush=True)
+        check(bit, f"wgrad_sm90 {case}: two calls differ")
+        check(rel <= TOL_F32_REL * 10, f"wgrad_sm90 {case}: rel {rel}")
+    del dq, xr
+    torch.cuda.empty_cache()
+
+
+# Phase 2h (c): the configurations past the old training envelope, each
+# stage 1 at batch 8 through `build_model` and `SegTrainStep`: label ->
+# (ModelConfig fields, dtype)
+ENVELOPE_MODELS = {
+    "num_heads=2": (dict(num_heads=2), "bfloat16"),      # hd 256 / 512
+    "swin_dim=384": (dict(swin_dim=384), "bfloat16"),     # C 384 / 768
+    "swin_dim=384 fp32": (dict(swin_dim=384), "float32"),
+}
+ENVELOPE_STEPS = 3
+
+
+def phase_envelope_train(dev, smi, wrappers, launches) -> None:
+    """Phase 2h: (a) a bf16 stage-1 step (`ModelConfig()`, batch 8) twice
+    from the same weights and batch under PyTorch's deterministic
+    algorithms and cuDNN deterministic (phase 7 (d)'s settings): the loss
+    and every gradient bit-equal; (b) whether row 16 takes
+    `num_heads=2`'s windows (its own envelope, not widened here); (c)
+    ENVELOPE_MODELS through `pipelines.build_model` and `SegTrainStep` on
+    'pallas_full', ENVELOPE_STEPS steps at batch 8 on the kernels: finite
+    losses, K1, K2, K5 and K6 launched once a block call and K3 once a
+    merge (hooks count the calls), ms/step; the first step's gradients
+    held as phases 4 and 7 (d) hold theirs: bf16 against the twin step at
+    batch 8 (`hold_gradients`: cosines at or above TOL_GRAD_COS_FLOOR,
+    zero-gradient conv biases to their norm bound), fp32 by
+    `fp32_step_gate` at batch 2 (the twin step, its controls and held
+    faults)."""
+    import torch
+    import torch.utils.checkpoint
+    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
+                                            SegTrainConfig)
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.aspp import ConvBNRelu
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.models.swin import (PatchMerging,
+                                                SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.ops.swin_block import whole_block_plan
+    from stswincl_tpu_torch.pipelines.common import build_model
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    imgs, lbls = seeded_batch(8, seed=3)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+
+    def model_of(cfg, seed=0, kernels=None):
+        """The configured model from seeded weights: `build_model` on the
+        kernels, the same TswinPlus with `kernels=False` for the twin."""
+        if kernels is None:
+            m, _ = build_model(cfg.model, cfg.data, device=dev)
+        else:
+            mc = cfg.model
+            m = TswinPlus(mc.num_classes, swin_dim=mc.swin_dim,
+                          num_heads=mc.num_heads, gelu_exact=mc.gelu_exact,
+                          swin_depths=tuple(mc.swin_depths),
+                          dtype=getattr(torch, mc.dtype),
+                          input_hw=tuple(cfg.data.crop_hw),
+                          attn_impl=mc.attn_impl, kernels=kernels).to(dev)
+        state = init_weights(TswinPlus(
+            cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
+            num_heads=cfg.model.num_heads,
+            swin_depths=tuple(cfg.model.swin_depths),
+            dtype=getattr(torch, cfg.model.dtype),
+            input_hw=tuple(cfg.data.crop_hw)),
+            torch.Generator().manual_seed(seed)).state_dict()
+        m.load_state_dict(state)
+        return m.train()
+
+    def steps_of(cfg, m, n, x, y):
+        """n steps of `m` on (x, y): (losses, the first step's gradients,
+        seconds a step)."""
+        opt, schedule = make_tx(cfg, n, m)
+        step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                                   ohem_thresh=cfg.ohem_thresh)
+        grads = {}
+        hook = opt.register_step_pre_hook(lambda *_: grads.update(
+            {k: p.grad.detach().clone() for k, p in m.named_parameters()})
+            if not grads else None)
+        losses, secs = [], []
+        for _ in range(n):
+            ts = time.perf_counter()
+            losses.append(float(step(x, y)["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+        hook.remove()
+        return losses, grads, secs
+
+    # (a) the bf16 step's bits under the deterministic settings
+    cfg = SegTrainConfig()
+    det = torch.are_deterministic_algorithms_enabled()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs = [steps_of(cfg, model_of(cfg), 1, images, labels)
+                    for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(det)
+        torch.backends.cudnn.deterministic = cudnn_det
+    (la, ga, _), (lb, gb, _) = runs
+    same = [k for k in ga if torch.equal(ga[k], gb[k])]
+    print(f"  [deterministic] bf16 stage-1 step at batch 8 twice: losses "
+          f"{la[0]!r} / {lb[0]!r}, {len(same)} of {len(ga)} gradients "
+          f"bit-equal", flush=True)
+    check(la == lb and len(same) == len(ga), "bf16 stage-1 step under the "
+          f"deterministic settings: {len(ga) - len(same)} gradients differ "
+          f"({[k for k in ga if k not in same][:5]}), losses {la} / {lb}")
+    del runs, ga, gb
+    torch.cuda.empty_cache()
+
+    # (b) row 16 on num_heads=2's windows
+    for C, T, h, w, ws, heads in ((512, 2, 64, 80, 8, 2),
+                                  (1024, 2, 32, 40, 4, 2)):
+        try:
+            whole_block_plan(8, T, h, w, C, 4 * C, heads, ws)
+            took = "takes it"
+        except ValueError as e:
+            took = f"refuses it ({e})"
+        print(f"  [row 16] num_heads=2 at C {C} (hd {C // heads}, TN "
+              f"{T * ws * ws}): the whole-block kernel {took}", flush=True)
+
+    # (c) the configurations
+    for label, (fields, dtype) in ENVELOPE_MODELS.items():
+        cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
+        f32 = dtype == "float32"
+        sfx = "_f32" if f32 else ""
+        tag = f"[envelope {label}]"
+        m = model_of(cfg)
+        calls = {"block": 0, "merge": 0}
+
+        def count(mod, inputs, out):
+            if isinstance(mod, PatchMerging):
+                calls["merge"] += 1
+            elif isinstance(mod, SpaceTimeSwinBlock):
+                calls["block"] += 1
+        hook = torch.nn.modules.module.register_module_forward_hook(count)
+        reset_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            losses, grads_k, secs = steps_of(cfg, m, ENVELOPE_STEPS, images,
+                                             labels)
+        finally:
+            hook.remove()
+        counts, forms = read_launches(wrappers)
+        launches[f"envelope {label}"] = counts
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        zero_grad = {f"{n}.conv.bias" for n, mod in m.named_modules()
+                     if isinstance(mod, ConvBNRelu)}
+        del m
+        torch.cuda.empty_cache()
+        ms = 1e3 * statistics.median(secs[1:])
+        print(f"  {tag} C {cfg.model.swin_dim} / {2 * cfg.model.swin_dim}, "
+              f"{cfg.model.num_heads} heads (hd "
+              f"{cfg.model.swin_dim // cfg.model.num_heads} / "
+              f"{2 * cfg.model.swin_dim // cfg.model.num_heads}), batch 8: "
+              f"losses {[round(v, 5) for v in losses]}, {ms:.1f} ms/step "
+              f"(median of steps 2-{ENVELOPE_STEPS}), peak {peak:.2f} GiB, "
+              f"{calls} calls, launches "
+              f"{ {k: v for k, v in counts.items() if v} } on {smi}",
+              flush=True)
+        check(all(math.isfinite(v) for v in losses), f"{tag} losses {losses}")
+        for k in ("swin_block_attention", "swin_block_epilogue",
+                  "swin_block_attention_bwd", "swin_block_epilogue_bwd"):
+            check(counts[k + sfx] == calls["block"], f"{tag}: {k + sfx} "
+                  f"launched {counts[k + sfx]} times for {calls['block']} "
+                  "block calls")
+        check(counts["patch_merge" + sfx] == calls["merge"],
+              f"{tag}: patch_merge{sfx} launched "
+              f"{counts['patch_merge' + sfx]} times for {calls['merge']}")
+        other = ("_f32" not in k if f32 else k.endswith("_f32")
+                 for k in counts)
+        check(not any(n for (k, n), o in zip(counts.items(), other)
+                      if o and k != "upsample_argmax"),
+              f"{tag}: kernels of the other dtype launched")
+        if f32:
+            weights = model_of(cfg).state_dict()
+            kw = dict(num_classes=cfg.model.num_classes,
+                      swin_dim=cfg.model.swin_dim,
+                      num_heads=cfg.model.num_heads,
+                      swin_depths=tuple(cfg.model.swin_depths),
+                      input_hw=(H, W))
+            b2 = images[:BS], labels[:BS]
+            step_of = fp32_seg_step_of(dev, weights, kw)
+            loss_k, g2, _ = step_of(*b2)
+            fp32_step_gate(f"{tag} batch {BS}", step_of, *b2, loss_k, g2)
+            del weights, g2
+        else:
+            plain = model_of(cfg, kernels=False)
+            for mod in plain.modules():
+                if isinstance(mod, SpaceTimeSwinBlock):
+                    mod.forward = functools.partial(
+                        torch.utils.checkpoint.checkpoint, mod.forward,
+                        use_reentrant=False)
+            few = set()
+            with few_value_batchnorms(plain, few):
+                loss_p, grads_p, _ = steps_of(cfg, plain, 1, images, labels)
+            del plain
+            rel = abs(losses[0] - loss_p[0]) / abs(loss_p[0])
+            print(f"  {tag} loss kernels {losses[0]:.6f} twin "
+                  f"{loss_p[0]:.6f} (rel {rel:.2e})", flush=True)
+            check(rel <= TOL_TRAIN_LOSS, f"{tag}: loss rel {rel}")
+            hold_gradients(tag, "pallas_full", grads_k, grads_p, zero_grad,
+                           few, None)
+            del grads_p
+        del grads_k
+        torch.cuda.empty_cache()
 
 
 def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):

@@ -66,21 +66,29 @@
 //      No fp32 TN x TN matrix sits in shared memory but the dbias table:
 //      200 KB at stage 1 (q, dO, k / P, v / dS and the table), one block
 //      an SM. The blocks are persistent over a run of windows of one head
-//      (about 39 at stage 1 on 132 SMs) and flush their table once, as
-//      16-byte reductions: the old kernel added dS with one fp32 atomic an
-//      element and window (84 M at stage 1 into 65,536 addresses);
+//      (about 39 at stage 1 on 132 SMs) and write their table once into a
+//      partial of their own; `sum_parts` adds the partials in order. This
+//      slot kernel takes TN <= 128 with its slot within shared memory (hd
+//      <= 144 at TN 128); any other window K1 takes (TN to 176, hd to 288
+//      at TN 128) goes to two passes of the same products (below, "the
+//      two-pass attention backward"), chosen by shape;
 //   3. dx = dqkv @ wqkv, scattered back through the row map with the
 //      shift, so dx lands unshifted and no roll is formed;
 //   4. dwqkv = dqkv^T x (x gathered through the shifted window partition),
 //      dwproj = g^T attn (g through the window partition) on the
 //      weight-gradient GEMM, and the bias gradients as fp32 column sums.
+// Every sum over windows or rows is formed in a fixed order (partials,
+// then `sum_parts`), with no float atomic: two calls give the same bits.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BWD_MAX_NT = 8;  // TN <= 128: the score registers of a warp
+constexpr int BWD_MAX_NT = 8;  // the slot kernel: TN <= 128, its registers
+constexpr int WIDE_MAX_NT = 11;  // the two-pass kernels: K1's widest, 176
+constexpr int SMS = 132;  // the H100's SMs: the query passes' grids, from
+                          // the shapes alone (every card sums alike)
 
 struct BwdSmem {
   int ld, ldp;  // bf16 row strides: hd + 8 (q, dO, k, v), TN + 8 (P, dS)
@@ -180,16 +188,16 @@ __device__ __forceinline__ void mma_scores(float (&s)[2 * NT][4],
 
 // qkv: (n_windows * TN, 3C) bf16 window order (the forward's); dattn:
 // (n_windows * TN, C) bf16 window order; dqkv: (n_windows * TN, 3C) out;
-// dbias: (heads, TN, TN) fp32, added into. Block (x, head): windows
-// x * per_block .. + per_block - 1, `slots` at a time (TN / 16 warps a
-// slot, each slot its own shared memory).
+// dbias_part: (per_head, heads, TN, TN) fp32, the block's partial written.
+// Block (x, head): windows x * per_block .. + per_block - 1, `slots` at a
+// time (TN / 16 warps a slot, each slot its own shared memory).
 template <int NT>
 __global__ void __launch_bounds__(256, 1)
     attn_bwd_kernel(const bf16* __restrict__ qkv,
                     const bf16* __restrict__ dattn,
                     const float* __restrict__ bias,
                     const float* __restrict__ mask, int n_mask,
-                    bf16* __restrict__ dqkv, float* __restrict__ dbias,
+                    bf16* __restrict__ dqkv, float* __restrict__ dbias_part,
                     int n_windows, int per_block, int slots, int TN, int hd,
                     int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -397,9 +405,11 @@ __global__ void __launch_bounds__(256, 1)
     sync_slot();  // the slot's shared memory is free for the next window
   }
 
-  // the slots' dbias tables, summed, into dbias[h] once
+  // the slots' dbias tables, summed in slot order, into the block's
+  // partial (sum_parts adds the blocks' partials in order)
   __syncthreads();
-  float* dst = dbias + (long long)h * TN * TN;
+  float* dst =
+      dbias_part + ((long long)blockIdx.x * gridDim.y + h) * TN * TN;
   for (int i = 4 * threadIdx.x; i < TN * TN; i += 4 * blockDim.x) {
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int sl = 0; sl < slots; ++sl) {
@@ -410,67 +420,482 @@ __global__ void __launch_bounds__(256, 1)
       v.z += a.z;
       v.w += a.w;
     }
-    red_add_f32x4(dst + i, v);
+    *reinterpret_cast<float4*>(dst + i) = v;
   }
+}
+
+// ---- the two-pass attention backward: any window and head dim K1 takes --
+//
+// Where the slot kernel's q, dO, k / P, v / dS and dbias table do not fit
+// one block (hd past 144 at TN 128) or its score registers do not (TN
+// past 128), two launches and a fixed-order sum, FlashAttention-2's
+// split of the backward without its atomics:
+//   a. the query pass (`attn_bwd_q_kernel`): a block of TN / 16 warps holds
+//      k and v of a (window, head) in shared memory (2 TN (hd + 8) bf16:
+//      two thirds of K1's slot, so every window K1 takes fits), each warp
+//      its 16 query rows. A warp reads its q and dO fragments straight from
+//      device memory (this warp alone uses them), forms its 16 x TN scores
+//      in registers and the forward's softmax there, takes D = rowsum(dO o
+//      O) from the forward's saved output O (`attn`: no dP row is needed
+//      before dS), then, a 16-key tile at a time, dP = dO v^T, dS = P (dP
+//      - D), writes P and dS in bf16 to a scratch (the key pass's
+//      operands), adds dS into its block's fp32 dbias partial in device
+//      memory (each lane its own entries, windows ascending), and keeps dS
+//      as bf16 A fragments for dq = dS k * scale. The registers hold the
+//      score row (TN / 2 a lane) and dS's fragments (TN / 4): none scale
+//      with hd. The blocks are persistent over a run of windows of one
+//      head; `sum_parts` adds the partials in order.
+//   b. the key pass (`attn_bwd_kv_kernel`): a block a (window, head), P and
+//      dS of the window in shared memory, q and dO through it 64 columns at
+//      a time; each warp, on 16 key rows, dV = P^T dO and dK = dS^T q *
+//      scale, the transposed operands by ldmatrix.trans (the slot kernel's
+//      phase b).
+
+// s (16 x TN) = A (16 rows read from device memory: a = the lane's word at
+// row g, column 2 t of the first k step; rows lda apart) @ B^T (TN rows at
+// `brow`, the lane's ldmatrix row address) over hd
+template <int NT>
+__device__ __forceinline__ void mma_scores_g(float (&s)[2 * NT][4],
+                                             const bf16* a, long long lda,
+                                             const bf16* brow, int ld, int nt,
+                                             int hd) {
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  for (int kk = 0; kk < hd; kk += 16) {
+    uint32_t af[4];
+    af[0] = *reinterpret_cast<const uint32_t*>(a + kk);
+    af[1] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk);
+    af[2] = *reinterpret_cast<const uint32_t*>(a + kk + 8);
+    af[3] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk + 8);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        uint32_t bf[4];
+        ldsm_x4(bf, brow + j * 16 * ld + kk);
+        mma16816(s[2 * j], af, bf[0], bf[1]);
+        mma16816(s[2 * j + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The query pass's shared memory: k and v of one (window, head), rows of
+// hd + 8 bf16.
+__host__ __device__ inline size_t wide_q_smem(int TN, int hd) {
+  return 2 * align128(size_t(TN) * (hd + 8) * sizeof(bf16));
+}
+// The key pass's: P and dS (rows of TN + 8), then q's and dO's 64-column
+// chunk (rows of 72).
+__host__ __device__ inline size_t wide_kv_smem(int TN) {
+  return 2 * align128(size_t(TN) * (TN + 8) * sizeof(bf16)) +
+         2 * align128(size_t(TN) * 72 * sizeof(bf16));
+}
+
+// Pass a. Grid (per_head, heads), TN / 16 warps; NT >= TN / 16. attn: the
+// forward's window-order output O (rows of C). ps, dss: (windows, heads,
+// TN, TN) bf16 P and dS; dbias_part: (per_head, heads, TN, TN).
+template <int NT>
+__global__ void __launch_bounds__(32 * NT, 1)
+    attn_bwd_q_kernel(const bf16* __restrict__ qkv,
+                      const bf16* __restrict__ dattn,
+                      const bf16* __restrict__ attn,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ mask, int n_mask,
+                      bf16* __restrict__ dqkv, bf16* __restrict__ ps,
+                      bf16* __restrict__ dss, float* __restrict__ dbias_part,
+                      int n_windows, int per_block, int heads, int TN, int hd,
+                      int C, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ld = hd + 8, nt = TN / 16;
+  const int t = threadIdx.x, pt = blockDim.x, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3, q0 = (t >> 5) * 16;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = reinterpret_cast<bf16*>(smem + wide_q_smem(TN, hd) / 2);
+  const int h = blockIdx.y, C3 = 3 * C, chunks = hd / 8;
+  const int w0 = blockIdx.x * per_block;
+  const int w1 = min(n_windows, w0 + per_block);
+  // ldmatrix row addresses: B rows of a B^T operand (non-trans), B rows
+  // (trans)
+  const int bn_r = (lane & 7) + ((lane >> 4) << 3), bn_c = ((lane >> 3) & 1) * 8;
+  const int bt_r = (lane & 7) + (((lane >> 3) & 1) << 3), bt_c = (lane >> 4) * 8;
+  float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN +
+                (q0 + g) * TN + 2 * tq;
+  const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
+
+  for (int bw = w0; bw < w1; ++bw) {
+    const long long row0 = (long long)bw * TN;
+    const bf16* src = qkv + row0 * C3 + h * hd;
+    for (int i = t; i < TN * chunks; i += pt) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      cp_async16(ks + r * ld + c, src + (long long)r * C3 + C + c);
+      cp_async16(vs + r * ld + c, src + (long long)r * C3 + 2 * C + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    // D = rowsum(dO o O) of the warp's rows (lane: rows g, g + 8), while
+    // k and v land
+    const long long rw = row0 + q0;
+    float D[2] = {0.0f, 0.0f};
+    for (int r = 0; r < 16; ++r) {
+      const bf16* o = attn + (rw + r) * C + h * hd;
+      const bf16* d = dattn + (rw + r) * C + h * hd;
+      float v = 0.0f;
+      for (int c = 2 * lane; c < hd; c += 64) {
+        const float2 a =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + c));
+        const float2 b =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + c));
+        v += a.x * b.x + a.y * b.y;
+      }
+      v = warp_sum(v);
+      if (r == g) D[0] = v;
+      if (r == g + 8) D[1] = v;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // k and v have landed
+
+    // ---- scores and P (fp32) of rows q0 + g (s[j][0..1]) and q0 + g + 8
+    // (s[j][2..3]) ----
+    float s[2 * NT][4];
+    mma_scores_g<NT>(s, src + (q0 + g) * (long long)C3 + 2 * tq, C3,
+                     ks + bn_r * ld + bn_c, ld, nt, hd);
+    const float* mask_r =
+        mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
+             : nullptr;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              bias_r + hh * 8 * TN + 8 * j);
+          s[j][2 * hh] = s[j][2 * hh] * scale + b.x;
+          s[j][2 * hh + 1] = s[j][2 * hh + 1] * scale + b.y;
+          if (mask_r) {  // after the bias, as the twin adds them
+            const float2 m = *reinterpret_cast<const float2*>(
+                mask_r + hh * 8 * TN + 8 * j);
+            s[j][2 * hh] += m.x;
+            s[j][2 * hh + 1] += m.y;
+          }
+          mx[hh] = fmaxf(mx[hh], fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+        }
+      }
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - mx[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      sum[hh] = 1.0f / sum[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
+
+    // ---- a 16-key tile at a time: dP = dO v^T, dS = P (dP - D); P and dS
+    // to the scratch, dS into the partial and into sa (k tile kt: key
+    // tiles 2 kt, 2 kt + 1) ----
+    const bf16* dsrc = dattn + (rw + g) * C + h * hd + 2 * tq;
+    const long long pw = ((long long)bw * heads + h) * TN * TN;
+    bf16* prow = ps + pw + (q0 + g) * TN + 2 * tq;
+    bf16* drow = dss + pw + (q0 + g) * TN + 2 * tq;
+    uint32_t sa[NT][4];
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      if (kt < nt) {
+        float dp[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+        const bf16* vrow = vs + (16 * kt + bn_r) * ld + bn_c;
+        for (int kk = 0; kk < hd; kk += 16) {
+          uint32_t af[4], bf[4];
+          af[0] = *reinterpret_cast<const uint32_t*>(dsrc + kk);
+          af[1] = *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk);
+          af[2] = *reinterpret_cast<const uint32_t*>(dsrc + kk + 8);
+          af[3] = *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk + 8);
+          ldsm_x4(bf, vrow + kk);
+          mma16816(dp[0], af, bf[0], bf[1]);
+          mma16816(dp[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = 2 * kt + u;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float d0 = s[j][2 * hh] * (dp[u][2 * hh] - D[hh]);
+            const float d1 = s[j][2 * hh + 1] * (dp[u][2 * hh + 1] - D[hh]);
+            const int off = hh * 8 * TN + 8 * j;
+            *reinterpret_cast<uint32_t*>(prow + off) =
+                pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);
+            sa[kt][2 * u + hh] = pack_bf16(d0, d1);
+            *reinterpret_cast<uint32_t*>(drow + off) = sa[kt][2 * u + hh];
+            float2* pp = reinterpret_cast<float2*>(part + off);
+            float2 v = make_float2(d0, d1);
+            if (bw > w0) {
+              const float2 o = *pp;
+              v = make_float2(o.x + v.x, o.y + v.y);
+            }
+            *pp = v;
+          }
+        }
+      }
+    }
+
+    // ---- dQ = dS K * scale -> dqkv[:, h hd ..) ----
+    bf16* out = dqkv + rw * C3 + h * hd;
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      float o[8][4];
+      mma_rows_t<NT>(
+          o, [&](int kt, uint32_t(&a)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = sa[kt][i];
+          },
+          ks + bt_r * ld + bt_c, ld, nt, c0, hd);
+      store_tile16(o, scale, out + c0, C3, hd - c0, lane);
+    }
+    __syncthreads();  // every warp is done with k and v
+  }
+}
+
+// Pass b. One block a (window, head), TN / 16 warps; NT >= TN / 16. ps,
+// dss from pass a; writes dk (scaled) and dv into dqkv.
+template <int NT>
+__global__ void __launch_bounds__(32 * NT)
+    attn_bwd_kv_kernel(const bf16* __restrict__ qkv,
+                       const bf16* __restrict__ dattn,
+                       const bf16* __restrict__ ps,
+                       const bf16* __restrict__ dss, bf16* __restrict__ dqkv,
+                       int heads, int TN, int hd, int C, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldp = TN + 8, ldc = 72, nt = TN / 16;
+  const int t = threadIdx.x, pt = blockDim.x, lane = t & 31;
+  const int k0 = (t >> 5) * 16;
+  const size_t pbytes = align128(size_t(TN) * ldp * sizeof(bf16));
+  const size_t cbytes = align128(size_t(TN) * ldc * sizeof(bf16));
+  bf16* p_s = reinterpret_cast<bf16*>(smem);
+  bf16* ds_s = reinterpret_cast<bf16*>(smem + pbytes);
+  bf16* q_c = reinterpret_cast<bf16*>(smem + 2 * pbytes);
+  bf16* do_c = reinterpret_cast<bf16*>(smem + 2 * pbytes + cbytes);
+  const int h = blockIdx.x % heads, bw = blockIdx.x / heads, C3 = 3 * C;
+  const int bt_r = (lane & 7) + (((lane >> 3) & 1) << 3), bt_c = (lane >> 4) * 8;
+  const int at_r = (lane & 7) + ((lane >> 4) << 3), at_c = ((lane >> 3) & 1) * 8;
+  const long long row0 = (long long)bw * TN;
+  const long long pw = ((long long)bw * heads + h) * TN * TN;
+  const int pch = TN / 8;
+  for (int i = t; i < TN * pch; i += pt) {
+    const int r = i / pch, c = (i - r * pch) * 8;
+    cp_async16(p_s + r * ldp + c, ps + pw + (long long)r * TN + c);
+    cp_async16(ds_s + r * ldp + c, dss + pw + (long long)r * TN + c);
+  }
+  const bf16* src = qkv + row0 * C3 + h * hd;
+  const bf16* dsrc = dattn + row0 * C + h * hd;
+  bf16* out = dqkv + (row0 + k0) * C3 + h * hd;
+  for (int c0 = 0; c0 < hd; c0 += 64) {
+    const int cols = hd - c0 < 64 ? hd - c0 : 64, cch = cols / 8;
+    for (int i = t; i < TN * cch; i += pt) {
+      const int r = i / cch, c = (i - r * cch) * 8;
+      cp_async16(q_c + r * ldc + c, src + (long long)r * C3 + c0 + c);
+      cp_async16(do_c + r * ldc + c, dsrc + (long long)r * C + c0 + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // P, dS (first chunk) and the chunk have landed
+
+    float o[8][4];
+    // dV = P^T dO
+    mma_rows_t<NT>(
+        o, [&](int kt, uint32_t(&a)[4]) {
+          ldsm_x4_t(a, p_s + (16 * kt + at_r) * ldp + k0 + at_c);
+        },
+        do_c + bt_r * ldc + bt_c, ldc, nt, 0, cols);
+    store_tile16(o, 1.0f, out + 2 * C + c0, C3, cols, lane);
+    // dK = dS^T q * scale
+    mma_rows_t<NT>(
+        o, [&](int kt, uint32_t(&a)[4]) {
+          ldsm_x4_t(a, ds_s + (16 * kt + at_r) * ldp + k0 + at_c);
+        },
+        q_c + bt_r * ldc + bt_c, ldc, nt, 0, cols);
+    store_tile16(o, scale, out + C + c0, C3, cols, lane);
+    __syncthreads();  // every warp is done with the chunk
+  }
+}
+
+// The grid of the slot kernel (`per_head` blocks a head, of `per_block`
+// windows each) or of the query pass: about one block an SM of the
+// H100's 132, from the shapes alone.
+inline void q_split(int n_windows, int heads, int* per_head, int* per_block) {
+  int ph = SMS / heads > 1 ? SMS / heads : 1;
+  if (ph > n_windows) ph = n_windows;
+  *per_block = (n_windows + ph - 1) / ph;
+  *per_head = (n_windows + *per_block - 1) / *per_block;
+}
+
+// Whether the slot kernel takes (TN, hd): its score registers (TN <= 128)
+// and one slot within an SM's opt-in shared memory (227 KiB).
+inline bool slot_takes(int TN, int hd) {
+  return TN <= 16 * BWD_MAX_NT && bwd_smem(TN, hd).total <= 232448;
+}
+
+// The attention backward's workspace in floats: the dbias partials, then
+// (two-pass kernels) P and dS in bf16.
+struct BwdWork {
+  size_t part, pds, total;
+};
+inline BwdWork bwd_work(int n_windows, int heads, int TN, int hd) {
+  int per_head = 0, per_block = 0;
+  q_split(n_windows, heads, &per_head, &per_block);
+  BwdWork w;
+  w.part = 0;
+  w.pds = (size_t(per_head) * heads * TN * TN + 3) / 4 * 4;  // 16-byte aligned
+  w.total = w.pds + (slot_takes(TN, hd)
+                         ? 0
+                         : size_t(n_windows) * heads * TN * TN);  // 2 x bf16
+  return w;
+}
+
+// The opt-in to the device's most dynamic shared memory, once a kernel and
+// device (done[dev]: the bytes, 0 until made)
+template <class K>
+cudaError_t opt_in(K kernel, int* done) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  int most = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+  if (err == cudaSuccess) done[dev] = most;
+  return err;
 }
 
 template <int NT>
-cudaError_t launch_attn_bwd(const bf16* qkv, const bf16* dattn,
-                            const float* bias, const float* mask, int n_mask,
-                            bf16* dqkv, float* dbias, int n_windows,
-                            int heads, int TN, int hd, int C, float scale,
-                            cudaStream_t s) {
-  // once an instance and device: the most shared memory a block may use
+cudaError_t launch_slot(const bf16* qkv, const bf16* dattn, const float* bias,
+                        const float* mask, int n_mask, bf16* dqkv,
+                        float* dbias_part, int n_windows, int heads, int TN,
+                        int hd, int C, float scale, cudaStream_t s) {
   static int optins[MAX_DEVICES] = {};
-  const int dev = current_device();
-  if (dev < 0) return cudaErrorInvalidDevice;
-  if (!optins[dev]) {
-    int most = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_bwd_kernel<NT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 most);
-    if (err != cudaSuccess) return err;
-    optins[dev] = most;
-  }
-  const int optin = optins[dev], sms = sm_count();
-  if (!sms) return cudaErrorInvalidDevice;
+  cudaError_t err = opt_in(attn_bwd_kernel<NT>, optins);
+  if (err != cudaSuccess) return err;
   const BwdSmem L = bwd_smem(TN, hd);
   const int pt = TN / 16 * 32;
   int slots = 256 / pt;
-  const int fit = static_cast<int>(optin / L.total);
+  const int fit = static_cast<int>(optins[current_device()] / L.total);
   if (slots > fit) slots = fit;
   if (slots < 1) return cudaErrorInvalidValue;
-  // one block an SM: sms / heads blocks a head, each a run of windows
-  int per_head = sms / heads > 1 ? sms / heads : 1;
-  if (per_head > n_windows) per_head = n_windows;
-  const int per_block = (n_windows + per_head - 1) / per_head;
-  per_head = (n_windows + per_block - 1) / per_block;
+  int per_head = 0, per_block = 0;
+  q_split(n_windows, heads, &per_head, &per_block);
   attn_bwd_kernel<NT><<<dim3(per_head, heads), slots * pt, slots * L.total,
-                         s>>>(qkv, dattn, bias, n_mask > 1 ? mask : nullptr,
-                              n_mask, dqkv, dbias, n_windows, per_block,
-                              slots, TN, hd, C, scale);
+                        s>>>(qkv, dattn, bias, n_mask > 1 ? mask : nullptr,
+                             n_mask, dqkv, dbias_part, n_windows, per_block,
+                             slots, TN, hd, C, scale);
   return cudaGetLastError();
 }
 
-cudaError_t attn_bwd(const bf16* qkv, const bf16* dattn, const float* bias,
-                     const float* mask, int n_mask, bf16* dqkv, float* dbias,
-                     int n_windows, int heads, int TN, int hd, int C,
-                     float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 16 * BWD_MAX_NT || hd <= 0 || hd % 16)
+template <int NT>
+cudaError_t launch_wide(const bf16* qkv, const bf16* dattn, const bf16* attn,
+                        const float* bias, const float* mask, int n_mask,
+                        bf16* dqkv, float* work, int n_windows, int heads,
+                        int TN, int hd, int C, float scale, cudaStream_t s) {
+  static int q_optins[MAX_DEVICES] = {}, kv_optins[MAX_DEVICES] = {};
+  cudaError_t err;
+  if ((err = opt_in(attn_bwd_q_kernel<NT>, q_optins)) != cudaSuccess ||
+      (err = opt_in(attn_bwd_kv_kernel<NT>, kv_optins)) != cudaSuccess)
+    return err;
+  const int dev = current_device();
+  const size_t qs = wide_q_smem(TN, hd), kvs = wide_kv_smem(TN);
+  if (qs > size_t(q_optins[dev]) || kvs > size_t(kv_optins[dev]))
+    return cudaErrorInvalidValue;
+  const BwdWork L = bwd_work(n_windows, heads, TN, hd);
+  bf16* ps = reinterpret_cast<bf16*>(work + L.pds);
+  bf16* dss = ps + size_t(n_windows) * heads * TN * TN;
+  int per_head = 0, per_block = 0;
+  q_split(n_windows, heads, &per_head, &per_block);
+  const int pt = TN / 16 * 32;
+  attn_bwd_q_kernel<NT><<<dim3(per_head, heads), pt, qs, s>>>(
+      qkv, dattn, attn, bias, n_mask > 1 ? mask : nullptr, n_mask, dqkv, ps,
+      dss, work + L.part, n_windows, per_block, heads, TN, hd, C, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attn_bwd_kv_kernel<NT><<<n_windows * heads, pt, kvs, s>>>(
+      qkv, dattn, ps, dss, dqkv, heads, TN, hd, C, scale);
+  return cudaGetLastError();
+}
+
+// The attention backward: dq, dk, dv into dqkv and dbias (heads, TN, TN),
+// the slot kernel where it takes the window, else the two passes (a
+// choice by shape: each is held against the twin on the card at its own
+// shapes); dbias from the blocks' partials (work: `bwd_work(...).total`
+// floats) by `sum_parts`.
+cudaError_t attn_bwd(const bf16* qkv, const bf16* dattn, const bf16* attn,
+                     const float* bias, const float* mask, int n_mask,
+                     bf16* dqkv, float* dbias, float* work, int n_windows,
+                     int heads, int TN, int hd, int C, float scale,
+                     cudaStream_t s) {
+  if (TN <= 0 || TN % 16 || TN > 16 * WIDE_MAX_NT || hd <= 0 || hd % 16 ||
+      !work)
     return cudaErrorInvalidValue;
   const int nt = TN / 16;
-  if (nt <= 2)
-    return launch_attn_bwd<2>(qkv, dattn, bias, mask, n_mask, dqkv, dbias,
-                              n_windows, heads, TN, hd, C, scale, s);
-  if (nt <= 4)
-    return launch_attn_bwd<4>(qkv, dattn, bias, mask, n_mask, dqkv, dbias,
-                              n_windows, heads, TN, hd, C, scale, s);
-  return launch_attn_bwd<BWD_MAX_NT>(qkv, dattn, bias, mask, n_mask, dqkv,
-                                     dbias, n_windows, heads, TN, hd, C,
-                                     scale, s);
+  cudaError_t err;
+  if (slot_takes(TN, hd)) {
+    if (nt <= 2)
+      err = launch_slot<2>(qkv, dattn, bias, mask, n_mask, dqkv, work,
+                           n_windows, heads, TN, hd, C, scale, s);
+    else if (nt <= 4)
+      err = launch_slot<4>(qkv, dattn, bias, mask, n_mask, dqkv, work,
+                           n_windows, heads, TN, hd, C, scale, s);
+    else
+      err = launch_slot<BWD_MAX_NT>(qkv, dattn, bias, mask, n_mask, dqkv,
+                                    work, n_windows, heads, TN, hd, C, scale,
+                                    s);
+  } else if (nt <= 2) {
+    err = launch_wide<2>(qkv, dattn, attn, bias, mask, n_mask, dqkv, work,
+                         n_windows, heads, TN, hd, C, scale, s);
+  } else if (nt <= 4) {
+    err = launch_wide<4>(qkv, dattn, attn, bias, mask, n_mask, dqkv, work,
+                         n_windows, heads, TN, hd, C, scale, s);
+  } else if (nt <= 8) {
+    err = launch_wide<8>(qkv, dattn, attn, bias, mask, n_mask, dqkv, work,
+                         n_windows, heads, TN, hd, C, scale, s);
+  } else {
+    err = launch_wide<WIDE_MAX_NT>(qkv, dattn, attn, bias, mask, n_mask, dqkv,
+                                   work, n_windows, heads, TN, hd, C, scale,
+                                   s);
+  }
+  if (err != cudaSuccess) return err;
+  int per_head = 0, per_block = 0;
+  q_split(n_windows, heads, &per_head, &per_block);
+  const long long table = (long long)heads * TN * TN;
+  return sum_parts(work, per_head, table, table, dbias, s);
+}
+
+// K5's workspace in floats, one region reused in stream order: the
+// attention backward's (dbias partials, P and dS), then the bias
+// gradients' column partials, then the weight gradients' row splits.
+size_t k5_work(int R, int C, int heads, int TN) {
+  const int hd = C / heads;
+  size_t w = bwd_work(R / TN, heads, TN, hd).total;
+  const size_t cs = size_t(colsum_bf16_parts(R)) * 3 * C;
+  const size_t w1 = wgrad_sm90_work(R, 3 * C, C), w2 = wgrad_sm90_work(R, C, C);
+  w = w > cs ? w : cs;
+  w = w > w1 ? w : w1;
+  return w > w2 ? w : w2;
 }
 
 }  // namespace
@@ -522,30 +947,24 @@ extern "C" int stswin_block_attention(
 // x: (B, T, H, W, C) bf16 unshifted; g: the output's gradient in the
 // forward's (shifted) output layout; qkv, attn: the forward's window-order
 // scratch; wqkv_t (C, 3C) and wproj_t (C, C): transposed bf16 weights.
-// Scratch: dattn (rows, C), dqkv (rows, 3C) bf16. Outputs: dx unshifted
-// bf16; dwqkv (3C, C), dbqkv (3C), dwproj (C, C), dbproj (C), dbias
-// (heads, TN, TN), all fp32 and overwritten.
+// Scratch: dattn (rows, C), dqkv (rows, 3C) bf16; work:
+// `stswin_block_attention_bwd_work` floats. Outputs: dx unshifted bf16;
+// dwqkv (3C, C), dbqkv (3C), dwproj (C, C), dbproj (C), dbias (heads, TN,
+// TN), all fp32 and overwritten, each sum in a fixed order.
 extern "C" int stswin_block_attention_bwd(
     const void* x, const void* g, const void* qkv, const void* attn,
     const void* wqkv_t, const void* wproj_t, const void* bias,
-    const void* mask, void* dattn, void* dqkv, void* dx, void* dwqkv,
-    void* dbqkv, void* dwproj, void* dbproj, void* dbias, int B, int T,
-    int H, int W, int C, int heads, int ws, float scale, int shift,
+    const void* mask, void* dattn, void* dqkv, void* work, void* dx,
+    void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dbias, int B,
+    int T, int H, int W, int C, int heads, int ws, float scale, int shift,
     int n_mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T * H * W, hd = C / heads, TN = T * ws * ws;
   const int nWin = (H / ws) * (W / ws);
   const RowMap win = RowMap{1, T, H, W, ws, 0};
   const RowMap win_shift = RowMap{1, T, H, W, ws, shift};
+  float* wk = static_cast<float*>(work);
   cudaError_t err;
-  const size_t c4 = sizeof(float) * C;
-  if ((err = cudaMemsetAsync(dwqkv, 0, c4 * 3 * C, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(dbqkv, 0, c4 * 3, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(dwproj, 0, c4 * C, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(dbproj, 0, c4, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(dbias, 0, sizeof(float) * heads * TN * TN, s)) !=
-          cudaSuccess)
-    return err;
 
   // 1. dattn (window order) = g (gathered, a TMA box a window) @ wproj
   GemmParams p{};
@@ -565,10 +984,12 @@ extern "C" int stswin_block_attention_bwd(
   // 2. attention backward, persistent blocks over the windows of a head
   if ((err = attn_bwd(static_cast<const bf16*>(qkv),
                       static_cast<const bf16*>(dattn),
+                      static_cast<const bf16*>(attn),
                       static_cast<const float*>(bias),
                       static_cast<const float*>(mask), n_mask,
                       static_cast<bf16*>(dqkv), static_cast<float*>(dbias),
-                      B * nWin, heads, TN, hd, C, scale, s)) != cudaSuccess)
+                      wk, B * nWin, heads, TN, hd, C, scale, s)) !=
+      cudaSuccess)
     return err;
 
   // 3. dx (unshifted image) = dqkv @ wqkv, scattered through the shift map
@@ -594,6 +1015,7 @@ extern "C" int stswin_block_attention_bwd(
   w.N = C;
   w.Cw = static_cast<float*>(dwqkv);
   w.ldc = C;
+  w.work = wk;
   if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   w.A = static_cast<const bf16*>(g);
   w.lda = C;
@@ -604,8 +1026,15 @@ extern "C" int stswin_block_attention_bwd(
   w.Cw = static_cast<float*>(dwproj);
   if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   if ((err = colsum_bf16(static_cast<const bf16*>(dqkv), 3 * C, M, 3 * C,
-                         static_cast<float*>(dbqkv), s)) != cudaSuccess)
+                         static_cast<float*>(dbqkv), wk, s)) != cudaSuccess)
     return err;
   return colsum_bf16(static_cast<const bf16*>(g), C, M, C,
-                     static_cast<float*>(dbproj), s);
+                     static_cast<float*>(dbproj), wk, s);
+}
+
+// The floats of K5's workspace (a query, not a launch): R token rows.
+extern "C" int stswin_block_attention_bwd_work(int R, int C, int heads,
+                                               int TN, long long* out) {
+  *out = static_cast<long long>(k5_work(R, C, heads, TN));
+  return 0;
 }

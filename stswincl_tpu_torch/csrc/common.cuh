@@ -1,12 +1,11 @@
 // Shared device helpers for the STswin Hopper kernels (sm_90a).
 //
 // Holds the building blocks the kernels share: the 16-byte cp.async, warp
-// reductions, the quad transpose of an mma accumulator layout, the 16-byte
-// fp32 reduction into device memory, the GELU of the JAX package's kernels
-// (the odd minimax erf polynomial, not erff:
+// reductions, the quad transpose of an mma accumulator layout, the GELU of
+// the JAX package's kernels (the odd minimax erf polynomial, not erff:
 // `stswincl_tpu/ops/pallas_mlp.py:45-101` defines the semantics), the
-// window-partition row map, and the declaration of the column sums of
-// gemm.cu.
+// window-partition row map, and the declarations of the fixed-order sums
+// (`sum_parts`, `sum_parts_cols`, the column sums of gemm.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,12 +87,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// *p += v as one 16-byte fp32 reduction in device memory (sm_90: the
-// vector atomics of global memory); p 16-byte aligned.
-__device__ __forceinline__ void red_add_f32x4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
 // erf(x) ~ x * P(x^2) on |x| < 3, saturated to sign(x) beyond; the same
@@ -239,15 +232,31 @@ struct GemmParams {
   const bf16* Wt2;  // identity) and its (N, K) weight
   bf16* C2;
   const float* aux;
+  // EPI_DGELU, EPI_GELU_BWD: the column sums of dpre, one row of N a
+  // 128-row tile ((M + 127) / 128 rows, written, not added); the caller
+  // adds them in order (`sum_parts`)
   float* colsum;
   ConvGeom conv;  // EPI_CONV only
 };
 
 inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 0}; }
 
-// out[n] += sum_r X[r, n] for a (R, N) bf16 matrix (K5's bias gradients).
+// out[i] = sum over s of part[s * stride + i], i < len, s ascending
+// (fp32_train.cu): the second pass of every sum that spans blocks, so
+// that no float atomic orders a sum and two calls give the same bits.
+cudaError_t sum_parts(const float* part, int parts, long long stride,
+                      long long len, float* out, cudaStream_t s);
+
+// The same sum for many partial rows of few columns (gemm.cu): another
+// fixed order, a block of warps a 32-column slice.
+cudaError_t sum_parts_cols(const float* part, int parts, long long stride,
+                           long long len, float* out, cudaStream_t s);
+
+// out[n] = sum_r X[r, n] for a (R, N) bf16 matrix (K5's bias gradients),
+// in a fixed order: part holds colsum_bf16_parts(R) * N floats.
+int colsum_bf16_parts(int R);
 cudaError_t colsum_bf16(const bf16* X, long long ld, int R, int N, float* out,
-                        cudaStream_t stream);
+                        float* part, cudaStream_t stream);
 
 // The library launches on whichever device the caller's tensors are on
 // (`kernels.use_device` sets the runtime's current device), so each query

@@ -46,8 +46,9 @@
 //   2. without m: fc1 whose epilogue evaluates the erf polynomial once and
 //      writes h = bf16(gelu(pre)) and gelu'(pre) (fp32, EPI_GELU_GRAD),
 //      then m = bf16(h @ w2^T + bw2) (m needs h before dm exists);
-//   3. one warp per row: LN1 backward of g -> do (fp32) and dm = bf16(do),
-//      with the column sums of g * xhat1, g and do (ds1, db1n, dbw2);
+//   3. one warp per row (a block per row past C 1024): LN1 backward of g
+//      -> do (fp32) and dm = bf16(do), with the column sums of g * xhat1,
+//      g and do (ds1, db1n, dbw2);
 //   4. with m saved: pre = n2 @ w1^T + b1 and dh = dm @ w2 in one tile's
 //      registers (EPI_GELU_BWD), whose epilogue writes h, dpre =
 //      bf16(dh * gelu'(pre)) and the column sums of dh * gelu'(pre) (db1):
@@ -60,11 +61,17 @@
 //      time (344 GFLOP) to save the fp32 gelu' (2.7 GB of traffic), and
 //      took 3.639 ms with that fc1 against 3.061 through memory;
 //   5. dn2 = dpre @ w1 (fp32);
-//   6. one warp per row: LN2 backward with the fp32 xhat / rsig of the
+//   6. as step 3: LN2 backward with the fp32 xhat / rsig of the
 //      recompute (`_ln_bwd_f32`, `:172`), ds = do + that, written
 //      unshifted (dx) and through the shift (dy, the gradient of the
 //      attention's shifted output), with the sums of dn2 * xhat2, dn2;
 //   7. dw1 = dpre^T n2, dw2 = dm^T h on the weight-gradient GEMM.
+// Every sum over rows is formed in a fixed order, with no float atomic
+// (two calls give the same bits): the row passes' column sums as partial
+// rows a block, db1 as partial rows a 128-row tile, the weight gradients'
+// row splits in a workspace, each then added in order by `sum_parts`.
+// Any C % 128 runs (K2's forward takes any): the row passes a warp a row
+// up to 1024 channels, a block a row past them (ln_bwd_wide.cuh).
 
 // Row 13 (`stswin_add_ln_mlp`, at the end): (s, m) = (bf16(x + y),
 // bf16(fc2(GELU(fc1(LN(x + y)))))), the tail of K2 without its LN1.
@@ -101,6 +108,7 @@
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "ln_bwd_wide.cuh"
 
 namespace {
 
@@ -172,23 +180,31 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
   }
 }
 
-// ---- K6 row kernels: one warp per row, NV float2 per lane (C = 64 NV),
-// grid-strided so each warp sums its rows' vector gradients in registers;
-// block sums meet in shared memory, then one fp32 atomic per column.
+// ---- K6 row kernels: one warp per row, nv = C / 64 float2 per lane (NV
+// the most: C <= 64 NV, any C % 64 up to 1024; EXACT: C == 64 NV, nv known
+// to the compiler: the training widths' code as before any other width
+// ran), grid-strided so each warp
+// sums its rows' vector gradients in registers; the block's 8 warps then
+// meet in shared memory in warp order, into the block's partial rows, and
+// `sum_parts` adds the blocks in order (no float atomic). Past 1024
+// channels a block a row (ln_bwd_wide.cuh).
 
 template <int NV>
 __device__ __forceinline__ void row_stats(float2 (&v)[NV], float& mu,
-                                          float& rs, float eps) {
-  constexpr float invC = 1.0f / (64 * NV);
+                                          float& rs, float eps, int nv,
+                                          float invC) {
   float sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) sum += v[i].x + v[i].y;
+  for (int i = 0; i < NV; ++i)
+    if (i < nv) sum += v[i].x + v[i].y;
   mu = warp_sum(sum) * invC;
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const float d0 = v[i].x - mu, d1 = v[i].y - mu;
-    sq += d0 * d0 + d1 * d1;
+    if (i < nv) {
+      const float d0 = v[i].x - mu, d1 = v[i].y - mu;
+      sq += d0 * d0 + d1 * d1;
+    }
   }
   rs = rsqrtf(warp_sum(sq) * invC + eps);
 }
@@ -199,16 +215,18 @@ template <int NV>
 __device__ __forceinline__ void ln_bwd_row(float2 (&gv)[NV],
                                            const float2 (&xh)[NV],
                                            const float* __restrict__ scale,
-                                           float rs, int lane) {
-  constexpr float invC = 1.0f / (64 * NV);
+                                           float rs, int lane, int nv,
+                                           float invC) {
   float m1 = 0.0f, m2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int c = lane * 2 + 64 * i;
-    gv[i].x *= scale[c];
-    gv[i].y *= scale[c + 1];
-    m1 += gv[i].x + gv[i].y;
-    m2 += gv[i].x * xh[i].x + gv[i].y * xh[i].y;
+    if (i < nv) {
+      const int c = lane * 2 + 64 * i;
+      gv[i].x *= scale[c];
+      gv[i].y *= scale[c + 1];
+      m1 += gv[i].x + gv[i].y;
+      m2 += gv[i].x * xh[i].x + gv[i].y * xh[i].y;
+    }
   }
   m1 = warp_sum(m1) * invC;
   m2 = warp_sum(m2) * invC;
@@ -219,42 +237,47 @@ __device__ __forceinline__ void ln_bwd_row(float2 (&gv)[NV],
   }
 }
 
+// the block's per-lane sums -> part[k * C + c], its warps added in order
+// (red: LN_WARPS * 64 NV floats of shared memory)
 template <int NV, int NVEC>
-__device__ __forceinline__ void flush_vec_sums(float2 (&acc)[NVEC][NV],
-                                               float* red, float* const* out,
+__device__ __forceinline__ void flush_vec_sums(const float2 (&acc)[NVEC][NV],
+                                               float* red, float* part,
+                                               int C, int nv, int warp,
                                                int lane) {
-  constexpr int C = 64 * NV;
-  for (int i = threadIdx.x; i < NVEC * C; i += blockDim.x) red[i] = 0.0f;
-  __syncthreads();
 #pragma unroll
-  for (int k = 0; k < NVEC; ++k)
+  for (int k = 0; k < NVEC; ++k) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int c = lane * 2 + 64 * i;
-      atomicAdd(&red[k * C + c], acc[k][i].x);
-      atomicAdd(&red[k * C + c + 1], acc[k][i].y);
+    for (int i = 0; i < NV; ++i)
+      if (i < nv)
+        *reinterpret_cast<float2*>(red + warp * C + lane * 2 + 64 * i) =
+            acc[k][i];
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += LN_WARPS * 32) {
+      float v = red[c];
+      for (int w = 1; w < LN_WARPS; ++w) v += red[w * C + c];
+      part[k * C + c] = v;
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < NVEC * C; i += blockDim.x)
-    atomicAdd(out[i / C] + (i % C), red[i]);
+    __syncthreads();
+  }
 }
 
 __device__ __forceinline__ float2 ld_bf2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// LN1 backward: o = s32 + m, g -> do32 (fp32), dm = bf16(do32);
-// sums ds1 += g * xhat1, db1n += g, dbw2 += do32.
-template <int NV>
+// LN1 backward: o = s32 + m, g -> do32 (fp32), dm = bf16(do32); the
+// block's sums of g * xhat1, g and do32 (ds1, db1n, dbw2) -> part[block][3][C]
+template <int NV, bool EXACT>
 __global__ void __launch_bounds__(LN_WARPS * 32)
     epi_bwd_ln1_kernel(const float* __restrict__ s32,
                        const bf16* __restrict__ m, const bf16* __restrict__ g,
                        const float* __restrict__ s1, bf16* __restrict__ dm,
-                       float* __restrict__ do32, float* ds1, float* db1n,
-                       float* dbw2, int R, float eps) {
-  constexpr int C = 64 * NV;
-  __shared__ float red[3 * C];
+                       float* __restrict__ do32, float* __restrict__ part,
+                       int R, int C, float eps) {
+  __shared__ __align__(16) float red[LN_WARPS * 64 * NV];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = EXACT ? NV : C >> 6;
+  const float invC = 1.0f / C;
   float2 acc[3][NV];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
@@ -266,14 +289,17 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
     float2 o[NV], gv[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 2 + 64 * i;
-      const float2 sv = *reinterpret_cast<const float2*>(s32 + base + c);
-      const float2 mv = ld_bf2(m + base + c);
-      o[i] = make_float2(sv.x + mv.x, sv.y + mv.y);
-      gv[i] = ld_bf2(g + base + c);
+      o[i] = gv[i] = make_float2(0.0f, 0.0f);
+      if (i < nv) {
+        const int c = lane * 2 + 64 * i;
+        const float2 sv = *reinterpret_cast<const float2*>(s32 + base + c);
+        const float2 mv = ld_bf2(m + base + c);
+        o[i] = make_float2(sv.x + mv.x, sv.y + mv.y);
+        gv[i] = ld_bf2(g + base + c);
+      }
     }
     float mu, rs;
-    row_stats<NV>(o, mu, rs, eps);
+    row_stats<NV>(o, mu, rs, eps, nv, invC);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i].x = (o[i].x - mu) * rs;  // xhat1
@@ -283,36 +309,39 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       acc[1][i].x += gv[i].x;
       acc[1][i].y += gv[i].y;
     }
-    ln_bwd_row<NV>(gv, o, s1, rs, lane);
+    ln_bwd_row<NV>(gv, o, s1, rs, lane, nv, invC);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 2 + 64 * i;
-      *reinterpret_cast<float2*>(do32 + base + c) = gv[i];
-      *reinterpret_cast<__nv_bfloat162*>(dm + base + c) =
-          __floats2bfloat162_rn(gv[i].x, gv[i].y);
-      acc[2][i].x += gv[i].x;
-      acc[2][i].y += gv[i].y;
+      if (i < nv) {
+        const int c = lane * 2 + 64 * i;
+        *reinterpret_cast<float2*>(do32 + base + c) = gv[i];
+        *reinterpret_cast<__nv_bfloat162*>(dm + base + c) =
+            __floats2bfloat162_rn(gv[i].x, gv[i].y);
+        acc[2][i].x += gv[i].x;
+        acc[2][i].y += gv[i].y;
+      }
     }
   }
-  float* const outs[3] = {ds1, db1n, dbw2};
-  flush_vec_sums<NV, 3>(acc, red, outs, lane);
+  flush_vec_sums<NV, 3>(acc, red, part + (long long)blockIdx.x * 3 * C, C, nv,
+                        warp, lane);
 }
 
 // LN2 backward of dn2 with the recomputed xhat2 / rsig2 of s32;
 // ds = do32 + that -> ds (row r, unshifted) and, with dy, dy at the
-// shifted row (the gradient of y as K1 left it); sums ds2 += dn2 * xhat2,
-// db2 += dn2.
-template <int NV>
+// shifted row (the gradient of y as K1 left it); the block's sums of dn2 *
+// xhat2 and dn2 (ds2, db2) -> part[block][2][C]
+template <int NV, bool EXACT>
 __global__ void __launch_bounds__(LN_WARPS * 32)
     epi_bwd_ln2_kernel(const float* __restrict__ s32,
                        const float* __restrict__ dn2,
                        const float* __restrict__ do32,
                        const float* __restrict__ s2, bf16* __restrict__ ds,
-                       bf16* __restrict__ dy, float* ds2, float* db2, int R,
-                       int H, int W, int shift, float eps) {
-  constexpr int C = 64 * NV;
-  __shared__ float red[2 * C];
+                       bf16* __restrict__ dy, float* __restrict__ part, int R,
+                       int C, int H, int W, int shift, float eps) {
+  __shared__ __align__(16) float red[LN_WARPS * 64 * NV];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = EXACT ? NV : C >> 6;
+  const float invC = 1.0f / C;
   float2 acc[2][NV];
 #pragma unroll
   for (int k = 0; k < 2; ++k)
@@ -324,12 +353,15 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
     float2 xh[NV], gv[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 2 + 64 * i;
-      xh[i] = *reinterpret_cast<const float2*>(s32 + base + c);
-      gv[i] = *reinterpret_cast<const float2*>(dn2 + base + c);
+      xh[i] = gv[i] = make_float2(0.0f, 0.0f);
+      if (i < nv) {
+        const int c = lane * 2 + 64 * i;
+        xh[i] = *reinterpret_cast<const float2*>(s32 + base + c);
+        gv[i] = *reinterpret_cast<const float2*>(dn2 + base + c);
+      }
     }
     float mu, rs;
-    row_stats<NV>(xh, mu, rs, eps);
+    row_stats<NV>(xh, mu, rs, eps, nv, invC);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i].x = (xh[i].x - mu) * rs;
@@ -339,7 +371,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       acc[1][i].x += gv[i].x;
       acc[1][i].y += gv[i].y;
     }
-    ln_bwd_row<NV>(gv, xh, s2, rs, lane);
+    ln_bwd_row<NV>(gv, xh, s2, rs, lane, nv, invC);
     long long ybase = base;
     if (dy && shift) {
       const int w = r % W, h = (r / W) % H, bt = r / (W * H);
@@ -349,55 +381,99 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 2 + 64 * i;
-      const float2 d = *reinterpret_cast<const float2*>(do32 + base + c);
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(d.x + gv[i].x, d.y + gv[i].y);
-      *reinterpret_cast<__nv_bfloat162*>(ds + base + c) = v;
-      if (dy) *reinterpret_cast<__nv_bfloat162*>(dy + ybase + c) = v;
+      if (i < nv) {
+        const int c = lane * 2 + 64 * i;
+        const float2 d = *reinterpret_cast<const float2*>(do32 + base + c);
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(d.x + gv[i].x, d.y + gv[i].y);
+        *reinterpret_cast<__nv_bfloat162*>(ds + base + c) = v;
+        if (dy) *reinterpret_cast<__nv_bfloat162*>(dy + ybase + c) = v;
+      }
     }
   }
-  float* const outs[2] = {ds2, db2};
-  flush_vec_sums<NV, 2>(acc, red, outs, lane);
+  flush_vec_sums<NV, 2>(acc, red, part + (long long)blockIdx.x * 2 * C, C, nv,
+                        warp, lane);
 }
 
 template <int NV>
 cudaError_t launch_bwd_rows(int blocks, cudaStream_t s, bool first,
                             const float* s32, const bf16* m, const bf16* g,
                             const float* scale, bf16* dm, float* do32,
-                            const float* dn2, bf16* ds, bf16* dy,
-                            float* const* vec, int R, int H, int W, int shift,
+                            const float* dn2, bf16* ds, bf16* dy, float* part,
+                            int R, int C, int H, int W, int shift,
                             float eps) {
-  if (first)
-    epi_bwd_ln1_kernel<NV><<<blocks, LN_WARPS * 32, 0, s>>>(
-        s32, m, g, scale, dm, do32, vec[0], vec[1], vec[2], R, eps);
+  const bool exact = C == 64 * NV;
+  if (first && exact)
+    epi_bwd_ln1_kernel<NV, true><<<blocks, LN_WARPS * 32, 0, s>>>(
+        s32, m, g, scale, dm, do32, part, R, C, eps);
+  else if (first)
+    epi_bwd_ln1_kernel<NV, false><<<blocks, LN_WARPS * 32, 0, s>>>(
+        s32, m, g, scale, dm, do32, part, R, C, eps);
+  else if (exact)
+    epi_bwd_ln2_kernel<NV, true><<<blocks, LN_WARPS * 32, 0, s>>>(
+        s32, dn2, do32, scale, ds, dy, part, R, C, H, W, shift, eps);
   else
-    epi_bwd_ln2_kernel<NV><<<blocks, LN_WARPS * 32, 0, s>>>(
-        s32, dn2, do32, scale, ds, dy, vec[0], vec[1], R, H, W, shift, eps);
+    epi_bwd_ln2_kernel<NV, false><<<blocks, LN_WARPS * 32, 0, s>>>(
+        s32, dn2, do32, scale, ds, dy, part, R, C, H, W, shift, eps);
   return cudaGetLastError();
 }
 
+// K6's row pass (LN1's with `first`, else LN2's) at any C % 128: a warp a
+// row templated on the next of 128, 256, 512, 1024 channels, else a block
+// a row. Its vector sums (3 with `first`, else 2) -> vec[k], each over the
+// blocks' partial rows (part: `blocks` x 3 x C floats) in order.
 cudaError_t bwd_rows(int C, int blocks, cudaStream_t s, bool first,
                      const float* s32, const bf16* m, const bf16* g,
                      const float* scale, bf16* dm, float* do32,
-                     const float* dn2, bf16* ds, bf16* dy, float* const* vec,
-                     int R, int H, int W, int shift, float eps) {
-  switch (C) {
-    case 128:
-      return launch_bwd_rows<2>(blocks, s, first, s32, m, g, scale, dm, do32,
-                                dn2, ds, dy, vec, R, H, W, shift, eps);
-    case 256:
-      return launch_bwd_rows<4>(blocks, s, first, s32, m, g, scale, dm, do32,
-                                dn2, ds, dy, vec, R, H, W, shift, eps);
-    case 512:
-      return launch_bwd_rows<8>(blocks, s, first, s32, m, g, scale, dm, do32,
-                                dn2, ds, dy, vec, R, H, W, shift, eps);
-    case 1024:
-      return launch_bwd_rows<16>(blocks, s, first, s32, m, g, scale, dm, do32,
-                                 dn2, ds, dy, vec, R, H, W, shift, eps);
-    default:
-      return cudaErrorInvalidValue;
+                     const float* dn2, bf16* ds, bf16* dy, float* part,
+                     float* const* vec, int R, int H, int W, int shift,
+                     float eps) {
+  if (C <= 0 || C % 128) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (C <= 128)
+    err = launch_bwd_rows<2>(blocks, s, first, s32, m, g, scale, dm, do32,
+                             dn2, ds, dy, part, R, C, H, W, shift, eps);
+  else if (C <= 256)
+    err = launch_bwd_rows<4>(blocks, s, first, s32, m, g, scale, dm, do32,
+                             dn2, ds, dy, part, R, C, H, W, shift, eps);
+  else if (C <= 512)
+    err = launch_bwd_rows<8>(blocks, s, first, s32, m, g, scale, dm, do32,
+                             dn2, ds, dy, part, R, C, H, W, shift, eps);
+  else if (C <= 1024)
+    err = launch_bwd_rows<16>(blocks, s, first, s32, m, g, scale, dm, do32,
+                              dn2, ds, dy, part, R, C, H, W, shift, eps);
+  else {
+    if (first)
+      k6wide::ln1_bwd_kernel<bf16><<<blocks, k6wide::THREADS, 0, s>>>(
+          s32, m, g, scale, dm, do32, part, R, C, eps);
+    else
+      k6wide::ln2_bwd_kernel<bf16><<<blocks, k6wide::THREADS, 0, s>>>(
+          s32, dn2, do32, scale, ds, dy, part, R, C, H, W, shift, eps);
+    err = cudaGetLastError();
   }
+  const int nvec = first ? 3 : 2;
+  for (int k = 0; k < nvec && err == cudaSuccess; ++k)
+    err = sum_parts_cols(part + k * C, blocks, (long long)nvec * C, C,
+                         vec[k], s);
+  return err;
+}
+
+// K6's workspace (`stswin_block_epilogue_bwd_work` floats), one region
+// reused by its steps in stream order: the row passes' partials, db1's
+// per-row-tile partials, the weight gradients' row splits.
+constexpr int ROW_BLOCKS = 1056;
+inline int k6_row_blocks(int R) {
+  const int b = (R + LN_WARPS - 1) / LN_WARPS;
+  return b < 1 ? 1 : (b > ROW_BLOCKS ? ROW_BLOCKS : b);
+}
+size_t k6_work(int R, int C, int hidden) {
+  size_t w = size_t(k6_row_blocks(R)) * 3 * C;
+  const size_t cols = size_t((R + 127) / 128) * hidden;
+  const size_t w1 = wgrad_sm90_work(R, hidden, C),
+               w2 = wgrad_sm90_work(R, C, hidden);
+  w = w > cols ? w : cols;
+  w = w > w1 ? w : w1;
+  return w > w2 ? w : w2;
 }
 
 }  // namespace
@@ -469,31 +545,24 @@ extern "C" int stswin_block_epilogue(
 // their transposes w1_t (C, hidden), w2_t (hidden, C), bf16. Scratch:
 // s32, do32, dn2 (rows, C) fp32; n2, m, dm (rows, C) bf16; h, dpre
 // (rows, hidden) bf16; dgelu (rows, hidden) fp32 when m_in is null (else
-// unused). Outputs
+// unused); work: `stswin_block_epilogue_bwd_work` floats. Outputs
 // (overwritten): ds (rows, C) bf16 = dx; dy (rows, C) bf16 in y's layout
 // (only when shift > 0); dw1 (hidden, C), db1, dw2 (C, hidden), dbw2, ds1,
-// db1n, ds2, db2 fp32.
+// db1n, ds2, db2 fp32, every sum over rows in a fixed order. C % 128 == 0.
 extern "C" int stswin_block_epilogue_bwd(
     const void* x, const void* y, const void* g, const void* m_in,
     const void* s2, const void* b2, const void* w1, const void* b1,
     const void* w1_t, const void* w2, const void* bw2, const void* w2_t,
     const void* s1, void* s32, void* n2, void* h, void* dgelu, void* m,
     void* dm, void* do32, void* dpre, void* dn2, void* ds, void* dy,
-    void* dw1, void* db1, void* dw2, void* dbw2, void* ds1, void* db1n,
-    void* ds2, void* db2, int BT, int H, int W, int C, int hidden, int shift,
-    int act, float eps, void* stream) {
+    void* work, void* dw1, void* db1, void* dw2, void* dbw2, void* ds1,
+    void* db1n, void* ds2, void* db2, int BT, int H, int W, int C,
+    int hidden, int shift, int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = BT * H * W;
   cudaError_t err;
-  const size_t f = sizeof(float);
-  void* vecs[] = {db1, dbw2, ds1, db1n, ds2, db2};
-  if ((err = cudaMemsetAsync(dw1, 0, f * hidden * C, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(dw2, 0, f * hidden * C, s)) != cudaSuccess ||
-      (err = cudaMemsetAsync(db1, 0, f * hidden, s)) != cudaSuccess)
-    return err;
-  for (int i = 1; i < 6; ++i)
-    if ((err = cudaMemsetAsync(vecs[i], 0, f * C, s)) != cudaSuccess)
-      return err;
+  float* wk = static_cast<float*>(work);
+  if (C <= 0 || C % 128 || !wk) return cudaErrorInvalidValue;
 
   // 1. s = x + unshift(y), n2 = bf16(LN2(s))
   const int blocks = (R + LN_WARPS - 1) / LN_WARPS;
@@ -540,21 +609,22 @@ extern "C" int stswin_block_epilogue_bwd(
   }
 
   // 3. LN1 backward -> do32, dm; ds1, db1n, dbw2
-  const int row_blocks = blocks < 1056 ? blocks : 1056;
+  const int row_blocks = k6_row_blocks(R);
   float* ln1_vec[] = {static_cast<float*>(ds1), static_cast<float*>(db1n),
                       static_cast<float*>(dbw2)};
   if ((err = bwd_rows(C, row_blocks, s, true, static_cast<const float*>(s32),
                       m_use, static_cast<const bf16*>(g),
                       static_cast<const float*>(s1), static_cast<bf16*>(dm),
                       static_cast<float*>(do32), nullptr, nullptr, nullptr,
-                      ln1_vec, R, H, W, shift, eps)) != cudaSuccess)
+                      wk, ln1_vec, R, H, W, shift, eps)) != cudaSuccess)
     return err;
 
   // 4. dpre = bf16(dh * gelu'(pre)), db1: gelu' from step 2 without m;
   // with m, pre and dh = dm @ w2 in one tile's registers (and h). Each is
-  // the faster way for its stage (step 4 above)
+  // the faster way for its stage (step 4 above). db1: a partial row a
+  // 128-row tile, then the tiles in order
   p.C = static_cast<bf16*>(dpre);
-  p.colsum = static_cast<float*>(db1);
+  p.colsum = wk;
   if (!m_in) {
     p.A = static_cast<const bf16*>(dm);
     p.Wt = static_cast<const bf16*>(w2_t);
@@ -569,7 +639,10 @@ extern "C" int stswin_block_epilogue_bwd(
     p.C2 = static_cast<bf16*>(h);
     err = gemm_sm90(p, EPI_GELU_BWD, s);
   }
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess ||
+      (err = sum_parts_cols(wk, (R + 127) / 128, hidden, hidden,
+                            static_cast<float*>(db1), s)) != cudaSuccess)
+    return err;
 
   // 5. dn2 = dpre @ w1 (fp32)
   GemmParams d{};
@@ -592,8 +665,8 @@ extern "C" int stswin_block_epilogue_bwd(
                       nullptr, nullptr, static_cast<const float*>(s2), nullptr,
                       static_cast<float*>(do32),
                       static_cast<const float*>(dn2), static_cast<bf16*>(ds),
-                      shift ? static_cast<bf16*>(dy) : nullptr, ln2_vec, R, H,
-                      W, shift, eps)) != cudaSuccess)
+                      shift ? static_cast<bf16*>(dy) : nullptr, wk, ln2_vec,
+                      R, H, W, shift, eps)) != cudaSuccess)
     return err;
 
   // 7. dw1 = dpre^T n2 (hidden, C), dw2 = dm^T h (C, hidden)
@@ -609,6 +682,7 @@ extern "C" int stswin_block_epilogue_bwd(
   w.N = C;
   w.Cw = static_cast<float*>(dw1);
   w.ldc = C;
+  w.work = wk;
   if ((err = gemm_wgrad_sm90(w, s)) != cudaSuccess) return err;
   w.A = static_cast<const bf16*>(dm);
   w.lda = C;
@@ -619,6 +693,13 @@ extern "C" int stswin_block_epilogue_bwd(
   w.Cw = static_cast<float*>(dw2);
   w.ldc = hidden;
   return gemm_wgrad_sm90(w, s);
+}
+
+// The floats of K6's workspace (a query, not a launch).
+extern "C" int stswin_block_epilogue_bwd_work(int R, int C, int hidden,
+                                              long long* out) {
+  *out = static_cast<long long>(k6_work(R, C, hidden));
+  return 0;
 }
 
 // fc1 + bias + act -> bf16 hid, then fc2 + bias -> bf16 out: the MLP of

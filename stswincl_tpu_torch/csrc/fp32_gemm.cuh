@@ -98,11 +98,6 @@ cudaError_t gemm_f32(const F32Gemm& p, cudaStream_t s);
 // The 128-row tiles of M rows: F32_DGELU's column-sum partials.
 inline int f32_col_tiles(int M) { return (M + 127) / 128; }
 
-// out[i] = sum over s of part[s * stride + i], i < len, in a fixed order
-// (fp32_train.cu): the second pass of every sum that spans blocks.
-cudaError_t sum_parts(const float* part, int parts, long long stride,
-                      long long len, float* out, cudaStream_t s);
-
 F32Gemm plain_gemm(const float* A, int lda, const float* Wt,
                    const float* bias, int M, int N, int K, float* C, int ldc,
                    int act);

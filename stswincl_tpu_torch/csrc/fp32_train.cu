@@ -95,7 +95,8 @@
 //     place, as many bytes, so it stays; fc1 (6.1-6.3 ms) and dpre (4.9-5.0)
 //     sit at 2.4-3x their 2.08 ms product bound, the wgmma tile's K = 512
 //     regime, not their bytes. In fp32 dm is do itself. The row passes run
-//     a fixed grid of at most 1,024 blocks, a warp a row; each block sums
+//     a fixed grid of at most 1,024 blocks, a warp a row up to C 1024 (a
+//     block a row past it, ln_bwd_wide.cuh; any C % 128); each block sums
 //     its rows' terms in registers, then its 8 warps in order, into its
 //     partial.
 
@@ -103,6 +104,7 @@
 
 #include "fp32_attention_bwd.cuh"
 #include "fp32_gemm.cuh"
+#include "ln_bwd_wide.cuh"
 
 namespace {
 
@@ -701,21 +703,25 @@ K5Work k5_work(int R, int C, int heads, int TN) {
 
 // ---- K6's row passes ------------------------------------------------------
 
-// two-pass LayerNorm statistics of a row held as NV float4 a lane
+// two-pass LayerNorm statistics of a row held as nv = C / 128 float4 a
+// lane (NV the most)
 template <int NV>
 __device__ __forceinline__ void row_stats(const float4 (&v)[NV], float& mu,
-                                          float& rs, float eps) {
-  constexpr int C = 128 * NV;
+                                          float& rs, float eps, int C) {
+  const int nv = C >> 7;
   float sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) sum += v[i].x + v[i].y + v[i].z + v[i].w;
+  for (int i = 0; i < NV; ++i)
+    if (i < nv) sum += v[i].x + v[i].y + v[i].z + v[i].w;
   mu = warp_sum(sum) / C;
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const float d0 = v[i].x - mu, d1 = v[i].y - mu, d2 = v[i].z - mu,
-                d3 = v[i].w - mu;
-    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+    if (i < nv) {
+      const float d0 = v[i].x - mu, d1 = v[i].y - mu, d2 = v[i].z - mu,
+                  d3 = v[i].w - mu;
+      sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+    }
   }
   rs = rsqrtf(warp_sum(sq) / C + eps);
 }
@@ -726,11 +732,12 @@ template <int NV>
 __device__ __forceinline__ void ln_bwd_row(float4 (&gv)[NV],
                                            const float4 (&xh)[NV],
                                            const float* __restrict__ scale,
-                                           float rs, int lane) {
-  constexpr int C = 128 * NV;
+                                           float rs, int lane, int C) {
+  const int nv = C >> 7;
   float m1 = 0.0f, m2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
+    if (i >= nv) continue;
     const float4 sc = ld4(scale + lane * 4 + 128 * i);
     gv[i] = make_float4(gv[i].x * sc.x, gv[i].y * sc.y, gv[i].z * sc.z,
                         gv[i].w * sc.w);
@@ -763,14 +770,15 @@ __device__ __forceinline__ float4 mul4(const float4& a, const float4& b) {
 template <int NV, int NVEC>
 __device__ __forceinline__ void flush_rows(const float4 (&acc)[NVEC][NV],
                                            float* red, float* part, int warp,
-                                           int lane) {
-  constexpr int C = 128 * NV;
+                                           int lane, int C) {
+  const int nv = C >> 7;
 #pragma unroll
   for (int k = 0; k < NVEC; ++k) {
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      *reinterpret_cast<float4*>(red + warp * C + lane * 4 + 128 * i) =
-          acc[k][i];
+      if (i < nv)
+        *reinterpret_cast<float4*>(red + warp * C + lane * 4 + 128 * i) =
+            acc[k][i];
     __syncthreads();
     for (int c = threadIdx.x; c < C; c += RW * 32) {
       float v = red[c];
@@ -790,9 +798,9 @@ __global__ void __launch_bounds__(RW * 32)
                        const float* __restrict__ g,
                        const float* __restrict__ s1,
                        float* __restrict__ do32, float* __restrict__ part,
-                       int R, float eps) {
-  constexpr int C = 128 * NV;
-  __shared__ __align__(16) float red[RW * C];
+                       int R, int C, float eps) {
+  __shared__ __align__(16) float red[RW * 128 * NV];
+  const int nv = C >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4 acc[3][NV];
 #pragma unroll
@@ -804,13 +812,16 @@ __global__ void __launch_bounds__(RW * 32)
     float4 o[NV], gv[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 4 + 128 * i;
-      o[i] = ld4(s32 + base + c);
-      add4(o[i], ld4(m + base + c));
-      gv[i] = ld4(g + base + c);
+      o[i] = gv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < nv) {
+        const int c = lane * 4 + 128 * i;
+        o[i] = ld4(s32 + base + c);
+        add4(o[i], ld4(m + base + c));
+        gv[i] = ld4(g + base + c);
+      }
     }
     float mu, rs;
-    row_stats<NV>(o, mu, rs, eps);
+    row_stats<NV>(o, mu, rs, eps, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i] = make_float4((o[i].x - mu) * rs, (o[i].y - mu) * rs,
@@ -818,15 +829,17 @@ __global__ void __launch_bounds__(RW * 32)
       add4(acc[0][i], mul4(gv[i], o[i]));
       add4(acc[1][i], gv[i]);
     }
-    ln_bwd_row<NV>(gv, o, s1, rs, lane);
+    ln_bwd_row<NV>(gv, o, s1, rs, lane, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      *reinterpret_cast<float4*>(do32 + base + lane * 4 + 128 * i) = gv[i];
-      add4(acc[2][i], gv[i]);
+      if (i < nv) {
+        *reinterpret_cast<float4*>(do32 + base + lane * 4 + 128 * i) = gv[i];
+        add4(acc[2][i], gv[i]);
+      }
     }
   }
   flush_rows<NV, 3>(acc, red, part + (long long)blockIdx.x * 3 * C, warp,
-                    lane);
+                    lane, C);
 }
 
 // LN2 backward of dn2 with xhat2 / rsig2 recomputed from s32; ds = do32 +
@@ -839,9 +852,9 @@ __global__ void __launch_bounds__(RW * 32)
                        const float* __restrict__ do32,
                        const float* __restrict__ s2, float* __restrict__ dx,
                        float* __restrict__ dy, float* __restrict__ part,
-                       int R, int H, int W, int shift, float eps) {
-  constexpr int C = 128 * NV;
-  __shared__ __align__(16) float red[RW * C];
+                       int R, int C, int H, int W, int shift, float eps) {
+  __shared__ __align__(16) float red[RW * 128 * NV];
+  const int nv = C >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4 acc[2][NV];
 #pragma unroll
@@ -853,12 +866,15 @@ __global__ void __launch_bounds__(RW * 32)
     float4 xh[NV], gv[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 4 + 128 * i;
-      xh[i] = ld4(s32 + base + c);
-      gv[i] = ld4(dn2 + base + c);
+      xh[i] = gv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < nv) {
+        const int c = lane * 4 + 128 * i;
+        xh[i] = ld4(s32 + base + c);
+        gv[i] = ld4(dn2 + base + c);
+      }
     }
     float mu, rs;
-    row_stats<NV>(xh, mu, rs, eps);
+    row_stats<NV>(xh, mu, rs, eps, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i] = make_float4((xh[i].x - mu) * rs, (xh[i].y - mu) * rs,
@@ -866,7 +882,7 @@ __global__ void __launch_bounds__(RW * 32)
       add4(acc[0][i], mul4(gv[i], xh[i]));
       add4(acc[1][i], gv[i]);
     }
-    ln_bwd_row<NV>(gv, xh, s2, rs, lane);
+    ln_bwd_row<NV>(gv, xh, s2, rs, lane, C);
     long long ybase = base;
     if (dy) {
       const int w = r % W, h = (r / W) % H, bt = r / (W * H);
@@ -876,53 +892,63 @@ __global__ void __launch_bounds__(RW * 32)
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int c = lane * 4 + 128 * i;
-      float4 d = ld4(do32 + base + c);
-      add4(d, gv[i]);
-      *reinterpret_cast<float4*>(dx + base + c) = d;
-      if (dy) *reinterpret_cast<float4*>(dy + ybase + c) = d;
+      if (i < nv) {
+        const int c = lane * 4 + 128 * i;
+        float4 d = ld4(do32 + base + c);
+        add4(d, gv[i]);
+        *reinterpret_cast<float4*>(dx + base + c) = d;
+        if (dy) *reinterpret_cast<float4*>(dy + ybase + c) = d;
+      }
     }
   }
   flush_rows<NV, 2>(acc, red, part + (long long)blockIdx.x * 2 * C, warp,
-                    lane);
+                    lane, C);
 }
 
 template <int NV>
 cudaError_t launch_rows(bool first, int blocks, cudaStream_t s,
                         const float* s32, const float* m, const float* g,
                         const float* scale, float* do32, const float* dn2,
-                        float* dx, float* dy, float* part, int R, int H,
-                        int W, int shift, float eps) {
+                        float* dx, float* dy, float* part, int R, int C,
+                        int H, int W, int shift, float eps) {
   if (first)
     ln1_bwd_f32_kernel<NV><<<blocks, RW * 32, 0, s>>>(s32, m, g, scale, do32,
-                                                      part, R, eps);
+                                                      part, R, C, eps);
   else
     ln2_bwd_f32_kernel<NV><<<blocks, RW * 32, 0, s>>>(
-        s32, dn2, do32, scale, dx, dy, part, R, H, W, shift, eps);
+        s32, dn2, do32, scale, dx, dy, part, R, C, H, W, shift, eps);
   return cudaGetLastError();
 }
 
+// K6 fp32's row pass (LN1's with `first`, else LN2's) at any C % 128: a
+// warp a row templated on the next of 128, 256, 512, 1024 channels, else a
+// block a row (ln_bwd_wide.cuh); the blocks' sums -> part[block][k][C].
 cudaError_t bwd_rows(int C, bool first, int blocks, cudaStream_t s,
                      const float* s32, const float* m, const float* g,
                      const float* scale, float* do32, const float* dn2,
                      float* dx, float* dy, float* part, int R, int H, int W,
                      int shift, float eps) {
-  switch (C) {
-    case 128:
-      return launch_rows<1>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
-                            dy, part, R, H, W, shift, eps);
-    case 256:
-      return launch_rows<2>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
-                            dy, part, R, H, W, shift, eps);
-    case 512:
-      return launch_rows<4>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
-                            dy, part, R, H, W, shift, eps);
-    case 1024:
-      return launch_rows<8>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
-                            dy, part, R, H, W, shift, eps);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (C <= 0 || C % 128) return cudaErrorInvalidValue;
+  if (C <= 128)
+    return launch_rows<1>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                          dy, part, R, C, H, W, shift, eps);
+  if (C <= 256)
+    return launch_rows<2>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                          dy, part, R, C, H, W, shift, eps);
+  if (C <= 512)
+    return launch_rows<4>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                          dy, part, R, C, H, W, shift, eps);
+  if (C <= 1024)
+    return launch_rows<8>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
+                          dy, part, R, C, H, W, shift, eps);
+  if (first)
+    k6wide::ln1_bwd_kernel<float><<<blocks, k6wide::THREADS, 0, s>>>(
+        s32, m, g, scale, static_cast<float*>(nullptr), do32, part, R, C,
+        eps);
+  else
+    k6wide::ln2_bwd_kernel<float><<<blocks, k6wide::THREADS, 0, s>>>(
+        s32, dn2, do32, scale, dx, dy, part, R, C, H, W, shift, eps);
+  return cudaGetLastError();
 }
 
 struct K6Work {
@@ -1083,7 +1109,7 @@ extern "C" int stswin_block_epilogue_bwd_f32(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = BT * H * W;
-  if (C % 128 || C > 1024 || hidden % 4) return cudaErrorInvalidValue;
+  if (C % 128 || hidden % 4) return cudaErrorInvalidValue;
   const K6Work L = k6_work(R, C, hidden, !m_in);
   float* wk = static_cast<float*>(work);
   float *s32 = wk + L.s32, *n2 = wk + L.n2, *h = wk + L.h;

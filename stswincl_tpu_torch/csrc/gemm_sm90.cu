@@ -84,13 +84,15 @@
 // and other maps, go by cp.async into the same swizzle. The output is only
 // 16-256 tiles of 128 x 128, so the reduction is split over blocks until
 // two blocks an SM are in flight (5 splits for dwqkv at stage 1: 240
-// blocks). The splits' fp32 partials meet in 16-byte vector reductions
-// (`red_add_f32x4`) straight from the accumulator registers, after the
-// quad transpose: 16 a thread, against 8 x 256 scalar atomics a warp
-// before. A per-split workspace and a second pass would give the same sum
-// in a fixed order, but cost a workspace of splits x M x N fp32 and a
-// launch; the reductions need neither, and their order (so the last bits
-// of the sum) varies from run to run, as before.
+// blocks; the split from the shapes alone, `wgrad_split`). Each split
+// stores its fp32 partial straight from the accumulator registers, after
+// the quad transpose, 16-byte stores into a workspace of splits x M x N
+// fp32 (about 16 MB for dwqkv at stage 1), and `sum_parts` adds the
+// splits in order: no float atomic, so two calls give the same bits (the
+// 16-byte reductions that met there before varied in order from run to
+// run). One split writes the output itself. The column sums of
+// EPI_DGELU / EPI_GELU_BWD (db1) are written the same way, one partial
+// row a 128-row tile, for the caller's `sum_parts`.
 
 #include <atomic>
 #include <cstdint>
@@ -137,7 +139,8 @@ __device__ __forceinline__ void colsum_warp(float (&cs)[2][2], float* cb,
     }
 }
 
-// the 8 consumer warps' column sums of the tile into colsum[n0 ..)
+// the 8 consumer warps' column sums of the tile, added in order, into
+// the tile's partial row: colsum[n0 ..) of the row tile's N columns
 __device__ __forceinline__ void colsum_flush(const float* colbuf,
                                              float* colsum, int n0, int N) {
   consumer_sync();
@@ -146,7 +149,7 @@ __device__ __forceinline__ void colsum_flush(const float* colbuf,
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < 8; ++w) s += colbuf[w * BN + c];
-    atomicAdd(colsum + n0 + c, s);
+    colsum[n0 + c] = s;
   }
   consumer_sync();
 }
@@ -538,7 +541,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<EPI>::BLOCKS)
       }
     }
     if (EPI == EPI_DGELU || EPI == EPI_GELU_BWD)
-      colsum_flush(colbuf, p.colsum, n0, p.N);
+      colsum_flush(colbuf, p.colsum + (long long)(m0 / BM) * p.N, n0, p.N);
   }
 }
 
@@ -628,7 +631,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps,
                       const Operand oa, const Operand ob, int R, int N,
                       float* __restrict__ Cw, long long ldc,
-                      int kt_per_split) {
+                      long long split_stride, int kt_per_split) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -717,11 +720,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   fence_acc(acc);
 
   // the split's partial sums, 8 consecutive columns of one row a lane
-  // after the quad transpose (as the GEMM's epilogue), added by two
-  // 16-byte reductions
+  // after the quad transpose (as the GEMM's epilogue), stored by two
+  // 16-byte stores into the split's slot of the workspace (or Cw)
   const int t = lane & 3;
   const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * (t >> 1);
-  float* out = Cw + (long long)row * ldc + n0;
+  float* out = Cw + blockIdx.y * split_stride + (long long)row * ldc + n0;
 #pragma unroll
   for (int jj = 0; jj < BN / 16; ++jj) {
     uint32_t x[4], y[4];
@@ -733,12 +736,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     quad_transpose(x, t);
     quad_transpose(y, t);
-    float* dst = out + 8 * (2 * jj + (t & 1));
-    red_add_f32x4(dst, make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]),
-                                   __uint_as_float(x[1]), __uint_as_float(y[1])));
-    red_add_f32x4(dst + 4,
-                  make_float4(__uint_as_float(x[2]), __uint_as_float(y[2]),
-                              __uint_as_float(x[3]), __uint_as_float(y[3])));
+    float4* dst = reinterpret_cast<float4*>(out + 8 * (2 * jj + (t & 1)));
+    dst[0] = make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]),
+                         __uint_as_float(x[1]), __uint_as_float(y[1]));
+    dst[1] = make_float4(__uint_as_float(x[2]), __uint_as_float(y[2]),
+                         __uint_as_float(x[3]), __uint_as_float(y[3]));
   }
 }
 
@@ -810,6 +812,21 @@ Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R) {
   return o;
 }
 
+// The weight-gradient GEMM's split of the row reduction, from the shapes
+// alone (so every card sums in the same order): until two blocks an SM of
+// the H100's 132 are in flight (not more: a second wave would idle most of
+// the card), keeping at least 8 k tiles a split. *per: k tiles a split.
+constexpr int W_WAVE = 2 * 132;
+int wgrad_split(int R, int M, int N, int* per) {
+  const int KT = (R + BK - 1) / BK;
+  const int tiles = (M / BM) * (N / BN);
+  int splits = W_WAVE / tiles;
+  splits = splits < 1 ? 1 : splits;
+  splits = splits < KT / 8 ? splits : (KT / 8 > 1 ? KT / 8 : 1);
+  *per = (KT + splits - 1) / splits;
+  return (KT + *per - 1) / *per;
+}
+
 bool encode_operand(CUtensorMap* map, const Operand& o, int R, int cols) {
   if (o.load == LOAD_ROWS) return true;
   if (o.load == LOAD_TMA) return encode(map, o.p, R, cols, o.ld, BK);
@@ -870,8 +887,12 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
   if (p.R <= 0 || p.M <= 0 || p.N <= 0 || p.M % BM || p.N % BN ||
-      p.lda % 8 || p.ldb % 8 || p.ldc % 4 || !aligned(p.A) || !aligned(p.B) ||
-      !aligned(p.Cw))
+      p.lda % 8 || p.ldb % 8 || p.ldc != p.N || !aligned(p.A) ||
+      !aligned(p.B) || !aligned(p.Cw))
+    return cudaErrorInvalidValue;
+  int per = 0;
+  const int splits = wgrad_split(p.R, p.M, p.N, &per);
+  if (splits > 1 && (!p.work || !aligned(p.work)))
     return cudaErrorInvalidValue;
   static bool ready[MAX_DEVICES] = {};  // the opt-in, once a device
   const int dev = current_device();
@@ -883,29 +904,29 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  const int sms = sm_count();
-  if (!sms) return cudaErrorInvalidDevice;
   const Operand oa = operand(p.A, p.lda, p.a_map, p.R);
   const Operand ob = operand(p.B, p.ldb, p.b_map, p.R);
   WgradMaps maps;
   if (!encode_operand(&maps.a, oa, p.R, p.M) ||
       !encode_operand(&maps.b, ob, p.R, p.N))
     return cudaErrorInvalidValue;
-  // split the row reduction until two blocks an SM are in flight (not
-  // more: a second wave would idle most of the card), keeping at least 8
-  // k tiles a split
-  const int KT = (p.R + BK - 1) / BK;
   const int tiles = (p.M / BM) * (p.N / BN);
-  int splits = 2 * sms / tiles;
-  splits = splits < 1 ? 1 : splits;
-  splits = splits < KT / 8 ? splits : (KT / 8 > 1 ? KT / 8 : 1);
-  const int per = (KT + splits - 1) / splits;
-  splits = (KT + per - 1) / per;
+  const long long mn = (long long)p.M * p.N;
   wgrad_sm90_kernel<<<dim3(tiles, splits), THREADS, W_SMEM, stream>>>(
-      maps, oa, ob, p.R, p.N, p.Cw, p.ldc, per);
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++launch_counts[W_SLOT];
+      maps, oa, ob, p.R, p.N, splits > 1 ? p.work : p.Cw, p.ldc,
+      splits > 1 ? mn : 0, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++launch_counts[W_SLOT];
+  if (splits > 1) err = sum_parts(p.work, splits, mn, mn, p.Cw, stream);
   return err;
+}
+
+size_t wgrad_sm90_work(int R, int M, int N) {
+  if (R <= 0 || M <= 0 || N <= 0 || M % BM || N % BN) return 0;
+  int per = 0;
+  const int splits = wgrad_split(R, M, N, &per);
+  return splits > 1 ? size_t(splits) * M * N : 0;
 }
 
 // The GEMM alone, for its tests and its profile: A (rows, K) bf16 of row
@@ -913,10 +934,12 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
 // Wt (N, K) bf16; bias (N,) fp32 or null; C (bf16: epi 0, 2, 3) and Cf
 // (fp32: epi 1 adds into it, epi 4 overwrites it, epi 2 writes gelu') of
 // row stride ldc, written through the row map (c_mode, T, H, W, ws,
-// c_shift); aux (fp32, C's layout) and colsum (N,) fp32 of epi 3.
+// c_shift); aux (fp32, C's layout), colsum (N,) fp32 (overwritten) and
+// colpart ((M + 127) / 128, N) fp32 scratch of epi 3.
 extern "C" int stswin_gemm_sm90(const void* A, const void* Wt,
                                 const void* bias, void* C, void* Cf,
-                                const void* aux, void* colsum, int M, int N,
+                                const void* aux, void* colsum, void* colpart,
+                                int M, int N,
                                 int K, int lda, int ldc, int epi, int act,
                                 int a_mode, int c_mode, int T, int H, int W,
                                 int ws, int a_shift, int c_shift,
@@ -937,19 +960,23 @@ extern "C" int stswin_gemm_sm90(const void* A, const void* Wt,
   g.c_map = c_mode ? RowMap{1, T, H, W, ws, c_shift} : identity_map();
   g.act = act;
   g.aux = static_cast<const float*>(aux);
-  g.colsum = static_cast<float*>(colsum);
-  return gemm_sm90(g, epi, static_cast<cudaStream_t>(stream));
+  g.colsum = static_cast<float*>(colpart);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = gemm_sm90(g, epi, s);
+  if (err != cudaSuccess || epi != EPI_DGELU) return err;
+  return sum_parts_cols(g.colsum, (M + BM - 1) / BM, N, N,
+                   static_cast<float*>(colsum), s);
 }
 
 // K6's fused dh / pre product alone (EPI_GELU_BWD), for its tests: n2, dm
 // (rows, C) bf16; w1 (hidden, C), w2_t (hidden, C) bf16; b1 (hidden,) fp32;
 // out: dpre (rows, hidden) bf16, h (rows, hidden) bf16 or null, db1
-// (hidden,) fp32 added into.
+// (hidden,) fp32 overwritten; colpart ((M + 127) / 128, N) fp32 scratch.
 extern "C" int stswin_gelu_bwd_sm90(const void* n2, const void* dm,
                                     const void* w1, const void* w2_t,
                                     const void* b1, void* dpre, void* h,
-                                    void* db1, int M, int N, int K, int act,
-                                    void* stream) {
+                                    void* db1, void* colpart, int M, int N,
+                                    int K, int act, void* stream) {
   GemmParams g{};
   g.A = static_cast<const bf16*>(n2);
   g.lda = K;
@@ -966,16 +993,21 @@ extern "C" int stswin_gelu_bwd_sm90(const void* n2, const void* dm,
   g.A2 = static_cast<const bf16*>(dm);
   g.Wt2 = static_cast<const bf16*>(w2_t);
   g.C2 = static_cast<bf16*>(h);
-  g.colsum = static_cast<float*>(db1);
-  return gemm_sm90(g, EPI_GELU_BWD, static_cast<cudaStream_t>(stream));
+  g.colsum = static_cast<float*>(colpart);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = gemm_sm90(g, EPI_GELU_BWD, s);
+  if (err != cudaSuccess) return err;
+  return sum_parts_cols(g.colsum, (M + BM - 1) / BM, N, N,
+                   static_cast<float*>(db1), s);
 }
 
 // The weight-gradient GEMM alone, for its tests and its profile: Cw (M, N)
-// fp32 += A[a_rows(r)]^T B[b_rows(r)] over r < R; A (rows, M), B (rows, N)
+// fp32 = A[a_rows(r)]^T B[b_rows(r)] over r < R; A (rows, M), B (rows, N)
 // bf16 of row strides lda, ldb, each read through its row map (mode, T, H,
-// W, ws, shift). The caller zeroes Cw.
+// W, ws, shift); work: `stswin_wgrad_sm90_work` floats (null when 0).
 extern "C" int stswin_wgrad_sm90(const void* A, const void* B, void* Cw,
-                                 int R, int M, int N, int lda, int ldb,
+                                 void* work, int R, int M, int N, int lda,
+                                 int ldb,
                                  int a_mode, int b_mode, int T, int H, int W,
                                  int ws, int a_shift, int b_shift,
                                  void* stream) {
@@ -991,7 +1023,14 @@ extern "C" int stswin_wgrad_sm90(const void* A, const void* B, void* Cw,
   w.N = N;
   w.Cw = static_cast<float*>(Cw);
   w.ldc = N;
+  w.work = static_cast<float*>(work);
   return gemm_wgrad_sm90(w, static_cast<cudaStream_t>(stream));
+}
+
+// The floats of `stswin_wgrad_sm90`'s workspace (a query, not a launch).
+extern "C" int stswin_wgrad_sm90_work(int R, int M, int N, long long* out) {
+  *out = static_cast<long long>(wgrad_sm90_work(R, M, N));
+  return 0;
 }
 
 // The launch counts (a query, not a launch): out[0..6] the launches of

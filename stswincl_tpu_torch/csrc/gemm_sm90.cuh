@@ -17,12 +17,14 @@
 // masked on store.
 cudaError_t gemm_sm90(const GemmParams& p, int epi, cudaStream_t stream);
 
-// Weight gradient: Cw[m, n] += sum_r A[a_map(r), m] * B[b_map(r), n] over
+// Weight gradient: Cw[m, n] = sum_r A[a_map(r), m] * B[b_map(r), n] over
 // r < R (a long reduction over the token rows), fp32 accumulation, fp32
-// output added into Cw (row stride ldc; the caller zeroes it). A: (R, M)
-// bf16 rows of stride lda; B: (R, N) bf16 rows of stride ldb. Requires
-// M % 128 == 0, N % 128 == 0, lda % 8 == 0, ldb % 8 == 0, ldc % 4 == 0,
-// A, B 16-byte aligned; R is ragged.
+// output written to Cw (row stride ldc == N), the row splits added in a
+// fixed order through `work` (`wgrad_sm90_work(R, M, N)` floats, 16-byte
+// aligned; unused, and may be null, when that is 0). A: (R, M) bf16 rows
+// of stride lda; B: (R, N) bf16 rows of stride ldb. Requires M % 128 ==
+// 0, N % 128 == 0, lda % 8 == 0, ldb % 8 == 0, A, B 16-byte aligned; R is
+// ragged.
 struct WgradParams {
   const bf16* A;
   long long lda;
@@ -33,6 +35,8 @@ struct WgradParams {
   int R, M, N;
   float* Cw;
   long long ldc;
+  float* work;
 };
 
 cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream);
+size_t wgrad_sm90_work(int R, int M, int N);

@@ -49,10 +49,10 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "stswin_block_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_attention_f32": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
-    "stswin_block_attention_bwd": [_P] * 16 + [_I] * 7 + [_F, _I, _I, _P],
+    "stswin_block_attention_bwd": [_P] * 17 + [_I] * 7 + [_F, _I, _I, _P],
     "stswin_block_epilogue": [_P] * 15 + [_I] * 7 + [_F, _P],
     "stswin_block_epilogue_f32": [_P] * 15 + [_I] * 7 + [_F, _P],
-    "stswin_block_epilogue_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
+    "stswin_block_epilogue_bwd": [_P] * 33 + [_I] * 7 + [_F, _P],
     "stswin_patch_merge": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_patch_merge_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stswin_upsample_argmax": [_P] * 6 + [_I] * 7 + [_P],
@@ -78,9 +78,14 @@ SIGNATURES = {
     "stswin_add_layer_norm_f32": [_P] * 6 + [_I] * 2 + [_F, _P],
     "stswin_layer_norm_f32": [_P] * 4 + [_I] * 2 + [_F, _P],
     "stswin_conv3x3_bn_act_f32": [_P] * 6 + [_I] * 7 + [_P],
-    "stswin_gemm_sm90": [_P] * 7 + [_I] * 15 + [_P],
-    "stswin_gelu_bwd_sm90": [_P] * 8 + [_I] * 4 + [_P],
-    "stswin_wgrad_sm90": [_P] * 3 + [_I] * 13 + [_P],
+    "stswin_gemm_sm90": [_P] * 8 + [_I] * 15 + [_P],
+    "stswin_gelu_bwd_sm90": [_P] * 9 + [_I] * 4 + [_P],
+    "stswin_wgrad_sm90": [_P] * 4 + [_I] * 13 + [_P],
+    # queries, not launches: the bf16 backwards' workspace in floats (the
+    # partials their fixed-order sums add)
+    "stswin_block_attention_bwd_work": [_I] * 4 + [_LLP],
+    "stswin_block_epilogue_bwd_work": [_I] * 3 + [_LLP],
+    "stswin_wgrad_sm90_work": [_I] * 3 + [_LLP],
     # a query, not a launch: (long long* counts, int reset), no stream
     "stswin_gemm_sm90_launches": [ctypes.POINTER(ctypes.c_longlong), _I],
     "stswin_gemm_f32": [_P] * 8 + [_I] * 15 + [_P],

@@ -257,7 +257,9 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
                             gelu_exact: bool = True, shift: int = 0,
                             ws: Optional[int] = None, eps: float = 1e-5):
     """K6: the gradients of the epilogue's output given its gradient g;
-    `m` is the forward's rounded MLP output, or None to recompute it.
+    `m` is the forward's rounded MLP output, or None to recompute it. Any
+    C % 128 (every width K2's forward takes), each sum over rows in a
+    fixed order (two calls give the same bits).
     Returns (dx, dy, ds2, db2, dw1, db1, dw2, dbw2, ds1, db1n): dx and dy
     in x's dtype (dy in y's shifted layout; the same tensor as dx when
     shift is 0), the rest fp32."""
@@ -265,8 +267,6 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
     BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
     _check_params(name, "Pallas row 7" if m is None else "Pallas row 9", x,
                   w1, b1, w2, (s2, b2, bw2, s1), C, hidden)
-    kernels.require(C in (128, 256, 512, 1024),
-                    f"{name}: C must be 128, 256, 512 or 1024, got {C}")
     kernels.require(g.shape == x.shape and g.dtype == x.dtype
                     and (m is None or (m.shape == x.shape
                                        and m.dtype == x.dtype)),
@@ -285,6 +285,8 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
     # which would run fc1 again); m saved (row 9): the fused pair keeps
     # gelu' in registers
     dgelu = torch.empty((rows, hidden), **f32) if m is None else None
+    work = torch.empty(kernels.query("stswin_block_epilogue_bwd_work", rows,
+                                     C, hidden), **f32)
     dx = torch.empty_like(x)
     dy = torch.empty_like(x) if shift else None
     dw1 = torch.empty((hidden, C), **f32)
@@ -297,8 +299,8 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
                    P(s2), P(b2), P(w1), P(b1), P(w1_t), P(w2), P(bw2),
                    P(w2_t), P(s1), P(s32), P(n2), P(h), P(dgelu),
                    P(m_scratch), P(dm), P(do32), P(dpre), P(dn2), P(dx),
-                   P(dy), P(dw1), P(db1), P(dw2), P(dbw2), P(ds1), P(db1n),
-                   P(ds2), P(db2), BT, H, W, C, hidden, shift,
+                   P(dy), P(work), P(dw1), P(db1), P(dw2), P(dbw2), P(ds1),
+                   P(db1n), P(ds2), P(db2), BT, H, W, C, hidden, shift,
                    1 if gelu_exact else 2, float(eps))
     swin_block_epilogue_bwd.launches += 1
     return (dx, dx if dy is None else dy, ds2, db2, dw1, db1, dw2, dbw2, ds1,
@@ -321,8 +323,6 @@ def swin_block_epilogue_bwd_f32(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
     name = "swin_block_epilogue_bwd_f32"
     BT, H, W, C, hidden = _geometry(name, x, y, w1, shift, ws)
     _check_params(name, None, x, w1, b1, w2, (s2, b2, bw2, s1), C, hidden)
-    kernels.require(C in (128, 256, 512, 1024),
-                    f"{name}: C must be 128, 256, 512 or 1024, got {C}")
     kernels.require_f32(name, y, g, *(() if m is None else (m,)))
     kernels.require(g.shape == x.shape
                     and (m is None or m.shape == x.shape),

@@ -12,7 +12,10 @@ CUDA tensor, its fp32 form (`swin_block_attention_f32`,
 gradient it goes through `BlockAttentionFn`, whose backward launches K5 on
 CUDA (`swin_block_attention_bwd` in bf16, its fp32 form
 `swin_block_attention_bwd_f32`, `csrc/fp32_train.cu`, in fp32) and runs
-the plain twin `swin_block_attention_bwd_ref` on the CPU.
+the plain twin `swin_block_attention_bwd_ref` on the CPU. K5 in bf16
+takes every window K1 takes (a one-pass kernel where its slot fits, two
+passes elsewhere: `_attn_bwd_slot_takes`), and sums every gradient in a
+fixed order: two calls give the same bits.
 
 Weights use the torch Linear layout: wqkv (3C, C), wproj (C, C), in any
 float dtype: they are cast to x's dtype for the product, and their
@@ -38,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.attention import (_align, _attn_f32_smem_bytes,
+from stswincl_tpu_torch.ops.attention import (MAX_WINDOW_TOKENS, _align,
+                                              _attn_f32_smem_bytes,
                                               _attn_smem_bytes, attend_tiled,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
@@ -179,20 +183,30 @@ def swin_block_attention_bwd_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
         return torch.autograd.grad(out, leaves, g)
 
 
-# The widest window of K5's attention backward: its score and dP
-# registers are sized for at most 8 key tiles of 16 (`BWD_MAX_NT` in
-# `csrc/block_attention.cu`). K1's forward takes up to MAX_WINDOW_TOKENS
-# (176); windows of 129-176 tokens train on no kernel route.
-MAX_BWD_WINDOW_TOKENS = 128
+# The widest window of K5 fp32's attention backward: its query pass's
+# score tile holds at most 16 key tiles of 8. K5's bf16 form takes every
+# window K1's forward takes (`check_backward_window`).
+MAX_F32_BWD_WINDOW_TOKENS = 128
 
 
 def _attn_bwd_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of one (window, head) slot of K5's attention
-    backward (`bwd_smem`): q and dO in bf16 rows of hd + 8, the k / v
-    region that later holds P / dS (rows of TN + 8), and the slot's fp32
-    (TN, TN) dbias table; the scores, P, dP and dS stay in registers."""
+    """Dynamic shared memory of one (window, head) slot of K5's one-pass
+    attention backward (`bwd_smem` in `csrc/block_attention.cu`): q and dO
+    in bf16 rows of hd + 8, the k / v region that later holds P / dS (rows
+    of TN + 8), and the slot's fp32 (TN, TN) dbias table; the scores, P, dP
+    and dS stay in registers. The library runs this kernel where the slot
+    fits (`_attn_bwd_slot_takes`), the two passes elsewhere."""
     return (2 * _align(TN * (hd + 8) * 2)
             + _align(2 * TN * max(hd + 8, TN + 8) * 2) + _align(TN * TN * 4))
+
+
+def _attn_bwd_slot_takes(TN: int, hd: int) -> bool:
+    """Whether K5's bf16 attention backward runs its one-pass slot kernel
+    (`slot_takes`): at most 8 key tiles of 16 (its score and dP
+    registers) and the slot within SMEM_LIMIT; every other window K1 takes
+    runs the two passes (a query pass holding k and v, 2 TN (hd + 8) bf16;
+    a key pass holding P and dS and 64-column chunks of q and dO)."""
+    return TN <= 128 and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
 
 
 def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
@@ -208,12 +222,12 @@ def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
 
 def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
-    16-token tiles up to MAX_BWD_WINDOW_TOKENS (the query pass's score
+    16-token tiles up to MAX_F32_BWD_WINDOW_TOKENS (the query pass's score
     tile holds 16 key tiles of 8), head dims a multiple of 32 (the fp32
     forward core's) up to 256 at TN <= 32 and 128 beyond (the key pass's
     dk and dv accumulators: 128 columns a warp, two warps a key group past
     128), and both passes within shared memory."""
-    return (0 < TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
+    return (0 < TN <= MAX_F32_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
             and hd % 32 == 0 and hd <= (256 if TN <= 32 else 128)
             and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
@@ -221,29 +235,37 @@ def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
 def check_backward_window(name: str, x: torch.Tensor, heads: int,
                           ws: int) -> None:
     """Refuse a window that K5's attention backward in x's dtype does not
-    take: bf16, more than MAX_BWD_WINDOW_TOKENS tokens, not a multiple of
-    16, or a slot past shared memory; fp32, what `_attn_f32_bwd_takes`
-    refuses. The forward of `BlockAttentionFn` and of the whole-block
-    Function checks it before K1 or row 16 runs, so a training step on
-    such a window fails before its forward rather than inside its
-    backward."""
+    take: bf16, what K1's attention core refuses (`_attn_bwd_takes`: more
+    than MAX_WINDOW_TOKENS tokens, a token count or head dim off 16, or
+    K1's q, k and v past shared memory), so that every window that serves
+    also trains; fp32, what `_attn_f32_bwd_takes` refuses. The forward of
+    `BlockAttentionFn` and of the whole-block Function checks it before K1
+    or row 16 runs, so a training step on such a window fails before its
+    forward rather than inside its backward."""
     TN, hd = x.shape[1] * ws * ws, x.shape[-1] // heads
     if x.dtype == torch.float32:
         kernels.require(_attn_f32_bwd_takes(TN, hd),
                         lambda: f"{name}: K5's fp32 form (the attention "
                         "backward) takes windows of at most "
-                        f"{MAX_BWD_WINDOW_TOKENS} tokens (a multiple of 16) "
-                        "with head dims a multiple of 32 (at most 256 to 32 "
-                        "tokens, 128 beyond) that fit shared memory; got "
+                        f"{MAX_F32_BWD_WINDOW_TOKENS} tokens (a multiple of "
+                        "16) with head dims a multiple of 32 (at most 256 to "
+                        "32 tokens, 128 beyond) that fit shared memory; got "
                         f"{TN} tokens x head dim {hd}")
         return
-    kernels.require(TN <= MAX_BWD_WINDOW_TOKENS and TN % 16 == 0
-                    and hd % 16 == 0
-                    and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT,
-                    f"{name}: K5 (the attention backward) takes windows of "
-                    f"at most {MAX_BWD_WINDOW_TOKENS} tokens, a multiple of "
-                    f"16, that fit shared memory; got {TN} tokens x head dim "
-                    f"{hd}")
+    kernels.require(_attn_bwd_takes(TN, hd),
+                    lambda: f"{name}: K5 (the attention backward) takes the "
+                    f"windows K1 takes: at most {MAX_WINDOW_TOKENS} tokens, "
+                    "token count and head dim multiples of 16, K1's q, k "
+                    f"and v within shared memory; got {TN} tokens x head "
+                    f"dim {hd}")
+
+
+def _attn_bwd_takes(TN: int, hd: int) -> bool:
+    """The windows K5's bf16 attention backward takes: exactly those of
+    K1's attention core (`check_attention_core` with `_attn_smem_bytes`)."""
+    return (0 < TN <= MAX_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
+            and hd % 16 == 0
+            and _attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
 
 def _validate(name, row, x, wqkv, wproj, bias_tiled, mask_tiled, heads,
@@ -378,7 +400,7 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     name = "swin_block_attention_bwd"
     mask_tiled, n_mask = _validate(name, "Pallas row 6", x, wqkv, wproj,
                                    bias_tiled, mask_tiled, heads, ws, shift,
-                                   _attn_bwd_smem_bytes)
+                                   _attn_smem_bytes)
     check_backward_window(name, x, heads, ws)
     B, T, H, W, C = x.shape
     TN = T * ws * ws
@@ -392,6 +414,8 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     kernels.require_on(dev, name, g, qkv, attn)
     dattn = torch.empty((rows, C), dtype=x.dtype, device=dev)
     dqkv = torch.empty((rows, 3 * C), dtype=x.dtype, device=dev)
+    work = torch.empty(kernels.query("stswin_block_attention_bwd_work", rows,
+                                     C, heads, TN), **f32)
     dx = torch.empty_like(x)
     dwqkv = torch.empty((3 * C, C), **f32)
     dbqkv = torch.empty(3 * C, **f32)
@@ -402,9 +426,9 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     P = kernels.ptr
     kernels.launch("stswin_block_attention_bwd", dev, P(x), P(g), P(qkv),
                    P(attn), P(wqkv_t), P(wproj_t), P(bias_tiled),
-                   P(mask_tiled), P(dattn), P(dqkv), P(dx), P(dwqkv),
-                   P(dbqkv), P(dwproj), P(dbproj), P(dbias), B, T, H, W, C,
-                   heads, ws, float(scale), shift, n_mask)
+                   P(mask_tiled), P(dattn), P(dqkv), P(work), P(dx),
+                   P(dwqkv), P(dbqkv), P(dwproj), P(dbproj), P(dbias), B, T,
+                   H, W, C, heads, ws, float(scale), shift, n_mask)
     swin_block_attention_bwd.launches += 1
     return dx, dwqkv, dbqkv, dwproj, dbproj, dbias
 

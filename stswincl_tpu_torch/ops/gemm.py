@@ -9,9 +9,12 @@ each form by itself so that its tests and its profile hold it against
   K5's dx);
 - `gelu_bwd_sm90` (`stswin_gelu_bwd_sm90`): K6's fused pair, pre = n2 @
   w1^T + b1 and dh = dm @ w2 in one tile, into dpre = dh * gelu'(pre), h =
-  gelu(pre) and the column sums db1;
+  gelu(pre) and the column sums db1 (a partial row a 128-row tile, added
+  in order);
 - `wgrad_sm90` (`stswin_wgrad_sm90`): the weight gradients A^T B of K5 and
-  K6 over the token rows, each operand read through its row map;
+  K6 over the token rows, each operand read through its row map, the
+  row splits' partials in a workspace added in a fixed order (no float
+  atomics: the same bits every call);
 - `linear_f32` (`stswin_gemm_f32`, `csrc/fp32_forms.cu`): the fp32 GEMM of
   the fp32 forms of K1-K3, K5 and K6, y = act(A @ Wt^T + bias) in fp32
   accuracy on the tensor cores (3xTF32 on wgmma, `csrc/fp32_gemm.cuh`),
@@ -157,7 +160,7 @@ def linear_sm90(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
         kernels.require_f32(name, bias)
         kernels.require(tuple(bias.shape) == (N,), f"{name}: bias shape")
     f32 = dict(dtype=torch.float32, device=a.device)
-    c, cf, colsum = None, None, None
+    c, cf, colsum, colpart = None, None, None, None
     if epi in ("bf16", "gelu_grad", "dgelu"):
         c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if epi == "gelu_grad":
@@ -165,7 +168,8 @@ def linear_sm90(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
     elif epi == "dgelu":
         kernels.require_f32(name, aux)
         kernels.require(tuple(aux.shape) == (M, N), f"{name}: aux shape")
-        colsum = torch.zeros(N, **f32)
+        colsum = torch.empty(N, **f32)
+        colpart = torch.empty(((M + 127) // 128, N), **f32)
     elif epi != "bf16":
         kernels.require_f32(name, out)
         kernels.require(tuple(out.shape) == (M, N), f"{name}: out shape")
@@ -173,7 +177,8 @@ def linear_sm90(a, wt, bias=None, act: str = "none", a_map=None, c_map=None,
     T, H, W, ws = _grid(name, M, a_map, c_map)
     P = kernels.ptr
     kernels.launch("stswin_gemm_sm90", a.device, P(a), P(wt), P(bias), P(c),
-                   P(cf), P(aux), P(colsum), M, N, K, K, N, _EPI[epi],
+                   P(cf), P(aux), P(colsum), P(colpart), M, N, K, K, N,
+                   _EPI[epi],
                    {"none": 0, "erf": 1, "tanh": 2}[act],
                    int(a_map is not None), int(c_map is not None), T, H, W,
                    ws, 0 if a_map is None else a_map[4],
@@ -320,11 +325,13 @@ def gelu_bwd_sm90(n2, dm, w1, w2_t, b1, act: str = "erf",
                     f"{tuple(w1.shape)}, w2_t {tuple(w2_t.shape)}, act {act}")
     dpre = torch.empty((M, N), dtype=n2.dtype, device=n2.device)
     h = torch.empty_like(dpre) if with_h else None
-    db1 = torch.zeros(N, dtype=torch.float32, device=n2.device)
+    db1 = torch.empty(N, dtype=torch.float32, device=n2.device)
+    colpart = torch.empty(((M + 127) // 128, N), dtype=torch.float32,
+                          device=n2.device)
     P = kernels.ptr
     kernels.launch("stswin_gelu_bwd_sm90", n2.device, P(n2), P(dm), P(w1),
-                   P(w2_t), P(b1), P(dpre), P(h), P(db1), M, N, K,
-                   {"erf": 1, "tanh": 2}[act])
+                   P(w2_t), P(b1), P(dpre), P(h), P(db1), P(colpart), M, N,
+                   K, {"erf": 1, "tanh": 2}[act])
     gelu_bwd_sm90.launches += 1
     return dpre, h, db1
 
@@ -359,10 +366,14 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
     kernels.require(M % 128 == 0 and N % 128 == 0,
                     f"{name}: needs M and N multiples of 128 (M={M}, N={N})")
     T, H, W, ws = _grid(name, R, a_map, b_map)
-    out = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    out = torch.empty((M, N), **f32)
+    work = torch.empty(kernels.query("stswin_wgrad_sm90_work", R, M, N),
+                       **f32)
     P = kernels.ptr
-    kernels.launch("stswin_wgrad_sm90", a.device, P(a), P(b), P(out), R, M,
-                   N, M, N, int(a_map is not None), int(b_map is not None), T,
+    kernels.launch("stswin_wgrad_sm90", a.device, P(a), P(b), P(out),
+                   P(work if work.numel() else None), R, M, N, M, N,
+                   int(a_map is not None), int(b_map is not None), T,
                    H, W, ws, 0 if a_map is None else a_map[4],
                    0 if b_map is None else b_map[4])
     wgrad_sm90.launches += 1

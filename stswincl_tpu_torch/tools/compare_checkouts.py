@@ -3,7 +3,8 @@
 compared on one card.
 
     python3 -m stswincl_tpu_torch.tools.compare_checkouts runs/parent \
-        [--phase phase_fp32_attn_bwd] [--out runs/compare.json]
+        [--phase phase_fp32_attn_bwd | --script <path>] \
+        [--out runs/compare.json]
 
 `other` is the root of another checkout (for a parent commit: `git
 archive <commit> | tar -x -C runs/parent`, a directory `.gitignore`
@@ -12,7 +13,11 @@ that checkout's kernels (its own `_build`) and calls its
 `chip_smoke.<phase>(dev, results, median_ms)`, a phase 7 (a) function
 (`phase_fp32_attn_bwd`, `phase_fp32_train_kernels`, `phase_fp32_kernels`,
 ...), with `median_ms` the CUDA-event median of single calls after two
-warm-up calls, as `chip_smoke.main`'s. Prints each turn's output, then
+warm-up calls, as `chip_smoke.main`'s. With `--script`, each turn instead runs that
+script of this checkout (`python3 <path> --out <json>`) in a process
+rooted at the turn's checkout, with it first on PYTHONPATH, so that one
+script times both versions (`tools/profile_bwd_bf16.py`, whose output
+has the same shape). Prints each turn's output, then
 each row's `ms` (and `k5_ms`, where the phase times K5 beside it) by turn,
 and writes every turn's rows to `--out`. Prints the card's name and power
 limit first. Needs a CUDA card; exits 1 if a turn fails.
@@ -70,6 +75,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the root of the other checkout")
     ap.add_argument("--phase", default="phase_fp32_attn_bwd")
+    ap.add_argument("--script", default=None,
+                    help="a script of this checkout to run in each turn "
+                    "in place of a chip_smoke phase")
     ap.add_argument("--out", default="runs/compare_checkouts.json")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -84,8 +92,14 @@ def main(argv=None) -> int:
                                          ("this", here), ("other", other))):
             path = os.path.join(tmp, f"turn{i}.json")
             print(f"==== turn {i}: {tag} ({root})", flush=True)
-            rc = subprocess.run([sys.executable, "-c", TURN, root,
-                                 args.phase, path]).returncode
+            if args.script:
+                env = dict(os.environ, PYTHONPATH=root)
+                rc = subprocess.run([sys.executable,
+                                     os.path.abspath(args.script), "--out",
+                                     path], cwd=root, env=env).returncode
+            else:
+                rc = subprocess.run([sys.executable, "-c", TURN, root,
+                                     args.phase, path]).returncode
             failed |= rc != 0
             if not os.path.exists(path):
                 turns.append((tag, {"results": {}, "failed": [

@@ -34,14 +34,18 @@ from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 # the shared GEMM serves K1-K3 and K5-K6 alike, so kernel names cannot
 # split forward from backward: the CUDA-event split below does
 # (the fp32 forms: `tile_f32_kernel` the fp32 GEMM, `attn_f32_kernel` the
-# fp32 attention core, `attn32b::` K5 fp32's attention backward passes)
+# fp32 attention core, `attn32b::` K5 fp32's attention backward passes;
+# `attn_bwd_q_kernel` / `attn_bwd_kv_kernel` K5's two bf16 passes, `k6wide::`
+# K6's row passes a block a row)
 PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "wgrad_sm90_kernel",
                 "wgrad_f32_kernel", "tile_f32_kernel",
                 "window_attention_mma_kernel", "attn_f32_kernel",
-                "attn_bwd_kernel", "attn32b::", "ln_rows_kernel",
+                "attn_bwd_kernel", "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                "attn32b::", "ln_rows_kernel",
                 "ln_rows_f32_kernel", "epi_bwd_ln", "ln1_bwd_f32_kernel",
-                "ln2_bwd_f32_kernel", "colsum_kernel", "colsum_f32_kernel",
-                "sum_parts_kernel", "patch_merge_ln_kernel",
+                "ln2_bwd_f32_kernel", "k6wide::", "colsum_kernel",
+                "colsum_f32_kernel", "sum_parts_kernel",
+                "sum_parts_cols_kernel", "patch_merge_ln_kernel",
                 "patch_merge_ln_f32_kernel", "whole_block_kernel",
                 "whole_block_f32_kernel")
 

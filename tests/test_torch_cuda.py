@@ -254,6 +254,10 @@ def test_upsample_argmax_kernel_off_band(dev, gen, exact):
 BWD_CASES = {  # (T, H, W, C, heads, ws): stage-1-like and stage-2-like
     "s1": (2, 16, 24, 128, 2, 8),
     "s2": (2, 8, 12, 256, 2, 4),
+    # K5's two passes: hd 256 at TN 128 (`num_heads=2`), TN 144 and 176
+    "hd256": (2, 8, 16, 256, 1, 8),
+    "TN144": (4, 12, 12, 128, 2, 6),
+    "TN176": (11, 8, 8, 256, 2, 4),
 }
 
 
@@ -290,11 +294,13 @@ def _epi_case(dev, gen, T, C, shift, ws):
 
 
 @pytest.mark.parametrize("shift,T", [(0, 2), (2, 2), (2, 1)])
-@pytest.mark.parametrize("C", [128, 256])
+@pytest.mark.parametrize("C", [128, 256, 384, 1536])
 def test_epilogue_bwd_kernel(dev, gen, shift, T, C):
     """K2 + K6 through the autograd Function (fp32 weights) against
-    autograd of the twin; C 128 recomputes m, C 256 takes it saved
-    (through the wrapper, at sizes the Function would recompute)."""
+    autograd of the twin; C 128 and 384 recompute m, C 256 and 1536 also
+    take it saved (through the wrapper, at sizes the Function would
+    recompute); C 384 on the warp-a-row passes off their templates' widths,
+    C 1536 on the block-a-row passes."""
     p, x, y, g, kw = _epi_case(dev, gen, T, C, shift, 4)
     p[2], p[4] = p[2].float(), p[4].float()
     leaves = [t.detach().requires_grad_() for t in [x, y] + p]
@@ -307,7 +313,7 @@ def test_epilogue_bwd_kernel(dev, gen, shift, T, C):
     for a, gr, w in zip([x, y] + p, got, want):
         assert gr.dtype == a.dtype
         _close(gr, w, same_dtype=False)
-    if C == 256:
+    if C in (256, 1536):
         out_m, m = add_ln_mlp._forward_kernel(*tw, **kw, eps=1e-5,
                                               with_m=True)
         want_out, want_m = add_ln_mlp.swin_block_epilogue_with_m_ref(*tw,
@@ -321,20 +327,25 @@ def test_epilogue_bwd_kernel(dev, gen, shift, T, C):
 
 
 def test_backward_rejects_unsupported_shapes(dev, gen):
-    """K5 refuses a window whose backward does not fit shared memory
-    (TN 128 x hd 256), K6 a width its row kernels have no variant for."""
-    x = torch.zeros((1, 2, 8, 8, 512), device=dev, dtype=BF)
-    w = torch.zeros((1536, 512), device=dev, dtype=BF)
-    bias = torch.zeros((2, 128, 128), device=dev)
+    """K5 refuses a window K1 does not take (TN 128 x hd 304: K1's q, k
+    and v past shared memory), K6 a width K2 does not take (C off 128);
+    neither launches."""
+    x = torch.zeros((1, 2, 8, 8, 2432), device=dev, dtype=BF)
+    w = torch.zeros((3 * 2432, 2432), device=dev, dtype=BF)
+    bias = torch.zeros((8, 128, 128), device=dev)
+    n = block_attention.swin_block_attention_bwd.launches
     with pytest.raises(ValueError, match="shared memory"):
         block_attention.swin_block_attention_bwd(
-            x, x, torch.zeros((128, 1536), device=dev, dtype=BF),
-            torch.zeros((128, 512), device=dev, dtype=BF), w,
-            w[:512], bias, None, 2, 0.1, 8, 0)
-    p = _epi_params(dev, gen, C=384, hidden=1536)
-    xe = torch.zeros((4, 384), device=dev, dtype=BF)
-    with pytest.raises(ValueError, match="C must be"):
+            x, x, torch.zeros((128, 3 * 2432), device=dev, dtype=BF),
+            torch.zeros((128, 2432), device=dev, dtype=BF), w,
+            w[:2432], bias, None, 8, 0.1, 8, 0)
+    assert block_attention.swin_block_attention_bwd.launches == n
+    p = _epi_params(dev, gen, C=320, hidden=1280)
+    xe = torch.zeros((4, 320), device=dev, dtype=BF)
+    n = add_ln_mlp.swin_block_epilogue_bwd.launches
+    with pytest.raises(ValueError, match="multiples of 128"):
         add_ln_mlp.swin_block_epilogue_bwd(xe, xe, xe, None, *p[:7])
+    assert add_ln_mlp.swin_block_epilogue_bwd.launches == n
 
 
 ROW_CASES = {  # (T, H, W, C, heads, ws): stage 1 and stage 2 windows
@@ -1793,25 +1804,37 @@ def test_backward_kernels_at_training_shapes(dev, gen, stage, shifted):
 
 
 def test_trained_block_refuses_a_window_k5_does_not_take(dev, gen):
-    """TN 144 x hd 64: K1's forward takes the window, K5's attention
-    backward does not (at most 8 key tiles of 16). Without a gradient K1
-    runs it; with one, `BlockAttentionFn` and the whole-block Function
-    refuse it before any kernel launches, not in the backward."""
+    """A window K5 does not take is one K1 does not take either: TN 144 x
+    hd 64, which K5 refused before it had two passes, now trains (K1 +
+    K5 through the Function against autograd of the twin); in fp32,
+    whose K5 form takes at most 128 tokens, `BlockAttentionFn` and the
+    whole-block Function refuse it before any kernel launches, not in
+    the backward."""
     args = _attn_args(dev, gen, 0, B=1, T=1, H=12, W=12, C=128, heads=2,
                       ws=12)
     fn = block_attention.swin_block_attention
+    leaves = [a.detach().requires_grad_() for a in args[:6]]
+    n = block_attention.swin_block_attention_bwd.launches
+    out = fn(*leaves, *args[6:])
+    g = torch.randn(out.shape, generator=gen, device=dev).to(BF)
+    got = torch.autograd.grad(out, leaves, g)
+    assert block_attention.swin_block_attention_bwd.launches == n + 1
+    want = block_attention.swin_block_attention_bwd_ref(*args[:7], g,
+                                                        *args[7:])
+    for gr, w in zip(got, want):
+        _close(gr, w, same_dtype=False)
+    args = _f32(args)
+    fn = block_attention.swin_block_attention_f32
     n = fn.launches
-    _close(fn(*args), block_attention.swin_block_attention_ref(*args))
-    assert fn.launches == n + 1
     x = args[0].clone().requires_grad_()
     with pytest.raises(ValueError, match="at most 128 tokens"):
-        fn(x, *args[1:])
-    assert fn.launches == n + 1
-    p = _epi_params(dev, gen, C=128, hidden=512)
-    whole = swin_block.whole_swin_block
+        block_attention.swin_block_attention(x, *args[1:])
+    assert fn.launches == n
+    p = _f32(_epi_params(dev, gen, C=128, hidden=512))
+    whole = swin_block.whole_swin_block_f32
     n = whole.launches
     with pytest.raises(ValueError, match="at most 128 tokens"):
-        whole(x, *args[1:7], *p, 2, args[8], 12)
+        swin_block.whole_swin_block(x, *args[1:7], *p, 2, args[8], 12)
     assert whole.launches == n
 
 

@@ -222,29 +222,41 @@ def test_patch_merge_function_matches_twin_autograd_on_cpu(rng):
 
 
 def test_backward_routing_predicates():
-    """Which windows K5's attention backward takes (its per-slot shared
-    memory, `bwd_smem`: q, dO, k / v then P / dS, the fp32 dbias table;
-    at most 8 key tiles of 16): both training windows (stage 1 TN 128 x
-    hd 128, stage 2 TN 32 x hd 256) pass `check_backward_window`, which
-    the forward of a trained block runs before K1; TN 128 x hd 256, a
-    window past 8 key tiles that K1's forward takes (TN 144 x hd 64) and
-    an oversize one (TN 288) are refused; and where the epilogue saves m:
-    the JAX package's 20 MiB resident-size line, stage 1 recomputes, stage
-    2 saves."""
+    """Which windows K5's bf16 attention backward takes: those K1's
+    forward takes (`check_backward_window`, which the forward of a trained
+    block runs before K1), its one-pass slot kernel where the slot fits
+    (`bwd_smem`: q, dO, k / v then P / dS, the fp32 dbias table; at most 8
+    key tiles of 16), its two passes elsewhere. Both training windows
+    (stage 1 TN 128 x hd 128, stage 2 TN 32 x hd 256) take the slot;
+    TN 128 x hd 256 and a window past 8 key tiles (TN 144 x hd 64), which
+    K1 takes, now train on the two passes; what K1 refuses is refused: an
+    oversize window (TN 288) and a head dim past K1's slot (TN 128 x hd
+    304, TN 176 x hd 224); and where the epilogue saves m: the JAX
+    package's 20 MiB resident-size line, stage 1 recomputes, stage 2
+    saves."""
     limit = kernels.SMEM_LIMIT
     assert block_attention._attn_bwd_smem_bytes(128, 128) <= limit
     assert block_attention._attn_bwd_smem_bytes(32, 256) <= limit
     assert block_attention._attn_bwd_smem_bytes(128, 256) > limit
-    assert block_attention.MAX_BWD_WINDOW_TOKENS == 128
+    slot = block_attention._attn_bwd_slot_takes
+    assert slot(128, 128) and slot(32, 256) and slot(128, 144)
+    assert not (slot(128, 160) or slot(128, 256) or slot(144, 64))
     check = block_attention.check_backward_window
-    check("k5", torch.zeros((1, 2, 8, 8, 512)), 4, 8)    # TN 128, hd 128
-    check("k5", torch.zeros((1, 2, 4, 4, 1024)), 4, 4)   # TN 32, hd 256
+
+    def bz(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    check("k5", bz(1, 2, 8, 8, 512), 4, 8)    # TN 128, hd 128
+    check("k5", bz(1, 2, 4, 4, 1024), 4, 4)   # TN 32, hd 256
     assert 144 <= MAX_WINDOW_TOKENS  # K1's forward takes TN 144
-    for shape, heads, ws in (((1, 2, 8, 8, 512), 2, 8),    # TN 128, hd 256
-                             ((1, 1, 12, 12, 128), 2, 12),  # TN 144, hd 64
-                             ((1, 2, 12, 12, 128), 2, 12)):  # TN 288
+    check("k5", bz(1, 2, 8, 8, 512), 2, 8)    # TN 128, hd 256
+    check("k5", bz(1, 1, 12, 12, 128), 2, 12)  # TN 144, hd 64
+    check("k5", bz(1, 11, 4, 4, 1664), 8, 4)   # TN 176, hd 208
+    check("k5", bz(1, 2, 8, 8, 1152), 4, 8)    # TN 128, hd 288
+    for shape, heads, ws in (((1, 2, 12, 12, 128), 2, 12),  # TN 288
+                             ((1, 2, 8, 8, 2432), 8, 8),    # TN 128, hd 304
+                             ((1, 11, 4, 4, 1792), 8, 4)):  # TN 176, hd 224
         with pytest.raises(ValueError):
-            check("k5", torch.zeros(shape), heads, ws)
+            check("k5", bz(*shape), heads, ws)
     x = torch.zeros((1, 2, 12, 12, 128))  # ws 12 below: TN 288
     with pytest.raises(ValueError):
         block_attention.swin_block_attention_bwd(
