@@ -49,6 +49,16 @@ stops a phase exits non-zero at once:
      of phase 2b missing tenfold, bit-equal across two calls, timed
      beside the twin and its bound; K3's backward and `wgrad_sm90` alone
      bit-equal across two calls;
+  2i. every widened kernel at the widths off C % 128 and hd % 32
+     (`phase_widths_kernels`): (C, heads) = (32, 4), (64, 4), (96, 4),
+     (192, 4) (hd 8, 16, 24, 48) at both stages' windows (TN 128 at (4,
+     2, 64, 80), TN 32 at (4, 2, 32, 40)), in bf16 and fp32: K1 (W-MSA,
+     SW-MSA), K2 (rows 2, 3 and 8), K5 (SW-MSA), K6 (rows 7 and 9), rows
+     10 and 11, and K5 bf16's two passes at TN 144 x hd 24; each within
+     TOL_REL (bf16) or TOL_F32_REL (fp32) of its twin, bit-equal across
+     two calls, a planted fault missing tenfold, exact launches (the
+     library's GEMM forms too), timed beside the twin and the bound; and
+     `wgrad_sm90` alone at ragged M and N;
   2c. hold the attention kernels of the `attn_impl` routes 'pallas' (row
      10, image-layout qkv) and 'pallas_windows' (row 11, partitioned q, k,
      v) against their twins at the full-width stage-1 and stage-2 window
@@ -88,12 +98,20 @@ stops a phase exits non-zero at once:
   2h. (after phase 4; `phase_envelope_train`) (a) the bf16 stage-1 step
      twice under PyTorch's deterministic algorithms and cuDNN
      deterministic: loss and every gradient bit-equal; (b) whether row 16
-     takes `num_heads=2`'s windows (printed); (c) `ModelConfig(
-     num_heads=2)` (bf16) and `ModelConfig(swin_dim=384)` (bf16 and fp32)
-     through `build_model` and `SegTrainStep`, three steps at batch 8:
+     takes `num_heads=2`'s windows (printed); (c) `phase_config_train`
+     on `ModelConfig(num_heads=2)` (bf16) and `ModelConfig(swin_dim=384)`
+     (bf16 and fp32): `build_model` and `SegTrainStep`, three steps at
+     batch 8:
      finite losses, K1, K2, K5, K6 once a block call and K3 once a merge,
      ms/step; the first step's gradients gated as phase 4 (bf16, against
      the twin step) and 7 (d) (fp32, `fp32_step_gate` at batch 2);
+  2j. (after phase 2h; `phase_widths_models`) `ModelConfig(swin_dim=96)`
+     and `(swin_dim=64)` through `build_model` on 'pallas_full', bf16 and
+     fp32: served at bs 2 (8 `predict_next`s, launches as SERVE_STEP,
+     kernel route == plain route on >= TOL_PLAIN_SHARE of pixels, ms a
+     `predict_next`), then `phase_config_train` on them (3 stage-1 steps at
+     batch 8, exact launches, ms/step, peak memory, the first step's
+     gradients gated as 2h gates them);
   2d. hold the whole-block kernel (Pallas row 16) against its twin at
      the full-width serving and batch-8 training shapes of both stages,
      with weights drawn so that the attention branch is as large as x
@@ -784,29 +802,35 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def attention_work(R: int, C: int, TN: int, heads: int, mask) -> tuple:
+def attention_work(R: int, C: int, TN: int, heads: int, mask,
+                   isz: int = 2) -> tuple:
     """(flops, bytes) of window attention over R token rows of C channels
     in windows of TN tokens: QK^T and PV, q, k, v read, the output
-    written, the bias and mask tables read."""
+    written (`isz` bytes an element: 2 bf16, 4 fp32), the bias and mask
+    tables read."""
     tables = heads * TN * TN * 4 + (0 if mask is None else mask.numel() * 4)
-    return 4 * R * TN * C, 4 * R * C * 2 + tables
+    return 4 * R * TN * C, 4 * R * C * isz + tables
 
 
 def block_attention_work(x, heads: int, TN: int, mask) -> tuple:
     """K1: the qkv and proj products and the attention; x read, the
-    output written, the weights read."""
-    C = x.shape[-1]
+    output written, the weights read, in x's dtype."""
+    C, isz = x.shape[-1], x.element_size()
     R = x.numel() // C
-    fl, nb = attention_work(R, C, TN, heads, mask)
+    fl, nb = attention_work(R, C, TN, heads, mask, isz)
     return (fl + 8 * R * C * C,
-            nb - 4 * R * C * 2 + 2 * R * C * 2 + 4 * C * C * 2 + 4 * C * 4)
+            nb - 4 * R * C * isz + 2 * R * C * isz + 4 * C * C * isz
+            + 4 * C * 4)
 
 
-def mlp_work(R: int, C: int, hidden: int, n_rows_io: int) -> tuple:
-    """fc1 + fc2 over R rows; `n_rows_io` bf16 (R, C) tensors read or
-    written; the weights and vectors read."""
+def mlp_work(R: int, C: int, hidden: int, n_rows_io: int,
+             isz: int = 2) -> tuple:
+    """fc1 + fc2 over R rows; `n_rows_io` (R, C) tensors read or written
+    and the weights read (`isz` bytes an element), the fp32 vectors
+    read."""
     return (4 * R * C * hidden,
-            n_rows_io * R * C * 2 + 2 * C * hidden * 2 + (hidden + 5 * C) * 4)
+            n_rows_io * R * C * isz + 2 * C * hidden * isz
+            + (hidden + 5 * C) * 4)
 
 
 def calibrate_batchnorm(model, clip) -> None:
@@ -1279,6 +1303,12 @@ def main() -> None:
     print(f"phase 2g the backwards' envelope and bits: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 2i: every kernel at the widths off C % 128 ---------------
+    t0 = time.perf_counter()
+    phase_widths_kernels(dev, results, median_ms)
+    print(f"phase 2i the kernels at C 32-192, hd 8-48: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 2c: the attention kernels of 'pallas' / 'pallas_windows' --
     t0 = time.perf_counter()
     for s, cfg in stage.items():
@@ -1732,6 +1762,12 @@ def main() -> None:
     print(f"phase 2h deterministic bf16 step, num_heads=2 and swin_dim=384 "
           f"trained: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 2j: swin_dim 96 and 64 served and trained -----------------
+    t0 = time.perf_counter()
+    phase_widths_models(dev, smi, wrappers, launches)
+    print(f"phase 2j swin_dim 96 and 64 served and trained: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
@@ -1951,24 +1987,24 @@ def main() -> None:
 def k5_work(x, heads: int, TN: int, mask) -> tuple:
     """K5: five attention products, the input- and weight-gradient
     products of qkv and proj; x, g, qkv, attn read, dx written, the
-    weights read and their fp32 gradients written."""
-    C = x.shape[-1]
+    weights read (in x's dtype) and their fp32 gradients written."""
+    C, isz = x.shape[-1], x.element_size()
     R = x.numel() // C
-    fl, tables = attention_work(R, C, TN, heads, mask)
+    fl, tables = attention_work(R, C, TN, heads, mask, isz)
     return (2.5 * fl + 16 * R * C * C,
-            tables - 4 * R * C * 2 + heads * TN * TN * 4
-            + 7 * R * C * 2 + 4 * C * C * (2 + 4) + 4 * C * 4)
+            tables - 4 * R * C * isz + heads * TN * TN * 4
+            + 7 * R * C * isz + 4 * C * C * (isz + 4) + 4 * C * 4)
 
 
 def k6_work(x, hidden: int, with_m, shift) -> tuple:
     """K6: fc1 (and fc2 without a saved m) recomputed, dh, dn2, dw1,
     dw2; x, y, g (and m) read, dx (and dy when shifted) written, the
-    weights read and their fp32 gradients written."""
-    C = x.shape[-1]
+    weights read (in x's dtype) and their fp32 gradients written."""
+    C, isz = x.shape[-1], x.element_size()
     R = x.numel() // C
     n_io = 3 + bool(with_m) + 1 + bool(shift)
     return ((5 if with_m else 6) * 2 * R * C * hidden,
-            n_io * R * C * 2 + 2 * C * hidden * (2 + 4)
+            n_io * R * C * isz + 2 * C * hidden * (isz + 4)
             + (2 * hidden + 9 * C) * 4)
 
 
@@ -2001,6 +2037,54 @@ K6_ENVELOPE = {
 }
 
 
+def hold_outputs(results, median_ms, kname, case, names, kfn, pfn, tol,
+                 work, faults, peak, counter=None):
+    """kfn() (twice: bit-equal) against pfn() on every output within
+    `tol`; each (fault, outputs) of `faults` must miss `tol` tenfold; then
+    both timed (`median_ms`, 3 calls after 2 warm-ups) beside the bound of
+    `work` at `peak`, the row added to `results[kname]`. With `counter`
+    (a wrapper), its launches must rise by exactly kfn's 7 calls."""
+    import torch
+    n0 = None if counter is None else counter.launches
+    got = kfn()
+    again = kfn()
+    torch.cuda.synchronize()
+    bit = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = pfn()
+    rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    max_abs = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+    for n, r in rels.items():
+        check(r <= tol, f"{kname} {case} {n}: relative error {r} > {tol}")
+    check(bit, f"{kname} {case}: two calls on the same inputs differ")
+    for fault, bad in faults:
+        moved = max_rel_err(bad(), want)
+        print(f"  {'':24s} {case:34s} the twin {fault} moves by rel "
+              f"{moved:.3e} ({moved / tol:.0f}x the bound)", flush=True)
+        check(moved > 10 * tol, f"{kname} {case}: the twin {fault} "
+              f"moves the output by only {moved}")
+    del got, want
+    torch.cuda.empty_cache()
+    row = {"case": case, "max_abs_err": max_abs,
+           "rel_err": max(rels.values()), "rel_errs": rels,
+           "bit_equal": bit, "ms": median_ms(kfn, reps=3),
+           "plain_ms": median_ms(pfn, reps=3), "library_ms": None,
+           **bound(*work, peak=peak)}
+    results.setdefault(kname, []).append(row)
+    print(f"  {kname:24s} {case:34s} max rel {row['rel_err']:.3e} "
+          f"bit-equal {bit}; kernel {row['ms']:.3f} ms plain "
+          f"{row['plain_ms']:.3f} ms bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_ms'] / row['ms']:.2f} of it)", flush=True)
+    print("      " + " ".join(f"{n} {r:.2e}" for n, r in rels.items()),
+          flush=True)
+    if counter is not None:
+        check(counter.launches - n0 == 7, f"{kname} {case}: "
+              f"{counter.launches - n0} launches for two calls and three "
+              "timed ones after two warm-ups, expected 7")
+    torch.cuda.empty_cache()
+
+
 def phase_envelope_kernels(dev, results, median_ms) -> None:
     """Phase 2g: the training backwards at every window and width their
     forwards take, and the bf16 backward's bits. K5 bf16 at K5_ENVELOPE
@@ -2030,43 +2114,7 @@ def phase_envelope_kernels(dev, results, median_ms) -> None:
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
                 * gain * fan_in ** -0.5).to(dtype)
 
-    def hold(kname, case, names, kfn, pfn, tol, work, faults, peak):
-        """kfn() (twice: bit-equal) against pfn() on every output within
-        `tol`; each (fault, outputs) of `faults` must miss `tol` tenfold."""
-        got = kfn()
-        again = kfn()
-        torch.cuda.synchronize()
-        bit = all(torch.equal(a, b) for a, b in zip(got, again))
-        del again
-        want = pfn()
-        rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
-        max_abs = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(got, want))
-        for n, r in rels.items():
-            check(r <= tol, f"{kname} {case} {n}: relative error {r} > "
-                  f"{tol}")
-        check(bit, f"{kname} {case}: two calls on the same inputs differ")
-        for fault, bad in faults:
-            moved = max_rel_err(bad(), want)
-            print(f"  {'':24s} {case:34s} the twin {fault} moves by rel "
-                  f"{moved:.3e} ({moved / tol:.0f}x the bound)", flush=True)
-            check(moved > 10 * tol, f"{kname} {case}: the twin {fault} "
-                  f"moves the output by only {moved}")
-        del got, want
-        torch.cuda.empty_cache()
-        row = {"case": case, "max_abs_err": max_abs,
-               "rel_err": max(rels.values()), "rel_errs": rels,
-               "bit_equal": bit, "ms": median_ms(kfn, reps=3),
-               "plain_ms": median_ms(pfn, reps=3), "library_ms": None,
-               **bound(*work, peak=peak)}
-        results.setdefault(kname, []).append(row)
-        print(f"  {kname:24s} {case:34s} max rel {row['rel_err']:.3e} "
-              f"bit-equal {bit}; kernel {row['ms']:.3f} ms plain "
-              f"{row['plain_ms']:.3f} ms bound {row['bound_ms']:.3f} ms "
-              f"({row['bound_ms'] / row['ms']:.2f} of it)", flush=True)
-        print("      " + " ".join(f"{n} {r:.2e}" for n, r in rels.items()),
-              flush=True)
-        torch.cuda.empty_cache()
+    hold = functools.partial(hold_outputs, results, median_ms)
 
     attn_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
     for label, (shape, heads, ws) in K5_ENVELOPE.items():
@@ -2212,80 +2260,72 @@ ENVELOPE_MODELS = {
 ENVELOPE_STEPS = 3
 
 
+def envelope_model(dev, cfg, seed=0, kernels=None):
+    """`cfg`'s model from seeded weights, in train mode: `build_model` on
+    the kernels, or the same TswinPlus with `kernels=False` for the
+    twin."""
+    import torch
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.common import build_model
+    if kernels is None:
+        m, _ = build_model(cfg.model, cfg.data, device=dev)
+    else:
+        mc = cfg.model
+        m = TswinPlus(mc.num_classes, swin_dim=mc.swin_dim,
+                      num_heads=mc.num_heads, gelu_exact=mc.gelu_exact,
+                      swin_depths=tuple(mc.swin_depths),
+                      dtype=getattr(torch, mc.dtype),
+                      input_hw=tuple(cfg.data.crop_hw),
+                      attn_impl=mc.attn_impl, kernels=kernels).to(dev)
+    state = init_weights(TswinPlus(
+        cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
+        num_heads=cfg.model.num_heads,
+        swin_depths=tuple(cfg.model.swin_depths),
+        dtype=getattr(torch, cfg.model.dtype),
+        input_hw=tuple(cfg.data.crop_hw)),
+        torch.Generator().manual_seed(seed)).state_dict()
+    m.load_state_dict(state)
+    return m.train()
+
+
+def envelope_steps(cfg, m, n, x, y):
+    """n steps of `m` on (x, y) with `cfg`'s optimiser and loss: (losses,
+    the first step's gradients, seconds a step)."""
+    import torch
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+    opt, schedule = make_tx(cfg, n, m)
+    step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                               ohem_thresh=cfg.ohem_thresh)
+    grads = {}
+    hook = opt.register_step_pre_hook(lambda *_: grads.update(
+        {k: p.grad.detach().clone() for k, p in m.named_parameters()})
+        if not grads else None)
+    losses, secs = [], []
+    for _ in range(n):
+        ts = time.perf_counter()
+        losses.append(float(step(x, y)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - ts)
+    hook.remove()
+    return losses, grads, secs
+
+
 def phase_envelope_train(dev, smi, wrappers, launches) -> None:
     """Phase 2h: (a) a bf16 stage-1 step (`ModelConfig()`, batch 8) twice
     from the same weights and batch under PyTorch's deterministic
     algorithms and cuDNN deterministic (phase 7 (d)'s settings): the loss
     and every gradient bit-equal; (b) whether row 16 takes
     `num_heads=2`'s windows (its own envelope, not widened here); (c)
-    ENVELOPE_MODELS through `pipelines.build_model` and `SegTrainStep` on
-    'pallas_full', ENVELOPE_STEPS steps at batch 8 on the kernels: finite
-    losses, K1, K2, K5 and K6 launched once a block call and K3 once a
-    merge (hooks count the calls), ms/step; the first step's gradients
-    held as phases 4 and 7 (d) hold theirs: bf16 against the twin step at
-    batch 8 (`hold_gradients`: cosines at or above TOL_GRAD_COS_FLOOR,
-    zero-gradient conv biases to their norm bound), fp32 by
-    `fp32_step_gate` at batch 2 (the twin step, its controls and held
-    faults)."""
+    `phase_config_train` on ENVELOPE_MODELS."""
     import torch
-    import torch.utils.checkpoint
-    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
-                                            SegTrainConfig)
-    from stswincl_tpu_torch.models import TswinPlus
-    from stswincl_tpu_torch.models.aspp import ConvBNRelu
-    from stswincl_tpu_torch.models.init import init_weights
-    from stswincl_tpu_torch.models.swin import (PatchMerging,
-                                                SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.configs import SegTrainConfig
     from stswincl_tpu_torch.ops.swin_block import whole_block_plan
-    from stswincl_tpu_torch.pipelines.common import build_model
-    from stswincl_tpu_torch.pipelines.seg import make_tx
-    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
 
     imgs, lbls = seeded_batch(8, seed=3)
     images = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(lbls).to(dev).long()
-
-    def model_of(cfg, seed=0, kernels=None):
-        """The configured model from seeded weights: `build_model` on the
-        kernels, the same TswinPlus with `kernels=False` for the twin."""
-        if kernels is None:
-            m, _ = build_model(cfg.model, cfg.data, device=dev)
-        else:
-            mc = cfg.model
-            m = TswinPlus(mc.num_classes, swin_dim=mc.swin_dim,
-                          num_heads=mc.num_heads, gelu_exact=mc.gelu_exact,
-                          swin_depths=tuple(mc.swin_depths),
-                          dtype=getattr(torch, mc.dtype),
-                          input_hw=tuple(cfg.data.crop_hw),
-                          attn_impl=mc.attn_impl, kernels=kernels).to(dev)
-        state = init_weights(TswinPlus(
-            cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
-            num_heads=cfg.model.num_heads,
-            swin_depths=tuple(cfg.model.swin_depths),
-            dtype=getattr(torch, cfg.model.dtype),
-            input_hw=tuple(cfg.data.crop_hw)),
-            torch.Generator().manual_seed(seed)).state_dict()
-        m.load_state_dict(state)
-        return m.train()
-
-    def steps_of(cfg, m, n, x, y):
-        """n steps of `m` on (x, y): (losses, the first step's gradients,
-        seconds a step)."""
-        opt, schedule = make_tx(cfg, n, m)
-        step = make_seg_train_step(m, opt, schedule, cfg.loss,
-                                   ohem_thresh=cfg.ohem_thresh)
-        grads = {}
-        hook = opt.register_step_pre_hook(lambda *_: grads.update(
-            {k: p.grad.detach().clone() for k, p in m.named_parameters()})
-            if not grads else None)
-        losses, secs = [], []
-        for _ in range(n):
-            ts = time.perf_counter()
-            losses.append(float(step(x, y)["loss"]))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - ts)
-        hook.remove()
-        return losses, grads, secs
 
     # (a) the bf16 step's bits under the deterministic settings
     cfg = SegTrainConfig()
@@ -2296,8 +2336,8 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            runs = [steps_of(cfg, model_of(cfg), 1, images, labels)
-                    for _ in range(2)]
+            runs = [envelope_steps(cfg, envelope_model(dev, cfg), 1, images,
+                                   labels) for _ in range(2)]
     finally:
         torch.use_deterministic_algorithms(det)
         torch.backends.cudnn.deterministic = cudnn_det
@@ -2306,10 +2346,11 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
     print(f"  [deterministic] bf16 stage-1 step at batch 8 twice: losses "
           f"{la[0]!r} / {lb[0]!r}, {len(same)} of {len(ga)} gradients "
           f"bit-equal", flush=True)
-    check(la == lb and len(same) == len(ga), "bf16 stage-1 step under the "
-          f"deterministic settings: {len(ga) - len(same)} gradients differ "
-          f"({[k for k in ga if k not in same][:5]}), losses {la} / {lb}")
-    del runs, ga, gb
+    check(la == lb and len(same) == len(ga), "bf16 stage-1 step under "
+          f"the deterministic settings: {len(ga) - len(same)} gradients "
+          f"differ ({[k for k in ga if k not in same][:5]}), losses {la} "
+          f"/ {lb}")
+    del runs, ga, gb, images, labels
     torch.cuda.empty_cache()
 
     # (b) row 16 on num_heads=2's windows
@@ -2324,12 +2365,37 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
               f"{T * ws * ws}): the whole-block kernel {took}", flush=True)
 
     # (c) the configurations
-    for label, (fields, dtype) in ENVELOPE_MODELS.items():
+    phase_config_train(dev, smi, wrappers, launches, ENVELOPE_MODELS)
+
+
+def phase_config_train(dev, smi, wrappers, launches, models) -> None:
+    """Each of `models` (label -> (ModelConfig fields, dtype)) through
+    `pipelines.build_model` and `SegTrainStep` on 'pallas_full',
+    ENVELOPE_STEPS stage-1 steps at batch 8 on the kernels: finite
+    losses, K1, K2, K5 and K6 launched once a block call and K3 once a
+    merge (hooks count the calls), ms/step, peak memory; the first step's
+    gradients held as phases 4 and 7 (d) hold theirs: bf16 against the
+    twin step at batch 8 (`hold_gradients`: cosines at or above
+    TOL_GRAD_COS_FLOOR, zero-gradient conv biases to their norm bound),
+    fp32 by `fp32_step_gate` at batch 2 (the twin step, its controls and
+    held faults). Phase 2h (c) runs it on ENVELOPE_MODELS, phase 2j on
+    WIDTH_MODELS."""
+    import torch
+    import torch.utils.checkpoint
+    from stswincl_tpu_torch.configs import ModelConfig, SegTrainConfig
+    from stswincl_tpu_torch.models.aspp import ConvBNRelu
+    from stswincl_tpu_torch.models.swin import (PatchMerging,
+                                                SpaceTimeSwinBlock)
+
+    imgs, lbls = seeded_batch(8, seed=3)
+    images = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(lbls).to(dev).long()
+    for label, (fields, dtype) in models.items():
         cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
         f32 = dtype == "float32"
         sfx = "_f32" if f32 else ""
         tag = f"[envelope {label}]"
-        m = model_of(cfg)
+        m = envelope_model(dev, cfg)
         calls = {"block": 0, "merge": 0}
 
         def count(mod, inputs, out):
@@ -2341,7 +2407,7 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
         reset_launches(wrappers)
         torch.cuda.reset_peak_memory_stats()
         try:
-            losses, grads_k, secs = steps_of(cfg, m, ENVELOPE_STEPS, images,
+            losses, grads_k, secs = envelope_steps(cfg, m, ENVELOPE_STEPS, images,
                                              labels)
         finally:
             hook.remove()
@@ -2377,7 +2443,7 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
                       if o and k != "upsample_argmax"),
               f"{tag}: kernels of the other dtype launched")
         if f32:
-            weights = model_of(cfg).state_dict()
+            weights = envelope_model(dev, cfg).state_dict()
             kw = dict(num_classes=cfg.model.num_classes,
                       swin_dim=cfg.model.swin_dim,
                       num_heads=cfg.model.num_heads,
@@ -2389,7 +2455,7 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
             fp32_step_gate(f"{tag} batch {BS}", step_of, *b2, loss_k, g2)
             del weights, g2
         else:
-            plain = model_of(cfg, kernels=False)
+            plain = envelope_model(dev, cfg, kernels=False)
             for mod in plain.modules():
                 if isinstance(mod, SpaceTimeSwinBlock):
                     mod.forward = functools.partial(
@@ -2397,7 +2463,7 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
                         use_reentrant=False)
             few = set()
             with few_value_batchnorms(plain, few):
-                loss_p, grads_p, _ = steps_of(cfg, plain, 1, images, labels)
+                loss_p, grads_p, _ = envelope_steps(cfg, plain, 1, images, labels)
             del plain
             rel = abs(losses[0] - loss_p[0]) / abs(loss_p[0])
             print(f"  {tag} loss kernels {losses[0]:.6f} twin "
@@ -2408,6 +2474,382 @@ def phase_envelope_train(dev, smi, wrappers, launches) -> None:
             del grads_p
         del grads_k
         torch.cuda.empty_cache()
+
+
+# Phase 2i: the widths the JAX kernels take off C % 128 and hd % 32 (and
+# 16), each at both stages' window shapes at the serving batch: label ->
+# (C, heads); `swin_dim` 32 / 64 / 96 (stage 1) and 96's stage 2 (192)
+WIDTHS = {"C32 hd8": (32, 4), "C64 hd16": (64, 4), "C96 hd24": (96, 4),
+          "C192 hd48": (192, 4)}
+WIDTH_WINDOWS = {"TN128": ((4, 2, 64, 80), 8), "TN32": ((4, 2, 32, 40), 4)}
+# and K5's two passes at a head dim off 16 (TN 144: ws 6, T 4)
+WIDTH_TWO_PASS = ((2, 4, 48, 60, 96), 4, 6)
+
+
+def phase_widths_kernels(dev, results, median_ms) -> None:
+    """Phase 2i: every widened kernel at every (C, hd) of WIDTHS and both
+    windows of WIDTH_WINDOWS, in bf16 and fp32: K1 (W-MSA and SW-MSA), K2
+    (row 2, row 3 shifted, row 8 with m), K5 (SW-MSA, from K1's scratch),
+    K6 (row 7 shifted, row 9 with row 8's m), rows 10 and 11 (masked);
+    and K5 bf16's two passes at TN 144 x hd 24. Each within its bound of
+    its twin (bf16 TOL_REL, fp32 TOL_F32_REL with TF32 off), bit-equal
+    across two calls, a planted fault in the twin missing tenfold (K1
+    without its relative bias, K2 without its MLP branch, K5 without dbias
+    and without the row-sum term, K6 without the LN2 path and with gelu'
+    as 1, rows 10 and 11 without the mask), its wrapper launched exactly
+    once a call, the library's GEMM launches exactly those the kernels'
+    launches imply; timed beside the twin and the bound. Then
+    `wgrad_sm90` alone at ragged M and N (C 96's dwqkv, C 32's dwproj)
+    bit-equal and against its twin."""
+    import torch
+    from stswincl_tpu_torch.ops import add_ln_mlp as epi
+    from stswincl_tpu_torch.ops import attention as attn_ops
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                               shifted_window_attention_mask)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bf16, f32 = torch.bfloat16, torch.float32
+    hold = functools.partial(hold_outputs, results, median_ms)
+    wrappers = kernel_wrappers()
+    reset_launches(wrappers)
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(*shape, fan_in, dtype=bf16, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5).to(dtype)
+
+    def shifted_mask(h, w, ws, T):
+        return torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, ws // 2)).repeat(1, T, T).to(dev)
+
+    attn_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    epi_names = ("dx", "dy", "ds2", "db2", "dw1", "db1", "dw2", "dbw2",
+                 "ds1", "db1n")
+    k6_recomputed_f32 = 0
+
+    def k5_case(label, shape, heads, ws, dtype, peak, tol):
+        """K5 (SW-MSA) from K1's window-order scratch, against its twin."""
+        bf = dtype == bf16
+        B, T, h, w, C = shape
+        TN, hd = T * ws * ws, C // heads
+        x, g = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        wqkv = uniform(3 * C, C, fan_in=C, gain=3.0, dtype=dtype)
+        bqkv = uniform(3 * C, fan_in=C, dtype=f32)
+        wproj = uniform(C, C, fan_in=C, gain=2.0, dtype=dtype)
+        bproj = uniform(C, fan_in=C, dtype=f32)
+        bias = randn(heads, TN, TN, dtype=f32)
+        mask = shifted_mask(h, w, ws, T)
+        fwd = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads, hd ** -0.5,
+               ws, ws // 2)
+        _, qkv, attn = (att._forward_kernel if bf else att._forward_f32)(
+            *fwd)
+        k5 = (att.swin_block_attention_bwd if bf
+              else att.swin_block_attention_bwd_f32)
+        path = ("" if not bf else " (slot kernel)"
+                if att._attn_bwd_slot_takes(TN, hd) else " (two passes)")
+        hold(k5.__name__, f"{label} {shape} SW-MSA{path}", attn_names,
+             lambda: k5(x, g, qkv, attn, wqkv, wproj, bias, mask, *fwd[7:]),
+             lambda: att.swin_block_attention_bwd_ref(*fwd[:7], g,
+                                                      *fwd[7:]),
+             tol, k5_work(x, heads, TN, mask),
+             [("without dbias", lambda: (
+                 lambda w_: w_[:5] + (torch.zeros_like(w_[5]),))(
+                     att.swin_block_attention_bwd_ref(*fwd[:7], g,
+                                                      *fwd[7:]))),
+              ("without the row-sum term (dS = P dP)",
+               lambda: attention_bwd_without_rowsum(*fwd[:7], g, *fwd[7:]))],
+             peak, counter=k5)
+        del x, g, qkv, attn
+
+    for dtype in (bf16, f32):
+        bf = dtype == bf16
+        sfx = "" if bf else "_f32"
+        tol = TOL_REL if bf else TOL_F32_REL
+        peak = PEAK_BF16 if bf else PEAK_3XTF32
+        for wlabel, (C, heads) in WIDTHS.items():
+            hd, hidden = C // heads, 4 * C
+            for tlabel, (lead, ws) in WIDTH_WINDOWS.items():
+                B, T, h, w = lead
+                shape, TN = (*lead, C), T * ws * ws
+                label = f"{wlabel} {tlabel}"
+                mask = shifted_mask(h, w, ws, T)
+                x = randn(*shape, dtype=dtype)
+                # K1: weights and bias as phase 2 draws them (a peaked
+                # softmax, the attention branch about as large as x)
+                wqkv = uniform(3 * C, C, fan_in=C, gain=3.0, dtype=dtype)
+                bqkv = uniform(3 * C, fan_in=C, dtype=f32)
+                wproj = uniform(C, C, fan_in=C, gain=2.0, dtype=dtype)
+                bproj = uniform(C, fan_in=C, dtype=f32)
+                bias = randn(heads, TN, TN, dtype=f32)
+                k1 = getattr(att, "swin_block_attention" + sfx)
+                for shift in (0, ws // 2):
+                    fwd = (x, wqkv, bqkv, wproj, bproj, bias,
+                           mask if shift else None, heads, hd ** -0.5, ws,
+                           shift)
+                    hold(k1.__name__, f"{label} {shape} shift={shift}",
+                         ("out",), lambda: (k1(*fwd),),
+                         lambda: (att.swin_block_attention_ref(*fwd),), tol,
+                         block_attention_work(x, heads, TN, fwd[6]),
+                         [("without its relative bias", lambda: (
+                             att.swin_block_attention_ref(
+                                 *fwd[:5], torch.zeros_like(bias),
+                                 *fwd[6:]),))], peak, counter=k1)
+                # K2: rows 2 and 3, and 8 (m)
+                y, g = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+                p = (1.0 + randn(C, scale=0.1, dtype=f32),
+                     randn(C, scale=0.1, dtype=f32),
+                     uniform(hidden, C, fan_in=C, gain=2.0, dtype=dtype),
+                     uniform(hidden, fan_in=C, dtype=f32),
+                     uniform(C, hidden, fan_in=hidden, gain=2.0,
+                             dtype=dtype),
+                     uniform(C, fan_in=hidden, dtype=f32),
+                     1.0 + randn(C, scale=0.1, dtype=f32),
+                     randn(C, scale=0.1, dtype=f32))
+                no_mlp = (*p[:4], torch.zeros_like(p[4]),
+                          torch.zeros_like(p[5]), *p[6:])
+                k2 = getattr(epi, "swin_block_epilogue" + sfx)
+                for row, shift, with_m in (("row 2", 0, False),
+                                           ("row 3", ws // 2, False),
+                                           ("row 8", 0, True)):
+                    kw = dict(gelu_exact=True, shift=shift, ws=ws)
+                    ref = (epi.swin_block_epilogue_with_m_ref if with_m
+                           else epi.swin_block_epilogue_ref)
+
+                    def kfn(kw=kw, with_m=with_m):
+                        if bf:
+                            out, m = epi._forward_kernel(
+                                x, y, *p, eps=1e-5, with_m=with_m, **kw)
+                        else:
+                            out = epi.swin_block_epilogue_f32(
+                                x, y, *p, m_out=with_m, **kw)
+                            out, m = out if with_m else (out, None)
+                        return (out, m) if with_m else (out,)
+
+                    def pfn(ref=ref, kw=kw, w_=p):
+                        out = ref(x, y, *w_, **kw)
+                        return out if isinstance(out, tuple) else (out,)
+                    hold(k2.__name__, f"{label} {shape} {row}",
+                         ("out", "m") if with_m else ("out",), kfn, pfn,
+                         tol, mlp_work(x.numel() // C, C, hidden,
+                                       3 + with_m, x.element_size()),
+                         [("without its MLP branch",
+                           lambda pfn=pfn: pfn(w_=no_mlp))], peak,
+                         counter=k2)
+                # K5, SW-MSA
+                k5_case(label, shape, heads, ws, dtype, peak, tol)
+                # K6: row 7 (m recomputed, shifted), row 9 (row 8's m)
+                k6 = getattr(epi, "swin_block_epilogue_bwd" + sfx)
+                for row, shift in (("row 7", ws // 2), ("row 9", 0)):
+                    kw = dict(gelu_exact=True, shift=shift, ws=ws)
+                    m = None
+                    if row == "row 9":
+                        m = (epi._forward_kernel(x, y, *p, eps=1e-5,
+                                                 with_m=True, **kw)[1] if bf
+                             else epi.swin_block_epilogue_f32(
+                                 x, y, *p, m_out=True, **kw)[1])
+                    elif not bf:
+                        k6_recomputed_f32 += 7
+                    hold(k6.__name__, f"{label} {shape} {row} shift={shift}",
+                         epi_names,
+                         lambda m=m, kw=kw: k6(x, y, g, m, *p[:7], **kw),
+                         lambda kw=kw: epi.swin_block_epilogue_bwd_ref(
+                             x, y, *p, g, **kw), tol,
+                         k6_work(x, hidden, m is not None, shift),
+                         [("without the LN2 path",
+                           lambda kw=kw: epilogue_bwd_without_ln2_path(
+                               x, y, *p, g, **kw)),
+                          ("with gelu' as 1",
+                           lambda kw=kw: epilogue_bwd_with_unit_gelu_grad(
+                               x, y, *p, g, **kw))], peak, counter=k6)
+                    del m
+                del y, g, p, no_mlp
+                # rows 10 and 11 (SW-MSA)
+                qkv = randn(B, T, h, w, 3 * C, dtype=dtype)
+                q, k, v = partition_qkv(qkv, heads, ws).contiguous()
+                rbias = randn(heads, TN, TN, scale=0.5, dtype=f32)
+                sc = hd ** -0.5
+                r10 = getattr(att, "windowed_attention_image" + sfx)
+                hold(r10.__name__, f"{label} {tuple(qkv.shape)} mask=True",
+                     ("out",),
+                     lambda: (r10(qkv, rbias, mask, heads, sc, ws),),
+                     lambda: (att.windowed_attention_image_ref(
+                         qkv, rbias, mask, heads, sc, ws),), tol,
+                     attention_work(x.numel() // C, C, TN, heads, mask,
+                                    x.element_size()),
+                     [("without the mask", lambda: (
+                         att.windowed_attention_image_ref(
+                             qkv, rbias, None, heads, sc, ws),))], peak,
+                     counter=r10)
+                r11 = getattr(attn_ops, "fused_window_attention" + sfx)
+                hold(r11.__name__, f"{label} {tuple(q.shape)} mask=True",
+                     ("out",), lambda: (r11(q, k, v, rbias, mask, sc),),
+                     lambda: (attn_ops.attend_tiled(q, k, v, rbias, mask,
+                                                    sc),), tol,
+                     attention_work(x.numel() // C, C, TN, heads, mask,
+                                    x.element_size()),
+                     [("without the mask", lambda: (
+                         attn_ops.attend_tiled(q, k, v, rbias, None, sc),))],
+                     peak, counter=r11)
+                del x, qkv, q, k, v
+                torch.cuda.empty_cache()
+        if bf:  # K5's two passes at a head dim off 16
+            shape, heads, ws = WIDTH_TWO_PASS
+            k5_case("TN144 hd24", shape, heads, ws, dtype, peak, tol)
+    counts, forms = read_launches(wrappers)
+    print(f"  [widths] kernel launches: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    check_gemm_launches("widths", counts, forms,
+                        f32_recomputed=k6_recomputed_f32)
+
+    # the bf16 weight-gradient GEMM alone at ragged M and N: C 96's dwqkv
+    # (x through the shifted window map) and C 32's dwproj (g through the
+    # window map)
+    for case, (R, M, N), am, bm in (
+            ("dwqkv C96", (40960, 288, 96), None, (2, 64, 80, 8, 4)),
+            ("dwproj C32", (40960, 32, 32), (2, 64, 80, 8, 0), None)):
+        A, Bm = randn(R, M), randn(R, N)
+        a = gemm_ops.wgrad_sm90(A, Bm, am, bm)
+        b = gemm_ops.wgrad_sm90(A, Bm, am, bm)
+        torch.cuda.synchronize()
+        bit = torch.equal(a, b)
+        rel = rel_err(a, gemm_ops.wgrad_sm90_ref(A, Bm, am, bm))
+        print(f"  wgrad_sm90 {case} ({R} rows, {tuple(a.shape)}): bit-equal "
+              f"{bit}, rel {rel:.2e} against its twin", flush=True)
+        check(bit, f"wgrad_sm90 {case}: two calls differ")
+        check(rel <= TOL_F32_REL * 10, f"wgrad_sm90 {case}: rel {rel}")
+    torch.cuda.empty_cache()
+
+
+# Phase 2j: the models of the widths, through `build_model` on
+# 'pallas_full': label -> (ModelConfig fields, dtype)
+WIDTH_MODELS = {
+    "swin_dim=96": (dict(swin_dim=96), "bfloat16"),        # C 96 / 192
+    "swin_dim=96 fp32": (dict(swin_dim=96), "float32"),
+    "swin_dim=64": (dict(swin_dim=64), "bfloat16"),        # C 64 / 128
+    "swin_dim=64 fp32": (dict(swin_dim=64), "float32"),
+}
+WIDTH_SERVE_STEPS = 8
+
+
+def phase_widths_models(dev, smi, wrappers, launches) -> None:
+    """Phase 2j: each of WIDTH_MODELS (`ModelConfig(swin_dim=96)` and
+    `(swin_dim=64)`, 4 heads: hd 24 / 48 and 16 / 32) built by
+    `pipelines.build_model` on 'pallas_full' from seeded weights (BatchNorm
+    calibrated on the first clip) serves through `StreamingSegmenter` at
+    512x640 -> 1024x1280, bs 2: `init_and_predict`, then
+    WIDTH_SERVE_STEPS `predict_next`s, each launching K1, K2, K3 and K4 as
+    often as the default model's route does (SERVE_STEP) and nothing of
+    the other dtype; its predictions the plain route's (`kernels=False`,
+    same weights) on >= TOL_PLAIN_SHARE of pixels each frame; ms a
+    `predict_next` (median after the first). `whole_block=True` at
+    `swin_dim` 96 (row 16 keeps C % 128) is refused with its message
+    before any kernel launches. Then `phase_config_train` on the same
+    configurations: ENVELOPE_STEPS stage-1 steps at batch 8, finite
+    losses, exact launches, ms/step, peak memory, the first step's
+    gradients gated as phase 2h gates them."""
+    import torch
+    from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
+                                            SegTrainConfig)
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.common import build_model
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.rand((BS, 4 + WIDTH_SERVE_STEPS, H, W, 3), generator=gen,
+                        device=dev) * 2 - 1
+    for label, (fields, dtype) in WIDTH_MODELS.items():
+        f32 = dtype == "float32"
+        sfx = "_f32" if f32 else ""
+        tag = f"[serve {label}]"
+        cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype),
+                             data=DataConfig(batch_size=BS, crop_hw=(H, W)))
+        model, classes = build_model(cfg.model, cfg.data, device=dev)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        calibrate_batchnorm(model, frames[:, 0:4])
+        plain = TswinPlus(classes, swin_dim=cfg.model.swin_dim,
+                          num_heads=cfg.model.num_heads,
+                          swin_depths=tuple(cfg.model.swin_depths),
+                          dtype=getattr(torch, dtype), input_hw=(H, W),
+                          kernels=False)
+        plain.load_state_dict(model.state_dict())
+        plain.to(dev).eval()
+
+        def drive(m, path):
+            seg = StreamingSegmenter(m, out_hw=OUT_HW)
+            reset_launches(wrappers)
+            cache, pred = seg.init_and_predict(frames[:, 0:4])
+            before = read_launches(wrappers)[0]
+            preds, secs = [pred], []
+            for i in range(4, 4 + WIDTH_SERVE_STEPS):
+                ts = time.perf_counter()
+                cache, pred = seg.predict_next(cache, frames[:, i])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - ts)
+                preds.append(pred)
+            launches[path] = read_launches(wrappers)[0]
+            per = {k: (n - before[k]) / WIDTH_SERVE_STEPS
+                   for k, n in launches[path].items()}
+            return preds, per, 1e3 * statistics.median(secs[1:])
+
+        preds, per, ms = drive(model, f"serve {label}")
+        plain_preds, plain_per, plain_ms = drive(plain,
+                                                 f"serve {label} plain")
+        shares = [(a == b).float().mean().item()
+                  for a, b in zip(preds, plain_preds)]
+        print(f"  {tag} C {cfg.model.swin_dim} / {2 * cfg.model.swin_dim}, "
+              f"hd {cfg.model.swin_dim // cfg.model.num_heads} / "
+              f"{2 * cfg.model.swin_dim // cfg.model.num_heads}: "
+              f"{ms:.2f} ms a predict_next (plain route {plain_ms:.2f}; "
+              f"median of {WIDTH_SERVE_STEPS - 1}) at bs {BS}; kernel "
+              f"route == plain route on min {min(shares):.6f} of pixels "
+              f"over {len(shares)} frames; launches a predict_next "
+              f"{ {k: v for k, v in per.items() if v} } on {smi}",
+              flush=True)
+        check(min(shares) >= TOL_PLAIN_SHARE, f"{tag}: kernel vs plain "
+              f"route {min(shares)} < {TOL_PLAIN_SHARE}")
+        check(sum(plain_per.values()) == 0, f"{tag}: the plain route "
+              f"launched {plain_per}")
+        for p_ in preds:
+            check(p_.shape == (BS, *OUT_HW) and p_.dtype == torch.int32
+                  and 0 <= int(p_.min()) and int(p_.max()) < classes,
+                  f"{tag}: prediction {p_.shape} {p_.dtype}")
+        rows = {"attention": "swin_block_attention" + sfx,
+                "epilogue": "swin_block_epilogue" + sfx,
+                "patch_merge": "patch_merge" + sfx,
+                "upsample_argmax": "upsample_argmax"}
+        for key, want in SERVE_STEP.items():
+            check(per[rows[key]] == want, f"{tag}: {rows[key]} launched "
+                  f"{per[rows[key]]} times a predict_next, expected {want}")
+        for k, n in per.items():
+            check(n == 0 or k in rows.values() or k in GEMM_ROWS,
+                  f"{tag}: {k} launched {n} times a predict_next")
+        del model, plain, preds, plain_preds
+        torch.cuda.empty_cache()
+    # row 16 keeps C % 128: `whole_block` at swin_dim 96 is refused with
+    # its message before any of the port's kernels runs
+    m = TswinPlus(12, swin_dim=96, dtype=torch.bfloat16, input_hw=(H, W),
+                  whole_block=True).to(dev).eval()
+    reset_launches(wrappers)
+    refused = ""
+    try:
+        with torch.no_grad():
+            m(frames[:, 0:4])
+    except ValueError as e:
+        refused = str(e)
+    ran = {k: n for k, n in read_launches(wrappers)[0].items() if n}
+    print(f"  [whole_block swin_dim=96] refused: {refused!r}; port kernels "
+          f"launched {ran}", flush=True)
+    check("C % 128" in refused and not ran, "whole_block at swin_dim 96: "
+          f"refusal {refused!r}, launches {ran}")
+    del m
+    phase_config_train(dev, smi, wrappers, launches, WIDTH_MODELS)
 
 
 def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):

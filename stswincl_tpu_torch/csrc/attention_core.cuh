@@ -74,6 +74,9 @@ __host__ __device__ inline PairSmem pair_smem(int TN, int hd) {
 // cp.async, v in a second group that lands while the scores are computed;
 // a warp's q rows, read only by that warp, then stage its output for
 // 16-byte stores. NT (the score registers, 16-key tiles) >= TN / 16.
+// At a head dim of 8 mod 16 the scores' last k16 step reads the 8 pad
+// columns of the q and k rows, which are zeroed first; P V's n8 tiles past
+// hd read v's pad into columns that are never stored.
 // Returns once the pair's output rows are stored; a caller that reuses
 // `base` meets the pair's threads first.
 template <int NT, class Addr>
@@ -97,6 +100,11 @@ __device__ __forceinline__ void pair_core(
   // q and k in one cp.async group, v in a second that lands while the
   // scores are computed
   const int chunks = hd / 8;
+  if (hd % 16) {  // QK^T's last k16 step reads the 8-column pad: zero it
+    for (int r = t; r < 2 * TN; r += pt)
+      *reinterpret_cast<uint4*>(qs + size_t(r) * L.ld + hd) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
   for (int which = 0; which < 3; ++which) {
     for (int i = t; i < TN * chunks; i += pt) {
       const int r = i / chunks, c = (i - r * chunks) * 8;

@@ -110,10 +110,22 @@ __host__ __device__ inline BwdSmem bwd_smem(int TN, int hd) {
   return m;
 }
 
+// At a head dim of 8 mod 16 the k16 steps of a product over hd (the
+// scores, dP) read the 8 pad columns past hd of its shared rows:
+// zero_pad zeroes them in `rows` rows of stride ld at `base`, by threads
+// t = 0 .. nt - 1; the A fragments read from device memory are zeroed
+// there.
+__device__ __forceinline__ void zero_pad(bf16* base, int rows, int ld,
+                                         int hd, int t, int nt) {
+  for (int r = t; r < rows; r += nt)
+    *reinterpret_cast<uint4*>(base + size_t(r) * ld + hd) =
+        make_uint4(0u, 0u, 0u, 0u);
+}
+
 // A warp's 16 x 64 fp32 tile o (o[j]: columns 8j .. 8j + 7 of rows g and
 // g + 8, the mma layout) times mul as bf16 into rows of stride ld at dst,
 // 16 bytes a store after the quad transpose; columns at or past `cols`
-// are skipped (cols a multiple of 16).
+// are skipped (cols a multiple of 8), by 8-column block.
 __device__ __forceinline__ void store_tile16(const float (&o)[8][4], float mul,
                                              bf16* dst, long long ld,
                                              int cols, int lane) {
@@ -129,8 +141,9 @@ __device__ __forceinline__ void store_tile16(const float (&o)[8][4], float mul,
         w[i] = pack_bf16(o[j][2 * hh] * mul, o[j][2 * hh + 1] * mul);
       }
       quad_transpose(w, t);
-      *reinterpret_cast<uint4*>(row + 8 * (2 * jj + (t & 1))) =
-          make_uint4(w[0], w[1], w[2], w[3]);
+      if (8 * (2 * jj + (t & 1)) < cols)
+        *reinterpret_cast<uint4*>(row + 8 * (2 * jj + (t & 1))) =
+            make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
@@ -234,6 +247,12 @@ __global__ void __launch_bounds__(256, 1)
     const long long row0 = (long long)bw * TN;
     const bf16* src = qkv + row0 * C3 + h * hd;
     const bf16* dsrc = dattn + row0 * C + h * hd;
+    if (hd % 16) {  // the pads (phase b's P and dS overwrote k's and v's)
+      zero_pad(qs, TN, L.ld, hd, t, pt);
+      zero_pad(ks, TN, L.ld, hd, t, pt);
+      zero_pad(vs, TN, L.ld, hd, t, pt);
+      zero_pad(dos, TN, L.ld, hd, t, pt);
+    }
     // q and k in one cp.async group; v and dO in a second, landing while
     // the scores are computed
     for (int i = t; i < TN * chunks; i += pt) {
@@ -453,7 +472,9 @@ __global__ void __launch_bounds__(256, 1)
 
 // s (16 x TN) = A (16 rows read from device memory: a = the lane's word at
 // row g, column 2 t of the first k step; rows lda apart) @ B^T (TN rows at
-// `brow`, the lane's ldmatrix row address) over hd
+// `brow`, the lane's ldmatrix row address) over hd; where hd % 16 == 8 the
+// last k step's upper half of A is zero (B's pad is zeroed in shared
+// memory)
 template <int NT>
 __device__ __forceinline__ void mma_scores_g(float (&s)[2 * NT][4],
                                              const bf16* a, long long lda,
@@ -463,10 +484,11 @@ __device__ __forceinline__ void mma_scores_g(float (&s)[2 * NT][4],
   for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
   for (int kk = 0; kk < hd; kk += 16) {
     uint32_t af[4];
+    const bool up = kk + 8 < hd;
     af[0] = *reinterpret_cast<const uint32_t*>(a + kk);
     af[1] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk);
-    af[2] = *reinterpret_cast<const uint32_t*>(a + kk + 8);
-    af[3] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk + 8);
+    af[2] = up ? *reinterpret_cast<const uint32_t*>(a + kk + 8) : 0u;
+    af[3] = up ? *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk + 8) : 0u;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
@@ -521,6 +543,10 @@ __global__ void __launch_bounds__(32 * NT, 1)
   float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN +
                 (q0 + g) * TN + 2 * tq;
   const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
+  if (hd % 16) {  // k's and v's pads, read past hd; nothing writes them
+    zero_pad(ks, TN, ld, hd, t, pt);
+    zero_pad(vs, TN, ld, hd, t, pt);
+  }
 
   for (int bw = w0; bw < w1; ++bw) {
     const long long row0 = (long long)bw * TN;
@@ -624,10 +650,13 @@ __global__ void __launch_bounds__(32 * NT, 1)
         const bf16* vrow = vs + (16 * kt + bn_r) * ld + bn_c;
         for (int kk = 0; kk < hd; kk += 16) {
           uint32_t af[4], bf[4];
+          const bool up = kk + 8 < hd;  // dO past hd: zero
           af[0] = *reinterpret_cast<const uint32_t*>(dsrc + kk);
           af[1] = *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk);
-          af[2] = *reinterpret_cast<const uint32_t*>(dsrc + kk + 8);
-          af[3] = *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk + 8);
+          af[2] = up ? *reinterpret_cast<const uint32_t*>(dsrc + kk + 8) : 0u;
+          af[3] =
+              up ? *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk + 8)
+                 : 0u;
           ldsm_x4(bf, vrow + kk);
           mma16816(dp[0], af, bf[0], bf[1]);
           mma16816(dp[1], af, bf[2], bf[3]);
@@ -848,7 +877,7 @@ cudaError_t attn_bwd(const bf16* qkv, const bf16* dattn, const bf16* attn,
                      bf16* dqkv, float* dbias, float* work, int n_windows,
                      int heads, int TN, int hd, int C, float scale,
                      cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 16 * WIDE_MAX_NT || hd <= 0 || hd % 16 ||
+  if (TN <= 0 || TN % 16 || TN > 16 * WIDE_MAX_NT || hd <= 0 || hd % 8 ||
       !work)
     return cudaErrorInvalidValue;
   const int nt = TN / 16;

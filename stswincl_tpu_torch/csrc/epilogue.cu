@@ -70,7 +70,7 @@
 // (two calls give the same bits): the row passes' column sums as partial
 // rows a block, db1 as partial rows a 128-row tile, the weight gradients'
 // row splits in a workspace, each then added in order by `sum_parts`.
-// Any C % 128 runs (K2's forward takes any): the row passes a warp a row
+// Any C % 8 runs (K2's forward takes any): the row passes a warp a row
 // up to 1024 channels, a block a row past them (ln_bwd_wide.cuh).
 
 // Row 13 (`stswin_add_ln_mlp`, at the end): (s, m) = (bf16(x + y),
@@ -180,28 +180,36 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
   }
 }
 
-// ---- K6 row kernels: one warp per row, nv = C / 64 float2 per lane (NV
-// the most: C <= 64 NV, any C % 64 up to 1024; EXACT: C == 64 NV, nv known
-// to the compiler: the training widths' code as before any other width
+// ---- K6 row kernels: one warp per row, nv = ceil(C / 64) float2 per lane
+// (NV the most: C <= 64 NV, any C % 8 up to 1024, the pairs of the last
+// float2 at or past C idle; EXACT: C == 64 NV, nv known to the compiler
+// and no pair idle: the training widths' code as before any other width
 // ran), grid-strided so each warp
 // sums its rows' vector gradients in registers; the block's 8 warps then
 // meet in shared memory in warp order, into the block's partial rows, and
 // `sum_parts` adds the blocks in order (no float atomic). Past 1024
 // channels a block a row (ln_bwd_wide.cuh).
 
-template <int NV>
+// Whether the lane's float2 i lies in the row: i < nv, and (a C off 64)
+// its pair below C.
+template <bool EXACT>
+__device__ __forceinline__ bool live2(int i, int nv, int lane, int C) {
+  return i < nv && (EXACT || lane * 2 + 64 * i < C);
+}
+
+template <int NV, bool EXACT>
 __device__ __forceinline__ void row_stats(float2 (&v)[NV], float& mu,
                                           float& rs, float eps, int nv,
-                                          float invC) {
+                                          float invC, int lane, int C) {
   float sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i)
-    if (i < nv) sum += v[i].x + v[i].y;
+    if (live2<EXACT>(i, nv, lane, C)) sum += v[i].x + v[i].y;
   mu = warp_sum(sum) * invC;
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (i < nv) {
+    if (live2<EXACT>(i, nv, lane, C)) {
       const float d0 = v[i].x - mu, d1 = v[i].y - mu;
       sq += d0 * d0 + d1 * d1;
     }
@@ -211,16 +219,16 @@ __device__ __forceinline__ void row_stats(float2 (&v)[NV], float& mu,
 
 // dx of y = xhat * scale + bias given dy (`_ln_bwd_f32`): gv holds dy on
 // entry and dx on return; xh holds xhat.
-template <int NV>
+template <int NV, bool EXACT>
 __device__ __forceinline__ void ln_bwd_row(float2 (&gv)[NV],
                                            const float2 (&xh)[NV],
                                            const float* __restrict__ scale,
                                            float rs, int lane, int nv,
-                                           float invC) {
+                                           float invC, int C) {
   float m1 = 0.0f, m2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (i < nv) {
+    if (live2<EXACT>(i, nv, lane, C)) {
       const int c = lane * 2 + 64 * i;
       gv[i].x *= scale[c];
       gv[i].y *= scale[c + 1];
@@ -239,7 +247,7 @@ __device__ __forceinline__ void ln_bwd_row(float2 (&gv)[NV],
 
 // the block's per-lane sums -> part[k * C + c], its warps added in order
 // (red: LN_WARPS * 64 NV floats of shared memory)
-template <int NV, int NVEC>
+template <int NV, int NVEC, bool EXACT>
 __device__ __forceinline__ void flush_vec_sums(const float2 (&acc)[NVEC][NV],
                                                float* red, float* part,
                                                int C, int nv, int warp,
@@ -248,7 +256,7 @@ __device__ __forceinline__ void flush_vec_sums(const float2 (&acc)[NVEC][NV],
   for (int k = 0; k < NVEC; ++k) {
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      if (i < nv)
+      if (live2<EXACT>(i, nv, lane, C))
         *reinterpret_cast<float2*>(red + warp * C + lane * 2 + 64 * i) =
             acc[k][i];
     __syncthreads();
@@ -276,7 +284,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
                        int R, int C, float eps) {
   __shared__ __align__(16) float red[LN_WARPS * 64 * NV];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nv = EXACT ? NV : C >> 6;
+  const int nv = EXACT ? NV : (C + 63) >> 6;
   const float invC = 1.0f / C;
   float2 acc[3][NV];
 #pragma unroll
@@ -290,7 +298,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i] = gv[i] = make_float2(0.0f, 0.0f);
-      if (i < nv) {
+      if (live2<EXACT>(i, nv, lane, C)) {
         const int c = lane * 2 + 64 * i;
         const float2 sv = *reinterpret_cast<const float2*>(s32 + base + c);
         const float2 mv = ld_bf2(m + base + c);
@@ -299,7 +307,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       }
     }
     float mu, rs;
-    row_stats<NV>(o, mu, rs, eps, nv, invC);
+    row_stats<NV, EXACT>(o, mu, rs, eps, nv, invC, lane, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i].x = (o[i].x - mu) * rs;  // xhat1
@@ -309,10 +317,10 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       acc[1][i].x += gv[i].x;
       acc[1][i].y += gv[i].y;
     }
-    ln_bwd_row<NV>(gv, o, s1, rs, lane, nv, invC);
+    ln_bwd_row<NV, EXACT>(gv, o, s1, rs, lane, nv, invC, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      if (i < nv) {
+      if (live2<EXACT>(i, nv, lane, C)) {
         const int c = lane * 2 + 64 * i;
         *reinterpret_cast<float2*>(do32 + base + c) = gv[i];
         *reinterpret_cast<__nv_bfloat162*>(dm + base + c) =
@@ -322,8 +330,8 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       }
     }
   }
-  flush_vec_sums<NV, 3>(acc, red, part + (long long)blockIdx.x * 3 * C, C, nv,
-                        warp, lane);
+  flush_vec_sums<NV, 3, EXACT>(acc, red, part + (long long)blockIdx.x * 3 * C,
+                               C, nv, warp, lane);
 }
 
 // LN2 backward of dn2 with the recomputed xhat2 / rsig2 of s32;
@@ -340,7 +348,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
                        int C, int H, int W, int shift, float eps) {
   __shared__ __align__(16) float red[LN_WARPS * 64 * NV];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nv = EXACT ? NV : C >> 6;
+  const int nv = EXACT ? NV : (C + 63) >> 6;
   const float invC = 1.0f / C;
   float2 acc[2][NV];
 #pragma unroll
@@ -354,14 +362,14 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i] = gv[i] = make_float2(0.0f, 0.0f);
-      if (i < nv) {
+      if (live2<EXACT>(i, nv, lane, C)) {
         const int c = lane * 2 + 64 * i;
         xh[i] = *reinterpret_cast<const float2*>(s32 + base + c);
         gv[i] = *reinterpret_cast<const float2*>(dn2 + base + c);
       }
     }
     float mu, rs;
-    row_stats<NV>(xh, mu, rs, eps, nv, invC);
+    row_stats<NV, EXACT>(xh, mu, rs, eps, nv, invC, lane, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i].x = (xh[i].x - mu) * rs;
@@ -371,7 +379,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       acc[1][i].x += gv[i].x;
       acc[1][i].y += gv[i].y;
     }
-    ln_bwd_row<NV>(gv, xh, s2, rs, lane, nv, invC);
+    ln_bwd_row<NV, EXACT>(gv, xh, s2, rs, lane, nv, invC, C);
     long long ybase = base;
     if (dy && shift) {
       const int w = r % W, h = (r / W) % H, bt = r / (W * H);
@@ -381,7 +389,7 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      if (i < nv) {
+      if (live2<EXACT>(i, nv, lane, C)) {
         const int c = lane * 2 + 64 * i;
         const float2 d = *reinterpret_cast<const float2*>(do32 + base + c);
         const __nv_bfloat162 v =
@@ -391,8 +399,8 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
       }
     }
   }
-  flush_vec_sums<NV, 2>(acc, red, part + (long long)blockIdx.x * 2 * C, C, nv,
-                        warp, lane);
+  flush_vec_sums<NV, 2, EXACT>(acc, red, part + (long long)blockIdx.x * 2 * C,
+                               C, nv, warp, lane);
 }
 
 template <int NV>
@@ -418,7 +426,7 @@ cudaError_t launch_bwd_rows(int blocks, cudaStream_t s, bool first,
   return cudaGetLastError();
 }
 
-// K6's row pass (LN1's with `first`, else LN2's) at any C % 128: a warp a
+// K6's row pass (LN1's with `first`, else LN2's) at any C % 8: a warp a
 // row templated on the next of 128, 256, 512, 1024 channels, else a block
 // a row. Its vector sums (3 with `first`, else 2) -> vec[k], each over the
 // blocks' partial rows (part: `blocks` x 3 x C floats) in order.
@@ -428,7 +436,7 @@ cudaError_t bwd_rows(int C, int blocks, cudaStream_t s, bool first,
                      const float* dn2, bf16* ds, bf16* dy, float* part,
                      float* const* vec, int R, int H, int W, int shift,
                      float eps) {
-  if (C <= 0 || C % 128) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 8) return cudaErrorInvalidValue;
   cudaError_t err;
   if (C <= 128)
     err = launch_bwd_rows<2>(blocks, s, first, s32, m, g, scale, dm, do32,
@@ -548,7 +556,7 @@ extern "C" int stswin_block_epilogue(
 // unused); work: `stswin_block_epilogue_bwd_work` floats. Outputs
 // (overwritten): ds (rows, C) bf16 = dx; dy (rows, C) bf16 in y's layout
 // (only when shift > 0); dw1 (hidden, C), db1, dw2 (C, hidden), dbw2, ds1,
-// db1n, ds2, db2 fp32, every sum over rows in a fixed order. C % 128 == 0.
+// db1n, ds2, db2 fp32, every sum over rows in a fixed order. C % 8 == 0.
 extern "C" int stswin_block_epilogue_bwd(
     const void* x, const void* y, const void* g, const void* m_in,
     const void* s2, const void* b2, const void* w1, const void* b1,
@@ -562,7 +570,7 @@ extern "C" int stswin_block_epilogue_bwd(
   const int R = BT * H * W;
   cudaError_t err;
   float* wk = static_cast<float*>(work);
-  if (C <= 0 || C % 128 || !wk) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 8 || !wk) return cudaErrorInvalidValue;
 
   // 1. s = x + unshift(y), n2 = bf16(LN2(s))
   const int blocks = (R + LN_WARPS - 1) / LN_WARPS;

@@ -92,7 +92,8 @@ __device__ __forceinline__ void load_rows(const Addr& a, int bw, int h,
 // window p / heads, head p % heads) by pt = TN / 16 * 32 threads (t = 0 ..
 // pt - 1 their index) in `smem` (smem_bytes(TN, hd)), meeting on named
 // barrier `bar` of pt threads. NT >= score_tiles(TN); TN % 16 == 0, hd %
-// 32 == 0. The caller makes sure every earlier reader of `smem` is done.
+// 8 == 0 (a last chunk of P V off 32 columns a tile at a time). The caller
+// makes sure every earlier reader of `smem` is done.
 //
 // Warp w owns query rows 16 w .. 16 w + 15 and computes on the tensor
 // cores, mma.sync m16n8k8 tf32, each k step's product as three TF32
@@ -255,19 +256,29 @@ __device__ __forceinline__ void pairs(const Addr& a, int first, int total,
           fa.set(s[j][0], s[j][2], s[j][1], s[j][3]);
           const float* vr = vb + j * 8 * ld + c0;
           // the chunk's column tiles at once, their chains interleaved:
-          // eight, or the four of a last 32 columns (hd % 32 == 0)
+          // eight, the four of a last 32 columns, or a last chunk of
+          // another width a tile at a time
           if (c0 + 64 <= hd) {
             tf32x3::FragB fb[8];
 #pragma unroll
             for (int u = 0; u < 8; ++u)
               fb[u].set(vr[8 * u], vr[ld + 8 * u]);
             tf32x3::mma3_add(o, 0, fa, fb);
-          } else {
+          } else if (c0 + 32 == hd) {
             tf32x3::FragB fb[4];
 #pragma unroll
             for (int u = 0; u < 4; ++u)
               fb[u].set(vr[8 * u], vr[ld + 8 * u]);
             tf32x3::mma3_add(o, 0, fa, fb);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              if (c0 + 8 * u < hd) {
+                tf32x3::FragB fb[1];
+                fb[0].set(vr[8 * u], vr[ld + 8 * u]);
+                tf32x3::mma3_add(o, u, fa, fb);
+              }
+            }
           }
         }
       }

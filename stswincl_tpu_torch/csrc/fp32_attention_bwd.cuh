@@ -181,8 +181,11 @@ __device__ __forceinline__ void rows_nt(float (&acc)[NT][4], const float* a,
 // out[n] (n < CT: columns 8n .. 8n + 7 of `b`) += s b over the k steps j <
 // nk: s[j] a score accumulator as the A fragment (k index t: row 8j + 2t
 // of b, t + 4: row 8j + 2t + 1), b in shared memory (rows of ld, column g
-// of the tile); the tiles below ncols (a multiple of 32), in fours.
-template <int NK, int CT>
+// of the tile); the tiles below ncols (a multiple of 32), in fours; with
+// TAIL (ncols a multiple of 8) those of a last group of fewer than four
+// one at a time. Head dims a multiple of 32 run instances without TAIL:
+// one instance for both took about 4 % longer at C 512, hd 128 (H100).
+template <int NK, int CT, bool TAIL>
 __device__ __forceinline__ void regs_rows(float (&out)[CT][4],
                                           float (&s)[NK][4], int nk,
                                           const float* b, int ld, int ncols,
@@ -196,12 +199,21 @@ __device__ __forceinline__ void regs_rows(float (&out)[CT][4],
       const float* br = bb + j * 8 * ld;
 #pragma unroll
       for (int n = 0; n < CT; n += 4) {
-        if (8 * n < ncols) {
+        if (TAIL ? 8 * (n + 4) <= ncols : 8 * n < ncols) {
           tf32x3::FragB fb[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u)
             fb[u].set(br[8 * (n + u)], br[ld + 8 * (n + u)]);
           tf32x3::mma3_add<4, CT>(out, n, fa, fb);
+        } else if (TAIL) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (8 * (n + u) < ncols) {
+              tf32x3::FragB fb[1];
+              fb[0].set(br[8 * (n + u)], br[ld + 8 * (n + u)]);
+              tf32x3::mma3_add<1, CT>(out, n + u, fa, fb);
+            }
+          }
         }
       }
     }
@@ -210,8 +222,9 @@ __device__ __forceinline__ void regs_rows(float (&out)[CT][4],
 
 // Pass a. Grid (per_head, heads), TN / 16 warps; NT >= TN / 8. qkv, dqkv:
 // window-order rows of 3C; dO: rows of C; stats: (windows, heads, TN, 4)
-// [max, 1 / sum, D, 0]; dbias_part: (per_head, heads, TN, TN).
-template <int NT>
+// [max, 1 / sum, D, 0]; dbias_part: (per_head, heads, TN, TN). TAIL: a
+// head dim off 32 (`regs_rows`).
+template <int NT, bool TAIL>
 __global__ void __launch_bounds__(256) q_kernel(
     const float* __restrict__ qkv, const float* __restrict__ dO,
     const float* __restrict__ bias, const float* __restrict__ mask,
@@ -360,8 +373,8 @@ __global__ void __launch_bounds__(256) q_kernel(
       float o[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-      regs_rows<NT, 8>(o, dp, nt, Ks + c0, ld, hd - c0 < 64 ? hd - c0 : 64,
-                       g, tq);
+      regs_rows<NT, 8, TAIL>(o, dp, nt, Ks + c0, ld,
+                             hd - c0 < 64 ? hd - c0 : 64, g, tq);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         if (c0 + 8 * n < hd) {
@@ -381,8 +394,8 @@ __global__ void __launch_bounds__(256) q_kernel(
 
 // Pass b. One block a (window, head): TN / 16 key groups x col_splits(hd)
 // warps; CT >= min(hd, HC) / 8. stats from pass a; writes dk (scaled) and
-// dv into dqkv.
-template <int CT>
+// dv into dqkv. TAIL: a head dim off 32 (`regs_rows`).
+template <int CT, bool TAIL>
 __global__ void __launch_bounds__(256) kv_kernel(
     const float* __restrict__ qkv, const float* __restrict__ dO,
     const float* __restrict__ bias, const float* __restrict__ mask,
@@ -463,8 +476,8 @@ __global__ void __launch_bounds__(256) kv_kernel(
     }
 
     // ---- dv += P^T dO, dk += dS^T q (the warp's columns) ----
-    regs_rows<QT, CT>(dv, s, QT, dOc + cb, ld, ncols, g, tq);
-    regs_rows<QT, CT>(dk, ds, QT, Qc + cb, ld, ncols, g, tq);
+    regs_rows<QT, CT, TAIL>(dv, s, QT, dOc + cb, ld, ncols, g, tq);
+    regs_rows<QT, CT, TAIL>(dk, ds, QT, Qc + cb, ld, ncols, g, tq);
   }
   wait<0>();
 

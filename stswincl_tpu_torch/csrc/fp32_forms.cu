@@ -710,7 +710,7 @@ template <class Addr>
 cudaError_t attention_f32(const Addr& a, int n_windows, int heads, int TN,
                           int hd, const float* bias, const float* mask,
                           int n_mask, float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 176 || hd <= 0 || hd % 32 || heads <= 0 ||
+  if (TN <= 0 || TN % 16 || TN > 176 || hd <= 0 || hd % 8 || heads <= 0 ||
       n_windows < 0)
     return cudaErrorInvalidValue;
   if (n_windows == 0) return cudaSuccess;

@@ -96,7 +96,7 @@
 //     sit at 2.4-3x their 2.08 ms product bound, the wgmma tile's K = 512
 //     regime, not their bytes. In fp32 dm is do itself. The row passes run
 //     a fixed grid of at most 1,024 blocks, a warp a row up to C 1024 (a
-//     block a row past it, ln_bwd_wide.cuh; any C % 128); each block sums
+//     block a row past it, ln_bwd_wide.cuh; any C % 4); each block sums
 //     its rows' terms in registers, then its 8 warps in order, into its
 //     partial.
 
@@ -595,7 +595,7 @@ cudaError_t opt_in(K kernel, int* optins, size_t bytes) {
                                                   : cudaSuccess;
 }
 
-template <int NT>
+template <int NT, bool TAIL>
 cudaError_t launch_q_pass(const float* qkv, const float* dO,
                           const float* bias, const float* mask, int n_mask,
                           float* dqkv, float* stats, float* dbias_part,
@@ -603,17 +603,18 @@ cudaError_t launch_q_pass(const float* qkv, const float* dO,
                           float scale, cudaStream_t s, int* per_head) {
   static int optin[MAX_DEVICES] = {};
   const size_t bytes = attn32b::q_smem(TN, hd);
-  cudaError_t err = opt_in(attn32b::q_kernel<NT>, optin, bytes);
+  cudaError_t err = opt_in(attn32b::q_kernel<NT, TAIL>, optin, bytes);
   if (err != cudaSuccess) return err;
   int per_block;
   attn32b::q_split(n_windows, heads, TN, hd, per_head, &per_block);
-  attn32b::q_kernel<NT><<<dim3(*per_head, heads), TN / 16 * 32, bytes, s>>>(
+  attn32b::q_kernel<NT, TAIL>
+      <<<dim3(*per_head, heads), TN / 16 * 32, bytes, s>>>(
       qkv, dO, bias, mask, n_mask, dqkv, stats, dbias_part, n_windows,
       per_block, heads, TN, hd, C, scale);
   return cudaGetLastError();
 }
 
-template <int CT>
+template <int CT, bool TAIL>
 cudaError_t launch_kv_pass(const float* qkv, const float* dO,
                            const float* bias, const float* mask, int n_mask,
                            const float* stats, float* dqkv, int n_windows,
@@ -621,9 +622,9 @@ cudaError_t launch_kv_pass(const float* qkv, const float* dO,
                            cudaStream_t s) {
   static int optin[MAX_DEVICES] = {};
   const size_t bytes = attn32b::kv_smem(TN, hd);
-  cudaError_t err = opt_in(attn32b::kv_kernel<CT>, optin, bytes);
+  cudaError_t err = opt_in(attn32b::kv_kernel<CT, TAIL>, optin, bytes);
   if (err != cudaSuccess) return err;
-  attn32b::kv_kernel<CT>
+  attn32b::kv_kernel<CT, TAIL>
       <<<n_windows * heads, TN / 16 * attn32b::col_splits(hd) * 32, bytes,
          s>>>(qkv, dO, bias, mask, n_mask, stats, dqkv, heads, TN, hd, C,
               scale);
@@ -633,17 +634,55 @@ cudaError_t launch_kv_pass(const float* qkv, const float* dO,
 // The window and head dims the attention backward takes (`ops/
 // block_attention.check_backward_window` refuses the rest before K1 runs):
 // windows of 16-token tiles up to 128 tokens (the query pass's score tile
-// is 16 key tiles of 8 at most), head dims a multiple of 32 (the forward
-// core's) up to 256 at TN <= 32 and 128 beyond (the key pass's dk and dv
-// accumulators hold 128 columns a warp, two warps a key group past 128).
+// is 16 key tiles of 8 at most), head dims a multiple of 8 (the k8 steps
+// of the forward core's products) up to 256 at TN <= 32 and 128 beyond
+// (the key pass's dk and dv accumulators hold 128 columns a warp, two
+// warps a key group past 128).
 bool attn_bwd_f32_takes(int TN, int hd) {
-  return TN > 0 && TN % 16 == 0 && TN <= 128 && hd > 0 && hd % 32 == 0 &&
+  return TN > 0 && TN % 16 == 0 && TN <= 128 && hd > 0 && hd % 8 == 0 &&
          hd <= (TN <= 32 ? 256 : 128);
 }
 
+template <bool TAIL>
+cudaError_t attn_bwd_f32_passes(const float* qkv, const float* dO,
+                                const float* bias, const float* m,
+                                int n_mask, float* dqkv, float* stats,
+                                float* dbias_part, float* dbias,
+                                int n_windows, int heads, int TN, int hd,
+                                int C, float scale, cudaStream_t s) {
+  int per_head = 0;
+  cudaError_t err;
+  if (TN <= 32)
+    err = launch_q_pass<4, TAIL>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                                 dbias_part, n_windows, heads, TN, hd, C,
+                                 scale, s, &per_head);
+  else if (TN <= 64)
+    err = launch_q_pass<8, TAIL>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                                 dbias_part, n_windows, heads, TN, hd, C,
+                                 scale, s, &per_head);
+  else
+    err = launch_q_pass<16, TAIL>(qkv, dO, bias, m, n_mask, dqkv, stats,
+                                  dbias_part, n_windows, heads, TN, hd, C,
+                                  scale, s, &per_head);
+  if (err != cudaSuccess) return err;
+  const long long table = (long long)heads * TN * TN;
+  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
+      cudaSuccess)
+    return err;
+  if (hd <= 32)
+    return launch_kv_pass<4, TAIL>(qkv, dO, bias, m, n_mask, stats, dqkv,
+                                   n_windows, heads, TN, hd, C, scale, s);
+  if (hd <= 64)
+    return launch_kv_pass<8, TAIL>(qkv, dO, bias, m, n_mask, stats, dqkv,
+                                   n_windows, heads, TN, hd, C, scale, s);
+  return launch_kv_pass<16, TAIL>(qkv, dO, bias, m, n_mask, stats, dqkv,
+                                  n_windows, heads, TN, hd, C, scale, s);
+}
+
 // dq, dk, dv into dqkv and dbias: the query pass, the dbias partials
-// summed in order, the key pass. stats: (windows, heads, TN, 4) floats;
-// dbias_part: per_head (`attn32b::q_split`) x heads x TN x TN floats.
+// summed in order, the key pass; head dims off 32 in their TAIL
+// instances. stats: (windows, heads, TN, 4) floats; dbias_part: per_head
+// (`attn32b::q_split`) x heads x TN x TN floats.
 cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
                          const float* mask, int n_mask, float* dqkv,
                          float* stats, float* dbias_part, float* dbias,
@@ -652,31 +691,14 @@ cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
   if (!attn_bwd_f32_takes(TN, hd) || n_windows <= 0)
     return cudaErrorInvalidValue;
   const float* m = n_mask > 1 ? mask : nullptr;
-  int per_head = 0;
-  cudaError_t err;
-  if (TN <= 32)
-    err = launch_q_pass<4>(qkv, dO, bias, m, n_mask, dqkv, stats, dbias_part,
-                           n_windows, heads, TN, hd, C, scale, s, &per_head);
-  else if (TN <= 64)
-    err = launch_q_pass<8>(qkv, dO, bias, m, n_mask, dqkv, stats, dbias_part,
-                           n_windows, heads, TN, hd, C, scale, s, &per_head);
-  else
-    err = launch_q_pass<16>(qkv, dO, bias, m, n_mask, dqkv, stats,
-                            dbias_part, n_windows, heads, TN, hd, C, scale, s,
-                            &per_head);
-  if (err != cudaSuccess) return err;
-  const long long table = (long long)heads * TN * TN;
-  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
-      cudaSuccess)
-    return err;
-  if (hd <= 32)
-    return launch_kv_pass<4>(qkv, dO, bias, m, n_mask, stats, dqkv,
-                             n_windows, heads, TN, hd, C, scale, s);
-  if (hd <= 64)
-    return launch_kv_pass<8>(qkv, dO, bias, m, n_mask, stats, dqkv,
-                             n_windows, heads, TN, hd, C, scale, s);
-  return launch_kv_pass<16>(qkv, dO, bias, m, n_mask, stats, dqkv, n_windows,
-                            heads, TN, hd, C, scale, s);
+  return hd % 32
+             ? attn_bwd_f32_passes<true>(qkv, dO, bias, m, n_mask, dqkv,
+                                         stats, dbias_part, dbias, n_windows,
+                                         heads, TN, hd, C, scale, s)
+             : attn_bwd_f32_passes<false>(qkv, dO, bias, m, n_mask, dqkv,
+                                          stats, dbias_part, dbias,
+                                          n_windows, heads, TN, hd, C, scale,
+                                          s);
 }
 
 struct K5Work {
@@ -703,21 +725,27 @@ K5Work k5_work(int R, int C, int heads, int TN) {
 
 // ---- K6's row passes ------------------------------------------------------
 
-// two-pass LayerNorm statistics of a row held as nv = C / 128 float4 a
+// Whether the lane's float4 i (columns lane * 4 + 128 i ..) lies in the
+// row: of a C off 128 the last (C % 128) / 4 lanes' last one idles.
+__device__ __forceinline__ bool live4(int i, int lane, int C) {
+  return lane * 4 + 128 * i < C;
+}
+
+// two-pass LayerNorm statistics of a row held as ceil(C / 128) float4 a
 // lane (NV the most)
 template <int NV>
 __device__ __forceinline__ void row_stats(const float4 (&v)[NV], float& mu,
-                                          float& rs, float eps, int C) {
-  const int nv = C >> 7;
+                                          float& rs, float eps, int C,
+                                          int lane) {
   float sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i)
-    if (i < nv) sum += v[i].x + v[i].y + v[i].z + v[i].w;
+    if (live4(i, lane, C)) sum += v[i].x + v[i].y + v[i].z + v[i].w;
   mu = warp_sum(sum) / C;
   float sq = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (i < nv) {
+    if (live4(i, lane, C)) {
       const float d0 = v[i].x - mu, d1 = v[i].y - mu, d2 = v[i].z - mu,
                   d3 = v[i].w - mu;
       sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
@@ -733,11 +761,10 @@ __device__ __forceinline__ void ln_bwd_row(float4 (&gv)[NV],
                                            const float4 (&xh)[NV],
                                            const float* __restrict__ scale,
                                            float rs, int lane, int C) {
-  const int nv = C >> 7;
   float m1 = 0.0f, m2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (i >= nv) continue;
+    if (!live4(i, lane, C)) continue;
     const float4 sc = ld4(scale + lane * 4 + 128 * i);
     gv[i] = make_float4(gv[i].x * sc.x, gv[i].y * sc.y, gv[i].z * sc.z,
                         gv[i].w * sc.w);
@@ -771,12 +798,11 @@ template <int NV, int NVEC>
 __device__ __forceinline__ void flush_rows(const float4 (&acc)[NVEC][NV],
                                            float* red, float* part, int warp,
                                            int lane, int C) {
-  const int nv = C >> 7;
 #pragma unroll
   for (int k = 0; k < NVEC; ++k) {
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      if (i < nv)
+      if (live4(i, lane, C))
         *reinterpret_cast<float4*>(red + warp * C + lane * 4 + 128 * i) =
             acc[k][i];
     __syncthreads();
@@ -800,7 +826,6 @@ __global__ void __launch_bounds__(RW * 32)
                        float* __restrict__ do32, float* __restrict__ part,
                        int R, int C, float eps) {
   __shared__ __align__(16) float red[RW * 128 * NV];
-  const int nv = C >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4 acc[3][NV];
 #pragma unroll
@@ -813,7 +838,7 @@ __global__ void __launch_bounds__(RW * 32)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i] = gv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < nv) {
+      if (live4(i, lane, C)) {
         const int c = lane * 4 + 128 * i;
         o[i] = ld4(s32 + base + c);
         add4(o[i], ld4(m + base + c));
@@ -821,7 +846,7 @@ __global__ void __launch_bounds__(RW * 32)
       }
     }
     float mu, rs;
-    row_stats<NV>(o, mu, rs, eps, C);
+    row_stats<NV>(o, mu, rs, eps, C, lane);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       o[i] = make_float4((o[i].x - mu) * rs, (o[i].y - mu) * rs,
@@ -832,7 +857,7 @@ __global__ void __launch_bounds__(RW * 32)
     ln_bwd_row<NV>(gv, o, s1, rs, lane, C);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      if (i < nv) {
+      if (live4(i, lane, C)) {
         *reinterpret_cast<float4*>(do32 + base + lane * 4 + 128 * i) = gv[i];
         add4(acc[2][i], gv[i]);
       }
@@ -854,7 +879,6 @@ __global__ void __launch_bounds__(RW * 32)
                        float* __restrict__ dy, float* __restrict__ part,
                        int R, int C, int H, int W, int shift, float eps) {
   __shared__ __align__(16) float red[RW * 128 * NV];
-  const int nv = C >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4 acc[2][NV];
 #pragma unroll
@@ -867,14 +891,14 @@ __global__ void __launch_bounds__(RW * 32)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i] = gv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < nv) {
+      if (live4(i, lane, C)) {
         const int c = lane * 4 + 128 * i;
         xh[i] = ld4(s32 + base + c);
         gv[i] = ld4(dn2 + base + c);
       }
     }
     float mu, rs;
-    row_stats<NV>(xh, mu, rs, eps, C);
+    row_stats<NV>(xh, mu, rs, eps, C, lane);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       xh[i] = make_float4((xh[i].x - mu) * rs, (xh[i].y - mu) * rs,
@@ -892,7 +916,7 @@ __global__ void __launch_bounds__(RW * 32)
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      if (i < nv) {
+      if (live4(i, lane, C)) {
         const int c = lane * 4 + 128 * i;
         float4 d = ld4(do32 + base + c);
         add4(d, gv[i]);
@@ -920,7 +944,7 @@ cudaError_t launch_rows(bool first, int blocks, cudaStream_t s,
   return cudaGetLastError();
 }
 
-// K6 fp32's row pass (LN1's with `first`, else LN2's) at any C % 128: a
+// K6 fp32's row pass (LN1's with `first`, else LN2's) at any C % 4: a
 // warp a row templated on the next of 128, 256, 512, 1024 channels, else a
 // block a row (ln_bwd_wide.cuh); the blocks' sums -> part[block][k][C].
 cudaError_t bwd_rows(int C, bool first, int blocks, cudaStream_t s,
@@ -928,7 +952,7 @@ cudaError_t bwd_rows(int C, bool first, int blocks, cudaStream_t s,
                      const float* scale, float* do32, const float* dn2,
                      float* dx, float* dy, float* part, int R, int H, int W,
                      int shift, float eps) {
-  if (C <= 0 || C % 128) return cudaErrorInvalidValue;
+  if (C <= 0 || C % 4) return cudaErrorInvalidValue;
   if (C <= 128)
     return launch_rows<1>(first, blocks, s, s32, m, g, scale, do32, dn2, dx,
                           dy, part, R, C, H, W, shift, eps);
@@ -1109,7 +1133,7 @@ extern "C" int stswin_block_epilogue_bwd_f32(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = BT * H * W;
-  if (C % 128 || hidden % 4) return cudaErrorInvalidValue;
+  if (C % 4 || hidden % 4) return cudaErrorInvalidValue;
   const K6Work L = k6_work(R, C, hidden, !m_in);
   float* wk = static_cast<float*>(work);
   float *s32 = wk + L.s32, *n2 = wk + L.n2, *h = wk + L.h;

@@ -562,6 +562,7 @@ struct Operand {
   long long ld;
   RowMap map;
   int load, box_rows;  // LOAD_WINDOWS: rows of one box
+  int cols;            // M or N: columns past it read as zeros
 };
 
 struct WgradMaps {
@@ -584,13 +585,22 @@ __device__ __forceinline__ bool boxes_fit(const Operand& o, int r0, int R) {
   return true;
 }
 
+// The 64-column halves of an operand's k tile at column col0 that hold
+// any of its columns: 1 where the second lies wholly past them (a ragged
+// last tile of M or N below 64 wide; what is left in its shared memory
+// meets only output rows or columns that are not stored).
+__device__ __forceinline__ int live_halves(const Operand& o, int col0) {
+  return col0 + 64 < o.cols ? 2 : 1;
+}
+
 // Lane 0: the TMA boxes of one operand's k tile (columns col0 .. + 127,
-// rows r0 .. + 63) into dst, two 64-column halves W_HALF apart.
+// rows r0 .. + 63) into dst, `halves` 64-column halves W_HALF apart.
 __device__ __forceinline__ void load_boxes(const Operand& o,
                                            const CUtensorMap* map, bf16* dst,
-                                           int col0, int r0, uint64_t* bar) {
+                                           int col0, int r0, uint64_t* bar,
+                                           int halves) {
   if (o.load == LOAD_TMA) {
-    for (int half = 0; half < 2; ++half)
+    for (int half = 0; half < halves; ++half)
       tma_load(dst + half * W_HALF, map, col0 + 64 * half, r0, bar);
     return;
   }
@@ -600,7 +610,7 @@ __device__ __forceinline__ void load_boxes(const Operand& o,
   for (int i = 0; i < BK / o.box_rows; ++i) {
     const int r = r0 + i * o.box_rows, bw = r / TN;
     const int b = bw / nWin, win = bw % nWin, f = (r - bw * TN) / N;
-    for (int half = 0; half < 2; ++half)
+    for (int half = 0; half < halves; ++half)
       tma_load_4d(dst + half * W_HALF + i * o.box_rows * 64, map,
                   col0 + 64 * half, (win % nWw) * m.ws + m.shift,
                   (win / nWw) * m.ws + m.shift, b * m.T + f, bar);
@@ -609,7 +619,8 @@ __device__ __forceinline__ void load_boxes(const Operand& o,
 
 // Every lane: the k tile's 64 rows x 16 chunks through the row map by
 // cp.async, into the layout TMA's 128-byte swizzle gives (rows past R
-// zero-filled).
+// zero-filled; with RAGGED, chunks past the operand's columns too).
+template <bool RAGGED>
 __device__ __forceinline__ void load_rows(const Operand& o, bf16* dst,
                                           int col0, int r0, int R,
                                           int lane) {
@@ -621,16 +632,22 @@ __device__ __forceinline__ void load_rows(const Operand& o, bf16* dst,
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int half = c >> 3, cc = c & 7;
+      const bool in = ok && (!RAGGED || col0 + c * 8 < o.cols);
       cp_async16(dst + half * W_HALF + r * 64 + ((cc ^ (r & 7)) << 3),
-                 src + c * 8, ok);
+                 RAGGED && !in ? o.p : src + c * 8, in);
     }
   }
 }
 
+// RAGGED: M or N off 128 (the last output tile's columns past them
+// zero-filled on load, its stores masked). Widths of 128 run an instance
+// without the masks: one instance for both took 7-8 % longer on K5's
+// dwqkv at C 512 on the H100.
+template <bool RAGGED>
 __global__ void __launch_bounds__(THREADS, 2)
     wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps,
-                      const Operand oa, const Operand ob, int R, int N,
-                      float* __restrict__ Cw, long long ldc,
+                      const Operand oa, const Operand ob, int R, int M,
+                      int N, float* __restrict__ Cw, long long ldc,
                       long long split_stride, int kt_per_split) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -642,7 +659,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   uint64_t* empty = full + W_STAGES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tiles_n = N / BN;
+  const int tiles_n = (N + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int KT = (R + BK - 1) / BK;
   const int kt0 = blockIdx.y * kt_per_split;
@@ -670,12 +687,15 @@ __global__ void __launch_bounds__(THREADS, 2)
       bf16* da = sA + stage * (TILE_A / 2);
       bf16* db = sB + stage * (TILE_B / 2);
       if (lane == 0) {
-        mbar_expect_tx(&full[stage], (a_box ? TILE_A : 0) + (b_box ? TILE_B : 0));
-        if (a_box) load_boxes(oa, &maps.a, da, m0, r0, &full[stage]);
-        if (b_box) load_boxes(ob, &maps.b, db, n0, r0, &full[stage]);
+        const int ha = RAGGED ? live_halves(oa, m0) : 2;
+        const int hb = RAGGED ? live_halves(ob, n0) : 2;
+        mbar_expect_tx(&full[stage], (a_box ? ha * W_HALF * 2 : 0) +
+                                         (b_box ? hb * W_HALF * 2 : 0));
+        if (a_box) load_boxes(oa, &maps.a, da, m0, r0, &full[stage], ha);
+        if (b_box) load_boxes(ob, &maps.b, db, n0, r0, &full[stage], hb);
       }
-      if (!a_box) load_rows(oa, da, m0, r0, R, lane);
-      if (!b_box) load_rows(ob, db, n0, r0, R, lane);
+      if (!a_box) load_rows<RAGGED>(oa, da, m0, r0, R, lane);
+      if (!b_box) load_rows<RAGGED>(ob, db, n0, r0, R, lane);
       if (rows) cp_async_arrive(&full[stage]);
       if (++stage == W_STAGES) {
         stage = 0;
@@ -721,7 +741,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   // the split's partial sums, 8 consecutive columns of one row a lane
   // after the quad transpose (as the GEMM's epilogue), stored by two
-  // 16-byte stores into the split's slot of the workspace (or Cw)
+  // 16-byte stores into the split's slot of the workspace (or Cw); rows
+  // past M and columns past N (a ragged last tile) are not stored
   const int t = lane & 3;
   const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * (t >> 1);
   float* out = Cw + blockIdx.y * split_stride + (long long)row * ldc + n0;
@@ -736,6 +757,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     quad_transpose(x, t);
     quad_transpose(y, t);
+    if (RAGGED && (row >= M || n0 + 8 * (2 * jj + (t & 1)) >= N)) continue;
     float4* dst = reinterpret_cast<float4*>(out + 8 * (2 * jj + (t & 1)));
     dst[0] = make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]),
                          __uint_as_float(x[1]), __uint_as_float(y[1]));
@@ -796,8 +818,9 @@ cudaError_t launch(const GemmParams& p, int gather, cudaStream_t s) {
 // identity rows by 2-D TMA; a window map whose 64-row k tiles are whole
 // windows (TN <= 64) or whole frames of one window (ws * ws dividing 64)
 // by 4-D boxes; any other map by cp.async.
-Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R) {
-  Operand o{ptr, ld, m, LOAD_TMA, 0};
+Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R,
+                int cols) {
+  Operand o{ptr, ld, m, LOAD_TMA, 0, cols};
   if (!m.mode) return o;
   o.load = LOAD_ROWS;
   const int N = m.ws * m.ws, TN = m.T * N;
@@ -819,7 +842,7 @@ Operand operand(const bf16* ptr, long long ld, const RowMap& m, int R) {
 constexpr int W_WAVE = 2 * 132;
 int wgrad_split(int R, int M, int N, int* per) {
   const int KT = (R + BK - 1) / BK;
-  const int tiles = (M / BM) * (N / BN);
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   int splits = W_WAVE / tiles;
   splits = splits < 1 ? 1 : splits;
   splits = splits < KT / 8 ? splits : (KT / 8 > 1 ? KT / 8 : 1);
@@ -886,7 +909,7 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  if (p.R <= 0 || p.M <= 0 || p.N <= 0 || p.M % BM || p.N % BN ||
+  if (p.R <= 0 || p.M <= 0 || p.N <= 0 || p.M % 8 || p.N % 8 ||
       p.lda % 8 || p.ldb % 8 || p.ldc != p.N || !aligned(p.A) ||
       !aligned(p.B) || !aligned(p.Cw))
     return cudaErrorInvalidValue;
@@ -894,26 +917,28 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
   const int splits = wgrad_split(p.R, p.M, p.N, &per);
   if (splits > 1 && (!p.work || !aligned(p.work)))
     return cudaErrorInvalidValue;
-  static bool ready[MAX_DEVICES] = {};  // the opt-in, once a device
+  const bool ragged = p.M % BM || p.N % BN;
+  const auto kernel =
+      ragged ? wgrad_sm90_kernel<true> : wgrad_sm90_kernel<false>;
+  static bool ready[2][MAX_DEVICES] = {};  // the opt-in, once a device
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
+  if (!ready[ragged][dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        W_SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
     if (err != cudaSuccess) return err;
-    ready[dev] = true;
+    ready[ragged][dev] = true;
   }
-  const Operand oa = operand(p.A, p.lda, p.a_map, p.R);
-  const Operand ob = operand(p.B, p.ldb, p.b_map, p.R);
+  const Operand oa = operand(p.A, p.lda, p.a_map, p.R, p.M);
+  const Operand ob = operand(p.B, p.ldb, p.b_map, p.R, p.N);
   WgradMaps maps;
   if (!encode_operand(&maps.a, oa, p.R, p.M) ||
       !encode_operand(&maps.b, ob, p.R, p.N))
     return cudaErrorInvalidValue;
-  const int tiles = (p.M / BM) * (p.N / BN);
+  const int tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
   const long long mn = (long long)p.M * p.N;
-  wgrad_sm90_kernel<<<dim3(tiles, splits), THREADS, W_SMEM, stream>>>(
-      maps, oa, ob, p.R, p.N, splits > 1 ? p.work : p.Cw, p.ldc,
+  kernel<<<dim3(tiles, splits), THREADS, W_SMEM, stream>>>(
+      maps, oa, ob, p.R, p.M, p.N, splits > 1 ? p.work : p.Cw, p.ldc,
       splits > 1 ? mn : 0, per);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -923,7 +948,7 @@ cudaError_t gemm_wgrad_sm90(const WgradParams& p, cudaStream_t stream) {
 }
 
 size_t wgrad_sm90_work(int R, int M, int N) {
-  if (R <= 0 || M <= 0 || N <= 0 || M % BM || N % BN) return 0;
+  if (R <= 0 || M <= 0 || N <= 0 || M % 8 || N % 8) return 0;
   int per = 0;
   const int splits = wgrad_split(R, M, N, &per);
   return splits > 1 ? size_t(splits) * M * N : 0;

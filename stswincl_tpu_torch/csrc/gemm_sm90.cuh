@@ -22,9 +22,11 @@ cudaError_t gemm_sm90(const GemmParams& p, int epi, cudaStream_t stream);
 // output written to Cw (row stride ldc == N), the row splits added in a
 // fixed order through `work` (`wgrad_sm90_work(R, M, N)` floats, 16-byte
 // aligned; unused, and may be null, when that is 0). A: (R, M) bf16 rows
-// of stride lda; B: (R, N) bf16 rows of stride ldb. Requires M % 128 ==
-// 0, N % 128 == 0, lda % 8 == 0, ldb % 8 == 0, A, B 16-byte aligned; R is
-// ragged.
+// of stride lda; B: (R, N) bf16 rows of stride ldb. Requires M % 8 == 0,
+// N % 8 == 0, lda % 8 == 0, ldb % 8 == 0, A, B 16-byte aligned; R, and the
+// last 128 x 128 output tile of M and N, are ragged (TMA zero-fills the
+// columns past M and N, cp.async does so by chunk, the stores are
+// masked).
 struct WgradParams {
   const bf16* A;
   long long lda;

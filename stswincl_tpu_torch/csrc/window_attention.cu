@@ -117,7 +117,7 @@ template <class Addr>
 cudaError_t launch(const Addr& a, int n_windows, int heads, int TN, int hd,
                    const float* bias, const float* mask, int n_mask,
                    float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 16 * MAX_NT || hd <= 0 || hd % 16)
+  if (TN <= 0 || TN % 16 || TN > 16 * MAX_NT || hd <= 0 || hd % 8)
     return cudaErrorInvalidValue;
   const float* m = n_mask > 1 ? mask : nullptr;
   const int n_pairs = n_windows * heads, nt = TN / 16;

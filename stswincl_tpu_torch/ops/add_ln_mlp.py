@@ -132,8 +132,8 @@ def _geometry(name, x, y, w1, shift, ws):
     C, hidden = x.shape[-1], w1.shape[0]
     kernels.require(y.shape == x.shape, f"{name}: y {tuple(y.shape)} vs x "
                     f"{tuple(x.shape)}")
-    kernels.require(C % 128 == 0 and hidden % 128 == 0,
-                    f"{name}: needs C and hidden multiples of 128 "
+    kernels.require(C % 8 == 0 and hidden % 8 == 0,
+                    f"{name}: needs C and hidden multiples of 8 "
                     f"(C={C}, hidden={hidden})")
     if shift:
         kernels.require(x.dim() == 5 and ws is not None and 0 < shift < ws,
@@ -258,7 +258,7 @@ def swin_block_epilogue_bwd(x, y, g, m, s2, b2, w1, b1, w2, bw2, s1,
                             ws: Optional[int] = None, eps: float = 1e-5):
     """K6: the gradients of the epilogue's output given its gradient g;
     `m` is the forward's rounded MLP output, or None to recompute it. Any
-    C % 128 (every width K2's forward takes), each sum over rows in a
+    C % 8 (every width K2's forward takes), each sum over rows in a
     fixed order (two calls give the same bits).
     Returns (dx, dy, ds2, db2, dw1, db1, dw2, dbw2, ds1, db1n): dx and dy
     in x's dtype (dy in y's shifted layout; the same tensor as dx when

@@ -117,8 +117,8 @@ def check_attention_core(name: str, device: torch.device,
         n_mask = mask_tiled.shape[0]
         kernels.require(tuple(mask_tiled.shape[1:]) == (TN, TN),
                         f"{name}: mask {tuple(mask_tiled.shape)}")
-    kernels.require(hd % 16 == 0 and TN % 16 == 0,
-                    f"{name}: needs head_dim % 16 and tokens % 16 (hd={hd}, "
+    kernels.require(hd > 0 and hd % 8 == 0 and TN % 16 == 0,
+                    f"{name}: needs head_dim % 8 and tokens % 16 (hd={hd}, "
                     f"TN={TN})")
     kernels.require(TN <= MAX_WINDOW_TOKENS,
                     f"{name}: window of {TN} tokens, at most "
@@ -144,9 +144,6 @@ def _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale):
     kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                     f"{name}: q, k, v must be 16-byte aligned")
     Bw, heads, TN, hd = q.shape
-    kernels.require(not f32 or hd % 32 == 0,
-                    lambda: f"{name}: needs a head dim that is a multiple "
-                    f"of 32, got {hd}")
     mask_tiled, n_mask = check_attention_core(
         name, q.device, bias_tiled, mask_tiled, heads, TN, hd,
         _attn_f32_smem_bytes if f32 else _attn_smem_bytes)
@@ -167,7 +164,7 @@ def fused_window_attention_f32(q, k, v, bias_tiled, mask_tiled,
     """Row 11's fp32 form (`stswin_window_attention_heads_f32`,
     `csrc/fp32_forms.cu`) on fp32 CUDA q, k, v, the arguments of
     `fused_window_attention`: K1's fp32 attention core on the head-major
-    tensors, P unrounded; head dims a multiple of 32 and windows whose
+    tensors, P unrounded; head dims a multiple of 8 and windows whose
     fp32 q, k and v fit shared memory (`_attn_f32_smem_bytes`)."""
     return _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale)
 

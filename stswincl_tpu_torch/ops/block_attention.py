@@ -78,9 +78,6 @@ def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
     kernels.require(C % heads == 0 and H % ws == 0 and W % ws == 0,
                     f"{name}: C={C} over {heads} heads, ({H}, {W}) over "
                     f"windows of {ws}")
-    kernels.require(not f32 or (C // heads) % 32 == 0,
-                    lambda: f"{name}: needs a head dim that is a multiple "
-                    f"of 32, got {C} over {heads} heads")
     n_win = (H // ws) * (W // ws)
     mask_tiled, n_mask = check_attention_core(
         name, qkv.device, bias_tiled, mask_tiled, heads, T * ws * ws,
@@ -103,7 +100,7 @@ def windowed_attention_image_f32(qkv, bias_tiled, mask_tiled, heads: int,
     `csrc/fp32_forms.cu`) on an fp32 CUDA qkv, the arguments of
     `windowed_attention_image`: K1's fp32 attention core gathering
     straight from the image layout, P unrounded; head dims a multiple of
-    32 and windows whose fp32 q, k and v fit shared memory
+    8 and windows whose fp32 q, k and v fit shared memory
     (`_attn_f32_smem_bytes`)."""
     return _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws)
 
@@ -223,12 +220,13 @@ def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
 def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
     16-token tiles up to MAX_F32_BWD_WINDOW_TOKENS (the query pass's score
-    tile holds 16 key tiles of 8), head dims a multiple of 32 (the fp32
-    forward core's) up to 256 at TN <= 32 and 128 beyond (the key pass's
+    tile holds 16 key tiles of 8), head dims a multiple of 8 (the k8 steps
+    of the fp32 core's products) up to 256 at TN <= 32 and 128 beyond (the
+    key pass's
     dk and dv accumulators: 128 columns a warp, two warps a key group past
     128), and both passes within shared memory."""
     return (0 < TN <= MAX_F32_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
-            and hd % 32 == 0 and hd <= (256 if TN <= 32 else 128)
+            and hd % 8 == 0 and hd <= (256 if TN <= 32 else 128)
             and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
 
@@ -236,8 +234,9 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
                           ws: int) -> None:
     """Refuse a window that K5's attention backward in x's dtype does not
     take: bf16, what K1's attention core refuses (`_attn_bwd_takes`: more
-    than MAX_WINDOW_TOKENS tokens, a token count or head dim off 16, or
-    K1's q, k and v past shared memory), so that every window that serves
+    than MAX_WINDOW_TOKENS tokens, a token count off 16 or a head dim off
+    8, or K1's q, k and v past shared memory), so that every window that
+    serves
     also trains; fp32, what `_attn_f32_bwd_takes` refuses. The forward of
     `BlockAttentionFn` and of the whole-block Function checks it before K1
     or row 16 runs, so a training step on such a window fails before its
@@ -248,14 +247,14 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
                         lambda: f"{name}: K5's fp32 form (the attention "
                         "backward) takes windows of at most "
                         f"{MAX_F32_BWD_WINDOW_TOKENS} tokens (a multiple of "
-                        "16) with head dims a multiple of 32 (at most 256 to "
+                        "16) with head dims a multiple of 8 (at most 256 to "
                         "32 tokens, 128 beyond) that fit shared memory; got "
                         f"{TN} tokens x head dim {hd}")
         return
     kernels.require(_attn_bwd_takes(TN, hd),
                     lambda: f"{name}: K5 (the attention backward) takes the "
                     f"windows K1 takes: at most {MAX_WINDOW_TOKENS} tokens, "
-                    "token count and head dim multiples of 16, K1's q, k "
+                    "token count a multiple of 16, head dim of 8, K1's q, k "
                     f"and v within shared memory; got {TN} tokens x head "
                     f"dim {hd}")
 
@@ -264,7 +263,7 @@ def _attn_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5's bf16 attention backward takes: exactly those of
     K1's attention core (`check_attention_core` with `_attn_smem_bytes`)."""
     return (0 < TN <= MAX_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
-            and hd % 16 == 0
+            and hd % 8 == 0
             and _attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
 
 
@@ -284,8 +283,8 @@ def _validate(name, row, x, wqkv, wproj, bias_tiled, mask_tiled, heads,
                     f"{name}: weight shapes do not match x {tuple(x.shape)}")
     kernels.require(H % ws == 0 and W % ws == 0 and 0 <= shift < ws,
                     f"{name}: H, W must be multiples of ws > shift")
-    kernels.require(C % heads == 0 and C % 128 == 0,
-                    f"{name}: needs C % 128 and C % heads (C={C}, "
+    kernels.require(C % heads == 0 and C % 8 == 0,
+                    f"{name}: needs C % 8 and C % heads (C={C}, "
                     f"heads={heads})")
     mask_tiled, n_mask = check_attention_core(
         name, x.device, bias_tiled, mask_tiled, heads, T * ws * ws,
@@ -339,9 +338,6 @@ def _forward_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     """Launch K1's fp32 form; return (out, qkv, attn), the last two in
     window order (the scratch K5's fp32 form reuses)."""
     name = "swin_block_attention_f32"
-    kernels.require((x.shape[-1] // heads) % 32 == 0,
-                    lambda: f"{name}: needs a head dim that is a multiple "
-                    f"of 32, got {x.shape[-1]} over {heads} heads")
     res = _launch_k1("stswin_block_attention_f32", name, None, x, wqkv,
                      bqkv, wproj, bproj, bias_tiled, mask_tiled, heads, scale,
                      ws, shift, _attn_f32_smem_bytes)
@@ -355,7 +351,7 @@ def swin_block_attention_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled,
     """K1's fp32 form (`stswin_block_attention_f32`, `csrc/fp32_forms.cu`)
     on fp32 CUDA tensors, the arguments of `swin_block_attention` with the
     weights in fp32: every product on the fp32 GEMM, the attention in fp32
-    with P unrounded; head dims a multiple of 32 and windows whose fp32 q,
+    with P unrounded; head dims a multiple of 8 and windows whose fp32 q,
     k and v fit shared memory (`_attn_f32_smem_bytes`). Under autograd
     `BlockAttentionFn` keeps its window-order qkv and attention scratch
     for K5's fp32 form."""

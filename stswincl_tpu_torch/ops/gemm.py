@@ -351,7 +351,7 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
     """The weight-gradient GEMM on a: (R, M), b: (R, N) bf16 rows, each
     read through its (T, H, W, ws, shift) row map or None; returns the
     (M, N) fp32 sum over r of a[a_rows(r)]^T b[b_rows(r)]. M and N
-    multiples of 128; R is ragged."""
+    multiples of 8; R, and the last 128 x 128 output tile, ragged."""
     if a.device.type == "cpu":
         return wgrad_sm90_ref(a, b, a_map, b_map)
     name = "wgrad_sm90"
@@ -363,8 +363,8 @@ def wgrad_sm90(a, b, a_map=None, b_map=None):
                     f"{name}: a {tuple(a.shape)}, b {tuple(b.shape)}")
     R, M = a.shape
     N = b.shape[1]
-    kernels.require(M % 128 == 0 and N % 128 == 0,
-                    f"{name}: needs M and N multiples of 128 (M={M}, N={N})")
+    kernels.require(M % 8 == 0 and N % 8 == 0,
+                    f"{name}: needs M and N multiples of 8 (M={M}, N={N})")
     T, H, W, ws = _grid(name, R, a_map, b_map)
     f32 = dict(dtype=torch.float32, device=a.device)
     out = torch.empty((M, N), **f32)

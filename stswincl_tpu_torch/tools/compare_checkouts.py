@@ -17,10 +17,12 @@ warm-up calls, as `chip_smoke.main`'s. With `--script`, each turn instead runs t
 script of this checkout (`python3 <path> --out <json>`) in a process
 rooted at the turn's checkout, with it first on PYTHONPATH, so that one
 script times both versions (`tools/profile_bwd_bf16.py`, whose output
-has the same shape). Prints each turn's output, then
-each row's `ms` (and `k5_ms`, where the phase times K5 beside it) by turn,
-and writes every turn's rows to `--out`. Prints the card's name and power
-limit first. Needs a CUDA card; exits 1 if a turn fails.
+has the same shape). Prints each turn's output, then each row's `ms`
+(and `device_ms` and `k5_ms`, where the rows carry them) by turn and,
+where a row carries `sha` (a digest of its outputs:
+`tools/kernel_bits.py`), whether every turn's is the same (a row whose
+digests differ fails the run); writes every turn's rows to `--out`. Prints the card's name and
+power limit first. Needs a CUDA card; exits 1 if a turn fails.
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ def main(argv=None) -> int:
     print("ms by turn (" + " / ".join(t for t, _ in turns) + "):", flush=True)
     for kname, rows in turns[1][1]["results"].items():
         for j, row in enumerate(rows):
-            for key in ("ms", "k5_ms"):
+            for key in ("ms", "device_ms", "k5_ms"):
                 if key not in row:
                     continue
                 vals = []
@@ -120,6 +122,12 @@ def main(argv=None) -> int:
                 print(f"  {kname} {row['case']} {key}: " + " / ".join(
                     "-" if v is None else f"{v:.4f}" for v in vals),
                     flush=True)
+            if "sha" in row:
+                shas = {(t["results"].get(kname, [])[j:j + 1] or [{}])[0]
+                        .get("sha") for _, t in turns}
+                failed |= len(shas) != 1
+                print(f"  {kname} {row['case']} outputs bit-equal in every "
+                      f"turn: {len(shas) == 1}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump([{"turn": tag, **t} for tag, t in turns], f, default=str)

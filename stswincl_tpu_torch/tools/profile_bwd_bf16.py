@@ -1,6 +1,7 @@
 """The bf16 training backwards and the steps they serve, timed on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_bwd_bf16 [--out f.json]
+        [--swin-dim 512] [--heads 4]
     PYTHONPATH=<other checkout> python3 <this file> [--out f.json]
     python3 -m stswincl_tpu_torch.tools.profile_bwd_bf16 --slot-vs-passes
 
@@ -9,16 +10,17 @@ uses only entry points the port has had since its bf16 backwards landed,
 so a parent commit runs it too; `tools/compare_checkouts.py --script`
 runs it on two checkouts in turns).
 
-At the training shapes, (16, 2, 64, 80, 512) ws 8 (stage 1) and (16, 2,
-32, 40, 1024) ws 4 (stage 2), 4 heads, seeded inputs, each with and
+At the training shapes, (16, 2, 64, 80, C) ws 8 (stage 1) and (16, 2,
+32, 40, 2C) ws 4 (stage 2), C the `--swin-dim` (512) over `--heads` (4)
+heads, seeded inputs, each with and
 without the SW-MSA shift: K5 (`swin_block_attention_bwd`, Pallas row 6)
 at both stages, K6 (`swin_block_epilogue_bwd`) as row 7 (m recomputed) at
 stage 1 and row 9 (given row 8's m) at stage 2. Each is timed with CUDA
 events (the median of 10 single calls after two warm-ups), then split by
 kernel with `torch.profiler` over 3 calls (device ms a call by kernel
 name, launches a call). Then the bf16 stage-1 train step of
-TswinPlus(12, swin_dim 512, depths (3, 3)) at batch 8 (512x640, Adam,
-OHEM; host clock and a sync, the median of 6 steps after 2) and a
+TswinPlus(12, that swin_dim and heads, depths (3, 3)) at batch 8
+(512x640, Adam, OHEM; host clock and a sync, the median of 6 steps after 2) and a
 `predict_next` at bs 2 (512x640 -> 1024x1280; host clock and a sync, the
 median of 8 after 2). Prints the card's name and power limit first, and
 writes {"results": {name: [{"case", "ms", "kernels"}]}, "failed": []}
@@ -41,7 +43,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-STAGES = {"s1": ((16, 2, 64, 80, 512), 8), "s2": ((16, 2, 32, 40, 1024), 4)}
+def stages(swin_dim: int = 512) -> dict:
+    """Both stages' training block shapes and windows."""
+    return {"s1": ((16, 2, 64, 80, swin_dim), 8),
+            "s2": ((16, 2, 32, 40, 2 * swin_dim), 4)}
+
+
+STAGES = stages()
 
 
 def _median_ms(fn, reps=10):
@@ -58,6 +66,69 @@ def _median_ms(fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def steps(results, dev, dtypes, swin_dim=512, heads=4) -> None:
+    """TswinPlus(12, swin_dim, heads, depths (3, 3)) from seeded weights:
+    a stage-1 train step at batch 8 in each of `dtypes` (512x640, Adam,
+    OHEM; host clock and a sync, the median of 6 steps after 2), then a
+    bf16 `predict_next` at bs 2 (512x640 -> 1024x1280; the median of 8
+    after 2), into results["stage-1 step"] / ["predict_next"]."""
+    from stswincl_tpu_torch.configs import SegTrainConfig
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    from stswincl_tpu_torch.pipelines.seg import make_tx
+    from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
+    from stswincl_tpu_torch.train.train_seg import make_seg_train_step
+
+    def model(dtype):
+        m = TswinPlus(num_classes=12, swin_dim=swin_dim, num_heads=heads,
+                      swin_depths=(3, 3), dtype=dtype, input_hw=(512, 640))
+        init_weights(m, torch.Generator().manual_seed(0))
+        return m.to(dev)
+
+    cfg = SegTrainConfig()
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(
+        -1, 1, (8, 4, 512, 640, 3)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 12, (8, 512, 640))).to(
+        dev).long()
+    for dtype in dtypes:
+        m = model(dtype).train()
+        opt, schedule = make_tx(cfg, 8, m)
+        step = make_seg_train_step(m, opt, schedule, cfg.loss,
+                                   ohem_thresh=cfg.ohem_thresh)
+        secs = []
+        for _ in range(8):
+            ts = time.perf_counter()
+            step(images, labels)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+        ms = 1e3 * statistics.median(secs[2:])
+        name = str(dtype)[6:]
+        results["stage-1 step"].append({"case": f"{name} batch 8",
+                                        "ms": ms})
+        print(f"{name} stage-1 step at batch 8: {ms:.2f} ms (steps "
+              f"{[round(1e3 * s, 1) for s in secs]})", flush=True)
+        del m, opt, step
+        torch.cuda.empty_cache()
+    del images, labels
+    gen = torch.Generator(device=dev).manual_seed(41)
+    frames = torch.rand((2, 14, 512, 640, 3), generator=gen,
+                        device=dev) * 2 - 1
+    seg = StreamingSegmenter(model(torch.bfloat16).eval(),
+                             out_hw=(1024, 1280))
+    with torch.no_grad():
+        cache, _ = seg.init_and_predict(frames[:, 0:4])
+        secs = []
+        for i in range(4, 14):
+            ts = time.perf_counter()
+            cache, _ = seg.predict_next(cache, frames[:, i])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+    ms = 1e3 * statistics.median(secs[2:])
+    results["predict_next"].append({"case": "bf16 bs 2", "ms": ms})
+    print(f"bf16 predict_next at bs 2: {ms:.2f} ms", flush=True)
 
 
 def _split(fn, calls=3):
@@ -87,6 +158,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slot-vs-passes", action="store_true",
                     help="K5's slot kernel against its two passes at equal "
                     "work, alone")
+    ap.add_argument("--swin-dim", type=int, default=512,
+                    help="stage 1's channels (stage 2 twice them)")
+    ap.add_argument("--heads", type=int, default=4)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_bwd_bf16: needs a CUDA card")
@@ -137,9 +211,9 @@ def main(argv=None) -> int:
                        x, g, qkv, attn, wqkv, wproj, bias, None, *fwd[7:]))
             del x, g, qkv, attn
         args.no_steps = True
-    heads = 4
+    heads = args.heads
     for label, (shape, ws) in (() if args.slot_vs_passes
-                               else STAGES.items()):
+                               else stages(args.swin_dim).items()):
         B, T, h, w, C = shape
         TN, hidden = T * ws * ws, 4 * C
         x, g, y = randn(*shape), randn(*shape), randn(*shape)
@@ -183,55 +257,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     if not args.no_steps:
-        from stswincl_tpu_torch.configs import SegTrainConfig
-        from stswincl_tpu_torch.models import TswinPlus
-        from stswincl_tpu_torch.models.init import init_weights
-        from stswincl_tpu_torch.pipelines.seg import make_tx
-        from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
-        from stswincl_tpu_torch.train.train_seg import make_seg_train_step
-        cfg = SegTrainConfig()
-        m = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=bf16, input_hw=(512, 640))
-        init_weights(m, torch.Generator().manual_seed(0))
-        m.to(dev).train()
-        opt, schedule = make_tx(cfg, 8, m)
-        step = make_seg_train_step(m, opt, schedule, cfg.loss,
-                                   ohem_thresh=cfg.ohem_thresh)
-        rng = np.random.default_rng(3)
-        images = torch.from_numpy(rng.uniform(
-            -1, 1, (8, 4, 512, 640, 3)).astype(np.float32)).to(dev)
-        labels = torch.from_numpy(rng.integers(
-            0, 12, (8, 512, 640))).to(dev).long()
-        secs = []
-        for i in range(8):
-            ts = time.perf_counter()
-            step(images, labels)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - ts)
-        ms = 1e3 * statistics.median(secs[2:])
-        results["stage-1 step"].append({"case": "bf16 batch 8", "ms": ms})
-        print(f"bf16 stage-1 step at batch 8: {ms:.2f} ms (steps "
-              f"{[round(1e3 * s, 1) for s in secs]})", flush=True)
-        del m, opt, step, images, labels
-        torch.cuda.empty_cache()
-        m = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=bf16, input_hw=(512, 640))
-        init_weights(m, torch.Generator().manual_seed(0))
-        m.to(dev).eval()
-        frames = torch.rand((2, 14, 512, 640, 3), generator=gen,
-                            device=dev) * 2 - 1
-        seg = StreamingSegmenter(m, out_hw=(1024, 1280))
-        with torch.no_grad():
-            cache, _ = seg.init_and_predict(frames[:, 0:4])
-            secs = []
-            for i in range(4, 14):
-                ts = time.perf_counter()
-                cache, _ = seg.predict_next(cache, frames[:, i])
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - ts)
-        ms = 1e3 * statistics.median(secs[2:])
-        results["predict_next"].append({"case": "bf16 bs 2", "ms": ms})
-        print(f"bf16 predict_next at bs 2: {ms:.2f} ms", flush=True)
+        steps(results, dev, (bf16,), args.swin_dim, args.heads)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"results": results, "failed": []}, f)

@@ -1,10 +1,13 @@
 """Device time of the swin block's kernels at the batch-8 block shapes.
 
     python3 -m stswincl_tpu_torch.tools.profile_swin_kernels [--reps 20]
+        [--swin-dim 512] [--heads 4]
 
 Counterpart of `tools/profile_swin_kernels.py`. At stage 1, the blocks
-of a batch of 8 clips see (16, 2, 64, 80, 512): 163840 token rows, C 512;
-at stage 2 (16, 2, 32, 40, 1024): 40960 rows, C 1024; hidden 4C, 4 heads.
+of a batch of 8 clips see (16, 2, 64, 80, C): 163840 token rows, C the
+`--swin-dim` (512, the model's default); at stage 2 (16, 2, 32, 40, 2C):
+40960 rows; hidden 4C, `--heads` heads (4; `swin_dim` 96 over 4 is hd 24
+/ 48).
 Times K1 (`swin_block_attention`), K2 (`swin_block_epilogue`), the
 attention step alone (row 10, `windowed_attention_image`, the core K1 runs
 between its two products), Pallas row 13 (`add_ln_mlp`) and row 14
@@ -32,10 +35,15 @@ from stswincl_tpu_torch.ops.block_attention import (swin_block_attention,
 
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM, dense
 PEAK_BYTES = 3.35e12  # bytes/s, H100 SXM HBM3
-STAGES = {  # tag: (Bw, T, H, W, C, heads, ws)
-    "stage1": (16, 2, 64, 80, 512, 4, 8),
-    "stage2": (16, 2, 32, 40, 1024, 4, 4),
-}
+
+
+def stages(swin_dim: int = 512, heads: int = 4) -> dict:
+    """tag: (Bw, T, H, W, C, heads, ws) of both stages' batch-8 blocks."""
+    return {"stage1": (16, 2, 64, 80, swin_dim, heads, 8),
+            "stage2": (16, 2, 32, 40, 2 * swin_dim, heads, 4)}
+
+
+STAGES = stages()
 
 
 def device_ms(fn, reps: int) -> float:
@@ -116,6 +124,9 @@ def stage(tag, Bw, T, H, W, C, heads, ws, reps, dev):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--swin-dim", type=int, default=512,
+                    help="stage 1's channels (stage 2 twice them)")
+    ap.add_argument("--heads", type=int, default=4)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_swin_kernels: needs a CUDA card")
@@ -125,7 +136,7 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"{smi} | {args.reps} launches a kernel", flush=True)
-    for tag, shape in STAGES.items():
+    for tag, shape in stages(args.swin_dim, args.heads).items():
         stage(tag, *shape, args.reps, dev)
     torch.cuda.empty_cache()
 

@@ -170,21 +170,22 @@ def _k1_core_takes(TN, hd):
         "k1", torch.device("meta"), bias, None, 1, TN, hd))
 
 
-# TN = 16 T (ws 4, T 1..12 and 18: 288), hd 8..320
+# TN = 16 T (ws 4, T 1..12 and 18: 288), hd 8..320 (12, 20 and 36 off 8)
 K5_GRID = [(16 * T, hd) for T in (1, 2, 3, 8, 9, 11, 12, 18)
-           for hd in (8, 16, 24, 64, 144, 160, 192, 208, 224, 256, 288, 304,
-                      320)]
+           for hd in (8, 12, 16, 20, 24, 36, 48, 64, 144, 160, 192, 208, 224,
+                      256, 288, 304, 320)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
-    """Over a grid of (tokens, head dim) at ws 4 (one head where hd is a
-    multiple of 128, else C = 128 hd over 128 heads): bf16, K5's
+    """Over a grid of (tokens, head dim) at ws 4 (C = 4 hd over 4 heads):
+    bf16, K5's
     wrapper (`swin_block_attention_bwd`, `check_backward_window`) accepts
     exactly the windows K1's wrapper (`_forward_kernel`) and K1's
     attention core accept; fp32, K5's fp32 form accepts a subset of K1
     fp32's windows (its own plan, `_attn_f32_bwd_takes`). K1's bf16
-    envelope reaches TN 176 and hd 288 at TN 128."""
+    envelope reaches TN 176 and hd 288 at TN 128; every head dim of 8
+    (8, 24 and 48 among them) runs in both dtypes, none off 8."""
     meta = dict(dtype=dtype, device="meta")
     f32 = dict(dtype=torch.float32, device="meta")
     bf = dtype == torch.bfloat16
@@ -194,8 +195,7 @@ def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
            else block_attention.swin_block_attention_bwd_f32)
     rows = []
     for TN, hd in K5_GRID:
-        T, C = TN // 16, hd if hd % 128 == 0 else 128 * hd
-        heads = C // hd
+        T, C, heads = TN // 16, 4 * hd, 4
         x = torch.empty((1, T, 4, 4, C), **meta)
         w = (torch.empty((3 * C, C), **meta), torch.empty(3 * C, **f32),
              torch.empty((C, C), **meta), torch.empty(C, **f32))
@@ -219,23 +219,29 @@ def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
         took = {(TN, hd) for TN, hd, k1, _ in rows if k1}
         assert {(176, 208), (128, 288), (144, 256), (128, 192),
                 (32, 320)} <= took
+        assert {(128, 8), (128, 24), (32, 48), (176, 8)} <= took
         assert not {(176, 224), (128, 304), (288, 64)} & took
         assert max(TN for TN, _ in took) == MAX_WINDOW_TOKENS
         assert all(_attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
                    for TN, hd in took)
+    else:
+        took = {(TN, hd) for TN, hd, _, k5 in rows if k5}
+        assert {(128, 8), (128, 24), (128, 48), (32, 48), (32, 256)} <= took
+    assert all(hd % 8 == 0 for TN, hd, k1, k5 in rows if k1 or k5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k6_takes_exactly_the_widths_k2_takes(card_free, dtype):
-    """Over C = 64 .. 2112 (hidden 4C): K6's wrapper (rows 7 and 9, m
-    recomputed and given) accepts exactly the widths K2's forward accepts
-    in the same dtype: every C % 128, so 384, 768 and 1536 among them,
-    where the row passes used to refuse all but 128, 256, 512 and 1024."""
+    """Over C = 8 .. 2112 (hidden 4C) and three widths off 8: K6's
+    wrapper (rows 7 and 9, m recomputed and given) accepts exactly the
+    widths K2's forward accepts in the same dtype: every C % 8, so 32, 96,
+    192 and 384 among them, where the row passes used to refuse all but
+    multiples of 128 (and before those all but 128, 256, 512 and 1024)."""
     meta = dict(dtype=dtype, device="meta")
     f32 = dict(dtype=torch.float32, device="meta")
     bf = dtype == torch.bfloat16
     took = []
-    for C in range(64, 2113, 64):
+    for C in [12, 100, 516] + list(range(8, 2113, 8)):
         hidden = 4 * C
         x = torch.empty((2, 2, 4, 4, C), **meta)
         p = (torch.empty(C, **f32), torch.empty(C, **f32),
@@ -260,4 +266,4 @@ def test_k6_takes_exactly_the_widths_k2_takes(card_free, dtype):
         assert k2 == k2m == row7 == row9, (C, k2, k2m, row7, row9)
         if k2:
             took.append(C)
-    assert took == list(range(128, 2113, 128))
+    assert took == list(range(8, 2113, 8))

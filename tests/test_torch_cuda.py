@@ -328,7 +328,7 @@ def test_epilogue_bwd_kernel(dev, gen, shift, T, C):
 
 def test_backward_rejects_unsupported_shapes(dev, gen):
     """K5 refuses a window K1 does not take (TN 128 x hd 304: K1's q, k
-    and v past shared memory), K6 a width K2 does not take (C off 128);
+    and v past shared memory), K6 a width K2 does not take (C off 8);
     neither launches."""
     x = torch.zeros((1, 2, 8, 8, 2432), device=dev, dtype=BF)
     w = torch.zeros((3 * 2432, 2432), device=dev, dtype=BF)
@@ -340,10 +340,10 @@ def test_backward_rejects_unsupported_shapes(dev, gen):
             torch.zeros((128, 2432), device=dev, dtype=BF), w,
             w[:2432], bias, None, 8, 0.1, 8, 0)
     assert block_attention.swin_block_attention_bwd.launches == n
-    p = _epi_params(dev, gen, C=320, hidden=1280)
-    xe = torch.zeros((4, 320), device=dev, dtype=BF)
+    p = _epi_params(dev, gen, C=324, hidden=1296)
+    xe = torch.zeros((4, 324), device=dev, dtype=BF)
     n = add_ln_mlp.swin_block_epilogue_bwd.launches
-    with pytest.raises(ValueError, match="multiples of 128"):
+    with pytest.raises(ValueError, match="multiples of 8"):
         add_ln_mlp.swin_block_epilogue_bwd(xe, xe, xe, None, *p[:7])
     assert add_ln_mlp.swin_block_epilogue_bwd.launches == n
 

@@ -240,13 +240,17 @@ def test_k5_fp32_plan_takes_head_dim_32():
     128 at both stages: TN 128 (stage 1) and TN 32 (stage 2) are taken,
     in 55,296 and 18,432 bytes of shared memory (the query pass's k, v and
     q / dO in rows of hd + 4; the key pass at TN 32, k, v and two 16-query
-    chunks of q and dO, is the larger); head dims off 32 stay refused."""
+    chunks of q and dO, is the larger); so are the head dims of 8 below
+    the limits (`swin_dim` 96's 24 and 48, 64's 16); head dims off 8 and
+    past 128 at TN 128 stay refused."""
     takes = block_attention._attn_f32_bwd_takes
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert takes(128, 32) and takes(32, 32) and takes(64, 32)
     assert plan(128, 32) == 4 * 3 * 128 * 36 == 55296
     assert plan(32, 32) == 4 * (2 * 32 + 2 * 16 * 2) * 36 == 18432
-    assert not takes(128, 48) and not takes(32, 16) and not takes(128, 160)
+    assert takes(128, 48) and takes(32, 16) and takes(128, 24)
+    assert takes(32, 8) and takes(32, 48)
+    assert not takes(128, 44) and not takes(32, 12) and not takes(128, 160)
 
 
 def test_swin_dim_128_fp32_model_trains_on_k5():

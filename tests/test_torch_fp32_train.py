@@ -179,9 +179,9 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     head); a key pass holding k, v and a ring of 16-query chunks of q and
     dO, three past 32 tokens): stage 1 (TN 128, hd 128) and stage 2 (TN
     32, hd 256) fit SMEM_LIMIT, and so do both stages of `swin_dim` 128
-    (hd 32) and every 16-token window up to 128 (TN 96 among them); a
-    wider window or head dim and a
-    head dim off 32 are refused by `check_backward_window` before any
+    (hd 32) and every 16-token window up to 128 (TN 96 among them), at
+    every head dim of 8 (48 and 24 among them); a wider window or head dim
+    and a head dim off 8 are refused by `check_backward_window` before any
     launch: the Function's forward raises without calling the form."""
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert plan(128, 128) == 4 * 3 * 128 * 132 == 202752
@@ -197,9 +197,11 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     check("k5", torch.empty((1, 2, 4, 4, 128), **f32), 4, 4)    # hd 32
     check("k5", torch.empty((1, 2, 8, 8, 128), **f32), 4, 8)    # TN 128
     check("k5", torch.empty((1, 6, 4, 4, 256), **f32), 4, 4)    # TN 96
+    check("k5", torch.empty((1, 2, 4, 4, 192), **f32), 4, 4)    # hd 48
+    check("k5", torch.empty((1, 2, 8, 8, 96), **f32), 4, 8)     # hd 24
     refused = (((1, 2, 8, 8, 512), 2, 8),     # TN 128, hd 256
                ((1, 1, 12, 12, 256), 4, 12),  # TN 144
-               ((1, 2, 4, 4, 192), 4, 4),     # hd 48
+               ((1, 2, 4, 4, 200), 4, 4),     # hd 50
                ((1, 2, 8, 8, 768), 4, 8))     # hd 192 at TN 128
     for shape, heads, ws in refused:
         with pytest.raises(ValueError, match="fp32 form"):

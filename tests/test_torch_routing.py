@@ -91,8 +91,11 @@ def test_attention_envelope_keeps_every_shape_the_old_core_took():
 
 
 @pytest.mark.parametrize("TN,hd", [(192, 64), (128, 1024), (16, 4096),
-                                   (120, 64), (128, 72)])
+                                   (120, 64), (128, 68)])
 def test_attention_envelope_refuses_oversize_and_ragged_windows(TN, hd):
+    """Past MAX_WINDOW_TOKENS, past shared memory, a token count off 16 or
+    a head dim off 8 (the cores take every multiple of 8: (128, 72) now
+    runs, `tests/test_torch_widths.py`)."""
     with pytest.raises(ValueError):
         _check(TN, hd)
 
