@@ -656,23 +656,37 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches(wrappers) -> None:
-    """Every kernel's launch count to 0, the library's GEMM counts too,
-    with the card idle."""
+    """Every kernel's launch count to 0, the library's GEMM counts and its
+    counts of the fp32 attention's streamed instances too, with the card
+    idle."""
     import torch
     from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops.attention import attn_f32_streamed_launches
+    from stswincl_tpu_torch.ops.block_attention import (
+        attn_bwd_f32_streamed_launches)
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
     gemm_ops.launch_counts(reset=True)
+    attn_f32_streamed_launches(reset=True)
+    attn_bwd_f32_streamed_launches(reset=True)
 
 
 def read_launches(wrappers) -> tuple:
-    """(each kernel's launches since the reset, the library's GEMM counts
-    by form). A kernel's count is its wrapper's; a Hopper GEMM row's is the
+    """(each kernel's launches since the reset, the library's counts by
+    form). A kernel's count is its wrapper's; a Hopper GEMM row's is the
     library's, which also counts the launches made inside the C entries of
-    K1, K2, K3, K5 and K6."""
+    K1, K2, K3, K5 and K6. The forms are the GEMM's, and "attn_f32_streamed"
+    / "attn_bwd_f32_streamed": the launches of the fp32 attention core's
+    streamed instance (K1, rows 10, 11) and of K5 fp32's streamed
+    backward passes (K5, `attn_bwd_f32`)."""
     from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops.attention import attn_f32_streamed_launches
+    from stswincl_tpu_torch.ops.block_attention import (
+        attn_bwd_f32_streamed_launches)
     forms = gemm_ops.launch_counts()
+    forms["attn_f32_streamed"] = attn_f32_streamed_launches()
+    forms["attn_bwd_f32_streamed"] = attn_bwd_f32_streamed_launches()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     for k, fs in GEMM_ROWS.items():
         if k in counts:
@@ -1768,6 +1782,13 @@ def main() -> None:
     print(f"phase 2j swin_dim 96 and 64 served and trained: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 2k: fp32 past the resident pair ---------------------------
+    t0 = time.perf_counter()
+    phase_f32_streamed(dev, smi, wrappers, launches, results, median_ms)
+    print(f"phase 2k fp32 attention past the resident pair, num_heads=2 and "
+          f"swin_dim=768 in fp32: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
@@ -1952,6 +1973,21 @@ def main() -> None:
              "attention core (fp32_attention.cuh), K2's fp32 LN order; "
              "each case's pair_ms is the fp32 K1 + K2 pair on its inputs")):
         next(r for r in rows if r["name"] == name)["design"] = design
+    core = ("one launch; fp32_attention.cuh: attn32::pairs (the resident "
+            "pair) where q, k and v fit a block, else attn32::pairs_streamed"
+            " (a ring of 32-column q / k and 64-column v chunks) for the "
+            "rest of K1's bf16 windows")
+    for name, inst in (
+            ("swin_block_attention_f32", core),
+            ("windowed_attention_image_f32", core),
+            ("fused_window_attention_f32", core),
+            ("swin_block_attention_bwd_f32", "fp32_attention_bwd.cuh: "
+             "q_kernel + kv_kernel (resident) where they fit, else qs_kernel "
+             "+ kvs_kernel (streamed: hd in chunks, P and dS through a "
+             "workspace)")):
+        row = next(r for r in rows if r["name"] == name)
+        row["instances"] = inst
+        row["streamed_launches"] = STREAMED_LAUNCHES
     row16["backward"] = results["whole_swin_block_bwd"]
     next(r for r in rows if r["name"] == "patch_merge")["backward"] = k3_bwd
     for r in rows:  # rows 12 and 17: measured yardsticks, not library
@@ -2256,6 +2292,8 @@ ENVELOPE_MODELS = {
     "num_heads=2": (dict(num_heads=2), "bfloat16"),      # hd 256 / 512
     "swin_dim=384": (dict(swin_dim=384), "bfloat16"),     # C 384 / 768
     "swin_dim=384 fp32": (dict(swin_dim=384), "float32"),
+    # past the fp32 resident pair: the streamed instances (phase 2k)
+    "num_heads=2 fp32": (dict(num_heads=2), "float32"),
 }
 ENVELOPE_STEPS = 3
 
@@ -2386,6 +2424,8 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
     from stswincl_tpu_torch.models.aspp import ConvBNRelu
     from stswincl_tpu_torch.models.swin import (PatchMerging,
                                                 SpaceTimeSwinBlock)
+    from stswincl_tpu_torch.ops.block_attention import (
+        _attn_f32_bwd_resident)
 
     imgs, lbls = seeded_batch(8, seed=3)
     images = torch.from_numpy(imgs).to(dev)
@@ -2396,13 +2436,19 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
         sfx = "_f32" if f32 else ""
         tag = f"[envelope {label}]"
         m = envelope_model(dev, cfg)
-        calls = {"block": 0, "merge": 0}
+        # "past": the block calls whose window is past K5 fp32's resident
+        # passes
+        calls = {"block": 0, "merge": 0, "past": 0}
 
         def count(mod, inputs, out):
             if isinstance(mod, PatchMerging):
                 calls["merge"] += 1
             elif isinstance(mod, SpaceTimeSwinBlock):
                 calls["block"] += 1
+                x = inputs[0]
+                calls["past"] += not _attn_f32_bwd_resident(
+                    x.shape[1] * mod.window_size ** 2,
+                    x.shape[-1] // mod.num_heads)
         hook = torch.nn.modules.module.register_module_forward_hook(count)
         reset_launches(wrappers)
         torch.cuda.reset_peak_memory_stats()
@@ -2412,6 +2458,18 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
         finally:
             hook.remove()
         counts, forms = read_launches(wrappers)
+        # K5 fp32's streamed attention backward: exactly once for each
+        # block call whose window is past its resident passes
+        streamed_b = forms["attn_bwd_f32_streamed"]
+        if f32:
+            STREAMED_LAUNCHES[f"envelope {label}: backward in "
+                              f"{ENVELOPE_STEPS} steps"] = streamed_b
+            print(f"  {tag} K5 fp32's streamed backward ran {streamed_b} "
+                  f"times for {calls['past']} block calls past its "
+                  "resident passes", flush=True)
+            check(streamed_b == calls["past"], f"{tag}: the streamed "
+                  f"backward ran {streamed_b} times for {calls['past']} "
+                  "block calls past the resident passes")
         launches[f"envelope {label}"] = counts
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         zero_grad = {f"{n}.conv.bias" for n, mod in m.named_modules()
@@ -2695,7 +2753,22 @@ def phase_widths_kernels(dev, results, median_ms) -> None:
                      [("without the mask", lambda: (
                          attn_ops.attend_tiled(q, k, v, rbias, None, sc),))],
                      peak, counter=r11)
-                del x, qkv, q, k, v
+                # row 11's library yardstick: SDPA in the same dtype, bias
+                # + the window's mask its additive mask, the windows
+                # regrouped so that it broadcasts over the images; timed
+                # only, the port never calls it
+                nW = mask.shape[0]
+                qs, ks, vs = (t.reshape(-1, nW * heads, TN, hd)
+                              for t in (q, k, v))
+                am = (mask[:, None] + rbias[None]).reshape(
+                    1, nW * heads, TN, TN).to(dtype)
+                row = results[r11.__name__][-1]
+                row["library_ms"] = median_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=am, scale=sc), reps=5)
+                print(f"  {'':24s} {label} SDPA in {dtype}: "
+                      f"{row['library_ms']:.3f} ms", flush=True)
+                del x, qkv, q, k, v, qs, ks, vs, am
                 torch.cuda.empty_cache()
         if bf:  # K5's two passes at a head dim off 16
             shape, heads, ws = WIDTH_TWO_PASS
@@ -2738,20 +2811,52 @@ WIDTH_SERVE_STEPS = 8
 
 def phase_widths_models(dev, smi, wrappers, launches) -> None:
     """Phase 2j: each of WIDTH_MODELS (`ModelConfig(swin_dim=96)` and
-    `(swin_dim=64)`, 4 heads: hd 24 / 48 and 16 / 32) built by
-    `pipelines.build_model` on 'pallas_full' from seeded weights (BatchNorm
-    calibrated on the first clip) serves through `StreamingSegmenter` at
-    512x640 -> 1024x1280, bs 2: `init_and_predict`, then
-    WIDTH_SERVE_STEPS `predict_next`s, each launching K1, K2, K3 and K4 as
-    often as the default model's route does (SERVE_STEP) and nothing of
-    the other dtype; its predictions the plain route's (`kernels=False`,
-    same weights) on >= TOL_PLAIN_SHARE of pixels each frame; ms a
-    `predict_next` (median after the first). `whole_block=True` at
+    `(swin_dim=64)`, 4 heads: hd 24 / 48 and 16 / 32) served by
+    `serve_models` (bs 2, its predictions the plain route's on >=
+    TOL_PLAIN_SHARE of pixels each frame). `whole_block=True` at
     `swin_dim` 96 (row 16 keeps C % 128) is refused with its message
     before any kernel launches. Then `phase_config_train` on the same
     configurations: ENVELOPE_STEPS stage-1 steps at batch 8, finite
     losses, exact launches, ms/step, peak memory, the first step's
     gradients gated as phase 2h gates them."""
+    import torch
+    from stswincl_tpu_torch.models import TswinPlus
+
+    serve_models(dev, smi, wrappers, launches, WIDTH_MODELS,
+                 TOL_PLAIN_SHARE)
+    # row 16 keeps C % 128: `whole_block` at swin_dim 96 is refused with
+    # its message before any of the port's kernels runs
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.rand((BS, 4, H, W, 3), generator=gen, device=dev) * 2 - 1
+    m = TswinPlus(12, swin_dim=96, dtype=torch.bfloat16, input_hw=(H, W),
+                  whole_block=True).to(dev).eval()
+    reset_launches(wrappers)
+    refused = ""
+    try:
+        with torch.no_grad():
+            m(frames)
+    except ValueError as e:
+        refused = str(e)
+    ran = {k: n for k, n in read_launches(wrappers)[0].items() if n}
+    print(f"  [whole_block swin_dim=96] refused: {refused!r}; port kernels "
+          f"launched {ran}", flush=True)
+    check("C % 128" in refused and not ran, "whole_block at swin_dim 96: "
+          f"refusal {refused!r}, launches {ran}")
+    del m
+    phase_config_train(dev, smi, wrappers, launches, WIDTH_MODELS)
+
+
+def serve_models(dev, smi, wrappers, launches, models, share) -> dict:
+    """Each of `models` (label -> (ModelConfig fields, dtype)) built by
+    `pipelines.build_model` on 'pallas_full' from seeded weights
+    (BatchNorm calibrated on the first clip) serves through
+    `StreamingSegmenter` at 512x640 -> 1024x1280, bs 2: `init_and_predict`,
+    then WIDTH_SERVE_STEPS `predict_next`s, each launching K1, K2, K3 and
+    K4 as often as the default model's route does (SERVE_STEP) and nothing
+    of the other dtype; its predictions the plain route's (`kernels=False`,
+    same weights) on >= `share` of pixels each frame; ms a `predict_next`
+    (median after the first). Returns, by label, the launches of the fp32
+    core's streamed instance a `predict_next`."""
     import torch
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
@@ -2763,7 +2868,8 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
     gen = torch.Generator(device=dev).manual_seed(6)
     frames = torch.rand((BS, 4 + WIDTH_SERVE_STEPS, H, W, 3), generator=gen,
                         device=dev) * 2 - 1
-    for label, (fields, dtype) in WIDTH_MODELS.items():
+    streamed = {}
+    for label, (fields, dtype) in models.items():
         f32 = dtype == "float32"
         sfx = "_f32" if f32 else ""
         tag = f"[serve {label}]"
@@ -2785,7 +2891,7 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
             seg = StreamingSegmenter(m, out_hw=OUT_HW)
             reset_launches(wrappers)
             cache, pred = seg.init_and_predict(frames[:, 0:4])
-            before = read_launches(wrappers)[0]
+            before, forms0 = read_launches(wrappers)
             preds, secs = [pred], []
             for i in range(4, 4 + WIDTH_SERVE_STEPS):
                 ts = time.perf_counter()
@@ -2793,14 +2899,17 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - ts)
                 preds.append(pred)
-            launches[path] = read_launches(wrappers)[0]
+            launches[path], forms = read_launches(wrappers)
             per = {k: (n - before[k]) / WIDTH_SERVE_STEPS
                    for k, n in launches[path].items()}
-            return preds, per, 1e3 * statistics.median(secs[1:])
+            per_s = (forms["attn_f32_streamed"]
+                     - forms0["attn_f32_streamed"]) / WIDTH_SERVE_STEPS
+            return preds, per, 1e3 * statistics.median(secs[1:]), per_s
 
-        preds, per, ms = drive(model, f"serve {label}")
-        plain_preds, plain_per, plain_ms = drive(plain,
-                                                 f"serve {label} plain")
+        preds, per, ms, per_s = drive(model, f"serve {label}")
+        plain_preds, plain_per, plain_ms, _ = drive(plain,
+                                                    f"serve {label} plain")
+        streamed[label] = per_s
         shares = [(a == b).float().mean().item()
                   for a, b in zip(preds, plain_preds)]
         print(f"  {tag} C {cfg.model.swin_dim} / {2 * cfg.model.swin_dim}, "
@@ -2810,10 +2919,11 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
               f"median of {WIDTH_SERVE_STEPS - 1}) at bs {BS}; kernel "
               f"route == plain route on min {min(shares):.6f} of pixels "
               f"over {len(shares)} frames; launches a predict_next "
-              f"{ {k: v for k, v in per.items() if v} } on {smi}",
+              f"{ {k: v for k, v in per.items() if v} }, of them "
+              f"{per_s} on the fp32 core's streamed instance, on {smi}",
               flush=True)
-        check(min(shares) >= TOL_PLAIN_SHARE, f"{tag}: kernel vs plain "
-              f"route {min(shares)} < {TOL_PLAIN_SHARE}")
+        check(min(shares) >= share, f"{tag}: kernel vs plain "
+              f"route {min(shares)} < {share}")
         check(sum(plain_per.values()) == 0, f"{tag}: the plain route "
               f"launched {plain_per}")
         for p_ in preds:
@@ -2832,24 +2942,344 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
                   f"{tag}: {k} launched {n} times a predict_next")
         del model, plain, preds, plain_preds
         torch.cuda.empty_cache()
-    # row 16 keeps C % 128: `whole_block` at swin_dim 96 is refused with
-    # its message before any of the port's kernels runs
-    m = TswinPlus(12, swin_dim=96, dtype=torch.bfloat16, input_hw=(H, W),
-                  whole_block=True).to(dev).eval()
-    reset_launches(wrappers)
+    return streamed
+
+
+# Phase 2k: the fp32 attention forms past the resident pair, at the
+# windows K1's bf16 form takes and the fp32 resident instances do not
+# (label: x's shape (B, T, H, W, C), heads, ws): head dims 152-288 at TN
+# 128 (`swin_dim` 608 / 768 / 1152 over 4 heads, 512 over 2:
+# `ModelConfig(num_heads=2)`'s stage 1 at its serving batch), TN 144 (ws 6,
+# T 4; the backward streams past 128 tokens), TN 176 at hd 208 (K1's
+# widest window at its widest head dim), and TN 32 at hd 384-1200 (the
+# stage-2 windows of those models; the forward keeps its resident pair to
+# hd 600, the backward streams past 256)
+F32_STREAMED = {
+    "TN128 hd152": ((4, 2, 64, 80, 608), 4, 8),
+    "TN128 hd192": ((4, 2, 64, 80, 768), 4, 8),
+    "TN128 hd256": ((4, 2, 64, 80, 512), 2, 8),
+    "TN128 hd288": ((2, 2, 64, 80, 1152), 4, 8),
+    "TN144 hd64": ((4, 4, 48, 60, 256), 4, 6),
+    "TN176 hd208": ((1, 11, 32, 40, 1664), 8, 4),
+    "TN32 hd384": ((4, 2, 32, 40, 1536), 4, 4),
+    "TN32 hd512": ((4, 2, 32, 40, 1024), 2, 4),
+    "TN32 hd576": ((2, 2, 32, 40, 2304), 4, 4),
+    "TN32 hd1200": ((2, 2, 32, 40, 2400), 2, 4),
+}
+# (b) the models whose fp32 windows need the streamed instances: served at
+# bs 2 (`num_heads=2` also trains in phase 2h (c), ENVELOPE_MODELS), and
+# `swin_dim=768` stepped once at the largest of these batches that fits
+F32_STREAMED_MODELS = {
+    "num_heads=2 fp32": (dict(num_heads=2), "float32"),    # hd 256 / 512
+    "swin_dim=768 fp32": (dict(swin_dim=768), "float32"),  # hd 192 / 384
+}
+F32_STREAMED_STEP_BATCHES = (8, 4, 2)
+STREAMED_LAUNCHES = {}  # path -> the streamed instances' launches
+
+
+def phase_f32_streamed(dev, smi, wrappers, launches, results,
+                       median_ms) -> None:
+    """Phase 2k: (a) at every F32_STREAMED window, K1's fp32 form (W-MSA
+    and SW-MSA), rows 10's and 11's fp32 forms (masked), K5 fp32's
+    attention backward alone (`attn_bwd_f32`, masked) and K5's fp32 form
+    (shifted) against their fp32 twins with TF32 off, every output within
+    TOL_F32_REL, bit-equal call to call, one launch of the form a call,
+    the twin with its products on TF32 missing the bound tenfold on every
+    output (K5's dbproj, g's column sums, reached by no product, excepted;
+    its twin runs under `tf32_products`, the others on TF32 operands), and
+    the library's streamed instances launched exactly where the plans
+    (`_attn_f32_smem_bytes`, `_attn_f32_bwd_resident`) put the window past
+    the resident ones. Each timed (CUDA events) beside its twin, its bound
+    (3xTF32 rate or bytes) and SDPA in fp32 (its forward for the forward
+    forms, its memory-efficient backward with the bias gradient for the
+    backward ones: yardsticks the port never calls). (b) The models of
+    F32_STREAMED_MODELS served by `serve_models` at >= TOL_F32_SHARE of the
+    plain route's pixels, and `swin_dim=768` fp32 stepped once through
+    `SegTrainStep` at the largest batch of F32_STREAMED_STEP_BATCHES that
+    fits: finite loss and gradients, K1, K2, K5 and K6's fp32 forms once a
+    block call, the streamed backward launched; its batch and peak memory
+    printed. Windows outside K1's bf16 envelope are refused with
+    ValueError before any launch."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.configs import ModelConfig, SegTrainConfig
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops.attention import (
+        _attn_f32_resident_bytes, _attn_f32_smem_bytes, attend_tiled,
+        fused_window_attention_f32)
+    from stswincl_tpu_torch.ops.gemm import window_rows
+    from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                               shifted_window_attention_mask)
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(*shape, fan_in, gain=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5)
+
+    def hold(kname, case, form, names, kfn, pfn, bad, work, library=None,
+             exempt=()):
+        """kfn() (a launch of `form` a call, twice: bit-equal) against
+        pfn() on every output within TOL_F32_REL; bad() (the twin on
+        TF32) tenfold out on every output but `exempt`; timed beside the
+        twin, the bound of `work` and `library`."""
+        n = form.launches
+        got = kfn()
+        again = kfn()
+        torch.cuda.synchronize()
+        check(form.launches == n + 2, f"{kname} {case}: "
+              f"{form.launches - n} launches of the form in two calls")
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = pfn()
+        fault = bad()
+        outs = {}
+        for name, a, w, b in zip(names, got, want, fault):
+            rel, moved = rel_err(a, w), rel_err(b, w)
+            outs[name] = {"rel_err": rel, "tf32_fault": moved,
+                          "max_abs_err": (a - w).abs().max().item()}
+            check(rel <= TOL_F32_REL, f"{kname} {case} {name}: relative "
+                  f"error {rel} > {TOL_F32_REL}")
+            if name not in exempt:
+                check(moved > 10 * TOL_F32_REL, f"{kname} {case} {name}: "
+                      f"the twin on TF32 moves by only {moved}")
+        check(bit, f"{kname} {case}: two calls on the same inputs differ")
+        del got, want, fault
+        torch.cuda.empty_cache()
+        row = {"case": case, "outputs": outs, "bit_equal": bit,
+               "max_abs_err": max(o["max_abs_err"] for o in outs.values()),
+               "rel_err": max(o["rel_err"] for o in outs.values()),
+               "ms": median_ms(kfn, reps=5),
+               "plain_ms": median_ms(pfn, reps=3),
+               "library_ms": None, **f32_bound(*work)}
+        lib = ""
+        if callable(library):
+            row["library_ms"] = median_ms(library, reps=5)
+            lib = f" SDPA {row['library_ms']:.3f} ms"
+        elif library:
+            lib = f" SDPA {library}"
+        results.setdefault(kname, []).append(row)
+        print(f"  {kname:30s} {case:44s} worst rel "
+              f"{row['rel_err']:.2e}, TF32 fault min "
+              f"{min(o['tf32_fault'] for n, o in outs.items() if n not in exempt) / TOL_F32_REL:.0f}x,"
+              f" bit-equal {bit}; {row['ms']:.3f} ms, twin "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.2f} of "
+              f"it){lib}", flush=True)
+        return row
+
+    for label, (shape, heads, ws) in F32_STREAMED.items():
+        B, T, h, w, C = shape
+        TN, hd = T * ws * ws, C // heads
+        R, shift, scale = B * T * h * w, ws // 2, (C // heads) ** -0.5
+        fwd_streamed = _attn_f32_smem_bytes(TN, hd) != \
+            _attn_f32_resident_bytes(TN, hd)
+        bwd_streamed = not att._attn_f32_bwd_resident(TN, hd)
+        print(f"  [2k {label}] x {shape}, {heads} heads: forward "
+              f"{'streamed' if fwd_streamed else 'resident'} "
+              f"({_attn_f32_smem_bytes(TN, hd)} B), backward "
+              f"{'streamed' if bwd_streamed else 'resident'} "
+              f"({att._attn_f32_bwd_smem_bytes(TN, hd)} B) on {smi}",
+              flush=True)
+        x, g = randn(B, T, h, w, C), randn(B, T, h, w, C)
+        wq, bq = uniform(3 * C, C, fan_in=C, gain=3.0), uniform(3 * C,
+                                                               fan_in=C)
+        wp, bp = uniform(C, C, fan_in=C, gain=2.0), uniform(C, fan_in=C)
+        bias = randn(heads, TN, TN)
+        mask = torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, shift)).repeat(1, T, T).to(dev)
+        tables = (heads * TN * TN + mask.numel()) * 4
+        reset_launches(wrappers)
+
+        # ---- K1's fp32 form, W-MSA and SW-MSA ----
+        for sh in (0, shift):
+            m = mask if sh else None
+            a1 = (x, wq, bq, wp, bp, bias, m, heads, scale, ws, sh)
+            hold("swin_block_attention_f32",
+                 f"2k {label} {shape} shift={sh}",
+                 att.swin_block_attention_f32, ("out",),
+                 lambda a=a1: (att.swin_block_attention_f32(*a),),
+                 lambda a=a1: (att.swin_block_attention_ref(*a),),
+                 lambda a=a1: (block_attention_tf32(*a),),
+                 block_attention_work(x, heads, TN, m))
+        # ---- rows 10 and 11, masked; SDPA's fp32 forward beside them ----
+        qkv_img = randn(B, T, h, w, 3 * C, scale=2.0)
+        q, k, v = partition_qkv(qkv_img, heads, ws).contiguous()
+        nW = mask.shape[0]
+        qs, ks, vs = (t.reshape(-1, nW * heads, TN, hd) for t in (q, k, v))
+        am = (mask[:, None] + bias[None]).reshape(1, nW * heads, TN, TN)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                                  scale=scale)
+        awork = attention_work(R, C, TN, heads, mask, 4)
+        a10 = (bias, mask, heads, scale, ws)
+        hold("windowed_attention_image_f32", f"2k {label} masked",
+             att.windowed_attention_image_f32, ("out",),
+             lambda: (att.windowed_attention_image_f32(qkv_img, *a10),),
+             lambda: (att.windowed_attention_image_ref(qkv_img, *a10),),
+             lambda: (image_attention_fault(qkv_img, *a10, operands=tf32),),
+             awork)
+        a11 = (bias, mask, scale)
+        hold("fused_window_attention_f32", f"2k {label} masked",
+             fused_window_attention_f32, ("out",),
+             lambda: (fused_window_attention_f32(q, k, v, *a11),),
+             lambda: (attend_tiled(q, k, v, *a11),),
+             lambda: (attend_fault(q, k, v, *a11, operands=tf32),),
+             awork, sdpa)
+        del qkv_img, q, k, v, qs, ks, vs, am
+        torch.cuda.empty_cache()
+
+        # ---- K5 fp32's attention backward alone, then K5's fp32 form ----
+        with torch.no_grad():
+            _, qkv, attn = att._forward_f32(x, wq, bq, wp, bp, bias, mask,
+                                            heads, scale, ws, shift)
+            dattn = g.reshape(R, C)[window_rows(R, (T, h, w, ws, 0),
+                                                dev)] @ wp
+        args = (qkv, dattn, bias, mask, heads, scale, TN)
+        lib = sdpa_bwd_yardstick(*args)
+
+        def split(r):
+            return (r[0][:, :C], r[0][:, C:2 * C], r[0][:, 2 * C:], r[1])
+        hold("attn_bwd_f32", f"2k {label} masked", att.attn_bwd_f32,
+             ("dq", "dk", "dv", "dbias"),
+             lambda: split(att.attn_bwd_f32(*args)),
+             lambda: split(att.attn_bwd_f32_ref(*args)),
+             lambda: split(attn_bwd_tf32(*args)),
+             (10 * R * TN * C, (7 * R * C + 2 * heads * TN * TN
+                                + mask.numel()) * 4), lib)
+        del lib
+        kargs = (x, g, qkv, attn, wq, wp, bias, mask, heads, scale, ws,
+                 shift)
+
+        def k5_twin(a=(x, wq, bq, wp, bp, bias, mask, g)):
+            return att.swin_block_attention_bwd_ref(*a[:7], a[7], heads,
+                                                    scale, ws, shift)
+
+        def k5_twin_tf32():
+            with tf32_products():
+                return k5_twin()
+        hold("swin_block_attention_bwd_f32", f"2k {label} {shape} "
+             f"shift={shift}", att.swin_block_attention_bwd_f32,
+             ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"),
+             lambda: att.swin_block_attention_bwd_f32(*kargs), k5_twin,
+             k5_twin_tf32,
+             (16 * R * C * C + 10 * R * TN * C,
+              (7 * R * C + 4 * C * C + 4 * C + 2 * heads * TN * TN
+               + mask.numel()) * 4), exempt=("dbproj",))
+        forms = read_launches(wrappers)[1]
+        fwd_n, bwd_n = (forms["attn_f32_streamed"],
+                        forms["attn_bwd_f32_streamed"])
+        # K1 twice in each of two shifts and five timed runs after two
+        # warm-ups: 2 x (2 + 7); rows 10 and 11: 9 each; the backward
+        # alone and inside K5: 9 each
+        want_f = 36 if fwd_streamed else 0
+        want_b = 18 if bwd_streamed else 0
+        # K5's forward scratch above runs K1 once more
+        want_f += 1 if fwd_streamed else 0
+        print(f"  [2k {label}] streamed launches: forward {fwd_n} "
+              f"(expected {want_f}), backward {bwd_n} (expected "
+              f"{want_b}); P and dS {2 * R * heads * TN * 4 / 2 ** 20:.1f} "
+              f"MiB", flush=True)
+        check(fwd_n == want_f and bwd_n == want_b,
+              f"2k {label}: streamed launches {fwd_n} / {bwd_n}, expected "
+              f"{want_f} / {want_b}")
+        del x, g, qkv, attn, dattn, args, kargs
+        torch.cuda.empty_cache()
+
+    # refused before any launch: past K1's bf16 envelope (hd 296 at TN 128)
+    n0 = att.swin_block_attention_f32.launches
     refused = ""
     try:
-        with torch.no_grad():
-            m(frames[:, 0:4])
+        x = torch.empty((1, 2, 8, 8, 592), device=dev)
+        att.swin_block_attention_f32(
+            x, torch.empty((1776, 592), device=dev),
+            torch.empty(1776, device=dev), torch.empty((592, 592), device=dev),
+            torch.empty(592, device=dev), torch.empty((2, 128, 128),
+                                                      device=dev),
+            None, 2, 0.1, 8)
     except ValueError as e:
         refused = str(e)
-    ran = {k: n for k, n in read_launches(wrappers)[0].items() if n}
-    print(f"  [whole_block swin_dim=96] refused: {refused!r}; port kernels "
-          f"launched {ran}", flush=True)
-    check("C % 128" in refused and not ran, "whole_block at swin_dim 96: "
-          f"refusal {refused!r}, launches {ran}")
-    del m
-    phase_config_train(dev, smi, wrappers, launches, WIDTH_MODELS)
+    print(f"  [2k refused] TN 128 x hd 296: {refused!r}", flush=True)
+    check(bool(refused) and att.swin_block_attention_f32.launches == n0,
+          f"2k: hd 296 at TN 128 not refused before a launch ({refused!r})")
+    print(f"phase 2k (a) the fp32 forms past the resident pair: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- (b) the models ----
+    t_b = time.perf_counter()
+    per = serve_models(dev, smi, wrappers, launches, F32_STREAMED_MODELS,
+                       TOL_F32_SHARE)
+    for label, n in per.items():
+        STREAMED_LAUNCHES[f"serve {label}: forward a predict_next"] = n
+        check(n > 0, f"[serve {label}]: the streamed forward never ran")
+    label = "swin_dim=768 fp32"
+    fields, dtype = F32_STREAMED_MODELS[label]
+    cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
+    tag = f"[step {label}]"
+    imgs, lbls = seeded_batch(max(F32_STREAMED_STEP_BATCHES), seed=3)
+    done = None
+    for batch in F32_STREAMED_STEP_BATCHES:
+        images = torch.from_numpy(imgs[:batch]).to(dev)
+        labels = torch.from_numpy(lbls[:batch]).to(dev).long()
+        m = envelope_model(dev, cfg)
+        calls = {"block": 0}
+
+        def count(mod, inputs, out):
+            if isinstance(mod, SpaceTimeSwinBlock):
+                calls["block"] += 1
+        hook = torch.nn.modules.module.register_module_forward_hook(count)
+        reset_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            losses, grads, secs = envelope_steps(cfg, m, 1, images, labels)
+            done = batch
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"  {tag} batch {batch} does not fit: "
+                  f"{str(e).splitlines()[0][:120]}", flush=True)
+        finally:
+            hook.remove()
+        if done is None:
+            del m, images, labels
+            torch.cuda.empty_cache()
+            continue
+        counts, forms = read_launches(wrappers)
+        launches[f"step {label}"] = counts
+        fwd_n, bwd_n = (forms["attn_f32_streamed"],
+                        forms["attn_bwd_f32_streamed"])
+        STREAMED_LAUNCHES[f"step {label} at batch {batch}: forward, "
+                          "backward"] = (fwd_n, bwd_n)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+        print(f"  {tag} the largest batch that fits: {batch} (of "
+              f"{F32_STREAMED_STEP_BATCHES}); loss {losses[0]:.6f}, "
+              f"{len(grads)} gradients finite {finite}, "
+              f"{1e3 * secs[0]:.1f} ms the step, peak {peak:.2f} GiB, "
+              f"{calls['block']} block calls, streamed launches forward "
+              f"{fwd_n} backward {bwd_n}, on {smi}",
+              flush=True)
+        check(math.isfinite(losses[0]) and finite, f"{tag}: loss "
+              f"{losses[0]}, gradients finite {finite}")
+        for k in ("swin_block_attention_f32", "swin_block_epilogue_f32",
+                  "swin_block_attention_bwd_f32",
+                  "swin_block_epilogue_bwd_f32"):
+            check(counts[k] == calls["block"], f"{tag}: {k} launched "
+                  f"{counts[k]} times for {calls['block']} block calls")
+        check(bwd_n == calls["block"], f"{tag}: the streamed "
+              f"backward ran {bwd_n} times for {calls['block']} "
+              "block calls")
+        del m, grads, images, labels
+        torch.cuda.empty_cache()
+        break
+    check(done is not None, f"{tag}: no batch of "
+          f"{F32_STREAMED_STEP_BATCHES} fits")
+    print(f"phase 2k (b) the models: {time.perf_counter() - t_b:.1f} s",
+          flush=True)
 
 
 def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):

@@ -62,9 +62,36 @@
 // (dO) of TN 128 x hd 128 take 198 KB (one block, 8 warps an SM); the
 // next window's v and q load behind this one's dbias and dq, its k behind
 // the barrier after dq.
+//
+// Past that window (a head dim past 128, or 256 to 32 tokens; windows past
+// 128 tokens) the window's q, k, v and dO no longer fit a block, and the
+// backward streams them instead (`qs_kernel`, `kvs_kernel`): the same
+// windows as K1's fp32 core (`attn32::takes`), through the forward's
+// streamed ring. Bound there: the five products and the seven tensors'
+// bytes as above, plus P and dS of every pair written once by the query
+// pass and read once by the key pass (4 TN^2 floats a pair).
+//   a'. the query pass (`qs_kernel`): blocks as in pass a, persistent over
+//      the windows of one head, each warp its 16 query rows. Every tensor
+//      streams through `attn32`'s ring of RING slots, one chunk a slot:
+//      q and k in chunks of SC columns (S = q k^T summed over the chunks'
+//      k steps in order d = 0 .. hd into the score registers), the
+//      softmax, P written to the workspace, then dO and v in the same
+//      chunks (dP = dO v^T into the same registers; P read back for D and
+//      dS = P (dP - D)), dS written beside P and added to the block's
+//      dbias partial, then k again in chunks of VC columns for dq = dS k
+//      (dS the A fragment from the registers). One score tile of
+//      registers lives at a time, so TN 176 (22 key tiles, 11 warps)
+//      fits a thread's share of the register file.
+//   b'. the key pass (`kvs_kernel`): a block a (window, head) and KC
+//      columns of hd, each warp 16 keys; P, dS, q and dO stream through a
+//      ring of QC-query chunks (P and dS whole rows of the window, q and
+//      dO the block's columns), and dv += P^T dO, dk += dS^T q with P^T
+//      and dS^T read as A fragments straight from the chunk. No sum over
+//      hd: any head dim fits.
 #pragma once
 
 #include "common.cuh"
+#include "fp32_attention.cuh"
 #include "tf32x3.cuh"
 
 namespace attn32b {
@@ -74,6 +101,9 @@ constexpr int QT = QC / 8;  // its 8-query tiles
 constexpr int HC = 128;     // columns of dk and dv a key-pass warp holds
 constexpr int SMS = 132;    // the H100's SMs: the query pass's grid
 constexpr int SM_SMEM = 233472;  // shared memory of an SM
+constexpr int KC = 64;      // columns of hd a streamed key-pass block holds
+constexpr int KLD = KC + 8;  // rows of its q and dO chunks
+constexpr int KRING = 3;    // its ring of QC-query chunks
 
 // the key pass's ring: three chunks past 32 queries, else two
 __host__ __device__ inline int ring_stages(int TN) {
@@ -81,6 +111,16 @@ __host__ __device__ inline int ring_stages(int TN) {
 }
 // warps a key group of the key pass: one a 128 columns of hd
 __host__ __device__ inline int col_splits(int hd) { return (hd + HC - 1) / HC; }
+
+// Whether a window runs the resident passes (a and b): 16-token tiles up
+// to 128 (the query pass's score tile is 16 key tiles of 8 at most) and
+// head dims of 8 up to 256 at TN <= 32 and 128 beyond (the key pass's dk
+// and dv accumulators: 128 columns a warp, two warps a key group past 128).
+// The rest of `attn32::takes` streams (a' and b').
+__host__ __device__ inline bool resident(int TN, int hd) {
+  return TN > 0 && TN % 16 == 0 && TN <= 128 && hd > 0 && hd % 8 == 0 &&
+         hd <= (TN <= 32 ? 256 : 128);
+}
 
 // Shared memory (`_attn_f32_bwd_smem_bytes` in ops/block_attention.py):
 // the query pass k, v and a q / dO region of TN rows; the key pass k, v
@@ -92,8 +132,21 @@ inline size_t kv_smem(int TN, int hd) {
   return (size_t(2) * TN + size_t(2) * QC * ring_stages(TN)) * (hd + 4) *
          sizeof(float);
 }
+// The streamed passes: the query pass the forward's ring; the key pass
+// KRING chunks of P and dS (QC rows of TN + 8 floats: 8 or 24 mod 32
+// words, so the transposed A fragment reads fall on distinct banks) and of
+// q and dO (QC rows of KLD).
+inline size_t qs_smem(int TN) { return attn32::streamed_bytes(TN); }
+__host__ __device__ inline int kvs_stage(int TN) {
+  return 2 * QC * (TN + 8) + 2 * QC * KLD;
+}
+inline size_t kvs_smem(int TN) {
+  return size_t(KRING) * kvs_stage(TN) * sizeof(float);
+}
+// The window's plan: the larger of its two passes' shared memory.
 inline size_t smem_bytes(int TN, int hd) {
-  const size_t a = q_smem(TN, hd), b = kv_smem(TN, hd);
+  const size_t a = resident(TN, hd) ? q_smem(TN, hd) : qs_smem(TN);
+  const size_t b = resident(TN, hd) ? kv_smem(TN, hd) : kvs_smem(TN);
   return a > b ? a : b;
 }
 
@@ -104,7 +157,8 @@ inline size_t smem_bytes(int TN, int hd) {
 inline int q_blocks_per_sm(int TN, int hd) {
   const int warps = TN / 16;
   const int by_warps = (TN > 64 ? 8 : 16) / warps;
-  const int by_smem = SM_SMEM / int(q_smem(TN, hd) + 1024);
+  const size_t bytes = resident(TN, hd) ? q_smem(TN, hd) : qs_smem(TN);
+  const int by_smem = SM_SMEM / int(bytes + 1024);
   const int b = by_warps < by_smem ? by_warps : by_smem;
   return b < 1 ? 1 : b;
 }
@@ -484,6 +538,272 @@ __global__ void __launch_bounds__(256) kv_kernel(
   float* d0 = dqkv + ((long long)bw * TN + k0 + g) * C3 + h * hd + cb + 2 * tq;
 #pragma unroll
   for (int n = 0; n < CT; ++n) {
+    if (8 * n < ncols) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float* d = d0 + hh * 8 * C3 + 8 * n;
+        *reinterpret_cast<float2*>(d + C) =
+            make_float2(dk[n][2 * hh] * scale, dk[n][2 * hh + 1] * scale);
+        *reinterpret_cast<float2*>(d + 2 * C) =
+            make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// Pass a'. Grid (per_head, heads), TN / 16 warps; NT >= TN / 8. qkv, dqkv:
+// window-order rows of 3C; dO: rows of C; pw, dsw: (windows, heads, TN,
+// TN) P and dS; dbias_part: (per_head, heads, TN, TN). Writes dq (scaled).
+template <int NT>
+__global__ void __launch_bounds__(NT * 16) qs_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ dO,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    int n_mask, float* __restrict__ dqkv, float* pw, float* dsw,
+    float* __restrict__ dbias_part, int n_windows, int per_block, int heads,
+    int TN, int hd, int C, float scale) {
+  using attn32::RING;
+  using attn32::SC;
+  using attn32::SLD;
+  using attn32::SLOT;
+  using attn32::VC;
+  using attn32::VLD;
+  extern __shared__ __align__(16) float sm[];
+  const int nt = TN / 8, n32 = (hd + SC - 1) / SC;
+  const int per = 2 * n32 + (hd + VC - 1) / VC;
+  const int t = threadIdx.x, pt = blockDim.x, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3, q0 = (t >> 5) * 16;
+  const int h = blockIdx.y;
+  const long long C3 = 3LL * C;
+  const int w0 = blockIdx.x * per_block;
+  const int w1 = w0 + per_block < n_windows ? w0 + per_block : n_windows;
+  const int n_chunks = (w1 - w0) * per;
+  float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN +
+                (q0 + g) * TN + 2 * tq;
+  const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
+  // chunk c of the block's stream into its slot, then a commit (empty
+  // past the last): per window q | k in SC columns, then dO | v, then k
+  // in VC columns
+  const auto load = [&](int c) {
+    if (c < n_chunks) {
+      const int bw = w0 + c / per, r = c % per;
+      float* slot = sm + (c % RING) * TN * SLOT;
+      const float* win = qkv + (long long)bw * TN * C3 + h * hd;
+      if (r < 2 * n32) {
+        const int c0 = (r % n32) * SC, w = hd - c0 < SC ? hd - c0 : SC;
+        if (r < n32)
+          copy_rows(slot, SLD, win + c0, C3, TN, w, t, pt);
+        else
+          copy_rows(slot, SLD, dO + (long long)bw * TN * C + h * hd + c0, C,
+                    TN, w, t, pt);
+        copy_rows(slot + TN * SLD, SLD, win + (r < n32 ? C : 2 * C) + c0, C3,
+                  TN, w, t, pt);
+      } else {
+        const int c0 = (r - 2 * n32) * VC, w = hd - c0 < VC ? hd - c0 : VC;
+        copy_rows(slot, VLD, win + C + c0, C3, TN, w, t, pt);
+      }
+    }
+    commit();
+  };
+  for (int c = 0; c < RING - 1; ++c) load(c);
+
+  float acc[NT][4];  // S, then P; then dP, then dS
+  for (int c = 0; c < n_chunks; ++c) {
+    const int bw = w0 + c / per, r = c % per;
+    wait<RING - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with c - 1
+    load(c + RING - 1);  // into chunk c - 1's slot
+    const float* slot = sm + (c % RING) * TN * SLOT;
+    const long long pair = (long long)bw * heads + h;
+    float* pr = pw + (pair * TN + q0 + g) * TN + 2 * tq;
+    float* dr = dsw + (pair * TN + q0 + g) * TN + 2 * tq;
+
+    if (r < 2 * n32) {
+      // ---- S = q k^T, or dP = dO v^T: this chunk's k steps ----
+      const int rr = r % n32, w = hd - rr * SC < SC ? hd - rr * SC : SC;
+      if (rr == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      }
+      attn32::scores_add<NT>(acc, slot + q0 * SLD, slot + TN * SLD, SLD, w,
+                             nt, g, tq);
+      if (r == n32 - 1) {
+        // ---- the softmax in the registers; P to the workspace ----
+        attn32::softmax_rows<NT>(
+            acc, bias_r,
+            mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN +
+                       2 * tq
+                 : nullptr,
+            nt, TN, scale);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<float2*>(pr + hh * 8 * TN + 8 * j) =
+                  make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+          }
+        }
+      } else if (r == 2 * n32 - 1) {
+        // ---- D = sum dP P; dS = P (dP - D) over dP, P read back (this
+        // lane's own entries); dS to the workspace and the dbias partial
+        float D[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float2 p =
+                  *reinterpret_cast<const float2*>(pr + hh * 8 * TN + 8 * j);
+              D[hh] += acc[j][2 * hh] * p.x;
+              D[hh] += acc[j][2 * hh + 1] * p.y;
+            }
+          }
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          D[hh] += __shfl_xor_sync(0xffffffffu, D[hh], 1);
+          D[hh] += __shfl_xor_sync(0xffffffffu, D[hh], 2);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float2 p =
+                  *reinterpret_cast<const float2*>(pr + hh * 8 * TN + 8 * j);
+              float2 v = make_float2(p.x * (acc[j][2 * hh] - D[hh]),
+                                     p.y * (acc[j][2 * hh + 1] - D[hh]));
+              acc[j][2 * hh] = v.x;
+              acc[j][2 * hh + 1] = v.y;
+              *reinterpret_cast<float2*>(dr + hh * 8 * TN + 8 * j) = v;
+              float2* q = reinterpret_cast<float2*>(part + hh * 8 * TN + 8 * j);
+              if (bw > w0) {
+                const float2 o = *q;
+                v = make_float2(o.x + v.x, o.y + v.y);
+              }
+              *q = v;
+            }
+          }
+        }
+      }
+    } else {
+      // ---- dq = dS k * scale over this chunk's VC columns ----
+      const int c0 = (r - 2 * n32) * VC;
+      float o[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+      regs_rows<NT, 8, true>(o, acc, nt, slot, VLD,
+                             hd - c0 < VC ? hd - c0 : VC, g, tq);
+      float* d0 = dqkv + ((long long)bw * TN + q0 + g) * C3 + h * hd + c0 +
+                  2 * tq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (c0 + 8 * n < hd) {
+          *reinterpret_cast<float2*>(d0 + 8 * n) =
+              make_float2(o[n][0] * scale, o[n][1] * scale);
+          *reinterpret_cast<float2*>(d0 + 8 * C3 + 8 * n) =
+              make_float2(o[n][2] * scale, o[n][3] * scale);
+        }
+      }
+    }
+  }
+  wait<0>();
+}
+
+// Pass b'. One block a (window, head) and KC columns of hd (blockIdx.x =
+// pair * ceil(hd / KC) + column block), TN / 16 warps of 16 keys. pw, dsw
+// from pass a'; writes dk (scaled) and dv into dqkv.
+__global__ void __launch_bounds__(352) kvs_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ dO,
+    const float* __restrict__ pw, const float* __restrict__ dsw,
+    float* __restrict__ dqkv, int heads, int TN, int hd, int C,
+    float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ncb = (hd + KC - 1) / KC, pld = TN + 8, nch = TN / QC;
+  const int pair = blockIdx.x / ncb, cb = blockIdx.x - pair * ncb;
+  const int c0 = cb * KC, ncols = hd - c0 < KC ? hd - c0 : KC;
+  const int bw = pair / heads, h = pair - bw * heads;
+  const int t = threadIdx.x, pt = blockDim.x, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3, k0 = (t >> 5) * 16;
+  const long long C3 = 3LL * C, tt = (long long)TN * TN;
+  const int stage = kvs_stage(TN);
+  // chunk c (queries c QC ..) into its stage: P and dS rows, the block's
+  // columns of q and dO
+  const auto load = [&](int c) {
+    if (c < nch) {
+      const int i0 = c * QC;
+      float* st = sm + (c % KRING) * stage;
+      copy_rows(st, pld, pw + pair * tt + (long long)i0 * TN, TN, QC, TN, t,
+                pt);
+      copy_rows(st + QC * pld, pld, dsw + pair * tt + (long long)i0 * TN, TN,
+                QC, TN, t, pt);
+      const long long row = (long long)bw * TN + i0;
+      copy_rows(st + 2 * QC * pld, KLD, qkv + row * C3 + h * hd + c0, C3, QC,
+                ncols, t, pt);
+      copy_rows(st + 2 * QC * pld + QC * KLD, KLD, dO + row * C + h * hd + c0,
+                C, QC, ncols, t, pt);
+    }
+    commit();
+  };
+  for (int c = 0; c < KRING - 1; ++c) load(c);
+  float dv[8][4], dk[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.0f;
+
+  for (int c = 0; c < nch; ++c) {
+    wait<KRING - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with c - 1
+    load(c + KRING - 1);
+    const float* Pc = sm + (c % KRING) * stage;
+    const float* Sc = Pc + QC * pld;
+    const float* Qc = Sc + QC * pld;
+    const float* Oc = Qc + QC * KLD;
+#pragma unroll
+    for (int ks = 0; ks < QT; ++ks) {
+      // A: P^T and dS^T of the warp's keys (rows) by the k step's 8
+      // queries (columns); B: dO and q of those queries
+      const float* pa = Pc + (8 * ks + tq) * pld + k0 + g;
+      const float* sa = Sc + (8 * ks + tq) * pld + k0 + g;
+      tf32x3::FragA fp, fs;
+      fp.set(pa[0], pa[8], pa[4 * pld], pa[4 * pld + 8]);
+      fs.set(sa[0], sa[8], sa[4 * pld], sa[4 * pld + 8]);
+      const float* ob = Oc + (8 * ks + tq) * KLD + g;
+      const float* qb = Qc + (8 * ks + tq) * KLD + g;
+#pragma unroll
+      for (int n = 0; n < 8; n += 4) {
+        if (8 * (n + 4) <= ncols) {
+          tf32x3::FragB fb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            fb[u].set(ob[8 * (n + u)], ob[4 * KLD + 8 * (n + u)]);
+          tf32x3::mma3_add<4, 8>(dv, n, fp, fb);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            fb[u].set(qb[8 * (n + u)], qb[4 * KLD + 8 * (n + u)]);
+          tf32x3::mma3_add<4, 8>(dk, n, fs, fb);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (8 * (n + u) < ncols) {
+              tf32x3::FragB fb[1];
+              fb[0].set(ob[8 * (n + u)], ob[4 * KLD + 8 * (n + u)]);
+              tf32x3::mma3_add<1, 8>(dv, n + u, fp, fb);
+              fb[0].set(qb[8 * (n + u)], qb[4 * KLD + 8 * (n + u)]);
+              tf32x3::mma3_add<1, 8>(dk, n + u, fs, fb);
+            }
+          }
+        }
+      }
+    }
+  }
+  wait<0>();
+
+  float* d0 = dqkv + ((long long)bw * TN + k0 + g) * C3 + h * hd + c0 + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
     if (8 * n < ncols) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {

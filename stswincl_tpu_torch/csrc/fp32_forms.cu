@@ -104,6 +104,14 @@
 //     from the image-layout qkv through the window partition and scatters
 //     its output back to the image (no partitioned copy is formed); row 11
 //     reads the head-major tensors, window b taking mask b % n_mask.
+//     Where q, k and v of a pair do not fit the block (hd past 144 at TN
+//     128, past 104 at TN 176, past 600 at TN 32), the same blocks run
+//     the streamed pair (`attn32::pairs_streamed`): q and k in 32-column
+//     chunks, then v in 64-column chunks, one ring of three slots (864 TN
+//     bytes), two chunks in flight; the resident pair's products, each
+//     score summed over the same k steps in the same order. Bound as
+//     above: the same products and bytes; the chunks re-read nothing.
+//     Every window K1's bf16 core takes (`attn32::takes`), no other.
 //   - K2's and K3's row passes: a warp a row, fp32 in and out: K2's
 //     s = x + y read through the inverse cyclic shift and LN2(s), and
 //     LN1(s + m) after fc2 has added m into s (row 8: fc2 writes m, and
@@ -671,36 +679,60 @@ __global__ void __launch_bounds__(NT * 16, 1)
                     1, bias, mask, n_mask, TN, hd, scale);
 }
 
+// The same blocks over the streamed pair (`attn32::pairs_streamed`): the
+// windows whose q, k and v do not fit one block.
+template <int NT, class Addr>
+__global__ void __launch_bounds__(NT * 16, 1)
+    attn_f32_streamed_kernel(const Addr a, const float* __restrict__ bias,
+                             const float* __restrict__ mask, int n_mask,
+                             int heads, int total, int TN, int hd,
+                             float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attn32::pairs_streamed<NT>(a, blockIdx.x, total, gridDim.x, heads,
+                             reinterpret_cast<float*>(smem), threadIdx.x,
+                             blockDim.x, 1, bias, mask, n_mask, TN, hd,
+                             scale);
+}
+
+// launches of the streamed instance since the last reset
+// (`stswin_attn_f32_streamed_launches`)
+std::atomic<long long> attn_streamed_launches{0};
+
 template <int NT, class Addr>
 cudaError_t launch_attn(const Addr& a, int n_windows, int heads, int TN,
                         int hd, const float* bias, const float* mask,
                         int n_mask, float scale, cudaStream_t s) {
-  const size_t bytes = attn32::smem_bytes(TN, hd);
-  static int optins[MAX_DEVICES] = {};
+  const bool resident = attn32::resident(TN, hd);
+  const auto kernel = resident ? attn_f32_kernel<NT, Addr>
+                               : attn_f32_streamed_kernel<NT, Addr>;
+  const size_t bytes = attn32::plan_bytes(TN, hd);
+  static int optins[2][MAX_DEVICES] = {};
+  int* optin = optins[resident ? 0 : 1];
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
-  if (!optins[dev]) {
+  if (!optin[dev]) {
     int most = 0;
     cudaError_t err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_f32_kernel<NT, Addr>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 most);
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return err;
-    optins[dev] = most;
+    optin[dev] = most;
   }
-  if (bytes > static_cast<size_t>(optins[dev])) return cudaErrorInvalidValue;
+  if (bytes > static_cast<size_t>(optin[dev])) return cudaErrorInvalidValue;
   const int threads = TN * 2, total = n_windows * heads;
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, attn_f32_kernel<NT, Addr>, threads, bytes);
+      &per_sm, kernel, threads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm <= 0 || !sm_count()) return cudaErrorInvalidConfiguration;
   const int grid = total < per_sm * sm_count() ? total : per_sm * sm_count();
-  attn_f32_kernel<NT, Addr><<<grid, threads, bytes, s>>>(
-      a, bias, mask, n_mask, heads, total, TN, hd, scale);
-  return cudaGetLastError();
+  kernel<<<grid, threads, bytes, s>>>(a, bias, mask, n_mask, heads, total,
+                                      TN, hd, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && !resident) ++attn_streamed_launches;
+  return err;
 }
 
 // softmax(q k^T * scale + bias (+ mask)) v for every (window, head) of
@@ -710,8 +742,7 @@ template <class Addr>
 cudaError_t attention_f32(const Addr& a, int n_windows, int heads, int TN,
                           int hd, const float* bias, const float* mask,
                           int n_mask, float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 176 || hd <= 0 || hd % 8 || heads <= 0 ||
-      n_windows < 0)
+  if (!attn32::takes(TN, hd) || heads <= 0 || n_windows < 0)
     return cudaErrorInvalidValue;
   if (n_windows == 0) return cudaSuccess;
   const float* m = n_mask > 1 ? mask : nullptr;
@@ -1072,4 +1103,21 @@ extern "C" int stswin_conv_f32_k_tiles(long long* out, int reset) {
   }
   *out = static_cast<long long>(n);
   return err;
+}
+
+// Queries, not launches. The shared memory of the fp32 attention core's
+// instance for a (TN, hd) window (`attn32::plan_bytes`; -1 for a window it
+// refuses), what `ops/attention.py` `_attn_f32_smem_bytes` plans; and the
+// launches of its streamed instance since the last reset.
+extern "C" int stswin_attn_f32_smem(int TN, int hd, long long* out) {
+  *out = attn32::takes(TN, hd)
+             ? static_cast<long long>(attn32::plan_bytes(TN, hd))
+             : -1;
+  return 0;
+}
+
+extern "C" int stswin_attn_f32_streamed_launches(int reset, long long* out) {
+  *out = reset ? attn_streamed_launches.exchange(0)
+               : attn_streamed_launches.load();
+  return 0;
 }

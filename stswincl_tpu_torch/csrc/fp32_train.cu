@@ -631,16 +631,93 @@ cudaError_t launch_kv_pass(const float* qkv, const float* dO,
   return cudaGetLastError();
 }
 
-// The window and head dims the attention backward takes (`ops/
-// block_attention.check_backward_window` refuses the rest before K1 runs):
-// windows of 16-token tiles up to 128 tokens (the query pass's score tile
-// is 16 key tiles of 8 at most), head dims a multiple of 8 (the k8 steps
-// of the forward core's products) up to 256 at TN <= 32 and 128 beyond
-// (the key pass's dk and dv accumulators hold 128 columns a warp, two
-// warps a key group past 128).
-bool attn_bwd_f32_takes(int TN, int hd) {
-  return TN > 0 && TN % 16 == 0 && TN <= 128 && hd > 0 && hd % 8 == 0 &&
-         hd <= (TN <= 32 ? 256 : 128);
+// The windows the attention backward takes (`ops/block_attention.
+// check_backward_window` refuses the rest before K1 runs): exactly those
+// of K1's fp32 core, and so of K1's bf16 one (`attn32::takes`): the
+// resident passes where they fit (`attn32b::resident`), the streamed ones
+// elsewhere.
+bool attn_bwd_f32_takes(int TN, int hd) { return attn32::takes(TN, hd); }
+
+// launches of the streamed passes since the last reset (a query pass and
+// a key pass each; `stswin_attn_bwd_f32_streamed_launches`)
+std::atomic<long long> attn_bwd_streamed_launches{0};
+
+template <int NT>
+cudaError_t launch_qs_pass(const float* qkv, const float* dO,
+                           const float* bias, const float* mask, int n_mask,
+                           float* dqkv, float* pds, float* dbias_part,
+                           int n_windows, int heads, int TN, int hd, int C,
+                           float scale, cudaStream_t s, int* per_head) {
+  static int optin[MAX_DEVICES] = {};
+  const size_t bytes = attn32b::qs_smem(TN);
+  cudaError_t err = opt_in(attn32b::qs_kernel<NT>, optin, bytes);
+  if (err != cudaSuccess) return err;
+  int per_block;
+  attn32b::q_split(n_windows, heads, TN, hd, per_head, &per_block);
+  const long long pairs = (long long)n_windows * heads;
+  attn32b::qs_kernel<NT><<<dim3(*per_head, heads), TN / 16 * 32, bytes, s>>>(
+      qkv, dO, bias, mask, n_mask, dqkv, pds, pds + pairs * TN * TN,
+      dbias_part, n_windows, per_block, heads, TN, hd, C, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_kvs_pass(const float* qkv, const float* dO,
+                            const float* pds, float* dqkv, int n_windows,
+                            int heads, int TN, int hd, int C, float scale,
+                            cudaStream_t s) {
+  static int optin[MAX_DEVICES] = {};
+  const size_t bytes = attn32b::kvs_smem(TN);
+  cudaError_t err = opt_in(attn32b::kvs_kernel, optin, bytes);
+  if (err != cudaSuccess) return err;
+  const long long pairs = (long long)n_windows * heads;
+  const long long blocks = pairs * ((hd + attn32b::KC - 1) / attn32b::KC);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attn32b::kvs_kernel<<<static_cast<unsigned>(blocks), TN / 16 * 32, bytes,
+                        s>>>(qkv, dO, pds, pds + pairs * TN * TN, dqkv,
+                             heads, TN, hd, C, scale);
+  return cudaGetLastError();
+}
+
+// The streamed passes: the query pass (P and dS into pds, the dbias
+// partials), the partials summed in order, the key pass.
+cudaError_t attn_bwd_f32_streamed(const float* qkv, const float* dO,
+                                  const float* bias, const float* m,
+                                  int n_mask, float* dqkv, float* pds,
+                                  float* dbias_part, float* dbias,
+                                  int n_windows, int heads, int TN, int hd,
+                                  int C, float scale, cudaStream_t s) {
+  int per_head = 0;
+  cudaError_t err;
+  switch (attn32::score_tiles(TN)) {
+    case 4:
+      err = launch_qs_pass<4>(qkv, dO, bias, m, n_mask, dqkv, pds,
+                              dbias_part, n_windows, heads, TN, hd, C, scale,
+                              s, &per_head);
+      break;
+    case 8:
+      err = launch_qs_pass<8>(qkv, dO, bias, m, n_mask, dqkv, pds,
+                              dbias_part, n_windows, heads, TN, hd, C, scale,
+                              s, &per_head);
+      break;
+    case 16:
+      err = launch_qs_pass<16>(qkv, dO, bias, m, n_mask, dqkv, pds,
+                               dbias_part, n_windows, heads, TN, hd, C, scale,
+                               s, &per_head);
+      break;
+    default:
+      err = launch_qs_pass<22>(qkv, dO, bias, m, n_mask, dqkv, pds,
+                               dbias_part, n_windows, heads, TN, hd, C, scale,
+                               s, &per_head);
+  }
+  if (err != cudaSuccess) return err;
+  const long long table = (long long)heads * TN * TN;
+  if ((err = sum_parts(dbias_part, per_head, table, table, dbias, s)) !=
+      cudaSuccess)
+    return err;
+  err = launch_kvs_pass(qkv, dO, pds, dqkv, n_windows, heads, TN, hd, C,
+                        scale, s);
+  if (err == cudaSuccess) ++attn_bwd_streamed_launches;
+  return err;
 }
 
 template <bool TAIL>
@@ -681,16 +758,22 @@ cudaError_t attn_bwd_f32_passes(const float* qkv, const float* dO,
 
 // dq, dk, dv into dqkv and dbias: the query pass, the dbias partials
 // summed in order, the key pass; head dims off 32 in their TAIL
-// instances. stats: (windows, heads, TN, 4) floats; dbias_part: per_head
-// (`attn32b::q_split`) x heads x TN x TN floats.
+// instances; the streamed passes where the resident ones do not fit.
+// stats: (windows, heads, TN, 4) floats (the resident passes); pds: 2 x
+// windows x heads x TN x TN floats, P then dS (the streamed ones);
+// dbias_part: per_head (`attn32b::q_split`) x heads x TN x TN floats.
 cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
                          const float* mask, int n_mask, float* dqkv,
-                         float* stats, float* dbias_part, float* dbias,
-                         int n_windows, int heads, int TN, int hd, int C,
-                         float scale, cudaStream_t s) {
+                         float* stats, float* pds, float* dbias_part,
+                         float* dbias, int n_windows, int heads, int TN,
+                         int hd, int C, float scale, cudaStream_t s) {
   if (!attn_bwd_f32_takes(TN, hd) || n_windows <= 0)
     return cudaErrorInvalidValue;
   const float* m = n_mask > 1 ? mask : nullptr;
+  if (!attn32b::resident(TN, hd))
+    return attn_bwd_f32_streamed(qkv, dO, bias, m, n_mask, dqkv, pds,
+                                 dbias_part, dbias, n_windows, heads, TN, hd,
+                                 C, scale, s);
   return hd % 32
              ? attn_bwd_f32_passes<true>(qkv, dO, bias, m, n_mask, dqkv,
                                          stats, dbias_part, dbias, n_windows,
@@ -702,21 +785,27 @@ cudaError_t attn_bwd_f32(const float* qkv, const float* dO, const float* bias,
 }
 
 struct K5Work {
-  size_t dattn, dqkv, stats, dbias_part, cs, wpart, total;
+  size_t dattn, dqkv, stats, pds, dbias_part, cs, wpart, total;
 };
 
 K5Work k5_work(int R, int C, int heads, int TN) {
   K5Work w{};
   const int n_windows = TN > 0 ? R / TN : 0;
   int per_head = 1, per_block = 1;
-  if (n_windows > 0 && TN > 0 && heads > 0 && C % heads == 0)
+  bool streamed = false;
+  if (n_windows > 0 && TN > 0 && heads > 0 && C % heads == 0) {
     attn32b::q_split(n_windows, heads, TN, C / heads, &per_head, &per_block);
+    streamed = !attn32b::resident(TN, C / heads);
+  }
   const size_t cs = size_t(cs_splits(R)) * 3 * C;
   const size_t wp = wgrad_work(R, 3 * C, C, C, C);  // dwqkv and dwproj
   w.dattn = 0;
   w.dqkv = w.dattn + size_t(R) * C;
   w.stats = w.dqkv + size_t(R) * 3 * C;
-  w.dbias_part = w.stats + size_t(R) * heads * 4;
+  w.pds = w.stats + size_t(R) * heads * 4;
+  // P and dS of every (window, head), where the streamed passes run
+  w.dbias_part =
+      w.pds + (streamed ? size_t(2) * n_windows * heads * TN * TN : 0);
   w.cs = w.dbias_part + size_t(per_head) * heads * TN * TN;
   w.wpart = w.cs + cs;
   w.total = w.wpart + wp;
@@ -1060,7 +1149,7 @@ extern "C" int stswin_block_attention_bwd_f32(
   if ((err = attn_bwd_f32(static_cast<const float*>(qkv), dattn,
                           static_cast<const float*>(bias),
                           static_cast<const float*>(mask), n_mask, dqkv,
-                          wk + L.stats, wk + L.dbias_part,
+                          wk + L.stats, wk + L.pds, wk + L.dbias_part,
                           static_cast<float*>(dbias), M / TN, heads, TN, hd,
                           C, scale, s)) != cudaSuccess)
     return err;
@@ -1111,7 +1200,8 @@ extern "C" int stswin_attn_bwd_f32(const void* qkv, const void* dO,
                       static_cast<const float*>(bias),
                       static_cast<const float*>(mask), n_mask,
                       static_cast<float*>(dqkv), wk + L.stats,
-                      wk + L.dbias_part, static_cast<float*>(dbias), R / TN,
+                      wk + L.pds, wk + L.dbias_part,
+                      static_cast<float*>(dbias), R / TN,
                       heads, TN, hd, C, scale,
                       static_cast<cudaStream_t>(stream));
 }
@@ -1261,5 +1351,14 @@ extern "C" int stswin_attn_bwd_f32_smem(int TN, int hd, long long* out) {
   *out = attn_bwd_f32_takes(TN, hd)
              ? static_cast<long long>(attn32b::smem_bytes(TN, hd))
              : -1;
+  return 0;
+}
+
+// A query, not a launch: the streamed attention backward's runs (a query
+// pass and a key pass each) since the last reset.
+extern "C" int stswin_attn_bwd_f32_streamed_launches(int reset,
+                                                     long long* out) {
+  *out = reset ? attn_bwd_streamed_launches.exchange(0)
+               : attn_bwd_streamed_launches.load();
   return 0;
 }

@@ -105,6 +105,12 @@ SIGNATURES = {
     "stswin_wgrad_f32_work": [_I] * 3 + [_LLP],
     "stswin_gemm_f32_colsum_work": [_I] * 2 + [_LLP],
     "stswin_attn_bwd_f32_smem": [_I] * 2 + [_LLP],
+    # queries, not launches: the fp32 attention core's shared memory for a
+    # (TN, hd) window (-1: a window it refuses), and the launches of the
+    # streamed forms (int reset, long long* count), no stream
+    "stswin_attn_f32_smem": [_I] * 2 + [_LLP],
+    "stswin_attn_f32_streamed_launches": [_I, _LLP],
+    "stswin_attn_bwd_f32_streamed_launches": [_I, _LLP],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],
 }

@@ -83,17 +83,46 @@ def _attn_smem_bytes(TN: int, hd: int) -> int:
     return _align(3 * TN * (hd + 8) * 2) + _align(TN * 8)
 
 
-def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
-    """Dynamic shared memory of one (window, head) pair of the fp32
-    attention core of K1, rows 10, 11 and 16 (`attn32::smem_bytes` in
-    `csrc/fp32_attention.cuh`): the q-and-k region, then v, in fp32 rows of
-    hd + 4 (4 mod 32 words: the tensor-core fragment reads of q, k and v
-    fall on distinct banks); the scores and P stay in registers. The core
-    runs pairs back to back in this one region, the next pair's q and k
-    copied in while this pair's P V runs, its v while the next scores are
-    formed. 198 KiB at stage 1 (TN 128, hd 128), 98 KiB at stage 2 (TN 32,
-    hd 256)."""
+def _attn_f32_resident_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of the fp32 attention core's resident pair
+    (`attn32::smem_bytes` in `csrc/fp32_attention.cuh`), what row 16's fp32
+    form holds for each pair of its attention phase: the q-and-k region,
+    then v, in fp32 rows of hd + 4 (4 mod 32 words: the tensor-core
+    fragment reads of q, k and v fall on distinct banks); the scores and P
+    stay in registers. The core runs pairs back to back in this one
+    region, the next pair's q and k copied in while this pair's P V runs,
+    its v while the next scores are formed. 198 KiB at stage 1 (TN 128, hd
+    128), 98 KiB at stage 2 (TN 32, hd 256)."""
     return _align(3 * TN * (hd + 4) * 4)
+
+
+# The fp32 core's streamed pair (`attn32::pairs_streamed`): a ring of
+# F32_RING slots of TN rows of F32_SLOT floats, each a chunk of 32 columns
+# of q and of k (rows of 36) or 64 of v (rows of 68)
+F32_RING, F32_SLOT = 3, 72
+
+
+def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of the fp32 attention core of K1 and rows 10
+    and 11 for a window (`attn32::plan_bytes`, `stswin_attn_f32_smem`):
+    the resident pair (`_attn_f32_resident_bytes`) where it fits; else,
+    for every other window K1's bf16 core takes (`_attn_smem_bytes`), the
+    streamed pair, whose ring takes 864 TN bytes whatever the head dim;
+    past those the resident pair's bytes, which exceed SMEM_LIMIT (the
+    window is refused, in both dtypes)."""
+    resident = _attn_f32_resident_bytes(TN, hd)
+    if (resident <= kernels.SMEM_LIMIT
+            or _attn_smem_bytes(TN, hd) > kernels.SMEM_LIMIT):
+        return resident
+    return F32_RING * TN * F32_SLOT * 4
+
+
+def attn_f32_streamed_launches(reset: bool = False) -> int:
+    """Launches of the fp32 core's streamed instance (K1's, row 10's and
+    row 11's fp32 forms on windows whose resident pair does not fit),
+    counted by the library since the last reset; `reset` sets the count to
+    0 after reading."""
+    return kernels.query("stswin_attn_f32_streamed_launches", int(reset))
 
 
 def check_attention_core(name: str, device: torch.device,
@@ -164,8 +193,8 @@ def fused_window_attention_f32(q, k, v, bias_tiled, mask_tiled,
     """Row 11's fp32 form (`stswin_window_attention_heads_f32`,
     `csrc/fp32_forms.cu`) on fp32 CUDA q, k, v, the arguments of
     `fused_window_attention`: K1's fp32 attention core on the head-major
-    tensors, P unrounded; head dims a multiple of 8 and windows whose
-    fp32 q, k and v fit shared memory (`_attn_f32_smem_bytes`)."""
+    tensors, P unrounded; the windows of the bf16 form, through the
+    resident or the streamed pair (`_attn_f32_smem_bytes`)."""
     return _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale)
 
 

@@ -12,10 +12,11 @@ CUDA tensor, its fp32 form (`swin_block_attention_f32`,
 gradient it goes through `BlockAttentionFn`, whose backward launches K5 on
 CUDA (`swin_block_attention_bwd` in bf16, its fp32 form
 `swin_block_attention_bwd_f32`, `csrc/fp32_train.cu`, in fp32) and runs
-the plain twin `swin_block_attention_bwd_ref` on the CPU. K5 in bf16
-takes every window K1 takes (a one-pass kernel where its slot fits, two
-passes elsewhere: `_attn_bwd_slot_takes`), and sums every gradient in a
-fixed order: two calls give the same bits.
+the plain twin `swin_block_attention_bwd_ref` on the CPU. K5 takes
+every window K1 takes in both dtypes (bf16: a one-pass kernel where its
+slot fits, two passes elsewhere, `_attn_bwd_slot_takes`; fp32: resident
+passes where they fit, streamed ones elsewhere, `_attn_f32_bwd_resident`),
+and sums every gradient in a fixed order: two calls give the same bits.
 
 Weights use the torch Linear layout: wqkv (3C, C), wproj (C, C), in any
 float dtype: they are cast to x's dtype for the product, and their
@@ -41,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from stswincl_tpu_torch import kernels
-from stswincl_tpu_torch.ops.attention import (MAX_WINDOW_TOKENS, _align,
+from stswincl_tpu_torch.ops.attention import (F32_RING, F32_SLOT,
+                                              MAX_WINDOW_TOKENS, _align,
                                               _attn_f32_smem_bytes,
                                               _attn_smem_bytes, attend_tiled,
                                               check_attention_core)
@@ -99,8 +101,8 @@ def windowed_attention_image_f32(qkv, bias_tiled, mask_tiled, heads: int,
     """Row 10's fp32 form (`stswin_window_attention_image_f32`,
     `csrc/fp32_forms.cu`) on an fp32 CUDA qkv, the arguments of
     `windowed_attention_image`: K1's fp32 attention core gathering
-    straight from the image layout, P unrounded; head dims a multiple of
-    8 and windows whose fp32 q, k and v fit shared memory
+    straight from the image layout, P unrounded; the windows of the bf16
+    form, through the resident or the streamed pair
     (`_attn_f32_smem_bytes`)."""
     return _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws)
 
@@ -180,9 +182,8 @@ def swin_block_attention_bwd_ref(x, wqkv, bqkv, wproj, bproj, bias_tiled,
         return torch.autograd.grad(out, leaves, g)
 
 
-# The widest window of K5 fp32's attention backward: its query pass's
-# score tile holds at most 16 key tiles of 8. K5's bf16 form takes every
-# window K1's forward takes (`check_backward_window`).
+# The widest window of K5 fp32's resident attention backward: its query
+# pass's score tile holds at most 16 key tiles of 8. Wider windows stream.
 MAX_F32_BWD_WINDOW_TOKENS = 128
 
 
@@ -206,57 +207,66 @@ def _attn_bwd_slot_takes(TN: int, hd: int) -> bool:
     return TN <= 128 and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
 
 
+def _attn_f32_bwd_resident(TN: int, hd: int) -> bool:
+    """Whether K5 fp32's attention backward runs its resident passes
+    (`attn32b::resident`): 16-token tiles up to MAX_F32_BWD_WINDOW_TOKENS
+    (the query pass's score tile holds 16 key tiles of 8), head dims a
+    multiple of 8 up to 256 at TN <= 32 and 128 beyond (the key pass's dk
+    and dv accumulators: 128 columns a warp, two warps a key group past
+    128). Every other window K1 takes runs the streamed passes."""
+    return (0 < TN <= MAX_F32_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
+            and hd % 8 == 0 and hd <= (256 if TN <= 32 else 128))
+
+
 def _attn_f32_bwd_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of K5 fp32's attention backward
     (`attn32b::smem_bytes`, `csrc/fp32_attention_bwd.cuh`), the larger of
-    its two passes, fp32 rows of hd + 4: the query pass holds k, v and a
-    region of TN rows for each warp's 16 rows of q, then of dO; the key
-    pass k, v and a ring of 16-query chunks of q and dO (three chunks past
-    32 tokens, else two)."""
-    ld, stages = hd + 4, 3 if TN // 16 >= 3 else 2
-    return 4 * max(3 * TN * ld, (2 * TN + 2 * 16 * stages) * ld)
+    its two passes. Resident (`_attn_f32_bwd_resident`), fp32 rows of hd +
+    4: the query pass holds k, v and a region of TN rows for each warp's
+    16 rows of q, then of dO; the key pass k, v and a ring of 16-query
+    chunks of q and dO (three chunks past 32 tokens, else two). Streamed:
+    the query pass the fp32 forward's streamed ring (864 TN bytes); the
+    key pass three 16-query chunks of P and dS (rows of TN + 8) and of 64
+    columns of q and dO (rows of 72)."""
+    if _attn_f32_bwd_resident(TN, hd):
+        ld, stages = hd + 4, 3 if TN // 16 >= 3 else 2
+        return 4 * max(3 * TN * ld, (2 * TN + 2 * 16 * stages) * ld)
+    return max(F32_RING * TN * F32_SLOT * 4,
+               4 * 3 * (2 * 16 * (TN + 8) + 2 * 16 * 72))
 
 
 def _attn_f32_bwd_takes(TN: int, hd: int) -> bool:
     """The windows K5 fp32's attention backward takes (`attn_bwd_f32_takes`):
-    16-token tiles up to MAX_F32_BWD_WINDOW_TOKENS (the query pass's score
-    tile holds 16 key tiles of 8), head dims a multiple of 8 (the k8 steps
-    of the fp32 core's products) up to 256 at TN <= 32 and 128 beyond (the
-    key pass's
-    dk and dv accumulators: 128 columns a warp, two warps a key group past
-    128), and both passes within shared memory."""
-    return (0 < TN <= MAX_F32_BWD_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
-            and hd % 8 == 0 and hd <= (256 if TN <= 32 else 128)
-            and _attn_f32_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
+    exactly K1's (`_attn_bwd_takes`), the resident passes where they fit,
+    the streamed ones elsewhere."""
+    return _attn_bwd_takes(TN, hd)
+
+
+def attn_bwd_f32_streamed_launches(reset: bool = False) -> int:
+    """Runs of K5 fp32's streamed attention backward (a query pass and a
+    key pass each) counted by the library since the last reset; `reset`
+    sets the count to 0 after reading."""
+    return kernels.query("stswin_attn_bwd_f32_streamed_launches", int(reset))
 
 
 def check_backward_window(name: str, x: torch.Tensor, heads: int,
                           ws: int) -> None:
     """Refuse a window that K5's attention backward in x's dtype does not
-    take: bf16, what K1's attention core refuses (`_attn_bwd_takes`: more
-    than MAX_WINDOW_TOKENS tokens, a token count off 16 or a head dim off
-    8, or K1's q, k and v past shared memory), so that every window that
-    serves
-    also trains; fp32, what `_attn_f32_bwd_takes` refuses. The forward of
+    take: in either dtype, what K1's attention core refuses
+    (`_attn_bwd_takes`: more than MAX_WINDOW_TOKENS tokens, a token count
+    off 16 or a head dim off 8, or K1's bf16 q, k and v past shared
+    memory), so that every window that serves also trains. The forward of
     `BlockAttentionFn` and of the whole-block Function checks it before K1
     or row 16 runs, so a training step on such a window fails before its
     forward rather than inside its backward."""
     TN, hd = x.shape[1] * ws * ws, x.shape[-1] // heads
-    if x.dtype == torch.float32:
-        kernels.require(_attn_f32_bwd_takes(TN, hd),
-                        lambda: f"{name}: K5's fp32 form (the attention "
-                        "backward) takes windows of at most "
-                        f"{MAX_F32_BWD_WINDOW_TOKENS} tokens (a multiple of "
-                        "16) with head dims a multiple of 8 (at most 256 to "
-                        "32 tokens, 128 beyond) that fit shared memory; got "
-                        f"{TN} tokens x head dim {hd}")
-        return
+    form = "'s fp32 form" if x.dtype == torch.float32 else ""
     kernels.require(_attn_bwd_takes(TN, hd),
-                    lambda: f"{name}: K5 (the attention backward) takes the "
-                    f"windows K1 takes: at most {MAX_WINDOW_TOKENS} tokens, "
-                    "token count a multiple of 16, head dim of 8, K1's q, k "
-                    f"and v within shared memory; got {TN} tokens x head "
-                    f"dim {hd}")
+                    lambda: f"{name}: K5{form} (the attention backward) "
+                    "takes the windows K1 takes: at most "
+                    f"{MAX_WINDOW_TOKENS} tokens, token count a multiple of "
+                    "16, head dim of 8, K1's q, k and v within shared "
+                    f"memory; got {TN} tokens x head dim {hd}")
 
 
 def _attn_bwd_takes(TN: int, hd: int) -> bool:
@@ -351,8 +361,8 @@ def swin_block_attention_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled,
     """K1's fp32 form (`stswin_block_attention_f32`, `csrc/fp32_forms.cu`)
     on fp32 CUDA tensors, the arguments of `swin_block_attention` with the
     weights in fp32: every product on the fp32 GEMM, the attention in fp32
-    with P unrounded; head dims a multiple of 8 and windows whose fp32 q,
-    k and v fit shared memory (`_attn_f32_smem_bytes`). Under autograd
+    with P unrounded; the windows of the bf16 form, through the resident
+    or the streamed pair (`_attn_f32_smem_bytes`). Under autograd
     `BlockAttentionFn` keeps its window-order qkv and attention scratch
     for K5's fp32 form."""
     return _forward_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,

@@ -60,7 +60,7 @@ import torch
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_with_m_ref)
-from stswincl_tpu_torch.ops.attention import (_attn_f32_smem_bytes,
+from stswincl_tpu_torch.ops.attention import (_attn_f32_resident_bytes,
                                               _attn_smem_bytes,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.block_attention import (check_backward_window,
@@ -152,7 +152,7 @@ def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
     1024, hidden % 128 == 0, heads dividing C, ws dividing H and W,
     head_dim and TN = T * ws * ws multiples of 16 (head_dim of 32 in fp32),
     TN dividing 128, and one attention pair (the core's
-    `_attn_smem_bytes`, in fp32 `_attn_f32_smem_bytes`) in shared
+    `_attn_smem_bytes`, in fp32 `_attn_f32_resident_bytes`) in shared
     memory."""
     name = "whole_swin_block" + ("_f32" if dtype == torch.float32 else "")
     kernels.require(dtype in (torch.bfloat16, torch.float32),
@@ -177,7 +177,7 @@ def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
     # the fp32 form: groups of TN / 16 of its 8 warps, a pair each at a
     # time, no TMA ring or mbarriers
     if f32:
-        pair, fixed = _attn_f32_smem_bytes(TN, hd), 0
+        pair, fixed = _attn_f32_resident_bytes(TN, hd), 0
         group = F32_THREADS // (TN // 16 * 32)
         ring = F32_RING_BYTES
     else:

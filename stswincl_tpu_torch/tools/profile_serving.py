@@ -1,10 +1,12 @@
 """Where a serving step's time goes on the GPU.
 
     python3 -m stswincl_tpu_torch.tools.profile_serving [--bs 2] [--steps 6]
-        [--attn-impl auto] [--whole-block]
+        [--attn-impl auto] [--whole-block] [--swin-dim 512] [--num-heads 4]
+        [--dtype bfloat16]
 
-Serves TswinPlus(num_classes=12, swin_dim=512, depths (3, 3), bf16, seeded
-random weights) through StreamingSegmenter at 512x640 -> 1024x1280 and
+Serves TswinPlus(num_classes=12, swin_dim=512, 4 heads, depths (3, 3),
+bf16, seeded random weights; width, heads and dtype as asked) through
+StreamingSegmenter at 512x640 -> 1024x1280 and
 runs `torch.profiler` over steady-state `predict_next` steps. Prints the
 host time per step, the device's busy and idle share of that window, the
 device time per kernel name and per group (the port's CUDA kernels, cuDNN
@@ -58,14 +60,19 @@ def main() -> None:
     ap.add_argument("--whole-block", action="store_true",
                     help="W-MSA blocks through the whole-block kernel "
                     "(TswinPlus whole_block, Pallas row 16)")
+    ap.add_argument("--swin-dim", type=int, default=512)
+    ap.add_argument("--num-heads", type=int, default=4)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    model = TswinPlus(num_classes=12, swin_dim=512, swin_depths=(3, 3),
-                      dtype=torch.bfloat16, input_hw=(512, 640),
+    model = TswinPlus(num_classes=12, swin_dim=args.swin_dim,
+                      num_heads=args.num_heads, swin_depths=(3, 3),
+                      dtype=getattr(torch, args.dtype), input_hw=(512, 640),
                       attn_impl=args.attn_impl, whole_block=args.whole_block)
     init_weights(model, torch.Generator().manual_seed(0))
     model.to(dev).eval()
@@ -95,7 +102,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"{smi} | attn_impl {args.attn_impl} | whole_block "
+    print(f"{smi} | swin_dim {args.swin_dim}, {args.num_heads} heads, "
+          f"{args.dtype} | attn_impl {args.attn_impl} | whole_block "
           f"{args.whole_block} | bs {args.bs} | "
           f"{args.steps} predict_next steps")
     print(f"host time {wall_ms / args.steps:.2f} ms/step "

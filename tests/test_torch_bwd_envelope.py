@@ -7,7 +7,8 @@ take every window and width their forwards take.
 - K6's twin against `fused_epilogue_bwd` (row 7) and
   `fused_epilogue_bwd_streamed` (row 9), interpreted, at C 384;
 - over a grid of (tokens, head dim) and of C, each backward's wrapper
-  accepts exactly what its forward's accepts, in both dtypes: the
+  accepts exactly what its forward's accepts, in both dtypes (and the
+  fp32 forms of K1, K5 and rows 10-11 exactly the bf16 K1's windows): the
   wrappers run on meta tensors that report `is_cuda`, with the library's
   launch and queries replaced by recorders (no card needed), so the test
   holds the wrappers' own checks, not a copy of them.
@@ -45,11 +46,17 @@ def _close(got, want, name):
 
 
 # (T, H, W, C, heads, ws): TN 144 (ws 6, T 4), TN 176 (ws 4, T 11), TN 128
-# at hd 256 (ws 8, one head)
+# at hd 256 (ws 8, one head): past the bf16 slot kernel; and, past K5
+# fp32's resident passes (its streamed ones), TN 128 at hd 192, TN 32 at
+# hd 384 and 512, TN 176 at hd 208
 ATTN_CASES = {
     "TN144": (4, 12, 12, 32, 2, 6),
     "TN176": (11, 8, 8, 32, 2, 4),
     "hd256": (2, 16, 8, 256, 1, 8),
+    "hd192": (2, 16, 8, 192, 1, 8),
+    "TN32 hd384": (2, 8, 4, 384, 1, 4),
+    "TN32 hd512": (2, 8, 4, 512, 1, 4),
+    "TN176 hd208": (11, 8, 4, 208, 1, 4),
 }
 
 
@@ -57,14 +64,18 @@ ATTN_CASES = {
 @pytest.mark.parametrize("shifted", [False, True])
 def test_attention_bwd_twin_matches_pallas_past_the_slot(rng, case,
                                                          shifted):
-    """K5's twin == the interpreted Pallas row 6, routed as `_fsba_bwd`
-    routes it (x rolled into the shifted layout, dx rolled back), at the
-    windows the bf16 kernel now takes through its two passes."""
+    """K5's twin (the CPU path of both forms) == the interpreted Pallas
+    row 6 in fp32, routed as `_fsba_bwd` routes it (x rolled into the
+    shifted layout, dx rolled back), at the windows the bf16 kernel takes
+    through its two passes and those K5 fp32 takes through its streamed
+    passes."""
     T, H, W, C, heads, ws = ATTN_CASES[case]
     shift = ws // 2 if shifted else 0
     f = lambda *s, k=1.0: (rng.standard_normal(s) * k).astype(np.float32)
     N, TN = ws * ws, T * ws * ws
-    assert not block_attention._attn_bwd_slot_takes(TN, C // heads)
+    hd = C // heads
+    assert (not block_attention._attn_bwd_slot_takes(TN, hd)
+            or not block_attention._attn_f32_bwd_resident(TN, hd))
     table = f((2 * ws - 1) ** 2, heads, k=0.1)
     idx = relative_position_index(ws, ws)
     bias = np.tile(table[idx.reshape(-1)].reshape(N, N, heads)
@@ -178,14 +189,16 @@ K5_GRID = [(16 * T, hd) for T in (1, 2, 3, 8, 9, 11, 12, 18)
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
-    """Over a grid of (tokens, head dim) at ws 4 (C = 4 hd over 4 heads):
-    bf16, K5's
-    wrapper (`swin_block_attention_bwd`, `check_backward_window`) accepts
-    exactly the windows K1's wrapper (`_forward_kernel`) and K1's
-    attention core accept; fp32, K5's fp32 form accepts a subset of K1
-    fp32's windows (its own plan, `_attn_f32_bwd_takes`). K1's bf16
-    envelope reaches TN 176 and hd 288 at TN 128; every head dim of 8
-    (8, 24 and 48 among them) runs in both dtypes, none off 8."""
+    """Over a grid of (tokens, head dim) at ws 4 (C = 4 hd over 4 heads),
+    in both dtypes: K5's wrapper (`swin_block_attention_bwd` /
+    `swin_block_attention_bwd_f32`, `check_backward_window`), K1's
+    (`_forward_kernel` / `_forward_f32`) and, in fp32, rows 10's and 11's
+    fp32 forms accept exactly the windows K1's bf16 attention core accepts
+    (`_attn_bwd_takes`); fp32 reaches them through the resident or the
+    streamed pair and passes. K1's envelope reaches TN 176 and hd 288 at
+    TN 128; every head dim of 8 (8, 24 and 48 among them) runs in both
+    dtypes, none off 8."""
+    from stswincl_tpu_torch.ops.attention import fused_window_attention_f32
     meta = dict(dtype=dtype, device="meta")
     f32 = dict(dtype=torch.float32, device="meta")
     bf = dtype == torch.bfloat16
@@ -210,23 +223,25 @@ def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
             "k5", x, heads, 4))
         rows.append((TN, hd, k1, k5))
         assert k5 == win, (TN, hd)
-        if bf:
-            assert k1 == k5 == _k1_core_takes(TN, hd), (TN, hd, k1, k5)
-            assert k5 == block_attention._attn_bwd_takes(TN, hd)
-        else:
-            assert k1 or not k5, (TN, hd)
-    if bf:
-        took = {(TN, hd) for TN, hd, k1, _ in rows if k1}
-        assert {(176, 208), (128, 288), (144, 256), (128, 192),
-                (32, 320)} <= took
-        assert {(128, 8), (128, 24), (32, 48), (176, 8)} <= took
-        assert not {(176, 224), (128, 304), (288, 64)} & took
-        assert max(TN for TN, _ in took) == MAX_WINDOW_TOKENS
-        assert all(_attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
-                   for TN, hd in took)
-    else:
-        took = {(TN, hd) for TN, hd, _, k5 in rows if k5}
-        assert {(128, 8), (128, 24), (128, 48), (32, 48), (32, 256)} <= took
+        assert k1 == k5 == _k1_core_takes(TN, hd), (TN, hd, k1, k5)
+        assert k5 == block_attention._attn_bwd_takes(TN, hd)
+        if not bf:
+            img = torch.empty((1, T, 4, 4, 3 * C), **f32)
+            row10 = _accepts(lambda: block_attention
+                             .windowed_attention_image_f32(
+                                 img, bias, None, heads, scale, 4))
+            q = torch.empty((1, heads, TN, hd), **f32)
+            row11 = _accepts(lambda: fused_window_attention_f32(
+                q, q, q, bias, None, scale))
+            assert row10 == row11 == k1, (TN, hd, row10, row11, k1)
+    took = {(TN, hd) for TN, hd, k1, _ in rows if k1}
+    assert {(176, 208), (128, 288), (144, 256), (128, 192),
+            (32, 320)} <= took
+    assert {(128, 8), (128, 24), (32, 48), (176, 8)} <= took
+    assert not {(176, 224), (128, 304), (288, 64)} & took
+    assert max(TN for TN, _ in took) == MAX_WINDOW_TOKENS
+    assert all(_attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
+               for TN, hd in took)
     assert all(hd % 8 == 0 for TN, hd, k1, k5 in rows if k1 or k5)
 
 

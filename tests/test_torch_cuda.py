@@ -2051,15 +2051,23 @@ def test_epilogue_f32_training_forms(dev, gen, C, shift):
 
 
 def test_attn_f32_bwd_plan_matches_the_library(dev):
-    """The Python plan of K5 fp32's attention backward (what
-    `check_backward_window` refuses before a trained block's forward)
-    and the library's (`stswin_attn_bwd_f32_smem`, -1 for a window it
-    refuses) agree on every window the model and the tests use and on the
-    edges."""
+    """The Python plans of the fp32 attention core (K1's, rows 10 and 11:
+    `_attn_f32_smem_bytes` through `check_attention_core`) and of K5
+    fp32's attention backward (what `check_backward_window` refuses before
+    a trained block's forward) and the library's (`stswin_attn_f32_smem`,
+    `stswin_attn_bwd_f32_smem`, -1 for a window it refuses) agree on
+    every window the model and the tests use and on the edges: the
+    resident and the streamed instances, TN 16-176, hd 32-1200."""
     from stswincl_tpu_torch import kernels
-    for TN in (16, 32, 48, 64, 96, 128, 144):
-        for hd in (32, 64, 128, 192, 256, 512):
+    from stswincl_tpu_torch.ops import attention
+    for TN in (16, 32, 48, 64, 96, 128, 144, 160, 176):
+        for hd in (32, 64, 128, 192, 208, 256, 288, 296, 512, 600, 608,
+                   1200, 1208):
             lib = kernels.query("stswin_attn_bwd_f32_smem", TN, hd)
             takes = block_attention._attn_f32_bwd_takes(TN, hd)
             plan = block_attention._attn_f32_bwd_smem_bytes(TN, hd)
             assert lib == (plan if takes else -1), (TN, hd, lib, plan)
+            lib = kernels.query("stswin_attn_f32_smem", TN, hd)
+            plan = attention._attn_f32_smem_bytes(TN, hd)
+            assert lib == (plan if takes else -1), (TN, hd, lib, plan)
+            assert takes == (plan <= kernels.SMEM_LIMIT), (TN, hd)

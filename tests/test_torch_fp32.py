@@ -299,8 +299,11 @@ def test_fp32_attention_shared_memory_plan():
     hd + 4, 4 mod 32 words for every admitted head dim (its tensor-core
     fragment reads fall on distinct banks): stage 1 (TN 128, hd 128) and
     stage 2 (TN 32, hd 256) fit one block, and so do (144, 128) and (176,
-    64); a wider window or head dim is refused before any launch, as the
-    bf16 plan refuses its own."""
+    64). Every other window the bf16 core takes streams through a ring of
+    three chunks of TN rows of 72 floats ((160, 128), (128, 256), (176,
+    128), (32, 1200)); a window the bf16 core refuses ((128, 296), (176,
+    216)) is refused before any launch, as the bf16 plan refuses its
+    own."""
     plan = attention._attn_f32_smem_bytes
     assert plan(128, 128) == 3 * 128 * 132 * 4 <= kernels.SMEM_LIMIT
     assert plan(32, 256) == 3 * 32 * 260 * 4 <= kernels.SMEM_LIMIT
@@ -310,7 +313,12 @@ def test_fp32_attention_shared_memory_plan():
         bias = torch.zeros((2, TN, TN))
         attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
                                        plan)
-    for TN, hd in ((160, 128), (128, 256), (176, 128)):
+    for TN, hd in ((160, 128), (128, 256), (176, 128), (32, 1200)):
+        assert plan(TN, hd) == 3 * TN * 72 * 4 <= kernels.SMEM_LIMIT
+        bias = torch.zeros((2, TN, TN))
+        attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
+                                       plan)
+    for TN, hd in ((128, 296), (176, 216)):
         bias = torch.zeros((2, TN, TN))
         with pytest.raises(ValueError, match="shared memory"):
             attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,

@@ -32,7 +32,8 @@ from stswincl_tpu_torch.ckpt.from_jax import to_jax_layout  # noqa: E402
 from stswincl_tpu_torch.configs import DataConfig, ModelConfig  # noqa: E402
 from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock  # noqa: E402
 from stswincl_tpu_torch.ops import (add_layernorm, add_ln_mlp,  # noqa: E402
-                                    block_attention, conv, layernorm, mlp)
+                                    attention, block_attention, conv,
+                                    layernorm, mlp)
 from stswincl_tpu_torch.pipelines.common import build_model  # noqa: E402
 
 torch.set_num_threads(1)
@@ -241,8 +242,9 @@ def test_k5_fp32_plan_takes_head_dim_32():
     in 55,296 and 18,432 bytes of shared memory (the query pass's k, v and
     q / dO in rows of hd + 4; the key pass at TN 32, k, v and two 16-query
     chunks of q and dO, is the larger); so are the head dims of 8 below
-    the limits (`swin_dim` 96's 24 and 48, 64's 16); head dims off 8 and
-    past 128 at TN 128 stay refused."""
+    the limits (`swin_dim` 96's 24 and 48, 64's 16), and those past 128
+    at TN 128 up to K1's 288 (160 among them), on the streamed passes;
+    head dims off 8, and past 288 at TN 128, stay refused."""
     takes = block_attention._attn_f32_bwd_takes
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert takes(128, 32) and takes(32, 32) and takes(64, 32)
@@ -250,7 +252,8 @@ def test_k5_fp32_plan_takes_head_dim_32():
     assert plan(32, 32) == 4 * (2 * 32 + 2 * 16 * 2) * 36 == 18432
     assert takes(128, 48) and takes(32, 16) and takes(128, 24)
     assert takes(32, 8) and takes(32, 48)
-    assert not takes(128, 44) and not takes(32, 12) and not takes(128, 160)
+    assert not takes(128, 44) and not takes(32, 12) and not takes(128, 296)
+    assert takes(128, 160) and takes(128, 288)
 
 
 def test_swin_dim_128_fp32_model_trains_on_k5():
@@ -273,3 +276,60 @@ def test_swin_dim_128_fp32_model_trains_on_k5():
     assert blocks and hds == {32, 64}
     assert kernels.SMEM_LIMIT >= block_attention._attn_f32_bwd_smem_bytes(
         128, 32)
+
+
+@pytest.mark.parametrize("fields,hds", [
+    (dict(num_heads=2), {256, 512}), (dict(swin_dim=768), {192, 384})],
+    ids=["num_heads=2", "swin_dim=768"])
+def test_fp32_models_past_the_resident_pair_route_to_the_fp32_forms(
+        monkeypatch, fields, hds):
+    """Every swin block of `build_model(ModelConfig(num_heads=2,
+    dtype="float32"))` (hd 256 / 512) and of `swin_dim=768` (hd 192 /
+    384) passes `check_backward_window` on its training window, and its
+    K1 and K5 run their fp32 forms: on meta tensors that report `is_cuda`,
+    with the library's launches recorded, K1's wrapper launches
+    `stswin_block_attention_f32` and K5's `stswin_block_attention_bwd_f32`,
+    no bf16 entry. Their windows lie past K5 fp32's resident passes, and
+    at stage 1 (TN 128) past the forward's resident pair: the streamed
+    instances (forward: 864 TN bytes; backward: the streamed passes) run
+    them."""
+    model, _ = build_model(ModelConfig(**fields, dtype="float32"),
+                           DataConfig(), device="meta")
+    blocks = [m for m in model.modules()
+              if isinstance(m, SpaceTimeSwinBlock)]
+    launched = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True),
+                        raising=False)
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, dev, *a: launched.append(name))
+    monkeypatch.setattr(kernels, "query", lambda name, *a: 16)
+    monkeypatch.setattr(kernels, "use_device", lambda dev: 0)
+    meta = dict(dtype=torch.float32, device="meta")
+    seen = set()
+    for blk in blocks:
+        H, W = blk.input_resolution
+        C, heads, ws = blk.norm1.weight.shape[0], blk.num_heads, \
+            blk.window_size
+        T, hd = 2, C // blk.num_heads
+        TN = T * ws * ws
+        x = torch.empty((1, T, H, W, C), **meta)
+        block_attention.check_backward_window("k5", x, heads, ws)
+        # stage 1 (TN 128) streams its forward; stage 2's (TN 32) q, k, v
+        # fit the resident pair
+        fwd = block_attention._attn_f32_smem_bytes(TN, hd)
+        assert fwd == (864 * TN if TN == 128
+                       else attention._attn_f32_resident_bytes(TN, hd))
+        assert not block_attention._attn_f32_bwd_resident(TN, hd)
+        w = (torch.empty((3 * C, C), **meta), torch.empty(3 * C, **meta),
+             torch.empty((C, C), **meta), torch.empty(C, **meta))
+        bias = torch.empty((heads, TN, TN), **meta)
+        launched.clear()
+        _, qkv, attn = block_attention._forward_f32(
+            x, *w, bias, None, heads, hd ** -0.5, ws, 0)
+        block_attention.swin_block_attention_bwd_f32(
+            x, x, qkv, attn, w[0], w[2], bias, None, heads, hd ** -0.5, ws,
+            0)
+        assert launched == ["stswin_block_attention_f32",
+                            "stswin_block_attention_bwd_f32"], launched
+        seen.add(hd)
+    assert blocks and seen == hds

@@ -174,21 +174,27 @@ def test_fp32_training_routes_through_the_functions(monkeypatch, case):
 
 
 def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
-    """K5 fp32's attention backward (`csrc/fp32_attention_bwd.cuh`: a
-    query pass holding k, v and each warp's q, then dO, of a (window,
-    head); a key pass holding k, v and a ring of 16-query chunks of q and
-    dO, three past 32 tokens): stage 1 (TN 128, hd 128) and stage 2 (TN
-    32, hd 256) fit SMEM_LIMIT, and so do both stages of `swin_dim` 128
-    (hd 32) and every 16-token window up to 128 (TN 96 among them), at
-    every head dim of 8 (48 and 24 among them); a wider window or head dim
-    and a head dim off 8 are refused by `check_backward_window` before any
-    launch: the Function's forward raises without calling the form."""
+    """K5 fp32's attention backward (`csrc/fp32_attention_bwd.cuh`): where
+    its resident passes fit (a query pass holding k, v and each warp's q,
+    then dO, of a (window, head); a key pass holding k, v and a ring of
+    16-query chunks of q and dO, three past 32 tokens): stage 1 (TN 128, hd
+    128) and stage 2 (TN 32, hd 256), both stages of `swin_dim` 128 (hd 32)
+    and every 16-token window up to 128 (TN 96 among them), at every head
+    dim of 8 (48 and 24 among them). Past them the streamed passes (the
+    fp32 forward's ring, 864 TN bytes; the key pass's chunks of P, dS, q
+    and dO) take every other window K1 takes: TN 128 at hd 192 and 256
+    (`num_heads=2`), TN 144. A window K1 refuses (hd 296 at TN 128, TN
+    192) and a head dim off 8 are refused by `check_backward_window`
+    before any launch: the Function's forward raises without calling the
+    form."""
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert plan(128, 128) == 4 * 3 * 128 * 132 == 202752
     assert plan(32, 256) == 4 * (2 * 32 + 2 * 16 * 2) * 260 == 133120
     assert plan(96, 128) == 4 * 3 * 96 * 132 == 152064
     assert max(plan(128, 128), plan(32, 256)) <= kernels.SMEM_LIMIT
-    assert plan(128, 256) > kernels.SMEM_LIMIT
+    assert plan(128, 256) == plan(128, 192) == 3 * 128 * 72 * 4 == 110592
+    assert plan(144, 64) == 3 * 144 * 72 * 4 == 124416
+    assert plan(32, 512) == 4 * 3 * (2 * 16 * 40 + 2 * 16 * 72) == 43008
     check = block_attention.check_backward_window
     f32 = dict(dtype=torch.float32, device="meta")
     check("k5", torch.empty((1, 2, 8, 8, 512), **f32), 4, 8)    # s1
@@ -199,10 +205,12 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     check("k5", torch.empty((1, 6, 4, 4, 256), **f32), 4, 4)    # TN 96
     check("k5", torch.empty((1, 2, 4, 4, 192), **f32), 4, 4)    # hd 48
     check("k5", torch.empty((1, 2, 8, 8, 96), **f32), 4, 8)     # hd 24
-    refused = (((1, 2, 8, 8, 512), 2, 8),     # TN 128, hd 256
-               ((1, 1, 12, 12, 256), 4, 12),  # TN 144
-               ((1, 2, 4, 4, 200), 4, 4),     # hd 50
-               ((1, 2, 8, 8, 768), 4, 8))     # hd 192 at TN 128
+    check("k5", torch.empty((1, 2, 8, 8, 512), **f32), 2, 8)    # hd 256
+    check("k5", torch.empty((1, 1, 12, 12, 256), **f32), 4, 12)  # TN 144
+    check("k5", torch.empty((1, 2, 8, 8, 768), **f32), 4, 8)    # hd 192
+    refused = (((1, 2, 8, 8, 592), 2, 8),     # TN 128, hd 296
+               ((1, 12, 4, 4, 256), 4, 4),    # TN 192
+               ((1, 2, 4, 4, 200), 4, 4))     # hd 50
     for shape, heads, ws in refused:
         with pytest.raises(ValueError, match="fp32 form"):
             check("k5", torch.empty(shape, **f32), heads, ws)
@@ -212,7 +220,7 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     calls = []
     monkeypatch.setattr(block_attention, "_forward_f32",
                         lambda *a: calls.append(a))
-    C, TN = 512, 128
+    C, TN = 592, 128
     with pytest.raises(ValueError, match="fp32 form"):
         block_attention.swin_block_attention(
             _meta(1, 2, 8, 8, C), _meta(3 * C, C, grad=True), _meta(3 * C),

@@ -8,7 +8,8 @@ gives), and lo = x - hi, which the mma reads as TF32 by dropping its low
 13 bits; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi. Here that split is
 emulated in plain PyTorch (a product of two TF32 values is exact in fp32,
 so an fp32 matmul of the halves is what the mma sums) and applied to the
-attention contract and K5's attention backward: the 3xTF32 form stays
+attention contract and K5's attention backward (and its streamed form,
+hd in chunks, P and dS stored): the 3xTF32 form stays
 within the fp32 bound the card's checks hold the kernels to
 (`chip_smoke.TOL_F32_REL`), and a single TF32 pass misses it tenfold.
 The fp32 GEMM tile (`csrc/fp32_gemm.cuh`: the fp32 GEMM, row 17's fp32
@@ -218,6 +219,79 @@ def test_attention_backward_on_3xtf32(TN, hd, masked):
     for name, a, t, o, w in zip(("dq", "dk", "dv", "dbias"), auto, three,
                                 one, want):
         assert _rel(a, w) <= TOL_F32_REL / 10, name
+        assert _rel(t, w) <= TOL_F32_REL, name
+        assert _rel(o, w) > 10 * TOL_F32_REL, name
+
+
+def mm_chunked(split_fn, chunk=32, step=8):
+    """a @ b as the streamed passes form S = q k^T and dP = dO v^T: the k
+    dim (hd) arrives in chunks of `chunk` columns (the ring's slots), and
+    each chunk's k steps of 8 are summed as `mm_steps` sums them, into the
+    same fp32 sums."""
+    def mm(a, b):
+        (ah, al), (bh, bl) = split_fn(a), split_fn(b)
+        out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=a.dtype)
+        for c0 in range(0, a.shape[-1], chunk):
+            for k0 in range(c0, min(c0 + chunk, a.shape[-1]), step):
+                k = slice(k0, k0 + step)
+                t = al[..., k] @ bh[..., k, :]
+                t = t + ah[..., k] @ bl[..., k, :]
+                out = out + (t + ah[..., k] @ bh[..., k, :])
+        return out
+    return mm
+
+
+def streamed_attn_bwd(mm_qk, mm, q, k, v, bias, mask, scale, do):
+    """K5 fp32's streamed attention backward (`attn32b::qs_kernel`,
+    `kvs_kernel`): the query pass forms S (`mm_qk`, hd in chunks), P as
+    the forward and stores it, dP (`mm_qk`), D = sum dP P from the stored
+    P, dS = P (dP - D) stored beside it, dq = dS k * scale (`mm`: the k
+    steps over keys); the key pass dv = P^T dO and dk = dS^T q * scale
+    from the stored P and dS (`mm`: the k steps over queries). Returns
+    (dq, dk, dv, dbias)."""
+    p = probs_with(mm_qk, q, k, bias, mask, scale).clone()  # stored
+    dp = mm_qk(do, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).clone()  # stored
+    return (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+            mm(p.transpose(-1, -2), do), ds.sum(dim=0))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["w", "sw"])
+def test_streamed_attention_backward_on_3xtf32(masked):
+    """K5 fp32's streamed attention backward at `num_heads=2`'s stage-1
+    window (TN 128, hd 256, past the resident passes), one image of 4
+    windows x 2 heads, W-MSA and SW-MSA, at phase 7's draw (q, k, v at std
+    2, the bias N(0, 1)) and dO N(0, 1): S and dP summed over hd in
+    chunks of 32 columns give the bits of the unchunked k steps (the
+    resident order); dq, dk, dv and dbias from the stored P and dS are
+    within TOL_F32_REL of the backward in float64; one TF32 pass misses it
+    tenfold."""
+    rng = np.random.default_rng(25)
+    TN, hd, ws, heads = 128, 256, 8, 2
+    T, H, W = 2, 2 * ws, 2 * ws
+    Bw = (H // ws) * (W // ws)
+    q, k, v = (rng.standard_normal((Bw, heads, TN, hd)).astype(np.float32)
+               * 2 for _ in range(3))
+    do = rng.standard_normal((Bw, heads, TN, hd)).astype(np.float32)
+    bias = rng.standard_normal((heads, TN, TN)).astype(np.float32)
+    mask = (np.tile(shifted_window_attention_mask(H, W, ws, ws // 2),
+                    (1, T, T)) if masked else None)
+    scale = hd ** -0.5
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    tm = None if mask is None else torch.from_numpy(mask)
+    tdo = torch.from_numpy(do)
+    steps = mm_steps(split)
+    chunked = mm_chunked(split)
+    qk = args[0] @ args[1].transpose(-1, -2)
+    assert torch.equal(chunked(args[0], args[1].transpose(-1, -2)),
+                       steps(args[0], args[1].transpose(-1, -2)))
+    assert not torch.equal(qk, steps(args[0], args[1].transpose(-1, -2)))
+    want = attn_bwd_with(torch.matmul, *(a.double() for a in args),
+                         None if tm is None else tm.double(), scale,
+                         tdo.double())
+    three = streamed_attn_bwd(chunked, steps, *args, tm, scale, tdo)
+    one = streamed_attn_bwd(mm_1xtf32, mm_1xtf32, *args, tm, scale, tdo)
+    for name, t, o, w in zip(("dq", "dk", "dv", "dbias"), three, one, want):
         assert _rel(t, w) <= TOL_F32_REL, name
         assert _rel(o, w) > 10 * TOL_F32_REL, name
 

@@ -4,7 +4,9 @@ dims off 128 and 32, in fp32 and bf16.
 
 (C, heads) = (32, 4) hd 8, (64, 4) hd 16, (96, 4) hd 24 and (192, 4) hd
 48, each at both stages' window shapes, TN 128 (ws 8, T 2) and TN 32 (ws
-4, T 2):
+4, T 2) (and, for K1 and rows 10-11 in fp32, the windows past the fp32
+core's resident pair, one head: hd 192 and 256 at TN 128, 384 and 512 at
+TN 32, 208 at TN 176):
 - K1 (`fused_swin_block_attention`, Pallas row 1), W-MSA and SW-MSA;
 - K2's two epilogues (rows 2 and 3) and its m form (row 8);
 - K5 (`fused_swin_block_attention_bwd`, row 6);
@@ -98,8 +100,8 @@ def _round(a, dtype):
 
 
 def _attn_case(rng, width, window, dtype, shift):
-    C, heads = WIDTHS[width]
-    T, H, W, ws = WINDOWS[window]
+    C, heads = ALL_WIDTHS[width]
+    T, H, W, ws = ALL_WINDOWS[window]
     f = lambda *s, k=1.0: _round(  # noqa: E731
         (rng.standard_normal(s) * k).astype(np.float32), dtype)
     N, TN = ws * ws, T * ws * ws
@@ -136,14 +138,26 @@ def _jax_attn_args(c, dtype):
 GRID = [pytest.param(w, win, dt, id=f"{w}-{win}-{dt}")
         for w in WIDTHS for win in WINDOWS for dt in DTYPES]
 
+# The fp32 core's streamed windows (past its resident pair), one head,
+# fp32: TN 128 at hd 192 and 256 (`swin_dim` 768's and `num_heads=2`'s
+# stage 1), TN 32 at hd 384 and 512 (their stage 2), TN 176 (T 11, ws 4)
+# at hd 208, K1's widest window at its widest head dim
+ALL_WIDTHS = {**WIDTHS, "hd192": (192, 1), "hd256": (256, 1),
+              "hd384": (384, 1), "hd512": (512, 1), "hd208": (208, 1)}
+ALL_WINDOWS = {**WINDOWS, "tn176": (11, 8, 8, 4)}
+STREAMED = [pytest.param(w, win, "fp32", id=f"{w}-{win}-fp32")
+            for w, win in (("hd192", "tn128"), ("hd256", "tn128"),
+                           ("hd384", "tn32"), ("hd512", "tn32"),
+                           ("hd208", "tn176"))]
+
 
 @pytest.mark.parametrize("shifted", [False, True], ids=["w", "sw"])
-@pytest.mark.parametrize("width,window,dtype", GRID)
+@pytest.mark.parametrize("width,window,dtype", GRID + STREAMED)
 def test_block_attention_matches_jax(rng, width, window, dtype, shifted):
     """K1: `swin_block_attention` on the CPU (its twin) against the
     interpreted `fused_swin_block_attention`, the shifted block taking the
     unshifted x and leaving the shifted layout on both sides."""
-    ws = WINDOWS[window][3]
+    ws = ALL_WINDOWS[window][3]
     c = _attn_case(rng, width, window, dtype, ws // 2 if shifted else 0)
     want = jattn.fused_swin_block_attention(
         *_jax_attn_args(c, dtype), c["heads"], c["scale"], ws, c["shift"],
@@ -270,14 +284,14 @@ def test_epilogue_bwds_match_jax(rng, width, window, dtype):
             _check(a, b, f"{row} {name}", dtype, BWD_TOL)
 
 
-@pytest.mark.parametrize("width,window,dtype", GRID)
+@pytest.mark.parametrize("width,window,dtype", GRID + STREAMED)
 def test_rows_10_and_11_match_jax(rng, width, window, dtype):
     """Rows 10 (`windowed_attention_image`) and 11
     (`fused_window_attention`) of an SW-MSA block on the CPU against the
     interpreted Pallas kernels: the output, and the gradients of qkv (q,
     k, v) and the bias against `jax.grad` through them."""
-    C, heads = WIDTHS[width]
-    T, H, W, ws = WINDOWS[window]
+    C, heads = ALL_WIDTHS[width]
+    T, H, W, ws = ALL_WINDOWS[window]
     dt, jdt = DTYPES[dtype]
     N, TN = ws * ws, T * ws * ws
     qkv = _round(rng.standard_normal((1, T, H, W, 3 * C)).astype(
