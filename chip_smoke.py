@@ -112,6 +112,21 @@ stops a phase exits non-zero at once:
      `predict_next`), then `phase_config_train` on them (3 stage-1 steps at
      batch 8, exact launches, ms/step, peak memory, the first step's
      gradients gated as 2h gates them);
+  2k. (after phase 2j; `phase_f32_streamed`) the fp32 forms of K1, K5 and
+     rows 10-11 at windows past their resident instances (F32_STREAMED),
+     `num_heads=2` and `swin_dim=768` served in fp32, 768 stepped once at
+     the largest batch that fits;
+  2l. (after phase 2k; `phase_attn_streamed`) K1, rows 10 and 11, K5's
+     attention backward alone and K5 at the head dims past the bf16
+     resident pair (ATTN_STREAMED: TN 128 x hd 296-640, TN 144 x hd 320,
+     TN 176 x hd 216 / 320, TN 32 x hd 1208-2048) in bf16 and fp32
+     against their twins, bit-equal, planted faults (a QK^T without its
+     last column chunk among them) tenfold out, the library's streamed
+     launches exactly where the plans stream, timed beside SDPA; windows
+     outside the envelope refused before any launch; `num_heads=1` and
+     `swin_dim=1280` served at bs 2 in both dtypes, `num_heads=1` trained
+     (3 steps at batch 8, gated as 2h), 1280 stepped once at the largest
+     batch that fits;
   2d. hold the whole-block kernel (Pallas row 16) against its twin at
      the full-width serving and batch-8 training shapes of both stages,
      with weights drawn so that the attention branch is as large as x
@@ -657,36 +672,40 @@ def kernel_wrappers() -> dict:
 
 def reset_launches(wrappers) -> None:
     """Every kernel's launch count to 0, the library's GEMM counts and its
-    counts of the fp32 attention's streamed instances too, with the card
+    counts of the attention's streamed instances too, with the card
     idle."""
     import torch
+    from stswincl_tpu_torch.ops import attention as attn_ops
+    from stswincl_tpu_torch.ops import block_attention as att
     from stswincl_tpu_torch.ops import gemm as gemm_ops
-    from stswincl_tpu_torch.ops.attention import attn_f32_streamed_launches
-    from stswincl_tpu_torch.ops.block_attention import (
-        attn_bwd_f32_streamed_launches)
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
     gemm_ops.launch_counts(reset=True)
-    attn_f32_streamed_launches(reset=True)
-    attn_bwd_f32_streamed_launches(reset=True)
+    attn_ops.attn_streamed_launches(reset=True)
+    attn_ops.attn_f32_streamed_launches(reset=True)
+    att.attn_bwd_passes_launches(reset=True)
+    att.attn_bwd_f32_streamed_launches(reset=True)
 
 
 def read_launches(wrappers) -> tuple:
     """(each kernel's launches since the reset, the library's counts by
     form). A kernel's count is its wrapper's; a Hopper GEMM row's is the
     library's, which also counts the launches made inside the C entries of
-    K1, K2, K3, K5 and K6. The forms are the GEMM's, and "attn_f32_streamed"
-    / "attn_bwd_f32_streamed": the launches of the fp32 attention core's
-    streamed instance (K1, rows 10, 11) and of K5 fp32's streamed
-    backward passes (K5, `attn_bwd_f32`)."""
+    K1, K2, K3, K5 and K6. The forms are the GEMM's, and "attn_streamed" /
+    "attn_f32_streamed": the launches of the bf16 and fp32 attention
+    cores' streamed instances (K1, rows 10, 11), "attn_bwd_passes" /
+    "attn_bwd_f32_streamed": the runs of K5 bf16's two passes (its query
+    pass streamed) and of K5 fp32's streamed passes (K5, `attn_bwd`,
+    `attn_bwd_f32`)."""
+    from stswincl_tpu_torch.ops import attention as attn_ops
+    from stswincl_tpu_torch.ops import block_attention as att
     from stswincl_tpu_torch.ops import gemm as gemm_ops
-    from stswincl_tpu_torch.ops.attention import attn_f32_streamed_launches
-    from stswincl_tpu_torch.ops.block_attention import (
-        attn_bwd_f32_streamed_launches)
     forms = gemm_ops.launch_counts()
-    forms["attn_f32_streamed"] = attn_f32_streamed_launches()
-    forms["attn_bwd_f32_streamed"] = attn_bwd_f32_streamed_launches()
+    forms["attn_streamed"] = attn_ops.attn_streamed_launches()
+    forms["attn_f32_streamed"] = attn_ops.attn_f32_streamed_launches()
+    forms["attn_bwd_passes"] = att.attn_bwd_passes_launches()
+    forms["attn_bwd_f32_streamed"] = att.attn_bwd_f32_streamed_launches()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     for k, fs in GEMM_ROWS.items():
         if k in counts:
@@ -1789,6 +1808,13 @@ def main() -> None:
           f"swin_dim=768 in fp32: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- phase 2l: every head dim, both dtypes ---------------------------
+    t0 = time.perf_counter()
+    phase_attn_streamed(dev, smi, wrappers, launches, results, median_ms)
+    print(f"phase 2l the attention past the bf16 resident pair, num_heads=1 "
+          f"and swin_dim=1280 in both dtypes: {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
@@ -2298,13 +2324,12 @@ ENVELOPE_MODELS = {
 ENVELOPE_STEPS = 3
 
 
-def envelope_model(dev, cfg, seed=0, kernels=None):
-    """`cfg`'s model from seeded weights, in train mode: `build_model` on
-    the kernels, or the same TswinPlus with `kernels=False` for the
-    twin."""
+def envelope_model(dev, cfg, seed=0, kernels=None, state=None):
+    """`cfg`'s model from seeded weights (`state`, or drawn from `seed`),
+    in train mode: `build_model` on the kernels, or the same TswinPlus with
+    `kernels=False` for the twin."""
     import torch
     from stswincl_tpu_torch.models import TswinPlus
-    from stswincl_tpu_torch.models.init import init_weights
     from stswincl_tpu_torch.pipelines.common import build_model
     if kernels is None:
         m, _ = build_model(cfg.model, cfg.data, device=dev)
@@ -2316,15 +2341,25 @@ def envelope_model(dev, cfg, seed=0, kernels=None):
                       dtype=getattr(torch, mc.dtype),
                       input_hw=tuple(cfg.data.crop_hw),
                       attn_impl=mc.attn_impl, kernels=kernels).to(dev)
-    state = init_weights(TswinPlus(
+    if state is None:
+        state = envelope_state(cfg, seed)
+    m.load_state_dict(state)
+    return m.train()
+
+
+def envelope_state(cfg, seed=0) -> dict:
+    """The seeded weights of `cfg`'s model (`envelope_model`), drawn on the
+    CPU."""
+    import torch
+    from stswincl_tpu_torch.models import TswinPlus
+    from stswincl_tpu_torch.models.init import init_weights
+    return init_weights(TswinPlus(
         cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
         num_heads=cfg.model.num_heads,
         swin_depths=tuple(cfg.model.swin_depths),
         dtype=getattr(torch, cfg.model.dtype),
         input_hw=tuple(cfg.data.crop_hw)),
         torch.Generator().manual_seed(seed)).state_dict()
-    m.load_state_dict(state)
-    return m.train()
 
 
 def envelope_steps(cfg, m, n, x, y):
@@ -2425,7 +2460,7 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
     from stswincl_tpu_torch.models.swin import (PatchMerging,
                                                 SpaceTimeSwinBlock)
     from stswincl_tpu_torch.ops.block_attention import (
-        _attn_f32_bwd_resident)
+        _attn_bwd_slot_takes, _attn_f32_bwd_resident)
 
     imgs, lbls = seeded_batch(8, seed=3)
     images = torch.from_numpy(imgs).to(dev)
@@ -2436,8 +2471,8 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
         sfx = "_f32" if f32 else ""
         tag = f"[envelope {label}]"
         m = envelope_model(dev, cfg)
-        # "past": the block calls whose window is past K5 fp32's resident
-        # passes
+        # "past": the block calls whose window is past K5's resident
+        # passes in fp32, its slot kernel in bf16
         calls = {"block": 0, "merge": 0, "past": 0}
 
         def count(mod, inputs, out):
@@ -2446,9 +2481,10 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
             elif isinstance(mod, SpaceTimeSwinBlock):
                 calls["block"] += 1
                 x = inputs[0]
-                calls["past"] += not _attn_f32_bwd_resident(
-                    x.shape[1] * mod.window_size ** 2,
-                    x.shape[-1] // mod.num_heads)
+                TN = x.shape[1] * mod.window_size ** 2
+                hd = x.shape[-1] // mod.num_heads
+                calls["past"] += not (_attn_f32_bwd_resident(TN, hd) if f32
+                                      else _attn_bwd_slot_takes(TN, hd))
         hook = torch.nn.modules.module.register_module_forward_hook(count)
         reset_launches(wrappers)
         torch.cuda.reset_peak_memory_stats()
@@ -2458,18 +2494,19 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
         finally:
             hook.remove()
         counts, forms = read_launches(wrappers)
-        # K5 fp32's streamed attention backward: exactly once for each
-        # block call whose window is past its resident passes
-        streamed_b = forms["attn_bwd_f32_streamed"]
-        if f32:
-            STREAMED_LAUNCHES[f"envelope {label}: backward in "
-                              f"{ENVELOPE_STEPS} steps"] = streamed_b
-            print(f"  {tag} K5 fp32's streamed backward ran {streamed_b} "
-                  f"times for {calls['past']} block calls past its "
-                  "resident passes", flush=True)
-            check(streamed_b == calls["past"], f"{tag}: the streamed "
-                  f"backward ran {streamed_b} times for {calls['past']} "
-                  "block calls past the resident passes")
+        # K5's streamed attention backward (fp32: its streamed passes;
+        # bf16: its two passes): exactly once for each block call whose
+        # window is past its resident passes or slot kernel
+        streamed_b = forms["attn_bwd_f32_streamed" if f32
+                           else "attn_bwd_passes"]
+        STREAMED_LAUNCHES[f"envelope {label}: backward in "
+                          f"{ENVELOPE_STEPS} steps"] = streamed_b
+        print(f"  {tag} K5{sfx}'s streamed backward ran {streamed_b} "
+              f"times for {calls['past']} block calls past its resident "
+              "instance", flush=True)
+        check(streamed_b == calls["past"], f"{tag}: the streamed "
+              f"backward ran {streamed_b} times for {calls['past']} "
+              "block calls past the resident instance")
         launches[f"envelope {label}"] = counts
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         zero_grad = {f"{n}.conv.bias" for n, mod in m.named_modules()
@@ -2846,17 +2883,19 @@ def phase_widths_models(dev, smi, wrappers, launches) -> None:
     phase_config_train(dev, smi, wrappers, launches, WIDTH_MODELS)
 
 
-def serve_models(dev, smi, wrappers, launches, models, share) -> dict:
+def serve_models(dev, smi, wrappers, launches, models, share,
+                 steps=WIDTH_SERVE_STEPS) -> dict:
     """Each of `models` (label -> (ModelConfig fields, dtype)) built by
     `pipelines.build_model` on 'pallas_full' from seeded weights
     (BatchNorm calibrated on the first clip) serves through
     `StreamingSegmenter` at 512x640 -> 1024x1280, bs 2: `init_and_predict`,
-    then WIDTH_SERVE_STEPS `predict_next`s, each launching K1, K2, K3 and
+    then `steps` `predict_next`s, each launching K1, K2, K3 and
     K4 as often as the default model's route does (SERVE_STEP) and nothing
     of the other dtype; its predictions the plain route's (`kernels=False`,
     same weights) on >= `share` of pixels each frame; ms a `predict_next`
-    (median after the first). Returns, by label, the launches of the fp32
-    core's streamed instance a `predict_next`."""
+    (median after the first). Returns, by label, the launches of the
+    attention core's streamed instance in the model's dtype a
+    `predict_next`."""
     import torch
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
@@ -2866,7 +2905,7 @@ def serve_models(dev, smi, wrappers, launches, models, share) -> dict:
     from stswincl_tpu_torch.pipelines.streaming import StreamingSegmenter
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    frames = torch.rand((BS, 4 + WIDTH_SERVE_STEPS, H, W, 3), generator=gen,
+    frames = torch.rand((BS, 4 + steps, H, W, 3), generator=gen,
                         device=dev) * 2 - 1
     streamed = {}
     for label, (fields, dtype) in models.items():
@@ -2893,17 +2932,17 @@ def serve_models(dev, smi, wrappers, launches, models, share) -> dict:
             cache, pred = seg.init_and_predict(frames[:, 0:4])
             before, forms0 = read_launches(wrappers)
             preds, secs = [pred], []
-            for i in range(4, 4 + WIDTH_SERVE_STEPS):
+            for i in range(4, 4 + steps):
                 ts = time.perf_counter()
                 cache, pred = seg.predict_next(cache, frames[:, i])
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - ts)
                 preds.append(pred)
             launches[path], forms = read_launches(wrappers)
-            per = {k: (n - before[k]) / WIDTH_SERVE_STEPS
+            per = {k: (n - before[k]) / steps
                    for k, n in launches[path].items()}
-            per_s = (forms["attn_f32_streamed"]
-                     - forms0["attn_f32_streamed"]) / WIDTH_SERVE_STEPS
+            key = "attn_f32_streamed" if f32 else "attn_streamed"
+            per_s = (forms[key] - forms0[key]) / steps
             return preds, per, 1e3 * statistics.median(secs[1:]), per_s
 
         preds, per, ms, per_s = drive(model, f"serve {label}")
@@ -2916,11 +2955,11 @@ def serve_models(dev, smi, wrappers, launches, models, share) -> dict:
               f"hd {cfg.model.swin_dim // cfg.model.num_heads} / "
               f"{2 * cfg.model.swin_dim // cfg.model.num_heads}: "
               f"{ms:.2f} ms a predict_next (plain route {plain_ms:.2f}; "
-              f"median of {WIDTH_SERVE_STEPS - 1}) at bs {BS}; kernel "
+              f"median of {steps - 1}) at bs {BS}; kernel "
               f"route == plain route on min {min(shares):.6f} of pixels "
               f"over {len(shares)} frames; launches a predict_next "
               f"{ {k: v for k, v in per.items() if v} }, of them "
-              f"{per_s} on the fp32 core's streamed instance, on {smi}",
+              f"{per_s} on the core's streamed instance, on {smi}",
               flush=True)
         check(min(shares) >= share, f"{tag}: kernel vs plain "
               f"route {min(shares)} < {share}")
@@ -2996,14 +3035,9 @@ def phase_f32_streamed(dev, smi, wrappers, launches, results,
     F32_STREAMED_MODELS served by `serve_models` at >= TOL_F32_SHARE of the
     plain route's pixels, and `swin_dim=768` fp32 stepped once through
     `SegTrainStep` at the largest batch of F32_STREAMED_STEP_BATCHES that
-    fits: finite loss and gradients, K1, K2, K5 and K6's fp32 forms once a
-    block call, the streamed backward launched; its batch and peak memory
-    printed. Windows outside K1's bf16 envelope are refused with
-    ValueError before any launch."""
+    fits (`step_largest`). Phase 2l holds the refusals."""
     import torch
     import torch.nn.functional as F
-    from stswincl_tpu_torch.configs import ModelConfig, SegTrainConfig
-    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
     from stswincl_tpu_torch.ops import block_attention as att
     from stswincl_tpu_torch.ops.attention import (
         _attn_f32_resident_bytes, _attn_f32_smem_bytes, attend_tiled,
@@ -3192,47 +3226,438 @@ def phase_f32_streamed(dev, smi, wrappers, launches, results,
         del x, g, qkv, attn, dattn, args, kargs
         torch.cuda.empty_cache()
 
-    # refused before any launch: past K1's bf16 envelope (hd 296 at TN 128)
-    n0 = att.swin_block_attention_f32.launches
-    refused = ""
-    try:
-        x = torch.empty((1, 2, 8, 8, 592), device=dev)
-        att.swin_block_attention_f32(
-            x, torch.empty((1776, 592), device=dev),
-            torch.empty(1776, device=dev), torch.empty((592, 592), device=dev),
-            torch.empty(592, device=dev), torch.empty((2, 128, 128),
-                                                      device=dev),
-            None, 2, 0.1, 8)
-    except ValueError as e:
-        refused = str(e)
-    print(f"  [2k refused] TN 128 x hd 296: {refused!r}", flush=True)
-    check(bool(refused) and att.swin_block_attention_f32.launches == n0,
-          f"2k: hd 296 at TN 128 not refused before a launch ({refused!r})")
     print(f"phase 2k (a) the fp32 forms past the resident pair: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- (b) the models ----
     t_b = time.perf_counter()
     per = serve_models(dev, smi, wrappers, launches, F32_STREAMED_MODELS,
-                       TOL_F32_SHARE)
+                       TOL_F32_SHARE, STREAMED_SERVE_STEPS)
     for label, n in per.items():
         STREAMED_LAUNCHES[f"serve {label}: forward a predict_next"] = n
         check(n > 0, f"[serve {label}]: the streamed forward never ran")
     label = "swin_dim=768 fp32"
-    fields, dtype = F32_STREAMED_MODELS[label]
+    step_largest(dev, smi, wrappers, launches, label,
+                 *F32_STREAMED_MODELS[label], F32_STREAMED_STEP_BATCHES)
+    print(f"phase 2k (b) the models: {time.perf_counter() - t_b:.1f} s",
+          flush=True)
+
+
+# Phase 2l: the attention kernels past the bf16 core's resident pair, in
+# both dtypes (label: x's shape (B, T, H, W, C), heads, ws): head dims
+# 296-640 at TN 128 (hd 320: `swin_dim=1280`'s stage 1 at its serving
+# batch; hd 512: `num_heads=1`'s), TN 144 (ws 6, T 4) and TN 176 (ws 4, T
+# 11) past it, and TN 32 at hd 1208-2048 (the bf16 resident pair's last
+# fit at TN 32 is hd 1200). Every one is past K5 bf16's slot kernel.
+ATTN_STREAMED = {
+    "TN128 hd296": ((2, 2, 64, 80, 592), 2, 8),
+    "TN128 hd320": ((4, 2, 64, 80, 1280), 4, 8),
+    "TN128 hd440": ((2, 2, 64, 80, 880), 2, 8),
+    "TN128 hd512": ((2, 2, 64, 80, 512), 1, 8),
+    "TN128 hd640": ((2, 2, 64, 80, 640), 1, 8),
+    "TN144 hd320": ((1, 4, 48, 60, 640), 2, 6),
+    "TN176 hd216": ((1, 11, 32, 40, 864), 4, 4),
+    "TN176 hd320": ((1, 11, 32, 40, 640), 2, 4),
+    "TN32 hd1208": ((2, 2, 32, 40, 2416), 2, 4),
+    "TN32 hd1280": ((2, 2, 32, 40, 2560), 2, 4),
+    "TN32 hd2048": ((2, 2, 32, 40, 2048), 1, 4),
+}
+# (b) the models whose windows need the streamed instances in both dtypes:
+# served at bs 2, `num_heads=1` trained (ENVELOPE_STEPS steps at batch 8),
+# `swin_dim=1280` stepped once at the largest batch of
+# ATTN_STREAMED_STEP_BATCHES that fits
+ATTN_STREAMED_MODELS = {
+    "num_heads=1": (dict(num_heads=1), "bfloat16"),        # hd 512 / 1024
+    "num_heads=1 fp32": (dict(num_heads=1), "float32"),
+    "swin_dim=1280": (dict(swin_dim=1280), "bfloat16"),    # hd 320 / 640
+    "swin_dim=1280 fp32": (dict(swin_dim=1280), "float32"),
+}
+ATTN_STREAMED_STEP_BATCHES = (8, 4, 2)
+# predict_nexts a model of F32_STREAMED_MODELS and ATTN_STREAMED_MODELS
+# serves (`swin_dim` 768 and 1280 in fp32 take 1-3 s one on the kernel and
+# on the plain route)
+STREAMED_SERVE_STEPS = 3
+
+
+def drop_last_chunk(t, heads: int, chunk: int):
+    """t (..., heads * hd) with each head's last `chunk`-column chunk of
+    the head dim (its columns from (ceil(hd / chunk) - 1) chunk on)
+    zeroed: a planted fault for the streamed cores, a QK^T that lost its
+    last chunk of k steps."""
+    hd = t.shape[-1] // heads
+    c0 = (hd - 1) // chunk * chunk
+    t = t.clone()
+    t.view(*t.shape[:-1], heads, hd)[..., c0:] = 0
+    return t
+
+
+def phase_attn_streamed(dev, smi, wrappers, launches, results,
+                        median_ms) -> None:
+    """Phase 2l: (a) at every ATTN_STREAMED window, in bf16 and fp32: K1
+    (W-MSA and SW-MSA), rows 10 and 11 (masked), the attention backward
+    alone (`attn_bwd` / `attn_bwd_f32`, masked) and K5 (SW-MSA) against
+    their twins (bf16 within TOL_REL, fp32 within TOL_F32_REL with TF32
+    off), bit-equal call to call, one launch of the form a call, planted
+    faults missing the bound tenfold on the largest output's error: the
+    twin with the last column chunk of QK^T dropped (q's columns of each
+    head's last 64-column chunk zeroed in bf16, 32 in fp32: the streamed
+    cores' chunks) on every form but K5, K1 without its relative bias,
+    rows 10-11 without the mask, the backward without dbias or without
+    the row-sum term (bf16), every product on TF32 operands (fp32); the
+    library's streamed launches (`attn_streamed_launches`,
+    `attn_f32_streamed_launches`, `attn_bwd_passes_launches`,
+    `attn_bwd_f32_streamed_launches`) exactly where the plans put the
+    window; timed beside the twin, the bound and SDPA (its forward beside
+    row 11, its memory-efficient backward with the bias gradient beside
+    the backward alone; yardsticks the port never calls). Windows outside
+    the envelope (TN 192, a head dim off 8) are refused with ValueError
+    before any launch in both dtypes. (b) The models of
+    ATTN_STREAMED_MODELS served by `serve_models` (bf16 at
+    TOL_PLAIN_SHARE, fp32 at TOL_F32_SHARE of the plain route's pixels),
+    `num_heads=1` trained by `phase_config_train` in both dtypes, and
+    `swin_dim=1280` stepped once in both dtypes at the largest batch that
+    fits (`step_largest`)."""
+    phase_attn_streamed_kernels(dev, smi, wrappers, results, median_ms)
+    t_b = t = time.perf_counter()
+    for dt, share in (("bfloat16", TOL_PLAIN_SHARE),
+                      ("float32", TOL_F32_SHARE)):
+        models = {k: v for k, v in ATTN_STREAMED_MODELS.items()
+                  if v[1] == dt}
+        per = serve_models(dev, smi, wrappers, launches, models, share,
+                           STREAMED_SERVE_STEPS)
+        for label, n in per.items():
+            STREAMED_LAUNCHES[f"serve {label}: forward a predict_next"] = n
+            check(n > 0, f"[serve {label}]: the streamed forward never ran")
+    print(f"  [2l (b)] served: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_config_train(dev, smi, wrappers, launches,
+                       {k: v for k, v in ATTN_STREAMED_MODELS.items()
+                        if k.startswith("num_heads=1")})
+    print(f"  [2l (b)] num_heads=1 trained: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    for label in ("swin_dim=1280", "swin_dim=1280 fp32"):
+        step_largest(dev, smi, wrappers, launches, label,
+                     *ATTN_STREAMED_MODELS[label], ATTN_STREAMED_STEP_BATCHES)
+    print(f"  [2l (b)] swin_dim=1280 stepped: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    print(f"phase 2l (b) the models: {time.perf_counter() - t_b:.1f} s",
+          flush=True)
+
+
+def phase_attn_streamed_kernels(dev, smi, wrappers, results,
+                                median_ms) -> None:
+    """Phase 2l (a) (`phase_attn_streamed`)."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops import attention as attn_ops
+    from stswincl_tpu_torch.ops import block_attention as att
+    from stswincl_tpu_torch.ops.gemm import window_rows
+    from stswincl_tpu_torch.ops.window import (partition_qkv,
+                                               shifted_window_attention_mask)
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(*shape, fan_in, gain=1.0, dtype=f32):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5).to(dtype)
+
+    def hold(kname, case, form, names, kfn, pfn, faults, tol, work, peak,
+             library=None):
+        """kfn() (a launch of `form` a call, twice: bit-equal) against
+        pfn() on every output within `tol`; each (name, fault) of `faults`
+        tenfold out on its largest output error; timed beside the twin,
+        the bound of `work` at `peak` and `library`."""
+        n = form.launches
+        got = kfn()
+        again = kfn()
+        torch.cuda.synchronize()
+        check(form.launches == n + 2, f"{kname} {case}: "
+              f"{form.launches - n} launches of the form in two calls")
+        bit = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = pfn()
+        rels = {nm: rel_err(a, w) for nm, a, w in zip(names, got, want)}
+        max_abs = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(got, want))
+        for nm, r in rels.items():
+            check(r <= tol, f"{kname} {case} {nm}: relative error {r} > "
+                  f"{tol}")
+        check(bit, f"{kname} {case}: two calls on the same inputs differ")
+        moved = {}
+        for fname, bad in faults:
+            moved[fname] = max_rel_err(bad(), want)
+            check(moved[fname] > 10 * tol, f"{kname} {case}: the twin "
+                  f"{fname} moves the output by only {moved[fname]}")
+        del got, want
+        torch.cuda.empty_cache()
+        row = {"case": case, "rel_errs": rels, "faults": moved,
+               "bit_equal": bit, "max_abs_err": max_abs,
+               "rel_err": max(rels.values()),
+               "ms": median_ms(kfn, reps=5),
+               "plain_ms": median_ms(pfn, reps=3), "library_ms": None,
+               **bound(*work, peak=peak)}
+        lib = ""
+        if callable(library):
+            row["library_ms"] = median_ms(library, reps=5)
+            lib = f" SDPA {row['library_ms']:.3f} ms"
+        elif library:
+            lib = f" SDPA {library}"
+        results.setdefault(kname, []).append(row)
+        print(f"  {kname:30s} {case:24s} worst rel {row['rel_err']:.2e} "
+              f"(bound {tol:.0e}), faults "
+              + ", ".join(f"{k} {v / tol:.0f}x" for k, v in moved.items())
+              + f"; bit-equal {bit}; {row['ms']:.3f} ms, twin "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.2f} of "
+              f"it){lib}", flush=True)
+        return row
+
+    dropped = "with its QK^T's last chunk dropped"
+    for label, (shape, heads, ws) in ATTN_STREAMED.items():
+        B, T, h, w, C = shape
+        TN, hd = T * ws * ws, C // heads
+        R, shift, scale = B * T * h * w, ws // 2, hd ** -0.5
+        mask = torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, shift)).repeat(1, T, T).to(dev)
+        nW = mask.shape[0]
+        for dtype in (bf16, f32):
+            bf = dtype == bf16
+            name = "bf16" if bf else "fp32"
+            sfx, tol = ("", TOL_REL) if bf else ("_f32", TOL_F32_REL)
+            peak = PEAK_BF16 if bf else PEAK_3XTF32
+            chunk = 64 if bf else 32
+            if bf:
+                fwd_streamed = (attn_ops._attn_plan_bytes(TN, hd)
+                                != attn_ops._attn_smem_bytes(TN, hd))
+                bwd_streamed = not att._attn_bwd_slot_takes(TN, hd)
+            else:
+                fwd_streamed = (attn_ops._attn_f32_smem_bytes(TN, hd)
+                                != attn_ops._attn_f32_resident_bytes(TN, hd))
+                bwd_streamed = not att._attn_f32_bwd_resident(TN, hd)
+            print(f"  [2l {label} {name}] x {shape}, {heads} heads: forward "
+                  f"{'streamed' if fwd_streamed else 'resident'}, backward "
+                  f"{'streamed' if bwd_streamed else 'resident'} on {smi}",
+                  flush=True)
+            x, g = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            # a peaked softmax (as phase 2), the attention branch about as
+            # large as x
+            wq = uniform(3 * C, C, fan_in=C, gain=3.0, dtype=dtype)
+            bq = uniform(3 * C, fan_in=C)
+            wp = uniform(C, C, fan_in=C, gain=2.0, dtype=dtype)
+            bp = uniform(C, fan_in=C)
+            bias = randn(heads, TN, TN)
+            reset_launches(wrappers)
+
+            # ---- K1, W-MSA and SW-MSA; the dropped chunk: the rows of
+            # wqkv and bqkv that form it zeroed ----
+            k1 = getattr(att, "swin_block_attention" + sfx)
+            wq_d = wq.clone()
+            wq_d[:C] = drop_last_chunk(wq[:C].t(), heads, chunk).t()
+            bq_d = bq.clone()
+            bq_d[:C] = drop_last_chunk(bq[:C], heads, chunk)
+            for sh in (0, shift):
+                a1 = (x, wq, bq, wp, bp, bias, mask if sh else None, heads,
+                      scale, ws, sh)
+                faults = [(dropped, lambda a=a1: (
+                    att.swin_block_attention_ref(a[0], wq_d, bq_d,
+                                                 *a[3:]),))]
+                faults.append(
+                    ("without its relative bias", lambda a=a1: (
+                        att.swin_block_attention_ref(
+                            *a[:5], torch.zeros_like(bias), *a[6:]),))
+                    if bf else
+                    ("on TF32 operands",
+                     lambda a=a1: (block_attention_tf32(*a),)))
+                hold(k1.__name__, f"2l {label} shift={sh}", k1, ("out",),
+                     lambda a=a1: (k1(*a),),
+                     lambda a=a1: (att.swin_block_attention_ref(*a),),
+                     faults, tol, block_attention_work(x, heads, TN, a1[6]),
+                     peak)
+            del wq_d, bq_d
+
+            # ---- rows 10 and 11, masked; SDPA's forward beside row 11 ----
+            qkv_img = randn(B, T, h, w, 3 * C, scale=2.0, dtype=dtype)
+            q, k, v = partition_qkv(qkv_img, heads, ws).contiguous()
+            qkv_d = qkv_img.clone()
+            qkv_d[..., :C] = drop_last_chunk(qkv_img[..., :C], heads, chunk)
+            q_d = drop_last_chunk(q.transpose(1, 2).reshape(-1, TN, C),
+                                  heads, chunk)
+            q_d = q_d.reshape(-1, TN, heads, hd).transpose(1, 2) \
+                .contiguous()
+            qs, ks, vs = (t.reshape(-1, nW * heads, TN, hd)
+                          for t in (q, k, v))
+            am = (mask[:, None] + bias[None]).reshape(
+                1, nW * heads, TN, TN).to(dtype)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=am,
+                                                      scale=scale)
+            awork = attention_work(R, C, TN, heads, mask, x.element_size())
+            r10 = getattr(att, "windowed_attention_image" + sfx)
+            a10 = (bias, mask, heads, scale, ws)
+            hold(r10.__name__, f"2l {label} masked", r10, ("out",),
+                 lambda: (r10(qkv_img, *a10),),
+                 lambda: (att.windowed_attention_image_ref(qkv_img, *a10),),
+                 [(dropped, lambda: (
+                     att.windowed_attention_image_ref(qkv_d, *a10),)),
+                  ("without the mask", lambda: (
+                      att.windowed_attention_image_ref(
+                          qkv_img, bias, None, heads, scale, ws),))
+                  if bf else
+                  ("on TF32 operands", lambda: (image_attention_fault(
+                      qkv_img, *a10, operands=tf32),))],
+                 tol, awork, peak)
+            r11 = getattr(attn_ops, "fused_window_attention" + sfx)
+            a11 = (bias, mask, scale)
+            hold(r11.__name__, f"2l {label} masked", r11, ("out",),
+                 lambda: (r11(q, k, v, *a11),),
+                 lambda: (attn_ops.attend_tiled(q, k, v, *a11),),
+                 [(dropped, lambda: (
+                     attn_ops.attend_tiled(q_d, k, v, *a11),)),
+                  ("without the mask", lambda: (
+                      attn_ops.attend_tiled(q, k, v, bias, None, scale),))
+                  if bf else
+                  ("on TF32 operands", lambda: (attend_fault(
+                      q, k, v, *a11, operands=tf32),))],
+                 tol, awork, peak, sdpa)
+            del qkv_img, qkv_d, q, k, v, q_d, qs, ks, vs, am
+            torch.cuda.empty_cache()
+
+            # ---- the attention backward alone, then K5 ----
+            with torch.no_grad():
+                fwd = att._forward_kernel if bf else att._forward_f32
+                _, qkv, attn = fwd(x, wq, bq, wp, bp, bias, mask, heads,
+                                   scale, ws, shift)
+                rows = window_rows(R, (T, h, w, ws, 0), dev)
+                dattn = (g.reshape(R, C)[rows].float()
+                         @ wp.float()).to(dtype)
+            args = (qkv, dattn, bias, mask, heads, scale, TN)
+            qkv_dr = qkv.clone()
+            qkv_dr[:, :C] = drop_last_chunk(qkv[:, :C], heads, chunk)
+            lib = sdpa_bwd_yardstick(*args)
+
+            def split(r):
+                return (r[0][:, :C], r[0][:, C:2 * C], r[0][:, 2 * C:], r[1])
+            bwd1 = att.attn_bwd if bf else att.attn_bwd_f32
+            faults = [(dropped, lambda: split(
+                att.attn_bwd_ref(qkv_dr, *args[1:])))]
+            faults.append(
+                ("without dbias", lambda: (lambda r: r[:3] + (
+                    torch.zeros_like(r[3]),))(split(att.attn_bwd_ref(*args))))
+                if bf else
+                ("on TF32 operands", lambda: split(attn_bwd_tf32(*args))))
+            hold(bwd1.__name__, f"2l {label} masked", bwd1,
+                 ("dq", "dk", "dv", "dbias"),
+                 (lambda: split(att.attn_bwd(qkv, dattn, attn, *args[2:])))
+                 if bf else (lambda: split(att.attn_bwd_f32(*args))),
+                 lambda: split(att.attn_bwd_ref(*args)), faults, tol,
+                 (10 * R * TN * C, 7 * R * C * x.element_size()
+                  + (2 * heads * TN * TN + mask.numel()) * 4), peak, lib)
+            del lib, qkv_dr
+            k5 = getattr(att, "swin_block_attention_bwd" + sfx)
+            fa = (x, wq, bq, wp, bp, bias, mask)
+
+            def k5_twin():
+                return att.swin_block_attention_bwd_ref(*fa, g, heads,
+                                                        scale, ws, shift)
+            faults = [("without dbias", lambda: (
+                lambda r: r[:5] + (torch.zeros_like(r[5]),))(k5_twin()))]
+            if bf:
+                faults.append(("without the row-sum term (dS = P dP)",
+                               lambda: attention_bwd_without_rowsum(
+                                   *fa, g, heads, scale, ws, shift)))
+            hold(k5.__name__, f"2l {label} shift={shift}", k5,
+                 ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"),
+                 lambda: k5(x, g, qkv, attn, wq, wp, bias, mask, heads,
+                            scale, ws, shift), k5_twin, faults, tol,
+                 k5_work(x, heads, TN, mask), peak)
+            forms = read_launches(wrappers)[1]
+            fwd_n = forms["attn_streamed" if bf else "attn_f32_streamed"]
+            bwd_n = forms["attn_bwd_passes" if bf else
+                          "attn_bwd_f32_streamed"]
+            # K1 twice in each of two shifts and five timed runs after two
+            # warm-ups: 2 x (2 + 7); rows 10 and 11: 9 each; the scratch
+            # forward above once; the backward alone and inside K5: 9 each
+            want_f = 37 if fwd_streamed else 0
+            want_b = 18 if bwd_streamed else 0
+            print(f"  [2l {label} {name}] streamed launches: forward "
+                  f"{fwd_n} (expected {want_f}), backward {bwd_n} "
+                  f"(expected {want_b})", flush=True)
+            check(fwd_n == want_f and bwd_n == want_b,
+                  f"2l {label} {name}: streamed launches {fwd_n} / {bwd_n}, "
+                  f"expected {want_f} / {want_b}")
+            del x, g, qkv, attn, dattn, args
+            torch.cuda.empty_cache()
+
+    # refused before any launch in both dtypes: TN 192 and a head dim off 8
+    for dtype in (bf16, f32):
+        k1 = getattr(att, "swin_block_attention"
+                     + ("" if dtype == bf16 else "_f32"))
+        for (T, C, heads), why in (((3, 592, 2), "TN 192"),
+                                   ((2, 600, 4), "hd 150")):
+            n0 = k1.launches
+            refused = ""
+            try:
+                xr = torch.empty((1, T, 8, 8, C), device=dev, dtype=dtype)
+                k1(xr, torch.empty((3 * C, C), device=dev, dtype=dtype),
+                   torch.empty(3 * C, device=dev),
+                   torch.empty((C, C), device=dev, dtype=dtype),
+                   torch.empty(C, device=dev),
+                   torch.empty((heads, T * 64, T * 64), device=dev), None,
+                   heads, 0.1, 8)
+            except ValueError as e:
+                refused = str(e)
+            print(f"  [2l refused {dtype}] {why}: {refused!r}", flush=True)
+            check(bool(refused) and k1.launches == n0,
+                  f"2l: {why} in {dtype} not refused before a launch "
+                  f"({refused!r})")
+    print(f"phase 2l (a) the attention kernels past the resident pair: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def step_largest(dev, smi, wrappers, launches, label, fields, dtype,
+                 batches) -> None:
+    """`ModelConfig(**fields, dtype=dtype)` stepped once through
+    `SegTrainStep` at the largest of `batches` that fits: finite loss and
+    gradients, K1, K2, K5 and K6 in the dtype's form once a block call,
+    the streamed backward (bf16: K5's two passes; fp32: its streamed
+    passes) once for each block call whose window its plan streams; its
+    batch, step time and peak memory printed."""
+    import torch
+    from stswincl_tpu_torch.configs import ModelConfig, SegTrainConfig
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+    from stswincl_tpu_torch.ops import block_attention as att
+
+    f32 = dtype == "float32"
+    sfx = "_f32" if f32 else ""
     cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
     tag = f"[step {label}]"
-    imgs, lbls = seeded_batch(max(F32_STREAMED_STEP_BATCHES), seed=3)
+    imgs, lbls = seeded_batch(max(batches), seed=3)
+    state = envelope_state(cfg)
     done = None
-    for batch in F32_STREAMED_STEP_BATCHES:
+    for batch in batches:
         images = torch.from_numpy(imgs[:batch]).to(dev)
         labels = torch.from_numpy(lbls[:batch]).to(dev).long()
-        m = envelope_model(dev, cfg)
-        calls = {"block": 0}
+        m = envelope_model(dev, cfg, state=state)
+        calls = {"block": 0, "streamed": 0}
 
         def count(mod, inputs, out):
             if isinstance(mod, SpaceTimeSwinBlock):
                 calls["block"] += 1
+                x = inputs[0]
+                TN = x.shape[1] * mod.window_size ** 2
+                hd = x.shape[-1] // mod.num_heads
+                calls["streamed"] += (
+                    not att._attn_f32_bwd_resident(TN, hd) if f32
+                    else not att._attn_bwd_slot_takes(TN, hd))
         hook = torch.nn.modules.module.register_module_forward_hook(count)
         reset_launches(wrappers)
         torch.cuda.reset_peak_memory_stats()
@@ -3250,36 +3675,32 @@ def phase_f32_streamed(dev, smi, wrappers, launches, results,
             continue
         counts, forms = read_launches(wrappers)
         launches[f"step {label}"] = counts
-        fwd_n, bwd_n = (forms["attn_f32_streamed"],
-                        forms["attn_bwd_f32_streamed"])
+        fwd_n = forms["attn_f32_streamed" if f32 else "attn_streamed"]
+        bwd_n = forms["attn_bwd_f32_streamed" if f32 else "attn_bwd_passes"]
         STREAMED_LAUNCHES[f"step {label} at batch {batch}: forward, "
                           "backward"] = (fwd_n, bwd_n)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
         print(f"  {tag} the largest batch that fits: {batch} (of "
-              f"{F32_STREAMED_STEP_BATCHES}); loss {losses[0]:.6f}, "
-              f"{len(grads)} gradients finite {finite}, "
-              f"{1e3 * secs[0]:.1f} ms the step, peak {peak:.2f} GiB, "
-              f"{calls['block']} block calls, streamed launches forward "
-              f"{fwd_n} backward {bwd_n}, on {smi}",
-              flush=True)
+              f"{batches}); loss {losses[0]:.6f}, {len(grads)} gradients "
+              f"finite {finite}, {1e3 * secs[0]:.1f} ms the step, peak "
+              f"{peak:.2f} GiB, {calls['block']} block calls, streamed "
+              f"launches forward {fwd_n} backward {bwd_n} (expected "
+              f"{calls['streamed']}), on {smi}", flush=True)
         check(math.isfinite(losses[0]) and finite, f"{tag}: loss "
               f"{losses[0]}, gradients finite {finite}")
-        for k in ("swin_block_attention_f32", "swin_block_epilogue_f32",
-                  "swin_block_attention_bwd_f32",
-                  "swin_block_epilogue_bwd_f32"):
-            check(counts[k] == calls["block"], f"{tag}: {k} launched "
-                  f"{counts[k]} times for {calls['block']} block calls")
-        check(bwd_n == calls["block"], f"{tag}: the streamed "
-              f"backward ran {bwd_n} times for {calls['block']} "
-              "block calls")
+        for k in ("swin_block_attention", "swin_block_epilogue",
+                  "swin_block_attention_bwd", "swin_block_epilogue_bwd"):
+            check(counts[k + sfx] == calls["block"], f"{tag}: {k + sfx} "
+                  f"launched {counts[k + sfx]} times for {calls['block']} "
+                  "block calls")
+        check(fwd_n > 0 and bwd_n == calls["streamed"], f"{tag}: the "
+              f"streamed forward ran {fwd_n} times, the streamed backward "
+              f"{bwd_n} times for {calls['streamed']} block calls")
         del m, grads, images, labels
         torch.cuda.empty_cache()
         break
-    check(done is not None, f"{tag}: no batch of "
-          f"{F32_STREAMED_STEP_BATCHES} fits")
-    print(f"phase 2k (b) the models: {time.perf_counter() - t_b:.1f} s",
-          flush=True)
+    check(done is not None, f"{tag}: no batch of {batches} fits")
 
 
 def phase_offpath_kernels(dev, bf16, randn, uniform, median_ms, compare):
@@ -5263,7 +5684,7 @@ def sdpa_bwd_yardstick(qkv, dattn, bias, mask, heads, scale, TN):
     if mask is not None and mask.shape[0] > 1:
         am = am + mask[torch.arange(Bw, device=mask.device)
                        % mask.shape[0]][:, None]
-    am = am.contiguous().requires_grad_()
+    am = am.to(qkv.dtype).contiguous().requires_grad_()
     do = dattn.reshape(Bw, TN, heads, hd).permute(0, 2, 1, 3).contiguous()
     try:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):

@@ -69,8 +69,8 @@
 //      (about 39 at stage 1 on 132 SMs) and write their table once into a
 //      partial of their own; `sum_parts` adds the partials in order. This
 //      slot kernel takes TN <= 128 with its slot within shared memory (hd
-//      <= 144 at TN 128); any other window K1 takes (TN to 176, hd to 288
-//      at TN 128) goes to two passes of the same products (below, "the
+//      <= 144 at TN 128); any other window K1 takes (TN to 176, any head
+//      dim) goes to two passes of the same products (below, "the
 //      two-pass attention backward"), chosen by shape;
 //   3. dx = dqkv @ wqkv, scattered back through the row map with the
 //      shift, so dx lands unshifted and no roll is formed;
@@ -79,6 +79,8 @@
 //      weight-gradient GEMM, and the bias gradients as fp32 column sums.
 // Every sum over windows or rows is formed in a fixed order (partials,
 // then `sum_parts`), with no float atomic: two calls give the same bits.
+
+#include <atomic>
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -449,42 +451,46 @@ __global__ void __launch_bounds__(256, 1)
 // one block (hd past 144 at TN 128) or its score registers do not (TN
 // past 128), two launches and a fixed-order sum, FlashAttention-2's
 // split of the backward without its atomics:
-//   a. the query pass (`attn_bwd_q_kernel`): a block of TN / 16 warps holds
-//      k and v of a (window, head) in shared memory (2 TN (hd + 8) bf16:
-//      two thirds of K1's slot, so every window K1 takes fits), each warp
-//      its 16 query rows. A warp reads its q and dO fragments straight from
-//      device memory (this warp alone uses them), forms its 16 x TN scores
-//      in registers and the forward's softmax there, takes D = rowsum(dO o
-//      O) from the forward's saved output O (`attn`: no dP row is needed
-//      before dS), then, a 16-key tile at a time, dP = dO v^T, dS = P (dP
-//      - D), writes P and dS in bf16 to a scratch (the key pass's
-//      operands), adds dS into its block's fp32 dbias partial in device
-//      memory (each lane its own entries, windows ascending), and keeps dS
-//      as bf16 A fragments for dq = dS k * scale. The registers hold the
-//      score row (TN / 2 a lane) and dS's fragments (TN / 4): none scale
-//      with hd. The blocks are persistent over a run of windows of one
-//      head; `sum_parts` adds the partials in order.
+//   a. the query pass (`attn_bwd_q_kernel`): a block of TN / 16 warps, each
+//      warp its 16 query rows of a (window, head); k and v stream through a
+//      ring of 64-column chunks in shared memory (432 TN bytes, whatever
+//      the head dim), so every head dim fits. A warp reads its q and dO
+//      fragments straight from device memory (this warp alone uses them)
+//      and, chunk by chunk over the k chunks, sums its 16 x TN scores in
+//      registers over the k16 steps d = 0 .. hd in order; then the
+//      forward's softmax there, fp32 P to a tile of the block's shared
+//      memory (each lane its own entries) and bf16 P to a scratch (the key
+//      pass's operand); D = rowsum(dO o O) from the forward's saved output
+//      O (`attn`: no dP row is needed before dS); then, over the v chunks,
+//      dP = dO v^T into the same registers, dS = P (dP - D) with P read
+//      back, dS in bf16 to the scratch, added into its block's fp32 dbias
+//      partial in device memory (each lane its own entries, windows
+//      ascending) and kept as bf16 A fragments; then, over the k chunks
+//      again, dq = dS k * scale, a chunk's 64 columns at a time. The
+//      registers hold the score row (TN / 2 a lane) or dS's fragments
+//      (TN / 4): none scale with hd. The blocks are persistent over a run
+//      of windows of one head; `sum_parts` adds the partials in order.
+//      Every sum runs over the same k steps in the same order as when k
+//      and v were held whole, so the pass keeps those bits.
 //   b. the key pass (`attn_bwd_kv_kernel`): a block a (window, head), P and
 //      dS of the window in shared memory, q and dO through it 64 columns at
 //      a time; each warp, on 16 key rows, dV = P^T dO and dK = dS^T q *
 //      scale, the transposed operands by ldmatrix.trans (the slot kernel's
 //      phase b).
 
-// s (16 x TN) = A (16 rows read from device memory: a = the lane's word at
-// row g, column 2 t of the first k step; rows lda apart) @ B^T (TN rows at
-// `brow`, the lane's ldmatrix row address) over hd; where hd % 16 == 8 the
-// last k step's upper half of A is zero (B's pad is zeroed in shared
-// memory)
+// s (16 x TN) += A (16 rows read from device memory: a = the lane's word
+// at row g, column 2 t of the first k step; rows lda apart) @ B^T (TN rows
+// at `brow`, the lane's ldmatrix row address) over the w columns from a
+// and brow; where w % 16 == 8 the last k step's upper half of A is zero
+// (B's pad is zeroed in shared memory)
 template <int NT>
-__device__ __forceinline__ void mma_scores_g(float (&s)[2 * NT][4],
+__device__ __forceinline__ void scores_g_add(float (&s)[2 * NT][4],
                                              const bf16* a, long long lda,
                                              const bf16* brow, int ld, int nt,
-                                             int hd) {
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  for (int kk = 0; kk < hd; kk += 16) {
+                                             int w) {
+  for (int kk = 0; kk < w; kk += 16) {
     uint32_t af[4];
-    const bool up = kk + 8 < hd;
+    const bool up = kk + 8 < w;
     af[0] = *reinterpret_cast<const uint32_t*>(a + kk);
     af[1] = *reinterpret_cast<const uint32_t*>(a + 8 * lda + kk);
     af[2] = up ? *reinterpret_cast<const uint32_t*>(a + kk + 8) : 0u;
@@ -501,10 +507,15 @@ __device__ __forceinline__ void mma_scores_g(float (&s)[2 * NT][4],
   }
 }
 
-// The query pass's shared memory: k and v of one (window, head), rows of
-// hd + 8 bf16.
-__host__ __device__ inline size_t wide_q_smem(int TN, int hd) {
-  return 2 * align128(size_t(TN) * (hd + 8) * sizeof(bf16));
+// The query pass's ring: QRING slots of TN rows of a QC-column chunk of k
+// or of v (rows of QLD bf16: 16 bytes of padding, ldmatrix rows on
+// distinct banks); then the fp32 P tile, rows of TN + 8 floats.
+constexpr int QC = 64, QLD = QC + 8, QRING = 3;
+__host__ __device__ inline size_t wide_q_ring(int TN) {
+  return align128(size_t(QRING) * TN * QLD * sizeof(bf16));
+}
+__host__ __device__ inline size_t wide_q_smem(int TN) {
+  return wide_q_ring(TN) + size_t(TN) * (TN + 8) * sizeof(float);
 }
 // The key pass's: P and dS (rows of TN + 8), then q's and dO's 64-column
 // chunk (rows of 72).
@@ -528,63 +539,85 @@ __global__ void __launch_bounds__(32 * NT, 1)
                       int n_windows, int per_block, int heads, int TN, int hd,
                       int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = hd + 8, nt = TN / 16;
-  const int t = threadIdx.x, pt = blockDim.x, lane = t & 31;
+  const int nt = TN / 16, nc = (hd + QC - 1) / QC, per = 3 * nc;
+  const int t = threadIdx.x, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3, q0 = (t >> 5) * 16;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = reinterpret_cast<bf16*>(smem + wide_q_smem(TN, hd) / 2);
-  const int h = blockIdx.y, C3 = 3 * C, chunks = hd / 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* ptile = reinterpret_cast<float*>(smem + wide_q_ring(TN)) +
+                 (q0 + g) * (TN + 8) + 2 * tq;  // the lane's P entries
+  const int h = blockIdx.y, C3 = 3 * C;
   const int w0 = blockIdx.x * per_block;
   const int w1 = min(n_windows, w0 + per_block);
-  // ldmatrix row addresses: B rows of a B^T operand (non-trans), B rows
-  // (trans)
-  const int bn_r = (lane & 7) + ((lane >> 4) << 3), bn_c = ((lane >> 3) & 1) * 8;
-  const int bt_r = (lane & 7) + (((lane >> 3) & 1) << 3), bt_c = (lane >> 4) * 8;
+  const int n_chunks = (w1 - w0) * per;
+  // ldmatrix row addresses in a chunk: B rows of a B^T operand (non-trans),
+  // B rows (trans)
+  const int bn = ((lane & 7) + ((lane >> 4) << 3)) * QLD + ((lane >> 3) & 1) * 8;
+  const int bt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * QLD + (lane >> 4) * 8;
   float* part = dbias_part + ((long long)blockIdx.x * heads + h) * TN * TN +
                 (q0 + g) * TN + 2 * tq;
   const float* bias_r = bias + ((long long)h * TN + q0 + g) * TN + 2 * tq;
-  if (hd % 16) {  // k's and v's pads, read past hd; nothing writes them
-    zero_pad(ks, TN, ld, hd, t, pt);
-    zero_pad(vs, TN, ld, hd, t, pt);
-  }
-
-  for (int bw = w0; bw < w1; ++bw) {
-    const long long row0 = (long long)bw * TN;
-    const bf16* src = qkv + row0 * C3 + h * hd;
-    for (int i = t; i < TN * chunks; i += pt) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      cp_async16(ks + r * ld + c, src + (long long)r * C3 + C + c);
-      cp_async16(vs + r * ld + c, src + (long long)r * C3 + 2 * C + c);
+  // chunk c of the block's stream into its slot, then a commit (empty past
+  // the last): per window k in chunks of QC columns (the scores), v (dP),
+  // k again (dq). Thread t copies row t / 2, its half of the 16-byte
+  // pieces, and zeroes the row's pad where the chunk ends 8 mod 16.
+  const int lr = t >> 1, half = t & 1;
+  const auto load = [&](int c) {
+    if (c < n_chunks) {
+      const int bw = w0 + c / per, r = c % per, c0 = (r % nc) * QC;
+      const int w = hd - c0 < QC ? hd - c0 : QC;
+      const bf16* src = qkv + ((long long)bw * TN + lr) * C3 +
+                        (r / nc == 1 ? 2 : 1) * C + h * hd + c0;
+      bf16* dst = ring + ((c % QRING) * TN + lr) * QLD;
+      for (int i = 8 * half; i < w; i += 16) cp_async16(dst + i, src + i);
+      if (w % 16 && !half)
+        *reinterpret_cast<uint4*>(dst + w) = make_uint4(0u, 0u, 0u, 0u);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int c = 0; c < QRING - 1; ++c) load(c);
+  // chunk c's slot once it has landed and every warp is done with chunk
+  // c - 1, whose slot then takes chunk c + QRING - 1
+  int c = 0;
+  const auto next = [&]() -> const bf16* {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(QRING - 2) : "memory");
+    __syncthreads();
+    load(c + QRING - 1);
+    return ring + (c++ % QRING) * TN * QLD;
+  };
 
+  for (int bw = w0; bw < w1; ++bw) {
+    const long long rw = (long long)bw * TN + q0;
+    const bf16* qrow = qkv + (rw + g) * C3 + h * hd + 2 * tq;
+    const bf16* dorow = dattn + (rw + g) * C + h * hd + 2 * tq;
     // D = rowsum(dO o O) of the warp's rows (lane: rows g, g + 8), while
-    // k and v land
-    const long long rw = row0 + q0;
+    // the first chunks land
     float D[2] = {0.0f, 0.0f};
     for (int r = 0; r < 16; ++r) {
       const bf16* o = attn + (rw + r) * C + h * hd;
       const bf16* d = dattn + (rw + r) * C + h * hd;
       float v = 0.0f;
-      for (int c = 2 * lane; c < hd; c += 64) {
+      for (int cc = 2 * lane; cc < hd; cc += 64) {
         const float2 a =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + c));
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + cc));
         const float2 b =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + c));
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + cc));
         v += a.x * b.x + a.y * b.y;
       }
       v = warp_sum(v);
       if (r == g) D[0] = v;
       if (r == g + 8) D[1] = v;
     }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // k and v have landed
 
     // ---- scores and P (fp32) of rows q0 + g (s[j][0..1]) and q0 + g + 8
-    // (s[j][2..3]) ----
+    // (s[j][2..3]), over the k chunks ----
     float s[2 * NT][4];
-    mma_scores_g<NT>(s, src + (q0 + g) * (long long)C3 + 2 * tq, C3,
-                     ks + bn_r * ld + bn_c, ld, nt, hd);
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += QC) {
+      const bf16* slot = next();
+      scores_g_add<NT>(s, qrow + c0, C3, slot + bn, QLD, nt,
+                       hd - c0 < QC ? hd - c0 : QC);
+    }
     const float* mask_r =
         mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
              : nullptr;
@@ -630,47 +663,48 @@ __global__ void __launch_bounds__(32 * NT, 1)
       sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
       sum[hh] = 1.0f / sum[hh];
     }
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
-
-    // ---- a 16-key tile at a time: dP = dO v^T, dS = P (dP - D); P and dS
-    // to the scratch, dS into the partial and into sa (k tile kt: key
-    // tiles 2 kt, 2 kt + 1) ----
-    const bf16* dsrc = dattn + (rw + g) * C + h * hd + 2 * tq;
+    // P: fp32 to the lane's entries of the tile, bf16 to the scratch
     const long long pw = ((long long)bw * heads + h) * TN * TN;
     bf16* prow = ps + pw + (q0 + g) * TN + 2 * tq;
     bf16* drow = dss + pw + (q0 + g) * TN + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j < 2 * nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 p = make_float2(s[j][2 * hh] * sum[hh],
+                                       s[j][2 * hh + 1] * sum[hh]);
+          *reinterpret_cast<float2*>(ptile + hh * 8 * (TN + 8) + 8 * j) = p;
+          *reinterpret_cast<uint32_t*>(prow + hh * 8 * TN + 8 * j) =
+              pack_bf16(p.x, p.y);
+        }
+      }
+    }
+
+    // ---- dP = dO v^T over the v chunks, into the score registers ----
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += QC) {
+      const bf16* slot = next();
+      scores_g_add<NT>(s, dorow + c0, C, slot + bn, QLD, nt,
+                       hd - c0 < QC ? hd - c0 : QC);
+    }
+    // ---- dS = P (dP - D), P read back; dS to the scratch, the partial and
+    // sa (k tile kt: key tiles 2 kt, 2 kt + 1) ----
     uint32_t sa[NT][4];
 #pragma unroll
     for (int kt = 0; kt < NT; ++kt) {
       if (kt < nt) {
-        float dp[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-        const bf16* vrow = vs + (16 * kt + bn_r) * ld + bn_c;
-        for (int kk = 0; kk < hd; kk += 16) {
-          uint32_t af[4], bf[4];
-          const bool up = kk + 8 < hd;  // dO past hd: zero
-          af[0] = *reinterpret_cast<const uint32_t*>(dsrc + kk);
-          af[1] = *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk);
-          af[2] = up ? *reinterpret_cast<const uint32_t*>(dsrc + kk + 8) : 0u;
-          af[3] =
-              up ? *reinterpret_cast<const uint32_t*>(dsrc + 8 * C + kk + 8)
-                 : 0u;
-          ldsm_x4(bf, vrow + kk);
-          mma16816(dp[0], af, bf[0], bf[1]);
-          mma16816(dp[1], af, bf[2], bf[3]);
-        }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int j = 2 * kt + u;
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const float d0 = s[j][2 * hh] * (dp[u][2 * hh] - D[hh]);
-            const float d1 = s[j][2 * hh + 1] * (dp[u][2 * hh + 1] - D[hh]);
+            const float2 p = *reinterpret_cast<const float2*>(
+                ptile + hh * 8 * (TN + 8) + 8 * j);
+            const float d0 = p.x * (s[j][2 * hh] - D[hh]);
+            const float d1 = p.y * (s[j][2 * hh + 1] - D[hh]);
             const int off = hh * 8 * TN + 8 * j;
-            *reinterpret_cast<uint32_t*>(prow + off) =
-                pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);
             sa[kt][2 * u + hh] = pack_bf16(d0, d1);
             *reinterpret_cast<uint32_t*>(drow + off) = sa[kt][2 * u + hh];
             float2* pp = reinterpret_cast<float2*>(part + off);
@@ -685,20 +719,22 @@ __global__ void __launch_bounds__(32 * NT, 1)
       }
     }
 
-    // ---- dQ = dS K * scale -> dqkv[:, h hd ..) ----
+    // ---- dQ = dS K * scale -> dqkv[:, h hd ..), over the k chunks ----
     bf16* out = dqkv + rw * C3 + h * hd;
-    for (int c0 = 0; c0 < hd; c0 += 64) {
+    for (int c0 = 0; c0 < hd; c0 += QC) {
+      const bf16* slot = next();
+      const int w = hd - c0 < QC ? hd - c0 : QC;
       float o[8][4];
       mma_rows_t<NT>(
           o, [&](int kt, uint32_t(&a)[4]) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) a[i] = sa[kt][i];
           },
-          ks + bt_r * ld + bt_c, ld, nt, c0, hd);
-      store_tile16(o, scale, out + c0, C3, hd - c0, lane);
+          slot + bt, QLD, nt, 0, w);
+      store_tile16(o, scale, out + c0, C3, w, lane);
     }
-    __syncthreads();  // every warp is done with k and v
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Pass b. One block a (window, head), TN / 16 warps; NT >= TN / 16. ps,
@@ -838,6 +874,10 @@ cudaError_t launch_slot(const bf16* qkv, const bf16* dattn, const float* bias,
   return cudaGetLastError();
 }
 
+// runs of the two passes since the last reset (a streamed query pass and
+// a key pass each; `stswin_attn_bwd_passes_launches`)
+std::atomic<long long> passes_launches{0};
+
 template <int NT>
 cudaError_t launch_wide(const bf16* qkv, const bf16* dattn, const bf16* attn,
                         const float* bias, const float* mask, int n_mask,
@@ -849,7 +889,7 @@ cudaError_t launch_wide(const bf16* qkv, const bf16* dattn, const bf16* attn,
       (err = opt_in(attn_bwd_kv_kernel<NT>, kv_optins)) != cudaSuccess)
     return err;
   const int dev = current_device();
-  const size_t qs = wide_q_smem(TN, hd), kvs = wide_kv_smem(TN);
+  const size_t qs = wide_q_smem(TN), kvs = wide_kv_smem(TN);
   if (qs > size_t(q_optins[dev]) || kvs > size_t(kv_optins[dev]))
     return cudaErrorInvalidValue;
   const BwdWork L = bwd_work(n_windows, heads, TN, hd);
@@ -864,7 +904,9 @@ cudaError_t launch_wide(const bf16* qkv, const bf16* dattn, const bf16* attn,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attn_bwd_kv_kernel<NT><<<n_windows * heads, pt, kvs, s>>>(
       qkv, dattn, ps, dss, dqkv, heads, TN, hd, C, scale);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++passes_launches;
+  return err;
 }
 
 // The attention backward: dq, dk, dv into dqkv and dbias (heads, TN, TN),
@@ -1065,5 +1107,45 @@ extern "C" int stswin_block_attention_bwd(
 extern "C" int stswin_block_attention_bwd_work(int R, int C, int heads,
                                                int TN, long long* out) {
   *out = static_cast<long long>(k5_work(R, C, heads, TN));
+  return 0;
+}
+
+// K5's attention backward alone (step 2 of `stswin_block_attention_bwd`),
+// for timing and checking it by itself: qkv (rows, 3C), dattn and attn
+// (rows, C) bf16 in window order (rows = windows x TN); work:
+// `stswin_attn_bwd_work` floats; dqkv (rows, 3C) bf16 and dbias (heads,
+// TN, TN) fp32 out.
+extern "C" int stswin_attn_bwd(const void* qkv, const void* dattn,
+                               const void* attn, const void* bias,
+                               const void* mask, void* work, void* dqkv,
+                               void* dbias, int rows, int C, int heads,
+                               int TN, float scale, int n_mask,
+                               void* stream) {
+  if (TN <= 0 || heads <= 0 || C % heads || rows % TN || rows <= 0)
+    return cudaErrorInvalidValue;
+  return attn_bwd(static_cast<const bf16*>(qkv),
+                  static_cast<const bf16*>(dattn),
+                  static_cast<const bf16*>(attn),
+                  static_cast<const float*>(bias),
+                  static_cast<const float*>(mask), n_mask,
+                  static_cast<bf16*>(dqkv), static_cast<float*>(dbias),
+                  static_cast<float*>(work), rows / TN, heads, TN, C / heads,
+                  C, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Queries, not launches: the floats of `stswin_attn_bwd`'s workspace, and
+// the runs of the two passes (the windows past the slot kernel) since the
+// last reset.
+extern "C" int stswin_attn_bwd_work(int rows, int C, int heads, int TN,
+                                    long long* out) {
+  *out = TN > 0 && heads > 0 && C % heads == 0
+             ? static_cast<long long>(
+                   bwd_work(rows / TN, heads, TN, C / heads).total)
+             : -1;
+  return 0;
+}
+
+extern "C" int stswin_attn_bwd_passes_launches(int reset, long long* out) {
+  *out = reset ? passes_launches.exchange(0) : passes_launches.load();
   return 0;
 }

@@ -5,7 +5,7 @@
 // says what it replaces and what bounds it); row 16's fp32 form
 // (fp32_whole_block.cu) runs it in its attention phase. Two instances: the
 // resident pair (`pairs`) where q, k and v fit a block, and the streamed
-// pair (`pairs_streamed`) for the rest of K1's bf16 windows (`takes`). The
+// pair (`pairs_streamed`) for every other window (`takes`). The
 // address functors say where a (window, head, token) row lives, as
 // attention_core.cuh's do for the bf16 core.
 #pragma once
@@ -70,14 +70,12 @@ __host__ __device__ constexpr int score_tiles(int TN) {
 // plans below are decided from the shapes against it, not from the card.
 constexpr size_t SMEM_LIMIT = 232448;
 
-// The windows the fp32 core takes: exactly those of K1's bf16 core (its
-// pair of q, k and v in bf16 rows of hd + 8 and the TN row offsets within
-// SMEM_LIMIT, `attn::pair_smem`; `ops/attention.py` `_attn_smem_bytes`),
-// 16-token tiles up to 176 and head dims of 8.
+// The windows the fp32 core takes: exactly those of K1's bf16 core and of
+// the JAX kernels short of their VMEM tiling, 16-token tiles up to 176
+// (`ops/attention.py` MAX_WINDOW_TOKENS) and any head dim of 8: the
+// streamed pair's ring does not depend on the head dim.
 __host__ __device__ inline bool takes(int TN, int hd) {
-  return TN > 0 && TN % 16 == 0 && TN <= 176 && hd > 0 && hd % 8 == 0 &&
-         align128(size_t(6) * TN * (hd + 8)) + align128(size_t(8) * TN) <=
-             SMEM_LIMIT;
+  return TN > 0 && TN % 16 == 0 && TN <= 176 && hd > 0 && hd % 8 == 0;
 }
 
 // Whether a window runs the resident pair (`pairs`): its fp32 q, k and v

@@ -44,6 +44,20 @@
 //     output (row 11).
 // The score registers are sized at compile time: NT, the most 16-key
 // tiles a variant takes (2, 4, 8 or 11; TN <= 176, `attn::MAX_NT`).
+//
+// Past the resident pair: a window whose q, k and v do not fit one block
+// (hd past 288 at TN 128, past 208 at 176, past 1200 at 32) runs the
+// streamed pair (`attn::pairs_streamed`): persistent blocks of one pair's
+// TN / 16 warps stream each pair's q and k, then v, in column chunks
+// through a ring whose 864 TN bytes do not depend on the head dim, and run
+// the resident core's arithmetic on them (the same bits where both take a
+// window). Bound there as above: the bytes of q, k, v and the output (at
+// `swin_dim` 1280's stage-1 serving shape 419 MB, 0.125 ms at 3.35 TB/s,
+// against 26.8 GFLOP, 0.027 ms at the bf16 peak). The library picks the
+// instance by shape (`attn::resident`): the resident pair wherever it fits,
+// since it holds a whole pair a block and its loads one group ahead.
+
+#include <atomic>
 
 #include "attention_core.cuh"
 
@@ -113,22 +127,92 @@ cudaError_t launch_nt(const Addr& a, int n_pairs, int heads, int TN, int hd,
   return cudaGetLastError();
 }
 
+// Persistent blocks of one pair's TN / 16 warps over the streamed pair,
+// each running pairs blockIdx.x, + gridDim.x, ...; the bounds of the
+// resident kernel's blocks.
+template <int NT, class Addr>
+__global__ void __launch_bounds__(NT > 8 ? 352 : 256, NT > 8 ? 1 : 2)
+    window_attention_streamed_kernel(
+    Addr a, const float* __restrict__ bias, const float* __restrict__ mask,
+    int n_mask, int n_pairs, int heads, int TN, int hd, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attn::pairs_streamed<NT>(a, blockIdx.x, n_pairs, gridDim.x, heads,
+                           reinterpret_cast<bf16*>(smem), threadIdx.x,
+                           blockDim.x, 1, bias, mask, n_mask, TN, hd, scale);
+}
+
+// launches of the streamed instance since the last reset
+// (`stswin_attn_streamed_launches`)
+std::atomic<long long> streamed_launches{0};
+
+template <int NT, class Addr>
+cudaError_t launch_streamed(const Addr& a, int n_pairs, int heads, int TN,
+                            int hd, const float* bias, const float* mask,
+                            int n_mask, float scale, cudaStream_t s) {
+  const auto kernel = window_attention_streamed_kernel<NT, Addr>;
+  const size_t bytes = attn::streamed_bytes(TN);
+  static int optins[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!optins[dev]) {
+    int most = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    optins[dev] = most;
+  }
+  if (bytes > static_cast<size_t>(optins[dev])) return cudaErrorInvalidValue;
+  const int threads = TN / 16 * 32;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0 || !sm_count()) return cudaErrorInvalidConfiguration;
+  const int grid =
+      n_pairs < per_sm * sm_count() ? n_pairs : per_sm * sm_count();
+  kernel<<<grid, threads, bytes, s>>>(a, bias, mask, n_mask, n_pairs, heads,
+                                      TN, hd, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++streamed_launches;
+  return err;
+}
+
+// The resident pair where it fits, else the streamed one (`attn::resident`)
+template <int NT, class Addr>
+cudaError_t launch_pick(const Addr& a, int n_pairs, int heads, int TN,
+                        int hd, const float* bias, const float* mask,
+                        int n_mask, float scale, cudaStream_t s) {
+  return attn::resident(TN, hd)
+             ? launch_nt<NT>(a, n_pairs, heads, TN, hd, bias, mask, n_mask,
+                             scale, s)
+             : launch_streamed<NT>(a, n_pairs, heads, TN, hd, bias, mask,
+                                   n_mask, scale, s);
+}
+
 template <class Addr>
 cudaError_t launch(const Addr& a, int n_windows, int heads, int TN, int hd,
                    const float* bias, const float* mask, int n_mask,
                    float scale, cudaStream_t s) {
-  if (TN <= 0 || TN % 16 || TN > 16 * MAX_NT || hd <= 0 || hd % 8)
+  if (TN <= 0 || TN % 16 || TN > 16 * MAX_NT || hd <= 0 || hd % 8 ||
+      heads <= 0 || n_windows < 0)
     return cudaErrorInvalidValue;
+  if (n_windows == 0) return cudaSuccess;
   const float* m = n_mask > 1 ? mask : nullptr;
   const int n_pairs = n_windows * heads, nt = TN / 16;
   if (nt <= 2)
-    return launch_nt<2>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale, s);
+    return launch_pick<2>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale,
+                          s);
   if (nt <= 4)
-    return launch_nt<4>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale, s);
+    return launch_pick<4>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale,
+                          s);
   if (nt <= 8)
-    return launch_nt<8>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale, s);
-  return launch_nt<MAX_NT>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale,
-                           s);
+    return launch_pick<8>(a, n_pairs, heads, TN, hd, bias, m, n_mask, scale,
+                          s);
+  return launch_pick<MAX_NT>(a, n_pairs, heads, TN, hd, bias, m, n_mask,
+                             scale, s);
 }
 
 }  // namespace
@@ -169,4 +253,20 @@ extern "C" int stswin_window_attention_heads(
   return launch(a, Bw, heads, TN, hd, static_cast<const float*>(bias),
                 static_cast<const float*>(mask), n_mask, scale,
                 static_cast<cudaStream_t>(stream));
+}
+
+// Queries, not launches. The shared memory of the attention core's
+// instance for a (TN, hd) window (`attn::plan_bytes`; -1 for a window it
+// refuses), what `ops/attention.py` `_attn_plan_bytes` plans; and the
+// launches of its streamed instance since the last reset.
+extern "C" int stswin_attn_smem(int TN, int hd, long long* out) {
+  *out = TN > 0 && TN % 16 == 0 && TN <= 16 * MAX_NT && hd > 0 && hd % 8 == 0
+             ? static_cast<long long>(attn::plan_bytes(TN, hd))
+             : -1;
+  return 0;
+}
+
+extern "C" int stswin_attn_streamed_launches(int reset, long long* out) {
+  *out = reset ? streamed_launches.exchange(0) : streamed_launches.load();
+  return 0;
 }

@@ -96,6 +96,7 @@ SIGNATURES = {
     "stswin_block_attention_bwd_f32": [_P] * 15 + [_I] * 7 + [_F, _I, _I,
                                                               _P],
     "stswin_attn_bwd_f32": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    "stswin_attn_bwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "stswin_block_epilogue_bwd_f32": [_P] * 24 + [_I] * 7 + [_F, _P],
     "stswin_wgrad_f32": [_P] * 4 + [_I] * 13 + [_P],
     # queries, not launches: the fp32 scratch of an entry in floats, and
@@ -111,6 +112,12 @@ SIGNATURES = {
     "stswin_attn_f32_smem": [_I] * 2 + [_LLP],
     "stswin_attn_f32_streamed_launches": [_I, _LLP],
     "stswin_attn_bwd_f32_streamed_launches": [_I, _LLP],
+    # the same for the bf16 core (its streamed instance), and the bf16
+    # attention backward's workspace (floats) and runs of its two passes
+    "stswin_attn_smem": [_I] * 2 + [_LLP],
+    "stswin_attn_streamed_launches": [_I, _LLP],
+    "stswin_attn_bwd_work": [_I] * 4 + [_LLP],
+    "stswin_attn_bwd_passes_launches": [_I, _LLP],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],
 }

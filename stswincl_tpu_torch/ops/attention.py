@@ -77,10 +77,37 @@ MAX_WINDOW_TOKENS = 176
 
 def _attn_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of one (window, head) pair of the attention
-    core of K1 and rows 10 and 11 (`attn::pair_smem` in
-    `csrc/attention_core.cuh`): q, k and v in bf16 rows of hd + 8, and the
-    TN row offsets; the scores and P stay in registers."""
+    core's resident instance (`attn::pair_smem` in
+    `csrc/attention_core.cuh`), what K1, rows 10 and 11 hold for a pair
+    where it fits and row 16 for each pair of its attention phase: q, k
+    and v in bf16 rows of hd + 8, and the TN row offsets; the scores and P
+    stay in registers."""
     return _align(3 * TN * (hd + 8) * 2) + _align(TN * 8)
+
+
+# The bf16 core's streamed pair (`attn::pairs_streamed`): a ring of
+# ATTN_RING slots of TN rows of ATTN_SLOT bf16, each a chunk of 64 columns
+# of q and of k (rows of 72) or of 128 of v (rows of 136)
+ATTN_RING, ATTN_SLOT = 3, 144
+
+
+def _attn_plan_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of the bf16 attention core of K1 and rows 10
+    and 11 for a window (`attn::plan_bytes`, `stswin_attn_smem`): the
+    resident pair (`_attn_smem_bytes`) where it fits SMEM_LIMIT, else the
+    streamed pair, whose ring takes 864 TN bytes whatever the head dim."""
+    resident = _attn_smem_bytes(TN, hd)
+    if resident <= kernels.SMEM_LIMIT:
+        return resident
+    return ATTN_RING * TN * ATTN_SLOT * 2
+
+
+def attn_streamed_launches(reset: bool = False) -> int:
+    """Launches of the bf16 core's streamed instance (K1's, row 10's and
+    row 11's bf16 kernels on windows whose resident pair does not fit),
+    counted by the library since the last reset; `reset` sets the count to
+    0 after reading."""
+    return kernels.query("stswin_attn_streamed_launches", int(reset))
 
 
 def _attn_f32_resident_bytes(TN: int, hd: int) -> int:
@@ -105,14 +132,10 @@ F32_RING, F32_SLOT = 3, 72
 def _attn_f32_smem_bytes(TN: int, hd: int) -> int:
     """Dynamic shared memory of the fp32 attention core of K1 and rows 10
     and 11 for a window (`attn32::plan_bytes`, `stswin_attn_f32_smem`):
-    the resident pair (`_attn_f32_resident_bytes`) where it fits; else,
-    for every other window K1's bf16 core takes (`_attn_smem_bytes`), the
-    streamed pair, whose ring takes 864 TN bytes whatever the head dim;
-    past those the resident pair's bytes, which exceed SMEM_LIMIT (the
-    window is refused, in both dtypes)."""
+    the resident pair (`_attn_f32_resident_bytes`) where it fits, else the
+    streamed pair, whose ring takes 864 TN bytes whatever the head dim."""
     resident = _attn_f32_resident_bytes(TN, hd)
-    if (resident <= kernels.SMEM_LIMIT
-            or _attn_smem_bytes(TN, hd) > kernels.SMEM_LIMIT):
+    if resident <= kernels.SMEM_LIMIT:
         return resident
     return F32_RING * TN * F32_SLOT * 4
 
@@ -128,11 +151,14 @@ def attn_f32_streamed_launches(reset: bool = False) -> int:
 def check_attention_core(name: str, device: torch.device,
                          bias_tiled: torch.Tensor,
                          mask_tiled: Optional[torch.Tensor], heads: int,
-                         TN: int, hd: int, smem_bytes=_attn_smem_bytes):
+                         TN: int, hd: int, smem_bytes=_attn_plan_bytes):
     """What a (window, head) attention block of the kernels takes (K1, K5,
-    rows 10, 11 and 16; `smem_bytes` its shared-memory layout); returns (mask
-    or None, n_mask). A single-entry mask is the W-MSA marker: it is
-    dropped and its add skipped."""
+    rows 10, 11 and 16): a token count a multiple of 16 up to
+    MAX_WINDOW_TOKENS and a head dim a multiple of 8, with `smem_bytes`, the
+    shared memory of the instance that will run, within SMEM_LIMIT (K1's,
+    rows 10's and 11's instances fit at every such window; row 16's own
+    plan may not); returns (mask or None, n_mask). A single-entry mask is
+    the W-MSA marker: it is dropped and its add skipped."""
     if mask_tiled is not None and mask_tiled.shape[0] == 1:
         mask_tiled = None
     kernels.require_f32(name, bias_tiled,
@@ -175,7 +201,7 @@ def _heads_kernel(q, k, v, bias_tiled, mask_tiled, scale):
     Bw, heads, TN, hd = q.shape
     mask_tiled, n_mask = check_attention_core(
         name, q.device, bias_tiled, mask_tiled, heads, TN, hd,
-        _attn_f32_smem_bytes if f32 else _attn_smem_bytes)
+        _attn_f32_smem_bytes if f32 else _attn_plan_bytes)
     kernels.require(n_mask == 0 or Bw % n_mask == 0,
                     f"{name}: {n_mask} masks do not divide {Bw} windows")
     out = torch.empty_like(v)

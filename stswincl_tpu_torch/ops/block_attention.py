@@ -45,7 +45,7 @@ from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.attention import (F32_RING, F32_SLOT,
                                               MAX_WINDOW_TOKENS, _align,
                                               _attn_f32_smem_bytes,
-                                              _attn_smem_bytes, attend_tiled,
+                                              _attn_plan_bytes, attend_tiled,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.window import partition_qkv, reverse_windows
 
@@ -83,7 +83,7 @@ def _image_kernel(qkv, bias_tiled, mask_tiled, heads, scale, ws):
     n_win = (H // ws) * (W // ws)
     mask_tiled, n_mask = check_attention_core(
         name, qkv.device, bias_tiled, mask_tiled, heads, T * ws * ws,
-        C // heads, _attn_f32_smem_bytes if f32 else _attn_smem_bytes)
+        C // heads, _attn_f32_smem_bytes if f32 else _attn_plan_bytes)
     kernels.require(n_mask in (0, n_win),
                     f"{name}: {n_mask} masks for {n_win} windows an image")
     out = torch.empty((B, T, H, W, C), dtype=qkv.dtype, device=qkv.device)
@@ -202,9 +202,31 @@ def _attn_bwd_slot_takes(TN: int, hd: int) -> bool:
     """Whether K5's bf16 attention backward runs its one-pass slot kernel
     (`slot_takes`): at most 8 key tiles of 16 (its score and dP
     registers) and the slot within SMEM_LIMIT; every other window K1 takes
-    runs the two passes (a query pass holding k and v, 2 TN (hd + 8) bf16;
-    a key pass holding P and dS and 64-column chunks of q and dO)."""
+    runs the two passes (`_attn_bwd_plan_bytes`)."""
     return TN <= 128 and _attn_bwd_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
+
+
+def _attn_bwd_plan_bytes(TN: int, hd: int) -> int:
+    """Dynamic shared memory of K5's bf16 attention backward for a window:
+    the slot kernel's slot (`_attn_bwd_smem_bytes`) where it takes the
+    window, else the larger of the two passes' (`wide_q_smem`,
+    `wide_kv_smem` in `csrc/block_attention.cu`), neither of which depends
+    on the head dim: the query pass streams k and v through a ring of three
+    64-column chunks (rows of 72 bf16) and holds fp32 P (rows of TN + 8);
+    the key pass holds bf16 P and dS (rows of TN + 8) and 64-column chunks
+    of q and dO (rows of 72)."""
+    if _attn_bwd_slot_takes(TN, hd):
+        return _attn_bwd_smem_bytes(TN, hd)
+    query = _align(3 * TN * 72 * 2) + TN * (TN + 8) * 4
+    key = 2 * _align(TN * (TN + 8) * 2) + 2 * _align(TN * 72 * 2)
+    return max(query, key)
+
+
+def attn_bwd_passes_launches(reset: bool = False) -> int:
+    """Runs of K5 bf16's two-pass attention backward (a streamed query pass
+    and a key pass each) counted by the library since the last reset;
+    `reset` sets the count to 0 after reading."""
+    return kernels.query("stswin_attn_bwd_passes_launches", int(reset))
 
 
 def _attn_f32_bwd_resident(TN: int, hd: int) -> bool:
@@ -254,27 +276,28 @@ def check_backward_window(name: str, x: torch.Tensor, heads: int,
     """Refuse a window that K5's attention backward in x's dtype does not
     take: in either dtype, what K1's attention core refuses
     (`_attn_bwd_takes`: more than MAX_WINDOW_TOKENS tokens, a token count
-    off 16 or a head dim off 8, or K1's bf16 q, k and v past shared
-    memory), so that every window that serves also trains. The forward of
-    `BlockAttentionFn` and of the whole-block Function checks it before K1
-    or row 16 runs, so a training step on such a window fails before its
-    forward rather than inside its backward."""
+    off 16 or a head dim off 8), so that every window that serves also
+    trains. The forward of `BlockAttentionFn` and of the whole-block
+    Function checks it before K1 or row 16 runs, so a training step on such
+    a window fails before its forward rather than inside its backward."""
     TN, hd = x.shape[1] * ws * ws, x.shape[-1] // heads
     form = "'s fp32 form" if x.dtype == torch.float32 else ""
     kernels.require(_attn_bwd_takes(TN, hd),
                     lambda: f"{name}: K5{form} (the attention backward) "
                     "takes the windows K1 takes: at most "
                     f"{MAX_WINDOW_TOKENS} tokens, token count a multiple of "
-                    "16, head dim of 8, K1's q, k and v within shared "
-                    f"memory; got {TN} tokens x head dim {hd}")
+                    f"16, head dim a multiple of 8; got {TN} tokens x head "
+                    f"dim {hd}")
 
 
 def _attn_bwd_takes(TN: int, hd: int) -> bool:
-    """The windows K5's bf16 attention backward takes: exactly those of
-    K1's attention core (`check_attention_core` with `_attn_smem_bytes`)."""
+    """The windows K5's attention backward takes in both dtypes: exactly
+    those of K1's attention core (`check_attention_core`), a token count a
+    multiple of 16 up to MAX_WINDOW_TOKENS and a head dim a multiple of 8;
+    no term of shared memory (every instance's plan fits at any head
+    dim)."""
     return (0 < TN <= MAX_WINDOW_TOKENS and TN % 16 == 0 and hd > 0
-            and hd % 8 == 0
-            and _attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT)
+            and hd % 8 == 0)
 
 
 def _validate(name, row, x, wqkv, wproj, bias_tiled, mask_tiled, heads,
@@ -338,7 +361,7 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     res = _launch_k1("stswin_block_attention", name,
                      "Pallas row 1's bf16 form", x, wqkv, bqkv, wproj, bproj,
                      bias_tiled, mask_tiled, heads, scale, ws, shift,
-                     _attn_smem_bytes)
+                     _attn_plan_bytes)
     swin_block_attention.launches += 1
     return res
 
@@ -406,7 +429,7 @@ def swin_block_attention_bwd(x, g, qkv, attn, wqkv, wproj, bias_tiled,
     name = "swin_block_attention_bwd"
     mask_tiled, n_mask = _validate(name, "Pallas row 6", x, wqkv, wproj,
                                    bias_tiled, mask_tiled, heads, ws, shift,
-                                   _attn_smem_bytes)
+                                   _attn_bwd_plan_bytes)
     check_backward_window(name, x, heads, ws)
     B, T, H, W, C = x.shape
     TN = T * ws * ws
@@ -490,23 +513,82 @@ def swin_block_attention_bwd_f32(x, g, qkv, attn, wqkv, wproj, bias_tiled,
 swin_block_attention_bwd_f32.launches = 0
 
 
-def attn_bwd_f32_ref(qkv, dattn, bias_tiled, mask_tiled, heads: int,
-                     scale: float, TN: int):
-    """Plain twin of K5 fp32's attention backward alone: autograd of the
-    window attention (`attend_tiled`: the scale after the product, the
-    tiled bias, the mask of window bw % n_mask, P in fp32) over
-    window-order qkv (rows, 3C), given the gradient dattn (rows, C) of its
-    output. Returns (dqkv (rows, 3C), dbias (heads, TN, TN)), fp32."""
+def attn_bwd_ref(qkv, dattn, bias_tiled, mask_tiled, heads: int,
+                 scale: float, TN: int):
+    """Plain twin of K5's attention backward alone, in qkv's dtype:
+    autograd of the window attention (`attend_tiled`: the scale after the
+    product, the tiled bias, the mask of window bw % n_mask, fp32 P, in
+    bf16 rounded before P V) over window-order qkv (rows, 3C), given the
+    gradient dattn (rows, C) of its output. Returns (dqkv (rows, 3C) in
+    qkv's dtype, dbias (heads, TN, TN) fp32)."""
     rows, C3 = qkv.shape
     C, hd = C3 // 3, C3 // 3 // heads
     with torch.enable_grad():
-        leaves = [t.detach().float().requires_grad_()
-                  for t in (qkv, bias_tiled)]
+        leaves = [qkv.detach().requires_grad_(),
+                  bias_tiled.detach().float().requires_grad_()]
         q, k, v = (leaves[0].reshape(rows // TN, TN, 3, heads, hd)
                    .permute(2, 0, 3, 1, 4).unbind(0))
         out = attend_tiled(q, k, v, leaves[1], mask_tiled, scale)
         out = out.permute(0, 2, 1, 3).reshape(rows, C)
-        return torch.autograd.grad(out, leaves, dattn.float())
+        return torch.autograd.grad(out, leaves, dattn.to(out.dtype))
+
+
+def attn_bwd_f32_ref(qkv, dattn, bias_tiled, mask_tiled, heads: int,
+                     scale: float, TN: int):
+    """Plain twin of K5 fp32's attention backward alone: `attn_bwd_ref` on
+    qkv and dattn in fp32. Returns (dqkv (rows, 3C), dbias (heads, TN,
+    TN)), fp32."""
+    return attn_bwd_ref(qkv.float(), dattn.float(), bias_tiled, mask_tiled,
+                        heads, scale, TN)
+
+
+def attn_bwd(qkv, dattn, attn, bias_tiled, mask_tiled, heads: int,
+             scale: float, TN: int):
+    """K5 bf16's attention backward alone (`stswin_attn_bwd`,
+    `csrc/block_attention.cu`): the second of K5's four steps, over its
+    workspace, for timing and checking it by itself; the twin
+    `attn_bwd_ref` on a CPU tensor. qkv (rows, 3C), dattn and attn, the
+    forward's attention output (rows, C), bf16 in window order (rows =
+    windows x TN); bias (heads, TN, TN), mask (n_mask, TN, TN) or None. The
+    slot kernel where it takes the window, else the two passes
+    (`_attn_bwd_plan_bytes`). Returns (dqkv bf16, dbias fp32)."""
+    if qkv.device.type == "cpu":
+        return attn_bwd_ref(qkv, dattn, bias_tiled, mask_tiled, heads, scale,
+                            TN)
+    name = "attn_bwd"
+    kernels.require(qkv.is_cuda, f"{name}: no kernel for device "
+                    f"{qkv.device}")
+    kernels.require_form(name, "Pallas row 6's attention", qkv, dattn, attn)
+    rows, C3 = qkv.shape
+    C = C3 // 3
+    kernels.require(C3 == 3 * C and C % heads == 0 and rows % TN == 0
+                    and tuple(dattn.shape) == tuple(attn.shape) == (rows, C)
+                    and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                            for t in (qkv, dattn, attn)),
+                    f"{name}: qkv {tuple(qkv.shape)}, dattn "
+                    f"{tuple(dattn.shape)}, attn {tuple(attn.shape)} for "
+                    f"{heads} heads, TN {TN}")
+    hd = C // heads
+    kernels.require(_attn_bwd_takes(TN, hd), f"{name}: K5 does not take "
+                    f"{TN} tokens x head dim {hd}")
+    mask_tiled, n_mask = check_attention_core(
+        name, qkv.device, bias_tiled, mask_tiled, heads, TN, hd,
+        _attn_bwd_plan_bytes)
+    kernels.require_on(qkv.device, name, qkv, dattn, attn)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    work = torch.empty(kernels.query("stswin_attn_bwd_work", rows, C, heads,
+                                     TN), **f32)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((heads, TN, TN), **f32)
+    P = kernels.ptr
+    kernels.launch("stswin_attn_bwd", qkv.device, P(qkv), P(dattn), P(attn),
+                   P(bias_tiled), P(mask_tiled), P(work), P(dqkv), P(dbias),
+                   rows, C, heads, TN, float(scale), n_mask)
+    attn_bwd.launches += 1
+    return dqkv, dbias
+
+
+attn_bwd.launches = 0
 
 
 def attn_bwd_f32(qkv, dattn, bias_tiled, mask_tiled, heads: int,

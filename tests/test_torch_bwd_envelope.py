@@ -30,9 +30,10 @@ from stswincl_tpu.ops import pallas_block_attention as jattn  # noqa: E402
 from stswincl_tpu.ops.window import (  # noqa: E402
     relative_position_index, shifted_window_attention_mask)
 from stswincl_tpu_torch import kernels  # noqa: E402
-from stswincl_tpu_torch.ops import add_ln_mlp, block_attention  # noqa: E402
+from stswincl_tpu_torch.ops import (add_ln_mlp, attention,  # noqa: E402
+                                  block_attention)
 from stswincl_tpu_torch.ops.attention import (  # noqa: E402
-    MAX_WINDOW_TOKENS, _attn_smem_bytes)
+    MAX_WINDOW_TOKENS, _attn_plan_bytes, _attn_smem_bytes)
 
 torch.set_num_threads(1)
 T_ = torch.from_numpy
@@ -181,24 +182,26 @@ def _k1_core_takes(TN, hd):
         "k1", torch.device("meta"), bias, None, 1, TN, hd))
 
 
-# TN = 16 T (ws 4, T 1..12 and 18: 288), hd 8..320 (12, 20 and 36 off 8)
-K5_GRID = [(16 * T, hd) for T in (1, 2, 3, 8, 9, 11, 12, 18)
-           for hd in (8, 12, 16, 20, 24, 36, 48, 64, 144, 160, 192, 208, 224,
-                      256, 288, 304, 320)]
+# (T, ws): TN = T ws^2 = 16 T at ws 4 (T 1..12 and 18: 288), and two token
+# counts off 16 (9 at ws 3, 20 at ws 2); hd 8..2048 (12, 20, 36 and 1212
+# off 8)
+K5_WINDOWS = [(T, 4) for T in (1, 2, 3, 8, 9, 11, 12, 18)] + [(1, 3), (5, 2)]
+K5_HDS = (8, 12, 16, 20, 24, 36, 48, 64, 144, 160, 192, 208, 216, 224, 256,
+          288, 296, 304, 320, 440, 512, 640, 1024, 1208, 1212, 1280, 2048)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
-    """Over a grid of (tokens, head dim) at ws 4 (C = 4 hd over 4 heads),
-    in both dtypes: K5's wrapper (`swin_block_attention_bwd` /
+    """Over a grid of (tokens, head dim) (C = 4 hd over 4 heads), in both
+    dtypes: K5's wrapper (`swin_block_attention_bwd` /
     `swin_block_attention_bwd_f32`, `check_backward_window`), K1's
-    (`_forward_kernel` / `_forward_f32`) and, in fp32, rows 10's and 11's
-    fp32 forms accept exactly the windows K1's bf16 attention core accepts
-    (`_attn_bwd_takes`); fp32 reaches them through the resident or the
-    streamed pair and passes. K1's envelope reaches TN 176 and hd 288 at
-    TN 128; every head dim of 8 (8, 24 and 48 among them) runs in both
-    dtypes, none off 8."""
-    from stswincl_tpu_torch.ops.attention import fused_window_attention_f32
+    (`_forward_kernel` / `_forward_f32`), row 10's and row 11's accept
+    exactly the windows K1's bf16 attention core accepts (`_attn_bwd_takes`,
+    `check_attention_core`): a token count a multiple of 16 up to 176 and
+    a head dim a multiple of 8, whatever its size, through the resident or
+    the streamed instances; TN 192 and 288, token counts off 16 and head
+    dims off 8 are refused. (128, 304), past the bf16 core's resident
+    pair, is taken."""
     meta = dict(dtype=dtype, device="meta")
     f32 = dict(dtype=torch.float32, device="meta")
     bf = dtype == torch.bfloat16
@@ -207,42 +210,46 @@ def test_k5_takes_exactly_the_windows_k1_takes(card_free, dtype):
     bwd = (block_attention.swin_block_attention_bwd if bf
            else block_attention.swin_block_attention_bwd_f32)
     rows = []
-    for TN, hd in K5_GRID:
-        T, C, heads = TN // 16, 4 * hd, 4
-        x = torch.empty((1, T, 4, 4, C), **meta)
-        w = (torch.empty((3 * C, C), **meta), torch.empty(3 * C, **f32),
-             torch.empty((C, C), **meta), torch.empty(C, **f32))
-        bias = torch.empty((heads, TN, TN), **f32)
-        scale = hd ** -0.5
-        k1 = _accepts(lambda: fwd(x, *w, bias, None, heads, scale, 4, 0))
-        qkv = torch.empty((16 * T, 3 * C), **meta)
-        attn = torch.empty((16 * T, C), **meta)
-        k5 = _accepts(lambda: bwd(x, x, qkv, attn, w[0], w[2], bias, None,
-                                  heads, scale, 4, 0))
-        win = _accepts(lambda: block_attention.check_backward_window(
-            "k5", x, heads, 4))
-        rows.append((TN, hd, k1, k5))
-        assert k5 == win, (TN, hd)
-        assert k1 == k5 == _k1_core_takes(TN, hd), (TN, hd, k1, k5)
-        assert k5 == block_attention._attn_bwd_takes(TN, hd)
-        if not bf:
-            img = torch.empty((1, T, 4, 4, 3 * C), **f32)
-            row10 = _accepts(lambda: block_attention
-                             .windowed_attention_image_f32(
-                                 img, bias, None, heads, scale, 4))
-            q = torch.empty((1, heads, TN, hd), **f32)
-            row11 = _accepts(lambda: fused_window_attention_f32(
+    for T, ws in K5_WINDOWS:
+        for hd in K5_HDS:
+            TN, C, heads = T * ws * ws, 4 * hd, 4
+            x = torch.empty((1, T, ws, ws, C), **meta)
+            w = (torch.empty((3 * C, C), **meta), torch.empty(3 * C, **f32),
+                 torch.empty((C, C), **meta), torch.empty(C, **f32))
+            bias = torch.empty((heads, TN, TN), **f32)
+            scale = hd ** -0.5
+            k1 = _accepts(lambda: fwd(x, *w, bias, None, heads, scale, ws, 0))
+            qkv = torch.empty((TN, 3 * C), **meta)
+            attn = torch.empty((TN, C), **meta)
+            k5 = _accepts(lambda: bwd(x, x, qkv, attn, w[0], w[2], bias,
+                                      None, heads, scale, ws, 0))
+            win = _accepts(lambda: block_attention.check_backward_window(
+                "k5", x, heads, ws))
+            img = torch.empty((1, T, ws, ws, 3 * C), **meta)
+            row10 = _accepts(lambda: block_attention._image_kernel(
+                img, bias, None, heads, scale, ws))
+            q = torch.empty((1, heads, TN, hd), **meta)
+            row11 = _accepts(lambda: attention._heads_kernel(
                 q, q, q, bias, None, scale))
-            assert row10 == row11 == k1, (TN, hd, row10, row11, k1)
-    took = {(TN, hd) for TN, hd, k1, _ in rows if k1}
-    assert {(176, 208), (128, 288), (144, 256), (128, 192),
-            (32, 320)} <= took
+            rows.append((TN, hd, k1))
+            assert k5 == win, (TN, hd)
+            assert k1 == k5 == row10 == row11 == _k1_core_takes(TN, hd), (
+                TN, hd, k1, k5, row10, row11)
+            assert k5 == block_attention._attn_bwd_takes(TN, hd)
+    took = {(TN, hd) for TN, hd, k1 in rows if k1}
+    assert took == {(TN, hd) for TN, hd, _ in rows
+                    if TN % 16 == 0 and TN <= MAX_WINDOW_TOKENS
+                    and hd % 8 == 0}
+    assert {(176, 208), (128, 288), (144, 256), (128, 192), (32, 320),
+            (128, 304), (176, 224), (128, 2048), (32, 1280), (16, 2048)
+            } <= took
     assert {(128, 8), (128, 24), (32, 48), (176, 8)} <= took
-    assert not {(176, 224), (128, 304), (288, 64)} & took
+    assert not {(192, 64), (288, 64), (9, 64), (20, 64), (128, 1212)} & took
     assert max(TN for TN, _ in took) == MAX_WINDOW_TOKENS
-    assert all(_attn_smem_bytes(TN, hd) <= kernels.SMEM_LIMIT
+    # past the resident pair the streamed one runs: (128, 304) did not fit
+    assert _attn_smem_bytes(128, 304) > kernels.SMEM_LIMIT
+    assert all(_attn_plan_bytes(TN, hd) <= kernels.SMEM_LIMIT
                for TN, hd in took)
-    assert all(hd % 8 == 0 for TN, hd, k1, k5 in rows if k1 or k5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

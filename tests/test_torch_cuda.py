@@ -2057,12 +2057,15 @@ def test_attn_f32_bwd_plan_matches_the_library(dev):
     a trained block's forward) and the library's (`stswin_attn_f32_smem`,
     `stswin_attn_bwd_f32_smem`, -1 for a window it refuses) agree on
     every window the model and the tests use and on the edges: the
-    resident and the streamed instances, TN 16-176, hd 32-1200."""
+    resident and the streamed instances, TN 16-176, hd 32-2048; and so do
+    the bf16 core's (`_attn_plan_bytes`, `stswin_attn_smem`)."""
     from stswincl_tpu_torch import kernels
     from stswincl_tpu_torch.ops import attention
     for TN in (16, 32, 48, 64, 96, 128, 144, 160, 176):
         for hd in (32, 64, 128, 192, 208, 256, 288, 296, 512, 600, 608,
-                   1200, 1208):
+                   1200, 1208, 2048):
+            lib = kernels.query("stswin_attn_smem", TN, hd)
+            assert lib == attention._attn_plan_bytes(TN, hd), (TN, hd, lib)
             lib = kernels.query("stswin_attn_bwd_f32_smem", TN, hd)
             takes = block_attention._attn_f32_bwd_takes(TN, hd)
             plan = block_attention._attn_f32_bwd_smem_bytes(TN, hd)

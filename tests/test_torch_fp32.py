@@ -301,9 +301,9 @@ def test_fp32_attention_shared_memory_plan():
     stage 2 (TN 32, hd 256) fit one block, and so do (144, 128) and (176,
     64). Every other window the bf16 core takes streams through a ring of
     three chunks of TN rows of 72 floats ((160, 128), (128, 256), (176,
-    128), (32, 1200)); a window the bf16 core refuses ((128, 296), (176,
-    216)) is refused before any launch, as the bf16 plan refuses its
-    own."""
+    128), (32, 1200), and past the bf16 core's resident pair (128, 296),
+    (176, 216), (128, 2048)); a window the bf16 core refuses (TN 192, a
+    head dim off 8) is refused before any launch."""
     plan = attention._attn_f32_smem_bytes
     assert plan(128, 128) == 3 * 128 * 132 * 4 <= kernels.SMEM_LIMIT
     assert plan(32, 256) == 3 * 32 * 260 * 4 <= kernels.SMEM_LIMIT
@@ -318,9 +318,14 @@ def test_fp32_attention_shared_memory_plan():
         bias = torch.zeros((2, TN, TN))
         attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
                                        plan)
-    for TN, hd in ((128, 296), (176, 216)):
+    for TN, hd in ((128, 296), (176, 216), (128, 2048)):
+        assert plan(TN, hd) == 3 * TN * 72 * 4
         bias = torch.zeros((2, TN, TN))
-        with pytest.raises(ValueError, match="shared memory"):
+        attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
+                                       plan)
+    for TN, hd in ((192, 64), (128, 12)):
+        bias = torch.zeros((2, TN, TN))
+        with pytest.raises(ValueError, match="tokens|head_dim"):
             attention.check_attention_core("f32", dev, bias, None, 2, TN, hd,
                                            plan)
     # TN 176, hd 64: within the window envelope and the plan

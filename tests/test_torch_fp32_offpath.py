@@ -243,8 +243,8 @@ def test_k5_fp32_plan_takes_head_dim_32():
     q / dO in rows of hd + 4; the key pass at TN 32, k, v and two 16-query
     chunks of q and dO, is the larger); so are the head dims of 8 below
     the limits (`swin_dim` 96's 24 and 48, 64's 16), and those past 128
-    at TN 128 up to K1's 288 (160 among them), on the streamed passes;
-    head dims off 8, and past 288 at TN 128, stay refused."""
+    at TN 128 (160, 296 and 2048 among them), on the streamed passes;
+    head dims off 8, and windows past 176 tokens, stay refused."""
     takes = block_attention._attn_f32_bwd_takes
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert takes(128, 32) and takes(32, 32) and takes(64, 32)
@@ -252,8 +252,9 @@ def test_k5_fp32_plan_takes_head_dim_32():
     assert plan(32, 32) == 4 * (2 * 32 + 2 * 16 * 2) * 36 == 18432
     assert takes(128, 48) and takes(32, 16) and takes(128, 24)
     assert takes(32, 8) and takes(32, 48)
-    assert not takes(128, 44) and not takes(32, 12) and not takes(128, 296)
-    assert takes(128, 160) and takes(128, 288)
+    assert not takes(128, 44) and not takes(32, 12) and not takes(192, 32)
+    assert takes(128, 160) and takes(128, 288) and takes(128, 296)
+    assert takes(128, 2048) and plan(128, 2048) == plan(128, 296)
 
 
 def test_swin_dim_128_fp32_model_trains_on_k5():

@@ -183,10 +183,10 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     dim of 8 (48 and 24 among them). Past them the streamed passes (the
     fp32 forward's ring, 864 TN bytes; the key pass's chunks of P, dS, q
     and dO) take every other window K1 takes: TN 128 at hd 192 and 256
-    (`num_heads=2`), TN 144. A window K1 refuses (hd 296 at TN 128, TN
-    192) and a head dim off 8 are refused by `check_backward_window`
-    before any launch: the Function's forward raises without calling the
-    form."""
+    (`num_heads=2`), TN 144, and any head dim of 8 (296 at TN 128 among
+    them). A window K1 refuses (TN 192) and a head dim off 8 are refused
+    by `check_backward_window` before any launch: the Function's forward
+    raises without calling the form."""
     plan = block_attention._attn_f32_bwd_smem_bytes
     assert plan(128, 128) == 4 * 3 * 128 * 132 == 202752
     assert plan(32, 256) == 4 * (2 * 32 + 2 * 16 * 2) * 260 == 133120
@@ -208,7 +208,8 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     check("k5", torch.empty((1, 2, 8, 8, 512), **f32), 2, 8)    # hd 256
     check("k5", torch.empty((1, 1, 12, 12, 256), **f32), 4, 12)  # TN 144
     check("k5", torch.empty((1, 2, 8, 8, 768), **f32), 4, 8)    # hd 192
-    refused = (((1, 2, 8, 8, 592), 2, 8),     # TN 128, hd 296
+    check("k5", torch.empty((1, 2, 8, 8, 592), **f32), 2, 8)    # hd 296
+    refused = (((1, 3, 8, 8, 592), 2, 8),     # TN 192, hd 296
                ((1, 12, 4, 4, 256), 4, 4),    # TN 192
                ((1, 2, 4, 4, 200), 4, 4))     # hd 50
     for shape, heads, ws in refused:
@@ -220,10 +221,10 @@ def test_fp32_attention_backward_shared_memory_plan(monkeypatch):
     calls = []
     monkeypatch.setattr(block_attention, "_forward_f32",
                         lambda *a: calls.append(a))
-    C, TN = 592, 128
+    C, TN = 592, 192
     with pytest.raises(ValueError, match="fp32 form"):
         block_attention.swin_block_attention(
-            _meta(1, 2, 8, 8, C), _meta(3 * C, C, grad=True), _meta(3 * C),
+            _meta(1, 3, 8, 8, C), _meta(3 * C, C, grad=True), _meta(3 * C),
             _meta(C, C), _meta(C), _meta(2, TN, TN), None, 2, 0.1, 8)
     assert calls == []
 

@@ -93,9 +93,16 @@ def test_attention_envelope_keeps_every_shape_the_old_core_took():
 @pytest.mark.parametrize("TN,hd", [(192, 64), (128, 1024), (16, 4096),
                                    (120, 64), (128, 68)])
 def test_attention_envelope_refuses_oversize_and_ragged_windows(TN, hd):
-    """Past MAX_WINDOW_TOKENS, past shared memory, a token count off 16 or
-    a head dim off 8 (the cores take every multiple of 8: (128, 72) now
-    runs, `tests/test_torch_widths.py`)."""
+    """Past MAX_WINDOW_TOKENS, a token count off 16 or a head dim off 8 are
+    refused (the cores take every multiple of 8: (128, 72) runs,
+    `tests/test_torch_widths.py`). A window whose resident pair passes
+    shared memory ((128, 1024), (16, 4096)) is no longer refused: it runs
+    the streamed pair, whose ring does not depend on the head dim."""
+    if TN <= attention.MAX_WINDOW_TOKENS and TN % 16 == 0 and hd % 8 == 0:
+        assert attention._attn_smem_bytes(TN, hd) > kernels.SMEM_LIMIT
+        assert attention._attn_plan_bytes(TN, hd) == 864 * TN
+        assert _check(TN, hd) == (None, 0)
+        return
     with pytest.raises(ValueError):
         _check(TN, hd)
 

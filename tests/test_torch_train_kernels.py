@@ -229,10 +229,11 @@ def test_backward_routing_predicates():
     key tiles of 16), its two passes elsewhere. Both training windows
     (stage 1 TN 128 x hd 128, stage 2 TN 32 x hd 256) take the slot;
     TN 128 x hd 256 and a window past 8 key tiles (TN 144 x hd 64), which
-    K1 takes, now train on the two passes; what K1 refuses is refused: an
-    oversize window (TN 288) and a head dim past K1's slot (TN 128 x hd
-    304, TN 176 x hd 224); and where the epilogue saves m: the JAX
-    package's 20 MiB resident-size line, stage 1 recomputes, stage 2
+    K1 takes, now train on the two passes, as do head dims past K1's
+    resident pair (TN 128 x hd 304, TN 176 x hd 224, TN 32 x hd 2048: the
+    query pass streams k and v); what K1 refuses is refused: an oversize
+    window (TN 288) and a head dim off 8; and where the epilogue saves m:
+    the JAX package's 20 MiB resident-size line, stage 1 recomputes, stage 2
     saves."""
     limit = kernels.SMEM_LIMIT
     assert block_attention._attn_bwd_smem_bytes(128, 128) <= limit
@@ -252,9 +253,12 @@ def test_backward_routing_predicates():
     check("k5", bz(1, 1, 12, 12, 128), 2, 12)  # TN 144, hd 64
     check("k5", bz(1, 11, 4, 4, 1664), 8, 4)   # TN 176, hd 208
     check("k5", bz(1, 2, 8, 8, 1152), 4, 8)    # TN 128, hd 288
+    check("k5", bz(1, 2, 8, 8, 2432), 8, 8)    # TN 128, hd 304
+    check("k5", bz(1, 11, 4, 4, 1792), 8, 4)   # TN 176, hd 224
+    check("k5", bz(1, 2, 4, 4, 2048), 1, 4)    # TN 32, hd 2048
     for shape, heads, ws in (((1, 2, 12, 12, 128), 2, 12),  # TN 288
-                             ((1, 2, 8, 8, 2432), 8, 8),    # TN 128, hd 304
-                             ((1, 11, 4, 4, 1792), 8, 4)):  # TN 176, hd 224
+                             ((1, 2, 8, 8, 2440), 8, 8),    # hd 305
+                             ((1, 11, 4, 4, 1800), 8, 4)):  # hd 225
         with pytest.raises(ValueError):
             check("k5", bz(*shape), heads, ws)
     x = torch.zeros((1, 2, 12, 12, 128))  # ws 12 below: TN 288
