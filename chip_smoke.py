@@ -106,12 +106,13 @@ stops a phase exits non-zero at once:
      ms/step; the first step's gradients gated as phase 4 (bf16, against
      the twin step) and 7 (d) (fp32, `fp32_step_gate` at batch 2);
   2j. (after phase 2h; `phase_widths_models`) `ModelConfig(swin_dim=96)`
-     and `(swin_dim=64)` through `build_model` on 'pallas_full', bf16 and
-     fp32: served at bs 2 (8 `predict_next`s, launches as SERVE_STEP,
-     kernel route == plain route on >= TOL_PLAIN_SHARE of pixels, ms a
-     `predict_next`), then `phase_config_train` on them (3 stage-1 steps at
-     batch 8, exact launches, ms/step, peak memory, the first step's
-     gradients gated as 2h gates them);
+     and `(swin_dim=64)` through `build_model` on 'pallas_full', and
+     `swin_dim` 96 with `whole_block=True` (row 16 on its W-MSA blocks),
+     bf16 and fp32: served at bs 2 (8 `predict_next`s, launches as
+     SERVE_STEP, kernel route == plain route on >= TOL_PLAIN_SHARE of
+     pixels, ms a `predict_next`), then `phase_config_train` on them (3
+     stage-1 steps at batch 8, exact launches, ms/step, peak memory, the
+     first step's gradients gated as 2h gates them);
   2k. (after phase 2j; `phase_f32_streamed`) the fp32 forms of K1, K5 and
      rows 10-11 at windows past their resident instances (F32_STREAMED),
      `num_heads=2` and `swin_dim=768` served in fp32, 768 stepped once at
@@ -124,9 +125,19 @@ stops a phase exits non-zero at once:
      last column chunk among them) tenfold out, the library's streamed
      launches exactly where the plans stream, timed beside SDPA; windows
      outside the envelope refused before any launch; `num_heads=1` and
-     `swin_dim=1280` served at bs 2 in both dtypes, `num_heads=1` trained
-     (3 steps at batch 8, gated as 2h), 1280 stepped once at the largest
+     `swin_dim=1280` served at bs 2 in both dtypes, on 'pallas_full' and
+     with `whole_block=True` (the same build), `num_heads=1` trained (3
+     steps at batch 8, gated as 2h), 1280 stepped once at the largest
      batch that fits;
+  2m. (after phase 2l; `phase_whole_block_envelope`) row 16 in both forms
+     at every shape K1 + K2 take (WHOLE_ENVELOPE: C 32-2560, hd 8-1024,
+     TN 32-176, x by boxes and by the row map, resident and streamed
+     pairs, one and two product tiles a tile): bit-equal to the K1 + K2
+     pair with m rounded and call to call, within its bound of its twin,
+     planted faults tenfold out, exact row-16 and streamed-pair launches,
+     timed beside the twin, the bound and the pair; `swin_dim=1280` and
+     `num_heads=1` with `whole_block=True` stepped once at batch 2 in both
+     dtypes (2l (b) serves them);
   2d. hold the whole-block kernel (Pallas row 16) against its twin at
      the full-width serving and batch-8 training shapes of both stages,
      with weights drawn so that the attention branch is as large as x
@@ -678,6 +689,7 @@ def reset_launches(wrappers) -> None:
     from stswincl_tpu_torch.ops import attention as attn_ops
     from stswincl_tpu_torch.ops import block_attention as att
     from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops import swin_block as wb_ops
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -686,6 +698,8 @@ def reset_launches(wrappers) -> None:
     attn_ops.attn_f32_streamed_launches(reset=True)
     att.attn_bwd_passes_launches(reset=True)
     att.attn_bwd_f32_streamed_launches(reset=True)
+    for dt in (torch.bfloat16, torch.float32):
+        wb_ops.streamed_launches(dt, reset=True)
 
 
 def read_launches(wrappers) -> tuple:
@@ -697,11 +711,16 @@ def read_launches(wrappers) -> tuple:
     cores' streamed instances (K1, rows 10, 11), "attn_bwd_passes" /
     "attn_bwd_f32_streamed": the runs of K5 bf16's two passes (its query
     pass streamed) and of K5 fp32's streamed passes (K5, `attn_bwd`,
-    `attn_bwd_f32`)."""
+    `attn_bwd_f32`), "whole_streamed" / "whole_f32_streamed": row 16's
+    launches whose attention phase ran the streamed pair."""
+    import torch
     from stswincl_tpu_torch.ops import attention as attn_ops
     from stswincl_tpu_torch.ops import block_attention as att
     from stswincl_tpu_torch.ops import gemm as gemm_ops
+    from stswincl_tpu_torch.ops import swin_block as wb_ops
     forms = gemm_ops.launch_counts()
+    forms["whole_streamed"] = wb_ops.streamed_launches(torch.bfloat16)
+    forms["whole_f32_streamed"] = wb_ops.streamed_launches(torch.float32)
     forms["attn_streamed"] = attn_ops.attn_streamed_launches()
     forms["attn_f32_streamed"] = attn_ops.attn_f32_streamed_launches()
     forms["attn_bwd_passes"] = att.attn_bwd_passes_launches()
@@ -1815,6 +1834,10 @@ def main() -> None:
           f"and swin_dim=1280 in both dtypes: {time.perf_counter() - t0:.1f}"
           " s", flush=True)
 
+    # ---- phase 2m: row 16 at every shape K1 + K2 take ---------------------
+    pair_ms_2m = phase_whole_block_envelope(dev, smi, wrappers, launches,
+                                            results, median_ms)
+
     # ---- phase 5: the kernel profiler's entry point ----------------------
     t0 = time.perf_counter()
     from stswincl_tpu_torch.tools import profile_swin_kernels
@@ -1890,7 +1913,7 @@ def main() -> None:
         "fused_window_attention": (
             "window_attention.cu",
             "stswincl_tpu/ops/pallas_attention.py:118"),
-        "whole_swin_block": ("swin_block.cu",
+        "whole_swin_block": ("swin_block.cuh",
                              "stswincl_tpu/ops/pallas_swin_block.py:229"),
         "add_ln_mlp": ("epilogue.cu",
                        "stswincl_tpu/ops/pallas_add_ln_mlp.py:97"),
@@ -1940,7 +1963,7 @@ def main() -> None:
             "fp32_forms.cu", "stswincl_tpu/ops/pallas_attention.py:118 "
             "(fp32)"),
         "whole_swin_block_f32": (
-            "fp32_whole_block.cu",
+            "fp32_whole_block.cuh",
             "stswincl_tpu/ops/pallas_swin_block.py:229 (fp32)"),
         "fused_mlp_f32": ("fp32_offpath.cu",
                           "stswincl_tpu/ops/pallas_mlp.py:226 (fp32)"),
@@ -1981,7 +2004,8 @@ def main() -> None:
         if all("device_ms" in c for c in cases):  # rows 14, 15 and 17
             rows[-1]["device_ms"] = sum(c["device_ms"] for c in cases)
     row16 = next(r for r in rows if r["name"] == "whole_swin_block")
-    row16["pair_ms"] = pair_ms  # its yardstick; not a library call
+    row16["pair_ms"] = pair_ms | pair_ms_2m  # its yardstick; not a library
+    # call (phase 2m's cases carry theirs, both forms)
     next(r for r in rows if r["name"] == "add_ln_mlp")[
         "add_ln_linear_gelu_linear_ms"] = row13_chain  # not a library call
     next(r for r in rows if r["name"] == "fused_mlp")[
@@ -1993,11 +2017,17 @@ def main() -> None:
              "Hopper GEMM launches"),
             ("whole_swin_block", "one persistent launch: the Hopper GEMM "
              "tile (sm90_tile.cuh) for its four products, K1's register "
-             "attention core (attention_core.cuh), K2's LN order"),
+             "attention core (attention_core.cuh: the resident or the "
+             "streamed pair), K2's LN order; the first kernel's shapes on "
+             "their own instances (swin_block.cu), every other shape K1 + "
+             "K2 take on the wide ones (swin_block_wide.cu)"),
             ("whole_swin_block_f32", "one persistent launch: the fp32 GEMM "
              "tile (fp32_gemm.cuh) for its four products, K1's fp32 "
-             "attention core (fp32_attention.cuh), K2's fp32 LN order; "
-             "each case's pair_ms is the fp32 K1 + K2 pair on its inputs")):
+             "attention core (fp32_attention.cuh: the resident or the "
+             "streamed pair), K2's fp32 LN order; the first form's shapes "
+             "on their own instances (fp32_whole_block.cu), the rest on "
+             "the wide ones (fp32_whole_block_wide.cu); each case's pair_ms "
+             "is the fp32 K1 + K2 pair on its inputs")):
         next(r for r in rows if r["name"] == name)["design"] = design
     core = ("one launch; fp32_attention.cuh: attn32::pairs (the resident "
             "pair) where q, k and v fit a block, else attn32::pairs_streamed"
@@ -2324,10 +2354,30 @@ ENVELOPE_MODELS = {
 ENVELOPE_STEPS = 3
 
 
-def envelope_model(dev, cfg, seed=0, kernels=None, state=None):
+def route_fields(fields) -> tuple:
+    """A model entry's ModelConfig fields without "whole_block", and that
+    flag (`TswinPlus(whole_block=True)`: row 16 on the W-MSA blocks, which
+    ModelConfig does not carry)."""
+    fields = dict(fields)
+    return fields, fields.pop("whole_block", False)
+
+
+def set_whole_block(model, on: bool):
+    """`model` with its swin blocks' `whole_block` set to `on` (as
+    `TswinPlus(whole_block=on)` builds them)."""
+    from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock
+    for mod in model.modules():
+        if isinstance(mod, SpaceTimeSwinBlock):
+            mod.whole_block = on
+    return model
+
+
+def envelope_model(dev, cfg, seed=0, kernels=None, state=None,
+                   whole_block=False):
     """`cfg`'s model from seeded weights (`state`, or drawn from `seed`),
     in train mode: `build_model` on the kernels, or the same TswinPlus with
-    `kernels=False` for the twin."""
+    `kernels=False` for the twin; with `whole_block` its W-MSA blocks on
+    row 16."""
     import torch
     from stswincl_tpu_torch.models import TswinPlus
     from stswincl_tpu_torch.pipelines.common import build_model
@@ -2344,22 +2394,31 @@ def envelope_model(dev, cfg, seed=0, kernels=None, state=None):
     if state is None:
         state = envelope_state(cfg, seed)
     m.load_state_dict(state)
-    return m.train()
+    return set_whole_block(m, whole_block).train()
+
+
+_ENVELOPE_STATE = {}  # the last drawn weights: (shape, seed) -> state
 
 
 def envelope_state(cfg, seed=0) -> dict:
     """The seeded weights of `cfg`'s model (`envelope_model`), drawn on the
-    CPU."""
+    CPU: fp32 whatever the model's dtype, so the last ones drawn are kept
+    and handed out again for the same shapes and seed (a 0.63 B-parameter
+    `swin_dim=1280` draw takes seconds)."""
     import torch
     from stswincl_tpu_torch.models import TswinPlus
     from stswincl_tpu_torch.models.init import init_weights
-    return init_weights(TswinPlus(
-        cfg.model.num_classes, swin_dim=cfg.model.swin_dim,
-        num_heads=cfg.model.num_heads,
-        swin_depths=tuple(cfg.model.swin_depths),
-        dtype=getattr(torch, cfg.model.dtype),
-        input_hw=tuple(cfg.data.crop_hw)),
-        torch.Generator().manual_seed(seed)).state_dict()
+    mc = cfg.model
+    key = (mc.num_classes, mc.swin_dim, mc.num_heads,
+           tuple(mc.swin_depths), tuple(cfg.data.crop_hw), seed)
+    if key not in _ENVELOPE_STATE:
+        _ENVELOPE_STATE.clear()
+        _ENVELOPE_STATE[key] = init_weights(TswinPlus(
+            mc.num_classes, swin_dim=mc.swin_dim, num_heads=mc.num_heads,
+            swin_depths=tuple(mc.swin_depths), dtype=getattr(torch, mc.dtype),
+            input_hw=tuple(cfg.data.crop_hw)),
+            torch.Generator().manual_seed(seed)).state_dict()
+    return _ENVELOPE_STATE[key]
 
 
 def envelope_steps(cfg, m, n, x, y):
@@ -2451,35 +2510,50 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
     twin step at batch 8 (`hold_gradients`: cosines at or above
     TOL_GRAD_COS_FLOOR, zero-gradient conv biases to their norm bound),
     fp32 by `fp32_step_gate` at batch 2 (the twin step, its controls and
-    held faults). Phase 2h (c) runs it on ENVELOPE_MODELS, phase 2j on
-    WIDTH_MODELS."""
+    held faults). An entry with "whole_block" in its fields runs its
+    W-MSA blocks on row 16 (`route_fields`), launched once a W-MSA block
+    call; in bf16 it steps on phase 4e's batch and is gated as phase 4e
+    gates: against the twin step and, each 1 - cosine, against a control
+    with row 16's function on the pair's kernels. Phase 2h (c) runs it on
+    ENVELOPE_MODELS, phase 2j on WIDTH_MODELS and WHOLE_WIDTH_MODELS."""
     import torch
     import torch.utils.checkpoint
     from stswincl_tpu_torch.configs import ModelConfig, SegTrainConfig
+    from stswincl_tpu_torch.models import swin as swin_models
     from stswincl_tpu_torch.models.aspp import ConvBNRelu
     from stswincl_tpu_torch.models.swin import (PatchMerging,
                                                 SpaceTimeSwinBlock)
     from stswincl_tpu_torch.ops.block_attention import (
         _attn_bwd_slot_takes, _attn_f32_bwd_resident)
+    from stswincl_tpu_torch.ops.swin_block import whole_swin_block_pair
 
     imgs, lbls = seeded_batch(8, seed=3)
-    images = torch.from_numpy(imgs).to(dev)
-    labels = torch.from_numpy(lbls).to(dev).long()
+    batch3 = (torch.from_numpy(imgs).to(dev),
+              torch.from_numpy(lbls).to(dev).long())
     for label, (fields, dtype) in models.items():
+        fields, whole = route_fields(fields)
         cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
         f32 = dtype == "float32"
         sfx = "_f32" if f32 else ""
         tag = f"[envelope {label}]"
-        m = envelope_model(dev, cfg)
+        images, labels = batch3
+        if whole and not f32:  # phase 4e's batch (its control: below)
+            imgs, lbls = seeded_batch(8, seed=ROUTE_TRAIN_SEED)
+            images = torch.from_numpy(imgs).to(dev)
+            labels = torch.from_numpy(lbls).to(dev).long()
+        m = envelope_model(dev, cfg, whole_block=whole)
         # "past": the block calls whose window is past K5's resident
-        # passes in fp32, its slot kernel in bf16
-        calls = {"block": 0, "merge": 0, "past": 0}
+        # passes in fp32, its slot kernel in bf16; "whole": the W-MSA
+        # block calls row 16 takes (whose backward re-runs K1 + K2, so
+        # K1, K2, K5 and K6 still run once a block call)
+        calls = {"block": 0, "merge": 0, "past": 0, "whole": 0}
 
         def count(mod, inputs, out):
             if isinstance(mod, PatchMerging):
                 calls["merge"] += 1
             elif isinstance(mod, SpaceTimeSwinBlock):
                 calls["block"] += 1
+                calls["whole"] += whole and mod.shift_size == 0
                 x = inputs[0]
                 TN = x.shape[1] * mod.window_size ** 2
                 hd = x.shape[-1] // mod.num_heads
@@ -2532,6 +2606,10 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
         check(counts["patch_merge" + sfx] == calls["merge"],
               f"{tag}: patch_merge{sfx} launched "
               f"{counts['patch_merge' + sfx]} times for {calls['merge']}")
+        check(counts["whole_swin_block" + sfx] == calls["whole"],
+              f"{tag}: whole_swin_block{sfx} launched "
+              f"{counts['whole_swin_block' + sfx]} times for "
+              f"{calls['whole']} W-MSA block calls")
         other = ("_f32" not in k if f32 else k.endswith("_f32")
                  for k in counts)
         check(not any(n for (k, n), o in zip(counts.items(), other)
@@ -2545,12 +2623,15 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
                       swin_depths=tuple(cfg.model.swin_depths),
                       input_hw=(H, W))
             b2 = images[:BS], labels[:BS]
-            step_of = fp32_seg_step_of(dev, weights, kw)
+            step_of = fp32_seg_step_of(dev, weights, kw,
+                                       **({"whole_block": True} if whole
+                                          else {}))
             loss_k, g2, _ = step_of(*b2)
             fp32_step_gate(f"{tag} batch {BS}", step_of, *b2, loss_k, g2)
             del weights, g2
         else:
-            plain = envelope_model(dev, cfg, kernels=False)
+            plain = envelope_model(dev, cfg, kernels=False,
+                                   whole_block=whole)
             for mod in plain.modules():
                 if isinstance(mod, SpaceTimeSwinBlock):
                     mod.forward = functools.partial(
@@ -2564,8 +2645,32 @@ def phase_config_train(dev, smi, wrappers, launches, models) -> None:
             print(f"  {tag} loss kernels {losses[0]:.6f} twin "
                   f"{loss_p[0]:.6f} (rel {rel:.2e})", flush=True)
             check(rel <= TOL_TRAIN_LOSS, f"{tag}: loss rel {rel}")
+            control = None
+            if whole:
+                # as phase 4e: a control on the same batch, the same route
+                # with row 16's function on the pair's kernels (m rounded:
+                # K1, K2's m form, K6 taking that m, K5), which runs no row
+                # 16, itself held to the floor. Rounding m lifts the
+                # kernel-against-twin noise of the gradients summed over
+                # every token: on the phase-2j batch the layer1 stem-side
+                # BatchNorm bias read 0.97646 with row 16 and 0.97646 with
+                # this control, 0.98307 on 'pallas_full'; on phase 4e's
+                # batch every cosine of the three read >= 0.9917 (my chip
+                # run, PR 27)
+                mc = envelope_model(dev, cfg, whole_block=True)
+                with unittest.mock.patch.object(
+                        swin_models, "whole_swin_block",
+                        functools.partial(whole_swin_block_pair,
+                                          m_out=True)):
+                    _, grads_c, _ = envelope_steps(cfg, mc, 1, images,
+                                                   labels)
+                del mc
+                control = hold_gradients(
+                    f"{tag} (control)", "pallas_full (pair, m rounded)",
+                    grads_c, grads_p, zero_grad, few, None)
+                del grads_c
             hold_gradients(tag, "pallas_full", grads_k, grads_p, zero_grad,
-                           few, None)
+                           few, control)
             del grads_p
         del grads_k
         torch.cuda.empty_cache()
@@ -2844,47 +2949,33 @@ WIDTH_MODELS = {
     "swin_dim=64 fp32": (dict(swin_dim=64), "float32"),
 }
 WIDTH_SERVE_STEPS = 8
+# ... and with row 16 on their W-MSA blocks (`TswinPlus(whole_block=True)`):
+# C 96 / 192, hd 24 / 48
+WHOLE_WIDTH_MODELS = {
+    "swin_dim=96 whole_block": (dict(swin_dim=96, whole_block=True),
+                                "bfloat16"),
+    "swin_dim=96 whole_block fp32": (dict(swin_dim=96, whole_block=True),
+                                     "float32"),
+}
 
 
 def phase_widths_models(dev, smi, wrappers, launches) -> None:
     """Phase 2j: each of WIDTH_MODELS (`ModelConfig(swin_dim=96)` and
-    `(swin_dim=64)`, 4 heads: hd 24 / 48 and 16 / 32) served by
-    `serve_models` (bs 2, its predictions the plain route's on >=
-    TOL_PLAIN_SHARE of pixels each frame). `whole_block=True` at
-    `swin_dim` 96 (row 16 keeps C % 128) is refused with its message
-    before any kernel launches. Then `phase_config_train` on the same
-    configurations: ENVELOPE_STEPS stage-1 steps at batch 8, finite
-    losses, exact launches, ms/step, peak memory, the first step's
-    gradients gated as phase 2h gates them."""
-    import torch
-    from stswincl_tpu_torch.models import TswinPlus
-
-    serve_models(dev, smi, wrappers, launches, WIDTH_MODELS,
-                 TOL_PLAIN_SHARE)
-    # row 16 keeps C % 128: `whole_block` at swin_dim 96 is refused with
-    # its message before any of the port's kernels runs
-    gen = torch.Generator(device=dev).manual_seed(6)
-    frames = torch.rand((BS, 4, H, W, 3), generator=gen, device=dev) * 2 - 1
-    m = TswinPlus(12, swin_dim=96, dtype=torch.bfloat16, input_hw=(H, W),
-                  whole_block=True).to(dev).eval()
-    reset_launches(wrappers)
-    refused = ""
-    try:
-        with torch.no_grad():
-            m(frames)
-    except ValueError as e:
-        refused = str(e)
-    ran = {k: n for k, n in read_launches(wrappers)[0].items() if n}
-    print(f"  [whole_block swin_dim=96] refused: {refused!r}; port kernels "
-          f"launched {ran}", flush=True)
-    check("C % 128" in refused and not ran, "whole_block at swin_dim 96: "
-          f"refusal {refused!r}, launches {ran}")
-    del m
-    phase_config_train(dev, smi, wrappers, launches, WIDTH_MODELS)
+    `(swin_dim=64)`, 4 heads: hd 24 / 48 and 16 / 32) and
+    WHOLE_WIDTH_MODELS (`swin_dim` 96 with `whole_block=True`, row 16 on
+    its W-MSA blocks) served by `serve_models` (bs 2, its predictions the
+    plain route's on >= TOL_PLAIN_SHARE of pixels each frame). Then
+    `phase_config_train` on the same configurations: ENVELOPE_STEPS
+    stage-1 steps at batch 8, finite losses, exact launches, ms/step, peak
+    memory, the first step's gradients gated as phase 2h gates them."""
+    serve_models(dev, smi, wrappers, launches,
+                 {**WIDTH_MODELS, **WHOLE_WIDTH_MODELS}, TOL_PLAIN_SHARE)
+    phase_config_train(dev, smi, wrappers, launches,
+                       {**WIDTH_MODELS, **WHOLE_WIDTH_MODELS})
 
 
 def serve_models(dev, smi, wrappers, launches, models, share,
-                 steps=WIDTH_SERVE_STEPS) -> dict:
+                 steps=WIDTH_SERVE_STEPS, whole_too=False) -> dict:
     """Each of `models` (label -> (ModelConfig fields, dtype)) built by
     `pipelines.build_model` on 'pallas_full' from seeded weights
     (BatchNorm calibrated on the first clip) serves through
@@ -2893,9 +2984,15 @@ def serve_models(dev, smi, wrappers, launches, models, share,
     K4 as often as the default model's route does (SERVE_STEP) and nothing
     of the other dtype; its predictions the plain route's (`kernels=False`,
     same weights) on >= `share` of pixels each frame; ms a `predict_next`
-    (median after the first). Returns, by label, the launches of the
-    attention core's streamed instance in the model's dtype a
-    `predict_next`."""
+    (median after the first). An entry with "whole_block" in its fields
+    (`route_fields`) serves with row 16 on its W-MSA blocks, both routes:
+    K1 and K2 then launch half as often and row 16 as often as they. With
+    `whole_too`, each model then serves again with row 16 on its W-MSA
+    blocks ("<label> whole_block"), held the same way against the same
+    plain predictions (whose twins differ from row 16's only in m's
+    rounding). Returns, by label, the launches of the attention core's
+    streamed instance in the model's dtype a `predict_next` (with
+    "whole_block", row 16's launches that ran the streamed pair)."""
     import torch
     from stswincl_tpu_torch.configs import (DataConfig, ModelConfig,
                                             SegTrainConfig)
@@ -2911,22 +3008,22 @@ def serve_models(dev, smi, wrappers, launches, models, share,
     for label, (fields, dtype) in models.items():
         f32 = dtype == "float32"
         sfx = "_f32" if f32 else ""
-        tag = f"[serve {label}]"
+        fields, whole = route_fields(fields)
         cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype),
                              data=DataConfig(batch_size=BS, crop_hw=(H, W)))
         model, classes = build_model(cfg.model, cfg.data, device=dev)
         init_weights(model, torch.Generator().manual_seed(0))
-        model.to(dev).eval()
+        set_whole_block(model, whole).to(dev).eval()
         calibrate_batchnorm(model, frames[:, 0:4])
         plain = TswinPlus(classes, swin_dim=cfg.model.swin_dim,
                           num_heads=cfg.model.num_heads,
                           swin_depths=tuple(cfg.model.swin_depths),
                           dtype=getattr(torch, dtype), input_hw=(H, W),
-                          kernels=False)
+                          kernels=False, whole_block=whole)
         plain.load_state_dict(model.state_dict())
         plain.to(dev).eval()
 
-        def drive(m, path):
+        def drive(m, path, wb):
             seg = StreamingSegmenter(m, out_hw=OUT_HW)
             reset_launches(wrappers)
             cache, pred = seg.init_and_predict(frames[:, 0:4])
@@ -2942,43 +3039,61 @@ def serve_models(dev, smi, wrappers, launches, models, share,
             per = {k: (n - before[k]) / steps
                    for k, n in launches[path].items()}
             key = "attn_f32_streamed" if f32 else "attn_streamed"
+            if wb:
+                key = "whole_f32_streamed" if f32 else "whole_streamed"
             per_s = (forms[key] - forms0[key]) / steps
             return preds, per, 1e3 * statistics.median(secs[1:]), per_s
 
-        preds, per, ms, per_s = drive(model, f"serve {label}")
-        plain_preds, plain_per, plain_ms, _ = drive(plain,
-                                                    f"serve {label} plain")
-        streamed[label] = per_s
-        shares = [(a == b).float().mean().item()
-                  for a, b in zip(preds, plain_preds)]
-        print(f"  {tag} C {cfg.model.swin_dim} / {2 * cfg.model.swin_dim}, "
-              f"hd {cfg.model.swin_dim // cfg.model.num_heads} / "
-              f"{2 * cfg.model.swin_dim // cfg.model.num_heads}: "
-              f"{ms:.2f} ms a predict_next (plain route {plain_ms:.2f}; "
-              f"median of {steps - 1}) at bs {BS}; kernel "
-              f"route == plain route on min {min(shares):.6f} of pixels "
-              f"over {len(shares)} frames; launches a predict_next "
-              f"{ {k: v for k, v in per.items() if v} }, of them "
-              f"{per_s} on the core's streamed instance, on {smi}",
-              flush=True)
-        check(min(shares) >= share, f"{tag}: kernel vs plain "
-              f"route {min(shares)} < {share}")
-        check(sum(plain_per.values()) == 0, f"{tag}: the plain route "
-              f"launched {plain_per}")
-        for p_ in preds:
-            check(p_.shape == (BS, *OUT_HW) and p_.dtype == torch.int32
-                  and 0 <= int(p_.min()) and int(p_.max()) < classes,
-                  f"{tag}: prediction {p_.shape} {p_.dtype}")
-        rows = {"attention": "swin_block_attention" + sfx,
-                "epilogue": "swin_block_epilogue" + sfx,
-                "patch_merge": "patch_merge" + sfx,
-                "upsample_argmax": "upsample_argmax"}
-        for key, want in SERVE_STEP.items():
-            check(per[rows[key]] == want, f"{tag}: {rows[key]} launched "
-                  f"{per[rows[key]]} times a predict_next, expected {want}")
-        for k, n in per.items():
-            check(n == 0 or k in rows.values() or k in GEMM_ROWS,
-                  f"{tag}: {k} launched {n} times a predict_next")
+        def hold(name, preds, per, ms, per_s, wb):
+            tag = f"[serve {name}]"
+            shares = [(a == b).float().mean().item()
+                      for a, b in zip(preds, plain_preds)]
+            print(f"  {tag} C {cfg.model.swin_dim} / "
+                  f"{2 * cfg.model.swin_dim}, hd "
+                  f"{cfg.model.swin_dim // cfg.model.num_heads} / "
+                  f"{2 * cfg.model.swin_dim // cfg.model.num_heads}: "
+                  f"{ms:.2f} ms a predict_next (plain route {plain_ms:.2f}; "
+                  f"median of {steps - 1}) at bs {BS}; kernel "
+                  f"route == plain route on min {min(shares):.6f} of pixels "
+                  f"over {len(shares)} frames; launches a predict_next "
+                  f"{ {k: v for k, v in per.items() if v} }, of them "
+                  f"{per_s} on the {'row-16' if wb else 'core'}'s streamed "
+                  f"instance, on {smi}", flush=True)
+            check(min(shares) >= share, f"{tag}: kernel vs plain "
+                  f"route {min(shares)} < {share}")
+            for p_ in preds:
+                check(p_.shape == (BS, *OUT_HW) and p_.dtype == torch.int32
+                      and 0 <= int(p_.min()) and int(p_.max()) < classes,
+                      f"{tag}: prediction {p_.shape} {p_.dtype}")
+            rows = {"attention": "swin_block_attention" + sfx,
+                    "epilogue": "swin_block_epilogue" + sfx,
+                    "patch_merge": "patch_merge" + sfx,
+                    "upsample_argmax": "upsample_argmax"}
+            want_step = dict(SERVE_STEP)
+            if wb:  # row 16 takes the W-MSA block of each of the pairs
+                rows["whole"] = "whole_swin_block" + sfx
+                pairs = SERVE_STEP["attention"] // 2
+                want_step.update(attention=pairs, epilogue=pairs,
+                                 whole=pairs)
+            for key, want in want_step.items():
+                check(per[rows[key]] == want, f"{tag}: {rows[key]} launched "
+                      f"{per[rows[key]]} times a predict_next, expected "
+                      f"{want}")
+            for k, n in per.items():
+                check(n == 0 or k in rows.values() or k in GEMM_ROWS,
+                      f"{tag}: {k} launched {n} times a predict_next")
+            streamed[name] = per_s
+
+        preds, per, ms, per_s = drive(model, f"serve {label}", whole)
+        plain_preds, plain_per, plain_ms, _ = drive(
+            plain, f"serve {label} plain", whole)
+        check(sum(plain_per.values()) == 0, f"[serve {label}]: the plain "
+              f"route launched {plain_per}")
+        hold(label, preds, per, ms, per_s, whole)
+        if whole_too and not whole:
+            name = f"{label} whole_block"
+            set_whole_block(model, True)
+            hold(name, *drive(model, f"serve {name}", True), True)
         del model, plain, preds, plain_preds
         torch.cuda.empty_cache()
     return streamed
@@ -3314,7 +3429,9 @@ def phase_attn_streamed(dev, smi, wrappers, launches, results,
     before any launch in both dtypes. (b) The models of
     ATTN_STREAMED_MODELS served by `serve_models` (bf16 at
     TOL_PLAIN_SHARE, fp32 at TOL_F32_SHARE of the plain route's pixels),
-    `num_heads=1` trained by `phase_config_train` in both dtypes, and
+    on 'pallas_full' and then with `whole_block=True` (row 16's streamed
+    pair, phase 2m's serving of them), `num_heads=1` trained by
+    `phase_config_train` in both dtypes, and
     `swin_dim=1280` stepped once in both dtypes at the largest batch that
     fits (`step_largest`)."""
     phase_attn_streamed_kernels(dev, smi, wrappers, results, median_ms)
@@ -3323,12 +3440,15 @@ def phase_attn_streamed(dev, smi, wrappers, launches, results,
                       ("float32", TOL_F32_SHARE)):
         models = {k: v for k, v in ATTN_STREAMED_MODELS.items()
                   if v[1] == dt}
+        # and with `whole_block=True` (phase 2m's serving of these
+        # models: row 16's streamed pair at stage 1 in both dtypes)
         per = serve_models(dev, smi, wrappers, launches, models, share,
-                           STREAMED_SERVE_STEPS)
+                           STREAMED_SERVE_STEPS, whole_too=True)
         for label, n in per.items():
             STREAMED_LAUNCHES[f"serve {label}: forward a predict_next"] = n
             check(n > 0, f"[serve {label}]: the streamed forward never ran")
-    print(f"  [2l (b)] served: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"  [2l (b)] served, also with whole_block: "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     phase_config_train(dev, smi, wrappers, launches,
                        {k: v for k, v in ATTN_STREAMED_MODELS.items()
@@ -3623,6 +3743,232 @@ def phase_attn_streamed_kernels(dev, smi, wrappers, results,
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
 
+# Phase 2m: row 16 at every shape K1 + K2 take, both forms (label: x's
+# shape (B, T, H, W, C), heads, ws): `swin_dim` 96's stage 1 at its
+# serving batch (C 96, hd 24) and stage 2 (C 192, hd 48), `swin_dim` 32's
+# stage 1 (hd 8); windows of 48 tokens (T 3), two a tile, x by the row
+# map; past 128 tokens TN 144 (ws 6, T 4) and TN 176 (T 11), one window
+# over two product tiles, the warps on further slabs (at hd 320 the
+# streamed pair); `swin_dim=1280`'s two stages (C 1280 / 2560, hd 320 /
+# 640) and `num_heads=1`'s (hd 512 / 1024) at their serving batch
+WHOLE_ENVELOPE = {
+    "C96 hd24 TN128": ((4, 2, 64, 80, 96), 4, 8),
+    "C192 hd48 TN32": ((4, 2, 32, 40, 192), 4, 4),
+    "C32 hd8 TN128": ((4, 2, 64, 80, 32), 4, 8),
+    "TN48 C512": ((2, 3, 64, 80, 512), 4, 4),
+    "TN144 C256": ((1, 4, 48, 60, 256), 4, 6),
+    "TN176 C640 hd320": ((1, 11, 32, 40, 640), 2, 4),
+    "C1280 hd320 TN128": ((4, 2, 64, 80, 1280), 4, 8),
+    "C2560 hd640 TN32": ((4, 2, 32, 40, 2560), 4, 4),
+    "C512 hd512 TN128": ((4, 2, 64, 80, 512), 1, 8),
+    "C1024 hd1024 TN32": ((4, 2, 32, 40, 1024), 1, 4),
+}
+# (b) the models past the first row-16 envelope, with `whole_block=True`,
+# stepped once at batch 2 in both dtypes (phase 2l (b) serves them with
+# `whole_block=True` beside 'pallas_full', on the same build; `swin_dim`
+# 96's are served and trained in phase 2j)
+WHOLE_ENVELOPE_MODELS = {
+    f"{name} whole_block{' fp32' if dt == 'float32' else ''}": (
+        dict(fields, whole_block=True), dt)
+    for name, fields in (("swin_dim=1280", dict(swin_dim=1280)),
+                         ("num_heads=1", dict(num_heads=1)))
+    for dt in ("bfloat16", "float32")}
+
+
+def whole_block_without_late_slabs(x, params, cfg):
+    """Row 16's twin with a planted fault of its slabs: the attention
+    output of every window token past the first 128 left at zero, as if
+    each of the 8 warps took only its first 16-row slab."""
+    import torch
+    import torch.nn.functional as F
+    from stswincl_tpu_torch.ops.add_ln_mlp import (
+        swin_block_epilogue_with_m_ref)
+    from stswincl_tpu_torch.ops.block_attention import (
+        windowed_attention_image_ref)
+    heads, scale, ws = cfg
+    wqkv, bqkv, wproj, bproj, bias, mask = params[:6]
+    B, T, H, W, C = x.shape
+    qkv = F.linear(x.float(), wqkv.float(), bqkv.float()).to(x.dtype)
+    attn = windowed_attention_image_ref(qkv, bias, mask, heads, scale, ws)
+    # window token r = frame * ws^2 + i * ws + j of each window
+    r = torch.arange(T * ws * ws, device=x.device).view(T, 1, ws, 1, ws, 1)
+    attn = attn.view(B, T, H // ws, ws, W // ws, ws, C).masked_fill(
+        r >= 128, 0).view(B, T, H, W, C)
+    y = F.linear(attn.float(), wproj.float(), bproj.float()).to(x.dtype)
+    return swin_block_epilogue_with_m_ref(x, y, *params[6:])[0]
+
+
+def phase_whole_block_envelope(dev, smi, wrappers, launches, results,
+                               median_ms) -> dict:
+    """Phase 2m: (a) row 16 at every WHOLE_ENVELOPE shape in both forms,
+    with weights that make the attention branch as large as x: bit-equal
+    to the K1 + K2 pair with m rounded (`whole_swin_block_pair(m_out=True)`)
+    and call to call, within TOL_REL (bf16) / TOL_F32_REL (fp32, TF32 off)
+    of its twin, planted faults tenfold out (the twin without its relative
+    bias, or on TF32 operands in fp32; with its QK^T's last chunk dropped
+    where the pair streams; without the last window of each tile at TN 48;
+    without the slabs past 128 rows at TN 144 and 176), exactly one launch
+    of the form a call and row 16's streamed launches exactly where the
+    plan streams, timed beside the twin, the bound (24 R C^2 + 4 R TN C
+    flops; x, out and the weights once) and the K1 + K2 pair on the same
+    inputs (`pair_ms`, its yardstick); the workspace it allocates printed
+    beside the card's memory. (b) WHOLE_ENVELOPE_MODELS stepped once at
+    batch 2 (`step_largest`: row 16 once a W-MSA block call, the streamed
+    backward where the plan streams; phase 2l (b) served them). Returns
+    the pair's ms by case."""
+    import torch
+    from stswincl_tpu_torch.ops import swin_block as wb_ops
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    bf16, f32 = torch.bfloat16, torch.float32
+    pair_ms = {}
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(*shape, fan_in, gain=1.0, dtype=f32):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * gain * fan_in ** -0.5).to(dtype)
+
+    for label, (shape, heads, ws) in WHOLE_ENVELOPE.items():
+        B, T, h, w, C = shape
+        TN, hd, hidden = T * ws * ws, C // heads, 4 * C
+        R, cfgw = B * T * h * w, (heads, hd ** -0.5, ws)
+        for dtype in (bf16, f32):
+            bf = dtype == bf16
+            sfx, tol = ("", TOL_REL) if bf else ("_f32", TOL_F32_REL)
+            name = "whole_swin_block" + sfx
+            form = getattr(wb_ops, name)
+            plan = wb_ops.whole_block_plan(B, T, h, w, C, hidden, heads, ws,
+                                           dtype)
+            case = f"2m {label}"
+            x = randn(*shape, dtype=dtype)
+            # qkv and proj weights and the relative bias as phase 2d draws
+            # them: the attention branch about as large as x, the softmax
+            # peaked
+            params = [uniform(3 * C, C, fan_in=C, gain=3.0, dtype=dtype),
+                      uniform(3 * C, fan_in=C),
+                      uniform(C, C, fan_in=C, gain=2.0, dtype=dtype),
+                      uniform(C, fan_in=C), randn(heads, TN, TN), None,
+                      1.0 + randn(C, scale=0.1), randn(C, scale=0.1),
+                      uniform(hidden, C, fan_in=C, dtype=dtype),
+                      uniform(hidden, fan_in=C),
+                      uniform(C, hidden, fan_in=hidden, dtype=dtype),
+                      uniform(C, fan_in=hidden),
+                      1.0 + randn(C, scale=0.1), randn(C, scale=0.1)]
+
+            def kfn():
+                return wb_ops.whole_swin_block(x, *params, *cfgw)
+
+            def twin(ps=params):
+                return wb_ops.whole_swin_block_ref(x, *ps, *cfgw)
+
+            def pair():
+                return wb_ops.whole_swin_block_pair(x, *params, *cfgw,
+                                                    m_out=True)
+            reset_launches(wrappers)
+            with torch.no_grad():
+                got, again = kfn(), kfn()
+                torch.cuda.synchronize()
+                launched = form.launches
+                streamed = read_launches(wrappers)[1][
+                    "whole_streamed" if bf else "whole_f32_streamed"]
+                want_pair = pair()
+                pair_diff = (got.float() - want_pair.float()).abs().max() \
+                    .item()
+                bit = torch.equal(got, again)
+                same_pair = torch.equal(got, want_pair)
+                del again, want_pair
+                want = twin()
+                rel = rel_err(got, want)
+                max_abs = (got.float() - want.float()).abs().max().item()
+                faults = {}
+                if bf:
+                    no_bias = list(params)
+                    no_bias[4] = torch.zeros_like(params[4])
+                    faults["without its relative bias"] = twin(no_bias)
+                else:
+                    faults["on TF32 operands"] = whole_block_fault(
+                        x, params, cfgw, rnd=tf32)
+                if plan.streamed:
+                    chunk = 64 if bf else 32
+                    dropped = list(params)
+                    dropped[0] = params[0].clone()
+                    dropped[0][:C] = drop_last_chunk(params[0][:C].t(),
+                                                     heads, chunk).t()
+                    dropped[1] = params[1].clone()
+                    dropped[1][:C] = drop_last_chunk(params[1][:C], heads,
+                                                     chunk)
+                    faults["with its QK^T's last chunk dropped"] = twin(
+                        dropped)
+                if plan.windows_per_tile > 1 and 128 % TN:
+                    faults["without the last window of each tile"] = \
+                        whole_block_without_last_window(
+                            x, params, cfgw, plan.windows_per_tile)
+                if TN > 128:
+                    faults["without the slabs past 128 rows"] = \
+                        whole_block_without_late_slabs(x, params, cfgw)
+                moved = {k: rel_err(v, want) for k, v in faults.items()}
+                del faults, want, got
+            torch.cuda.empty_cache()
+            check(launched == 2, f"{name} {case}: {launched} launches of "
+                  "the form in two calls")
+            want_s = 2 if plan.streamed else 0
+            check(streamed == want_s, f"{name} {case}: {streamed} launches "
+                  f"ran the streamed pair, expected {want_s}")
+            check(bit and same_pair, f"{name} {case}: bit-equal call to "
+                  f"call {bit}, to the pair with m rounded {same_pair} "
+                  f"(largest difference {pair_diff})")
+            check(rel <= tol, f"{name} {case}: relative error {rel} > {tol}")
+            for k, v in moved.items():
+                check(v > 10 * tol, f"{name} {case}: the twin {k} moves "
+                      f"the output by only {v}")
+            slot = sum(plan.slot_bytes.values())
+            slots = min(plan.tiles, wb_ops._slots(
+                T, C, heads, ws, dev.index, dtype, slot))
+            work = (24 * R * C * C + 4 * R * TN * C,
+                    2 * R * C * x.element_size()
+                    + 12 * C * C * x.element_size()
+                    + (9 * C + hidden) * 4 + heads * TN * TN * 4)
+            row = {"case": case, "rel_err": rel, "max_abs_err": max_abs,
+                   "bit_equal": bit, "pair_m_rounded_max_abs": pair_diff,
+                   "faults": moved, "streamed": plan.streamed,
+                   "x_by": plan.x_by, "m_tiles": plan.m_tiles,
+                   "workspace_bytes": slots * slot,
+                   "ms": median_ms(kfn, reps=5),
+                   "plain_ms": median_ms(twin, reps=3), "library_ms": None,
+                   **bound(*work, peak=PEAK_BF16 if bf else PEAK_3XTF32)}
+            pair_ms[f"{case} {'bf16' if bf else 'fp32'}"] = row["pair_ms"] = \
+                median_ms(pair, reps=3)
+            results.setdefault(name, []).append(row)
+            print(f"  {name:22s} {case:24s} x {shape}, {heads} heads: "
+                  f"{'streamed' if plan.streamed else 'resident'} pairs, x "
+                  f"by {plan.x_by}, {plan.m_tiles} product tile(s) a tile; "
+                  f"== pair with m rounded {same_pair}, bit-equal {bit}; "
+                  f"rel {rel:.2e} (bound {tol:.0e}); faults "
+                  + ", ".join(f"{k} {v / tol:.0f}x" for k, v in moved.items())
+                  + f"; {row['ms']:.3f} ms, twin {row['plain_ms']:.3f} ms, "
+                  f"K1 + K2 pair {row['pair_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_ms'] / row['ms']:.2f}"
+                  f" of it); workspace {slots} slots x {slot / 2 ** 20:.3f} "
+                  f"MiB = {slots * slot / 2 ** 30:.3f} GiB of "
+                  f"{total_mem / 2 ** 30:.1f} GiB, on {smi}", flush=True)
+            del x, params
+            torch.cuda.empty_cache()
+    print(f"phase 2m (a) row 16 at every shape K1 + K2 take: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    t = time.perf_counter()
+    for label, (fields, dt) in WHOLE_ENVELOPE_MODELS.items():
+        step_largest(dev, smi, wrappers, launches, label, fields, dt, (2,))
+    print(f"  [2m (b)] stepped: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase 2m row 16 past its first envelope: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return pair_ms
+
+
 def step_largest(dev, smi, wrappers, launches, label, fields, dtype,
                  batches) -> None:
     """`ModelConfig(**fields, dtype=dtype)` stepped once through
@@ -3638,6 +3984,7 @@ def step_largest(dev, smi, wrappers, launches, label, fields, dtype,
 
     f32 = dtype == "float32"
     sfx = "_f32" if f32 else ""
+    fields, whole = route_fields(fields)
     cfg = SegTrainConfig(model=ModelConfig(**fields, dtype=dtype))
     tag = f"[step {label}]"
     imgs, lbls = seeded_batch(max(batches), seed=3)
@@ -3646,12 +3993,13 @@ def step_largest(dev, smi, wrappers, launches, label, fields, dtype,
     for batch in batches:
         images = torch.from_numpy(imgs[:batch]).to(dev)
         labels = torch.from_numpy(lbls[:batch]).to(dev).long()
-        m = envelope_model(dev, cfg, state=state)
-        calls = {"block": 0, "streamed": 0}
+        m = envelope_model(dev, cfg, state=state, whole_block=whole)
+        calls = {"block": 0, "streamed": 0, "whole": 0}
 
         def count(mod, inputs, out):
             if isinstance(mod, SpaceTimeSwinBlock):
                 calls["block"] += 1
+                calls["whole"] += whole and mod.shift_size == 0
                 x = inputs[0]
                 TN = x.shape[1] * mod.window_size ** 2
                 hd = x.shape[-1] // mod.num_heads
@@ -3697,6 +4045,10 @@ def step_largest(dev, smi, wrappers, launches, label, fields, dtype,
         check(fwd_n > 0 and bwd_n == calls["streamed"], f"{tag}: the "
               f"streamed forward ran {fwd_n} times, the streamed backward "
               f"{bwd_n} times for {calls['streamed']} block calls")
+        check(counts["whole_swin_block" + sfx] == calls["whole"],
+              f"{tag}: whole_swin_block{sfx} launched "
+              f"{counts['whole_swin_block' + sfx]} times for "
+              f"{calls['whole']} W-MSA block calls")
         del m, grads, images, labels
         torch.cuda.empty_cache()
         break

@@ -3,11 +3,11 @@
 // warps. K1's attention step and the standalone attention kernels of the
 // `attn_impl` routes 'pallas' and 'pallas_windows' launch it
 // (window_attention.cu, which says what it replaces and what bounds it);
-// the whole-block kernel (swin_block.cu) runs it on its consumer warps in
+// the whole-block kernel (swin_block.cuh) runs it on its consumer warps in
 // its attention phase. Past a block's shared memory (hd past 288 at TN 128)
-// K1 and the standalone kernels run the streamed form of the same steps,
-// `pairs_streamed`. The address functors say where a (window, head,
-// token) row lives.
+// K1, the standalone kernels and the whole-block kernel run the streamed
+// form of the same steps, `pairs_streamed`. The address functors say where
+// a (window, head, token) row lives.
 #pragma once
 
 #include "common.cuh"
@@ -203,7 +203,11 @@ __device__ __forceinline__ void pv_tile(float (&o)[8][4],
 // hd read v's pad into columns that are never stored.
 // Returns once the pair's output rows are stored; a caller that reuses
 // `base` meets the pair's threads first.
-template <int NT, class Addr>
+// SLABS: the pair has fewer warps (pt / 32) than 16-row slabs (row 16 past
+// 128 tokens, 8 warps for up to 11 slabs): warp wi takes slabs wi, wi +
+// pt / 32, ... one after another, each row computed as above, so the
+// bits do not change.
+template <int NT, class Addr, bool SLABS = false>
 __device__ __forceinline__ void pair_core(
     const Addr& a, int bw, int h, unsigned char* base, int t, int pt,
     int bar, const float* __restrict__ bias, const float* __restrict__ mask,
@@ -240,53 +244,58 @@ __device__ __forceinline__ void pair_core(
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   sync_pair();
 
-  const int q0 = wi * 16, g = lane >> 2, tq = lane & 3;
-  // ---- scores: s[j] is the 16 x 8 tile of keys 8j .. 8j + 7 ----
-  float s[2 * NT][4];
+  const int g = lane >> 2, tq = lane & 3;
+  for (int q0 = wi * 16;; q0 += pt / 2) {
+    // ---- scores: s[j] is the 16 x 8 tile of keys 8j .. 8j + 7 ----
+    float s[2 * NT][4];
 #pragma unroll
-  for (int j = 0; j < 2 * NT; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  scores_add<NT>(s, qs + (q0 + (lane & 15)) * L.ld + (lane >> 4) * 8,
-                 ks + ((lane & 7) + ((lane >> 4) << 3)) * L.ld +
-                     ((lane >> 3) & 1) * 8,
-                 L.ld, hd, nt);
+    for (int j = 0; j < 2 * NT; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    scores_add<NT>(s, qs + (q0 + (lane & 15)) * L.ld + (lane >> 4) * 8,
+                   ks + ((lane & 7) + ((lane >> 4) << 3)) * L.ld +
+                       ((lane >> 3) & 1) * 8,
+                   L.ld, hd, nt);
 
-  // ---- softmax of rows q0 + g and q0 + g + 8; P in bf16 ----
-  uint32_t pa[NT][4];
-  softmax_p<NT>(
-      s, pa, bias + ((long long)h * TN + q0 + g) * TN + 2 * tq,
-      mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
-           : nullptr,
-      nt, TN, scale);
+    // ---- softmax of rows q0 + g and q0 + g + 8; P in bf16 ----
+    uint32_t pa[NT][4];
+    softmax_p<NT>(
+        s, pa, bias + ((long long)h * TN + q0 + g) * TN + 2 * tq,
+        mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
+             : nullptr,
+        nt, TN, scale);
 
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  sync_pair();  // v has landed
+    if (!SLABS || q0 == wi * 16) {  // every warp has a first slab
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      sync_pair();  // v has landed
+    }
 
-  // ---- o = P V, 64 columns at a time, staged as bf16 over this warp's q
-  // rows (read by no other warp) ----
-  bf16* os = qs + q0 * L.ld;
-  const bf16* vb = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * L.ld +
-                   (lane >> 4) * 8;
-  for (int c0 = 0; c0 < hd; c0 += 64) {
-    float o[8][4];
-    pv_tile<NT>(o, pa, vb + c0, L.ld, hd - c0, nt);
+    // ---- o = P V, 64 columns at a time, staged as bf16 over this warp's
+    // q rows of the slab (read by no other warp) ----
+    bf16* os = qs + q0 * L.ld;
+    const bf16* vb = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * L.ld +
+                     (lane >> 4) * 8;
+    for (int c0 = 0; c0 < hd; c0 += 64) {
+      float o[8][4];
+      pv_tile<NT>(o, pa, vb + c0, L.ld, hd - c0, nt);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + 8 * j + 2 * tq;
-      if (c0 + 8 * j < hd) {
-        *reinterpret_cast<uint32_t*>(os + g * L.ld + c) =
-            pack_bf16(o[j][0], o[j][1]);
-        *reinterpret_cast<uint32_t*>(os + (g + 8) * L.ld + c) =
-            pack_bf16(o[j][2], o[j][3]);
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + 8 * j + 2 * tq;
+        if (c0 + 8 * j < hd) {
+          *reinterpret_cast<uint32_t*>(os + g * L.ld + c) =
+              pack_bf16(o[j][0], o[j][1]);
+          *reinterpret_cast<uint32_t*>(os + (g + 8) * L.ld + c) =
+              pack_bf16(o[j][2], o[j][3]);
+        }
       }
     }
-  }
-  __syncwarp();
-  // the warp's 16 output rows: 8 bf16 (16 bytes) a store
-  for (int i = lane; i < 16 * chunks; i += 32) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    *reinterpret_cast<uint4*>(a.dst(rows[q0 + r], h) + c) =
-        *reinterpret_cast<const uint4*>(os + r * L.ld + c);
+    __syncwarp();
+    // the warp's 16 output rows: 8 bf16 (16 bytes) a store
+    for (int i = lane; i < 16 * chunks; i += 32) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      *reinterpret_cast<uint4*>(a.dst(rows[q0 + r], h) + c) =
+          *reinterpret_cast<const uint4*>(os + r * L.ld + c);
+    }
+    if (!SLABS || q0 + pt / 2 >= TN) break;
   }
 }
 
@@ -337,7 +346,11 @@ __host__ __device__ inline size_t plan_bytes(int TN, int hd) {
 // P V (`pv_tile`) forms 64 output columns at a time, each lane's 8
 // consecutive columns of one row after a quad transpose, stored 16 bytes
 // at a time straight from the registers.
-template <int NT, class Addr>
+// SLABS: the pair has fewer warps than 16-row slabs (`pair_core`'s): each
+// pair streams `rounds` times, round rnd's warp wi on slab wi + rnd * pt /
+// 32 (a warp past the last slab only copies), and thread t copies rows t /
+// 2, t / 2 + pt / 2, ... of each chunk.
+template <int NT, class Addr, bool SLABS = false>
 __device__ __forceinline__ void pairs_streamed(
     const Addr& a, int first, int total, int step, int heads, bf16* smem,
     int t, int pt, int bar, const float* __restrict__ bias,
@@ -346,42 +359,51 @@ __device__ __forceinline__ void pairs_streamed(
   const int nt = TN / 16, nqk = (hd + SC - 1) / SC;
   const int per = nqk + (hd + VC - 1) / VC;
   const int lane = t & 31, g = lane >> 2, tq = lane & 3;
-  const int q0 = (t >> 5) * 16;
+  const int rounds = SLABS ? (2 * TN + pt - 1) / pt : 1;
   const int n_mine = first < total ? (total - first + step - 1) / step : 0;
-  const int n_chunks = n_mine * per;
+  const int n_chunks = n_mine * rounds * per;
   const int lr = t >> 1, half = t & 1;  // the row this thread copies
   long long lrow = 0;
   int lpair = -1;
   const auto sync = [&] {
     asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(pt) : "memory");
   };
+  // row rr (at `row`) of chunk r of pair head h into `slot`
+  const auto copy = [&](bf16* slot, int rr, long long row, int h, int r) {
+    if (r < nqk) {
+      const int c0 = r * SC, w = hd - c0 < SC ? hd - c0 : SC;
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const bf16* src = a.in(row, h, which) + c0;
+        bf16* dst = slot + (which * TN + rr) * SLD;
+        for (int i = 8 * half; i < w; i += 16) cp_async16(dst + i, src + i);
+      }
+      if (w % 16)  // the last k16 step reads the pad: q's, k's zeroed
+        *reinterpret_cast<uint4*>(slot + (half * TN + rr) * SLD + w) =
+            make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      const int c0 = (r - nqk) * VC, w = hd - c0 < VC ? hd - c0 : VC;
+      const bf16* src = a.in(row, h, 2) + c0;
+      bf16* dst = slot + rr * VLD;
+      for (int i = 8 * half; i < w; i += 16) cp_async16(dst + i, src + i);
+    }
+  };
   // chunk c of this block's stream into its slot, then a commit (empty
   // past the last)
   const auto load = [&](int c) {
     if (c < n_chunks) {
-      const int p = first + (c / per) * step, r = c % per;
+      const int p = first + (c / per / rounds) * step, r = c % per;
       const int bw = p / heads, h = p - bw * heads;
       if (p != lpair) {
         lrow = a.row(bw, h, lr);
         lpair = p;
       }
       bf16* slot = smem + (c % RING) * TN * SLOT;
-      if (r < nqk) {
-        const int c0 = r * SC, w = hd - c0 < SC ? hd - c0 : SC;
-#pragma unroll
-        for (int which = 0; which < 2; ++which) {
-          const bf16* src = a.in(lrow, h, which) + c0;
-          bf16* dst = slot + (which * TN + lr) * SLD;
-          for (int i = 8 * half; i < w; i += 16) cp_async16(dst + i, src + i);
-        }
-        if (w % 16)  // the last k16 step reads the pad: q's, k's zeroed
-          *reinterpret_cast<uint4*>(slot + (half * TN + lr) * SLD + w) =
-              make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (SLABS) {
+        for (int rr = lr; rr < TN; rr += pt / 2)
+          copy(slot, rr, rr == lr ? lrow : a.row(bw, h, rr), h, r);
       } else {
-        const int c0 = (r - nqk) * VC, w = hd - c0 < VC ? hd - c0 : VC;
-        const bf16* src = a.in(lrow, h, 2) + c0;
-        bf16* dst = slot + lr * VLD;
-        for (int i = 8 * half; i < w; i += 16) cp_async16(dst + i, src + i);
+        copy(slot, lr, lrow, h, r);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -397,55 +419,63 @@ __device__ __forceinline__ void pairs_streamed(
     load(c + RING - 1);
     return smem + (c++ % RING) * TN * SLOT;
   };
-  // ldmatrix row addresses within a chunk: q's rows, k's and v's keys
-  const int qa = (q0 + (lane & 15)) * SLD + (lane >> 4) * 8;
+  // ldmatrix row addresses within a chunk: k's and v's keys
   const int kb = (TN + (lane & 7) + ((lane >> 4) << 3)) * SLD +
                  ((lane >> 3) & 1) * 8;
   const int vb = ((lane & 7) + (((lane >> 3) & 1) << 3)) * VLD +
                  (lane >> 4) * 8;
   for (int p = first; p < total; p += step) {
     const int bw = p / heads, h = p - bw * heads;
-    // ---- scores: each q and k chunk's k16 steps added to s[j] ----
-    float s[2 * NT][4];
+    for (int rnd = 0; rnd < rounds; ++rnd) {
+      const int q0 = (t >> 5) * 16 + rnd * (pt / 2);
+      const bool live = !SLABS || q0 < TN;  // else this warp only copies
+      const int qa = (q0 + (lane & 15)) * SLD + (lane >> 4) * 8;
+      // ---- scores: each q and k chunk's k16 steps added to s[j] ----
+      float s[2 * NT][4];
 #pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    for (int c0 = 0; c0 < hd; c0 += SC) {
-      const bf16* slot = next();
-      scores_add<NT>(s, slot + qa, slot + kb, SLD,
-                     hd - c0 < SC ? hd - c0 : SC, nt);
-    }
-    // ---- softmax of rows q0 + g and q0 + g + 8, as `pair_core` ----
-    uint32_t pa[NT][4];
-    softmax_p<NT>(
-        s, pa, bias + ((long long)h * TN + q0 + g) * TN + 2 * tq,
-        mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN + 2 * tq
-             : nullptr,
-        nt, TN, scale);
-    // ---- o = P V over each v chunk's VC columns, 64 at a time; lane tq
-    // stores row g (tq < 2) or g + 8, columns 8 (2 jj + tq % 2) .. + 7 of
-    // each 16 ----
-    bf16* orow = a.dst(a.row(bw, h, q0 + g + 8 * (tq >> 1)), h);
-    for (int c0 = 0; c0 < hd; c0 += VC) {
-      const bf16* slot = next();
-      const int w = hd - c0 < VC ? hd - c0 : VC;
-      for (int c1 = 0; c1 < w; c1 += 64) {
-        float o[8][4];
-        pv_tile<NT>(o, pa, slot + vb + c1, VLD, w - c1, nt);
+      for (int j = 0; j < 2 * NT; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int c0 = 0; c0 < hd; c0 += SC) {
+        const bf16* slot = next();
+        if (live)
+          scores_add<NT>(s, slot + qa, slot + kb, SLD,
+                         hd - c0 < SC ? hd - c0 : SC, nt);
+      }
+      // ---- softmax of rows q0 + g and q0 + g + 8, as `pair_core` ----
+      uint32_t pa[NT][4];
+      if (live)
+        softmax_p<NT>(
+            s, pa, bias + ((long long)h * TN + q0 + g) * TN + 2 * tq,
+            mask ? mask + ((long long)(bw % n_mask) * TN + q0 + g) * TN +
+                       2 * tq
+                 : nullptr,
+            nt, TN, scale);
+      // ---- o = P V over each v chunk's VC columns, 64 at a time; lane tq
+      // stores row g (tq < 2) or g + 8, columns 8 (2 jj + tq % 2) .. + 7
+      // of each 16 ----
+      bf16* orow =
+          live ? a.dst(a.row(bw, h, q0 + g + 8 * (tq >> 1)), h) : nullptr;
+      for (int c0 = 0; c0 < hd; c0 += VC) {
+        const bf16* slot = next();
+        const int w = hd - c0 < VC ? hd - c0 : VC;
+        for (int c1 = 0; live && c1 < w; c1 += 64) {
+          float o[8][4];
+          pv_tile<NT>(o, pa, slot + vb + c1, VLD, w - c1, nt);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (c1 + 16 * jj < w) {
-            uint32_t wd[4];
+          for (int jj = 0; jj < 4; ++jj) {
+            if (c1 + 16 * jj < w) {
+              uint32_t wd[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int j = 2 * jj + (i & 1), hh = i >> 1;
-              wd[i] = pack_bf16(o[j][2 * hh], o[j][2 * hh + 1]);
+              for (int i = 0; i < 4; ++i) {
+                const int j = 2 * jj + (i & 1), hh = i >> 1;
+                wd[i] = pack_bf16(o[j][2 * hh], o[j][2 * hh + 1]);
+              }
+              quad_transpose(wd, tq);
+              const int col = c1 + 8 * (2 * jj + (tq & 1));
+              if (col < w)
+                *reinterpret_cast<uint4*>(orow + c0 + col) =
+                    make_uint4(wd[0], wd[1], wd[2], wd[3]);
             }
-            quad_transpose(wd, tq);
-            const int col = c1 + 8 * (2 * jj + (tq & 1));
-            if (col < w)
-              *reinterpret_cast<uint4*>(orow + c0 + col) =
-                  make_uint4(wd[0], wd[1], wd[2], wd[3]);
           }
         }
       }

@@ -3,7 +3,7 @@
 // accuracy on the tensor cores (3xTF32, tf32x3.cuh). K1's fp32 form and
 // the fp32 forms of rows 10 and 11 launch it alone (fp32_forms.cu, which
 // says what it replaces and what bounds it); row 16's fp32 form
-// (fp32_whole_block.cu) runs it in its attention phase. Two instances: the
+// (fp32_whole_block.cuh) runs it in its attention phase. Two instances: the
 // resident pair (`pairs`) where q, k and v fit a block, and the streamed
 // pair (`pairs_streamed`) for every other window (`takes`). The
 // address functors say where a (window, head, token) row lives, as
@@ -306,7 +306,11 @@ __device__ __forceinline__ void pv_store(const float (&s)[NT][4],
 // this pair's softmax and P V run, v of the next while its scores are
 // formed, so the pair's smem holds one pair and the copies hide behind the
 // products.
-template <int NT, class Addr>
+// SLABS: the pair has fewer warps (pt / 32) than 16-row slabs (row 16 past
+// 128 tokens): q, k and v of a pair land together, then warp w takes
+// slabs w, w + pt / 32, ... one after another, each row computed as above
+// (the same bits); the next pair's loads wait for the last slab.
+template <int NT, class Addr, bool SLABS = false>
 __device__ __forceinline__ void pairs(const Addr& a, int first, int total,
                                       int step, int heads, float* smem,
                                       int t, int pt, int bar,
@@ -323,6 +327,34 @@ __device__ __forceinline__ void pairs(const Addr& a, int first, int total,
   const auto sync = [&] {
     asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(pt) : "memory");
   };
+  if constexpr (SLABS) {
+    for (int p = first; p < total; p += step) {
+      const int bw = p / heads, h = p - bw * heads;
+      load_rows(a, bw, h, 0, 2, qs, TN, hd, ld, t, pt);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      sync();  // q, k and v have landed
+      for (int r0 = q0; r0 < TN; r0 += pt / 2) {
+        float s[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        scores_add<NT>(s, qs + r0 * ld, ks, ld, hd, nt, g, tq);
+        softmax_rows<NT>(
+            s, bias + ((long long)h * TN + r0 + g) * TN + 2 * tq,
+            mask ? mask + ((long long)(bw % n_mask) * TN + r0 + g) * TN +
+                       2 * tq
+                 : nullptr,
+            nt, TN, scale);
+        float* d0 = a.dst(a.row(bw, h, r0 + g), h) + 2 * tq;
+        float* d1 = a.dst(a.row(bw, h, r0 + g + 8), h) + 2 * tq;
+        const float* vb = vs + 2 * tq * ld + g;
+        for (int c0 = 0; c0 < hd; c0 += 64)
+          pv_store<NT>(s, vb + c0, ld, c0, hd, nt, d0 + c0, d1 + c0);
+      }
+      sync();  // every warp has read q, k and v: the next pair's may land
+    }
+    return;
+  }
   if (first < total) {
     load_rows(a, first / heads, first % heads, 0, 1, qs, TN, hd, ld, t, pt);
     load_rows(a, first / heads, first % heads, 2, 2, vs, TN, hd, ld, t, pt);
@@ -394,16 +426,19 @@ __device__ __forceinline__ void load_cols(const Addr& a, int bw, int h,
 // the next chunk's, each through `mma3_add` into the same registers), the
 // softmax runs in those registers once the last chunk is summed, and P V
 // forms 64 output columns a v chunk.
-template <int NT, class Addr>
+// SLABS: the pair has fewer warps than 16-row slabs (`pairs`): each pair
+// streams `rounds` times, round rnd's warp w on slab w + rnd * pt / 32 (a
+// warp past the last slab only copies).
+template <int NT, class Addr, bool SLABS = false>
 __device__ __forceinline__ void pairs_streamed(
     const Addr& a, int first, int total, int step, int heads, float* smem,
     int t, int pt, int bar, const float* __restrict__ bias,
     const float* __restrict__ mask, int n_mask, int TN, int hd, float scale) {
   const int nt = TN / 8, nqk = (hd + SC - 1) / SC, per = nqk + (hd + VC - 1) / VC;
   const int lane = t & 31, g = lane >> 2, tq = lane & 3;
-  const int q0 = (t >> 5) * 16;
+  const int rounds = SLABS ? (2 * TN + pt - 1) / pt : 1;
   const int n_mine = first < total ? (total - first + step - 1) / step : 0;
-  const int n_chunks = n_mine * per;
+  const int n_chunks = n_mine * rounds * per;
   const auto sync = [&] {
     asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(pt) : "memory");
   };
@@ -411,7 +446,7 @@ __device__ __forceinline__ void pairs_streamed(
   // past the last)
   const auto load = [&](int c) {
     if (c < n_chunks) {
-      const int p = first + (c / per) * step, r = c % per;
+      const int p = first + (c / per / rounds) * step, r = c % per;
       const int bw = p / heads, h = p - bw * heads;
       float* slot = smem + (c % RING) * TN * SLOT;
       if (r < nqk) {
@@ -429,14 +464,16 @@ __device__ __forceinline__ void pairs_streamed(
 
   float s[NT][4];
   for (int c = 0; c < n_chunks; ++c) {
-    const int p = first + (c / per) * step, r = c % per;
+    const int p = first + (c / per / rounds) * step, r = c % per;
     const int bw = p / heads, h = p - bw * heads;
+    const int q0 = (t >> 5) * 16 + (c / per % rounds) * (pt / 2);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 2) : "memory");
     sync();  // chunk c has landed; every warp is done with chunk c - 1
     load(c + RING - 1);  // into chunk c - 1's slot
     const float* slot = smem + (c % RING) * TN * SLOT;
 
-    if (r < nqk) {
+    if (SLABS && q0 >= TN) {  // past the last slab: this warp only copies
+    } else if (r < nqk) {
       // ---- scores: this chunk's k steps added to s[j] ----
       if (r == 0) {
 #pragma unroll

@@ -1,331 +1,46 @@
-// Row 16's fp32 form: the whole W-MSA swin block in ONE launch, fp32,
-//   qkv = x Wqkv + bqkv -> window attention -> y = attn Wproj + bproj,
-//   s = x + y, out = LN1(s + m), m = fc2(GELU(fc1(LN2(s)))).
-//
-// Replaces the fp32 instance of the dtype-generic TPU kernel
-// stswincl_tpu/ops/pallas_swin_block.py
-//   fused_whole_swin_block (:229) -> _whole_kernel (:63), shift 0 only,
-// which loads x.dtype, accumulates in fp32 and stores x.dtype: in fp32 its
-// roundings (:88, :115, :122, :135, :138, m at :142) are the identity, so
-// this kernel computes the fp32 K1 + K2 pair (fp32_forms.cu) in one launch.
-// Every product runs on the fp32 GEMM's tile (`f32t::ktile`,
-// fp32_gemm.cuh: 3xTF32 on wgmma, each 32-deep k tile summed from zero and
-// added to fp32 sums) over the same k tiles as `gemm_f32`, with its
-// epilogue arithmetic; the attention is K1's fp32 core (`attn32::pairs`,
-// fp32_attention.cuh); the LN passes are K2's fp32 row passes
-// (`ln_row_f32`), s = x + y formed in proj's epilogue as K2's first pass
-// forms it and fc2 + bias added into s as K2's serving fc2 adds it: so the
-// output carries the bits of the fp32 pair. No float atomics: two calls
-// give the same bits. The bf16 form (swin_block.cu) runs bf16 operands on
-// wgmma; nothing of it is shared here but the sm90 building blocks.
-//
-// Bound on the H100: the products, 24 R C^2 + 4 R TN C flops for R token
-// rows (268 GFLOP at the stage-1 serving shape), every one fp32-accurate
-// as 3xTF32 on the tensor cores (164.9 TFLOP/s): at least 1.63 ms; x and
-// out are R C * 8 bytes.
-//
-// Design, simple and right first: persistent blocks of 256 threads (two
-// warpgroups), one a workspace slot (`stswin_whole_block_f32_slots` sizes
-// them from the occupancy API), each owning a tile of TM = 128 token rows
-// in window order at a time (one stage-1 window of TN 128, or four stage-2
-// windows of TN 32). Every phase is row-local or window-local, so blocks
-// never wait for each other and one launch covers the block call. Each
-// tile runs seven phases through the slot's fp32 workspace, the block
-// meeting on its barrier between them:
-//   1. qkv: A = x read through the window partition's row map (no
-//      partitioned copy), 3C / 128 column tiles -> wide (TM x 3C);
-//   2. attention of each (window, head) of the tile by the fp32 core, as
-//      many pairs at once as the 8 warps (TN / 16 a pair) and shared
-//      memory hold: one of 198 KiB of q, k and v at stage 1 (TN 128), two
-//      of 98 KiB at stage 2 (TN 32, 4 of the 8 warps), each group of warps
-//      walking its pairs with the next pair's loads in flight -> narrow
-//      (TM x C);
-//   3. proj, whose epilogue adds x: s = x + (attn Wproj + bproj) -> s;
-//   4. LN2(s), a warp a row -> narrow;
-//   5. fc1 with the bias and GELU (the erf polynomial) -> wide (TM x hidden,
-//      row stride max(3C, hidden));
-//   6. fc2 with the bias, added into s;
-//   7. LN1(s), a warp a row, scattered back to the image layout.
-// A product phase (`product`) is the GEMM tile without the GEMM kernel's
-// producer warpgroup: every thread copies its share of each A and Wt k
-// tile by cp.async into a four-stage ring in the 128-byte swizzle, the
-// block splits each landed Wt tile, hi in place and lo beside
-// (`f32t::split_b`), and
-// each warpgroup runs `ktile` on its 64 rows, then stores 8 consecutive
-// columns a lane.
-// Shared memory holds one phase at a time: the ring (192 KiB + 1 KiB of
-// alignment) or the attention pairs' q, k and v (198 KiB at stage 1). The
-// slot's workspace is 1.5 MiB at stage 1 and 3 MiB at stage 2 (wide,
-// narrow and s in fp32), reused tile after tile. Device memory sees x read
-// in phases 1 and 3 and the output written once; the pair also writes y
-// and every intermediate of the epilogue for every row, and reads them
-// back.
+// Row 16's fp32 form: its C entries and the first form's instances (the
+// kernel, what it replaces and its design: fp32_whole_block.cuh; the wide
+// instances: fp32_whole_block_wide.cu).
 
-#include "fp32_attention.cuh"
-#include "fp32_gemm.cuh"
+#include <atomic>
+
+#include "fp32_whole_block.cuh"
 
 namespace {
 
-using f32t::BK;
-using f32t::BN;
-using f32t::NACC;
-using f32t::STAGE;
-using f32t::STAGES;
-using f32t::TILE;
+using namespace whole_block_f32;
 
-constexpr int TM = f32t::BM;  // token rows a tile (whole windows)
-constexpr int THREADS = 256;  // two warpgroups
-constexpr int SMEM_MAX = 232448;  // shared memory one block may use, sm_90
-// the product phases' ring: the fp32 GEMM tile's three stages of A and B
-// k tiles with their lo halves, 1024-byte aligned
-constexpr size_t RING = 1024 + f32t::RING_BYTES;
+// launches whose attention phase ran the streamed pair since the last
+// reset (`stswin_whole_block_f32_streamed_launches`)
+std::atomic<long long> streamed_launches{0};
 
-// The dynamic shared memory of one block: the ring in the product phases,
-// `group` attention pairs of `pair` bytes each in the attention phase (as
-// many as the block's warps, TN / 16 a pair, and shared memory hold; 0
-// when one pair does not fit), in the same region.
-struct Layout {
-  size_t pair, total;
-  int group;
-};
-
-inline Layout whole_layout(int TN, int hd) {
-  Layout L;
-  L.pair = attn32::smem_bytes(TN, hd);
-  L.group = THREADS / (TN * 2);
-  while (L.group > 0 && L.group * L.pair > SMEM_MAX) --L.group;
-  const size_t pairs = L.group * L.pair;
-  L.total = pairs > RING ? pairs : RING;
-  return L;
+// Whether a shape runs the first form's instance (WIDE false): C % 128 up
+// to 1024, hidden % 128, TN dividing 128, hd % 32 and a resident pair.
+bool narrow(int C, int hidden, int TN, int hd) {
+  return C % 128 == 0 && C <= 1024 && hidden % 128 == 0 && TM % TN == 0 &&
+         hd % 32 == 0 && !whole_layout(TN, hd).streamed;
 }
 
-struct WholeF32 {
-  const float* x;
-  const float* wqkv;
-  const float* bqkv;
-  const float* wproj;
-  const float* bproj;
-  const float* bias;  // (heads, TN, TN)
-  const float* s2;
-  const float* b2;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* bw2;
-  const float* s1;
-  const float* b1n;
-  float* out;
-  float* ws_wide;    // (slots, TM, wide): qkv (row stride 3C), then h
-  float* ws_narrow;  // (slots, TM, C): the attention output, then LN2(s)
-  float* ws_s;       // (slots, TM, C): s, then s + m
-  RowMap img;        // window-order row -> image row (shift 0)
-  int M, C, hidden, wide, heads, TN, hd, tiles, act;
-  int group, pair_floats;  // attention pairs at once, each pair's smem
-  float scale, eps;
-};
-
-// One product phase of a tile: for each 128-wide column tile n0 of N
-// (N % 128 == 0) the tile's sums over K (K % 32 == 0) on the fp32 GEMM's
-// k tiles (`f32t::ktile`, as `gemm_f32` sums them), then epi(r, n, o)
-// with o[e] = sum + bias[n + e], 8 consecutive columns of tile row r <
-// valid. Every thread loads row threadIdx.x / 2 of the A and Wt k tiles
-// (half its 16-byte chunks) by cp.async into the swizzled ring; `a_row`
-// is the start of that A row, `a_ok` false for a row past `valid`
-// (zero-filled). Each landed Wt tile is split by the whole block, then
-// each warpgroup runs its 64 rows.
-template <class Epi>
-__device__ __forceinline__ void product(float* ring, const float* a_row,
-                                        bool a_ok,
-                                        const float* __restrict__ Wt, int N,
-                                        int K, const float* __restrict__ bias,
-                                        int valid, Epi epi) {
-  const int tid = threadIdx.x, lr = tid >> 1, c0 = (tid & 1) * 4;
-  const int wg = tid >> 7, KT = K / BK;
-  float sum[NACC], d[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) d[i] = 0.0f;
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    __syncthreads();  // the ring's last readers, and the phase before, done
-    const float* b_row = Wt + (long long)(n0 + lr) * K;
-    auto load = [&](int s, int kt) {
-      float* sa = ring + s * STAGE;
-#pragma unroll
-      for (int c = c0; c < c0 + 4; ++c) {
-        const int at = lr * BK + (((c ^ lr) & 7) << 2);
-        cp_async16(sa + at, a_row + kt * BK + 4 * c, a_ok);
-        cp_async16(sa + TILE + at, b_row + kt * BK + 4 * c);
-      }
-    };
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < KT) load(s, s);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+// run<NT, WIDE> for windows of TN tokens (TN <= 176), NT the standalone
+// core's: the first form's instances here, the wide ones in
+// fp32_whole_block_wide.cu; the launches that ran the streamed pair
+// counted
+cudaError_t run_for(int C, int hidden, int TN, int hd, const WholeF32* p,
+                    int grid, cudaStream_t stream, int* per_sm) {
+  if (narrow(C, hidden, TN, hd)) {
+    switch (attn32::score_tiles(TN)) {
+      case 4:
+        return run<4, false>(TN, hd, p, grid, stream, per_sm);
+      case 8:
+        return run<8, false>(TN, hd, p, grid, stream, per_sm);
+      default:
+        return run<16, false>(TN, hd, p, grid, stream, per_sm);
     }
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) sum[i] = 0.0f;
-    for (int kt = 0; kt < KT; ++kt) {
-      // k tile kt has landed (this thread's copies); after the barrier every
-      // thread's have, and every warpgroup is done with the stage refilled
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
-      __syncthreads();
-      const int next = kt + STAGES - 1;
-      if (next < KT) load(next % STAGES, next);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      float* st = ring + (kt % STAGES) * STAGE;
-      f32t::split_b(st + TILE, st + 2 * TILE, tid, THREADS);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-      const uint32_t sb = smem_u32(st + TILE);
-      f32t::ktile(sum, d, st + wg * 64 * BK, sb, sb + TILE * 4);
-    }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    f32t::rows8(
-        sum, n0, [&](int n, float v) { return v + bias[n]; },
-        [&](int row, int n, const float(&o)[8]) {
-          const int r = wg * 64 + row;
-          if (r < valid) epi(r, n, o);
-        });
   }
-}
-
-// LayerNorm of the first `valid` rows of s32 (rows of C), a warp a row,
-// tile row r to row map_row(map, d0 + r) of dst: K2's fp32 LN pass.
-__device__ __forceinline__ void ln_rows(const float* s32, int C,
-                                        const float* __restrict__ g,
-                                        const float* __restrict__ b,
-                                        float eps, float* dst,
-                                        const RowMap& map, int d0,
-                                        int valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < valid; r += THREADS / 32) {
-    const float* srow = s32 + (long long)r * C;
-    float sum = 0.0f;
-    for (int c = lane * 4; c < C; c += 128) sum += sum4(ld4(srow + c));
-    ln_row_f32(srow, sum, g, b, dst + map_row(map, d0 + r) * C, C, eps,
-               lane);
-  }
-}
-
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 1)
-    whole_block_f32_kernel(const WholeF32 p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(
-      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
-  float* attn_smem = reinterpret_cast<float*>(smem);  // the ring's, idle
-  const int tid = threadIdx.x, lr = tid >> 1;
-  const int C = p.C, TN = p.TN;
-  float* wide = p.ws_wide + (long long)blockIdx.x * TM * p.wide;
-  float* narrow = p.ws_narrow + (long long)blockIdx.x * TM * C;
-  float* s32 = p.ws_s + (long long)blockIdx.x * TM * C;
-  const RowMap id{0, 1, 1, 1, 1, 0};
-  const attn32::MappedRows heads_io{wide, narrow, id, TN, p.hd, C};
-
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const int m0 = t * TM;
-    // the last tile may hold fewer windows: rows past `valid` are neither
-    // loaded nor stored
-    const int valid = p.M - m0 < TM ? p.M - m0 : TM;
-    const bool a_ok = lr < valid;
-
-    // 1. qkv = x Wqkv + bqkv, (TM, 3C) in window order
-    const float* x_row =
-        p.x + (a_ok ? map_row(p.img, m0 + lr) : 0) * (long long)C;
-    product(ring, x_row, a_ok, p.wqkv, 3 * C, C, p.bqkv, valid,
-            [&](int r, int n, const float(&o)[8]) {
-              f32t::store8(wide + (long long)r * 3 * C + n, o);
-            });
-
-    // 2. attention of each (window, head) of the tile -> (TM, C): group
-    // gi of TN / 16 warps runs pairs gi, gi + group, ... in its own region
-    __syncthreads();  // qkv written, the ring's last readers done
-    const int pt = TN * 2, gi = tid / pt;
-    if (gi < p.group)
-      attn32::pairs<NT>(heads_io, gi, valid / TN * p.heads, p.group, p.heads,
-                        attn_smem + gi * p.pair_floats, tid - gi * pt, pt,
-                        1 + gi, p.bias, nullptr, 0, TN, p.hd, p.scale);
-
-    // 3. s = x + (attn Wproj + bproj), x read back through the row map
-    product(ring, narrow + (long long)lr * C, a_ok, p.wproj, C, C, p.bproj,
-            valid, [&](int r, int n, const float(&o)[8]) {
-              float v[8];
-              f32t::load8(p.x + map_row(p.img, m0 + r) * C + n, v);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] += o[e];
-              f32t::store8(s32 + (long long)r * C + n, v);
-            });
-    __syncthreads();
-
-    // 4. LN2(s) -> narrow, over the attention output
-    ln_rows(s32, C, p.s2, p.b2, p.eps, narrow, id, 0, valid);
-
-    // 5. h = GELU(LN2(s) W1 + b1) -> wide, over qkv
-    product(ring, narrow + (long long)lr * C, a_ok, p.w1, p.hidden, C, p.b1,
-            valid, [&](int r, int n, const float(&o)[8]) {
-              float v[8];
-#pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] = activate(o[e], p.act);
-              f32t::store8(wide + (long long)r * p.wide + n, v);
-            });
-
-    // 6. s += h W2 + bw2: the fp32 MLP sum, unrounded
-    product(ring, wide + (long long)lr * p.wide, a_ok, p.w2, C, p.hidden,
-            p.bw2, valid, [&](int r, int n, const float(&o)[8]) {
-              float v[8];
-              f32t::load8(s32 + (long long)r * C + n, v);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] += o[e];
-              f32t::store8(s32 + (long long)r * C + n, v);
-            });
-    __syncthreads();
-
-    // 7. out = LN1(s + m), back to the image layout
-    ln_rows(s32, C, p.s1, p.b1n, p.eps, p.out, p.img, m0, valid);
-  }
-}
-
-// The kernel with NT 8-key score tiles for windows of TN tokens of
-// head_dim hd: launched with `p` on `stream`, or with `per_sm` the blocks
-// one SM holds written there.
-template <int NT>
-cudaError_t run(int TN, int hd, const WholeF32* p, int grid,
-                cudaStream_t stream, int* per_sm) {
-  const Layout L = whole_layout(TN, hd);
-  if (L.group < 1) return cudaErrorInvalidValue;
-  // once an instance and device: the most a block may use
-  static bool allowed[MAX_DEVICES] = {};
-  const int dev = current_device();
-  if (dev < 0) return cudaErrorInvalidDevice;
-  if (!allowed[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        whole_block_f32_kernel<NT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err != cudaSuccess) return err;
-    allowed[dev] = true;
-  }
-  if (per_sm)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, whole_block_f32_kernel<NT>, THREADS, L.total);
-  whole_block_f32_kernel<NT><<<grid, THREADS, L.total, stream>>>(*p);
-  return cudaGetLastError();
-}
-
-// run<NT> for windows of TN tokens (TN divides 128), NT the standalone
-// core's
-cudaError_t run_for(int TN, int hd, const WholeF32* p, int grid,
-                    cudaStream_t stream, int* per_sm) {
-  switch (attn32::score_tiles(TN)) {
-    case 4:
-      return run<4>(TN, hd, p, grid, stream, per_sm);
-    case 8:
-      return run<8>(TN, hd, p, grid, stream, per_sm);
-    default:
-      return run<16>(TN, hd, p, grid, stream, per_sm);
-  }
-}
-
-bool takes_window(int TN, int hd) {
-  return TN > 0 && TN % 16 == 0 && TM % TN == 0 && hd > 0 && hd % 32 == 0;
+  const cudaError_t err = run_wide(TN, hd, p, grid, stream, per_sm);
+  if (err == cudaSuccess && !per_sm && whole_layout(TN, hd).streamed)
+    ++streamed_launches;
+  return err;
 }
 
 }  // namespace
@@ -336,11 +51,11 @@ bool takes_window(int TN, int hd) {
 // `*slots`.
 extern "C" int stswin_whole_block_f32_slots(int T, int C, int heads, int ws,
                                             int* slots) {
-  if (heads <= 0 || C % heads || !takes_window(T * ws * ws, C / heads))
+  if (heads <= 0 || C % heads || !attn32::takes(T * ws * ws, C / heads))
     return cudaErrorInvalidValue;
-  int per_sm = 0;
-  const cudaError_t err =
-      run_for(T * ws * ws, C / heads, nullptr, 0, nullptr, &per_sm);
+  int per_sm = 0;  // the instance of hidden 4C (the same occupancy)
+  const cudaError_t err = run_for(C, 4 * C, T * ws * ws, C / heads, nullptr,
+                                  0, nullptr, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm <= 0 || !sm_count()) return cudaErrorInvalidConfiguration;
   *slots = per_sm * sm_count();
@@ -349,14 +64,23 @@ extern "C" int stswin_whole_block_f32_slots(int T, int C, int heads, int ws,
 
 // The shared memory `stswin_whole_block_f32` launches with for windows of
 // TN tokens of head_dim hd: `*total` bytes a block, in which `*group`
-// attention pairs (1; 0: the pair does not fit) share the ring's region.
-// No CUDA call.
+// attention pairs (resident, or streamed where the resident pair does not
+// fit) share the ring's region. No CUDA call.
 extern "C" int stswin_whole_block_f32_layout(int TN, int hd, int* group,
                                              long long* total) {
-  if (!takes_window(TN, hd)) return cudaErrorInvalidValue;
+  if (!attn32::takes(TN, hd)) return cudaErrorInvalidValue;
   const Layout L = whole_layout(TN, hd);
   *group = L.group;
   *total = static_cast<long long>(L.total);
+  return cudaSuccess;
+}
+
+// The launches whose attention phase ran the streamed pair since the last
+// call with `reset` set (a query, not a launch); `reset` sets the count to
+// 0 after reading it.
+extern "C" int stswin_whole_block_f32_streamed_launches(int reset,
+                                                        long long* out) {
+  *out = reset ? streamed_launches.exchange(0) : streamed_launches.load();
   return cudaSuccess;
 }
 
@@ -364,11 +88,12 @@ extern "C" int stswin_whole_block_f32_layout(int TN, int hd, int* group,
 // x, out (B, T, H, W, C), image layout; wqkv (3C, C), wproj (C, C), w1
 // (hidden, C), w2 (C, hidden) in the torch Linear layout; bqkv, bproj, s2,
 // b2, b1, bw2, s1, b1n; bias (heads, TN, TN), TN = T * ws * ws. Workspace
-// of `slots` slots: ws_wide (slots, 128, max(3C, hidden)), ws_narrow and
-// ws_s (slots, 128, C). x, the weights, the vectors and the workspace
-// 16-byte aligned. Takes C % 128 == 0, C <= 1024, hidden % 128 == 0, 128 %
-// TN == 0, TN % 16 == 0, head_dim % 32 == 0 and an attention pair within
-// shared memory, and returns cudaErrorInvalidValue on anything else.
+// of `slots` slots of R = 128 rows (256 past 128 tokens): ws_wide (slots,
+// R, max(3C, hidden)), ws_narrow and ws_s (slots, R, C). x, the weights,
+// the vectors and the workspace 16-byte aligned. Takes the bf16 entry's
+// shapes (K1's and K2's envelope: C and hidden multiples of 8, head_dim %
+// 8 and TN % 16 up to 176), and returns cudaErrorInvalidValue on anything
+// else.
 extern "C" int stswin_whole_block_f32(
     const void* x, const void* wqkv, const void* bqkv, const void* wproj,
     const void* bproj, const void* bias, const void* s2, const void* b2,
@@ -383,9 +108,9 @@ extern "C" int stswin_whole_block_f32(
                         static_cast<const void*>(ws_s),
                         static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
-  if (C % 128 || C > 1024 || hidden % 128 || heads <= 0 || C % heads ||
-      ws <= 0 || H % ws || W % ws || slots <= 0 ||
-      !takes_window(T * ws * ws, C / heads))
+  if (C <= 0 || C % 8 || hidden <= 0 || hidden % 8 || heads <= 0 ||
+      C % heads || ws <= 0 || H % ws || W % ws || slots <= 0 ||
+      !attn32::takes(T * ws * ws, C / heads))
     return cudaErrorInvalidValue;
   WholeF32 p;
   p.x = static_cast<const float*>(x);
@@ -414,15 +139,20 @@ extern "C" int stswin_whole_block_f32(
   p.heads = heads;
   p.TN = T * ws * ws;
   p.hd = C / heads;
-  p.tiles = (p.M + TM - 1) / TM;
+  // whole windows a tile: as many as fit 128 rows, or one over 2 x 128
+  p.tile_rows = (p.TN <= TM ? TM / p.TN : 1) * p.TN;
+  p.slot_rows = p.TN <= TM ? TM : 2 * TM;
+  p.tiles = (p.M + p.tile_rows - 1) / p.tile_rows;
   const Layout L = whole_layout(p.TN, p.hd);
   p.group = L.group;
+  p.pt = L.pt;
   p.pair_floats = static_cast<int>(L.pair / sizeof(float));
+  p.streamed = L.streamed;
   p.act = act;
   p.scale = scale;
   p.eps = eps;
   if (p.M <= 0) return cudaErrorInvalidValue;
   const int grid = p.tiles < slots ? p.tiles : slots;
-  return run_for(p.TN, p.hd, &p, grid, static_cast<cudaStream_t>(stream),
-                 nullptr);
+  return run_for(C, hidden, p.TN, p.hd, &p, grid,
+                 static_cast<cudaStream_t>(stream), nullptr);
 }

@@ -118,6 +118,9 @@ SIGNATURES = {
     "stswin_attn_streamed_launches": [_I, _LLP],
     "stswin_attn_bwd_work": [_I] * 4 + [_LLP],
     "stswin_attn_bwd_passes_launches": [_I, _LLP],
+    # row 16's launches whose attention phase ran the streamed pair
+    "stswin_whole_block_streamed_launches": [_I, _LLP],
+    "stswin_whole_block_f32_streamed_launches": [_I, _LLP],
     # sets the library runtime's current device of the calling thread
     "stswin_set_device": [_I],
 }

@@ -22,8 +22,9 @@ route (`swin.py:403-437`).
 `whole_block` is the port's form of the JAX knob `STSWIN_WHOLE_BLOCK=1`
 (`swin.py:346-369`): on 'pallas_full', a block with shift 0 and no
 `out_frame` runs as one launch of the whole-block kernel, Pallas row 16
-(`ops/swin_block.whole_swin_block`), in place of K1 + K2; every other
-block keeps its route. Two quirks of the reference are kept:
+(`ops/swin_block.whole_swin_block`), in place of K1 + K2, at every shape
+K1 + K2 take (it refuses, with its message, only what they refuse); every
+other block keeps its route. Two quirks of the reference are kept:
 
   * the nonstandard norm order: no pre-norm on the attention branch, and
     x = norm1(x + mlp(norm2(x))) after it (`swin_512.py:234-235`);

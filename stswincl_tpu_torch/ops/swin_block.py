@@ -29,11 +29,15 @@ with `m_out=True` is row 16's function on the pair's kernels (m rounded
 at every shape): the same numbers as row 16 without row 16.
 
 `whole_block_plan` is the host side of the kernel's schedule in Python,
-for either form (`dtype`): the tiles of 128 token rows in window order,
-the windows of x each tile reads (the bf16 form by one 4-D TMA box a
-window, the fp32 form through the window partition's row map), the slot
+for either form (`dtype`): the tiles of whole windows in window order (as
+many windows as fit 128 rows, or one window over two 128-row product
+tiles past 128 tokens), how phase 1 reads x (the bf16 form by one 4-D TMA
+box a window where the windows tile 128 rows, else through the window
+partition's row map), resident or streamed attention pairs, the slot
 workspace and the shared memory of each phase. The wrapper takes its
-envelope and its workspace from it; the CPU tests check it. The launch's
+envelope and its workspace from it; the CPU tests check it. The envelope
+is K1's and K2's: C and hidden multiples of 8, head dims multiples of 8
+and windows of TN % 16 tokens up to MAX_WINDOW_TOKENS. The launch's
 shared memory is the library's (`stswin_whole_block_layout`,
 `stswin_whole_block_f32_layout`): the wrapper admits a shape on that
 figure and raises if the plan's differs.
@@ -60,14 +64,17 @@ import torch
 from stswincl_tpu_torch import kernels
 from stswincl_tpu_torch.ops.add_ln_mlp import (swin_block_epilogue,
                                                swin_block_epilogue_with_m_ref)
-from stswincl_tpu_torch.ops.attention import (_attn_f32_resident_bytes,
+from stswincl_tpu_torch.ops.attention import (ATTN_RING, ATTN_SLOT,
+                                              F32_RING, F32_SLOT,
+                                              MAX_WINDOW_TOKENS,
+                                              _attn_f32_resident_bytes,
                                               _attn_smem_bytes,
                                               check_attention_core)
 from stswincl_tpu_torch.ops.block_attention import (check_backward_window,
                                                     swin_block_attention,
                                                     swin_block_attention_ref)
 
-TILE_ROWS = 128  # token rows one block of the kernel owns (whole windows)
+TILE_ROWS = 128  # token rows of one product tile (the GEMM tile's BM)
 # the Hopper GEMM tile's TMA ring (`sm90_tile.cuh`): 6 stages of a 128 x 64
 # bf16 A tile and a 128 x 64 bf16 weight tile
 RING_BYTES = 6 * 2 * TILE_ROWS * 64 * 2
@@ -81,6 +88,10 @@ CONSUMER_THREADS = 256  # two warpgroups; one producer warp beside them
 F32_RING_BYTES = ALIGN_SLACK + 4 * 3 * TILE_ROWS * 32 * 4
 F32_THREADS = 256  # the fp32 form's block: 8 warps, no producer warp
 PHASES = ("qkv", "attention", "proj", "ln2", "fc1", "fc2", "ln1")
+# the share of the card's memory the slots' workspace may take
+# (`_slots`): 5 GB of the H100's 80, past what any model of the README's
+# table asks (2.1 GB at C 2560 in fp32 past 128 tokens)
+WORKSPACE_SHARE = 16
 
 
 @dataclass(frozen=True)
@@ -90,17 +101,26 @@ class WholeBlockPlan:
     (`csrc/swin_block.cu` in bf16, `csrc/fp32_whole_block.cu` in fp32).
 
     The window-order token rows (`ops.gemm.window_rows` with shift 0) are
-    cut into `tiles` tiles of `tile_rows` rows, whole windows each; tile t
+    cut into `tiles` tiles of `tile_rows` rows, `windows_per_tile` whole
+    windows each (as many as fit 128 rows; one past 128 tokens); tile t
     covers windows t * windows_per_tile onwards (the last tile may hold
-    fewer). Phase 1 reads each window of a tile at the coordinates of
-    `tile_boxes(t)`: the bf16 form as one 4-D TMA box of x, `box` = (64
-    channels, ws, ws, T), the fp32 form row by row through the window
-    partition's row map. Each workspace slot holds `slot_bytes` (in fp32
-    the wide and narrow buffers at twice the bf16 bytes; s is fp32 in
-    both); `phase_smem` is the shared memory each phase uses (the product
-    phases the ring, the attention phase `attention_group` pairs of the
-    attention core in the same region, the ring idle) and `smem_bytes`
-    the launch's."""
+    fewer). Each product runs over `m_tiles` 128-row tiles of the tile's
+    rows (2 past 128 tokens), the rows past its windows masked. Phase 1
+    reads each window of a tile at the coordinates of `tile_boxes(t)`:
+    with `x_by` "box" (the bf16 form where the windows tile 128 rows) as
+    one 4-D TMA box of x, `box` = (64 channels, ws, ws, T); with "rows"
+    row by row through the window partition's row map (cp.async). Each
+    workspace slot holds `slot_rows` rows (`m_tiles` x 128), `slot_bytes`
+    (in fp32 the wide and narrow buffers at twice the bf16 bytes; s is
+    fp32 in both). The attention phase runs `attention_group` pairs of
+    `pair_threads` threads at once (TN / 16 warps, at most the 8 consumer
+    warps: past 128 tokens each warp takes further 16-row slabs of its
+    pair), each pair resident in `pair_bytes` of shared memory or, with
+    `streamed`, through the attention core's ring of 864 TN bytes (its q,
+    k and v do not fit beside the block's own bytes). `phase_smem` is the
+    shared memory each phase uses (the product phases the ring, the
+    attention phase its pairs in the same region, the ring idle) and
+    `smem_bytes` the launch's."""
     image: Tuple[int, int, int, int]  # (B, T, H, W)
     ws: int
     C: int
@@ -110,9 +130,14 @@ class WholeBlockPlan:
     window_tokens: int
     windows_per_tile: int
     tiles: int
+    m_tiles: int
+    slot_rows: int
+    x_by: str  # "box" or "rows"
     box: Tuple[int, int, int, int]
     wide: int  # row stride of the slot's qkv-then-h buffer
     slot_bytes: Dict[str, int]
+    streamed: bool
+    pair_threads: int
     pair_bytes: int
     attention_group: int
     phase_smem: Dict[str, int]
@@ -148,60 +173,66 @@ def whole_block_plan(B: int, T: int, H: int, W: int, C: int, hidden: int,
                      heads: int, ws: int,
                      dtype: torch.dtype = torch.bfloat16) -> WholeBlockPlan:
     """Row 16's plan for the form of `dtype` (bf16 or fp32), or ValueError
-    with the reason for a shape outside its envelope: C % 128 == 0, C <=
-    1024, hidden % 128 == 0, heads dividing C, ws dividing H and W,
-    head_dim and TN = T * ws * ws multiples of 16 (head_dim of 32 in fp32),
-    TN dividing 128, and one attention pair (the core's
-    `_attn_smem_bytes`, in fp32 `_attn_f32_resident_bytes`) in shared
-    memory."""
+    with the reason for a shape outside its envelope, which is K1's and
+    K2's: C and hidden multiples of 8, heads dividing C, ws dividing H and
+    W, head_dim a multiple of 8 and TN = T * ws * ws a multiple of 16 up
+    to MAX_WINDOW_TOKENS. Every such window has an attention pair: the
+    resident one (`_attn_smem_bytes`, in fp32 `_attn_f32_resident_bytes`)
+    where it fits shared memory beside the block's own bytes, else the
+    streamed one."""
     name = "whole_swin_block" + ("_f32" if dtype == torch.float32 else "")
     kernels.require(dtype in (torch.bfloat16, torch.float32),
                     f"{name}: dtype {dtype}")
     f32 = dtype == torch.float32
-    kernels.require(C % 128 == 0 and C <= 1024 and hidden % 128 == 0
-                    and heads > 0 and C % heads == 0,
-                    f"{name}: needs C % 128 == 0, C <= 1024, hidden % 128 "
-                    f"== 0 and C % heads == 0 (C={C}, hidden={hidden}, "
-                    f"heads={heads})")
+    kernels.require(C > 0 and hidden > 0 and C % 8 == 0 and hidden % 8 == 0,
+                    f"{name}: needs C and hidden multiples of 8 (C={C}, "
+                    f"hidden={hidden})")
+    kernels.require(heads > 0 and C % heads == 0,
+                    f"{name}: needs C % heads == 0 (C={C}, heads={heads})")
     kernels.require(ws > 0 and H % ws == 0 and W % ws == 0,
                     f"{name}: ({H}, {W}) over windows of {ws}")
     TN, hd = T * ws * ws, C // heads
-    kernels.require(hd % 16 == 0 and TN % 16 == 0,
-                    f"{name}: needs head_dim % 16 and tokens % 16 (hd={hd}, "
+    kernels.require(hd % 8 == 0 and TN % 16 == 0,
+                    f"{name}: needs head_dim % 8 and tokens % 16 (hd={hd}, "
                     f"TN={TN})")
-    kernels.require(not f32 or hd % 32 == 0,
-                    f"{name}: the fp32 form needs head_dim % 32 (hd={hd})")
-    kernels.require(TILE_ROWS % TN == 0,
-                    f"{name}: windows of {TN} tokens do not tile "
-                    f"{TILE_ROWS} rows")
-    # the fp32 form: groups of TN / 16 of its 8 warps, a pair each at a
-    # time, no TMA ring or mbarriers
+    kernels.require(TN <= MAX_WINDOW_TOKENS,
+                    f"{name}: window of {TN} tokens, at most "
+                    f"{MAX_WINDOW_TOKENS}")
+    windows_per_tile = max(1, TILE_ROWS // TN)
+    tile_rows = windows_per_tile * TN
+    m_tiles = -(-tile_rows // TILE_ROWS)
+    # a pair's TN / 16 warps, at most the block's 8 (no TMA ring or
+    # mbarriers in the fp32 form)
+    pt = min(TN // 16 * 32, F32_THREADS if f32 else CONSUMER_THREADS)
     if f32:
-        pair, fixed = _attn_f32_resident_bytes(TN, hd), 0
-        group = F32_THREADS // (TN // 16 * 32)
+        resident, fixed = _attn_f32_resident_bytes(TN, hd), 0
+        ring_pair = F32_RING * TN * F32_SLOT * 4
         ring = F32_RING_BYTES
     else:
-        pair, fixed = _attn_smem_bytes(TN, hd), ALIGN_SLACK + BARRIER_BYTES
-        group = CONSUMER_THREADS // (TN // 16 * 32)
+        resident, fixed = _attn_smem_bytes(TN, hd), ALIGN_SLACK + BARRIER_BYTES
+        ring_pair = ATTN_RING * TN * ATTN_SLOT * 2
         ring = RING_BYTES
-    while group > 0 and fixed + group * pair > kernels.SMEM_LIMIT:
-        group -= 1
-    kernels.require(group > 0, f"{name}: a window of {TN} tokens x {hd} "
-                    f"({pair} bytes of attention) does not fit shared "
-                    "memory")
+    streamed = fixed + resident > kernels.SMEM_LIMIT
+    pair = ring_pair if streamed else resident
+    group = min(CONSUMER_THREADS // pt, (kernels.SMEM_LIMIT - fixed) // pair)
     phase_smem = {ph: fixed + ring for ph in PHASES}
     phase_smem["attention"] = fixed + group * pair
     wide = max(3 * C, hidden)
     rows = B * T * H * W
     size = 4 if f32 else 2
+    slot_rows = m_tiles * TILE_ROWS
+    x_by = "box" if not f32 and TILE_ROWS % TN == 0 else "rows"
     return WholeBlockPlan(
         image=(B, T, H, W), ws=ws, C=C, hidden=hidden, heads=heads,
-        tile_rows=TILE_ROWS, window_tokens=TN,
-        windows_per_tile=TILE_ROWS // TN,
-        tiles=-(-rows // TILE_ROWS), box=(64, ws, ws, T), wide=wide,
-        slot_bytes={"wide": TILE_ROWS * wide * size,
-                    "narrow": TILE_ROWS * C * size, "s": TILE_ROWS * C * 4},
-        pair_bytes=pair, attention_group=group, phase_smem=phase_smem,
+        tile_rows=tile_rows, window_tokens=TN,
+        windows_per_tile=windows_per_tile,
+        tiles=-(-rows // tile_rows), m_tiles=m_tiles, slot_rows=slot_rows,
+        x_by=x_by, box=(64, ws, ws, T), wide=wide,
+        slot_bytes={"wide": slot_rows * wide * size,
+                    "narrow": slot_rows * C * size,
+                    "s": slot_rows * C * 4},
+        streamed=streamed, pair_threads=pt, pair_bytes=pair,
+        attention_group=group, phase_smem=phase_smem,
         smem_bytes=max(phase_smem.values()), dtype=dtype)
 
 
@@ -237,12 +268,13 @@ def whole_swin_block_pair(x, wqkv, bqkv, wproj, bproj, bias_tiled,
 
 @functools.lru_cache(maxsize=None)
 def _slots(T: int, C: int, heads: int, ws: int, device: int,
-           dtype: torch.dtype = torch.bfloat16) -> int:
+           dtype: torch.dtype = torch.bfloat16, slot_bytes: int = 0) -> int:
     """Workspace slots of the persistent grid of the form of `dtype`: the
     blocks card `device` holds at once, from the kernel's own
     shared-memory layout and the occupancy API
     (`stswin_whole_block_slots`, `stswin_whole_block_f32_slots`), asked of
-    that card."""
+    that card; with `slot_bytes`, no more than 1 / WORKSPACE_SHARE of the
+    card's memory holds."""
     sfx = "_f32" if dtype == torch.float32 else ""
     entry = f"stswin_whole_block{sfx}_slots"
     n = ctypes.c_int(0)
@@ -250,7 +282,20 @@ def _slots(T: int, C: int, heads: int, ws: int, device: int,
     err = getattr(kernels.load(), entry)(T, C, heads, ws, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
+    if slot_bytes:
+        total = torch.cuda.get_device_properties(device).total_memory
+        return max(1, min(n.value, total // WORKSPACE_SHARE // slot_bytes))
     return n.value
+
+
+def streamed_launches(dtype: torch.dtype = torch.bfloat16,
+                      reset: bool = False) -> int:
+    """Launches of the form of `dtype` whose attention phase ran the
+    streamed pair (`WholeBlockPlan.streamed`), counted by the library since
+    the last reset; `reset` sets the count to 0 after reading."""
+    sfx = "_f32" if dtype == torch.float32 else ""
+    return kernels.query(f"stswin_whole_block{sfx}_streamed_launches",
+                         int(reset))
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,11 +358,12 @@ def _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled, s2,
                     "W-MSA blocks (shift 0, no attention mask)")
     dev = x.device
     slots = min(plan.tiles, _slots(T, C, heads, ws, kernels.use_device(dev),
-                                   x.dtype))
-    ws_wide = torch.empty((slots, TILE_ROWS, plan.wide), dtype=x.dtype,
+                                   x.dtype, sum(plan.slot_bytes.values())))
+    rows = plan.slot_rows
+    ws_wide = torch.empty((slots, rows, plan.wide), dtype=x.dtype,
                           device=dev)
-    ws_narrow = torch.empty((slots, TILE_ROWS, C), dtype=x.dtype, device=dev)
-    ws_s = torch.empty((slots, TILE_ROWS, C), dtype=torch.float32, device=dev)
+    ws_narrow = torch.empty((slots, rows, C), dtype=x.dtype, device=dev)
+    ws_s = torch.empty((slots, rows, C), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     P = kernels.ptr
     kernels.launch("stswin_whole_block" + sfx, dev, P(x), P(wqkv), P(bqkv),
@@ -339,8 +385,8 @@ def whole_swin_block_f32(x, wqkv, bqkv, wproj, bproj, bias_tiled, mask_tiled,
     `csrc/fp32_whole_block.cu`) on fp32 CUDA tensors, the arguments of
     `whole_swin_block` with the weights in fp32: one launch, every
     product on the fp32 GEMM tile, K1's fp32 attention core and K2's fp32
-    LayerNorm order, so the fp32 K1 + K2 pair's numbers; head dims a
-    multiple of 32 (`whole_block_plan`)."""
+    LayerNorm order, so the fp32 K1 + K2 pair's numbers; the shapes of
+    `whole_block_plan`."""
     return _forward_kernel(x, wqkv, bqkv, wproj, bproj, bias_tiled,
                            mask_tiled, s2, b2, w1, b1, w2, bw2, s1, b1n,
                            heads, scale, ws, gelu_exact, eps)

@@ -730,6 +730,12 @@ WHOLE_CASES = {  # (B, T, H, W, C, heads, ws): stage-1 and stage-2 windows
     "s2": (2, 2, 8, 12, 256, 2, 4),
     # 6 windows of 32 tokens: a last tile of two windows
     "s2_ragged": (1, 2, 8, 12, 256, 2, 4),
+    # past the first kernel's envelope: windows of 48 tokens (two a tile,
+    # x by the row map), C 96 (hd 24); 144 and 176 tokens (one window
+    # over two product tiles), 176 x hd 320 on the streamed pair
+    "tn48_c96": (1, 3, 8, 12, 96, 4, 4),
+    "tn144": (1, 4, 12, 12, 64, 2, 6),
+    "tn176_hd320": (1, 11, 4, 8, 640, 2, 4),
 }
 
 
@@ -811,13 +817,17 @@ def test_whole_block_carries_the_pairs_bits(dev, gen, case):
 
 
 @pytest.mark.parametrize("TN, hd", [(16, 16), (32, 128), (64, 64),
-                                    (128, 64), (128, 128), (128, 256)])
+                                    (128, 64), (128, 128), (128, 256),
+                                    (48, 24), (144, 64), (176, 320),
+                                    (128, 320), (32, 640), (176, 8)])
 def test_whole_block_layout_is_the_plans(dev, TN, hd):
     """The shared memory and attention pairs the kernel launches with
     (`stswin_whole_block_layout`) are those of the Python plan, which the
-    CPU tests check phase by phase."""
-    heads = max(1, 128 // hd)  # C a multiple of 128
-    T, ws = {16: (1, 4), 32: (2, 4), 64: (1, 8), 128: (2, 8)}[TN]
+    CPU tests check phase by phase: resident pairs, streamed ones (hd 320
+    at TN 128 and 176) and windows past 128 tokens."""
+    heads = max(1, 128 // hd)
+    T, ws = {16: (1, 4), 32: (2, 4), 48: (3, 4), 64: (1, 8), 128: (2, 8),
+             144: (4, 6), 176: (11, 4)}[TN]
     plan = swin_block.whole_block_plan(1, T, 2 * ws, 2 * ws, hd * heads,
                                        4 * hd * heads, heads, ws)
     assert swin_block._layout(TN, hd) == (plan.attention_group,
@@ -842,21 +852,24 @@ def test_whole_block_refuses_what_it_does_not_take(dev, gen):
         swin_block.whole_swin_block(x.float(), *bf_w[1:], heads, scale, ws)
     assert (swin_block.whole_swin_block.launches,
             swin_block.whole_swin_block_f32.launches) == (n, nf + 1)
-    # an fp32 head dim of 16 (C 128 over 8 heads): the fp32 core takes
-    # multiples of 32
+    # an fp32 head dim of 12 (C 96 over 8 heads): K1's core takes
+    # multiples of 8; nothing launches
     z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
-    C = 128
-    with pytest.raises(ValueError, match="head_dim % 32"):
+    C = 96
+    nf = swin_block.whole_swin_block_f32.launches
+    with pytest.raises(ValueError, match="head_dim % 8"):
         swin_block.whole_swin_block(
             z(1, 2, 8, 12, C), z(3 * C, C), z(3 * C), z(C, C), z(C),
             z(8, 32, 32), None, z(C), z(C), z(4 * C, C), z(4 * C),
             z(C, 4 * C), z(C), z(C), z(C), 8, scale, ws)
-    # three frames: windows of 48 tokens, which do not tile 128 rows
-    x3 = torch.zeros((1, 3, 8, 12, x.shape[-1]), device=dev, dtype=BF)
-    bias3 = torch.zeros((heads, 48, 48), device=dev)
-    with pytest.raises(ValueError, match="tile"):
-        swin_block.whole_swin_block(x3, *bf_w[1:5], bias3, None, *bf_w[7:],
-                                    heads, scale, ws)
+    assert swin_block.whole_swin_block_f32.launches == nf
+    # twelve frames: windows of 192 tokens, past K1's 176
+    x12 = torch.zeros((1, 12, 8, 12, x.shape[-1]), device=dev, dtype=BF)
+    bias12 = torch.zeros((heads, 192, 192), device=dev)
+    with pytest.raises(ValueError, match="at most 176"):
+        swin_block.whole_swin_block(x12, *bf_w[1:5], bias12, None,
+                                    *bf_w[7:], heads, scale, ws)
+    assert swin_block.whole_swin_block.launches == n
 
 
 def _f32_whole(tensors):
@@ -914,14 +927,17 @@ def test_whole_block_f32_form(dev, gen, case):
 
 
 @pytest.mark.parametrize("TN, hd", [(32, 128), (32, 256), (64, 64),
-                                    (128, 64), (128, 128)])
+                                    (128, 64), (128, 128), (48, 24),
+                                    (144, 64), (176, 320), (128, 256),
+                                    (32, 640)])
 def test_whole_block_f32_layout_is_the_plans(dev, TN, hd):
     """The shared memory and attention pairs row 16's fp32 form launches
     with (`stswin_whole_block_f32_layout`) are those of the Python plan in
-    fp32; its slots come from the occupancy API (at least one block an
-    SM)."""
-    heads = max(1, 128 // hd)  # C a multiple of 128
-    T, ws = {32: (2, 4), 64: (1, 8), 128: (2, 8)}[TN]
+    fp32 (streamed pairs past the fp32 resident pair); its slots come from
+    the occupancy API (at least one block an SM)."""
+    heads = max(1, 128 // hd)
+    T, ws = {32: (2, 4), 48: (3, 4), 64: (1, 8), 128: (2, 8), 144: (4, 6),
+             176: (11, 4)}[TN]
     C = hd * heads
     plan = swin_block.whole_block_plan(1, T, 2 * ws, 2 * ws, C, 4 * C, heads,
                                        ws, torch.float32)

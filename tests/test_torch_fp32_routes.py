@@ -37,7 +37,7 @@ from stswincl_tpu_torch.models import TswinPlus  # noqa: E402
 from stswincl_tpu_torch.models.init import init_weights  # noqa: E402
 from stswincl_tpu_torch.ops import swin_block as wb  # noqa: E402
 from stswincl_tpu_torch.ops.attention import (  # noqa: E402
-    _attn_f32_smem_bytes)
+    _attn_f32_resident_bytes, _attn_f32_smem_bytes)
 from stswincl_tpu_torch.pipelines.common import build_model  # noqa: E402
 from stswincl_tpu_torch.pipelines.streaming import (  # noqa: E402
     StreamingSegmenter)
@@ -218,17 +218,39 @@ def test_whole_block_plan_fp32(case):
 
 
 @pytest.mark.parametrize("args,why", [
+    ((1, 2, 16, 16, 96, 384, 8, 8), "head_dim % 8"),
+    ((1, 2, 16, 16, 100, 400, 2, 8), "C and hidden multiples of 8"),
+    ((1, 3, 16, 16, 512, 2048, 4, 8), "at most 176"),
+    ((1, 2, 16, 16, 512, 2048, 3, 8), "C % heads"),
+])
+def test_whole_block_plan_fp32_refuses_with_a_message(args, why):
+    """The fp32 form's envelope is the bf16 form's, K1's and K2's: it
+    refuses a head dim off 8, C off 8, a window past 176 tokens and heads
+    not dividing C, naming itself, as the bf16 plan does."""
+    with pytest.raises(ValueError, match=f"whole_swin_block_f32: .*{why}"):
+        wb.whole_block_plan(*args, torch.float32)
+    with pytest.raises(ValueError, match=f"whole_swin_block: .*{why}"):
+        wb.whole_block_plan(*args)
+
+
+@pytest.mark.parametrize("args,was", [
     ((1, 2, 16, 16, 384, 1536, 24, 8), "head_dim % 32"),
     ((1, 2, 16, 16, 512, 2048, 2, 8), "does not fit shared memory"),
     ((1, 2, 16, 16, 1152, 4608, 8, 8), "C <= 1024"),
     ((1, 3, 8, 8, 512, 2048, 4, 4), "do not tile"),
 ])
-def test_whole_block_plan_fp32_refuses_with_a_message(args, why):
-    """The fp32 form's envelope: the bf16 plan's, with head dims a
-    multiple of 32 (the fp32 core's P V columns) and the fp32 pair in
-    shared memory (TN 128 x hd 256 takes 390 KiB in fp32, which the bf16
-    core holds in 203 KB)."""
-    with pytest.raises(ValueError, match=why):
-        wb.whole_block_plan(*args, torch.float32)
-    if why in ("head_dim % 32", "does not fit shared memory"):
-        wb.whole_block_plan(*args)  # the bf16 plan takes it
+def test_whole_block_plan_fp32_takes_what_it_refused(args, was):
+    """What the first fp32 form refused (`was`) it takes, as the bf16
+    form does: head dims of 16 (the core's P V off 32 columns), the fp32
+    pair past shared memory (TN 128 x hd 256: 390 KiB, on the streamed
+    pair), C past 1024 and windows of 48 tokens (through the row map, two
+    a tile)."""
+    f32 = wb.whole_block_plan(*args, torch.float32)
+    bf = wb.whole_block_plan(*args)
+    assert f32.smem_bytes <= kernels.SMEM_LIMIT
+    assert (f32.tiles, f32.tile_rows, f32.slot_rows) == (
+        bf.tiles, bf.tile_rows, bf.slot_rows)
+    TN, hd = args[1] * args[7] ** 2, args[4] // args[6]
+    assert f32.streamed == (_attn_f32_resident_bytes(TN, hd)
+                            > kernels.SMEM_LIMIT)
+    assert f32.streamed == (was == "does not fit shared memory")

@@ -13,9 +13,9 @@ W-MSA and SW-MSA, fp32 and bf16:
 - rows 10 (`windowed_attention_image`) and 11 (`fused_window_attention`);
 one `SpaceTimeSwinBlock` W/SW pair at C 512 with 1 head against the JAX
 blocks, forward and gradients, fp32; and row 16's plan
-(`whole_block_plan`), which sizes its resident pairs by the resident
-pair's bytes, deciding on a grid of shapes exactly as before the streamed
-pair existed.
+(`whole_block_plan`) on a grid of shapes: its resident pairs sized by the
+resident pair's bytes, as before the streamed pair existed, and every
+window whose resident pair does not fit on the streamed pair.
 
 Tolerances, those `tests/test_torch_widths.py` uses for the same
 functions: fp32, K1 rtol = atol = 1e-5, K5 rtol = atol = 2e-4, rows 10
@@ -39,6 +39,7 @@ from stswincl_tpu.ops import pallas_attention as jpa  # noqa: E402
 from stswincl_tpu.ops import pallas_block_attention as jattn  # noqa: E402
 from stswincl_tpu.ops.window import (  # noqa: E402
     relative_position_index, shifted_window_attention_mask)
+from stswincl_tpu_torch import kernels  # noqa: E402
 from stswincl_tpu_torch.ckpt import load_from_jax  # noqa: E402
 from stswincl_tpu_torch.models.swin import SpaceTimeSwinBlock  # noqa: E402
 from stswincl_tpu_torch.ops import attention, block_attention  # noqa: E402
@@ -284,25 +285,30 @@ ROW16_GROUPS = {
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 def test_whole_block_plan_decides_as_before(dtype):
     """`whole_block_plan` keeps its resident pairs (`_attn_smem_bytes`,
-    `_attn_f32_resident_bytes`): on a grid of C, heads, T and ws it takes
-    and refuses exactly the shapes it did, with the same attention group
-    and pair bytes; the streamed pair the attention core runs past those
-    bytes does not widen it."""
+    `_attn_f32_resident_bytes`): on a grid of C, heads, T and ws every
+    shape it took is taken with the same attention group and pair bytes;
+    the shapes it refused for shared memory (0 in the table) now run the
+    streamed pair (a ring of 864 TN bytes), as many at once as the 8
+    warps and shared memory hold."""
     dt = DTYPES[dtype][0]
     pair = (attention._attn_smem_bytes if dtype == "bf16"
             else attention._attn_f32_resident_bytes)
+    fixed = 0 if dtype == "fp32" else 1024 + 128
     for (dname, C), groups in ROW16_GROUPS.items():
         if dname != dtype:
             continue
         for (heads, (Tn, ws)), want in zip(ROW16_CASES, groups):
-            try:
-                plan = whole_block_plan(2, Tn, 16, 16, C, 4 * C, heads, ws,
-                                        dt)
-            except ValueError:
-                assert want == 0, (C, heads, Tn, ws)
-                continue
-            assert plan.attention_group == want, (C, heads, Tn, ws)
-            assert plan.pair_bytes == pair(Tn * ws * ws, C // heads)
+            TN = Tn * ws * ws
+            plan = whole_block_plan(2, Tn, 16, 16, C, 4 * C, heads, ws, dt)
+            assert plan.streamed == (want == 0), (C, heads, Tn, ws)
+            if want:
+                assert plan.attention_group == want, (C, heads, Tn, ws)
+                assert plan.pair_bytes == pair(TN, C // heads)
+            else:
+                assert plan.pair_bytes == 864 * TN
+                assert plan.attention_group == min(
+                    256 // (TN // 16 * 32),
+                    (kernels.SMEM_LIMIT - fixed) // (864 * TN))
 
 
 def test_attention_backward_alone_on_the_cpu(rng):

@@ -484,24 +484,39 @@ def test_the_widths_serve_and_train(card_free, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_whole_block_keeps_its_envelope_at_the_new_widths(card_free, dtype):
-    """Row 16 keeps C % 128 (and C <= 1024): `whole_swin_block` at C 96
-    (`swin_dim` 96 with `whole_block=True`) raises with its message
-    before any launch, where K1's wrapper takes the same block."""
+def test_whole_block_keeps_its_envelope_at_the_new_widths(card_free,
+                                                          monkeypatch, dtype):
+    """Row 16 takes the new widths: `whole_swin_block` at C 96 (`swin_dim`
+    96 with `whole_block=True`, hd 24) launches its C entry once in each
+    form, as K1's wrapper takes the same block; the layout the wrapper
+    checks is the plan's (the library's own is held to it on the card,
+    `tests/test_torch_cuda.py`)."""
     from stswincl_tpu_torch.ops import swin_block
     meta = dict(dtype=dtype, device="meta")
     f32 = dict(dtype=torch.float32, device="meta")
     C, heads, T, ws = 96, 4, 2, 8
+
+    def layout(TN, hd, dt):
+        plan = swin_block.whole_block_plan(1, TN // ws ** 2, ws, ws,
+                                           hd * heads, 4 * hd * heads, heads,
+                                           ws, dt)
+        return plan.attention_group, plan.smem_bytes
+    monkeypatch.setattr(swin_block, "_layout", layout)
+    monkeypatch.setattr(swin_block, "_slots", lambda *a: 132)
     x = torch.empty((1, T, 16, 16, C), **meta)
     z = lambda *s, kw=f32: torch.empty(s, **kw)  # noqa: E731
     args = (x, z(3 * C, C, kw=meta), z(3 * C), z(C, C, kw=meta), z(C),
             z(heads, T * ws * ws, T * ws * ws), None, z(C), z(C),
             z(4 * C, C, kw=meta), z(4 * C), z(C, 4 * C, kw=meta), z(C),
             z(C), z(C), heads, 0.2, ws)
-    with pytest.raises(ValueError, match="C % 128"):
-        swin_block.whole_swin_block(*args)
-    assert card_free == []
+    with torch.no_grad():
+        out = swin_block.whole_swin_block(*args)
+    assert out.shape == x.shape and out.dtype == dtype
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    assert card_free == [f"stswin_whole_block{sfx}"]
     fwd = (block_attention._forward_kernel if dtype == torch.bfloat16
            else block_attention._forward_f32)
     fwd(*args[:7], heads, 0.2, ws, 0)
-    assert len(card_free) == 1
+    assert len(card_free) == 2
+
+
